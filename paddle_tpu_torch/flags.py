@@ -1,0 +1,72 @@
+"""FLAGS_* config (counterpart of ``paddle_tpu/flags.py``), the flags this
+slice of the port reads. Flags resolve, in order: explicit ``set_flags``
+> ``FLAGS_<name>`` env var > default."""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+__all__ = ["flag", "set_flags"]
+
+# name -> (type, default, meaning)
+_DEFS: Dict[str, tuple] = {
+    "use_flash_attention": (str, "auto",
+                            "attention path: auto (the hand-written CUDA "
+                            "kernel on a CUDA tensor, the plain PyTorch "
+                            "version on a CPU tensor) or never (the plain "
+                            "version everywhere)"),
+    "serving_queue_depth": (int, 256,
+                            "serving admission control: queued requests "
+                            "above this are rejected with typed Overloaded"),
+    "serving_deadline_s": (float, 0.0,
+                           "default per-request deadline in seconds (0: "
+                           "none); an expired request settles typed "
+                           "DeadlineExceeded"),
+}
+
+# flags that take one of a few words
+_CHOICES: Dict[str, tuple] = {"use_flash_attention": ("auto", "never")}
+
+_overrides: Dict[str, Any] = {}
+
+
+def _value(name: str, raw):
+    val = _coerce(_DEFS[name][0], raw)
+    if name in _CHOICES and val not in _CHOICES[name]:
+        raise ValueError(f"FLAGS_{name}={val!r}: takes one of "
+                         f"{_CHOICES[name]}")
+    return val
+
+
+def _coerce(typ, raw):
+    if typ is bool:
+        if isinstance(raw, (int, float, bool)):
+            return bool(raw)
+        s = str(raw).strip().lower()
+        if s in ("1", "true", "yes", "on"):
+            return True
+        if s in ("0", "false", "no", "off", ""):
+            return False
+        raise ValueError(f"not a boolean flag value: {raw!r}")
+    return typ(raw)
+
+
+def flag(name: str):
+    """Current value of one flag."""
+    if name not in _DEFS:
+        raise KeyError(f"unknown flag '{name}' — known: {sorted(_DEFS)}")
+    if name in _overrides:
+        return _overrides[name]
+    typ, default, _ = _DEFS[name]
+    raw = os.environ.get(f"FLAGS_{name}")
+    return default if raw is None else _value(name, raw)
+
+
+def set_flags(flags_dict: Dict[str, Any]) -> None:
+    """``set_flags({'FLAGS_use_flash_attention': 'never'})``."""
+    for k, v in flags_dict.items():
+        name = k.replace("FLAGS_", "")
+        if name not in _DEFS:
+            raise KeyError(f"unknown flag '{k}' — known: "
+                           f"{sorted('FLAGS_' + n for n in _DEFS)}")
+        _overrides[name] = _value(name, v)

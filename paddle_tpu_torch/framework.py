@@ -1,0 +1,344 @@
+"""Program IR: Program / Block / Operator / Variable / Parameter.
+
+Counterpart of ``paddle_tpu/framework.py`` (reference framework.py). The
+Python objects ARE the IR, with a JSON-serialisable dict form
+(``Program.to_dict``). Ops are metadata; ``lowering.py`` interprets them
+eagerly over torch tensors. Every op gets a stable ``__uid__`` at append
+time; random ops derive their ``torch.Generator`` from it.
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+import itertools
+import json
+import os
+import sys
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from . import unique_name
+from .core import registry
+from .core.types import VarType, canonical_dtype
+
+__all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
+           "default_main_program", "default_startup_program",
+           "program_guard"]
+
+
+class OpRole:
+    Forward = "forward"
+    Backward = "backward"
+    Optimize = "optimize"
+    LRSched = "lr_sched"
+
+
+class Variable:
+    """A named tensor in a Block. Build-time metadata only; runtime
+    values live in the executor Scope as torch tensors."""
+
+    def __init__(self, block: "Block", name: str,
+                 shape: Optional[Sequence[int]] = None,
+                 dtype: Any = "float32", type: VarType = VarType.LOD_TENSOR,
+                 lod_level: int = 0, persistable: bool = False,
+                 stop_gradient: bool = False, is_data: bool = False,
+                 **kwargs):
+        self.block = block
+        self.name = name
+        self.shape = tuple(int(s) for s in shape) if shape is not None \
+            else None
+        self.dtype = canonical_dtype(dtype)
+        self.type = type
+        self.lod_level = lod_level
+        self.persistable = persistable
+        self.stop_gradient = stop_gradient
+        self.is_data = is_data
+
+    def __repr__(self):
+        return (f"Variable(name={self.name!r}, shape={self.shape}, "
+                f"dtype={self.dtype}, persistable={self.persistable})")
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "shape": list(self.shape) if self.shape is not None else None,
+            "dtype": self.dtype,
+            "type": self.type.value,
+            "lod_level": self.lod_level,
+            "persistable": self.persistable,
+            "stop_gradient": self.stop_gradient,
+            "is_data": self.is_data,
+        }
+
+    @staticmethod
+    def from_dict(block: "Block", d: dict) -> "Variable":
+        return Variable(block, name=d["name"], shape=d["shape"],
+                        dtype=d["dtype"], type=VarType(d["type"]),
+                        lod_level=d.get("lod_level", 0),
+                        persistable=d.get("persistable", False),
+                        stop_gradient=d.get("stop_gradient", False),
+                        is_data=d.get("is_data", False))
+
+
+class Parameter(Variable):
+    """A trainable persistable Variable."""
+
+    def __init__(self, block, name, shape, dtype, **kwargs):
+        kwargs.setdefault("persistable", True)
+        self.trainable = kwargs.pop("trainable", True)
+        self.optimize_attr = kwargs.pop("optimize_attr",
+                                        {"learning_rate": 1.0})
+        self.regularizer = kwargs.pop("regularizer", None)
+        self.do_model_average = kwargs.pop("do_model_average", None)
+        super().__init__(block, name, shape=shape, dtype=dtype, **kwargs)
+
+    def to_dict(self):
+        d = super().to_dict()
+        d["is_parameter"] = True
+        d["trainable"] = self.trainable
+        d["optimize_attr"] = self.optimize_attr
+        return d
+
+
+class Operator:
+    """One op in a Block: inputs/outputs map slot name -> var names;
+    attrs is a plain dict filled with the registered schema's defaults."""
+
+    def __init__(self, block: "Block", type: str,
+                 inputs: Optional[Dict[str, Any]] = None,
+                 outputs: Optional[Dict[str, Any]] = None,
+                 attrs: Optional[Dict[str, Any]] = None):
+        self.block = block
+        self.type = type
+        self.inputs: Dict[str, List[str]] = {
+            slot: [v.name if isinstance(v, Variable) else v
+                   for v in _as_list(vs)]
+            for slot, vs in (inputs or {}).items()}
+        self.outputs: Dict[str, List[str]] = {
+            slot: [v.name if isinstance(v, Variable) else v
+                   for v in _as_list(vs)]
+            for slot, vs in (outputs or {}).items()}
+        self.attrs: Dict[str, Any] = dict(attrs or {})
+        opdef = registry.get_op_def(type)
+        for aname, aspec in opdef.attrs.items():
+            if aname not in self.attrs:
+                if aspec.required:
+                    raise ValueError(
+                        f"op {type}: required attr '{aname}' missing")
+                self.attrs[aname] = copy.copy(aspec.default)
+
+    def input(self, slot: str) -> List[str]:
+        return self.inputs.get(slot, [])
+
+    def output(self, slot: str) -> List[str]:
+        return self.outputs.get(slot, [])
+
+    @property
+    def output_arg_names(self) -> List[str]:
+        return [n for ns in self.outputs.values() for n in ns]
+
+    def infer_shape(self):
+        opdef = registry.get_op_def(self.type)
+        if opdef.infer_shape is not None:
+            opdef.infer_shape(self, self.block)
+        elif opdef.lower is not None:
+            from . import lowering
+
+            lowering.auto_infer_shape(self, self.block)
+
+    def __repr__(self):
+        return f"Op({self.type}, in={self.inputs}, out={self.outputs})"
+
+    def to_dict(self) -> dict:
+        return {
+            "type": self.type,
+            "inputs": {k: list(v) for k, v in self.inputs.items()},
+            "outputs": {k: list(v) for k, v in self.outputs.items()},
+            "attrs": _jsonable_attrs(self.attrs),
+        }
+
+    @staticmethod
+    def from_dict(block: "Block", d: dict) -> "Operator":
+        return Operator(block, d["type"], inputs=d["inputs"],
+                        outputs=d["outputs"], attrs=d["attrs"])
+
+
+def _jsonable_attrs(attrs: dict) -> dict:
+    out = {}
+    for k, v in attrs.items():
+        if isinstance(v, np.integer):
+            out[k] = int(v)
+        elif isinstance(v, np.floating):
+            out[k] = float(v)
+        else:
+            out[k] = v
+    return out
+
+
+class Block:
+    """An ordered list of ops plus a var table."""
+
+    def __init__(self, program: "Program", idx: int, parent_idx: int = -1):
+        self.program = program
+        self.idx = idx
+        self.parent_idx = parent_idx
+        self.forward_block_idx = -1
+        self.vars: Dict[str, Variable] = {}
+        self.ops: List[Operator] = []
+
+    def create_var(self, name: Optional[str] = None, **kwargs) -> Variable:
+        if name is None:
+            name = unique_name.generate("_generated_var")
+        if name in self.vars:
+            return self.vars[name]
+        v = Variable(self, name, **kwargs)
+        self.vars[name] = v
+        return v
+
+    def create_parameter(self, name, shape, dtype, **kwargs) -> Parameter:
+        p = Parameter(self, name, shape, dtype, **kwargs)
+        self.vars[name] = p
+        return p
+
+    def var(self, name: str) -> Variable:
+        v = self.vars.get(name)
+        if v is None:
+            raise KeyError(f"variable '{name}' not found in block {self.idx}")
+        return v
+
+    def has_var(self, name: str) -> bool:
+        return name in self.vars
+
+    def append_op(self, type: str, inputs=None, outputs=None,
+                  attrs=None) -> Operator:
+        op = Operator(self, type, inputs=inputs, outputs=outputs,
+                      attrs=attrs)
+        op.attrs.setdefault("__uid__", self.program._next_uid())
+        op.attrs.setdefault("__op_role__", OpRole.Forward)
+        if "op_callstack" not in op.attrs:
+            site = _user_call_site()
+            if site:
+                op.attrs["op_callstack"] = site
+        self.ops.append(op)
+        op.infer_shape()
+        return op
+
+    def to_dict(self) -> dict:
+        return {
+            "idx": self.idx,
+            "parent_idx": self.parent_idx,
+            "forward_block_idx": self.forward_block_idx,
+            "vars": [v.to_dict() for v in self.vars.values()],
+            "ops": [o.to_dict() for o in self.ops],
+        }
+
+
+class Program:
+    """A program: blocks of ops over named vars."""
+
+    _serial_counter = itertools.count()
+
+    def __init__(self):
+        self._serial = next(Program._serial_counter)
+        self.blocks: List[Block] = [Block(self, 0)]
+        self.current_block_idx = 0
+        self._uid_counter = 0
+        self.random_seed = 0
+
+    def _next_uid(self) -> int:
+        self._uid_counter += 1
+        return self._uid_counter
+
+    @property
+    def global_block(self) -> Block:
+        return self.blocks[0]
+
+    def current_block(self) -> Block:
+        return self.blocks[self.current_block_idx]
+
+    def to_dict(self) -> dict:
+        return {"version": 1, "blocks": [b.to_dict() for b in self.blocks]}
+
+    @staticmethod
+    def from_dict(d: dict) -> "Program":
+        p = Program()
+        p.blocks = []
+        for bd in d["blocks"]:
+            b = Block(p, bd["idx"], bd["parent_idx"])
+            b.forward_block_idx = bd.get("forward_block_idx", -1)
+            p.blocks.append(b)
+        for b, bd in zip(p.blocks, d["blocks"]):
+            for vd in bd["vars"]:
+                if vd.get("is_parameter"):
+                    param = Parameter(
+                        b, vd["name"], vd["shape"], vd["dtype"],
+                        trainable=vd.get("trainable", True),
+                        optimize_attr=vd.get("optimize_attr",
+                                             {"learning_rate": 1.0}))
+                    param.stop_gradient = vd.get("stop_gradient", False)
+                    b.vars[vd["name"]] = param
+                else:
+                    b.vars[vd["name"]] = Variable.from_dict(b, vd)
+            for od in bd["ops"]:
+                op = Operator.from_dict(b, od)
+                b.ops.append(op)
+                p._uid_counter = max(p._uid_counter,
+                                     op.attrs.get("__uid__", 0))
+        return p
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
+
+    @staticmethod
+    def from_json(s: str) -> "Program":
+        return Program.from_dict(json.loads(s))
+
+
+_main_program = Program()
+_startup_program = Program()
+
+
+def default_main_program() -> Program:
+    return _main_program
+
+
+def default_startup_program() -> Program:
+    return _startup_program
+
+
+@contextlib.contextmanager
+def program_guard(main_program: Program,
+                  startup_program: Optional[Program] = None):
+    global _main_program, _startup_program
+    old_main, _main_program = _main_program, main_program
+    old_startup = _startup_program
+    if startup_program is not None:
+        _startup_program = startup_program
+    try:
+        yield
+    finally:
+        _main_program, _startup_program = old_main, old_startup
+
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__)) + os.sep
+
+
+def _user_call_site() -> str:
+    """First stack frame outside this package: the user line that created
+    the op, so errors can point there."""
+    f = sys._getframe(1)
+    while f is not None:
+        fn = os.path.normpath(f.f_code.co_filename)
+        if not fn.startswith(_PKG_DIR):
+            return f"{fn}:{f.f_lineno} in {f.f_code.co_name}"
+        f = f.f_back
+    return ""
+
+
+def _as_list(x) -> list:
+    if x is None:
+        return []
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x]

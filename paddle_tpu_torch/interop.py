@@ -1,0 +1,36 @@
+"""Carry parameters and state from numpy arrays into a port scope.
+
+The JAX package runs with 64-bit types off, so its int64 vars come back
+from ``Scope.numpy`` as int32. :func:`scope_from_numpy` converts each
+array to the dtype the port declares for it (int32 -> int64 where the var
+is int64), on the requested place, so both packages compute from the
+same weights.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from .core.types import torch_dtype
+
+__all__ = ["scope_from_numpy"]
+
+
+def scope_from_numpy(arrays: Dict[str, np.ndarray], scope, place,
+                     programs: Optional[Iterable] = None):
+    """Plant ``arrays`` (name -> array) in ``scope`` as tensors on
+    ``place``. A var declared in one of ``programs`` gets its declared
+    dtype; others keep the array's dtype. Returns ``scope``."""
+    declared = {}
+    for prog in programs or ():
+        for blk in prog.blocks:
+            for name, var in blk.vars.items():
+                declared.setdefault(name, var.dtype)
+    device = place.torch_device()
+    for name, arr in arrays.items():
+        t = torch.from_numpy(np.array(arr, copy=True))
+        dt = torch_dtype(declared[name]) if name in declared else t.dtype
+        scope.set_var(name, t.to(device=device, dtype=dt))
+    return scope

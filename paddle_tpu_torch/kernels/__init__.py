@@ -1,0 +1,43 @@
+"""Hand-written Hopper kernels of the port (CUDA C++ in ``../csrc``, bound
+with ctypes) and their plain PyTorch versions. Each wrapper launches its
+kernel on a CUDA tensor, counting launches on ``.launches``, and takes the
+plain version on a CPU tensor."""
+import torch
+
+from .decode_attention import (decode_attention_reference, decode_in_slices,
+                               flash_attention_decode, paged_kv_append,
+                               paged_kv_append_rows)
+from .flash_attention import (classify_shapes, flash_attention,
+                              flash_attention_reference,
+                              flash_attention_with_lse)
+
+__all__ = ["flash_attention", "flash_attention_with_lse",
+           "flash_attention_reference", "classify_shapes",
+           "flash_attention_decode", "decode_attention_reference",
+           "decode_in_slices", "paged_kv_append", "paged_kv_append_rows",
+           "KERNEL_SOURCES", "KERNEL_TOL", "reset_launch_counts",
+           "launch_counts"]
+
+# csrc/<name>.cu -> the wrapper whose .launches counts its launches
+KERNEL_SOURCES = {
+    "flash_attention_fwd": flash_attention_with_lse,
+    "decode_attention": flash_attention_decode,
+}
+
+# How closely a kernel's output must match its plain version on the card
+# (torch.allclose). float32: the two sum in different orders. bfloat16:
+# both accumulate in float32 and round the output once, so they differ by
+# about one bf16 ulp (2**-7 relative); rtol allows two, atol one at 1.0.
+KERNEL_TOL = {
+    torch.float32: dict(atol=1e-4, rtol=1e-3),
+    torch.bfloat16: dict(atol=8e-3, rtol=1.6e-2),
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_SOURCES.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_SOURCES.items()}

@@ -1,0 +1,108 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface: one entry point named
+``<name>`` that takes the stream last and returns ``cudaGetLastError()``.
+At first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library under ``paddle_tpu_torch/_build/`` (named by a hash of the source,
+so an edited source is rebuilt), loaded with ``ctypes`` and bound to its
+signature once. Nothing here runs at import time: the CPU tests import
+every module on a machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Callable, Dict
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argument types of each entry point, the stream (last) included
+SIGNATURES = {
+    # q, k, v, bias, o, lse | BH, Sq, Sk, D, num_heads, causal | scale |
+    # q_offset, k_offset, is_bf16 | stream
+    "flash_attention_fwd": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    # q, k_cache, v_cache, lengths, o | BH, q_len, S, D, num_heads |
+    # scale | is_bf16 | stream
+    "decode_attention": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+}
+
+_lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
+_fns: Dict[str, Callable[..., int]] = {}
+# ptxas resource report of each build (registers, shared memory, spills)
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+            "kernels are built from paddle_tpu_torch/csrc at first use")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return os.path.join(BUILD, f"lib{name}-{digest}.so")
+
+
+def _compile(name: str) -> str:
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    build_logs[name] = proc.stderr
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str):
+    """The bound entry point of ``csrc/<name>.cu``, built at first use.
+    Different sources build concurrently when called from several
+    threads."""
+    fn = _fns.get(name)
+    if fn is None:
+        with _lock:
+            name_lock = _name_locks.setdefault(name, threading.Lock())
+        with name_lock:
+            fn = _fns.get(name)
+            if fn is None:
+                fn = getattr(ctypes.CDLL(_compile(name)), name)
+                fn.argtypes = SIGNATURES[name]
+                fn.restype = ctypes.c_int
+                _fns[name] = fn
+    return fn
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call ``csrc/<name>.cu`` with ``args`` on ``device``'s current stream,
+    read at each call (the serving dispatcher launches from its own
+    thread), and raise on a non-zero ``cudaError_t``."""
+    fn = load(name)
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return launch(name, device, *args)
+    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")

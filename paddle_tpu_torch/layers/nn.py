@@ -1,0 +1,180 @@
+"""Layer-building functions (reference: python/paddle/fluid/layers/nn.py),
+the subset ``models/gpt.py`` calls. Each follows the reference pattern:
+LayerHelper -> create params -> append op(s) -> return the out Variable.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.types import canonical_dtype
+from ..initializer import Constant
+from ..layer_helper import LayerHelper
+
+__all__ = ["fc", "embedding", "layer_norm", "gelu", "matmul",
+           "fused_multihead_attention", "elementwise_add", "elementwise_sub",
+           "elementwise_mul", "elementwise_min", "scale", "reshape",
+           "transpose", "cast", "unsqueeze"]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None):
+    """Fully-connected layer: out = act(X W + b)."""
+    helper = LayerHelper("fc", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    param_shape = [int(np.prod(input.shape[num_flatten_dims:])), size]
+    w = helper.create_parameter(helper.param_attr, shape=param_shape,
+                                dtype=input.dtype)
+    tmp = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("mul", inputs={"X": input, "Y": w},
+                     outputs={"Out": tmp},
+                     attrs={"x_num_col_dims": num_flatten_dims,
+                            "y_num_col_dims": 1})
+    pre_act = helper.append_bias_op(tmp, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32", name=None):
+    """lookup_table over a [vocab, dim] table."""
+    helper = LayerHelper("embedding", param_attr=param_attr, name=name)
+    w = helper.create_parameter(helper.param_attr, shape=list(size),
+                                dtype=dtype, is_bias=False)
+    out = helper.create_variable_for_type_inference(dtype)
+    pad = -1 if padding_idx is None else (
+        padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    helper.append_op("lookup_table", inputs={"W": w, "Ids": input},
+                     outputs={"Out": out},
+                     attrs={"is_sparse": is_sparse,
+                            "is_distributed": is_distributed,
+                            "padding_idx": pad})
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": input}
+    if scale:
+        inputs["Scale"] = helper.create_parameter(
+            helper.param_attr, shape=norm_shape, dtype=dtype,
+            default_initializer=Constant(1.0))
+    if shift:
+        inputs["Bias"] = helper.create_parameter(
+            helper.bias_attr if helper.bias_attr is not False else None,
+            shape=norm_shape, dtype=dtype, is_bias=True,
+            default_initializer=Constant(0.0))
+    y = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    helper.append_op("layer_norm", inputs=inputs,
+                     outputs={"Y": y, "Mean": mean, "Variance": var},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(y)
+
+
+def gelu(x, name=None):
+    helper = LayerHelper("gelu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("gelu", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("matmul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    return out
+
+
+def fused_multihead_attention(q, k, v, bias_qk=None, causal=False,
+                              scale=0.0, attn_dropout=0.0, is_test=False,
+                              sequence_parallel=False, name=None):
+    """Fused multi-head attention (ops/fused_attention.py): q/k/v
+    [B, num_heads, S, head_dim]; bias_qk an additive key bias [B, S] or
+    [B, 1, 1, S]. scale=0.0 means 1/sqrt(head_dim)."""
+    helper = LayerHelper("fused_multihead_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    inputs = {"Q": q, "K": k, "V": v}
+    if bias_qk is not None:
+        inputs["BiasQK"] = bias_qk
+    helper.append_op("fused_multihead_attention", inputs=inputs,
+                     outputs={"Out": out},
+                     attrs={"causal": causal, "scale": scale,
+                            "attn_dropout": attn_dropout,
+                            "is_test": is_test,
+                            "sequence_parallel": sequence_parallel})
+    return out
+
+
+def _elementwise(op_type):
+    def fn(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={"X": x, "Y": y},
+                         outputs={"Out": out}, attrs={"axis": axis})
+        return helper.append_activation(out)
+
+    fn.__name__ = op_type
+    return fn
+
+
+elementwise_add = _elementwise("elementwise_add")
+elementwise_sub = _elementwise("elementwise_sub")
+elementwise_mul = _elementwise("elementwise_mul")
+elementwise_min = _elementwise("elementwise_min")
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("scale", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape2", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("reshape2", inputs={"X": x},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"shape": list(shape)})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("transpose2", inputs={"X": x},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axis": list(perm)})
+    return out
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    dtype = canonical_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze2", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("unsqueeze2", inputs={"X": input},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axes": list(axes)})
+    return out

@@ -1,0 +1,80 @@
+"""Generative-inference layers (reference role of paddle_tpu's
+layers/nn2.py): the KV-cache, gather, sampling and speculative-accept
+ops of ``ops/generation.py``."""
+from __future__ import annotations
+
+from ..layer_helper import LayerHelper
+
+__all__ = ["fused_decode_attention", "kv_cache_append", "sequence_gather",
+           "spec_accept", "sample_token"]
+
+
+def fused_decode_attention(q, k_new, v_new, cache_k, cache_v, positions,
+                           scale=0.0, page_size=128, slot_mask=None,
+                           name=None):
+    """One decode/verify chunk with the KV append fused in. q/k_new/v_new
+    [B, H, C, D]; cache_k/cache_v persistable paged caches
+    [B, H, S_max, D]; positions [B, 1] int, each sequence's length before
+    this chunk. The updated caches are written back into the cache vars;
+    the attended context [B, H, C, D] is returned."""
+    helper = LayerHelper("fused_decode_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    inputs = {"Q": q, "KNew": k_new, "VNew": v_new,
+              "CacheK": cache_k, "CacheV": cache_v, "Positions": positions}
+    if slot_mask is not None:
+        inputs["SlotMask"] = slot_mask
+    helper.append_op(
+        "fused_decode_attention", inputs=inputs,
+        outputs={"Out": out, "CacheKOut": cache_k, "CacheVOut": cache_v},
+        attrs={"scale": float(scale), "page_size": int(page_size)})
+    return out
+
+
+def kv_cache_append(cache, new, positions, slot_mask=None, name=None):
+    """Bulk KV write of ``new`` [B, H, L, D] at per-sequence ``positions``
+    [B, 1]; with ``slot_mask`` [B, 1] only masked sequences' rows change.
+    Writes into ``cache`` (returns the same var)."""
+    helper = LayerHelper("kv_cache_append", name=name)
+    inputs = {"Cache": cache, "New": new, "Positions": positions}
+    if slot_mask is not None:
+        inputs["SlotMask"] = slot_mask
+    helper.append_op("kv_cache_append", inputs=inputs,
+                     outputs={"Out": cache})
+    return cache
+
+
+def sequence_gather(x, index, name=None):
+    """Out[b] = x[b, index[b]] along axis 1 (index [B, 1], clamped)."""
+    helper = LayerHelper("sequence_gather", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sequence_gather", inputs={"X": x, "Index": index},
+                     outputs={"Out": out})
+    return out
+
+
+def spec_accept(sampled, drafts, start, name=None):
+    """Speculative accept rule: returns (accept_len, new_tok, new_pos),
+    each [B, 1] int64."""
+    helper = LayerHelper("spec_accept", name=name)
+    accept = helper.create_variable_for_type_inference("int64")
+    new_tok = helper.create_variable_for_type_inference("int64")
+    new_pos = helper.create_variable_for_type_inference("int64")
+    helper.append_op("spec_accept",
+                     inputs={"Sampled": sampled, "Drafts": drafts,
+                             "Start": start},
+                     outputs={"AcceptLen": accept, "NewTok": new_tok,
+                              "NewPos": new_pos})
+    return accept, new_tok, new_pos
+
+
+def sample_token(logits, strategy="greedy", temperature=1.0, top_k=0,
+                 name=None):
+    """Next-token selection from [B, V] logits -> [B, 1] int64."""
+    helper = LayerHelper("sample_token", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("sample_token", inputs={"Logits": logits},
+                     outputs={"Out": out},
+                     attrs={"strategy": strategy,
+                            "temperature": float(temperature),
+                            "top_k": int(top_k)})
+    return out

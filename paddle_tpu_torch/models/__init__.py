@@ -1,0 +1,3 @@
+"""Model builders of the PyTorch port."""
+from .gpt import (GptConfig, build_gpt_chunk, build_gpt_decode,  # noqa: F401
+                  build_gpt_generative, build_gpt_prefill)

@@ -1,0 +1,59 @@
+"""fused_multihead_attention (counterpart of
+``paddle_tpu/ops/fused_attention.py``).
+
+Routing, as the reference's ``_route``: ``FLAGS_use_flash_attention=never``
+asks for the plain PyTorch version explicitly; otherwise a CUDA tensor
+launches the hand-written kernel (``kernels/flash_attention.py``) and a
+CPU tensor takes the plain version. There is no fallback from the kernel:
+a shape the kernel refuses raises.
+"""
+from __future__ import annotations
+
+from .. import flags
+from .common import IOSpec, register_op, x
+
+
+def plain_requested() -> bool:
+    """True when ``FLAGS_use_flash_attention=never`` asks every attention
+    op for its plain PyTorch version."""
+    return flags.flag("use_flash_attention") == "never"
+
+
+@register_op("fused_multihead_attention",
+             inputs=[IOSpec("Q"), IOSpec("K"), IOSpec("V"),
+                     IOSpec("BiasQK", optional=True, no_grad=True)],
+             outputs=["Out"],
+             attrs={"causal": False, "scale": 0.0, "attn_dropout": 0.0,
+                    "is_test": False, "sequence_parallel": False},
+             needs_rng=True)
+def _fused_mha(ctx, ins, attrs):
+    """Q/K/V [B, num_heads, S, head_dim]; BiasQK an additive key bias,
+    [B, S] or [B, 1, 1, S]. scale 0.0 means 1/sqrt(head_dim)."""
+    from ..kernels import flash_attention_reference, flash_attention_with_lse
+
+    q, k, v = x(ins, "Q"), x(ins, "K"), x(ins, "V")
+    bias = x(ins, "BiasQK")
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    scale = attrs["scale"] or float(D) ** -0.5
+    dropout = 0.0 if attrs.get("is_test") else float(attrs["attn_dropout"])
+    if attrs.get("sequence_parallel"):
+        raise NotImplementedError(
+            "sequence-parallel (ring) attention waits for the port's "
+            "multi-device slice")
+    if dropout > 0.0:
+        raise NotImplementedError(
+            "attention dropout arrives with the port's training slice")
+    if bias is not None:
+        if bias.dim() == 4:
+            bias = bias.reshape(bias.shape[0], bias.shape[-1])
+        elif bias.dim() != 2:
+            raise ValueError(f"BiasQK must be [B, S] or [B, 1, 1, S], got "
+                             f"{tuple(bias.shape)}")
+        bias = bias.float()
+    fn = flash_attention_reference if plain_requested() \
+        else flash_attention_with_lse
+    o, _ = fn(q.reshape(B * H, Sq, D), k.reshape(B * H, Sk, D),
+              v.reshape(B * H, Sk, D), bias=bias,
+              causal=bool(attrs["causal"]), scale=scale, num_heads=H)
+    return {"Out": [o.reshape(B, H, Sq, D)]}

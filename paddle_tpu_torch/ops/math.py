@@ -1,0 +1,48 @@
+"""Elementwise, activation, scale and cast ops (counterpart of
+``paddle_tpu/ops/math.py``), the ones the GPT path runs."""
+from __future__ import annotations
+
+import torch
+
+from ..core.types import torch_dtype
+from .common import broadcast_to_x, out, register_op, x
+
+
+@register_op("gelu", inputs=["X"], outputs=["Out"],
+             attrs={"approximate": False})
+def _gelu(ctx, ins, attrs):
+    approx = "tanh" if attrs.get("approximate", False) else "none"
+    return out(torch.nn.functional.gelu(x(ins), approximate=approx))
+
+
+def _ew(fn):
+    def lower(ctx, ins, attrs):
+        xv, yv = x(ins, "X"), x(ins, "Y")
+        return out(fn(xv, broadcast_to_x(xv, yv, attrs.get("axis", -1))))
+
+    return lower
+
+
+for _name, _fn in [
+    ("elementwise_add", torch.add),
+    ("elementwise_sub", torch.sub),
+    ("elementwise_mul", torch.mul),
+    ("elementwise_min", torch.minimum),
+]:
+    register_op(_name, inputs=["X", "Y"], outputs=["Out"],
+                attrs={"axis": -1})(_ew(_fn))
+
+
+@register_op("scale", inputs=["X"], outputs=["Out"],
+             attrs={"scale": 1.0, "bias": 0.0, "bias_after_scale": True})
+def _scale(ctx, ins, attrs):
+    v = x(ins)
+    if attrs.get("bias_after_scale", True):
+        return out(v * attrs["scale"] + attrs["bias"])
+    return out((v + attrs["bias"]) * attrs["scale"])
+
+
+@register_op("cast", inputs=["X"], outputs=["Out"],
+             attrs={"in_dtype": None, "out_dtype": "float32"})
+def _cast(ctx, ins, attrs):
+    return out(x(ins).to(torch_dtype(attrs["out_dtype"])))

@@ -1,0 +1,123 @@
+"""Tensor creation / manipulation ops (counterpart of
+``paddle_tpu/ops/tensor.py``), the ones the GPT path runs. Random ops
+draw from the op's own ``torch.Generator`` (``LowerCtx.generator``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.types import is_floating, torch_dtype
+from .common import IOSpec, out, register_op, x
+
+
+@register_op("fill_constant", outputs=["Out"],
+             attrs={"shape": [], "value": 0.0, "dtype": "float32",
+                    "force_cpu": False})
+def _fill_constant(ctx, ins, attrs):
+    value = attrs["value"]
+    if not is_floating(attrs["dtype"]):
+        value = int(value)
+    return out(torch.full(tuple(int(s) for s in attrs["shape"]), value,
+                          dtype=torch_dtype(attrs["dtype"]),
+                          device=ctx.device))
+
+
+@register_op("truncated_gaussian_random", outputs=["Out"],
+             attrs={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0,
+                    "dtype": "float32"},
+             needs_rng=True, grad=None)
+def _truncated_gaussian_random(ctx, ins, attrs):
+    """Normal(mean, std) truncated to two standard deviations, by inverse
+    CDF of a uniform draw restricted to [Phi(-2), Phi(2)]. The bits differ
+    from jax.random.truncated_normal; the distribution is the same."""
+    shape = tuple(int(s) for s in attrs["shape"])
+    dt = torch_dtype(attrs["dtype"])
+    res = torch.empty(shape, dtype=torch.float32, device=ctx.device)
+    if res.is_meta:
+        return out(res.to(dt))
+    g = ctx.generator()
+    if attrs.get("seed"):
+        g.manual_seed(int(attrs["seed"]))
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    res.uniform_(lo, 1.0 - lo, generator=g)
+    res = torch.erfinv(2.0 * res - 1.0) * math.sqrt(2.0)
+    res = res.clamp_(-2.0, 2.0) * attrs["std"] + attrs["mean"]
+    return out(res.to(dt))
+
+
+@register_op("assign", inputs=["X"], outputs=["Out"])
+def _assign(ctx, ins, attrs):
+    return out(x(ins))
+
+
+def _infer_reshape(op, block):
+    xv = block.var(op.input("X")[0])
+    shape = list(op.attrs["shape"])
+    if xv.shape is not None:
+        has_neg = -1 in shape
+        for i, s in enumerate(shape):
+            if s == 0:
+                shape[i] = xv.shape[i]
+        concrete = [s for s in shape if s != -1]
+        if has_neg and all(d != -1 for d in xv.shape):
+            total = math.prod(xv.shape)
+            rest = math.prod(concrete) if concrete else 1
+            shape[shape.index(-1)] = total // rest
+    ov = block.var(op.output("Out")[0])
+    ov.shape = tuple(shape)
+    ov.dtype = xv.dtype
+    if op.output("XShape"):
+        xs = block.var(op.output("XShape")[0])
+        xs.shape = (0,) + tuple(xv.shape or ())
+        xs.dtype = xv.dtype
+
+
+def _xshape(xv):
+    return torch.zeros((0,), dtype=xv.dtype, device=xv.device)
+
+
+@register_op("reshape2",
+             inputs=[IOSpec("X"), IOSpec("Shape", optional=True,
+                                         no_grad=True)],
+             outputs=["Out", "XShape"], attrs={"shape": []},
+             infer_shape=_infer_reshape)
+def _reshape2(ctx, ins, attrs):
+    xv = x(ins)
+    shape = [xv.shape[i] if s == 0 else s
+             for i, s in enumerate(attrs["shape"])]
+    return {"Out": [xv.reshape(shape)], "XShape": [_xshape(xv)]}
+
+
+@register_op("transpose2", inputs=["X"], outputs=["Out", "XShape"],
+             attrs={"axis": []})
+def _transpose2(ctx, ins, attrs):
+    xv = x(ins)
+    return {"Out": [xv.permute(*attrs["axis"])], "XShape": [_xshape(xv)]}
+
+
+@register_op("unsqueeze2", inputs=["X"], outputs=["Out", "XShape"],
+             attrs={"axes": []})
+def _unsqueeze2(ctx, ins, attrs):
+    xv = x(ins)
+    res = xv
+    for a in sorted(attrs["axes"]):
+        res = res.unsqueeze(a)
+    return {"Out": [res], "XShape": [_xshape(xv)]}
+
+
+@register_op("lookup_table", inputs=[IOSpec("W"), IOSpec("Ids", no_grad=True)],
+             outputs=["Out"],
+             attrs={"is_sparse": False, "is_distributed": False,
+                    "padding_idx": -1, "remote_prefetch": False})
+def _lookup_table(ctx, ins, attrs):
+    w, ids = x(ins, "W"), x(ins, "Ids")
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    # out-of-range ids clamp, as the reference's gather mode="clip"
+    emb = w[ids.long().clamp(0, w.shape[0] - 1)]
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad != -1:
+        emb = torch.where((ids != pad).unsqueeze(-1), emb,
+                          torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return out(emb)

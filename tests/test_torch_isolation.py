@@ -1,0 +1,133 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor
+``paddle_tpu``, runs on the CPU only when asked to, and ``chip_smoke.py``
+refuses to report anything without a GPU."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import paddle_tpu_torch as tfluid
+from paddle_tpu_torch import kernels as K
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "paddle_tpu_torch")
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_paddle_tpu_import_anywhere_in_the_port():
+    bad = [(os.path.relpath(p, REPO), m) for p in _port_sources()
+           for m in _imported_roots(p) if m in ("jax", "jaxlib", "paddle_tpu")]
+    assert not bad, bad
+
+
+_TINY_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["paddle_tpu"] = None
+import numpy as np
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch import kernels as K
+from paddle_tpu_torch.models.gpt import GptConfig, build_gpt_generative
+
+net = build_gpt_generative(GptConfig.tiny(), batch_slots=2, max_seq=32,
+                           page_size=8, prompt_buckets=(16,))
+exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+exe.run(net["startup"], scope=scope)
+for n, (shape, dt) in net["state_vars"].items():
+    scope.set_var(n, np.zeros(shape, dt))
+pf = net["prefill"][16]
+feed = {"prompt_ids": np.ones((2, 16), np.int64),
+        "prompt_pos": np.tile(np.arange(16), (2, 1)),
+        "prompt_mask": np.ones((2, 16), np.float32),
+        "prompt_len": np.full((2, 1), 16, np.int64),
+        "slot_mask": np.ones((2, 1), np.float32)}
+first = exe.run(pf["main"], feed=feed, fetch_list=[pf["first_token"]],
+                scope=scope)[0]
+toks = exe.run_chained(net["decode"]["main"], feed={},
+                       fetch_list=[net["decode"]["next_token"]], steps=2,
+                       scope=scope)[0]
+assert first.shape == (2, 1) and toks.shape == (2, 2, 1)
+assert scope.numpy("gpt_gen_pos").ravel().tolist() == [18, 18]
+assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
+assert K.launch_counts() == {"flash_attention_fwd": 0, "decode_attention": 0}
+print("ok")
+"""
+
+
+def test_port_runs_with_jax_and_paddle_tpu_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _TINY_RUN], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_executor_without_place_means_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        assert tfluid.Executor().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfluid.Executor()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfluid.Executor(tfluid.CUDAPlace(0))
+    assert tfluid.Executor(tfluid.CPUPlace()).device.type == "cpu"
+
+
+def test_cpu_attention_ops_never_launch_kernels():
+    K.reset_launch_counts()
+    q = torch.randn(4, 8, 16)
+    K.flash_attention(q, q, q, causal=True, num_heads=2)
+    K.flash_attention_decode(q, q, q, torch.tensor([2, 5]), num_heads=2)
+    assert K.launch_counts() == {"flash_attention_fwd": 0,
+                                 "decode_attention": 0}
+
+
+def test_flash_attention_flag_takes_only_auto_or_never(monkeypatch):
+    tfluid.set_flags({"FLAGS_use_flash_attention": "never"})
+    tfluid.set_flags({"FLAGS_use_flash_attention": "auto"})
+    with pytest.raises(ValueError, match="takes one of"):
+        tfluid.set_flags({"FLAGS_use_flash_attention": "always"})
+    assert tfluid.flags.flag("use_flash_attention") == "auto"
+    monkeypatch.setattr(tfluid.flags, "_overrides", {})
+    monkeypatch.setenv("FLAGS_use_flash_attention", "sometimes")
+    with pytest.raises(ValueError, match="takes one of"):
+        tfluid.flags.flag("use_flash_attention")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_gpu_and_prints_no_result(tmp_path,
+                                                             alone):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run for real")
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,213 @@
+"""Every op type of the port's GPT serving path against the JAX package's
+rule, on the CPU. Each case is a single-op program built the same way in
+both packages (data vars, one ``append_op``) and run on the same numpy
+feeds; the outputs' build-time shapes must match too. Random ops are
+compared by distribution and by determinism, never by bits."""
+import numpy as np
+import pytest
+
+import paddle_tpu as fluid
+from paddle_tpu.framework import Program as JProgram
+
+import paddle_tpu_torch as tfluid
+from paddle_tpu_torch.framework import Program as TProgram
+
+RNG = np.random.RandomState(7)
+
+
+def f32(*shape):
+    return RNG.randn(*shape).astype(np.float32)
+
+
+def i64(hi, *shape):
+    return RNG.randint(0, hi, shape).astype(np.int64)
+
+
+B, H, S, D = 2, 2, 8, 16
+CACHE_K, CACHE_V = f32(B, H, 16, D), f32(B, H, 16, D)
+
+# op type -> (inputs {slot: {var: array}}, outputs {slot: [var]}, attrs,
+#             vars to fetch and compare)
+CASES = {
+    "assign": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]}, {}, ["o"]),
+    "cast": ({"X": {"x": f32(3, 4) * 5}}, {"Out": ["o"]},
+             {"in_dtype": "float32", "out_dtype": "int64"}, ["o"]),
+    "fill_constant": ({}, {"Out": ["o"]},
+                      {"shape": [2, 3], "dtype": "int64", "value": 7.0},
+                      ["o"]),
+    "scale": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]},
+              {"scale": 10000.0, "bias": -10000.0}, ["o"]),
+    "gelu": ({"X": {"x": f32(3, 4) * 3}}, {"Out": ["o"]}, {}, ["o"]),
+    "layer_norm": ({"X": {"x": f32(2, 5, 8)}, "Scale": {"s": f32(8)},
+                    "Bias": {"b": f32(8)}},
+                   {"Y": ["y"], "Mean": ["m"], "Variance": ["v"]},
+                   {"begin_norm_axis": 2}, ["y", "m", "v"]),
+    "lookup_table": ({"W": {"w": f32(10, 4)},
+                      "Ids": {"ids": np.array([[3], [9], [12]], np.int64)}},
+                     {"Out": ["o"]}, {}, ["o"]),
+    "elementwise_add": ({"X": {"x": f32(2, 3, 4)}, "Y": {"y": f32(4)}},
+                        {"Out": ["o"]}, {"axis": 2}, ["o"]),
+    "elementwise_sub": ({"X": {"x": i64(9, 3, 1)}, "Y": {"y": i64(9, 3, 1)}},
+                        {"Out": ["o"]}, {}, ["o"]),
+    "elementwise_mul": ({"X": {"x": f32(2, 3, 4)}, "Y": {"y": f32(2, 3)}},
+                        {"Out": ["o"]}, {"axis": 0}, ["o"]),
+    "elementwise_min": ({"X": {"x": i64(50, 4, 1)},
+                         "Y": {"y": np.full((4, 1), 20, np.int64)}},
+                        {"Out": ["o"]}, {}, ["o"]),
+    "mul": ({"X": {"x": f32(2, 3, 8)}, "Y": {"y": f32(8, 5)}},
+            {"Out": ["o"]}, {"x_num_col_dims": 2}, ["o"]),
+    "matmul": ({"X": {"x": f32(3, 8)}, "Y": {"y": f32(6, 8)}},
+               {"Out": ["o"]}, {"transpose_Y": True, "alpha": 0.5}, ["o"]),
+    "reshape2": ({"X": {"x": f32(2, 3, 4)}},
+                 {"Out": ["o"], "XShape": ["xs"]}, {"shape": [0, -1]},
+                 ["o"]),
+    "transpose2": ({"X": {"x": f32(2, 3, 4, 5)}},
+                   {"Out": ["o"], "XShape": ["xs"]}, {"axis": [0, 2, 1, 3]},
+                   ["o"]),
+    "unsqueeze2": ({"X": {"x": f32(2, 3)}},
+                   {"Out": ["o"], "XShape": ["xs"]}, {"axes": [1, 2]},
+                   ["o"]),
+    "kv_cache_append": ({"Cache": {"c": CACHE_K.copy()},
+                         "New": {"n": f32(B, H, S, D)},
+                         "Positions": {"p": np.array([[0], [8]], np.int64)},
+                         "SlotMask": {"m": np.array([[1.0], [0.0]],
+                                                    np.float32)}},
+                        {"Out": ["c"]}, {}, ["c"]),
+    "sequence_gather": ({"X": {"x": f32(2, 6, 4)},
+                         "Index": {"i": np.array([[5], [9]], np.int64)}},
+                        {"Out": ["o"]}, {}, ["o"]),
+    "sample_token": ({"Logits": {"lg": f32(4, 16)}}, {"Out": ["o"]},
+                     {"strategy": "greedy"}, ["o"]),
+    "spec_accept": ({"Sampled": {"s": np.array([[4, 5, 6, 7], [1, 2, 3, 4]],
+                                               np.int64)},
+                     "Drafts": {"d": np.array([[4, 5, 9], [8, 2, 3]],
+                                              np.int64)},
+                     "Start": {"st": np.array([[10], [3]], np.int64)}},
+                    {"AcceptLen": ["a"], "NewTok": ["t"], "NewPos": ["np"]},
+                    {}, ["a", "t", "np"]),
+    "fused_multihead_attention": (
+        {"Q": {"q": f32(B, H, S, D)}, "K": {"k": f32(B, H, S, D)},
+         "V": {"v": f32(B, H, S, D)},
+         "BiasQK": {"bias": np.where(np.arange(S)[None] < [[S], [5]], 0.0,
+                                     -10000.0).astype(np.float32)
+                    .reshape(B, 1, 1, S)}},
+        {"Out": ["o"]}, {"causal": True, "is_test": True}, ["o"]),
+    "fused_decode_attention": (
+        {"Q": {"q": f32(B, H, 3, D)}, "KNew": {"kn": f32(B, H, 3, D)},
+         "VNew": {"vn": f32(B, H, 3, D)}, "CacheK": {"ck": CACHE_K.copy()},
+         "CacheV": {"cv": CACHE_V.copy()},
+         "Positions": {"p": np.array([[4], [14]], np.int64)},
+         "SlotMask": {"m": np.array([[1.0], [1.0]], np.float32)}},
+        {"Out": ["o"], "CacheKOut": ["ck"], "CacheVOut": ["cv"]},
+        {"page_size": 8}, ["o", "ck", "cv"]),
+}
+
+
+def _build(program_cls, op_type, case):
+    ins, outs, attrs, _ = case
+    main = program_cls()
+    blk = main.global_block
+    for slot_vars in ins.values():
+        for n, a in slot_vars.items():
+            blk.create_var(name=n, shape=a.shape, dtype=str(a.dtype),
+                           is_data=True)
+    for names in outs.values():
+        for n in names:
+            if not blk.has_var(n):
+                blk.create_var(name=n)
+    blk.append_op(op_type,
+                  inputs={s: list(v) for s, v in ins.items()},
+                  outputs=outs, attrs=dict(attrs))
+    return main
+
+
+def _feed(case):
+    return {n: a for slot_vars in case[0].values()
+            for n, a in slot_vars.items()}
+
+
+def _run_both(op_type, case):
+    jmain = _build(JProgram, op_type, case)
+    tmain = _build(TProgram, op_type, case)
+    fetch = case[3]
+    jout = fluid.Executor(fluid.CPUPlace()).run(
+        jmain, feed=_feed(case), fetch_list=fetch, scope=fluid.Scope())
+    tout = tfluid.Executor(tfluid.CPUPlace()).run(
+        tmain, feed=_feed(case), fetch_list=fetch, scope=tfluid.Scope())
+    return jmain, tmain, jout, tout
+
+
+def test_every_path_op_has_a_case():
+    from paddle_tpu_torch.core import registry
+
+    assert len(CASES) == 22 and "truncated_gaussian_random" not in CASES
+    assert set(CASES) | {"truncated_gaussian_random"} \
+        == set(registry.all_ops())
+
+
+@pytest.mark.parametrize("op_type", sorted(CASES))
+def test_op_matches_jax_rule(op_type):
+    case = CASES[op_type]
+    jmain, tmain, jout, tout = _run_both(op_type, case)
+    for n, a, b in zip(case[3], tout, jout):
+        assert a.shape == np.asarray(b).shape, n
+        if a.dtype.kind in "iu":
+            np.testing.assert_array_equal(a, np.asarray(b).astype(a.dtype),
+                                          err_msg=n)
+        else:
+            np.testing.assert_allclose(a, b, atol=2e-5, rtol=1e-4,
+                                       err_msg=n)
+        jv, tv = jmain.global_block.var(n), tmain.global_block.var(n)
+        assert tv.shape == jv.shape, n
+
+
+def test_truncated_gaussian_random_distribution_and_seeding():
+    """Bits differ from jax.random; the distribution is the same: values
+    in mean +- 2 std, moments of the truncated normal, and a fixed seed
+    reproduces the draw."""
+    def draw(seed):
+        main = TProgram()
+        main.random_seed = seed
+        main.global_block.create_var(name="o")
+        main.global_block.append_op(
+            "truncated_gaussian_random", outputs={"Out": ["o"]},
+            attrs={"shape": [200, 100], "mean": 1.0, "std": 0.5})
+        return tfluid.Executor(tfluid.CPUPlace()).run(
+            main, fetch_list=["o"], scope=tfluid.Scope())[0]
+
+    a, b, c = draw(3), draw(3), draw(4)
+    assert a.shape == (200, 100) and a.dtype == np.float32
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+    assert a.min() >= 0.0 and a.max() <= 2.0
+    # truncated at +-2 sigma: std is 0.8796 sigma
+    assert abs(a.mean() - 1.0) < 0.01
+    assert abs(a.std() - 0.5 * 0.8796) < 0.01
+
+
+def test_sample_token_sample_support_and_determinism():
+    logits = f32(4, 16)
+
+    def draws(seed):
+        main = TProgram()
+        main.random_seed = seed
+        blk = main.global_block
+        blk.create_var(name="lg", shape=(4, 16), dtype="float32",
+                       is_data=True)
+        blk.create_var(name="o")
+        blk.append_op("sample_token", inputs={"Logits": ["lg"]},
+                      outputs={"Out": ["o"]},
+                      attrs={"strategy": "sample", "temperature": 0.7,
+                             "top_k": 3})
+        exe = tfluid.Executor(tfluid.CPUPlace())
+        return np.stack([exe.run(main, feed={"lg": logits}, fetch_list=["o"],
+                                 scope=tfluid.Scope())[0].ravel()
+                         for _ in range(8)])
+
+    a, b = draws(7), draws(7)
+    np.testing.assert_array_equal(a, b)
+    top3 = np.argsort(logits, -1)[:, -3:]
+    for row in a:
+        for i in range(4):
+            assert row[i] in top3[i]
+    assert len({tuple(r) for r in a}) > 1      # steps draw afresh
