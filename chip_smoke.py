@@ -6,14 +6,16 @@ Phases, in order; any failure exits non-zero (no phase is caught):
 
 1. device — requires CUDA; prints the card's name and power limit; turns
    TF32 off for float32 matrix products and convolutions.
-2. kernels — builds every kernel of the serving path from
+2. kernels — builds every kernel of the serving and training paths from
    ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), runs
-   each on the card at the main path's shapes against its plain PyTorch
+   each on the card at the main paths' shapes against its plain PyTorch
    version (``kernels.KERNEL_TOL``: f32 atol 1e-4 / rtol 1e-3, the two sum
    in different orders; bf16 atol 8e-3 / rtol 1.6e-2, about two bf16
-   ulp), and times kernel, plain version and one library call
-   (``F.scaled_dot_product_attention`` with an equivalent mask) with CUDA
-   events, L2 flushed before each launch.
+   ulp), checks that K1, K3 and K4 drop exactly the elements the plain
+   version's Philox mask drops, and times kernel, plain version and one
+   library call (``F.scaled_dot_product_attention`` with an equivalent
+   mask: its forward for K1 and K2, its backward alone for K3 and K4) with
+   CUDA events, L2 flushed before each launch.
 3. serve — GPT-2 small (``GptConfig.base()``, random weights from
    ``--seed``) behind ``GenerativeEngine``: 8 slots, 1024-token paged KV,
    prompt buckets 128/512; 12 greedy requests of 32 new tokens (prompts of
@@ -24,7 +26,18 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    ``FLAGS_use_flash_attention=never`` (the plain versions) on fresh state
    with the same weights: greedy tokens agree wherever the kernel run's
    top-2 logit gap exceeds 1e-3 (gaps from a teacher-forced forward).
-5. prints the ``kernels`` JSON line, the card line, and as the last line
+5. train — BERT-base pretraining (``BertConfig.base()``: 12 layers, hidden
+   768, 12 heads, vocab 30522, hidden and attention dropout 0.1, Adam at
+   lr 1e-4; f32, batch 32, seq 128; random weights and a synthetic batch
+   from ``--seed``): 10 ``Executor.run`` steps through the kernels (K1 24
+   launches a step: 12 forward + 12 in the grad ops' recompute; K3 and K4
+   12 each), then 10 steps with ``FLAGS_use_flash_attention=never`` on
+   fresh state from the same weights and feeds. Step-1 losses agree within
+   rtol 1e-5, later steps within rtol 1e-3, the loss falls, and the
+   device memory held between steps stays flat. Reports steps/s,
+   tokens/s, peak device memory and one profiled step's device idle share
+   and top kernels.
+6. prints the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``. With ``--out-dir``, everything
    measured is also written to ``DIR/chip_smoke.json``.
 """
@@ -41,10 +54,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
+from torch.profiler import ProfilerActivity, profile
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
 from paddle_tpu_torch.models.gpt import (GptConfig, build_gpt_generative,
                                          build_gpt_prefill)
 from paddle_tpu_torch.serving import (GenerationConfig, GenerativeEngine,
@@ -57,7 +73,17 @@ TOL = K.KERNEL_TOL
 REPLACES = {
     "flash_attention_fwd": "paddle_tpu/kernels/flash_attention.py:167",
     "decode_attention": "paddle_tpu/kernels/decode_attention.py:117",
+    "flash_attention_dq": "paddle_tpu/kernels/flash_attention.py:293",
+    "flash_attention_dkv": "paddle_tpu/kernels/flash_attention.py:327",
 }
+# the kernels the serving path runs (no backward there)
+SERVE_KERNELS = ("flash_attention_fwd", "decode_attention")
+# the shape and type of each kernel's row in the kernels line: the main
+# paths' (K1 serving prefill, K2 decode, K3/K4 BERT training)
+MAIN_ROW = {"flash_attention_fwd": ([96, 512, 64], "float32", 0.0),
+            "decode_attention": ([96, 1, 1024, 64], "float32", 0.0),
+            "flash_attention_dq": ([384, 128, 64], "float32", 0.1),
+            "flash_attention_dkv": ([384, 128, 64], "float32", 0.1)}
 
 
 def log(*a):
@@ -198,6 +224,157 @@ def check_decode(q_len, dtype, gen, B=8, H=12, S=1024, D=64):
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def _pad_bias(B, S, gen):
+    """Additive [B, S] key bias of BERT's padding mask: 0 on tokens,
+    -10000 on pads, random lengths in [S/2, S], the first full."""
+    lens = torch.randint(S // 2, S + 1, (B,), generator=gen, device="cuda")
+    lens[0] = S
+    return torch.where(torch.arange(S, device="cuda")[None, :]
+                       < lens[:, None], 0.0, -10000.0).float()
+
+
+def check_flash_dropout(gen, B=32, H=12, S=128, D=64, rate=0.1, seed=1234):
+    """K1 at BERT-base's training shape: padding bias, dropout 0.1."""
+    BH, dtype = B * H, torch.float32
+    q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda")
+               for _ in range(3))
+    bias = _pad_bias(B, S, gen)
+    scale = D ** -0.5
+    args = dict(bias=bias, scale=scale, num_heads=H, dropout_rate=rate,
+                seed=seed)
+    o_k, lse_k = K.flash_attention_with_lse(q, k, v, **args)
+    o_p, lse_p = K.flash_attention_reference(q, k, v, **args)
+    torch.cuda.synchronize()
+    tag = f"K1 [{BH},{S},{D}] float32 bias+dropout {rate}"
+    err = compare(tag + " o", o_k, o_p, dtype)
+    compare(tag + " lse", lse_k, lse_p, dtype)
+    q4, k4, v4 = (t.reshape(B, H, S, D) for t in (q, k, v))
+    mask = bias.reshape(B, 1, 1, S)
+    ms = time_ms(lambda: K.flash_attention_with_lse(q, k, v, **args))
+    plain = time_ms(lambda: K.flash_attention_reference(q, k, v, **args))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, dropout_p=rate, scale=scale))
+    nbytes = 4 * BH * S * D * 4 + B * S * 4 + BH * S * 4
+    b_ms, b_by = bound(4 * D * BH * S * S, nbytes, dtype)
+    return dict(shape=[BH, S, D], dtype="float32", dropout=rate,
+                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def sdpa_backward_ms(q, k, v, do, mask, rate, scale, B, H):
+    """Time of the backward alone of one ``scaled_dot_product_attention``
+    call on the same inputs, and the name of the backend that ran."""
+    S, D = q.shape[1], q.shape[2]
+    q4, k4, v4 = (t.reshape(B, H, -1, D).detach().requires_grad_()
+                  for t in (q, k, v))
+    do4 = do.reshape(B, H, S, D)
+    for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask.to(q.dtype), dropout_p=rate,
+                    scale=scale)
+            torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return time_ms(lambda: torch.autograd.grad(
+            out, (q4, k4, v4), do4, retain_graph=True)), backend.name
+    return None, None
+
+
+def check_backward(gen, B, H, S, D, dtype, causal, rate, seed=4321):
+    """K3 and K4 against their plain versions at one shape; returns the
+    K3 row and the K4 row."""
+    BH = B * H
+    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    bias = _pad_bias(B, S, gen)
+    scale = D ** -0.5
+    o, lse = K.flash_attention_reference(
+        q, k, v, bias=bias, causal=causal, scale=scale, num_heads=H,
+        dropout_rate=rate, seed=seed)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, bias, do, lse, delta)
+    kw = dict(causal=causal, scale=scale, dropout_rate=rate, seed=seed,
+              num_heads=H)
+    n0 = K.launch_counts()
+    dq = K.flash_attention_dq(*args, **kw)
+    dk, dv = K.flash_attention_dkv(*args, **kw)
+    n1 = K.launch_counts()
+    rdq = K.flash_attention_dq_reference(*args, **kw)
+    rdk, rdv = K.flash_attention_dkv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        if n1[name] != n0[name] + 1:
+            raise SystemExit(f"chip_smoke: {name} did not launch")
+    if min(float(t.float().abs().max()) for t in (dq, dk, dv)) == 0.0:
+        raise SystemExit("chip_smoke: a backward kernel wrote only zeros")
+    dts = str(dtype)[6:]
+    tag = (f"[{BH},{S},{D}] {dts} {'causal+' if causal else ''}bias"
+           f"{f'+dropout {rate}' if rate else ''}")
+    e_dq = compare("K3 " + tag + " dq", dq, rdq, dtype)
+    e_dkv = max(compare("K4 " + tag + " dk", dk, rdk, dtype),
+                compare("K4 " + tag + " dv", dv, rdv, dtype))
+    ms_dq = time_ms(lambda: K.flash_attention_dq(*args, **kw))
+    plain_dq = time_ms(lambda: K.flash_attention_dq_reference(*args, **kw))
+    ms_dkv = time_ms(lambda: K.flash_attention_dkv(*args, **kw))
+    plain_dkv = time_ms(lambda: K.flash_attention_dkv_reference(*args,
+                                                                **kw))
+    mask = bias.reshape(B, 1, 1, S)
+    if causal:
+        mask = mask + torch.full((S, S), float("-inf"),
+                                 device="cuda").triu(1)
+    lib, backend = sdpa_backward_ms(q, k, v, do, mask, rate, scale, B, H)
+    pairs = BH * S * (S + 1) // 2 if causal else BH * S * S
+    elt = q.element_size()
+    read = 4 * BH * S * D * elt + 2 * BH * S * 4 + B * S * 4
+    rows = []
+    for err, ms, plain, flops, write in (
+            (e_dq, ms_dq, plain_dq, 6 * D * pairs, BH * S * D * elt),
+            (e_dkv, ms_dkv, plain_dkv, 8 * D * pairs, 2 * BH * S * D * elt)):
+        b_ms, b_by = bound(flops, read + write, dtype)
+        rows.append(dict(shape=[BH, S, D], dtype=dts, causal=causal,
+                         dropout=rate, max_abs_err=err, ms=ms,
+                         plain_ms=plain, library_ms=lib,
+                         library_backend=backend, bound_ms=b_ms,
+                         bound_by=b_by))
+    return rows
+
+
+def check_masks(BH=384, S=128, D=128, rate=0.1, seed=99):
+    """The elements K1, K3 and K4 drop, read off their outputs, against
+    ``dropout_keep`` (BERT's 384 heads of 128 x 128 scores): K1 with
+    v = I (o[i, j] = 0 iff dropped), K4 with dO = I (dv[j, i]), K3 with
+    k = I and delta = 0 (dq[i, j])."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    keep = K.dropout_keep(seed, BH, S, S, rate, device="cuda")
+    eye = torch.eye(S, D, device="cuda").expand(BH, S, D).contiguous()
+    q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda")
+               for _ in range(3))
+    zeros = torch.zeros(BH, S, device="cuda")
+    o, lse = K.flash_attention_with_lse(q, k, eye, dropout_rate=rate,
+                                        seed=seed)
+    _, dv = K.flash_attention_dkv(q, k, v, None, eye, lse, zeros,
+                                  dropout_rate=rate, seed=seed)
+    _, lse_i = K.flash_attention_reference(q, eye, v)
+    dq = K.flash_attention_dq(q, eye, v, None, k, lse_i, zeros,
+                              dropout_rate=rate, seed=seed)
+    got = {"K1": o[..., :S] != 0, "K4": dv[..., :S].transpose(1, 2) != 0,
+           "K3": dq[..., :S] != 0}
+    for name, m in got.items():
+        diff = int((m != keep).sum())
+        log(f"  dropout mask {name} [{BH},{S},{S}] rate {rate}: "
+            f"{diff} elements differ from the plain version's")
+        if diff:
+            raise SystemExit(f"chip_smoke: {name}'s dropout mask differs "
+                             f"from the plain version's in {diff} elements")
+    return dict(shape=[BH, S, S], rate=rate,
+                keep_share=float(keep.float().mean()), differing=0)
+
+
 def phase_kernels(seed):
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(K.KERNEL_SOURCES)) as pool:
@@ -209,19 +386,34 @@ def phase_kernels(seed):
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    res = {"flash_attention_fwd": [], "decode_attention": []}
+    res = {name: [] for name in K.KERNEL_SOURCES}
     for dtype in (torch.float32, torch.bfloat16):
         for S in (128, 512):
             res["flash_attention_fwd"].append(check_flash(S, dtype, gen))
         for q_len in (1, 8):
             res["decode_attention"].append(check_decode(q_len, dtype, gen))
+    res["flash_attention_fwd"].append(check_flash_dropout(gen))
+    for B, H, S, dtype, causal, rate in (
+            (32, 12, 128, torch.float32, False, 0.1),
+            (8, 12, 512, torch.float32, True, 0.0),
+            (32, 12, 128, torch.bfloat16, False, 0.1)):
+        dq_row, dkv_row = check_backward(gen, B, H, S, 64, dtype, causal,
+                                         rate)
+        res["flash_attention_dq"].append(dq_row)
+        res["flash_attention_dkv"].append(dkv_row)
+    masks = check_masks()
     for name, rows in res.items():
         for r in rows:
-            log(f"  {name} {r['shape']} {r['dtype']}: kernel "
-                f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | sdpa "
-                f"{r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
-    return res
+            lib = r["library_ms"]
+            drop = f" dropout {r['dropout']}" if r.get("dropout") else ""
+            backend = " " + r["library_backend"] \
+                if r.get("library_backend") else ""
+            log(f"  {name} {r['shape']} {r['dtype']}{drop}: kernel "
+                f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+                f"sdpa{backend} "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'} | bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res, masks
 
 
 # ---------------------------------------------------------------- serve
@@ -299,9 +491,9 @@ def phase_serve(seed):
     if prefix_hits < 1:
         raise SystemExit("chip_smoke: the shared prefix never hit the cache")
     for name, n in run["launches"].items():
-        if n < 1:
-            raise SystemExit(f"chip_smoke: kernel {name} was never launched "
-                             f"on the serving path")
+        if (n < 1) if name in SERVE_KERNELS else n:
+            raise SystemExit(f"chip_smoke: kernel {name} was launched {n} "
+                             f"times on the serving path")
     return model, params, exe, run
 
 
@@ -372,6 +564,170 @@ def phase_whole_path(model, params, exe, run, seed):
                 plain_wall_s=plain["wall_s"])
 
 
+# ---------------------------------------------------------------- train
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 128, 10
+# launches of each kernel in one BERT-base train step: K1 once per layer in
+# the forward and once more in the grad op's recompute of the forward
+# rule; K3 and K4 once per layer
+TRAIN_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_dq": 12,
+                  "flash_attention_dkv": 12}
+
+
+def bert_feed(seed, vocab, B, S):
+    """A synthetic pretraining batch: random tokens, two segments, padded
+    lengths in [S/2, S], 15 % of the real tokens masked."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(S // 2, S + 1, (B, 1))
+    lens[0] = S
+    real = np.arange(S)[None] < lens
+    masked = real & (rng.rand(B, S) < 0.15)
+    return {"src_ids": rng.randint(0, vocab, (B, S)).astype(np.int64),
+            "pos_ids": np.tile(np.arange(S, dtype=np.int64), (B, 1)),
+            "sent_ids": (np.arange(S)[None] >= lens // 2).astype(np.int64),
+            "input_mask": real.astype(np.float32),
+            "mask_label": np.where(masked, rng.randint(0, vocab, (B, S)),
+                                   -100).astype(np.int64),
+            "next_sent_label": rng.randint(0, 2, (B, 1)).astype(np.int64)}
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def train(net, init, feed, plain):
+    """TRAIN_STEPS steps from ``init`` on a fresh executor (so the step
+    seeds, and with them the dropout masks, repeat) and a fresh scope."""
+    exe, scope = fluid.Executor(), fluid.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    fetch = [net["loss"], net["mlm_loss"], net["nsp_loss"]]
+    fluid.set_flags({"FLAGS_use_flash_attention":
+                     "never" if plain else "auto"})
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        losses, held, t_first = [], [], None
+        t0 = time.perf_counter()
+        for step in range(TRAIN_STEPS):
+            losses.append(exe.run(net["main"], feed=feed, fetch_list=fetch,
+                                  scope=scope))
+            held.append(torch.cuda.memory_allocated())
+            if step == 0:
+                t_first = time.perf_counter()
+        wall = time.perf_counter() - t_first     # fetches synchronised
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        first_s = t_first - t0
+    finally:
+        fluid.set_flags({"FLAGS_use_flash_attention": "auto"})
+    return dict(losses=np.array([[float(np.ravel(x)[0]) for x in step]
+                                 for step in losses]),
+                steps_per_s=(TRAIN_STEPS - 1) / wall, first_step_s=first_s,
+                launches=launches, peak_bytes=peak, base_bytes=base,
+                held_bytes=held, exe=exe, scope=scope)
+
+
+def profile_step(net, exe, scope, feed):
+    """One more kernel-path step under torch.profiler: device busy time
+    (summed kernel time) over the step's wall time."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(net["main"], feed=feed, fetch_list=[net["loss"]],
+                scope=scope)
+        wall = time.perf_counter() - t0
+    rows = sorted(((_device_us(e), e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and _device_us(e) > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    return dict(wall_s=wall, device_busy_s=busy,
+                idle_share=1.0 - busy / wall,
+                device_kernels=sum(r[2] for r in rows),
+                top_kernels=[{"name": k[:90], "ms": us / 1e3, "calls": n}
+                             for us, k, n in rows[:12]])
+
+
+def phase_train(seed):
+    cfg = BertConfig.base()
+    net = build_bert_pretrain(cfg, seq_len=TRAIN_SEQ)
+    net["startup"].random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    feed = bert_feed(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    kern = train(net, init, feed, plain=False)
+    prof = profile_step(net, kern.pop("exe"), kern.pop("scope"), feed)
+    plain = train(net, init, feed, plain=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    kl, pl = kern["losses"], plain["losses"]
+    rel = np.abs(kl - pl) / np.abs(pl)
+    log(f"[train] BERT-base f32, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, "
+        f"dropout 0.1, {TRAIN_STEPS} steps: loss {kl[0, 0]:.6f} -> "
+        f"{kl[-1, 0]:.6f} (plain run {pl[0, 0]:.6f} -> {pl[-1, 0]:.6f})")
+    log(f"  kernels: {kern['steps_per_s']:.3f} steps/s = "
+        f"{kern['steps_per_s'] * tokens:.1f} tokens/s (steps 2-"
+        f"{TRAIN_STEPS}; step 1 {kern['first_step_s']:.3f} s), peak "
+        f"{kern['peak_bytes'] / 2**30:.2f} GiB "
+        f"({kern['base_bytes'] / 2**30:.2f} GiB resident before), launches "
+        f"{kern['launches']}")
+    log(f"  plain:   {plain['steps_per_s']:.3f} steps/s, peak "
+        f"{plain['peak_bytes'] / 2**30:.2f} GiB "
+        f"({plain['base_bytes'] / 2**30:.2f} GiB resident before)")
+    log(f"  profiled step: wall {prof['wall_s'] * 1e3:.1f} ms, device busy "
+        f"{prof['device_busy_s'] * 1e3:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['device_kernels']} device kernels")
+    log(f"  loss rel. diff kernel vs plain: step 1 {rel[0].max():.3e}, "
+        f"later max {rel[1:].max():.3e}")
+    growth = max(kern["held_bytes"][1:]) - min(kern["held_bytes"][1:])
+    log(f"  device memory held between steps 2-{TRAIN_STEPS}: "
+        f"{min(kern['held_bytes'][1:]) / 2**30:.3f} GiB, growth "
+        f"{growth / 2**20:.1f} MiB")
+    for r in prof["top_kernels"][:6]:
+        log(f"    {r['ms']:8.3f} ms {r['calls']:5d} calls  {r['name']}")
+    if growth > 16 * 2**20:
+        raise SystemExit(f"chip_smoke: device memory grew by "
+                         f"{growth / 2**20:.1f} MiB across train steps")
+    if not np.isfinite(kl).all():
+        raise SystemExit("chip_smoke: non-finite training loss")
+    if rel[0].max() > 1e-5 or rel[1:].max() > 1e-3:
+        raise SystemExit(f"chip_smoke: kernel and plain training runs "
+                         f"disagree (step 1 rtol {rel[0].max():.3e} > 1e-5 "
+                         f"or later {rel[1:].max():.3e} > 1e-3)")
+    if not kl[-1, 0] < kl[0, 0]:
+        raise SystemExit("chip_smoke: the training loss did not fall")
+    for name, per_step in TRAIN_LAUNCHES.items():
+        if kern["launches"][name] != per_step * TRAIN_STEPS:
+            raise SystemExit(f"chip_smoke: {name} launched "
+                             f"{kern['launches'][name]} times in "
+                             f"{TRAIN_STEPS} train steps, expected "
+                             f"{per_step * TRAIN_STEPS}")
+    if any(plain["launches"].values()):
+        raise SystemExit(f"chip_smoke: the plain training run launched "
+                         f"kernels: {plain['launches']}")
+    return dict(
+        config="BertConfig.base()", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, losses=kl.tolist(), plain_losses=pl.tolist(),
+        step1_rel_diff=float(rel[0].max()),
+        later_rel_diff=float(rel[1:].max()),
+        steps_per_s=kern["steps_per_s"],
+        tokens_per_s=kern["steps_per_s"] * tokens,
+        first_step_s=kern["first_step_s"],
+        peak_gib=kern["peak_bytes"] / 2**30,
+        resident_before_gib=kern["base_bytes"] / 2**30,
+        plain_steps_per_s=plain["steps_per_s"],
+        plain_peak_gib=plain["peak_bytes"] / 2**30,
+        plain_resident_before_gib=plain["base_bytes"] / 2**30,
+        held_gib=[b / 2**30 for b in kern["held_bytes"]],
+        launches=kern["launches"], profiled_step=prof)
+
+
 # ---------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -379,23 +735,31 @@ def main():
     ap.add_argument("--out-dir", default=None,
                     help="also write the full report to DIR/chip_smoke.json")
     args = ap.parse_args()
+    t0 = time.perf_counter()
     card = phase_device()
-    kres = phase_kernels(args.seed)
+    kres, masks = phase_kernels(args.seed)
     model, params, exe, run = phase_serve(args.seed)
     whole = phase_whole_path(model, params, exe, run, args.seed)
-    launches = run["launches"]
+    del model, params, exe
+    trained = phase_train(args.seed)
+    # launches on the main paths: serving (K1, K2) and training (K1, K3,
+    # K4), each counted from 0 over its own run
+    launches = {n: run["launches"][n] + trained["launches"][n]
+                for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
-    report = {"card": card, "kernels": kres, "serve": {
-        "wall_s": run["wall_s"], "tokens": n_tok,
-        "tok_per_s": n_tok / run["wall_s"], "launches": launches,
-        "accounting": dict(run["accounting"]), "stats": run["stats"],
-        "whole_path": whole}}
-    main_shape = {"flash_attention_fwd": ([96, 512, 64], "float32"),
-                  "decode_attention": ([96, 1, 1024, 64], "float32")}
+    report = {"card": card, "kernels": kres, "dropout_masks": masks,
+              "serve": {
+                  "wall_s": run["wall_s"], "tokens": n_tok,
+                  "tok_per_s": n_tok / run["wall_s"],
+                  "launches": run["launches"],
+                  "accounting": dict(run["accounting"]),
+                  "stats": run["stats"], "whole_path": whole},
+              "train": trained, "launches": launches}
     line = []
     for name, rows in kres.items():
-        shape, dt = main_shape[name]
-        r = next(r for r in rows if r["shape"] == shape and r["dtype"] == dt)
+        shape, dt, rate = MAIN_ROW[name]
+        r = next(r for r in rows if r["shape"] == shape and r["dtype"] == dt
+                 and r.get("dropout", 0.0) == rate)
         line.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{name}.cu",
@@ -406,6 +770,8 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
     report["kernels_line"] = line
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"[done] {report['wall_s']:.1f} s")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:

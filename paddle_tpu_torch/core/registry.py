@@ -50,6 +50,12 @@ class OpDef:
     no_need_buffer: Sequence[str] = ()
     raw: bool = False
 
+    def input_spec(self, slot: str) -> Optional[IOSpec]:
+        for s in self.inputs:
+            if s.name == slot:
+                return s
+        return None
+
 
 def register_op(
     type: str,
@@ -99,6 +105,14 @@ def get_op_def(type: str) -> OpDef:
 
 def has_op(type: str) -> bool:
     return type in _OP_REGISTRY
+
+
+def is_generic_grad(type: str) -> bool:
+    """A ``<type>_grad`` op of a registered forward op that registers no
+    rule of its own: the interpreter runs it through the generic
+    gradient (``lowering._lower_generic_grad``)."""
+    return (type.endswith("_grad") and type not in _OP_REGISTRY
+            and type[:-5] in _OP_REGISTRY)
 
 
 def all_ops() -> List[str]:

@@ -1,23 +1,28 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py:_fwd_kernel (launched by
-// _fwd), the forward direction with dropout == 0.
+// _fwd), dropout included.
 //
 // Computes, per (b*h, query row i):
 //   s_ij = scale * q_i . k_j + bias[b, j]        (bias optional, [B, Sk])
 //   s_ij = -1e30 where causal and q_offset + i < k_offset + j
-//   o_i  = sum_j softmax_j(s_i) v_j,  lse_i = log sum_j exp(s_ij)
-// A row that sees no key (every s_ij masked) gives o_i = 0, lse_i = -inf.
-// q [BH, Sq, D]; k, v [BH, Sk, D]; o [BH, Sq, D] (f32 or bf16, the type of
-// q); lse [BH, Sq] f32.  Sums, max and the accumulator are f32 in both
-// cases; f32 inputs use plain f32 FMAs (no TF32), as the reference asks
-// precision='highest' for f32.
+//   p_ij = softmax_j(s_i),  lse_i = log sum_j exp(s_ij)
+//   o_i  = sum_j drop_ij p_ij v_j, drop_ij = keep_ij / (1 - rate) (or 1)
+// The dropout mask (attention_common.cuh) multiplies the probabilities
+// after their normaliser is summed, as _fwd_kernel does; lse is not
+// dropped. A row that sees no key (every s_ij masked) gives o_i = 0,
+// lse_i = -inf. q [BH, Sq, D]; k, v [BH, Sk, D]; o [BH, Sq, D] (f32 or
+// bf16, the type of q); lse [BH, Sq] f32.  Sums, max and the accumulator
+// are f32 in both cases; f32 inputs use plain f32 FMAs (no TF32), as the
+// reference asks precision='highest' for f32.
 //
-// What bounds it on the H100: operations.  At the main path's prefill
-// shapes (BH = 96, S = 128..512, D = 64, causal) the work is about
-// 2 * 2 * BH * S^2 * D / 2 FLOPs against BH * S * D * 4 bytes each of
-// q/k/v/o: far above the card's 20 FLOP/byte f32 ridge.  The f32 CUDA-core
-// peak is 67 TFLOP/s.
+// What bounds it on the H100: operations.  At the main paths' shapes
+// (serving prefill BH = 96, S = 128..512, D = 64, causal; BERT training
+// BH = 384, S = 128, D = 64) the work is about 4 * D FLOPs per visible
+// (query, key) pair against 4 * BH * S * D elements of q/k/v/o: far above
+// the card's 20 FLOP/byte f32 ridge.  The f32 CUDA-core peak is
+// 67 TFLOP/s.  Dropout adds one Philox4x32-10 (about 60 integer
+// instructions) per visible pair.
 //
 // What the design does about it: scores never leave the SM (one 64x64
 // tile in shared memory at a time, online softmax in registers), so
@@ -33,35 +38,24 @@
 // (d = t % 4 + 4 * i).  Shared tiles are f32 with a padded row stride
 // (D + 1) so the column reads do not collide in the banks.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr int TPR = 4;                 // threads per query row
-constexpr int MAX_D = 128;
-constexpr float NEG_INF = -1e30f;
+using namespace flash;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T>
+// DROPOUT is a template flag, so the kernel without dropout (the serving
+// path's) carries no mask code at all.
+template <typename T, bool DROPOUT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
                  int D, int num_heads, int causal, float scale, int q_offset,
-                 int k_offset) {
+                 int k_offset, uint32_t seed, uint32_t drop_threshold,
+                 float drop_scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* sQ = smem;                    // [BQ][ld]
@@ -79,12 +73,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long kbase = (long long)bh * Sk * D;
   const float* brow = bias ? bias + (long long)(bh / num_heads) * Sk : nullptr;
 
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    int rr = idx / D, cc = idx % D;
-    int gi = q0 + rr;
-    sQ[rr * ld + cc] = gi < Sq ? to_f32(q[qbase + (long long)gi * D + cc])
-                               : 0.f;
-  }
+  load_tile(sQ, q + qbase, q0, Sq, D);
 
   // keys this tile can see at all: under causal, global key position
   // k_offset + j <= q_offset + (last row of the tile)
@@ -95,8 +84,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     k_end = max(0, min(Sk, lim));
   }
 
-  constexpr int NC = BK / TPR;         // score columns per thread (16)
-  constexpr int ND = MAX_D / TPR;      // output columns per thread (<= 32)
   float acc[ND];
 #pragma unroll
   for (int i = 0; i < ND; ++i) acc[i] = 0.f;
@@ -105,13 +92,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = 0; kt < k_end; kt += BK) {
     __syncthreads();                   // previous tile fully consumed
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      int rr = idx / D, cc = idx % D;
-      int gj = kt + rr;
-      bool in = gj < Sk;
-      sK[rr * ld + cc] = in ? to_f32(k[kbase + (long long)gj * D + cc]) : 0.f;
-      sV[rr * ld + cc] = in ? to_f32(v[kbase + (long long)gj * D + cc]) : 0.f;
-    }
+    load_tiles(sK, sV, k + kbase, v + kbase, kt, Sk, D);
     __syncthreads();
 
     float s[NC];
@@ -139,8 +120,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NC; ++j) {
       int c = sub + TPR * j;
       float p = (kt + c < Sk) ? expf(s[j] - m_safe) : 0.f;
+      psum += p;                       // the normaliser sees every key
+      if (DROPOUT)
+        p = dropout_keep(seed, bh, qi, kt + c, drop_threshold)
+                ? p * drop_scale : 0.f;
       sP[r * ldp + c] = p;
-      psum += p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -174,38 +158,42 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool DROPOUT>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* o, void* lse, int BH, int Sq, int Sk, int D, int num_heads,
-           int causal, float scale, int q_offset, int k_offset,
-           cudaStream_t stream) {
+           int causal, float scale, int q_offset, int k_offset, int seed,
+           int drop_threshold, float drop_scale, cudaStream_t stream) {
   size_t smem = sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 1) +
                                  (size_t)BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, DROPOUT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, DROPOUT><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)o,
-      (float*)lse, Sq, Sk, D, num_heads, causal, scale, q_offset, k_offset);
+      (float*)lse, Sq, Sk, D, num_heads, causal, scale, q_offset, k_offset,
+      (uint32_t)seed, (uint32_t)drop_threshold, drop_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// seed and drop_threshold are 32-bit words passed as ints; drop_scale is
+// 1 / (1 - rate), or 0 for no dropout.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* bias, void* o,
                                    void* lse, int BH, int Sq, int Sk, int D,
                                    int num_heads, int causal, float scale,
                                    int q_offset, int k_offset, int is_bf16,
-                                   void* stream) {
+                                   int seed, int drop_threshold,
+                                   float drop_scale, void* stream) {
   if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, bias, o, lse, BH, Sq, Sk, D,
-                                 num_heads, causal, scale, q_offset, k_offset,
-                                 s);
-  return launch<float>(q, k, v, bias, o, lse, BH, Sq, Sk, D, num_heads,
-                       causal, scale, q_offset, k_offset, s);
+  auto fn = is_bf16 ? (drop_scale > 0.f ? launch<__nv_bfloat16, true>
+                                        : launch<__nv_bfloat16, false>)
+                    : (drop_scale > 0.f ? launch<float, true>
+                                        : launch<float, false>);
+  return fn(q, k, v, bias, o, lse, BH, Sq, Sk, D, num_heads, causal, scale,
+            q_offset, k_offset, seed, drop_threshold, drop_scale,
+            (cudaStream_t)stream);
 }

@@ -8,9 +8,12 @@ torch tensors, with no compile cache.
 State: persistable vars live in a :class:`Scope` as tensors on the
 executor's device. Ops that update state in place (the paged KV caches)
 write into those very tensors, which stands in for the JAX package's
-buffer donation; every other persistable an op writes is stored back
-into the scope after the run. Feeds arrive as numpy and fetches leave as
-numpy.
+buffer donation; every other persistable an op writes (a parameter and
+its Adam moments, written by ``adam`` under the same names) is stored
+back into the scope after the run. Feeds arrive as numpy and fetches
+leave as numpy; any var the step computed can be fetched, ``@GRAD`` vars
+included. Ops run under ``torch.no_grad()``: only a generic grad op
+builds an autograd graph, and frees it before the next op.
 
 Places: ``Executor()`` with no place means ``CUDAPlace(0)`` and raises
 where CUDA is absent; pass ``CPUPlace()`` to run on the CPU.
@@ -25,7 +28,7 @@ import torch
 
 from .core.types import torch_dtype
 from .framework import Program, Variable, default_main_program
-from .lowering import LowerCtx, lower_op
+from .lowering import EMPTY_VAR_NAME, LowerCtx, lower_op
 
 __all__ = ["Executor", "Scope", "global_scope", "CPUPlace", "CUDAPlace"]
 
@@ -151,10 +154,9 @@ class Executor:
         written = set()
         with torch.no_grad():
             for op in blk.ops:
-                for names in op.inputs.values():
-                    for n in names:
-                        if n not in env:
-                            env[n] = self._state(n, program, scope)
+                for n in op.input_arg_names:
+                    if n not in env and n != EMPTY_VAR_NAME:
+                        env[n] = self._state(n, program, scope)
                 lower_op(op, env, ctx)
                 written.update(op.output_arg_names)
         for n in written:

@@ -3,8 +3,11 @@
 Counterpart of ``paddle_tpu/framework.py`` (reference framework.py). The
 Python objects ARE the IR, with a JSON-serialisable dict form
 (``Program.to_dict``). Ops are metadata; ``lowering.py`` interprets them
-eagerly over torch tensors. Every op gets a stable ``__uid__`` at append
-time; random ops derive their ``torch.Generator`` from it.
+eagerly over torch tensors. Every op gets a stable ``__uid__`` and the
+program's current ``__op_role__`` (forward, backward, optimize) at append
+time; random ops derive their ``torch.Generator`` from the uid, and a
+``<type>_grad`` op (``backward.py``) carries its forward op's uid so the
+recompute draws the same bits.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ from .core.types import VarType, canonical_dtype
 
 __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "default_main_program", "default_startup_program",
-           "program_guard"]
+           "program_guard", "grad_var_name"]
+
+GRAD_VAR_SUFFIX = "@GRAD"
 
 
 class OpRole:
@@ -32,6 +37,10 @@ class OpRole:
     Backward = "backward"
     Optimize = "optimize"
     LRSched = "lr_sched"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_VAR_SUFFIX
 
 
 class Variable:
@@ -60,7 +69,7 @@ class Variable:
                 f"dtype={self.dtype}, persistable={self.persistable})")
 
     def to_dict(self) -> dict:
-        return {
+        d = {
             "name": self.name,
             "shape": list(self.shape) if self.shape is not None else None,
             "dtype": self.dtype,
@@ -70,15 +79,21 @@ class Variable:
             "stop_gradient": self.stop_gradient,
             "is_data": self.is_data,
         }
+        if getattr(self, "is_optimizer_state", False):
+            d["is_optimizer_state"] = True
+        return d
 
     @staticmethod
     def from_dict(block: "Block", d: dict) -> "Variable":
-        return Variable(block, name=d["name"], shape=d["shape"],
-                        dtype=d["dtype"], type=VarType(d["type"]),
-                        lod_level=d.get("lod_level", 0),
-                        persistable=d.get("persistable", False),
-                        stop_gradient=d.get("stop_gradient", False),
-                        is_data=d.get("is_data", False))
+        v = Variable(block, name=d["name"], shape=d["shape"],
+                     dtype=d["dtype"], type=VarType(d["type"]),
+                     lod_level=d.get("lod_level", 0),
+                     persistable=d.get("persistable", False),
+                     stop_gradient=d.get("stop_gradient", False),
+                     is_data=d.get("is_data", False))
+        if d.get("is_optimizer_state"):
+            v.is_optimizer_state = True
+        return v
 
 
 class Parameter(Variable):
@@ -120,6 +135,8 @@ class Operator:
                    for v in _as_list(vs)]
             for slot, vs in (outputs or {}).items()}
         self.attrs: Dict[str, Any] = dict(attrs or {})
+        if registry.is_generic_grad(type):
+            return              # a <type>_grad op carries its forward attrs
         opdef = registry.get_op_def(type)
         for aname, aspec in opdef.attrs.items():
             if aname not in self.attrs:
@@ -135,10 +152,16 @@ class Operator:
         return self.outputs.get(slot, [])
 
     @property
+    def input_arg_names(self) -> List[str]:
+        return [n for ns in self.inputs.values() for n in ns]
+
+    @property
     def output_arg_names(self) -> List[str]:
         return [n for ns in self.outputs.values() for n in ns]
 
     def infer_shape(self):
+        if registry.is_generic_grad(self.type):
+            return              # grad vars get their shapes at creation
         opdef = registry.get_op_def(self.type)
         if opdef.infer_shape is not None:
             opdef.infer_shape(self, self.block)
@@ -210,12 +233,35 @@ class Block:
     def has_var(self, name: str) -> bool:
         return name in self.vars
 
+    @property
+    def parent_block(self) -> Optional["Block"]:
+        if self.parent_idx < 0:
+            return None
+        return self.program.blocks[self.parent_idx]
+
+    def _var_recursive(self, name: str) -> Variable:
+        """The var in this block or the nearest ancestor that has it."""
+        blk = self
+        while blk is not None:
+            if name in blk.vars:
+                return blk.vars[name]
+            blk = blk.parent_block
+        raise KeyError(f"variable '{name}' not found in block {self.idx} "
+                       f"or ancestors")
+
+    def has_var_recursive(self, name: str) -> bool:
+        try:
+            self._var_recursive(name)
+            return True
+        except KeyError:
+            return False
+
     def append_op(self, type: str, inputs=None, outputs=None,
                   attrs=None) -> Operator:
         op = Operator(self, type, inputs=inputs, outputs=outputs,
                       attrs=attrs)
         op.attrs.setdefault("__uid__", self.program._next_uid())
-        op.attrs.setdefault("__op_role__", OpRole.Forward)
+        op.attrs.setdefault("__op_role__", self.program._op_role)
         if "op_callstack" not in op.attrs:
             site = _user_call_site()
             if site:
@@ -245,10 +291,26 @@ class Program:
         self.current_block_idx = 0
         self._uid_counter = 0
         self.random_seed = 0
+        self._op_role = OpRole.Forward       # stamped on appended ops
 
     def _next_uid(self) -> int:
         self._uid_counter += 1
         return self._uid_counter
+
+    @contextlib.contextmanager
+    def _op_role_guard(self, role: str):
+        old, self._op_role = self._op_role, role
+        try:
+            yield
+        finally:
+            self._op_role = old
+
+    def list_vars(self):
+        for blk in self.blocks:
+            yield from blk.vars.values()
+
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.list_vars() if isinstance(v, Parameter)]
 
     @property
     def global_block(self) -> Block:

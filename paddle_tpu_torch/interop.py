@@ -1,5 +1,11 @@
 """Carry parameters and state from numpy arrays into a port scope.
 
+A training scope carries across whole: the parameters, Adam's
+``moment1_*``/``moment2_*`` accumulators, its ``beta1_pow_acc_*``/
+``beta2_pow_acc_*`` powers and the learning-rate var all have the same
+names in both packages, so a reference scope planted here before a run,
+or read back after N steps, compares with the port's name by name.
+
 The JAX package runs with 64-bit types off, so its int64 vars come back
 from ``Scope.numpy`` as int32. :func:`scope_from_numpy` converts each
 array to the dtype the port declares for it (int32 -> int64 where the var

@@ -7,12 +7,20 @@ import torch
 from .decode_attention import (decode_attention_reference, decode_in_slices,
                                flash_attention_decode, paged_kv_append,
                                paged_kv_append_rows)
-from .flash_attention import (classify_shapes, flash_attention,
+from .flash_attention import (classify_backward_shapes, classify_shapes,
+                              dropout_keep, flash_attention,
+                              flash_attention_dkv,
+                              flash_attention_dkv_reference,
+                              flash_attention_dq,
+                              flash_attention_dq_reference,
                               flash_attention_reference,
-                              flash_attention_with_lse)
+                              flash_attention_with_lse, philox4x32_10)
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
-           "flash_attention_reference", "classify_shapes",
+           "flash_attention_reference", "flash_attention_dq",
+           "flash_attention_dq_reference", "flash_attention_dkv",
+           "flash_attention_dkv_reference", "classify_shapes",
+           "classify_backward_shapes", "philox4x32_10", "dropout_keep",
            "flash_attention_decode", "decode_attention_reference",
            "decode_in_slices", "paged_kv_append", "paged_kv_append_rows",
            "KERNEL_SOURCES", "KERNEL_TOL", "reset_launch_counts",
@@ -22,6 +30,8 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
 KERNEL_SOURCES = {
     "flash_attention_fwd": flash_attention_with_lse,
     "decode_attention": flash_attention_decode,
+    "flash_attention_dq": flash_attention_dq,
+    "flash_attention_dkv": flash_attention_dkv,
 }
 
 # How closely a kernel's output must match its plain version on the card

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface: one entry point named
 ``<name>`` that takes the stream last and returns ``cudaGetLastError()``.
 At first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library under ``paddle_tpu_torch/_build/`` (named by a hash of the source,
-so an edited source is rebuilt), loaded with ``ctypes`` and bound to its
-signature once. Nothing here runs at import time: the CPU tests import
-every module on a machine without ``nvcc``.
+library under ``paddle_tpu_torch/_build/`` (named by a hash of the source
+and the ``csrc/*.cuh`` headers, so an edited source or header is rebuilt),
+loaded with ``ctypes`` and bound to its signature once. Nothing here
+runs at import time: the CPU tests import every module on a machine
+without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -28,10 +29,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each entry point, the stream (last) included
+# the flash kernels' dropout tail: seed, drop_threshold | drop_scale
+_DROP = [_I, _I, _F]
 SIGNATURES = {
     # q, k, v, bias, o, lse | BH, Sq, Sk, D, num_heads, causal | scale |
-    # q_offset, k_offset, is_bf16 | stream
-    "flash_attention_fwd": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    # q_offset, k_offset, is_bf16 | dropout | stream
+    "flash_attention_fwd": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + _DROP
+    + [_P],
+    # q, k, v, bias, do, lse, delta, dq | (as the forward)
+    "flash_attention_dq": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 3 + _DROP
+    + [_P],
+    # q, k, v, bias, do, lse, delta, dk, dv | (as the forward)
+    "flash_attention_dkv": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 3 + _DROP
+    + [_P],
     # q, k_cache, v_cache, lengths, o | BH, q_len, S, D, num_heads |
     # scale | is_bf16 | stream
     "decode_attention": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
@@ -54,10 +64,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _compile(name: str) -> str:

@@ -1,4 +1,5 @@
-"""fluid.layers of the PyTorch port: the functions the GPT builders call."""
+"""fluid.layers of the PyTorch port: the functions the GPT and BERT
+builders call."""
 from .io import data  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from .nn2 import *  # noqa: F401,F403

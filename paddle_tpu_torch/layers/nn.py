@@ -1,5 +1,6 @@
 """Layer-building functions (reference: python/paddle/fluid/layers/nn.py),
-the subset ``models/gpt.py`` calls. Each follows the reference pattern:
+the subset ``models/gpt.py`` and ``models/bert.py`` call. Each follows
+the reference pattern:
 LayerHelper -> create params -> append op(s) -> return the out Variable.
 """
 from __future__ import annotations
@@ -12,8 +13,10 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "layer_norm", "gelu", "matmul",
            "fused_multihead_attention", "elementwise_add", "elementwise_sub",
-           "elementwise_mul", "elementwise_min", "scale", "reshape",
-           "transpose", "cast", "unsqueeze"]
+           "elementwise_mul", "elementwise_div", "elementwise_min",
+           "elementwise_max", "not_equal", "scale", "reshape", "transpose",
+           "cast", "unsqueeze", "dropout", "mean", "reduce_sum",
+           "softmax_with_cross_entropy", "slice"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -128,7 +131,10 @@ def _elementwise(op_type):
 elementwise_add = _elementwise("elementwise_add")
 elementwise_sub = _elementwise("elementwise_sub")
 elementwise_mul = _elementwise("elementwise_mul")
+elementwise_div = _elementwise("elementwise_div")
 elementwise_min = _elementwise("elementwise_min")
+elementwise_max = _elementwise("elementwise_max")
+not_equal = _elementwise("not_equal")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
@@ -177,4 +183,66 @@ def unsqueeze(input, axes, name=None):
     helper.append_op("unsqueeze2", inputs={"X": input},
                      outputs={"Out": out, "XShape": xshape},
                      attrs={"axes": list(axes)})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op("dropout", inputs={"X": x},
+                     outputs={"Out": out, "Mask": mask},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "fix_seed": seed is not None, "seed": seed or 0,
+                            "dropout_implementation":
+                                dropout_implementation})
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mean", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        attrs = {"dim": list(dims), "keep_dim": keep_dim,
+                 "reduce_all": False}
+    helper.append_op("reduce_sum", inputs={"X": input}, outputs={"Out": out},
+                     attrs=attrs)
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": logits, "Label": label},
+                     outputs={"Softmax": softmax_out, "Loss": loss},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index, "axis": axis,
+                            "numeric_stable_mode": numeric_stable_mode})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("slice", inputs={"Input": input}, outputs={"Out": out},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends), "decrease_axis": []})
     return out

@@ -8,12 +8,16 @@ earlier writes in the environment (in-order scope semantics).
 * ``LowerCtx`` — per-op context: the device and the op's own
   ``torch.Generator``, keyed on (step seed, op ``__uid__``).
 * ``lower_op`` / ``lower_block`` — the interpreter.
+* the generic ``<type>_grad`` — the default gradient of every op: the
+  forward rule runs again on the forward inputs under
+  ``torch.enable_grad()`` and ``torch.autograd.grad`` pulls the output
+  cotangents back, as the reference runs ``jax.vjp`` over the rule. The
+  autograd graph lives only inside the grad op that built it.
 * ``auto_infer_shape`` — build-time shapes: the op's rule runs on
   ``device="meta"`` tensors (no data, no compute), with two sentinel sizes
   for -1 dims, as the reference runs its rule under ``jax.eval_shape``.
 
-AMP, the nan-check taps and the generic gradient path wait for the
-training slice.
+AMP and the nan-check taps wait for a later slice.
 """
 from __future__ import annotations
 
@@ -41,12 +45,14 @@ class LowerCtx:
     def with_uid(self, uid: int) -> "LowerCtx":
         return LowerCtx(self.device, self.seed, uid)
 
-    def generator(self) -> Optional[torch.Generator]:
-        """A generator unique to this op instance and step; None during
-        shape inference (nothing runs on meta tensors)."""
+    def generator(self, device=None) -> Optional[torch.Generator]:
+        """A generator unique to this op instance and step, on ``device``
+        (default: the op's); None during shape inference (nothing runs on
+        meta tensors)."""
         if self.device.type == "meta":
             return None
-        g = torch.Generator(device=self.device)
+        g = torch.Generator(device=device if device is not None
+                            else self.device)
         mixed = ((int(self.seed or 0) * 0x9E3779B1
                   + int(self.uid) * 0x85EBCA77) & 0x7FFFFFFFFFFFFFFF)
         g.manual_seed(mixed)
@@ -94,8 +100,11 @@ def _write_outputs(op, outs, env: Dict[str, Any]) -> None:
 
 def lower_op(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
     """Run one op's rule against the environment, in place."""
-    opdef = registry.get_op_def(op.type)
     try:
+        if registry.is_generic_grad(op.type):
+            _lower_generic_grad(op, env, ctx)
+            return
+        opdef = registry.get_op_def(op.type)
         outs = opdef.lower(ctx.with_uid(op.attrs.get("__uid__", 0)),
                            _gather_inputs(op, env), op.attrs)
     except OpLoweringError:
@@ -111,6 +120,82 @@ def lower_block(block, env: Dict[str, Any], ctx: LowerCtx) -> Dict[str, Any]:
     for op in block.ops:
         lower_op(op, env, ctx)
     return env
+
+
+# ---------------------------------------------------------------------------
+# Generic gradient (the default grad rule of every op)
+# ---------------------------------------------------------------------------
+
+def _is_float(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.is_floating_point()
+
+
+def _lower_generic_grad(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
+    """Run a ``<fwd>_grad`` op emitted by ``backward.py``.
+
+    Grad-op layout: inputs ``<slot>`` (forward inputs), ``__out__<slot>``
+    (forward outputs, kept for parity) and ``<slot>@GRAD`` (cotangents of
+    the forward outputs, ``@EMPTY@`` where none reached them); outputs
+    ``<slot>@GRAD`` (gradients of the forward inputs, ``@EMPTY@`` holes);
+    attrs ``__fwd_type__``, ``__fwd_uid__`` and the forward attrs.
+    """
+    fwd_type = op.attrs["__fwd_type__"]
+    fwd_def = registry.get_op_def(fwd_type)
+    fwd_uid = op.attrs.get("__fwd_uid__", 0)
+    fwd_ctx = ctx.with_uid(fwd_uid)
+    if fwd_def.grad_lower is not None:
+        _write_outputs(op, fwd_def.grad_lower(
+            fwd_ctx, _gather_inputs(op, env), op.attrs), env)
+        return
+
+    fwd_attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
+    fwd_attrs["__uid__"] = fwd_uid
+    fwd_in_slots = [s.name for s in fwd_def.inputs if s.name in op.inputs]
+    fwd_ins = {slot: [env[n] if n != EMPTY_VAR_NAME else None
+                      for n in op.inputs[slot]] for slot in fwd_in_slots}
+
+    # (slot, i) of each input whose gradient is asked for and is a float
+    diff_pos = []
+    for slot in fwd_in_slots:
+        for i, gname in enumerate(op.outputs.get(slot + "@GRAD", ())):
+            if gname != EMPTY_VAR_NAME and i < len(fwd_ins[slot]) \
+                    and _is_float(fwd_ins[slot][i]):
+                diff_pos.append((slot, i))
+    if not diff_pos:
+        return
+
+    primals = [fwd_ins[s][i].detach().requires_grad_() for s, i in diff_pos]
+    with torch.enable_grad():
+        ins = {s: list(vs) for s, vs in fwd_ins.items()}
+        for (s, i), p in zip(diff_pos, primals):
+            ins[s][i] = p
+        outs = fwd_def.lower(fwd_ctx, ins, fwd_attrs) or {}
+        # float outputs that depend on a primal, each with its cotangent;
+        # an output no cotangent reached contributes zero and is skipped
+        ys, cts = [], []
+        for ospec in fwd_def.outputs:
+            vals = outs.get(ospec.name)
+            if vals is None:
+                continue
+            if not isinstance(vals, (list, tuple)):
+                vals = [vals]
+            gnames = op.inputs.get(ospec.name + "@GRAD", [])
+            for i, y in enumerate(vals):
+                if not _is_float(y) or not y.requires_grad \
+                        or i >= len(gnames) or gnames[i] == EMPTY_VAR_NAME:
+                    continue
+                g = env[gnames[i]]
+                if g.dtype != y.dtype:
+                    g = g.to(y.dtype)
+                if g.shape != y.shape:
+                    g = g.reshape(y.shape)   # [1]-shaped loss grad vs scalar
+                ys.append(y)
+                cts.append(g)
+        grads = (torch.autograd.grad(ys, primals, cts, allow_unused=True)
+                 if ys else [None] * len(primals))
+    for (slot, i), p, g in zip(diff_pos, primals, grads):
+        env[op.outputs[slot + "@GRAD"][i]] = torch.zeros_like(p) \
+            if g is None else g
 
 
 # Two sentinel batch sizes for -1 dims: the rule runs twice and an output

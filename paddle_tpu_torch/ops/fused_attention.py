@@ -2,12 +2,19 @@
 ``paddle_tpu/ops/fused_attention.py``).
 
 Routing, as the reference's ``_route``: ``FLAGS_use_flash_attention=never``
-asks for the plain PyTorch version explicitly; otherwise a CUDA tensor
-launches the hand-written kernel (``kernels/flash_attention.py``) and a
-CPU tensor takes the plain version. There is no fallback from the kernel:
-a shape the kernel refuses raises.
+asks for the plain PyTorch version explicitly (differentiated by
+autograd); otherwise a CUDA tensor launches the hand-written kernels
+(``kernels/flash_attention.py``: K1 forward, K3/K4 backward) and a CPU
+tensor takes their plain versions. There is no fallback from a kernel: a
+shape a kernel refuses raises.
+
+Attention dropout draws its int32 seed from the op's generator, keyed on
+(step seed, op uid) like every random op, so the generic grad op's
+recompute and the backward kernels regenerate the forward's mask.
 """
 from __future__ import annotations
+
+import torch
 
 from .. import flags
 from .common import IOSpec, register_op, x
@@ -41,9 +48,6 @@ def _fused_mha(ctx, ins, attrs):
         raise NotImplementedError(
             "sequence-parallel (ring) attention waits for the port's "
             "multi-device slice")
-    if dropout > 0.0:
-        raise NotImplementedError(
-            "attention dropout arrives with the port's training slice")
     if bias is not None:
         if bias.dim() == 4:
             bias = bias.reshape(bias.shape[0], bias.shape[-1])
@@ -51,9 +55,15 @@ def _fused_mha(ctx, ins, attrs):
             raise ValueError(f"BiasQK must be [B, S] or [B, 1, 1, S], got "
                              f"{tuple(bias.shape)}")
         bias = bias.float()
+    seed = 0
+    if dropout > 0.0 and not q.is_meta:
+        # drawn on the host: no device sync
+        seed = int(torch.randint(0, 2 ** 31 - 1, (),
+                                 generator=ctx.generator(device="cpu")))
     fn = flash_attention_reference if plain_requested() \
         else flash_attention_with_lse
     o, _ = fn(q.reshape(B * H, Sq, D), k.reshape(B * H, Sk, D),
               v.reshape(B * H, Sk, D), bias=bias,
-              causal=bool(attrs["causal"]), scale=scale, num_heads=H)
+              causal=bool(attrs["causal"]), scale=scale, num_heads=H,
+              dropout_rate=dropout, seed=seed)
     return {"Out": [o.reshape(B, H, Sq, D)]}

@@ -1,11 +1,17 @@
-"""Elementwise, activation, scale and cast ops (counterpart of
-``paddle_tpu/ops/math.py``), the ones the GPT path runs."""
+"""Elementwise, activation, scale, sum, cast and comparison ops
+(counterpart of ``paddle_tpu/ops/math.py``), the ones the GPT and BERT
+paths run."""
 from __future__ import annotations
 
 import torch
 
 from ..core.types import torch_dtype
-from .common import broadcast_to_x, out, register_op, x
+from .common import IOSpec, broadcast_to_x, out, register_op, x
+
+
+@register_op("tanh", inputs=["X"], outputs=["Out"])
+def _tanh(ctx, ins, attrs):
+    return out(torch.tanh(x(ins)))
 
 
 @register_op("gelu", inputs=["X"], outputs=["Out"],
@@ -27,7 +33,9 @@ for _name, _fn in [
     ("elementwise_add", torch.add),
     ("elementwise_sub", torch.sub),
     ("elementwise_mul", torch.mul),
+    ("elementwise_div", torch.div),
     ("elementwise_min", torch.minimum),
+    ("elementwise_max", torch.maximum),
 ]:
     register_op(_name, inputs=["X", "Y"], outputs=["Out"],
                 attrs={"axis": -1})(_ew(_fn))
@@ -46,3 +54,18 @@ def _scale(ctx, ins, attrs):
              attrs={"in_dtype": None, "out_dtype": "float32"})
 def _cast(ctx, ins, attrs):
     return out(x(ins).to(torch_dtype(attrs["out_dtype"])))
+
+
+@register_op("sum", inputs=[IOSpec("X", duplicable=True)], outputs=["Out"])
+def _sum(ctx, ins, attrs):
+    """Dense sum of the inputs (backward's grad accumulation)."""
+    vals = [v for v in ins.get("X", []) if v is not None]
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = acc + v
+    return out(acc)
+
+
+@register_op("not_equal", inputs=["X", "Y"], outputs=["Out"], grad=None)
+def _not_equal(ctx, ins, attrs):
+    return out(torch.ne(x(ins, "X"), x(ins, "Y")))

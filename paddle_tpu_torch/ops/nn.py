@@ -1,7 +1,7 @@
 """Neural-net ops (counterpart of ``paddle_tpu/ops/nn.py``): mul, matmul,
-layer_norm. Plain GEMMs go to ``torch.matmul``, as the JAX package leaves
-them to XLA; in float32 they run in full float32 (no TF32) unless the
-caller turned ``torch.backends.cuda.matmul.allow_tf32`` on."""
+layer_norm, dropout. Plain GEMMs go to ``torch.matmul``, as the JAX
+package leaves them to XLA; in float32 they run in full float32 (no TF32)
+unless the caller turned ``torch.backends.cuda.matmul.allow_tf32`` on."""
 from __future__ import annotations
 
 import math
@@ -57,3 +57,29 @@ def _layer_norm(ctx, ins, attrs):
     lead = math.prod(xv.shape[:bna])
     return {"Y": [y], "Mean": [mean.reshape(lead)],
             "Variance": [var.reshape(lead)]}
+
+
+@register_op("dropout", inputs=["X"], outputs=["Out", "Mask"],
+             attrs={"dropout_prob": 0.5, "is_test": False, "seed": 0,
+                    "fix_seed": False,
+                    "dropout_implementation": "downgrade_in_infer"},
+             needs_rng=True)
+def _dropout(ctx, ins, attrs):
+    """The mask comes from the op's own generator, keyed on (step seed,
+    op uid): the grad op recomputes this rule with the forward's uid and
+    draws the same mask. The bits differ from jax.random's."""
+    xv = x(ins)
+    p = attrs["dropout_prob"]
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test"):
+        y = xv * (1.0 - p) if impl == "downgrade_in_infer" else xv
+        return {"Out": [y], "Mask": [torch.ones_like(xv)]}
+    gen = ctx.generator()
+    if gen is not None and attrs.get("fix_seed"):
+        gen.manual_seed(int(attrs["seed"]))
+    u = torch.rand(xv.shape, generator=gen, device=xv.device)
+    mask = (u >= p).to(xv.dtype)
+    y = xv * mask
+    if impl == "upscale_in_train" and p < 1.0:
+        y = y / (1.0 - p)
+    return {"Out": [y], "Mask": [mask]}

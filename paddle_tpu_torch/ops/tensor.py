@@ -1,5 +1,5 @@
 """Tensor creation / manipulation ops (counterpart of
-``paddle_tpu/ops/tensor.py``), the ones the GPT path runs. Random ops
+``paddle_tpu/ops/tensor.py``), the ones the GPT and BERT paths run. Random ops
 draw from the op's own ``torch.Generator`` (``LowerCtx.generator``)."""
 from __future__ import annotations
 
@@ -106,10 +106,44 @@ def _unsqueeze2(ctx, ins, attrs):
     return {"Out": [res], "XShape": [_xshape(xv)]}
 
 
+@register_op("slice", inputs=["Input"], outputs=["Out"],
+             attrs={"axes": [], "starts": [], "ends": [],
+                    "decrease_axis": []})
+def _slice(ctx, ins, attrs):
+    xv = x(ins, "Input")
+    idx = [slice(None)] * xv.dim()
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        idx[ax] = slice(st, en)
+    res = xv[tuple(idx)]
+    if attrs.get("decrease_axis"):
+        res = res.squeeze(tuple(attrs["decrease_axis"]))
+    return out(res)
+
+
+def _lookup_table_grad(ctx, ins, attrs):
+    """Dense scatter-add of the output grad into the table's rows, as the
+    reference's custom grad for a dense table: ids clamped as the forward
+    gathers them; padding rows go to a spare row that is dropped."""
+    if attrs.get("is_sparse") or attrs.get("is_distributed"):
+        raise NotImplementedError(
+            "sparse (SelectedRows) embedding grads wait for a later slice "
+            "of the port")
+    w, ids, g = x(ins, "W"), x(ins, "Ids"), x(ins, "Out@GRAD")
+    height, dim = w.shape[0], w.shape[-1]
+    flat = ids.reshape(-1).long().clamp(0, height - 1)
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad != -1:
+        flat = torch.where(flat == pad, torch.full_like(flat, height), flat)
+    dense = torch.zeros((height + 1, dim), dtype=w.dtype, device=w.device)
+    dense.index_add_(0, flat, g.reshape(-1, dim).to(w.dtype))
+    return {"W@GRAD": [dense[:height]]}
+
+
 @register_op("lookup_table", inputs=[IOSpec("W"), IOSpec("Ids", no_grad=True)],
              outputs=["Out"],
              attrs={"is_sparse": False, "is_distributed": False,
-                    "padding_idx": -1, "remote_prefetch": False})
+                    "padding_idx": -1, "remote_prefetch": False},
+             grad_lower=_lookup_table_grad)
 def _lookup_table(ctx, ins, attrs):
     w, ids = x(ins, "W"), x(ins, "Ids")
     if ids.dim() >= 2 and ids.shape[-1] == 1:

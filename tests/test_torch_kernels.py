@@ -1,7 +1,8 @@
 """The PyTorch port's attention kernels: plain versions against the JAX
-package's Pallas kernels (interpret mode), the paged KV appends, the
-Hopper shape rules and the q_len > 8 slicing rule, on the CPU. The
-CUDA kernels themselves run only on the card (tests/test_torch_cuda.py)."""
+package's Pallas kernels (interpret mode), forward and backward, the
+Philox dropout mask, the paged KV appends, the Hopper shape rules and the
+q_len > 8 slicing rule, on the CPU. The CUDA kernels themselves run only
+on the card (tests/test_torch_cuda.py)."""
 import ctypes
 import os
 import re
@@ -10,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
-from paddle_tpu.kernels import (flash_attention_decode as j_decode,
+from paddle_tpu.kernels import (flash_attention as j_flash_o,
+                                flash_attention_decode as j_decode,
                                 flash_attention_with_lse as j_flash,
                                 paged_kv_append as j_append,
                                 paged_kv_append_rows as j_append_rows)
@@ -172,9 +175,177 @@ def test_ctypes_signature_matches_the_c_entry_point(name):
 
 def test_cpu_tensors_never_count_a_launch():
     K.reset_launch_counts()
-    q = torch.randn(2, 8, 16)
-    K.flash_attention_with_lse(q, q, q, causal=True)
+    q = torch.randn(2, 8, 16, requires_grad=True)
+    o, _ = K.flash_attention_with_lse(q, q, q, causal=True, dropout_rate=0.1,
+                                      seed=3)
+    o.sum().backward()
     K.flash_attention_decode(q[:, :1], q, q, torch.tensor([3, 8]),
                              num_heads=1)
     assert K.launch_counts() == {"flash_attention_fwd": 0,
-                                 "decode_attention": 0}
+                                 "decode_attention": 0,
+                                 "flash_attention_dq": 0,
+                                 "flash_attention_dkv": 0}
+
+
+# Gradients through the flash attention: the port's autograd.Function (on
+# the CPU its backward is the explicit plain dQ / dK,dV formulas) against
+# jax.grad through the JAX package's custom_vjp (its _dq_kernel and
+# _dkv_kernel in interpret mode), as tests/test_flash_attention.py checks
+# the TPU kernels against the primitive path. Tolerance as there.
+GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-3
+
+
+def _qkv(BH, S, D=64):
+    return [RNG.randn(BH, S, D).astype(np.float32) for _ in range(3)]
+
+
+def _torch_grads(loss_fn, *arrays):
+    ts = [_t(a).requires_grad_() for a in arrays]
+    return [g.numpy() for g in torch.autograd.grad(loss_fn(*ts), ts)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_gradients_match_jax_kernels(causal):
+    q, k, v = _qkv(2, 128)
+    bias = np.where(RNG.rand(2, 128) > 0.25, 0.0, -10000.0).astype(
+        np.float32)
+
+    def j_loss(q, k, v):
+        return jnp.sum(jnp.tanh(j_flash_o(q, k, v, bias=jnp.asarray(bias),
+                                          causal=causal, num_heads=1,
+                                          interpret=True)))
+
+    def t_loss(q, k, v):
+        return torch.tanh(K.flash_attention(q, k, v, bias=_t(bias),
+                                            causal=causal, num_heads=1)).sum()
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(q, k, v)
+    for a, b in zip(_torch_grads(t_loss, q, k, v), want):
+        np.testing.assert_allclose(a, np.asarray(b), atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL)
+
+
+def test_lse_combination_differentiates_like_jax():
+    """Two kernel calls over halves of the keys recombined through lse:
+    values and gradients equal the JAX package's, so the lse cotangent
+    reaches dQ and dK."""
+    q, k, v = _qkv(2, 256)
+    halves = [k[:, :128], k[:, 128:], v[:, :128], v[:, 128:]]
+
+    def combine(lib, fn, exp):
+        def loss(q, k1, k2, v1, v2):
+            o1, l1 = fn(q, k1, v1)
+            o2, l2 = fn(q, k2, v2)
+            l = lib.logaddexp(l1, l2)
+            o = o1 * exp(l1 - l)[..., None] + o2 * exp(l2 - l)[..., None]
+            return lib.tanh(o).sum()
+        return loss
+
+    j_loss = combine(jnp, lambda q, k, v: j_flash(q, k, v, interpret=True),
+                     jnp.exp)
+    t_loss = combine(torch, K.flash_attention_with_lse, torch.exp)
+    np.testing.assert_allclose(
+        float(t_loss(*(_t(a) for a in [q] + halves))),
+        float(j_loss(q, *halves)), rtol=1e-5)
+    want = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(q, *halves)
+    for a, b in zip(_torch_grads(t_loss, q, *halves), want):
+        np.testing.assert_allclose(a, np.asarray(b), atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL)
+
+
+def test_dead_rows_give_zero_output_and_zero_grads():
+    """Every key causally in the future of every query: o = 0, lse = -inf,
+    and all three gradients exactly 0, as the JAX package's kernels give."""
+    q, k, v = _qkv(2, 128)
+    jo, jl = j_flash(q, k, v, causal=True, k_offset=128, interpret=True)
+    o, lse = K.flash_attention_with_lse(_t(q), _t(k), _t(v), causal=True,
+                                        k_offset=128)
+    assert torch.all(o == 0) and torch.all(torch.isneginf(lse))
+    assert np.all(np.asarray(jo) == 0) and np.all(np.isneginf(jl))
+    grads = _torch_grads(lambda q, k, v: K.flash_attention_with_lse(
+        q, k, v, causal=True, k_offset=128)[0].sum(), q, k, v)
+    for g in grads:
+        assert np.all(np.isfinite(g)) and np.all(g == 0)
+
+
+def test_dq_dkv_wrappers_match_autograd_of_the_plain_forward():
+    """The explicit backward formulas (K3/K4's plain versions) against
+    torch autograd of the plain forward, with dropout and an lse
+    cotangent, on ragged shapes."""
+    q = _t(RNG.randn(6, 37, 32).astype(np.float32))
+    k, v = (_t(RNG.randn(6, 53, 32).astype(np.float32)) for _ in range(2))
+    bias = torch.zeros(2, 53)
+    bias[1, 40:] = -10000.0
+    kw = dict(bias=bias, causal=True, q_offset=20, num_heads=3,
+              dropout_rate=0.2, seed=99)
+    do = _t(RNG.randn(6, 37, 32).astype(np.float32))
+    dlse = _t(RNG.randn(6, 37).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = K.flash_attention_reference(*leaves, **kw)
+    want = torch.autograd.grad((o * do).sum() + (lse * dlse).sum(), leaves)
+    o, lse = K.flash_attention_reference(q, k, v, **kw)
+    delta = (do * o).sum(-1) - dlse
+    args = (q, k, v, bias, do, lse, delta)
+    bkw = {n: kw[n] for n in ("causal", "q_offset", "num_heads",
+                              "dropout_rate", "seed")}
+    dq = K.flash_attention_dq(*args, **bkw)
+    dk, dv = K.flash_attention_dkv(*args, **bkw)
+    for a, b in zip((dq, dk, dv), want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+# Philox4x32-10 known-answer vectors (Random123's kat_vectors: counter
+# words, key words -> output words)
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+]
+
+
+@pytest.mark.parametrize("ctr,key,want", PHILOX_KAT)
+def test_philox_known_answers(ctr, key, want):
+    words = K.philox4x32_10(*(torch.tensor([w], dtype=torch.int64)
+                              for w in ctr + key))
+    assert tuple(int(w) for w in words) == want
+
+
+def test_dropout_mask_is_a_function_of_its_key():
+    a = K.dropout_keep(7, 4, 64, 96, 0.1)
+    assert torch.equal(a, K.dropout_keep(7, 4, 64, 96, 0.1))
+    assert not torch.equal(a, K.dropout_keep(8, 4, 64, 96, 0.1))
+    # the mask of an element does not depend on the extent around it
+    assert torch.equal(a[:2, :30, :50], K.dropout_keep(7, 2, 30, 50, 0.1))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_keep_rate_within_four_sigma(rate):
+    keep = K.dropout_keep(2024, 8, 128, 128, rate)
+    n = keep.numel()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(keep.float().mean().item() - (1 - rate)) < 4 * sigma
+
+
+def test_flash_dropout_is_identical_across_calls():
+    q, k, v = (_t(a) for a in _qkv(4, 64, 32))
+    a = K.flash_attention_with_lse(q, k, v, dropout_rate=0.1, seed=5)
+    b = K.flash_attention_with_lse(q, k, v, dropout_rate=0.1, seed=5)
+    c = K.flash_attention_with_lse(q, k, v, dropout_rate=0.1, seed=6)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert not torch.equal(a[0], c[0])
+    # lse is the undropped normaliser
+    assert torch.equal(a[1], K.flash_attention_with_lse(q, k, v)[1])
+
+
+@pytest.mark.parametrize("sq,sk,d,ok", [
+    (128, 128, 64, True), (77, 130, 128, True), (1, 1, 8, True),
+    (16, 16, 136, False), (16, 16, 12, False), (0, 16, 64, False)])
+def test_classify_backward_shapes_refuses_with_a_reason(sq, sk, d, ok):
+    kind, why = K.classify_backward_shapes(sq, sk, d)
+    assert (kind == "backward") == ok, why
+    if not ok:
+        assert ("head_dim" in why) or (">= 1" in why)

@@ -1,8 +1,9 @@
-"""Every op type of the port's GPT serving path against the JAX package's
-rule, on the CPU. Each case is a single-op program built the same way in
-both packages (data vars, one ``append_op``) and run on the same numpy
-feeds; the outputs' build-time shapes must match too. Random ops are
-compared by distribution and by determinism, never by bits."""
+"""Every op type of the port's GPT serving and BERT training paths against
+the JAX package's rule, on the CPU. Each case is a single-op program built
+the same way in both packages (data vars, one ``append_op``) and run on
+the same numpy feeds; the outputs' build-time shapes must match too.
+Random ops are compared by distribution and by determinism, never by
+bits."""
 import numpy as np
 import pytest
 
@@ -92,6 +93,38 @@ CASES = {
                                      -10000.0).astype(np.float32)
                     .reshape(B, 1, 1, S)}},
         {"Out": ["o"]}, {"causal": True, "is_test": True}, ["o"]),
+    "mean": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]}, {}, ["o"]),
+    "reduce_sum": ({"X": {"x": f32(2, 3, 4)}}, {"Out": ["o"]},
+                   {"dim": [0, 2], "keep_dim": True}, ["o"]),
+    "softmax_with_cross_entropy": (
+        {"Logits": {"lg": f32(2, 3, 6)},
+         "Label": {"lb": np.array([[[1], [-100], [5]], [[0], [2], [3]]],
+                                  np.int64)}},
+        {"Softmax": ["sm"], "Loss": ["l"]}, {"ignore_index": -100},
+        ["sm", "l"]),
+    "tanh": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]}, {}, ["o"]),
+    "elementwise_div": ({"X": {"x": f32(2, 3)}, "Y": {"y": f32(1) + 3}},
+                        {"Out": ["o"]}, {}, ["o"]),
+    "elementwise_max": ({"X": {"x": f32(1)}, "Y": {"y": f32(1)}},
+                        {"Out": ["o"]}, {}, ["o"]),
+    "sum": ({"X": {"a": f32(3, 4), "b": f32(3, 4)}}, {"Out": ["o"]}, {},
+            ["o"]),
+    "not_equal": ({"X": {"x": np.array([[[1], [-100]], [[3], [-100]]],
+                                       np.int64)},
+                   "Y": {"y": np.array([-100], np.int64)}},
+                  {"Out": ["o"]}, {}, ["o"]),
+    "slice": ({"Input": {"x": f32(2, 5, 4)}}, {"Out": ["o"]},
+              {"axes": [1], "starts": [0], "ends": [1]}, ["o"]),
+    "adam": ({"Param": {"p": f32(4, 3)}, "Grad": {"g": f32(4, 3)},
+              "LearningRate": {"lr": np.float32([0.01])},
+              "Moment1": {"m1": f32(4, 3) * 0.1},
+              "Moment2": {"m2": np.abs(f32(4, 3)) * 0.01},
+              "Beta1Pow": {"b1p": np.float32([0.81])},
+              "Beta2Pow": {"b2p": np.float32([0.998])}},
+             {"ParamOut": ["po"], "Moment1Out": ["m1o"],
+              "Moment2Out": ["m2o"], "Beta1PowOut": ["b1o"],
+              "Beta2PowOut": ["b2o"]}, {},
+             ["po", "m1o", "m2o", "b1o", "b2o"]),
     "fused_decode_attention": (
         {"Q": {"q": f32(B, H, 3, D)}, "KNew": {"kn": f32(B, H, 3, D)},
          "VNew": {"vn": f32(B, H, 3, D)}, "CacheK": {"ck": CACHE_K.copy()},
@@ -137,12 +170,16 @@ def _run_both(op_type, case):
     return jmain, tmain, jout, tout
 
 
+RANDOM_OPS = {"truncated_gaussian_random", "dropout"}
+
+
 def test_every_path_op_has_a_case():
+    """Every op type of the port but the random ones (checked by
+    distribution: here and in tests/test_torch_train.py) has a case."""
     from paddle_tpu_torch.core import registry
 
-    assert len(CASES) == 22 and "truncated_gaussian_random" not in CASES
-    assert set(CASES) | {"truncated_gaussian_random"} \
-        == set(registry.all_ops())
+    assert len(CASES) == 32 and not RANDOM_OPS & set(CASES)
+    assert set(CASES) | RANDOM_OPS == set(registry.all_ops())
 
 
 @pytest.mark.parametrize("op_type", sorted(CASES))

@@ -112,8 +112,7 @@ def test_warm_up_and_stats(nets):
     with eng:
         with pytest.raises(RuntimeError, match="started engine"):
             eng.warm_up()
-    assert K.launch_counts() == {"flash_attention_fwd": 0,
-                                 "decode_attention": 0}
+    assert set(K.launch_counts().values()) == {0}
 
 
 def test_mid_stream_deadline_settles_typed(nets):
