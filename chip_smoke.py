@@ -6,16 +6,17 @@ Phases, in order; any failure exits non-zero (no phase is caught):
 
 1. device — requires CUDA; prints the card's name and power limit; turns
    TF32 off for float32 matrix products and convolutions.
-2. kernels — builds every kernel of the serving and training paths from
-   ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), runs
-   each on the card at the main paths' shapes against its plain PyTorch
-   version (``kernels.KERNEL_TOL``: f32 atol 1e-4 / rtol 1e-3, the two sum
-   in different orders; bf16 atol 8e-3 / rtol 1.6e-2, about two bf16
-   ulp), checks that K1, K3 and K4 drop exactly the elements the plain
-   version's Philox mask drops, and times kernel, plain version and one
-   library call (``F.scaled_dot_product_attention`` with an equivalent
-   mask: its forward for K1 and K2, its backward alone for K3 and K4) with
-   CUDA events, L2 flushed before each launch.
+2. kernels — builds every kernel of the serving, training and inference
+   paths from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all at
+   once), runs each on the card at the main paths' shapes against its
+   plain PyTorch version (``kernels.KERNEL_TOL``: f32 atol 1e-4 / rtol
+   1e-3, the two sum in different orders; bf16 atol 8e-3 / rtol 1.6e-2,
+   about two bf16 ulp), checks that K1, K3 and K4 drop exactly the
+   elements the plain version's Philox mask drops, and times kernel,
+   plain version and one library call (``F.scaled_dot_product_attention``
+   with an equivalent mask: its forward for K1 and K2, its backward alone
+   for K3 and K4; ``torch.addmm`` for K5, the GEMM + bias part of its
+   work) with CUDA events, L2 flushed before each launch.
 3. serve — GPT-2 small (``GptConfig.base()``, random weights from
    ``--seed``) behind ``GenerativeEngine``: 8 slots, 1024-token paged KV,
    prompt buckets 128/512; 12 greedy requests of 32 new tokens (prompts of
@@ -37,7 +38,21 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    device memory held between steps stays flat. Reports steps/s,
    tokens/s, peak device memory and one profiled step's device idle share
    and top kernels.
-6. prints the ``kernels`` JSON line, the card line, and as the last line
+6. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
+   512; ``build_bert_pretrain(build_optimizer=False)`` cloned for test;
+   random weights and a synthetic batch from ``--seed``; fetch the loss
+   and the last encoder layer), run three ways on the same weights and
+   feed: (a) ``FLAGS_epilogue_fusion=1``, the fusion pass (witnessed on
+   the card) fusing 75 chains, K5 launched 74 times a forward (every chain
+   but the NSP head, n = 2, which ``classify_gemm`` refuses) and K1 12;
+   (b) ``FLAGS_epilogue_fusion=0``, the unfused program on cuBLAS; (c)
+   fusion with ``FLAGS_use_fused_gemm=never``, the dense replay, bit-exact
+   against (b) with no K5 launch. (a) and (b) agree on the loss within
+   rtol 1e-4 and on the encoder output within atol 1e-3; reports forward
+   ms (median of 5 after a warm-up), peak device memory, one profiled
+   forward's device idle share and top kernels, and the witness's largest
+   error per chain signature.
+7. prints the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``. With ``--out-dir``, everything
    measured is also written to ``DIR/chip_smoke.json``.
 """
@@ -75,6 +90,7 @@ REPLACES = {
     "decode_attention": "paddle_tpu/kernels/decode_attention.py:117",
     "flash_attention_dq": "paddle_tpu/kernels/flash_attention.py:293",
     "flash_attention_dkv": "paddle_tpu/kernels/flash_attention.py:327",
+    "fused_gemm": "paddle_tpu/kernels/fused_gemm.py:146",
 }
 # the kernels the serving path runs (no backward there)
 SERVE_KERNELS = ("flash_attention_fwd", "decode_attention")
@@ -83,7 +99,8 @@ SERVE_KERNELS = ("flash_attention_fwd", "decode_attention")
 MAIN_ROW = {"flash_attention_fwd": ([96, 512, 64], "float32", 0.0),
             "decode_attention": ([96, 1, 1024, 64], "float32", 0.0),
             "flash_attention_dq": ([384, 128, 64], "float32", 0.1),
-            "flash_attention_dkv": ([384, 128, 64], "float32", 0.1)}
+            "flash_attention_dkv": ([384, 128, 64], "float32", 0.1),
+            "fused_gemm": ([16384, 3072, 768], "float32", 0.0)}
 
 
 def log(*a):
@@ -375,6 +392,52 @@ def check_masks(BH=384, S=128, D=128, rate=0.1, seed=99):
                 keep_share=float(keep.float().mean()), differing=0)
 
 
+# K5 at the inference path's shapes (BERT-base, batch 32 x seq 512 =
+# 16384 rows): (m, n, k, epilogue, input type, output type)
+GEMM_ROWS = (
+    (16384, 768, 768, "bias", torch.float32, torch.float32),      # q,k,v,out
+    (16384, 3072, 768, "bias+gelu", torch.float32, torch.float32),   # FFN1
+    (16384, 768, 3072, "bias", torch.float32, torch.float32),        # FFN2
+    (16384, 768, 768, "bias+gelu+layer_norm", torch.float32,
+     torch.float32),                                                 # MLM
+    (16384, 3072, 768, "bias+gelu", torch.bfloat16, torch.float32),
+    (16384, 3072, 768, "bias+gelu", torch.bfloat16, torch.bfloat16))
+
+
+def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype):
+    """K5 against its plain version at one shape; times kernel, plain
+    version and ``torch.addmm(bias, x, y)``."""
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    y = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5) \
+        .to(dtype)
+    bias = torch.randn(n, generator=gen, device="cuda")
+    ln = "layer_norm" in epilogue
+    args = dict(bias=bias, activation="gelu" if "gelu" in epilogue
+                else "none", layer_norm=ln, out_dtype=out_dtype)
+    if ln:
+        args.update(ln_scale=torch.randn(n, generator=gen, device="cuda"),
+                    ln_bias=torch.randn(n, generator=gen, device="cuda"))
+    n0 = K.fused_gemm.launches
+    got = K.fused_gemm(x, y, **args)
+    if K.fused_gemm.launches != n0 + 1:
+        raise SystemExit("chip_smoke: fused_gemm did not launch")
+    want = K.fused_gemm_reference(x, y, **args)
+    torch.cuda.synchronize()
+    dts, odts = str(dtype)[6:], str(out_dtype)[6:]
+    tag = f"K5 [{m},{k}]@[{k},{n}] +{epilogue} {dts}->{odts}"
+    err = compare(tag, got, want, out_dtype)
+    ms = time_ms(lambda: K.fused_gemm(x, y, **args))
+    plain = time_ms(lambda: K.fused_gemm_reference(x, y, **args))
+    lib = time_ms(lambda: torch.addmm(bias.to(dtype), x, y))
+    elt = x.element_size()
+    nbytes = ((m * k + k * n) * elt + m * n * got.element_size()
+              + n * 4 * (3 if ln else 1))
+    b_ms, b_by = bound(2 * m * n * k, nbytes, dtype)
+    return dict(shape=[m, n, k], dtype=dts, out_dtype=odts,
+                epilogue=epilogue, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_kernels(seed):
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(K.KERNEL_SOURCES)) as pool:
@@ -402,15 +465,20 @@ def phase_kernels(seed):
         res["flash_attention_dq"].append(dq_row)
         res["flash_attention_dkv"].append(dkv_row)
     masks = check_masks()
+    for row in GEMM_ROWS:
+        res["fused_gemm"].append(check_gemm(gen, *row))
     for name, rows in res.items():
         for r in rows:
             lib = r["library_ms"]
             drop = f" dropout {r['dropout']}" if r.get("dropout") else ""
+            if name == "fused_gemm":
+                drop = f" +{r['epilogue']} -> {r['out_dtype']}"
             backend = " " + r["library_backend"] \
                 if r.get("library_backend") else ""
+            libname = "addmm" if name == "fused_gemm" else "sdpa"
             log(f"  {name} {r['shape']} {r['dtype']}{drop}: kernel "
                 f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
-                f"sdpa{backend} "
+                f"{libname}{backend} "
                 f"{'n/a' if lib is None else f'{lib:.4f} ms'} | bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return res, masks
@@ -636,11 +704,19 @@ def train(net, init, feed, plain):
 def profile_step(net, exe, scope, feed):
     """One more kernel-path step under torch.profiler: device busy time
     (summed kernel time) over the step's wall time."""
+    return profile_run(lambda: exe.run(net["main"], feed=feed,
+                                       fetch_list=[net["loss"]],
+                                       scope=scope))
+
+
+def profile_run(fn):
+    """``fn()`` (which ends in a host read of its result) under
+    torch.profiler: device busy time (summed kernel time) over wall
+    time, and the top kernels."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(net["main"], feed=feed, fetch_list=[net["loss"]],
-                scope=scope)
+        fn()
         wall = time.perf_counter() - t0
     rows = sorted(((_device_us(e), e.key, e.count)
                    for e in prof.key_averages()
@@ -728,6 +804,143 @@ def phase_train(seed):
         launches=kern["launches"], profiled_step=prof)
 
 
+# ---------------------------------------------------------------- infer
+INFER_BATCH, INFER_SEQ, INFER_FORWARDS = 32, 512, 5
+# BERT-base inference: the fusion pass fuses 75 chains (q, k, v, out-proj
+# and FFN2 of 12 layers, the pooler and the NSP head: bias; FFN1: bias +
+# gelu; the MLM transform: bias + gelu + layer_norm); K5 takes all but the
+# NSP head (n = 2, not a multiple of 4), K1 runs once a layer
+INFER_CHAINS = 75
+INFER_LAUNCHES = {"fused_gemm": 74, "flash_attention_fwd": 12}
+
+
+def infer_run(prog, fetch, init, feed, fused, kernel="auto"):
+    """INFER_FORWARDS timed forwards of ``prog`` after one warm-up (which
+    also runs the fusion pass and its witness) on a fresh executor, plus
+    one profiled forward; each forward ends in a host read of the loss."""
+    fluid.set_flags({"FLAGS_epilogue_fusion": fused,
+                     "FLAGS_use_fused_gemm": kernel})
+    try:
+        exe, scope = fluid.Executor(), fluid.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t)
+
+        def forward():
+            outs = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
+                           return_numpy=False)
+            outs[0].item()
+            return outs
+
+        t0 = time.perf_counter()
+        forward()
+        warm = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        times = []
+        for _ in range(INFER_FORWARDS):
+            t0 = time.perf_counter()
+            outs = forward()
+            times.append(time.perf_counter() - t0)
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_run(forward)
+    finally:
+        fluid.set_flags({"FLAGS_epilogue_fusion": False,
+                         "FLAGS_use_fused_gemm": "auto"})
+    decisions = list(exe._fusion_decisions.values())
+    return dict(loss=outs[0], enc=outs[1], warmup_s=warm,
+                forward_ms=float(np.median(times)) * 1e3,
+                forward_ms_all=[t * 1e3 for t in times],
+                launches={n: v / INFER_FORWARDS for n, v in launches.items()},
+                launches_total=launches, peak_bytes=peak, base_bytes=base,
+                profiled=prof, decision=decisions[0] if decisions else None)
+
+
+def phase_infer(seed):
+    cfg = BertConfig.base()
+    net = build_bert_pretrain(cfg, seq_len=INFER_SEQ, build_optimizer=False)
+    net["startup"].random_seed = seed
+    prog = net["main"].clone(for_test=True)
+    # the last encoder layer's output: the MLM transform's input
+    enc = next(op.input("X")[0] for op in prog.global_block.ops
+               if op.type == "mul" and op.input("Y")[0] == "mlm_trans_w")
+    fetch = [net["loss"].name, enc]
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    feed = bert_feed(seed + 1, cfg.vocab_size, INFER_BATCH, INFER_SEQ)
+    fused = infer_run(prog, fetch, init, feed, fused=True)
+    unfused = infer_run(prog, fetch, init, feed, fused=False)
+    dense = infer_run(prog, fetch, init, feed, fused=True, kernel="never")
+    dec = fused["decision"]
+    lf, lu = float(fused["loss"]), float(unfused["loss"])
+    rel = abs(lf - lu) / abs(lu)
+    enc_err = float((fused["enc"] - unfused["enc"]).abs().max())
+    exact = (torch.equal(dense["loss"], unfused["loss"])
+             and torch.equal(dense["enc"], unfused["enc"]))
+    tokens = INFER_BATCH * INFER_SEQ
+    log(f"[infer] BERT-base f32, batch {INFER_BATCH}, seq {INFER_SEQ}: "
+        f"fusion {dec.reason if dec else 'not run'}; loss fused "
+        f"{lf:.6f} vs unfused {lu:.6f} (rel {rel:.3e}); encoder output "
+        f"max abs err {enc_err:.3e}; dense replay bit-exact={exact}")
+    for w in (dec.witness if dec else []):
+        log(f"  witness {w['epilogue']} (m={w['m']}, n={w['n']}, "
+            f"k={w['k']}) route {w.get('route')}: max abs err "
+            f"{w.get('max_abs_err', float('nan')):.3e}")
+    for tag, r in (("fused (K5)", fused), ("unfused", unfused),
+                   ("dense replay", dense)):
+        p = r["profiled"]
+        log(f"  {tag}: forward {r['forward_ms']:.2f} ms median of "
+            f"{INFER_FORWARDS} ({tokens / r['forward_ms'] * 1e3:.0f} "
+            f"tokens/s; warm-up {r['warmup_s']:.2f} s), peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB ({r['base_bytes'] / 2**30:.2f}"
+            f" GiB resident), launches a forward {r['launches']}, profiled: "
+            f"wall {p['wall_s'] * 1e3:.1f} ms, busy "
+            f"{p['device_busy_s'] * 1e3:.1f} ms, idle share "
+            f"{p['idle_share']:.3f}")
+        for k in p["top_kernels"][:5]:
+            log(f"    {k['ms']:8.3f} ms {k['calls']:5d} calls  {k['name']}")
+    if dec is None or not dec.applied or dec.n_fused != INFER_CHAINS:
+        raise SystemExit(f"chip_smoke: the fusion pass did not fuse "
+                         f"{INFER_CHAINS} chains: "
+                         f"{dec.to_dict() if dec else None}")
+    for name in K.KERNEL_SOURCES:
+        want = INFER_LAUNCHES.get(name, 0)
+        for tag, r in (("fused", fused), ("unfused", unfused),
+                       ("dense", dense)):
+            n = r["launches"][name]
+            expect = want if (tag == "fused" or name != "fused_gemm") else 0
+            if n != expect:
+                raise SystemExit(f"chip_smoke: {name} launched {n} times a "
+                                 f"forward in the {tag} inference run, "
+                                 f"expected {expect}")
+    if not np.isfinite(lf) or rel > 1e-4 or enc_err > 1e-3:
+        raise SystemExit(f"chip_smoke: fused and unfused inference disagree "
+                         f"(loss rel {rel:.3e} > 1e-4 or encoder output "
+                         f"{enc_err:.3e} > 1e-3)")
+    if not exact:
+        raise SystemExit("chip_smoke: the dense replay is not bit-exact "
+                         "against the unfused program")
+
+    def summary(r):
+        return dict(forward_ms=r["forward_ms"], forward_ms_all=r[
+            "forward_ms_all"], warmup_s=r["warmup_s"],
+            tokens_per_s=tokens / r["forward_ms"] * 1e3,
+            peak_gib=r["peak_bytes"] / 2**30,
+            resident_gib=r["base_bytes"] / 2**30,
+            launches_per_forward=r["launches"], profiled=r["profiled"])
+
+    return dict(config="BertConfig.base()", batch=INFER_BATCH,
+                seq=INFER_SEQ, loss_fused=lf, loss_unfused=lu,
+                loss_rel_diff=rel, encoder_max_abs_err=enc_err,
+                dense_bit_exact=exact, decision=dec.to_dict(),
+                fused=summary(fused), unfused=summary(unfused),
+                dense=summary(dense),
+                launches=fused["launches_total"])
+
+
 # ---------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -742,10 +955,12 @@ def main():
     whole = phase_whole_path(model, params, exe, run, args.seed)
     del model, params, exe
     trained = phase_train(args.seed)
-    # launches on the main paths: serving (K1, K2) and training (K1, K3,
-    # K4), each counted from 0 over its own run
+    torch.cuda.empty_cache()
+    inferred = phase_infer(args.seed)
+    # launches on the main paths: serving (K1, K2), training (K1, K3, K4)
+    # and inference (K1, K5), each counted from 0 over its own run
     launches = {n: run["launches"][n] + trained["launches"][n]
-                for n in K.KERNEL_SOURCES}
+                + inferred["launches"][n] for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
     report = {"card": card, "kernels": kres, "dropout_masks": masks,
               "serve": {
@@ -754,12 +969,13 @@ def main():
                   "launches": run["launches"],
                   "accounting": dict(run["accounting"]),
                   "stats": run["stats"], "whole_path": whole},
-              "train": trained, "launches": launches}
+              "train": trained, "infer": inferred, "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]
         r = next(r for r in rows if r["shape"] == shape and r["dtype"] == dt
-                 and r.get("dropout", 0.0) == rate)
+                 and r.get("dropout", 0.0) == rate
+                 and r.get("out_dtype", dt) == dt)
         line.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{name}.cu",

@@ -17,6 +17,12 @@ builds an autograd graph, and frees it before the next op.
 
 Places: ``Executor()`` with no place means ``CUDAPlace(0)`` and raises
 where CUDA is absent; pass ``CPUPlace()`` to run on the CPU.
+
+``FLAGS_epilogue_fusion``: ``run`` and ``run_chained`` swap a
+forward-only program for its GEMM-epilogue-fused clone
+(``analysis/epilogue_fusion.py``), witnessed on this executor's device;
+the decision is cached per (program serial, version, op count, fetches,
+``FLAGS_fused_gemm_blocks``).
 """
 from __future__ import annotations
 
@@ -98,6 +104,17 @@ def _fetch_name(f) -> str:
     return f.name if isinstance(f, Variable) else f
 
 
+def _feed_batch_rows(feed) -> int:
+    """Leading feed dim (the batch the fusion witness and its PT755
+    report resolve -1 dims to)."""
+    batch = 1
+    for v in (feed or {}).values():
+        shape = tuple(getattr(v, "shape", None) or np.shape(v))
+        if shape:
+            batch = max(batch, int(shape[0]))
+    return batch
+
+
 class Executor:
     """Runs programs op by op on one device."""
 
@@ -106,6 +123,10 @@ class Executor:
         self.device = self.place.torch_device()
         self._lock = threading.Lock()
         self._step_counter = 0
+        # FLAGS_epilogue_fusion: (fingerprint, fetches, blocks) -> the
+        # program to run, and the FusionDecision that chose it
+        self._fusion_cache: Dict[tuple, Program] = {}
+        self._fusion_decisions: Dict[tuple, Any] = {}
 
     # -- helpers ---------------------------------------------------------
     def _next_seed(self, program: Program) -> int:
@@ -169,6 +190,48 @@ class Executor:
             fetches.append(env[n])
         return fetches
 
+    def _maybe_epilogue_fusion(self, program, feed, fetch_names):
+        """FLAGS_epilogue_fusion entry shared by run / run_chained: swap a
+        forward-only program for its GEMM-epilogue-fused rewrite. Training
+        programs, programs with no mul/matmul, and anything the pass's
+        fidelity witness cannot prove pass through untouched. The fused
+        clone has its own ``_serial``."""
+        from .flags import flag
+
+        if not flag("epilogue_fusion") or not isinstance(program, Program):
+            return program
+        from .analysis.epilogue_fusion import has_fusable_ops
+        from .analysis.pass_manager import (program_fingerprint,
+                                            run_transform_pipeline)
+        from .ops.fused_gemm import resolve_gemm_blocks
+
+        blocks = resolve_gemm_blocks() if flag("fused_gemm_blocks") \
+            else None
+        key = (program_fingerprint(program), tuple(fetch_names), blocks)
+        with self._lock:
+            cached = self._fusion_cache.get(key)
+        if cached is not None:
+            return cached
+        if not has_fusable_ops(program):
+            with self._lock:
+                self._fusion_cache.setdefault(key, program)
+            return program
+        # the witness runs the chains on the device: outside the lock
+        # (the serving dispatcher contends on it), first insert wins so
+        # racing threads converge on ONE fused clone
+        result = run_transform_pipeline(
+            program, ("epilogue_fusion",), feed_names=sorted(feed or {}),
+            fetch_names=list(fetch_names),
+            batch_size=_feed_batch_rows(feed),
+            options={"gemm_blocks": blocks, "device": self.device})
+        decision = result.values["epilogue_fusion"]
+        with self._lock:
+            winner = self._fusion_cache.get(key)
+            if winner is None:
+                winner = self._fusion_cache[key] = decision.program
+                self._fusion_decisions[key] = decision
+        return winner
+
     # -- public API ------------------------------------------------------
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
@@ -176,9 +239,9 @@ class Executor:
             scope: Optional[Scope] = None, return_numpy: bool = True):
         program = program or default_main_program()
         scope = scope if scope is not None else global_scope()
-        fetches = self._run_once(program, feed or {},
-                                 [_fetch_name(f) for f in fetch_list or []],
-                                 scope)
+        names = [_fetch_name(f) for f in fetch_list or []]
+        program = self._maybe_epilogue_fusion(program, feed, names)
+        fetches = self._run_once(program, feed or {}, names, scope)
         if return_numpy:
             return [f.detach().cpu().numpy() for f in fetches]
         return fetches
@@ -196,6 +259,7 @@ class Executor:
         program = program or default_main_program()
         scope = scope if scope is not None else global_scope()
         names = [_fetch_name(f) for f in fetch_list or []]
+        program = self._maybe_epilogue_fusion(program, feed, names)
         per_step: List[List[torch.Tensor]] = [
             self._run_once(program, feed or {}, names, scope)
             for _ in range(int(steps))]

@@ -6,7 +6,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict
 
-__all__ = ["flag", "set_flags"]
+__all__ = ["flag", "set_flags", "get_flags"]
 
 # name -> (type, default, meaning)
 _DEFS: Dict[str, tuple] = {
@@ -22,10 +22,30 @@ _DEFS: Dict[str, tuple] = {
                            "default per-request deadline in seconds (0: "
                            "none); an expired request settles typed "
                            "DeadlineExceeded"),
+    "epilogue_fusion": (bool, False,
+                        "GEMM-epilogue fusion (analysis/epilogue_fusion.py, "
+                        "a registered transform pass): Executor.run and "
+                        "run_chained rewrite mul/matmul -> bias-add -> "
+                        "activation -> residual -> layer_norm chains of a "
+                        "forward-only program into fused_gemm_epilogue ops, "
+                        "gated by a fidelity witness (a program it cannot "
+                        "prove runs untransformed)"),
+    "use_fused_gemm": (str, "auto",
+                       "fused_gemm_epilogue path: auto (the hand-written "
+                       "CUDA kernel on a CUDA tensor when classify_gemm "
+                       "takes the shape, the dense replay of the original "
+                       "op rules elsewhere), always (the kernel, or its "
+                       "plain version on a CPU tensor; a shape the kernel "
+                       "does not take raises), never (the dense replay)"),
+    "fused_gemm_blocks": (str, "",
+                          "fused_gemm_epilogue block sizes as 'm,n,k'; "
+                          "empty means the port's compiled default "
+                          "(kernels.fused_gemm.DEFAULT_BLOCKS)"),
 }
 
 # flags that take one of a few words
-_CHOICES: Dict[str, tuple] = {"use_flash_attention": ("auto", "never")}
+_CHOICES: Dict[str, tuple] = {"use_flash_attention": ("auto", "never"),
+                              "use_fused_gemm": ("auto", "always", "never")}
 
 _overrides: Dict[str, Any] = {}
 
@@ -60,6 +80,17 @@ def flag(name: str):
     typ, default, _ = _DEFS[name]
     raw = os.environ.get(f"FLAGS_{name}")
     return default if raw is None else _value(name, raw)
+
+
+def get_flags(names=None) -> Dict[str, Any]:
+    """``{'FLAGS_<name>': value}`` for ``names`` (one name, a list, or
+    None for every flag)."""
+    if names is None:
+        names = list(_DEFS)
+    if isinstance(names, str):
+        names = [names]
+    return {f"FLAGS_{n}": flag(n) for n in (x.replace("FLAGS_", "")
+                                            for x in names)}
 
 
 def set_flags(flags_dict: Dict[str, Any]) -> None:

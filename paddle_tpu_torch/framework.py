@@ -37,6 +37,8 @@ class OpRole:
     Backward = "backward"
     Optimize = "optimize"
     LRSched = "lr_sched"
+    # the roles clone(for_test=True) drops
+    PRUNE_FOR_TEST = (Backward, Optimize, LRSched)
 
 
 def grad_var_name(name: str) -> str:
@@ -147,6 +149,12 @@ class Operator:
 
     def input(self, slot: str) -> List[str]:
         return self.inputs.get(slot, [])
+
+    def set_attr(self, name: str, value) -> None:
+        """Set an attr and bump the program's version, so caches keyed on
+        (serial, version) see the change."""
+        self.attrs[name] = value
+        self.block.program._bump_version()
 
     def output(self, slot: str) -> List[str]:
         return self.outputs.get(slot, [])
@@ -292,10 +300,17 @@ class Program:
         self._uid_counter = 0
         self.random_seed = 0
         self._op_role = OpRole.Forward       # stamped on appended ops
+        # bumped on every append and attr change: with _serial, the
+        # identity the executor's caches key on
+        self._version = 0
 
     def _next_uid(self) -> int:
         self._uid_counter += 1
+        self._version += 1
         return self._uid_counter
+
+    def _bump_version(self) -> None:
+        self._version += 1
 
     @contextlib.contextmanager
     def _op_role_guard(self, role: str):
@@ -318,6 +333,25 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
+
+    def clone(self, for_test: bool = False) -> "Program":
+        """A deep copy with a fresh ``_serial``. With ``for_test`` the
+        backward, optimize and lr-schedule ops are pruned (an inference
+        run must not update parameters) and every op with an ``is_test``
+        attr switches to inference behaviour."""
+        p = Program.from_dict(self.to_dict())
+        p._uid_counter = self._uid_counter
+        p.random_seed = self.random_seed
+        if for_test:
+            for blk in p.blocks:
+                blk.ops = [op for op in blk.ops
+                           if op.attrs.get("__op_role__", OpRole.Forward)
+                           not in OpRole.PRUNE_FOR_TEST]
+            for blk in p.blocks:
+                for op in blk.ops:
+                    if "is_test" in op.attrs:
+                        op.set_attr("is_test", True)
+        return p
 
     def to_dict(self) -> dict:
         return {"version": 1, "blocks": [b.to_dict() for b in self.blocks]}

@@ -1,5 +1,7 @@
 """Hand-written Hopper kernels of the port (CUDA C++ in ``../csrc``, bound
-with ctypes) and their plain PyTorch versions. Each wrapper launches its
+with ctypes) and their plain PyTorch versions: flash attention forward
+(K1) and backward (K3, K4), paged decode attention (K2) and the fused
+GEMM + epilogue (K5). Each wrapper launches its
 kernel on a CUDA tensor, counting launches on ``.launches``, and takes the
 plain version on a CPU tensor."""
 import torch
@@ -15,6 +17,7 @@ from .flash_attention import (classify_backward_shapes, classify_shapes,
                               flash_attention_dq_reference,
                               flash_attention_reference,
                               flash_attention_with_lse, philox4x32_10)
+from .fused_gemm import classify_gemm, fused_gemm, fused_gemm_reference
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_dq",
@@ -23,6 +26,7 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "classify_backward_shapes", "philox4x32_10", "dropout_keep",
            "flash_attention_decode", "decode_attention_reference",
            "decode_in_slices", "paged_kv_append", "paged_kv_append_rows",
+           "fused_gemm", "fused_gemm_reference", "classify_gemm",
            "KERNEL_SOURCES", "KERNEL_TOL", "reset_launch_counts",
            "launch_counts"]
 
@@ -32,6 +36,7 @@ KERNEL_SOURCES = {
     "decode_attention": flash_attention_decode,
     "flash_attention_dq": flash_attention_dq,
     "flash_attention_dkv": flash_attention_dkv,
+    "fused_gemm": fused_gemm,
 }
 
 # How closely a kernel's output must match its plain version on the card

@@ -45,6 +45,9 @@ SIGNATURES = {
     # q, k_cache, v_cache, lengths, o | BH, q_len, S, D, num_heads |
     # scale | is_bf16 | stream
     "decode_attention": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    # x, y, bias, residual, ln_scale, ln_bias, out | M, N, K, activation,
+    # layer_norm | ln_eps | in_bf16, out_bf16 | stream
+    "fused_gemm": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,201 @@
+"""Fused GEMM + epilogue: the hand-written Hopper kernel (K5) and its plain
+PyTorch version.
+
+Counterpart of ``paddle_tpu/kernels/fused_gemm.py``. ``epilogue(x @ y)``
+for ``x`` [M, K] and ``y`` [K, N] with an f32 accumulator; the epilogue
+runs on the accumulator, in the order the fusion pass matched it in the
+program: bias-add ``bias`` [N], ``relu`` or ``gelu`` (erf or tanh),
+residual-add ``residual`` [M, N], row-wise layer_norm (``ln_scale`` /
+``ln_bias`` [N], two-pass statistics), then one cast to ``out_dtype``.
+
+* :func:`fused_gemm` — a CUDA tensor launches ``csrc/fused_gemm.cu``
+  (counted on ``.launches``) or raises; a CPU tensor takes
+  :func:`fused_gemm_reference`.
+* :func:`classify_gemm` — what the Hopper kernel takes, with the failing
+  constraint named. Its rules are the kernel's own, not the TPU's lane and
+  sublane tiling: M, N and K need not divide into blocks (the kernel masks
+  ragged edges), but N and K must be multiples of 4 (x and y rows are
+  loaded as 16-byte f32 / 8-byte bf16 vectors), the block triple must be
+  the compiled one, and a layer_norm epilogue's 32 whole rows must fit in
+  shared memory beside the GEMM tiles.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+__all__ = ["fused_gemm", "classify_gemm", "fused_gemm_reference",
+           "DEFAULT_BLOCKS", "EPILOGUE_ACTIVATIONS"]
+
+# (block_m, block_n, block_k) of the one compiled GEMM tile: 128 x 128
+# outputs a block, k in 16-deep shared-memory tiles
+DEFAULT_BLOCKS = (128, 128, 16)
+EPILOGUE_ACTIVATIONS = ("none", "relu", "gelu")
+
+# the layer_norm variant: 32 whole rows a block, parked in shared memory
+LN_ROWS = 32
+# H100: shared memory one block may use (bytes), and what the layer_norm
+# variant's static x / y tiles take of it
+_SMEM_PER_BLOCK = 232448
+_LN_TILE_SMEM = (16 * LN_ROWS + 16 * 128) * 4
+# N above this leaves no room for the rows (1736)
+LN_MAX_N = (_SMEM_PER_BLOCK - _LN_TILE_SMEM) // (4 * LN_ROWS)
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def classify_gemm(m: int, n: int, k: int, *, layer_norm: bool = False,
+                  block_m: int = DEFAULT_BLOCKS[0],
+                  block_n: int = DEFAULT_BLOCKS[1],
+                  block_k: int = DEFAULT_BLOCKS[2]) -> Tuple[str, str]:
+    """``('supported' | 'unsupported', reason)``: whether the Hopper kernel
+    takes an ``[m, k] @ [k, n]`` GEMM, and if not which constraint fails,
+    so callers refuse loudly (``FLAGS_use_fused_gemm=always``) or replay
+    the chain densely with the reason on record."""
+    if min(m, n, k) < 1:
+        return ("unsupported",
+                f"GEMM dims must be >= 1: m={m}, n={n}, k={k}")
+    if (block_m, block_n, block_k) != DEFAULT_BLOCKS:
+        return ("unsupported",
+                f"block_m={block_m}, block_n={block_n}, block_k={block_k} "
+                f"has no compiled instantiation (csrc/fused_gemm.cu "
+                f"compiles {DEFAULT_BLOCKS})")
+    bad = [f"{name}={v}" for name, v in (("n", n), ("k", k)) if v % 4]
+    if bad:
+        return ("unsupported",
+                f"{' and '.join(bad)} not a multiple of 4: the kernel loads "
+                f"x and y rows as 16-byte f32 / 8-byte bf16 vectors")
+    if layer_norm and n > LN_MAX_N:
+        return ("unsupported",
+                f"layer_norm epilogue needs {LN_ROWS} whole rows in shared "
+                f"memory: {LN_ROWS} x n={n} f32 is {LN_ROWS * n * 4} bytes, "
+                f"above the {LN_MAX_N * LN_ROWS * 4} the H100 leaves beside "
+                f"the GEMM tiles (n <= {LN_MAX_N})")
+    if layer_norm:
+        return ("supported",
+                f"{-(-m // LN_ROWS)} blocks of {LN_ROWS} whole rows with "
+                f"layer_norm")
+    return ("supported",
+            f"{-(-m // block_m)} x {-(-n // block_n)} blocks of "
+            f"({block_m}, {block_n}), k in tiles of {block_k}")
+
+
+def _activation(acc, activation: str, gelu_approximate: bool):
+    if activation == "relu":
+        return torch.relu(acc)
+    if activation == "gelu":
+        return torch.nn.functional.gelu(
+            acc, approximate="tanh" if gelu_approximate else "none")
+    return acc
+
+
+def fused_gemm_reference(x, y, bias=None, residual=None, ln_scale=None,
+                         ln_bias=None, activation: str = "none",
+                         gelu_approximate: bool = False,
+                         layer_norm: bool = False, ln_eps: float = 1e-5,
+                         out_dtype=None):
+    """Plain PyTorch version with the kernel's numerics: an f32 product
+    (bf16 inputs upcast first; a bf16 x bf16 product is exact in f32, so
+    this is what an f32-accumulating kernel computes, where a bf16
+    ``torch.matmul`` would round the product before the epilogue), the
+    epilogue in f32, one final cast."""
+    acc = x.float() @ y.float()
+    if bias is not None:
+        acc = acc + bias.float()[None, :]
+    acc = _activation(acc, activation, gelu_approximate)
+    if residual is not None:
+        acc = acc + residual.float()
+    if layer_norm:
+        mean = acc.mean(dim=1, keepdim=True)
+        var = (acc - mean).square().mean(dim=1, keepdim=True)
+        acc = (acc - mean) / torch.sqrt(var + ln_eps)
+        if ln_scale is not None:
+            acc = acc * ln_scale.float()[None, :]
+        if ln_bias is not None:
+            acc = acc + ln_bias.float()[None, :]
+    return acc.to(out_dtype or x.dtype)
+
+
+def _f32(t, shape, name, device):
+    """An epilogue operand as the contiguous f32 tensor the kernel reads."""
+    if t is None:
+        return None
+    if tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"fused_gemm: {name} must be {list(shape)} on "
+                         f"{device}, got {list(t.shape)} on {t.device}")
+    return t.to(torch.float32).contiguous()
+
+
+def _aligned(t):
+    """``t`` contiguous with a 16-byte aligned data pointer (a view at an
+    odd offset is copied once)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def fused_gemm(x, y, bias=None, residual=None, ln_scale=None, ln_bias=None,
+               activation: str = "none", gelu_approximate: bool = False,
+               layer_norm: bool = False, ln_eps: float = 1e-5,
+               block_m: int = DEFAULT_BLOCKS[0],
+               block_n: int = DEFAULT_BLOCKS[1],
+               block_k: int = DEFAULT_BLOCKS[2], out_dtype=None):
+    """``epilogue(x @ y)``: bias-add (``bias`` [N]), activation
+    (``relu``/``gelu``), residual-add (``residual`` [M, N]) and row-wise
+    layer_norm (``ln_scale``/``ln_bias`` [N]), in that order, on the f32
+    accumulator; ``out_dtype`` defaults to x's. ``x`` [M, K] and ``y``
+    [K, N]; raises ``ValueError`` with the :func:`classify_gemm` reason on
+    a shape the kernel does not take (callers choose between a loud
+    refusal and the dense replay before calling)."""
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[0]:
+        raise ValueError(
+            f"fused_gemm is strictly 2-D [M,K]@[K,N]: got x{tuple(x.shape)} "
+            f"y{tuple(y.shape)}")
+    if activation not in EPILOGUE_ACTIVATIONS:
+        raise ValueError(f"unknown epilogue activation {activation!r} — "
+                         f"one of {EPILOGUE_ACTIVATIONS}")
+    m, k = x.shape
+    n = y.shape[1]
+    kind, reason = classify_gemm(m, n, k, layer_norm=layer_norm,
+                                 block_m=block_m, block_n=block_n,
+                                 block_k=block_k)
+    if kind != "supported":
+        raise ValueError(f"fused_gemm has no kernel tiling for "
+                         f"(m={m}, n={n}, k={k}): {reason}")
+    out_dtype = out_dtype or x.dtype
+    if not x.is_cuda:
+        return fused_gemm_reference(
+            x, y, bias, residual, ln_scale, ln_bias, activation,
+            gelu_approximate, layer_norm, ln_eps, out_dtype)
+    if x.dtype not in _DTYPES or y.dtype != x.dtype \
+            or out_dtype not in _DTYPES:
+        raise TypeError(f"fused_gemm kernel takes x and y both float32 or "
+                        f"both bfloat16 and writes float32 or bfloat16, got "
+                        f"{x.dtype} @ {y.dtype} -> {out_dtype}")
+    if y.device != x.device:
+        raise ValueError(f"fused_gemm: y on {y.device}, x on {x.device}")
+    dev = x.device
+    x, y = _aligned(x), _aligned(y)
+    bias = _f32(bias, (n,), "bias", dev)
+    residual = _f32(residual, (m, n), "residual", dev)
+    ln_scale = _f32(ln_scale, (n,), "ln_scale", dev)
+    ln_bias = _f32(ln_bias, (n,), "ln_bias", dev)
+    out = torch.empty(m, n, dtype=out_dtype, device=dev)
+    act = {"none": 0, "relu": 1}.get(activation,
+                                     3 if gelu_approximate else 2)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _build.launch("fused_gemm", dev, x.data_ptr(), y.data_ptr(), ptr(bias),
+                  ptr(residual), ptr(ln_scale), ptr(ln_bias), out.data_ptr(),
+                  m, n, k, act, int(bool(layer_norm)), float(ln_eps),
+                  int(x.dtype == torch.bfloat16),
+                  int(out_dtype == torch.bfloat16))
+    fused_gemm.launches += 1
+    return out
+
+
+fused_gemm.launches = 0

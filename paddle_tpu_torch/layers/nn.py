@@ -11,7 +11,8 @@ from ..core.types import canonical_dtype
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "layer_norm", "gelu", "matmul",
+__all__ = ["fc", "embedding", "layer_norm", "gelu", "relu", "increment",
+           "matmul",
            "fused_multihead_attention", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_min",
            "elementwise_max", "not_equal", "scale", "reshape", "transpose",
@@ -84,6 +85,22 @@ def gelu(x, name=None):
     helper = LayerHelper("gelu", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("gelu", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def relu(x, name=None):
+    helper = LayerHelper("relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("relu", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(
+        x.dtype)
+    helper.append_op("increment", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"step": float(value)})
     return out
 
 

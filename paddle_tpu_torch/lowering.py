@@ -34,16 +34,20 @@ _META = torch.device("meta")
 
 
 class LowerCtx:
-    """Context passed to every op rule."""
+    """Context passed to every op rule. ``gemm_blocks`` is the block
+    triple a caller asks ``fused_gemm_epilogue`` to run with (the fusion
+    pass's witness passes the triple it was given); None means
+    ``FLAGS_fused_gemm_blocks`` or the kernel's default."""
 
     def __init__(self, device=None, seed: Optional[int] = None,
-                 uid: int = 0):
+                 uid: int = 0, gemm_blocks=None):
         self.device = torch.device(device) if device is not None else _META
         self.seed = seed
         self.uid = uid
+        self.gemm_blocks = gemm_blocks
 
     def with_uid(self, uid: int) -> "LowerCtx":
-        return LowerCtx(self.device, self.seed, uid)
+        return LowerCtx(self.device, self.seed, uid, self.gemm_blocks)
 
     def generator(self, device=None) -> Optional[torch.Generator]:
         """A generator unique to this op instance and step, on ``device``

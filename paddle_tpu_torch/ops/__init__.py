@@ -1,3 +1,3 @@
 """Op rules of the PyTorch port; importing this package registers them."""
-from . import (fused_attention, generation, loss, math, nn,  # noqa: F401
-               optimizer_ops, tensor)
+from . import (fused_attention, fused_gemm, generation, loss,  # noqa: F401
+               math, nn, optimizer_ops, tensor)

@@ -9,6 +9,11 @@ from ..core.types import torch_dtype
 from .common import IOSpec, broadcast_to_x, out, register_op, x
 
 
+@register_op("relu", inputs=["X"], outputs=["Out"])
+def _relu(ctx, ins, attrs):
+    return out(torch.relu(x(ins)))
+
+
 @register_op("tanh", inputs=["X"], outputs=["Out"])
 def _tanh(ctx, ins, attrs):
     return out(torch.tanh(x(ins)))

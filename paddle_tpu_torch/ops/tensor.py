@@ -51,6 +51,15 @@ def _assign(ctx, ins, attrs):
     return out(x(ins))
 
 
+@register_op("increment", inputs=["X"], outputs=["Out"], attrs={"step": 1.0},
+             grad=None)
+def _increment(ctx, ins, attrs):
+    """X + step in X's dtype (an int counter stays an int)."""
+    xv = x(ins)
+    return out(xv + torch.tensor(attrs["step"], dtype=xv.dtype,
+                                 device=xv.device))
+
+
 def _infer_reshape(op, block):
     xv = block.var(op.input("X")[0])
     shape = list(op.attrs["shape"])

@@ -139,3 +139,86 @@ def test_autograd_through_the_kernels_matches_plain_autograd():
         grads.append(torch.autograd.grad(loss, (q, k, v)))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, **K.KERNEL_TOL[torch.float32])
+
+
+def _gemm_inputs(g, m, n, k, dt, residual=False):
+    x = torch.randn(m, k, generator=g, device="cuda").to(dt)
+    y = (torch.randn(k, n, generator=g, device="cuda") / k ** 0.5).to(dt)
+    kw = dict(bias=torch.randn(n, generator=g, device="cuda"),
+              ln_scale=torch.randn(n, generator=g, device="cuda"),
+              ln_bias=torch.randn(n, generator=g, device="cuda"))
+    if residual:
+        kw["residual"] = torch.randn(m, n, generator=g, device="cuda")
+    return x, y, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dt,out_dt", [("float32", "float32"),
+                                          ("bfloat16", "float32"),
+                                          ("bfloat16", "bfloat16"),
+                                          ("float32", "bfloat16")])
+@pytest.mark.parametrize("epilogue", ["plain", "bias+relu", "bias+gelu",
+                                      "bias+gelu_tanh+residual",
+                                      "bias+residual+layer_norm",
+                                      "bias+gelu+layer_norm"])
+@pytest.mark.parametrize("m,n,k", [(77, 132, 36), (300, 260, 300),
+                                   (5, 4, 4), (129, 1736, 100)])
+def test_fused_gemm_matches_its_plain_version(m, n, k, epilogue, in_dt,
+                                              out_dt):
+    """K5 against its plain version on ragged shapes (M, N and K not
+    multiples of the 128 x 128 x 16 tile; n = 1736 the widest whole row the
+    layer_norm variant takes), every epilogue, every input/output type, at
+    ``K.KERNEL_TOL`` of the output type; each call is one launch."""
+    g = _cuda()
+    dt, odt = getattr(torch, in_dt), getattr(torch, out_dt)
+    x, y, kw = _gemm_inputs(g, m, n, k, dt, "residual" in epilogue)
+    if "layer_norm" not in epilogue:
+        kw.pop("ln_scale"), kw.pop("ln_bias")
+    if epilogue == "plain":
+        kw.pop("bias")
+    args = dict(kw, layer_norm="layer_norm" in epilogue,
+                activation=("relu" if "relu" in epilogue else
+                            "gelu" if "gelu" in epilogue else "none"),
+                gelu_approximate="tanh" in epilogue, out_dtype=odt)
+    n0 = K.fused_gemm.launches
+    got = K.fused_gemm(x, y, **args)
+    assert K.fused_gemm.launches == n0 + 1
+    want = K.fused_gemm_reference(x, y, **args)
+    torch.cuda.synchronize()
+    assert got.dtype == odt and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **K.KERNEL_TOL[odt])
+
+
+@pytest.mark.cuda
+def test_fused_gemm_refuses_what_the_kernel_does_not_take():
+    """Unaligned N or K, a block triple with no compiled instantiation and
+    a layer_norm row wider than shared memory raise before any launch."""
+    _cuda()
+    x = torch.zeros(8, 6, device="cuda")
+    n0 = K.fused_gemm.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        K.fused_gemm(x, torch.zeros(6, 8, device="cuda"))
+    with pytest.raises(ValueError, match="compiled instantiation"):
+        K.fused_gemm(torch.zeros(8, 8, device="cuda"),
+                     torch.zeros(8, 8, device="cuda"), block_k=32)
+    with pytest.raises(ValueError, match="whole rows"):
+        K.fused_gemm(torch.zeros(8, 8, device="cuda"),
+                     torch.zeros(8, 1740, device="cuda"), layer_norm=True)
+    with pytest.raises(TypeError, match="float32 or"):
+        K.fused_gemm(torch.zeros(8, 8, device="cuda", dtype=torch.float16),
+                     torch.zeros(8, 8, device="cuda", dtype=torch.float16))
+    assert K.fused_gemm.launches == n0
+
+
+@pytest.mark.cuda
+def test_fused_gemm_sums_k_in_order_like_cublas():
+    """Each output is one FMA chain over k in order, so with no epilogue
+    the kernel matches ``torch.matmul`` (cuBLAS SGEMM, TF32 off) far inside
+    ``KERNEL_TOL`` at BERT-base's FFN2 depth (K = 3072)."""
+    g = _cuda()
+    x = torch.randn(512, 3072, generator=g, device="cuda") * 0.5
+    y = torch.randn(3072, 768, generator=g, device="cuda") * 0.5
+    got, want = K.fused_gemm(x, y), torch.matmul(x, y)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-3, err

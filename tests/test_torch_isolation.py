@@ -79,6 +79,15 @@ loss = exe.run(bert["main"], feed={
     "next_sent_label": np.ones((2, 1), np.int64)},
     fetch_list=[bert["loss"]], scope=scope)[0]
 assert np.isfinite(loss).all()
+fluid.set_flags({"FLAGS_epilogue_fusion": True})
+infer = bert["main"].clone(for_test=True)
+fused = exe.run(infer, feed={
+    "src_ids": ids, "pos_ids": ids, "sent_ids": ids * 0,
+    "input_mask": np.ones((2, 16), np.float32), "mask_label": ids,
+    "next_sent_label": np.ones((2, 1), np.int64)},
+    fetch_list=[bert["loss"]], scope=scope)[0]
+assert np.isfinite(fused).all()
+assert list(exe._fusion_decisions.values())[0].n_fused == 15
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
 assert set(K.launch_counts().values()) == {0}
 print("ok")
@@ -110,10 +119,12 @@ def test_cpu_attention_ops_never_launch_kernels():
     q = torch.randn(4, 8, 16)
     K.flash_attention(q, q, q, causal=True, num_heads=2)
     K.flash_attention_decode(q, q, q, torch.tensor([2, 5]), num_heads=2)
+    K.fused_gemm(q[0], q[0].T, activation="gelu")
     assert K.launch_counts() == {"flash_attention_fwd": 0,
                                  "decode_attention": 0,
                                  "flash_attention_dq": 0,
-                                 "flash_attention_dkv": 0}
+                                 "flash_attention_dkv": 0,
+                                 "fused_gemm": 0}
 
 
 def test_flash_attention_flag_takes_only_auto_or_never(monkeypatch):

@@ -1,8 +1,8 @@
-"""The PyTorch port's attention kernels: plain versions against the JAX
-package's Pallas kernels (interpret mode), forward and backward, the
-Philox dropout mask, the paged KV appends, the Hopper shape rules and the
-q_len > 8 slicing rule, on the CPU. The CUDA kernels themselves run only
-on the card (tests/test_torch_cuda.py)."""
+"""The PyTorch port's kernels: plain versions against the JAX package's
+Pallas kernels (interpret mode) — attention forward and backward, the
+Philox dropout mask, the paged KV appends, the fused GEMM + epilogue — the
+Hopper shape rules and the q_len > 8 slicing rule, on the CPU. The CUDA
+kernels themselves run only on the card (tests/test_torch_cuda.py)."""
 import ctypes
 import os
 import re
@@ -14,6 +14,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from paddle_tpu.kernels.fused_gemm import fused_gemm as j_gemm
+from paddle_tpu.kernels.fused_gemm import (fused_gemm_reference as
+                                           j_gemm_reference)
 from paddle_tpu.kernels import (flash_attention as j_flash_o,
                                 flash_attention_decode as j_decode,
                                 flash_attention_with_lse as j_flash,
@@ -181,10 +184,12 @@ def test_cpu_tensors_never_count_a_launch():
     o.sum().backward()
     K.flash_attention_decode(q[:, :1], q, q, torch.tensor([3, 8]),
                              num_heads=1)
+    K.fused_gemm(torch.randn(5, 8), torch.randn(8, 4), layer_norm=True)
     assert K.launch_counts() == {"flash_attention_fwd": 0,
                                  "decode_attention": 0,
                                  "flash_attention_dq": 0,
-                                 "flash_attention_dkv": 0}
+                                 "flash_attention_dkv": 0,
+                                 "fused_gemm": 0}
 
 
 # Gradients through the flash attention: the port's autograd.Function (on
@@ -349,3 +354,99 @@ def test_classify_backward_shapes_refuses_with_a_reason(sq, sk, d, ok):
     assert (kind == "backward") == ok, why
     if not ok:
         assert ("head_dim" in why) or (">= 1" in why)
+
+
+# The fused GEMM + epilogue (K5): the plain version against the JAX
+# package's kernel in interpret mode and its oracle, at the JAX package's
+# tile-boundary shapes (tests/test_epilogue_fusion.py) and with every
+# epilogue; the CPU wrapper takes the plain version. f32 tolerance as
+# there (two f32 GEMMs summing in different orders); bf16 inputs: both
+# accumulate exact bf16 products in f32 and round once, so one bf16 ulp.
+GEMM_RTOL, GEMM_ATOL = 2e-4, 1e-4
+
+
+def _gemm_args(m, n, k, kind, dtype=np.float32, seed=1):
+    rng = np.random.RandomState(seed)
+    x, y = rng.randn(m, k), rng.randn(k, n)
+    kw, arrays = {}, {}
+    if kind != "plain":
+        arrays["bias"] = rng.randn(n)
+    if "relu" in kind:
+        kw["activation"] = "relu"
+    if "gelu" in kind:
+        kw["activation"] = "gelu"
+        kw["gelu_approximate"] = "tanh" in kind
+    if "residual" in kind:
+        arrays["residual"] = rng.randn(m, n)
+    if "ln" in kind:
+        kw["layer_norm"] = True
+        arrays["ln_scale"], arrays["ln_bias"] = rng.randn(n), rng.randn(n)
+    cast = {k: v.astype(np.float32) for k, v in arrays.items()}
+    return x.astype(dtype), y.astype(dtype), cast, kw
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 128), (64, 128, 256),
+                                   (256, 384, 128), (8, 128, 128)])
+@pytest.mark.parametrize("kind", ["plain", "bias+gelu", "ln", "bias+relu",
+                                  "bias+residual", "bias+gelu_tanh",
+                                  "bias+gelu+residual+ln"])
+def test_fused_gemm_plain_matches_jax_kernel(shape, kind):
+    m, n, k = shape
+    x, y, arrays, kw = _gemm_args(m, n, k, kind)
+    jx = {k: jnp.asarray(v) for k, v in arrays.items()}
+    jk = np.asarray(j_gemm(jnp.asarray(x), jnp.asarray(y), interpret=True,
+                           **jx, **kw))
+    jr = np.asarray(j_gemm_reference(jnp.asarray(x), jnp.asarray(y), **jx,
+                                     **kw))
+    tx = {k: _t(v) for k, v in arrays.items()}
+    tp = K.fused_gemm_reference(_t(x), _t(y), **tx, **kw).numpy()
+    tw = K.fused_gemm(_t(x), _t(y), **tx, **kw).numpy()     # CPU: plain
+    np.testing.assert_allclose(tp, jk, rtol=GEMM_RTOL, atol=GEMM_ATOL)
+    np.testing.assert_allclose(tp, jr, rtol=GEMM_RTOL, atol=GEMM_ATOL)
+    assert np.array_equal(tw, tp)
+
+
+@pytest.mark.parametrize("kind", ["bias+gelu", "ln"])
+def test_fused_gemm_plain_takes_bf16_like_jax_kernel(kind):
+    """bf16 x and y, f32 epilogue params: f32 accumulation and one cast,
+    to bf16 (the default, x's type) and to f32."""
+    import ml_dtypes
+
+    x, y, arrays, kw = _gemm_args(128, 256, 128, kind)
+    xb, yb = x.astype(ml_dtypes.bfloat16), y.astype(ml_dtypes.bfloat16)
+    jx = {k: jnp.asarray(v) for k, v in arrays.items()}
+    tx = {k: _t(v) for k, v in arrays.items()}
+    tb = [torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+          for a in (xb, yb)]
+    for out in (None, "float32"):
+        jk = np.asarray(j_gemm(jnp.asarray(xb), jnp.asarray(yb),
+                               interpret=True, out_dtype=out, **jx, **kw))
+        tp = K.fused_gemm_reference(
+            *tb, out_dtype=getattr(torch, out) if out else None, **tx, **kw)
+        assert tp.dtype == (torch.float32 if out else torch.bfloat16)
+        tol = dict(rtol=GEMM_RTOL, atol=GEMM_ATOL) if out else \
+            dict(rtol=1.6e-2, atol=8e-3)
+        np.testing.assert_allclose(tp.float().numpy(),
+                                   jk.astype(np.float32), **tol)
+
+
+@pytest.mark.parametrize("mnk,kw,ok,why", [
+    ((128, 128, 128), {}, True, ""),
+    # ragged M and N: masked in the kernel (the TPU kernel refuses both)
+    ((100, 132, 128), {}, True, ""),
+    ((250, 100, 36), {}, True, ""),
+    ((128, 1736, 768), {"layer_norm": True}, True, ""),
+    ((128, 130, 128), {}, False, "n=130 not a multiple of 4"),
+    ((128, 128, 6), {}, False, "k=6 not a multiple of 4"),
+    ((128, 2, 768), {}, False, "n=2 not a multiple of 4"),
+    ((128, 1740, 768), {"layer_norm": True}, False, "whole rows"),
+    ((128, 128, 128), {"block_k": 128}, False, "compiled instantiation"),
+    ((0, 128, 128), {}, False, ">= 1")])
+def test_classify_gemm_names_the_hopper_constraint(mnk, kw, ok, why):
+    kind, reason = K.classify_gemm(*mnk, **kw)
+    assert (kind == "supported") == ok, reason
+    assert why in reason
+    if not ok:
+        with pytest.raises(ValueError, match="no kernel tiling"):
+            K.fused_gemm(torch.zeros(mnk[0], mnk[2]),
+                         torch.zeros(mnk[2], mnk[1]), **kw)

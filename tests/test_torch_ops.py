@@ -39,6 +39,19 @@ CASES = {
     "scale": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]},
               {"scale": 10000.0, "bias": -10000.0}, ["o"]),
     "gelu": ({"X": {"x": f32(3, 4) * 3}}, {"Out": ["o"]}, {}, ["o"]),
+    "relu": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]}, {}, ["o"]),
+    "increment": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]}, {"step": 2.0},
+                  ["o"]),
+    # the dense replay of mul -> bias -> gelu -> residual -> layer_norm
+    # (both packages on the CPU)
+    "fused_gemm_epilogue": (
+        {"X": {"x": f32(2, 3, 8)}, "Y": {"y": f32(8, 8)},
+         "Bias": {"b": f32(8)}, "Residual": {"r": f32(2, 3, 8)},
+         "LnScale": {"s": f32(8)}, "LnBias": {"lb": f32(8)}},
+        {"Out": ["o"]},
+        {"base_type": "mul", "x_num_col_dims": 2, "bias_axis": 2,
+         "activation": "gelu", "layer_norm": True, "begin_norm_axis": 2},
+        ["o"]),
     "layer_norm": ({"X": {"x": f32(2, 5, 8)}, "Scale": {"s": f32(8)},
                     "Bias": {"b": f32(8)}},
                    {"Y": ["y"], "Mean": ["m"], "Variance": ["v"]},
@@ -178,7 +191,7 @@ def test_every_path_op_has_a_case():
     distribution: here and in tests/test_torch_train.py) has a case."""
     from paddle_tpu_torch.core import registry
 
-    assert len(CASES) == 32 and not RANDOM_OPS & set(CASES)
+    assert len(CASES) == 35 and not RANDOM_OPS & set(CASES)
     assert set(CASES) | RANDOM_OPS == set(registry.all_ops())
 
 
