@@ -47,18 +47,21 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    but the NSP head, n = 2, which ``classify_gemm`` refuses) and K1 12;
    (b) ``FLAGS_epilogue_fusion=0``, the unfused program on cuBLAS; (c)
    fusion with ``FLAGS_use_fused_gemm=never``, the dense replay, bit-exact
-   against (b) with no K5 launch. (a) and (b) agree on the loss within
+   against (b) with no K5 launch (a check: one forward after the warm-up,
+   neither timed nor profiled). (a) and (b) agree on the loss within
    rtol 1e-4 and on the encoder output within atol 1e-3; reports forward
    ms (median of 5 after a warm-up), peak device memory, one profiled
    forward's device idle share and top kernels, and the witness's largest
    error per chain signature.
-7. prints the ``kernels`` JSON line, the card line, and as the last line
+7. prints the script time of each phase and part (``[seconds]``), the
+   ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``. With ``--out-dir``, everything
    measured is also written to ``DIR/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -105,6 +108,19 @@ MAIN_ROW = {"flash_attention_fwd": ([96, 512, 64], "float32", 0.0),
 
 def log(*a):
     print(*a, flush=True)
+
+
+# seconds of script time by phase and part, reported at the end
+TIMES = {}
+
+
+@contextlib.contextmanager
+def timed(name):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        TIMES[name] = time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------- device
@@ -439,11 +455,11 @@ def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype):
 
 
 def phase_kernels(seed):
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(K.KERNEL_SOURCES)) as pool:
+    with timed("kernels.build"), \
+            ThreadPoolExecutor(max_workers=len(K.KERNEL_SOURCES)) as pool:
         list(pool.map(_build.load, K.KERNEL_SOURCES))
     log(f"[kernels] built {list(K.KERNEL_SOURCES)} in "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{TIMES['kernels.build']:.1f}s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -814,10 +830,13 @@ INFER_CHAINS = 75
 INFER_LAUNCHES = {"fused_gemm": 74, "flash_attention_fwd": 12}
 
 
-def infer_run(prog, fetch, init, feed, fused, kernel="auto"):
-    """INFER_FORWARDS timed forwards of ``prog`` after one warm-up (which
+def infer_run(tag, prog, fetch, init, feed, fused, kernel="auto",
+              forwards=INFER_FORWARDS, profiled=True):
+    """``forwards`` timed forwards of ``prog`` after one warm-up (which
     also runs the fusion pass and its witness) on a fresh executor, plus
-    one profiled forward; each forward ends in a host read of the loss."""
+    one profiled forward if ``profiled``; each forward ends in a host read
+    of the loss. Script time of each part lands in ``TIMES`` under
+    ``infer.<tag>.``."""
     fluid.set_flags({"FLAGS_epilogue_fusion": fused,
                      "FLAGS_use_fused_gemm": kernel})
     try:
@@ -831,21 +850,25 @@ def infer_run(prog, fetch, init, feed, fused, kernel="auto"):
             outs[0].item()
             return outs
 
-        t0 = time.perf_counter()
-        forward()
-        warm = time.perf_counter() - t0
+        with timed(f"infer.{tag}.warmup"):
+            forward()
+        warm = TIMES[f"infer.{tag}.warmup"]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         times = []
-        for _ in range(INFER_FORWARDS):
-            t0 = time.perf_counter()
-            outs = forward()
-            times.append(time.perf_counter() - t0)
+        with timed(f"infer.{tag}.forwards"):
+            for _ in range(forwards):
+                t0 = time.perf_counter()
+                outs = forward()
+                times.append(time.perf_counter() - t0)
         launches = K.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        prof = profile_run(forward)
+        prof = None
+        if profiled:
+            with timed(f"infer.{tag}.profiled"):
+                prof = profile_run(forward)
     finally:
         fluid.set_flags({"FLAGS_epilogue_fusion": False,
                          "FLAGS_use_fused_gemm": "auto"})
@@ -853,12 +876,13 @@ def infer_run(prog, fetch, init, feed, fused, kernel="auto"):
     return dict(loss=outs[0], enc=outs[1], warmup_s=warm,
                 forward_ms=float(np.median(times)) * 1e3,
                 forward_ms_all=[t * 1e3 for t in times],
-                launches={n: v / INFER_FORWARDS for n, v in launches.items()},
+                launches={n: v / forwards for n, v in launches.items()},
                 launches_total=launches, peak_bytes=peak, base_bytes=base,
                 profiled=prof, decision=decisions[0] if decisions else None)
 
 
 def phase_infer(seed):
+    t0 = time.perf_counter()
     cfg = BertConfig.base()
     net = build_bert_pretrain(cfg, seq_len=INFER_SEQ, build_optimizer=False)
     net["startup"].random_seed = seed
@@ -871,9 +895,12 @@ def phase_infer(seed):
     fluid.Executor().run(net["startup"], scope=scope0)
     init = dict(scope0.vars)
     feed = bert_feed(seed + 1, cfg.vocab_size, INFER_BATCH, INFER_SEQ)
-    fused = infer_run(prog, fetch, init, feed, fused=True)
-    unfused = infer_run(prog, fetch, init, feed, fused=False)
-    dense = infer_run(prog, fetch, init, feed, fused=True, kernel="never")
+    TIMES["infer.setup"] = time.perf_counter() - t0
+    fused = infer_run("fused", prog, fetch, init, feed, fused=True)
+    unfused = infer_run("unfused", prog, fetch, init, feed, fused=False)
+    # the dense replay is a check, not a measurement: one forward, counted
+    dense = infer_run("dense", prog, fetch, init, feed, fused=True,
+                      kernel="never", forwards=1, profiled=False)
     dec = fused["decision"]
     lf, lu = float(fused["loss"]), float(unfused["loss"])
     rel = abs(lf - lu) / abs(lu)
@@ -893,14 +920,15 @@ def phase_infer(seed):
                    ("dense replay", dense)):
         p = r["profiled"]
         log(f"  {tag}: forward {r['forward_ms']:.2f} ms median of "
-            f"{INFER_FORWARDS} ({tokens / r['forward_ms'] * 1e3:.0f} "
-            f"tokens/s; warm-up {r['warmup_s']:.2f} s), peak "
+            f"{len(r['forward_ms_all'])} "
+            f"({tokens / r['forward_ms'] * 1e3:.0f} tokens/s; warm-up "
+            f"{r['warmup_s']:.2f} s), peak "
             f"{r['peak_bytes'] / 2**30:.2f} GiB ({r['base_bytes'] / 2**30:.2f}"
-            f" GiB resident), launches a forward {r['launches']}, profiled: "
-            f"wall {p['wall_s'] * 1e3:.1f} ms, busy "
-            f"{p['device_busy_s'] * 1e3:.1f} ms, idle share "
-            f"{p['idle_share']:.3f}")
-        for k in p["top_kernels"][:5]:
+            f" GiB resident), launches a forward {r['launches']}" + (
+                f", profiled: wall {p['wall_s'] * 1e3:.1f} ms, busy "
+                f"{p['device_busy_s'] * 1e3:.1f} ms, idle share "
+                f"{p['idle_share']:.3f}" if p else ""))
+        for k in (p["top_kernels"][:5] if p else []):
             log(f"    {k['ms']:8.3f} ms {k['calls']:5d} calls  {k['name']}")
     if dec is None or not dec.applied or dec.n_fused != INFER_CHAINS:
         raise SystemExit(f"chip_smoke: the fusion pass did not fuse "
@@ -949,14 +977,20 @@ def main():
                     help="also write the full report to DIR/chip_smoke.json")
     args = ap.parse_args()
     t0 = time.perf_counter()
-    card = phase_device()
-    kres, masks = phase_kernels(args.seed)
-    model, params, exe, run = phase_serve(args.seed)
-    whole = phase_whole_path(model, params, exe, run, args.seed)
+    with timed("device"):
+        card = phase_device()
+    with timed("kernels"):
+        kres, masks = phase_kernels(args.seed)
+    with timed("serve"):
+        model, params, exe, run = phase_serve(args.seed)
+    with timed("whole_path"):
+        whole = phase_whole_path(model, params, exe, run, args.seed)
     del model, params, exe
-    trained = phase_train(args.seed)
+    with timed("train"):
+        trained = phase_train(args.seed)
     torch.cuda.empty_cache()
-    inferred = phase_infer(args.seed)
+    with timed("infer"):
+        inferred = phase_infer(args.seed)
     # launches on the main paths: serving (K1, K2), training (K1, K3, K4)
     # and inference (K1, K5), each counted from 0 over its own run
     launches = {n: run["launches"][n] + trained["launches"][n]
@@ -987,6 +1021,8 @@ def main():
             "library_ms": r["library_ms"]})
     report["kernels_line"] = line
     report["wall_s"] = time.perf_counter() - t0
+    report["seconds"] = dict(TIMES)
+    log("[seconds] " + ", ".join(f"{k} {v:.2f}" for k, v in TIMES.items()))
     log(f"[done] {report['wall_s']:.1f} s")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)

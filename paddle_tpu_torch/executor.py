@@ -22,7 +22,8 @@ where CUDA is absent; pass ``CPUPlace()`` to run on the CPU.
 forward-only program for its GEMM-epilogue-fused clone
 (``analysis/epilogue_fusion.py``), witnessed on this executor's device;
 the decision is cached per (program serial, version, op count, fetches,
-``FLAGS_fused_gemm_blocks``).
+``FLAGS_fused_gemm_blocks``, ``FLAGS_use_fused_gemm``): a new block triple
+or route mode re-runs the witness.
 """
 from __future__ import annotations
 
@@ -123,8 +124,8 @@ class Executor:
         self.device = self.place.torch_device()
         self._lock = threading.Lock()
         self._step_counter = 0
-        # FLAGS_epilogue_fusion: (fingerprint, fetches, blocks) -> the
-        # program to run, and the FusionDecision that chose it
+        # FLAGS_epilogue_fusion: (fingerprint, fetches, blocks, route
+        # mode) -> the program to run, and the FusionDecision that chose it
         self._fusion_cache: Dict[tuple, Program] = {}
         self._fusion_decisions: Dict[tuple, Any] = {}
 
@@ -207,7 +208,8 @@ class Executor:
 
         blocks = resolve_gemm_blocks() if flag("fused_gemm_blocks") \
             else None
-        key = (program_fingerprint(program), tuple(fetch_names), blocks)
+        key = (program_fingerprint(program), tuple(fetch_names), blocks,
+               flag("use_fused_gemm"))
         with self._lock:
             cached = self._fusion_cache.get(key)
         if cached is not None:

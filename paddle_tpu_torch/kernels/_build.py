@@ -7,7 +7,8 @@ library under ``paddle_tpu_torch/_build/`` (named by a hash of the source
 and the ``csrc/*.cuh`` headers, so an edited source or header is rebuilt),
 loaded with ``ctypes`` and bound to its signature once. Nothing here
 runs at import time: the CPU tests import every module on a machine
-without ``nvcc``.
+without ``nvcc``. A kernel that fails to build, load or launch raises
+:class:`KernelError`, which no caller turns into a fallback.
 """
 from __future__ import annotations
 
@@ -24,8 +25,13 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
+# --split-compile=0: nvcc optimises a source's kernels on as many threads as
+# there are cores, which shortens the build of a source with many template
+# instantiations (fused_gemm.cu has eight) and leaves registers and spills
+# as they were; tools/torch_build_time.py times it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each entry point, the stream (last) included
@@ -50,6 +56,12 @@ SIGNATURES = {
     "fused_gemm": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
 }
 
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch."""
+
+
 _lock = threading.Lock()
 _name_locks: Dict[str, threading.Lock] = {}
 _fns: Dict[str, Callable[..., int]] = {}
@@ -60,7 +72,7 @@ build_logs: Dict[str, str] = {}
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
             "kernels are built from paddle_tpu_torch/csrc at first use")
     return path
@@ -84,7 +96,7 @@ def _compile(name: str) -> str:
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+        raise KernelError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     build_logs[name] = proc.stderr
     os.replace(tmp, out)
@@ -102,7 +114,12 @@ def load(name: str):
         with name_lock:
             fn = _fns.get(name)
             if fn is None:
-                fn = getattr(ctypes.CDLL(_compile(name)), name)
+                path = _compile(name)
+                try:
+                    fn = getattr(ctypes.CDLL(path), name)
+                except (OSError, AttributeError) as e:
+                    raise KernelError(f"cannot load csrc/{name}.cu's "
+                                      f"build {path}: {e}") from e
                 fn.argtypes = SIGNATURES[name]
                 fn.restype = ctypes.c_int
                 _fns[name] = fn
@@ -112,12 +129,12 @@ def load(name: str):
 def launch(name: str, device: torch.device, *args) -> None:
     """Call ``csrc/<name>.cu`` with ``args`` on ``device``'s current stream,
     read at each call (the serving dispatcher launches from its own
-    thread), and raise on a non-zero ``cudaError_t``."""
+    thread), and raise :class:`KernelError` on a non-zero ``cudaError_t``."""
     fn = load(name)
     if device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
             return launch(name, device, *args)
     err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+        raise KernelError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")

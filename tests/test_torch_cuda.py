@@ -212,6 +212,46 @@ def test_fused_gemm_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
+def test_a_failed_launch_raises_through_the_fusion_witness(monkeypatch):
+    """The entry point's own error (M = 0: cudaErrorInvalidValue) raises
+    KernelError; and when K5 fails in the fusion witness, Executor.run
+    raises instead of caching and running the unfused program."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import _build
+
+    _cuda()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with pytest.raises(_build.KernelError, match="cudaError_t 1"):
+        _build.launch("fused_gemm", dev, None, None, None, None, None, None,
+                      None, 0, 8, 8, 0, 0, 1e-5, 0, 0)
+
+    def fc(h, act=None):
+        return fluid.layers.fc(h, 128, act=act, param_attr=fluid.ParamAttr(
+            initializer=fluid.initializer.TruncatedNormal(0.0, 0.02)))
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[128], dtype="float32")
+        out = fc(fc(x, "relu"))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    monkeypatch.setitem(_build._fns, "fused_gemm", lambda *a: 719)
+    prev = fluid.get_flags(["FLAGS_epilogue_fusion"])
+    fluid.set_flags({"FLAGS_epilogue_fusion": True})
+    try:
+        with pytest.raises(Exception) as err:
+            exe.run(main, feed={"x": torch.randn(32, 128).numpy()},
+                    fetch_list=[out], scope=scope)
+    finally:
+        fluid.set_flags(prev)
+    e = err.value
+    while not isinstance(e, _build.KernelError):
+        e = e.__cause__
+    assert "cudaError_t 719" in str(e)
+    assert not exe._fusion_cache and not exe._fusion_decisions
+
+
+@pytest.mark.cuda
 def test_fused_gemm_sums_k_in_order_like_cublas():
     """Each output is one FMA chain over k in order, so with no epilogue
     the kernel matches ``torch.matmul`` (cuBLAS SGEMM, TF32 off) far inside

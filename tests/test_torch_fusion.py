@@ -362,6 +362,55 @@ def test_witness_refuses_a_wrong_lowering(monkeypatch):
     assert dec.program is main
 
 
+@pytest.mark.parametrize("fault", ["build", "launch"])
+def test_a_kernel_fault_raises_through_the_witness(monkeypatch, tmp_path,
+                                                   fault):
+    """A K5 that does not build or launch raises out of Executor.run,
+    twice: the witness does not refuse it with PT754, so no unfused
+    program is cached in its place. The fused op's kernel route is forced
+    on the CPU by a wrapper that goes straight to ``_build.launch`` on a
+    CUDA device, where the nvcc call fails (build) or the entry point
+    returns cudaErrorLaunchFailure (launch)."""
+    import importlib
+
+    from paddle_tpu_torch.kernels import _build
+
+    # the module (the package re-exports its function under the same name)
+    kfg = importlib.import_module("paddle_tpu_torch.kernels.fused_gemm")
+
+    monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(_build, "BUILD", str(tmp_path))
+    if fault == "build":
+        monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+        match = "nvcc failed for csrc/fused_gemm.cu"
+    else:
+        monkeypatch.setattr(_build, "_fns", {"fused_gemm": lambda *a: 719})
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda d=None: types.SimpleNamespace(
+                                cuda_stream=0))
+        match = "CUDA launch failed with cudaError_t 719"
+
+    def kernel_route(x, y, **kw):
+        _build.launch("fused_gemm", torch.device("cuda", 0))
+
+    monkeypatch.setattr(kfg, "fused_gemm", kernel_route)
+    tfluid.set_flags({"FLAGS_epilogue_fusion": True,
+                      "FLAGS_use_fused_gemm": "always"})
+    main, startup, fetch = _guarded(PORT, _mlp("gelu"))
+    exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    for _ in range(2):
+        with pytest.raises(Exception) as err:
+            exe.run(main, feed=_feed(), fetch_list=fetch, scope=scope)
+        e = err.value
+        while not isinstance(e, _build.KernelError):
+            e = e.__cause__
+        assert match in str(e)
+    assert not _ran(exe, main) and not exe._fusion_decisions
+    assert not tef._device_fault(ValueError("no kernel tiling"))
+
+
 def test_fused_clone_has_its_own_serial_and_cache_entry():
     main, startup, fetch = _guarded(PORT, _mlp("gelu"))
     a, exe = _run(main, startup, fetch, _feed(), fused=True)
@@ -375,6 +424,15 @@ def test_fused_clone_has_its_own_serial_and_cache_entry():
     exe.run(startup, scope=scope)
     exe.run(main, feed=_feed(), fetch_list=fetch, scope=scope)
     assert [k[2] for k in _ran(exe, main)] == [None, (128, 128, 100)]
+    # and so does a new route mode: 'always' must witness the kernel
+    # route the 'auto' decision never checked
+    tfluid.set_flags({"FLAGS_fused_gemm_blocks": "",
+                      "FLAGS_use_fused_gemm": "always"})
+    exe.run(main, feed=_feed(), fetch_list=fetch, scope=scope)
+    assert [k[2:] for k in _ran(exe, main)] == [
+        (None, "auto"), ((128, 128, 100), "auto"), (None, "always")]
+    assert [w["route"] for k, d in exe._fusion_decisions.items()
+            if k[3] == "always" for w in d.witness] == ["plain", "plain"]
 
 
 def test_witness_runs_on_the_executors_device(monkeypatch):
