@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    TF32 off for float32 matrix products and convolutions.
 2. kernels — builds every kernel of the serving, training and inference
    paths from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once), runs each on the card at the main paths' shapes against its
+   once), runs each on the card at the main paths' shapes (K1: serving
+   prefill [96,128|512,64] causal, f32 and bf16; training [384,128,64]
+   with dropout; inference [384,512,64]) against its
    plain PyTorch version (``kernels.KERNEL_TOL``: f32 atol 1e-4 / rtol
    1e-3, the two sum in different orders; bf16 atol 8e-3 / rtol 1.6e-2,
    about two bf16 ulp), checks that K1, K3 and K4 drop exactly the
@@ -266,8 +268,9 @@ def _pad_bias(B, S, gen):
                        < lens[:, None], 0.0, -10000.0).float()
 
 
-def check_flash_dropout(gen, B=32, H=12, S=128, D=64, rate=0.1, seed=1234):
-    """K1 at BERT-base's training shape: padding bias, dropout 0.1."""
+def check_flash_padded(gen, S, rate, B=32, H=12, D=64, seed=1234):
+    """K1 at BERT-base's shapes: padding bias, not causal; S = 128 with
+    dropout 0.1 (training), S = 512 without (inference)."""
     BH, dtype = B * H, torch.float32
     q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda")
                for _ in range(3))
@@ -278,9 +281,11 @@ def check_flash_dropout(gen, B=32, H=12, S=128, D=64, rate=0.1, seed=1234):
     o_k, lse_k = K.flash_attention_with_lse(q, k, v, **args)
     o_p, lse_p = K.flash_attention_reference(q, k, v, **args)
     torch.cuda.synchronize()
-    tag = f"K1 [{BH},{S},{D}] float32 bias+dropout {rate}"
+    tag = (f"K1 [{BH},{S},{D}] float32 bias"
+           + (f"+dropout {rate}" if rate else ""))
     err = compare(tag + " o", o_k, o_p, dtype)
     compare(tag + " lse", lse_k, lse_p, dtype)
+    del o_p, lse_p
     q4, k4, v4 = (t.reshape(B, H, S, D) for t in (q, k, v))
     mask = bias.reshape(B, 1, 1, S)
     ms = time_ms(lambda: K.flash_attention_with_lse(q, k, v, **args))
@@ -471,7 +476,8 @@ def phase_kernels(seed):
             res["flash_attention_fwd"].append(check_flash(S, dtype, gen))
         for q_len in (1, 8):
             res["decode_attention"].append(check_decode(q_len, dtype, gen))
-    res["flash_attention_fwd"].append(check_flash_dropout(gen))
+    for S, rate in ((128, 0.1), (512, 0.0)):       # training, inference
+        res["flash_attention_fwd"].append(check_flash_padded(gen, S, rate))
     for B, H, S, dtype, causal, rate in (
             (32, 12, 128, torch.float32, False, 0.1),
             (8, 12, 512, torch.float32, True, 0.0),

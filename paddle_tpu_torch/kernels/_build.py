@@ -126,6 +126,41 @@ def load(name: str):
     return fn
 
 
+def sass(name: str) -> Dict[str, str]:
+    """The SASS of each kernel in ``csrc/<name>.cu``'s build, by mangled
+    function name (``cuobjdump -sass``; builds the source first)."""
+    load(name)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.run([tool, "-sass", _lib_path(name)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelError(f"cuobjdump failed for csrc/{name}.cu: "
+                          f"{proc.stderr}")
+    funcs: Dict[str, list] = {}
+    cur = None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :", 1)[1].strip()
+            funcs[cur] = []
+        elif cur is not None:
+            funcs[cur].append(line)
+    return {f: "\n".join(lines) for f, lines in funcs.items()}
+
+
+def tensor_core_ops(sass_text: str) -> int:
+    """Tensor-core instructions (HMMA, HGMMA) in one kernel's SASS."""
+    return sum(1 for line in sass_text.splitlines()
+               if "HMMA" in line or "HGMMA" in line)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned data pointer, as the
+    kernels' cp.async copies need (a view at an odd offset is copied
+    once)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call ``csrc/<name>.cu`` with ``args`` on ``device``'s current stream,
     read at each call (the serving dispatcher launches from its own

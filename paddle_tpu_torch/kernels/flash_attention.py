@@ -118,12 +118,16 @@ def _shape_problems(sq: int, sk: int, head_dim: int):
 def classify_shapes(sq: int, sk: int, head_dim: int):
     """``('prefill', why)`` when K1 takes the shape, else
     ``('unsupported', reason)``. Unlike the TPU kernel it needs no block
-    divisibility: the ragged edge is masked in-kernel."""
+    divisibility: the ragged edge is masked in-kernel. K1 is compiled for
+    head dims 64 and 128; a smaller multiple of 8 is zero-padded up to the
+    next one as its tiles load."""
     bad = _shape_problems(sq, sk, head_dim)
     if bad:
         return "unsupported", bad
+    padded = 64 if head_dim <= 64 else 128
     return "prefill", (f"{-(-sq // 64)} q-tile(s) of 64 rows over {sk} "
-                       f"key(s), ragged edges masked in-kernel")
+                       f"key(s), ragged edges masked in-kernel, head_dim "
+                       f"{head_dim} run as {padded}")
 
 
 def classify_backward_shapes(sq: int, sk: int, head_dim: int):
@@ -277,6 +281,7 @@ def _rows(name, t, q):
 def _launch_fwd(q, k, v, bias, causal, scale, q_offset, k_offset, num_heads,
                 dropout_rate, seed):
     q, k, v, bias = _check(q, k, v, bias, num_heads)
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     kind, why = classify_shapes(Sq, Sk, D)

@@ -14,10 +14,11 @@ residual-add ``residual`` [M, N], row-wise layer_norm (``ln_scale`` /
 * :func:`classify_gemm` — what the Hopper kernel takes, with the failing
   constraint named. Its rules are the kernel's own, not the TPU's lane and
   sublane tiling: M, N and K need not divide into blocks (the kernel masks
-  ragged edges), but N and K must be multiples of 4 (x and y rows are
-  loaded as 16-byte f32 / 8-byte bf16 vectors), the block triple must be
-  the compiled one, and a layer_norm epilogue's 32 whole rows must fit in
-  shared memory beside the GEMM tiles.
+  ragged edges; M up to 65535 row tiles), but N and K must be multiples of
+  4 (x and y rows are copied into shared memory in 16-byte f32 / 8-byte
+  bf16 chunks), the block triple must be the compiled one, and a
+  layer_norm epilogue's 32 whole rows must fit in shared memory beside the
+  k-tile ring.
 """
 from __future__ import annotations
 
@@ -30,20 +31,27 @@ from . import _build
 __all__ = ["fused_gemm", "classify_gemm", "fused_gemm_reference",
            "DEFAULT_BLOCKS", "EPILOGUE_ACTIVATIONS"]
 
-# (block_m, block_n, block_k) of the one compiled GEMM tile: 128 x 128
-# outputs a block, k in 16-deep shared-memory tiles
-DEFAULT_BLOCKS = (128, 128, 16)
+# (block_m, block_n, block_k) of the one compiled GEMM tile: 128 x 256
+# outputs a block (the f32 route on CUDA cores and the bf16 route on tensor
+# cores alike), k in 32-deep tiles through a ring in shared memory (the
+# bf16 route takes them two at a time)
+DEFAULT_BLOCKS = (128, 256, 32)
 EPILOGUE_ACTIVATIONS = ("none", "relu", "gelu")
 
-# the layer_norm variant: 32 whole rows a block, parked in shared memory
+# the layer_norm variants: 32 whole rows a block, parked in shared memory
+# behind the k-tile ring
 LN_ROWS = 32
-# H100: shared memory one block may use (bytes), and what the layer_norm
-# variant's static x / y tiles take of it
+# H100: shared memory one block may use (bytes), and the larger of the two
+# layer_norm variants' rings (f32: 4 stages of an 8 x 32 x-tile, k-rows
+# padded by 4, and an 8 x 256 y-tile; bf16: 3 stages of padded 32 x 32 and
+# 32 x 128 tiles), as csrc/fused_gemm.cu asserts (LN_RING)
 _SMEM_PER_BLOCK = 232448
-_LN_TILE_SMEM = (16 * LN_ROWS + 16 * 128) * 4
-# N above this leaves no room for the rows (1736)
-LN_MAX_N = (_SMEM_PER_BLOCK - _LN_TILE_SMEM) // (4 * LN_ROWS)
+_LN_RING_SMEM = 4 * (8 * (LN_ROWS + 4) + 8 * 256) * 4
+# N above this leaves no room for the rows (1524)
+LN_MAX_N = (_SMEM_PER_BLOCK - _LN_RING_SMEM) // (4 * LN_ROWS)
 
+# row tiles run along the grid's y dimension
+_MAX_ROW_TILES = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -63,17 +71,21 @@ def classify_gemm(m: int, n: int, k: int, *, layer_norm: bool = False,
                 f"block_m={block_m}, block_n={block_n}, block_k={block_k} "
                 f"has no compiled instantiation (csrc/fused_gemm.cu "
                 f"compiles {DEFAULT_BLOCKS})")
+    if -(-m // block_m) > _MAX_ROW_TILES:
+        return ("unsupported",
+                f"m={m} is more than {_MAX_ROW_TILES} row tiles of "
+                f"{block_m} (the grid's y dimension)")
     bad = [f"{name}={v}" for name, v in (("n", n), ("k", k)) if v % 4]
     if bad:
         return ("unsupported",
-                f"{' and '.join(bad)} not a multiple of 4: the kernel loads "
-                f"x and y rows as 16-byte f32 / 8-byte bf16 vectors")
+                f"{' and '.join(bad)} not a multiple of 4: the kernel copies "
+                f"x and y rows in 16-byte f32 / 8-byte bf16 chunks")
     if layer_norm and n > LN_MAX_N:
         return ("unsupported",
                 f"layer_norm epilogue needs {LN_ROWS} whole rows in shared "
                 f"memory: {LN_ROWS} x n={n} f32 is {LN_ROWS * n * 4} bytes, "
                 f"above the {LN_MAX_N * LN_ROWS * 4} the H100 leaves beside "
-                f"the GEMM tiles (n <= {LN_MAX_N})")
+                f"the k-tile ring (n <= {LN_MAX_N})")
     if layer_norm:
         return ("supported",
                 f"{-(-m // LN_ROWS)} blocks of {LN_ROWS} whole rows with "
@@ -129,13 +141,6 @@ def _f32(t, shape, name, device):
     return t.to(torch.float32).contiguous()
 
 
-def _aligned(t):
-    """``t`` contiguous with a 16-byte aligned data pointer (a view at an
-    odd offset is copied once)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def fused_gemm(x, y, bias=None, residual=None, ln_scale=None, ln_bias=None,
                activation: str = "none", gelu_approximate: bool = False,
                layer_norm: bool = False, ln_eps: float = 1e-5,
@@ -177,7 +182,7 @@ def fused_gemm(x, y, bias=None, residual=None, ln_scale=None, ln_bias=None,
     if y.device != x.device:
         raise ValueError(f"fused_gemm: y on {y.device}, x on {x.device}")
     dev = x.device
-    x, y = _aligned(x), _aligned(y)
+    x, y = _build.aligned(x), _build.aligned(y)
     bias = _f32(bias, (n,), "bias", dev)
     residual = _f32(residual, (m, n), "residual", dev)
     ln_scale = _f32(ln_scale, (n,), "ln_scale", dev)

@@ -5,10 +5,16 @@ installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Without a CUDA device they skip: the kernels have no CPU mode."""
+import importlib
+
 import pytest
 import torch
 
 from paddle_tpu_torch import kernels as K
+from paddle_tpu_torch.kernels import _build
+
+# the module (the package re-exports its function under the same name)
+FG = importlib.import_module("paddle_tpu_torch.kernels.fused_gemm")
 
 
 def _cuda():
@@ -162,13 +168,17 @@ def _gemm_inputs(g, m, n, k, dt, residual=False):
                                       "bias+residual+layer_norm",
                                       "bias+gelu+layer_norm"])
 @pytest.mark.parametrize("m,n,k", [(77, 132, 36), (300, 260, 300),
-                                   (5, 4, 4), (129, 1736, 100)])
+                                   (5, 4, 4), (129, FG.LN_MAX_N, 100)])
 def test_fused_gemm_matches_its_plain_version(m, n, k, epilogue, in_dt,
                                               out_dt):
     """K5 against its plain version on ragged shapes (M, N and K not
-    multiples of the 128 x 128 x 16 tile; n = 1736 the widest whole row the
-    layer_norm variant takes), every epilogue, every input/output type, at
-    ``K.KERNEL_TOL`` of the output type; each call is one launch."""
+    multiples of the 128 x 256 x 32 tile; n = LN_MAX_N the widest whole row
+    the layer_norm variants take), every epilogue, every input/output type,
+    at ``K.KERNEL_TOL`` of the output type; each call is one launch."""
+    _check_gemm(m, n, k, epilogue, in_dt, out_dt)
+
+
+def _check_gemm(m, n, k, epilogue, in_dt, out_dt):
     g = _cuda()
     dt, odt = getattr(torch, in_dt), getattr(torch, out_dt)
     x, y, kw = _gemm_inputs(g, m, n, k, dt, "residual" in epilogue)
@@ -191,6 +201,23 @@ def test_fused_gemm_matches_its_plain_version(m, n, k, epilogue, in_dt,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("in_dt,out_dt", [("float32", "float32"),
+                                          ("bfloat16", "float32"),
+                                          ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("m", [1, 32, 33, 200])
+@pytest.mark.parametrize("n,k", [(4, 4), (36, 132), (132, 36), (260, 100),
+                                 (516, 196)])
+def test_fused_gemm_edges_of_the_tile(m, n, k, in_dt, out_dt):
+    """The 128 x 256 tile's edges: M of 1, 32, 33 and one not a multiple of
+    128; N and K of 4, 36 and 132; K not a multiple of the 32-deep k-tile
+    times the 3 stages (100, 196); N past one 256-column tile (260, 516);
+    bias + gelu, and the layer_norm variant at m = 33."""
+    _check_gemm(m, n, k, "bias+gelu", in_dt, out_dt)
+    if m == 33:
+        _check_gemm(m, n, k, "bias+residual+layer_norm", in_dt, out_dt)
+
+
+@pytest.mark.cuda
 def test_fused_gemm_refuses_what_the_kernel_does_not_take():
     """Unaligned N or K, a block triple with no compiled instantiation and
     a layer_norm row wider than shared memory raise before any launch."""
@@ -201,10 +228,11 @@ def test_fused_gemm_refuses_what_the_kernel_does_not_take():
         K.fused_gemm(x, torch.zeros(6, 8, device="cuda"))
     with pytest.raises(ValueError, match="compiled instantiation"):
         K.fused_gemm(torch.zeros(8, 8, device="cuda"),
-                     torch.zeros(8, 8, device="cuda"), block_k=32)
+                     torch.zeros(8, 8, device="cuda"), block_k=16)
     with pytest.raises(ValueError, match="whole rows"):
         K.fused_gemm(torch.zeros(8, 8, device="cuda"),
-                     torch.zeros(8, 1740, device="cuda"), layer_norm=True)
+                     torch.zeros(8, FG.LN_MAX_N + 4, device="cuda"),
+                     layer_norm=True)
     with pytest.raises(TypeError, match="float32 or"):
         K.fused_gemm(torch.zeros(8, 8, device="cuda", dtype=torch.float16),
                      torch.zeros(8, 8, device="cuda", dtype=torch.float16))
@@ -262,3 +290,63 @@ def test_fused_gemm_sums_k_in_order_like_cublas():
     got, want = K.fused_gemm(x, y), torch.matmul(x, y)
     err = (got - want).abs().max().item()
     assert err <= 1e-3, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 40, 64, 128])
+@pytest.mark.parametrize("Sq,Sk,causal,q_offset,k_offset,rate", [
+    (77, 130, False, 0, 0, 0.0), (130, 77, False, 0, 0, 0.1),
+    (100, 100, True, 0, 0, 0.0), (77, 140, True, 60, 0, 0.1),
+    (90, 90, True, 0, 30, 0.0)])
+def test_flash_forward_edges_of_the_tile(dtype, D, Sq, Sk, causal, q_offset,
+                                         k_offset, rate):
+    """K1 on S not a multiple of its 64-row tiles, head dims zero-padded up
+    to the compiled 64 and 128 (8, 40) and at them, causal with q_offset /
+    k_offset (k_offset = 30 leaves the first 30 rows no key: o = 0 and
+    lse = -inf there), bias, dropout."""
+    g = _cuda()
+    dt = getattr(torch, dtype)
+    q = torch.randn(6, Sq, D, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(6, Sk, D, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    bias = torch.zeros(2, Sk, device="cuda")
+    bias[1, Sk // 2:] = -10000.0
+    kw = dict(bias=bias, causal=causal, q_offset=q_offset, k_offset=k_offset,
+              num_heads=3, dropout_rate=rate, seed=11)
+    n0 = K.launch_counts()["flash_attention_fwd"]
+    o, lse = K.flash_attention_with_lse(q, k, v, **kw)
+    assert K.launch_counts()["flash_attention_fwd"] == n0 + 1
+    ro, rl = K.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == dt and o.shape == q.shape
+    torch.testing.assert_close(o.float(), ro.float(), **K.KERNEL_TOL[dt])
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-3)
+    if k_offset > q_offset and causal:
+        dead = k_offset - q_offset
+        assert torch.equal(o[:, :dead], torch.zeros_like(o[:, :dead]))
+        assert torch.isneginf(lse[:, :dead]).all()
+        assert torch.isfinite(lse[:, dead:]).all()
+
+
+# the routes of each source, by the kernel names in its SASS
+ROUTES = {"fused_gemm": (("gemm_bf16_kernel", "gemm_ln_bf16_kernel"),
+                         ("gemm_f32_kernel", "gemm_ln_f32_kernel")),
+          "flash_attention_fwd": (("flash_fwd_bf16",), ("flash_fwd_f32",))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_tensor_cores_run_the_bf16_routes_only(name):
+    """The bf16 routes' SASS holds tensor-core instructions (HMMA or
+    HGMMA); the f32 routes' holds none (plain f32 FMAs, no TF32)."""
+    _cuda()
+    bf16, f32 = ROUTES[name]
+    seen = set()
+    for fn, text in _build.sass(name).items():
+        n = _build.tensor_core_ops(text)
+        for kernel in bf16 + f32:
+            if kernel in fn:
+                seen.add(kernel)
+                assert (n > 0) == (kernel in bf16), (fn, n)
+    assert seen == set(bf16 + f32)

@@ -38,7 +38,8 @@ from paddle_tpu_torch.interop import scope_from_numpy
 from paddle_tpu_torch.kernels.fused_gemm import DEFAULT_BLOCKS
 from paddle_tpu_torch.models.bert import BertConfig as TBertConfig
 from paddle_tpu_torch.models.bert import build_bert_pretrain as t_build
-from paddle_tpu_torch.ops.fused_gemm import fused_gemm_route
+from paddle_tpu_torch.ops.fused_gemm import (fused_gemm_route,
+                                             resolve_gemm_blocks)
 
 JAX = types.SimpleNamespace(fl=fluid, un=jun, init=fluid.initializer)
 PORT = types.SimpleNamespace(fl=tfluid, un=tun, init=tinit)
@@ -330,16 +331,40 @@ def test_always_raises_on_a_shape_the_kernel_does_not_take():
         fused_gemm_route(128, 2, 128, layer_norm=False,
                          blocks=DEFAULT_BLOCKS)
     route, reason = fused_gemm_route(128, 128, 128, layer_norm=False,
-                                     blocks=(128, 128, 16), alpha=2.0)
+                                     blocks=DEFAULT_BLOCKS, alpha=2.0)
     assert route == "primitive" and "alpha" in reason
     tfluid.set_flags({"FLAGS_use_fused_gemm": "auto"})
     assert fused_gemm_route(128, 128, 128, layer_norm=False,
-                            blocks=(128, 128, 16))[0] == "primitive"
+                            blocks=DEFAULT_BLOCKS)[0] == "primitive"
     assert fused_gemm_route(128, 128, 128, layer_norm=False,
-                            blocks=(128, 128, 16), on_cuda=True)[0] == "cuda"
+                            blocks=DEFAULT_BLOCKS, on_cuda=True)[0] == "cuda"
     assert fused_gemm_route(128, 2, 128, layer_norm=False,
+                            blocks=DEFAULT_BLOCKS, on_cuda=True)[0] == \
+        "primitive"
+    # any other triple has no compiled instantiation
+    assert fused_gemm_route(128, 128, 128, layer_norm=False,
                             blocks=(128, 128, 16), on_cuda=True)[0] == \
         "primitive"
+
+
+@pytest.mark.parametrize("raw,route", [("128,256,32", "cuda"),
+                                       ("128x256x32", "cuda"),
+                                       ("128,128,16", "primitive")])
+def test_blocks_flag_takes_the_compiled_triple(raw, route):
+    """FLAGS_fused_gemm_blocks names the triple K5 compiles, (128, 256, 32);
+    any other sends the chain to the dense replay with that triple named
+    in the reason."""
+    tfluid.set_flags({"FLAGS_fused_gemm_blocks": raw})
+    try:
+        blocks = resolve_gemm_blocks()
+        got, reason = fused_gemm_route(16384, 768, 768, layer_norm=False,
+                                       blocks=blocks, on_cuda=True)
+    finally:
+        tfluid.set_flags({"FLAGS_fused_gemm_blocks": ""})
+    assert got == route
+    assert (blocks == DEFAULT_BLOCKS) == (route == "cuda")
+    if route == "primitive":
+        assert str(DEFAULT_BLOCKS) in reason
 
 
 def test_witness_refuses_a_wrong_lowering(monkeypatch):

@@ -435,12 +435,16 @@ def test_fused_gemm_plain_takes_bf16_like_jax_kernel(kind):
     # ragged M and N: masked in the kernel (the TPU kernel refuses both)
     ((100, 132, 128), {}, True, ""),
     ((250, 100, 36), {}, True, ""),
-    ((128, 1736, 768), {"layer_norm": True}, True, ""),
+    ((128, 1524, 768), {"layer_norm": True}, True, ""),
+    ((1, 4, 4), {}, True, ""),
+    ((65535 * 128, 4, 4), {}, True, ""),
     ((128, 130, 128), {}, False, "n=130 not a multiple of 4"),
     ((128, 128, 6), {}, False, "k=6 not a multiple of 4"),
     ((128, 2, 768), {}, False, "n=2 not a multiple of 4"),
-    ((128, 1740, 768), {"layer_norm": True}, False, "whole rows"),
-    ((128, 128, 128), {"block_k": 128}, False, "compiled instantiation"),
+    ((128, 1528, 768), {"layer_norm": True}, False, "whole rows"),
+    ((128, 128, 128), {"block_k": 16}, False, "compiled instantiation"),
+    ((128, 128, 128), {"block_n": 128}, False, "(128, 256, 32)"),
+    ((65535 * 128 + 1, 4, 4), {}, False, "65535 row tiles"),
     ((0, 128, 128), {}, False, ">= 1")])
 def test_classify_gemm_names_the_hopper_constraint(mnk, kw, ok, why):
     kind, reason = K.classify_gemm(*mnk, **kw)
