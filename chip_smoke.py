@@ -38,8 +38,8 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    fresh state from the same weights and feeds. Step-1 losses agree within
    rtol 1e-5, later steps within rtol 1e-3, the loss falls, and the
    device memory held between steps stays flat. Reports steps/s,
-   tokens/s, peak device memory and one profiled step's device idle share
-   and top kernels.
+   tokens/s, peak device memory and one profiled step's device idle share,
+   top kernels and the device time of each of the port's kernels.
 6. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
    512; ``build_bert_pretrain(build_optimizer=False)`` cloned for test;
    random weights and a synthetic batch from ``--seed``; fetch the loss
@@ -299,9 +299,11 @@ def check_flash_padded(gen, S, rate, B=32, H=12, D=64, seed=1234):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def sdpa_backward_ms(q, k, v, do, mask, rate, scale, B, H):
-    """Time of the backward alone of one ``scaled_dot_product_attention``
-    call on the same inputs, and the name of the backend that ran."""
+def sdpa_backward(q, k, v, do, mask, rate, scale, B, H):
+    """A function running the backward alone of one
+    ``scaled_dot_product_attention`` call on the same inputs (the first
+    backend that takes them), and the backend's name; (None, None) if
+    none does."""
     S, D = q.shape[1], q.shape[2]
     q4, k4, v4 = (t.reshape(B, H, -1, D).detach().requires_grad_()
                   for t in (q, k, v))
@@ -318,9 +320,17 @@ def sdpa_backward_ms(q, k, v, do, mask, rate, scale, B, H):
             torch.cuda.synchronize()
         except RuntimeError:
             continue
-        return time_ms(lambda: torch.autograd.grad(
-            out, (q4, k4, v4), do4, retain_graph=True)), backend.name
+        return (lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                            retain_graph=True),
+                backend.name)
     return None, None
+
+
+def sdpa_backward_ms(q, k, v, do, mask, rate, scale, B, H):
+    """Time of the backward alone of one ``scaled_dot_product_attention``
+    call on the same inputs, and the name of the backend that ran."""
+    fn, backend = sdpa_backward(q, k, v, do, mask, rate, scale, B, H)
+    return (time_ms(fn) if fn else None), backend
 
 
 def check_backward(gen, B, H, S, D, dtype, causal, rate, seed=4321):
@@ -731,10 +741,21 @@ def profile_step(net, exe, scope, feed):
                                        scope=scope))
 
 
+# the port's kernels by the names of their CUDA functions (K1, K3, K4, K2,
+# K5's routes)
+PORT_KERNELS = {"flash_attention_fwd": ("flash_fwd_",),
+                "flash_attention_dq": ("flash_dq_",),
+                "flash_attention_dkv": ("flash_dkv_",),
+                "decode_attention": ("decode_kernel",),
+                "fused_gemm": ("gemm_f32_kernel", "gemm_bf16_kernel",
+                               "gemm_ln_")}
+
+
 def profile_run(fn):
     """``fn()`` (which ends in a host read of its result) under
     torch.profiler: device busy time (summed kernel time) over wall
-    time, and the top kernels."""
+    time, the top kernels, and the device time and launches of each of
+    the port's kernels."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -745,11 +766,18 @@ def profile_run(fn):
                    if e.device_type.name == "CUDA" and _device_us(e) > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    port = {}
+    for name, marks in PORT_KERNELS.items():
+        mine = [(us, n) for us, k, n in rows if any(m in k for m in marks)]
+        if mine:
+            port[name] = {"ms": sum(us for us, _ in mine) / 1e3,
+                          "calls": sum(n for _, n in mine)}
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=1.0 - busy / wall,
                 device_kernels=sum(r[2] for r in rows),
                 top_kernels=[{"name": k[:90], "ms": us / 1e3, "calls": n}
-                             for us, k, n in rows[:12]])
+                             for us, k, n in rows[:12]],
+                port_kernels=port)
 
 
 def phase_train(seed):
@@ -789,6 +817,9 @@ def phase_train(seed):
         f"{growth / 2**20:.1f} MiB")
     for r in prof["top_kernels"][:6]:
         log(f"    {r['ms']:8.3f} ms {r['calls']:5d} calls  {r['name']}")
+    log("  the port's kernels in the profiled step: " + ", ".join(
+        f"{n} {r['ms']:.3f} ms ({r['calls']})"
+        for n, r in prof["port_kernels"].items()))
     if growth > 16 * 2**20:
         raise SystemExit(f"chip_smoke: device memory grew by "
                          f"{growth / 2**20:.1f} MiB across train steps")

@@ -59,6 +59,7 @@
 namespace {
 
 using flash::dropout_keep;
+using flash::load_rows;
 using flash::NEG_INF;
 using namespace sm90;
 
@@ -94,26 +95,6 @@ __device__ __forceinline__ float score(const Args& a, float dot, float b,
   float sv = dot * a.scale + b;
   if (a.causal && a.q_offset + qi < a.k_offset + gj) sv = NEG_INF;
   return sv;
-}
-
-// Copy rows [row0, row0 + rows_tile) of a [rows, D] matrix into a tile of
-// DP columns (row stride LD elements) with cp.async, zeros past the last
-// row and past D.  D % 8 == 0, so a chunk (16 bytes: 4 f32 or 8 bf16) is
-// wholly inside or wholly outside.
-template <typename T, int DP, int LD, int THREADS>
-__device__ __forceinline__ void load_rows(T* tile, const T* src, int row0,
-                                          int rows, int D) {
-  constexpr int PER = 16 / sizeof(T);          // elements a chunk
-  constexpr int CHUNKS = 64 * DP / PER;
-  static_assert(CHUNKS % THREADS == 0, "whole copy rounds");
-#pragma unroll
-  for (int it = 0; it < CHUNKS / THREADS; ++it) {
-    const int idx = threadIdx.x + it * THREADS;
-    const int r = idx / (DP / PER), c = (idx % (DP / PER)) * PER;
-    const int g = row0 + r;
-    const bool in = g < rows && c < D;
-    cp_async16(tile + r * LD + c, in ? src + (long long)g * D + c : src, in);
-  }
 }
 
 // ------------------------------------------------------------ f32 route

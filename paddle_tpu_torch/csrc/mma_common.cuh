@@ -1,5 +1,5 @@
-// Shared by the fused GEMM (fused_gemm.cu) and the flash-attention forward
-// (flash_attention_fwd.cu): asynchronous copies into shared memory
+// Shared by the fused GEMM (fused_gemm.cu) and the flash-attention kernels
+// (flash_attention_{fwd,dq,dkv}.cu): asynchronous copies into shared memory
 // (cp.async, with zero-fill of what lies outside the source) and the bf16
 // tensor-core instructions (ldmatrix, mma.sync.m16n8k16 -> f32).
 #pragma once

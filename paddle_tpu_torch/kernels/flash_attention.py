@@ -132,15 +132,18 @@ def classify_shapes(sq: int, sk: int, head_dim: int):
 
 def classify_backward_shapes(sq: int, sk: int, head_dim: int):
     """``('backward', why)`` when K3 and K4 take the shape, else
-    ``('unsupported', reason)``. Both keep four [64, D] f32 tiles in
-    shared memory and a D-wide accumulator row per thread group, which
-    bounds D at 128."""
+    ``('unsupported', reason)``. Like K1 they need no block divisibility
+    (ragged edges are masked in-kernel) and are compiled for head dims 64
+    and 128, a smaller multiple of 8 zero-padded up to the next one as
+    their tiles load."""
     bad = _shape_problems(sq, sk, head_dim)
     if bad:
         return "unsupported", bad
+    padded = 64 if head_dim <= 64 else 128
     return "backward", (f"K3: {-(-sq // 64)} q-tile(s) of 64 rows over "
                         f"{sk} key(s); K4: {-(-sk // 64)} k-tile(s) of 64 "
-                        f"rows over {sq} query row(s)")
+                        f"rows over {sq} query row(s); head_dim {head_dim} "
+                        f"run as {padded}")
 
 
 # ----------------------------------------------------------- plain versions
@@ -209,10 +212,14 @@ def _bwd_terms(q, k, v, bias, do, lse, delta, causal, scale, dropout_rate,
 def flash_attention_dq_reference(q, k, v, bias, do, lse, delta, causal=False,
                                  scale=None, dropout_rate=0.0, seed=0,
                                  q_offset=0, k_offset=0, num_heads=1):
-    """Plain PyTorch version of K3: ``dQ = scale · dS K``."""
+    """Plain PyTorch version of K3: ``dQ = scale · dS K``. dS is rounded
+    to k's type before the product, where the JAX kernel casts it
+    (``ds.astype(k_ref.dtype)``): a no-op in float32, one bf16 rounding per
+    element in bfloat16, as the kernel's tensor-core route does."""
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     _, ds, _ = _bwd_terms(q, k, v, bias, do, lse, delta, causal, scale,
                           dropout_rate, seed, q_offset, k_offset, num_heads)
+    ds = ds.to(k.dtype).float()
     return (scale * torch.einsum("bqk,bkd->bqd", ds, k.float())).to(q.dtype)
 
 
@@ -221,7 +228,10 @@ def flash_attention_dkv_reference(q, k, v, bias, do, lse, delta,
                                   seed=0, q_offset=0, k_offset=0,
                                   num_heads=1):
     """Plain PyTorch version of K4: ``dK = scale · dSᵀ Q`` and
-    ``dV = P_droppedᵀ dO``."""
+    ``dV = P_droppedᵀ dO``. dS and P_dropped are rounded to the type of the
+    operand they meet before each product, where the JAX kernel casts them
+    (``ds.astype(q.dtype)``, ``p_used.astype(do.dtype)``): a no-op in
+    float32, one bf16 rounding per element in bfloat16."""
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     p, ds, keep = _bwd_terms(q, k, v, bias, do, lse, delta, causal, scale,
                              dropout_rate, seed, q_offset, k_offset,
@@ -229,6 +239,7 @@ def flash_attention_dkv_reference(q, k, v, bias, do, lse, delta,
     if keep is not None:
         p = torch.where(keep, p * _drop_scale(dropout_rate),
                         torch.zeros_like(p))
+    p, ds = p.to(do.dtype).float(), ds.to(q.dtype).float()
     dk = scale * torch.einsum("bqk,bqd->bkd", ds, q.float())
     dv = torch.einsum("bqk,bqd->bkd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -304,6 +315,7 @@ def _launch_fwd(q, k, v, bias, causal, scale, q_offset, k_offset, num_heads,
 def _launch_bwd(name, n_out, q, k, v, bias, do, lse, delta, causal, scale,
                 dropout_rate, seed, q_offset, k_offset, num_heads):
     q, k, v, bias, do = _check(q, k, v, bias, num_heads, ("do", do))
+    q, k, v, do = (_build.aligned(t) for t in (q, k, v, do))
     lse, delta = _rows("lse", lse, q), _rows("delta", delta, q)
     BH, Sq, D = q.shape
     Sk = k.shape[1]

@@ -73,36 +73,6 @@ def _bwd_inputs(g, BH, Sq, Sk, D, dt, q_offset=0, k_offset=0, causal=False,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,q_offset,k_offset,rate", [
-    (False, 0, 0, 0.0), (False, 0, 0, 0.1), (True, 0, 0, 0.0),
-    (True, 0, 0, 0.1), (True, 0, 40, 0.0), (True, 40, 0, 0.1)])
-def test_backward_kernels_match_plain_versions(dtype, causal, q_offset,
-                                               k_offset, rate):
-    """K3 (dQ) and K4 (dK, dV) against their plain versions on ragged
-    shapes (Sq = 77, Sk = 130), with bias, causal offsets (a dead-row case
-    included: k_offset = 40 leaves the first 40 rows no key) and dropout."""
-    g = _cuda()
-    dt = getattr(torch, dtype)
-    tol = K.KERNEL_TOL[dt]
-    args = _bwd_inputs(g, 6, 77, 130, 64, dt, q_offset, k_offset, causal)
-    kw = dict(causal=causal, dropout_rate=rate, seed=1234,
-              q_offset=q_offset, k_offset=k_offset, num_heads=3)
-    n = K.launch_counts()
-    dq = K.flash_attention_dq(*args, **kw)
-    dk, dv = K.flash_attention_dkv(*args, **kw)
-    m = K.launch_counts()
-    assert (m["flash_attention_dq"], m["flash_attention_dkv"]) == (
-        n["flash_attention_dq"] + 1, n["flash_attention_dkv"] + 1)
-    rdq = K.flash_attention_dq_reference(*args, **kw)
-    rdk, rdv = K.flash_attention_dkv_reference(*args, **kw)
-    torch.cuda.synchronize()
-    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
-        assert got.dtype == dt and torch.isfinite(got.float()).all()
-        torch.testing.assert_close(got.float(), want.float(), **tol)
-
-
-@pytest.mark.cuda
 def test_dropout_masks_are_bit_identical_to_the_plain_version():
     """Each kernel's dropped elements, read off its output, are exactly
     ``dropout_keep``'s: K1 with v = I (o[i, j] = 0 iff dropped), K4 with
@@ -329,10 +299,79 @@ def test_flash_forward_edges_of_the_tile(dtype, D, Sq, Sk, causal, q_offset,
         assert torch.isfinite(lse[:, dead:]).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 40, 64, 72, 128])
+@pytest.mark.parametrize("Sq,Sk,causal,q_offset,k_offset,rate", [
+    (77, 130, False, 0, 0, 0.0), (77, 130, False, 0, 0, 0.1),
+    (77, 130, True, 0, 0, 0.0), (77, 130, True, 0, 0, 0.1),
+    (77, 130, True, 0, 40, 0.0), (77, 130, True, 40, 0, 0.1),
+    (1, 1, False, 0, 0, 0.0), (63, 65, False, 0, 0, 0.1),
+    (65, 63, True, 0, 0, 0.0), (130, 1, False, 0, 0, 0.1),
+    (1, 130, True, 129, 0, 0.0), (130, 130, True, 0, 0, 0.1),
+    (65, 130, True, 60, 0, 0.1), (63, 130, True, 0, 30, 0.0),
+    (130, 65, True, 0, 70, 0.1)])
+def test_backward_kernels_match_plain_versions(dtype, D, Sq, Sk, causal,
+                                               q_offset, k_offset, rate):
+    """K3 (dQ) and K4 (dK, dV) against their plain versions: S of 1 and
+    either side of the 64-row tiles, head dims zero-padded up to the
+    compiled 64 and 128 (8, 40, 72) and at them, bias, causal with q/k
+    offsets and dropout. Dead rows: k_offset = 40 (30) leaves the first 40
+    (30) query rows no key (lse = -inf: their dQ is 0); k_offset = 70
+    leaves rows 0..69 dead and keys 60..64 seen by no query (their dK and
+    dV are 0, and K4's walk over the q-tiles starts late)."""
+    g = _cuda()
+    dt = getattr(torch, dtype)
+    tol = K.KERNEL_TOL[dt]
+    args = _bwd_inputs(g, 6, Sq, Sk, D, dt, q_offset, k_offset, causal)
+    kw = dict(causal=causal, dropout_rate=rate, seed=1234,
+              q_offset=q_offset, k_offset=k_offset, num_heads=3)
+    n = K.launch_counts()
+    dq = K.flash_attention_dq(*args, **kw)
+    dk, dv = K.flash_attention_dkv(*args, **kw)
+    m = K.launch_counts()
+    assert (m["flash_attention_dq"], m["flash_attention_dkv"]) == (
+        n["flash_attention_dq"] + 1, n["flash_attention_dkv"] + 1)
+    rdq = K.flash_attention_dq_reference(*args, **kw)
+    rdk, rdv = K.flash_attention_dkv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == dt and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    if causal and k_offset > q_offset:
+        dead = min(k_offset - q_offset, Sq)
+        assert torch.isneginf(args[5][:, :dead]).all()
+        assert torch.equal(dq[:, :dead], torch.zeros_like(dq[:, :dead]))
+        unseen = max(0, Sk - (q_offset + Sq - k_offset))
+        if unseen:
+            assert not dk[:, -unseen:].any() and not dv[:, -unseen:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_are_bit_identical_from_run_to_run(dtype):
+    """Each output row is owned by one block and summed in one order (no
+    atomics), so two calls on the same inputs give the same bits."""
+    g = _cuda()
+    dt = getattr(torch, dtype)
+    args = _bwd_inputs(g, 24, 200, 200, 64, dt)
+    kw = dict(dropout_rate=0.1, seed=9, num_heads=3)
+    first = (K.flash_attention_dq(*args, **kw),
+             *K.flash_attention_dkv(*args, **kw))
+    second = (K.flash_attention_dq(*args, **kw),
+              *K.flash_attention_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 # the routes of each source, by the kernel names in its SASS
 ROUTES = {"fused_gemm": (("gemm_bf16_kernel", "gemm_ln_bf16_kernel"),
                          ("gemm_f32_kernel", "gemm_ln_f32_kernel")),
-          "flash_attention_fwd": (("flash_fwd_bf16",), ("flash_fwd_f32",))}
+          "flash_attention_fwd": (("flash_fwd_bf16",), ("flash_fwd_f32",)),
+          "flash_attention_dq": (("flash_dq_bf16",), ("flash_dq_f32",)),
+          "flash_attention_dkv": (("flash_dkv_bf16",), ("flash_dkv_f32",))}
 
 
 @pytest.mark.cuda

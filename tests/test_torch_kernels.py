@@ -352,8 +352,46 @@ def test_flash_dropout_is_identical_across_calls():
 def test_classify_backward_shapes_refuses_with_a_reason(sq, sk, d, ok):
     kind, why = K.classify_backward_shapes(sq, sk, d)
     assert (kind == "backward") == ok, why
-    if not ok:
+    if ok:
+        assert f"head_dim {d} run as {64 if d <= 64 else 128}" in why
+    else:
         assert ("head_dim" in why) or (">= 1" in why)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_backward_plain_matches_jax_kernels(causal):
+    """K3/K4's plain versions on bf16 inputs against ``jax.vjp`` through the
+    JAX package's kernels in interpret mode (its _dq_kernel and _dkv_kernel
+    cast dS and P_dropped to bf16 before their second products, as the
+    plain versions and the kernels' tensor-core routes do), with a padding
+    bias and an lse cotangent, at ``KERNEL_TOL[bf16]``. The JAX forward's
+    o and lse feed both backwards, so only the backward is compared."""
+    BH, S, D, H = 4, 128, 64, 2
+    rng = np.random.RandomState(7)
+    q, k, v, do = (rng.randn(BH, S, D).astype(np.float32) for _ in range(4))
+    dlse = (0.1 * rng.randn(BH, S)).astype(np.float32)
+    bias = np.where(np.arange(S)[None] < np.array([[S], [90]]), 0.0,
+                    -10000.0).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16)
+                       for a in (q, k, v, do))
+    (jo, jl), vjp = jax.vjp(
+        lambda q, k, v: j_flash(q, k, v, bias=jnp.asarray(bias),
+                                causal=causal, num_heads=H, interpret=True),
+        jq, jk, jv)
+    want = vjp((jdo, jnp.asarray(dlse)))
+    tq, tk, tv, tdo = (_t(a).to(torch.bfloat16) for a in (q, k, v, do))
+    o = _t(np.asarray(jo.astype(jnp.float32)))
+    lse = _t(np.asarray(jl))
+    delta = (tdo.float() * o).sum(-1) - _t(dlse)
+    args = (tq, tk, tv, _t(bias), tdo, lse, delta)
+    kw = dict(causal=causal, num_heads=H)
+    dq = K.flash_attention_dq(*args, **kw)
+    dk, dv = K.flash_attention_dkv(*args, **kw)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(w.astype(jnp.float32)),
+            **K.KERNEL_TOL[torch.bfloat16])
 
 
 # The fused GEMM + epilogue (K5): the plain version against the JAX

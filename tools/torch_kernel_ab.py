@@ -14,18 +14,23 @@ Rows: K5 (fused GEMM) at BERT-base inference's four f32 shapes and FFN1 in
 bf16 to both output types; K1 (flash forward) at its four f32 main-path
 shapes ([96,512,64] and [96,128,64] causal + bias, serving prefill;
 [384,128,64] bias + dropout 0.1, training; [384,512,64] bias, inference)
-and [96,512|128,64] bf16 causal; K2, K3 and K4 at their main-path rows.
+and [96,512|128,64] bf16 causal; K2 at its main-path row; K3 and K4
+(flash backward) at [384,128,64] f32 bias + dropout 0.1 (training),
+[96,512,64] f32 causal + bias and [384,128,64] bf16 bias + dropout 0.1,
+on lse and delta from the plain forward.
 
 Two times a launch: ``ms``, as ``chip_smoke.py`` takes it (CUDA events
 around each wrapper call, a 64 MiB write evicting L2 before it, mean of
 ``--iters`` after 3 warm-ups), and ``device_ms``, the kernel's own device
 time from ``torch.profiler`` over ``--iters`` back-to-back calls, which
-leaves out the wrapper's host time. K5 and K1 rows also time the library
-call for the same function (``torch.addmm``, ``scaled_dot_product_attention``
-with an equivalent mask) by both methods. Prints the card, each copy's
-ptxas registers and spills for K1 and K5, the tensor-core instruction
-count (``cuobjdump -sass``) of each K1 and K5 kernel where the copy can
-read it, and one JSON line a row; ``--out`` appends the JSON lines to FILE.
+leaves out the wrapper's host time. K5, K1, K3 and K4 rows also time the
+library call for the same function by both methods (``torch.addmm``;
+``scaled_dot_product_attention`` with an equivalent mask, its forward for
+K1 and its whole backward, dQ, dK and dV together, for K3 and K4). Prints
+the card, each copy's ptxas registers and spills for K1, K3, K4 and K5,
+the tensor-core instruction count (``cuobjdump -sass``) of each of their
+kernels where the copy can read it, and one JSON line a row; ``--out``
+appends the JSON lines to FILE.
 """
 from __future__ import annotations
 
@@ -41,6 +46,11 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
+
+# chip_smoke.py, at the repo's root, times SDPA's backward the same way
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import sdpa_backward  # noqa: E402
 
 _FLUSH = None
 
@@ -152,27 +162,43 @@ def k2_row(gen, B=8, H=12, S=1024, D=64):
             None)
 
 
-def k34_rows(gen, B=32, H=12, S=128, D=64, rate=0.1):
+def k34_rows(gen, ref, B, H, S, dtype, causal, rate, D=64):
+    """K3 and K4 on lse and delta from the plain forward (``ref``'s
+    ``flash_attention_reference``), as the autograd wrapper computes them,
+    with SDPA's whole backward (``chip_smoke.sdpa_backward``) as the library
+    call of both."""
     BH = B * H
     q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda")
-                   for _ in range(4))
+                   .to(dtype) for _ in range(4))
     bias = pad_bias(B, S, gen)
-    lse = torch.randn(BH, S, generator=gen, device="cuda") + 5.0
-    delta = torch.randn(BH, S, generator=gen, device="cuda")
+    kw = dict(causal=causal, dropout_rate=rate, seed=4321, num_heads=H)
+    o, lse = ref.flash_attention_reference(q, k, v, bias=bias, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
     args = (q, k, v, bias, do, lse, delta)
-    kw = dict(dropout_rate=rate, seed=4321, num_heads=H)
-    info = dict(shape=[BH, S, D], dtype="float32", dropout=rate)
+    mask = bias.reshape(B, 1, 1, S)
+    if causal:
+        mask = mask + torch.full((S, S), float("-inf"),
+                                 device="cuda").triu(1)
+    lib, _ = sdpa_backward(q, k, v, do, mask, rate, D ** -0.5, B, H)
+    info = dict(shape=[BH, S, D], dtype=str(dtype)[6:], causal=causal,
+                dropout=rate)
     return [(dict(info, kernel="K3"),
-             lambda K: K.flash_attention_dq(*args, **kw), None),
+             lambda K: K.flash_attention_dq(*args, **kw), lib),
             (dict(info, kernel="K4"),
-             lambda K: K.flash_attention_dkv(*args, **kw), None)]
+             lambda K: K.flash_attention_dkv(*args, **kw), lib)]
 
 
 def first(out):
     return out[0] if isinstance(out, (tuple, list)) else out
 
 
-def ptxas_report(mod, names=("fused_gemm", "flash_attention_fwd")):
+# the sources whose ptxas report and SASS tensor-core count are printed
+REPORTED = ("fused_gemm", "flash_attention_fwd", "flash_attention_dq",
+            "flash_attention_dkv")
+
+
+def ptxas_report(mod, names=REPORTED):
     """(kernel function, registers, spill line) from each build's log."""
     rows = []
     for name in names:
@@ -213,7 +239,7 @@ def main():
         for name, fn, regs in ptxas_report(K):
             print(f"[ptxas {tag}] {name} {fn}: {regs}")
         if hasattr(K._build, "sass"):
-            for name in ("fused_gemm", "flash_attention_fwd"):
+            for name in REPORTED:
                 for fn, text in K._build.sass(name).items():
                     print(f"[sass {tag}] {name} {fn}: "
                           f"{K._build.tensor_core_ops(text)} tensor-core "
@@ -232,7 +258,11 @@ def main():
             k1_row(gen, 32, 512, False, 0.0, f32),
             k1_row(gen, 8, 512, True, 0.0, bf16),
             k1_row(gen, 8, 128, True, 0.0, bf16),
-            k2_row(gen)] + k34_rows(gen)
+            k2_row(gen)]
+    for B, S, dtype, causal, rate in ((32, 128, f32, False, 0.1),
+                                      (8, 512, f32, True, 0.0),
+                                      (32, 128, bf16, False, 0.1)):
+        rows += k34_rows(gen, mods["new"], B, 12, S, dtype, causal, rate)
     results = []
     for info, run, lib in rows:
         turns = []
