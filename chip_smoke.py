@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    plain version and one library call (``F.scaled_dot_product_attention``
    with an equivalent mask: its forward for K1 and K2, its backward alone
    for K3 and K4; ``torch.addmm`` for K5, the GEMM + bias part of its
-   work) with CUDA events, L2 flushed before each launch.
+   work) with CUDA events, L2 flushed before each launch; K2's rows, whose
+   event times read the host, also give the kernel's and SDPA's device
+   time from ``torch.profiler``.
 3. serve — GPT-2 small (``GptConfig.base()``, random weights from
    ``--seed``) behind ``GenerativeEngine``: 8 slots, 1024-token paged KV,
    prompt buckets 128/512; 12 greedy requests of 32 new tokens (prompts of
@@ -167,6 +169,27 @@ def time_ms(fn, iters=20):
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def device_ms(fn, iters=20):
+    """Mean device time of ``fn``'s kernels over ``iters`` back-to-back
+    calls, from ``torch.profiler`` (leaves out the host's time)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / iters / 1e3
+
+
 def bound(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -219,14 +242,27 @@ def check_flash(S, dtype, gen, B=8, H=12, D=64):
                 bound_by=b_by)
 
 
+# K2's rows: early, page-boundary, mid and full-cache lengths of 8 slots
+DECODE_LENGTHS = (1, 8, 9, 16, 333, 700, 1017, 1024)
+
+
+def decode_mask(lens, q_len, S, dtype):
+    """SDPA's additive mask [B, 1, q_len, S] for K2's visibility (row i
+    sees keys < lens + i), and the visibility [B, q_len, S]."""
+    vis = torch.arange(S, device="cuda")[None, None, :] < (
+        lens.long()[:, None, None] + torch.arange(q_len, device="cuda")
+        [None, :, None])
+    mask = torch.zeros(len(lens), 1, q_len, S, device="cuda", dtype=dtype)
+    return mask.masked_fill_(~vis[:, None], float("-inf")), vis
+
+
 def check_decode(q_len, dtype, gen, B=8, H=12, S=1024, D=64):
     BH = B * H
     q = torch.randn(BH, q_len, D, generator=gen, device="cuda").to(dtype)
     kc, vc = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
               for _ in range(2))
-    # early, page-boundary, mid and full-cache lengths
-    lens = torch.tensor([1, 8, 9, 16, 333, 700, 1017, 1024],
-                        dtype=torch.int32, device="cuda")[:B]
+    lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32,
+                        device="cuda")[:B]
     scale = D ** -0.5
     o_k = K.flash_attention_decode(q, kc, vc, lens, scale=scale,
                                    num_heads=H)
@@ -235,19 +271,22 @@ def check_decode(q_len, dtype, gen, B=8, H=12, S=1024, D=64):
     torch.cuda.synchronize()
     tag = f"K2 q_len={q_len} caches [{BH},{S},{D}] {str(dtype)[6:]}"
     err = compare(tag, o_k, o_p, dtype)
-    vis = torch.arange(S, device="cuda")[None, None, :] < (
-        lens.long()[:, None, None] + torch.arange(q_len, device="cuda")
-        [None, :, None])                                   # [B, q_len, S]
-    mask = torch.zeros(B, 1, q_len, S, device="cuda", dtype=dtype)
-    mask.masked_fill_(~vis[:, None], float("-inf"))
+    mask, vis = decode_mask(lens, q_len, S, dtype)
     q4 = q.reshape(B, H, q_len, D)
     k4, v4 = kc.reshape(B, H, S, D), vc.reshape(B, H, S, D)
-    ms = time_ms(lambda: K.flash_attention_decode(q, kc, vc, lens,
-                                                  scale=scale, num_heads=H))
+
+    def kernel():
+        return K.flash_attention_decode(q, kc, vc, lens, scale=scale,
+                                        num_heads=H)
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              scale=scale)
+
+    ms, dev = time_ms(kernel), device_ms(kernel)
     plain = time_ms(lambda: K.decode_attention_reference(q, kc, vc, per_bh,
                                                          scale))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask, scale=scale))
+    lib, lib_dev = time_ms(library), device_ms(library)
     elt = q.element_size()
     keys = torch.clamp(lens.long() + q_len - 1, max=S)     # rows read
     row_keys = vis.sum().item()                            # (row, key) pairs
@@ -255,8 +294,9 @@ def check_decode(q_len, dtype, gen, B=8, H=12, S=1024, D=64):
               + B * 4)
     b_ms, b_by = bound(4 * D * H * row_keys, nbytes, dtype)
     return dict(shape=[BH, q_len, S, D], dtype=str(dtype)[6:],
-                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
+                library_ms=lib, library_device_ms=lib_dev, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def _pad_bias(B, S, gen):
@@ -508,11 +548,15 @@ def phase_kernels(seed):
             backend = " " + r["library_backend"] \
                 if r.get("library_backend") else ""
             libname = "addmm" if name == "fused_gemm" else "sdpa"
+            dev = (f" (device {r['device_ms']:.4f})" if "device_ms" in r
+                   else "")
+            lib_dev = (f" (device {r['library_device_ms']:.4f})"
+                       if "library_device_ms" in r else "")
             log(f"  {name} {r['shape']} {r['dtype']}{drop}: kernel "
-                f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+                f"{r['ms']:.4f} ms{dev} | plain {r['plain_ms']:.4f} ms | "
                 f"{libname}{backend} "
-                f"{'n/a' if lib is None else f'{lib:.4f} ms'} | bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'}{lib_dev} | "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return res, masks
 
 
@@ -688,14 +732,6 @@ def bert_feed(seed, vocab, B, S):
             "mask_label": np.where(masked, rng.randint(0, vocab, (B, S)),
                                    -100).astype(np.int64),
             "next_sent_label": rng.randint(0, 2, (B, 1)).astype(np.int64)}
-
-
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, name, None)
-        if v:
-            return float(v)
-    return 0.0
 
 
 def train(net, init, feed, plain):

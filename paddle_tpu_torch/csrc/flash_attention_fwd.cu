@@ -66,15 +66,18 @@ using namespace sm90;
 constexpr int BQ = 64;     // query rows a block
 constexpr int BKV = 64;    // key rows a tile
 
-// Scores live in the log2 domain (scale and bias times log2(e)), so each
-// probability is one exp2f; lse goes back to the natural log at the end.
-constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+// Scores, the running max and lse live in the natural domain, each score
+// rounded as the plain version rounds it; a probability is exp2 of the
+// difference s - m taken first, times log2(e).  With BERT's -10000 padding
+// bias, s and m are ~1e4 on a fully padded row: scores scaled into the
+// log2 domain there lost up to 1e-3 of P and of lse.
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const float* bias;       // [B, Sk] or null
   float* lse;
   int Sq, Sk, D, num_heads, causal;
-  float scale;             // the caller's scale times LOG2E
+  float scale;
   int q_offset, k_offset;
   uint32_t seed, drop_threshold;
   float drop_scale;
@@ -88,11 +91,12 @@ __device__ __forceinline__ int key_end(const Args& a, int q0) {
   return max(0, min(a.Sk, a.q_offset + last_q - a.k_offset + 1));
 }
 
-// the masked, biased score of (row qi, key gj) from its raw dot product; b
-// is the bias times LOG2E
+// the masked, biased score of (row qi, key gj) from its raw dot product
+// and the key's bias b, rounded as the plain version rounds it (the
+// product, then the sum)
 __device__ __forceinline__ float score(const Args& a, float dot, float b,
                                        int qi, int gj) {
-  float sv = dot * a.scale + b;
+  float sv = __fadd_rn(__fmul_rn(dot, a.scale), b);
   if (a.causal && a.q_offset + qi < a.k_offset + gj) sv = NEG_INF;
   return sv;
 }
@@ -194,7 +198,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gj = kt + tx + 16 * j;
-      bj[j] = brow && gj < a.Sk ? brow[gj] * LOG2E : 0.f;
+      bj[j] = brow && gj < a.Sk ? brow[gj] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -211,12 +215,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, off));
       const float m_new = fmaxf(m_run[i], m_tile);
       const float m_safe = m_new > NEG_INF * 0.5f ? m_new : 0.f;
-      const float corr = exp2f(m_run[i] - m_safe);
+      const float corr = exp2f((m_run[i] - m_safe) * LOG2E);
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int gj = kt + tx + 16 * j;
-        float p = gj < a.Sk ? exp2f(s[i][j] - m_safe) : 0.f;
+        float p = gj < a.Sk ? exp2f((s[i][j] - m_safe) * LOG2E) : 0.f;
         psum += p;                     // the normaliser sees every key
         if (DROPOUT)
           p = dropout_keep(a.seed, bh, qi, gj, a.drop_threshold)
@@ -277,7 +281,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     if (tx == 0)
       a.lse[(long long)bh * a.Sq + qi] =
-          l_run[i] > 0.f ? (m_run[i] + log2f(l_run[i])) * LN2 : -INFINITY;
+          l_run[i] > 0.f ? m_run[i] + logf(l_run[i]) : -INFINITY;
   }
 }
 
@@ -379,7 +383,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int gj = kt + nt * 8 + (lane % 4) * 2 + e;
-        bj[nt][e] = brow && gj < a.Sk ? brow[gj] * LOG2E : 0.f;
+        bj[nt][e] = brow && gj < a.Sk ? brow[gj] : 0.f;
       }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -398,7 +402,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 2));
       const float m_new = fmaxf(m_run[h], m_tile);
       const float m_safe = m_new > NEG_INF * 0.5f ? m_new : 0.f;
-      const float corr = exp2f(m_run[h] - m_safe);
+      const float corr = exp2f((m_run[h] - m_safe) * LOG2E);
       float psum = 0.f;
 #pragma unroll
       for (int nt = 0; nt < BKV / 8; ++nt)
@@ -406,7 +410,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 2; ++e) {
           const int gj = kt + nt * 8 + (lane % 4) * 2 + e;
           float& sv = s[nt][2 * h + e];
-          float p = gj < a.Sk ? exp2f(sv - m_safe) : 0.f;
+          float p = gj < a.Sk ? exp2f((sv - m_safe) * LOG2E) : 0.f;
           psum += p;
           if (DROPOUT)
             p = dropout_keep(a.seed, bh, qi, gj, a.drop_threshold)
@@ -461,7 +465,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     }
     if (lane % 4 == 0)
       a.lse[(long long)bh * a.Sq + qi] =
-          l_run[h] > 0.f ? (m_run[h] + log2f(l_run[h])) * LN2 : -INFINITY;
+          l_run[h] > 0.f ? m_run[h] + logf(l_run[h]) : -INFINITY;
   }
 }
 
@@ -506,7 +510,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (D < 8 || D > 128 || D % 8 || BH < 1 || Sq < 1 || Sk < 1)
     return (int)cudaErrorInvalidValue;
   Args a{(const float*)bias, (float*)lse, Sq, Sk, D, num_heads, causal,
-         scale * LOG2E, q_offset, k_offset, (uint32_t)seed,
+         scale, q_offset, k_offset, (uint32_t)seed,
          (uint32_t)drop_threshold, drop_scale};
   cudaStream_t s = (cudaStream_t)stream;
   return D <= 64 ? launch<64>(q, k, v, o, a, BH, is_bf16, s)

@@ -48,9 +48,9 @@ SIGNATURES = {
     # q, k, v, bias, do, lse, delta, dk, dv | (as the forward)
     "flash_attention_dkv": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 3 + _DROP
     + [_P],
-    # q, k_cache, v_cache, lengths, o | BH, q_len, S, D, num_heads |
-    # scale | is_bf16 | stream
-    "decode_attention": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    # q, k_cache, v_cache, lengths, o | BH, q_len, S, D, num_heads,
+    # split | scale | is_bf16 | stream
+    "decode_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     # x, y, bias, residual, ln_scale, ln_bias, out | M, N, K, activation,
     # layer_norm | ln_eps | in_bf16, out_bf16 | stream
     "fused_gemm": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],

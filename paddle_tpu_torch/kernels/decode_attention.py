@@ -12,7 +12,8 @@ that sees no key gives 0.
   CPU tensor takes :func:`decode_attention_reference`. The kernel takes
   1..8 query rows directly; a longer chunk runs as 8-row slices, slice
   ``j`` with lengths ``+ 8 * j`` (:func:`decode_in_slices`), which is
-  exact.
+  exact. The kernel splits each sequence's cache into runs of
+  :func:`split_keys` keys, one block each, combined inside one launch.
 * :func:`paged_kv_append` / :func:`paged_kv_append_rows` — the KV writes,
   done IN PLACE with torch index writes (the port's stand-in for the JAX
   package's buffer donation), with the reference's clamping.
@@ -29,6 +30,11 @@ __all__ = ["flash_attention_decode", "decode_attention_reference",
 NEG_INF = -1e30
 MAX_ROWS = 8
 MAX_HEAD_DIM = 128
+# the kernel's split-K: at most MAX_SPLITS blocks (one thread-block
+# cluster) share a b*h's cache, each walking at most SPLIT_KEYS keys up to
+# S_max = MAX_SPLITS * SPLIT_KEYS, more beyond
+MAX_SPLITS = 8
+SPLIT_KEYS = 256
 
 
 def _keep(mask, b: int, ndim: int, device):
@@ -88,7 +94,9 @@ def decode_attention_reference(q, k_cache, v_cache, lengths, scale):
     chunk of query rows per sequence. q [BH, Sq, D]; caches [BH, S, D];
     lengths [BH] (already expanded per head): row ``i`` sees
     ``lengths + i`` keys. A row that sees none gives 0, as the kernel
-    does. Computes in float32; the output has q's dtype."""
+    does. Computes in float32, with P cast to the operand type before
+    P.V as the JAX kernel casts it (a no-op in float32); the output has
+    q's dtype."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k_cache.float()) * scale
     k_pos = torch.arange(k_cache.shape[1], device=q.device)[None, None, :]
     row = torch.arange(q.shape[1], device=q.device)[None, :, None]
@@ -97,7 +105,8 @@ def decode_attention_reference(q, k_cache, v_cache, lengths, scale):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * vis
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bqk,bkd->bqd", p, v_cache.float())
+    o = torch.einsum("bqk,bkd->bqd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
     o = o / torch.where(l > 0, l, torch.ones_like(l))
     return o.to(q.dtype)
 
@@ -111,13 +120,23 @@ def decode_in_slices(q, lengths, attend):
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def split_keys(S: int) -> int:
+    """Keys each block of a b*h's cluster walks: ``S`` shared evenly by
+    ``ceil(S / SPLIT_KEYS)`` blocks, at most ``MAX_SPLITS``, rounded up to
+    a multiple of 16 (so 4 blocks of 256 keys at S_max 1024, S_max / 8
+    keys beyond S_max 2048)."""
+    n = min(MAX_SPLITS, max(1, -(-S // SPLIT_KEYS)))
+    return max(16, -(-S // (16 * n)) * 16)
+
+
 def _launch(q, k_cache, v_cache, lengths, scale, num_heads):
     BH, q_len, D = q.shape
     S = k_cache.shape[1]
     o = torch.empty_like(q)
     _build.launch("decode_attention", q.device, q.data_ptr(),
                   k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-                  o.data_ptr(), BH, q_len, S, D, int(num_heads), float(scale),
+                  o.data_ptr(), BH, q_len, S, D, int(num_heads),
+                  split_keys(S), float(scale),
                   int(q.dtype == torch.bfloat16))
     flash_attention_decode.launches += 1
     return o
@@ -160,8 +179,10 @@ def flash_attention_decode(q, k_cache, v_cache, lengths, *, scale=None,
         lengths = lengths.reshape(-1).to(device=q.device, dtype=torch.int32)
         q = q.contiguous()
         _check(q, k_cache, v_cache, lengths, num_heads)
+        # the kernel reads q, K and V 16 bytes at a time
+        k_cache, v_cache = _build.aligned(k_cache), _build.aligned(v_cache)
         return decode_in_slices(
-            q, lengths, lambda qs, ls: _launch(qs.contiguous(), k_cache,
+            q, lengths, lambda qs, ls: _launch(_build.aligned(qs), k_cache,
                                                v_cache, ls, scale,
                                                num_heads))
     per_bh = lengths.reshape(-1).repeat_interleave(num_heads)

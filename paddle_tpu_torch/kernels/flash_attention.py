@@ -170,8 +170,10 @@ def flash_attention_reference(q, k, v, bias=None, causal=False, scale=None,
                               dropout_rate=0.0, seed=0):
     """Plain PyTorch version of K1: the torch twin of the JAX package's
     ``_primitive_attention`` plus the lse, with the kernel's dead-row rule
-    and dropout mask. Computes in float32; o has q's dtype. Differentiable
-    by autograd (the ``FLAGS_use_flash_attention=never`` route)."""
+    and dropout mask. Computes in float32, with the dropped P cast to the
+    operand type before P.V as the JAX kernel casts it (a no-op in
+    float32); o has q's dtype. Differentiable by autograd (the
+    ``FLAGS_use_flash_attention=never`` route)."""
     D = q.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
     s = _scores(q, k, bias, causal, scale, q_offset, k_offset, num_heads)
@@ -183,7 +185,8 @@ def flash_attention_reference(q, k, v, bias=None, causal=False, scale=None,
     if dropout_rate > 0.0:
         p = torch.where(_keep(q, k, dropout_rate, seed),
                         p * _drop_scale(dropout_rate), torch.zeros_like(p))
-    o = torch.einsum("bqk,bkd->bqd", p, v.float())
+    # P (dropped) in the operand type before P.V, as _fwd_kernel casts it
+    o = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
     o = torch.where(l > 0, o / torch.where(l > 0, l, torch.ones_like(l)),
                     torch.zeros_like(o))
     lse = torch.where(l[..., 0] > 0, m[..., 0] + torch.log(l[..., 0]),

@@ -13,8 +13,9 @@ import torch
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels import _build
 
-# the module (the package re-exports its function under the same name)
+# the modules (the package re-exports their functions under the same names)
 FG = importlib.import_module("paddle_tpu_torch.kernels.fused_gemm")
+KD = importlib.import_module("paddle_tpu_torch.kernels.decode_attention")
 
 
 def _cuda():
@@ -366,8 +367,109 @@ def test_backward_kernels_are_bit_identical_from_run_to_run(dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", [1, 77, 128])
+def test_flash_chain_on_a_fully_padded_row(dtype, rate, S):
+    """Every key of batch item 1 carries BERT's -10000 padding bias, so its
+    rows see only padded keys and their lse is about -1e4. K1's o and lse,
+    then K3 and K4 on K1's lse and delta, against the plain chain (plain
+    forward, then the plain backward on its lse) at ``KERNEL_TOL``. lse at
+    an absolute 2e-3: two f32 ulps at |lse| = 1e4, which moves P =
+    exp(s - lse) in K3/K4 by at most 0.2 %. Both deltas carry the same
+    lse cotangent, as ``_bwd_inputs`` does: with one key and dropout, dS =
+    P (dP - delta) is otherwise rounding noise, which in bf16 differs
+    between a kernel that casts P and a plain version that does not."""
+    g = _cuda()
+    dt = getattr(torch, dtype)
+    tol = K.KERNEL_TOL[dt]
+    q, k, v, do = (torch.randn(6, S, 64, generator=g, device="cuda").to(dt)
+                   for _ in range(4))
+    bias = torch.zeros(2, S, device="cuda")
+    bias[1] = -10000.0
+    kw = dict(num_heads=3, dropout_rate=rate, seed=17)
+    dlse = 0.1 * torch.randn(6, S, generator=g, device="cuda")
+    chains = []
+    for fwd, dq_fn, dkv_fn in (
+            (K.flash_attention_with_lse, K.flash_attention_dq,
+             K.flash_attention_dkv),
+            (K.flash_attention_reference, K.flash_attention_dq_reference,
+             K.flash_attention_dkv_reference)):
+        o, lse = fwd(q, k, v, bias=bias, **kw)
+        delta = (do.float() * o.float()).sum(-1) - dlse
+        args = (q, k, v, bias, do, lse, delta)
+        chains.append((o, lse, dq_fn(*args, **kw), *dkv_fn(*args, **kw)))
+    torch.cuda.synchronize()
+    (o, lse, dq, dk, dv), (ro, rl, rdq, rdk, rdv) = chains
+    assert (rl[3:] < -9000).all() and (rl[:3] > -100).all()
+    torch.testing.assert_close(lse, rl, atol=2e-3, rtol=0)
+    for got, want in ((o, ro), (dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 64, 72, 128])
+@pytest.mark.parametrize("q_len", [1, 3, 8, 11])
+@pytest.mark.parametrize("S", [96, 1000])
+def test_decode_kernel_edges_of_the_split(dtype, D, q_len, S):
+    """K2 against its plain version. S = 96 is one split (a cluster of one
+    block); S = 1000 is 4 splits of 256 keys, the last one ragged, combined
+    across the cluster. The lengths: 0 (row 0 sees no key: o = 0), 1, at a
+    split boundary and one past it, L + q_len - 1 past S_max, and the whole
+    cache; with 2 heads, the b*h of the short lengths have no work in most
+    splits. Head dims zero-padded up to the compiled 64 and 128 (8, 72)
+    and at them; q_len 11 runs as slices of 8 and 3 rows, one launch each."""
+    g = _cuda()
+    dt = getattr(torch, dtype)
+    split = KD.split_keys(S)
+    assert (split, -(-S // split)) == {96: (96, 1), 1000: (256, 4)}[S]
+    H = 2
+    lens = [0, 1, split, split + 1, S - q_len + 2, S]
+    B = len(lens)
+    q = torch.randn(B * H, q_len, D, generator=g, device="cuda").to(dt)
+    kc, vc = (torch.randn(B * H, S, D, generator=g, device="cuda").to(dt)
+              for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n0 = K.launch_counts()["decode_attention"]
+    o = K.flash_attention_decode(q, kc, vc, lengths, num_heads=H)
+    assert K.launch_counts()["decode_attention"] == n0 + -(-q_len // 8)
+    ro = K.decode_attention_reference(q, kc, vc,
+                                      lengths.long().repeat_interleave(H),
+                                      D ** -0.5)
+    torch.cuda.synchronize()
+    assert o.dtype == dt and o.shape == q.shape
+    torch.testing.assert_close(o.float(), ro.float(), **K.KERNEL_TOL[dt])
+    assert torch.equal(o[:H, 0], torch.zeros_like(o[:H, 0]))
+    assert torch.isfinite(o.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q_len", [1, 8])
+def test_decode_kernel_is_bit_identical_from_run_to_run(dtype, q_len):
+    """The splits are combined in a fixed order through the cluster's
+    shared memory (no atomics), so two calls at the serving path's shape
+    give the same bits."""
+    g = _cuda()
+    dt = getattr(torch, dtype)
+    q = torch.randn(96, q_len, 64, generator=g, device="cuda").to(dt)
+    kc, vc = (torch.randn(96, 1024, 64, generator=g, device="cuda").to(dt)
+              for _ in range(2))
+    lengths = torch.tensor([1, 8, 9, 16, 333, 700, 1017, 1024],
+                           dtype=torch.int32, device="cuda")
+    a = K.flash_attention_decode(q, kc, vc, lengths, num_heads=12)
+    b = K.flash_attention_decode(q, kc, vc, lengths, num_heads=12)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 # the routes of each source, by the kernel names in its SASS
-ROUTES = {"fused_gemm": (("gemm_bf16_kernel", "gemm_ln_bf16_kernel"),
+ROUTES = {"decode_attention": (("decode_kernel_bf16",),
+                               ("decode_kernel_f32",)),
+          "fused_gemm": (("gemm_bf16_kernel", "gemm_ln_bf16_kernel"),
                          ("gemm_f32_kernel", "gemm_ln_f32_kernel")),
           "flash_attention_fwd": (("flash_fwd_bf16",), ("flash_fwd_f32",)),
           "flash_attention_dq": (("flash_dq_bf16",), ("flash_dq_f32",)),

@@ -4,6 +4,7 @@ Philox dropout mask, the paged KV appends, the fused GEMM + epilogue — the
 Hopper shape rules and the q_len > 8 slicing rule, on the CPU. The CUDA
 kernels themselves run only on the card (tests/test_torch_cuda.py)."""
 import ctypes
+import importlib
 import os
 import re
 
@@ -25,6 +26,9 @@ from paddle_tpu.kernels import (flash_attention as j_flash_o,
 
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels import _build
+
+# the module (the package re-exports its function under the same name)
+KD = importlib.import_module("paddle_tpu_torch.kernels.decode_attention")
 
 RNG = np.random.RandomState(23)
 ATOL, RTOL = 2e-5, 1e-4
@@ -88,6 +92,45 @@ def test_decode_plain_matches_jax_kernel(lengths, q_len):
                                   num_heads=H)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL,
                                rtol=RTOL)
+
+
+@pytest.mark.parametrize("q_len", [1, 3, 8])
+@pytest.mark.parametrize("page_size", [8, 32])
+def test_decode_plain_matches_jax_kernel_in_bf16(page_size, q_len):
+    """bf16 caches: the plain version casts P to bf16 before P.V, as the
+    JAX kernel does (``p.astype(v_ref.dtype)``). With one page (page_size
+    = S_max) the JAX kernel's running max is the row max, so both round
+    the same P and agree bit for bit (without the cast about 30 % of the
+    outputs differ by a bf16 ulp); with 8-key pages the JAX kernel rounds
+    P against a running max: within ``KERNEL_TOL[bf16]``."""
+    B, H, S, D = 3, 2, 32, 64
+    q = RNG.randn(B * H, q_len, D).astype(np.float32)
+    kc, vc = (RNG.randn(B * H, S, D).astype(np.float32) for _ in range(2))
+    lens = np.asarray((1, 9, 24), np.int32)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, kc, vc))
+    jo = np.asarray(j_decode(jq, jk, jv, lens, num_heads=H,
+                             page_size=page_size, interpret=True)
+                    .astype(jnp.float32))
+    tq, tk, tv = (_t(a).to(torch.bfloat16) for a in (q, kc, vc))
+    to = K.flash_attention_decode(tq, tk, tv, _t(lens), num_heads=H)
+    assert to.dtype == torch.bfloat16
+    if page_size == S:
+        np.testing.assert_array_equal(to.float().numpy(), jo)
+    else:
+        np.testing.assert_allclose(to.float().numpy(), jo,
+                                   **K.KERNEL_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("S", [1, 16, 96, 128, 129, 1000, 1024, 1025, 4096])
+def test_decode_split_covers_the_cache_in_at_most_8_blocks(S):
+    """The kernel's split-K: ceil(S / SPLIT_KEYS) blocks of at most
+    SPLIT_KEYS keys up to S_max = 8 * SPLIT_KEYS, then 8 longer ones; a
+    multiple of 16 keys each, and no block past the cache's end."""
+    split, most = KD.split_keys(S), KD.SPLIT_KEYS
+    n = -(-S // split)
+    assert split % 16 == 0 and n == min(KD.MAX_SPLITS, -(-S // most))
+    assert split * (n - 1) < S <= split * n
+    assert split <= most or S > KD.MAX_SPLITS * most
 
 
 def test_q_len_over_8_runs_as_8_row_slices():

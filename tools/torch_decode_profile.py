@@ -8,8 +8,10 @@ with 8 slots and a 1024-token paged KV cache, puts every slot at position
 ``--pos`` with its decode gate on, and profiles one ``run_chained`` decode
 chunk of ``--steps`` steps with ``torch.profiler``. Prints the wall time per
 step (host clock, ending in a synchronize), the summed device time of the
-kernels per step, the device's idle share, and the kernels that take the
-most device time; with ``--out-dir``, also to ``DIR/decode_profile.json``.
+kernels per step, the device's idle share, kernel launches per step, the
+paged decode-attention kernel's (K2's) device time and launches per step,
+and the kernels that take the most device time; with ``--out-dir``, also
+to ``DIR/decode_profile.json``.
 """
 from __future__ import annotations
 
@@ -91,6 +93,7 @@ def main():
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
+    k2 = [(us, n) for us, k, n in rows if "decode_kernel" in k]
     card = os.popen("nvidia-smi --query-gpu=name,power.limit "
                     "--format=csv,noheader").read().strip()
     out = {
@@ -101,6 +104,8 @@ def main():
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_prof,
         "kernel_launches_per_step": sum(r[2] for r in rows) / args.steps,
         "decode_attention_launches": K.launch_counts()["decode_attention"],
+        "k2_device_ms_per_step": sum(us for us, _ in k2) / 1e3 / args.steps,
+        "k2_launches_per_step": sum(n for _, n in k2) / args.steps,
         "top_kernels": [{"name": k[:90], "device_ms_per_step":
                          us / 1e3 / args.steps, "calls_per_step":
                          n / args.steps} for us, k, n in rows[:12]],

@@ -14,7 +14,9 @@ Rows: K5 (fused GEMM) at BERT-base inference's four f32 shapes and FFN1 in
 bf16 to both output types; K1 (flash forward) at its four f32 main-path
 shapes ([96,512,64] and [96,128,64] causal + bias, serving prefill;
 [384,128,64] bias + dropout 0.1, training; [384,512,64] bias, inference)
-and [96,512|128,64] bf16 causal; K2 at its main-path row; K3 and K4
+and [96,512|128,64] bf16 causal; K2 at serving's caches [96,1024,64]
+with ``chip_smoke.DECODE_LENGTHS``, q_len 1 (decode) and 8 (chunked
+prefill), f32 and bf16; K3 and K4
 (flash backward) at [384,128,64] f32 bias + dropout 0.1 (training),
 [96,512,64] f32 causal + bias and [384,128,64] bf16 bias + dropout 0.1,
 on lse and delta from the plain forward.
@@ -23,14 +25,15 @@ Two times a launch: ``ms``, as ``chip_smoke.py`` takes it (CUDA events
 around each wrapper call, a 64 MiB write evicting L2 before it, mean of
 ``--iters`` after 3 warm-ups), and ``device_ms``, the kernel's own device
 time from ``torch.profiler`` over ``--iters`` back-to-back calls, which
-leaves out the wrapper's host time. K5, K1, K3 and K4 rows also time the
-library call for the same function by both methods (``torch.addmm``;
+leaves out the wrapper's host time. Every row also times the library
+call for the same function by both methods (``torch.addmm``;
 ``scaled_dot_product_attention`` with an equivalent mask, its forward for
-K1 and its whole backward, dQ, dK and dV together, for K3 and K4). Prints
-the card, each copy's ptxas registers and spills for K1, K3, K4 and K5,
-the tensor-core instruction count (``cuobjdump -sass``) of each of their
-kernels where the copy can read it, and one JSON line a row; ``--out``
-appends the JSON lines to FILE.
+K1 and K2 and its whole backward, dQ, dK and dV together, for K3 and K4).
+Prints the card, each copy's ptxas registers and spills for every
+kernel, the tensor-core instruction count (``cuobjdump -sass``) of each
+kernel where the copy can read it, and one JSON line a row; ``--out``
+appends the JSON lines to FILE; ``--rows K2 ...`` keeps only the rows of
+the kernels named.
 """
 from __future__ import annotations
 
@@ -45,12 +48,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import ProfilerActivity, profile
 
-# chip_smoke.py, at the repo's root, times SDPA's backward the same way
+# chip_smoke.py, at the repo's root, times SDPA's backward, device time
+# and K2's rows the same way
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import sdpa_backward  # noqa: E402
+from chip_smoke import (DECODE_LENGTHS, decode_mask,  # noqa: E402
+                        device_ms, sdpa_backward)
 
 _FLUSH = None
 
@@ -85,25 +89,6 @@ def event_ms(fn, iters):
         pairs.append((a, b))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
-
-
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, name, None)
-        if v:
-            return float(v)
-    return 0.0
-
-
-def device_ms(fn, iters):
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_device_us(e) for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / iters / 1e3
 
 
 def pad_bias(B, S, gen):
@@ -150,16 +135,19 @@ def k1_row(gen, B, S, causal, rate, dtype, H=12, D=64):
                 q4, k4, v4, attn_mask=mask, dropout_p=rate))
 
 
-def k2_row(gen, B=8, H=12, S=1024, D=64):
+def k2_row(gen, q_len, dtype, B=8, H=12, S=1024, D=64):
     BH = B * H
-    q = torch.randn(BH, 1, D, generator=gen, device="cuda")
-    kc, vc = (torch.randn(BH, S, D, generator=gen, device="cuda")
+    q = torch.randn(BH, q_len, D, generator=gen, device="cuda").to(dtype)
+    kc, vc = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
               for _ in range(2))
-    lens = torch.tensor([1, 8, 9, 16, 333, 700, 1017, 1024],
-                        dtype=torch.int32, device="cuda")
-    return (dict(kernel="K2", shape=[BH, 1, S, D], dtype="float32"),
+    lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    mask, _ = decode_mask(lens, q_len, S, dtype)
+    q4 = q.reshape(B, H, q_len, D)
+    k4, v4 = kc.reshape(B, H, S, D), vc.reshape(B, H, S, D)
+    return (dict(kernel="K2", shape=[BH, q_len, S, D], dtype=str(dtype)[6:]),
             lambda K: K.flash_attention_decode(q, kc, vc, lens, num_heads=H),
-            None)
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=mask))
 
 
 def k34_rows(gen, ref, B, H, S, dtype, causal, rate, D=64):
@@ -195,7 +183,7 @@ def first(out):
 
 # the sources whose ptxas report and SASS tensor-core count are printed
 REPORTED = ("fused_gemm", "flash_attention_fwd", "flash_attention_dq",
-            "flash_attention_dkv")
+            "flash_attention_dkv", "decode_attention")
 
 
 def ptxas_report(mod, names=REPORTED):
@@ -221,6 +209,8 @@ def main():
                     metavar=("OLD", "NEW"))
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--rows", nargs="+", default=None, metavar="KERNEL",
+                    help="only these kernels' rows (K1 .. K5)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: needs a CUDA device")
@@ -257,12 +247,15 @@ def main():
             k1_row(gen, 32, 128, False, 0.1, f32),
             k1_row(gen, 32, 512, False, 0.0, f32),
             k1_row(gen, 8, 512, True, 0.0, bf16),
-            k1_row(gen, 8, 128, True, 0.0, bf16),
-            k2_row(gen)]
+            k1_row(gen, 8, 128, True, 0.0, bf16)]
+    rows += [k2_row(gen, q_len, dtype) for dtype in (f32, bf16)
+             for q_len in (1, 8)]
     for B, S, dtype, causal, rate in ((32, 128, f32, False, 0.1),
                                       (8, 512, f32, True, 0.0),
                                       (32, 128, bf16, False, 0.1)):
         rows += k34_rows(gen, mods["new"], B, 12, S, dtype, causal, rate)
+    if args.rows:
+        rows = [r for r in rows if r[0]["kernel"] in args.rows]
     results = []
     for info, run, lib in rows:
         turns = []
@@ -280,16 +273,14 @@ def main():
             r[f"{tag}_ms"] = sum(t[1] for t in ts) / 2
             r[f"{tag}_device_ms"] = sum(t[2] for t in ts) / 2
         r["turns"] = turns
-        if lib is not None:
-            r["library_ms"] = event_ms(lib, args.iters)
-            r["library_device_ms"] = device_ms(lib, args.iters)
+        r["library_ms"] = event_ms(lib, args.iters)
+        r["library_device_ms"] = device_ms(lib, args.iters)
         results.append(r)
         print(json.dumps(r), flush=True)
     print("[summary] row | old ms (device) | new ms (device) | library ms "
           "(device)")
     for r in results:
-        lib = (f"{r['library_ms']:.4f} ({r['library_device_ms']:.4f})"
-               if "library_ms" in r else "-")
+        lib = f"{r['library_ms']:.4f} ({r['library_device_ms']:.4f})"
         tag = " ".join(str(r.get(k)) for k in (
             "kernel", "shape", "epilogue", "dtype", "out_dtype", "causal",
             "dropout") if r.get(k) is not None)
