@@ -5,12 +5,15 @@
 Phases, in order; any failure exits non-zero (no phase is caught):
 
 1. device — requires CUDA; prints the card's name and power limit; turns
-   TF32 off for float32 matrix products and convolutions.
+   TF32 off for float32 matrix products and convolutions, and cuBLAS's
+   reduced-precision (bf16) split-k reductions off for bf16 products.
 2. kernels — builds every kernel of the serving, training and inference
    paths from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once), runs each on the card at the main paths' shapes (K1: serving
    prefill [96,128|512,64] causal, f32 and bf16; training [384,128,64]
-   with dropout; inference [384,512,64]) against its
+   and, under AMP, [384,512,64] with dropout; inference [384,512,64];
+   K3/K4 at the same training shapes; K5 at the inference GEMMs in f32
+   and, under AMP, bf16 x and y with an f32 output) against its
    plain PyTorch version (``kernels.KERNEL_TOL``: f32 atol 1e-4 / rtol
    1e-3, the two sum in different orders; bf16 atol 8e-3 / rtol 1.6e-2,
    about two bf16 ulp), checks that K1, K3 and K4 drop exactly the
@@ -42,7 +45,18 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    device memory held between steps stays flat. Reports steps/s,
    tokens/s, peak device memory and one profiled step's device idle share,
    top kernels and the device time of each of the port's kernels.
-6. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
+6. train_amp — the JAX package's bf16 headline: BERT-base
+   ``build_bert_pretrain(amp=True)`` (bf16 products, f32 master weights,
+   no loss scaling), batch 32, seq 512, dropout 0.1, 4 steps through the
+   kernels and 4 plain (``FLAGS_use_flash_attention=never``) from the
+   same weights. Attention takes f32 Q/K/V under AMP, so K1 (24 a step),
+   K3 and K4 (12 each) run their f32 routes. Losses finite and falling,
+   kernel vs plain within ``AMP_LOSS_RTOL``, every cuBLAS GEMM kernel of
+   a profiled step a bf16 one (by name), every parameter and Adam moment
+   left f32, held memory flat. Reports steps/s, tokens/s, peak memory,
+   the idle share, top kernels, and the device ms of the bf16 GEMMs and
+   of K1 + K3 + K4 in the step.
+7. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
    512; ``build_bert_pretrain(build_optimizer=False)`` cloned for test;
    random weights and a synthetic batch from ``--seed``; fetch the loss
    and the last encoder layer), run three ways on the same weights and
@@ -56,8 +70,13 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    rtol 1e-4 and on the encoder output within atol 1e-3; reports forward
    ms (median of 5 after a warm-up), peak device memory, one profiled
    forward's device idle share and top kernels, and the witness's largest
-   error per chain signature.
-7. prints the script time of each phase and part (``[seconds]``), the
+   error per chain signature. Then the same program under
+   ``contrib.mixed_precision.decorate_program`` (bf16), fused and
+   unfused: 75 chains fused (witnessed at the bf16 tolerance), K5 74
+   launches a forward, all on its bf16 CUDA functions, K1 12, the fused
+   loss within ``AMP_INFER_TOL`` of the unfused; forward ms (median of 5)
+   and peak memory.
+8. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``. With ``--out-dir``, everything
    measured is also written to ``DIR/chip_smoke.json``.
@@ -81,6 +100,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels as K
+from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
 from paddle_tpu_torch.models.gpt import (GptConfig, build_gpt_generative,
@@ -138,6 +158,10 @@ def phase_device():
         check=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (AMP) accumulate in f32 throughout, as the JAX
+    # package's do: no bf16 partial sums in cuBLAS's split-k reductions
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     return card
@@ -472,7 +496,12 @@ GEMM_ROWS = (
     (16384, 768, 768, "bias+gelu+layer_norm", torch.float32,
      torch.float32),                                                 # MLM
     (16384, 3072, 768, "bias+gelu", torch.bfloat16, torch.float32),
-    (16384, 3072, 768, "bias+gelu", torch.bfloat16, torch.bfloat16))
+    (16384, 3072, 768, "bias+gelu", torch.bfloat16, torch.bfloat16),
+    # AMP inference: x and y cast to bf16, f32 epilogue params and output
+    (16384, 768, 768, "bias", torch.bfloat16, torch.float32),
+    (16384, 768, 3072, "bias", torch.bfloat16, torch.float32),
+    (16384, 768, 768, "bias+gelu+layer_norm", torch.bfloat16,
+     torch.float32))
 
 
 def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype):
@@ -526,10 +555,12 @@ def phase_kernels(seed):
             res["flash_attention_fwd"].append(check_flash(S, dtype, gen))
         for q_len in (1, 8):
             res["decode_attention"].append(check_decode(q_len, dtype, gen))
-    for S, rate in ((128, 0.1), (512, 0.0)):       # training, inference
+    # f32 training at seq 128 and, under AMP, at seq 512; inference
+    for S, rate in ((128, 0.1), (512, 0.1), (512, 0.0)):
         res["flash_attention_fwd"].append(check_flash_padded(gen, S, rate))
     for B, H, S, dtype, causal, rate in (
             (32, 12, 128, torch.float32, False, 0.1),
+            (32, 12, 512, torch.float32, False, 0.1),
             (8, 12, 512, torch.float32, True, 0.0),
             (32, 12, 128, torch.bfloat16, False, 0.1)):
         dq_row, dkv_row = check_backward(gen, B, H, S, 64, dtype, causal,
@@ -734,8 +765,8 @@ def bert_feed(seed, vocab, B, S):
             "next_sent_label": rng.randint(0, 2, (B, 1)).astype(np.int64)}
 
 
-def train(net, init, feed, plain):
-    """TRAIN_STEPS steps from ``init`` on a fresh executor (so the step
+def train(net, init, feed, plain, steps=TRAIN_STEPS):
+    """``steps`` steps from ``init`` on a fresh executor (so the step
     seeds, and with them the dropout masks, repeat) and a fresh scope."""
     exe, scope = fluid.Executor(), fluid.Scope()
     for n, t in init.items():
@@ -750,7 +781,7 @@ def train(net, init, feed, plain):
         K.reset_launch_counts()
         losses, held, t_first = [], [], None
         t0 = time.perf_counter()
-        for step in range(TRAIN_STEPS):
+        for step in range(steps):
             losses.append(exe.run(net["main"], feed=feed, fetch_list=fetch,
                                   scope=scope))
             held.append(torch.cuda.memory_allocated())
@@ -764,7 +795,7 @@ def train(net, init, feed, plain):
         fluid.set_flags({"FLAGS_use_flash_attention": "auto"})
     return dict(losses=np.array([[float(np.ravel(x)[0]) for x in step]
                                  for step in losses]),
-                steps_per_s=(TRAIN_STEPS - 1) / wall, first_step_s=first_s,
+                steps_per_s=(steps - 1) / wall, first_step_s=first_s,
                 launches=launches, peak_bytes=peak, base_bytes=base,
                 held_bytes=held, exe=exe, scope=scope)
 
@@ -787,11 +818,24 @@ PORT_KERNELS = {"flash_attention_fwd": ("flash_fwd_",),
                                "gemm_ln_")}
 
 
+# cuBLAS's GEMM kernels, and the marks of its bf16 ones, by the names
+# torch.profiler reports on the H100 (sm90 nvjet kernels: "tst" = bf16
+# operands, f32 accumulation, bf16 output; cutlass tensor-op kernels;
+# split-k reductions templated on __nv_bfloat16)
+GEMM_MARKS = ("gemm", "nvjet", "xmma", "splitKreduce")
+BF16_GEMM_MARKS = ("bf16", "bfloat16", "nvjet_tst")
+
+
+def _port_kernel(name):
+    return any(m in name for marks in PORT_KERNELS.values() for m in marks)
+
+
 def profile_run(fn):
     """``fn()`` (which ends in a host read of its result) under
     torch.profiler: device busy time (summed kernel time) over wall
-    time, the top kernels, and the device time and launches of each of
-    the port's kernels."""
+    time, the top kernels, the device time and launches of each of the
+    port's kernels (and of each of their CUDA functions), and cuBLAS's
+    GEMM kernels, each marked bf16 or not."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -802,18 +846,25 @@ def profile_run(fn):
                    if e.device_type.name == "CUDA" and _device_us(e) > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    port = {}
+    port, functions = {}, {}
     for name, marks in PORT_KERNELS.items():
-        mine = [(us, n) for us, k, n in rows if any(m in k for m in marks)]
+        mine = [(us, k, n) for us, k, n in rows
+                if any(m in k for m in marks)]
         if mine:
-            port[name] = {"ms": sum(us for us, _ in mine) / 1e3,
-                          "calls": sum(n for _, n in mine)}
+            port[name] = {"ms": sum(us for us, _, _ in mine) / 1e3,
+                          "calls": sum(n for _, _, n in mine)}
+        for us, k, n in mine:
+            functions[k[:90]] = {"kernel": name, "ms": us / 1e3, "calls": n}
+    gemms = [{"name": k[:120], "ms": us / 1e3, "calls": n,
+              "bf16": any(m in k for m in BF16_GEMM_MARKS)}
+             for us, k, n in rows
+             if any(m in k for m in GEMM_MARKS) and not _port_kernel(k)]
     return dict(wall_s=wall, device_busy_s=busy,
                 idle_share=1.0 - busy / wall,
                 device_kernels=sum(r[2] for r in rows),
                 top_kernels=[{"name": k[:90], "ms": us / 1e3, "calls": n}
                              for us, k, n in rows[:12]],
-                port_kernels=port)
+                port_kernels=port, port_functions=functions, gemms=gemms)
 
 
 def phase_train(seed):
@@ -890,6 +941,118 @@ def phase_train(seed):
         plain_peak_gib=plain["peak_bytes"] / 2**30,
         plain_resident_before_gib=plain["base_bytes"] / 2**30,
         held_gib=[b / 2**30 for b in kern["held_bytes"]],
+        launches=kern["launches"], profiled_step=prof)
+
+
+# ---------------------------------------------------------------- train_amp
+# the JAX package's bf16 headline: BERT-base, batch 32, seq 512, amp=True
+AMP_BATCH, AMP_SEQ, AMP_STEPS = 32, 512, 4
+# kernel vs plain run (the same bf16 products; attention differs only in
+# f32 summation order, which can flip the bf16 rounding of a product
+# downstream): step 1 and later steps (Adam carries the difference on)
+AMP_LOSS_RTOL = (1e-3, 1e-2)
+
+
+def phase_train_amp(seed):
+    cfg = BertConfig.base()
+    net = build_bert_pretrain(cfg, seq_len=AMP_SEQ, amp=True)
+    net["startup"].random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    del scope0
+    feed = bert_feed(seed + 2, cfg.vocab_size, AMP_BATCH, AMP_SEQ)
+    kern = train(net, init, feed, plain=False, steps=AMP_STEPS)
+    exe, scope = kern.pop("exe"), kern.pop("scope")
+    prof = profile_step(net, exe, scope, feed)
+    not_f32 = {n: str(t.dtype) for n, t in scope.vars.items()
+               if t.is_floating_point() and t.dtype != torch.float32}
+    n_state = sum(t.is_floating_point() for t in scope.vars.values())
+    del exe, scope
+    torch.cuda.empty_cache()
+    plain = train(net, init, feed, plain=True, steps=AMP_STEPS)
+    tokens = AMP_BATCH * AMP_SEQ
+    kl, pl = kern["losses"], plain["losses"]
+    rel = np.abs(kl - pl) / np.abs(pl)
+    gemms = prof["gemms"]
+    gemm_ms = sum(g["ms"] for g in gemms)
+    attn = {n: prof["port_kernels"].get(n, {"ms": 0.0, "calls": 0})
+            for n in TRAIN_LAUNCHES}
+    attn_ms = sum(r["ms"] for r in attn.values())
+    growth = max(kern["held_bytes"][1:]) - min(kern["held_bytes"][1:])
+    log(f"[train_amp] BERT-base amp=True (bf16 products), batch "
+        f"{AMP_BATCH}, seq {AMP_SEQ}, dropout 0.1, {AMP_STEPS} steps: loss "
+        f"{kl[0, 0]:.6f} -> {kl[-1, 0]:.6f} (plain run {pl[0, 0]:.6f} -> "
+        f"{pl[-1, 0]:.6f})")
+    log(f"  kernels: {kern['steps_per_s']:.3f} steps/s = "
+        f"{kern['steps_per_s'] * tokens:.1f} tokens/s (steps 2-{AMP_STEPS};"
+        f" step 1 {kern['first_step_s']:.3f} s), peak "
+        f"{kern['peak_bytes'] / 2**30:.2f} GiB "
+        f"({kern['base_bytes'] / 2**30:.2f} GiB resident before), launches "
+        f"{kern['launches']}")
+    log(f"  plain:   {plain['steps_per_s']:.3f} steps/s, peak "
+        f"{plain['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  profiled step: wall {prof['wall_s'] * 1e3:.1f} ms, device busy "
+        f"{prof['device_busy_s'] * 1e3:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['device_kernels']} device kernels;"
+        f" cuBLAS GEMMs {gemm_ms:.3f} ms ({sum(g['calls'] for g in gemms)} "
+        f"calls, {sum(not g['bf16'] for g in gemms)} kernels not bf16), "
+        f"K1 + K3 + K4 {attn_ms:.3f} ms (" + ", ".join(
+            f"{n} {r['ms']:.3f} ms/{r['calls']}" for n, r in attn.items())
+        + ")")
+    log(f"  loss rel. diff kernel vs plain: step 1 {rel[0].max():.3e}, "
+        f"later max {rel[1:].max():.3e} (tolerance {AMP_LOSS_RTOL})")
+    log(f"  device memory held between steps 2-{AMP_STEPS}: "
+        f"{min(kern['held_bytes'][1:]) / 2**30:.3f} GiB, growth "
+        f"{growth / 2**20:.1f} MiB; {n_state} float state vars, not f32: "
+        f"{not_f32 or 'none'}")
+    for r in prof["top_kernels"][:8]:
+        log(f"    {r['ms']:8.3f} ms {r['calls']:5d} calls  {r['name']}")
+    for g in gemms:
+        log(f"    gemm {'bf16' if g['bf16'] else 'NOT bf16'} {g['ms']:8.3f} "
+            f"ms {g['calls']:4d} calls  {g['name']}")
+    if not np.isfinite(kl).all() or not np.isfinite(pl).all():
+        raise SystemExit("chip_smoke: non-finite AMP training loss")
+    if not kl[-1, 0] < kl[0, 0]:
+        raise SystemExit("chip_smoke: the AMP training loss did not fall")
+    if rel[0].max() > AMP_LOSS_RTOL[0] or rel[1:].max() > AMP_LOSS_RTOL[1]:
+        raise SystemExit(f"chip_smoke: kernel and plain AMP training runs "
+                         f"disagree (step 1 {rel[0].max():.3e}, later "
+                         f"{rel[1:].max():.3e}; tolerance {AMP_LOSS_RTOL})")
+    # under AMP attention takes f32 Q/K/V (each bf16 q/k/v product meets
+    # its f32 bias): the f32 routes of K1, K3, K4, launched as in f32
+    for name in K.KERNEL_SOURCES:
+        want = TRAIN_LAUNCHES.get(name, 0) * AMP_STEPS
+        if kern["launches"][name] != want:
+            raise SystemExit(f"chip_smoke: {name} launched "
+                             f"{kern['launches'][name]} times in "
+                             f"{AMP_STEPS} AMP train steps, expected {want}")
+    if any(plain["launches"].values()):
+        raise SystemExit(f"chip_smoke: the plain AMP training run launched "
+                         f"kernels: {plain['launches']}")
+    if not gemms or not all(g["bf16"] for g in gemms):
+        raise SystemExit("chip_smoke: a GEMM of the AMP train step is not "
+                         "bf16: " + ", ".join(g["name"] for g in gemms
+                                               if not g["bf16"]))
+    if not_f32:
+        raise SystemExit(f"chip_smoke: AMP state left float32: {not_f32}")
+    if growth > 16 * 2**20:
+        raise SystemExit(f"chip_smoke: device memory grew by "
+                         f"{growth / 2**20:.1f} MiB across AMP train steps")
+    return dict(
+        config="BertConfig.base(), amp=True", batch=AMP_BATCH, seq=AMP_SEQ,
+        steps=AMP_STEPS, losses=kl.tolist(), plain_losses=pl.tolist(),
+        step1_rel_diff=float(rel[0].max()),
+        later_rel_diff=float(rel[1:].max()),
+        steps_per_s=kern["steps_per_s"],
+        tokens_per_s=kern["steps_per_s"] * tokens,
+        first_step_s=kern["first_step_s"],
+        peak_gib=kern["peak_bytes"] / 2**30,
+        resident_before_gib=kern["base_bytes"] / 2**30,
+        plain_steps_per_s=plain["steps_per_s"],
+        plain_peak_gib=plain["peak_bytes"] / 2**30,
+        held_gib=[b / 2**30 for b in kern["held_bytes"]],
+        gemm_ms=gemm_ms, attention_ms=attn_ms, float_state_vars=n_state,
         launches=kern["launches"], profiled_step=prof)
 
 
@@ -974,6 +1137,13 @@ def phase_infer(seed):
     # the dense replay is a check, not a measurement: one forward, counted
     dense = infer_run("dense", prog, fetch, init, feed, fused=True,
                       kernel="never", forwards=1, profiled=False)
+    # AMP: the same is_test program under the bf16 policy
+    amp_prog = mixed_precision.decorate_program(
+        net["main"].clone(for_test=True))
+    amp_fused = infer_run("amp_fused", amp_prog, fetch, init, feed,
+                          fused=True)
+    amp_unfused = infer_run("amp_unfused", amp_prog, fetch, init, feed,
+                            fused=False)
     dec = fused["decision"]
     lf, lu = float(fused["loss"]), float(unfused["loss"])
     rel = abs(lf - lu) / abs(lu)
@@ -1024,6 +1194,7 @@ def phase_infer(seed):
     if not exact:
         raise SystemExit("chip_smoke: the dense replay is not bit-exact "
                          "against the unfused program")
+    amp = check_infer_amp(amp_fused, amp_unfused, tokens)
 
     def summary(r):
         return dict(forward_ms=r["forward_ms"], forward_ms_all=r[
@@ -1038,8 +1209,78 @@ def phase_infer(seed):
                 loss_rel_diff=rel, encoder_max_abs_err=enc_err,
                 dense_bit_exact=exact, decision=dec.to_dict(),
                 fused=summary(fused), unfused=summary(unfused),
-                dense=summary(dense),
-                launches=fused["launches_total"])
+                dense=summary(dense), amp=dict(
+                    amp, fused=summary(amp_fused),
+                    unfused=summary(amp_unfused)),
+                launches={n: fused["launches_total"][n]
+                          + amp_fused["launches_total"][n]
+                          for n in K.KERNEL_SOURCES})
+
+
+# AMP inference: the fused loss against the unfused within the witness's
+# bf16 tolerance (rtol, atol), which holds each chain's output: the
+# unfused chain rounds the product to bf16 before its f32 bias, K5 keeps
+# the f32 accumulator
+AMP_INFER_TOL = (2e-2, 2e-2)
+
+
+def check_infer_amp(fused, unfused, tokens):
+    """The bf16 fused and unfused forwards: 75 chains fused, K5 74
+    launches a forward, all on its bf16 route (the CUDA functions of the
+    profiled forward), K1 12; the losses within ``AMP_INFER_TOL``."""
+    dec = fused["decision"]
+    lf, lu = float(fused["loss"]), float(unfused["loss"])
+    rel = abs(lf - lu) / abs(lu)
+    enc_err = float((fused["enc"] - unfused["enc"]).abs().max())
+    funcs = {k: v for k, v in fused["profiled"]["port_functions"].items()
+             if v["kernel"] == "fused_gemm"}
+    log(f"[infer_amp] BERT-base decorate_program (bf16), batch "
+        f"{INFER_BATCH}, seq {INFER_SEQ}: fusion "
+        f"{dec.reason if dec else 'not run'}; loss fused {lf:.6f} vs "
+        f"unfused {lu:.6f} (rel {rel:.3e}, tolerance {AMP_INFER_TOL}); "
+        f"encoder output max abs err {enc_err:.3e}; K5 functions {funcs}")
+    for w in (dec.witness if dec else []):
+        log(f"  witness {w['epilogue']} (m={w['m']}, n={w['n']}, "
+            f"k={w['k']}) route {w.get('route')}: max abs err "
+            f"{w.get('max_abs_err', float('nan')):.3e}")
+    for tag, r in (("fused (K5 bf16)", fused), ("unfused", unfused)):
+        p = r["profiled"]
+        log(f"  {tag}: forward {r['forward_ms']:.2f} ms median of "
+            f"{len(r['forward_ms_all'])} "
+            f"({tokens / r['forward_ms'] * 1e3:.0f} tokens/s), peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB ({r['base_bytes'] / 2**30:.2f}"
+            f" GiB resident), launches a forward {r['launches']}, profiled: "
+            f"wall {p['wall_s'] * 1e3:.1f} ms, busy "
+            f"{p['device_busy_s'] * 1e3:.1f} ms, idle share "
+            f"{p['idle_share']:.3f}")
+        for k in p["top_kernels"][:5]:
+            log(f"    {k['ms']:8.3f} ms {k['calls']:5d} calls  {k['name']}")
+    if dec is None or not dec.applied or dec.n_fused != INFER_CHAINS:
+        raise SystemExit(f"chip_smoke: the AMP fusion pass did not fuse "
+                         f"{INFER_CHAINS} chains: "
+                         f"{dec.to_dict() if dec else None}")
+    for name in K.KERNEL_SOURCES:
+        for tag, r in (("fused", fused), ("unfused", unfused)):
+            want = INFER_LAUNCHES.get(name, 0)
+            if tag == "unfused" and name == "fused_gemm":
+                want = 0
+            if r["launches"][name] != want:
+                raise SystemExit(f"chip_smoke: {name} launched "
+                                 f"{r['launches'][name]} times a forward in "
+                                 f"the {tag} AMP inference run, expected "
+                                 f"{want}")
+    calls = sum(v["calls"] for v in funcs.values())
+    if calls != INFER_LAUNCHES.get("fused_gemm", 0) or not all(
+            "bf16" in k for k in funcs):
+        raise SystemExit(f"chip_smoke: K5 did not run on its bf16 route in "
+                         f"the AMP forward: {funcs}")
+    rtol, atol = AMP_INFER_TOL
+    if not np.isfinite(lf) or abs(lf - lu) > atol + rtol * abs(lu):
+        raise SystemExit(f"chip_smoke: fused and unfused AMP inference "
+                         f"disagree beyond {AMP_INFER_TOL}: {lf} vs {lu}")
+    return dict(loss_fused=lf, loss_unfused=lu, loss_rel_diff=rel,
+                encoder_max_abs_err=enc_err, decision=dec.to_dict(),
+                k5_functions=funcs)
 
 
 # ---------------------------------------------------------------- main
@@ -1062,12 +1303,17 @@ def main():
     with timed("train"):
         trained = phase_train(args.seed)
     torch.cuda.empty_cache()
+    with timed("train_amp"):
+        trained_amp = phase_train_amp(args.seed)
+    torch.cuda.empty_cache()
     with timed("infer"):
         inferred = phase_infer(args.seed)
-    # launches on the main paths: serving (K1, K2), training (K1, K3, K4)
-    # and inference (K1, K5), each counted from 0 over its own run
+    # launches on the main paths: serving (K1, K2), training in f32 and
+    # in bf16 (K1, K3, K4) and inference in f32 and bf16 (K1, K5), each
+    # counted from 0 over its own run
     launches = {n: run["launches"][n] + trained["launches"][n]
-                + inferred["launches"][n] for n in K.KERNEL_SOURCES}
+                + trained_amp["launches"][n] + inferred["launches"][n]
+                for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
     report = {"card": card, "kernels": kres, "dropout_masks": masks,
               "serve": {
@@ -1076,7 +1322,8 @@ def main():
                   "launches": run["launches"],
                   "accounting": dict(run["accounting"]),
                   "stats": run["stats"], "whole_path": whole},
-              "train": trained, "infer": inferred, "launches": launches}
+              "train": trained, "train_amp": trained_amp,
+              "infer": inferred, "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

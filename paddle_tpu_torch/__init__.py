@@ -12,21 +12,24 @@ BERT pretraining (``models.bert.build_bert_pretrain``: ``append_backward``,
 the generic ``<type>_grad``, Adam) and inference with GEMM-epilogue fusion
 (``FLAGS_epilogue_fusion``: ``analysis.epilogue_fusion`` rewrites matmul
 chains into ``fused_gemm_epilogue``, the fused-GEMM kernel K5 on the
-card). ``Executor()`` runs on ``CUDAPlace(0)``; pass ``CPUPlace()`` for
+card), bf16 mixed precision (``contrib.mixed_precision``: ``decorate``
+for training, ``decorate_program`` for inference) and the MLP train step
+(``models.mlp.build_mnist_mlp``, SGD). ``Executor()`` runs on ``CUDAPlace(0)``; pass ``CPUPlace()`` for
 the CPU.
 """
 from . import ops  # noqa: F401  (registers the op rules)
-from . import layers, optimizer, unique_name  # noqa: F401
+from . import contrib, layers, optimizer, unique_name  # noqa: F401
 from .backward import append_backward
 from .executor import CPUPlace, CUDAPlace, Executor, Scope, global_scope
 from .flags import flag, get_flags, set_flags
 from .framework import (Program, default_main_program,
                         default_startup_program, program_guard)
-from .initializer import Constant, TruncatedNormal
+from .initializer import Constant, Normal, TruncatedNormal, Uniform, Xavier
 from .param_attr import ParamAttr
 
 __all__ = ["CPUPlace", "CUDAPlace", "Executor", "Scope", "global_scope",
            "append_backward", "optimizer",
            "flag", "get_flags", "set_flags", "Program", "default_main_program",
            "default_startup_program", "program_guard", "Constant",
-           "TruncatedNormal", "ParamAttr", "layers", "unique_name"]
+           "Normal", "TruncatedNormal", "Uniform", "Xavier", "ParamAttr",
+           "layers", "unique_name", "contrib"]

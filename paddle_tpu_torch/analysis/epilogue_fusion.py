@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.types import canonical_dtype, torch_dtype
 from ..framework import OpRole, Program
 from .diagnostics import Diagnostic
 from .verifier import EMPTY, _site
@@ -359,7 +360,6 @@ def _witness_inputs(block, names: Sequence[str], device, batch: int = 8):
     default generator, not the JAX package's float64 ``RandomState``: at
     BERT-base's m = 16384 rows the draws are most of the witness's time,
     and this is 2.5x faster."""
-    from ..core.types import torch_dtype
     import zlib
 
     env = {}
@@ -436,7 +436,8 @@ def _run_witness(program: Program, fused_program: Program,
     witness executes the configuration that actually runs, not the
     defaults."""
     from ..lowering import LowerCtx, lower_op
-    from ..ops.fused_gemm import fused_gemm_route, resolve_gemm_blocks
+    from ..ops.fused_gemm import (compute_dtype, fused_gemm_route,
+                                  resolve_gemm_blocks)
 
     gb = program.global_block
     m, n, k = _chain_gemm_dims(gb, chain, batch=batch)
@@ -447,13 +448,14 @@ def _run_witness(program: Program, fused_program: Program,
             ext = sorted(set(chain.inputs.values()))
             base_env = _witness_inputs(gb, ext, device, batch=batch)
             env_a = dict(base_env)
-            ctx_a = LowerCtx(device)
+            ctx_a = LowerCtx(device, program=program)
             for oi in chain.op_indices:
                 lower_op(gb.ops[oi], env_a, ctx_a)
             want = env_a[chain.out_name]
 
             env_b = dict(base_env)
-            ctx_b = LowerCtx(device, gemm_blocks=gemm_blocks)
+            ctx_b = LowerCtx(device, gemm_blocks=gemm_blocks,
+                             program=fused_program)
             lower_op(fused_op, env_b, ctx_b)
             got = env_b[chain.out_name]
     except Exception as e:
@@ -466,13 +468,18 @@ def _run_witness(program: Program, fused_program: Program,
                 f"{tuple(want.shape)} vs fused {got.dtype}"
                 f"{tuple(got.shape)}"), rec
 
+    # the chain's compute type: under AMP a white-list base op multiplies
+    # in the policy's type and promotes back to f32 at the epilogue
+    # params, so the output's type would overstate the precision the
+    # kernel is held to
+    comp = compute_dtype(ctx_b, chain.attrs["base_type"], torch_dtype(
+        gb._var_recursive(chain.inputs["X"]).dtype))
     try:
         # the same flag > ctx > default resolution ctx_b's lowering used
         route, _ = fused_gemm_route(
             m, n, k, layer_norm=bool(chain.attrs["layer_norm"]),
             blocks=resolve_gemm_blocks(ctx_b),
-            alpha=float(chain.attrs.get("alpha", 1.0)),
-            dtype=gb._var_recursive(chain.inputs["X"]).dtype,
+            alpha=float(chain.attrs.get("alpha", 1.0)), dtype=comp,
             on_cuda=torch.device(device).type == "cuda")
     except ValueError as e:       # use_fused_gemm=always on a bad tiling
         return str(e), rec
@@ -486,10 +493,7 @@ def _run_witness(program: Program, fused_program: Program,
                     f"{rec['max_abs_err']:.3e} over "
                     f"{int((diff > 0).sum())} element(s)"), rec
         return None, rec
-    # tolerance keyed on the chain's compute dtype (no AMP policy in the
-    # port yet: the output's)
-    comp = str(want.dtype).replace("torch.", "")
-    rtol, atol = WITNESS_TOLERANCES.get(comp,
+    rtol, atol = WITNESS_TOLERANCES.get(canonical_dtype(comp),
                                         WITNESS_TOLERANCES["float32"])
     if not torch.allclose(wf, gf, rtol=rtol, atol=atol):
         return (f"kernel-route witness outside declared tolerance "

@@ -172,7 +172,8 @@ class Executor:
         for n, v in feed.items():
             env[n] = self._to_tensor(
                 v, blk.var(n).dtype if blk.has_var(n) else None)
-        ctx = LowerCtx(self.device, seed=self._next_seed(program))
+        ctx = LowerCtx(self.device, seed=self._next_seed(program),
+                       program=program)
         written = set()
         with torch.no_grad():
             for op in blk.ops:

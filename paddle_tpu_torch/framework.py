@@ -7,7 +7,9 @@ eagerly over torch tensors. Every op gets a stable ``__uid__`` and the
 program's current ``__op_role__`` (forward, backward, optimize) at append
 time; random ops derive their ``torch.Generator`` from the uid, and a
 ``<type>_grad`` op (``backward.py``) carries its forward op's uid so the
-recompute draws the same bits.
+recompute draws the same bits. A program may carry an AMP policy
+(``_amp_policy``, installed by ``contrib.mixed_precision``); it survives
+``to_dict``/``from_dict`` and ``clone``.
 """
 from __future__ import annotations
 
@@ -303,6 +305,7 @@ class Program:
         # bumped on every append and attr change: with _serial, the
         # identity the executor's caches key on
         self._version = 0
+        self._amp_policy = None           # lowering.AmpPolicy
 
     def _next_uid(self) -> int:
         self._uid_counter += 1
@@ -334,6 +337,20 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def _create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """Open a sub-block of the current block (or of ``parent_idx``);
+        ops append there until :meth:`_rollback`."""
+        parent = self.current_block_idx if parent_idx is None \
+            else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        self.current_block_idx = \
+            self.blocks[self.current_block_idx].parent_idx
+
     def clone(self, for_test: bool = False) -> "Program":
         """A deep copy with a fresh ``_serial``. With ``for_test`` the
         backward, optimize and lr-schedule ops are pruned (an inference
@@ -354,7 +371,13 @@ class Program:
         return p
 
     def to_dict(self) -> dict:
-        return {"version": 1, "blocks": [b.to_dict() for b in self.blocks]}
+        d = {"version": 1, "blocks": [b.to_dict() for b in self.blocks]}
+        amp = self._amp_policy
+        if amp is not None:
+            d["amp_policy"] = {"white": sorted(amp.white),
+                               "black": sorted(amp.black),
+                               "compute_dtype": amp.compute_dtype}
+        return d
 
     @staticmethod
     def from_dict(d: dict) -> "Program":
@@ -381,6 +404,12 @@ class Program:
                 b.ops.append(op)
                 p._uid_counter = max(p._uid_counter,
                                      op.attrs.get("__uid__", 0))
+        if d.get("amp_policy"):
+            from .lowering import AmpPolicy
+
+            ap = d["amp_policy"]
+            p._amp_policy = AmpPolicy(ap["white"], ap["black"],
+                                      ap["compute_dtype"])
         return p
 
     def to_json(self) -> str:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from . import unique_name
 from .framework import default_main_program, default_startup_program
-from .initializer import Constant
+from .initializer import Constant, Xavier
 from .param_attr import ParamAttr
 
 
@@ -48,12 +48,7 @@ class LayerHelper:
             ".".join([self.name, suffix]))
         initializer = attr.initializer or default_initializer
         if initializer is None:
-            if not is_bias:
-                raise NotImplementedError(
-                    f"parameter '{name}': the PyTorch port ships the "
-                    f"Constant and TruncatedNormal initializers only; "
-                    f"name one in the ParamAttr")
-            initializer = Constant(0.0)
+            initializer = Constant(0.0) if is_bias else Xavier()
         shape = [int(s) for s in shape]
         kwargs = attr._to_kwargs()
         kwargs.pop("name", None)

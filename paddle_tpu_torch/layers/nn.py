@@ -17,7 +17,7 @@ __all__ = ["fc", "embedding", "layer_norm", "gelu", "relu", "increment",
            "elementwise_mul", "elementwise_div", "elementwise_min",
            "elementwise_max", "not_equal", "scale", "reshape", "transpose",
            "cast", "unsqueeze", "dropout", "mean", "reduce_sum",
-           "softmax_with_cross_entropy", "slice"]
+           "softmax_with_cross_entropy", "slice", "topk", "accuracy"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -263,3 +263,30 @@ def slice(input, axes, starts, ends):
                      attrs={"axes": list(axes), "starts": list(starts),
                             "ends": list(ends), "decrease_axis": []})
     return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("top_k", inputs={"X": input},
+                     outputs={"Out": values, "Indices": indices},
+                     attrs={"k": k})
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy of ``input`` scores against ``label`` (reference
+    layers/metric_op.py:accuracy)."""
+    helper = LayerHelper("accuracy")
+    topk_out, topk_indices = topk(input, k=k)
+    acc_out = helper.create_variable_for_type_inference("float32", True)
+    correct = correct or helper.create_variable_for_type_inference(
+        "int32", True)
+    total = total or helper.create_variable_for_type_inference("int32", True)
+    helper.append_op("accuracy",
+                     inputs={"Out": topk_out, "Indices": topk_indices,
+                             "Label": label},
+                     outputs={"Accuracy": acc_out, "Correct": correct,
+                              "Total": total})
+    return acc_out

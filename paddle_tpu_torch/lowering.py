@@ -5,19 +5,27 @@ block once into one XLA computation; the port interprets it eagerly, op by
 op: each op's registered rule runs on torch tensors and its outputs shadow
 earlier writes in the environment (in-order scope semantics).
 
-* ``LowerCtx`` — per-op context: the device and the op's own
-  ``torch.Generator``, keyed on (step seed, op ``__uid__``).
-* ``lower_op`` / ``lower_block`` — the interpreter.
+* ``AmpPolicy`` — mixed precision as a lowering policy read from the
+  owning program (``program._amp_policy``): a white-list op's float32
+  inputs are cast to the compute dtype where the op runs, a black-list
+  op's compute-dtype inputs back to float32. Parameters and optimizer
+  state never leave float32.
+* ``LowerCtx`` — per-op context: the device, the owning program and the
+  op's own ``torch.Generator``, keyed on (step seed, op ``__uid__``).
+* ``lower_op`` / ``lower_block`` — the interpreter. A raw op (control
+  flow) gets the op and the environment and runs its sub-block itself.
 * the generic ``<type>_grad`` — the default gradient of every op: the
   forward rule runs again on the forward inputs under
   ``torch.enable_grad()`` and ``torch.autograd.grad`` pulls the output
   cotangents back, as the reference runs ``jax.vjp`` over the rule. The
-  autograd graph lives only inside the grad op that built it.
+  AMP casts happen inside that region, so the gradients of float32
+  primals come back float32. The autograd graph lives only inside the
+  grad op that built it.
 * ``auto_infer_shape`` — build-time shapes: the op's rule runs on
   ``device="meta"`` tensors (no data, no compute), with two sentinel sizes
   for -1 dims, as the reference runs its rule under ``jax.eval_shape``.
 
-AMP and the nan-check taps wait for a later slice.
+The nan-check taps (``FLAGS_check_nan_inf``) wait for a later slice.
 """
 from __future__ import annotations
 
@@ -33,21 +41,57 @@ EMPTY_VAR_NAME = "@EMPTY@"
 _META = torch.device("meta")
 
 
+class AmpPolicy:
+    """Mixed-precision compute policy applied where each op runs
+    (counterpart of the reference's ``AmpPolicy``). No program rewrite:
+    a white-list op's float32 inputs are cast to ``compute_dtype``
+    (bfloat16: tensor cores), a black-list op's ``compute_dtype`` inputs
+    back to float32, every other op takes its inputs as they arrive."""
+
+    def __init__(self, white_list, black_list, compute_dtype="bfloat16"):
+        self.white = frozenset(white_list)
+        self.black = frozenset(black_list)
+        self.compute_dtype = canonical_dtype(compute_dtype)
+        self._compute = torch_dtype(self.compute_dtype)
+
+    def cast_ins(self, op_type: str, ins: Dict[str, List[Any]]):
+        if op_type in self.white:
+            src, dst = torch.float32, self._compute
+        elif op_type in self.black:
+            src, dst = self._compute, torch.float32
+        else:
+            return ins
+
+        def cast(v):
+            if isinstance(v, torch.Tensor) and v.dtype == src:
+                return v.to(dst)
+            return v
+        return {slot: [cast(v) for v in vals] for slot, vals in ins.items()}
+
+
+def amp_policy_of(ctx) -> Optional[AmpPolicy]:
+    """The AMP policy of the program ``ctx`` runs, or None."""
+    return ctx.program._amp_policy if ctx.program is not None else None
+
+
 class LowerCtx:
-    """Context passed to every op rule. ``gemm_blocks`` is the block
+    """Context passed to every op rule. ``program`` is the owning program
+    (its AMP policy, a raw op's sub-blocks). ``gemm_blocks`` is the block
     triple a caller asks ``fused_gemm_epilogue`` to run with (the fusion
     pass's witness passes the triple it was given); None means
     ``FLAGS_fused_gemm_blocks`` or the kernel's default."""
 
     def __init__(self, device=None, seed: Optional[int] = None,
-                 uid: int = 0, gemm_blocks=None):
+                 uid: int = 0, gemm_blocks=None, program=None):
         self.device = torch.device(device) if device is not None else _META
         self.seed = seed
         self.uid = uid
         self.gemm_blocks = gemm_blocks
+        self.program = program
 
     def with_uid(self, uid: int) -> "LowerCtx":
-        return LowerCtx(self.device, self.seed, uid, self.gemm_blocks)
+        return LowerCtx(self.device, self.seed, uid, self.gemm_blocks,
+                        self.program)
 
     def generator(self, device=None) -> Optional[torch.Generator]:
         """A generator unique to this op instance and step, on ``device``
@@ -109,8 +153,18 @@ def lower_op(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
             _lower_generic_grad(op, env, ctx)
             return
         opdef = registry.get_op_def(op.type)
-        outs = opdef.lower(ctx.with_uid(op.attrs.get("__uid__", 0)),
-                           _gather_inputs(op, env), op.attrs)
+        op_ctx = ctx.with_uid(op.attrs.get("__uid__", 0))
+        if opdef.raw:
+            # control flow interprets its sub-block over ``env`` itself
+            if op_ctx.program is None:
+                op_ctx.program = op.block.program
+            opdef.lower(op_ctx, op, env)
+            return
+        ins = _gather_inputs(op, env)
+        amp = amp_policy_of(ctx)
+        if amp is not None:
+            ins = amp.cast_ins(op.type, ins)
+        outs = opdef.lower(op_ctx, ins, op.attrs)
     except OpLoweringError:
         raise
     except Exception as e:
@@ -148,6 +202,9 @@ def _lower_generic_grad(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
     fwd_uid = op.attrs.get("__fwd_uid__", 0)
     fwd_ctx = ctx.with_uid(fwd_uid)
     if fwd_def.grad_lower is not None:
+        # no AMP cast: a rule of its own owns its precision (casting the
+        # gathered inputs would cast the cotangents too and hand back
+        # bf16 parameter gradients)
         _write_outputs(op, fwd_def.grad_lower(
             fwd_ctx, _gather_inputs(op, env), op.attrs), env)
         return
@@ -169,10 +226,15 @@ def _lower_generic_grad(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
         return
 
     primals = [fwd_ins[s][i].detach().requires_grad_() for s, i in diff_pos]
+    amp = amp_policy_of(ctx)
     with torch.enable_grad():
         ins = {s: list(vs) for s, vs in fwd_ins.items()}
         for (s, i), p in zip(diff_pos, primals):
             ins[s][i] = p
+        if amp is not None:
+            # cast inside the differentiated region: the primals stay
+            # float32, so their gradients come back float32
+            ins = amp.cast_ins(fwd_type, ins)
         outs = fwd_def.lower(fwd_ctx, ins, fwd_attrs) or {}
         # float outputs that depend on a primal, each with its cotangent;
         # an output no cotangent reached contributes zero and is skipped

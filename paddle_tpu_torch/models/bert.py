@@ -6,7 +6,9 @@ parameter names, so the port's programs have the JAX package's ops, vars
 and attrs and parameters carry across by name
 (``interop.scope_from_numpy``). Attention is the
 ``fused_multihead_attention`` op: the flash-attention kernels K1 (forward,
-with in-kernel dropout) and K3/K4 (backward) on the card.
+with in-kernel dropout) and K3/K4 (backward) on the card. Under AMP the
+q/k/v products run in bf16 and their float32 biases promote the result
+back, so attention takes float32 Q/K/V, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -100,11 +102,10 @@ def build_bert_pretrain(cfg: BertConfig = None, seq_len: int = 128,
                         is_test: bool = False, amp: bool = False):
     """The pretraining programs. Feeds: src_ids/pos_ids/sent_ids/input_mask
     [B, S], mask_label [B, S] (-100 on unmasked positions),
-    next_sent_label [B, 1]. Returns main, startup, the loss vars and the
-    feed names."""
-    if amp:
-        raise NotImplementedError("AMP arrives with a later slice of the "
-                                  "port")
+    next_sent_label [B, 1]. With ``amp`` the optimizer is wrapped in
+    ``contrib.mixed_precision.decorate``: bf16 products, float32 master
+    weights, no loss scaling. Returns main, startup, the loss vars and
+    the feed names."""
     cfg = cfg or BertConfig.base()
     main, startup = Program(), Program()
     with program_guard(main, startup):
@@ -173,7 +174,12 @@ def build_bert_pretrain(cfg: BertConfig = None, seq_len: int = 128,
 
         loss = layers.elementwise_add(mlm_loss, nsp_loss)
         if build_optimizer:
-            Adam(learning_rate=lr).minimize(loss)
+            opt = Adam(learning_rate=lr)
+            if amp:
+                from ..contrib import mixed_precision
+
+                opt = mixed_precision.decorate(opt)
+            opt.minimize(loss)
     return {"main": main, "startup": startup, "loss": loss,
             "mlm_loss": mlm_loss, "nsp_loss": nsp_loss,
             "feeds": ("src_ids", "pos_ids", "sent_ids", "input_mask",

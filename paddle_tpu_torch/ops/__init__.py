@@ -1,3 +1,3 @@
 """Op rules of the PyTorch port; importing this package registers them."""
-from . import (fused_attention, fused_gemm, generation, loss,  # noqa: F401
-               math, nn, optimizer_ops, tensor)
+from . import (amp_ops, control_flow, fused_attention,  # noqa: F401
+               fused_gemm, generation, loss, math, nn, optimizer_ops, tensor)

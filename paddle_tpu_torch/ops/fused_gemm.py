@@ -11,8 +11,14 @@ fidelity witness and its PT755 report share):
 - ``'plain'`` — ``FLAGS_use_fused_gemm=always`` on a CPU tensor: the
   kernel's plain PyTorch version (the JAX package's interpret mode);
 - ``'primitive'`` — everything else: a dense replay of the ORIGINAL
-  unfused op rules in the original order, bit-exact against the unfused
-  program by construction.
+  unfused op rules in the original order, each sub-op's inputs cast by
+  the program's AMP policy as the interpreter casts them, bit-exact
+  against the unfused program by construction.
+
+Under an AMP policy a white-list base op's float32 x and y are cast to
+the compute type before the kernel (the fused op itself is on no list:
+its epilogue params stay float32, as the unfused chain's do), and the
+route is decided on that type.
 
 ``FLAGS_use_fused_gemm`` = auto|always|never picks the path; ``always``
 raises on a shape the kernel does not take instead of replaying. Block
@@ -28,10 +34,12 @@ import torch
 
 from .. import flags
 from ..core import registry
-from ..core.types import canonical_dtype
+from ..core.types import canonical_dtype, torch_dtype
+from ..lowering import amp_policy_of
 from .common import IOSpec, register_op, x
 
-__all__ = ["fused_gemm_route", "kernel_support", "resolve_gemm_blocks"]
+__all__ = ["fused_gemm_route", "kernel_support", "resolve_gemm_blocks",
+           "compute_dtype"]
 
 # the input types the kernel takes (x and y alike)
 _KERNEL_DTYPES = ("float32", "bfloat16")
@@ -101,12 +109,25 @@ def fused_gemm_route(m: int, n: int, k: int, *, layer_norm: bool,
 
 def _replay(ctx, op_type: str, ins: dict, attrs: dict):
     """Run one original op rule (the dense route and the witness both go
-    through here). The port has no AMP policy yet, so the inputs reach
-    the rule as they are."""
+    through here), its inputs cast by the program's AMP policy exactly as
+    the interpreter casts the unfused op's."""
     opdef = registry.get_op_def(op_type)
     full = {k: v.default for k, v in opdef.attrs.items()}
     full.update(attrs)
+    amp = amp_policy_of(ctx)
+    if amp is not None:
+        ins = amp.cast_ins(op_type, ins)
     return opdef.lower(ctx, ins, full)
+
+
+def compute_dtype(ctx, base_type: str, dtype) -> torch.dtype:
+    """The type the chain's product runs in: the AMP policy's compute
+    type for a float32 operand of a white-list base op, else ``dtype``."""
+    amp = amp_policy_of(ctx)
+    if amp is not None and base_type in amp.white \
+            and dtype == torch.float32:
+        return torch_dtype(amp.compute_dtype)
+    return dtype
 
 
 def _base_attrs(attrs: dict) -> dict:
@@ -189,9 +210,12 @@ def _fused_gemm_epilogue(ctx, ins, attrs):
     x2, y2, out_shape = _gemm_2d_view(xv, yv, attrs)
     m, k = int(x2.shape[0]), int(x2.shape[1])
     n = int(y2.shape[1])
+    # the route is decided on the type the product runs in (under AMP a
+    # white-list base op's bf16), not on the scope's float32
+    comp = compute_dtype(ctx, attrs["base_type"], x2.dtype)
     route, _reason = fused_gemm_route(
         m, n, k, layer_norm=bool(attrs["layer_norm"]), blocks=blocks,
-        alpha=float(attrs.get("alpha", 1.0)), dtype=x2.dtype,
+        alpha=float(attrs.get("alpha", 1.0)), dtype=comp,
         on_cuda=x2.is_cuda)
     if route == "primitive":
         return {"Out": [_primitive_chain(ctx, xv, yv, bias, residual,
@@ -199,9 +223,12 @@ def _fused_gemm_epilogue(ctx, ins, attrs):
 
     from ..kernels.fused_gemm import fused_gemm
 
+    x2 = x2.to(comp)
+    y2 = y2.to(compute_dtype(ctx, attrs["base_type"], y2.dtype))
     res2 = residual.reshape(m, n) if residual is not None else None
-    # the unfused chain's output type: a GEMM output meeting epilogue
-    # params of a wider type promotes op by op, as the binary ops do
+    # the unfused chain's output type: a GEMM output (bf16 under AMP)
+    # meeting epilogue params of a wider type promotes op by op, as the
+    # binary ops do
     out_dt = x2.dtype
     for extra in (bias, res2, ln_scale, ln_bias):
         if extra is not None:

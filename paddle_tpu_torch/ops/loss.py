@@ -1,5 +1,5 @@
-"""Loss and reduction ops (counterpart of ``paddle_tpu/ops/loss.py``), the
-ones BERT pretraining runs."""
+"""Loss, reduction and metric ops (counterpart of
+``paddle_tpu/ops/loss.py``), the ones BERT pretraining and the MLP run."""
 from __future__ import annotations
 
 import torch
@@ -48,3 +48,21 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
             logp, torch.where(ignored, torch.zeros_like(lbl), lbl), dim=axis)
         loss = torch.where(ignored, torch.zeros_like(picked), -picked)
     return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_op("accuracy",
+             inputs=[IOSpec("Out", no_grad=True),
+                     IOSpec("Indices", no_grad=True),
+                     IOSpec("Label", no_grad=True)],
+             outputs=["Accuracy", "Correct", "Total"], grad=None)
+def _accuracy(ctx, ins, attrs):
+    """Share of rows whose label is among the top-k ``Indices``; Correct
+    and Total are int32 counts."""
+    idx, label = x(ins, "Indices"), x(ins, "Label")
+    lbl = label.reshape(-1, 1).to(idx.dtype)
+    correct = (idx == lbl).any(dim=1).float().sum()
+    rows = idx.shape[0]
+    return {"Accuracy": [(correct / rows).reshape((1,))],
+            "Correct": [correct.to(torch.int32).reshape((1,))],
+            "Total": [torch.full((1,), rows, dtype=torch.int32,
+                                 device=idx.device)]}

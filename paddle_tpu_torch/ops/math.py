@@ -1,6 +1,6 @@
-"""Elementwise, activation, scale, sum, cast and comparison ops
-(counterpart of ``paddle_tpu/ops/math.py``), the ones the GPT and BERT
-paths run."""
+"""Elementwise, activation, scale, sum, cast, comparison and logical ops
+(counterpart of ``paddle_tpu/ops/math.py``), the ones the GPT, BERT and
+MLP paths and the AMP decorator run."""
 from __future__ import annotations
 
 import torch
@@ -74,3 +74,8 @@ def _sum(ctx, ins, attrs):
 @register_op("not_equal", inputs=["X", "Y"], outputs=["Out"], grad=None)
 def _not_equal(ctx, ins, attrs):
     return out(torch.ne(x(ins, "X"), x(ins, "Y")))
+
+
+@register_op("logical_not", inputs=["X"], outputs=["Out"], grad=None)
+def _logical_not(ctx, ins, attrs):
+    return out(torch.logical_not(x(ins)))

@@ -1,10 +1,19 @@
 """Optimizer update ops (counterpart of
-``paddle_tpu/ops/optimizer_ops.py``): ``adam``, dense gradients."""
+``paddle_tpu/ops/optimizer_ops.py``): ``sgd`` and ``adam``, dense
+gradients."""
 from __future__ import annotations
 
 import torch
 
 from .common import register_op, x
+
+
+@register_op("sgd", inputs=["Param", "Grad", "LearningRate"],
+             outputs=["ParamOut"], grad=None)
+def _sgd(ctx, ins, attrs):
+    p = x(ins, "Param")
+    lr = x(ins, "LearningRate").reshape(()).to(p.dtype)
+    return {"ParamOut": [p - lr * x(ins, "Grad").to(p.dtype)]}
 
 
 @register_op("adam",

@@ -1,5 +1,6 @@
 """Tensor creation / manipulation ops (counterpart of
-``paddle_tpu/ops/tensor.py``), the ones the GPT and BERT paths run. Random ops
+``paddle_tpu/ops/tensor.py``), the ones the GPT, BERT and MLP paths and
+the initializers run. Random ops
 draw from the op's own ``torch.Generator`` (``LowerCtx.generator``)."""
 from __future__ import annotations
 
@@ -23,6 +24,43 @@ def _fill_constant(ctx, ins, attrs):
                           device=ctx.device))
 
 
+def _random_out(ctx, attrs):
+    """An empty float32 tensor of the op's shape, and the op's generator
+    (reseeded from a non-zero ``seed`` attr); the generator is None on
+    meta tensors, where nothing is drawn."""
+    res = torch.empty(tuple(int(s) for s in attrs["shape"]),
+                      dtype=torch.float32, device=ctx.device)
+    g = None if res.is_meta else ctx.generator()
+    if g is not None and attrs.get("seed"):
+        g.manual_seed(int(attrs["seed"]))
+    return res, g
+
+
+@register_op("uniform_random", outputs=["Out"],
+             attrs={"shape": [], "min": -1.0, "max": 1.0, "seed": 0,
+                    "dtype": "float32"},
+             needs_rng=True, grad=None)
+def _uniform_random(ctx, ins, attrs):
+    """U[min, max). The bits differ from jax.random.uniform; the
+    distribution is the same."""
+    res, g = _random_out(ctx, attrs)
+    if g is not None:
+        res.uniform_(attrs["min"], attrs["max"], generator=g)
+    return out(res.to(torch_dtype(attrs["dtype"])))
+
+
+@register_op("gaussian_random", outputs=["Out"],
+             attrs={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0,
+                    "dtype": "float32"},
+             needs_rng=True, grad=None)
+def _gaussian_random(ctx, ins, attrs):
+    """Normal(mean, std); bits differ from jax.random.normal."""
+    res, g = _random_out(ctx, attrs)
+    if g is not None:
+        res.normal_(attrs["mean"], attrs["std"], generator=g)
+    return out(res.to(torch_dtype(attrs["dtype"])))
+
+
 @register_op("truncated_gaussian_random", outputs=["Out"],
              attrs={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0,
                     "dtype": "float32"},
@@ -31,14 +69,10 @@ def _truncated_gaussian_random(ctx, ins, attrs):
     """Normal(mean, std) truncated to two standard deviations, by inverse
     CDF of a uniform draw restricted to [Phi(-2), Phi(2)]. The bits differ
     from jax.random.truncated_normal; the distribution is the same."""
-    shape = tuple(int(s) for s in attrs["shape"])
     dt = torch_dtype(attrs["dtype"])
-    res = torch.empty(shape, dtype=torch.float32, device=ctx.device)
-    if res.is_meta:
+    res, g = _random_out(ctx, attrs)
+    if g is None:
         return out(res.to(dt))
-    g = ctx.generator()
-    if attrs.get("seed"):
-        g.manual_seed(int(attrs["seed"]))
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     res.uniform_(lo, 1.0 - lo, generator=g)
     res = torch.erfinv(2.0 * res - 1.0) * math.sqrt(2.0)
@@ -146,6 +180,15 @@ def _lookup_table_grad(ctx, ins, attrs):
     dense = torch.zeros((height + 1, dim), dtype=w.dtype, device=w.device)
     dense.index_add_(0, flat, g.reshape(-1, dim).to(w.dtype))
     return {"W@GRAD": [dense[:height]]}
+
+
+@register_op("top_k", inputs=["X"], outputs=["Out", "Indices"],
+             attrs={"k": 1}, grad=None)
+def _top_k(ctx, ins, attrs):
+    """The k largest values along the last axis, largest first, and their
+    int64 indices."""
+    vals, idx = torch.topk(x(ins), int(attrs["k"]), dim=-1)
+    return {"Out": [vals], "Indices": [idx]}
 
 
 @register_op("lookup_table", inputs=[IOSpec("W"), IOSpec("Ids", no_grad=True)],

@@ -4,9 +4,11 @@ var and the per-parameter accumulators (persistable, initialised by
 ``fill_constant`` in the startup program) and appends one update op per
 parameter under the optimize role.
 
-Only Adam is ported, on the path ``minimize`` takes with no gradient clip
-and no regularization; the other optimizers, ``clip.py`` and
-``regularizer.py`` wait for a later slice.
+SGD and Adam are ported, on the path ``minimize`` takes with no gradient
+clip and no regularization; the other optimizers, ``clip.py`` and
+``regularizer.py`` wait for a later slice. ``apply_gradients`` appends to
+the program's current block, so a wrapper (the AMP skip-update) can run
+the whole update inside a sub-block.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from .framework import (Parameter, Variable, default_main_program,
                         default_startup_program, program_guard)
 from .layer_helper import LayerHelper
 
-__all__ = ["Optimizer", "AdamOptimizer", "Adam"]
+__all__ = ["Optimizer", "SGDOptimizer", "SGD", "AdamOptimizer", "Adam"]
 
 
 class Optimizer:
@@ -118,6 +120,20 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": p, "Grad": g,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, regularization=None, name=None,
@@ -153,4 +169,5 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+SGD = SGDOptimizer
 Adam = AdamOptimizer

@@ -23,6 +23,7 @@ from paddle_tpu.models.bert import build_bert_pretrain as j_build
 import paddle_tpu_torch as tfluid
 import paddle_tpu_torch.unique_name as tun
 from paddle_tpu_torch import kernels as K
+from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.interop import scope_from_numpy
 from paddle_tpu_torch.models.bert import BertConfig as TBertConfig
 from paddle_tpu_torch.models.bert import build_bert_pretrain as t_build
@@ -138,5 +139,11 @@ def test_dropout_training_is_deterministic_and_learns():
 
 
 def test_amp_is_refused():
-    with pytest.raises(NotImplementedError, match="AMP"):
-        t_build(TBertConfig.tiny(), seq_len=SEQ, amp=True)
+    """``amp=True`` was refused until the port had an AMP policy; it now
+    builds the decorated program (its checks: ``test_torch_amp.py``), and
+    what is refused is a compute type the port does not know."""
+    with tun.guard():
+        t = t_build(TBertConfig.tiny(), seq_len=SEQ, amp=True)
+    assert t["main"]._amp_policy.compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="unknown dtype"):
+        mixed_precision.decorate_program(t["main"], compute_dtype="fp8")

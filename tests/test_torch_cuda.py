@@ -6,6 +6,7 @@ installed:
 
 Without a CUDA device they skip: the kernels have no CPU mode."""
 import importlib
+import math
 
 import pytest
 import torch
@@ -22,6 +23,8 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products accumulate in f32 throughout, as the JAX package's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -491,3 +494,93 @@ def test_tensor_cores_run_the_bf16_routes_only(name):
                 seen.add(kernel)
                 assert (n > 0) == (kernel in bf16), (fn, n)
     assert seen == set(bf16 + f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,epilogue", [
+    (16384, 768, 768, "bias"), (16384, 768, 3072, "bias"),
+    (16384, 768, 768, "bias+gelu+layer_norm")],
+    ids=["qkv_out_proj", "ffn2", "mlm_transform"])
+def test_fused_gemm_bf16_at_the_amp_inference_shapes(m, n, k, epilogue):
+    """K5's bf16 route with a float32 output at the shapes AMP puts on the
+    BERT-base inference path (batch 32 x seq 512 rows; FFN1 has its own
+    cases above): x and y cast to bf16, float32 epilogue params."""
+    _check_gemm(m, n, k, epilogue, "bfloat16", "float32")
+
+
+@pytest.mark.cuda
+def test_bert_tiny_amp_step_on_the_card():
+    """``build_bert_pretrain(amp=True)`` trains on the card: per step K1
+    runs twice a layer (forward and the generic grad's rerun) and K3/K4
+    once, all on their float32 routes (attention takes float32 Q/K/V
+    under AMP); every cuBLAS product takes bf16 operands; parameters and
+    Adam moments stay float32; the plain run (FLAGS_use_flash_attention=
+    never) from the same weights gives the same first loss within rtol
+    1e-4 (the same bf16 products; attention differs only in float32
+    summation order) and the loss falls over three steps."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+
+    _cuda()
+    cfg = BertConfig.tiny()
+    net = build_bert_pretrain(cfg, seq_len=64, amp=True, lr=1e-3)
+    init = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=init)
+    g = torch.Generator().manual_seed(0)
+    feed = {"src_ids": torch.randint(0, cfg.vocab_size, (4, 64),
+                                     generator=g).numpy(),
+            "pos_ids": torch.arange(64).repeat(4, 1).numpy(),
+            "sent_ids": torch.zeros(4, 64, dtype=torch.long).numpy(),
+            "input_mask": torch.ones(4, 64).numpy(),
+            "mask_label": torch.randint(0, cfg.vocab_size, (4, 64),
+                                        generator=g).numpy(),
+            "next_sent_label": torch.ones(4, 1, dtype=torch.long).numpy()}
+
+    class Gemms(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in ("mm", "bmm", "addmm"):
+                self.seen.add(tuple(a.dtype for a in args
+                                    if isinstance(a, torch.Tensor)))
+            return func(*args, **(kwargs or {}))
+
+    def run(plain, steps):
+        scope = fluid.Scope()
+        for n, t in init.vars.items():
+            scope.set_var(n, t.clone())
+        exe = fluid.Executor()
+        prev = fluid.get_flags(["FLAGS_use_flash_attention"])
+        fluid.set_flags({"FLAGS_use_flash_attention":
+                         "never" if plain else "auto"})
+        try:
+            K.reset_launch_counts()
+            losses = [float(exe.run(net["main"], feed=feed,
+                                    fetch_list=[net["loss"]],
+                                    scope=scope)[0][0])
+                      for _ in range(steps)]
+        finally:
+            fluid.set_flags(prev)
+        return losses, K.launch_counts(), scope
+
+    gemms = Gemms()
+    with gemms:
+        losses, launches, scope = run(False, 1)
+    assert gemms.seen == {(torch.bfloat16, torch.bfloat16)}, gemms.seen
+    L = cfg.num_layers
+    assert launches["flash_attention_fwd"] == 2 * L
+    assert launches["flash_attention_dq"] == launches[
+        "flash_attention_dkv"] == L
+    assert launches["fused_gemm"] == launches["decode_attention"] == 0
+    for n, t in scope.vars.items():
+        if t.is_floating_point():
+            assert t.dtype == torch.float32, n
+    more, _, _ = run(False, 3)
+    assert more[2] < more[0] and all(map(math.isfinite, more))
+    plain, plain_launches, _ = run(True, 1)
+    assert set(plain_launches.values()) == {0}
+    assert abs(plain[0] - losses[0]) <= 1e-4 * abs(losses[0])

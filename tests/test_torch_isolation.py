@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor
-``paddle_tpu``, runs on the CPU only when asked to, and ``chip_smoke.py``
-refuses to report anything without a GPU."""
+``paddle_tpu`` (``contrib`` and the MLP model included), runs on the CPU
+only when asked to, and ``chip_smoke.py`` refuses to report anything
+without a GPU."""
 import ast
 import os
 import shutil
@@ -36,7 +37,12 @@ def _imported_roots(path):
 
 
 def test_no_jax_or_paddle_tpu_import_anywhere_in_the_port():
-    bad = [(os.path.relpath(p, REPO), m) for p in _port_sources()
+    sources = list(_port_sources())
+    scanned = {os.path.relpath(p, PORT) for p in sources}
+    assert {os.path.join("contrib", "mixed_precision", "decorator.py"),
+            os.path.join("contrib", "mixed_precision", "fp16_lists.py"),
+            os.path.join("models", "mlp.py")} <= scanned
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_roots(p) if m in ("jax", "jaxlib", "paddle_tpu")]
     assert not bad, bad
 
@@ -88,6 +94,28 @@ fused = exe.run(infer, feed={
     fetch_list=[bert["loss"]], scope=scope)[0]
 assert np.isfinite(fused).all()
 assert list(exe._fusion_decisions.values())[0].n_fused == 15
+from paddle_tpu_torch.contrib import mixed_precision
+fluid.set_flags({"FLAGS_epilogue_fusion": False})
+amp = build_bert_pretrain(BertConfig.tiny(), seq_len=16, amp=True)
+amp_scope = fluid.Scope()
+exe.run(amp["startup"], scope=amp_scope)
+feed = {"src_ids": ids, "pos_ids": ids, "sent_ids": ids * 0,
+        "input_mask": np.ones((2, 16), np.float32), "mask_label": ids,
+        "next_sent_label": np.ones((2, 1), np.int64)}
+loss = exe.run(amp["main"], feed=feed, fetch_list=[amp["loss"]],
+               scope=amp_scope)[0]
+assert np.isfinite(loss).all()
+fluid.set_flags({"FLAGS_epilogue_fusion": True})
+amp_infer = mixed_precision.decorate_program(amp["main"].clone(for_test=True))
+assert np.isfinite(exe.run(amp_infer, feed=feed, fetch_list=[amp["loss"]],
+                           scope=amp_scope)[0]).all()
+from paddle_tpu_torch.models.mlp import build_mnist_mlp
+mlp = build_mnist_mlp(hidden=(8,))
+exe.run(mlp["startup"], scope=scope)
+acc = exe.run(mlp["main"], feed={"img": np.ones((4, 784), np.float32),
+                                 "label": np.ones((4, 1), np.int64)},
+              fetch_list=[mlp["acc"]], scope=scope)[0]
+assert acc.shape == (1,)
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
 assert set(K.launch_counts().values()) == {0}
 print("ok")

@@ -1,5 +1,5 @@
-"""Every op type of the port's GPT serving and BERT training paths against
-the JAX package's rule, on the CPU. Each case is a single-op program built
+"""Every op type of the port's GPT serving, BERT training, MLP and AMP
+paths against the JAX package's rule, on the CPU. Each case is a single-op program built
 the same way in both packages (data vars, one ``append_op``) and run on
 the same numpy feeds; the outputs' build-time shapes must match too.
 Random ops are compared by distribution and by determinism, never by
@@ -146,6 +146,35 @@ CASES = {
          "SlotMask": {"m": np.array([[1.0], [1.0]], np.float32)}},
         {"Out": ["o"], "CacheKOut": ["ck"], "CacheVOut": ["cv"]},
         {"page_size": 8}, ["o", "ck", "cv"]),
+    # the MLP train step
+    "sgd": ({"Param": {"p": f32(4, 3)}, "Grad": {"g": f32(4, 3)},
+             "LearningRate": {"lr": np.float32([0.1])}},
+            {"ParamOut": ["po"]}, {}, ["po"]),
+    "top_k": ({"X": {"x": f32(5, 10)}}, {"Out": ["o"], "Indices": ["i"]},
+              {"k": 3}, ["o", "i"]),
+    "accuracy": ({"Out": {"o": f32(6, 2)},
+                  "Indices": {"i": np.array([[1, 4], [2, 0], [7, 3], [5, 5],
+                                             [9, 8], [0, 1]], np.int64)},
+                  "Label": {"lb": np.array([[4], [1], [7], [2], [8], [0]],
+                                           np.int64)}},
+                 {"Accuracy": ["a"], "Correct": ["c"], "Total": ["t"]}, {},
+                 ["a", "c", "t"]),
+    # AMP loss scaling
+    "logical_not": ({"X": {"x": np.array([True, False])}}, {"Out": ["o"]},
+                    {}, ["o"]),
+    "check_finite_and_unscale": (
+        {"X": {"g1": f32(3, 4) * 1024, "g2": f32(5) * 1024},
+         "Scale": {"s": np.float32([1024.0])}},
+        {"Out": ["g1", "g2"], "FoundInfinite": ["f"]}, {},
+        ["g1", "g2", "f"]),
+    "update_loss_scaling": (
+        {"FoundInfinite": {"f": np.array([False])},
+         "PrevLossScaling": {"s": np.float32([512.0])},
+         "InGoodSteps": {"gs": np.int32([2])},
+         "InBadSteps": {"bs": np.int32([1])}},
+        {"LossScaling": ["s"], "OutGoodSteps": ["gs"],
+         "OutBadSteps": ["bs"]},
+        {"incr_every_n_steps": 3}, ["s", "gs", "bs"]),
 }
 
 
@@ -183,16 +212,21 @@ def _run_both(op_type, case):
     return jmain, tmain, jout, tout
 
 
-RANDOM_OPS = {"truncated_gaussian_random", "dropout"}
+RANDOM_OPS = {"truncated_gaussian_random", "dropout", "uniform_random",
+              "gaussian_random"}
+# ops that run a sub-block: checked by the programs that build them
+# (conditional_block: the AMP skip-update, tests/test_torch_amp.py)
+BLOCK_OPS = {"conditional_block"}
 
 
 def test_every_path_op_has_a_case():
     """Every op type of the port but the random ones (checked by
-    distribution: here and in tests/test_torch_train.py) has a case."""
+    distribution: here, in tests/test_torch_train.py and
+    tests/test_torch_mlp.py) and the sub-block ones has a case."""
     from paddle_tpu_torch.core import registry
 
-    assert len(CASES) == 35 and not RANDOM_OPS & set(CASES)
-    assert set(CASES) | RANDOM_OPS == set(registry.all_ops())
+    assert len(CASES) == 41 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
+    assert set(CASES) | RANDOM_OPS | BLOCK_OPS == set(registry.all_ops())
 
 
 @pytest.mark.parametrize("op_type", sorted(CASES))
