@@ -337,7 +337,7 @@ def test_bert_tiny_amp_step_runs_every_product_in_bf16(amp_nets,
                                                        monkeypatch):
     """One AMP train step: every GEMM a mul/matmul or its generic grad
     issues takes bf16 operands; attention (the plain version on the CPU)
-    stays float32; parameters, gradients' targets and Adam moments stay
+    stays float32; parameters, their gradients and Adam moments stay
     float32."""
     _, t = amp_nets
     exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
@@ -359,6 +359,12 @@ def test_bert_tiny_amp_step_runs_every_product_in_bf16(amp_nets,
     for n, v in scope.vars.items():
         if v.is_floating_point():
             assert v.dtype == torch.float32, n
+    # the gradients reaching Adam are f32 too
+    params = [p.name for p in t["main"].all_parameters()]
+    grads = exe.run(t["main"], feed=_bert_feed(), scope=scope,
+                    fetch_list=[n + "@GRAD" for n in params],
+                    return_numpy=False)
+    assert {g.dtype for g in grads} == {torch.float32}
 
 
 def _record_attention_dtypes(monkeypatch, registry):
