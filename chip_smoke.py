@@ -76,7 +76,31 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    launches a forward, all on its bf16 CUDA functions, K1 12, the fused
    loss within ``AMP_INFER_TOL`` of the unfused; forward ms (median of 5)
    and peak memory.
-8. prints the script time of each phase and part (``[seconds]``), the
+8. train_resnet — the JAX package's headline metric: ResNet-50
+   ``build_resnet(50, amp=True)`` (bf16 convolutions and products under
+   the AMP policy, f32 master weights, Momentum at lr 0.1, mu 0.9), batch
+   128 at 224x224, random weights and images from ``--seed``, 5 steps.
+   Losses finite; the step-1 loss within ``RESNET_AMP_RTOL`` of one
+   float32 run of the same program, weights and feed; every parameter,
+   velocity and batch_norm running stat left f32, the running stats
+   moved; every cuDNN convolution kernel of a profiled step bf16 by name
+   (``CONV_MARKS``/``BF16_CONV_MARKS``); held memory flat; no kernel of
+   the port launched (training fuses nothing). Then the port on the card
+   against the port on the CPU: ResNet-18, float32, batch 8, one step
+   from the same weights, loss within rtol 1e-4 and every parameter and
+   running stat within atol 1e-4 / rtol 1e-3. Reports img/s (steps 2-5), peak memory,
+   the profiled step's idle share, top kernels, device ms by kernel
+   class (convolutions, GEMMs, casts, reductions, elementwise) and by op
+   (``op_ranges``: batch_norm, and the forward rules the generic grads
+   run again), and one step with ``FLAGS_conv_use_nhwc`` always and
+   never.
+9. infer_resnet — ResNet-50 bf16 inference (the is_test clone under
+   ``decorate_program``, batch 128): fused (the fc head on K5's bf16
+   route, one launch a forward), unfused and the dense replay (bit-exact
+   against unfused, no K5 launch); fused logits within ``AMP_INFER_TOL``
+   of unfused. Reports forward ms (median of 5), peak memory and idle
+   share of each run.
+10. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``. With ``--out-dir``, everything
    measured is also written to ``DIR/chip_smoke.json``.
@@ -195,6 +219,15 @@ def time_ms(fn, iters=20):
 
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def _device_total_us(evt) -> float:
+    """Device time of the kernels launched inside a host range."""
+    for name in ("device_time_total", "cuda_time_total"):
         v = getattr(evt, name, None)
         if v:
             return float(v)
@@ -501,7 +534,9 @@ GEMM_ROWS = (
     (16384, 768, 768, "bias", torch.bfloat16, torch.float32),
     (16384, 768, 3072, "bias", torch.bfloat16, torch.float32),
     (16384, 768, 768, "bias+gelu+layer_norm", torch.bfloat16,
-     torch.float32))
+     torch.float32),
+    # ResNet-50 bf16 inference: the fc head, batch 128
+    (128, 1000, 2048, "bias", torch.bfloat16, torch.float32))
 
 
 def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype):
@@ -529,13 +564,16 @@ def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype):
     ms = time_ms(lambda: K.fused_gemm(x, y, **args))
     plain = time_ms(lambda: K.fused_gemm_reference(x, y, **args))
     lib = time_ms(lambda: torch.addmm(bias.to(dtype), x, y))
+    dev = device_ms(lambda: K.fused_gemm(x, y, **args))
+    lib_dev = device_ms(lambda: torch.addmm(bias.to(dtype), x, y))
     elt = x.element_size()
     nbytes = ((m * k + k * n) * elt + m * n * got.element_size()
               + n * 4 * (3 if ln else 1))
     b_ms, b_by = bound(2 * m * n * k, nbytes, dtype)
     return dict(shape=[m, n, k], dtype=dts, out_dtype=odts,
                 epilogue=epilogue, max_abs_err=err, ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by, device_ms=dev,
+                library_device_ms=lib_dev)
 
 
 def phase_kernels(seed):
@@ -826,6 +864,61 @@ GEMM_MARKS = ("gemm", "nvjet", "xmma", "splitKreduce")
 BF16_GEMM_MARKS = ("bf16", "bfloat16", "nvjet_tst")
 
 
+# cuDNN's convolution kernels (not its workspace helpers), and the marks
+# of its bf16 ones, by the names torch.profiler reports on the H100
+# (sm90_xmma_{fprop,dgrad,wgrad}_* with bf16 operands, and cutlass
+# ImplicitGemmConvolution kernels templated on __nv_bfloat16)
+CONV_MARKS = ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm",
+              "implicit_convolve")
+BF16_CONV_MARKS = ("bf16", "bfloat16")
+# host ranges that ``op_ranges`` opens: each op, and inside a generic grad
+# op the rerun of the forward rule
+RANGE_PREFIXES = ("op::", "rerun::")
+
+
+@contextlib.contextmanager
+def op_ranges():
+    """Open a ``torch.profiler`` range ``op::<type>`` around every op the
+    executor runs and ``rerun::<type>`` around the forward rule a generic
+    ``<type>_grad`` op runs again, so a profile attributes device time to
+    them (``profile_run``'s ``ranges``)."""
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch import executor as ex
+    from paddle_tpu_torch.core import registry
+
+    real_lower_op = ex.lower_op
+    current = [""]
+
+    def lower_op(op, env, ctx):
+        current[0] = op.type
+        with record_function("op::" + op.type):
+            real_lower_op(op, env, ctx)
+
+    def wrap(opdef, real):
+        def lower(ctx, ins, attrs):
+            if not current[0].endswith("_grad"):
+                return real(ctx, ins, attrs)
+            with record_function("rerun::" + opdef.type):
+                return real(ctx, ins, attrs)
+        return lower
+
+    saved = {t: d.lower for t, d in registry._OP_REGISTRY.items()
+             if d.lower is not None and not d.raw}
+    ex.lower_op = lower_op
+    for t, real in saved.items():
+        registry._OP_REGISTRY[t].lower = wrap(registry._OP_REGISTRY[t], real)
+    try:
+        # autograd runs CUDA backward on a thread of its own; keep it on
+        # the calling thread so the grad ops' ranges hold their kernels
+        with torch.autograd.set_multithreading_enabled(False):
+            yield
+    finally:
+        ex.lower_op = real_lower_op
+        for t, real in saved.items():
+            registry._OP_REGISTRY[t].lower = real
+
+
 def _port_kernel(name):
     return any(m in name for marks in PORT_KERNELS.values() for m in marks)
 
@@ -843,7 +936,8 @@ def profile_run(fn):
         wall = time.perf_counter() - t0
     rows = sorted(((_device_us(e), e.key, e.count)
                    for e in prof.key_averages()
-                   if e.device_type.name == "CUDA" and _device_us(e) > 0),
+                   if e.device_type.name == "CUDA" and _device_us(e) > 0
+                   and not e.key.startswith(RANGE_PREFIXES)),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     port, functions = {}, {}
@@ -859,11 +953,17 @@ def profile_run(fn):
               "bf16": any(m in k for m in BF16_GEMM_MARKS)}
              for us, k, n in rows
              if any(m in k for m in GEMM_MARKS) and not _port_kernel(k)]
+    ranges = {e.key: {"ms": _device_total_us(e) / 1e3, "calls": e.count}
+              for e in prof.key_averages()
+              if e.device_type.name == "CPU"
+              and e.key.startswith(RANGE_PREFIXES)}
     return dict(wall_s=wall, device_busy_s=busy,
-                idle_share=1.0 - busy / wall,
+                idle_share=1.0 - busy / wall, ranges=ranges,
                 device_kernels=sum(r[2] for r in rows),
                 top_kernels=[{"name": k[:90], "ms": us / 1e3, "calls": n}
                              for us, k, n in rows[:12]],
+                all_kernels=[{"name": k, "ms": us / 1e3, "calls": n}
+                             for us, k, n in rows],
                 port_kernels=port, port_functions=functions, gemms=gemms)
 
 
@@ -1283,6 +1383,394 @@ def check_infer_amp(fused, unfused, tokens):
                 k5_functions=funcs)
 
 
+# ---------------------------------------------------------------- train_resnet
+# the JAX package's headline: ResNet-50 ImageNet training in bf16 through
+# the AMP policy (bench.py bench_resnet_train: batch 128, 224x224,
+# Momentum lr 0.1, mu 0.9)
+RESNET_BATCH, RESNET_STEPS, RESNET_HW = 128, 5, 224
+# the bf16 step-1 loss against one float32 run of the same program,
+# weights and feed: about 50 bf16 convolutions deep, each output rounded
+# to 2**-8
+RESNET_AMP_RTOL = 2e-2
+# the port on the card against the port on the CPU: ResNet-18, float32,
+# batch 8, one Momentum step (cuDNN and oneDNN sum in different orders)
+RESNET_CPU_BATCH = 8
+RESNET_CPU_LOSS_RTOL = 1e-4
+RESNET_CPU_STATE_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+def image_feed(seed, batch, classes, hw=RESNET_HW):
+    rng = np.random.RandomState(seed)
+    return {"img": rng.randn(batch, 3, hw, hw).astype(np.float32),
+            "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
+
+
+def conv_class(name):
+    """'conv bf16', 'conv f32' or None for a device kernel's name."""
+    low = name.lower()
+    if not any(m in low for m in CONV_MARKS) or _port_kernel(name) \
+            or "workspace" in low:
+        return None
+    return "conv bf16" if any(m in low for m in BF16_CONV_MARKS) \
+        else "conv f32"
+
+
+def kernel_class(name):
+    """A device kernel's class by its name: one of the port's kernels, a
+    cuDNN convolution or a cuBLAS GEMM (bf16 or f32), a cast to bf16, a
+    copy or cast to f32 (contiguous layouts too), a reduction, another
+    elementwise kernel of PyTorch's, or other."""
+    for kernel, marks in PORT_KERNELS.items():
+        if any(m in name for m in marks):
+            return kernel
+    conv = conv_class(name)
+    if conv:
+        return conv
+    if any(m in name for m in GEMM_MARKS) and "workspace" not in name:
+        bf16 = any(m in name for m in BF16_GEMM_MARKS)
+        return "gemm " + ("bf16" if bf16 else "f32")
+    if "bfloat16_copy" in name:
+        return "cast to bf16"
+    if "direct_copy" in name:
+        return "copy or cast to f32"
+    if "reduce_kernel" in name:
+        return "reduction"
+    if "at::native" in name:
+        return "elementwise"
+    return "other"
+
+
+def resnet_steps(net, init, feed, steps):
+    """``steps`` train steps of ``net`` from ``init`` on a fresh executor
+    and scope; returns the losses, the host time of steps 2..N, the
+    device memory held after each step and the peak."""
+    exe, scope = fluid.Executor(), fluid.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, held, t_first = [], [], None
+    t0 = time.perf_counter()
+    for step in range(steps):
+        losses.append(float(np.ravel(exe.run(
+            net["main"], feed=feed, fetch_list=[net["loss"]],
+            scope=scope)[0])[0]))
+        held.append(torch.cuda.memory_allocated())
+        if step == 0:
+            t_first = time.perf_counter()
+    wall = time.perf_counter() - t_first
+    return dict(losses=losses, wall_s=wall, first_step_s=t_first - t0,
+                held_bytes=held, peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=K.launch_counts(), exe=exe, scope=scope)
+
+
+def resnet_card_against_cpu(seed):
+    """The port itself on the card against the port on the CPU: ResNet-18
+    in float32 (TF32 off), batch 8 at 224x224, one Momentum step from the
+    same weights: the loss, and every parameter and running stat
+    elementwise. Returns the largest differences."""
+    from paddle_tpu_torch.models.resnet import build_resnet
+
+    net = build_resnet(18)
+    net["startup"].random_seed = seed
+    cpu = fluid.Executor(fluid.CPUPlace())
+    scope0 = fluid.Scope()
+    cpu.run(net["startup"], scope=scope0)
+    feed = image_feed(seed + 3, RESNET_CPU_BATCH, 1000)
+    out = {}
+    for tag, exe in (("cpu", cpu), ("cuda", fluid.Executor())):
+        scope = fluid.Scope()
+        for n, t in scope0.vars.items():
+            scope.set_var(n, t.clone())
+        loss = exe.run(net["main"], feed=feed, fetch_list=[net["loss"]],
+                       scope=scope)[0]
+        out[tag] = (float(np.ravel(loss)[0]),
+                    {n: scope.numpy(n) for n in scope0.vars})
+    (lc, sc), (lg, sg) = out["cpu"], out["cuda"]
+    rel = abs(lg - lc) / abs(lc)
+    worst, worst_v, bad = ("", 0.0), ("", 0.0), []
+    for n, ref in sc.items():
+        err = float(np.abs(sg[n] - ref).max())
+        if n.startswith("velocity_"):
+            # a velocity is the step's raw gradient: reported, not held.
+            # Behind a batch_norm a conv weight's gradient is what is left
+            # of much larger terms that cancel, so at random weights some
+            # float32 gradients keep only a few digits on either device;
+            # the parameters they moved are held
+            rel_v = err / max(float(np.abs(ref).max()), 1e-30)
+            if rel_v > worst_v[1]:
+                worst_v = (n, rel_v)
+            continue
+        if err > worst[1]:
+            worst = (n, err)
+        if not np.allclose(sg[n], ref, **RESNET_CPU_STATE_TOL):
+            bad.append(n)
+    log(f"  card against CPU (ResNet-18 f32, batch {RESNET_CPU_BATCH}, one "
+        f"Momentum step): loss {lg:.6f} vs {lc:.6f} (rel {rel:.3e}, "
+        f"tolerance {RESNET_CPU_LOSS_RTOL}); {len(sc)} state vars: "
+        f"parameters and running stats largest abs diff {worst[1]:.3e} "
+        f"({worst[0]}), tolerance {RESNET_CPU_STATE_TOL}, outside: "
+        f"{bad or 'none'}; velocities (not held) largest diff "
+        f"{worst_v[1]:.3e} of their largest element ({worst_v[0]})")
+    if not rel <= RESNET_CPU_LOSS_RTOL or bad:
+        raise SystemExit("chip_smoke: ResNet-18 on the card and on the CPU "
+                         f"disagree: loss rel {rel:.3e}, state {bad}")
+    return dict(loss_cuda=lg, loss_cpu=lc, loss_rel_diff=rel,
+                state_vars=len(sc), max_abs_diff=worst[1],
+                max_abs_diff_var=worst[0], velocity_max_rel=worst_v[1],
+                velocity_max_rel_var=worst_v[0])
+
+
+def resnet_breakdown(prof):
+    """Device ms of the profiled step by kernel class, and by op range:
+    the convolutions, batch_norm and their grads, the updates, and the
+    forward rules the generic grads run again."""
+    by_class = {}
+    for r in prof["all_kernels"]:
+        c = kernel_class(r["name"])
+        by_class[c] = by_class.get(c, 0.0) + r["ms"]
+    ranges = prof["ranges"]
+
+    def ms(*keys):
+        return sum(ranges.get(k, {"ms": 0.0})["ms"] for k in keys)
+
+    return dict(by_class=by_class,
+                ops_ms={"conv2d": ms("op::conv2d"),
+                        "conv2d_grad": ms("op::conv2d_grad"),
+                        "batch_norm": ms("op::batch_norm"),
+                        "batch_norm_grad": ms("op::batch_norm_grad"),
+                        "momentum": ms("op::momentum")},
+                rerun_ms={k[len("rerun::"):]: v["ms"]
+                          for k, v in ranges.items()
+                          if k.startswith("rerun::")})
+
+
+def phase_train_resnet(seed):
+    from paddle_tpu_torch.models.resnet import build_resnet
+
+    net = build_resnet(50, amp=True)
+    net["startup"].random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    del scope0
+    feed = image_feed(seed + 4, RESNET_BATCH, 1000)
+    kern = resnet_steps(net, init, feed, RESNET_STEPS)
+    exe, scope = kern.pop("exe"), kern.pop("scope")
+    with op_ranges():
+        prof = profile_run(lambda: exe.run(net["main"], feed=feed,
+                                           fetch_list=[net["loss"]],
+                                           scope=scope))
+    state = {n: t for n, t in scope.vars.items() if t.is_floating_point()}
+    not_f32 = {n: str(t.dtype) for n, t in state.items()
+               if t.dtype != torch.float32}
+    running = [n for n in init if n.startswith("batch_norm")
+               and n.endswith(("w_1", "w_2"))]
+    unchanged = [n for n in running if torch.equal(state[n], init[n])]
+    n_velocity = sum(n.startswith("velocity_") for n in state)
+    losses = np.array(kern["losses"])
+    img_s = (RESNET_STEPS - 1) * RESNET_BATCH / kern["wall_s"]
+    held = kern["held_bytes"]
+    growth = max(held[1:]) - min(held[1:])
+    convs = [dict(r, bf16=conv_class(r["name"]) == "conv bf16")
+             for r in prof["all_kernels"] if conv_class(r["name"])]
+    brk = resnet_breakdown(prof)
+    log(f"[train_resnet] ResNet-50 amp=True, batch {RESNET_BATCH}, "
+        f"{RESNET_HW}x{RESNET_HW}, Momentum lr 0.1 mu 0.9, {RESNET_STEPS} "
+        f"steps: loss {' '.join(f'{x:.5f}' for x in losses)}")
+    log(f"  {img_s:.1f} img/s (steps 2-{RESNET_STEPS}; step 1 "
+        f"{kern['first_step_s']:.3f} s), peak "
+        f"{kern['peak_bytes'] / 2**30:.2f} GiB, held between steps "
+        f"{min(held[1:]) / 2**30:.3f} GiB, growth {growth / 2**20:.1f} MiB; "
+        f"launches {kern['launches']}")
+    log(f"  profiled step: wall {prof['wall_s'] * 1e3:.1f} ms, device busy "
+        f"{prof['device_busy_s'] * 1e3:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['device_kernels']} device kernels")
+    log("  device ms by kernel class: " + ", ".join(
+        f"{c} {v:.2f}" for c, v in sorted(brk["by_class"].items(),
+                                          key=lambda kv: -kv[1])))
+    log("  device ms by op (backward on the calling thread): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in brk["ops_ms"].items())
+        + "; forward rules rerun inside generic grads: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(brk["rerun_ms"].items(),
+                                              key=lambda kv: -kv[1])[:6]))
+    for r in prof["top_kernels"][:8]:
+        log(f"    {r['ms']:8.3f} ms {r['calls']:5d} calls  {r['name']}")
+    for r in convs:
+        log(f"    conv {'bf16' if r['bf16'] else 'NOT bf16'} {r['ms']:8.3f} "
+            f"ms {r['calls']:4d} calls  {r['name'][:120]}")
+    log(f"  state: {len(not_f32)} float vars not f32 {not_f32 or ''}; "
+        f"{n_velocity} velocities; {len(running) - len(unchanged)} of "
+        f"{len(running)} running stats moved")
+    if not np.isfinite(losses).all():
+        raise SystemExit("chip_smoke: non-finite ResNet-50 training loss")
+    if not_f32 or unchanged or not running:
+        raise SystemExit(f"chip_smoke: ResNet-50 state: not f32 {not_f32}, "
+                         f"running stats unchanged {unchanged}")
+    if not convs or not all(r["bf16"] for r in convs):
+        raise SystemExit("chip_smoke: a convolution of the ResNet-50 AMP "
+                         "step is not bf16: " + ", ".join(
+                             r["name"] for r in convs if not r["bf16"]))
+    if growth > 16 * 2**20:
+        raise SystemExit(f"chip_smoke: device memory grew by "
+                         f"{growth / 2**20:.1f} MiB across ResNet-50 steps")
+    if any(kern["launches"].values()):
+        raise SystemExit(f"chip_smoke: ResNet-50 training launched the "
+                         f"port's kernels: {kern['launches']}")
+
+    # conv_use_nhwc: one more step each way on the same state
+    layout = {}
+    for mode in ("always", "never"):
+        fluid.set_flags({"FLAGS_conv_use_nhwc": mode})
+        try:
+            exe.run(net["main"], feed=feed, fetch_list=[net["loss"]],
+                    scope=scope)
+            p = profile_run(lambda: exe.run(
+                net["main"], feed=feed, fetch_list=[net["loss"]],
+                scope=scope))
+        finally:
+            fluid.set_flags({"FLAGS_conv_use_nhwc": "auto"})
+        conv_ms = sum(r["ms"] for r in p["all_kernels"]
+                      if conv_class(r["name"]))
+        layout[mode] = dict(wall_ms=p["wall_s"] * 1e3,
+                            device_busy_ms=p["device_busy_s"] * 1e3,
+                            idle_share=p["idle_share"], conv_ms=conv_ms)
+        log(f"  FLAGS_conv_use_nhwc={mode}: step wall "
+            f"{layout[mode]['wall_ms']:.1f} ms, device busy "
+            f"{layout[mode]['device_busy_ms']:.1f} ms, convolutions "
+            f"{conv_ms:.2f} ms")
+    del exe, scope, state
+    torch.cuda.empty_cache()
+
+    # one float32 run of the same program, weights and feed
+    policy, net["main"]._amp_policy = net["main"]._amp_policy, None
+    try:
+        f32 = resnet_steps(net, init, feed, 1)
+    finally:
+        net["main"]._amp_policy = policy
+    f32.pop("exe"), f32.pop("scope")
+    del init
+    torch.cuda.empty_cache()
+    rel = abs(losses[0] - f32["losses"][0]) / abs(f32["losses"][0])
+    log(f"  float32 run of the same program: step-1 loss "
+        f"{f32['losses'][0]:.5f} against bf16 {losses[0]:.5f} (rel "
+        f"{rel:.3e}, tolerance {RESNET_AMP_RTOL}), peak "
+        f"{f32['peak_bytes'] / 2**30:.2f} GiB")
+    if not rel <= RESNET_AMP_RTOL:
+        raise SystemExit(f"chip_smoke: ResNet-50 bf16 step-1 loss {losses[0]}"
+                         f" is {rel:.3e} from the float32 run's "
+                         f"{f32['losses'][0]} (tolerance {RESNET_AMP_RTOL})")
+    cpu_check = resnet_card_against_cpu(seed)
+    return dict(
+        config="build_resnet(50, amp=True)", batch=RESNET_BATCH,
+        image=RESNET_HW, steps=RESNET_STEPS, losses=losses.tolist(),
+        f32_step1_loss=f32["losses"][0], step1_rel_diff=rel, img_per_s=img_s,
+        first_step_s=kern["first_step_s"],
+        peak_gib=kern["peak_bytes"] / 2**30,
+        f32_peak_gib=f32["peak_bytes"] / 2**30,
+        held_gib=[b / 2**30 for b in held], launches=kern["launches"],
+        profiled_step=prof, breakdown=brk, conv_kernels=convs,
+        layout=layout, card_against_cpu=cpu_check)
+
+
+# ---------------------------------------------------------------- infer_resnet
+RESNET_INFER_LAUNCHES = {"fused_gemm": 1}
+
+
+def phase_infer_resnet(seed):
+    """ResNet-50 bf16 inference (``bench.py`` bench_resnet_infer: batch
+    128, the is_test clone under ``decorate_program``): fused (the fc
+    head on K5's bf16 route), unfused and the dense replay."""
+    from paddle_tpu_torch.models.resnet import build_resnet
+
+    net = build_resnet(50, build_optimizer=False)
+    net["startup"].random_seed = seed
+    prog = mixed_precision.decorate_program(net["main"].clone(for_test=True))
+    fetch = [net["loss"].name, net["logits"].name]
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    feed = image_feed(seed + 5, RESNET_BATCH, 1000)
+    runs = {"fused": infer_run("resnet_fused", prog, fetch, init, feed,
+                               fused=True),
+            "unfused": infer_run("resnet_unfused", prog, fetch, init, feed,
+                                 fused=False),
+            "dense": infer_run("resnet_dense", prog, fetch, init, feed,
+                               fused=True, kernel="never", forwards=1,
+                               profiled=False)}
+    fused, unfused, dense = runs["fused"], runs["unfused"], runs["dense"]
+    dec = fused["decision"]
+    lf, lu = fused["enc"].float(), unfused["enc"].float()
+    logit_err = float((lf - lu).abs().max())
+    # random weights with the initial running stats (mean 0, var 1): the
+    # is_test forward does not normalize, and the logits grow large
+    logit_max = float(lu.abs().max())
+    rtol, atol = AMP_INFER_TOL
+    close = bool(torch.allclose(lf, lu, rtol=rtol, atol=atol))
+    exact = (torch.equal(dense["loss"], unfused["loss"])
+             and torch.equal(dense["enc"], unfused["enc"]))
+    funcs = {k: v for k, v in fused["profiled"]["port_functions"].items()
+             if v["kernel"] == "fused_gemm"}
+    log(f"[infer_resnet] ResNet-50 decorate_program (bf16), batch "
+        f"{RESNET_BATCH}: fusion {dec.reason if dec else 'not run'}; logits "
+        f"fused vs unfused max abs err {logit_err:.3e} (largest |logit| "
+        f"{logit_max:.3e}; tolerance {AMP_INFER_TOL}); dense replay "
+        f"bit-exact={exact}; K5 functions {funcs}")
+    for tag, r in runs.items():
+        p = r["profiled"]
+        log(f"  {tag}: forward {r['forward_ms']:.2f} ms median of "
+            f"{len(r['forward_ms_all'])} "
+            f"({RESNET_BATCH / r['forward_ms'] * 1e3:.0f} img/s; warm-up "
+            f"{r['warmup_s']:.2f} s), peak {r['peak_bytes'] / 2**30:.2f} GiB "
+            f"({r['base_bytes'] / 2**30:.2f} GiB resident), launches a "
+            f"forward {r['launches']}" + (
+                f", profiled: wall {p['wall_s'] * 1e3:.1f} ms, busy "
+                f"{p['device_busy_s'] * 1e3:.1f} ms, idle share "
+                f"{p['idle_share']:.3f}" if p else ""))
+        for k in (p["top_kernels"][:5] if p else []):
+            log(f"    {k['ms']:8.3f} ms {k['calls']:5d} calls  {k['name']}")
+    if dec is None or not dec.applied or dec.n_fused != 1:
+        raise SystemExit(f"chip_smoke: the ResNet-50 fc head was not fused: "
+                         f"{dec.to_dict() if dec else None}")
+    for name in K.KERNEL_SOURCES:
+        for tag, r in runs.items():
+            want = RESNET_INFER_LAUNCHES.get(name, 0) if tag == "fused" \
+                else 0
+            if r["launches"][name] != want:
+                raise SystemExit(f"chip_smoke: {name} launched "
+                                 f"{r['launches'][name]} times a forward in "
+                                 f"the {tag} ResNet-50 run, expected {want}")
+    if sum(v["calls"] for v in funcs.values()) != 1 or not all(
+            "bf16" in k for k in funcs):
+        raise SystemExit(f"chip_smoke: K5 did not run once on its bf16 "
+                         f"route in the ResNet-50 forward: {funcs}")
+    if not close or not torch.isfinite(lf).all():
+        raise SystemExit(f"chip_smoke: fused and unfused ResNet-50 logits "
+                         f"disagree beyond {AMP_INFER_TOL}: {logit_err}")
+    if not exact:
+        raise SystemExit("chip_smoke: the ResNet-50 dense replay is not "
+                         "bit-exact against the unfused program")
+
+    def summary(r):
+        return dict(forward_ms=r["forward_ms"],
+                    forward_ms_all=r["forward_ms_all"],
+                    warmup_s=r["warmup_s"],
+                    img_per_s=RESNET_BATCH / r["forward_ms"] * 1e3,
+                    peak_gib=r["peak_bytes"] / 2**30,
+                    resident_gib=r["base_bytes"] / 2**30,
+                    launches_per_forward=r["launches"],
+                    profiled=r["profiled"])
+
+    return dict(config="build_resnet(50) is_test, decorate_program",
+                batch=RESNET_BATCH, logits_max_abs_err=logit_err,
+                logits_max_abs=logit_max,
+                dense_bit_exact=exact, decision=dec.to_dict(),
+                k5_functions=funcs,
+                runs={t: summary(r) for t, r in runs.items()},
+                launches=fused["launches_total"])
+
+
 # ---------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1308,11 +1796,20 @@ def main():
     torch.cuda.empty_cache()
     with timed("infer"):
         inferred = phase_infer(args.seed)
+    torch.cuda.empty_cache()
+    with timed("train_resnet"):
+        trained_resnet = phase_train_resnet(args.seed)
+    torch.cuda.empty_cache()
+    with timed("infer_resnet"):
+        inferred_resnet = phase_infer_resnet(args.seed)
     # launches on the main paths: serving (K1, K2), training in f32 and
-    # in bf16 (K1, K3, K4) and inference in f32 and bf16 (K1, K5), each
-    # counted from 0 over its own run
+    # in bf16 (K1, K3, K4), inference in f32 and bf16 (K1, K5) and
+    # ResNet-50 bf16 training (none) and inference (K5), each counted
+    # from 0 over its own run
     launches = {n: run["launches"][n] + trained["launches"][n]
                 + trained_amp["launches"][n] + inferred["launches"][n]
+                + trained_resnet["launches"][n]
+                + inferred_resnet["launches"][n]
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
     report = {"card": card, "kernels": kres, "dropout_masks": masks,
@@ -1323,7 +1820,8 @@ def main():
                   "accounting": dict(run["accounting"]),
                   "stats": run["stats"], "whole_path": whole},
               "train": trained, "train_amp": trained_amp,
-              "infer": inferred, "launches": launches}
+              "infer": inferred, "train_resnet": trained_resnet,
+              "infer_resnet": inferred_resnet, "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

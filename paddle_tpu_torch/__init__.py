@@ -14,11 +14,14 @@ the generic ``<type>_grad``, Adam) and inference with GEMM-epilogue fusion
 chains into ``fused_gemm_epilogue``, the fused-GEMM kernel K5 on the
 card), bf16 mixed precision (``contrib.mixed_precision``: ``decorate``
 for training, ``decorate_program`` for inference) and the MLP train step
-(``models.mlp.build_mnist_mlp``, SGD). ``Executor()`` runs on ``CUDAPlace(0)``; pass ``CPUPlace()`` for
-the CPU.
+(``models.mlp.build_mnist_mlp``, SGD), and ResNet training and inference
+(``models.resnet.build_resnet``: conv2d, batch_norm, pool2d, Momentum,
+weight decay through ``regularizer``). ``Executor()`` runs on
+``CUDAPlace(0)``; pass ``CPUPlace()`` for the CPU.
 """
 from . import ops  # noqa: F401  (registers the op rules)
-from . import contrib, layers, optimizer, unique_name  # noqa: F401
+from . import (contrib, layers, optimizer, regularizer,  # noqa: F401
+               unique_name)
 from .backward import append_backward
 from .executor import CPUPlace, CUDAPlace, Executor, Scope, global_scope
 from .flags import flag, get_flags, set_flags
@@ -28,7 +31,7 @@ from .initializer import Constant, Normal, TruncatedNormal, Uniform, Xavier
 from .param_attr import ParamAttr
 
 __all__ = ["CPUPlace", "CUDAPlace", "Executor", "Scope", "global_scope",
-           "append_backward", "optimizer",
+           "append_backward", "optimizer", "regularizer",
            "flag", "get_flags", "set_flags", "Program", "default_main_program",
            "default_startup_program", "program_guard", "Constant",
            "Normal", "TruncatedNormal", "Uniform", "Xavier", "ParamAttr",

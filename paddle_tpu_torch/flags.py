@@ -41,11 +41,17 @@ _DEFS: Dict[str, tuple] = {
                           "fused_gemm_epilogue block sizes as 'm,n,k'; "
                           "empty means the port's compiled default "
                           "(kernels.fused_gemm.DEFAULT_BLOCKS)"),
+    "conv_use_nhwc": (str, "auto",
+                      "memory format of conv and pool inputs (shapes stay "
+                      "logical NCHW): auto (torch.channels_last on a CUDA "
+                      "tensor, contiguous NCHW on a CPU tensor), always "
+                      "(channels_last), never (contiguous NCHW)"),
 }
 
 # flags that take one of a few words
 _CHOICES: Dict[str, tuple] = {"use_flash_attention": ("auto", "never"),
-                              "use_fused_gemm": ("auto", "always", "never")}
+                              "use_fused_gemm": ("auto", "always", "never"),
+                              "conv_use_nhwc": ("auto", "always", "never")}
 
 _overrides: Dict[str, Any] = {}
 

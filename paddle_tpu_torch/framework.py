@@ -117,6 +117,10 @@ class Parameter(Variable):
         d["is_parameter"] = True
         d["trainable"] = self.trainable
         d["optimize_attr"] = self.optimize_attr
+        if self.regularizer is not None:
+            d["regularizer"] = {
+                "type": type(self.regularizer).__name__,
+                "coeff": getattr(self.regularizer, "_coeff", 0.0)}
         return d
 
 
@@ -368,6 +372,8 @@ class Program:
                 for op in blk.ops:
                     if "is_test" in op.attrs:
                         op.set_attr("is_test", True)
+                    if op.type == "batch_norm":
+                        op.set_attr("use_global_stats", True)
         return p
 
     def to_dict(self) -> dict:
@@ -390,11 +396,17 @@ class Program:
         for b, bd in zip(p.blocks, d["blocks"]):
             for vd in bd["vars"]:
                 if vd.get("is_parameter"):
+                    reg = vd.get("regularizer")
+                    if reg:
+                        from . import regularizer as reg_mod
+
+                        reg = getattr(reg_mod, reg["type"])(reg["coeff"])
                     param = Parameter(
                         b, vd["name"], vd["shape"], vd["dtype"],
                         trainable=vd.get("trainable", True),
                         optimize_attr=vd.get("optimize_attr",
-                                             {"learning_rate": 1.0}))
+                                             {"learning_rate": 1.0}),
+                        regularizer=reg or None)
                     param.stop_gradient = vd.get("stop_gradient", False)
                     b.vars[vd["name"]] = param
                 else:

@@ -1,4 +1,4 @@
-"""fluid.layers of the PyTorch port: the functions the GPT and BERT
+"""fluid.layers of the PyTorch port: the functions the port's model
 builders call."""
 from .io import data  # noqa: F401
 from .nn import *  # noqa: F401,F403

@@ -1,6 +1,5 @@
 """Layer-building functions (reference: python/paddle/fluid/layers/nn.py),
-the subset ``models/gpt.py`` and ``models/bert.py`` call. Each follows
-the reference pattern:
+the subset the port's models call. Each follows the reference pattern:
 LayerHelper -> create params -> append op(s) -> return the out Variable.
 """
 from __future__ import annotations
@@ -8,10 +7,11 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.types import canonical_dtype
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
-__all__ = ["fc", "embedding", "layer_norm", "gelu", "relu", "increment",
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "gelu", "relu", "increment",
            "matmul",
            "fused_multihead_attention", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_min",
@@ -52,6 +52,96 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                             "is_distributed": is_distributed,
                             "padding_idx": pad})
     return out
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """2-D convolution over NCHW ``input`` with OIHW filters drawn from
+    Normal(0, sqrt(2 / (kh * kw * C))); a per-channel bias unless
+    ``bias_attr=False``."""
+    helper = LayerHelper("conv2d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    num_channels = input.shape[1]
+    filter_size = _pair(filter_size)
+    stride, padding, dilation = _pair(stride), _pair(padding), _pair(dilation)
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=input.dtype,
+                                default_initializer=Normal(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d", inputs={"Input": input, "Filter": w},
+                     outputs={"Output": pre_bias},
+                     attrs={"strides": list(stride), "paddings": list(padding),
+                            "dilations": list(dilation), "groups": groups,
+                            "use_cudnn": use_cudnn, "data_format": data_format})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool2d", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": list(_pair(pool_size)),
+                            "strides": list(_pair(pool_stride)),
+                            "paddings": list(_pair(pool_padding)),
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode, "exclusive": exclusive,
+                            "use_cudnn": use_cudnn})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False):
+    """Batch normalization: trainable ``Scale`` (1) and ``Bias`` (0),
+    and the running ``Mean`` (0) and ``Variance`` (1) as non-trainable
+    parameters that the op's ``MeanOut``/``VarianceOut`` overwrite."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c_axis = 1 if data_layout == "NCHW" else len(input.shape) - 1
+    channels = input.shape[c_axis]
+    dtype = input.dtype
+    scale = helper.create_parameter(helper.param_attr, shape=[channels],
+                                    dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias_at = helper.bias_attr if helper.bias_attr is not False else ParamAttr()
+    bias = helper.create_parameter(bias_at or ParamAttr(), shape=[channels],
+                                   dtype=dtype, is_bias=True,
+                                   default_initializer=Constant(0.0))
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False),
+        shape=[channels], dtype=dtype, default_initializer=Constant(0.0))
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False),
+        shape=[channels], dtype=dtype, default_initializer=Constant(1.0))
+    variance.stop_gradient = True
+    y = helper.create_variable_for_type_inference(dtype)
+    saved_mean = helper.create_variable_for_type_inference(dtype,
+                                                           stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(dtype,
+                                                          stop_gradient=True)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": variance},
+        outputs={"Y": y, "MeanOut": mean, "VarianceOut": variance,
+                 "SavedMean": saved_mean, "SavedVariance": saved_var},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(y)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

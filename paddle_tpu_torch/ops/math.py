@@ -1,6 +1,6 @@
 """Elementwise, activation, scale, sum, cast, comparison and logical ops
 (counterpart of ``paddle_tpu/ops/math.py``), the ones the GPT, BERT and
-MLP paths and the AMP decorator run."""
+MLP paths, the AMP decorator and ``L1Decay`` run."""
 from __future__ import annotations
 
 import torch
@@ -12,6 +12,11 @@ from .common import IOSpec, broadcast_to_x, out, register_op, x
 @register_op("relu", inputs=["X"], outputs=["Out"])
 def _relu(ctx, ins, attrs):
     return out(torch.relu(x(ins)))
+
+
+@register_op("abs", inputs=["X"], outputs=["Out"])
+def _abs(ctx, ins, attrs):
+    return out(torch.abs(x(ins)))
 
 
 @register_op("tanh", inputs=["X"], outputs=["Out"])

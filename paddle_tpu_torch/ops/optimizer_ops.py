@@ -1,6 +1,6 @@
 """Optimizer update ops (counterpart of
-``paddle_tpu/ops/optimizer_ops.py``): ``sgd`` and ``adam``, dense
-gradients."""
+``paddle_tpu/ops/optimizer_ops.py``): ``sgd``, ``momentum`` and ``adam``,
+dense gradients (SelectedRows gradients wait with sparse embeddings)."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +14,28 @@ def _sgd(ctx, ins, attrs):
     p = x(ins, "Param")
     lr = x(ins, "LearningRate").reshape(()).to(p.dtype)
     return {"ParamOut": [p - lr * x(ins, "Grad").to(p.dtype)]}
+
+
+@register_op("momentum", inputs=["Param", "Grad", "Velocity", "LearningRate"],
+             outputs=["ParamOut", "VelocityOut"],
+             attrs={"mu": 0.9, "use_nesterov": False,
+                    "regularization_method": "", "regularization_coeff": 0.0},
+             grad=None)
+def _momentum(ctx, ins, attrs):
+    """v' = mu v + g; p' = p - lr v' (Nesterov: p - lr (g + mu v')).
+    ``regularization_method="l2_decay"`` folds ``coeff * p`` into g."""
+    p, v = x(ins, "Param"), x(ins, "Velocity")
+    lr = x(ins, "LearningRate").reshape(())
+    mu = attrs["mu"]
+    g = x(ins, "Grad").to(p.dtype)
+    if attrs.get("regularization_method") == "l2_decay":
+        g = g + attrs["regularization_coeff"] * p
+    v_out = mu * v + g
+    if attrs.get("use_nesterov"):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": [p_out], "VelocityOut": [v_out]}
 
 
 @register_op("adam",

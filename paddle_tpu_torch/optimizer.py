@@ -4,11 +4,12 @@ var and the per-parameter accumulators (persistable, initialised by
 ``fill_constant`` in the startup program) and appends one update op per
 parameter under the optimize role.
 
-SGD and Adam are ported, on the path ``minimize`` takes with no gradient
-clip and no regularization; the other optimizers, ``clip.py`` and
-``regularizer.py`` wait for a later slice. ``apply_gradients`` appends to
-the program's current block, so a wrapper (the AMP skip-update) can run
-the whole update inside a sub-block.
+SGD, Momentum and Adam are ported, with weight decay (``regularization``
+or a parameter's ``ParamAttr.regularizer``, ``regularizer.py``) appended
+before the update ops as the JAX package does; the other optimizers and
+``clip.py`` wait for a later slice. ``apply_gradients`` appends to the
+program's current block, so a wrapper (the AMP skip-update) can run the
+whole update inside a sub-block.
 """
 from __future__ import annotations
 
@@ -19,16 +20,16 @@ from .backward import append_backward
 from .framework import (Parameter, Variable, default_main_program,
                         default_startup_program, program_guard)
 from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "SGDOptimizer", "SGD", "AdamOptimizer", "Adam"]
+__all__ = ["Optimizer", "SGDOptimizer", "SGD", "MomentumOptimizer",
+           "Momentum", "AdamOptimizer", "Adam"]
 
 
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, name=None):
-        if regularization is not None:
-            raise NotImplementedError(
-                "regularization waits for a later slice of the port")
         self._learning_rate = learning_rate
+        self.regularization = regularization
         self._name = name
         self._accumulators: Dict[str, Dict[str, Variable]] = {}
         self._learning_rate_var: Optional[Variable] = None
@@ -105,6 +106,8 @@ class Optimizer:
         with program_guard(program), program._op_role_guard("optimize"):
             block = program.current_block()
             params_grads = sorted(params_grads, key=lambda pg: pg[0].name)
+            params_grads = append_regularization_ops(params_grads,
+                                                     self.regularization)
             self._create_global_learning_rate()
             self._create_accumulators(block, [pg[0] for pg in params_grads])
             return [self._append_optimize_op(block, pg)
@@ -132,6 +135,29 @@ class SGDOptimizer(Optimizer):
             inputs={"Param": p, "Grad": g,
                     "LearningRate": self._create_param_lr(param_and_grad)},
             outputs={"ParamOut": p})
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        vel = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": vel,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": p, "VelocityOut": vel},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
 class AdamOptimizer(Optimizer):
@@ -170,4 +196,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -584,3 +584,151 @@ def test_bert_tiny_amp_step_on_the_card():
     plain, plain_launches, _ = run(True, 1)
     assert set(plain_launches.values()) == {0}
     assert abs(plain[0] - losses[0]) <= 1e-4 * abs(losses[0])
+
+
+
+# -- conv-net ops (cuDNN through F.conv2d) on the card against the CPU ---------
+
+def _rule(op_type, attrs):
+    from paddle_tpu_torch.core import registry
+
+    opdef = registry.get_op_def(op_type)
+    full = {k: s.default for k, s in opdef.attrs.items()}
+    full.update(attrs)
+    return opdef, full
+
+
+def _rule_and_grads(op_type, ins, attrs, out_slot, device, dtype,
+                    nhwc="auto"):
+    """The port's rule for ``op_type`` on ``device`` with its inputs cast
+    to ``dtype``, and the gradients of those inputs for a fixed cotangent
+    of ``out_slot`` (what the generic grad computes)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    opdef, full = _rule(op_type, attrs)
+    prims = {k: v.to(device=device, dtype=dtype).requires_grad_()
+             for k, v in ins.items()}
+    prev = fluid.get_flags(["FLAGS_conv_use_nhwc"])
+    fluid.set_flags({"FLAGS_conv_use_nhwc": nhwc})
+    try:
+        with torch.enable_grad():
+            y = opdef.lower(LowerCtx(device), {k: [v] for k, v in
+                                               prims.items()},
+                            full)[out_slot][0]
+            ct = torch.randn(y.shape,
+                             generator=torch.Generator().manual_seed(5))
+            grads = torch.autograd.grad(y, list(prims.values()),
+                                        ct.to(device=device, dtype=y.dtype),
+                                        allow_unused=True)
+    finally:
+        fluid.set_flags(prev)
+    # a training batch_norm's Y does not depend on the running stats
+    return y, {k: g for k, g in zip(prims, grads) if g is not None}
+
+
+def _conv_cases():
+    g = torch.Generator().manual_seed(3)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    x = r(4, 16, 14, 14)
+    # small integers, distinct within every 3x3 window: no ties for max
+    # pooling's gradient to break differently once rounded to bf16
+    n, c, h, w = torch.meshgrid(*(torch.arange(d) for d in x.shape),
+                                indexing="ij")
+    distinct = (((h * 14 + w) * 7 + c * 13 + n * 5) % 97 - 48).float()
+    return {
+        "conv2d": ("conv2d", {"Input": x, "Filter": r(32, 16, 3, 3,
+                                                      scale=1 / 12)},
+                   {"strides": [2, 2], "paddings": [1, 1]}, "Output"),
+        "conv2d_1x1": ("conv2d", {"Input": x, "Filter": r(8, 16, 1, 1,
+                                                          scale=0.25)},
+                       {}, "Output"),
+        "depthwise": ("depthwise_conv2d", {"Input": x, "Filter": r(
+            16, 1, 3, 3, scale=1 / 3)}, {"groups": 16, "paddings": [1, 1]},
+            "Output"),
+        "max_pool": ("pool2d", {"X": distinct}, {
+            "ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]}, "Out"),
+        "avg_pool_ceil": ("pool2d", {"X": x}, {
+            "pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+            "ceil_mode": True, "exclusive": False}, "Out"),
+        "global_avg": ("pool2d", {"X": x}, {"pooling_type": "avg",
+                                            "global_pooling": True}, "Out"),
+        "batch_norm": ("batch_norm", {
+            "X": r(4, 16, 7, 7) * 2 + 0.5, "Scale": r(16), "Bias": r(16),
+            "Mean": r(16), "Variance": r(16).abs() + 0.5},
+            {"momentum": 0.9}, "Y"),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    (c, d) for c in sorted(_conv_cases()) for d in ("float32", "bfloat16")
+    # under AMP batch_norm is black-listed: it never computes in bf16
+    if not (c == "batch_norm" and d == "bfloat16")])
+def test_conv_ops_on_the_card_match_the_cpu(case, dtype):
+    """Forward and gradients on ``CUDAPlace(0)`` (channels_last, cuDNN)
+    against the CPU in float32 from the same inputs (rounded to bf16 for
+    the bf16 case): float32 with TF32 off within ``KERNEL_TOL[f32]``;
+    bf16 within ``KERNEL_TOL[bf16]`` (about two bf16 steps). Gradients
+    are compared relative to their largest element."""
+    _cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    op_type, ins, attrs, slot = _conv_cases()[case]
+    dt = getattr(torch, dtype)
+    ins = {k: v.to(dt).float() for k, v in ins.items()}
+    ref_y, ref_g = _rule_and_grads(op_type, ins, attrs, slot, "cpu",
+                                   torch.float32)
+    y, grads = _rule_and_grads(op_type, ins, attrs, slot, "cuda", dt)
+    tol = K.KERNEL_TOL[dt]
+    torch.testing.assert_close(y.float().cpu(), ref_y, **tol)
+    assert set(grads) == set(ref_g)
+    for k, g in grads.items():
+        scale = ref_g[k].abs().max().clamp_min(1.0)
+        torch.testing.assert_close(g.float().cpu() / scale, ref_g[k] / scale,
+                                   **tol, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_conv_cases()))
+def test_channels_last_matches_contiguous_on_the_card(case):
+    """``FLAGS_conv_use_nhwc`` always (channels_last) against never
+    (contiguous NCHW) on the card, float32 with TF32 off; the output
+    keeps the memory format asked for."""
+    _cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    op_type, ins, attrs, slot = _conv_cases()[case]
+    out = {m: _rule_and_grads(op_type, ins, attrs, slot, "cuda",
+                              torch.float32, nhwc=m)
+           for m in ("always", "never")}
+    (y1, g1), (y0, g0) = out["always"], out["never"]
+    if op_type != "batch_norm":
+        assert y1.is_contiguous(memory_format=torch.channels_last)
+        assert y0.is_contiguous()
+    tol = K.KERNEL_TOL[torch.float32]
+    torch.testing.assert_close(y1, y0, **tol)
+    assert set(g1) == set(g0)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], **tol, msg=k)
+
+
+@pytest.mark.cuda
+def test_bf16_convolutions_run_bf16_cudnn_kernels():
+    """A bf16 conv2d, its generic grad's rerun and backward: every
+    convolution kernel the profiler sees is a bf16 one by name
+    (``chip_smoke.CONV_MARKS``/``BF16_CONV_MARKS``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import conv_class
+
+    _cuda()
+    op_type, ins, attrs, slot = _conv_cases()["conv2d"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _rule_and_grads(op_type, ins, attrs, slot, "cuda", torch.bfloat16)
+        torch.cuda.synchronize()
+    classes = {e.key: conv_class(e.key) for e in prof.key_averages()
+               if e.device_type.name == "CUDA"}
+    convs = {k: c for k, c in classes.items() if c}
+    assert convs and set(convs.values()) == {"conv bf16"}, classes

@@ -1,5 +1,5 @@
-"""Every op type of the port's GPT serving, BERT training, MLP and AMP
-paths against the JAX package's rule, on the CPU. Each case is a single-op program built
+"""Every op type of the port's GPT serving, BERT training, MLP, AMP and
+ResNet paths against the JAX package's rule, on the CPU. Each case is a single-op program built
 the same way in both packages (data vars, one ``append_op``) and run on
 the same numpy feeds; the outputs' build-time shapes must match too.
 Random ops are compared by distribution and by determinism, never by
@@ -150,6 +150,29 @@ CASES = {
     "sgd": ({"Param": {"p": f32(4, 3)}, "Grad": {"g": f32(4, 3)},
              "LearningRate": {"lr": np.float32([0.1])}},
             {"ParamOut": ["po"]}, {}, ["po"]),
+    # the ResNet path (every attribute: tests/test_torch_conv.py)
+    "conv2d": ({"Input": {"x": f32(2, 4, 9, 9)},
+                "Filter": {"w": f32(6, 4, 3, 3)}}, {"Output": ["o"]},
+               {"strides": [2, 2], "paddings": [1, 1]}, ["o"]),
+    "depthwise_conv2d": ({"Input": {"x": f32(2, 4, 8, 8)},
+                          "Filter": {"w": f32(4, 1, 3, 3)}},
+                         {"Output": ["o"]},
+                         {"groups": 4, "paddings": [1, 1]}, ["o"]),
+    "pool2d": ({"X": {"x": f32(2, 3, 9, 9)}}, {"Out": ["o"]},
+               {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]},
+               ["o"]),
+    "batch_norm": ({"X": {"x": f32(4, 3, 5, 5)}, "Scale": {"s": f32(3)},
+                    "Bias": {"b": f32(3)}, "Mean": {"m": f32(3)},
+                    "Variance": {"v": np.abs(f32(3)) + 0.5}},
+                   {"Y": ["y"], "MeanOut": ["mo"], "VarianceOut": ["vo"],
+                    "SavedMean": ["sm"], "SavedVariance": ["sv"]}, {},
+                   ["y", "mo", "vo", "sm", "sv"]),
+    "abs": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]}, {}, ["o"]),
+    "momentum": ({"Param": {"p": f32(4, 3)}, "Grad": {"g": f32(4, 3)},
+                  "Velocity": {"v": f32(4, 3)},
+                  "LearningRate": {"lr": np.float32([0.1])}},
+                 {"ParamOut": ["po"], "VelocityOut": ["vo"]},
+                 {"mu": 0.9, "use_nesterov": True}, ["po", "vo"]),
     "top_k": ({"X": {"x": f32(5, 10)}}, {"Out": ["o"], "Indices": ["i"]},
               {"k": 3}, ["o", "i"]),
     "accuracy": ({"Out": {"o": f32(6, 2)},
@@ -225,7 +248,7 @@ def test_every_path_op_has_a_case():
     tests/test_torch_mlp.py) and the sub-block ones has a case."""
     from paddle_tpu_torch.core import registry
 
-    assert len(CASES) == 41 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
+    assert len(CASES) == 47 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
     assert set(CASES) | RANDOM_OPS | BLOCK_OPS == set(registry.all_ops())
 
 

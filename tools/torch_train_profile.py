@@ -13,10 +13,10 @@ weights and a synthetic batch from ``--seed``, the batch of
 one untimed), then one step under ``torch.profiler``. Prints steps/s and
 tokens/s (host clock, steps 2..N, each ending in a host read of the
 loss), peak device memory, the profiled step's device busy time and idle
-share, its device ms by class (cuBLAS GEMMs in f32 or bf16, the port's
-attention kernels K1, K3 and K4, casts to bf16, copies: contiguous
-layouts and casts back to f32, other elementwise and reduction kernels)
-and its top kernels; with ``--out-dir``, also to
+share, its device ms by class (``chip_smoke.kernel_class``: cuBLAS GEMMs
+in f32 or bf16, the port's attention kernels K1, K3 and K4, casts to
+bf16, copies: contiguous layouts and casts back to f32, reductions, other
+elementwise kernels) and its top kernels; with ``--out-dir``, also to
 ``DIR/train_profile.json``. TF32 and cuBLAS's
 reduced-precision bf16 reductions are off, as in ``chip_smoke.py``.
 """
@@ -35,30 +35,9 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import paddle_tpu_torch as fluid  # noqa: E402
-from chip_smoke import (BF16_GEMM_MARKS, GEMM_MARKS,  # noqa: E402
-                        PORT_KERNELS, _device_us, bert_feed)
+from chip_smoke import _device_us, bert_feed, kernel_class  # noqa: E402
 from paddle_tpu_torch.models.bert import (BertConfig,  # noqa: E402
                                           build_bert_pretrain)
-
-ATTENTION = ("flash_attention_fwd", "flash_attention_dq",
-             "flash_attention_dkv")
-
-
-def kernel_class(name: str) -> str:
-    for kernel in ATTENTION:
-        if any(m in name for m in PORT_KERNELS[kernel]):
-            return "attention " + kernel
-    if any(m in name for m in GEMM_MARKS):
-        bf16 = any(m in name for m in BF16_GEMM_MARKS)
-        return "gemm " + ("bf16" if bf16 else "f32")
-    if "bfloat16_copy" in name:
-        return "cast to bf16"
-    if "direct_copy" in name:
-        return "copy or cast to f32"
-    if "at::native" in name:
-        return "elementwise/reduce"
-    return "other"
-
 
 def run(precision, args, feed):
     cfg = BertConfig.base()
