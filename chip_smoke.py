@@ -34,7 +34,37 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    ``FLAGS_use_flash_attention=never`` (the plain versions) on fresh state
    with the same weights: greedy tokens agree wherever the kernel run's
    top-2 logit gap exceeds 1e-3 (gaps from a teacher-forced forward).
-5. train — BERT-base pretraining (``BertConfig.base()``: 12 layers, hidden
+5. serve_spec — the same model, slots and 12 requests behind the
+   speculative engine (``GenerationConfig(speculative=True)``, ``spec_k``
+   8: an n-gram draft of 7 tokens, one verify dispatch of 8 positions a
+   slot on K2's 8-row route). Tokens against the serve phase's under the
+   whole-path rule (equal wherever the teacher-forced top-2 gap exceeds
+   1e-3; a request stops at its first near-tie split, near ties counted);
+   accounting exact, 32 tokens each, no decode recompile, K2 launched once
+   per layer in every verify dispatch, the ``serving_spec_accepted_len``
+   count equal to the residents summed over the verify chunks. Reports
+   tokens/s against the serve phase's, verify chunks, accepted tokens, the
+   chunk histogram's p50 beside one profiled verify dispatch's device time
+   and K2's share of it, and tokens/s of 6 requests with
+   ``FLAGS_monitor`` on/off × ``FLAGS_trace`` on/off, three rounds in
+   rotated order (the median of each way).
+6. serve_batch — BERT-base bf16 fused inference (the infer phase's
+   program under ``decorate_program``, ``FLAGS_epilogue_fusion=1``, seq
+   128) behind the batching ``ServingEngine``: one-row requests, buckets
+   1-32 warmed one by one (the fusion pass and compile events per
+   bucket); 128 requests from 4 threads in two bursts. Every request
+   completes, its rows within ``AMP_INFER_TOL`` of a direct run in batches
+   of 32; K5 74 launches a dispatch, all on its bf16 functions, K1 12;
+   accounting exact. Reports req/s, latency p50/p99, occupancy,
+   dispatches per bucket, the batch histogram's p50 beside one profiled
+   dispatch. A chaos leg (``batch_dispatch:3``, ``overload:@6``): every
+   request settles typed, the breaker opens, half-opens and closes, the
+   completed rows match the clean run, accounting exact. An
+   observability leg: the registry's Prometheus text parses with the
+   port's parser, one request's trace has the reference's spans and
+   parent links; with ``--out-dir`` the Chrome trace is written there.
+   No leg without an injected fault may see a typed failure.
+7. train — BERT-base pretraining (``BertConfig.base()``: 12 layers, hidden
    768, 12 heads, vocab 30522, hidden and attention dropout 0.1, Adam at
    lr 1e-4; f32, batch 32, seq 128; random weights and a synthetic batch
    from ``--seed``): 10 ``Executor.run`` steps through the kernels (K1 24
@@ -45,7 +75,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    device memory held between steps stays flat. Reports steps/s,
    tokens/s, peak device memory and one profiled step's device idle share,
    top kernels and the device time of each of the port's kernels.
-6. train_amp — the JAX package's bf16 headline: BERT-base
+8. train_amp — the JAX package's bf16 headline: BERT-base
    ``build_bert_pretrain(amp=True)`` (bf16 products, f32 master weights,
    no loss scaling), batch 32, seq 512, dropout 0.1, 4 steps through the
    kernels and 4 plain (``FLAGS_use_flash_attention=never``) from the
@@ -56,7 +86,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    left f32, held memory flat. Reports steps/s, tokens/s, peak memory,
    the idle share, top kernels, and the device ms of the bf16 GEMMs and
    of K1 + K3 + K4 in the step.
-7. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
+9. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
    512; ``build_bert_pretrain(build_optimizer=False)`` cloned for test;
    random weights and a synthetic batch from ``--seed``; fetch the loss
    and the last encoder layer), run three ways on the same weights and
@@ -76,7 +106,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    launches a forward, all on its bf16 CUDA functions, K1 12, the fused
    loss within ``AMP_INFER_TOL`` of the unfused; forward ms (median of 5)
    and peak memory.
-8. train_resnet — the JAX package's headline metric: ResNet-50
+10. train_resnet — the JAX package's headline metric: ResNet-50
    ``build_resnet(50, amp=True)`` (bf16 convolutions and products under
    the AMP policy, f32 master weights, Momentum at lr 0.1, mu 0.9), batch
    128 at 224x224, random weights and images from ``--seed``, 5 steps.
@@ -94,25 +124,29 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (``op_ranges``: batch_norm, and the forward rules the generic grads
    run again), and one step with ``FLAGS_conv_use_nhwc`` always and
    never.
-9. infer_resnet — ResNet-50 bf16 inference (the is_test clone under
+11. infer_resnet — ResNet-50 bf16 inference (the is_test clone under
    ``decorate_program``, batch 128): fused (the fc head on K5's bf16
    route, one launch a forward), unfused and the dense replay (bit-exact
    against unfused, no K5 launch); fused logits within ``AMP_INFER_TOL``
    of unfused. Reports forward ms (median of 5), peak memory and idle
    share of each run.
-10. prints the script time of each phase and part (``[seconds]``), the
-   ``kernels`` JSON line, the card line, and as the last line
+12. prints the script time of each phase and part (``[seconds]``), the
+   ``kernels`` JSON line (each kernel's launches summed over the main
+   paths, and the ``phases`` that launch it), the card line, and as the
+   last line
    ``{"ok": true, "device": {...}}``. With ``--out-dir``, everything
    measured is also written to ``DIR/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -124,13 +158,17 @@ from torch.profiler import ProfilerActivity, profile
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels as K
+from paddle_tpu_torch import monitor, trace
 from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
 from paddle_tpu_torch.models.gpt import (GptConfig, build_gpt_generative,
                                          build_gpt_prefill)
-from paddle_tpu_torch.serving import (GenerationConfig, GenerativeEngine,
-                                      ServingConfig)
+from paddle_tpu_torch.resilience import faults
+from paddle_tpu_torch.serving import (BatchFailed, CircuitOpen,
+                                      GenerationConfig, GenerativeEngine,
+                                      Overloaded, ServingConfig,
+                                      ServingEngine)
 
 # H100 SXM published peaks (dense): bytes/s of HBM3, FLOP/s per type
 PEAK_BYTES = 3.35e12
@@ -643,16 +681,24 @@ def make_requests(seed, vocab):
     return [shared[0]], shared[1:] + plain + [long_prompt]
 
 
-def serve(model, params, exe, seed, vocab):
+def serve(model, params, exe, seed, vocab, speculative=False, n_rest=None,
+          probe=None):
+    """The requests of ``make_requests`` (the first ``n_rest`` of the
+    second wave when given) through a fresh engine; ``probe(engine)`` runs
+    after the warm-up."""
     scope = fluid.Scope()
     for n, t in params.items():
         scope.set_var(n, t)
     eng = GenerativeEngine(
         model, scope=scope, executor=exe,
         config=ServingConfig(queue_depth=64, deadline_s=0),
-        gen_config=GenerationConfig(decode_chunk=8, prefix_cache_pages=256))
+        gen_config=GenerationConfig(decode_chunk=8, prefix_cache_pages=256,
+                                    speculative=speculative))
     eng.warm_up()
+    if probe is not None:
+        probe(eng)
     first, rest = make_requests(seed, vocab)
+    rest = rest[:n_rest]
     K.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -666,13 +712,20 @@ def serve(model, params, exe, seed, vocab):
     acct = eng.accounting()
     stats = eng.generation_stats()
     return dict(prompts=first + rest, tokens=outs, wall_s=wall,
-                launches=launches, accounting=acct, stats=stats)
+                launches=launches, accounting=acct, stats=stats,
+                scope=scope)
+
+
+# the speculative chunk: 1 committed token + 7 drafts (the reference
+# bench's spec_k, bench.py); the model carries the verify program for it
+SPEC_K = 8
 
 
 def phase_serve(seed):
     cfg = GptConfig.base()
     model = build_gpt_generative(cfg, batch_slots=8, max_seq=1024,
-                                 page_size=8, prompt_buckets=(128, 512))
+                                 page_size=8, prompt_buckets=(128, 512),
+                                 spec_k=SPEC_K)
     model["startup"].random_seed = seed
     exe = fluid.Executor()                       # CUDAPlace(0)
     pscope = fluid.Scope()
@@ -752,16 +805,30 @@ def phase_whole_path(model, params, exe, run, seed):
                          f"{plain['launches']}")
     gaps = teacher_forced_gaps(model["config"], params, exe,
                                run["prompts"], run["tokens"])
+    compared, agreed, near_ties = compare_tokens(
+        run["tokens"], plain["tokens"], gaps, "kernel run", "plain run")
+    log(f"[whole-path] kernel vs plain runs: {agreed}/{compared} compared "
+        f"positions agree (top-2 gap > 1e-3); {near_ties} near-tie "
+        f"position(s) skipped; plain run {plain['wall_s']:.3f}s")
+    return dict(compared=compared, agreed=agreed, near_ties=near_ties,
+                plain_wall_s=plain["wall_s"]), gaps
+
+
+def compare_tokens(ref_tokens, other_tokens, gaps, ref_name, other_name):
+    """Greedy tokens of two runs agree wherever the teacher-forced top-2
+    logit gap of ``ref_tokens`` exceeds 1e-3; a request stops being
+    compared at its first near-tie split. Returns (compared, agreed,
+    near ties)."""
     compared = agreed = near_ties = 0
-    for i, (a, b) in enumerate(zip(run["tokens"], plain["tokens"])):
+    for i, (a, b) in enumerate(zip(ref_tokens, other_tokens)):
         _, gap = gaps[i]
         for j in range(len(a)):
             if gap[j] > 1e-3:
                 compared += 1
                 if a[j] != b[j]:
                     raise SystemExit(
-                        f"chip_smoke: request {i} token {j}: kernel run "
-                        f"{a[j]} vs plain run {b[j]} at top-2 gap "
+                        f"chip_smoke: request {i} token {j}: {ref_name} "
+                        f"{a[j]} vs {other_name} {b[j]} at top-2 gap "
                         f"{gap[j]:.3e} > 1e-3")
                 agreed += 1
             else:
@@ -770,11 +837,463 @@ def phase_whole_path(model, params, exe, run, seed):
                 # a near-tie split the runs; later tokens see different
                 # contexts and are not comparable
                 break
-    log(f"[whole-path] kernel vs plain runs: {agreed}/{compared} compared "
-        f"positions agree (top-2 gap > 1e-3); {near_ties} near-tie "
-        f"position(s) skipped; plain run {plain['wall_s']:.3f}s")
-    return dict(compared=compared, agreed=agreed, near_ties=near_ties,
-                plain_wall_s=plain["wall_s"])
+    return compared, agreed, near_ties
+
+
+# ---------------------------------------------------------------- serve_spec
+# the four ways of the monitor/trace overhead run: (FLAGS_monitor,
+# FLAGS_trace); each serves the first request and SPEC_OVERHEAD_REST more,
+# SPEC_OVERHEAD_ROUNDS times, round r starting at way r (the host's speed
+# drifts within a call, so no way always runs first)
+SPEC_OVERHEAD_RUNS = ((True, False), (True, True), (False, False),
+                      (False, True))
+SPEC_OVERHEAD_REST = 5
+SPEC_OVERHEAD_ROUNDS = 3
+
+
+def phase_serve_spec(model, params, exe, run, gaps, seed):
+    """GPT-2 small behind the speculative engine: the serve phase's
+    requests, verify dispatches of SPEC_K tokens through K2's 8-row route."""
+    cfg = model["config"]
+    per_verify, residents, feeds = [], [], []
+
+    def probe(eng):
+        run_chunk, verify_feed = eng._run_spec_chunk, eng._verify_feed
+
+        def spec_chunk():
+            n0 = K.launch_counts()["decode_attention"]
+            c0 = eng.spec_chunks
+            live = sum(1 for r in eng._slots if r is not None and r.prefilled)
+            ran = run_chunk()
+            if eng.spec_chunks > c0:
+                per_verify.append(K.launch_counts()["decode_attention"] - n0)
+                residents.append(live)
+            return ran
+
+        def keep_feed(active):
+            feeds[:] = [verify_feed(active)]
+            return feeds[0]
+
+        eng._run_spec_chunk, eng._verify_feed = spec_chunk, keep_feed
+
+    monitor.reset()
+    spec = serve(model, params, exe, seed, cfg.vocab_size, speculative=True,
+                 probe=probe)
+    acct, stats = spec["accounting"], spec["stats"]
+    sp = stats["speculative"]
+    acc_hist = monitor.metric_value("serving_spec_accepted_len", None)
+    chunk_hist = monitor.metric_value("serving_decode_chunk_seconds", None)
+    n_tok = sum(len(t) for t in spec["tokens"])
+    plain_tok = sum(len(t) for t in run["tokens"])
+    compared, agreed, near_ties = compare_tokens(
+        run["tokens"], spec["tokens"], gaps, "plain decode", "speculative")
+    # one verify dispatch again, profiled: device time and K2's share
+    net = model["verify"]
+    prof = profile_run(lambda: exe.run(
+        net["main"], feed=feeds[0], fetch_list=[net["accept_len"],
+                                                net["sampled"]],
+        scope=spec["scope"]))
+    k2_ms = prof["port_kernels"].get("decode_attention", {}).get("ms", 0.0)
+    busy_ms = prof["device_busy_s"] * 1e3
+    log(f"[serve_spec] GPT-2 small, spec_k {SPEC_K}, 8 slots: {n_tok} tokens "
+        f"in {spec['wall_s']:.3f}s = {n_tok / spec['wall_s']:.2f} tok/s "
+        f"(plain decode in this call {plain_tok / run['wall_s']:.2f} "
+        f"tok/s); {sp['chunks']} verify chunks, {sp['accepted_tokens']} "
+        f"draft tokens accepted over {acc_hist['count'] if acc_hist else 0} "
+        f"observations (mean accepted length "
+        f"{sp['accepted_tokens'] / max(acc_hist['count'], 1) if acc_hist else 0:.3f}"
+        f"); tokens vs plain decode: {agreed}/{compared} compared positions "
+        f"agree, {near_ties} near tie(s); K2 launches per verify "
+        f"{sorted(set(per_verify))}; launches {spec['launches']}")
+    for p, r in sorted(stats["phase_time"].items()):
+        log(f"  {p}: {r['dispatches']} dispatches, "
+            f"{r['seconds'] * 1e3 / max(r['dispatches'], 1):.3f} ms per "
+            f"dispatch")
+    log(f"  decode/verify chunk p50 (serving_decode_chunk_seconds) "
+        f"{chunk_hist['p50'] * 1e3 if chunk_hist else float('nan'):.3f} ms; "
+        f"one profiled verify dispatch: wall {prof['wall_s'] * 1e3:.3f} ms, "
+        f"device {busy_ms:.3f} ms, K2 {k2_ms:.4f} ms "
+        f"({k2_ms / max(busy_ms, 1e-9):.3f} of device time)")
+    if not acct["exact"] or acct["completed"] != len(spec["tokens"]):
+        raise SystemExit(f"chip_smoke: speculative accounting broken: {acct}")
+    if any(len(t) != 32 for t in spec["tokens"]):
+        raise SystemExit("chip_smoke: a speculative request did not stream "
+                         "32 tokens")
+    if stats["decode_recompiles"] != 0:
+        raise SystemExit(f"chip_smoke: {stats['decode_recompiles']} decode "
+                         f"recompiles on a warm speculative engine")
+    if not per_verify or len(per_verify) != sp["chunks"] or \
+            set(per_verify) != {cfg.num_layers}:
+        raise SystemExit(f"chip_smoke: K2 launches per verify dispatch "
+                         f"{per_verify}, expected {cfg.num_layers} in each "
+                         f"of {sp['chunks']}")
+    if acc_hist is None or acc_hist["count"] != sum(residents):
+        raise SystemExit(f"chip_smoke: serving_spec_accepted_len counted "
+                         f"{acc_hist and acc_hist['count']} observations, "
+                         f"residents summed over the verify chunks "
+                         f"{sum(residents)}")
+    for name, n in spec["launches"].items():
+        if (n < 1) if name in SERVE_KERNELS else n:
+            raise SystemExit(f"chip_smoke: kernel {name} was launched {n} "
+                             f"times on the speculative serving path")
+    runs = []
+    try:
+        for rnd in range(SPEC_OVERHEAD_ROUNDS):
+            for i in range(len(SPEC_OVERHEAD_RUNS)):
+                mon, tr = SPEC_OVERHEAD_RUNS[(rnd + i) % len(
+                    SPEC_OVERHEAD_RUNS)]
+                fluid.set_flags({"FLAGS_monitor": mon, "FLAGS_trace": tr})
+                r = serve(model, params, exe, seed, cfg.vocab_size,
+                          speculative=True, n_rest=SPEC_OVERHEAD_REST)
+                n = sum(len(t) for t in r["tokens"])
+                runs.append((mon, tr, n / r["wall_s"]))
+                trace.get_collector().reset()
+    finally:
+        fluid.set_flags({"FLAGS_monitor": True, "FLAGS_trace": False})
+        trace.get_collector().reset()
+    overhead = [dict(monitor=mon, trace=tr,
+                     tok_per_s=[t for m, r_, t in runs
+                                if (m, r_) == (mon, tr)])
+                for mon, tr in SPEC_OVERHEAD_RUNS]
+    for o in overhead:
+        o["median_tok_per_s"] = float(np.median(o["tok_per_s"]))
+    log(f"  monitor/trace overhead (speculative, "
+        f"{1 + SPEC_OVERHEAD_REST} requests, {SPEC_OVERHEAD_ROUNDS} "
+        f"rounds): " + "; ".join(
+            f"monitor {int(o['monitor'])} trace {int(o['trace'])}: median "
+            f"{o['median_tok_per_s']:.2f} tok/s "
+            f"({', '.join(f'{t:.2f}' for t in o['tok_per_s'])})"
+            for o in overhead))
+    return dict(wall_s=spec["wall_s"], tokens=n_tok,
+                tok_per_s=n_tok / spec["wall_s"],
+                plain_tok_per_s=plain_tok / run["wall_s"],
+                launches=spec["launches"], accounting=dict(acct),
+                stats=stats, compared=compared, agreed=agreed,
+                near_ties=near_ties, k2_per_verify=per_verify,
+                accepted_hist=acc_hist, chunk_hist=chunk_hist,
+                verify_profile=dict(wall_ms=prof["wall_s"] * 1e3,
+                                    device_ms=busy_ms, k2_ms=k2_ms,
+                                    top_kernels=prof["top_kernels"]),
+                overhead=overhead)
+
+
+# ---------------------------------------------------------------- serve_batch
+BATCH_SEQ, BATCH_MAX = 128, 32
+BATCH_REQUESTS, BATCH_THREADS, BATCH_BURSTS = 128, 4, 2
+# the chaos leg: the first three dispatches fail (the bucket's breaker
+# opens at three), the sixth admission is shed
+BATCH_CHAOS_PLAN = "batch_dispatch:3:RuntimeError,overload:@6:RuntimeError"
+BATCH_CHAOS_BURST = 32
+# a request's trace under FLAGS_trace: (span, parent span)
+REQUEST_SPANS = {("serving.request", None),
+                 ("serving.submit", "serving.request"),
+                 ("serving.enqueue", "serving.request"),
+                 ("serving.dispatch", "serving.request")}
+BATCH_FAMILIES = {"serving_request_latency_seconds", "serving_batches_total",
+                  "serving_batch_occupancy", "serving_requests_total",
+                  "serving_breaker_transitions_total", "serving_shed_total",
+                  "executor_steps_total", "executor_step_seconds",
+                  "executor_cache_lookups_total"}
+
+
+def within_amp_tol(got, want):
+    """Largest |got - want| and whether every element is within
+    ``AMP_INFER_TOL`` (|d| <= atol + rtol |want|)."""
+    rtol, atol = AMP_INFER_TOL
+    d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    return float(d.max()), bool((d <= atol + rtol * np.abs(want)).all())
+
+
+def phase_serve_batch(seed, out_dir):
+    """BERT-base bf16 fused inference (phase_infer's program under
+    ``decorate_program``, FLAGS_epilogue_fusion=1, seq BATCH_SEQ) behind
+    the batching ServingEngine: one-row requests coalesced into buckets
+    1..BATCH_MAX."""
+    t0 = time.perf_counter()
+    cfg = BertConfig.base()
+    net = build_bert_pretrain(cfg, seq_len=BATCH_SEQ, build_optimizer=False)
+    net["startup"].random_seed = seed
+    prog = mixed_precision.decorate_program(net["main"].clone(for_test=True))
+    enc = next(op.input("X")[0] for op in prog.global_block.ops
+               if op.type == "mul" and op.input("Y")[0] == "mlm_trans_w")
+    names = list(net["feeds"])
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(net["startup"], scope=scope)
+    data = bert_feed(seed + 2, cfg.vocab_size, BATCH_REQUESTS, BATCH_SEQ)
+    rows = [{n: data[n][i:i + 1] for n in names}
+            for i in range(BATCH_REQUESTS)]
+
+    def engine(**kw):
+        return ServingEngine(prog, feed_names=names, fetch_list=[enc],
+                             scope=scope, executor=exe,
+                             config=ServingConfig(max_batch=BATCH_MAX,
+                                                  queue_depth=256,
+                                                  deadline_s=0, **kw))
+
+    fluid.set_flags({"FLAGS_epilogue_fusion": True})
+    try:
+        monitor.reset()
+        eng = engine()
+        buckets = {}
+        b = 1
+        while b <= BATCH_MAX:
+            f0 = monitor.metric_value("fusion_programs_total", 0.0,
+                                      outcome="applied")
+            c0 = monitor.metric_value("executor_compiles_total", 0.0,
+                                      path="run")
+            w0 = time.perf_counter()
+            eng.warm_up([b])
+            buckets[b] = dict(
+                seconds=time.perf_counter() - w0,
+                fusion_applied=monitor.metric_value(
+                    "fusion_programs_total", 0.0, outcome="applied") - f0,
+                compile_events=monitor.metric_value(
+                    "executor_compiles_total", 0.0, path="run") - c0)
+            b <<= 1
+        fam = monitor.get_registry().get("fusion_ops_fused_total")
+        chains = {lab["epilogue"]: child.value
+                  for lab, child in (fam.children() if fam else [])}
+        TIMES["serve_batch.setup"] = time.perf_counter() - t0
+        clean = serve_batch_clean(eng, exe, rows)
+        launches = clean["launches"]
+        n_disp = clean["dispatches"]
+        # the direct run of the same rows, 32 at a time
+        worst, ok = 0.0, True
+        for i in range(0, BATCH_REQUESTS, BATCH_MAX):
+            want = exe.run(prog, feed={n: data[n][i:i + BATCH_MAX]
+                                       for n in names},
+                           fetch_list=[enc], scope=scope)[0]
+            for j in range(want.shape[0]):
+                err, good = within_amp_tol(clean["results"][i + j][0],
+                                           want[j:j + 1])
+                worst, ok = max(worst, err), ok and good
+        prof = profile_run(lambda: exe.run(
+            prog, feed={n: data[n][:BATCH_MAX] for n in names},
+            fetch_list=[enc], scope=scope))
+        funcs = {k: v for k, v in prof["port_functions"].items()
+                 if v["kernel"] == "fused_gemm"}
+        chaos = serve_batch_chaos(engine, rows, clean["results"])
+        obs = serve_batch_observe(engine, rows, out_dir)
+    finally:
+        fluid.set_flags({"FLAGS_epilogue_fusion": False})
+    lat, occ, bsec = clean["latency"], clean["occupancy"], \
+        clean["batch_seconds"]
+    log(f"[serve_batch] BERT-base bf16 fused, seq {BATCH_SEQ}, buckets "
+        f"1..{BATCH_MAX}: {BATCH_REQUESTS} requests from {BATCH_THREADS} "
+        f"threads in {BATCH_BURSTS} bursts in {clean['wall_s']:.3f}s = "
+        f"{BATCH_REQUESTS / clean['wall_s']:.2f} req/s; latency p50 "
+        f"{lat['p50'] * 1e3:.2f} ms p99 {lat['p99'] * 1e3:.2f} ms; "
+        f"occupancy mean {occ['sum'] / occ['count']:.3f} over {n_disp} "
+        f"dispatches {dict(sorted(clean['per_bucket'].items()))}; "
+        f"launches {launches}")
+    log(f"  batch p50 (serving_batch_seconds) {bsec['p50'] * 1e3:.3f} ms; "
+        f"one profiled bucket-{BATCH_MAX} dispatch: wall "
+        f"{prof['wall_s'] * 1e3:.3f} ms, device "
+        f"{prof['device_busy_s'] * 1e3:.3f} ms, idle share "
+        f"{prof['idle_share']:.3f}; K5 functions {funcs}")
+    log(f"  warm-up per bucket (fusion pass applied, compile events, s): "
+        + ", ".join(f"b{k}: {v['fusion_applied']:g}/"
+                    f"{v['compile_events']:g}/{v['seconds']:.2f}"
+                    for k, v in buckets.items())
+        + f"; chains fused by epilogue {chains}")
+    log(f"  rows vs a direct run in batches of {BATCH_MAX}: max abs err "
+        f"{worst:.3e} (tolerance {AMP_INFER_TOL})")
+    log(f"  chaos: outcomes {chaos['sequence']}, burst "
+        f"{dict(chaos['burst'])}, breaker transitions "
+        f"{chaos['transitions']}, accounting exact="
+        f"{chaos['accounting']['exact']}, completed rows max abs err "
+        f"{chaos['max_abs_err']:.3e}")
+    log(f"  observability: {len(obs['families'])} metric families parsed, "
+        f"request spans {sorted(obs['request_spans'], key=str)}, chrome "
+        f"trace {obs['chrome_events']} events")
+    if not clean["accounting"]["exact"] or \
+            clean["accounting"]["completed"] != BATCH_REQUESTS:
+        raise SystemExit(f"chip_smoke: batching accounting broken: "
+                         f"{clean['accounting']}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: served rows differ from the direct "
+                         f"run beyond {AMP_INFER_TOL} (max abs err "
+                         f"{worst:.3e})")
+    for name in K.KERNEL_SOURCES:
+        want = INFER_LAUNCHES.get(name, 0) * n_disp
+        if launches[name] != want:
+            raise SystemExit(f"chip_smoke: {name} launched "
+                             f"{launches[name]} times in {n_disp} batching "
+                             f"dispatches, expected {want}")
+    calls = sum(v["calls"] for v in funcs.values())
+    if calls != INFER_LAUNCHES.get("fused_gemm", 0) or not all(
+            "bf16" in k for k in funcs):
+        raise SystemExit(f"chip_smoke: K5 did not run on its bf16 route "
+                         f"behind the batching engine: {funcs}")
+    return dict(config="BertConfig.base()", seq=BATCH_SEQ,
+                max_batch=BATCH_MAX, requests=BATCH_REQUESTS,
+                wall_s=clean["wall_s"],
+                req_per_s=BATCH_REQUESTS / clean["wall_s"],
+                latency=lat, occupancy=occ, batch_seconds=bsec,
+                dispatches=n_disp, per_bucket=clean["per_bucket"],
+                launches=launches, accounting=clean["accounting"],
+                direct_max_abs_err=worst, warm_up=buckets,
+                chains_fused=chains, k5_functions=funcs,
+                dispatch_profile=dict(
+                    wall_ms=prof["wall_s"] * 1e3,
+                    device_ms=prof["device_busy_s"] * 1e3,
+                    idle_share=prof["idle_share"],
+                    top_kernels=prof["top_kernels"]),
+                chaos=chaos, observability=obs)
+
+
+def serve_batch_clean(eng, exe, rows):
+    """BATCH_REQUESTS one-row requests from BATCH_THREADS threads in
+    BATCH_BURSTS bursts; every request must complete."""
+    results, errors = [None] * len(rows), []
+    per_bucket = collections.Counter()
+    real_run = exe.run
+
+    def counting_run(program, feed=None, **kw):
+        per_bucket[int(next(iter(feed.values())).shape[0])] += 1
+        return real_run(program, feed=feed, **kw)
+
+    barrier = threading.Barrier(BATCH_THREADS)
+    per_burst = len(rows) // (BATCH_THREADS * BATCH_BURSTS)
+
+    def client(tid):
+        mine = list(range(tid, len(rows), BATCH_THREADS))
+        for burst in range(BATCH_BURSTS):
+            idx = mine[burst * per_burst:(burst + 1) * per_burst]
+            try:
+                futs = [(i, eng.submit(rows[i])) for i in idx]
+                for i, f in futs:
+                    results[i] = f.result(timeout=600)
+            except Exception as e:        # any typed failure fails the leg
+                errors.append(e)
+            barrier.wait(timeout=600)
+
+    monitor.reset()
+    K.reset_launch_counts()
+    exe.run = counting_run
+    try:
+        t0 = time.perf_counter()
+        with eng:
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(BATCH_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+        wall = time.perf_counter() - t0
+    finally:
+        exe.run = real_run
+    launches = K.launch_counts()
+    if errors or any(r is None for r in results):
+        raise SystemExit(f"chip_smoke: the clean batching leg saw typed "
+                         f"failures: {errors[:3]}")
+    return dict(results=results, wall_s=wall, launches=launches,
+                per_bucket=dict(per_bucket),
+                dispatches=int(monitor.metric_value(
+                    "serving_batches_total", 0.0, result="ok")),
+                latency=monitor.metric_value(
+                    "serving_request_latency_seconds"),
+                occupancy=monitor.metric_value("serving_batch_occupancy"),
+                batch_seconds=monitor.metric_value("serving_batch_seconds"),
+                accounting={k: v for k, v in eng.accounting().items()
+                            if k != "recent_outcomes"})
+
+
+def serve_batch_chaos(engine, rows, clean):
+    """Faults on batch_dispatch and overload: three failed dispatches open
+    the bucket's breaker, a request is refused CircuitOpen, a probe after
+    the cooldown closes it, the sixth admission is shed; then a burst.
+    Every request settles typed and the accounting is exact."""
+    def transitions():
+        return {to: monitor.metric_value("serving_breaker_transitions_total",
+                                         0.0, to=to)
+                for to in ("open", "half_open", "closed")}
+
+    def outcome(i, eng):
+        try:
+            err = eng.submit(rows[i]).exception(timeout=600)
+        except Overloaded as e:
+            return "Overloaded", None, e
+        return (type(err).__name__ if err else "ok"), err, None
+
+    tr0 = transitions()
+    eng = engine(breaker_threshold=3, breaker_cooldown_s=0.2)
+    sequence, worst, burst = [], 0.0, collections.Counter()
+    with faults.fault_plan_guard(BATCH_CHAOS_PLAN), eng:
+        for i in range(6):
+            if i == 4:
+                time.sleep(0.5)            # past the cooldown: half-open
+            sequence.append(outcome(i, eng)[0])
+        futs = []
+        for i in range(8, 8 + BATCH_CHAOS_BURST):
+            try:
+                futs.append((i, eng.submit(rows[i])))
+            except Overloaded:
+                burst["Overloaded"] += 1
+        for i, f in futs:
+            err = f.exception(timeout=600)
+            burst[type(err).__name__ if err else "ok"] += 1
+            if err is None:
+                w, good = within_amp_tol(f.result()[0], clean[i][0])
+                worst = max(worst, w)
+                if not good:
+                    raise SystemExit(f"chip_smoke: chaos-leg request {i} "
+                                     f"differs from the clean run beyond "
+                                     f"{AMP_INFER_TOL}")
+            elif not isinstance(err, (BatchFailed, CircuitOpen)):
+                raise SystemExit(f"chip_smoke: chaos-leg request {i} "
+                                 f"settled untyped: {err!r}")
+    acct = {k: v for k, v in eng.accounting().items()
+            if k != "recent_outcomes"}
+    tr = {k: v - tr0[k] for k, v in transitions().items()}
+    want = ["BatchFailed"] * 3 + ["CircuitOpen", "ok", "Overloaded"]
+    if sequence != want:
+        raise SystemExit(f"chip_smoke: chaos outcomes {sequence}, expected "
+                         f"{want}")
+    if not acct["exact"] or acct["submitted"] != 6 + BATCH_CHAOS_BURST:
+        raise SystemExit(f"chip_smoke: chaos accounting not exact: {acct}")
+    if min(tr.values()) < 1:
+        raise SystemExit(f"chip_smoke: the breaker did not open, half-open "
+                         f"and close: {tr}")
+    return dict(plan=BATCH_CHAOS_PLAN, sequence=sequence, burst=dict(burst),
+                accounting=acct, transitions=tr, max_abs_err=worst)
+
+
+def serve_batch_observe(engine, rows, out_dir):
+    """The registry's Prometheus text parses with the port's own parser
+    and holds the serving and executor families; under FLAGS_trace one
+    request's trace has the reference's spans and parent links."""
+    fams = monitor.parse_prometheus_text(
+        monitor.get_registry().to_prometheus())
+    missing = BATCH_FAMILIES - set(fams)
+    if missing:
+        raise SystemExit(f"chip_smoke: metric families missing from the "
+                         f"Prometheus text: {sorted(missing)}")
+    fluid.set_flags({"FLAGS_trace": True})
+    try:
+        trace.get_collector().reset()
+        eng = engine()
+        with eng:
+            fut = eng.submit(rows[0])
+            fut.result(timeout=600)
+        spans = trace.trace_tree(fut.trace_id)
+        by_id = {s.span_id: s.name for s in spans}
+        links = {(s.name, by_id.get(s.parent_id)) for s in spans}
+        batch = [s for s in trace.spans() if s.name == "executor.run"]
+        n_events = 0
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            n_events = trace.export_chrome(
+                os.path.join(out_dir, "serve_batch_trace.json"))
+    finally:
+        fluid.set_flags({"FLAGS_trace": False})
+        trace.get_collector().reset()
+    if links != REQUEST_SPANS or not batch:
+        raise SystemExit(f"chip_smoke: request trace {sorted(links, key=str)}"
+                         f", expected {sorted(REQUEST_SPANS, key=str)} and "
+                         f"an executor.run span")
+    return dict(families=sorted(fams), request_spans=sorted(links, key=str),
+                chrome_events=n_events)
 
 
 # ---------------------------------------------------------------- train
@@ -1786,8 +2305,14 @@ def main():
     with timed("serve"):
         model, params, exe, run = phase_serve(args.seed)
     with timed("whole_path"):
-        whole = phase_whole_path(model, params, exe, run, args.seed)
+        whole, gaps = phase_whole_path(model, params, exe, run, args.seed)
+    with timed("serve_spec"):
+        spec = phase_serve_spec(model, params, exe, run, gaps, args.seed)
     del model, params, exe
+    torch.cuda.empty_cache()
+    with timed("serve_batch"):
+        batched = phase_serve_batch(args.seed, args.out_dir)
+    torch.cuda.empty_cache()
     with timed("train"):
         trained = phase_train(args.seed)
     torch.cuda.empty_cache()
@@ -1802,14 +2327,19 @@ def main():
     torch.cuda.empty_cache()
     with timed("infer_resnet"):
         inferred_resnet = phase_infer_resnet(args.seed)
-    # launches on the main paths: serving (K1, K2), training in f32 and
-    # in bf16 (K1, K3, K4), inference in f32 and bf16 (K1, K5) and
-    # ResNet-50 bf16 training (none) and inference (K5), each counted
-    # from 0 over its own run
-    launches = {n: run["launches"][n] + trained["launches"][n]
-                + trained_amp["launches"][n] + inferred["launches"][n]
-                + trained_resnet["launches"][n]
-                + inferred_resnet["launches"][n]
+    # launches on the main paths: serving (K1, K2), speculative serving
+    # (K1, K2's 8-row route), batching BERT serving (K1, K5 bf16),
+    # training in f32 and in bf16 (K1, K3, K4), inference in f32 and bf16
+    # (K1, K5) and ResNet-50 bf16 training (none) and inference (K5),
+    # each counted from 0 over its own run
+    by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
+                "serve_batch": batched["launches"],
+                "train": trained["launches"],
+                "train_amp": trained_amp["launches"],
+                "infer": inferred["launches"],
+                "train_resnet": trained_resnet["launches"],
+                "infer_resnet": inferred_resnet["launches"]}
+    launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
     report = {"card": card, "kernels": kres, "dropout_masks": masks,
@@ -1819,6 +2349,8 @@ def main():
                   "launches": run["launches"],
                   "accounting": dict(run["accounting"]),
                   "stats": run["stats"], "whole_path": whole},
+              "serve_spec": spec, "serve_batch": batched,
+              "launches_by_phase": by_phase,
               "train": trained, "train_amp": trained_amp,
               "infer": inferred, "train_resnet": trained_resnet,
               "infer_resnet": inferred_resnet, "launches": launches}
@@ -1836,7 +2368,8 @@ def main():
                                if x["dtype"] == "float32"),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "phases": [p for p, c in by_phase.items() if c[name]]})
     report["kernels_line"] = line
     report["wall_s"] = time.perf_counter() - t0
     report["seconds"] = dict(TIMES)

@@ -16,12 +16,15 @@ card), bf16 mixed precision (``contrib.mixed_precision``: ``decorate``
 for training, ``decorate_program`` for inference) and the MLP train step
 (``models.mlp.build_mnist_mlp``, SGD), and ResNet training and inference
 (``models.resnet.build_resnet``: conv2d, batch_norm, pool2d, Momentum,
-weight decay through ``regularizer``). ``Executor()`` runs on
-``CUDAPlace(0)``; pass ``CPUPlace()`` for the CPU.
+weight decay through ``regularizer``), and the serving services
+(``serving.ServingEngine`` batching with admission control, speculative
+decoding in ``serving.GenerativeEngine``, ``monitor``, ``trace`` and
+``resilience``). ``Executor()`` runs on ``CUDAPlace(0)``; pass
+``CPUPlace()`` for the CPU.
 """
 from . import ops  # noqa: F401  (registers the op rules)
-from . import (contrib, layers, optimizer, regularizer,  # noqa: F401
-               unique_name)
+from . import (contrib, layers, monitor, optimizer,  # noqa: F401
+               regularizer, resilience, serving, trace, unique_name)
 from .backward import append_backward
 from .executor import CPUPlace, CUDAPlace, Executor, Scope, global_scope
 from .flags import flag, get_flags, set_flags
@@ -35,4 +38,5 @@ __all__ = ["CPUPlace", "CUDAPlace", "Executor", "Scope", "global_scope",
            "flag", "get_flags", "set_flags", "Program", "default_main_program",
            "default_startup_program", "program_guard", "Constant",
            "Normal", "TruncatedNormal", "Uniform", "Xavier", "ParamAttr",
-           "layers", "unique_name", "contrib"]
+           "layers", "unique_name", "contrib", "monitor", "trace",
+           "resilience", "serving"]

@@ -16,13 +16,14 @@
 
 Registered passes (``builtin_passes``): ``liveness`` (analysis, PT50x +
 the def/use chains) and ``epilogue_fusion`` (transform, requires
-liveness). Re-verification after each transform at
-``FLAGS_check_program>=2`` arrives with the verifier, per-pass metrics
-with ``monitor``.
+liveness). Every pass run is counted through ``monitor.record_pass``
+(``pass_runs_total``, ``pass_duration_seconds``). Re-verification after
+each transform at ``FLAGS_check_program>=2`` arrives with the verifier.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from .diagnostics import Diagnostic
@@ -174,10 +175,12 @@ class PassContext:
             self.analysis(dep)
         start = len(self.diagnostics)
         self._running.append(name)
+        t0 = time.perf_counter()
         try:
             value = p.run(self.program, self)
         finally:
             self._running.pop()
+        _record_pass_metrics(name, p.kind, time.perf_counter() - t0)
         self._cache[name] = value
         self._cache_diags[name] = self.diagnostics[start:]
         return value
@@ -262,11 +265,17 @@ class PassManager:
         for name in self.resolve(passes):
             p = self.registry.get(name)
             if p.kind == ANALYSIS:
+                if name in ctx._cache:
+                    _record_pass_metrics(name, p.kind, 0.0, cached=True)
                 values[name] = ctx.analysis(name)
                 diags.extend(ctx._cache_diags.get(name, ()))
                 continue
             start = len(ctx.diagnostics)
-            out = p.run(current, ctx)
+            t0 = time.perf_counter()
+            try:
+                out = p.run(current, ctx)
+            finally:
+                _record_pass_metrics(name, p.kind, time.perf_counter() - t0)
             values[name] = out
             diags.extend(ctx.diagnostics[start:])
             new_prog = out
@@ -280,6 +289,13 @@ class PassManager:
             changed = True
         return PipelineResult(program=current, diagnostics=diags,
                               values=values, context=ctx, changed=changed)
+
+
+def _record_pass_metrics(name: str, kind: str, seconds: float,
+                         cached: bool = False) -> None:
+    from .. import monitor
+
+    monitor.record_pass(name, kind, seconds, cached=cached)
 
 
 def _is_program(obj) -> bool:

@@ -24,18 +24,45 @@ forward-only program for its GEMM-epilogue-fused clone
 the decision is cached per (program serial, version, op count, fetches,
 ``FLAGS_fused_gemm_blocks``, ``FLAGS_use_fused_gemm``): a new block triple
 or route mode re-runs the witness.
+
+Instrumentation (the reference's, ``paddle_tpu/executor.py``):
+``monitor.step_begin``/``step_end`` around every dispatch; the spans
+``executor.run``, ``executor.step``, ``executor.run_chained`` and
+``executor.compile``; ``monitor.record_cache_lookup``; the fault sites
+``device_put`` (each feed copy, retried as transient), ``step`` (before
+the program runs), ``compile`` (at a key's compile event, retried) and
+``hang`` (inside the watchdog-armed section, ``FLAGS_step_timeout_s``).
+
+What a compile is here: the port keeps no executable, so its compile
+event is the first run of an executor key — the program fingerprint,
+the feed signature, the fetch list, the scope serial and the flags the
+port keys on (fusion, ``FLAGS_use_fused_gemm``, the AMP policy), plus
+the step count on the chained path. ``monitor.observe_compile`` records
+it, naming the changed component as the reference does; its
+``trace_lower`` stage is the preparation the call paid (the fusion pass
+and its witness), its ``xla_compile`` stage 0. The reference's
+XLA-only key component (``FLAGS_xla_options``) has no counterpart.
+``self._cache`` maps each key to a :class:`_Step` record, keyed as the
+reference keys its compiled steps, so the serving engine's recompile
+guard reads it the same way.
 """
 from __future__ import annotations
 
-import threading
+import itertools
+import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from . import monitor as _monitor
+from . import trace as _trace
 from .core.types import torch_dtype
 from .framework import Program, Variable, default_main_program
 from .lowering import EMPTY_VAR_NAME, LowerCtx, lower_op
+from .resilience import distributed as _dist
+from .resilience import faults as _faults
+from .resilience.retry import call_with_retry
 
 __all__ = ["Executor", "Scope", "global_scope", "CPUPlace", "CUDAPlace"]
 
@@ -73,9 +100,13 @@ class Scope:
     dispatcher runs programs on its own thread while user code may read
     the scope."""
 
+    # monotonic identity for executor keys (id() can alias after GC)
+    _serial_counter = itertools.count()
+
     def __init__(self):
         self.vars: Dict[str, Any] = {}
-        self._lock = threading.RLock()
+        self._serial = next(Scope._serial_counter)
+        self._lock = _monitor.make_rlock("Scope._lock")
 
     def find_var(self, name: str):
         with self._lock:
@@ -105,6 +136,32 @@ def _fetch_name(f) -> str:
     return f.name if isinstance(f, Variable) else f
 
 
+def _shape_dtype_sig(v):
+    """(shape, dtype) of a feed without copying it."""
+    if hasattr(v, "shape") and hasattr(v, "dtype"):
+        return (tuple(v.shape), str(v.dtype))
+    a = np.asarray(v)
+    return (tuple(a.shape), str(a.dtype))
+
+
+def _feed_host_bytes(v) -> int:
+    """Bytes a feed moves host->device (0 for a tensor already there)."""
+    if isinstance(v, np.ndarray):
+        return int(v.nbytes)
+    if isinstance(v, torch.Tensor):
+        return 0 if v.device.type != "cpu" else v.nelement() * \
+            v.element_size()
+    try:
+        return int(np.asarray(v).nbytes)
+    except Exception:
+        return 0
+
+
+def _tensor_bytes(vals) -> int:
+    return sum(v.nelement() * v.element_size() for v in vals
+               if isinstance(v, torch.Tensor))
+
+
 def _feed_batch_rows(feed) -> int:
     """Leading feed dim (the batch the fusion witness and its PT755
     report resolve -1 dims to)."""
@@ -116,14 +173,50 @@ def _feed_batch_rows(feed) -> int:
     return batch
 
 
+class _Step:
+    """One executor key (the counterpart of the reference's compiled
+    step): the program it runs, its state split, and the pending compile
+    event, completed at the key's first run."""
+
+    __slots__ = ("program", "donated_names", "prepared", "prep_s",
+                 "_compile_event", "_lock")
+
+    def __init__(self, program: Program, prep_s: float):
+        self.program = program
+        blk = program.global_block
+        produced, state_in, state_out = set(), [], set()
+        for op in blk.ops:
+            for n in op.input_arg_names:
+                if n not in produced and n != EMPTY_VAR_NAME:
+                    state_in.append(n)
+            for n in op.output_arg_names:
+                produced.add(n)
+                if blk.has_var(n) and blk.var(n).persistable:
+                    state_out.add(n)
+        # state read and written, updated in place or stored back (the
+        # reference's donated buffers; the port copies no state, so the
+        # record's kept_buffers, the reference's donation-unsafe state,
+        # stays 0)
+        self.donated_names = sorted({n for n in state_in
+                                     if n in state_out})
+        self.prepared = False
+        self.prep_s = prep_s
+        self._compile_event = None
+        # serializes the first run's compile event per key (a retry
+        # backoff there must not hold the executor lock)
+        self._lock = _monitor.make_lock("_CompiledStep._aot_lock")
+
+
 class Executor:
     """Runs programs op by op on one device."""
 
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.torch_device()
-        self._lock = threading.Lock()
+        self._lock = _monitor.make_rlock("Executor._lock")
         self._step_counter = 0
+        # executor key -> _Step (see the module docstring)
+        self._cache: Dict[tuple, _Step] = {}
         # FLAGS_epilogue_fusion: (fingerprint, fetches, blocks, route
         # mode) -> the program to run, and the FusionDecision that chose it
         self._fusion_cache: Dict[tuple, Program] = {}
@@ -166,12 +259,23 @@ class Executor:
             scope.set_var(name, v)
         return v
 
-    def _run_once(self, program, feed, fetch_names, scope):
+    def _feed_tensors(self, program, feed) -> Dict[str, torch.Tensor]:
+        """Each feed copied to the device: a transient site (``device_put``
+        fault point, retried with backoff)."""
         blk = program.global_block
-        env: Dict[str, Any] = {}
+        out = {}
         for n, v in feed.items():
-            env[n] = self._to_tensor(
-                v, blk.var(n).dtype if blk.has_var(n) else None)
+            dt = blk.var(n).dtype if blk.has_var(n) else None
+
+            def _put(v=v, dt=dt):
+                _faults.fault_point("device_put")
+                return self._to_tensor(v, dt)
+            out[n] = call_with_retry("device_put", _put)
+        return out
+
+    def _run_once(self, program, feed_tensors, fetch_names, scope):
+        blk = program.global_block
+        env: Dict[str, Any] = dict(feed_tensors)
         ctx = LowerCtx(self.device, seed=self._next_seed(program),
                        program=program)
         written = set()
@@ -233,7 +337,82 @@ class Executor:
             if winner is None:
                 winner = self._fusion_cache[key] = decision.program
                 self._fusion_decisions[key] = decision
+                record = True
+            else:
+                record = False
+        if record:
+            _monitor.record_fusion(decision)
         return winner
+
+    def _prepare(self, program, feed, fetch_names):
+        """The fusion swap, timed: the preparation a new key's compile
+        event reports as its ``trace_lower`` stage."""
+        t0 = time.perf_counter()
+        program = self._maybe_epilogue_fusion(program, feed, fetch_names)
+        return program, time.perf_counter() - t0
+
+    def _key_flags(self, program) -> tuple:
+        from .flags import flag
+
+        amp = getattr(program, "_amp_policy", None)
+        return (("epilogue_fusion", bool(flag("epilogue_fusion"))),
+                ("use_fused_gemm", flag("use_fused_gemm")),
+                ("amp", amp.compute_dtype if amp is not None else None))
+
+    def _get_step(self, path, program, key, components, prep_s, mrec):
+        """Look ``key`` up; a miss is a compile event (recorded, completed
+        at the step's first run). Under the executor lock, so racing
+        threads share one step and one compile record."""
+        with self._lock:
+            step = self._cache.get(key)
+            hit = step is not None
+            _monitor.record_cache_lookup(path, hit)
+            if mrec is not None:
+                mrec.cache_hit = hit
+            if hit:
+                return step
+            step = _Step(program, prep_s)
+            step._compile_event = _monitor.observe_compile(
+                path, program, components, donated_names=step.donated_names)
+            self._cache[key] = step
+            return step
+
+    def _ensure_prepared(self, step: _Step) -> None:
+        """A key's first run completes its compile event: the ``compile``
+        fault site (retried as transient) under the ``executor.compile``
+        span; stage timings preparation / 0."""
+        if step.prepared:
+            return
+        with step._lock:
+            if step.prepared:
+                return
+            ev, step._compile_event = step._compile_event, None
+            try:
+                with _trace.span(
+                        "executor.compile",
+                        program=int(getattr(step.program, "_serial", -1))):
+                    call_with_retry("compile", _faults.fault_point,
+                                    "compile")
+                step.prepared = True
+            finally:
+                _monitor.complete_compile(ev, step.prep_s, 0.0)
+
+    def _fill_record(self, mrec, step, feed, fetch_names, scope) -> None:
+        if mrec is None:
+            return
+        mrec.fetch_names = tuple(fetch_names)
+        mrec.feed_bytes = sum(_feed_host_bytes(v) for v in feed.values())
+        mrec.batch_rows = _feed_batch_rows(feed)
+        mrec.donated_buffers = len(step.donated_names)
+        mrec.donated_bytes = _tensor_bytes(
+            scope.find_var(n) for n in step.donated_names)
+
+    def _sync_if_armed(self, tok) -> None:
+        """Under ``FLAGS_step_timeout_s`` the armed section waits for the
+        device (the reference blocks on the result there too), so a stuck
+        device run stays inside the section."""
+        if tok is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- public API ------------------------------------------------------
     def run(self, program: Optional[Program] = None,
@@ -242,11 +421,49 @@ class Executor:
             scope: Optional[Scope] = None, return_numpy: bool = True):
         program = program or default_main_program()
         scope = scope if scope is not None else global_scope()
+        feed = feed or {}
         names = [_fetch_name(f) for f in fetch_list or []]
-        program = self._maybe_epilogue_fusion(program, feed, names)
-        fetches = self._run_once(program, feed or {}, names, scope)
+        program, prep_s = self._prepare(program, feed, names)
+        mrec = _monitor.step_begin("run", program)
+        # child of whatever request trace is ambient on this thread
+        with _trace.span("executor.run",
+                         program=int(getattr(program, "_serial", -1))):
+            try:
+                return self._run_body(program, feed, names, scope,
+                                      return_numpy, mrec, prep_s)
+            finally:
+                _monitor.step_end(mrec)
+
+    def _run_body(self, program, feed, names, scope, return_numpy, mrec,
+                  prep_s):
+        from .analysis.pass_manager import program_fingerprint
+
+        fp = program_fingerprint(program)
+        feed_sig = tuple(sorted((n,) + _shape_dtype_sig(v)
+                                for n, v in feed.items()))
+        kflags = self._key_flags(program)
+        key = (fp, feed_sig, tuple(names), scope._serial, kflags)
+        step = self._get_step("run", program, key, {
+            "program": fp[1:], "feed_signature": feed_sig,
+            "fetch_list": tuple(names), "scope": scope._serial,
+            "flags": kflags}, prep_s, mrec)
+        self._fill_record(mrec, step, feed, names, scope)
+        feed_t = self._feed_tensors(program, feed)
+        # the step-site probe fires before any state is written
+        _faults.fault_point("step")
+        self._ensure_prepared(step)
+        with _trace.span("executor.step",
+                         cache_hit=bool(mrec.cache_hit)
+                         if mrec is not None else None), \
+                _dist.watchdog_section("step", program=program) as tok:
+            _faults.fault_point("hang")
+            fetches = self._run_once(program, feed_t, names, scope)
+            self._sync_if_armed(tok)
         if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
+            outs = [f.detach().cpu().numpy() for f in fetches]
+            if mrec is not None:
+                mrec.fetch_bytes = sum(int(o.nbytes) for o in outs)
+            return outs
         return fetches
 
     def run_chained(self, program: Optional[Program] = None,
@@ -259,15 +476,48 @@ class Executor:
         scope holds the final state, exactly as ``steps`` calls of
         :meth:`run`. The fetches stay on the device until the end, so the
         host waits for the device once per call."""
+        from .analysis.pass_manager import program_fingerprint
+
         program = program or default_main_program()
         scope = scope if scope is not None else global_scope()
+        feed = feed or {}
         names = [_fetch_name(f) for f in fetch_list or []]
-        program = self._maybe_epilogue_fusion(program, feed, names)
-        per_step: List[List[torch.Tensor]] = [
-            self._run_once(program, feed or {}, names, scope)
-            for _ in range(int(steps))]
-        stacked = [torch.stack([s[i] for s in per_step])
-                   for i in range(len(names))]
-        if return_numpy:
-            return [t.detach().cpu().numpy() for t in stacked]
-        return stacked
+        program, prep_s = self._prepare(program, feed, names)
+        fp = program_fingerprint(program)
+        feed_sig = tuple(sorted((n,) + _shape_dtype_sig(v)
+                                for n, v in feed.items()))
+        kflags = self._key_flags(program)
+        key = ("chained", fp, feed_sig, tuple(names), int(steps),
+               scope._serial, kflags)
+        mrec = _monitor.step_begin("chained", program)
+        if mrec is not None:
+            mrec.iterations = int(steps)
+        with _trace.span("executor.run_chained",
+                         program=int(getattr(program, "_serial", -1)),
+                         steps=int(steps)):
+            try:
+                step = self._get_step("chained", program, key, {
+                    "program": fp[1:], "feed_signature": feed_sig,
+                    "fetch_list": tuple(names), "scope": scope._serial,
+                    "steps": int(steps), "flags": kflags}, prep_s, mrec)
+                self._fill_record(mrec, step, feed, names, scope)
+                feed_t = self._feed_tensors(program, feed)
+                _faults.fault_point("step")
+                self._ensure_prepared(step)
+                with _dist.watchdog_section("chained",
+                                            program=program) as tok:
+                    _faults.fault_point("hang")
+                    per_step: List[List[torch.Tensor]] = [
+                        self._run_once(program, feed_t, names, scope)
+                        for _ in range(int(steps))]
+                    stacked = [torch.stack([s[i] for s in per_step])
+                               for i in range(len(names))]
+                    self._sync_if_armed(tok)
+                if return_numpy:
+                    outs = [t.detach().cpu().numpy() for t in stacked]
+                    if mrec is not None:
+                        mrec.fetch_bytes = sum(int(o.nbytes) for o in outs)
+                    return outs
+                return stacked
+            finally:
+                _monitor.step_end(mrec)

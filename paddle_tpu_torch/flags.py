@@ -1,6 +1,8 @@
-"""FLAGS_* config (counterpart of ``paddle_tpu/flags.py``), the flags this
-slice of the port reads. Flags resolve, in order: explicit ``set_flags``
-> ``FLAGS_<name>`` env var > default."""
+"""FLAGS_* config (counterpart of ``paddle_tpu/flags.py``), the flags the
+port reads, under the reference's names, types and defaults. Flags
+resolve, in order: explicit ``set_flags`` > ``FLAGS_<name>`` env var >
+default. A flag whose "on" value needs a part the port lacks raises
+``NotImplementedError`` naming it (``_REFUSED_ON``)."""
 from __future__ import annotations
 
 import os
@@ -15,6 +17,81 @@ _DEFS: Dict[str, tuple] = {
                             "kernel on a CUDA tensor, the plain PyTorch "
                             "version on a CPU tensor) or never (the plain "
                             "version everywhere)"),
+    "monitor": (bool, True,
+                "runtime metrics collection (paddle_tpu_torch.monitor): "
+                "executor counters/histograms, step hooks, recompile "
+                "diagnostics, serving metrics. Off disables all collection"),
+    "lock_witness": (bool, False,
+                     "instrument the named framework locks "
+                     "(monitor.lockwitness factories): per-thread "
+                     "acquisition-order edges, wait/hold histograms and "
+                     "runtime lock-order cycle detection. Off: the "
+                     "factories return plain threading primitives"),
+    "log_compiles": (bool, False,
+                     "log every executor compile event (INFO) and "
+                     "recompile (WARNING, with the changed cache-key "
+                     "component and program build site)"),
+    "recompile_warn_threshold": (int, 3,
+                                 "warn via logging once a single program "
+                                 "has recompiled this many times, even "
+                                 "without FLAGS_log_compiles (0 disables)"),
+    "fault_plan": (str, "",
+                   "deterministic fault-injection schedule, e.g. "
+                   "'batch_dispatch:2:RuntimeError,overload:@3:RuntimeError'"
+                   " (resilience.faults; the port probes compile, "
+                   "device_put, step, hang, enqueue, overload and "
+                   "batch_dispatch; the 'hang' action is an interruptible "
+                   "stall the step watchdog must break). Empty disables"),
+    "fault_seed": (int, 0,
+                   "seed for probabilistic fault-plan rules and retry "
+                   "jitter: the same plan and seed replay identically"),
+    "fault_stall_s": (float, 5.0,
+                      "duration of the 'stall' data-plane fault action "
+                      "(resilience.faults.stall)"),
+    "retry_max_attempts": (int, 3,
+                           "attempts (first try included) for transient "
+                           "failures at the compile/device_put sites; 1 "
+                           "disables retry"),
+    "retry_base_delay": (float, 0.05,
+                         "first backoff delay in seconds (doubles per "
+                         "retry, seeded jitter on top)"),
+    "retry_max_delay": (float, 2.0, "backoff delay ceiling in seconds"),
+    "retry_timeout": (float, 30.0,
+                      "per-site wall-clock retry budget in seconds across "
+                      "all attempts (0 = unlimited)"),
+    "step_timeout_s": (float, 0.0,
+                       "step watchdog (resilience.distributed): arm a "
+                       "deadline around the executor's compile and step "
+                       "sections; on expiry every thread's stack and the "
+                       "last recompile diagnosis are dumped and the section "
+                       "raises WatchdogTimeout. A thread inside a CUDA call "
+                       "cannot be broken (only Python code can), so that "
+                       "case is left to the hard exit. 0 disables"),
+    "watchdog_hard_exit": (bool, True,
+                           "after a watchdog expiry, if the hung section "
+                           "is still armed one extra timeout later, "
+                           "os._exit(124) with the diagnosis already on "
+                           "stderr. Off: dump and raise only"),
+    "trace": (bool, False,
+              "structured span tracing (paddle_tpu_torch.trace): request "
+              "and step trace-id propagation through serving, executor and "
+              "retry, feeding the flight recorder and the Chrome/JSONL "
+              "exporters. Off (default) the hot paths pay one memoized "
+              "flag read and a no-op singleton"),
+    "trace_buffer_size": (int, 4096,
+                          "finished spans kept in the bounded trace "
+                          "collector (oldest evicted)"),
+    "flight_recorder_size": (int, 256,
+                             "spans kept in the flight-recorder ring "
+                             "dumped into a WatchdogTimeout or BatchFailed "
+                             "incident; 0 disables the recorder"),
+    "fleet_telemetry": (bool, False,
+                        "the fleet telemetry plane (trace-id exemplars, "
+                        "cost gauges): not in the port yet, which refuses "
+                        "the flag on"),
+    "serving_max_batch": (int, 8,
+                          "serving: largest padded batch per dispatch; "
+                          "shape buckets are powers of two up to this"),
     "serving_queue_depth": (int, 256,
                             "serving admission control: queued requests "
                             "above this are rejected with typed Overloaded"),
@@ -22,6 +99,69 @@ _DEFS: Dict[str, tuple] = {
                            "default per-request deadline in seconds (0: "
                            "none); an expired request settles typed "
                            "DeadlineExceeded"),
+    "serving_queue_age_s": (float, 5.0,
+                            "serving admission control: when the OLDEST "
+                            "queued request is older than this, new "
+                            "arrivals are shed as Overloaded (0 disables)"),
+    "serving_batch_window_s": (float, 0.0,
+                               "how long the dispatcher waits for a "
+                               "partially-filled batch to fill before "
+                               "dispatching it anyway (0 = dispatch "
+                               "whatever is queued)"),
+    "serving_breaker_threshold": (int, 3,
+                                  "consecutive batch failures that OPEN a "
+                                  "shape bucket's circuit breaker (requests "
+                                  "for that bucket are then rejected "
+                                  "CircuitOpen until a half-open probe "
+                                  "succeeds)"),
+    "serving_breaker_cooldown_s": (float, 0.5,
+                                   "base open->half-open cooldown; each "
+                                   "re-open backs off through the "
+                                   "resilience.retry schedule"),
+    "serving_degrade_after_s": (float, 1.0,
+                                "sustained overload pressure for this long "
+                                "enters degraded mode: max batch halves "
+                                "and sub-priority requests are shed"),
+    "serving_recover_after_s": (float, 1.0,
+                                "pressure-free time before degraded mode "
+                                "restores the full batch ceiling"),
+    "serving_degraded_min_priority": (int, 1,
+                                      "in degraded mode, requests with "
+                                      "priority below this are shed at "
+                                      "admission with typed Overloaded"),
+    "serving_bisect_depth": (int, 0,
+                             "poison-request bisection depth; the port "
+                             "has no bisection yet and refuses values "
+                             "above 0"),
+    "serving_bisect_quarantine": (int, 64,
+                                  "bounded count of poison feed "
+                                  "fingerprints remembered per engine "
+                                  "(read with bisection only)"),
+    "serving_slo_latency_s": (str, "batch:30,standard:1.0,interactive:0.25",
+                              "per-priority-class latency objective of the "
+                              "SLO burn-rate tracker (serving/slo.py): "
+                              "'class:seconds' pairs, comma-separated"),
+    "serving_slo_error_budget": (float, 0.01,
+                                 "allowed bad-request fraction of the SLO "
+                                 "objective; burn rate = observed bad "
+                                 "fraction / this budget"),
+    "serving_slo_fast_window_s": (float, 60.0,
+                                  "fast burn-rate window in seconds"),
+    "serving_slo_slow_window_s": (float, 600.0,
+                                  "slow burn-rate window in seconds"),
+    "serving_tenant_fair_share": (bool, False,
+                                  "per-tenant admission fairness: a tenant "
+                                  "over its queue quota is shed typed "
+                                  "Overloaded(reason=tenant_quota), and the "
+                                  "dispatcher anchors batches by weighted "
+                                  "fair queueing instead of FIFO"),
+    "serving_tenant_weights": (str, "",
+                               "'tenant:weight,...' fair-share weights; "
+                               "unlisted tenants weigh 1"),
+    "serving_tenant_quota_frac": (float, 0.5,
+                                  "largest fraction of serving_queue_depth "
+                                  "one weight-1 tenant may occupy; weight w "
+                                  "scales it w times (capped at the queue)"),
     "epilogue_fusion": (bool, False,
                         "GEMM-epilogue fusion (analysis/epilogue_fusion.py, "
                         "a registered transform pass): Executor.run and "
@@ -53,7 +193,20 @@ _CHOICES: Dict[str, tuple] = {"use_flash_attention": ("auto", "never"),
                               "use_fused_gemm": ("auto", "always", "never"),
                               "conv_use_nhwc": ("auto", "always", "never")}
 
+# flags whose "on" value needs a part the port does not have yet
+_REFUSED_ON: Dict[str, str] = {
+    "fleet_telemetry": "the fleet telemetry plane (FLAGS_fleet_telemetry, "
+                       "program_cost, observe_*_cost) needs "
+                       "analysis/cost_model.py and the fleet tier, which "
+                       "the port does not have yet",
+}
+
 _overrides: Dict[str, Any] = {}
+
+# bumped on every set_flags call: cheap change detection for hot-path
+# callers that memoize a flag value (trace.enabled caches FLAGS_trace
+# against it). Env-var changes after the first read are not observed.
+_set_epoch = 0
 
 
 def _value(name: str, raw):
@@ -61,6 +214,9 @@ def _value(name: str, raw):
     if name in _CHOICES and val not in _CHOICES[name]:
         raise ValueError(f"FLAGS_{name}={val!r}: takes one of "
                          f"{_CHOICES[name]}")
+    if val and name in _REFUSED_ON:
+        raise NotImplementedError(f"FLAGS_{name}={val!r}: "
+                                  f"{_REFUSED_ON[name]}")
     return val
 
 
@@ -101,9 +257,11 @@ def get_flags(names=None) -> Dict[str, Any]:
 
 def set_flags(flags_dict: Dict[str, Any]) -> None:
     """``set_flags({'FLAGS_use_flash_attention': 'never'})``."""
+    global _set_epoch
     for k, v in flags_dict.items():
         name = k.replace("FLAGS_", "")
         if name not in _DEFS:
             raise KeyError(f"unknown flag '{k}' — known: "
                            f"{sorted('FLAGS_' + n for n in _DEFS)}")
         _overrides[name] = _value(name, v)
+    _set_epoch += 1

@@ -1,0 +1,273 @@
+"""paddle_tpu_torch.monitor — executor runtime metrics, recompile
+diagnostics and step hooks (counterpart of ``paddle_tpu/monitor``, with the
+reference's metric names, labels and record fields).
+
+* ``registry`` — thread-safe counters/gauges/histograms with JSON and
+  Prometheus-text exporters (``get_registry()``, ``metric_value()``);
+  ``promtext`` parses the text form back.
+* ``hooks`` — ``add_hook(on_step_begin=..., on_step_end=...,
+  on_compile=...)`` fed by the executor.
+* ``recompile`` — compile-event diagnostics that name which key component
+  changed (program / feed_signature / fetch_list / scope / flags) with
+  the build site.
+* ``lockwitness`` — the named-lock factories (plain ``threading``
+  primitives unless ``FLAGS_lock_witness``).
+
+What a compile is here: the port interprets a program op by op and has
+no executable cache. Its compile event is the first run of an executor
+key (program serial and version, feed signature, fetch list, scope
+serial, and the flags the port keys on: fusion, ``FLAGS_use_fused_gemm``,
+the AMP policy). The event's ``trace_lower`` stage is the preparation
+(the fusion pass and its witness, when they ran); its ``xla_compile``
+stage is 0.
+
+``paddle_tpu_torch.resilience`` and ``serving`` report through the same
+registry. Everything is on by default (``FLAGS_monitor=0`` disables
+collection). Not in the port yet: the numerics witness
+(``monitor/numwitness.py``), and the telemetry plane's cost gauges
+(``program_cost``, ``observe_*_cost``), trace exemplars and histogram
+merging, which need ``analysis/cost_model.py`` and the fleet tier
+(``FLAGS_fleet_telemetry`` is refused on).
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from typing import Any, Dict, Optional
+
+from .hooks import (CompileRecord, Hook, StepRecord, add_hook, clear_hooks,
+                    dispatch, remove_hook)
+from .lockwitness import (make_condition, make_lock, make_rlock,
+                          reset_witness, witness_cycles, witness_edges,
+                          witness_enabled, witness_report)
+from .promtext import (ParsedFamily, PromParseError,
+                       histogram_snapshot_from_samples,
+                       parse_prometheus_text)
+from .recompile import RecompileTracker, build_site, get_tracker
+from .registry import (DEFAULT_TIME_BUCKETS, Counter, Gauge, Histogram,
+                       MetricFamily, MetricsRegistry, counter, gauge,
+                       get_registry, histogram, metric_value)
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricFamily", "MetricsRegistry",
+    "StepRecord", "CompileRecord", "Hook", "RecompileTracker",
+    "DEFAULT_TIME_BUCKETS",
+    "add_hook", "remove_hook", "clear_hooks", "get_registry", "counter",
+    "gauge", "histogram", "metric_value", "enabled", "record_cache_lookup",
+    "observe_compile", "complete_compile", "step_begin", "step_end",
+    "record_pass", "record_fusion", "record_watchdog_timeout",
+    "recompile_events", "recompile_count", "snapshot", "reset",
+    "get_tracker", "build_site",
+    "make_lock", "make_rlock", "make_condition", "witness_enabled",
+    "witness_report", "witness_edges", "witness_cycles", "reset_witness",
+    "parse_prometheus_text", "histogram_snapshot_from_samples",
+    "ParsedFamily", "PromParseError",
+]
+
+_step_counter = itertools.count()
+
+
+def enabled() -> bool:
+    """Collection master switch (``FLAGS_monitor``, default on)."""
+    from ..flags import flag
+
+    return bool(flag("monitor"))
+
+
+# -- executor instrumentation entry points ---------------------------------
+# (called from Executor.run / run_chained; every entry no-ops when
+# FLAGS_monitor=0)
+
+def record_cache_lookup(path: str, hit: bool) -> None:
+    if not enabled():
+        return
+    counter("executor_cache_lookups_total",
+            "executor key lookups by path and result").labels(
+        path=path, result="hit" if hit else "miss").inc()
+
+
+def observe_compile(path: str, program, components: Dict[str, Any],
+                    donated_names=()) -> Optional[CompileRecord]:
+    """Record a compile event (the first run of a new executor key):
+    compile counters, recompile diagnosis (component diff + build site)
+    and the static in-place-state bytes from the program's var shapes.
+    Returns the record so the caller can fill stage timings and fire
+    ``complete_compile``."""
+    if not enabled():
+        return None
+    serial = int(getattr(program, "_serial", -1))
+    rec = get_tracker().observe(path, serial, build_site(program),
+                                components)
+    counter("executor_compiles_total",
+            "compile events: first runs of a new executor key").labels(
+        path=path).inc()
+    if rec.recompile:
+        counter("executor_recompiles_total",
+                "compile events of a program that was already compiled "
+                "(a new key: feed shape, fetches, flags)").labels(
+            path=path).inc()
+    try:
+        blk = program.global_block
+        rec.donated_bytes_est = sum(
+            _var_bytes(blk.var(n)) for n in donated_names if blk.has_var(n))
+    except Exception:
+        pass
+    return rec
+
+
+def _var_bytes(v) -> int:
+    """Static bytes of one var at batch 1 (-1/None dims count as 1)."""
+    from ..core.types import np_dtype
+
+    if v.shape is None:
+        return 0
+    try:
+        item = int(np_dtype(v.dtype).itemsize)
+    except Exception:
+        item = 4
+    numel = 1
+    for d in v.shape:
+        d = int(d) if d is not None else -1
+        numel *= d if d >= 0 else 1
+    return numel * item
+
+
+def complete_compile(rec: Optional[CompileRecord],
+                     trace_lower_s: Optional[float],
+                     compile_s: Optional[float]) -> None:
+    """Attach stage timings to a compile record, export them, and fire the
+    ``on_compile`` hooks. Called once per compile event."""
+    if rec is None:
+        return
+    rec.trace_lower_s = trace_lower_s
+    rec.compile_s = compile_s
+    if trace_lower_s is not None:
+        histogram("executor_compile_seconds",
+                  "compile-stage wall time by stage").labels(
+            stage="trace_lower").observe(trace_lower_s)
+    if compile_s is not None:
+        histogram("executor_compile_seconds",
+                  "compile-stage wall time by stage").labels(
+            stage="xla_compile").observe(compile_s)
+    dispatch("compile", rec)
+
+
+def step_begin(path: str, program) -> Optional[StepRecord]:
+    if not enabled():
+        return None
+    rec = StepRecord(path=path,
+                     program_serial=int(getattr(program, "_serial", -1)),
+                     step_index=next(_step_counter))
+    rec._t0 = time.perf_counter()
+    dispatch("step_begin", rec)
+    return rec
+
+
+def step_end(rec: Optional[StepRecord]) -> None:
+    if rec is None:
+        return
+    if rec.duration_s is None and hasattr(rec, "_t0"):
+        rec.duration_s = time.perf_counter() - rec._t0
+    p = {"path": rec.path}
+    counter("executor_steps_total", "executor dispatches").labels(**p).inc()
+    if rec.path == "chained":
+        counter("executor_chained_iterations_total",
+                "scanned iterations inside run_chained dispatches").inc(
+            rec.iterations)
+    if rec.duration_s is not None:
+        histogram("executor_step_seconds",
+                  "wall time of one executor dispatch (feed packing + "
+                  "device step + state writeback)").labels(**p).observe(
+            rec.duration_s)
+    if rec.feed_bytes:
+        counter("executor_feed_bytes_total",
+                "host->device feed transfer bytes").inc(rec.feed_bytes)
+    if rec.fetch_bytes:
+        counter("executor_fetch_bytes_total",
+                "device->host fetch transfer bytes").inc(rec.fetch_bytes)
+    if rec.donated_buffers:
+        counter("executor_donated_buffers_total",
+                "state buffers updated in place").inc(
+            rec.donated_buffers)
+    if rec.kept_buffers:
+        counter("executor_kept_buffers_total",
+                "state buffers kept/copied (donation-unsafe)").inc(
+            rec.kept_buffers)
+    if rec.donated_bytes:
+        counter("executor_donated_bytes_total",
+                "live bytes of donated buffers").inc(rec.donated_bytes)
+    dispatch("step_end", rec)
+
+
+def record_watchdog_timeout(section: str) -> None:
+    """Account one step-watchdog expiry (resilience.distributed); the
+    section name is the armed region (compile / step / chained)."""
+    if not enabled():
+        return
+    counter("watchdog_timeouts_total",
+            "watchdog deadlines that expired (hangs converted to "
+            "diagnosed failures)").labels(section=section).inc()
+
+
+def record_pass(name: str, kind: str, seconds: float,
+                cached: bool = False) -> None:
+    """Account one IR-pass execution (analysis.pass_manager): run counts
+    by pass/kind/result (``cached`` = the PassContext served the analysis
+    from its cache) and wall-time histograms for real runs."""
+    if not enabled():
+        return
+    counter("pass_runs_total",
+            "IR pass executions by pass, kind and result (result=cached "
+            "means the PassContext analysis cache was hit)").labels(
+        **{"pass": name, "kind": kind,
+           "result": "cached" if cached else "run"}).inc()
+    if not cached:
+        histogram("pass_duration_seconds",
+                  "wall time of one IR pass execution, by pass").labels(
+            **{"pass": name}).observe(seconds)
+
+
+def record_fusion(decision) -> None:
+    """Record one FLAGS_epilogue_fusion decision
+    (analysis/epilogue_fusion.py FusionDecision): programs transformed vs
+    refused, and fused chains by epilogue kind."""
+    if not enabled():
+        return
+    counter("fusion_programs_total",
+            "epilogue-fusion decisions by outcome").labels(
+        outcome="applied" if decision.applied else "refused").inc()
+    if not decision.applied:
+        return
+    for c in decision.chains:
+        counter("fusion_ops_fused_total",
+                "GEMM-epilogue chains rewritten into fused_gemm_epilogue, "
+                "by epilogue kind").labels(
+            epilogue=c.get("epilogue", "?")).inc()
+
+
+# -- introspection ---------------------------------------------------------
+
+def recompile_events(recompiles_only: bool = True):
+    """Recent compile records (bounded ring; newest last)."""
+    return get_tracker().events(recompiles_only=recompiles_only)
+
+
+def recompile_count(program_serial: Optional[int] = None) -> int:
+    return get_tracker().recompile_count(program_serial)
+
+
+def snapshot() -> dict:
+    """One JSON-ready view of everything: metrics + compile/recompile
+    events."""
+    return {
+        "metrics": get_registry().to_dict(),
+        "compile_events": [e.to_dict() for e in
+                           get_tracker().events()],
+        "recompiles_total": get_tracker().recompile_count(),
+    }
+
+
+def reset() -> None:
+    """Clear metrics and recompile history (hooks stay subscribed)."""
+    get_registry().reset()
+    get_tracker().reset()

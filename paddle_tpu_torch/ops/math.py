@@ -1,6 +1,7 @@
-"""Elementwise, activation, scale, sum, cast, comparison and logical ops
-(counterpart of ``paddle_tpu/ops/math.py``), the ones the GPT, BERT and
-MLP paths, the AMP decorator and ``L1Decay`` run."""
+"""Elementwise, activation, softmax, scale, sum, cast, comparison and
+logical ops (counterpart of ``paddle_tpu/ops/math.py``), the ones the GPT,
+BERT and MLP paths, the serving engine's fc program, the AMP decorator and
+``L1Decay`` run."""
 from __future__ import annotations
 
 import torch
@@ -29,6 +30,11 @@ def _tanh(ctx, ins, attrs):
 def _gelu(ctx, ins, attrs):
     approx = "tanh" if attrs.get("approximate", False) else "none"
     return out(torch.nn.functional.gelu(x(ins), approximate=approx))
+
+
+@register_op("softmax", inputs=["X"], outputs=["Out"], attrs={"axis": -1})
+def _softmax(ctx, ins, attrs):
+    return out(torch.softmax(x(ins), dim=attrs.get("axis", -1)))
 
 
 def _ew(fn):

@@ -19,6 +19,7 @@ class DeadlineExceeded(TimeoutError):
     retryable)."""
 
     transient = False
+    trace_id = ""
 
     def __init__(self, what: str, budget_s: float, elapsed_s: float):
         self.what = what

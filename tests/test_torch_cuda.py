@@ -732,3 +732,181 @@ def test_bf16_convolutions_run_bf16_cudnn_kernels():
                if e.device_type.name == "CUDA"}
     convs = {k: c for k, c in classes.items() if c}
     assert convs and set(convs.values()) == {"conv bf16"}, classes
+
+
+# ---------------------------------------------------------------- serving
+def _fc_serving_program(fluid, width=128, act="softmax"):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[width], dtype="float32")
+        h = fluid.layers.fc(x, width, act="relu")
+        pred = fluid.layers.fc(h, 16, act=act)
+    return main.clone(for_test=True), startup, pred.name
+
+
+@pytest.mark.cuda
+def test_batching_engine_on_the_card_matches_the_cpu():
+    """The batching ServingEngine on the card against the same engine on
+    the CPU, from the same weights: every request completes, its rows
+    within f32 rtol 1e-5 / atol 1e-6 (TF32 off; the two sum in different
+    orders), and the parameters stay in the scope on the card."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+
+    _cuda()
+    infer, startup, pred = _fc_serving_program(fluid)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    rng = np.random.RandomState(0)
+    feeds = [{"x": rng.rand(r, 128).astype(np.float32)}
+             for r in (1, 3, 1, 2, 1, 4, 1)]
+    got = {}
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for n, t in init.vars.items():
+            scope.set_var(n, t.to(exe.device))
+        eng = serving.ServingEngine(infer, feed_names=["x"],
+                                    fetch_list=[pred], scope=scope,
+                                    executor=exe,
+                                    config=serving.ServingConfig(
+                                        max_batch=8))
+        assert eng.warm_up() == 4
+        with eng:
+            outs = [f.result(timeout=120)[0]
+                    for f in [eng.submit(fd) for fd in feeds]]
+        assert eng.accounting()["exact"]
+        assert all(t.device == exe.device for t in scope.vars.values())
+        got[place.__class__.__name__] = outs
+    for a, b in zip(got["CPUPlace"], got["CUDAPlace"]):
+        torch.testing.assert_close(torch.from_numpy(b), torch.from_numpy(a),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_speculative_decoding_on_the_card_matches_plain_decode():
+    """Tiny GPT on the card, greedy: the speculative engine's tokens equal
+    the plain engine's up to each request's first near-tie split (a
+    position whose top-2 logit gap, from a CPU teacher-forced forward, is
+    at most 1e-3: the verify dispatch runs K2's 8-row route and products
+    of another M, so the two runs may round a tie apart). K2 launches
+    once per layer in every verify dispatch."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models.gpt import (GptConfig,
+                                             build_gpt_generative,
+                                             build_gpt_prefill)
+
+    _cuda()
+    cfg = GptConfig.tiny()
+    model = build_gpt_generative(cfg, batch_slots=2, max_seq=64,
+                                 page_size=8, prompt_buckets=(16,),
+                                 prefill_chunk=8, spec_k=8)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(model["startup"], scope=init)
+    rng = np.random.RandomState(4)
+    prompts = [np.tile(rng.randint(1, cfg.vocab_size, 3), 3),
+               rng.randint(1, cfg.vocab_size, 11)]
+
+    def serve(spec):
+        exe, scope = fluid.Executor(), fluid.Scope()
+        for n, t in init.vars.items():
+            scope.set_var(n, t.to(exe.device))
+        eng = serving.GenerativeEngine(
+            model, scope=scope, executor=exe,
+            config=serving.ServingConfig(queue_depth=8, deadline_s=0),
+            gen_config=serving.GenerationConfig(
+                decode_chunk=4, speculative=spec, prefix_cache=False,
+                chunked_prefill=False))
+        eng.warm_up()
+        K.reset_launch_counts()
+        with eng:
+            outs = [[int(t) for t in f.result(timeout=300)[0]]
+                    for f in [eng.submit(p, max_new_tokens=24)
+                              for p in prompts]]
+        return outs, eng.generation_stats(), K.launch_counts()
+
+    plain, _, _ = serve(False)
+    spec, st, launches = serve(True)
+    assert st["speculative"]["chunks"] > 0
+    # verify dispatches launch K2 once per layer; the plain decode
+    # chunks of the fall-back rounds (none here) would add steps * layers
+    assert launches["decode_attention"] == \
+        cfg.num_layers * st["speculative"]["chunks"]
+    net = build_gpt_prefill(cfg, 1, 64, 64, page_size=8, fetch_logits=True)
+    cpu = fluid.Executor(fluid.CPUPlace())
+    for p, a, b in zip(prompts, plain, spec):
+        if a == b:
+            continue
+        j = next(i for i in range(len(a)) if a[i] != b[i])
+        scope = fluid.Scope()
+        for n, t in init.vars.items():
+            scope.set_var(n, t)
+        for n, (shape, dt) in net["state_vars"].items():
+            scope.set_var(n, np.zeros(shape, np.dtype(dt)))
+        seq = np.concatenate([p, a[:j]])
+        L = len(seq)
+        feed = {"prompt_ids": np.zeros((1, 64), np.int64),
+                "prompt_pos": np.arange(64, dtype=np.int64)[None],
+                "prompt_mask": np.zeros((1, 64), np.float32),
+                "prompt_len": np.array([[L]], np.int64),
+                "slot_mask": np.zeros((1, 1), np.float32)}
+        feed["prompt_ids"][0, :L] = seq
+        feed["prompt_mask"][0, :L] = 1.0
+        lg = cpu.run(net["main"], feed=feed, fetch_list=[net["logits"]],
+                     scope=scope, return_numpy=False)[0][0][L - 1]
+        top2 = torch.topk(lg, 2).values
+        assert float(top2[0] - top2[1]) <= 1e-3, (
+            f"speculative and plain decode split at token {j} with a top-2 "
+            f"gap of {float(top2[0] - top2[1]):.3e} > 1e-3")
+
+
+@pytest.mark.cuda
+def test_a_kernel_error_inside_a_batch_is_the_cause_of_batch_failed(
+        monkeypatch):
+    """A K5 launch that fails inside a served batch (FLAGS_epilogue_fusion,
+    the launch patched to return cudaError_t 719 after the warm-up's
+    witness passed) reaches the caller as the cause of its typed
+    BatchFailed; the engine runs the batch nowhere else and keeps
+    serving once the kernel works again."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import _build
+
+    _cuda()
+    infer, startup, pred = _fc_serving_program(fluid, act="relu")
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    prev = fluid.get_flags(["FLAGS_epilogue_fusion"])
+    fluid.set_flags({"FLAGS_epilogue_fusion": True})
+    try:
+        eng = serving.ServingEngine(infer, feed_names=["x"],
+                                    fetch_list=[pred], scope=scope,
+                                    executor=exe,
+                                    config=serving.ServingConfig(
+                                        max_batch=4, breaker_threshold=5))
+        eng.warm_up()
+        feed = {"x": np.ones((1, 128), np.float32)}
+        with eng:
+            real = _build._fns["fused_gemm"]
+            monkeypatch.setitem(_build._fns, "fused_gemm", lambda *a: 719)
+            n0 = K.launch_counts()["fused_gemm"]
+            err = eng.submit(feed).exception(timeout=120)
+            monkeypatch.setitem(_build._fns, "fused_gemm", real)
+            assert eng.submit(feed).result(timeout=120)[0].shape == (1, 16)
+    finally:
+        fluid.set_flags(prev)
+    assert isinstance(err, serving.BatchFailed)
+    e = err.__cause__
+    while e is not None and not isinstance(e, _build.KernelError):
+        e = e.__cause__ or e.__context__
+    assert e is not None and "cudaError_t 719" in str(e)
+    assert K.launch_counts()["fused_gemm"] > n0
+    acct = eng.accounting()
+    assert acct["exact"] and acct["failed"] == 1 and acct["completed"] == 1

@@ -116,6 +116,8 @@ CASES = {
         {"Softmax": ["sm"], "Loss": ["l"]}, {"ignore_index": -100},
         ["sm", "l"]),
     "tanh": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]}, {}, ["o"]),
+    "softmax": ({"X": {"x": f32(3, 5) * 4}}, {"Out": ["o"]}, {"axis": -1},
+                ["o"]),
     "elementwise_div": ({"X": {"x": f32(2, 3)}, "Y": {"y": f32(1) + 3}},
                         {"Out": ["o"]}, {}, ["o"]),
     "elementwise_max": ({"X": {"x": f32(1)}, "Y": {"y": f32(1)}},
@@ -248,7 +250,7 @@ def test_every_path_op_has_a_case():
     tests/test_torch_mlp.py) and the sub-block ones has a case."""
     from paddle_tpu_torch.core import registry
 
-    assert len(CASES) == 47 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
+    assert len(CASES) == 48 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
     assert set(CASES) | RANDOM_OPS | BLOCK_OPS == set(registry.all_ops())
 
 
