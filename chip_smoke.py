@@ -86,7 +86,23 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    left f32, held memory flat. Reports steps/s, tokens/s, peak memory,
    the idle share, top kernels, and the device ms of the bf16 GEMMs and
    of K1 + K3 + K4 in the step.
-9. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
+9. train_remat — the reference's ``bert_bs64_remat`` leg: BERT-base
+   ``amp=True`` at seq 512, dropout 0.1, under ``FLAGS_auto_recompute``
+   (``analysis/remat.py``: sqrt(N) checkpoints scored by
+   ``Program.memory_plan``; each ``recompute_segment`` runs its sub-block
+   under no_grad and replays it under autograd in its grad op). (a) Batch
+   32, 3 steps with remat off and 3 with it on, fresh executors, the same
+   weights and feeds: the decision applied with at least one segment,
+   losses within ``REMAT_LOSS_RTOL``, the remat peak below the plain
+   peak, K1 24 / K3 12 / K4 12 a step in both runs; prints each run's
+   predicted (``memory_plan``) and measured peak. (b) Batch 64 with remat
+   on, 4 steps: losses finite, state f32, held memory flat, launches as
+   in (a); reports steps/s, tokens/s, measured and predicted peak, the
+   plain program's predicted peak at batch 64, the segments and
+   checkpoints, the cost model's GFLOP a step (the untransformed program)
+   against the analytic 6ND + attention count, MFU against
+   ``FLAGS_device_peak_tflops`` and the ``executor_mfu`` gauge.
+10. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
    512; ``build_bert_pretrain(build_optimizer=False)`` cloned for test;
    random weights and a synthetic batch from ``--seed``; fetch the loss
    and the last encoder layer), run three ways on the same weights and
@@ -106,7 +122,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    launches a forward, all on its bf16 CUDA functions, K1 12, the fused
    loss within ``AMP_INFER_TOL`` of the unfused; forward ms (median of 5)
    and peak memory.
-10. train_resnet — the JAX package's headline metric: ResNet-50
+11. train_resnet — the JAX package's headline metric: ResNet-50
    ``build_resnet(50, amp=True)`` (bf16 convolutions and products under
    the AMP policy, f32 master weights, Momentum at lr 0.1, mu 0.9), batch
    128 at 224x224, random weights and images from ``--seed``, 5 steps.
@@ -124,13 +140,13 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (``op_ranges``: batch_norm, and the forward rules the generic grads
    run again), and one step with ``FLAGS_conv_use_nhwc`` always and
    never.
-11. infer_resnet — ResNet-50 bf16 inference (the is_test clone under
+12. infer_resnet — ResNet-50 bf16 inference (the is_test clone under
    ``decorate_program``, batch 128): fused (the fc head on K5's bf16
    route, one launch a forward), unfused and the dense replay (bit-exact
    against unfused, no K5 launch); fused logits within ``AMP_INFER_TOL``
    of unfused. Reports forward ms (median of 5), peak memory and idle
    share of each run.
-12. prints the script time of each phase and part (``[seconds]``), the
+13. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -1328,6 +1344,8 @@ def train(net, init, feed, plain, steps=TRAIN_STEPS):
     exe, scope = fluid.Executor(), fluid.Scope()
     for n, t in init.items():
         scope.set_var(n, t.clone())
+    scope_bytes = sum(t.nelement() * t.element_size()
+                      for t in scope.vars.values())
     fetch = [net["loss"], net["mlm_loss"], net["nsp_loss"]]
     fluid.set_flags({"FLAGS_use_flash_attention":
                      "never" if plain else "auto"})
@@ -1354,7 +1372,11 @@ def train(net, init, feed, plain, steps=TRAIN_STEPS):
                                  for step in losses]),
                 steps_per_s=(steps - 1) / wall, first_step_s=first_s,
                 launches=launches, peak_bytes=peak, base_bytes=base,
-                held_bytes=held, exe=exe, scope=scope)
+                held_bytes=held, exe=exe, scope=scope,
+                # the step's own peak: what the run allocated above what
+                # was resident before, plus the scope's state it started
+                # from (what memory_plan counts as weights and state)
+                step_peak_bytes=peak - base + scope_bytes)
 
 
 def profile_step(net, exe, scope, feed):
@@ -1673,6 +1695,205 @@ def phase_train_amp(seed):
         held_gib=[b / 2**30 for b in kern["held_bytes"]],
         gemm_ms=gemm_ms, attention_ms=attn_ms, float_state_vars=n_state,
         launches=kern["launches"], profiled_step=prof)
+
+
+# ---------------------------------------------------------------- train_remat
+# the reference's bert_bs64_remat leg: BERT-base amp=True at seq 512 under
+# FLAGS_auto_recompute. (a) batch 32, remat off against on; (b) batch 64,
+# which does not fit without remat
+REMAT_SEQ, REMAT_BATCH, REMAT_STEPS = 512, 32, 3
+REMAT_BIG_BATCH, REMAT_BIG_STEPS = 64, 4
+# remat against plain, step 1 and later steps. Step 1 runs the same
+# forward: its losses agree within tests/test_torch_remat.py's rtol 1e-6.
+# Later steps start from gradients summed in another order (autograd
+# inside a segment, backward.py's sum op across a segment's edge), which
+# the bf16 rounding of the products' operands turns into bf16-ulp
+# differences; and the plain program does not repeat itself on the card
+# either (the embedding grads accumulate in a run-dependent order; see
+# tools/torch_repeat_check.py). Later steps are held to train_amp's
+# kernel-against-plain tolerance.
+REMAT_LOSS_RTOL = (1e-6, AMP_LOSS_RTOL[1])
+# under sqrt(N) segmentation every attention op sits inside a segment:
+# K1 runs once in the segment's forward and once in its replay, K3/K4
+# once in the replay's backward — the plain program's counts
+REMAT_LAUNCHES = TRAIN_LAUNCHES
+
+
+def remat_train(net, init, feed, auto, steps):
+    fluid.set_flags({"FLAGS_auto_recompute": auto})
+    try:
+        run = train(net, init, feed, plain=False, steps=steps)
+    finally:
+        fluid.set_flags({"FLAGS_auto_recompute": False})
+    decisions = list(run["exe"]._remat_decisions.values())
+    run["decision"] = decisions[0] if decisions else None
+    return run
+
+
+def remat_launch_check(run, steps, leg):
+    for name in K.KERNEL_SOURCES:
+        want = REMAT_LAUNCHES.get(name, 0) * steps
+        if run["launches"][name] != want:
+            raise SystemExit(f"chip_smoke: {name} launched "
+                             f"{run['launches'][name]} times in {steps} "
+                             f"steps of {leg}, expected {want}")
+
+
+def phase_train_remat(seed):
+    from paddle_tpu_torch.analysis.cost_model import estimate_cost
+    from paddle_tpu_torch.flags import flag
+
+    cfg = BertConfig.base()
+    net = build_bert_pretrain(cfg, seq_len=REMAT_SEQ, amp=True)
+    net["startup"].random_seed = seed + 4
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    del scope0
+    fetch = [net["loss"].name, net["mlm_loss"].name, net["nsp_loss"].name]
+    feeds = sorted(net["feeds"])
+
+    def predicted(batch):
+        return net["main"].memory_plan(feed_names=feeds, fetch_names=fetch,
+                                       batch_size=batch).peak_bytes
+
+    # (a) batch 32: remat off against on, same weights and feeds
+    feed = bert_feed(seed + 5, cfg.vocab_size, REMAT_BATCH, REMAT_SEQ)
+    with timed("train_remat.plain"):
+        plain = remat_train(net, init, feed, False, REMAT_STEPS)
+    del plain["exe"], plain["scope"]
+    torch.cuda.empty_cache()
+    with timed("train_remat.remat"):
+        remat = remat_train(net, init, feed, True, REMAT_STEPS)
+    del remat["exe"], remat["scope"]
+    torch.cuda.empty_cache()
+    dec = remat["decision"]
+    pl, rl = plain["losses"], remat["losses"]
+    rel = np.abs(rl - pl) / np.abs(pl)
+    GiB = 2 ** 30
+    log(f"[train_remat] (a) BERT-base amp=True, batch {REMAT_BATCH}, seq "
+        f"{REMAT_SEQ}, dropout 0.1, {REMAT_STEPS} steps, remat off | on: "
+        f"loss {pl[0, 0]:.6f} -> {pl[-1, 0]:.6f} | {rl[0, 0]:.6f} -> "
+        f"{rl[-1, 0]:.6f}; rel. diff step 1 {rel[0].max():.3e}, later "
+        f"{rel[1:].max():.3e} (tolerance {REMAT_LOSS_RTOL})")
+    log(f"  decision: applied {dec.applied if dec else None}, "
+        f"{dec.n_segments if dec else 0} segments over "
+        f"{dec.n_candidates if dec else 0} candidates ({dec.reason if dec else 'none'})")
+    log(f"  peak: plain predicted {predicted(REMAT_BATCH) / GiB:.2f} GiB, "
+        f"measured {plain['step_peak_bytes'] / GiB:.2f} GiB (raw "
+        f"{plain['peak_bytes'] / GiB:.2f}); remat predicted "
+        f"{(dec.peak_after if dec else 0) / GiB:.2f} GiB, measured "
+        f"{remat['step_peak_bytes'] / GiB:.2f} GiB (raw "
+        f"{remat['peak_bytes'] / GiB:.2f})")
+    log(f"  steps/s: plain {plain['steps_per_s']:.3f}, remat "
+        f"{remat['steps_per_s']:.3f}; launches {remat['launches']}")
+    if dec is None or not dec.applied or dec.n_segments < 1:
+        raise SystemExit(f"chip_smoke: auto-remat did not apply to "
+                         f"BERT-base: {dec.reason if dec else 'no decision'}")
+    if not (np.isfinite(pl).all() and np.isfinite(rl).all()):
+        raise SystemExit("chip_smoke: non-finite loss in train_remat (a)")
+    if rel[0].max() > REMAT_LOSS_RTOL[0] or \
+            rel[1:].max() > REMAT_LOSS_RTOL[1]:
+        raise SystemExit(f"chip_smoke: remat and plain losses disagree "
+                         f"(step 1 {rel[0].max():.3e}, later "
+                         f"{rel[1:].max():.3e}; tolerance "
+                         f"{REMAT_LOSS_RTOL})")
+    if not remat["peak_bytes"] < plain["peak_bytes"]:
+        raise SystemExit(f"chip_smoke: the remat peak "
+                         f"{remat['peak_bytes'] / GiB:.2f} GiB is not below "
+                         f"the plain peak {plain['peak_bytes'] / GiB:.2f}")
+    remat_launch_check(plain, REMAT_STEPS, "the plain batch-32 run")
+    remat_launch_check(remat, REMAT_STEPS, "the remat batch-32 run")
+
+    # (b) the reference's leg: batch 64 under FLAGS_auto_recompute=1
+    B = REMAT_BIG_BATCH
+    feed = bert_feed(seed + 6, cfg.vocab_size, B, REMAT_SEQ)
+    with timed("train_remat.batch64"):
+        big = remat_train(net, init, feed, True, REMAT_BIG_STEPS)
+    exe, scope = big.pop("exe"), big.pop("scope")
+    bdec = big["decision"]
+    ran = exe._remat_cache[next(iter(exe._remat_cache))]
+    not_f32 = {n: str(t.dtype) for n, t in scope.vars.items()
+               if t.is_floating_point() and t.dtype != torch.float32}
+    n_state = sum(t.is_floating_point() for t in scope.vars.values())
+    gauge = monitor.metric_value("executor_mfu", None, path="run",
+                                 program=str(ran._serial), batch=str(B))
+    del exe, scope
+    torch.cuda.empty_cache()
+    cost = estimate_cost(net["main"], batch_size=B)
+    analytic = (6 * 110e6 * B * REMAT_SEQ + 3 * 4 * B * REMAT_SEQ ** 2
+                * cfg.hidden_size * cfg.num_layers)
+    peak_tflops = float(flag("device_peak_tflops"))
+    achieved = cost.flops_total * big["steps_per_s"] / 1e12
+    mfu = achieved / peak_tflops
+    bl = big["losses"]
+    tokens = B * REMAT_SEQ
+    growth = max(big["held_bytes"][1:]) - min(big["held_bytes"][1:])
+    log(f"  (b) batch {B}, FLAGS_auto_recompute=1, {REMAT_BIG_STEPS} steps: "
+        f"loss {bl[0, 0]:.6f} -> {bl[-1, 0]:.6f}; {big['steps_per_s']:.3f} "
+        f"steps/s = {big['steps_per_s'] * tokens:.1f} tokens/s (steps 2-"
+        f"{REMAT_BIG_STEPS}; step 1 {big['first_step_s']:.3f} s with the "
+        f"remat decision)")
+    log(f"  peak: measured {big['step_peak_bytes'] / GiB:.2f} GiB (raw "
+        f"{big['peak_bytes'] / GiB:.2f}), predicted "
+        f"{(bdec.peak_after if bdec else 0) / GiB:.2f} GiB; the plain "
+        f"program's predicted peak at batch {B} "
+        f"{(bdec.peak_before if bdec else 0) / GiB:.2f} GiB (not run)")
+    log(f"  decision: {bdec.n_segments if bdec else 0} segments, "
+        f"checkpoints {list(bdec.checkpoints) if bdec else []}")
+    log(f"  cost model (untransformed program, batch {B}): "
+        f"{cost.flops_total / 1e9:.1f} GFLOP a step, analytic 6ND + "
+        f"attention {analytic / 1e9:.1f} GFLOP, ratio "
+        f"{cost.flops_total / analytic:.4f}; {achieved:.1f} TFLOP/s = MFU "
+        f"{mfu:.4f} of FLAGS_device_peak_tflops {peak_tflops}; the "
+        f"executor_mfu gauge (the remat program's own cost, which counts "
+        f"its replays' FLOPs as 1 an element) {gauge}")
+    log(f"  held memory between steps 2-{REMAT_BIG_STEPS}: "
+        f"{min(big['held_bytes'][1:]) / GiB:.3f} GiB, growth "
+        f"{growth / 2**20:.1f} MiB; {n_state} float state vars, not f32: "
+        f"{not_f32 or 'none'}; launches {big['launches']}")
+    if bdec is None or not bdec.applied:
+        raise SystemExit(f"chip_smoke: auto-remat did not apply at batch "
+                         f"{B}: {bdec.reason if bdec else 'no decision'}")
+    if not np.isfinite(bl).all():
+        raise SystemExit("chip_smoke: non-finite loss at batch 64 remat")
+    if not_f32:
+        raise SystemExit(f"chip_smoke: remat state left float32: {not_f32}")
+    if growth > 16 * 2**20:
+        raise SystemExit(f"chip_smoke: device memory grew by "
+                         f"{growth / 2**20:.1f} MiB across batch-64 steps")
+    remat_launch_check(big, REMAT_BIG_STEPS, "the batch-64 remat run")
+    launches = {n: plain["launches"][n] + remat["launches"][n]
+                + big["launches"][n] for n in K.KERNEL_SOURCES}
+
+    def leg(run, d, pred):
+        return dict(losses=run["losses"].tolist(),
+                    steps_per_s=run["steps_per_s"],
+                    first_step_s=run["first_step_s"],
+                    peak_gib=run["peak_bytes"] / GiB,
+                    step_peak_gib=run["step_peak_bytes"] / GiB,
+                    predicted_peak_gib=pred / GiB,
+                    held_gib=[b / GiB for b in run["held_bytes"]],
+                    launches=run["launches"],
+                    decision=d.to_dict() if d is not None else None)
+
+    return dict(
+        config="BertConfig.base(), amp=True", seq=REMAT_SEQ,
+        loss_rtol=REMAT_LOSS_RTOL, step1_rel_diff=float(rel[0].max()),
+        later_rel_diff=float(rel[1:].max()),
+        plain32=leg(plain, None, predicted(REMAT_BATCH)),
+        remat32=leg(remat, dec, dec.peak_after),
+        remat64=dict(leg(big, bdec, bdec.peak_after),
+                     tokens_per_s=big["steps_per_s"] * tokens,
+                     plain_predicted_peak_gib=bdec.peak_before / GiB,
+                     float_state_vars=n_state),
+        cost=dict(batch=B, gflops_per_step=cost.flops_total / 1e9,
+                  analytic_gflops_per_step=analytic / 1e9,
+                  vs_analytic_ratio=cost.flops_total / analytic,
+                  achieved_tflops=achieved, mfu=mfu,
+                  device_peak_tflops=peak_tflops,
+                  executor_mfu_gauge=gauge, report=cost.to_dict()),
+        launches=launches)
 
 
 # ---------------------------------------------------------------- infer
@@ -2319,6 +2540,9 @@ def main():
     with timed("train_amp"):
         trained_amp = phase_train_amp(args.seed)
     torch.cuda.empty_cache()
+    with timed("train_remat"):
+        trained_remat = phase_train_remat(args.seed)
+    torch.cuda.empty_cache()
     with timed("infer"):
         inferred = phase_infer(args.seed)
     torch.cuda.empty_cache()
@@ -2329,13 +2553,15 @@ def main():
         inferred_resnet = phase_infer_resnet(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving (K1, K5 bf16),
-    # training in f32 and in bf16 (K1, K3, K4), inference in f32 and bf16
+    # training in f32, in bf16 and in bf16 under auto-remat (K1, K3, K4),
+    # inference in f32 and bf16
     # (K1, K5) and ResNet-50 bf16 training (none) and inference (K5),
     # each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "train": trained["launches"],
                 "train_amp": trained_amp["launches"],
+                "train_remat": trained_remat["launches"],
                 "infer": inferred["launches"],
                 "train_resnet": trained_resnet["launches"],
                 "infer_resnet": inferred_resnet["launches"]}
@@ -2352,6 +2578,7 @@ def main():
               "serve_spec": spec, "serve_batch": batched,
               "launches_by_phase": by_phase,
               "train": trained, "train_amp": trained_amp,
+              "train_remat": trained_remat,
               "infer": inferred, "train_resnet": trained_resnet,
               "infer_resnet": inferred_resnet, "launches": launches}
     line = []

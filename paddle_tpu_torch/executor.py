@@ -10,10 +10,25 @@ executor's device. Ops that update state in place (the paged KV caches)
 write into those very tensors, which stands in for the JAX package's
 buffer donation; every other persistable an op writes (a parameter and
 its Adam moments, written by ``adam`` under the same names) is stored
-back into the scope after the run. Feeds arrive as numpy and fetches
-leave as numpy; any var the step computed can be fetched, ``@GRAD`` vars
-included. Ops run under ``torch.no_grad()``: only a generic grad op
-builds an autograd graph, and frees it before the next op.
+into the scope as soon as the op has written it, so the old value is
+freed there. Feeds arrive as numpy and fetches leave as numpy; any var
+the step computed can be fetched, ``@GRAD`` vars included. Ops run under
+``torch.no_grad()``: only a generic grad op builds an autograd graph, and
+frees it before the next op.
+
+Release: the executor holds what ``Program.memory_plan`` says is live.
+This stands in for XLA's buffer assignment in the JAX package and for
+Fluid's eager deletion (``FLAGS_eager_delete_tensor_gb``). Once per
+executor key each var's last reader is computed from
+``analysis.liveness.block_liveness`` (a sub-block's reads count at the
+owning op, a generic grad op's ``__out__<slot>`` reads count as reads),
+and after each op every name dead there leaves the step's environment.
+Fetched names and persistables are never released.
+
+``FLAGS_auto_recompute``: ``run`` and ``run_chained`` swap a training
+program for its auto-checkpointed rebuild (``analysis/remat.py``), cached
+per (program fingerprint, batch, ``FLAGS_remat_budget_mb``, fetches); the
+rebuild has its own serial, so its own executor key and compile event.
 
 Places: ``Executor()`` with no place means ``CUDAPlace(0)`` and raises
 where CUDA is absent; pass ``CPUPlace()`` to run on the CPU.
@@ -57,6 +72,7 @@ import torch
 
 from . import monitor as _monitor
 from . import trace as _trace
+from .analysis.liveness import block_liveness
 from .core.types import torch_dtype
 from .framework import Program, Variable, default_main_program
 from .lowering import EMPTY_VAR_NAME, LowerCtx, lower_op
@@ -173,16 +189,37 @@ def _feed_batch_rows(feed) -> int:
     return batch
 
 
+def _release_plan(program: Program, feed_names, fetch_names):
+    """Per op of the global block: (the names dead after it, the
+    persistables it writes). A name is dead after its last read or write;
+    fetched names and persistables never are."""
+    blk = program.global_block
+    live = block_liveness(blk, feed_names, fetch_names)
+    keep = set(fetch_names)
+    persistable = {n for n, v in blk.vars.items() if v.persistable}
+    dead: List[List[str]] = [[] for _ in blk.ops]
+    for n, vl in live.items():
+        events = vl.defs + vl.uses
+        if events and n not in keep and n not in persistable:
+            dead[max(events)].append(n)
+    stores = [tuple(n for n in op.output_arg_names if n in persistable)
+              for op in blk.ops]
+    return [tuple(sorted(d)) for d in dead], stores
+
+
 class _Step:
     """One executor key (the counterpart of the reference's compiled
-    step): the program it runs, its state split, and the pending compile
-    event, completed at the key's first run."""
+    step): the program it runs, its state split, its release plan, and
+    the pending compile event, completed at the key's first run."""
 
-    __slots__ = ("program", "donated_names", "prepared", "prep_s",
-                 "_compile_event", "_lock")
+    __slots__ = ("program", "donated_names", "dead_after", "stores",
+                 "prepared", "prep_s", "_compile_event", "_lock")
 
-    def __init__(self, program: Program, prep_s: float):
+    def __init__(self, program: Program, prep_s: float, feed_names,
+                 fetch_names):
         self.program = program
+        self.dead_after, self.stores = _release_plan(
+            program, feed_names, fetch_names)
         blk = program.global_block
         produced, state_in, state_out = set(), [], set()
         for op in blk.ops:
@@ -221,6 +258,10 @@ class Executor:
         # mode) -> the program to run, and the FusionDecision that chose it
         self._fusion_cache: Dict[tuple, Program] = {}
         self._fusion_decisions: Dict[tuple, Any] = {}
+        # FLAGS_auto_recompute: (fingerprint, batch, budget, fetches) ->
+        # the program to run, and the RematDecision that chose it
+        self._remat_cache: Dict[tuple, Program] = {}
+        self._remat_decisions: Dict[tuple, Any] = {}
 
     # -- helpers ---------------------------------------------------------
     def _next_seed(self, program: Program) -> int:
@@ -273,28 +314,71 @@ class Executor:
             out[n] = call_with_retry("device_put", _put)
         return out
 
-    def _run_once(self, program, feed_tensors, fetch_names, scope):
-        blk = program.global_block
+    def _run_once(self, step, feed_tensors, fetch_names, scope):
+        program = step.program
         env: Dict[str, Any] = dict(feed_tensors)
         ctx = LowerCtx(self.device, seed=self._next_seed(program),
                        program=program)
-        written = set()
         with torch.no_grad():
-            for op in blk.ops:
+            for op, dead, stores in zip(program.global_block.ops,
+                                        step.dead_after, step.stores):
                 for n in op.input_arg_names:
                     if n not in env and n != EMPTY_VAR_NAME:
                         env[n] = self._state(n, program, scope)
                 lower_op(op, env, ctx)
-                written.update(op.output_arg_names)
-        for n in written:
-            if blk.has_var(n) and blk.var(n).persistable:
-                scope.set_var(n, env[n])
+                for n in stores:
+                    if n in env:
+                        scope.set_var(n, env[n])
+                for n in dead:
+                    env.pop(n, None)
         fetches = []
         for n in fetch_names:
             if n not in env:
                 env[n] = self._state(n, program, scope)
             fetches.append(env[n])
         return fetches
+
+    def _maybe_auto_remat(self, program, feed, fetch_names):
+        """FLAGS_auto_recompute entry shared by run / run_chained: swap a
+        training program for its auto-checkpointed rebuild
+        (analysis/remat.py). Inference programs and anything the pass
+        cannot faithfully rebuild pass through untouched. Decisions are
+        cached per (program, batch, budget, fetch list): a transform built
+        for one fetch list keeps only those fetches alive across
+        segments."""
+        from .flags import flag
+
+        if not flag("auto_recompute") or not isinstance(program, Program):
+            return program
+        from .analysis.pass_manager import program_fingerprint
+
+        budget = int(flag("remat_budget_mb"))
+        key = (program_fingerprint(program), _feed_batch_rows(feed),
+               budget, tuple(fetch_names or ()))
+        # the whole decision under the executor lock: a racing second
+        # thread must reuse the SAME transformed program
+        with self._lock:
+            cached = self._remat_cache.get(key)
+            if cached is not None:
+                return cached
+            from .analysis.remat import is_trainable_program
+
+            # startup/inference programs cannot remat by construction; pass
+            # through (cached) with no monitor record
+            if not is_trainable_program(program):
+                self._remat_cache[key] = program
+                return program
+            from .analysis.pass_manager import run_transform_pipeline
+
+            result = run_transform_pipeline(
+                program, ("auto_remat",), feed_names=sorted(feed or {}),
+                fetch_names=list(fetch_names or ()),
+                batch_size=key[1], options={"budget_mb": budget})
+            decision = result.values["auto_remat"]
+            _monitor.record_remat(decision)
+            self._remat_cache[key] = decision.program
+            self._remat_decisions[key] = decision
+            return decision.program
 
     def _maybe_epilogue_fusion(self, program, feed, fetch_names):
         """FLAGS_epilogue_fusion entry shared by run / run_chained: swap a
@@ -345,9 +429,10 @@ class Executor:
         return winner
 
     def _prepare(self, program, feed, fetch_names):
-        """The fusion swap, timed: the preparation a new key's compile
-        event reports as its ``trace_lower`` stage."""
+        """The remat and fusion swaps, timed: the preparation a new key's
+        compile event reports as its ``trace_lower`` stage."""
         t0 = time.perf_counter()
+        program = self._maybe_auto_remat(program, feed, fetch_names)
         program = self._maybe_epilogue_fusion(program, feed, fetch_names)
         return program, time.perf_counter() - t0
 
@@ -359,7 +444,8 @@ class Executor:
                 ("use_fused_gemm", flag("use_fused_gemm")),
                 ("amp", amp.compute_dtype if amp is not None else None))
 
-    def _get_step(self, path, program, key, components, prep_s, mrec):
+    def _get_step(self, path, program, key, components, prep_s, mrec,
+                  feed, fetch_names):
         """Look ``key`` up; a miss is a compile event (recorded, completed
         at the step's first run). Under the executor lock, so racing
         threads share one step and one compile record."""
@@ -371,7 +457,7 @@ class Executor:
                 mrec.cache_hit = hit
             if hit:
                 return step
-            step = _Step(program, prep_s)
+            step = _Step(program, prep_s, sorted(feed), fetch_names)
             step._compile_event = _monitor.observe_compile(
                 path, program, components, donated_names=step.donated_names)
             self._cache[key] = step
@@ -446,7 +532,7 @@ class Executor:
         step = self._get_step("run", program, key, {
             "program": fp[1:], "feed_signature": feed_sig,
             "fetch_list": tuple(names), "scope": scope._serial,
-            "flags": kflags}, prep_s, mrec)
+            "flags": kflags}, prep_s, mrec, feed, names)
         self._fill_record(mrec, step, feed, names, scope)
         feed_t = self._feed_tensors(program, feed)
         # the step-site probe fires before any state is written
@@ -457,7 +543,7 @@ class Executor:
                          if mrec is not None else None), \
                 _dist.watchdog_section("step", program=program) as tok:
             _faults.fault_point("hang")
-            fetches = self._run_once(program, feed_t, names, scope)
+            fetches = self._run_once(step, feed_t, names, scope)
             self._sync_if_armed(tok)
         if return_numpy:
             outs = [f.detach().cpu().numpy() for f in fetches]
@@ -499,7 +585,8 @@ class Executor:
                 step = self._get_step("chained", program, key, {
                     "program": fp[1:], "feed_signature": feed_sig,
                     "fetch_list": tuple(names), "scope": scope._serial,
-                    "steps": int(steps), "flags": kflags}, prep_s, mrec)
+                    "steps": int(steps), "flags": kflags}, prep_s, mrec,
+                    feed, names)
                 self._fill_record(mrec, step, feed, names, scope)
                 feed_t = self._feed_tensors(program, feed)
                 _faults.fault_point("step")
@@ -508,7 +595,7 @@ class Executor:
                                             program=program) as tok:
                     _faults.fault_point("hang")
                     per_step: List[List[torch.Tensor]] = [
-                        self._run_once(program, feed_t, names, scope)
+                        self._run_once(step, feed_t, names, scope)
                         for _ in range(int(steps))]
                     stacked = [torch.stack([s[i] for s in per_step])
                                for i in range(len(names))]

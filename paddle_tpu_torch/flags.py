@@ -87,8 +87,27 @@ _DEFS: Dict[str, tuple] = {
                              "incident; 0 disables the recorder"),
     "fleet_telemetry": (bool, False,
                         "the fleet telemetry plane (trace-id exemplars, "
-                        "cost gauges): not in the port yet, which refuses "
-                        "the flag on"),
+                        "histogram merging across replicas): not in the "
+                        "port yet, which refuses the flag on"),
+    "device_peak_tflops": (float, 989.4,
+                           "accelerator peak dense TF/s used for the "
+                           "cost-model MFU gauges (executor_mfu, "
+                           "serving_bucket_mfu); the default is the NVIDIA "
+                           "H100 SXM's published dense bf16 tensor-core "
+                           "peak. Set it per card (an H100 PCIe is lower)"),
+    "auto_recompute": (bool, False,
+                       "automatic rematerialisation: on Executor.run / "
+                       "run_chained, training programs are segmented at "
+                       "layer boundaries and gradient-checkpointed "
+                       "(analysis/remat.py), with the checkpoint set chosen "
+                       "by Program.memory_plan() scoring. Transformed "
+                       "programs get their own serial, so executor keys "
+                       "never alias remat and plain variants"),
+    "remat_budget_mb": (int, 0,
+                        "peak-memory target for FLAGS_auto_recompute in "
+                        "MiB: the cheapest checkpoint set (fewest "
+                        "recomputed ops) whose PREDICTED peak fits is "
+                        "chosen; 0 = no budget, sqrt(N) segmentation"),
     "serving_max_batch": (int, 8,
                           "serving: largest padded batch per dispatch; "
                           "shape buckets are powers of two up to this"),
@@ -195,10 +214,10 @@ _CHOICES: Dict[str, tuple] = {"use_flash_attention": ("auto", "never"),
 
 # flags whose "on" value needs a part the port does not have yet
 _REFUSED_ON: Dict[str, str] = {
-    "fleet_telemetry": "the fleet telemetry plane (FLAGS_fleet_telemetry, "
-                       "program_cost, observe_*_cost) needs "
-                       "analysis/cost_model.py and the fleet tier, which "
-                       "the port does not have yet",
+    "fleet_telemetry": "the fleet telemetry plane (FLAGS_fleet_telemetry: "
+                       "trace-id exemplars, histogram merging) needs the "
+                       "fleet serving tier, which the port does not have "
+                       "yet",
 }
 
 _overrides: Dict[str, Any] = {}

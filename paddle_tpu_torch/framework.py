@@ -270,16 +270,22 @@ class Block:
         except KeyError:
             return False
 
-    def append_op(self, type: str, inputs=None, outputs=None,
-                  attrs=None) -> Operator:
-        op = Operator(self, type, inputs=inputs, outputs=outputs,
-                      attrs=attrs)
+    def _stamp(self, op: Operator) -> None:
+        """Give ``op`` a stable ``__uid__``, the current op role and the
+        user line that created it (for ops built outside ``append_op``,
+        e.g. ``recompute_segment``)."""
         op.attrs.setdefault("__uid__", self.program._next_uid())
         op.attrs.setdefault("__op_role__", self.program._op_role)
         if "op_callstack" not in op.attrs:
             site = _user_call_site()
             if site:
                 op.attrs["op_callstack"] = site
+
+    def append_op(self, type: str, inputs=None, outputs=None,
+                  attrs=None) -> Operator:
+        op = Operator(self, type, inputs=inputs, outputs=outputs,
+                      attrs=attrs)
+        self._stamp(op)
         self.ops.append(op)
         op.infer_shape()
         return op
@@ -375,6 +381,22 @@ class Program:
                     if op.type == "batch_norm":
                         op.set_attr("use_global_stats", True)
         return p
+
+    def memory_plan(self, feed_names: Sequence[str] = (),
+                    fetch_names: Sequence[str] = (), batch_size: int = 1,
+                    mesh: Optional[Dict[str, int]] = None,
+                    specs: Optional[Dict[str, tuple]] = None):
+        """Static peak-memory plan for the global block: a linear-scan
+        estimate of live bytes per op index with weights / gradients /
+        optimizer state / activations split out. ``-1`` dims resolve to
+        ``batch_size``. See ``analysis.liveness.memory_plan``. The
+        per-chip plan (``mesh``) waits for the multi-device slice and
+        raises ``NotImplementedError``."""
+        from .analysis.liveness import memory_plan as _memory_plan
+
+        return _memory_plan(self, feed_names=feed_names,
+                            fetch_names=fetch_names, batch_size=batch_size,
+                            mesh=mesh, specs=specs)
 
     def to_dict(self) -> dict:
         d = {"version": 1, "blocks": [b.to_dict() for b in self.blocks]}

@@ -201,6 +201,13 @@ def _lower_generic_grad(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
     fwd_def = registry.get_op_def(fwd_type)
     fwd_uid = op.attrs.get("__fwd_uid__", 0)
     fwd_ctx = ctx.with_uid(fwd_uid)
+    if fwd_def.grad_lower is not None and fwd_def.raw:
+        # a sub-block op's grad (recompute_segment) replays its sub-block
+        # over the environment itself
+        if fwd_ctx.program is None:
+            fwd_ctx.program = op.block.program
+        fwd_def.grad_lower(fwd_ctx, op, env)
+        return
     if fwd_def.grad_lower is not None:
         # no AMP cast: a rule of its own owns its precision (casting the
         # gathered inputs would cast the cotangents too and hand back

@@ -21,13 +21,19 @@ the AMP policy). The event's ``trace_lower`` stage is the preparation
 (the fusion pass and its witness, when they ran); its ``xla_compile``
 stage is 0.
 
+Cost gauges: ``program_cost`` caches one ``analysis.cost_model``
+report per (program, batch); ``step_end`` turns each measured dispatch
+into ``executor_model_gflops_per_step``, ``executor_achieved_tflops`` and
+``executor_mfu`` (``observe_step_cost``), and the serving engine does the
+same per bucket (``observe_serving_cost``), all against
+``FLAGS_device_peak_tflops``. ``record_remat`` counts the
+``FLAGS_auto_recompute`` decisions.
+
 ``paddle_tpu_torch.resilience`` and ``serving`` report through the same
 registry. Everything is on by default (``FLAGS_monitor=0`` disables
 collection). Not in the port yet: the numerics witness
-(``monitor/numwitness.py``), and the telemetry plane's cost gauges
-(``program_cost``, ``observe_*_cost``), trace exemplars and histogram
-merging, which need ``analysis/cost_model.py`` and the fleet tier
-(``FLAGS_fleet_telemetry`` is refused on).
+(``monitor/numwitness.py``), and the fleet tier's trace exemplars and
+histogram merging (``FLAGS_fleet_telemetry`` is refused on).
 """
 from __future__ import annotations
 
@@ -55,7 +61,9 @@ __all__ = [
     "add_hook", "remove_hook", "clear_hooks", "get_registry", "counter",
     "gauge", "histogram", "metric_value", "enabled", "record_cache_lookup",
     "observe_compile", "complete_compile", "step_begin", "step_end",
-    "record_pass", "record_fusion", "record_watchdog_timeout",
+    "record_pass", "record_fusion", "record_remat",
+    "record_watchdog_timeout", "program_cost", "observe_step_cost",
+    "observe_serving_cost",
     "recompile_events", "recompile_count", "snapshot", "reset",
     "get_tracker", "build_site",
     "make_lock", "make_rlock", "make_condition", "witness_enabled",
@@ -158,6 +166,9 @@ def step_begin(path: str, program) -> Optional[StepRecord]:
     rec = StepRecord(path=path,
                      program_serial=int(getattr(program, "_serial", -1)),
                      step_index=next(_step_counter))
+    # non-field stash for the cost model (step_end turns duration +
+    # batch_rows into MFU gauges); transient — dies with the record
+    rec._program = program
     rec._t0 = time.perf_counter()
     dispatch("step_begin", rec)
     return rec
@@ -179,6 +190,10 @@ def step_end(rec: Optional[StepRecord]) -> None:
                   "wall time of one executor dispatch (feed packing + "
                   "device step + state writeback)").labels(**p).observe(
             rec.duration_s)
+        prog = getattr(rec, "_program", None)
+        if prog is not None and rec.batch_rows:
+            observe_step_cost(prog, rec.batch_rows, rec.duration_s,
+                              iterations=rec.iterations, path=rec.path)
     if rec.feed_bytes:
         counter("executor_feed_bytes_total",
                 "host->device feed transfer bytes").inc(rec.feed_bytes)
@@ -245,6 +260,126 @@ def record_fusion(decision) -> None:
             epilogue=c.get("epilogue", "?")).inc()
 
 
+def record_remat(decision) -> None:
+    """Record one FLAGS_auto_recompute decision (analysis/remat.py
+    RematDecision): how many programs were transformed vs refused, segments
+    inserted, and the planner's predicted peak bytes for the plain and
+    remat variants."""
+    if not enabled():
+        return
+    counter("remat_programs_total",
+            "auto-remat decisions by outcome").labels(
+        outcome="applied" if decision.applied else "refused").inc()
+    if not decision.applied:
+        return
+    counter("remat_segments_inserted_total",
+            "recompute segments inserted by FLAGS_auto_recompute").inc(
+        decision.n_segments)
+    gauge("remat_predicted_peak_bytes",
+          "memory_plan predicted peak of the last transformed program, "
+          "by variant").labels(variant="plain").set(decision.peak_before)
+    gauge("remat_predicted_peak_bytes",
+          "memory_plan predicted peak of the last transformed program, "
+          "by variant").labels(variant="remat").set(decision.peak_after)
+
+
+# -- cost model: per-(program, batch) FLOPs -> MFU gauges -------------------
+# (analysis/cost_model.py: the monitor turns measured step durations into
+# model-FLOP utilisation per program and shape bucket. Reports are cached:
+# estimation walks the ops once per (program version, batch);
+# steady-state steps pay one dict probe.)
+
+_cost_cache: Dict[tuple, Any] = {}
+_COST_CACHE_MAX = 64
+
+
+def program_cost(program, batch: int):
+    """The cached ``CostReport`` for ``program`` at ``batch`` rows, or
+    ``None`` when estimation failed (never raises into a step)."""
+    if not hasattr(program, "blocks"):
+        return None
+    key = (int(getattr(program, "_serial", -1)),
+           int(getattr(program, "_version", 0)), int(batch))
+    if key in _cost_cache:
+        return _cost_cache[key]
+    try:
+        from ..analysis.cost_model import estimate_cost
+
+        rep = estimate_cost(program, batch_size=batch)
+    except Exception:
+        rep = None
+    # unlocked bounded eviction: two step threads can race here, so the
+    # pop must tolerate the other thread winning ('never raises into a
+    # step' is the contract)
+    while len(_cost_cache) >= _COST_CACHE_MAX:
+        try:
+            _cost_cache.pop(next(iter(_cost_cache)), None)
+        except (StopIteration, RuntimeError):
+            break
+    _cost_cache[key] = rep
+    return rep
+
+
+def observe_step_cost(program, batch: int, duration_s: float,
+                      iterations: int = 1, path: str = "run"):
+    """Turn one measured dispatch into the cost-model gauges:
+    ``executor_model_gflops_per_step`` (static, per program+batch),
+    ``executor_achieved_tflops`` and ``executor_mfu`` (per path+program+
+    batch, against ``FLAGS_device_peak_tflops``). Returns the achieved
+    TF/s, or None when disabled/unmeasurable."""
+    if not enabled() or not duration_s or duration_s <= 0:
+        return None
+    rep = program_cost(program, batch)
+    if rep is None or rep.flops_total <= 0:
+        return None
+    from ..flags import flag
+
+    peak = float(flag("device_peak_tflops"))
+    achieved = rep.flops_total * max(1, int(iterations)) / duration_s / 1e12
+    labels = {"path": path,
+              "program": str(int(getattr(program, "_serial", -1))),
+              "batch": str(int(batch))}
+    gauge("executor_model_gflops_per_step",
+          "cost-model FLOPs of one step (GF, 2 FLOPs/MAC) by program "
+          "and batch").labels(program=labels["program"],
+                              batch=labels["batch"]).set(
+        rep.flops_total / 1e9)
+    gauge("executor_achieved_tflops",
+          "achieved model TF/s of the most recent dispatch, by path/"
+          "program/batch").labels(**labels).set(achieved)
+    if peak > 0:
+        gauge("executor_mfu",
+              "model-FLOP utilisation of the most recent dispatch vs "
+              "FLAGS_device_peak_tflops").labels(**labels).set(
+            achieved / peak)
+    return achieved
+
+
+def observe_serving_cost(program, padded_rows: int, batch_s: float,
+                         bucket: str):
+    """Serving flavour of :func:`observe_step_cost`: per shape-bucket
+    ``serving_bucket_achieved_tflops`` / ``serving_bucket_mfu`` gauges
+    from one dispatched batch's wall time."""
+    if not enabled() or not batch_s or batch_s <= 0:
+        return None
+    rep = program_cost(program, padded_rows)
+    if rep is None or rep.flops_total <= 0:
+        return None
+    from ..flags import flag
+
+    peak = float(flag("device_peak_tflops"))
+    achieved = rep.flops_total / batch_s / 1e12
+    gauge("serving_bucket_achieved_tflops",
+          "achieved model TF/s of the most recent batch, per shape "
+          "bucket").labels(bucket=bucket).set(achieved)
+    if peak > 0:
+        gauge("serving_bucket_mfu",
+              "model-FLOP utilisation of the most recent batch vs "
+              "FLAGS_device_peak_tflops, per shape bucket").labels(
+            bucket=bucket).set(achieved / peak)
+    return achieved
+
+
 # -- introspection ---------------------------------------------------------
 
 def recompile_events(recompiles_only: bool = True):
@@ -268,6 +403,8 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Clear metrics and recompile history (hooks stay subscribed)."""
+    """Clear metrics, recompile history and the cost-report cache (hooks
+    stay subscribed)."""
     get_registry().reset()
     get_tracker().reset()
+    _cost_cache.clear()

@@ -6,8 +6,10 @@ parameter under the optimize role.
 
 SGD, Momentum and Adam are ported, with weight decay (``regularization``
 or a parameter's ``ParamAttr.regularizer``, ``regularizer.py``) appended
-before the update ops as the JAX package does; the other optimizers and
-``clip.py`` wait for a later slice. ``apply_gradients`` appends to the
+before the update ops as the JAX package does, and the
+``RecomputeOptimizer`` wrapper (gradient checkpointing at user-named
+checkpoints, ``ops/recompute.py``); the other optimizers and ``clip.py``
+wait for a later slice. ``apply_gradients`` appends to the
 program's current block, so a wrapper (the AMP skip-update) can run the
 whole update inside a sub-block.
 """
@@ -23,7 +25,7 @@ from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGDOptimizer", "SGD", "MomentumOptimizer",
-           "Momentum", "AdamOptimizer", "Adam"]
+           "Momentum", "AdamOptimizer", "Adam", "RecomputeOptimizer"]
 
 
 class Optimizer:
@@ -193,6 +195,48 @@ class AdamOptimizer(Optimizer):
                      "Beta1PowOut": b1p, "Beta2PowOut": b2p},
             attrs={"beta1": self._beta1, "beta2": self._beta2,
                    "epsilon": self._epsilon})
+
+
+class RecomputeOptimizer:
+    """Gradient checkpointing (reference optimizer.py:3074
+    RecomputeOptimizer, backward.py:555
+    _append_backward_ops_with_checkpoints_).
+
+    Before the backward is appended, forward ops up to each user checkpoint
+    collapse into ``recompute_segment`` ops: activations between
+    checkpoints are not kept across the forward/backward gap; the
+    segment's grad op rebuilds them from the checkpoint tensors (see
+    ``ops/recompute.py``)."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        if not isinstance(checkpoints, (list, tuple)):
+            raise TypeError("checkpoints must be a list of Variables/names")
+        self._checkpoints = list(checkpoints)
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        from .ops.recompute import insert_recompute_segments
+
+        if self._checkpoints:
+            insert_recompute_segments(loss, self._checkpoints)
+        return self._optimizer.backward(loss, startup_program,
+                                        parameter_list, no_grad_set)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        program = loss.block.program
+        with program_guard(program, startup_program):
+            params_grads = self.backward(loss, startup_program,
+                                         parameter_list, no_grad_set)
+            optimize_ops = self._optimizer.apply_gradients(params_grads)
+        return optimize_ops, params_grads
 
 
 SGD = SGDOptimizer

@@ -1025,6 +1025,8 @@ class ServingEngine:
         self._gauge_open_buckets()
         batch_span.set_attribute("outcome", "ok")
         batch_span.end()
+        _monitor.observe_serving_cost(self._program, padded, batch_s,
+                                      label)
         if _monitor.enabled():
             _monitor.counter("serving_batches_total",
                              "dispatched batches by result").labels(

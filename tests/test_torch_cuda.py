@@ -910,3 +910,125 @@ def test_a_kernel_error_inside_a_batch_is_the_cause_of_batch_failed(
     assert K.launch_counts()["fused_gemm"] > n0
     acct = eng.accounting()
     assert acct["exact"] and acct["failed"] == 1 and acct["completed"] == 1
+
+
+# -- auto-remat and the executor's release on the card -------------------------
+
+def _bert_tiny_remat_setup(seq=64, batch=4, **cfg_kw):
+    import dataclasses
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+
+    cfg = dataclasses.replace(BertConfig.tiny(), **cfg_kw)
+    net = build_bert_pretrain(cfg, seq_len=seq, amp=True, lr=1e-3)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(net["startup"], scope=init)
+    g = torch.Generator().manual_seed(0)
+    feed = {"src_ids": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                     generator=g).numpy(),
+            "pos_ids": torch.arange(seq).repeat(batch, 1).numpy(),
+            "sent_ids": torch.zeros(batch, seq, dtype=torch.long).numpy(),
+            "input_mask": torch.ones(batch, seq).numpy(),
+            "mask_label": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                        generator=g).numpy(),
+            "next_sent_label": torch.ones(batch, 1,
+                                          dtype=torch.long).numpy()}
+    return fluid, cfg, net, init, feed
+
+
+def _remat_run(fluid, net, init, feed, place, auto, steps=1, chained=False):
+    scope = fluid.Scope()
+    dev = place.torch_device()
+    for n, t in init.vars.items():
+        scope.set_var(n, t.clone().to(dev))
+    exe = fluid.Executor(place)
+    prev = fluid.get_flags(["FLAGS_auto_recompute"])
+    fluid.set_flags({"FLAGS_auto_recompute": auto})
+    try:
+        base = 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        if chained:
+            out = exe.run_chained(net["main"], feed=feed,
+                                  fetch_list=[net["loss"]], steps=steps,
+                                  scope=scope)[0].reshape(-1).tolist()
+        else:
+            out = [float(exe.run(net["main"], feed=feed,
+                                 fetch_list=[net["loss"]],
+                                 scope=scope)[0].reshape(-1)[0])
+                   for _ in range(steps)]
+        # the run's own peak: what it allocated above what was resident
+        peak = torch.cuda.max_memory_allocated() - base \
+            if dev.type == "cuda" else 0
+    finally:
+        fluid.set_flags(prev)
+    return out, K.launch_counts(), peak, exe, scope
+
+
+@pytest.mark.cuda
+def test_bert_tiny_remat_step_on_the_card_matches_the_cpu():
+    """BERT-tiny ``amp=True`` under ``FLAGS_auto_recompute`` (dropout off:
+    the card's and the CPU's generators draw different bits): the remat
+    decision applies, one step's loss and the updated parameters on the
+    card match the CPU's (the bf16 products differ in summation order:
+    loss rtol 1e-3, parameters atol 2 * lr), and K1 runs twice a layer
+    (the segment's forward and its replay), K3/K4 once."""
+    _cuda()
+    fluid, cfg, net, init, feed = _bert_tiny_remat_setup(
+        hidden_dropout=0.0, attention_dropout=0.0)
+    card, launches, _, exe, cscope = _remat_run(
+        fluid, net, init, feed, fluid.CUDAPlace(0), True)
+    cpu, _, _, cexe, hscope = _remat_run(
+        fluid, net, init, feed, fluid.CPUPlace(), True)
+    ran = next(iter(exe._remat_cache.values()))
+    assert ran is not net["main"]
+    assert any(op.type == "recompute_segment" for op in ran.global_block.ops)
+    assert abs(card[0] - cpu[0]) <= 1e-3 * abs(cpu[0])
+    for n in init.vars:
+        torch.testing.assert_close(cscope.find_var(n).cpu(),
+                                   hscope.find_var(n), atol=2e-3, rtol=0)
+    L = cfg.num_layers
+    assert launches["flash_attention_fwd"] == 2 * L
+    assert launches["flash_attention_dq"] == launches[
+        "flash_attention_dkv"] == L
+
+
+@pytest.mark.cuda
+def test_remat_peak_is_below_the_plain_peak_on_the_card():
+    _cuda()
+    fluid, _, net, init, feed = _bert_tiny_remat_setup(seq=128, batch=16)
+    plain, _, plain_peak, _, _ = _remat_run(
+        fluid, net, init, feed, fluid.CUDAPlace(0), False)
+    remat, _, remat_peak, _, _ = _remat_run(
+        fluid, net, init, feed, fluid.CUDAPlace(0), True)
+    assert remat_peak < plain_peak
+    assert abs(remat[0] - plain[0]) <= 1e-6 * abs(plain[0])
+
+
+@pytest.mark.cuda
+def test_run_chained_holds_memory_flat_with_the_release():
+    """Released intermediates do not pile up across the chained loop: the
+    run's own peak over 8 chained steps stays within a tenth of its peak
+    over 2 (a step's activations are most of it), and the memory held
+    after the call does not grow call to call."""
+    _cuda()
+    fluid, _, net, init, feed = _bert_tiny_remat_setup(seq=128, batch=8)
+    _, _, peak2, _, _ = _remat_run(fluid, net, init, feed,
+                                   fluid.CUDAPlace(0), False, steps=2,
+                                   chained=True)
+    out, _, peak8, exe, scope = _remat_run(
+        fluid, net, init, feed, fluid.CUDAPlace(0), False, steps=8,
+        chained=True)
+    assert len(out) == 8 and all(map(math.isfinite, out))
+    assert peak8 - peak2 <= peak2 / 10
+    held = []
+    for _ in range(3):
+        exe.run_chained(net["main"], feed=feed, fetch_list=[net["loss"]],
+                        steps=4, scope=scope)
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+    assert max(held) - min(held) <= 2 ** 20

@@ -240,8 +240,9 @@ def _run_both(op_type, case):
 RANDOM_OPS = {"truncated_gaussian_random", "dropout", "uniform_random",
               "gaussian_random"}
 # ops that run a sub-block: checked by the programs that build them
-# (conditional_block: the AMP skip-update, tests/test_torch_amp.py)
-BLOCK_OPS = {"conditional_block"}
+# (conditional_block: the AMP skip-update, tests/test_torch_amp.py;
+# recompute_segment: gradient checkpointing, tests/test_torch_remat.py)
+BLOCK_OPS = {"conditional_block", "recompute_segment"}
 
 
 def test_every_path_op_has_a_case():

@@ -643,5 +643,5 @@ def test_refused_knobs_name_their_missing_module():
     eng = _engine(PKGS[1])
     with pytest.raises(NotImplementedError, match="graceful"):
         eng.install_preemption_handler()
-    with pytest.raises(NotImplementedError, match="cost_model"):
+    with pytest.raises(NotImplementedError, match="fleet serving tier"):
         tfluid.set_flags({"FLAGS_fleet_telemetry": 1})
