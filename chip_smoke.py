@@ -64,7 +64,21 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    port's parser, one request's trace has the reference's spans and
    parent links; with ``--out-dir`` the Chrome trace is written there.
    No leg without an injected fault may see a typed failure.
-7. train — BERT-base pretraining (``BertConfig.base()``: 12 layers, hidden
+7. serve_poison — the same program behind a ServingEngine with
+   ``FLAGS_check_nan_inf=1`` and ``bisect_depth`` 3 (``max_batch`` 8, so
+   32 requests make 4 dispatches and depth 3 reaches one row): 32 one-row
+   requests, one with a NaN in its input_mask. It settles
+   ``PoisonRequest`` (cause: the nan check's FloatingPointError), the 31
+   others complete within ``AMP_INFER_TOL`` of a direct run of their
+   row, the poisoned feed resubmitted is shed from quarantine
+   (``Overloaded``, ``poison_quarantine``), every breaker stays closed,
+   accounting exact, K5 74 and K1 12 launches per dispatch. Reports the
+   round's seconds against a clean round's (the bisection's cost) and the
+   dispatches by bucket. Then ``install_preemption_handler()`` and
+   ``request_shutdown()`` with 16 queued requests: every one settles
+   typed, ``ready()`` turns false; the shutdown state and the SIGTERM
+   handler are restored.
+8. train — BERT-base pretraining (``BertConfig.base()``: 12 layers, hidden
    768, 12 heads, vocab 30522, hidden and attention dropout 0.1, Adam at
    lr 1e-4; f32, batch 32, seq 128; random weights and a synthetic batch
    from ``--seed``): 10 ``Executor.run`` steps through the kernels (K1 24
@@ -75,7 +89,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    device memory held between steps stays flat. Reports steps/s,
    tokens/s, peak device memory and one profiled step's device idle share,
    top kernels and the device time of each of the port's kernels.
-8. train_amp — the JAX package's bf16 headline: BERT-base
+9. train_amp — the JAX package's bf16 headline: BERT-base
    ``build_bert_pretrain(amp=True)`` (bf16 products, f32 master weights,
    no loss scaling), batch 32, seq 512, dropout 0.1, 4 steps through the
    kernels and 4 plain (``FLAGS_use_flash_attention=never``) from the
@@ -86,7 +100,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    left f32, held memory flat. Reports steps/s, tokens/s, peak memory,
    the idle share, top kernels, and the device ms of the bf16 GEMMs and
    of K1 + K3 + K4 in the step.
-9. train_remat — the reference's ``bert_bs64_remat`` leg: BERT-base
+10. train_remat — the reference's ``bert_bs64_remat`` leg: BERT-base
    ``amp=True`` at seq 512, dropout 0.1, under ``FLAGS_auto_recompute``
    (``analysis/remat.py``: sqrt(N) checkpoints scored by
    ``Program.memory_plan``; each ``recompute_segment`` runs its sub-block
@@ -102,7 +116,30 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    checkpoints, the cost model's GFLOP a step (the untransformed program)
    against the analytic 6ND + attention count, MFU against
    ``FLAGS_device_peak_tflops`` and the ``executor_mfu`` gauge.
-10. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
+11. train_guard — the training safety net at the bench shape: BERT-base
+   ``amp=True``, batch 32, seq 512, dropout 0.1, Adam, built under
+   ``set_gradient_clip(GradientClipByGlobalNorm(1.0))`` (the clip of
+   published BERT pretraining). (1) Two plain runs of 3 steps from the
+   same state and feeds are bit-identical (losses and every state var),
+   and ``lookup_table``'s grad is timed both ways at the step's shapes
+   (``index_add_`` as before, ``index_put_(accumulate=True)`` as now).
+   (2) The fetched global norm equals ``torch.linalg.vector_norm`` over
+   the fetched raw gradients within rtol 1e-5, the clipped gradients'
+   norm is at most 1 (+1e-5). (3) ``FLAGS_check_nan_inf=1``, policy skip,
+   a NaN in one batch's input_mask: the step is dropped with every
+   persistable bit-identical, the label names the first op that reads
+   input_mask, the skip counter reads 1, the next clean step's loss
+   equals a run that never saw the bad batch (at the same step seeds);
+   policy raise restores the scope too; steps/s, kernel launches a step
+   and the step's peak with the check off and on. (4) ``save_checkpoint``
+   after step 2, ``load_checkpoint`` on a fresh executor and scope: every
+   persistable bit-identical, the next 2 steps equal to a copy of the
+   saved state's, a tampered blob refused PT603; bytes and save/load
+   seconds. (5) SIGTERM between steps under ``install_signal_handlers``
+   with an ``on_shutdown`` save: the loop stops at step 2 and
+   ``load_latest_checkpoint`` resumes there. K1 24 / K3 12 / K4 12 a
+   step over every run.
+12. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
    512; ``build_bert_pretrain(build_optimizer=False)`` cloned for test;
    random weights and a synthetic batch from ``--seed``; fetch the loss
    and the last encoder layer), run three ways on the same weights and
@@ -122,7 +159,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    launches a forward, all on its bf16 CUDA functions, K1 12, the fused
    loss within ``AMP_INFER_TOL`` of the unfused; forward ms (median of 5)
    and peak memory.
-11. train_resnet — the JAX package's headline metric: ResNet-50
+13. train_resnet — the JAX package's headline metric: ResNet-50
    ``build_resnet(50, amp=True)`` (bf16 convolutions and products under
    the AMP policy, f32 master weights, Momentum at lr 0.1, mu 0.9), batch
    128 at 224x224, random weights and images from ``--seed``, 5 steps.
@@ -140,13 +177,13 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (``op_ranges``: batch_norm, and the forward rules the generic grads
    run again), and one step with ``FLAGS_conv_use_nhwc`` always and
    never.
-12. infer_resnet — ResNet-50 bf16 inference (the is_test clone under
+14. infer_resnet — ResNet-50 bf16 inference (the is_test clone under
    ``decorate_program``, batch 128): fused (the fc head on K5's bf16
    route, one launch a forward), unfused and the dense replay (bit-exact
    against unfused, no K5 launch); fused logits within ``AMP_INFER_TOL``
    of unfused. Reports forward ms (median of 5), peak memory and idle
    share of each run.
-13. prints the script time of each phase and part (``[seconds]``), the
+15. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -160,8 +197,10 @@ import collections
 import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -174,7 +213,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels as K
-from paddle_tpu_torch import monitor, trace
+from paddle_tpu_torch import monitor, resilience, trace
 from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
@@ -183,8 +222,9 @@ from paddle_tpu_torch.models.gpt import (GptConfig, build_gpt_generative,
 from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.serving import (BatchFailed, CircuitOpen,
                                       GenerationConfig, GenerativeEngine,
-                                      Overloaded, ServingConfig,
-                                      ServingEngine)
+                                      Overloaded, PoisonRequest,
+                                      ServingConfig, ServingEngine,
+                                      ServingError)
 
 # H100 SXM published peaks (dense): bytes/s of HBM3, FLOP/s per type
 PEAK_BYTES = 3.35e12
@@ -1141,7 +1181,9 @@ def phase_serve_batch(seed, out_dir):
             "bf16" in k for k in funcs):
         raise SystemExit(f"chip_smoke: K5 did not run on its bf16 route "
                          f"behind the batching engine: {funcs}")
-    return dict(config="BertConfig.base()", seq=BATCH_SEQ,
+    return dict(_ctx=dict(prog=prog, names=names, enc=enc, exe=exe,
+                          scope=scope, rows=rows),
+                config="BertConfig.base()", seq=BATCH_SEQ,
                 max_batch=BATCH_MAX, requests=BATCH_REQUESTS,
                 wall_s=clean["wall_s"],
                 req_per_s=BATCH_REQUESTS / clean["wall_s"],
@@ -1310,6 +1352,188 @@ def serve_batch_observe(engine, rows, out_dir):
                          f"an executor.run span")
     return dict(families=sorted(fams), request_spans=sorted(links, key=str),
                 chrome_events=n_events)
+
+
+# ---------------------------------------------------------------- serve_poison
+# serve_batch's program behind an engine that bisects: 32 one-row requests
+# coalesce into 4 dispatches of POISON_MAX_BATCH; bisect depth 3 splits the
+# failing one 8 -> 4 -> 2 -> 1, so the poisoned row ends alone (at bucket 32
+# depth 3 would stop at 4 rows and fail 3 innocents with it)
+POISON_MAX_BATCH, POISON_DEPTH, POISON_REQUESTS, POISON_ROW = 8, 3, 32, 13
+POISON_DRAIN_REQUESTS = 16
+
+
+def poison_round(eng, exe, rows):
+    """Submit ``rows`` together and settle them; returns the futures, the
+    wall time, the executor runs by bucket and the launches."""
+    per_bucket = collections.Counter()
+    real_run = exe.run
+
+    def counting_run(program, feed=None, **kw):
+        per_bucket[int(next(iter(feed.values())).shape[0])] += 1
+        return real_run(program, feed=feed, **kw)
+
+    K.reset_launch_counts()
+    exe.run = counting_run
+    try:
+        t0 = time.perf_counter()
+        futs = [eng.submit(r) for r in rows]
+        for f in futs:
+            f.exception(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        exe.run = real_run
+    return futs, wall, dict(per_bucket), K.launch_counts()
+
+
+def phase_serve_poison(ctx):
+    """serve_batch's BERT-base bf16 fused program behind a ServingEngine
+    with FLAGS_check_nan_inf=1 and bisect_depth POISON_DEPTH: one request
+    of 32 carries a NaN in its input_mask. It settles PoisonRequest, the
+    31 others complete within AMP_INFER_TOL of a direct run of their row,
+    the poisoned feed resubmitted is shed from quarantine (Overloaded,
+    poison_quarantine), and the bucket's breaker stays closed. Then the
+    preemption leg: install_preemption_handler() and request_shutdown()
+    drain a queue; every request settles typed and ready() turns false."""
+    prog, names, enc = ctx["prog"], ctx["names"], ctx["enc"]
+    exe, scope = ctx["exe"], ctx["scope"]
+    rows = ctx["rows"][:POISON_REQUESTS]
+    bad = dict(rows[POISON_ROW])
+    bad["input_mask"] = bad["input_mask"].copy()
+    bad["input_mask"][0, 5] = np.nan
+    poisoned = rows[:POISON_ROW] + [bad] + rows[POISON_ROW + 1:]
+
+    def engine(**kw):
+        return ServingEngine(prog, feed_names=names, fetch_list=[enc],
+                             scope=scope, executor=exe,
+                             config=ServingConfig(
+                                 max_batch=POISON_MAX_BATCH, queue_depth=256,
+                                 deadline_s=0, batch_window_s=0.05, **kw))
+
+    fluid.set_flags({"FLAGS_epilogue_fusion": True,
+                     "FLAGS_check_nan_inf": True})
+    try:
+        eng = engine(bisect_depth=POISON_DEPTH)
+        eng.warm_up()
+        with eng:
+            _, clean_wall, clean_buckets, _ = poison_round(eng, exe, rows)
+            futs, wall, buckets, launches = poison_round(eng, exe, poisoned)
+            try:
+                eng.submit(bad)
+                shed = None
+            except Overloaded as e:
+                shed = e.reason
+        acct = {k: v for k, v in eng.accounting().items()
+                if k != "recent_outcomes"}
+        breakers = {eng._bucket_label(b): br.state
+                    for b, br in eng._breakers.items()}
+        perr = futs[POISON_ROW].exception()
+        others = [f.exception() for i, f in enumerate(futs)
+                  if i != POISON_ROW]
+        worst, ok = 0.0, True
+        for i, f in enumerate(futs):
+            if i == POISON_ROW or f.exception() is not None:
+                continue
+            want = exe.run(prog, feed=rows[i], fetch_list=[enc],
+                           scope=scope)[0]
+            err, good = within_amp_tol(f.result()[0], want)
+            worst, ok = max(worst, err), ok and good
+        drain = serve_poison_drain(engine, exe, rows)
+    finally:
+        fluid.set_flags({"FLAGS_epilogue_fusion": False,
+                         "FLAGS_check_nan_inf": False})
+    n_runs = sum(buckets.values())
+    log(f"[serve_poison] BERT-base bf16 fused, seq {BATCH_SEQ}, "
+        f"FLAGS_check_nan_inf=1, bisect_depth {POISON_DEPTH}, max_batch "
+        f"{POISON_MAX_BATCH}: {POISON_REQUESTS} requests, row {POISON_ROW} "
+        f"with a NaN in input_mask: {type(perr).__name__} "
+        f"({str(perr)[:160]}); others "
+        f"{collections.Counter(type(e).__name__ if e else 'ok' for e in others)}")
+    log(f"  round {wall:.3f} s against {clean_wall:.3f} s clean (bisection "
+        f"{wall - clean_wall:.3f} s); executor runs by bucket {buckets} "
+        f"(clean {clean_buckets}); launches {launches}")
+    log(f"  rows vs a direct run of each row: max abs err {worst:.3e} "
+        f"(tolerance {AMP_INFER_TOL}); resubmitted poison: {shed}; "
+        f"breakers {breakers}; accounting {acct}")
+    log(f"  preemption: {drain['requests']} queued, outcomes "
+        f"{drain['outcomes']}, ready() {drain['ready']} after "
+        f"{drain['drain_s']:.3f} s, accounting exact "
+        f"{drain['accounting']['exact']}; launches {drain['launches']}")
+    if not isinstance(perr, PoisonRequest) or \
+            not isinstance(perr.__cause__, FloatingPointError):
+        raise SystemExit(f"chip_smoke: the poisoned request settled "
+                         f"{perr!r}, expected PoisonRequest from the nan "
+                         f"check")
+    if any(e is not None for e in others) or not ok:
+        raise SystemExit(f"chip_smoke: an innocent request failed or "
+                         f"differs beyond {AMP_INFER_TOL} (max abs err "
+                         f"{worst:.3e}): {[e for e in others if e][:3]}")
+    if shed != "poison_quarantine":
+        raise SystemExit(f"chip_smoke: the resubmitted poison was not shed "
+                         f"from quarantine: {shed}")
+    if set(breakers.values()) != {"closed"}:
+        raise SystemExit(f"chip_smoke: a breaker left closed: {breakers}")
+    if not acct["exact"] or acct["poisoned"] != 1 or acct["failed"] or \
+            acct["completed"] != 2 * POISON_REQUESTS - 1:
+        raise SystemExit(f"chip_smoke: serve_poison accounting {acct}")
+    for name in K.KERNEL_SOURCES:
+        want = INFER_LAUNCHES.get(name, 0) * n_runs
+        if launches[name] != want:
+            raise SystemExit(f"chip_smoke: {name} launched "
+                             f"{launches[name]} times in {n_runs} poisoned-"
+                             f"round dispatches, expected {want}")
+    total = {n: launches[n] + drain["launches"][n] for n in launches}
+    return dict(config="BertConfig.base()", seq=BATCH_SEQ,
+                bisect_depth=POISON_DEPTH, max_batch=POISON_MAX_BATCH,
+                requests=POISON_REQUESTS, poisoned_row=POISON_ROW,
+                round_s=wall, clean_round_s=clean_wall,
+                bisection_s=wall - clean_wall, runs_by_bucket=buckets,
+                clean_runs_by_bucket=clean_buckets, round_launches=launches,
+                direct_max_abs_err=worst, resubmitted=shed,
+                breakers=breakers, accounting=acct, error=str(perr),
+                preemption=drain, launches=total)
+
+
+def serve_poison_drain(engine, exe, rows):
+    """install_preemption_handler() and request_shutdown() with a queue:
+    the drain-stop settles every request typed and ready() turns false.
+    Leaves the shutdown state reset and the previous SIGTERM handler."""
+    prev = signal.getsignal(signal.SIGTERM)
+    eng = engine()
+    eng.warm_up([POISON_MAX_BATCH])
+    K.reset_launch_counts()
+    try:
+        eng.start()
+        installed = eng.install_preemption_handler()
+        futs = [eng.submit(r) for r in rows[:POISON_DRAIN_REQUESTS]]
+        t0 = time.perf_counter()
+        resilience.request_shutdown("chip_smoke")
+        outcomes = collections.Counter()
+        for f in futs:
+            err = f.exception(timeout=600)
+            if err is not None and not isinstance(err, ServingError):
+                raise SystemExit(f"chip_smoke: a drained request settled "
+                                 f"untyped: {err!r}")
+            outcomes[type(err).__name__ if err else "ok"] += 1
+        until = time.monotonic() + 60
+        while eng.ready() and time.monotonic() < until:
+            time.sleep(0.01)
+        drain_s = time.perf_counter() - t0
+        ready = eng.ready()
+        acct = {k: v for k, v in eng.accounting().items()
+                if k != "recent_outcomes"}
+        launches = K.launch_counts()
+    finally:
+        eng.stop()
+        resilience.graceful.reset_shutdown_state()
+        signal.signal(signal.SIGTERM, prev)
+    if not installed or ready or not acct["exact"] or acct["pending"]:
+        raise SystemExit(f"chip_smoke: the preemption drain failed: handler "
+                         f"installed {installed}, ready() {ready}, "
+                         f"accounting {acct}")
+    return dict(requests=POISON_DRAIN_REQUESTS, outcomes=dict(outcomes),
+                ready=ready, drain_s=drain_s, accounting=acct,
+                launches=launches)
 
 
 # ---------------------------------------------------------------- train
@@ -1708,10 +1932,9 @@ REMAT_BIG_BATCH, REMAT_BIG_STEPS = 64, 4
 # Later steps start from gradients summed in another order (autograd
 # inside a segment, backward.py's sum op across a segment's edge), which
 # the bf16 rounding of the products' operands turns into bf16-ulp
-# differences; and the plain program does not repeat itself on the card
-# either (the embedding grads accumulate in a run-dependent order; see
-# tools/torch_repeat_check.py). Later steps are held to train_amp's
-# kernel-against-plain tolerance.
+# differences: 2.1e-5 to 4.1e-4 at steps 2-3 on an H100, where two plain
+# runs are bit-identical (tools/torch_repeat_check.py). Later steps are
+# held to train_amp's kernel-against-plain tolerance.
 REMAT_LOSS_RTOL = (1e-6, AMP_LOSS_RTOL[1])
 # under sqrt(N) segmentation every attention op sits inside a segment:
 # K1 runs once in the segment's forward and once in its replay, K3/K4
@@ -1894,6 +2117,435 @@ def phase_train_remat(seed):
                   device_peak_tflops=peak_tflops,
                   executor_mfu_gauge=gauge, report=cost.to_dict()),
         launches=launches)
+
+
+# ---------------------------------------------------------------- train_guard
+# the training safety net at the reference's bench shape (bench.py:177):
+# BERT-base amp=True, batch 32, seq 512, dropout 0.1, Adam, under the clip
+# of Devlin et al.'s BERT pretraining (global norm 1.0, google-research/bert
+# optimization.py)
+GUARD_BATCH, GUARD_SEQ, GUARD_STEPS = 32, 512, 3
+GUARD_CLIP_NORM = 1.0
+GUARD_CLIP_RTOL = 1e-5
+GUARD_TIMED_STEPS = 4
+# the embedding tables and the ids that index them in a BERT step
+GUARD_TABLES = (("word_embedding", "src_ids"), ("pos_embedding", "pos_ids"),
+                ("sent_embedding", "sent_ids"))
+
+
+def fresh(init):
+    exe, scope = fluid.Executor(), fluid.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    return exe, scope
+
+
+def state_diff(scope, image):
+    """Names whose value differs from ``image`` (bit for bit)."""
+    return [n for n, t in image.items()
+            if not torch.equal(scope.find_var(n), t)]
+
+
+def embedding_grad_ms(init, feed, vocab):
+    """lookup_table's dense grad at the step's shapes, both ways: the
+    index_add_ it used to take (atomics, run-dependent order) and the
+    index_put_(accumulate=True) it takes now (sorted, fixed order): device
+    ms from torch.profiler and whether two calls give the same bits."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    rule = registry.get_op_def("lookup_table").grad_lower
+    rows = {}
+    for table, ids_name in GUARD_TABLES:
+        w = init[table]
+        gen = torch.Generator(device=w.device).manual_seed(7)
+        ids = torch.from_numpy(feed[ids_name]).to(w.device)
+        dout = torch.randn(ids.numel(), w.shape[1], generator=gen,
+                           device=w.device)
+        flat = ids.reshape(-1).long().clamp(0, w.shape[0] - 1)
+
+        def before():
+            dense = torch.zeros(w.shape[0] + 1, w.shape[1], device=w.device)
+            dense.index_add_(0, flat, dout)
+            return dense[:w.shape[0]]
+
+        def after():
+            return rule(LowerCtx(w.device), {"W": [w], "Ids": [ids],
+                                             "Out@GRAD": [dout]},
+                        {"padding_idx": -1})["W@GRAD"][0]
+
+        a, b = after(), after()
+        c, d = before(), before()
+        rows[table] = dict(
+            shape=[int(w.shape[0]), int(w.shape[1])], ids=int(ids.numel()),
+            distinct_ids=int(torch.unique(flat).numel()),
+            before_ms=device_ms(before, iters=10),
+            after_ms=device_ms(after, iters=10),
+            before_repeats=bool(torch.equal(c, d)),
+            after_repeats=bool(torch.equal(a, b)),
+            max_abs_diff=float((a - c).abs().max()))
+        if not rows[table]["after_repeats"]:
+            raise SystemExit(f"chip_smoke: lookup_table's grad of {table} "
+                             f"differs between two calls")
+    return rows
+
+
+def guard_clip(net, init, feed):
+    """One step fetching the clip's global norm, the raw and the clipped
+    gradients."""
+    ops = net["main"].global_block.ops
+    raw = [op.input("X")[0] for op in ops if op.type == "squared_l2_norm"]
+    # clip.py's chain: sqrt (the global norm), fill_constant (the clip
+    # norm), elementwise_max, elementwise_div (the scale), then one
+    # elementwise_mul a gradient
+    i = next(i for i, op in enumerate(ops) if op.type == "sqrt")
+    gnorm, scale = ops[i].output("Out")[0], ops[i + 3].output("Out")[0]
+    clipped = [op.output("Out")[0] for op in ops
+               if op.type == "elementwise_mul" and op.input("Y")[0] == scale]
+    exe, scope = fresh(init)
+    out = exe.run(net["main"], feed=feed,
+                  fetch_list=[net["loss"], gnorm] + raw + clipped,
+                  scope=scope, return_numpy=False)
+    got = float(out[1].reshape(-1)[0])
+    raw_t, clip_t = out[2:2 + len(raw)], out[2 + len(raw):]
+    ref = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.double()) for g in raw_t])))
+    clipped_norm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.double()) for g in clip_t])))
+    rel = abs(got - ref) / ref
+    log(f"  clip: GradientClipByGlobalNorm({GUARD_CLIP_NORM}) over "
+        f"{len(raw)} gradients: fetched global norm {got:.6f}, "
+        f"vector_norm of the raw grads {ref:.6f} (rel. diff {rel:.3e}), "
+        f"clipped norm {clipped_norm:.6f}")
+    if rel > GUARD_CLIP_RTOL or \
+            clipped_norm > GUARD_CLIP_NORM * (1 + GUARD_CLIP_RTOL):
+        raise SystemExit(f"chip_smoke: the global-norm clip is off: norm "
+                         f"{got} against {ref}, clipped norm {clipped_norm}")
+    del out, raw_t, clip_t, exe, scope
+    return dict(n_grads=len(raw), global_norm=got, reference_norm=ref,
+                rel_diff=rel, clipped_norm=clipped_norm)
+
+
+def guard_nonfinite(net, init, feeds, bad):
+    """FLAGS_check_nan_inf with nan_inf_policy skip, then raise."""
+    fetch = [net["loss"]]
+    first = next(op for op in net["main"].global_block.ops
+                 if "input_mask" in op.input_arg_names)
+    want_label = f"op '{first.type}' output '{first.output_arg_names[0]}'"
+
+    def loss_of(out):
+        return np.asarray(out[0]).reshape(-1)[0]
+
+    def skips():
+        return monitor.metric_value("steps_skipped_nonfinite_total", 0.0,
+                                    path="run", policy="skip")
+
+    trace.clear_incidents()
+    fluid.set_flags({"FLAGS_check_nan_inf": True,
+                     "FLAGS_nan_inf_policy": "skip"})
+    try:
+        exe, scope = fresh(init)
+        la = loss_of(exe.run(net["main"], feed=feeds[0], fetch_list=fetch,
+                             scope=scope))
+        image = {n: t.clone() for n, t in scope.vars.items()}
+        n0 = skips()
+        exe.run(net["main"], feed=bad, fetch_list=fetch, scope=scope)
+        changed = state_diff(scope, image)
+        skipped = skips() - n0
+        incident = [i for i in trace.incidents()
+                    if i.get("kind") == "nonfinite_step"]
+        detail = incident[-1]["detail"] if incident else ""
+        lb = loss_of(exe.run(net["main"], feed=feeds[1], fetch_list=fetch,
+                             scope=scope))
+        # the run that never saw the bad batch, at the same step seeds (the
+        # dropped step drew its seed from the executor's counter)
+        exe2, scope2 = fresh(init)
+        ra = loss_of(exe2.run(net["main"], feed=feeds[0], fetch_list=fetch,
+                              scope=scope2))
+        exe2._step_counter += 1
+        rb = loss_of(exe2.run(net["main"], feed=feeds[1], fetch_list=fetch,
+                              scope=scope2))
+        del exe2, scope2
+        fluid.set_flags({"FLAGS_nan_inf_policy": "raise"})
+        image = {n: t.clone() for n, t in scope.vars.items()}
+        try:
+            exe.run(net["main"], feed=bad, fetch_list=fetch, scope=scope)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        changed_raise = state_diff(scope, image)
+        del image, exe, scope
+    finally:
+        fluid.set_flags({"FLAGS_check_nan_inf": False,
+                         "FLAGS_nan_inf_policy": "raise"})
+    log(f"  non-finite step (NaN in input_mask, policy skip): state changed "
+        f"{len(changed)} vars, counter +{skipped:g}, incident "
+        f"'{detail[:200]}'; next clean step loss {lb:.9g} against {rb:.9g} "
+        f"for the run that never saw the bad batch; policy raise: "
+        f"'{(raised or '')[:160]}', state changed {len(changed_raise)}")
+    if changed or changed_raise:
+        raise SystemExit(f"chip_smoke: a dropped step changed the state: "
+                         f"{(changed or changed_raise)[:5]}")
+    if skipped != 1 or want_label not in detail or raised is None or \
+            want_label not in raised:
+        raise SystemExit(f"chip_smoke: the skip was not counted once or the "
+                         f"label does not name {want_label}: counter "
+                         f"+{skipped}, '{detail}', raised '{raised}'")
+    if la != ra or lb != rb:
+        raise SystemExit(f"chip_smoke: the losses around the dropped step "
+                         f"differ from a run that never saw it: {la}/{ra}, "
+                         f"{lb}/{rb}")
+    return dict(label=want_label, incident=detail, raised=raised,
+                next_loss=float(lb), never_saw_loss=float(rb))
+
+
+def guard_overhead(net, init, feed):
+    """Steps/s, launches a step and one step's peak memory with
+    FLAGS_check_nan_inf off and on (policy skip: the rollback image)."""
+    res = {}
+    for check in (False, True):
+        fluid.set_flags({"FLAGS_check_nan_inf": check,
+                         "FLAGS_nan_inf_policy": "skip"})
+        try:
+            exe, scope = fresh(init)
+            exe.run(net["main"], feed=feed, fetch_list=[net["loss"]],
+                    scope=scope)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GUARD_TIMED_STEPS - 1):
+                exe.run(net["main"], feed=feed, fetch_list=[net["loss"]],
+                        scope=scope)
+            sps = (GUARD_TIMED_STEPS - 1) / (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            exe.run(net["main"], feed=feed, fetch_list=[net["loss"]],
+                    scope=scope)
+            peak = torch.cuda.max_memory_allocated() - base
+            prof = profile_step(net, exe, scope, feed)
+            del exe, scope
+        finally:
+            fluid.set_flags({"FLAGS_check_nan_inf": False})
+        torch.cuda.empty_cache()
+        res["on" if check else "off"] = dict(
+            steps_per_s=sps, step_peak_gib=peak / 2**30,
+            device_kernels=prof["device_kernels"],
+            device_busy_ms=prof["device_busy_s"] * 1e3,
+            wall_ms=prof["wall_s"] * 1e3, idle_share=prof["idle_share"])
+    off, on = res["off"], res["on"]
+    res["launches_added"] = on["device_kernels"] - off["device_kernels"]
+    res["peak_added_gib"] = on["step_peak_gib"] - off["step_peak_gib"]
+    log(f"  check off | on: {off['steps_per_s']:.3f} | "
+        f"{on['steps_per_s']:.3f} steps/s, {off['device_kernels']} | "
+        f"{on['device_kernels']} device kernels a step (+"
+        f"{res['launches_added']}), step peak {off['step_peak_gib']:.2f} | "
+        f"{on['step_peak_gib']:.2f} GiB (+{res['peak_added_gib']:.2f}), "
+        f"device busy {off['device_busy_ms']:.1f} | "
+        f"{on['device_busy_ms']:.1f} ms, idle {off['idle_share']:.3f} | "
+        f"{on['idle_share']:.3f}")
+    return res
+
+
+def guard_checkpoint(net, init, feeds, tmp):
+    """save_checkpoint after step 2, load_checkpoint into a fresh scope on
+    a fresh executor, the next two steps on the loaded state against a
+    copy of the saved one, then a tampered blob."""
+    exe, scope = fresh(init)
+    for f in feeds[:2]:
+        exe.run(net["main"], feed=f, fetch_list=[net["loss"]], scope=scope)
+    ck = os.path.join(tmp, "checkpoint_2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fluid.io.save_checkpoint(exe, ck, net["main"], scope=scope,
+                             meta={"step": 2})
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+    exe_l, scope_l = fluid.Executor(), fluid.Scope()
+    t0 = time.perf_counter()
+    meta = fluid.io.load_checkpoint(exe_l, ck, net["main"], scope=scope_l)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    saved = [v.name for v in net["main"].list_vars() if v.persistable]
+    differ = [n for n in saved
+              if not torch.equal(scope_l.find_var(n), scope.find_var(n))]
+    copy = {n: t.clone() for n, t in scope.vars.items()}
+    del exe, scope
+    exe_c, scope_c = fresh(copy)
+    del copy
+    exe_l = fluid.Executor()
+    losses = []
+    for e, sc in ((exe_l, scope_l), (exe_c, scope_c)):
+        losses.append([np.asarray(e.run(net["main"], feed=f,
+                                        fetch_list=[net["loss"]],
+                                        scope=sc)[0]).reshape(-1)[0]
+                       for f in feeds[2:4]])
+    del exe_l, scope_l, exe_c, scope_c
+    blob = os.path.join(ck, "ckpt.npz")
+    with open(blob, "r+b") as f:
+        f.seek(os.path.getsize(blob) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        fluid.io.load_checkpoint(fluid.Executor(), ck, net["main"],
+                                 scope=fluid.Scope())
+        code = None
+    except resilience.CheckpointCorruptError as e:
+        code = e.code
+    log(f"  checkpoint: {len(saved)} persistables, {nbytes / 2**20:.1f} MiB, "
+        f"save {save_s:.3f} s, load {load_s:.3f} s, meta {meta}; differing "
+        f"after load {len(differ)}; next 2 losses loaded "
+        f"{[f'{x:.9g}' for x in losses[0]]} vs copy "
+        f"{[f'{x:.9g}' for x in losses[1]]}; tampered blob -> {code}")
+    if meta != {"step": 2} or differ or losses[0] != losses[1] or \
+            code != "PT603":
+        raise SystemExit(f"chip_smoke: the checkpoint round trip failed: "
+                         f"meta {meta}, differing {differ[:5]}, losses "
+                         f"{losses}, tampered -> {code}")
+    return dict(persistables=len(saved), bytes=nbytes, save_s=save_s,
+                load_s=load_s, losses=[[float(x) for x in l]
+                                       for l in losses], tampered=code)
+
+
+def guard_preemption(net, init, feeds, tmp):
+    """SIGTERM between steps: the handler sets the shutdown event, the loop
+    stops at shutdown_requested(), the on_shutdown save writes the step,
+    and load_latest_checkpoint resumes there."""
+    exe, scope = fresh(init)
+    step, saved = [0], threading.Event()
+
+    def save():
+        fluid.io.save_checkpoint(
+            exe, os.path.join(tmp, f"checkpoint_{step[0]}"), net["main"],
+            scope=scope, meta={"step": step[0]})
+        saved.set()
+
+    prev = signal.getsignal(signal.SIGTERM)
+    installed = resilience.install_signal_handlers()
+    unregister = resilience.on_shutdown(save)
+    try:
+        for f in feeds:
+            if resilience.shutdown_requested():
+                break
+            exe.run(net["main"], feed=f, fetch_list=[net["loss"]],
+                    scope=scope)
+            step[0] += 1
+            if step[0] == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+                until = time.monotonic() + 10
+                while not resilience.shutdown_requested() and \
+                        time.monotonic() < until:
+                    time.sleep(0.01)
+        wrote = saved.wait(300)
+    finally:
+        unregister()
+        resilience.uninstall_signal_handlers()
+        resilience.graceful.reset_shutdown_state()
+        signal.signal(signal.SIGTERM, prev)
+    del exe, scope
+    meta, serial, skipped = resilience.load_latest_checkpoint(
+        fluid.Executor(), tmp, main_program=net["main"],
+        scope=fluid.Scope())
+    log(f"  preemption: handler installed {installed}, SIGTERM after step "
+        f"2, loop stopped after step {step[0]}, checkpoint written {wrote}; "
+        f"resumed at serial {serial}, meta {meta}, skipped {skipped}")
+    if not (installed and wrote and step[0] == 2 and serial == 2
+            and meta == {"step": 2} and not skipped):
+        raise SystemExit("chip_smoke: the preemption leg did not stop and "
+                         "resume at step 2")
+    return dict(stopped_after=step[0], serial=serial, meta=meta)
+
+
+def phase_train_guard(seed):
+    cfg = BertConfig.base()
+    fluid.set_gradient_clip(fluid.GradientClipByGlobalNorm(GUARD_CLIP_NORM))
+    try:
+        net = build_bert_pretrain(cfg, seq_len=GUARD_SEQ, amp=True)
+    finally:
+        fluid.set_gradient_clip(None)
+    net["startup"].random_seed = seed + 7
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    del scope0
+    feeds = [bert_feed(seed + 8 + i, cfg.vocab_size, GUARD_BATCH, GUARD_SEQ)
+             for i in range(4)]
+    bad = dict(feeds[0])
+    bad["input_mask"] = bad["input_mask"].copy()
+    bad["input_mask"][1, 10] = np.nan
+    launches = collections.Counter()
+    runs = [0]
+
+    def count(fn, n_runs):
+        K.reset_launch_counts()
+        out = fn()
+        launches.update(K.launch_counts())
+        runs[0] += n_runs
+        return out
+
+    # 1. determinism: two plain runs from the same state and feeds
+    with timed("train_guard.repeat"):
+        a = train(net, init, feeds[0], plain=False, steps=GUARD_STEPS)
+        launches.update(a["launches"])
+        b = train(net, init, feeds[0], plain=False, steps=GUARD_STEPS)
+        launches.update(b["launches"])
+        runs[0] += 2 * GUARD_STEPS
+        differ = state_diff(b["scope"], dict(a["scope"].vars))
+        same = bool(np.array_equal(a["losses"], b["losses"])) and not differ
+        del a["exe"], a["scope"], b["exe"], b["scope"]
+        torch.cuda.empty_cache()
+        emb = embedding_grad_ms(init, feeds[0], cfg.vocab_size)
+    log(f"[train_guard] BERT-base amp=True, batch {GUARD_BATCH}, seq "
+        f"{GUARD_SEQ}, dropout 0.1, Adam, clip GradientClipByGlobalNorm("
+        f"{GUARD_CLIP_NORM})")
+    log(f"  determinism: two runs of {GUARD_STEPS} steps, losses "
+        f"{a['losses'][:, 0].tolist()} | {b['losses'][:, 0].tolist()}, "
+        f"state vars differing {len(differ)} -> "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    for t, r in emb.items():
+        log(f"  lookup_table grad {t} {r['shape']} from {r['ids']} ids "
+            f"({r['distinct_ids']} distinct): index_add_ "
+            f"{r['before_ms']:.4f} ms (repeats {r['before_repeats']}), "
+            f"index_put_(accumulate) {r['after_ms']:.4f} ms (repeats "
+            f"{r['after_repeats']}), max |diff| {r['max_abs_diff']:.3e}")
+    if not same:
+        raise SystemExit(f"chip_smoke: two plain runs differ: losses "
+                         f"{a['losses'][:, 0]} | {b['losses'][:, 0]}, state "
+                         f"{differ[:5]}")
+    with timed("train_guard.clip"):
+        clip = count(lambda: guard_clip(net, init, feeds[0]), 1)
+    torch.cuda.empty_cache()
+    with timed("train_guard.nonfinite"):
+        nonfinite = count(lambda: guard_nonfinite(net, init, feeds, bad), 6)
+    torch.cuda.empty_cache()
+    with timed("train_guard.overhead"):
+        overhead = count(lambda: guard_overhead(net, init, feeds[0]),
+                         2 * (GUARD_TIMED_STEPS + 2))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        with timed("train_guard.checkpoint"):
+            ckpt = count(lambda: guard_checkpoint(net, init, feeds, tmp), 6)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_preempt_") as tmp:
+        with timed("train_guard.preemption"):
+            preempt = count(lambda: guard_preemption(net, init, feeds, tmp),
+                            2)
+    torch.cuda.empty_cache()
+    for name in K.KERNEL_SOURCES:
+        want = TRAIN_LAUNCHES.get(name, 0) * runs[0]
+        if launches[name] != want:
+            raise SystemExit(f"chip_smoke: {name} launched {launches[name]} "
+                             f"times in {runs[0]} train_guard steps, "
+                             f"expected {want}")
+    return dict(config="BertConfig.base(), amp=True", batch=GUARD_BATCH,
+                seq=GUARD_SEQ, clip_norm=GUARD_CLIP_NORM,
+                repeat=dict(losses=[a["losses"].tolist(),
+                                    b["losses"].tolist()],
+                            bit_identical=same),
+                embedding_grad=emb, clip=clip, nonfinite=nonfinite,
+                overhead=overhead, checkpoint=ckpt, preemption=preempt,
+                steps=runs[0], launches={n: launches[n]
+                                         for n in K.KERNEL_SOURCES})
 
 
 # ---------------------------------------------------------------- infer
@@ -2533,6 +3185,8 @@ def main():
     torch.cuda.empty_cache()
     with timed("serve_batch"):
         batched = phase_serve_batch(args.seed, args.out_dir)
+    with timed("serve_poison"):
+        poisoned = phase_serve_poison(batched.pop("_ctx"))
     torch.cuda.empty_cache()
     with timed("train"):
         trained = phase_train(args.seed)
@@ -2543,6 +3197,9 @@ def main():
     with timed("train_remat"):
         trained_remat = phase_train_remat(args.seed)
     torch.cuda.empty_cache()
+    with timed("train_guard"):
+        guarded = phase_train_guard(args.seed)
+    torch.cuda.empty_cache()
     with timed("infer"):
         inferred = phase_infer(args.seed)
     torch.cuda.empty_cache()
@@ -2552,16 +3209,18 @@ def main():
     with timed("infer_resnet"):
         inferred_resnet = phase_infer_resnet(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
-    # (K1, K2's 8-row route), batching BERT serving (K1, K5 bf16),
-    # training in f32, in bf16 and in bf16 under auto-remat (K1, K3, K4),
-    # inference in f32 and bf16
-    # (K1, K5) and ResNet-50 bf16 training (none) and inference (K5),
-    # each counted from 0 over its own run
+    # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
+    # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
+    # under auto-remat and under the safety net (K1, K3, K4), inference in
+    # f32 and bf16 (K1, K5) and ResNet-50 bf16 training (none) and
+    # inference (K5), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
+                "serve_poison": poisoned["launches"],
                 "train": trained["launches"],
                 "train_amp": trained_amp["launches"],
                 "train_remat": trained_remat["launches"],
+                "train_guard": guarded["launches"],
                 "infer": inferred["launches"],
                 "train_resnet": trained_resnet["launches"],
                 "infer_resnet": inferred_resnet["launches"]}
@@ -2576,6 +3235,7 @@ def main():
                   "accounting": dict(run["accounting"]),
                   "stats": run["stats"], "whole_path": whole},
               "serve_spec": spec, "serve_batch": batched,
+              "serve_poison": poisoned, "train_guard": guarded,
               "launches_by_phase": by_phase,
               "train": trained, "train_amp": trained_amp,
               "train_remat": trained_remat,

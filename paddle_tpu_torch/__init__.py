@@ -19,13 +19,21 @@ for training, ``decorate_program`` for inference) and the MLP train step
 weight decay through ``regularizer``), and the serving services
 (``serving.ServingEngine`` batching with admission control, speculative
 decoding in ``serving.GenerativeEngine``, ``monitor``, ``trace`` and
-``resilience``). ``Executor()`` runs on ``CUDAPlace(0)``; pass
+``resilience``), and the training safety net (``FLAGS_check_nan_inf``
+with ``FLAGS_nan_inf_policy`` rollback, ``monitor.numwitness``, gradient
+clipping through ``set_gradient_clip``, ``gradients``/``calc_gradient``,
+``io`` with crash-safe checkpoints, graceful preemption in
+``resilience.graceful``). ``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """
 from . import ops  # noqa: F401  (registers the op rules)
-from . import (contrib, layers, monitor, optimizer,  # noqa: F401
-               regularizer, resilience, serving, trace, unique_name)
-from .backward import append_backward
+from . import (clip, contrib, io, layers, monitor,  # noqa: F401
+               optimizer, regularizer, resilience, serving, trace,
+               unique_name)
+from .backward import append_backward, calc_gradient, gradients
+from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,
+                   GradientClipByNorm, GradientClipByValue,
+                   set_gradient_clip)
 from .executor import CPUPlace, CUDAPlace, Executor, Scope, global_scope
 from .flags import flag, get_flags, set_flags
 from .framework import (Program, default_main_program,
@@ -33,8 +41,13 @@ from .framework import (Program, default_main_program,
 from .initializer import Constant, Normal, TruncatedNormal, Uniform, Xavier
 from .param_attr import ParamAttr
 
+__version__ = "0.1.0"
+
 __all__ = ["CPUPlace", "CUDAPlace", "Executor", "Scope", "global_scope",
-           "append_backward", "optimizer", "regularizer",
+           "append_backward", "calc_gradient", "gradients", "optimizer",
+           "regularizer", "clip", "io", "set_gradient_clip",
+           "GradientClipByValue", "GradientClipByNorm",
+           "GradientClipByGlobalNorm", "ErrorClipByValue",
            "flag", "get_flags", "set_flags", "Program", "default_main_program",
            "default_startup_program", "program_guard", "Constant",
            "Normal", "TruncatedNormal", "Uniform", "Xavier", "ParamAttr",

@@ -8,6 +8,9 @@ rules are the reference's: a var used by several ops gets one ``@GRAD``
 per use (``@RENAME@``) summed by a ``sum`` op, ``stop_gradient`` vars and
 ``no_grad`` slots get no gradient, and the grad-var names are the same, so
 the backward program's ``to_dict()`` equals the JAX package's.
+``calc_gradient`` (alias ``gradients``) runs the same sweep from any
+targets, seeded with 1.0 or with the caller's cotangents; an op whose
+``grad`` is a callable maker gets the descs it returns.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from .core.types import is_floating
 from .framework import Parameter, Variable, grad_var_name
 from .lowering import EMPTY_VAR_NAME
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "gradients", "calc_gradient"]
 
 
 def _find_op_path(block, target_names: Sequence[str]) -> List[int]:
@@ -102,19 +105,27 @@ def _make_grad_op(op, out_grad: Dict[str, List[str]],
 
 
 def _append_backward_core(block, targets: Sequence[Variable],
-                          no_grad: Set[str]) -> _GradAccumulator:
-    """The reverse sweep: a 1.0 seed per target, then one grad op per op
-    on the targets' path whose outputs received a cotangent."""
+                          target_gradients, no_grad: Set[str]
+                          ) -> _GradAccumulator:
+    """The reverse sweep shared by ``append_backward`` and
+    ``calc_gradient``: a seed per target (1.0 by ``fill_constant``, or the
+    caller's cotangent by ``assign``), then one grad op per op on the
+    targets' path whose outputs received a cotangent."""
     path = _find_op_path(block, [t.name for t in targets])
     acc = _GradAccumulator(block)
-    for tgt in targets:
+    target_gradients = target_gradients or [None] * len(targets)
+    for tgt, tg in zip(targets, target_gradients):
         seed = acc.new_contrib_name(tgt.name)
         acc.create_grad_var(seed, tgt.name)
-        block.append_op(
-            "fill_constant", outputs={"Out": seed},
-            attrs={"shape": list(tgt.shape if tgt.shape is not None
-                                 else [1]),
-                   "dtype": tgt.dtype, "value": 1.0})
+        if tg is None:
+            block.append_op(
+                "fill_constant", outputs={"Out": seed},
+                attrs={"shape": list(tgt.shape if tgt.shape is not None
+                                     else [1]),
+                       "dtype": tgt.dtype, "value": 1.0})
+        else:
+            block.append_op("assign", inputs={"X": tg},
+                            outputs={"Out": seed})
 
     for idx in reversed(path):
         op = block.ops[idx]
@@ -156,13 +167,12 @@ def _append_backward_core(block, targets: Sequence[Variable],
                 in_grad[slot + "@GRAD"] = gnames
         if not in_grad:
             continue
-        if callable(opdef.grad):
-            raise NotImplementedError(
-                f"op {op.type}: custom grad makers wait for a later slice "
-                f"of the port")
-        desc = _make_grad_op(op, out_grad, in_grad)
-        block.append_op(desc["type"], inputs=desc["inputs"],
-                        outputs=desc["outputs"], attrs=desc["attrs"])
+        descs = (opdef.grad(op, block, out_grad, in_grad)
+                 if callable(opdef.grad)
+                 else [_make_grad_op(op, out_grad, in_grad)])
+        for desc in descs:
+            block.append_op(desc["type"], inputs=desc["inputs"],
+                            outputs=desc["outputs"], attrs=desc["attrs"])
     return acc
 
 
@@ -172,7 +182,8 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None):
     block = loss.block
     program = block.program
     with program._op_role_guard("backward"):
-        acc = _append_backward_core(block, [loss], set(no_grad_set or ()))
+        acc = _append_backward_core(block, [loss], None,
+                                    set(no_grad_set or ()))
         params = (program.all_parameters() if parameter_list is None else [
             block._var_recursive(p) if isinstance(p, str) else p
             for p in parameter_list])
@@ -186,3 +197,29 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None):
             if g is not None:
                 result.append((p, block.var(g)))
     return result
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Gradients of ``targets`` with respect to arbitrary ``inputs``,
+    optionally seeded with the caller's cotangents (reference
+    backward.py:1177); an input no target depends on gets None."""
+    targets = list(targets) if isinstance(targets, (list, tuple)) \
+        else [targets]
+    inputs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+    if target_gradients is not None and not isinstance(target_gradients,
+                                                       (list, tuple)):
+        target_gradients = [target_gradients]
+    if target_gradients is not None and \
+            len(target_gradients) != len(targets):
+        raise ValueError("target_gradients length must match targets")
+    block = targets[0].block
+    acc = _append_backward_core(block, targets, target_gradients,
+                                set(no_grad_set or ()))
+    outs = []
+    for iv in inputs:
+        g = acc.resolve(iv.name)
+        outs.append(block.var(g) if g is not None else None)
+    return outs
+
+
+gradients = calc_gradient

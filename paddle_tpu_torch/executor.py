@@ -60,6 +60,21 @@ XLA-only key component (``FLAGS_xla_options``) has no counterpart.
 ``self._cache`` maps each key to a :class:`_Step` record, keyed as the
 reference keys its compiled steps, so the serving engine's recompile
 guard reads it the same way.
+
+``FLAGS_check_nan_inf`` (the reference's protocol, ``unpack_step_result``):
+``run`` collects one finite check per float op output on the device
+(``lowering.lower_op``), reads them once at step end, and on a trip
+restores the scope and raises or drops the step per
+``FLAGS_nan_inf_policy`` (``resilience.nonfinite``). The port stores each
+persistable as soon as an op writes it and updates the KV caches in
+place, so while the check is on the executor holds the pre-step value of
+every persistable the step writes (a reference: ops return fresh
+tensors) and a clone of each one an op writes in place
+(``_IN_PLACE_OPS``). ``run_chained`` checks coarsely: the final state
+after all its steps, restored to the pre-call image on a trip.
+``FLAGS_numerics_witness`` stacks one ``[absmax, min, max, nonfinite]``
+vector per float op output and merges it into ``monitor.numwitness``
+before the check runs. Both flags are part of the executor key.
 """
 from __future__ import annotations
 
@@ -75,9 +90,10 @@ from . import trace as _trace
 from .analysis.liveness import block_liveness
 from .core.types import torch_dtype
 from .framework import Program, Variable, default_main_program
-from .lowering import EMPTY_VAR_NAME, LowerCtx, lower_op
+from .lowering import EMPTY_VAR_NAME, LowerCtx, lower_op, read_finite
 from .resilience import distributed as _dist
 from .resilience import faults as _faults
+from .resilience import nonfinite as _nonfinite
 from .resilience.retry import call_with_retry
 
 __all__ = ["Executor", "Scope", "global_scope", "CPUPlace", "CUDAPlace"]
@@ -207,13 +223,24 @@ def _release_plan(program: Program, feed_names, fetch_names):
     return [tuple(sorted(d)) for d in dead], stores
 
 
+# op types that update a persistable input in place (the paged KV caches):
+# the rollback image clones what they write
+_IN_PLACE_OPS = frozenset({"fused_decode_attention", "kv_cache_append"})
+
+
 class _Step:
     """One executor key (the counterpart of the reference's compiled
     step): the program it runs, its state split, its release plan, and
-    the pending compile event, completed at the key's first run."""
+    the pending compile event, completed at the key's first run.
+    ``state_names`` is every persistable the step writes, the state read
+    and written first (in the order the ops read it), then the write-only
+    state: the rollback image and ``run_chained``'s coarse check walk it
+    in that order, as the reference walks its carried and write-only
+    state."""
 
     __slots__ = ("program", "donated_names", "dead_after", "stores",
-                 "prepared", "prep_s", "_compile_event", "_lock")
+                 "state_names", "in_place_names", "prepared", "prep_s",
+                 "_compile_event", "_lock")
 
     def __init__(self, program: Program, prep_s: float, feed_names,
                  fetch_names):
@@ -236,6 +263,13 @@ class _Step:
         # stays 0)
         self.donated_names = sorted({n for n in state_in
                                      if n in state_out})
+        written = [n for op in blk.ops for n in op.output_arg_names
+                   if n in state_out]
+        carried = [n for n in dict.fromkeys(state_in) if n in state_out]
+        self.state_names = tuple(dict.fromkeys(carried + written))
+        self.in_place_names = frozenset(
+            n for op in blk.ops if op.type in _IN_PLACE_OPS
+            for n in op.output_arg_names if n in state_out)
         self.prepared = False
         self.prep_s = prep_s
         self._compile_event = None
@@ -314,11 +348,12 @@ class Executor:
             out[n] = call_with_retry("device_put", _put)
         return out
 
-    def _run_once(self, step, feed_tensors, fetch_names, scope):
+    def _run_once(self, step, feed_tensors, fetch_names, scope,
+                  checks=None, taps=None):
         program = step.program
         env: Dict[str, Any] = dict(feed_tensors)
         ctx = LowerCtx(self.device, seed=self._next_seed(program),
-                       program=program)
+                       program=program, nan_checks=checks, num_taps=taps)
         with torch.no_grad():
             for op, dead, stores in zip(program.global_block.ops,
                                         step.dead_after, step.stores):
@@ -337,6 +372,82 @@ class Executor:
                 env[n] = self._state(n, program, scope)
             fetches.append(env[n])
         return fetches
+
+    @staticmethod
+    def _rollback_image(step, scope):
+        """The pre-step value of every persistable the step writes: a
+        reference (ops return fresh tensors), a clone where an op writes
+        in place; None where the scope has no value yet."""
+        image = []
+        for n in step.state_names:
+            v = scope.find_var(n)
+            if n in step.in_place_names and isinstance(v, torch.Tensor):
+                v = v.clone()
+            image.append((n, v))
+        return image
+
+    @staticmethod
+    def _restore(scope, image) -> None:
+        with scope._lock:
+            for n, v in image:
+                if v is None:
+                    scope.vars.pop(n, None)
+                else:
+                    scope.vars[n] = v
+
+    @staticmethod
+    def _record_witness(taps, path) -> None:
+        """Merge one step's witness stats (one host transfer) into
+        ``monitor.numwitness`` before the nan-check protocol runs, so a
+        skip or escalation can name the first offending var."""
+        if taps is None:
+            return
+        from .monitor import numwitness
+
+        stats = (torch.stack([t for _, t in taps]).cpu().numpy() if taps
+                 else np.zeros((0, 4), np.float32))
+        numwitness.record_step([n for n, _ in taps], stats, path=path)
+
+    def _check_step(self, checks, scope, rollback, path) -> None:
+        """The reference's ``unpack_step_result`` protocol over the step's
+        checks (one host transfer)."""
+        ok = read_finite(checks)
+        if ok.all():
+            _nonfinite.record_clean(self)
+            return
+        self._trip(scope, rollback, path, checks[int(np.argmin(ok))][0],
+                   "scope restored to pre-step values")
+
+    def _check_chained(self, step, scope, rollback, steps) -> None:
+        """``run_chained``'s coarse check (reference executor.py:1187):
+        the final state after all ``steps`` iterations, each var's finite
+        flag stacked on the device and read once."""
+        vals = [(n, scope.find_var(n)) for n in step.state_names]
+        vals = [(n, v) for n, v in vals if isinstance(v, torch.Tensor)
+                and v.is_floating_point() and v.numel()]
+        ok = (torch.stack([torch.isfinite(v).all() for _, v in vals])
+              .cpu().numpy() if vals else np.ones(0, dtype=bool))
+        if ok.all():
+            _nonfinite.record_clean(self)
+            return
+        self._trip(scope, rollback, "chained",
+                   f"final state '{vals[int(np.argmin(ok))][0]}' after "
+                   f"{steps} scanned iteration(s)",
+                   "run_chained coarse check, scope restored to pre-scan "
+                   "values; use run for per-op provenance")
+
+    def _trip(self, scope, rollback, path, label, note) -> None:
+        """A tripped check: restore the pre-step image, then policy
+        ``raise`` raises FloatingPointError naming the op, ``skip`` and
+        ``zero_grad`` count the dropped step (the caller returns its
+        fetches)."""
+        self._restore(scope, rollback)
+        if _nonfinite.policy() == "raise":
+            raise FloatingPointError(
+                f"FLAGS_check_nan_inf: non-finite value in {label} ({note})")
+        # counted AFTER the restore so even skip->raise escalation leaves
+        # the scope holding the pre-step values
+        _nonfinite.record_skip(path, label, self)
 
     def _maybe_auto_remat(self, program, feed, fetch_names):
         """FLAGS_auto_recompute entry shared by run / run_chained: swap a
@@ -440,7 +551,9 @@ class Executor:
         from .flags import flag
 
         amp = getattr(program, "_amp_policy", None)
-        return (("epilogue_fusion", bool(flag("epilogue_fusion"))),
+        return (("check_nan_inf", bool(flag("check_nan_inf"))),
+                ("numerics_witness", bool(flag("numerics_witness"))),
+                ("epilogue_fusion", bool(flag("epilogue_fusion"))),
                 ("use_fused_gemm", flag("use_fused_gemm")),
                 ("amp", amp.compute_dtype if amp is not None else None))
 
@@ -538,13 +651,23 @@ class Executor:
         # the step-site probe fires before any state is written
         _faults.fault_point("step")
         self._ensure_prepared(step)
+        checks = [] if dict(kflags)["check_nan_inf"] else None
+        taps = [] if dict(kflags)["numerics_witness"] else None
+        # rollback_active() validates the policy before the step runs
+        rollback = (self._rollback_image(step, scope)
+                    if checks is not None and _nonfinite.rollback_active()
+                    else None)
         with _trace.span("executor.step",
                          cache_hit=bool(mrec.cache_hit)
                          if mrec is not None else None), \
                 _dist.watchdog_section("step", program=program) as tok:
             _faults.fault_point("hang")
-            fetches = self._run_once(step, feed_t, names, scope)
+            fetches = self._run_once(step, feed_t, names, scope, checks,
+                                     taps)
             self._sync_if_armed(tok)
+        self._record_witness(taps, "run")
+        if checks is not None:
+            self._check_step(checks, scope, rollback, "run")
         if return_numpy:
             outs = [f.detach().cpu().numpy() for f in fetches]
             if mrec is not None:
@@ -591,6 +714,10 @@ class Executor:
                 feed_t = self._feed_tensors(program, feed)
                 _faults.fault_point("step")
                 self._ensure_prepared(step)
+                check = dict(kflags)["check_nan_inf"]
+                rollback = (self._rollback_image(step, scope)
+                            if check and _nonfinite.rollback_active()
+                            else None)
                 with _dist.watchdog_section("chained",
                                             program=program) as tok:
                     _faults.fault_point("hang")
@@ -600,6 +727,8 @@ class Executor:
                     stacked = [torch.stack([s[i] for s in per_step])
                                for i in range(len(names))]
                     self._sync_if_armed(tok)
+                if check:
+                    self._check_chained(step, scope, rollback, int(steps))
                 if return_numpy:
                     outs = [t.detach().cpu().numpy() for t in stacked]
                     if mrec is not None:

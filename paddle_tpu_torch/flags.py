@@ -12,6 +12,28 @@ __all__ = ["flag", "set_flags", "get_flags"]
 
 # name -> (type, default, meaning)
 _DEFS: Dict[str, tuple] = {
+    "check_nan_inf": (bool, False,
+                      "per-op finite checks with op provenance on failure: "
+                      "one device-side flag per float op output, stacked "
+                      "and read by the host once a step"),
+    "numerics_witness": (bool, False,
+                         "per-var numeric range taps in every step "
+                         "(monitor.numwitness): abs-max/min/max and "
+                         "nonfinite counts per float op output, stacked "
+                         "and read by the host once a step. Off: no tap "
+                         "runs (no hot-path cost)"),
+    "nan_inf_policy": (str, "raise",
+                       "what a tripped FLAGS_check_nan_inf step does: "
+                       "raise (FloatingPointError with op provenance), "
+                       "skip (drop the step, roll state back bit-exactly; "
+                       "nan_inf_max_consecutive_skips trips escalate), "
+                       "zero_grad (skip without escalation — the zero-"
+                       "gradient approximation)"),
+    "nan_inf_max_consecutive_skips": (int, 5,
+                                      "under nan_inf_policy=skip, this many "
+                                      "consecutive dropped steps escalate "
+                                      "to FloatingPointError (0 disables "
+                                      "escalation)"),
     "use_flash_attention": (str, "auto",
                             "attention path: auto (the hand-written CUDA "
                             "kernel on a CUDA tensor, the plain PyTorch "
@@ -149,9 +171,12 @@ _DEFS: Dict[str, tuple] = {
                                       "priority below this are shed at "
                                       "admission with typed Overloaded"),
     "serving_bisect_depth": (int, 0,
-                             "poison-request bisection depth; the port "
-                             "has no bisection yet and refuses values "
-                             "above 0"),
+                             "poison-request bisection depth: a failed "
+                             "batch whose error is state-safe is "
+                             "re-dispatched as bisected halves down to "
+                             "this depth, isolating the culprit request "
+                             "(typed PoisonRequest, its feed quarantined); "
+                             "0 disables"),
     "serving_bisect_quarantine": (int, 64,
                                   "bounded count of poison feed "
                                   "fingerprints remembered per engine "

@@ -11,7 +11,8 @@ from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "gelu", "relu", "increment",
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "gelu", "sqrt", "clip",
+           "clip_by_norm", "relu", "increment",
            "matmul",
            "fused_multihead_attention", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_min",
@@ -175,6 +176,29 @@ def gelu(x, name=None):
     helper = LayerHelper("gelu", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("gelu", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def sqrt(x, name=None):
+    helper = LayerHelper("sqrt", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sqrt", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip_by_norm", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"max_norm": max_norm})
     return out
 
 

@@ -25,12 +25,20 @@ earlier writes in the environment (in-order scope semantics).
   ``device="meta"`` tensors (no data, no compute), with two sentinel sizes
   for -1 dims, as the reference runs its rule under ``jax.eval_shape``.
 
-The nan-check taps (``FLAGS_check_nan_inf``) wait for a later slice.
+* the taps — ``LowerCtx.nan_checks`` (``FLAGS_check_nan_inf``): after
+  each op, one device-side finite check per float output (its min and max,
+  one launch), labelled with the op and its build site; ``LowerCtx.num_taps``
+  (``FLAGS_numerics_witness``): one ``[absmax, min, max, nonfinite-count]``
+  vector per float output. The executor stacks each list once at step end
+  and reads it with one host transfer. Sub-block replays (raw ops and
+  their grads) and the generic grad's rerun append nothing: the owning
+  op's outputs are checked at the outer level.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .core import registry
@@ -82,16 +90,25 @@ class LowerCtx:
     ``FLAGS_fused_gemm_blocks`` or the kernel's default."""
 
     def __init__(self, device=None, seed: Optional[int] = None,
-                 uid: int = 0, gemm_blocks=None, program=None):
+                 uid: int = 0, gemm_blocks=None, program=None,
+                 nan_checks=None, num_taps=None):
         self.device = torch.device(device) if device is not None else _META
         self.seed = seed
         self.uid = uid
         self.gemm_blocks = gemm_blocks
         self.program = program
+        # FLAGS_check_nan_inf: list collecting (label, finite-bool tensor)
+        # per float op output; the executor stacks the flags at step end
+        # and raises or skips with the label of the first false one
+        self.nan_checks = nan_checks
+        # FLAGS_numerics_witness: list collecting (var name, stats vector
+        # [absmax, min, max, nonfinite-count]) per float op output, stacked
+        # into one (N, 4) tensor per step (monitor.numwitness)
+        self.num_taps = num_taps
 
     def with_uid(self, uid: int) -> "LowerCtx":
         return LowerCtx(self.device, self.seed, uid, self.gemm_blocks,
-                        self.program)
+                        self.program, self.nan_checks, self.num_taps)
 
     def generator(self, device=None) -> Optional[torch.Generator]:
         """A generator unique to this op instance and step, on ``device``
@@ -147,31 +164,74 @@ def _write_outputs(op, outs, env: Dict[str, Any]) -> None:
 
 
 def lower_op(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
-    """Run one op's rule against the environment, in place."""
+    """Run one op's rule against the environment, in place, then append
+    its taps (``ctx.nan_checks`` / ``ctx.num_taps``) when they are on."""
     try:
-        if registry.is_generic_grad(op.type):
-            _lower_generic_grad(op, env, ctx)
-            return
-        opdef = registry.get_op_def(op.type)
-        op_ctx = ctx.with_uid(op.attrs.get("__uid__", 0))
-        if opdef.raw:
-            # control flow interprets its sub-block over ``env`` itself
-            if op_ctx.program is None:
-                op_ctx.program = op.block.program
-            opdef.lower(op_ctx, op, env)
-            return
-        ins = _gather_inputs(op, env)
-        amp = amp_policy_of(ctx)
-        if amp is not None:
-            ins = amp.cast_ins(op.type, ins)
-        outs = opdef.lower(op_ctx, ins, op.attrs)
+        _lower_op_inner(op, env, ctx)
     except OpLoweringError:
         raise
     except Exception as e:
         raise OpLoweringError(
             f"while running op '{op.type}'{_op_site(op)}: "
             f"{type(e).__name__}: {e}") from e
-    _write_outputs(op, outs, env)
+    if ctx.nan_checks is not None:
+        for name in op.output_arg_names:
+            v = env.get(name)
+            if _is_float(v):
+                # one launch: min and max propagate NaN and reach +-inf,
+                # so the pair is finite iff every element is
+                # (``read_finite`` turns the pairs into flags)
+                ctx.nan_checks.append(
+                    (f"op '{op.type}' output '{name}'{_op_site(op)}",
+                     torch.aminmax(v.detach()) if v.numel() else None))
+    if ctx.num_taps is not None:
+        for name in op.output_arg_names:
+            v = env.get(name)
+            if _is_float(v) and v.numel():
+                # nonfinite lanes masked out of the range stats
+                vf = v.detach().reshape(-1).float()
+                finite = torch.isfinite(vf)
+                ctx.num_taps.append((name, torch.stack([
+                    torch.where(finite, vf.abs(), 0.0).max(),
+                    torch.where(finite, vf, float("inf")).min(),
+                    torch.where(finite, vf, float("-inf")).max(),
+                    (~finite).sum().float()])))
+
+
+def read_finite(checks) -> np.ndarray:
+    """The finite flag of each ``(label, (min, max))`` nan check, stacked
+    on the device and read with one host transfer (an empty output's
+    check holds None and is finite)."""
+    ok = np.ones(len(checks), dtype=bool)
+    idx = [i for i, (_, mm) in enumerate(checks) if mm is not None]
+    if idx:
+        pairs = torch.stack([t for i in idx for t in checks[i][1]])
+        ok[idx] = torch.isfinite(pairs.reshape(-1, 2)).all(dim=1).cpu() \
+            .numpy()
+    return ok
+
+
+def _lower_op_inner(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
+    if registry.is_generic_grad(op.type):
+        _lower_generic_grad(op, env, ctx)
+        return
+    opdef = registry.get_op_def(op.type)
+    op_ctx = ctx.with_uid(op.attrs.get("__uid__", 0))
+    if opdef.raw:
+        # control flow interprets its sub-block over ``env`` itself; its
+        # sub-block ops append no taps (the op's own outputs are checked
+        # at this level)
+        if op_ctx.program is None:
+            op_ctx.program = op.block.program
+        op_ctx.nan_checks = None
+        op_ctx.num_taps = None
+        opdef.lower(op_ctx, op, env)
+        return
+    ins = _gather_inputs(op, env)
+    amp = amp_policy_of(ctx)
+    if amp is not None:
+        ins = amp.cast_ins(op.type, ins)
+    _write_outputs(op, opdef.lower(op_ctx, ins, op.attrs), env)
 
 
 def lower_block(block, env: Dict[str, Any], ctx: LowerCtx) -> Dict[str, Any]:
@@ -206,6 +266,9 @@ def _lower_generic_grad(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
         # over the environment itself
         if fwd_ctx.program is None:
             fwd_ctx.program = op.block.program
+        # the replayed sub-block appends no taps
+        fwd_ctx.nan_checks = None
+        fwd_ctx.num_taps = None
         fwd_def.grad_lower(fwd_ctx, op, env)
         return
     if fwd_def.grad_lower is not None:

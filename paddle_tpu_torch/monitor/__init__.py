@@ -31,9 +31,9 @@ same per bucket (``observe_serving_cost``), all against
 
 ``paddle_tpu_torch.resilience`` and ``serving`` report through the same
 registry. Everything is on by default (``FLAGS_monitor=0`` disables
-collection). Not in the port yet: the numerics witness
-(``monitor/numwitness.py``), and the fleet tier's trace exemplars and
-histogram merging (``FLAGS_fleet_telemetry`` is refused on).
+collection). ``numwitness`` is the runtime numerics witness
+(``FLAGS_numerics_witness``). Not in the port yet: the fleet tier's trace
+exemplars and histogram merging (``FLAGS_fleet_telemetry`` is refused on).
 """
 from __future__ import annotations
 
@@ -49,6 +49,9 @@ from .lockwitness import (make_condition, make_lock, make_rlock,
 from .promtext import (ParsedFamily, PromParseError,
                        histogram_snapshot_from_samples,
                        parse_prometheus_text)
+from .numwitness import (containment_violations, first_offender,
+                         numerics_witness_enabled, numerics_witness_report,
+                         numerics_witness_vars, reset_numerics_witness)
 from .recompile import RecompileTracker, build_site, get_tracker
 from .registry import (DEFAULT_TIME_BUCKETS, Counter, Gauge, Histogram,
                        MetricFamily, MetricsRegistry, counter, gauge,
@@ -68,6 +71,9 @@ __all__ = [
     "get_tracker", "build_site",
     "make_lock", "make_rlock", "make_condition", "witness_enabled",
     "witness_report", "witness_edges", "witness_cycles", "reset_witness",
+    "numerics_witness_enabled", "numerics_witness_report",
+    "numerics_witness_vars", "reset_numerics_witness", "first_offender",
+    "containment_violations",
     "parse_prometheus_text", "histogram_snapshot_from_samples",
     "ParsedFamily", "PromParseError",
 ]

@@ -1,7 +1,7 @@
 """Elementwise, activation, softmax, scale, sum, cast, comparison and
 logical ops (counterpart of ``paddle_tpu/ops/math.py``), the ones the GPT,
-BERT and MLP paths, the serving engine's fc program, the AMP decorator and
-``L1Decay`` run."""
+BERT and MLP paths, the serving engine's fc program, the AMP decorator,
+``L1Decay`` and gradient clipping (``clip.py``) run."""
 from __future__ import annotations
 
 import torch
@@ -23,6 +23,11 @@ def _abs(ctx, ins, attrs):
 @register_op("tanh", inputs=["X"], outputs=["Out"])
 def _tanh(ctx, ins, attrs):
     return out(torch.tanh(x(ins)))
+
+
+@register_op("sqrt", inputs=["X"], outputs=["Out"])
+def _sqrt(ctx, ins, attrs):
+    return out(torch.sqrt(x(ins)))
 
 
 @register_op("gelu", inputs=["X"], outputs=["Out"],
@@ -80,6 +85,27 @@ def _sum(ctx, ins, attrs):
     for v in vals[1:]:
         acc = acc + v
     return out(acc)
+
+
+@register_op("clip", inputs=["X"], outputs=["Out"],
+             attrs={"min": -1.0, "max": 1.0})
+def _clip(ctx, ins, attrs):
+    return out(torch.clamp(x(ins), attrs["min"], attrs["max"]))
+
+
+@register_op("clip_by_norm", inputs=["X"], outputs=["Out"],
+             attrs={"max_norm": 1.0})
+def _clip_by_norm(ctx, ins, attrs):
+    v = x(ins)
+    norm = torch.sqrt(torch.sum(torch.square(v)))
+    scale = torch.clamp(attrs["max_norm"] / torch.clamp(norm, min=1e-12),
+                        max=1.0)
+    return out(v * scale)
+
+
+@register_op("squared_l2_norm", inputs=["X"], outputs=["Out"])
+def _squared_l2_norm(ctx, ins, attrs):
+    return out(torch.sum(torch.square(x(ins))).reshape((1,)))
 
 
 @register_op("not_equal", inputs=["X", "Y"], outputs=["Out"], grad=None)

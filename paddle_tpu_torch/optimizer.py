@@ -4,12 +4,13 @@ var and the per-parameter accumulators (persistable, initialised by
 ``fill_constant`` in the startup program) and appends one update op per
 parameter under the optimize role.
 
-SGD, Momentum and Adam are ported, with weight decay (``regularization``
+SGD, Momentum and Adam are ported, with the global gradient clip
+(``clip.set_gradient_clip``) and then weight decay (``regularization``
 or a parameter's ``ParamAttr.regularizer``, ``regularizer.py``) appended
 before the update ops as the JAX package does, and the
 ``RecomputeOptimizer`` wrapper (gradient checkpointing at user-named
-checkpoints, ``ops/recompute.py``); the other optimizers and ``clip.py``
-wait for a later slice. ``apply_gradients`` appends to the
+checkpoints, ``ops/recompute.py``); the other optimizers wait for a
+later slice. ``apply_gradients`` appends to the
 program's current block, so a wrapper (the AMP skip-update) can run the
 whole update inside a sub-block.
 """
@@ -19,6 +20,7 @@ from typing import Dict, Optional
 
 from . import unique_name
 from .backward import append_backward
+from .clip import append_gradient_clip_ops
 from .framework import (Parameter, Variable, default_main_program,
                         default_startup_program, program_guard)
 from .layer_helper import LayerHelper
@@ -108,6 +110,7 @@ class Optimizer:
         with program_guard(program), program._op_role_guard("optimize"):
             block = program.current_block()
             params_grads = sorted(params_grads, key=lambda pg: pg[0].name)
+            params_grads = append_gradient_clip_ops(params_grads)
             params_grads = append_regularization_ops(params_grads,
                                                      self.regularization)
             self._create_global_learning_rate()

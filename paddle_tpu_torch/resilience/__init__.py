@@ -1,21 +1,47 @@
 """Fault-tolerance helpers of the PyTorch port (counterpart of
-``paddle_tpu/resilience``): deadlines, deterministic fault injection
-(``FLAGS_fault_plan``), retry with backoff for transient sites, and the
-step watchdog (``FLAGS_step_timeout_s``). Checkpointing, elastic
-rescale, the non-finite policies and graceful preemption are not in the
-port yet."""
+``paddle_tpu/resilience``): crash-safe checkpoints (``checkpoint``: the
+manifest with per-file sha256, PT600-PT604, atomic publish and the
+recovery walk), deadlines, deterministic fault injection
+(``FLAGS_fault_plan``), retry with backoff for transient sites, the
+non-finite step policies (``nonfinite``: ``FLAGS_nan_inf_policy``), the
+step watchdog (``FLAGS_step_timeout_s``) and graceful preemption
+(``graceful``: SIGTERM -> one shutdown event that the training loop, the
+serving engine's drain-stop and retry backoffs consume). Not in the port
+yet: elastic rescale (``elastic.py``, ``DeviceLostError``) and the
+sharded checkpoint and replica checks of ``distributed.py``."""
+from .checkpoint import (CKPT_CODES, FORMAT_VERSION, CheckpointCorruptError,
+                         atomic_replace_dir, finalize_manifest,
+                         iter_serials, load_latest_checkpoint,
+                         verify_checkpoint)
 from .deadline import Deadline, DeadlineExceeded
 from .distributed import WatchdogTimeout, watchdog_section
 from .faults import (SITES, FaultPlan, InjectedFault, active_plan,
                      clear_plan, fault_action, fault_plan_guard,
                      fault_point, install_plan, stall)
+from .graceful import (install_signal_handlers, on_shutdown,
+                       request_shutdown, shutdown_event, shutdown_requested,
+                       uninstall_signal_handlers)
+from .nonfinite import POLICIES
 from .retry import (RetryExhaustedError, RetryPolicy, call_with_retry,
-                    is_transient, policy_for)
+                    is_transient, policy_for, set_thread_stop_event)
 
 __all__ = [
-    "Deadline", "DeadlineExceeded", "WatchdogTimeout", "watchdog_section",
+    # checkpoint integrity
+    "CheckpointCorruptError", "CKPT_CODES", "FORMAT_VERSION",
+    "verify_checkpoint", "finalize_manifest", "atomic_replace_dir", "iter_serials", "load_latest_checkpoint",
+    # watchdog
+    "WatchdogTimeout", "watchdog_section",
+    # fault injection
     "SITES", "FaultPlan", "InjectedFault", "active_plan", "clear_plan",
     "fault_action", "fault_plan_guard", "fault_point", "install_plan",
-    "stall", "RetryExhaustedError", "RetryPolicy", "call_with_retry",
-    "is_transient", "policy_for",
+    "stall",
+    # retry + deadlines
+    "Deadline", "DeadlineExceeded", "RetryExhaustedError", "RetryPolicy",
+    "call_with_retry", "is_transient", "policy_for",
+    "set_thread_stop_event",
+    # graceful (SIGTERM/preemption-notice) shutdown
+    "shutdown_event", "shutdown_requested", "request_shutdown",
+    "on_shutdown", "install_signal_handlers", "uninstall_signal_handlers",
+    # non-finite degradation
+    "POLICIES",
 ]

@@ -82,11 +82,11 @@ class RetryPolicy:
         return d * (1.0 + self.jitter * rng.random())
 
 
-# backoff sleeps are INTERRUPTIBLE: they wake when a stop event the
+# backoff sleeps are INTERRUPTIBLE: they wake when the process-wide
+# graceful-shutdown event (resilience.graceful) or a stop event the
 # calling thread registered (the serving dispatch thread registers its
-# engine's) fires — engine.stop() must never sit behind a multi-second
-# backoff in progress. (The reference also wakes on its process-wide
-# graceful-shutdown event; resilience/graceful.py is not ported yet.)
+# engine's) fires — a shutdown or engine.stop() must never sit behind a
+# multi-second backoff in progress.
 _local = threading.local()
 
 
@@ -98,13 +98,27 @@ def set_thread_stop_event(event: Optional[threading.Event]) -> None:
 
 
 def _wait_backoff(delay: float) -> Optional[str]:
-    """Sleep ``delay`` seconds; returns ``"stop"`` when the thread's
-    stop event fired early, else ``None`` after the full sleep."""
+    """Sleep ``delay`` seconds; returns the interruption reason
+    (``"shutdown"``/``"stop"``) when a stop event fired early, else
+    ``None`` after the full sleep."""
+    from .graceful import shutdown_event
+
+    events = [("shutdown", shutdown_event())]
     thread_ev = getattr(_local, "stop_event", None)
-    if thread_ev is None:
-        time.sleep(delay)
-        return None
-    return "stop" if thread_ev.wait(delay) else None
+    if thread_ev is not None:
+        events.append(("stop", thread_ev))
+    deadline = time.monotonic() + delay
+    while True:
+        for name, ev in events:
+            if ev.is_set():
+                return name
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            return None
+        # with one event a plain wait() suffices; with two, short slices
+        # keep both responsive (50 ms is noise against backoff scales)
+        events[0][1].wait(remaining if len(events) == 1
+                          else min(remaining, 0.05))
 
 
 class RetryExhaustedError(RuntimeError):
@@ -202,7 +216,7 @@ def call_with_retry(site: str, fn: Callable, *args,
             if d > 0:
                 interrupted = _wait_backoff(d)
                 if interrupted is not None:
-                    # an engine stop fired mid-backoff:
+                    # a graceful shutdown / engine stop fired mid-backoff:
                     # abort the retry loop typed instead of finishing the
                     # sleep — the caller's teardown is waiting on us.
                     # Counted apart from giveups: 'budget exhausted' and

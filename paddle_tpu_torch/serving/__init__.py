@@ -25,8 +25,8 @@ from ..resilience.deadline import Deadline, DeadlineExceeded
 from .breaker import CircuitBreaker
 from .engine import (HEALTH_SCHEMA_KEYS, HEALTH_SCHEMA_VERSION,
                      BatchFailed, CircuitOpen, EngineStopped, Overloaded,
-                     ServingConfig, ServingEngine, ServingError,
-                     ServingFuture)
+                     PoisonRequest, ServingConfig, ServingEngine,
+                     ServingError, ServingFuture)
 from .generate import GenerationConfig, GenerativeEngine
 from .prefix_cache import PrefixCache
 
@@ -34,6 +34,6 @@ __all__ = [
     "ServingEngine", "ServingConfig", "ServingFuture", "CircuitBreaker",
     "Deadline", "GenerativeEngine", "GenerationConfig", "PrefixCache",
     "ServingError", "Overloaded", "CircuitOpen", "BatchFailed",
-    "EngineStopped", "DeadlineExceeded",
+    "PoisonRequest", "EngineStopped", "DeadlineExceeded",
     "HEALTH_SCHEMA_VERSION", "HEALTH_SCHEMA_KEYS",
 ]

@@ -37,10 +37,16 @@ Fault sites: ``enqueue`` (submission), ``overload`` (forced shed),
 ``paddle_tpu_torch.monitor``: request latency histogram with p50/p99,
 queue depth, batch occupancy, shed/deadline/breaker counters.
 
-Not in the port yet: poison-request bisection
-(``ServingConfig(bisect_depth > 0)`` raises ``NotImplementedError``) and
-the graceful-preemption handler (``install_preemption_handler()`` raises
-``NotImplementedError``).
+Poison-request bisection: with ``FLAGS_serving_bisect_depth > 0`` a
+failed batch whose error is state-safe is re-dispatched as bisected
+halves (bounded depth, per-member deadlines still enforced) until the
+culprit is isolated: innocents complete, the culprit settles typed
+:class:`PoisonRequest` and its feed fingerprint enters a bounded
+quarantine that sheds repeat offenders at admission. Failures that may
+have corrupted device state (a watchdog timeout, an error naming
+consumed or deleted buffers) still fail the whole batch. Graceful
+preemption: ``install_preemption_handler()`` routes SIGTERM
+(``resilience.graceful``) into a drain-stop.
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -65,7 +71,7 @@ from .slo import SloBurnTracker, parse_latency_targets
 
 __all__ = ["ServingConfig", "ServingEngine", "ServingFuture",
            "ServingError", "Overloaded", "CircuitOpen", "BatchFailed",
-           "EngineStopped", "DeadlineExceeded", "Deadline",
+           "PoisonRequest", "EngineStopped", "DeadlineExceeded", "Deadline",
            "HEALTH_SCHEMA_VERSION", "HEALTH_SCHEMA_KEYS",
            "DEFAULT_TENANT", "parse_tenant_weights"]
 
@@ -131,6 +137,20 @@ class BatchFailed(ServingError):
     serving."""
 
 
+class PoisonRequest(BatchFailed):
+    """Bisection isolated THIS request as the culprit of its batch's
+    failure (``FLAGS_serving_bisect_depth``): re-dispatched alone (or as
+    the sole survivor of bisected halves) it still failed, while its
+    former batch mates completed. ``__cause__`` is the underlying error;
+    ``fingerprint`` names the quarantined feed — repeat submissions of
+    the same feed are shed at admission (``Overloaded``,
+    ``reason="poison_quarantine"``) instead of failing another batch."""
+
+    def __init__(self, msg: str, fingerprint: str = ""):
+        self.fingerprint = fingerprint
+        super().__init__(msg)
+
+
 class EngineStopped(ServingError):
     """The engine is not running (never started, or stopped without
     drain while this request was queued)."""
@@ -162,7 +182,7 @@ class ServingConfig:
     degrade_after_s: Optional[float] = None
     recover_after_s: Optional[float] = None
     degraded_min_priority: Optional[int] = None
-    bisect_depth: Optional[int] = None          # > 0 not in the port yet
+    bisect_depth: Optional[int] = None          # 0 = no poison bisection
     bisect_quarantine: Optional[int] = None
     # SLO objectives ('class:seconds,...' latency targets + the error
     # budget and burn windows; serving/slo.py)
@@ -222,12 +242,6 @@ class ServingConfig:
         if r.queue_depth < 1:
             raise ValueError(f"serving: queue_depth must be >= 1, got "
                              f"{r.queue_depth}")
-        if r.bisect_depth > 0:
-            raise NotImplementedError(
-                f"serving: bisect_depth={r.bisect_depth}: poison-request "
-                f"bisection (its FLAGS_check_nan_inf trigger, "
-                f"resilience/nonfinite.py and monitor/numwitness.py) is not "
-                f"in the port yet; use bisect_depth=0")
         if not 0.0 < r.tenant_quota_frac <= 1.0:
             raise ValueError(f"serving: tenant_quota_frac must be in "
                              f"(0, 1], got {r.tenant_quota_frac}")
@@ -387,6 +401,9 @@ class _Request:
     # the in-flight dispatch child opened by the dispatch thread
     span: Any = _trace.NOOP_SPAN
     dispatch_span: Any = _trace.NOOP_SPAN
+    # sha256 feed fingerprint (computed only when poison bisection is on:
+    # the quarantine's key, stable across resubmissions of one feed)
+    fp: str = ""
 
 
 # ---------------------------------------------------------------------------
@@ -433,6 +450,9 @@ class ServingEngine:
         # a multi-second compile backoff must never block teardown
         # (resilience.retry.set_thread_stop_event)
         self._stop_ev = threading.Event()
+        # graceful-preemption wiring (install_preemption_handler)
+        self._preempt_unregister: Optional[Callable[[], None]] = None
+        self._preempt_signals_held = False
 
         # degradation state (guarded by _lock)
         self._degraded = False
@@ -450,9 +470,15 @@ class ServingEngine:
         # the crash guard to settle in-flight requests typed)
         self._current_batch: List[_Request] = []
 
+        # bounded poison quarantine (guarded by _lock): feed fingerprint
+        # -> times shed at admission since isolation; oldest evicted at
+        # config.bisect_quarantine entries
+        from collections import OrderedDict
+
+        self._quarantine: "OrderedDict[str, int]" = OrderedDict()
+
         # exact request accounting (guarded by _lock): submitted == sum(all
-        # other keys) + pending queue ("poisoned" stays 0 until bisection
-        # is ported; the key keeps the reference's dict)
+        # other keys) + pending queue
         self._acct = {"submitted": 0, "completed": 0, "failed": 0,
                       "poisoned": 0, "shed": 0, "deadline_exceeded": 0,
                       "circuit_open": 0, "rejected_fault": 0,
@@ -513,6 +539,25 @@ class ServingEngine:
             self._drain = drain
             self._work.notify_all()
         self._stop_ev.set()
+        # take-and-clear under the lock: a preemption callback thread and
+        # the owner's stop() can race here, and a double release would
+        # decrement the shared signal-handler refcount twice (tearing
+        # down another owner's graceful route)
+        with self._lock:
+            unregister, self._preempt_unregister = \
+                self._preempt_unregister, None
+            held, self._preempt_signals_held = \
+                self._preempt_signals_held, False
+        if unregister is not None:
+            unregister()
+        if held:
+            # release this engine's refcounted hold on the SIGTERM
+            # handler (another owner's hold keeps it installed; from a
+            # non-main thread the restore is a no-op and the harmless
+            # event-setting handler simply stays)
+            from ..resilience import graceful as _graceful
+
+            _graceful.uninstall_signal_handlers()
         if self._thread is not None:
             self._thread.join(timeout)
             if self._thread.is_alive():
@@ -520,12 +565,31 @@ class ServingEngine:
                              "%gs at stop()", timeout)
 
     def install_preemption_handler(self) -> bool:
-        """Graceful preemption (SIGTERM -> drain-stop) needs
-        ``resilience/graceful.py``, which is not in the port yet."""
-        raise NotImplementedError(
-            "serving: install_preemption_handler() needs the graceful-"
-            "preemption handler (resilience/graceful.py), which is not in "
-            "the port yet")
+        """Graceful preemption (resilience.graceful): route SIGTERM into
+        a drain-stop of this engine — admission closes, every queued
+        request still reaches its typed terminal outcome, ``ready()``
+        flips false so the balancer routes away, and the process can
+        exit 0. Returns whether a signal handler could be installed
+        (main thread only); the shutdown-event registration happens
+        either way, so an externally-raised ``request_shutdown()``
+        drains the engine too."""
+        from ..resilience import graceful as _graceful
+
+        # under the engine lock: stop() swaps these same fields from the
+        # preemption-callback thread, and an unlocked install racing it
+        # would leak a callback + signal-handler hold on a dead engine.
+        # (Lock order is engine -> graceful only; the late-registration
+        # path dispatches callbacks on a fresh thread, never inline.)
+        with self._lock:
+            if self._stopped:
+                return False
+            if self._preempt_unregister is None:
+                self._preempt_unregister = _graceful.on_shutdown(
+                    lambda: self.stop(drain=True))
+            if not self._preempt_signals_held:
+                self._preempt_signals_held = \
+                    _graceful.install_signal_handlers()
+            return self._preempt_signals_held
 
     def __enter__(self) -> "ServingEngine":
         return self.start()
@@ -634,6 +698,12 @@ class ServingEngine:
                        priority=int(priority), deadline=dl,
                        submitted=self._now(), future=ServingFuture(),
                        tenant=tenant or DEFAULT_TENANT)
+        if self.config.bisect_depth > 0 and self._quarantine:
+            # the fingerprint is only needed eagerly for the admission
+            # quarantine lookup; with an empty quarantine the submit hot
+            # path skips the hash (the poison-settle path computes it
+            # lazily when a culprit is isolated)
+            req.fp = self._feed_fingerprint(vals)
         # one trace per request, minted at submit: the root span stays
         # open across the queue + the dispatch thread and is settled with
         # the typed terminal outcome (exactly once, like the accounting).
@@ -660,6 +730,28 @@ class ServingEngine:
             self._shed_locked("injected", now)
             raise Overloaded("serving: injected overload pressure "
                              "(FLAGS_fault_plan)", reason="injected") from e
+        if self._quarantine and not req.fp \
+                and self.config.bisect_depth > 0:
+            # the lazy build-time hash saw an empty quarantine, but one
+            # filled up since (e.g. this very feed's first copy was just
+            # isolated on the dispatch thread): close the race under the
+            # lock so a known-poison feed can never slip past admission
+            req.fp = self._feed_fingerprint(req.feed)
+        if req.fp and req.fp in self._quarantine:
+            # an isolated poison feed resubmitted: shed it at admission
+            # instead of letting it fail (and bisect) another batch
+            self._quarantine[req.fp] += 1
+            self._quarantine.move_to_end(req.fp)
+            repeats = self._quarantine[req.fp]
+            self._shed_locked("poison_quarantine", now)
+            if _monitor.enabled():
+                _monitor.counter(
+                    "serving_bisect_quarantine_sheds_total",
+                    "quarantined poison feeds shed at admission").inc()
+            raise Overloaded(
+                f"serving: feed fingerprint {req.fp} is quarantined "
+                f"(isolated as a poison request; shed {repeats} time(s) "
+                f"since)", reason="poison_quarantine")
         if self.config.tenant_fair_share:
             # per-tenant queue quota BEFORE the global depth bound: a hot
             # tenant is shed typed tenant_quota while the queue still has
@@ -950,34 +1042,41 @@ class ServingEngine:
                 self._tenant_pass.get(r.tenant, 0.0)
                 + r.nrows / self._tenant_weight(r.tenant))
 
-    def _run_batch(self, batch: List[_Request]) -> None:
-        """Execute one coalesced batch behind its bucket's breaker. (The
-        reference re-dispatches a failed batch in bisected halves at
-        depth > 0; the port has no bisection, so every dispatch is at
-        depth 0.)"""
+    def _run_batch(self, batch: List[_Request], depth: int = 0,
+                   ctx: Optional[dict] = None) -> None:
+        """Execute one coalesced batch. ``depth > 0`` is a bisection
+        re-dispatch (``_resolve_failed_batch``): the breaker, the
+        ``batch_dispatch`` fault probe and the flight-recorder incident
+        belong to the ORIGINAL depth-0 dispatch only — a re-dispatched
+        half is already inside one failure's blast-radius accounting.
+        ``ctx`` is the depth-0 resolution's shared bisection context
+        (poison candidates are deferred into it)."""
         rows = sum(r.nrows for r in batch)
         padded = self._bucket_size(rows)
         sig = batch[0].sig
         bucket = (sig, padded)
-        br = self._breakers.get(bucket)
-        if br is None:
-            br = CircuitBreaker(self.config.breaker_threshold,
-                                self.config.breaker_cooldown_s,
-                                name=self._bucket_label(bucket))
-            with self._lock:   # health() snapshots the dict concurrently
-                self._breakers[bucket] = br
-        if br.allow() == "no":
-            for r in batch:
-                self._settle_error(
-                    r, "circuit_open",
-                    CircuitOpen(
-                        f"serving: bucket {br.name} quarantined "
-                        f"(state={br.state}, "
-                        f"{br.snapshot()['consecutive_failures']} "
-                        f"consecutive failures)", bucket=br.name),
-                    dispatched=True)
-            self._gauge_open_buckets()
-            return
+        br = None
+        if depth == 0:
+            br = self._breakers.get(bucket)
+            if br is None:
+                br = CircuitBreaker(self.config.breaker_threshold,
+                                    self.config.breaker_cooldown_s,
+                                    name=self._bucket_label(bucket))
+                with self._lock:   # health() snapshots the dict concurrently
+                    self._breakers[bucket] = br
+            verdict = br.allow()
+            if verdict == "no":
+                for r in batch:
+                    self._settle_error(
+                        r, "circuit_open",
+                        CircuitOpen(
+                            f"serving: bucket {br.name} quarantined "
+                            f"(state={br.state}, "
+                            f"{br.snapshot()['consecutive_failures']} "
+                            f"consecutive failures)", bucket=br.name),
+                        dispatched=True)
+                self._gauge_open_buckets()
+                return
         # one batch span (its own trace) linking the member request
         # traces; each request gets a 'serving.dispatch' child under ITS
         # root carrying the batch ids — submit-thread -> dispatch-thread
@@ -987,16 +1086,17 @@ class ServingEngine:
         if _trace.enabled():
             batch_span = _trace.root_span(
                 "serving.batch", bucket=label, rows=rows, padded=padded,
-                requests=len(batch), bisect_depth=0,
+                requests=len(batch), bisect_depth=depth,
                 request_traces=",".join(r.span.trace_id for r in batch))
             for r in batch:
                 r.dispatch_span = _trace.start_span(
                     "serving.dispatch", parent=r.span, bucket=label,
-                    bisect_depth=0,
+                    bisect_depth=depth,
                     batch_trace=batch_span.trace_id,
                     batch_span=batch_span.span_id)
         try:
-            _faults.fault_point("batch_dispatch")
+            if depth == 0:
+                _faults.fault_point("batch_dispatch")
             feed = self._pad_feed(batch, rows, padded)
             t0 = time.perf_counter()
             # executor/compile/retry spans nest under the batch span
@@ -1006,8 +1106,9 @@ class ServingEngine:
                                      scope=self._scope)
             batch_s = time.perf_counter() - t0
         except Exception as e:   # typed per-batch isolation; engine lives
-            br.record_failure()
-            self._gauge_open_buckets()
+            if br is not None:
+                br.record_failure()
+                self._gauge_open_buckets()
             if _monitor.enabled():
                 _monitor.counter(
                     "serving_batches_total",
@@ -1015,14 +1116,24 @@ class ServingEngine:
                     result="failed").inc()
             logger.warning(
                 "serving: batch of %d request(s) on bucket %s failed at "
-                "bisect depth 0 (%s: %s)",
-                len(batch), label, type(e).__name__, e)
+                "bisect depth %d (%s: %s)",
+                len(batch), label, depth, type(e).__name__, e)
             batch_span.set_attribute("outcome", "failed")
             batch_span.end(error=e)
-            self._resolve_failed_batch(batch, e, label)
+            self._resolve_failed_batch(batch, e, depth, label, ctx)
+            if br is not None and any(m.future.done()
+                                      and m.future._error is None
+                                      for m in batch):
+                # bisection COMPLETED some member on this same bucket:
+                # the bucket is demonstrably healthy (one request was
+                # poison), so the failure recorded above must not climb
+                # the consecutive-failure ladder toward CircuitOpen
+                br.record_success()
+                self._gauge_open_buckets()
             return
-        br.record_success()
-        self._gauge_open_buckets()
+        if br is not None:
+            br.record_success()
+            self._gauge_open_buckets()
         batch_span.set_attribute("outcome", "ok")
         batch_span.end()
         _monitor.observe_serving_cost(self._program, padded, batch_s,
@@ -1042,11 +1153,28 @@ class ServingEngine:
         self._distribute(batch, outs, padded)
 
     def _resolve_failed_batch(self, batch: List[_Request],
-                              cause: BaseException, label: str) -> None:
-        """Blast-radius resolution for one failed batch: every member
-        fails typed :class:`BatchFailed` (the reference's behaviour with
-        bisection off); an expired member settles ``DeadlineExceeded``
-        instead."""
+                              cause: BaseException, depth: int,
+                              label: str,
+                              ctx: Optional[dict] = None) -> None:
+        """Blast-radius resolution for one failed batch: bisect when the
+        failure is state-safe and the depth budget allows (innocents
+        complete, the isolated culprit settles typed
+        :class:`PoisonRequest` and is quarantined), otherwise fail every
+        member typed :class:`BatchFailed`. Every member reaches exactly
+        one terminal outcome on every path; per-member deadlines stay
+        enforced (an expired member settles ``DeadlineExceeded`` instead
+        of riding a re-dispatch).
+
+        Poison candidates are DEFERRED into the depth-0 resolution
+        context and finalized only once the whole bisection completed:
+        the poison classification requires a completed batch-mate
+        witness (or a mate-less singleton batch) — when EVERY member of
+        a batch fails, the bucket is broken, not the requests, and
+        quarantining innocent feeds would shed legitimate resubmissions
+        at admission."""
+        top = ctx is None
+        if top:
+            ctx = {"poison": []}
         live: List[_Request] = []
         for r in batch:
             if r.deadline is not None and r.deadline.expired:
@@ -1057,11 +1185,67 @@ class ServingEngine:
                     dispatched=True)
             else:
                 live.append(r)
-        if live:
-            self._fail_members(live, cause, label)
+        max_depth = self.config.bisect_depth
+        bisectable = max_depth > 0 and self._bisect_safe(cause)
+        if live and bisectable and len(live) == 1 and depth > 0:
+            # re-dispatched without batch mates and still failing: a
+            # culprit CANDIDATE — classified at the top of the recursion
+            ctx["poison"].append((live[0], cause))
+        elif live and bisectable and depth < max_depth:
+            # a singleton at depth 0 re-dispatches SOLO once (absorbing a
+            # transient and confirming a culprit); larger batches split
+            mid = max(1, (len(live) + 1) // 2)
+            halves = [live[:mid], live[mid:]]
+            if _monitor.enabled():
+                _monitor.counter(
+                    "serving_bisect_splits_total",
+                    "failed batches re-dispatched as bisected halves"
+                ).inc()
+            logger.warning(
+                "serving: bisecting failed batch of %d request(s) on "
+                "bucket %s (depth %d -> %d): %s: %s",
+                len(live), label, depth, depth + 1,
+                type(cause).__name__, cause)
+            for r in live:
+                # the old dispatch child closes here; the re-dispatch
+                # opens a fresh one under the same request root
+                if r.dispatch_span:
+                    r.dispatch_span.set_attribute("outcome", "bisect")
+                    r.dispatch_span.end()
+                    r.dispatch_span = _trace.NOOP_SPAN
+            for half in halves:
+                if half:
+                    self._run_batch(half, depth=depth + 1, ctx=ctx)
+        elif live:
+            self._fail_members(live, cause, label, depth)
+        if top and ctx["poison"]:
+            self._finalize_poison(batch, ctx["poison"], label)
+
+    def _finalize_poison(self, batch: List[_Request], candidates,
+                         label: str) -> None:
+        """Classify the deferred culprit candidates of one depth-0
+        resolution. A candidate is poison only with a completed-mate
+        WITNESS (some other member of the original batch succeeded once
+        the candidate was out) or when the original batch was a
+        mate-less singleton; with no witness, every member failed — a
+        broken bucket, settled :class:`BatchFailed` (and counted by the
+        breaker's consecutive-failure ladder), never a quarantined
+        innocent."""
+        witness = any(r.future.done() and r.future._error is None
+                      for r in batch)
+        if witness or len(batch) == 1:
+            for r, cause in candidates:
+                self._settle_poison(r, cause, label)
+            return
+        logger.warning(
+            "serving: refusing poison classification on bucket %s — all "
+            "%d member(s) failed (no completed-mate witness); the bucket "
+            "is broken, not one request", label, len(batch))
+        self._fail_members([r for r, _ in candidates],
+                           candidates[0][1], label, depth=0)
 
     def _fail_members(self, live: List[_Request], cause: BaseException,
-                      label: str) -> None:
+                      label: str, depth: int) -> None:
         for r in live:
             # one instance per future: concurrent result() raises would
             # otherwise interleave __traceback__ on a shared exception
@@ -1073,11 +1257,85 @@ class ServingEngine:
         if live:
             # flight recorder: the incident ships with the failed
             # requests' full span chains (settled above, so the terminal
-            # outcomes are already in the ring)
+            # outcomes are already in the ring). Recorded at ANY depth —
+            # this is the terminal resolution of these requests, and a
+            # sub-batch that dies mid-bisection must not lose its dump
             _trace.record_incident(
                 "batch_failed", error=cause, context=live[0].span,
                 detail=f"bucket {label}, {len(live)} request(s), "
-                       f"bisect depth 0")
+                       f"bisect depth {depth}")
+
+    def _settle_poison(self, r: _Request, cause: BaseException,
+                       label: str) -> None:
+        fp = r.fp or self._feed_fingerprint(r.feed)
+        err = PoisonRequest(
+            f"serving: request #{r.seq} isolated by bisection as the "
+            f"poison member of a failing batch on bucket {label} "
+            f"({type(cause).__name__}: {cause}); feed fingerprint {fp} "
+            f"quarantined", fingerprint=fp)
+        err.__cause__ = cause
+        with self._lock:
+            self._quarantine[fp] = self._quarantine.get(fp, 0)
+            self._quarantine.move_to_end(fp)
+            while len(self._quarantine) > max(1,
+                                              self.config.bisect_quarantine):
+                self._quarantine.popitem(last=False)
+            qsize = len(self._quarantine)
+        logger.warning("serving: POISON request #%d isolated on bucket "
+                       "%s — fingerprint %s quarantined (%s: %s)",
+                       r.seq, label, fp, type(cause).__name__, cause)
+        if _monitor.enabled():
+            _monitor.counter(
+                "serving_bisect_poison_total",
+                "poison requests isolated by batch bisection").inc()
+            _monitor.gauge(
+                "serving_bisect_quarantine_size",
+                "poison feed fingerprints currently quarantined").set(qsize)
+        self._settle_error(r, "poisoned", err, dispatched=True)
+        _trace.record_incident(
+            "poison_request", error=err, context=r.span,
+            detail=f"bucket {label}, fingerprint {fp}")
+
+    @staticmethod
+    def _bisect_safe(e: BaseException) -> bool:
+        """May a failed batch be re-dispatched in halves? NO when the
+        failure may have corrupted device state: a watchdog-broken hang
+        or a lost device leaves the executor in an unknown state, and an
+        error naming consumed/deleted buffers means re-running would
+        read through freed storage — those fail the WHOLE batch
+        (the pre-bisection contract). Walks the cause chain."""
+        from ..resilience.distributed import WatchdogTimeout
+
+        seen = set()
+        cur: Optional[BaseException] = e
+        while cur is not None and id(cur) not in seen:
+            seen.add(id(cur))
+            # DeviceLostError belongs to resilience/elastic.py, which the
+            # port does not have yet: it is matched by name
+            if isinstance(cur, WatchdogTimeout) or \
+                    type(cur).__name__ == "DeviceLostError":
+                return False
+            msg = str(cur).lower()
+            if "donated" in msg or "deleted" in msg:
+                return False
+            cur = cur.__cause__ or cur.__context__
+        return True
+
+    @staticmethod
+    def _feed_fingerprint(feed: Dict[str, np.ndarray]) -> str:
+        """Content hash of one request's feed — the quarantine key. Bit
+        sensitivity is deliberate: the SAME poison bytes are shed, a
+        perturbed resubmission gets a fresh chance."""
+        import hashlib
+
+        h = hashlib.sha256()
+        for n in sorted(feed):
+            a = np.ascontiguousarray(feed[n])
+            h.update(n.encode("utf-8"))
+            h.update(str(a.dtype).encode("ascii"))
+            h.update(repr(a.shape).encode("ascii"))
+            h.update(a.tobytes())
+        return h.hexdigest()[:32]
 
     def _distribute(self, batch, outs, padded) -> None:
         now = self._now()

@@ -1032,3 +1032,130 @@ def test_run_chained_holds_memory_flat_with_the_release():
         torch.cuda.synchronize()
         held.append(torch.cuda.memory_allocated())
     assert max(held) - min(held) <= 2 ** 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("height", [2, 512])
+def test_embedding_grad_is_bit_identical_from_run_to_run(height):
+    """``lookup_table``'s grad sums the rows that share an id in a fixed
+    order on the card (a masked sum for a short table, the sorted
+    ``index_put_`` otherwise): two runs with heavily repeated ids (and a
+    padding id) give the same bits, each element within the f32
+    recursive-summation bound of a float64 sum on the CPU: (rows of its
+    id - 1) * 2^-24 * the sum of their magnitudes."""
+    g = _cuda()
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    rule = registry.get_op_def("lookup_table").grad_lower
+    w = torch.randn(height, 768, generator=g, device="cuda")
+    ids = torch.randint(0, min(height, 8), (32, 512, 1), generator=g,
+                        device="cuda")
+    dout = torch.randn(32, 512, 768, generator=g, device="cuda")
+    ins = {"W": [w], "Ids": [ids], "Out@GRAD": [dout]}
+    attrs = {"padding_idx": 1}
+    ctx = LowerCtx("cuda")
+    a = rule(ctx, ins, attrs)["W@GRAD"][0]
+    b = rule(ctx, ins, attrs)["W@GRAD"][0]
+    assert torch.equal(a, b)
+    host = {k: [v[0].cpu().double() if v[0].is_floating_point()
+                else v[0].cpu()] for k, v in ins.items()}
+    ref = rule(LowerCtx("cpu"), host, attrs)["W@GRAD"][0]
+    mag = rule(LowerCtx("cpu"), dict(host, **{"Out@GRAD": [
+        host["Out@GRAD"][0].abs()]}), attrs)["W@GRAD"][0]
+    rows = torch.bincount(ids.reshape(-1).cpu(), minlength=height).double()
+    bound = (rows - 1).clamp(min=0)[:, None] * 2.0 ** -24 * mag
+    assert ((a.cpu().double() - ref).abs() <= bound).all()
+    assert not a[1].any() and a[8:].abs().sum() == 0
+
+
+def _regression_net(fluid):
+    import paddle_tpu_torch.unique_name as un
+
+    with un.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = fluid.layers.data("x", shape=[64], dtype="float32")
+            y = fluid.layers.data("y", shape=[1], dtype="float32")
+            h = fluid.layers.fc(x, 256, act="relu")
+            d = fluid.layers.elementwise_sub(fluid.layers.fc(h, 1), y)
+            loss = fluid.layers.mean(fluid.layers.elementwise_mul(d, d))
+            fluid.optimizer.Adam(1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def _regression_feed(seed, nan=False):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = rng.rand(32, 64).astype(np.float32)
+    if nan:
+        x[3, 5] = np.nan
+    return {"x": x, "y": rng.rand(32, 1).astype(np.float32)}
+
+
+@pytest.mark.cuda
+def test_nan_trip_rolls_the_scope_back_on_the_card():
+    """FLAGS_check_nan_inf on the card: a NaN in one feed trips the first
+    op that sees it (``mul``), the skip policy leaves every persistable
+    bit-identical to its pre-step value, and ``raise`` restores it too."""
+    _cuda()
+    import paddle_tpu_torch as fluid
+
+    main, startup, loss = _regression_net(fluid)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    prev = fluid.get_flags(["FLAGS_check_nan_inf", "FLAGS_nan_inf_policy"])
+    try:
+        exe.run(main, feed=_regression_feed(0), fetch_list=[loss],
+                scope=scope)
+        fluid.set_flags({"FLAGS_check_nan_inf": 1,
+                         "FLAGS_nan_inf_policy": "skip"})
+        before = {n: scope.find_var(n).clone() for n in scope.vars}
+        exe.run(main, feed=_regression_feed(1, nan=True), fetch_list=[loss],
+                scope=scope)
+        for n, v in before.items():
+            assert torch.equal(scope.find_var(n), v), n
+        fluid.set_flags({"FLAGS_nan_inf_policy": "raise"})
+        with pytest.raises(FloatingPointError, match="op 'mul'"):
+            exe.run(main, feed=_regression_feed(1, nan=True),
+                    fetch_list=[loss], scope=scope)
+        for n, v in before.items():
+            assert torch.equal(scope.find_var(n), v), n
+        exe.run(main, feed=_regression_feed(2), fetch_list=[loss],
+                scope=scope)
+        assert any(not torch.equal(scope.find_var(n), v)
+                   for n, v in before.items())
+    finally:
+        fluid.set_flags(prev)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """save_checkpoint from the card, load_checkpoint into a fresh scope on
+    a fresh executor: every persistable bit-identical and back on the
+    card, and the next step's loss equal to the saving run's."""
+    _cuda()
+    import paddle_tpu_torch as fluid
+
+    main, startup, loss = _regression_net(fluid)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    for i in range(2):
+        exe.run(main, feed=_regression_feed(i), fetch_list=[loss],
+                scope=scope)
+    fluid.io.save_checkpoint(exe, str(tmp_path / "checkpoint_2"), main,
+                             scope=scope, meta={"step": 2})
+    exe2, scope2 = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    meta = fluid.io.load_checkpoint(exe2, str(tmp_path / "checkpoint_2"),
+                                    main, scope=scope2)
+    assert meta == {"step": 2}
+    for n in scope.vars:
+        got = scope2.find_var(n)
+        assert got.device.type == "cuda" and torch.equal(
+            got, scope.find_var(n)), n
+    a = exe.run(main, feed=_regression_feed(5), fetch_list=[loss],
+                scope=scope)[0]
+    b = exe2.run(main, feed=_regression_feed(5), fetch_list=[loss],
+                 scope=scope2)[0]
+    assert a.tobytes() == b.tobytes()

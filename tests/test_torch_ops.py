@@ -200,6 +200,14 @@ CASES = {
         {"LossScaling": ["s"], "OutGoodSteps": ["gs"],
          "OutBadSteps": ["bs"]},
         {"incr_every_n_steps": 3}, ["s", "gs", "bs"]),
+    "sqrt": ({"X": {"x": np.abs(f32(3, 4)) + 0.1}}, {"Out": ["o"]}, {},
+             ["o"]),
+    "clip": ({"X": {"x": f32(3, 4) * 2}}, {"Out": ["o"]},
+             {"min": -0.5, "max": 0.75}, ["o"]),
+    "clip_by_norm": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]},
+                     {"max_norm": 1.0}, ["o"]),
+    "squared_l2_norm": ({"X": {"x": f32(3, 4)}}, {"Out": ["o"]}, {},
+                        ["o"]),
 }
 
 
@@ -251,7 +259,7 @@ def test_every_path_op_has_a_case():
     tests/test_torch_mlp.py) and the sub-block ones has a case."""
     from paddle_tpu_torch.core import registry
 
-    assert len(CASES) == 48 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
+    assert len(CASES) == 52 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
     assert set(CASES) | RANDOM_OPS | BLOCK_OPS == set(registry.all_ops())
 
 

@@ -638,10 +638,298 @@ def test_slo_state_rides_health_payload():
 
 
 def test_refused_knobs_name_their_missing_module():
-    with pytest.raises(NotImplementedError, match="nonfinite"):
-        tserving.ServingConfig(bisect_depth=1).resolve()
-    eng = _engine(PKGS[1])
-    with pytest.raises(NotImplementedError, match="graceful"):
-        eng.install_preemption_handler()
     with pytest.raises(NotImplementedError, match="fleet serving tier"):
         tfluid.set_flags({"FLAGS_fleet_telemetry": 1})
+
+
+# ---------------------------------------------------------------------------
+# poison-request bisection (the engine cases of tests/test_fleet_chaos.py)
+# ---------------------------------------------------------------------------
+
+def _poison(seed=999):
+    f = _feed(seed=seed)
+    f["x"][0, :5] = np.nan
+    return f
+
+
+def _bisect_engine(pkg, **kw):
+    pkg.fluid.set_flags({"FLAGS_check_nan_inf": 1})
+    kw.setdefault("bisect_depth", 3)
+    eng = _engine(pkg, **kw)
+    eng.warm_up()
+    return eng
+
+
+def _gate(eng):
+    """Hold the dispatcher while ``hold[0]`` is true, so the requests
+    submitted meanwhile coalesce into one batch when it is cleared."""
+    hold = [True]
+    orig = eng._take_batch_locked
+    eng._take_batch_locked = \
+        lambda now: [] if hold[0] and eng._running else orig(now)
+    return hold
+
+
+def _batch_of(eng, hold, feeds):
+    """Submit ``feeds`` while the dispatcher is held; they go out as one
+    batch. Returns their futures, settled."""
+    hold[0] = True
+    futs = [eng.submit(f) for f in feeds]
+    hold[0] = False
+    for f in futs:
+        f.exception(timeout=WAIT)
+    return futs
+
+
+def test_poison_isolated_innocents_match_same_bucket_baselines():
+    """[i1, i2, i3, poison] go out as one batch; bisection splits
+    [i1,i2] | [i3,p], then [i3] | [p]. Each innocent equals its clean
+    baseline at the bucket bisection re-dispatches it at (i1+i2 at bucket
+    2, i3 alone at bucket 1), and the culprit settles PoisonRequest with
+    the nan check's FloatingPointError as its cause."""
+    def run(pkg):
+        eng = _bisect_engine(pkg)
+        hold = _gate(eng)
+        eng.start()
+        try:
+            i1, i2, i3 = (_feed(seed=i) for i in range(3))
+            base = [f.result(timeout=WAIT)
+                    for f in _batch_of(eng, hold, [i1, i2])]
+            base += [f.result(timeout=WAIT)
+                     for f in _batch_of(eng, hold, [i3])]
+            futs = _batch_of(eng, hold, [i1, i2, i3, _poison()])
+            perr = futs[3].exception(timeout=WAIT)
+            assert isinstance(perr, pkg.serving.PoisonRequest)
+            assert perr.fingerprint
+            assert isinstance(perr.__cause__, FloatingPointError)
+            for f, b in zip(futs[:3], base):
+                assert np.array_equal(f.result(timeout=WAIT)[0], b[0])
+            acct = eng.accounting()
+            assert acct["poisoned"] == 1 and acct["failed"] == 0
+            return _settle_all(futs), _acct(eng), perr.fingerprint
+        finally:
+            eng.stop()
+
+    res = _compare(run)
+    assert [o[0] for o in res["torch"][0]] == ["ok"] * 3 + \
+        ["PoisonRequest"]
+
+
+def test_quarantine_sheds_repeat_offender_typed():
+    def run(pkg):
+        eng = _bisect_engine(pkg, batch_window_s=0.2)
+        eng.start()
+        try:
+            poison = _poison()
+            outs = _settle_all([eng.submit(poison)])
+            outs += _norm([_try_submit(eng, poison)])
+            # a DIFFERENT feed is untouched by the quarantine
+            outs += _settle_all([eng.submit(_feed(seed=5))])
+            return outs, _acct(eng), len(eng._quarantine)
+        finally:
+            eng.stop()
+
+    res = _compare(run)
+    assert [o[:2] for o in res["torch"][0]] == [
+        ("PoisonRequest", ""), ("Overloaded", "poison_quarantine"),
+        ("ok", "")]
+    assert res["torch"][1]["shed"] == 1
+
+
+def test_quarantine_is_bounded():
+    def run(pkg):
+        eng = _bisect_engine(pkg, bisect_quarantine=2, batch_window_s=0.2)
+        eng.start()
+        try:
+            outs = []
+            for s in (101, 102, 103):
+                f = _feed(seed=s)
+                f["x"][0, 0] = np.nan
+                outs += _settle_all([eng.submit(f)])
+            return outs, _acct(eng), len(eng._quarantine)
+        finally:
+            eng.stop()
+
+    res = _compare(run)
+    assert res["torch"][2] == 2            # oldest evicted
+    assert [o[0] for o in res["torch"][0]] == ["PoisonRequest"] * 3
+
+
+def test_transient_batch_fault_absorbed_by_bisection():
+    """An injected depth-0 batch failure whose re-dispatch succeeds:
+    every member completes."""
+    def run(pkg):
+        eng = _bisect_engine(pkg)
+        hold = _gate(eng)
+        eng.start()
+        try:
+            with pkg.faults.fault_plan_guard(
+                    "batch_dispatch:@1:RuntimeError"):
+                futs = _batch_of(eng, hold,
+                                 [_feed(seed=i) for i in range(4)])
+            return _settle_all(futs), _acct(eng), None
+        finally:
+            eng.stop()
+
+    res = _compare(run)
+    acct = res["torch"][1]
+    assert acct["failed"] == 0 and acct["poisoned"] == 0 \
+        and acct["completed"] == 4
+
+
+def test_bisected_poisons_do_not_open_the_bucket_breaker():
+    """Distinct poison feeds round after round on one bucket: each
+    bisection proves the bucket healthy (the co-batched innocent
+    completes), so the bucket never reaches CircuitOpen."""
+    def run(pkg):
+        eng = _bisect_engine(pkg, breaker_threshold=2)
+        hold = _gate(eng)
+        eng.start()
+        try:
+            outs = []
+            for j in range(4):   # 2x the threshold
+                poison = _feed(seed=300 + j)
+                poison["x"][0, 0] = np.nan
+                outs += _settle_all(_batch_of(
+                    eng, hold, [poison, _feed(seed=400 + j)]))
+            states = sorted(b.state for b in eng._breakers.values())
+            return outs, _acct(eng), states
+        finally:
+            eng.stop()
+
+    res = _compare(run)
+    assert set(res["torch"][2]) == {"closed"}
+    assert res["torch"][1]["circuit_open"] == 0
+    assert [o[0] for o in res["torch"][0]] == ["PoisonRequest", "ok"] * 4
+
+
+def test_broken_bucket_never_quarantines_innocents():
+    """When EVERY member of a batch fails there is no completed-mate
+    witness: members settle BatchFailed, nothing is quarantined, and the
+    same feeds complete once the bucket heals."""
+    def run(pkg):
+        eng = _bisect_engine(pkg)
+        hold = _gate(eng)
+        eng.start()
+        try:
+            def broken(*a, **k):
+                raise RuntimeError("bucket broken (state-safe)")
+
+            real_run = eng._exe.run
+            eng._exe.run = broken
+            outs = _settle_all(_batch_of(
+                eng, hold, [_feed(seed=i) for i in range(2)]))
+            quarantined = len(eng._quarantine)
+            eng._exe.run = real_run
+            outs += _settle_all(_batch_of(
+                eng, hold, [_feed(seed=i) for i in range(2)]))
+            return outs, _acct(eng), quarantined
+        finally:
+            eng.stop()
+
+    res = _compare(run)
+    assert [o[0] for o in res["torch"][0]] == ["BatchFailed"] * 2 + \
+        ["ok"] * 2
+    assert res["torch"][2] == 0
+    acct = res["torch"][1]
+    assert acct["poisoned"] == 0 and acct["shed"] == 0 \
+        and acct["failed"] == 2
+
+
+def test_bisect_off_keeps_whole_batch_failure():
+    """bisect_depth=0: a batch with a nan trip fails every member typed
+    BatchFailed."""
+    def run(pkg):
+        pkg.fluid.set_flags({"FLAGS_check_nan_inf": 1})
+        eng = _engine(pkg)
+        eng.warm_up()
+        hold = _gate(eng)
+        eng.start()
+        try:
+            futs = _batch_of(eng, hold, [_feed(seed=0), _feed(seed=1),
+                                         _poison()])
+            return _settle_all(futs), _acct(eng), None
+        finally:
+            eng.stop()
+
+    res = _compare(run)
+    assert [o[0] for o in res["torch"][0]] == ["BatchFailed"] * 3
+    assert res["torch"][1]["failed"] == 3
+
+
+def test_bisect_safety_classification():
+    """Device-state-corrupting failures never bisect; the classification
+    walks the cause chain. The port has no resilience/elastic.py and
+    matches DeviceLostError by name."""
+    from paddle_tpu.resilience.distributed import \
+        WatchdogTimeout as JWatchdog
+    from paddle_tpu.resilience.elastic import DeviceLostError as JLost
+    from paddle_tpu_torch.resilience.distributed import \
+        WatchdogTimeout as TWatchdog
+
+    TLost = type("DeviceLostError", (RuntimeError,), {})
+
+    def verdicts(safe, watchdog, lost):
+        wrapped = RuntimeError("batch failed")
+        wrapped.__cause__ = watchdog("step", 2.0)
+        return [safe(FloatingPointError("Nan found in output")),
+                safe(RuntimeError("injected transient")),
+                safe(watchdog("step", 2.0)), safe(lost("chip preempted")),
+                safe(RuntimeError("Array has been deleted or donated")),
+                safe(wrapped)]
+
+    want = verdicts(jserving.ServingEngine._bisect_safe, JWatchdog, JLost)
+    got = verdicts(tserving.ServingEngine._bisect_safe, TWatchdog, TLost)
+    assert got == want == [True, True, False, False, False, False]
+
+
+def test_unsafe_error_fails_whole_batch_despite_bisection(monkeypatch):
+    def run(pkg):
+        eng = _bisect_engine(pkg)
+        monkeypatch.setattr(pkg.serving.ServingEngine, "_bisect_safe",
+                            staticmethod(lambda e: False))
+        hold = _gate(eng)
+        eng.start()
+        try:
+            with pkg.faults.fault_plan_guard(
+                    "batch_dispatch:@1:RuntimeError"):
+                futs = _batch_of(eng, hold,
+                                 [_feed(seed=i) for i in range(3)])
+            return _settle_all(futs), _acct(eng), None
+        finally:
+            eng.stop()
+
+    res = _compare(run)
+    assert [o[0] for o in res["torch"][0]] == ["BatchFailed"] * 3
+    assert res["torch"][1]["failed"] == 3
+
+
+def test_expired_member_settles_deadline_not_redispatch(monkeypatch):
+    """A member whose deadline expired by resolution time settles typed
+    DeadlineExceeded instead of riding a bisected re-dispatch."""
+    def run(pkg):
+        eng = _bisect_engine(pkg)
+        cls = pkg.serving.ServingEngine
+        real_resolve = cls._resolve_failed_batch
+
+        def slow_resolve(self, batch, cause, depth, label, ctx=None):
+            if depth == 0:
+                time.sleep(0.3)   # outlive the batch's deadlines
+            return real_resolve(self, batch, cause, depth, label, ctx)
+
+        monkeypatch.setattr(cls, "_resolve_failed_batch", slow_resolve)
+        hold = _gate(eng)
+        eng.start()
+        try:
+            hold[0] = True
+            futs = [eng.submit(_feed(seed=i), deadline_s=0.25)
+                    for i in range(2)]
+            futs.append(eng.submit(_poison(), deadline_s=0.25))
+            hold[0] = False
+            return _settle_all(futs), _acct(eng), None
+        finally:
+            eng.stop()
+
+    res = _compare(run)
+    assert [o[0] for o in res["torch"][0]] == ["DeadlineExceeded"] * 3
+    assert res["torch"][1]["deadline_exceeded"] == 3
