@@ -139,7 +139,28 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    with an ``on_shutdown`` save: the loop stops at step 2 and
    ``load_latest_checkpoint`` resumes there. K1 24 / K3 12 / K4 12 a
    step over every run.
-12. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
+12. train_lamb — BERT-base bf16 pretraining as the published recipes
+   run it (``amp=True`` built with ``build_optimizer=False``, batch 32,
+   seq 512, dropout 0.1, random weights from ``--seed``). (a) schedule:
+   ``decorate(Lamb(lamb_weight_decay=0.01))`` on ``linear_lr_warmup(
+   polynomial_decay(1e-3, 10, 0, 1), 3, 0, 1e-3)``, 6 steps: the fetched
+   rate equals the closed form (rtol 1e-6), losses finite, the first 3
+   within ``AMP_LOSS_RTOL`` of the plain attention versions, two runs of 3
+   steps bit-identical (losses and every state var), every GEMM of a
+   profiled step bf16, the state f32; reports steps/s, tokens/s, the
+   step's peak, device busy ms and launches of a profiled step, and the
+   optimizer tail's device ms (``role_ranges``: the ops of the optimize
+   role) against an Adam step's at the same shape. (b) adamw:
+   ``decorate(AdamW(weight_decay=0.01, epsilon=1e-6))`` on the schedule,
+   3 steps: losses finite, the rate its closed form, the state f32.
+   (c) merge: ``GradientMergeOptimizer(decorate(Lamb(1e-3)), k_steps=4)``
+   at batch 128 (4 microbatches of 32), 3 steps: losses finite, K1 96 /
+   K3 48 / K4 48 a step; reports the step's peak against (a)'s. Then at
+   dropout 0, 2 merged microbatches of 16 against one plain step of 32
+   from the same state (every row masking 76 tokens): the step-1 updates
+   within ``LAMB_MERGE_UPDATE_RTOL`` in relative L2. K1 24 / K3 12 / K4
+   12 a step (a microbatch) in every kernel-path run.
+13. infer — BERT-base inference (``BertConfig.base()``, f32, batch 32, seq
    512; ``build_bert_pretrain(build_optimizer=False)`` cloned for test;
    random weights and a synthetic batch from ``--seed``; fetch the loss
    and the last encoder layer), run three ways on the same weights and
@@ -159,7 +180,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    launches a forward, all on its bf16 CUDA functions, K1 12, the fused
    loss within ``AMP_INFER_TOL`` of the unfused; forward ms (median of 5)
    and peak memory.
-13. train_resnet — the JAX package's headline metric: ResNet-50
+14. train_resnet — the JAX package's headline metric: ResNet-50
    ``build_resnet(50, amp=True)`` (bf16 convolutions and products under
    the AMP policy, f32 master weights, Momentum at lr 0.1, mu 0.9), batch
    128 at 224x224, random weights and images from ``--seed``, 5 steps.
@@ -177,13 +198,13 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (``op_ranges``: batch_norm, and the forward rules the generic grads
    run again), and one step with ``FLAGS_conv_use_nhwc`` always and
    never.
-14. infer_resnet — ResNet-50 bf16 inference (the is_test clone under
+15. infer_resnet — ResNet-50 bf16 inference (the is_test clone under
    ``decorate_program``, batch 128): fused (the fc head on K5's bf16
    route, one launch a forward), unfused and the dense replay (bit-exact
    against unfused, no K5 launch); fused logits within ``AMP_INFER_TOL``
    of unfused. Reports forward ms (median of 5), peak memory and idle
    share of each run.
-15. prints the script time of each phase and part (``[seconds]``), the
+16. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -195,6 +216,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import signal
@@ -1562,15 +1584,17 @@ def bert_feed(seed, vocab, B, S):
             "next_sent_label": rng.randint(0, 2, (B, 1)).astype(np.int64)}
 
 
-def train(net, init, feed, plain, steps=TRAIN_STEPS):
+def train(net, init, feed, plain, steps=TRAIN_STEPS, extra_fetch=()):
     """``steps`` steps from ``init`` on a fresh executor (so the step
-    seeds, and with them the dropout masks, repeat) and a fresh scope."""
+    seeds, and with them the dropout masks, repeat) and a fresh scope.
+    ``extra_fetch`` vars come back per step in ``extras``."""
     exe, scope = fluid.Executor(), fluid.Scope()
     for n, t in init.items():
         scope.set_var(n, t.clone())
     scope_bytes = sum(t.nelement() * t.element_size()
                       for t in scope.vars.values())
-    fetch = [net["loss"], net["mlm_loss"], net["nsp_loss"]]
+    fetch = [net["loss"], net["mlm_loss"], net["nsp_loss"]] + list(
+        extra_fetch)
     fluid.set_flags({"FLAGS_use_flash_attention":
                      "never" if plain else "auto"})
     try:
@@ -1592,8 +1616,9 @@ def train(net, init, feed, plain, steps=TRAIN_STEPS):
         first_s = t_first - t0
     finally:
         fluid.set_flags({"FLAGS_use_flash_attention": "auto"})
-    return dict(losses=np.array([[float(np.ravel(x)[0]) for x in step]
+    return dict(losses=np.array([[float(np.ravel(x)[0]) for x in step[:3]]
                                  for step in losses]),
+                extras=[step[3:] for step in losses],
                 steps_per_s=(steps - 1) / wall, first_step_s=first_s,
                 launches=launches, peak_bytes=peak, base_bytes=base,
                 held_bytes=held, exe=exe, scope=scope,
@@ -1638,7 +1663,7 @@ CONV_MARKS = ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm",
 BF16_CONV_MARKS = ("bf16", "bfloat16")
 # host ranges that ``op_ranges`` opens: each op, and inside a generic grad
 # op the rerun of the forward rule
-RANGE_PREFIXES = ("op::", "rerun::")
+RANGE_PREFIXES = ("op::", "rerun::", "role::")
 
 
 @contextlib.contextmanager
@@ -1682,6 +1707,30 @@ def op_ranges():
         ex.lower_op = real_lower_op
         for t, real in saved.items():
             registry._OP_REGISTRY[t].lower = real
+
+
+@contextlib.contextmanager
+def role_ranges():
+    """Open a ``torch.profiler`` range ``role::<op role>`` around every op
+    the executor runs (forward, backward, optimize, lr_sched), so a
+    profile gives the device time of each role (``profile_run``'s
+    ``ranges``): the optimizer tail is ``role::optimize``."""
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch import executor as ex
+
+    real_lower_op = ex.lower_op
+
+    def lower_op(op, env, ctx):
+        with record_function("role::" + op.attrs.get("__op_role__",
+                                                     "forward")):
+            real_lower_op(op, env, ctx)
+
+    ex.lower_op = lower_op
+    try:
+        yield
+    finally:
+        ex.lower_op = real_lower_op
 
 
 def _port_kernel(name):
@@ -2548,6 +2597,352 @@ def phase_train_guard(seed):
                                          for n in K.KERNEL_SOURCES})
 
 
+# ---------------------------------------------------------------- train_lamb
+# BERT-base bf16 pretraining as the published recipes run it: LAMB (You et
+# al., ICLR 2020) on a linear warmup into polynomial decay to 0 (power 1,
+# google-research/bert optimization.py), AdamW with that recipe's settings,
+# and LAMB over merged microbatches (NVIDIA's BERT recipe accumulates
+# gradients to reach LAMB's batches on one node). The warmup is cut to 3
+# of 10 decay steps so that 6 steps cross its edge.
+LAMB_BATCH, LAMB_SEQ = 32, 512
+LAMB_LR, LAMB_DECAY_STEPS, LAMB_WARMUP = 1e-3, 10, 3
+LAMB_STEPS, LAMB_CHECK_STEPS, LAMB_ADAM_STEPS = 6, 3, 4
+LAMB_MERGE_K, LAMB_MERGE_STEPS = 4, 3
+# the rate the program computes in float32 against the closed form
+LAMB_LR_RTOL = 1e-6
+# 2 merged microbatches of 16 against one plain step of 32 at dropout 0,
+# every row masking the same number of tokens (so each microbatch's mean
+# loss weighs its rows as the whole batch's does): the relative L2 norm of
+# the difference of the two step-1 parameter updates. LAMB's first update
+# is nearly sign(g) per element, so an element whose tiny gradient bf16
+# rounding (of the products' operands, summed in another order) flips moves
+# by twice the rate. Measured 3.37e-3 on an H100 (0.039 % of the elements
+# moved the other way; the runs repeat bit for bit): the tolerance is 3x that
+LAMB_MERGE_UPDATE_RTOL = 1e-2
+LAMB_MERGE_MASKED = 76
+
+
+def lamb_schedule():
+    L = fluid.layers
+    return L.linear_lr_warmup(
+        L.polynomial_decay(LAMB_LR, LAMB_DECAY_STEPS, 0.0, 1.0),
+        LAMB_WARMUP, 0.0, LAMB_LR)
+
+
+def lamb_closed_form(step):
+    if step < LAMB_WARMUP:
+        return LAMB_LR * step / LAMB_WARMUP
+    return LAMB_LR * (1.0 - min(step, LAMB_DECAY_STEPS) / LAMB_DECAY_STEPS)
+
+
+def lamb_net(cfg, make_opt, seed):
+    """BERT-base at seq ``LAMB_SEQ`` trained by ``make_opt()`` -> (the
+    optimizer, the rate var or None), built under the program guard and a
+    fresh ``unique_name.guard()`` (so two builds name every var alike);
+    its initial state from ``seed``."""
+    with fluid.unique_name.guard():
+        net = build_bert_pretrain(cfg, seq_len=LAMB_SEQ,
+                                  build_optimizer=False)
+        with fluid.program_guard(net["main"], net["startup"]):
+            opt, net["lr"] = make_opt()
+            opt.minimize(net["loss"])
+    net["startup"].random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    return net, dict(scope0.vars)
+
+
+def lamb_opt(make, schedule):
+    """An AMP optimizer from ``make(rate)``: on the schedule or at
+    ``LAMB_LR``."""
+    def build():
+        lr = lamb_schedule() if schedule else None
+        return mixed_precision.decorate(
+            make(lr if schedule else LAMB_LR)), lr
+    return build
+
+
+def equal_mask_feed(seed, vocab, B, S):
+    """``bert_feed`` with exactly ``LAMB_MERGE_MASKED`` masked tokens in
+    every row."""
+    feed = bert_feed(seed, vocab, B, S)
+    rng = np.random.RandomState(seed + 1)
+    label = np.full((B, S), -100, np.int64)
+    for b in range(B):
+        real = int(feed["input_mask"][b].sum())
+        pos = rng.choice(real, LAMB_MERGE_MASKED, replace=False)
+        label[b, pos] = rng.randint(0, vocab, LAMB_MERGE_MASKED)
+    feed["mask_label"] = label
+    return feed
+
+
+def role_profile(net, exe, scope, feed):
+    """One step under ``role_ranges`` and torch.profiler, its launches
+    counted."""
+    K.reset_launch_counts()
+    with role_ranges():
+        prof = profile_step(net, exe, scope, feed)
+    prof["launches"] = K.launch_counts()
+    return prof
+
+
+def phase_train_lamb(seed):
+    cfg = BertConfig.base()
+    GiB = 2 ** 30
+    tokens = LAMB_BATCH * LAMB_SEQ
+    launches = collections.Counter()
+    steps_run = collections.Counter()     # kernel-path steps x microbatches
+
+    def counted(run, steps, micro=1):
+        launches.update(run["launches"])
+        steps_run["steps"] += steps * micro
+        want = {n: TRAIN_LAUNCHES.get(n, 0) * steps * micro
+                for n in K.KERNEL_SOURCES}
+        if {n: run["launches"][n] for n in K.KERNEL_SOURCES} != want:
+            raise SystemExit(f"chip_smoke: train_lamb launched "
+                             f"{run['launches']} in {steps} steps of "
+                             f"{micro} microbatch(es), expected {want}")
+        return run
+
+    def f32_state(scope):
+        return {n: str(t.dtype) for n, t in scope.vars.items()
+                if t.is_floating_point() and t.dtype != torch.float32}
+
+    # leg schedule: LAMB on the warmup/polynomial schedule
+    with timed("train_lamb.schedule"):
+        net, init = lamb_net(cfg, lamb_opt(
+            lambda lr: fluid.optimizer.Lamb(learning_rate=lr,
+                                            lamb_weight_decay=0.01), True),
+            seed + 11)
+        feed = bert_feed(seed + 12, cfg.vocab_size, LAMB_BATCH, LAMB_SEQ)
+        run = counted(train(net, init, feed, plain=False, steps=LAMB_STEPS,
+                            extra_fetch=[net["lr"]]), LAMB_STEPS)
+        exe, scope = run.pop("exe"), run.pop("scope")
+        prof = counted(role_profile(net, exe, scope, feed), 1)
+        not_f32 = f32_state(scope)
+        del exe, scope
+        torch.cuda.empty_cache()
+        reps = []
+        for _ in range(2):
+            rep = counted(train(net, init, feed, plain=False,
+                                steps=LAMB_CHECK_STEPS), LAMB_CHECK_STEPS)
+            reps.append((rep["losses"], dict(rep.pop("scope").vars)))
+            del rep["exe"]
+        differ = [n for n, t in reps[0][1].items()
+                  if not torch.equal(reps[1][1][n], t)]
+        same = (not differ and np.array_equal(reps[0][0], reps[1][0])
+                and np.array_equal(reps[0][0], run["losses"][
+                    :LAMB_CHECK_STEPS]))
+        del reps
+        torch.cuda.empty_cache()
+        plain = train(net, init, feed, plain=True, steps=LAMB_CHECK_STEPS)
+        del plain["exe"], plain["scope"]
+        torch.cuda.empty_cache()
+    lrs = [float(np.ravel(e[0])[0]) for e in run["extras"]]
+    want_lrs = [lamb_closed_form(i) for i in range(LAMB_STEPS)]
+    kl, pl = run["losses"][:LAMB_CHECK_STEPS], plain["losses"]
+    rel = np.abs(kl - pl) / np.abs(pl)
+    gemms = prof["gemms"]
+    tail_ms = prof["ranges"].get("role::optimize", {}).get("ms", 0.0)
+
+    # the Adam step at the same shape, for the tail; steps/s in turns
+    # (LAMB above, Adam, Adam, LAMB), the host's drift falling on both
+    with timed("train_lamb.adam"):
+        anet, ainit = lamb_net(cfg, lamb_opt(
+            lambda lr: fluid.optimizer.Adam(learning_rate=lr), False),
+            seed + 11)
+        adam = counted(train(anet, ainit, feed, plain=False,
+                             steps=LAMB_ADAM_STEPS), LAMB_ADAM_STEPS)
+        aprof = counted(role_profile(anet, adam.pop("exe"),
+                                     adam.pop("scope"), feed), 1)
+        turns = [run["steps_per_s"], adam["steps_per_s"]]
+        for n, i in ((anet, ainit), (net, init)):
+            t = counted(train(n, i, feed, plain=False,
+                              steps=LAMB_ADAM_STEPS), LAMB_ADAM_STEPS)
+            turns.append(t["steps_per_s"])
+            del t
+        del anet, ainit, net, init
+        torch.cuda.empty_cache()
+    adam_tail_ms = aprof["ranges"].get("role::optimize", {}).get("ms", 0.0)
+    lamb_sps = (turns[0] + turns[3]) / 2
+    adam_sps = (turns[1] + turns[2]) / 2
+    log(f"[train_lamb] BERT-base amp=True, batch {LAMB_BATCH}, seq "
+        f"{LAMB_SEQ}, dropout 0.1, Lamb(lamb_weight_decay=0.01) on "
+        f"linear_lr_warmup(polynomial_decay({LAMB_LR}, {LAMB_DECAY_STEPS}, "
+        f"0, 1), {LAMB_WARMUP}, 0, {LAMB_LR}), {LAMB_STEPS} steps: loss "
+        f"{run['losses'][0, 0]:.6f} -> {run['losses'][-1, 0]:.6f}")
+    log(f"  rate per step {lrs} (closed form {want_lrs})")
+    log(f"  LAMB {run['steps_per_s']:.3f} steps/s = "
+        f"{run['steps_per_s'] * tokens:.1f} tokens/s (steps 2-{LAMB_STEPS});"
+        f" in turns LAMB, Adam, Adam, LAMB (steps 2-{LAMB_ADAM_STEPS} after"
+        f" the first): " + ", ".join(f"{t:.3f}" for t in turns)
+        + f" steps/s, LAMB/Adam {lamb_sps / adam_sps:.3f}; peak: LAMB step "
+        f"{run['step_peak_bytes'] / GiB:.2f} GiB (raw "
+        f"{run['peak_bytes'] / GiB:.2f}), Adam step "
+        f"{adam['step_peak_bytes'] / GiB:.2f} GiB")
+    for tag, pr, t in (("LAMB", prof, tail_ms), ("Adam", aprof,
+                                                adam_tail_ms)):
+        log(f"  profiled {tag} step: wall {pr['wall_s'] * 1e3:.1f} ms, "
+            f"device busy {pr['device_busy_s'] * 1e3:.1f} ms, idle share "
+            f"{pr['idle_share']:.3f}, {pr['device_kernels']} device "
+            f"kernels; optimizer tail (role::optimize) {t:.3f} ms of "
+            f"device time; roles " + ", ".join(
+                f"{k[6:]} {v['ms']:.3f} ms" for k, v in pr["ranges"].items()
+                if k.startswith("role::")))
+    log(f"  kernel vs plain, steps 1-{LAMB_CHECK_STEPS}: loss rel. diff "
+        f"step 1 {rel[0].max():.3e}, later {rel[1:].max():.3e} (tolerance "
+        f"{AMP_LOSS_RTOL}); two runs of {LAMB_CHECK_STEPS} steps "
+        f"{'bit-identical' if same else 'DIFFER'} ({len(differ)} state vars"
+        f" differ); GEMMs {len(gemms)}, not bf16 "
+        f"{sum(not g['bf16'] for g in gemms)}; state not f32: "
+        f"{not_f32 or 'none'}")
+    if not np.isfinite(run["losses"]).all() or not np.isfinite(pl).all():
+        raise SystemExit("chip_smoke: non-finite LAMB training loss")
+    if not np.allclose(lrs, want_lrs, rtol=LAMB_LR_RTOL, atol=0.0):
+        raise SystemExit(f"chip_smoke: the schedule's rate {lrs} is not its "
+                         f"closed form {want_lrs}")
+    if rel[0].max() > AMP_LOSS_RTOL[0] or rel[1:].max() > AMP_LOSS_RTOL[1]:
+        raise SystemExit(f"chip_smoke: kernel and plain LAMB runs disagree "
+                         f"(step 1 {rel[0].max():.3e}, later "
+                         f"{rel[1:].max():.3e}; tolerance {AMP_LOSS_RTOL})")
+    if not same:
+        raise SystemExit(f"chip_smoke: two LAMB runs differ: {differ[:5]}")
+    if not gemms or not all(g["bf16"] for g in gemms):
+        raise SystemExit("chip_smoke: a GEMM of the LAMB step is not bf16")
+    if not_f32:
+        raise SystemExit(f"chip_smoke: LAMB state left float32: {not_f32}")
+    if any(plain["launches"].values()):
+        raise SystemExit(f"chip_smoke: the plain LAMB run launched kernels: "
+                         f"{plain['launches']}")
+
+    # leg adamw: the google-research/bert settings the JAX class expresses
+    with timed("train_lamb.adamw"):
+        wnet, winit = lamb_net(cfg, lamb_opt(
+            lambda lr: fluid.optimizer.AdamW(learning_rate=lr,
+                                             weight_decay=0.01,
+                                             epsilon=1e-6), True),
+            seed + 11)
+        aw = counted(train(wnet, winit, feed, plain=False,
+                           steps=LAMB_CHECK_STEPS,
+                           extra_fetch=[wnet["lr"]]), LAMB_CHECK_STEPS)
+        aw_not_f32 = f32_state(aw.pop("scope"))
+        del aw["exe"], wnet, winit
+        torch.cuda.empty_cache()
+    aw_lrs = [float(np.ravel(e[0])[0]) for e in aw["extras"]]
+    log(f"  adamw: AdamW(weight_decay=0.01, epsilon=1e-6) on the schedule, "
+        f"{LAMB_CHECK_STEPS} steps: loss {aw['losses'][:, 0].tolist()}, "
+        f"rate {aw_lrs}, {aw['steps_per_s']:.3f} steps/s, state not f32: "
+        f"{aw_not_f32 or 'none'}")
+    if not np.isfinite(aw["losses"]).all():
+        raise SystemExit("chip_smoke: non-finite AdamW training loss")
+    if not np.allclose(aw_lrs, want_lrs[:LAMB_CHECK_STEPS],
+                       rtol=LAMB_LR_RTOL, atol=0.0):
+        raise SystemExit(f"chip_smoke: AdamW's rate {aw_lrs} is not the "
+                         f"closed form")
+    if aw_not_f32:
+        raise SystemExit(f"chip_smoke: AdamW state left float32: "
+                         f"{aw_not_f32}")
+
+    # leg merge: LAMB over 4 merged microbatches of 32 (batch 128)
+    def merged_lamb(k):
+        return lambda: (fluid.optimizer.GradientMergeOptimizer(
+            mixed_precision.decorate(
+                fluid.optimizer.Lamb(learning_rate=LAMB_LR)), k_steps=k),
+            None)
+
+    with timed("train_lamb.merge"):
+        mnet, minit = lamb_net(cfg, merged_lamb(LAMB_MERGE_K), seed + 11)
+        big = bert_feed(seed + 13, cfg.vocab_size,
+                        LAMB_BATCH * LAMB_MERGE_K, LAMB_SEQ)
+        merge = counted(train(mnet, minit, big, plain=False,
+                              steps=LAMB_MERGE_STEPS), LAMB_MERGE_STEPS,
+                        LAMB_MERGE_K)
+        m_not_f32 = f32_state(merge.pop("scope"))
+        del merge["exe"], mnet, minit
+        torch.cuda.empty_cache()
+    log(f"  merge: GradientMergeOptimizer(decorate(Lamb({LAMB_LR})), "
+        f"k_steps={LAMB_MERGE_K}), batch {LAMB_BATCH * LAMB_MERGE_K} = "
+        f"{LAMB_MERGE_K} x {LAMB_BATCH}, {LAMB_MERGE_STEPS} steps: loss "
+        f"(last microbatch) {merge['losses'][:, 0].tolist()}, "
+        f"{merge['steps_per_s']:.3f} steps/s = "
+        f"{merge['steps_per_s'] * tokens * LAMB_MERGE_K:.1f} tokens/s, step "
+        f"peak {merge['step_peak_bytes'] / GiB:.2f} GiB against the schedule"
+        f" leg's {run['step_peak_bytes'] / GiB:.2f} GiB (+"
+        f"{(merge['step_peak_bytes'] - run['step_peak_bytes']) / GiB:.2f}), "
+        f"launches {merge['launches']}")
+    if not np.isfinite(merge["losses"]).all():
+        raise SystemExit("chip_smoke: non-finite merged LAMB loss")
+    if m_not_f32:
+        raise SystemExit(f"chip_smoke: merged state left float32: "
+                         f"{m_not_f32}")
+
+    # merged against plain at dropout 0: 2 x 16 against 1 x 32, step 1
+    with timed("train_lamb.merge_vs_plain"):
+        cfg0 = dataclasses.replace(cfg, hidden_dropout=0.0,
+                                   attention_dropout=0.0)
+        pnet, pinit = lamb_net(cfg0, lamb_opt(
+            lambda lr: fluid.optimizer.Lamb(learning_rate=lr), False),
+            seed + 11)
+        qnet, qinit = lamb_net(cfg0, merged_lamb(2), seed + 11)
+        params = [p.name for p in pnet["main"].all_parameters()]
+        if sorted(qinit) != sorted(pinit) or any(
+                not torch.equal(qinit[n], pinit[n]) for n in params):
+            raise SystemExit("chip_smoke: the merged and plain programs' "
+                             "initial states differ")
+        feq = equal_mask_feed(seed + 14, cfg.vocab_size, LAMB_BATCH,
+                              LAMB_SEQ)
+        one = counted(train(pnet, pinit, feq, plain=False, steps=1), 1)
+        two = counted(train(qnet, pinit, feq, plain=False, steps=1), 1, 2)
+        d_plain = torch.cat([(one["scope"].find_var(n) - pinit[n]).ravel()
+                             for n in params])
+        d_merge = torch.cat([(two["scope"].find_var(n) - pinit[n]).ravel()
+                             for n in params])
+        upd_rel = float(torch.linalg.vector_norm(d_merge - d_plain)
+                        / torch.linalg.vector_norm(d_plain))
+        max_abs = float((d_merge - d_plain).abs().max())
+        flipped = float(((d_merge * d_plain) < 0).float().mean())
+        del one, two, pnet, qnet, pinit, qinit, d_plain, d_merge
+        torch.cuda.empty_cache()
+    log(f"  merge vs plain (dropout 0, 2 x {LAMB_BATCH // 2} against 1 x "
+        f"{LAMB_BATCH}, {LAMB_MERGE_MASKED} masked tokens a row): step-1 "
+        f"update rel. L2 diff {upd_rel:.4e} (tolerance "
+        f"{LAMB_MERGE_UPDATE_RTOL}), max |diff| {max_abs:.3e}, elements "
+        f"moved the other way {flipped:.3e}")
+    if not upd_rel <= LAMB_MERGE_UPDATE_RTOL:
+        raise SystemExit(f"chip_smoke: merged and plain LAMB updates differ"
+                         f" by {upd_rel:.4e} > {LAMB_MERGE_UPDATE_RTOL}")
+    return dict(
+        config="BertConfig.base(), amp=True", batch=LAMB_BATCH,
+        seq=LAMB_SEQ,
+        schedule=dict(
+            losses=run["losses"].tolist(), rates=lrs,
+            closed_form=want_lrs, plain_losses=pl.tolist(),
+            step1_rel_diff=float(rel[0].max()),
+            later_rel_diff=float(rel[1:].max()),
+            bit_identical=same, steps_per_s=run["steps_per_s"],
+            tokens_per_s=run["steps_per_s"] * tokens,
+            first_step_s=run["first_step_s"],
+            step_peak_gib=run["step_peak_bytes"] / GiB,
+            peak_gib=run["peak_bytes"] / GiB,
+            tail_ms=tail_ms, profiled_step=prof,
+            turns_steps_per_s=turns, lamb_over_adam=lamb_sps / adam_sps,
+            adam=dict(steps_per_s=adam_sps,
+                      step_peak_gib=adam["step_peak_bytes"] / GiB,
+                      tail_ms=adam_tail_ms, profiled_step=aprof)),
+        adamw=dict(losses=aw["losses"].tolist(), rates=aw_lrs,
+                   steps_per_s=aw["steps_per_s"]),
+        merge=dict(k=LAMB_MERGE_K, batch=LAMB_BATCH * LAMB_MERGE_K,
+                   losses=merge["losses"].tolist(),
+                   steps_per_s=merge["steps_per_s"],
+                   step_peak_gib=merge["step_peak_bytes"] / GiB,
+                   peak_gib=merge["peak_bytes"] / GiB,
+                   vs_plain=dict(update_rel_l2=upd_rel, max_abs=max_abs,
+                                 flipped_share=flipped,
+                                 tolerance=LAMB_MERGE_UPDATE_RTOL)),
+        steps=steps_run["steps"],
+        launches={n: launches[n] for n in K.KERNEL_SOURCES})
+
+
 # ---------------------------------------------------------------- infer
 INFER_BATCH, INFER_SEQ, INFER_FORWARDS = 32, 512, 5
 # BERT-base inference: the fusion pass fuses 75 chains (q, k, v, out-proj
@@ -3200,6 +3595,9 @@ def main():
     with timed("train_guard"):
         guarded = phase_train_guard(args.seed)
     torch.cuda.empty_cache()
+    with timed("train_lamb"):
+        lambed = phase_train_lamb(args.seed)
+    torch.cuda.empty_cache()
     with timed("infer"):
         inferred = phase_infer(args.seed)
     torch.cuda.empty_cache()
@@ -3211,7 +3609,8 @@ def main():
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
-    # under auto-remat and under the safety net (K1, K3, K4), inference in
+    # under auto-remat, under the safety net and with LAMB, AdamW and
+    # gradient merge (K1, K3, K4), inference in
     # f32 and bf16 (K1, K5) and ResNet-50 bf16 training (none) and
     # inference (K5), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
@@ -3221,6 +3620,7 @@ def main():
                 "train_amp": trained_amp["launches"],
                 "train_remat": trained_remat["launches"],
                 "train_guard": guarded["launches"],
+                "train_lamb": lambed["launches"],
                 "infer": inferred["launches"],
                 "train_resnet": trained_resnet["launches"],
                 "infer_resnet": inferred_resnet["launches"]}
@@ -3236,6 +3636,7 @@ def main():
                   "stats": run["stats"], "whole_path": whole},
               "serve_spec": spec, "serve_batch": batched,
               "serve_poison": poisoned, "train_guard": guarded,
+              "train_lamb": lambed,
               "launches_by_phase": by_phase,
               "train": trained, "train_amp": trained_amp,
               "train_remat": trained_remat,

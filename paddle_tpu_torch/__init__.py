@@ -23,7 +23,10 @@ decoding in ``serving.GenerativeEngine``, ``monitor``, ``trace`` and
 with ``FLAGS_nan_inf_policy`` rollback, ``monitor.numwitness``, gradient
 clipping through ``set_gradient_clip``, ``gradients``/``calc_gradient``,
 ``io`` with crash-safe checkpoints, graceful preemption in
-``resilience.graceful``). ``Executor()`` runs on ``CUDAPlace(0)``; pass
+``resilience.graceful``), and every optimizer, the learning-rate
+schedules (``layers.learning_rate_scheduler``) and gradient merge
+(``optimizer.GradientMergeOptimizer``: the executor's microbatch loop).
+``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """
 from . import ops  # noqa: F401  (registers the op rules)

@@ -61,6 +61,23 @@ XLA-only key component (``FLAGS_xla_options``) has no counterpart.
 reference keys its compiled steps, so the serving engine's recompile
 guard reads it the same way.
 
+Gradient merge (``GradientMergeOptimizer``/``PipelineOptimizer`` set
+``program._pipeline_microbatches`` = M > 1): the counterpart of the
+reference's ``make_pipeline_step_fn``, a loop of the interpreter where the
+reference scans. The forward- and backward-role ops run once per
+microbatch on ``batch / M`` rows of every feed (a batch M does not divide
+raises), each microbatch with its own step seed, so its own dropout
+masks; the parameter gradients are added into zero-initialised buffers
+in the parameter's dtype and averaged (or summed, ``_grad_merge_avg``
+False); persistables those ops write are stored as they are written, so
+the next microbatch reads them; a microbatch's activations leave with
+its environment before the next one starts. The other ops (the update,
+the clip, the schedule's counter) then run once. A fetched value those
+ops produce comes from the last microbatch, anything else from after the
+update. A program whose update reads a value only the microbatch ops
+produce (an in-program learning-rate schedule) is refused at its first
+run. ``run_chained`` refuses microbatched programs, as the reference does.
+
 ``FLAGS_check_nan_inf`` (the reference's protocol, ``unpack_step_result``):
 ``run`` collects one finite check per float op output on the device
 (``lowering.lower_op``), reads them once at step end, and on a trip
@@ -90,7 +107,8 @@ from . import trace as _trace
 from .analysis.liveness import block_liveness
 from .core.types import torch_dtype
 from .framework import Program, Variable, default_main_program
-from .lowering import EMPTY_VAR_NAME, LowerCtx, lower_op, read_finite
+from .lowering import (EMPTY_VAR_NAME, LowerCtx, _op_site, lower_op,
+                       read_finite)
 from .resilience import distributed as _dist
 from .resilience import faults as _faults
 from .resilience import nonfinite as _nonfinite
@@ -160,6 +178,14 @@ class Scope:
 _global_scope = Scope()
 
 
+def _finite_check(v):
+    """A nan check's payload (``lowering.read_finite``): the (min, max)
+    pair of a float tensor, None (finite) for anything else."""
+    if isinstance(v, torch.Tensor) and v.is_floating_point() and v.numel():
+        return torch.aminmax(v.detach())
+    return None
+
+
 def global_scope() -> Scope:
     return _global_scope
 
@@ -223,6 +249,54 @@ def _release_plan(program: Program, feed_names, fetch_names):
     return [tuple(sorted(d)) for d in dead], stores
 
 
+class _MicroPlan:
+    """How a gradient-merge program's ops split: the forward/backward ops
+    run per microbatch (``fb``), the rest once (``tail``); ``refusal`` is
+    the message of a program whose tail reads what only ``fb`` makes."""
+
+    __slots__ = ("M", "avg", "fb", "tail", "grads", "params", "fb_written",
+                 "fb_state", "refusal")
+
+    def __init__(self, program: Program):
+        from .framework import OpRole
+
+        blk = program.global_block
+        self.M = int(program._pipeline_microbatches)
+        self.avg = bool(getattr(program, "_grad_merge_avg", True))
+        pgs = list(getattr(program, "_pipeline_param_grads", []))
+        self.params = [p for p, _ in pgs]
+        self.grads = [g for _, g in pgs]
+        in_fb = [op.attrs.get("__op_role__", OpRole.Forward)
+                 in (OpRole.Forward, OpRole.Backward) for op in blk.ops]
+        self.fb = [i for i, f in enumerate(in_fb) if f]
+        self.tail = [i for i, f in enumerate(in_fb) if not f]
+        self.fb_written = {n for i in self.fb
+                           for n in blk.ops[i].output_arg_names}
+        # persistables the microbatch ops write (batch-norm statistics):
+        # carried from one microbatch to the next
+        self.fb_state = [n for n in dict.fromkeys(
+            n for i in self.fb for n in blk.ops[i].output_arg_names)
+            if blk.has_var(n) and blk.var(n).persistable]
+        self.refusal = None
+        handed = set(self.grads) | set(self.fb_state)
+        made = set()
+        for i in self.tail:
+            op = blk.ops[i]
+            for n in op.input_arg_names:
+                if n in self.fb_written and n not in handed \
+                        and n not in made:
+                    self.refusal = (
+                        f"gradient merge: op '{op.type}'{_op_site(op)}, "
+                        f"which runs once a step, reads '{n}', which only "
+                        f"the forward/backward ops make, and they run once "
+                        f"per microbatch: a forward-role op inside the "
+                        f"microbatch loop, such as an in-program "
+                        f"learning-rate schedule, cannot feed the update "
+                        f"(pass the optimizer a float learning rate)")
+                    return
+            made.update(op.output_arg_names)
+
+
 # op types that update a persistable input in place (the paged KV caches):
 # the rollback image clones what they write
 _IN_PLACE_OPS = frozenset({"fused_decode_attention", "kv_cache_append"})
@@ -239,8 +313,8 @@ class _Step:
     state."""
 
     __slots__ = ("program", "donated_names", "dead_after", "stores",
-                 "state_names", "in_place_names", "prepared", "prep_s",
-                 "_compile_event", "_lock")
+                 "state_names", "in_place_names", "micro", "prepared",
+                 "prep_s", "_compile_event", "_lock")
 
     def __init__(self, program: Program, prep_s: float, feed_names,
                  fetch_names):
@@ -270,6 +344,8 @@ class _Step:
         self.in_place_names = frozenset(
             n for op in blk.ops if op.type in _IN_PLACE_OPS
             for n in op.output_arg_names if n in state_out)
+        self.micro = (_MicroPlan(program) if int(getattr(
+            program, "_pipeline_microbatches", 1)) > 1 else None)
         self.prepared = False
         self.prep_s = prep_s
         self._compile_event = None
@@ -348,30 +424,95 @@ class Executor:
             out[n] = call_with_retry("device_put", _put)
         return out
 
+    def _run_ops(self, step, indices, env, ctx, scope) -> None:
+        """Run the global block's ops at ``indices`` over ``env``: state
+        read from the scope on first use, persistables stored as written,
+        dead names released."""
+        program = step.program
+        ops = program.global_block.ops
+        for i in indices:
+            op = ops[i]
+            for n in op.input_arg_names:
+                if n not in env and n != EMPTY_VAR_NAME:
+                    env[n] = self._state(n, program, scope)
+            lower_op(op, env, ctx)
+            for n in step.stores[i]:
+                if n in env:
+                    scope.set_var(n, env[n])
+            for n in step.dead_after[i]:
+                env.pop(n, None)
+
     def _run_once(self, step, feed_tensors, fetch_names, scope,
                   checks=None, taps=None):
         program = step.program
+        if step.micro is not None:
+            return self._run_microbatched(step, feed_tensors, fetch_names,
+                                          scope, checks, taps)
         env: Dict[str, Any] = dict(feed_tensors)
         ctx = LowerCtx(self.device, seed=self._next_seed(program),
                        program=program, nan_checks=checks, num_taps=taps)
         with torch.no_grad():
-            for op, dead, stores in zip(program.global_block.ops,
-                                        step.dead_after, step.stores):
-                for n in op.input_arg_names:
-                    if n not in env and n != EMPTY_VAR_NAME:
-                        env[n] = self._state(n, program, scope)
-                lower_op(op, env, ctx)
-                for n in stores:
-                    if n in env:
-                        scope.set_var(n, env[n])
-                for n in dead:
-                    env.pop(n, None)
+            self._run_ops(step, range(len(program.global_block.ops)), env,
+                          ctx, scope)
+        return self._fetch(step, env, fetch_names, scope)
+
+    def _fetch(self, step, env, fetch_names, scope):
         fetches = []
         for n in fetch_names:
             if n not in env:
-                env[n] = self._state(n, program, scope)
+                env[n] = self._state(n, step.program, scope)
             fetches.append(env[n])
         return fetches
+
+    def _run_microbatched(self, step, feed_tensors, fetch_names, scope,
+                          checks, taps):
+        """One gradient-merge step (see the module docstring): the
+        reference's ``make_pipeline_step_fn`` as a loop. The nan checks
+        cover the accumulated gradients and the carried state under the
+        reference's labels, then the tail ops."""
+        plan, program = step.micro, step.program
+        if plan.refusal is not None:
+            raise ValueError(plan.refusal)
+        M = plan.M
+        for n, v in feed_tensors.items():
+            if v.shape[0] % M:
+                raise ValueError(
+                    f"gradient merge: feed '{n}' batch {v.shape[0]} not "
+                    f"divisible by num_microbatches={M}")
+        acc: List[torch.Tensor] = []
+        fetched: Dict[str, torch.Tensor] = {}
+        with torch.no_grad():
+            for i in range(M):
+                env: Dict[str, Any] = {
+                    n: v[i * (v.shape[0] // M):(i + 1) * (v.shape[0] // M)]
+                    for n, v in feed_tensors.items()}
+                ctx = LowerCtx(self.device, seed=self._next_seed(program),
+                               program=program)
+                self._run_ops(step, plan.fb, env, ctx, scope)
+                if not acc:
+                    acc = [torch.zeros_like(self._state(p, program, scope))
+                           for p in plan.params]
+                for a, g in zip(acc, plan.grads):
+                    a.add_(env[g])
+                fetched.update((n, env[n]) for n in fetch_names
+                               if n in plan.fb_written)
+                del env, ctx
+            env = {g: a.div_(M) if plan.avg else a
+                   for g, a in zip(plan.grads, acc)}
+            if checks is not None:
+                for g, a in zip(plan.grads, acc):
+                    checks.append((f"accumulated gradient '{g}' "
+                                   f"(fwd/bwd microbatch scan)",
+                                   _finite_check(a)))
+                for n in plan.fb_state:
+                    checks.append((f"carried state '{n}' (microbatch scan)",
+                                   _finite_check(scope.find_var(n))))
+            ctx = LowerCtx(self.device, seed=self._next_seed(program),
+                           program=program, nan_checks=checks,
+                           num_taps=taps)
+            self._run_ops(step, plan.tail, env, ctx, scope)
+        env.update(fetched)
+        return self._fetch(step, env, fetch_names, scope)
 
     @staticmethod
     def _rollback_image(step, scope):
@@ -691,6 +832,10 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         feed = feed or {}
         names = [_fetch_name(f) for f in fetch_list or []]
+        if int(getattr(program, "_pipeline_microbatches", 1)) > 1:
+            raise NotImplementedError(
+                "run_chained with PipelineOptimizer programs: the pipeline "
+                "step is already a scan; nest via GradientMergeOptimizer")
         program, prep_s = self._prepare(program, feed, names)
         fp = program_fingerprint(program)
         feed_sig = tuple(sorted((n,) + _shape_dtype_sig(v)

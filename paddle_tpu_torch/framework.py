@@ -72,6 +72,50 @@ class Variable:
         return (f"Variable(name={self.name!r}, shape={self.shape}, "
                 f"dtype={self.dtype}, persistable={self.persistable})")
 
+    # arithmetic sugar (reference math_op_patch.py): each operator appends
+    # an elementwise op; a scalar operand becomes a [1] fill_constant
+    def _binary(self, other, op, reverse=False):
+        from .layers import math_op_patch
+
+        return math_op_patch.binary(self, other, op, reverse)
+
+    def __add__(self, o):
+        return self._binary(o, "elementwise_add")
+
+    def __radd__(self, o):
+        return self._binary(o, "elementwise_add", True)
+
+    def __sub__(self, o):
+        return self._binary(o, "elementwise_sub")
+
+    def __rsub__(self, o):
+        return self._binary(o, "elementwise_sub", True)
+
+    def __mul__(self, o):
+        return self._binary(o, "elementwise_mul")
+
+    def __rmul__(self, o):
+        return self._binary(o, "elementwise_mul", True)
+
+    def __truediv__(self, o):
+        return self._binary(o, "elementwise_div")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elementwise_div", True)
+
+    def __pow__(self, o):
+        return self._binary(o, "elementwise_pow")
+
+    def __neg__(self):
+        from .layers import nn as _nn
+
+        return _nn.scale(self, scale=-1.0)
+
+    def __matmul__(self, o):
+        from .layers import nn as _nn
+
+        return _nn.matmul(self, o)
+
     def to_dict(self) -> dict:
         d = {
             "name": self.name,
@@ -283,10 +327,18 @@ class Block:
 
     def append_op(self, type: str, inputs=None, outputs=None,
                   attrs=None) -> Operator:
+        return self.insert_op(len(self.ops), type, inputs, outputs, attrs)
+
+    def prepend_op(self, type: str, inputs=None, outputs=None,
+                   attrs=None) -> Operator:
+        return self.insert_op(0, type, inputs, outputs, attrs)
+
+    def insert_op(self, index: int, type: str, inputs=None, outputs=None,
+                  attrs=None) -> Operator:
         op = Operator(self, type, inputs=inputs, outputs=outputs,
                       attrs=attrs)
         self._stamp(op)
-        self.ops.append(op)
+        self.ops.insert(index, op)
         op.infer_shape()
         return op
 

@@ -11,14 +11,20 @@ from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm", "gelu", "sqrt", "clip",
-           "clip_by_norm", "relu", "increment",
-           "matmul",
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+           "clip", "clip_by_norm", "increment", "matmul",
            "fused_multihead_attention", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_min",
-           "elementwise_max", "not_equal", "scale", "reshape", "transpose",
-           "cast", "unsqueeze", "dropout", "mean", "reduce_sum",
-           "softmax_with_cross_entropy", "slice", "topk", "accuracy"]
+           "elementwise_max", "elementwise_pow", "equal", "not_equal",
+           "less_than", "less_equal", "greater_than", "greater_equal",
+           "logical_and", "logical_or", "logical_xor", "scale", "reshape",
+           "transpose", "cast", "unsqueeze", "dropout", "mean", "reduce_sum",
+           "softmax_with_cross_entropy", "slice", "topk", "accuracy", "where",
+           "relu", "sigmoid", "tanh", "exp", "log", "sqrt", "square", "abs",
+           "ceil", "floor", "cos", "sin", "round", "reciprocal", "erf",
+           "gelu", "logical_not", "soft_relu", "leaky_relu", "relu6", "elu",
+           "swish", "hard_swish", "hard_sigmoid", "pow", "softmax",
+           "log_softmax"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -172,20 +178,6 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(y)
 
 
-def gelu(x, name=None):
-    helper = LayerHelper("gelu", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("gelu", inputs={"X": x}, outputs={"Out": out})
-    return out
-
-
-def sqrt(x, name=None):
-    helper = LayerHelper("sqrt", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("sqrt", inputs={"X": x}, outputs={"Out": out})
-    return out
-
-
 def clip(x, min, max, name=None):
     helper = LayerHelper("clip", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -199,13 +191,6 @@ def clip_by_norm(x, max_norm, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("clip_by_norm", inputs={"X": x}, outputs={"Out": out},
                      attrs={"max_norm": max_norm})
-    return out
-
-
-def relu(x, name=None):
-    helper = LayerHelper("relu", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("relu", inputs={"X": x}, outputs={"Out": out})
     return out
 
 
@@ -265,7 +250,98 @@ elementwise_mul = _elementwise("elementwise_mul")
 elementwise_div = _elementwise("elementwise_div")
 elementwise_min = _elementwise("elementwise_min")
 elementwise_max = _elementwise("elementwise_max")
+elementwise_pow = _elementwise("elementwise_pow")
+equal = _elementwise("equal")
 not_equal = _elementwise("not_equal")
+less_than = _elementwise("less_than")
+less_equal = _elementwise("less_equal")
+greater_than = _elementwise("greater_than")
+greater_equal = _elementwise("greater_equal")
+logical_and = _elementwise("logical_and")
+logical_or = _elementwise("logical_or")
+logical_xor = _elementwise("logical_xor")
+
+
+# -- simple wrappers (reference layers/nn.py _simple) -----------------------
+
+def _simple(op_type, x_slot="X", out_slot="Out", **attrs):
+    def fn(x, name=None, **kw):
+        helper = LayerHelper(op_type, name=name)
+        a = dict(attrs)
+        a.update(kw)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={x_slot: x},
+                         outputs={out_slot: out}, attrs=a)
+        return out
+
+    fn.__name__ = op_type
+    return fn
+
+
+relu = _simple("relu")
+sigmoid = _simple("sigmoid")
+tanh = _simple("tanh")
+exp = _simple("exp")
+log = _simple("log")
+sqrt = _simple("sqrt")
+square = _simple("square")
+abs = _simple("abs")
+ceil = _simple("ceil")
+floor = _simple("floor")
+cos = _simple("cos")
+sin = _simple("sin")
+round = _simple("round")
+reciprocal = _simple("reciprocal")
+erf = _simple("erf")
+gelu = _simple("gelu")
+logical_not = _simple("logical_not")
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    helper = LayerHelper("soft_relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("softplus", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _simple("leaky_relu")(x, name=name, alpha=alpha)
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _simple("relu6")(x, name=name, threshold=threshold)
+
+
+def elu(x, alpha=1.0, name=None):
+    return _simple("elu")(x, name=name, alpha=alpha)
+
+
+def swish(x, beta=1.0, name=None):
+    return _simple("swish")(x, name=name, beta=beta)
+
+
+hard_swish = _simple("hard_swish")
+hard_sigmoid = _simple("hard_sigmoid")
+
+
+def pow(x, factor=1.0, name=None):
+    return _simple("pow")(x, name=name, factor=factor)
+
+
+def softmax(input, axis=-1, use_cudnn=False, name=None):
+    return _simple("softmax")(input, name=name, axis=axis)
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _simple("log_softmax")(input, name=name, axis=axis)
+
+
+def where(condition, x, y):
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where", inputs={"Condition": condition, "X": x, "Y": y},
+                     outputs={"Out": out})
+    return out
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

@@ -1,12 +1,63 @@
-"""Generative-inference layers (reference role of paddle_tpu's
-layers/nn2.py): the KV-cache, gather, sampling and speculative-accept
-ops of ``ops/generation.py``."""
+"""Layers of paddle_tpu's layers/nn2.py: the generative-inference ones
+(the KV-cache, gather, sampling and speculative-accept ops of
+``ops/generation.py``) and the one-op wrappers over ``ops/math.py``
+(``maxout``, ``selu``, ``stanh``, ``brelu``, ``sign``,
+``elementwise_mod``, ``elementwise_floordiv``)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
 __all__ = ["fused_decode_attention", "kv_cache_append", "sequence_gather",
-           "spec_accept", "sample_token"]
+           "spec_accept", "sample_token", "maxout", "selu", "stanh", "brelu",
+           "sign", "elementwise_mod", "elementwise_floordiv"]
+
+
+def _one(op_type, inputs, attrs=None, name=None):
+    """One op, one output ``Out`` of the first input's dtype."""
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(
+        next(iter(inputs.values())).dtype)
+    helper.append_op(op_type, inputs=inputs, outputs={"Out": out},
+                     attrs=attrs or {})
+    return out
+
+
+def maxout(x, groups, axis=1, name=None):
+    return _one("maxout", {"X": x}, {"groups": groups, "axis": axis},
+                name=name)
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    attrs = {}
+    if scale is not None:
+        attrs["scale"] = scale
+    if alpha is not None:
+        attrs["alpha"] = alpha
+    return _one("selu", {"X": x}, attrs, name=name)
+
+
+def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
+    return _one("stanh", {"X": x}, {"scale_a": scale_a, "scale_b": scale_b},
+                name=name)
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _one("brelu", {"X": x}, {"t_min": t_min, "t_max": t_max},
+                name=name)
+
+
+def sign(x, name=None):
+    return _one("sign", {"X": x}, name=name)
+
+
+def elementwise_mod(x, y, axis=-1, name=None):
+    return _one("elementwise_mod", {"X": x, "Y": y}, {"axis": axis},
+                name=name)
+
+
+def elementwise_floordiv(x, y, axis=-1, name=None):
+    return _one("elementwise_floordiv", {"X": x, "Y": y}, {"axis": axis},
+                name=name)
 
 
 def fused_decode_attention(q, k_new, v_new, cache_k, cache_v, positions,

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from ..core.registry import IOSpec, register_op  # re-export for op modules
 
-__all__ = ["register_op", "IOSpec", "x", "out", "broadcast_to_x"]
+__all__ = ["register_op", "IOSpec", "x", "out", "broadcast_to_x", "unary"]
 
 
 def x(ins, slot="X", i=0):
@@ -29,3 +29,13 @@ def broadcast_to_x(xv, yv, axis: int):
         raise ValueError(f"elementwise axis={axis} incompatible: "
                          f"x{tuple(xv.shape)} y{tuple(yv.shape)}")
     return yv.reshape((1,) * axis + tuple(yv.shape) + (1,) * pad_right)
+
+
+def unary(op_type, fn, **kwargs):
+    """Register a single-input single-output elementwise op."""
+
+    @register_op(op_type, inputs=["X"], outputs=["Out"], **kwargs)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        return out(_fn(x(ins)))
+
+    return _lower

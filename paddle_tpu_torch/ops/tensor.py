@@ -226,3 +226,13 @@ def _lookup_table(ctx, ins, attrs):
         emb = torch.where((ids != pad).unsqueeze(-1), emb,
                           torch.zeros((), dtype=emb.dtype, device=emb.device))
     return out(emb)
+
+
+@register_op("where", inputs=[IOSpec("Condition", no_grad=True), IOSpec("X"),
+                              IOSpec("Y")],
+             outputs=["Out"])
+def _where(ctx, ins, attrs):
+    cond = x(ins, "Condition")
+    if cond.dtype != torch.bool:
+        cond = cond != 0
+    return out(torch.where(cond, x(ins, "X"), x(ins, "Y")))

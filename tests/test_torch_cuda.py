@@ -1159,3 +1159,135 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
     b = exe2.run(main, feed=_regression_feed(5), fetch_list=[loss],
                  scope=scope2)[0]
     assert a.tobytes() == b.tobytes()
+
+
+# the op types of ops/math.py, ops/optimizer_ops.py and ``where`` that
+# the optimizer slice added, each run alone on the card against the port
+# on the CPU
+OPTIMIZER_SLICE_OPS = (
+    "sigmoid exp log square rsqrt ceil floor round reciprocal softplus "
+    "softsign sin cos logsigmoid erf tan asin acos atan sinh cosh log1p "
+    "expm1 log2 log10 sign silu mish selu stanh brelu hard_shrink "
+    "softshrink thresholded_relu maxout leaky_relu relu6 elu hard_sigmoid "
+    "swish hard_swish pow log_softmax elementwise_pow elementwise_mod "
+    "elementwise_floordiv equal less_than less_equal greater_than "
+    "greater_equal logical_and logical_or logical_xor isfinite where "
+    "lars_momentum adamw adagrad decayed_adagrad average_accumulates "
+    "adadelta adamax rmsprop ftrl lamb").split()
+_SCALAR_SLOTS = {"LearningRate", "Beta1Pow", "Beta2Pow"}
+_COUNT_SLOTS = {"InNumAccumulates", "InOldNumAccumulates", "InNumUpdates"}
+
+
+def _op_inputs(op_type, slots, rng):
+    """Inputs from ``rng`` for every slot: floats in [0.2, 0.9) (inside
+    every unary op's domain), [1] for a rate or a beta power, int64
+    counters, bools for a logical op or a condition, int64 for a
+    comparison, 4-d for maxout."""
+    import numpy as np
+
+    shape = (2, 6, 3, 3) if op_type == "maxout" else (4, 3)
+    ins = {}
+    for slot in slots:
+        if slot in _SCALAR_SLOTS:
+            a = np.float32([0.5 if slot == "LearningRate" else 0.81])
+        elif slot in _COUNT_SLOTS:
+            a = np.array([{"InNumUpdates": 9}.get(slot, 3)], np.int64)
+        elif op_type.startswith("logical_") or slot == "Condition":
+            a = rng.rand(*shape) > 0.5
+        elif op_type.endswith(("equal", "_than")):
+            a = rng.randint(0, 3, shape).astype(np.int64)
+        else:
+            a = rng.uniform(0.2, 0.9, shape).astype(np.float32)
+        ins[slot] = a
+    return ins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op_type", OPTIMIZER_SLICE_OPS)
+def test_optimizer_slice_op_on_the_card_matches_the_cpu(op_type):
+    """Each op type the optimizer slice added, on the card against the
+    port on the CPU, float32 rtol 1e-5 (atol 1e-6)."""
+    _cuda()
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import registry
+
+    opdef = registry.get_op_def(op_type)
+    ins = _op_inputs(op_type, [s.name for s in opdef.inputs],
+                     np.random.RandomState(len(op_type)))
+    attrs = {"maxout": {"groups": 3}, "average_accumulates": {
+        "min_average_window": 2, "max_average_window": 4}}.get(op_type, {})
+    outs = {s.name: [f"o_{s.name}"] for s in opdef.outputs}
+    main = fluid.Program()
+    blk = main.global_block
+    for slot, a in ins.items():
+        blk.create_var(name=slot, shape=a.shape, dtype=str(a.dtype),
+                       is_data=True)
+    for names in outs.values():
+        blk.create_var(name=names[0])
+    blk.append_op(op_type, inputs={s: [s] for s in ins}, outputs=outs,
+                  attrs=attrs)
+    fetch = [n[0] for n in outs.values()]
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed=ins, fetch_list=fetch, scope=fluid.Scope())
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=ins, fetch_list=fetch, scope=fluid.Scope())
+    for n, a, b in zip(fetch, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, n
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6,
+                                       err_msg=n)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_merged_step_adds_the_microbatch_gradients_on_the_card():
+    """A gradient-merge step (2 microbatches, summed, SGD at rate 1) moves
+    every parameter by minus the sum of the two halves' gradients, each
+    computed by a plain step on the card: float32 rtol 1e-5."""
+    _cuda()
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+
+    def build(merge):
+        with fluid.unique_name.guard():
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup):
+                x = fluid.layers.data("x", shape=[16], dtype="float32")
+                y = fluid.layers.data("y", shape=[1], dtype="float32")
+                h = fluid.layers.fc(x, 32, act="tanh")
+                d = fluid.layers.elementwise_sub(fluid.layers.fc(h, 1), y)
+                loss = fluid.layers.mean(fluid.layers.elementwise_mul(d, d))
+                opt = fluid.optimizer.SGD(learning_rate=1.0)
+                if merge:
+                    opt = fluid.optimizer.GradientMergeOptimizer(
+                        opt, k_steps=2, avg=False)
+                _, pgs = opt.minimize(loss)
+        return main, startup, loss, pgs
+
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.randn(16, 16).astype(np.float32),
+            "y": rng.randn(16, 1).astype(np.float32)}
+    main, startup, loss, pgs = build(True)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: v.clone() for n, v in scope.vars.items()}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    pmain, _, ploss, ppgs = build(False)
+    total = {}
+    for half in (slice(0, 8), slice(8, 16)):
+        s = fluid.Scope()
+        for n, v in init.items():
+            s.set_var(n, v.clone())
+        grads = fluid.Executor(fluid.CUDAPlace(0)).run(
+            pmain, feed={k: v[half] for k, v in feed.items()},
+            fetch_list=[g for _, g in ppgs], scope=s)
+        for (p, _), g in zip(ppgs, grads):
+            total[p.name] = total.get(p.name, 0) + g
+    for p, _ in pgs:
+        moved = (init[p.name] - scope.find_var(p.name)).cpu().numpy()
+        np.testing.assert_allclose(moved, total[p.name], rtol=1e-5,
+                                   atol=1e-6, err_msg=p.name)

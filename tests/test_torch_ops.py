@@ -1,5 +1,6 @@
 """Every op type of the port's GPT serving, BERT training, MLP, AMP and
-ResNet paths against the JAX package's rule, on the CPU. Each case is a single-op program built
+ResNet paths, and every op of ``ops/math.py``, ``ops/optimizer_ops.py``
+and ``where``, against the JAX package's rule, on the CPU. Each case is a single-op program built
 the same way in both packages (data vars, one ``append_op``) and run on
 the same numpy feeds; the outputs' build-time shapes must match too.
 Random ops are compared by distribution and by determinism, never by
@@ -211,6 +212,147 @@ CASES = {
 }
 
 
+
+
+def pos(*shape):
+    """Positive inputs, away from 0 (log, sqrt, pow ...)."""
+    return np.abs(f32(*shape)) + 0.2
+
+
+def unit(*shape):
+    """Inputs inside (-0.9, 0.9) (asin, acos)."""
+    return np.clip(f32(*shape) * 0.4, -0.9, 0.9).astype(np.float32)
+
+
+def _unary(xv, **attrs):
+    return ({"X": {"x": xv}}, {"Out": ["o"]}, attrs, ["o"])
+
+
+def _binary(xv, yv, **attrs):
+    return ({"X": {"x": xv}, "Y": {"y": yv}}, {"Out": ["o"]}, attrs, ["o"])
+
+
+# the rest of ops/math.py: activations and elementwise maths
+for _op, _xv in [("sigmoid", f32(3, 4)), ("exp", f32(3, 4)),
+                 ("log", pos(3, 4)), ("square", f32(3, 4)),
+                 ("rsqrt", pos(3, 4)), ("ceil", f32(3, 4) * 3),
+                 ("floor", f32(3, 4) * 3), ("round", f32(3, 4) * 3),
+                 ("reciprocal", pos(3, 4)), ("softplus", f32(3, 4) * 3),
+                 ("softsign", f32(3, 4)), ("sin", f32(3, 4)),
+                 ("cos", f32(3, 4)), ("logsigmoid", f32(3, 4) * 3),
+                 ("erf", f32(3, 4)), ("tan", unit(3, 4)),
+                 ("asin", unit(3, 4)), ("acos", unit(3, 4)),
+                 ("atan", f32(3, 4)), ("sinh", f32(3, 4)),
+                 ("cosh", f32(3, 4)), ("log1p", pos(3, 4)),
+                 ("expm1", f32(3, 4)), ("log2", pos(3, 4)),
+                 ("log10", pos(3, 4)), ("sign", f32(3, 4)),
+                 ("silu", f32(3, 4) * 2), ("mish", f32(3, 4) * 2),
+                 ("log_softmax", f32(3, 5) * 3)]:
+    CASES[_op] = _unary(_xv)
+CASES.update({
+    "selu": _unary(f32(3, 4) * 2),
+    "stanh": _unary(f32(3, 4), scale_a=0.5, scale_b=2.0),
+    "brelu": _unary(f32(3, 4) * 4, t_min=-1.0, t_max=2.0),
+    "hard_shrink": _unary(f32(3, 4), threshold=0.3),
+    "softshrink": _unary(f32(3, 4), **{"lambda": 0.3}),
+    "thresholded_relu": _unary(f32(3, 4) * 2, threshold=0.5),
+    "maxout": _unary(f32(2, 6, 3, 3), groups=3, axis=1),
+    "leaky_relu": _unary(f32(3, 4), alpha=0.1),
+    "relu6": _unary(f32(3, 4) * 5),
+    "elu": _unary(f32(3, 4) * 2, alpha=0.7),
+    "hard_sigmoid": _unary(f32(3, 4) * 4),
+    "swish": _unary(f32(3, 4) * 2, beta=1.5),
+    "hard_swish": _unary(f32(3, 4) * 4),
+    "pow": _unary(pos(3, 4), factor=2.5),
+    "elementwise_pow": _binary(pos(2, 3), f32(3)),
+    "elementwise_mod": _binary(i64(50, 3, 4) - 25,
+                               np.full((4,), 7, np.int64)),
+    "elementwise_floordiv": _binary(i64(50, 3, 4) - 25,
+                                    np.array([3, -4, 5, 7], np.int64)),
+    "isfinite": _unary(np.array([[1.0, np.inf], [0.5, 2.0]], np.float32)),
+    "logical_and": _binary(np.array([True, True, False, False]),
+                           np.array([True, False, True, False])),
+    "logical_or": _binary(np.array([True, True, False, False]),
+                          np.array([True, False, True, False])),
+    "logical_xor": _binary(np.array([True, True, False, False]),
+                           np.array([True, False, True, False])),
+    "where": ({"Condition": {"c": f32(3, 4) > 0}, "X": {"x": f32(3, 4)},
+               "Y": {"y": f32(3, 4)}}, {"Out": ["o"]}, {}, ["o"]),
+})
+for _op in ("equal", "less_than", "less_equal", "greater_than",
+            "greater_equal"):
+    CASES[_op] = _binary(i64(4, 3, 4), i64(4, 4))
+
+# the update rules of ops/optimizer_ops.py
+_P, _G = f32(4, 3), f32(4, 3)
+_LR = {"LearningRate": {"lr": np.float32([0.01])}}
+_POWS = {"Beta1Pow": {"b1p": np.float32([0.81])},
+         "Beta2Pow": {"b2p": np.float32([0.998])}}
+_ADAM_OUTS = {"ParamOut": ["po"], "Moment1Out": ["m1o"],
+              "Moment2Out": ["m2o"], "Beta1PowOut": ["b1o"],
+              "Beta2PowOut": ["b2o"]}
+_ADAM_INS = {"Param": {"p": _P}, "Grad": {"g": _G}, **_LR,
+             "Moment1": {"m1": f32(4, 3) * 0.1},
+             "Moment2": {"m2": pos(4, 3) * 0.01}, **_POWS}
+CASES.update({
+    "lars_momentum": ({"Param": {"p": _P}, "Grad": {"g": _G},
+                       "Velocity": {"v": f32(4, 3)}, **_LR},
+                      {"ParamOut": ["po"], "VelocityOut": ["vo"]},
+                      {"mu": 0.9, "lars_coeff": 0.01,
+                       "lars_weight_decay": 0.001}, ["po", "vo"]),
+    "adamw": (_ADAM_INS, _ADAM_OUTS, {"weight_decay": 0.05},
+              ["po", "m1o", "m2o", "b1o", "b2o"]),
+    "lamb": (_ADAM_INS, _ADAM_OUTS, {"weight_decay": 0.05},
+             ["po", "m1o", "m2o", "b1o", "b2o"]),
+    "adagrad": ({"Param": {"p": _P}, "Grad": {"g": _G},
+                 "Moment": {"m": pos(4, 3)}, **_LR},
+                {"ParamOut": ["po"], "MomentOut": ["mo"]}, {},
+                ["po", "mo"]),
+    "decayed_adagrad": ({"Param": {"p": _P}, "Grad": {"g": _G},
+                         "Moment": {"m": pos(4, 3)}, **_LR},
+                        {"ParamOut": ["po"], "MomentOut": ["mo"]},
+                        {"decay": 0.8}, ["po", "mo"]),
+    "adadelta": ({"Param": {"p": _P}, "Grad": {"g": _G},
+                  "AvgSquaredGrad": {"a": pos(4, 3)},
+                  "AvgSquaredUpdate": {"u": pos(4, 3)}},
+                 {"ParamOut": ["po"], "AvgSquaredGradOut": ["ao"],
+                  "AvgSquaredUpdateOut": ["uo"]}, {"rho": 0.9},
+                 ["po", "ao", "uo"]),
+    "adamax": ({"Param": {"p": _P}, "Grad": {"g": _G}, **_LR,
+                "Moment": {"m": f32(4, 3) * 0.1}, "InfNorm": {"n": pos(4, 3)},
+                "Beta1Pow": {"b1p": np.float32([0.81])}},
+               {"ParamOut": ["po"], "MomentOut": ["mo"],
+                "InfNormOut": ["no"]}, {}, ["po", "mo", "no"]),
+    "rmsprop": ({"Param": {"p": _P}, "Grad": {"g": _G},
+                 "MeanSquare": {"ms": pos(4, 3)},
+                 "MeanGrad": {"mg": f32(4, 3) * 0.1},
+                 "Moment": {"mom": f32(4, 3) * 0.1}, **_LR},
+                {"ParamOut": ["po"], "MomentOut": ["mo"],
+                 "MeanSquareOut": ["mso"], "MeanGradOut": ["mgo"]},
+                {"momentum": 0.5, "centered": True},
+                ["po", "mo", "mso", "mgo"]),
+    "ftrl": ({"Param": {"p": _P}, "SquaredAccumulator": {"sq": pos(4, 3)},
+              "LinearAccumulator": {"lin": f32(4, 3)}, "Grad": {"g": _G},
+              **_LR},
+             {"ParamOut": ["po"], "SquaredAccumOut": ["sqo"],
+              "LinearAccumOut": ["lino"]},
+             {"l1": 0.1, "l2": 0.2, "lr_power": -0.5},
+             ["po", "sqo", "lino"]),
+    "average_accumulates": (
+        {"Param": {"p": _P}, "InSum1": {"s1": f32(4, 3)},
+         "InSum2": {"s2": f32(4, 3)}, "InSum3": {"s3": f32(4, 3)},
+         "InNumAccumulates": {"na": np.array([3], np.int64)},
+         "InOldNumAccumulates": {"ona": np.array([2], np.int64)},
+         "InNumUpdates": {"nu": np.array([9], np.int64)}},
+        {"OutSum1": ["s1o"], "OutSum2": ["s2o"], "OutSum3": ["s3o"],
+         "OutNumAccumulates": ["nao"], "OutOldNumAccumulates": ["onao"],
+         "OutNumUpdates": ["nuo"]},
+        {"average_window": 0.5, "min_average_window": 2,
+         "max_average_window": 4},
+        ["s1o", "s2o", "s3o", "nao", "onao", "nuo"]),
+})
+
+
 def _build(program_cls, op_type, case):
     ins, outs, attrs, _ = case
     main = program_cls()
@@ -259,7 +401,7 @@ def test_every_path_op_has_a_case():
     tests/test_torch_mlp.py) and the sub-block ones has a case."""
     from paddle_tpu_torch.core import registry
 
-    assert len(CASES) == 52 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
+    assert len(CASES) == 118 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
     assert set(CASES) | RANDOM_OPS | BLOCK_OPS == set(registry.all_ops())
 
 
