@@ -204,7 +204,32 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    against unfused, no K5 launch); fused logits within ``AMP_INFER_TOL``
    of unfused. Reports forward ms (median of 5), peak memory and idle
    share of each run.
-16. prints the script time of each phase and part (``[seconds]``), the
+16. tune — program verification and the autotuner (K5 compiled at the
+   four tilings of ``kernels.fused_gemm.COMPILED_BLOCKS``). (a) K5 at
+   every triple against its plain version at ``TUNE_GEMM_ROWS`` (the
+   BERT-base bf16 inference GEMMs, ResNet-50's fc head, BERT's FFN1 in
+   f32), ``FLAGS_use_fused_gemm=always``: kernel, device, plain and
+   ``addmm`` times beside the bound. (b) The autotune round trip in two
+   fresh ``python3 -c`` processes sharing one cost database in a
+   temporary directory, on BERT-base bf16 fused inference (batch 32, seq
+   512) and ResNet-50 bf16 fused inference (batch 128): under
+   ``FLAGS_autotune=measure`` every default candidate (chained
+   differencing at 2 and 6 forwards, the least of 3 dispatches) is
+   recorded and launches K5 at its own triple only, and the compiled
+   default is timed once more, recorded nowhere, for the host spread;
+   under ``use`` one
+   forward runs straight at the recorded best (``autotune_hits_total``
+   >= 1, K5 at the best triple only, zero new trials) and its loss is
+   within ``AMP_LOSS_RTOL[0]`` of an untuned forward. (c)
+   ``FLAGS_check_program=2`` at full width: GPT-2 small's generative
+   programs, BERT-base pretraining (amp) and its auto-remat rebuild at
+   batch 64, BERT-base and ResNet-50 bf16 fused inference (the fusion
+   witnessed on the card) and ResNet-50 training, the transforms inside
+   the strict bracket: diagnostics by severity and host ms, zero errors.
+   (d) One BERT-base bf16 fused forward under ``FLAGS_numerics_witness``:
+   no observed value outside its ``static_intervals`` bound, for the
+   submitted and the fused program; K5 74 and K1 12 launches.
+17. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -655,9 +680,12 @@ GEMM_ROWS = (
     (128, 1000, 2048, "bias", torch.bfloat16, torch.float32))
 
 
-def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype):
-    """K5 against its plain version at one shape; times kernel, plain
-    version and ``torch.addmm(bias, x, y)``."""
+def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype,
+               blocks=K.DEFAULT_BLOCKS, shared=None):
+    """K5 at block triple ``blocks`` against its plain version at one
+    shape; times kernel, plain version and ``torch.addmm(bias, x, y)``.
+    ``shared``: a row of the same shape at another triple, whose plain
+    and library times (which no triple changes) are kept."""
     x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     y = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5) \
         .to(dtype)
@@ -668,28 +696,39 @@ def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype):
     if ln:
         args.update(ln_scale=torch.randn(n, generator=gen, device="cuda"),
                     ln_bias=torch.randn(n, generator=gen, device="cuda"))
+    plain_args = dict(args)
+    args.update(block_m=blocks[0], block_n=blocks[1], block_k=blocks[2])
     n0 = K.fused_gemm.launches
+    by0 = K.fused_gemm.launches_by_blocks.get(tuple(blocks), 0)
     got = K.fused_gemm(x, y, **args)
-    if K.fused_gemm.launches != n0 + 1:
-        raise SystemExit("chip_smoke: fused_gemm did not launch")
-    want = K.fused_gemm_reference(x, y, **args)
+    if K.fused_gemm.launches != n0 + 1 or \
+            K.fused_gemm.launches_by_blocks[tuple(blocks)] != by0 + 1:
+        raise SystemExit(f"chip_smoke: fused_gemm did not launch at "
+                         f"{tuple(blocks)}")
+    want = K.fused_gemm_reference(x, y, **plain_args)
     torch.cuda.synchronize()
     dts, odts = str(dtype)[6:], str(out_dtype)[6:]
     tag = f"K5 [{m},{k}]@[{k},{n}] +{epilogue} {dts}->{odts}"
+    if tuple(blocks) != K.DEFAULT_BLOCKS:
+        tag += f" at {tuple(blocks)}"
     err = compare(tag, got, want, out_dtype)
     ms = time_ms(lambda: K.fused_gemm(x, y, **args))
-    plain = time_ms(lambda: K.fused_gemm_reference(x, y, **args))
-    lib = time_ms(lambda: torch.addmm(bias.to(dtype), x, y))
     dev = device_ms(lambda: K.fused_gemm(x, y, **args))
-    lib_dev = device_ms(lambda: torch.addmm(bias.to(dtype), x, y))
+    if shared is None:
+        plain = time_ms(lambda: K.fused_gemm_reference(x, y, **plain_args))
+        lib = time_ms(lambda: torch.addmm(bias.to(dtype), x, y))
+        lib_dev = device_ms(lambda: torch.addmm(bias.to(dtype), x, y))
+    else:
+        plain, lib, lib_dev = (shared["plain_ms"], shared["library_ms"],
+                               shared["library_device_ms"])
     elt = x.element_size()
     nbytes = ((m * k + k * n) * elt + m * n * got.element_size()
               + n * 4 * (3 if ln else 1))
     b_ms, b_by = bound(2 * m * n * k, nbytes, dtype)
     return dict(shape=[m, n, k], dtype=dts, out_dtype=odts,
-                epilogue=epilogue, max_abs_err=err, ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=b_ms, bound_by=b_by, device_ms=dev,
-                library_device_ms=lib_dev)
+                epilogue=epilogue, blocks=list(blocks), max_abs_err=err,
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, device_ms=dev, library_device_ms=lib_dev)
 
 
 def phase_kernels(seed):
@@ -3558,6 +3597,392 @@ def phase_infer_resnet(seed):
                 launches=fused["launches_total"])
 
 
+# ---------------------------------------------------------------- tune
+# K5 at every compiled triple: the BERT-base bf16 inference GEMMs
+# (GEMM_ROWS' bf16 rows), ResNet-50's fc head and BERT's FFN1 in f32
+TUNE_GEMM_ROWS = tuple(r for r in GEMM_ROWS if r[4] == torch.bfloat16) + (
+    GEMM_ROWS[1],)
+# the autotuner's measurement: chained differencing at 2 and 6 forwards,
+# the least of 3 timed dispatches each
+TUNE_K_SHORT, TUNE_K_LONG, TUNE_REPEATS = 2, 6, 3
+TUNE_CHILD_TIMEOUT_S = 420
+# the programs the round trip tunes: BERT-base bf16 fused inference at
+# the bench shape and ResNet-50 bf16 fused inference at batch 128
+TUNE_PROGRAMS = ("bert", "resnet")
+
+
+def tune_program(name, seed):
+    """(program, startup, feed, fetch names) of one tuned main path: the
+    is_test clone under ``decorate_program`` (bf16), built under a fresh
+    ``unique_name`` guard so two processes build the same content."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models.resnet import build_resnet
+
+    with unique_name.guard():
+        if name == "bert":
+            cfg = BertConfig.base()
+            net = build_bert_pretrain(cfg, seq_len=INFER_SEQ,
+                                      build_optimizer=False)
+            feed = bert_feed(seed + 1, cfg.vocab_size, INFER_BATCH,
+                             INFER_SEQ)
+        else:
+            net = build_resnet(50, build_optimizer=False)
+            feed = image_feed(seed + 5, RESNET_BATCH, 1000)
+    net["startup"].random_seed = seed
+    prog = mixed_precision.decorate_program(net["main"].clone(for_test=True))
+    return prog, net["startup"], feed, [net["loss"].name]
+
+
+def _blocks_diff(before):
+    return {",".join(map(str, b)): n - before.get(b, 0)
+            for b, n in K.fused_gemm.launches_by_blocks.items()
+            if n != before.get(b, 0)}
+
+
+def tune_child(argv):
+    """One fresh process of the autotune round trip (``FLAGS_autotune``
+    and ``FLAGS_autotune_db`` come from its environment). ``measure``:
+    every default candidate on each program, with the K5 launches each
+    candidate made by triple, and the compiled default timed once more
+    (recorded nowhere: the pair gives the host spread). ``use``: one forward straight
+    at the recorded best, the K5 launches by triple, the hit and trial
+    counters, then one untuned forward on the same weights and feed.
+    Prints one ``TUNE_CHILD`` JSON line."""
+    from paddle_tpu_torch import tuning
+
+    mode, seed = argv[0], int(argv[1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    fluid.set_flags({"FLAGS_epilogue_fusion": True})
+    db = tuning.get_database()
+    out = {"mode": mode, "programs": {}}
+    for name in TUNE_PROGRAMS:
+        t0 = time.perf_counter()
+        prog, startup, feed, fetch = tune_program(name, seed)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        out["backend"] = tuning.backend_name(exe.device)
+        exe.run(startup, scope=scope)
+        rows = feed[next(iter(feed))].shape[0]
+        rec = {"fp": tuning.program_content_fingerprint(prog),
+               "bucket": tuning.shape_bucket(rows),
+               "trials_before": db.trial_count()}
+        if mode == "measure":
+            trials = []
+            for cand in tuning.default_candidates(include_gemm_blocks=True):
+                by0 = dict(K.fused_gemm.launches_by_blocks)
+                rep = tuning.measure_candidates(
+                    exe, prog, feed, fetch, scope, candidates=[cand],
+                    k_short=TUNE_K_SHORT, k_long=TUNE_K_LONG,
+                    repeats=TUNE_REPEATS)
+                (t,) = rep["trials"]
+                trials.append(dict(t, launches_by_blocks=_blocks_diff(by0)))
+            rec["trials"] = trials
+            # the default once more, timed the same way but recorded
+            # nowhere: its two times give the measurement's host spread
+            by0 = dict(K.fused_gemm.launches_by_blocks)
+            with tuning.trial_guard():
+                again = tuning.chained_step_seconds(
+                    exe, prog, feed, fetch, scope, k_short=TUNE_K_SHORT,
+                    k_long=TUNE_K_LONG, repeats=TUNE_REPEATS)
+            rec["default_again"] = dict(per_step_s=again,
+                                        launches_by_blocks=_blocks_diff(by0))
+            best = db.best(rec["fp"], rec["bucket"], out["backend"])
+            rec["best"] = best["candidate"] if best else None
+        else:
+            K.reset_launch_counts()
+            by0 = dict(K.fused_gemm.launches_by_blocks)
+            hits0 = monitor.metric_value("autotune_hits_total") or 0
+            tuned = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+            rec["launches_by_blocks"] = _blocks_diff(by0)
+            rec["launches"] = K.launch_counts()
+            rec["hits"] = (monitor.metric_value("autotune_hits_total")
+                           or 0) - hits0
+            rec["trials_counted"] = \
+                monitor.metric_value("autotune_trials_total") or 0
+            fluid.set_flags({"FLAGS_autotune": "off"})
+            untuned = exe.run(prog, feed=feed, fetch_list=fetch,
+                              scope=scope)
+            fluid.set_flags({"FLAGS_autotune": "use"})
+            rec["loss_tuned"] = float(np.ravel(tuned[0])[0])
+            rec["loss_untuned"] = float(np.ravel(untuned[0])[0])
+        rec["trials_after"] = db.trial_count()
+        rec["seconds"] = time.perf_counter() - t0
+        out["programs"][name] = rec
+        del exe, scope
+        torch.cuda.empty_cache()
+    print("TUNE_CHILD " + json.dumps(out), flush=True)
+    return 0
+
+
+def _spawn_tune_child(mode, db_path, seed):
+    """``python3 -c`` running ``tune_child`` in a fresh process from this
+    script's directory (imports this script and the port, nothing of
+    JAX)."""
+    env = dict(os.environ, FLAGS_autotune=mode, FLAGS_autotune_db=db_path)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-c",
+           "import sys, chip_smoke; "
+           "sys.exit(chip_smoke.tune_child(sys.argv[1:]))", mode, str(seed)]
+    proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=TUNE_CHILD_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        if line.startswith("TUNE_CHILD "):
+            if proc.returncode != 0:
+                break
+            return json.loads(line[len("TUNE_CHILD "):])
+    raise SystemExit(f"chip_smoke: the autotune {mode} process failed "
+                     f"(rc={proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                     f"{proc.stderr[-3000:]}")
+
+
+def tune_gemm_rows(seed):
+    """K5 at every compiled triple against its plain version at the tuned
+    paths' shapes; the plain and ``addmm`` times once a shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    rows = []
+    for row in TUNE_GEMM_ROWS:
+        first = None
+        for blocks in K.COMPILED_BLOCKS:
+            r = check_gemm(gen, *row, blocks=blocks, shared=first)
+            first = first or r
+            rows.append(r)
+            log(f"  K5 {r['shape']} {r['dtype']} +{r['epilogue']} -> "
+                f"{r['out_dtype']} at {tuple(blocks)}: kernel "
+                f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}) | plain "
+                f"{r['plain_ms']:.4f} ms | addmm {r['library_ms']:.4f} ms "
+                f"(device {r['library_device_ms']:.4f}) | bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def tune_roundtrip(seed):
+    """The reference's autotune flow in two fresh processes sharing one
+    cost database (in a temporary directory, removed after)."""
+    from paddle_tpu_torch.kernels.fused_gemm import DEFAULT_BLOCKS
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as d:
+        db_path = os.path.join(d, "autotune_db.json")
+        with timed("tune.measure"):
+            measured = _spawn_tune_child("measure", db_path, seed)
+        with timed("tune.use"):
+            used = _spawn_tune_child("use", db_path, seed)
+    n_cands = len(K.COMPILED_BLOCKS)
+    for name in TUNE_PROGRAMS:
+        m, u = measured["programs"][name], used["programs"][name]
+        log(f"[tune] {name}: program {m['fp']} bucket {m['bucket']} on "
+            f"{measured['backend']} ({m['seconds']:.1f} s measuring)")
+        for t in m["trials"]:
+            ms = t.get("per_step_s", float("nan")) * 1e3
+            log(f"  candidate {t['candidate']['gemm_blocks']}: "
+                f"{t['status']}, {ms:.3f} ms a step, K5 by triple "
+                f"{t['launches_by_blocks']}")
+        base = [t["per_step_s"] for t in m["trials"]
+                if t["status"] == "ok" and t["candidate"]["gemm_blocks"]
+                is None] + [m["default_again"]["per_step_s"]]
+        best = tuple(m["best"]["gemm_blocks"] or DEFAULT_BLOCKS) \
+            if m["best"] else None
+        want = ",".join(map(str, best)) if best else None
+        log(f"  best {m['best']}; the default measured first and, not "
+            f"recorded, last: {[round(b * 1e3, 3) for b in base]} ms "
+            f"(spread {(max(base) - min(base)) * 1e3:.3f} ms; K5 by "
+            f"triple {m['default_again']['launches_by_blocks']})")
+        log(f"  use: K5 by triple {u['launches_by_blocks']}, "
+            f"autotune_hits_total {u['hits']}, trials "
+            f"{u['trials_before']} -> {u['trials_after']}; loss tuned "
+            f"{u['loss_tuned']:.6f} untuned {u['loss_untuned']:.6f}")
+        ok = [t for t in m["trials"] if t["status"] == "ok"]
+        if len(ok) != n_cands:
+            raise SystemExit(f"chip_smoke: {name}: a candidate failed: "
+                             f"{m['trials']}")
+        for t in ok + [dict(m["default_again"], candidate={
+                "gemm_blocks": None})]:
+            own = ",".join(map(str, t["candidate"]["gemm_blocks"]
+                               or DEFAULT_BLOCKS))
+            got = t["launches_by_blocks"]
+            if list(got) != [own] or got[own] < 1:
+                raise SystemExit(f"chip_smoke: {name}: candidate {own} "
+                                 f"launched K5 at {got}")
+        if m["trials_after"] - m["trials_before"] != n_cands:
+            raise SystemExit(f"chip_smoke: {name}: {n_cands} candidates "
+                             f"recorded {m['trials_after']} - "
+                             f"{m['trials_before']} trials")
+        if u["hits"] < 1 or u["trials_counted"] or \
+                u["trials_after"] != u["trials_before"] or \
+                u["trials_before"] != measured["programs"][
+                    TUNE_PROGRAMS[-1]]["trials_after"]:
+            raise SystemExit(f"chip_smoke: {name}: the use process "
+                             f"missed the database or ran trials: {u}")
+        if list(u["launches_by_blocks"]) != [want]:
+            raise SystemExit(f"chip_smoke: {name}: the use process ran K5 "
+                             f"at {u['launches_by_blocks']}, the recorded "
+                             f"best is {want}")
+        rel = abs(u["loss_tuned"] - u["loss_untuned"]) / \
+            max(abs(u["loss_untuned"]), 1e-30)
+        if not np.isfinite(u["loss_tuned"]) or rel > AMP_LOSS_RTOL[0]:
+            raise SystemExit(f"chip_smoke: {name}: tuned loss "
+                             f"{u['loss_tuned']} against untuned "
+                             f"{u['loss_untuned']} (rel {rel:.3e} > "
+                             f"{AMP_LOSS_RTOL[0]})")
+    return dict(measure=measured, use=used)
+
+
+def _severity_counts(diags):
+    out = collections.Counter(d.severity for d in diags)
+    return {s: out.get(s, 0) for s in ("error", "warning", "info")}
+
+
+def tune_verify(seed):
+    """``FLAGS_check_program=2`` over the main paths' programs at full
+    width, the fusion and remat transforms inside the strict bracket:
+    each program's diagnostics by severity and the verifier's host ms;
+    zero errors is the gate."""
+    from paddle_tpu_torch.analysis import VERIFY_PASSES, verify_program
+    from paddle_tpu_torch.analysis.pass_manager import \
+        run_transform_pipeline
+    from paddle_tpu_torch.models.resnet import build_resnet
+
+    def verify(tag, prog, fetch):
+        t0 = time.perf_counter()
+        diags = verify_program(prog, fetch_names=fetch,
+                               passes=VERIFY_PASSES)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _severity_counts(diags)
+        n_ops = sum(len(b.ops) for b in prog.blocks)
+        log(f"  {tag}: {n_ops} ops, {counts}, {ms:.1f} host ms")
+        results[tag] = dict(ops=n_ops, counts=counts, host_ms=ms,
+                            codes=dict(collections.Counter(
+                                d.code for d in diags)))
+        if counts["error"]:
+            raise SystemExit(f"chip_smoke: {tag} has verifier errors:\n"
+                             + "\n".join(str(d) for d in diags
+                                         if d.severity == "error"))
+
+    def transform(tag, prog, passes, feed, fetch, batch, **options):
+        t0 = time.perf_counter()
+        res = run_transform_pipeline(prog, passes,
+                                     feed_names=sorted(feed),
+                                     fetch_names=fetch, batch_size=batch,
+                                     options=options)
+        dec = res.values[passes[0]]
+        log(f"  {tag}: {passes[0]} through the strict bracket in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} host ms: "
+            f"{dec.reason}")
+        if not dec.applied:
+            raise SystemExit(f"chip_smoke: {tag}: {passes[0]} refused: "
+                             f"{dec.reason}")
+        return res.program
+
+    results = {}
+    fluid.set_flags({"FLAGS_check_program": 2})
+    try:
+        gpt = build_gpt_generative(GptConfig.base(), batch_slots=8,
+                                   max_seq=1024, prompt_buckets=(128, 512))
+        for k in ("decode", "chunk", "verify"):
+            verify(f"gpt2_small.{k}", gpt[k]["main"], [])
+        for b, pre in gpt["prefill"].items():
+            verify(f"gpt2_small.prefill{b}", pre["main"], [])
+        del gpt
+        cfg = BertConfig.base()
+        net = build_bert_pretrain(cfg, seq_len=AMP_SEQ, amp=True)
+        fetch = [net["loss"].name]
+        feed = bert_feed(seed, cfg.vocab_size, AMP_BATCH, AMP_SEQ)
+        verify("bert_base.train_amp", net["main"], fetch)
+        remat = transform("bert_base.train_amp.remat64", net["main"],
+                          ("auto_remat",), feed, fetch, REMAT_BIG_BATCH,
+                          budget_mb=0)
+        verify("bert_base.train_amp.remat64", remat, fetch)
+        # the fusion witness runs on the card, as the executor's does
+        device = fluid.Executor().device
+        prog, _, feed, fetch = tune_program("bert", seed)
+        fused = transform("bert_base.infer_bf16", prog,
+                          ("epilogue_fusion",), feed, fetch, INFER_BATCH,
+                          device=device, gemm_blocks=None)
+        verify("bert_base.infer_bf16.fused", fused, fetch)
+        rn = build_resnet(50, amp=True)
+        verify("resnet50.train_amp", rn["main"], [rn["loss"].name])
+        prog, _, feed, fetch = tune_program("resnet", seed)
+        fused = transform("resnet50.infer_bf16", prog, ("epilogue_fusion",),
+                          feed, fetch, RESNET_BATCH, device=device,
+                          gemm_blocks=None)
+        verify("resnet50.infer_bf16.fused", fused, fetch)
+    finally:
+        fluid.set_flags({"FLAGS_check_program": 0})
+    return results
+
+
+def tune_containment(seed):
+    """One BERT-base bf16 fused forward with ``FLAGS_numerics_witness=1``:
+    every value the witness observed lies inside its static interval,
+    tolerance-free, for the submitted program and for the fused one that
+    ran. The launches of this forward are the phase's main-path
+    launches."""
+    from paddle_tpu_torch.analysis.numerics import static_intervals
+    from paddle_tpu_torch.monitor import numwitness
+
+    prog, startup, feed, fetch = tune_program("bert", seed)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.set_flags({"FLAGS_epilogue_fusion": True,
+                     "FLAGS_numerics_witness": True})
+    numwitness.reset_numerics_witness()
+    try:
+        exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)  # warm-up
+        numwitness.reset_numerics_witness()
+        K.reset_launch_counts()
+        (loss,) = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+        launches = K.launch_counts()
+    finally:
+        fluid.set_flags({"FLAGS_epilogue_fusion": False,
+                         "FLAGS_numerics_witness": False})
+    observed = numwitness.numerics_witness_vars()
+    (dec,) = exe._fusion_decisions.values()
+    out = {}
+    for tag, p in (("submitted", prog), ("fused", dec.program)):
+        static = static_intervals(p, fetch_names=fetch)
+        checked = sorted(set(static) & set(observed))
+        bad = numwitness.containment_violations(static, observed)
+        out[tag] = dict(bounded=len(static), checked=len(checked),
+                        violations=bad)
+        log(f"  containment ({tag} program): {len(static)} bounded vars, "
+            f"{len(checked)} witnessed, {len(bad)} escape(s)")
+        if bad:
+            raise SystemExit(f"chip_smoke: numerics containment escape "
+                             f"(an analysis soundness bug): {bad[:5]}")
+    if not out["submitted"]["checked"]:
+        raise SystemExit("chip_smoke: the witness observed none of the "
+                         "statically bounded vars")
+    for name in K.KERNEL_SOURCES:
+        if launches[name] != INFER_LAUNCHES.get(name, 0):
+            raise SystemExit(f"chip_smoke: {name} launched "
+                             f"{launches[name]} times in the witnessed "
+                             f"forward, expected "
+                             f"{INFER_LAUNCHES.get(name, 0)}")
+    return dict(out, loss=float(np.ravel(loss)[0]), witnessed=len(observed),
+                launches=launches)
+
+
+def phase_tune(seed):
+    """K5 at every compiled triple, the autotune round trip on BERT-base
+    and ResNet-50 bf16 fused inference, the verifier at full width and
+    the numerics containment check."""
+    fluid.set_flags({"FLAGS_use_fused_gemm": "always"})
+    try:
+        with timed("tune.gemm_rows"):
+            rows = tune_gemm_rows(seed)
+    finally:
+        fluid.set_flags({"FLAGS_use_fused_gemm": "auto"})
+    roundtrip = tune_roundtrip(seed)
+    with timed("tune.verify"):
+        verified = tune_verify(seed)
+    torch.cuda.empty_cache()
+    with timed("tune.containment"):
+        contained = tune_containment(seed)
+    return dict(gemm_rows=rows, roundtrip=roundtrip, verify=verified,
+                containment=contained, launches=contained["launches"])
+
+
 # ---------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3606,13 +4031,17 @@ def main():
     torch.cuda.empty_cache()
     with timed("infer_resnet"):
         inferred_resnet = phase_infer_resnet(args.seed)
+    torch.cuda.empty_cache()
+    with timed("tune"):
+        tuned = phase_tune(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
     # under auto-remat, under the safety net and with LAMB, AdamW and
     # gradient merge (K1, K3, K4), inference in
-    # f32 and bf16 (K1, K5) and ResNet-50 bf16 training (none) and
-    # inference (K5), each counted from 0 over its own run
+    # f32 and bf16 (K1, K5), ResNet-50 bf16 training (none) and
+    # inference (K5), and the tune phase's witnessed BERT-base bf16
+    # forward (K1, K5), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -3623,7 +4052,8 @@ def main():
                 "train_lamb": lambed["launches"],
                 "infer": inferred["launches"],
                 "train_resnet": trained_resnet["launches"],
-                "infer_resnet": inferred_resnet["launches"]}
+                "infer_resnet": inferred_resnet["launches"],
+                "tune": tuned["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -3641,7 +4071,8 @@ def main():
               "train": trained, "train_amp": trained_amp,
               "train_remat": trained_remat,
               "infer": inferred, "train_resnet": trained_resnet,
-              "infer_resnet": inferred_resnet, "launches": launches}
+              "infer_resnet": inferred_resnet, "tune": tuned,
+              "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

@@ -20,14 +20,21 @@
 // asks); bf16 runs on the tensor cores (989 TFLOP/s dense).
 //
 // What the design does about it.  Both routes share one block tile,
-// 128 x 256 outputs (the DEFAULT_BLOCKS of kernels/fused_gemm.py; k in
-// 32-deep tiles on the f32 route, 64-deep on the bf16 route), 256 threads,
-// and one mainloop shape: a ring of k-tiles in dynamic shared memory fed by
-// cp.async, so the next tiles arrive while the current one is multiplied,
-// with one __syncthreads a k-tile.
+// 256 threads, and one mainloop shape: a ring of k-tiles in dynamic shared
+// memory fed by cp.async, so the next tiles arrive while the current one is
+// multiplied, with one __syncthreads a k-tile.  The tile is one of four
+// compiled tilings (kernels/fused_gemm.py COMPILED_BLOCKS, the autotuner's
+// candidates): 128 x 256 outputs (DEFAULT_BLOCKS), 128 x 128, 64 x 128 and
+// 64 x 64, k in 32-deep tiles on the f32 route and 64-deep on the bf16
+// route.  The larger tiles reuse each loaded element more; the smaller ones
+// give a small GEMM more blocks on the 132 SMs (ResNet-50's fc head,
+// [128, 2048] @ [2048, 1000], is 4 blocks of 128 x 256 and 32 of 64 x 64).
+// Each tiling is the same templates instantiated with other constants
+// (struct Tiling below).
 //
-// * f32 route: a SIMT register-tiled GEMM, 8 x 16 accumulators a thread
-//   (128 FMAs for every 6 16-byte shared loads), 3 stages.  x reaches the
+// * f32 route: a SIMT register-tiled GEMM, TM x TN accumulators a thread
+//   (8 x 16 at the default tile: 128 FMAs for every 6 16-byte shared
+//   loads), 3 stages.  x reaches the
 //   k-major layout the FMA loop reads as float4s by 4-byte cp.async copies
 //   that transpose it on the way (k-rows padded so the stores do not
 //   collide); y's [k][n] tile is copied as it lies, 16 bytes at a time,
@@ -37,7 +44,8 @@
 //   round the same way where cuBLAS does not split k (the fusion witness
 //   relies on that at m = 16384, K = 3072).
 // * bf16 route: mma.sync.m16n8k16 bf16 x bf16 -> f32 on the tensor cores;
-//   8 warps of 64 x 64 (4 x 8 mma tiles, 128 f32 accumulators a thread),
+//   8 warps of MT x NT mma tiles (at the default tile 64 x 64: 4 x 8 mma
+//   tiles, 128 f32 accumulators a thread),
 //   k in 64-deep tiles (half the barriers of 32), 3 stages, x and y copied
 //   16 bytes at a time (8 where N or K is not a multiple of 8); x via
 //   ldmatrix, y via ldmatrix.trans from its [k][n] rows
@@ -56,7 +64,8 @@
 // so every copied chunk (16 bytes of f32, 8 of bf16) lies wholly inside or
 // wholly outside a row.
 //
-// The layer_norm variants need whole rows: a block owns 32 rows, walks N in
+// The layer_norm variants need whole rows, and keep their own tiles under
+// every tiling: a block owns 32 rows, walks N in
 // column tiles with the same mainloops (f32: 32 x 256 tiles, 4 x 8
 // accumulators a thread, 8-deep k-tiles in 4 stages; bf16: 32 x 128 tiles,
 // 8 warps of 16 x 32, 3 stages), parks each tile's f32 accumulators in
@@ -73,11 +82,7 @@ namespace {
 constexpr int ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_GELU_TANH = 3;
 constexpr int THREADS = 256;
 
-// the compiled block tile of both routes (kernels/fused_gemm.py
-// DEFAULT_BLOCKS)
-constexpr int BM = 128, BN = 256, BK = 32;
-constexpr int F32_TM = 8, F32_TN = 16, F32_STAGES = 3;
-constexpr int BF_BK = 64, BF_MT = 4, BF_NT = 8, BF_STAGES = 3;
+constexpr int F32_STAGES = 3, BF_STAGES = 3;
 // the layer_norm variants: LN_BM whole rows a block
 constexpr int LN_BM = 32;
 constexpr int LN_F32_BN = 256, LN_F32_BK = 8, LN_F32_TM = 4, LN_F32_TN = 8,
@@ -253,7 +258,6 @@ struct F32Tile {
   }
 };
 
-using F32Main = F32Tile<BM, BN, BK, F32_TM, F32_TN, F32_STAGES>;
 using F32Ln = F32Tile<LN_BM, LN_F32_BN, LN_F32_BK, LN_F32_TM, LN_F32_TN,
                       LN_F32_STAGES>;
 
@@ -272,6 +276,9 @@ struct BfTile {
   static_assert((TBM / (16 * MT)) * WN == THREADS / 32, "8 warps");
   static_assert(NT % 2 == 0, "B fragments come in pairs");
   static_assert(TBK % 16 == 0, "k16 mma steps");
+  static_assert(TBM * TBK % (4 * THREADS) == 0 &&
+                    TBK * TBN % (4 * THREADS) == 0,
+                "whole copy rounds of 4-element chunks");
 
   // chunks of 8 bf16 (16-byte copies) when N and K are multiples of 8,
   // else of 4 (8 bytes): the contract asks only multiples of 4
@@ -378,13 +385,35 @@ struct BfTile {
   }
 };
 
-using BfMain = BfTile<BM, BN, BF_BK, BF_MT, BF_NT, BF_STAGES>;
 using BfLn = BfTile<LN_BM, LN_BF_BN, LN_BF_BK, LN_BF_MT, LN_BF_NT,
                     LN_BF_STAGES>;
 
 // bytes of the larger layer_norm ring, ahead of the parked rows
 constexpr int LN_RING = F32Ln::SMEM > BfLn::SMEM ? F32Ln::SMEM : BfLn::SMEM;
 static_assert(LN_RING == 37376, "kernels/fused_gemm.py _LN_RING_SMEM");
+
+// One compiled tiling of the main (non-layer_norm) kernels: BM x BN
+// outputs a block, BK-deep f32 k-tiles (2*BK on the bf16 route), TM x TN
+// f32 accumulators a thread, MT x NT bf16 mma tiles a warp.
+template <int BM_, int BN_, int BK_, int TM_, int TN_, int MT_, int NT_>
+struct Tiling {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_;
+  static constexpr int TM = TM_, TN = TN_, MT = MT_, NT = NT_;
+  using F32 = F32Tile<BM, BN, BK, TM, TN, F32_STAGES>;
+  using Bf = BfTile<BM, BN, 2 * BK, MT, NT, BF_STAGES>;
+  static constexpr int LDT = BN + 4;              // staged tile row stride
+  static constexpr int TILE_SMEM = BM * LDT * 4;  // bytes
+  static constexpr int F32_SMEM =
+      F32::SMEM > TILE_SMEM ? F32::SMEM : TILE_SMEM;
+  static constexpr int BF_SMEM = Bf::SMEM > TILE_SMEM ? Bf::SMEM : TILE_SMEM;
+  static_assert(F32_SMEM <= MAX_SMEM && BF_SMEM <= MAX_SMEM, "fits");
+};
+
+// kernels/fused_gemm.py COMPILED_BLOCKS, in that order
+using T128x256 = Tiling<128, 256, 32, 8, 16, 4, 8>;   // DEFAULT_BLOCKS
+using T128x128 = Tiling<128, 128, 32, 8, 8, 4, 4>;
+using T64x128 = Tiling<64, 128, 32, 4, 8, 2, 4>;
+using T64x64 = Tiling<64, 64, 32, 4, 4, 2, 2>;
 
 // ------------------------------------------------------------ epilogue
 // The main kernels stage their f32 accumulators in shared memory (the ring
@@ -396,22 +425,21 @@ static_assert(LN_RING == 37376, "kernels/fused_gemm.py _LN_RING_SMEM");
 // block an SM nothing hides the epilogue, so its per-pass work shows in
 // the kernel's time: each thread reads its columns' bias once, and the
 // loop is specialised on the activation and output type.
-constexpr int LDT = BN + 4;                   // staged tile row stride
-constexpr int TILE_SMEM = BM * LDT * 4;       // bytes
-
-// rows rl0, rl0 + 4, ... of a thread's four columns c .. c+3 (bias b):
-// specialised on the activation and the output type, so the loop body
-// branches on nothing but the row bound and a residual
-template <int ACT, bool BF16_OUT>
+// rows rl0, rl0 + THREADS*4/BN, ... of a thread's four columns c .. c+3
+// (bias b): specialised on the activation and the output type, so the
+// loop body branches on nothing but the row bound and a residual
+template <typename T, int ACT, bool BF16_OUT>
 __device__ __forceinline__ void store_cols(const float* tile,
                                            const Epilogue& ep, int M, int N,
                                            int m0, int cl, int c,
                                            const float b[4]) {
 #pragma unroll 4
-  for (int rl = threadIdx.x * 4 / BN; rl < BM; rl += THREADS * 4 / BN) {
+  for (int rl = threadIdx.x * 4 / T::BN; rl < T::BM;
+       rl += THREADS * 4 / T::BN) {
     const int r = m0 + rl;
     if (r >= M) break;
-    const float4 t = *reinterpret_cast<const float4*>(tile + rl * LDT + cl);
+    const float4 t =
+        *reinterpret_cast<const float4*>(tile + rl * T::LDT + cl);
     float v[4] = {t.x, t.y, t.z, t.w};
     const long long i = (long long)r * N + c;
 #pragma unroll
@@ -428,34 +456,39 @@ __device__ __forceinline__ void store_cols(const float* tile,
   }
 }
 
-template <int ACT>
+template <typename T, int ACT>
 __device__ __forceinline__ void store_cols(const float* tile,
                                            const Epilogue& ep, int M, int N,
                                            int m0, int cl, int c,
                                            const float b[4]) {
-  if (ep.out_bf16) store_cols<ACT, true>(tile, ep, M, N, m0, cl, c, b);
-  else store_cols<ACT, false>(tile, ep, M, N, m0, cl, c, b);
+  if (ep.out_bf16) store_cols<T, ACT, true>(tile, ep, M, N, m0, cl, c, b);
+  else store_cols<T, ACT, false>(tile, ep, M, N, m0, cl, c, b);
 }
 
 // The staged tile through the epilogue to out.  A thread keeps its four
 // columns for the whole tile (THREADS * 4 is a multiple of BN), so it
 // reads their bias once.
+template <typename T>
 __device__ __forceinline__ void store_tile(const float* tile,
                                            const Epilogue& ep, int M, int N,
                                            int m0, int n0) {
-  static_assert(THREADS * 4 % BN == 0, "a thread's columns stay put");
-  const int cl = threadIdx.x * 4 % BN, c = n0 + cl;
+  static_assert(THREADS * 4 % T::BN == 0, "a thread's columns stay put");
+  const int cl = threadIdx.x * 4 % T::BN, c = n0 + cl;
   if (c >= N) return;                          // N % 4 == 0: four or none
   float b[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) b[j] = bias_at(ep, c + j, N);
   switch (ep.act) {
-    case ACT_RELU: store_cols<ACT_RELU>(tile, ep, M, N, m0, cl, c, b); break;
-    case ACT_GELU: store_cols<ACT_GELU>(tile, ep, M, N, m0, cl, c, b); break;
-    case ACT_GELU_TANH:
-      store_cols<ACT_GELU_TANH>(tile, ep, M, N, m0, cl, c, b);
+    case ACT_RELU:
+      store_cols<T, ACT_RELU>(tile, ep, M, N, m0, cl, c, b);
       break;
-    default: store_cols<ACT_NONE>(tile, ep, M, N, m0, cl, c, b);
+    case ACT_GELU:
+      store_cols<T, ACT_GELU>(tile, ep, M, N, m0, cl, c, b);
+      break;
+    case ACT_GELU_TANH:
+      store_cols<T, ACT_GELU_TANH>(tile, ep, M, N, m0, cl, c, b);
+      break;
+    default: store_cols<T, ACT_NONE>(tile, ep, M, N, m0, cl, c, b);
   }
 }
 
@@ -500,46 +533,50 @@ __device__ __forceinline__ void layer_norm_rows(float* rows,
 }
 
 // ------------------------------------------------------------ kernels
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 Epilogue ep, int M, int N, int K) {
+  using F = typename T::F32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[F32_TM][F32_TN];
-  F32Main::mainloop(x, y, M, N, K, m0, n0, smem, acc);
-  const int tx = threadIdx.x % F32Main::TX, ty = threadIdx.x / F32Main::TX;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  float acc[T::TM][T::TN];
+  F::mainloop(x, y, M, N, K, m0, n0, smem, acc);
+  const int tx = threadIdx.x % F::TX, ty = threadIdx.x / F::TX;
 #pragma unroll
-  for (int i = 0; i < F32_TM; ++i)
+  for (int i = 0; i < T::TM; ++i)
 #pragma unroll
-    for (int g = 0; g < F32_TN / 4; ++g)
-      store4(smem + F32Main::row(i, ty) * LDT + F32Main::col(4 * g, tx),
+    for (int g = 0; g < T::TN / 4; ++g)
+      store4(smem + F::row(i, ty) * T::LDT + F::col(4 * g, tx),
              &acc[i][4 * g]);
   __syncthreads();
-  store_tile(smem, ep, M, N, m0, n0);
+  store_tile<T>(smem, ep, M, N, m0, n0);
 }
 
-template <bool WIDE>
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ y, Epilogue ep, int M,
                  int N, int K) {
+  using B = typename T::Bf;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[BF_MT][BF_NT][4];
-  BfMain::mainloop<WIDE>(x, y, M, N, K, m0, n0,
-                         reinterpret_cast<__nv_bfloat16*>(smem_raw), acc);
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  float acc[T::MT][T::NT][4];
+  B::template mainloop<WIDE>(x, y, M, N, K, m0, n0,
+                             reinterpret_cast<__nv_bfloat16*>(smem_raw),
+                             acc);
   float* tile = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
-  for (int mt = 0; mt < BF_MT; ++mt)
+  for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int nt = 0; nt < BF_NT; ++nt)
-        store2(tile + BfMain::row(mt, h) * LDT + BfMain::col(nt),
+      for (int nt = 0; nt < T::NT; ++nt)
+        store2(tile + B::row(mt, h) * T::LDT + B::col(nt),
                acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
   __syncthreads();
-  store_tile(tile, ep, M, N, m0, n0);
+  store_tile<T>(tile, ep, M, N, m0, n0);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -606,34 +643,53 @@ int run(void (*kernel)(const Tin*, const Tin*, Epilogue, int, int, int),
   return (int)cudaGetLastError();
 }
 
+// the main kernel of tiling T, its route picked by the input type and,
+// on the bf16 route, by whether N and K allow 16-byte copies
+template <typename T>
+int run_main(const void* x, const void* y, const Epilogue& ep, int M, int N,
+             int K, int in_bf16, cudaStream_t s) {
+  if ((M + T::BM - 1) / T::BM > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  if (in_bf16)
+    return run(N % 8 || K % 8 ? gemm_bf16_kernel<T, false>
+                              : gemm_bf16_kernel<T, true>,
+               grid, T::BF_SMEM, x, y, ep, M, N, K, s);
+  return run(gemm_f32_kernel<T>, grid, T::F32_SMEM, x, y, ep, M, N, K, s);
+}
+
 }  // namespace
 
+// (block_m, block_n, block_k) names the tiling, one of
+// kernels/fused_gemm.py COMPILED_BLOCKS; another triple returns
+// cudaErrorInvalidValue.  The layer_norm variants keep their own 32-row
+// tiles under every triple.
 extern "C" int fused_gemm(const void* x, const void* y, const void* bias,
                           const void* residual, const void* ln_scale,
                           const void* ln_bias, void* out, int M, int N, int K,
                           int activation, int layer_norm, float ln_eps,
-                          int in_bf16, int out_bf16, void* stream) {
+                          int in_bf16, int out_bf16, int block_m, int block_n,
+                          int block_k, void* stream) {
   if (M < 1 || N < 1 || K < 1 || N % 4 || K % 4 || activation < ACT_NONE ||
-      activation > ACT_GELU_TANH || (M + BM - 1) / BM > 65535)
+      activation > ACT_GELU_TANH || block_k != 32)
     return (int)cudaErrorInvalidValue;
   Epilogue ep{(const float*)bias, (const float*)residual,
               (const float*)ln_scale, (const float*)ln_bias, out, activation,
               out_bf16, ln_eps};
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 ln_grid((M + LN_BM - 1) / LN_BM);
-  const int ln_smem = LN_RING + (int)(sizeof(float) * LN_BM * (size_t)N);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (in_bf16) {
-    if (layer_norm)
+  if (layer_norm) {
+    const dim3 ln_grid((M + LN_BM - 1) / LN_BM);
+    const int ln_smem = LN_RING + (int)(sizeof(float) * LN_BM * (size_t)N);
+    if (in_bf16)
       return run(gemm_ln_bf16_kernel, ln_grid, ln_smem, x, y, ep, M, N, K, s);
-    return run(N % 8 || K % 8 ? gemm_bf16_kernel<false>
-                              : gemm_bf16_kernel<true>,
-               grid, BfMain::SMEM > TILE_SMEM ? BfMain::SMEM : TILE_SMEM, x,
-               y, ep, M, N, K, s);
-  }
-  if (layer_norm)
     return run(gemm_ln_f32_kernel, ln_grid, ln_smem, x, y, ep, M, N, K, s);
-  return run(gemm_f32_kernel, grid,
-             F32Main::SMEM > TILE_SMEM ? F32Main::SMEM : TILE_SMEM, x, y, ep,
-             M, N, K, s);
+  }
+  if (block_m == 128 && block_n == 256)
+    return run_main<T128x256>(x, y, ep, M, N, K, in_bf16, s);
+  if (block_m == 128 && block_n == 128)
+    return run_main<T128x128>(x, y, ep, M, N, K, in_bf16, s);
+  if (block_m == 64 && block_n == 128)
+    return run_main<T64x128>(x, y, ep, M, N, K, in_bf16, s);
+  if (block_m == 64 && block_n == 64)
+    return run_main<T64x64>(x, y, ep, M, N, K, in_bf16, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -37,8 +37,25 @@ where CUDA is absent; pass ``CPUPlace()`` to run on the CPU.
 forward-only program for its GEMM-epilogue-fused clone
 (``analysis/epilogue_fusion.py``), witnessed on this executor's device;
 the decision is cached per (program serial, version, op count, fetches,
-``FLAGS_fused_gemm_blocks``, ``FLAGS_use_fused_gemm``): a new block triple
-or route mode re-runs the witness.
+block triple, ``FLAGS_use_fused_gemm``): a new block triple or route mode
+re-runs the witness.
+
+``FLAGS_autotune`` (``paddle_tpu_torch.tuning``): the block triple of a
+run is ``FLAGS_fused_gemm_blocks`` when set; else, with
+``FLAGS_autotune=use|measure`` and outside a ``measure_candidates``
+trial, the cost database's best-known triple for (the SUBMITTED
+program's content fingerprint, batch bucket, this executor's backend),
+looked up once per executor (``_tuning_cache``); else None (the kernel's
+default). The triple reaches the fusion witness and every step's
+``LowerCtx.gemm_blocks``, and is part of the fusion key and the executor
+key; it is never stamped on the shared ``Program``.
+
+``FLAGS_check_program``: ``run`` and ``run_chained`` verify the program
+they are about to run (after the remat and fusion swaps) once per
+program fingerprint (``_verified``) through
+``analysis.pass_manager.run_verify_pipeline``; error-severity findings
+raise ``ProgramVerificationError``. At level 2 the transform passes run
+inside the pass manager's strict bracket.
 
 Instrumentation (the reference's, ``paddle_tpu/executor.py``):
 ``monitor.step_begin``/``step_end`` around every dispatch; the spans
@@ -312,13 +329,16 @@ class _Step:
     in that order, as the reference walks its carried and write-only
     state."""
 
-    __slots__ = ("program", "donated_names", "dead_after", "stores",
-                 "state_names", "in_place_names", "micro", "prepared",
-                 "prep_s", "_compile_event", "_lock")
+    __slots__ = ("program", "gemm_blocks", "donated_names", "dead_after",
+                 "stores", "state_names", "in_place_names", "micro",
+                 "prepared", "prep_s", "_compile_event", "_lock")
 
     def __init__(self, program: Program, prep_s: float, feed_names,
-                 fetch_names):
+                 fetch_names, gemm_blocks=None):
         self.program = program
+        # the block triple every LowerCtx of this key carries (part of
+        # the key: see the module docstring)
+        self.gemm_blocks = gemm_blocks
         self.dead_after, self.stores = _release_plan(
             program, feed_names, fetch_names)
         blk = program.global_block
@@ -372,6 +392,23 @@ class Executor:
         # the program to run, and the RematDecision that chose it
         self._remat_cache: Dict[tuple, Program] = {}
         self._remat_decisions: Dict[tuple, Any] = {}
+        # FLAGS_check_program: fingerprints of the programs verified
+        self._verified: set = set()
+        # FLAGS_autotune: (content fingerprint, bucket, mode) -> the
+        # TunedConfig the cost database gave (None: nothing known)
+        self._tuning_cache: Dict[tuple, Any] = {}
+
+    def close(self) -> None:
+        """Drop every per-executor cache (keys, verified programs, remat
+        and fusion decisions, autotuner lookups)."""
+        with self._lock:
+            self._cache.clear()
+            self._verified.clear()
+            self._remat_cache.clear()
+            self._remat_decisions.clear()
+            self._fusion_cache.clear()
+            self._fusion_decisions.clear()
+            self._tuning_cache.clear()
 
     # -- helpers ---------------------------------------------------------
     def _next_seed(self, program: Program) -> int:
@@ -450,7 +487,8 @@ class Executor:
                                           scope, checks, taps)
         env: Dict[str, Any] = dict(feed_tensors)
         ctx = LowerCtx(self.device, seed=self._next_seed(program),
-                       program=program, nan_checks=checks, num_taps=taps)
+                       gemm_blocks=step.gemm_blocks, program=program,
+                       nan_checks=checks, num_taps=taps)
         with torch.no_grad():
             self._run_ops(step, range(len(program.global_block.ops)), env,
                           ctx, scope)
@@ -487,6 +525,7 @@ class Executor:
                     n: v[i * (v.shape[0] // M):(i + 1) * (v.shape[0] // M)]
                     for n, v in feed_tensors.items()}
                 ctx = LowerCtx(self.device, seed=self._next_seed(program),
+                               gemm_blocks=step.gemm_blocks,
                                program=program)
                 self._run_ops(step, plan.fb, env, ctx, scope)
                 if not acc:
@@ -508,8 +547,8 @@ class Executor:
                     checks.append((f"carried state '{n}' (microbatch scan)",
                                    _finite_check(scope.find_var(n))))
             ctx = LowerCtx(self.device, seed=self._next_seed(program),
-                           program=program, nan_checks=checks,
-                           num_taps=taps)
+                           gemm_blocks=step.gemm_blocks, program=program,
+                           nan_checks=checks, num_taps=taps)
             self._run_ops(step, plan.tail, env, ctx, scope)
         env.update(fetched)
         return self._fetch(step, env, fetch_names, scope)
@@ -632,11 +671,13 @@ class Executor:
             self._remat_decisions[key] = decision
             return decision.program
 
-    def _maybe_epilogue_fusion(self, program, feed, fetch_names):
+    def _maybe_epilogue_fusion(self, program, feed, fetch_names, blocks):
         """FLAGS_epilogue_fusion entry shared by run / run_chained: swap a
         forward-only program for its GEMM-epilogue-fused rewrite. Training
         programs, programs with no mul/matmul, and anything the pass's
-        fidelity witness cannot prove pass through untouched. The fused
+        fidelity witness cannot prove pass through untouched. ``blocks``
+        is the run's block triple (``_gemm_blocks``): the witness runs the
+        chains at it, and it is part of the decision's key. The fused
         clone has its own ``_serial``."""
         from .flags import flag
 
@@ -645,10 +686,7 @@ class Executor:
         from .analysis.epilogue_fusion import has_fusable_ops
         from .analysis.pass_manager import (program_fingerprint,
                                             run_transform_pipeline)
-        from .ops.fused_gemm import resolve_gemm_blocks
 
-        blocks = resolve_gemm_blocks() if flag("fused_gemm_blocks") \
-            else None
         key = (program_fingerprint(program), tuple(fetch_names), blocks,
                flag("use_fused_gemm"))
         with self._lock:
@@ -680,13 +718,72 @@ class Executor:
             _monitor.record_fusion(decision)
         return winner
 
+    def _gemm_blocks(self, program, feed):
+        """The run's K5 block triple, or None for the kernel's default:
+        an explicit ``FLAGS_fused_gemm_blocks`` wins; else, with
+        ``FLAGS_autotune=use|measure`` and outside a tuning trial, the
+        cost database's best-known triple for the SUBMITTED ``program``
+        (trials are recorded under its content fingerprint, before the
+        remat and fusion clones, whose fingerprints differ)."""
+        from .flags import flag
+
+        if str(flag("fused_gemm_blocks")).strip():
+            from .ops.fused_gemm import resolve_gemm_blocks
+
+            return resolve_gemm_blocks()
+        from . import tuning
+
+        mode = tuning.autotune_mode()
+        # never fill the triple DURING a measure_candidates trial: the
+        # candidate under test must run exactly as specified, or its time
+        # is recorded against the wrong config
+        if mode == "off" or tuning.in_trial() \
+                or not isinstance(program, Program):
+            return None
+        batch = _feed_batch_rows(feed)
+        tkey = (tuning.program_content_fingerprint(program),
+                tuning.shape_bucket(batch), mode)
+        with self._lock:
+            probed = tkey in self._tuning_cache
+            cfg = self._tuning_cache.get(tkey)
+        if not probed:
+            cfg = tuning.lookup_best(program, batch, self.device)
+            with self._lock:
+                self._tuning_cache[tkey] = cfg
+        return cfg.gemm_blocks if cfg is not None else None
+
+    def _verify_once(self, program, fetch_names) -> None:
+        """FLAGS_check_program pre-run hook: verify each program version
+        once before it runs (``run_verify_pipeline``, so per-pass timings
+        land on the monitor registry). Raises ProgramVerificationError
+        with build-site diagnostics on error-severity findings."""
+        from .flags import flag
+
+        if not int(flag("check_program")) \
+                or not isinstance(program, Program):
+            return
+        from .analysis.pass_manager import (program_fingerprint,
+                                            run_verify_pipeline)
+
+        fp = program_fingerprint(program)
+        with self._lock:
+            if fp in self._verified:
+                return
+        run_verify_pipeline(program, fetch_names=fetch_names)
+        with self._lock:
+            self._verified.add(fp)
+
     def _prepare(self, program, feed, fetch_names):
-        """The remat and fusion swaps, timed: the preparation a new key's
+        """The block-triple lookup, the remat and fusion swaps and the
+        verification of what will run, timed: the preparation a new key's
         compile event reports as its ``trace_lower`` stage."""
         t0 = time.perf_counter()
+        blocks = self._gemm_blocks(program, feed)
         program = self._maybe_auto_remat(program, feed, fetch_names)
-        program = self._maybe_epilogue_fusion(program, feed, fetch_names)
-        return program, time.perf_counter() - t0
+        program = self._maybe_epilogue_fusion(program, feed, fetch_names,
+                                              blocks)
+        self._verify_once(program, fetch_names)
+        return program, blocks, time.perf_counter() - t0
 
     def _key_flags(self, program) -> tuple:
         from .flags import flag
@@ -699,7 +796,7 @@ class Executor:
                 ("amp", amp.compute_dtype if amp is not None else None))
 
     def _get_step(self, path, program, key, components, prep_s, mrec,
-                  feed, fetch_names):
+                  feed, fetch_names, gemm_blocks):
         """Look ``key`` up; a miss is a compile event (recorded, completed
         at the step's first run). Under the executor lock, so racing
         threads share one step and one compile record."""
@@ -711,7 +808,8 @@ class Executor:
                 mrec.cache_hit = hit
             if hit:
                 return step
-            step = _Step(program, prep_s, sorted(feed), fetch_names)
+            step = _Step(program, prep_s, sorted(feed), fetch_names,
+                         gemm_blocks)
             step._compile_event = _monitor.observe_compile(
                 path, program, components, donated_names=step.donated_names)
             self._cache[key] = step
@@ -763,30 +861,31 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         feed = feed or {}
         names = [_fetch_name(f) for f in fetch_list or []]
-        program, prep_s = self._prepare(program, feed, names)
+        program, blocks, prep_s = self._prepare(program, feed, names)
         mrec = _monitor.step_begin("run", program)
         # child of whatever request trace is ambient on this thread
         with _trace.span("executor.run",
                          program=int(getattr(program, "_serial", -1))):
             try:
                 return self._run_body(program, feed, names, scope,
-                                      return_numpy, mrec, prep_s)
+                                      return_numpy, mrec, prep_s, blocks)
             finally:
                 _monitor.step_end(mrec)
 
     def _run_body(self, program, feed, names, scope, return_numpy, mrec,
-                  prep_s):
+                  prep_s, blocks):
         from .analysis.pass_manager import program_fingerprint
 
         fp = program_fingerprint(program)
         feed_sig = tuple(sorted((n,) + _shape_dtype_sig(v)
                                 for n, v in feed.items()))
         kflags = self._key_flags(program)
-        key = (fp, feed_sig, tuple(names), scope._serial, kflags)
+        key = (fp, feed_sig, tuple(names), scope._serial, blocks, kflags)
         step = self._get_step("run", program, key, {
             "program": fp[1:], "feed_signature": feed_sig,
             "fetch_list": tuple(names), "scope": scope._serial,
-            "flags": kflags}, prep_s, mrec, feed, names)
+            "flags": kflags, "gemm_blocks": blocks}, prep_s, mrec, feed,
+            names, blocks)
         self._fill_record(mrec, step, feed, names, scope)
         feed_t = self._feed_tensors(program, feed)
         # the step-site probe fires before any state is written
@@ -836,13 +935,13 @@ class Executor:
             raise NotImplementedError(
                 "run_chained with PipelineOptimizer programs: the pipeline "
                 "step is already a scan; nest via GradientMergeOptimizer")
-        program, prep_s = self._prepare(program, feed, names)
+        program, blocks, prep_s = self._prepare(program, feed, names)
         fp = program_fingerprint(program)
         feed_sig = tuple(sorted((n,) + _shape_dtype_sig(v)
                                 for n, v in feed.items()))
         kflags = self._key_flags(program)
         key = ("chained", fp, feed_sig, tuple(names), int(steps),
-               scope._serial, kflags)
+               scope._serial, blocks, kflags)
         mrec = _monitor.step_begin("chained", program)
         if mrec is not None:
             mrec.iterations = int(steps)
@@ -853,8 +952,9 @@ class Executor:
                 step = self._get_step("chained", program, key, {
                     "program": fp[1:], "feed_signature": feed_sig,
                     "fetch_list": tuple(names), "scope": scope._serial,
-                    "steps": int(steps), "flags": kflags}, prep_s, mrec,
-                    feed, names)
+                    "steps": int(steps), "flags": kflags,
+                    "gemm_blocks": blocks}, prep_s, mrec, feed, names,
+                    blocks)
                 self._fill_record(mrec, step, feed, names, scope)
                 feed_t = self._feed_tensors(program, feed)
                 _faults.fault_point("step")

@@ -12,6 +12,15 @@ __all__ = ["flag", "set_flags", "get_flags"]
 
 # name -> (type, default, meaning)
 _DEFS: Dict[str, tuple] = {
+    "check_program": (int, 0,
+                      "static-verification level (paddle_tpu_torch."
+                      "analysis): 0 off; 1 verify each program once before "
+                      "its first run (error-severity findings raise "
+                      "ProgramVerificationError with the op's build site); "
+                      "2 additionally re-run verify_program after every "
+                      "transform pass in a PassManager pipeline — a "
+                      "transform introducing new errors is refused with "
+                      "PassVerificationError naming the pass"),
     "check_nan_inf": (bool, False,
                       "per-op finite checks with op provenance on failure: "
                       "one device-side flag per float op output, stacked "
@@ -222,9 +231,27 @@ _DEFS: Dict[str, tuple] = {
                        "plain version on a CPU tensor; a shape the kernel "
                        "does not take raises), never (the dense replay)"),
     "fused_gemm_blocks": (str, "",
-                          "fused_gemm_epilogue block sizes as 'm,n,k'; "
-                          "empty means the port's compiled default "
-                          "(kernels.fused_gemm.DEFAULT_BLOCKS)"),
+                          "fused_gemm_epilogue block sizes as 'm,n,k', one "
+                          "of kernels.fused_gemm.COMPILED_BLOCKS; empty "
+                          "defers to the autotuner's best-known triple "
+                          "(FLAGS_autotune=use|measure) and then the "
+                          "compiled default (DEFAULT_BLOCKS). Part of the "
+                          "executor key"),
+    "autotune": (str, "off",
+                 "persistent autotuner (paddle_tpu_torch.tuning): off (no "
+                 "DB access), use (the best-known K5 block triple from the "
+                 "cost database reaches the run's LowerCtx when "
+                 "FLAGS_fused_gemm_blocks is unset; explicit flags still "
+                 "win), measure (use + measure_candidates may run trials "
+                 "and record them). The reference's other knob, "
+                 "FLAGS_xla_options, has no counterpart in a port that "
+                 "compiles no program: every candidate's xla_options is {}"),
+    "autotune_db": (str, "",
+                    "path of the autotuner cost database (JSON, atomic "
+                    "rewrite); empty = ~/.cache/paddle_tpu_torch/"
+                    "autotune_db.json. Keyed by (program content "
+                    "fingerprint, shape bucket, backend); entries from a "
+                    "different framework/torch/CUDA version are ignored"),
     "conv_use_nhwc": (str, "auto",
                       "memory format of conv and pool inputs (shapes stay "
                       "logical NCHW): auto (torch.channels_last on a CUDA "
@@ -233,7 +260,8 @@ _DEFS: Dict[str, tuple] = {
 }
 
 # flags that take one of a few words
-_CHOICES: Dict[str, tuple] = {"use_flash_attention": ("auto", "never"),
+_CHOICES: Dict[str, tuple] = {"autotune": ("off", "use", "measure"),
+                              "use_flash_attention": ("auto", "never"),
                               "use_fused_gemm": ("auto", "always", "never"),
                               "conv_use_nhwc": ("auto", "always", "never")}
 

@@ -17,7 +17,8 @@ from .flash_attention import (classify_backward_shapes, classify_shapes,
                               flash_attention_dq_reference,
                               flash_attention_reference,
                               flash_attention_with_lse, philox4x32_10)
-from .fused_gemm import classify_gemm, fused_gemm, fused_gemm_reference
+from .fused_gemm import (COMPILED_BLOCKS, DEFAULT_BLOCKS, classify_gemm,
+                         fused_gemm, fused_gemm_reference)
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_attention_dq",
@@ -27,6 +28,7 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_decode", "decode_attention_reference",
            "decode_in_slices", "paged_kv_append", "paged_kv_append_rows",
            "fused_gemm", "fused_gemm_reference", "classify_gemm",
+           "DEFAULT_BLOCKS", "COMPILED_BLOCKS",
            "KERNEL_SOURCES", "KERNEL_TOL", "reset_launch_counts",
            "launch_counts"]
 
@@ -52,6 +54,7 @@ KERNEL_TOL = {
 def reset_launch_counts() -> None:
     for fn in KERNEL_SOURCES.values():
         fn.launches = 0
+    fused_gemm.launches_by_blocks.clear()
 
 
 def launch_counts() -> dict:

@@ -27,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 # --split-compile=0: nvcc optimises a source's kernels on as many threads as
 # there are cores, which shortens the build of a source with many template
-# instantiations (fused_gemm.cu has eight) and leaves registers and spills
+# instantiations (fused_gemm.cu has fourteen) and leaves registers and spills
 # as they were; tools/torch_build_time.py times it
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,8 +52,9 @@ SIGNATURES = {
     # split | scale | is_bf16 | stream
     "decode_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     # x, y, bias, residual, ln_scale, ln_bias, out | M, N, K, activation,
-    # layer_norm | ln_eps | in_bf16, out_bf16 | stream
-    "fused_gemm": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    # layer_norm | ln_eps | in_bf16, out_bf16 | block_m, block_n, block_k |
+    # stream
+    "fused_gemm": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
 }
 
 

@@ -8,17 +8,18 @@ program: bias-add ``bias`` [N], ``relu`` or ``gelu`` (erf or tanh),
 residual-add ``residual`` [M, N], row-wise layer_norm (``ln_scale`` /
 ``ln_bias`` [N], two-pass statistics), then one cast to ``out_dtype``.
 
-* :func:`fused_gemm` — a CUDA tensor launches ``csrc/fused_gemm.cu``
-  (counted on ``.launches``) or raises; a CPU tensor takes
-  :func:`fused_gemm_reference`.
+* :func:`fused_gemm` — a CUDA tensor launches ``csrc/fused_gemm.cu`` at
+  the given block triple (counted on ``.launches`` and, per triple, on
+  ``.launches_by_blocks``) or raises; a CPU tensor takes
+  :func:`fused_gemm_reference`, the plain version for every triple.
 * :func:`classify_gemm` — what the Hopper kernel takes, with the failing
   constraint named. Its rules are the kernel's own, not the TPU's lane and
   sublane tiling: M, N and K need not divide into blocks (the kernel masks
   ragged edges; M up to 65535 row tiles), but N and K must be multiples of
   4 (x and y rows are copied into shared memory in 16-byte f32 / 8-byte
-  bf16 chunks), the block triple must be the compiled one, and a
-  layer_norm epilogue's 32 whole rows must fit in shared memory beside the
-  k-tile ring.
+  bf16 chunks), the block triple must be one of :data:`COMPILED_BLOCKS`,
+  and a layer_norm epilogue's 32 whole rows must fit in shared memory
+  beside the k-tile ring.
 """
 from __future__ import annotations
 
@@ -29,13 +30,17 @@ import torch
 from . import _build
 
 __all__ = ["fused_gemm", "classify_gemm", "fused_gemm_reference",
-           "DEFAULT_BLOCKS", "EPILOGUE_ACTIVATIONS"]
+           "DEFAULT_BLOCKS", "COMPILED_BLOCKS", "EPILOGUE_ACTIVATIONS"]
 
-# (block_m, block_n, block_k) of the one compiled GEMM tile: 128 x 256
-# outputs a block (the f32 route on CUDA cores and the bf16 route on tensor
-# cores alike), k in 32-deep tiles through a ring in shared memory (the
-# bf16 route takes them two at a time)
+# (block_m, block_n, block_k) of the compiled GEMM tiles (the f32 route on
+# CUDA cores and the bf16 route on tensor cores alike), k in 32-deep tiles
+# through a ring in shared memory (the bf16 route takes them two at a
+# time). DEFAULT_BLOCKS, 128 x 256 outputs a block, reuses each loaded
+# element most; the smaller tiles give a small GEMM more blocks on the 132
+# SMs. The autotuner (paddle_tpu_torch.tuning) chooses among them.
 DEFAULT_BLOCKS = (128, 256, 32)
+COMPILED_BLOCKS = (DEFAULT_BLOCKS, (128, 128, 32), (64, 128, 32),
+                   (64, 64, 32))
 EPILOGUE_ACTIVATIONS = ("none", "relu", "gelu")
 
 # the layer_norm variants: 32 whole rows a block, parked in shared memory
@@ -66,11 +71,11 @@ def classify_gemm(m: int, n: int, k: int, *, layer_norm: bool = False,
     if min(m, n, k) < 1:
         return ("unsupported",
                 f"GEMM dims must be >= 1: m={m}, n={n}, k={k}")
-    if (block_m, block_n, block_k) != DEFAULT_BLOCKS:
+    if (block_m, block_n, block_k) not in COMPILED_BLOCKS:
         return ("unsupported",
                 f"block_m={block_m}, block_n={block_n}, block_k={block_k} "
                 f"has no compiled instantiation (csrc/fused_gemm.cu "
-                f"compiles {DEFAULT_BLOCKS})")
+                f"compiles {list(COMPILED_BLOCKS)})")
     if -(-m // block_m) > _MAX_ROW_TILES:
         return ("unsupported",
                 f"m={m} is more than {_MAX_ROW_TILES} row tiles of "
@@ -89,7 +94,8 @@ def classify_gemm(m: int, n: int, k: int, *, layer_norm: bool = False,
     if layer_norm:
         return ("supported",
                 f"{-(-m // LN_ROWS)} blocks of {LN_ROWS} whole rows with "
-                f"layer_norm")
+                f"layer_norm (the layer_norm variants keep their own "
+                f"{LN_ROWS}-row tiles under every block triple)")
     return ("supported",
             f"{-(-m // block_m)} x {-(-n // block_n)} blocks of "
             f"({block_m}, {block_n}), k in tiles of {block_k}")
@@ -198,9 +204,16 @@ def fused_gemm(x, y, bias=None, residual=None, ln_scale=None, ln_bias=None,
                   ptr(residual), ptr(ln_scale), ptr(ln_bias), out.data_ptr(),
                   m, n, k, act, int(bool(layer_norm)), float(ln_eps),
                   int(x.dtype == torch.bfloat16),
-                  int(out_dtype == torch.bfloat16))
+                  int(out_dtype == torch.bfloat16), block_m, block_n,
+                  block_k)
     fused_gemm.launches += 1
+    blocks = (block_m, block_n, block_k)
+    fused_gemm.launches_by_blocks[blocks] = \
+        fused_gemm.launches_by_blocks.get(blocks, 0) + 1
     return out
 
 
 fused_gemm.launches = 0
+# launches per block triple, beside the total (a layer_norm launch counts
+# under the triple it was asked for)
+fused_gemm.launches_by_blocks = {}

@@ -85,8 +85,9 @@ def amp_policy_of(ctx) -> Optional[AmpPolicy]:
 class LowerCtx:
     """Context passed to every op rule. ``program`` is the owning program
     (its AMP policy, a raw op's sub-blocks). ``gemm_blocks`` is the block
-    triple a caller asks ``fused_gemm_epilogue`` to run with (the fusion
-    pass's witness passes the triple it was given); None means
+    triple a caller asks ``fused_gemm_epilogue`` to run with (the executor
+    passes the run's triple, ``FLAGS_autotune``'s best-known included, and
+    the fusion pass's witness the triple it was given); None means
     ``FLAGS_fused_gemm_blocks`` or the kernel's default."""
 
     def __init__(self, device=None, seed: Optional[int] = None,

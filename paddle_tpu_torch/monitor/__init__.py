@@ -27,7 +27,13 @@ into ``executor_model_gflops_per_step``, ``executor_achieved_tflops`` and
 ``executor_mfu`` (``observe_step_cost``), and the serving engine does the
 same per bucket (``observe_serving_cost``), all against
 ``FLAGS_device_peak_tflops``. ``record_remat`` counts the
-``FLAGS_auto_recompute`` decisions.
+``FLAGS_auto_recompute`` decisions. ``record_pass`` times every IR pass
+(the ``FLAGS_check_program`` verify pipeline's included:
+``pass_runs_total``, ``pass_duration_seconds``);
+``record_autotune_lookup`` / ``record_autotune_trial`` count the
+autotuner's cost-database lookups and measured trials
+(``autotune_hits_total``, ``autotune_misses_total``,
+``autotune_trials_total``, ``autotune_best_per_step_seconds``).
 
 ``paddle_tpu_torch.resilience`` and ``serving`` report through the same
 registry. Everything is on by default (``FLAGS_monitor=0`` disables
@@ -65,6 +71,7 @@ __all__ = [
     "gauge", "histogram", "metric_value", "enabled", "record_cache_lookup",
     "observe_compile", "complete_compile", "step_begin", "step_end",
     "record_pass", "record_fusion", "record_remat",
+    "record_autotune_lookup", "record_autotune_trial",
     "record_watchdog_timeout", "program_cost", "observe_step_cost",
     "observe_serving_cost",
     "recompile_events", "recompile_count", "snapshot", "reset",
@@ -246,6 +253,35 @@ def record_pass(name: str, kind: str, seconds: float,
         histogram("pass_duration_seconds",
                   "wall time of one IR pass execution, by pass").labels(
             **{"pass": name}).observe(seconds)
+
+
+def record_autotune_lookup(hit: bool, program_fp: str = "",
+                           bucket: int = 0,
+                           per_step_s: Optional[float] = None) -> None:
+    """One executor-path lookup of the autotuner's cost database
+    (``tuning.lookup_best``): ``autotune_hits_total`` /
+    ``autotune_misses_total``, and on a hit the best-known step time as
+    ``autotune_best_per_step_seconds`` by program and bucket."""
+    if not enabled():
+        return
+    counter("autotune_hits_total" if hit else "autotune_misses_total",
+            "autotuner compile-path lookups that found (hits) / did not "
+            "find (misses) a best-known config").inc()
+    if hit and per_step_s is not None:
+        gauge("autotune_best_per_step_seconds",
+              "best-known measured step time fed to the compile path, by "
+              "program fingerprint and shape bucket").labels(
+            program=program_fp, bucket=str(bucket)).set(per_step_s)
+
+
+def record_autotune_trial() -> None:
+    """One measured candidate recorded into the cost database
+    (``autotune_trials_total``)."""
+    if not enabled():
+        return
+    counter("autotune_trials_total",
+            "measured autotuner candidates recorded into the cost "
+            "database").inc()
 
 
 def record_fusion(decision) -> None:

@@ -13,8 +13,9 @@ registry when ``FLAGS_monitor`` is on.
 :func:`containment_violations` is the cross-check against statically
 proven per-var intervals (every observed finite value must lie inside
 its var's interval, tolerance-free). It is pure logic over a dict; the
-static intervals come from the reference's ``analysis/numerics.py``,
-which the port does not have yet.
+static side is ``analysis.numerics.static_intervals(program, fetch)``:
+``containment_violations(static_intervals(program, fetch))`` after a
+witnessed run.
 
 The witness is also the attribution source for the nan/inf machinery:
 :func:`first_offender` names the first var of the most recent step whose

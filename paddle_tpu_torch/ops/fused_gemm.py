@@ -23,7 +23,9 @@ route is decided on that type.
 ``FLAGS_use_fused_gemm`` = auto|always|never picks the path; ``always``
 raises on a shape the kernel does not take instead of replaying. Block
 sizes resolve, in order: ``FLAGS_fused_gemm_blocks`` ("m,n,k") > the
-triple a caller put on ``LowerCtx.gemm_blocks`` > the kernel's default.
+triple on ``LowerCtx.gemm_blocks`` (the executor puts the autotuner's
+best-known triple there, on the run's steps and the fusion witness alike)
+> the kernel's default.
 """
 from __future__ import annotations
 

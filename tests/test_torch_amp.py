@@ -114,8 +114,10 @@ def _batch(rng, batch=32):
 
 class _GemmDtypes(TorchDispatchMode):
     """Records (op type being run, aten GEMM, operand dtypes) of every
-    aten.mm/bmm/addmm: the port's counterpart of scanning a jaxpr's
-    dot_general lines."""
+    aten.mm/bmm/addmm on real tensors: the port's counterpart of scanning
+    a jaxpr's dot_general lines. Shape inference on meta tensors (the
+    ``FLAGS_check_program`` verifier's replay before a program's first
+    run) computes nothing and is not recorded."""
 
     def __init__(self):
         super().__init__()
@@ -124,7 +126,8 @@ class _GemmDtypes(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.overloadpacket.__name__
-        if name in GEMMS:
+        if name in GEMMS and not any(
+                isinstance(a, torch.Tensor) and a.is_meta for a in args):
             self.seen.append((self.op, name, tuple(
                 a.dtype for a in args if isinstance(a, torch.Tensor))))
         return func(*args, **(kwargs or {}))
@@ -372,7 +375,10 @@ def _record_attention_dtypes(monkeypatch, registry):
     real, seen = opdef.lower, []
 
     def spy(ctx, ins, attrs):
-        seen.append(tuple(str(ins[s][0].dtype) for s in ("Q", "K", "V")))
+        # shape inference on meta tensors (the FLAGS_check_program
+        # verifier's replay) computes nothing: not a call of the step
+        if not getattr(ins["Q"][0], "is_meta", False):
+            seen.append(tuple(str(ins[s][0].dtype) for s in ("Q", "K", "V")))
         return real(ctx, ins, attrs)
 
     monkeypatch.setattr(opdef, "lower", spy)

@@ -152,7 +152,8 @@ def test_fused_gemm_matches_its_plain_version(m, n, k, epilogue, in_dt,
     _check_gemm(m, n, k, epilogue, in_dt, out_dt)
 
 
-def _check_gemm(m, n, k, epilogue, in_dt, out_dt):
+def _check_gemm(m, n, k, epilogue, in_dt, out_dt,
+                blocks=FG.DEFAULT_BLOCKS):
     g = _cuda()
     dt, odt = getattr(torch, in_dt), getattr(torch, out_dt)
     x, y, kw = _gemm_inputs(g, m, n, k, dt, "residual" in epilogue)
@@ -165,8 +166,13 @@ def _check_gemm(m, n, k, epilogue, in_dt, out_dt):
                             "gelu" if "gelu" in epilogue else "none"),
                 gelu_approximate="tanh" in epilogue, out_dtype=odt)
     n0 = K.fused_gemm.launches
-    got = K.fused_gemm(x, y, **args)
+    by0 = dict(K.fused_gemm.launches_by_blocks)
+    got = K.fused_gemm(x, y, **args, block_m=blocks[0], block_n=blocks[1],
+                       block_k=blocks[2])
     assert K.fused_gemm.launches == n0 + 1
+    by = K.fused_gemm.launches_by_blocks
+    assert {b: c - by0.get(b, 0) for b, c in by.items()
+            if c != by0.get(b, 0)} == {tuple(blocks): 1}
     want = K.fused_gemm_reference(x, y, **args)
     torch.cuda.synchronize()
     assert got.dtype == odt and got.shape == (m, n)
@@ -189,6 +195,73 @@ def test_fused_gemm_edges_of_the_tile(m, n, k, in_dt, out_dt):
     _check_gemm(m, n, k, "bias+gelu", in_dt, out_dt)
     if m == 33:
         _check_gemm(m, n, k, "bias+residual+layer_norm", in_dt, out_dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", FG.COMPILED_BLOCKS)
+@pytest.mark.parametrize("in_dt,out_dt", [("float32", "float32"),
+                                          ("bfloat16", "float32"),
+                                          ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("epilogue", ["plain", "bias+gelu",
+                                      "bias+gelu_tanh+residual",
+                                      "bias+residual+layer_norm"])
+@pytest.mark.parametrize("m,n,k", [(77, 132, 36), (300, 260, 300),
+                                   (129, 516, 196), (128, 1000, 2048)])
+def test_fused_gemm_at_every_compiled_triple(m, n, k, epilogue, in_dt,
+                                             out_dt, blocks):
+    """K5 at each compiled block triple against its plain version (the
+    same function for every triple), at ``K.KERNEL_TOL`` of the output
+    type: ragged M, N and K at each tile's edges (M past 64 and 128 rows,
+    N past 64, 128 and 256 columns, K past the 32- and 64-deep k-tiles),
+    ResNet-50's fc head, and the layer_norm variants, which keep their
+    own 32-row tiles under every triple. Each call is one launch, counted
+    under its triple in ``launches_by_blocks``."""
+    _check_gemm(m, n, k, epilogue, in_dt, out_dt, blocks)
+
+
+@pytest.mark.cuda
+def test_fused_gemm_uncompiled_triple_names_the_compiled_list():
+    """A triple with no instantiation raises before any launch, naming
+    the compiled ones; the entry point itself refuses one too
+    (cudaErrorInvalidValue, raised as KernelError)."""
+    g = _cuda()
+    x = torch.randn(64, 64, generator=g, device="cuda")
+    y = torch.randn(64, 64, generator=g, device="cuda")
+    n0, by0 = K.fused_gemm.launches, dict(K.fused_gemm.launches_by_blocks)
+    for bad in ((256, 128, 32), (64, 64, 64), (32, 32, 32)):
+        with pytest.raises(ValueError) as err:
+            K.fused_gemm(x, y, block_m=bad[0], block_n=bad[1],
+                         block_k=bad[2])
+        assert str(list(FG.COMPILED_BLOCKS)) in str(err.value)
+    assert K.fused_gemm.launches == n0
+    assert K.fused_gemm.launches_by_blocks == by0
+    out = torch.empty(64, 64, device="cuda")
+    with pytest.raises(_build.KernelError, match="cudaError_t 1"):
+        _build.launch("fused_gemm", x.device, x.data_ptr(), y.data_ptr(),
+                      None, None, None, None, out.data_ptr(), 64, 64, 64,
+                      0, 0, 1e-5, 0, 0, 96, 96, 32)
+
+
+@pytest.mark.cuda
+def test_launches_by_blocks_counts_each_triple():
+    """``launches_by_blocks`` counts every launch under the triple it ran
+    at, beside the total, whatever the epilogue."""
+    g = _cuda()
+    x = torch.randn(96, 128, generator=g, device="cuda")
+    y = torch.randn(128, 192, generator=g, device="cuda")
+    n0, by0 = K.fused_gemm.launches, dict(K.fused_gemm.launches_by_blocks)
+    want = {}
+    for i, blocks in enumerate(FG.COMPILED_BLOCKS):
+        for _ in range(i + 1):
+            K.fused_gemm(x, y, layer_norm=bool(i % 2), block_m=blocks[0],
+                         block_n=blocks[1], block_k=blocks[2])
+        want[blocks] = i + 1
+    K.fused_gemm(x, y)                       # the default triple
+    want[FG.DEFAULT_BLOCKS] += 1
+    torch.cuda.synchronize()
+    by = K.fused_gemm.launches_by_blocks
+    assert {b: by[b] - by0.get(b, 0) for b in by} == want
+    assert K.fused_gemm.launches - n0 == sum(want.values())
 
 
 @pytest.mark.cuda
@@ -225,7 +298,7 @@ def test_a_failed_launch_raises_through_the_fusion_witness(monkeypatch):
     dev = torch.device("cuda", torch.cuda.current_device())
     with pytest.raises(_build.KernelError, match="cudaError_t 1"):
         _build.launch("fused_gemm", dev, None, None, None, None, None, None,
-                      None, 0, 8, 8, 0, 0, 1e-5, 0, 0)
+                      None, 0, 8, 8, 0, 0, 1e-5, 0, 0, *FG.DEFAULT_BLOCKS)
 
     def fc(h, act=None):
         return fluid.layers.fc(h, 128, act=act, param_attr=fluid.ParamAttr(

@@ -121,7 +121,8 @@ def trained(request):
 
 class _ComputeDtypes(TorchDispatchMode):
     """(op being run, aten op, operand dtypes) of every convolution and
-    matrix product."""
+    matrix product on real tensors (shape inference on meta tensors, the
+    ``FLAGS_check_program`` verifier's replay, computes nothing)."""
 
     KINDS = ("convolution", "convolution_backward", "mm", "addmm", "bmm")
 
@@ -131,7 +132,8 @@ class _ComputeDtypes(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.overloadpacket.__name__
-        if name in self.KINDS:
+        if name in self.KINDS and not any(
+                isinstance(a, torch.Tensor) and a.is_meta for a in args):
             self.seen.append((self.op, name, tuple(
                 a.dtype for a in args if isinstance(a, torch.Tensor))))
         return func(*args, **(kwargs or {}))
