@@ -229,7 +229,29 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (d) One BERT-base bf16 fused forward under ``FLAGS_numerics_witness``:
    no observed value outside its ``static_intervals`` bound, for the
    submitted and the fused program; K5 74 and K1 12 launches.
-17. prints the script time of each phase and part (``[seconds]``), the
+17. seq2seq — the RNN encoder-decoder at RNNencdec-50's widths
+   (Bahdanau, Cho & Bengio 2014: vocabularies of 30000, embeddings of
+   620, hidden 1000, minibatch 80, sentences of 50; the repo's plain tanh
+   cell; beam 4 and max_len 50 ours), f32, random weights and ids from
+   ``--seed``. Train: ``build_seq2seq_train`` with Adam for 10 steps
+   (each a ``recurrent`` op of 50 steps per RNN, replayed under autograd
+   in its grad op); the loss falls; a second run of 3 steps from the same
+   state repeats the first 3 bit for bit (losses and every state var);
+   3 steps of the port on the CPU from the same weights and feed give
+   the step-1 loss within rtol 1e-5 and later ones within 1e-3; no kernel
+   of the port launches. Reports target tokens/s, step ms, the step's
+   peak beside ``memory_plan``'s prediction, device kernels a step, and
+   one profiled step's idle share and device ms by op role. Decode:
+   ``build_seq2seq_infer`` (80 sources, beam 4, max_len 50) in the
+   trained scope: ids [51, 320] inside the vocabulary, eos held once
+   reached, 51 host reads of the While's condition; against the same
+   decode on the CPU, ids equal and scores within rtol 1e-4 on every
+   source whose beam margin (the gap between the 4th and 5th candidate
+   score) stays above 1e-4 at every step of both runs (its beams
+   compared as a set: the margin holds which beams survive, not their
+   order), and at least 40 of the 80 held (``S2S_MIN_HELD``). Reports
+   sentences/s, ms a beam step and the sources excluded.
+18. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -264,6 +286,7 @@ from paddle_tpu_torch import monitor, resilience, trace
 from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+from paddle_tpu_torch.models import seq2seq
 from paddle_tpu_torch.models.gpt import (GptConfig, build_gpt_generative,
                                          build_gpt_prefill)
 from paddle_tpu_torch.resilience import faults
@@ -3983,6 +4006,323 @@ def phase_tune(seed):
                 containment=contained, launches=contained["launches"])
 
 
+# ---------------------------------------------------------------- seq2seq
+# RNNencdec-50 (Bahdanau, Cho & Bengio 2014, arXiv:1409.0473, its
+# training setup): vocabularies of 30000, embeddings of 620, hidden 1000,
+# minibatches of 80 sentences of 50 words; beam 4 and max_len 50 are ours
+S2S_VOCAB, S2S_EMB, S2S_HIDDEN, S2S_LEN, S2S_BATCH = 30000, 620, 1000, 50, 80
+S2S_BEAM, S2S_MAX_LEN, S2S_DECODE_BATCH = 4, 50, 80
+S2S_STEPS, S2S_REPEAT_STEPS, S2S_CPU_STEPS, S2S_DECODES = 10, 3, 3, 3
+# card against CPU: the f32 rtol of step 1 and of later steps (PERF.md §2)
+S2S_LOSS_RTOL = (1e-5, 1e-3)
+# decode against CPU: scores of a held source, the beam margin that holds
+# it, and how many of the 80 sources must be held. A margin under 1e-4 is
+# an f32 near-tie: the scores reach -390 by step 50, where an ulp is
+# 3.05e-5, and 0.48-0.53 % of the steps of a source fall under it on an
+# H100 (PERF.md), so 74-79 % of sources are held, not a sure 3/4; half is
+# the gate
+S2S_SCORE_RTOL, S2S_MARGIN, S2S_MIN_HELD = 1e-4, 1e-4, 40
+S2S_EOS = 1
+
+
+def s2s_feed(seed):
+    """A fixed batch of random source and target ids (the target input is
+    the output shifted right behind bos 0)."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(2, S2S_VOCAB, (S2S_BATCH, S2S_LEN)).astype(np.int64)
+    out = rng.randint(2, S2S_VOCAB, (S2S_BATCH, S2S_LEN)).astype(np.int64)
+    tgt_in = np.concatenate([np.zeros((S2S_BATCH, 1), np.int64),
+                             out[:, :-1]], axis=1)
+    return {"src_ids": src, "tgt_in_ids": tgt_in, "tgt_out_ids": out}
+
+
+def s2s_train(net, init, feed, steps, exe=None, snapshot_at=None):
+    """``steps`` steps from ``init`` on a fresh scope (and, unless given,
+    a fresh executor): losses, the wall time of steps 2.. (each ends in
+    the host read of its loss), the step's peak, held memory, the
+    launches of the port's kernels and, with ``snapshot_at``, every
+    state var after that many steps."""
+    exe = exe or fluid.Executor()
+    scope = s2s_scratch_scope(init, exe.device)
+    on_card = exe.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    scope_bytes = sum(t.nelement() * t.element_size() for t in init.values())
+    K.reset_launch_counts()
+    losses, held, snap, t_first = [], [], None, None
+    t0 = time.perf_counter()
+    for step in range(steps):
+        losses.append(float(np.ravel(exe.run(
+            net["main"], feed=feed, fetch_list=[net["loss"]],
+            scope=scope)[0])[0]))
+        if on_card:
+            held.append(torch.cuda.memory_allocated())
+        if step == 0:
+            t_first = time.perf_counter()
+        if snapshot_at == step + 1:
+            snap = {n: t.clone() for n, t in scope.vars.items()}
+    wall = time.perf_counter() - t_first
+    res = dict(losses=np.array(losses), first_step_s=t_first - t0,
+               step_s=wall / max(steps - 1, 1), launches=K.launch_counts(),
+               held_bytes=held, snapshot=snap, exe=exe, scope=scope)
+    if on_card:
+        peak = torch.cuda.max_memory_allocated()
+        res.update(peak_bytes=peak, step_peak_bytes=peak - base + scope_bytes)
+    return res
+
+
+@contextlib.contextmanager
+def beam_margins(out):
+    """Record, at each ``beam_search`` the decode runs, the beam margin of
+    each source: the gap between its ``beam``-th and ``beam + 1``-th
+    candidate score (``out`` gets one [batch] array per step)."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.ops.control_flow import beam_candidates
+
+    opdef = registry.get_op_def("beam_search")
+    real = opdef.lower
+
+    def lower(ctx, ins, attrs):
+        if not ins["scores"][0].is_meta:
+            cand, _ = beam_candidates(ins, attrs)
+            top = torch.topk(cand, int(attrs["beam_size"]) + 1, dim=1).values
+            out.append((top[:, -2] - top[:, -1]).cpu().numpy())
+        return real(ctx, ins, attrs)
+
+    opdef.lower = lower
+    try:
+        yield
+    finally:
+        opdef.lower = real
+
+
+def s2s_decode(infer, exe, scope, src):
+    """One decode: ids, scores, per-step beam margins and condition
+    reads."""
+    from paddle_tpu_torch.ops import control_flow
+
+    margins = []
+    control_flow.reset_cond_reads()
+    with beam_margins(margins):
+        ids, scores = exe.run(infer["main"], feed={"src_ids": src},
+                              fetch_list=infer["fetches"], scope=scope)
+    return ids, scores, np.stack(margins), control_flow.cond_reads()
+
+
+def phase_seq2seq(seed):
+    net = seq2seq.build_seq2seq_train(S2S_VOCAB, S2S_VOCAB, S2S_EMB,
+                                      S2S_HIDDEN, S2S_LEN, S2S_LEN,
+                                      S2S_BATCH)
+    net["startup"].random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    del scope0
+    feed = s2s_feed(seed + 11)
+    n_params = sum(init[p.name].numel()
+                   for p in net["main"].all_parameters())
+    predicted = net["main"].memory_plan(
+        feed_names=sorted(net["feeds"]), fetch_names=[net["loss"].name],
+        batch_size=S2S_BATCH).peak_bytes
+
+    with timed("seq2seq.train"):
+        run = s2s_train(net, init, feed, S2S_STEPS,
+                        snapshot_at=S2S_REPEAT_STEPS)
+    exe, scope = run.pop("exe"), run.pop("scope")
+    with timed("seq2seq.repeat"):
+        again = s2s_train(net, init, feed, S2S_REPEAT_STEPS)
+    same_losses = np.array_equal(again["losses"],
+                                 run["losses"][:S2S_REPEAT_STEPS])
+    differ = [n for n, t in run.pop("snapshot").items()
+              if not torch.equal(t, again["scope"].vars[n])]
+    # one more step of the repeat run, profiled by op role (autograd kept
+    # on the calling thread, so the grad ops' ranges hold their kernels)
+    with role_ranges(), torch.autograd.set_multithreading_enabled(False):
+        prof = profile_run(lambda: again["exe"].run(
+            net["main"], feed=feed, fetch_list=[net["loss"]],
+            scope=again["scope"]))
+    del again
+    with timed("seq2seq.cpu_train"):
+        cpu = s2s_train(net, {n: t.cpu() for n, t in init.items()}, feed,
+                        S2S_CPU_STEPS, exe=fluid.Executor(fluid.CPUPlace()))
+    del cpu["exe"], cpu["scope"]
+    losses = run["losses"]
+    rel = np.abs(losses[:S2S_CPU_STEPS] - cpu["losses"]) / np.abs(
+        cpu["losses"])
+    tokens = S2S_BATCH * S2S_LEN
+    roles = {k[len("role::"):]: v["ms"] for k, v in prof["ranges"].items()
+             if k.startswith("role::")}
+    log(f"[seq2seq] RNNencdec-50 widths (vocab {S2S_VOCAB}, emb {S2S_EMB}, "
+        f"hidden {S2S_HIDDEN}, batch {S2S_BATCH}, length {S2S_LEN}; "
+        f"{n_params / 1e6:.2f} M parameters), f32, Adam, {S2S_STEPS} "
+        f"steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    log(f"  {tokens / run['step_s']:.1f} target tokens/s, "
+        f"{run['step_s'] * 1e3:.1f} ms a step (steps 2-{S2S_STEPS}; step 1 "
+        f"{run['first_step_s']:.3f} s); step peak "
+        f"{run['step_peak_bytes'] / 2**30:.3f} GiB, memory_plan predicted "
+        f"{predicted / 2**30:.3f} GiB (raw peak "
+        f"{run['peak_bytes'] / 2**30:.3f} GiB)")
+    log(f"  profiled step: wall {prof['wall_s'] * 1e3:.1f} ms, device busy "
+        f"{prof['device_busy_s'] * 1e3:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['device_kernels']} device "
+        f"kernels; device ms by role: " + ", ".join(
+            f"{r} {ms:.1f}" for r, ms in sorted(roles.items())))
+    for r in prof["top_kernels"][:6]:
+        log(f"    {r['ms']:8.3f} ms {r['calls']:5d} calls  {r['name']}")
+    log(f"  repeat of {S2S_REPEAT_STEPS} steps: losses bit-identical "
+        f"{same_losses}, state vars differing {len(differ)}")
+    log(f"  card against CPU ({S2S_CPU_STEPS} steps): losses "
+        f"{cpu['losses'].tolist()} vs {losses[:S2S_CPU_STEPS].tolist()}; "
+        f"rel step 1 {rel[0]:.3e}, later max {rel[1:].max():.3e} "
+        f"(tolerance {S2S_LOSS_RTOL}); CPU step "
+        f"{cpu['step_s']:.2f} s")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: seq2seq training loss did not fall: "
+                         f"{losses.tolist()}")
+    if not same_losses or differ:
+        raise SystemExit(f"chip_smoke: two seq2seq runs from the same state "
+                         f"differ: losses {same_losses}, vars {differ[:5]}")
+    if rel[0] > S2S_LOSS_RTOL[0] or rel[1:].max() > S2S_LOSS_RTOL[1]:
+        raise SystemExit(f"chip_smoke: seq2seq on the card and on the CPU "
+                         f"disagree: {rel.tolist()} (tolerance "
+                         f"{S2S_LOSS_RTOL})")
+    if any(run["launches"].values()):
+        raise SystemExit(f"chip_smoke: the seq2seq path launched a kernel "
+                         f"of the port: {run['launches']}")
+
+    infer = seq2seq.build_seq2seq_infer(
+        S2S_VOCAB, S2S_VOCAB, S2S_EMB, S2S_HIDDEN, S2S_LEN,
+        S2S_DECODE_BATCH, S2S_BEAM, S2S_MAX_LEN, bos_id=0, eos_id=S2S_EOS)
+    src = np.random.RandomState(seed + 12).randint(
+        2, S2S_VOCAB, (S2S_DECODE_BATCH, S2S_LEN)).astype(np.int64)
+    K.reset_launch_counts()
+    with timed("seq2seq.decode"):
+        ids, scores, margins, reads = s2s_decode(infer, exe, scope, src)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(S2S_DECODES):
+            t0 = time.perf_counter()
+            exe.run(infer["main"], feed={"src_ids": src},
+                    fetch_list=infer["fetches"], scope=scope)
+            times.append(time.perf_counter() - t0)
+    decode_launches = K.launch_counts()
+    cpu_scope = s2s_scratch_scope({n: t.cpu() for n, t in
+                                   scope.vars.items()}, "cpu")
+    with timed("seq2seq.cpu_decode"):
+        cids, cscores, cmargins, _ = s2s_decode(
+            infer, fluid.Executor(fluid.CPUPlace()), cpu_scope, src)
+    nbk = S2S_DECODE_BATCH * S2S_BEAM
+    want = (S2S_MAX_LEN + 1, nbk)
+    margin = np.minimum(margins.min(0), cmargins.min(0))
+    held = margin > S2S_MARGIN
+    cmp = s2s_compare(ids, scores, cids, cscores, held)
+    ids_equal, score_rel = cmp["ids_equal"], cmp["score_max_rel"]
+    past_eos = [c for c in range(nbk) if (ids[:, c] == S2S_EOS).any()
+                and not (ids[np.argmax(ids[:, c] == S2S_EOS):, c]
+                         == S2S_EOS).all()]
+    decode_s = float(np.median(times))
+    log(f"  decode: {S2S_DECODE_BATCH} sources x beam {S2S_BEAM}, max_len "
+        f"{S2S_MAX_LEN}: ids {list(ids.shape)}, "
+        f"{S2S_DECODE_BATCH / decode_s:.2f} sentences/s "
+        f"({decode_s * 1e3:.1f} ms a decode, "
+        f"{decode_s / S2S_MAX_LEN * 1e3:.2f} ms a beam step; median of "
+        f"{S2S_DECODES}), {reads} host reads of the condition")
+    log(f"  against the CPU: {int(held.sum())} of {S2S_DECODE_BATCH} "
+        f"sources held (beam margin > {S2S_MARGIN} at every step of both "
+        f"runs; the card's alone {int((margins.min(0) > S2S_MARGIN).sum())}"
+        f", the CPU's {int((cmargins.min(0) > S2S_MARGIN).sum())}), "
+        f"{int((~held).sum())} excluded; held ids equal {ids_equal} "
+        f"({cmp['permuted']} with their beams in another order), scores "
+        f"max rel {score_rel:.3e} (tolerance {S2S_SCORE_RTOL}); excluded "
+        f"sources whose hypotheses differ {cmp['unheld_differ']}")
+    if tuple(ids.shape) != want or tuple(scores.shape) != want:
+        raise SystemExit(f"chip_smoke: decoded shape {ids.shape}, "
+                         f"expected {want}")
+    if not ((ids >= 0) & (ids < S2S_VOCAB)).all() or past_eos:
+        raise SystemExit(f"chip_smoke: decoded ids outside the vocabulary "
+                         f"or past eos in columns {past_eos[:5]}")
+    if reads != S2S_MAX_LEN + 1:
+        raise SystemExit(f"chip_smoke: {reads} host reads of the decode's "
+                         f"condition, expected {S2S_MAX_LEN + 1}")
+    if held.sum() < S2S_MIN_HELD or not ids_equal \
+            or score_rel > S2S_SCORE_RTOL:
+        raise SystemExit(f"chip_smoke: seq2seq decode on the card and on "
+                         f"the CPU disagree: {int(held.sum())} held, ids "
+                         f"equal {ids_equal}, scores rel {score_rel:.3e}")
+    if any(decode_launches.values()):
+        raise SystemExit(f"chip_smoke: the seq2seq decode launched a kernel "
+                         f"of the port: {decode_launches}")
+    return dict(
+        config=dict(vocab=S2S_VOCAB, emb=S2S_EMB, hidden=S2S_HIDDEN,
+                    length=S2S_LEN, batch=S2S_BATCH, beam=S2S_BEAM,
+                    max_len=S2S_MAX_LEN, params=n_params),
+        losses=losses.tolist(), cpu_losses=cpu["losses"].tolist(),
+        cpu_rel_diff=rel.tolist(), cpu_step_s=cpu["step_s"],
+        repeat_bit_identical=same_losses and not differ,
+        step_ms=run["step_s"] * 1e3, first_step_s=run["first_step_s"],
+        target_tokens_per_s=tokens / run["step_s"],
+        step_peak_gib=run["step_peak_bytes"] / 2**30,
+        peak_gib=run["peak_bytes"] / 2**30,
+        predicted_peak_gib=predicted / 2**30,
+        held_gib=[b / 2**30 for b in run["held_bytes"]],
+        profiled_step=dict(wall_ms=prof["wall_s"] * 1e3,
+                           busy_ms=prof["device_busy_s"] * 1e3,
+                           idle_share=prof["idle_share"],
+                           device_kernels=prof["device_kernels"],
+                           role_ms=roles, top_kernels=prof["top_kernels"]),
+        decode=dict(shape=list(ids.shape), ms=decode_s * 1e3,
+                    sentences_per_s=S2S_DECODE_BATCH / decode_s,
+                    ms_per_beam_step=decode_s / S2S_MAX_LEN * 1e3,
+                    cond_reads=reads, held=int(held.sum()),
+                    excluded=int((~held).sum()), ids_equal=ids_equal,
+                    permuted=cmp["permuted"],
+                    unheld_differ=cmp["unheld_differ"],
+                    margin_below_share=float(np.mean(np.concatenate(
+                        [margins, cmargins]) <= S2S_MARGIN)),
+                    score_max_rel=score_rel,
+                    min_margin=float(margin.min())),
+        launches={n: run["launches"][n] + decode_launches[n]
+                  for n in K.KERNEL_SOURCES})
+
+
+def s2s_compare(ids, scores, cids, cscores, held):
+    """The card's decode against the CPU's, source by source: a held
+    source's hypotheses (its ``beam`` columns) must be the CPU's, ids
+    equal and scores within ``S2S_SCORE_RTOL``. The margin rule holds the
+    set of a source's beams at every step, not their order, so each
+    source's columns are compared in the order of their id sequences;
+    ``permuted`` counts the held sources whose beams came out in another
+    order (a near-tie inside the top ``beam``)."""
+    ok, rel, permuted, unheld_differ = True, 0.0, 0, 0
+    for s, is_held in enumerate(held):
+        cols = slice(s * S2S_BEAM, (s + 1) * S2S_BEAM)
+        a, b = ids[:, cols], cids[:, cols]
+        oa = sorted(range(S2S_BEAM), key=lambda j: tuple(a[:, j]))
+        ob = sorted(range(S2S_BEAM), key=lambda j: tuple(b[:, j]))
+        same = np.array_equal(a[:, oa], b[:, ob])
+        if not is_held:
+            unheld_differ += not same
+            continue
+        permuted += same and not np.array_equal(a, b)
+        ok = ok and same
+        if same:
+            sa, sb = scores[:, cols][:, oa], cscores[:, cols][:, ob]
+            rel = max(rel, float((np.abs(sa - sb) / np.maximum(
+                np.abs(sb), 1e-30)).max()))
+    return dict(ids_equal=ok, score_max_rel=rel, permuted=int(permuted),
+                unheld_differ=int(unheld_differ))
+
+
+def s2s_scratch_scope(state, device="cuda"):
+    """A fresh scope holding a copy of ``state`` on ``device``."""
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set_var(n, t.to(device, copy=True))
+    return scope
+
+
 # ---------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4034,6 +4374,9 @@ def main():
     torch.cuda.empty_cache()
     with timed("tune"):
         tuned = phase_tune(args.seed)
+    torch.cuda.empty_cache()
+    with timed("seq2seq"):
+        s2s = phase_seq2seq(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -4041,7 +4384,8 @@ def main():
     # gradient merge (K1, K3, K4), inference in
     # f32 and bf16 (K1, K5), ResNet-50 bf16 training (none) and
     # inference (K5), and the tune phase's witnessed BERT-base bf16
-    # forward (K1, K5), each counted from 0 over its own run
+    # forward (K1, K5), and seq2seq training and beam-search decoding
+    # (none), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -4053,7 +4397,7 @@ def main():
                 "infer": inferred["launches"],
                 "train_resnet": trained_resnet["launches"],
                 "infer_resnet": inferred_resnet["launches"],
-                "tune": tuned["launches"]}
+                "tune": tuned["launches"], "seq2seq": s2s["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -4072,6 +4416,7 @@ def main():
               "train_remat": trained_remat,
               "infer": inferred, "train_resnet": trained_resnet,
               "infer_resnet": inferred_resnet, "tune": tuned,
+              "seq2seq": s2s,
               "launches": launches}
     line = []
     for name, rows in kres.items():

@@ -25,7 +25,11 @@ clipping through ``set_gradient_clip``, ``gradients``/``calc_gradient``,
 ``io`` with crash-safe checkpoints, graceful preemption in
 ``resilience.graceful``), and every optimizer, the learning-rate
 schedules (``layers.learning_rate_scheduler``) and gradient merge
-(``optimizer.GradientMergeOptimizer``: the executor's microbatch loop).
+(``optimizer.GradientMergeOptimizer``: the executor's microbatch loop),
+program verification and the autotuner (``FLAGS_check_program``,
+``FLAGS_autotune``), and control flow with seq2seq (``layers.While``,
+``StaticRNN``, the tensor arrays, beam search;
+``models.seq2seq.build_seq2seq_train``/``build_seq2seq_infer``).
 ``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """

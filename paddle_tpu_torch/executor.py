@@ -499,6 +499,11 @@ class Executor:
         for n in fetch_names:
             if n not in env:
                 env[n] = self._state(n, step.program, scope)
+            if not isinstance(env[n], torch.Tensor):
+                raise TypeError(
+                    f"fetch '{n}' is a {type(env[n]).__name__}, not a "
+                    f"tensor; fetch layers.tensor_array_to_tensor of a "
+                    f"tensor array")
             fetches.append(env[n])
         return fetches
 

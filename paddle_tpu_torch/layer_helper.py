@@ -65,6 +65,14 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, shape, dtype, persistable=False,
+                               stop_gradient=True, name=None):
+        return self.main_program.global_block.create_var(
+            name=name or unique_name.generate(".".join([self.name,
+                                                        "global"])),
+            shape=shape, dtype=dtype, persistable=persistable,
+            stop_gradient=stop_gradient)
+
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         return self.block.append_op(type, inputs=inputs, outputs=outputs,
                                     attrs=attrs)

@@ -3,7 +3,14 @@ builders call."""
 from .io import data  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from .nn2 import *  # noqa: F401,F403
-from .tensor import *  # noqa: F401,F403
+from .tensor import (assign, create_global_var, create_tensor,  # noqa: F401
+                     fill_constant, fill_constant_batch_size_like,
+                     gaussian_random, linspace, ones, ones_like,
+                     uniform_random, zeros, zeros_like)
+from .control_flow import (While, Switch, IfElse, StaticRNN,  # noqa: F401
+                           array_length, array_read, array_write, cond,
+                           create_array, tensor_array_to_tensor)
+from . import control_flow, nn, nn2, tensor  # noqa: F401
 from .learning_rate_scheduler import (cosine_decay, exponential_decay,  # noqa: F401
                                       inverse_time_decay, linear_lr_warmup,
                                       natural_exp_decay, noam_decay,

@@ -12,14 +12,21 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-           "clip", "clip_by_norm", "increment", "matmul",
+           "clip", "clip_by_norm", "increment", "matmul", "mul",
            "fused_multihead_attention", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_min",
            "elementwise_max", "elementwise_pow", "equal", "not_equal",
            "less_than", "less_equal", "greater_than", "greater_equal",
            "logical_and", "logical_or", "logical_xor", "scale", "reshape",
            "transpose", "cast", "unsqueeze", "dropout", "mean", "reduce_sum",
-           "softmax_with_cross_entropy", "slice", "topk", "accuracy", "where",
+           "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
+           "reduce_all", "reduce_any", "softmax_with_cross_entropy",
+           "cross_entropy", "square_error_cost",
+           "sigmoid_cross_entropy_with_logits", "huber_loss", "smooth_l1",
+           "log_loss", "cos_sim", "slice", "topk", "accuracy", "where",
+           "one_hot", "concat", "sums", "split", "flatten", "squeeze",
+           "stack", "unstack", "expand", "gather", "scatter", "shape", "pad",
+           "arg_max", "arg_min", "argsort", "cumsum",
            "relu", "sigmoid", "tanh", "exp", "log", "sqrt", "square", "abs",
            "ceil", "floor", "cos", "sin", "round", "reciprocal", "erf",
            "gelu", "logical_not", "soft_relu", "leaky_relu", "relu6", "elu",
@@ -415,18 +422,31 @@ def mean(x, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_variable_for_type_inference(input.dtype)
-    if dim is None:
-        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
-    else:
-        dims = dim if isinstance(dim, (list, tuple)) else [dim]
-        attrs = {"dim": list(dims), "keep_dim": keep_dim,
-                 "reduce_all": False}
-    helper.append_op("reduce_sum", inputs={"X": input}, outputs={"Out": out},
-                     attrs=attrs)
-    return out
+def _reduce(op_type):
+    def fn(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if dim is None:
+            attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+        else:
+            dims = dim if isinstance(dim, (list, tuple)) else [dim]
+            attrs = {"dim": list(dims), "keep_dim": keep_dim,
+                     "reduce_all": False}
+        helper.append_op(op_type, inputs={"X": input}, outputs={"Out": out},
+                         attrs=attrs)
+        return out
+
+    fn.__name__ = op_type
+    return fn
+
+
+reduce_sum = _reduce("reduce_sum")
+reduce_mean = _reduce("reduce_mean")
+reduce_max = _reduce("reduce_max")
+reduce_min = _reduce("reduce_min")
+reduce_prod = _reduce("reduce_prod")
+reduce_all = _reduce("reduce_all")
+reduce_any = _reduce("reduce_any")
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -480,3 +500,243 @@ def accuracy(input, label, k=1, correct=None, total=None):
                      outputs={"Accuracy": acc_out, "Correct": correct,
                               "Total": total})
     return acc_out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+# -- losses (reference layers/nn.py and loss.py) ----------------------------
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy", inputs={"X": input, "Label": label},
+                     outputs={"Y": out},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost", inputs={"X": input, "Y": label},
+                     outputs={"Out": out})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": x, "Label": label}, outputs={"Out": out},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    residual = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("huber_loss", inputs={"X": input, "Y": label},
+                     outputs={"Out": out, "Residual": residual},
+                     attrs={"delta": delta})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype, True)
+    inputs = {"X": x, "Y": y}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = inside_weight
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = outside_weight
+    helper.append_op("smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": out, "Diff": diff},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("log_loss", inputs={"Predicted": input, "Labels": label},
+                     outputs={"Loss": out}, attrs={"epsilon": epsilon})
+    return out
+
+
+def cos_sim(X, Y):
+    """Cosine similarity along the last dim (reference nn.py:1360)."""
+    helper = LayerHelper("cos_sim")
+    out_v = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype)
+    ynorm = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op("cos_sim", inputs={"X": X, "Y": Y},
+                     outputs={"Out": out_v, "XNorm": xnorm, "YNorm": ynorm})
+    return out_v
+
+
+# -- tensor manipulation (reference layers/nn.py) ---------------------------
+
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"depth": depth, "dtype": "float32"})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    out = out or helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": input}, outputs={"Out": out})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        attrs = {"num": num_or_sections, "sections": [], "axis": dim}
+        n_out = num_or_sections
+    else:
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+        n_out = len(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n_out)]
+    helper.append_op("split", inputs={"X": input}, outputs={"Out": outs},
+                     attrs=attrs)
+    return outs
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("flatten2", inputs={"X": x},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axis": axis})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("squeeze2", inputs={"X": input},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("stack", inputs={"X": x}, outputs={"Y": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op("unstack", inputs={"X": x}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("expand", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", inputs={"X": input, "Index": index},
+                     outputs={"Out": out})
+    return out
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("scatter",
+                     inputs={"X": input, "Ids": index, "Updates": updates},
+                     outputs={"Out": out}, attrs={"overwrite": overwrite})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op("shape", inputs={"Input": input}, outputs={"Out": out})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("pad", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": pad_value})
+    return out
+
+
+def arg_max(x, axis=0, name=None):
+    helper = LayerHelper("arg_max", name=name)
+    out = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("arg_max", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def arg_min(x, axis=0, name=None):
+    helper = LayerHelper("arg_min", name=name)
+    out = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("arg_min", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idx = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("argsort", inputs={"X": input},
+                     outputs={"Out": out, "Indices": idx},
+                     attrs={"axis": axis, "descending": descending})
+    return out, idx
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False):
+    helper = LayerHelper("cumsum")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("cumsum", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": axis, "exclusive": exclusive,
+                            "reverse": reverse})
+    return out

@@ -1,25 +1,40 @@
 """Layers of paddle_tpu's layers/nn2.py: the generative-inference ones
 (the KV-cache, gather, sampling and speculative-accept ops of
-``ops/generation.py``) and the one-op wrappers over ``ops/math.py``
+``ops/generation.py``), the one-op wrappers over ``ops/math.py``
 (``maxout``, ``selu``, ``stanh``, ``brelu``, ``sign``,
-``elementwise_mod``, ``elementwise_floordiv``)."""
+``elementwise_mod``, ``elementwise_floordiv``) and over the rest of
+``ops/tensor.py`` and ``ops/loss.py``."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
 __all__ = ["fused_decode_attention", "kv_cache_append", "sequence_gather",
            "spec_accept", "sample_token", "maxout", "selu", "stanh", "brelu",
-           "sign", "elementwise_mod", "elementwise_floordiv"]
+           "sign", "elementwise_mod", "elementwise_floordiv", "gather_nd",
+           "scatter_nd_add", "pad2d", "shard_index", "rank_loss",
+           "margin_rank_loss", "kldiv_loss", "bpr_loss", "mean_iou",
+           "uniform_random_batch_size_like",
+           "gaussian_random_batch_size_like"]
+
+
+def _outs(op_type, inputs, outs, attrs=None, name=None):
+    """One op; ``outs`` maps each output slot to its dtype (None: the
+    first input's), the first slot the main output, the rest stop the
+    gradient. Returns the output vars in order."""
+    helper = LayerHelper(op_type, name=name)
+    first = next(iter(inputs.values())).dtype
+    made = {}
+    for k, (slot, dt) in enumerate(outs.items()):
+        made[slot] = helper.create_variable_for_type_inference(
+            dt or first, stop_gradient=k > 0)
+    helper.append_op(op_type, inputs=inputs, outputs=made,
+                     attrs=attrs or {})
+    return list(made.values())
 
 
 def _one(op_type, inputs, attrs=None, name=None):
     """One op, one output ``Out`` of the first input's dtype."""
-    helper = LayerHelper(op_type, name=name)
-    out = helper.create_variable_for_type_inference(
-        next(iter(inputs.values())).dtype)
-    helper.append_op(op_type, inputs=inputs, outputs={"Out": out},
-                     attrs=attrs or {})
-    return out
+    return _outs(op_type, inputs, {"Out": None}, attrs, name)[0]
 
 
 def maxout(x, groups, axis=1, name=None):
@@ -129,3 +144,90 @@ def sample_token(logits, strategy="greedy", temperature=1.0, top_k=0,
                             "temperature": float(temperature),
                             "top_k": int(top_k)})
     return out
+
+
+def gather_nd(input, index, name=None):
+    return _one("gather_nd", {"X": input, "Index": index}, name=name)
+
+
+def scatter_nd_add(ref, index, updates, name=None):
+    return _one("scatter_nd_add",
+                {"X": ref, "Index": index, "Updates": updates}, name=name)
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    return _one("pad2d", {"X": input},
+                {"paddings": list(paddings), "mode": mode,
+                 "pad_value": float(pad_value), "data_format": data_format},
+                name=name)
+
+
+def shard_index(input, index_num, nshards, shard_id, ignore_value=-1,
+                name=None):
+    return _one("shard_index", {"X": input},
+                {"index_num": index_num, "nshards": nshards,
+                 "shard_id": shard_id, "ignore_value": ignore_value},
+                name=name)
+
+
+def rank_loss(label, left, right, name=None):
+    return _one("rank_loss", {"Label": label, "Left": left, "Right": right},
+                name=name)
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    return _outs("margin_rank_loss",
+                 {"Label": label, "X1": left, "X2": right},
+                 {"Out": None, "Activated": None},
+                 {"margin": float(margin)}, name=name)[0]
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    return _outs("kldiv_loss", {"X": x, "Target": target}, {"Loss": None},
+                 {"reduction": reduction}, name=name)[0]
+
+
+def bpr_loss(input, label, name=None):
+    return _outs("bpr_loss", {"X": input, "Label": label}, {"Y": None},
+                 name=name)[0]
+
+
+def mean_iou(input, label, num_classes):
+    return tuple(_outs("mean_iou", {"Predictions": input, "Labels": label},
+                       {"OutMeanIou": "float32", "OutWrong": "int32",
+                        "OutCorrect": "int32"},
+                       {"num_classes": num_classes}))
+
+
+def _random_batch_size_like(op_type, input, shape, dtype, attrs,
+                            input_dim_idx, output_dim_idx, name):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    sh = list(shape)
+    sh[output_dim_idx] = -1   # batch-sized at run time
+    helper.append_op(op_type, inputs={"Input": input}, outputs={"Out": out},
+                     attrs=dict(attrs, shape=sh, dtype=dtype,
+                                input_dim_idx=input_dim_idx,
+                                output_dim_idx=output_dim_idx))
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32", min=-1.0,
+                                   max=1.0, seed=0, input_dim_idx=0,
+                                   output_dim_idx=0, name=None):
+    return _random_batch_size_like(
+        "uniform_random_batch_size_like", input, shape, dtype,
+        {"min": min, "max": max, "seed": seed}, input_dim_idx,
+        output_dim_idx, name)
+
+
+def gaussian_random_batch_size_like(input, shape, dtype="float32",
+                                    mean=0.0, std=1.0, seed=0,
+                                    input_dim_idx=0, output_dim_idx=0,
+                                    name=None):
+    return _random_batch_size_like(
+        "gaussian_random_batch_size_like", input, shape, dtype,
+        {"mean": mean, "std": std, "seed": seed}, input_dim_idx,
+        output_dim_idx, name)

@@ -353,7 +353,12 @@ def auto_infer_shape(op, block) -> None:
         for slot, names in op.inputs.items():
             vals = []
             for n in names:
-                v = block.vars.get(n)
+                if n == EMPTY_VAR_NAME:
+                    vals.append(None)
+                    continue
+                # a sub-block op reads its ancestors' vars
+                v = block._var_recursive(n) \
+                    if block.has_var_recursive(n) else None
                 if v is None or v.shape is None:
                     return None
                 shape = tuple(sentinel if d == -1 else d for d in v.shape)
@@ -362,9 +367,9 @@ def auto_infer_shape(op, block) -> None:
             ins[slot] = vals
         return ins
 
-    dynamic = any(-1 in (block.vars[n].shape or ())
+    dynamic = any(-1 in (block._var_recursive(n).shape or ())
                   for names in op.inputs.values() for n in names
-                  if n in block.vars)
+                  if n != EMPTY_VAR_NAME and block.has_var_recursive(n))
     results = []
     for sentinel in _BATCH_SENTINELS:
         ins = build_ins(sentinel)

@@ -4,3 +4,4 @@ from .gpt import (GptConfig, build_gpt_chunk, build_gpt_decode,  # noqa: F401
                   build_gpt_generative, build_gpt_prefill)
 from .mlp import build_mnist_mlp  # noqa: F401
 from .resnet import build_resnet  # noqa: F401
+from .seq2seq import build_seq2seq_infer, build_seq2seq_train  # noqa: F401

@@ -1364,3 +1364,123 @@ def test_merged_step_adds_the_microbatch_gradients_on_the_card():
         moved = (init[p.name] - scope.find_var(p.name)).cpu().numpy()
         np.testing.assert_allclose(moved, total[p.name], rtol=1e-5,
                                    atol=1e-6, err_msg=p.name)
+
+
+# -- the control-flow slice: index grads, beam search, a seq2seq step ------
+
+def _index_grad_inputs(op_type, g):
+    """Inputs of ``op_type``'s grad rule with heavily repeated indices."""
+    if op_type == "lookup_table_v2":
+        return {"W": [torch.randn(512, 256, generator=g, device="cuda")],
+                "Ids": [torch.randint(0, 8, (64, 128), generator=g,
+                                      device="cuda")],
+                "Out@GRAD": [torch.randn(64, 128, 256, generator=g,
+                                         device="cuda")]}, {"padding_idx": 1}
+    x = torch.randn(64, 8, 256, generator=g, device="cuda")
+    if op_type == "gather":
+        idx = torch.randint(0, 6, (8192,), generator=g, device="cuda")
+        return {"X": [x], "Index": [idx], "Out@GRAD": [
+            torch.randn(8192, 8, 256, generator=g, device="cuda")]}, {}
+    if op_type == "gather_nd":
+        idx = torch.randint(0, 4, (8192, 2), generator=g, device="cuda")
+        return {"X": [x], "Index": [idx], "Out@GRAD": [
+            torch.randn(8192, 256, generator=g, device="cuda")]}, {}
+    out_grad = torch.randn(64, 8, 256, generator=g, device="cuda")
+    if op_type == "scatter":
+        idx = torch.randint(0, 6, (4096,), generator=g, device="cuda")
+        return {"X": [x], "Ids": [idx], "Updates": [
+            torch.randn(4096, 8, 256, generator=g, device="cuda")],
+            "Out@GRAD": [out_grad]}, {"overwrite": False}
+    idx = torch.randint(0, 4, (4096, 2), generator=g, device="cuda")
+    return {"X": [x], "Index": [idx], "Updates": [
+        torch.randn(4096, 256, generator=g, device="cuda")],
+        "Out@GRAD": [out_grad]}, {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op_type", ["gather", "gather_nd", "scatter",
+                                     "scatter_nd_add", "lookup_table_v2"])
+def test_index_grads_are_bit_identical_from_run_to_run(op_type):
+    """The grad rules of the index ops sum the rows that share an index
+    in a fixed order on the card (the sorted ``index_put_``, not
+    ``index_add_``'s atomics): two runs with thousands of rows on a few
+    indices give the same bits, within float32 rounding of the CPU."""
+    g = _cuda()
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    rule = registry.get_op_def(op_type).grad_lower
+    ins, attrs = _index_grad_inputs(op_type, g)
+    a = rule(LowerCtx("cuda"), ins, attrs)
+    b = rule(LowerCtx("cuda"), ins, attrs)
+    host = rule(LowerCtx("cpu"), {k: [v[0].cpu()] for k, v in ins.items()},
+                attrs)
+    assert sorted(a) == sorted(host)
+    for slot in a:
+        assert torch.equal(a[slot][0], b[slot][0]), slot
+        torch.testing.assert_close(a[slot][0].cpu(), host[slot][0],
+                                   rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_beam_search_on_the_card_breaks_ties_like_the_cpu():
+    """Scores on a coarse grid (most candidates tie) and finished beams
+    among them: the card picks what the CPU rule picks, ids, scores and
+    parents, at the decode's width (80 sources, beam 4, 30000 words)."""
+    g = _cuda()
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    rule = registry.get_op_def("beam_search").lower
+    nbk, k = 320, 30000
+    ins = {"pre_ids": [torch.randint(0, 3, (nbk, 1), generator=g,
+                                     device="cuda")],
+           "pre_scores": [torch.randint(0, 3, (nbk, 1), generator=g,
+                                        device="cuda").float() * 0.5],
+           "scores": [torch.randint(0, 4, (nbk, k), generator=g,
+                                    device="cuda").float() * 0.25]}
+    attrs = {"beam_size": 4, "end_id": 1, "is_accumulated": True}
+    card = rule(LowerCtx("cuda"), ins, attrs)
+    host = rule(LowerCtx("cpu"), {s: [v[0].cpu()] for s, v in ins.items()},
+                attrs)
+    for slot in card:
+        assert torch.equal(card[slot][0].cpu(), host[slot][0]), slot
+
+
+@pytest.mark.cuda
+def test_seq2seq_step_on_the_card_matches_the_cpu():
+    """A small seq2seq (vocab 500, emb 32, hidden 64, length 8, batch 8):
+    two Adam steps on the card from the CPU's initial weights give the
+    CPU's losses within float32 rtol 1e-5, and beam-search decoding then
+    gives the CPU's ids."""
+    _cuda()
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import seq2seq
+
+    with fluid.unique_name.guard():
+        net = seq2seq.build_seq2seq_train(500, 500, 32, 64, 8, 8, 8)
+    with fluid.unique_name.guard():
+        infer = seq2seq.build_seq2seq_infer(500, 500, 32, 64, 8, 8, 4, 8)
+    cpu = fluid.Executor(fluid.CPUPlace())
+    scope0 = fluid.Scope()
+    cpu.run(net["startup"], scope=scope0)
+    rng = np.random.RandomState(0)
+    feed = {k: rng.randint(0, 500, (8, 8)).astype(np.int64)
+            for k in net["feeds"]}
+    out = {}
+    for tag, exe in (("cpu", cpu), ("cuda", fluid.Executor())):
+        scope = fluid.Scope()
+        for n, t in scope0.vars.items():
+            scope.set_var(n, t.clone())
+        losses = [float(exe.run(net["main"], feed=feed,
+                                fetch_list=[net["loss"]],
+                                scope=scope)[0].reshape(-1)[0])
+                  for _ in range(2)]
+        ids = exe.run(infer["main"], feed={"src_ids": feed["src_ids"]},
+                      fetch_list=infer["fetches"][:1], scope=scope)[0]
+        out[tag] = (losses, ids)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    assert out["cuda"][1].shape == (9, 32)
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])

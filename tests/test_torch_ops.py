@@ -353,6 +353,162 @@ CASES.update({
 })
 
 
+# the rest of ops/tensor.py
+_IDS = np.array([[3], [0], [3], [5]], np.int64)
+CASES.update({
+    "fill_constant_batch_size_like": (
+        {"Input": {"x": f32(5, 3)}}, {"Out": ["o"]},
+        {"shape": [-1, 4], "dtype": "int64", "value": 3.0,
+         "input_dim_idx": 0, "output_dim_idx": 0}, ["o"]),
+    "fill_zeros_like": _unary(f32(3, 4)),
+    "assign_value": ({}, {"Out": ["o"]},
+                     {"shape": [2, 3], "dtype": "float32",
+                      "values": [0.5, -1.0, 2.0, 3.25, 0.0, 7.0]}, ["o"]),
+    "shape": ({"Input": {"x": f32(2, 3, 5)}}, {"Out": ["o"]}, {}, ["o"]),
+    "concat": ({"X": {"a": f32(2, 3), "b": f32(2, 5)}}, {"Out": ["o"]},
+               {"axis": 1}, ["o"]),
+    "split": ({"X": {"x": f32(2, 9)}}, {"Out": ["o1", "o2", "o3"]},
+              {"sections": [2, 3, 4], "axis": 1}, ["o1", "o2", "o3"]),
+    "squeeze2": ({"X": {"x": f32(2, 1, 3, 1)}},
+                 {"Out": ["o"], "XShape": ["xs"]}, {"axes": [1, 2, -1]},
+                 ["o"]),
+    "stack": ({"X": {"a": f32(2, 3), "b": f32(2, 3)}}, {"Y": ["y"]},
+              {"axis": 1}, ["y"]),
+    "unstack": ({"X": {"x": f32(2, 3, 4)}}, {"Y": ["y1", "y2", "y3"]},
+                {"axis": 1, "num": 3}, ["y1", "y2", "y3"]),
+    "expand": _unary(f32(2, 1, 3), expand_times=[1, 4, 2]),
+    "gather": ({"X": {"x": f32(6, 3)},
+                "Index": {"i": np.array([5, 0, -1, 2, 5], np.int64)}},
+               {"Out": ["o"]}, {}, ["o"]),
+    "scatter": ({"X": {"x": f32(6, 3)},
+                 "Ids": {"i": np.array([4, 1, -1], np.int64)},
+                 "Updates": {"u": f32(3, 3)}},
+                {"Out": ["o"]}, {"overwrite": True}, ["o"]),
+    "one_hot": ({"X": {"x": np.array([[1], [4], [0], [7]], np.int64)}},
+                {"Out": ["o"]}, {"depth": 5}, ["o"]),
+    "lookup_table_v2": ({"W": {"w": f32(10, 4)}, "Ids": {"ids": _IDS}},
+                        {"Out": ["o"]}, {"padding_idx": 0}, ["o"]),
+    "arg_max": _unary(f32(3, 5), axis=1),
+    "arg_min": _unary(f32(3, 5), axis=0),
+    "argsort": ({"X": {"x": np.array([[3.0, 1.0, 3.0, 2.0, 1.0]],
+                                     np.float32)}},
+                {"Out": ["o"], "Indices": ["i"]}, {"descending": True},
+                ["o", "i"]),
+    "cumsum": _unary(f32(3, 5), axis=1, exclusive=True, reverse=True),
+    "range": ({}, {"Out": ["o"]},
+              {"start": 1.0, "end": 9.0, "step": 1.5, "dtype": "float32"},
+              ["o"]),
+    "flatten2": ({"X": {"x": f32(2, 3, 4)}},
+                 {"Out": ["o"], "XShape": ["xs"]}, {"axis": 2}, ["o"]),
+    "pad": _unary(f32(2, 3), paddings=[1, 0, 2, 3], pad_value=-1.5),
+    "gather_nd": ({"X": {"x": f32(4, 5, 3)},
+                   "Index": {"i": np.array([[1, 2], [3, -1], [0, 0]],
+                                           np.int64)}},
+                  {"Out": ["o"]}, {}, ["o"]),
+    "scatter_nd_add": ({"X": {"x": f32(4, 5)},
+                        "Index": {"i": np.array([[1, 2], [3, 4], [1, 2]],
+                                                np.int64)},
+                        "Updates": {"u": f32(3)}},
+                       {"Out": ["o"]}, {}, ["o"]),
+    "reverse": _unary(f32(2, 3, 4), axis=[0, 2]),
+    "expand_as": ({"X": {"x": f32(2, 3)},
+                   "target_tensor": {"t": f32(4, 6)}}, {"Out": ["o"]}, {},
+                  ["o"]),
+    "diag": ({"Diagonal": {"d": f32(4)}}, {"Out": ["o"]}, {}, ["o"]),
+    "eye": ({}, {"Out": ["o"]}, {"num_rows": 3, "num_columns": 5}, ["o"]),
+    "pad2d": _unary(f32(2, 3, 4, 5), paddings=[1, 2, 2, 1],
+                    mode="reflect"),
+    "roll": _unary(f32(3, 4), shifts=[1, -2], axis=[0, 1]),
+    "shard_index": ({"X": {"x": np.array([[1], [6], [12], [19]],
+                                         np.int64)}},
+                    {"Out": ["o"]},
+                    {"index_num": 20, "nshards": 3, "shard_id": 1},
+                    ["o"]),
+})
+
+# the rest of ops/loss.py
+_PROBS = np.random.RandomState(3).dirichlet(np.ones(5), 4).astype(
+    np.float32)
+CASES.update({
+    "reduce_mean": _unary(f32(2, 3, 4), dim=[0, -1]),
+    "reduce_max": _unary(f32(2, 3, 4), dim=[1], keep_dim=True),
+    "reduce_min": _unary(f32(2, 3, 4), reduce_all=True),
+    "reduce_prod": _unary(pos(2, 3, 4), dim=[0, 2]),
+    "reduce_all": _unary(f32(2, 3, 4) > -1.0, dim=[1, 2]),
+    "reduce_any": _unary(f32(2, 3, 4) > 1.0, dim=[0]),
+    "cross_entropy": ({"X": {"x": _PROBS},
+                       "Label": {"lb": np.array([[1], [-100], [4], [0]],
+                                                np.int64)}},
+                      {"Y": ["y"]}, {}, ["y"]),
+    "sigmoid_cross_entropy_with_logits": (
+        {"X": {"x": f32(4, 3) * 2},
+         "Label": {"lb": np.array([[1, 0, -100], [0, 1, 1], [1, 1, 0],
+                                   [0, 0, 1]], np.float32)}},
+        {"Out": ["o"]}, {"normalize": True}, ["o"]),
+    "square_error_cost": _binary(f32(4, 1), f32(4, 1)),
+    "huber_loss": ({"X": {"x": f32(5, 1)}, "Y": {"y": f32(5, 1) * 2}},
+                   {"Out": ["o"], "Residual": ["r"]}, {"delta": 0.8},
+                   ["o", "r"]),
+    "smooth_l1_loss": ({"X": {"x": f32(3, 4)}, "Y": {"y": f32(3, 4)},
+                        "InsideWeight": {"iw": pos(3, 4)},
+                        "OutsideWeight": {"ow": pos(3, 4)}},
+                       {"Out": ["o"], "Diff": ["d"]}, {"sigma": 1.5},
+                       ["o", "d"]),
+    "log_loss": ({"Predicted": {"p": _PROBS[:, :1]},
+                  "Labels": {"lb": np.array([[1.0], [0.0], [1.0], [0.0]],
+                                            np.float32)}},
+                 {"Loss": ["l"]}, {}, ["l"]),
+    "auc": ({"Predict": {"p": np.random.RandomState(4).rand(16, 2)
+                         .astype(np.float32)},
+             "Label": {"lb": np.random.RandomState(5).randint(0, 2, (16, 1))
+                       .astype(np.int64)},
+             "StatPos": {"sp": np.zeros((1, 201), np.int64)},
+             "StatNeg": {"sn": np.zeros((1, 201), np.int64)}},
+            {"AUC": ["a"], "StatPosOut": ["spo"], "StatNegOut": ["sno"]},
+            {"num_thresholds": 200}, ["a", "spo", "sno"]),
+    "kldiv_loss": ({"X": {"x": np.log(_PROBS)},
+                    "Target": {"t": np.where(_PROBS > 0.1, _PROBS, 0.0)
+                               .astype(np.float32)}},
+                   {"Loss": ["l"]}, {"reduction": "batchmean"}, ["l"]),
+    "hinge_loss": ({"Logits": {"x": f32(4, 1)},
+                    "Labels": {"lb": np.array([[1.0], [0.0], [1.0], [0.0]],
+                                              np.float32)}},
+                   {"Loss": ["l"]}, {}, ["l"]),
+    "margin_rank_loss": ({"Label": {"lb": np.array([[1.0], [-1.0], [1.0]],
+                                                   np.float32)},
+                          "X1": {"a": f32(3, 1)}, "X2": {"b": f32(3, 1)}},
+                         {"Out": ["o"], "Activated": ["act"]},
+                         {"margin": 0.1}, ["o", "act"]),
+    "rank_loss": ({"Label": {"lb": np.array([[1.0], [0.0], [0.5]],
+                                            np.float32)},
+                   "Left": {"a": f32(3, 1)}, "Right": {"b": f32(3, 1)}},
+                  {"Out": ["o"]}, {}, ["o"]),
+    "bpr_loss": ({"X": {"x": f32(4, 5)},
+                  "Label": {"lb": np.array([[1], [4], [0], [2]],
+                                           np.int64)}},
+                 {"Y": ["y"]}, {}, ["y"]),
+    "cos_sim": ({"X": {"x": f32(4, 6)}, "Y": {"y": f32(4, 6)}},
+                {"Out": ["o"], "XNorm": ["xn"], "YNorm": ["yn"]}, {},
+                ["o", "xn", "yn"]),
+    "mean_iou": ({"Predictions": {"p": np.array([0, 1, 2, 2, 1, 0, 3],
+                                                np.int64)},
+                  "Labels": {"lb": np.array([0, 2, 2, 1, 1, 0, 0],
+                                            np.int64)}},
+                 {"OutMeanIou": ["m"], "OutWrong": ["w"],
+                  "OutCorrect": ["c"]}, {"num_classes": 4},
+                 ["m", "w", "c"]),
+    "precision_recall": (
+        {"MaxProbs": {"mp": _PROBS[:, :1]},
+         "Indices": {"i": np.array([[0], [2], [1], [2]], np.int64)},
+         "Labels": {"lb": np.array([[0], [1], [1], [2]], np.int64)},
+         "Weights": {"w": pos(4, 1)},
+         "StatesInfo": {"st": pos(3, 4)}},
+        {"BatchMetrics": ["bm"], "AccumMetrics": ["am"],
+         "AccumStatesInfo": ["ast"]}, {"class_number": 3},
+        ["bm", "am", "ast"]),
+})
+
+
 def _build(program_cls, op_type, case):
     ins, outs, attrs, _ = case
     main = program_cls()
@@ -388,21 +544,30 @@ def _run_both(op_type, case):
 
 
 RANDOM_OPS = {"truncated_gaussian_random", "dropout", "uniform_random",
-              "gaussian_random"}
+              "gaussian_random", "uniform_random_batch_size_like",
+              "gaussian_random_batch_size_like"}
 # ops that run a sub-block: checked by the programs that build them
 # (conditional_block: the AMP skip-update, tests/test_torch_amp.py;
 # recompute_segment: gradient checkpointing, tests/test_torch_remat.py)
 BLOCK_OPS = {"conditional_block", "recompute_segment"}
+# while, recurrent, the tensor arrays and beam search: checked by the
+# programs of tests/test_torch_control_flow.py and tests/test_torch_seq2seq.py
+CONTROL_FLOW_OPS = {"while", "recurrent", "create_array", "write_to_array",
+                    "read_from_array", "lod_array_length",
+                    "tensor_array_to_tensor", "beam_search",
+                    "beam_search_decode"}
 
 
 def test_every_path_op_has_a_case():
     """Every op type of the port but the random ones (checked by
     distribution: here, in tests/test_torch_train.py and
-    tests/test_torch_mlp.py) and the sub-block ones has a case."""
+    tests/test_torch_mlp.py), the sub-block ones and the control-flow
+    ones has a case."""
     from paddle_tpu_torch.core import registry
 
-    assert len(CASES) == 118 and not (RANDOM_OPS | BLOCK_OPS) & set(CASES)
-    assert set(CASES) | RANDOM_OPS | BLOCK_OPS == set(registry.all_ops())
+    others = RANDOM_OPS | BLOCK_OPS | CONTROL_FLOW_OPS
+    assert len(CASES) == 169 and not others & set(CASES)
+    assert set(CASES) | others == set(registry.all_ops())
 
 
 @pytest.mark.parametrize("op_type", sorted(CASES))
@@ -471,3 +636,39 @@ def test_sample_token_sample_support_and_determinism():
         for i in range(4):
             assert row[i] in top3[i]
     assert len({tuple(r) for r in a}) > 1      # steps draw afresh
+
+
+@pytest.mark.parametrize("op_type,attrs,moments", [
+    ("uniform_random_batch_size_like", {"min": -0.5, "max": 1.5},
+     (0.5, 2.0 / np.sqrt(12.0))),
+    ("gaussian_random_batch_size_like", {"mean": 1.0, "std": 0.5},
+     (1.0, 0.5))])
+def test_random_batch_size_like_distribution_and_seeding(op_type, attrs,
+                                                         moments):
+    """The batch dim comes from Input (dim 1 here, into dim 0), the bits
+    from the op's generator (they differ from jax.random's): a fixed
+    program seed repeats the draw, another seed changes it, and the
+    moments are the distribution's."""
+    def draw(seed):
+        main = TProgram()
+        main.random_seed = seed
+        blk = main.global_block
+        blk.create_var(name="x", shape=(3, 400), dtype="float32",
+                       is_data=True)
+        blk.create_var(name="o")
+        blk.append_op(op_type, inputs={"Input": ["x"]},
+                      outputs={"Out": ["o"]},
+                      attrs=dict(attrs, shape=[-1, 50], input_dim_idx=1,
+                                 output_dim_idx=0))
+        return tfluid.Executor(tfluid.CPUPlace()).run(
+            main, feed={"x": np.zeros((3, 400), np.float32)},
+            fetch_list=["o"], scope=tfluid.Scope())[0]
+
+    a, b, c = draw(3), draw(3), draw(4)
+    assert a.shape == (400, 50) and a.dtype == np.float32
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+    assert abs(a.mean() - moments[0]) < 0.02
+    assert abs(a.std() - moments[1]) < 0.02
+    if op_type.startswith("uniform"):
+        assert a.min() >= -0.5 and a.max() < 1.5
