@@ -251,7 +251,28 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    compared as a set: the margin holds which beams survive, not their
    order), and at least 40 of the 80 held (``S2S_MIN_HELD``). Reports
    sentences/s, ms a beam step and the sources excluded.
-18. prints the script time of each phase and part (``[seconds]``), the
+18. gru_encdec — the book's RNN encoder-decoder (fluid's
+   test_rnn_encoder_decoder: ``fc(3H) -> dynamic_gru ->
+   sequence_last_step`` encodes, ``dynamic_gru(h_0=last)`` decodes into
+   ``fc(30000)`` and ``softmax_with_cross_entropy``, the loss masked by
+   ``sequence_mask(seq_len_var(trg), maxlen=50)``) at RNNencdec-50's
+   widths (30000 / 620 / 1000, batch 80, 76.96 M parameters, f32, Adam at
+   1e-3) on variable-length batches: each sentence's source and target
+   lengths uniform in 10..50 from ``--seed``, padded through the port's
+   ``DataFeeder(seq_buckets=(50,))``. 10 steps; a second run of 3 steps
+   from the same state repeats them bit for bit (losses and every state
+   var); 3 steps on the CPU within ``S2S_LOSS_RTOL``; the same sentences
+   padded to 64 (a program masking 64) give the step-1 loss within rtol
+   1e-5; the fetched encoder Hidden is exactly 0 past each length and
+   ``sequence_last_step`` equals Hidden[b, len_b - 1] bit for bit;
+   ``build_seq2seq_train_varlen`` at the same widths and sentences, 3
+   steps, within rtol 1e-5 of the CPU at step 1; no kernel of the port
+   launches. Reports valid target tokens/s (the target lengths summed,
+   not the padding), ms a step, achieved TFLOP/s of ``GE_STEP_FLOP``, the
+   step's peak beside ``memory_plan``'s, and one profiled step's idle
+   share, device kernels, device ms by op role and of ``gru``, its
+   generic grad's rerun and ``gru_grad``.
+19. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -272,6 +293,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -4323,6 +4345,273 @@ def s2s_scratch_scope(state, device="cuda"):
     return scope
 
 
+# ------------------------------------------------------------- gru_encdec
+# The book's RNN encoder-decoder (fluid's test_rnn_encoder_decoder: GRU
+# encoder, its last valid state starting a GRU decoder) at RNNencdec-50's
+# widths (as the seq2seq phase), trained on variable-length batches: the
+# lengths per sentence uniform in 10..50 (ours; the paper only bounds
+# them), fed through the DataFeeder with one bucket of 50
+GE_MIN_LEN, GE_MAX_LEN, GE_PAD_LEN = 10, 50, 64
+GE_STEPS, GE_REPEAT_STEPS, GE_CPU_STEPS, GE_VARLEN_STEPS = 10, 3, 3, 3
+GE_LR = 1e-3
+# one batch padded to 50 and to 64: the same loss (padding is masked)
+GE_PAD_RTOL = 1e-5
+# multiply-adds a step x 2: forward (gate fcs 2 x 14.9, the two GRUs
+# 2 x 24, the [4000,1000]@[1000,30000] projection 240 GFLOP), backward
+# twice that, and the generic grads' reruns of the products once more
+GE_STEP_FLOP = 4 * (2 * 2 * S2S_BATCH * GE_MAX_LEN * S2S_EMB * 3 * S2S_HIDDEN
+                    + 2 * 2 * S2S_BATCH * GE_MAX_LEN * S2S_HIDDEN
+                    * 3 * S2S_HIDDEN
+                    + 2 * S2S_BATCH * GE_MAX_LEN * S2S_HIDDEN * S2S_VOCAB)
+
+
+def build_gru_encdec(maxlen, lr=GE_LR):
+    """The book's graph: ``fc(3H) -> dynamic_gru -> sequence_last_step``
+    encodes, ``dynamic_gru(h_0=last)`` decodes into ``fc(vocab,
+    num_flatten_dims=2)`` and ``softmax_with_cross_entropy``, the loss
+    masked by ``sequence_mask(seq_len_var(trg), maxlen)``; Adam."""
+    L = fluid.layers
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            src = L.data("src", shape=[1], dtype="int64", lod_level=1)
+            trg = L.data("trg", shape=[1], dtype="int64", lod_level=1)
+            nxt = L.data("trg_next", shape=[1], dtype="int64", lod_level=1)
+            s_emb = L.embedding(src, size=[S2S_VOCAB, S2S_EMB])
+            enc = L.dynamic_gru(L.fc(s_emb, 3 * S2S_HIDDEN,
+                                     num_flatten_dims=2), size=S2S_HIDDEN)
+            enc_last = L.sequence_last_step(enc)
+            t_emb = L.embedding(trg, size=[S2S_VOCAB, S2S_EMB])
+            dec = L.dynamic_gru(L.fc(t_emb, 3 * S2S_HIDDEN,
+                                     num_flatten_dims=2),
+                                size=S2S_HIDDEN, h_0=enc_last)
+            logits = L.fc(dec, S2S_VOCAB, num_flatten_dims=2)
+            ce = L.softmax_with_cross_entropy(logits, nxt)
+            mask = L.cast(L.sequence_mask(L.sequence.seq_len_var(trg),
+                                          maxlen=maxlen), "float32")
+            loss = L.reduce_sum(L.squeeze(ce, axes=[2]) * mask) / (
+                L.reduce_sum(mask) + 1e-6)
+            fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return {"main": main, "startup": startup, "loss": loss, "enc": enc,
+            "enc_last": enc_last, "feed_vars": [src, trg, nxt]}
+
+
+def ge_samples(seed):
+    """S2S_BATCH sentence pairs, each length uniform in 10..50: (source,
+    target input behind bos 0, target output)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(S2S_BATCH):
+        ls, lt = rng.randint(GE_MIN_LEN, GE_MAX_LEN + 1, 2)
+        src = rng.randint(2, S2S_VOCAB, ls).astype(np.int64)
+        tgt = rng.randint(2, S2S_VOCAB, lt).astype(np.int64)
+        out.append((src, np.concatenate([[0], tgt[:-1]]), tgt))
+    return out
+
+
+def ge_init(net, seed):
+    net["startup"].random_seed = seed
+    scope = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope)
+    return dict(scope.vars)
+
+
+def _add_launches(total, counts):
+    for n, c in counts.items():
+        total[n] = total.get(n, 0) + c
+
+
+def phase_gru_encdec(seed):
+    """Train the book's GRU encoder-decoder at RNNencdec-50's widths on
+    variable-length batches; repeat, card against CPU, padding
+    invariance, masking, and build_seq2seq_train_varlen beside it."""
+    net = build_gru_encdec(GE_MAX_LEN)
+    init = ge_init(net, seed)
+    samples = ge_samples(seed + 21)
+    feed = fluid.DataFeeder(feed_list=net["feed_vars"], program=net["main"],
+                            seq_buckets=(GE_MAX_LEN,)).feed(samples)
+    if feed["src"].shape != (S2S_BATCH, GE_MAX_LEN, 1):
+        raise SystemExit(f"chip_smoke: gru_encdec feed padded to "
+                         f"{feed['src'].shape}")
+    valid = int(feed["trg@LOD"].sum())
+    n_params = sum(init[p.name].numel() for p in net["main"].all_parameters())
+    predicted = net["main"].memory_plan(
+        feed_names=sorted(feed), fetch_names=[net["loss"].name],
+        batch_size=S2S_BATCH).peak_bytes
+    launches = {}
+
+    with timed("gru_encdec.train"):
+        run = s2s_train(net, init, feed, GE_STEPS,
+                        snapshot_at=GE_REPEAT_STEPS)
+    _add_launches(launches, run["launches"])
+    del run["exe"], run["scope"]
+    with timed("gru_encdec.repeat"):
+        again = s2s_train(net, init, feed, GE_REPEAT_STEPS)
+    _add_launches(launches, again["launches"])
+    same_losses = np.array_equal(again["losses"],
+                                 run["losses"][:GE_REPEAT_STEPS])
+    differ = [n for n, t in run.pop("snapshot").items()
+              if not torch.equal(t, again["scope"].vars[n])]
+    # one more step, profiled by op role and by op (the generic grads'
+    # reruns of gru appear as rerun::gru)
+    K.reset_launch_counts()
+    with op_ranges(), role_ranges():
+        prof = profile_run(lambda: again["exe"].run(
+            net["main"], feed=feed, fetch_list=[net["loss"]],
+            scope=again["scope"]))
+    _add_launches(launches, K.launch_counts())
+    del again
+
+    with timed("gru_encdec.pad"):
+        # the same sentences padded to 64 through a program masking 64
+        net64 = build_gru_encdec(GE_PAD_LEN)
+        feed64 = fluid.DataFeeder(feed_list=net64["feed_vars"],
+                                  program=net64["main"],
+                                  seq_buckets=(GE_PAD_LEN,)).feed(samples)
+        pad = s2s_train(net64, init, feed64, 1)
+        _add_launches(launches, pad["launches"])
+        del pad["exe"], pad["scope"], net64
+        pad_rel = abs(pad["losses"][0] - run["losses"][0]) / abs(
+            run["losses"][0])
+
+    with timed("gru_encdec.mask"):
+        K.reset_launch_counts()
+        hid, last = fluid.Executor().run(
+            net["main"], feed=feed, scope=s2s_scratch_scope(init),
+            fetch_list=[net["enc"], net["enc_last"]])
+        _add_launches(launches, K.launch_counts())
+        lens = feed["src@LOD"].astype(np.int64)
+        past = np.arange(GE_MAX_LEN)[None, :] >= lens[:, None]
+        pad_zero = bool((hid[past] == 0).all())
+        last_exact = bool(np.array_equal(
+            last, hid[np.arange(S2S_BATCH), lens - 1]))
+
+    with timed("gru_encdec.cpu_train"):
+        cpu = s2s_train(net, {n: t.cpu() for n, t in init.items()}, feed,
+                        GE_CPU_STEPS, exe=fluid.Executor(fluid.CPUPlace()))
+    del cpu["exe"], cpu["scope"]
+    losses = run["losses"]
+    rel = np.abs(losses[:GE_CPU_STEPS] - cpu["losses"]) / np.abs(
+        cpu["losses"])
+
+    with timed("gru_encdec.varlen"):
+        with warnings.catch_warnings():
+            # the token loss's producers reach both companions; the
+            # target's, the first, binds (the JAX package warns alike)
+            warnings.simplefilter("ignore", RuntimeWarning)
+            with fluid.unique_name.guard():
+                vnet = seq2seq.build_seq2seq_train_varlen(
+                    S2S_VOCAB, S2S_VOCAB, S2S_EMB, S2S_HIDDEN, lr=GE_LR)
+        vinit = ge_init(vnet, seed)
+        vfeed = fluid.DataFeeder(feed_list=vnet["feed_vars"],
+                                 program=vnet["main"],
+                                 seq_buckets=(GE_MAX_LEN,)).feed(samples)
+        vrun = s2s_train(vnet, vinit, vfeed, GE_VARLEN_STEPS)
+        _add_launches(launches, vrun["launches"])
+        del vrun["exe"], vrun["scope"]
+        vcpu = s2s_train(vnet, {n: t.cpu() for n, t in vinit.items()},
+                         vfeed, 1, exe=fluid.Executor(fluid.CPUPlace()))
+        del vcpu["exe"], vcpu["scope"], vinit
+        vrel = abs(vrun["losses"][0] - vcpu["losses"][0]) / abs(
+            vcpu["losses"][0])
+
+    roles = {k[len("role::"):]: v["ms"] for k, v in prof["ranges"].items()
+             if k.startswith("role::")}
+    ops = {k: v for k, v in prof["ranges"].items()
+           if k.startswith(("op::", "rerun::"))}
+    gru_ms = {k: ops[k]["ms"] for k in ("op::gru", "rerun::gru",
+                                        "op::gru_grad") if k in ops}
+    step_s = run["step_s"]
+    log(f"[gru_encdec] the book's GRU encoder-decoder at RNNencdec-50 "
+        f"widths (vocab {S2S_VOCAB}, emb {S2S_EMB}, hidden {S2S_HIDDEN}, "
+        f"batch {S2S_BATCH}, lengths {GE_MIN_LEN}-{GE_MAX_LEN} padded to "
+        f"{GE_MAX_LEN}; {n_params / 1e6:.2f} M parameters), f32, Adam, "
+        f"{GE_STEPS} steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    log(f"  {valid / step_s:.1f} valid target tokens/s ({valid} of "
+        f"{S2S_BATCH * GE_MAX_LEN} a step), {step_s * 1e3:.1f} ms a step "
+        f"(steps 2-{GE_STEPS}; step 1 {run['first_step_s']:.3f} s), "
+        f"{GE_STEP_FLOP / step_s / 1e12:.2f} TFLOP/s of "
+        f"{GE_STEP_FLOP / 1e12:.3f} TFLOP a step; step peak "
+        f"{run['step_peak_bytes'] / 2**30:.3f} GiB, memory_plan "
+        f"{predicted / 2**30:.3f} GiB (every -1 read as {S2S_BATCH}, the "
+        f"time axis too; raw peak {run['peak_bytes'] / 2**30:.3f} GiB)")
+    log(f"  profiled step: wall {prof['wall_s'] * 1e3:.1f} ms, device busy "
+        f"{prof['device_busy_s'] * 1e3:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['device_kernels']} device "
+        f"kernels; device ms by role: " + ", ".join(
+            f"{r} {ms:.1f}" for r, ms in sorted(roles.items()))
+        + "; gru: " + ", ".join(f"{k} {v:.2f}" for k, v in gru_ms.items()))
+    for r in prof["top_kernels"][:6]:
+        log(f"    {r['ms']:8.3f} ms {r['calls']:5d} calls  {r['name']}")
+    log(f"  repeat of {GE_REPEAT_STEPS} steps: losses bit-identical "
+        f"{same_losses}, state vars differing {len(differ)}")
+    log(f"  card against CPU ({GE_CPU_STEPS} steps): rel step 1 "
+        f"{rel[0]:.3e}, later max {rel[1:].max():.3e} (tolerance "
+        f"{S2S_LOSS_RTOL}); CPU step {cpu['step_s']:.2f} s")
+    log(f"  padded to {GE_PAD_LEN}: loss rel {pad_rel:.3e} (tolerance "
+        f"{GE_PAD_RTOL}); encoder Hidden 0 past each length {pad_zero}, "
+        f"last step = Hidden[b, len-1] bit for bit {last_exact}")
+    log(f"  build_seq2seq_train_varlen at the same widths and feeds: "
+        f"{vrun['step_s'] * 1e3:.1f} ms a step, loss "
+        f"{vrun['losses'][0]:.6f} -> {vrun['losses'][-1]:.6f}, card "
+        f"against CPU step 1 rel {vrel:.3e}; port kernel launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"chip_smoke: gru_encdec loss did not fall: "
+                         f"{losses.tolist()}")
+    if not same_losses or differ:
+        raise SystemExit(f"chip_smoke: two gru_encdec runs from the same "
+                         f"state differ: losses {same_losses}, vars "
+                         f"{differ[:5]}")
+    if rel[0] > S2S_LOSS_RTOL[0] or rel[1:].max() > S2S_LOSS_RTOL[1]:
+        raise SystemExit(f"chip_smoke: gru_encdec on the card and on the "
+                         f"CPU disagree: {rel.tolist()}")
+    if not pad_rel <= GE_PAD_RTOL:
+        raise SystemExit(f"chip_smoke: gru_encdec padded to {GE_PAD_LEN} "
+                         f"changes the loss: rel {pad_rel:.3e}")
+    if not (pad_zero and last_exact):
+        raise SystemExit(f"chip_smoke: gru_encdec masking: Hidden 0 past "
+                         f"the lengths {pad_zero}, last step exact "
+                         f"{last_exact}")
+    if not np.isfinite(vrun["losses"]).all() or vrel > S2S_LOSS_RTOL[0]:
+        raise SystemExit(f"chip_smoke: build_seq2seq_train_varlen "
+                         f"{vrun['losses'].tolist()}, card against CPU rel "
+                         f"{vrel:.3e}")
+    if any(launches.values()):
+        raise SystemExit(f"chip_smoke: the gru_encdec path launched a "
+                         f"kernel of the port: {launches}")
+    return dict(
+        config=dict(vocab=S2S_VOCAB, emb=S2S_EMB, hidden=S2S_HIDDEN,
+                    batch=S2S_BATCH, lengths=[GE_MIN_LEN, GE_MAX_LEN],
+                    padded=GE_MAX_LEN, params=n_params),
+        losses=losses.tolist(), cpu_losses=cpu["losses"].tolist(),
+        cpu_rel_diff=rel.tolist(), cpu_step_s=cpu["step_s"],
+        repeat_bit_identical=same_losses and not differ,
+        step_ms=step_s * 1e3, first_step_s=run["first_step_s"],
+        valid_target_tokens=valid,
+        valid_target_tokens_per_s=valid / step_s,
+        padded_tokens_per_s=S2S_BATCH * GE_MAX_LEN / step_s,
+        step_tflop=GE_STEP_FLOP / 1e12,
+        tflop_per_s=GE_STEP_FLOP / step_s / 1e12,
+        step_peak_gib=run["step_peak_bytes"] / 2**30,
+        peak_gib=run["peak_bytes"] / 2**30,
+        predicted_peak_gib=predicted / 2**30,
+        held_gib=[b / 2**30 for b in run["held_bytes"]],
+        pad_rel_diff=pad_rel, hidden_zero_past_length=pad_zero,
+        last_step_exact=last_exact,
+        profiled_step=dict(wall_ms=prof["wall_s"] * 1e3,
+                           busy_ms=prof["device_busy_s"] * 1e3,
+                           idle_share=prof["idle_share"],
+                           device_kernels=prof["device_kernels"],
+                           role_ms=roles, gru_ms=gru_ms,
+                           op_ms={k: v["ms"] for k, v in ops.items()},
+                           top_kernels=prof["top_kernels"]),
+        varlen=dict(step_ms=vrun["step_s"] * 1e3,
+                    losses=vrun["losses"].tolist(),
+                    cpu_loss=float(vcpu["losses"][0]), cpu_rel_diff=vrel),
+        launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
+
+
 # ---------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4377,6 +4666,9 @@ def main():
     torch.cuda.empty_cache()
     with timed("seq2seq"):
         s2s = phase_seq2seq(args.seed)
+    torch.cuda.empty_cache()
+    with timed("gru_encdec"):
+        ge = phase_gru_encdec(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -4384,8 +4676,9 @@ def main():
     # gradient merge (K1, K3, K4), inference in
     # f32 and bf16 (K1, K5), ResNet-50 bf16 training (none) and
     # inference (K5), and the tune phase's witnessed BERT-base bf16
-    # forward (K1, K5), and seq2seq training and beam-search decoding
-    # (none), each counted from 0 over its own run
+    # forward (K1, K5), seq2seq training and beam-search decoding and the
+    # GRU encoder-decoder on variable-length batches (none), each counted
+    # from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -4397,7 +4690,8 @@ def main():
                 "infer": inferred["launches"],
                 "train_resnet": trained_resnet["launches"],
                 "infer_resnet": inferred_resnet["launches"],
-                "tune": tuned["launches"], "seq2seq": s2s["launches"]}
+                "tune": tuned["launches"], "seq2seq": s2s["launches"],
+                "gru_encdec": ge["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -4416,7 +4710,7 @@ def main():
               "train_remat": trained_remat,
               "infer": inferred, "train_resnet": trained_resnet,
               "infer_resnet": inferred_resnet, "tune": tuned,
-              "seq2seq": s2s,
+              "seq2seq": s2s, "gru_encdec": ge,
               "launches": launches}
     line = []
     for name, rows in kres.items():

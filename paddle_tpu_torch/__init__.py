@@ -29,7 +29,14 @@ schedules (``layers.learning_rate_scheduler``) and gradient merge
 program verification and the autotuner (``FLAGS_check_program``,
 ``FLAGS_autotune``), and control flow with seq2seq (``layers.While``,
 ``StaticRNN``, the tensor arrays, beam search;
-``models.seq2seq.build_seq2seq_train``/``build_seq2seq_infer``).
+``models.seq2seq.build_seq2seq_train``/``build_seq2seq_infer``), and
+LoD inputs (``layers.data(lod_level=1)``: a padded var with its
+``<name>@LOD`` lengths, fed by ``DataFeeder``) with the sequence ops,
+the recurrent ops (``dynamic_gru``, ``dynamic_lstm``, ``DynamicRNN``,
+``warpctc``), the structured losses (``linear_chain_crf``,
+``crf_decoding``, ``nce``, ``hsigmoid``, ``edit_distance``,
+``ctc_greedy_decoder``, ``chunk_eval``) and
+``models.seq2seq.build_seq2seq_train_varlen``.
 ``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """
@@ -38,6 +45,7 @@ from . import (clip, contrib, io, layers, monitor,  # noqa: F401
                optimizer, regularizer, resilience, serving, trace,
                unique_name)
 from .backward import append_backward, calc_gradient, gradients
+from .data_feeder import DataFeeder
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,
                    GradientClipByNorm, GradientClipByValue,
                    set_gradient_clip)
@@ -50,7 +58,8 @@ from .param_attr import ParamAttr
 
 __version__ = "0.1.0"
 
-__all__ = ["CPUPlace", "CUDAPlace", "Executor", "Scope", "global_scope",
+__all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "Scope",
+           "global_scope",
            "append_backward", "calc_gradient", "gradients", "optimizer",
            "regularizer", "clip", "io", "set_gradient_clip",
            "GradientClipByValue", "GradientClipByNorm",

@@ -31,7 +31,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "ceil", "floor", "cos", "sin", "round", "reciprocal", "erf",
            "gelu", "logical_not", "soft_relu", "leaky_relu", "relu6", "elu",
            "swish", "hard_swish", "hard_sigmoid", "pow", "softmax",
-           "log_softmax"]
+           "log_softmax", "linear_chain_crf", "crf_decoding", "nce",
+           "hsigmoid", "edit_distance", "ctc_greedy_decoder", "chunk_eval"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -573,6 +574,206 @@ def log_loss(input, label, epsilon=1e-4, name=None):
     helper.append_op("log_loss", inputs={"Predicted": input, "Labels": label},
                      outputs={"Loss": out}, attrs={"epsilon": epsilon})
     return out
+
+
+# -- structured prediction / candidate sampling ----------------------------
+# reference nn.py:1412 linear_chain_crf, :1528 crf_decoding, :5080 nce,
+# :5216 hsigmoid, :4689 edit_distance, :4816 ctc_greedy_decoder,
+# layers/metric_op chunk_eval. Sequence inputs ride the padded + @LOD
+# lengths encoding; the Length op input is wired from the companion var.
+
+
+def _seq_len_or_none(v):
+    from .sequence import seq_len_var
+
+    try:
+        return seq_len_var(v)
+    except ValueError:
+        return None
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """CRF negative log-likelihood (reference nn.py:1412). ``input`` is the
+    padded [batch, time, tags] emission; the transition parameter is
+    [tags+2, tags] (row 0 start, row 1 end). Returns the per-sequence cost
+    ([batch, 1]) the reference calls log_likelihood."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        helper.param_attr, shape=[size + 2, size], dtype=input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    e_exps = helper.create_variable_for_type_inference(input.dtype)
+    t_exps = helper.create_variable_for_type_inference(input.dtype)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Emission": input, "Transition": transition, "Label": label}
+    length = length or _seq_len_or_none(input) or _seq_len_or_none(label)
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("linear_chain_crf", inputs=inputs,
+                     outputs={"Alpha": alpha, "EmissionExps": e_exps,
+                              "TransitionExps": t_exps,
+                              "LogLikelihood": ll})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """Viterbi decode with the trained transition parameter (reference
+    nn.py:1528). With ``label``, returns the 0/1 correctness mask."""
+    helper = LayerHelper("crf_decoding")
+    transition = helper.main_program.global_block.var(param_attr.name)
+    path = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": input, "Transition": transition}
+    if label is not None:
+        inputs["Label"] = label
+    length = length or _seq_len_or_none(input)
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": path})
+    return path
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None, sampler="uniform",
+        custom_dist=None, seed=0, is_sparse=False):
+    """Noise-contrastive estimation loss (reference nn.py:5080)."""
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    sampler_id = {"uniform": 0, "log_uniform": 1, "custom_dist": 2}[sampler]
+    if custom_dist is not None:
+        raise NotImplementedError(
+            "nce(custom_dist=...): alias-table sampling is host-side; use "
+            "sampler='uniform' or 'log_uniform'")
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    s_logits = helper.create_variable_for_type_inference(input.dtype)
+    s_labels = helper.create_variable_for_type_inference("int64")
+    inputs = {"Input": input, "Label": label, "Weight": w}
+    if sample_weight is not None:
+        inputs["SampleWeight"] = sample_weight
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                    shape=[num_total_classes],
+                                    dtype=input.dtype,
+                                    default_initializer=Constant(0.0))
+        inputs["Bias"] = b
+    helper.append_op(
+        "nce", inputs=inputs,
+        outputs={"Cost": cost, "SampleLogits": s_logits,
+                 "SampleLabels": s_labels},
+        attrs={"num_total_classes": int(num_total_classes),
+               "num_neg_samples": int(num_neg_samples or 10),
+               "sampler": sampler_id, "seed": seed, "is_sparse": is_sparse})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """Hierarchical sigmoid (reference nn.py:5216): complete-binary-tree
+    softmax factorization, or a custom tree via path_table/path_code."""
+    helper = LayerHelper("hierarchical_sigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    if is_custom and (path_table is None or path_code is None):
+        raise ValueError("is_custom=True needs path_table AND path_code")
+    num_w = num_classes - 1 if not is_custom else num_classes
+    w = helper.create_parameter(helper.param_attr, shape=[num_w, dim],
+                                dtype=input.dtype)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    pre_out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": input, "W": w, "Label": label}
+    if path_table is not None:
+        inputs["PathTable"] = path_table
+        inputs["PathCode"] = path_code
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                    shape=[num_w], dtype=input.dtype,
+                                    default_initializer=Constant(0.0))
+        inputs["Bias"] = b
+    helper.append_op("hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": cost, "PreOut": pre_out},
+                     attrs={"num_classes": int(num_classes),
+                            "is_sparse": is_sparse})
+    return cost
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """Levenshtein distance per sequence pair (reference nn.py:4689).
+    Returns (distance [batch, 1], sequence_num [1])."""
+    helper = LayerHelper("edit_distance")
+    if ignored_tokens:
+        raise NotImplementedError(
+            "edit_distance(ignored_tokens=...): pre-filter with "
+            "layers.sequence_erase, the reference composes the same way")
+    out = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    inputs = {"Hyps": input, "Refs": label}
+    input_length = input_length or _seq_len_or_none(input)
+    label_length = label_length or _seq_len_or_none(label)
+    if input_length is not None:
+        inputs["HypsLength"] = input_length
+    if label_length is not None:
+        inputs["RefsLength"] = label_length
+    helper.append_op("edit_distance", inputs=inputs,
+                     outputs={"Out": out, "SequenceNum": seq_num},
+                     attrs={"normalized": normalized})
+    return out, seq_num
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, name=None):
+    """Greedy CTC decode (reference nn.py:4816): argmax per frame, then
+    merge repeats + drop blanks. Returns (decoded [batch, time] padded,
+    lengths [batch]) — the padded form of the reference's LoD output."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    argmax = helper.create_variable_for_type_inference("int64")
+    helper.append_op("arg_max", inputs={"X": input}, outputs={"Out": argmax},
+                     attrs={"axis": -1})
+    decoded = helper.create_variable_for_type_inference("int64")
+    out_len = helper.create_variable_for_type_inference("int32")
+    inputs = {"Input": argmax}
+    input_length = input_length or _seq_len_or_none(input)
+    if input_length is not None:
+        inputs["InputLength"] = input_length
+    helper.append_op("ctc_align", inputs=inputs,
+                     outputs={"Output": decoded, "OutputLength": out_len},
+                     attrs={"blank": int(blank), "merge_repeated": True})
+    from .sequence import _make_lod_out
+
+    lod = _make_lod_out(helper, decoded)
+    helper.append_op("assign", inputs={"X": out_len}, outputs={"Out": lod})
+    return decoded, out_len
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """Chunk-level precision/recall/F1 for tagging (reference
+    layers/nn.py chunk_eval). Returns the reference's 6-tuple."""
+    helper = LayerHelper("chunk_eval")
+    precision = helper.create_variable_for_type_inference("float32")
+    recall = helper.create_variable_for_type_inference("float32")
+    f1 = helper.create_variable_for_type_inference("float32")
+    n_infer = helper.create_variable_for_type_inference("int64")
+    n_label = helper.create_variable_for_type_inference("int64")
+    n_correct = helper.create_variable_for_type_inference("int64")
+    inputs = {"Inference": input, "Label": label}
+    seq_length = seq_length or _seq_len_or_none(input) \
+        or _seq_len_or_none(label)
+    if seq_length is not None:
+        inputs["SeqLength"] = seq_length
+    helper.append_op(
+        "chunk_eval", inputs=inputs,
+        outputs={"Precision": precision, "Recall": recall, "F1-Score": f1,
+                 "NumInferChunks": n_infer, "NumLabelChunks": n_label,
+                 "NumCorrectChunks": n_correct},
+        attrs={"num_chunk_types": int(num_chunk_types),
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return precision, recall, f1, n_infer, n_label, n_correct
 
 
 def cos_sim(X, Y):

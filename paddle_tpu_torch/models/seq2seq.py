@@ -9,7 +9,8 @@ inference (layers/control_flow.py While + beam_search ops).
 
 The encoder and decoder are StaticRNNs (one ``recurrent`` op each); the
 decode loop is a bounded While (``max_len``) over dense [batch*beam] state.
-The variable-length training path waits for LoD inputs.
+``build_seq2seq_train_varlen`` trains on lod_level-1 feeds (the padded +
+``@LOD`` lengths encoding), masked by the lengths.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from .. import layers, optimizer
 from ..framework import Program, program_guard
 from ..param_attr import ParamAttr
 
-__all__ = ["build_seq2seq_train", "build_seq2seq_infer"]
+__all__ = ["build_seq2seq_train", "build_seq2seq_train_varlen",
+           "build_seq2seq_infer"]
 
 
 def _cell(x_t, h_prev, hidden, name):
@@ -82,6 +84,66 @@ def build_seq2seq_train(src_vocab, tgt_vocab, emb_dim=32, hidden=64,
         optimizer.Adam(lr).minimize(loss)
     return {"main": main, "startup": startup, "loss": loss,
             "feeds": ["src_ids", "tgt_in_ids", "tgt_out_ids"]}
+
+
+def build_seq2seq_train_varlen(src_vocab, tgt_vocab, emb_dim=32, hidden=64,
+                               lr=1e-3):
+    """Variable-length training path: src/tgt are lod_level-1 feeds in the
+    padded + lengths encoding; the encoder's final state is the LAST valid
+    step (sequence_pool), and the token loss is masked by the target
+    lengths (sequence_pool SUM / total tokens) so pad positions contribute
+    nothing. The loss does not depend on the padded length."""
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        src = layers.data("src_ids", shape=[1], dtype="int64", lod_level=1)
+        tgt_in = layers.data("tgt_in_ids", shape=[1], dtype="int64",
+                             lod_level=1)
+        tgt_out = layers.data("tgt_out_ids", shape=[1], dtype="int64",
+                              lod_level=1)
+
+        src_emb = layers.embedding(
+            src, size=[src_vocab, emb_dim],
+            param_attr=ParamAttr(name="src_emb_w"))       # [B, S, E]
+        src_tm = layers.transpose(src_emb, [1, 0, 2])     # time-major
+
+        enc = layers.StaticRNN()
+        with enc.step():
+            x_t = enc.step_input(src_tm)
+            h_p = enc.memory(shape=[hidden], batch_ref=src_tm)
+            h = _cell(x_t, h_p, hidden, "enc_cell")
+            enc.update_memory(h_p, h)
+            enc.step_output(h)
+        enc_bm = layers.transpose(enc(), [1, 0, 2])       # [B, S, H]
+        # last VALID state per source sequence (not the padded final step);
+        # lengths are inferred through the transpose/scan/embedding chain
+        enc_final = layers.sequence_pool(enc_bm, "last")
+
+        tgt_emb = layers.embedding(
+            tgt_in, size=[tgt_vocab, emb_dim],
+            param_attr=ParamAttr(name="tgt_emb_w"))
+        tgt_tm = layers.transpose(tgt_emb, [1, 0, 2])
+
+        dec = layers.StaticRNN()
+        with dec.step():
+            x_t = dec.step_input(tgt_tm)
+            h_p = dec.memory(init=enc_final)
+            h = _cell(x_t, h_p, hidden, "dec_cell")
+            dec.update_memory(h_p, h)
+            dec.step_output(h)
+        dec_bm = layers.transpose(dec(), [1, 0, 2])       # [B, T, H]
+        logits = layers.fc(dec_bm, tgt_vocab, num_flatten_dims=2,
+                           param_attr=ParamAttr(name="proj_w"),
+                           bias_attr=False, name="proj")  # [B, T, V]
+        ce = layers.softmax_with_cross_entropy(logits, tgt_out)  # [B, T, 1]
+        ce = layers.squeeze(ce, axes=[2])                 # [B, T]
+        seq_loss = layers.sequence_pool(ce, "sum")        # masked per-seq sum
+        n_tokens = layers.cast(layers.reduce_sum(
+            layers.sequence.seq_len_var(tgt_out)), "float32")
+        loss = layers.elementwise_div(layers.reduce_sum(seq_loss), n_tokens)
+        optimizer.Adam(lr).minimize(loss)
+    return {"main": main, "startup": startup, "loss": loss,
+            "feeds": ["src_ids", "tgt_in_ids", "tgt_out_ids"],
+            "feed_vars": [src, tgt_in, tgt_out]}
 
 
 def build_seq2seq_infer(src_vocab, tgt_vocab, emb_dim=32, hidden=64,

@@ -44,7 +44,10 @@ def _reduce(reduce):
 
 _REDUCE_ATTRS = {"dim": [0], "keep_dim": False, "reduce_all": False}
 for _name, _fn in [
-    ("reduce_sum", lambda v, d, k: torch.sum(v, dim=d, keepdim=k)),
+    # an int32 sum stays int32, as jnp.sum's (torch widens it to int64)
+    ("reduce_sum", lambda v, d, k: torch.sum(
+        v, dim=d, keepdim=k,
+        dtype=torch.int32 if v.dtype == torch.int32 else None)),
     ("reduce_mean", lambda v, d, k: torch.mean(v, dim=d, keepdim=k)),
     # amax/amin split the grad evenly between equal maxima, as jnp.max's
     ("reduce_max", lambda v, d, k: torch.amax(v, dim=d, keepdim=k)),

@@ -1484,3 +1484,243 @@ def test_seq2seq_step_on_the_card_matches_the_cpu():
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     assert out["cuda"][1].shape == (9, 32)
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+
+
+# the LoD op types (ops/sequence_ops.py, the sequence tail of
+# ops/misc2.py, ops/rnn_ops.py, ops/structured.py) at the CPU tests' small
+# size: lengths 0, 1, full and part, hidden 8
+def _lod_cases():
+    import numpy as np
+
+    rng = np.random.RandomState(15)
+
+    def f(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def i(hi, *shape):
+        return rng.randint(0, hi, shape).astype(np.int64)
+
+    B, T, D, H = 4, 6, 3, 8
+    ln = np.array([0, 1, 6, 3], np.int32)
+    seq = {"X": f(B, T, D), "SeqLen": ln}
+    ties = rng.randint(-2, 3, (B, T, D)).astype(np.float32)
+    crf = {"Emission": f(B, T, 5), "Transition": f(7, 5, scale=0.3),
+           "Length": ln}
+    # planted ties: integer emissions, a zero transition
+    crf_ties = {"Emission": rng.randint(0, 2, (B, T, 5)).astype(np.float32),
+                "Transition": np.zeros((7, 5), np.float32), "Length": ln}
+    tags = np.array([[0, 1, 4, 2, 3, 3], [2, 3, 1, 4, 0, 0],
+                     [4, 4, 4, 4, 4, 4], [0, 1, 1, 2, 3, 4]], np.int64)
+    n_w = 4 * H * D + 4 * H * H + 8 * H + 4 * H * H * 2 + 8 * H
+    cases = {}
+    for p in ("SUM", "AVERAGE", "SQRT", "MAX", "MIN", "LAST", "FIRST"):
+        cases[f"sequence_pool_{p}"] = ("sequence_pool", seq,
+                                       {"pooltype": p, "pad_value": 0.5})
+    for p in ("MAX", "MIN"):
+        cases[f"sequence_pool_{p}_ties"] = (
+            "sequence_pool", {"X": ties, "SeqLen": ln}, {"pooltype": p})
+    cases.update({
+        "sequence_softmax": ("sequence_softmax",
+                             {"X": f(B, T, scale=3.0), "SeqLen": ln}, {}),
+        "sequence_reverse": ("sequence_reverse", seq, {}),
+        "sequence_expand": ("sequence_expand", {"X": f(B, D),
+                                                "Y": f(B, T, 2),
+                                                "SeqLen": ln}, {}),
+        "sequence_concat": ("sequence_concat",
+                            {"X": [f(B, 5, D), f(B, 4, D)],
+                             "SeqLen": [np.array([0, 5, 2, 1], np.int32),
+                                        np.array([3, 0, 4, 1], np.int32)]},
+                            {}),
+        "sequence_pad": ("sequence_pad", dict(seq, PadValue=np.float32([.5])),
+                         {"padded_length": 9}),
+        "sequence_unpad": ("sequence_unpad", {"X": f(B, T, D),
+                                              "Length": ln.astype(np.int64)},
+                           {}),
+        "sequence_slice": ("sequence_slice",
+                           dict(seq, Offset=np.array([[0], [0], [2], [1]]),
+                                Length=np.array([[0], [1], [3], [2]])), {}),
+        "sequence_erase": ("sequence_erase", {"X": i(6, B, T), "SeqLen": ln},
+                           {"tokens": [2, 5]}),
+        "sequence_enumerate": ("sequence_enumerate",
+                               {"X": i(9, B, T), "SeqLen": ln},
+                               {"win_size": 3, "pad_value": 7}),
+        "sequence_conv": ("sequence_conv", dict(seq, Filter=f(3 * D, 5)),
+                          {"contextLength": 3, "contextStart": -1}),
+        "sequence_mask": ("sequence_mask", {"X": ln},
+                          {"maxlen": 7, "out_dtype": "float32"}),
+        "sequence_reshape": ("sequence_reshape",
+                             {"X": f(B, T, 4), "SeqLen": ln}, {"new_dim": 2}),
+        "sequence_expand_as": ("sequence_expand_as",
+                               {"X": f(B, D), "Y": f(B, T, 2), "SeqLen": ln},
+                               {}),
+        "sequence_scatter": ("sequence_scatter",
+                             {"X": f(B, 10), "Ids": i(12, B, T),
+                              "Updates": f(B, T), "SeqLen": ln}, {}),
+        "lstm": ("lstm", {"Input": f(B, T, 4 * H, scale=0.5),
+                          "Weight": f(H, 4 * H, scale=0.3),
+                          "Bias": f(1, 7 * H, scale=0.1), "SeqLen": ln},
+                 {"use_peepholes": True}),
+        "lstm_reverse": ("lstm", {"Input": f(B, T, 4 * H, scale=0.5),
+                                  "Weight": f(H, 4 * H, scale=0.3),
+                                  "Bias": f(1, 4 * H, scale=0.1),
+                                  "H0": f(B, H), "C0": f(B, H),
+                                  "SeqLen": ln},
+                         {"use_peepholes": False, "is_reverse": True}),
+        "lstmp": ("lstmp", {"Input": f(B, T, 4 * H, scale=0.5),
+                            "Weight": f(3, 4 * H, scale=0.3),
+                            "ProjWeight": f(H, 3, scale=0.3),
+                            "Bias": f(1, 7 * H, scale=0.1), "SeqLen": ln},
+                  {"cell_clip": 0.8, "proj_clip": 0.5}),
+        "gru": ("gru", {"Input": f(B, T, 3 * H, scale=0.5),
+                        "Weight": f(H, 3 * H, scale=0.3),
+                        "Bias": f(1, 3 * H, scale=0.1), "H0": f(B, H),
+                        "SeqLen": ln}, {}),
+        "gru_reverse_origin": ("gru", {"Input": f(B, T, 3 * H, scale=0.5),
+                                       "Weight": f(H, 3 * H, scale=0.3),
+                                       "SeqLen": ln},
+                               {"is_reverse": True, "origin_mode": True}),
+        "gru_unit": ("gru_unit", {"Input": f(B, 3 * H, scale=0.5),
+                                  "HiddenPrev": f(B, H),
+                                  "Weight": f(H, 3 * H, scale=0.3),
+                                  "Bias": f(1, 3 * H, scale=0.1)}, {}),
+        "cudnn_lstm": ("cudnn_lstm", {"Input": f(B, T, D),
+                                      "W": f(n_w, scale=0.3),
+                                      "InitH": f(2, B, H), "InitC": f(2, B, H),
+                                      "SeqLen": ln},
+                       {"hidden_size": H, "num_layers": 2}),
+        "warpctc": ("warpctc", {"Logits": f(B, 7, 5),
+                                "Label": np.array([[2, 2, 3], [1, 4, 0],
+                                                   [3, 0, 0], [4, 1, 1]]),
+                                "LogitsLength": np.array([7, 5, 7, 2]),
+                                "LabelLength": np.array([3, 2, 0, 1])},
+                    {"norm_by_times": True}),
+        "linear_chain_crf": ("linear_chain_crf",
+                             dict(crf, Label=i(5, B, T, 1)), {}),
+        "crf_decoding": ("crf_decoding", crf, {}),
+        "crf_decoding_ties": ("crf_decoding", crf_ties, {}),
+        "nce": ("nce", {"Input": f(B, 6), "Label": i(12, B, 1),
+                        "Weight": f(12, 6, scale=0.5), "Bias": f(12)},
+                {"num_total_classes": 12, "num_neg_samples": 3,
+                 "seed": 7}),
+        "hierarchical_sigmoid": ("hierarchical_sigmoid",
+                                 {"X": f(B, 6), "W": f(6, 6, scale=0.5),
+                                  "Label": np.array([[0], [3], [6], [5]]),
+                                  "Bias": f(6, scale=0.1)},
+                                 {"num_classes": 7}),
+        "edit_distance": ("edit_distance",
+                          {"Hyps": i(5, B, T), "Refs": i(5, B, 5),
+                           "HypsLength": np.array([0, 1, 6, 4]),
+                           "RefsLength": np.array([3, 0, 5, 4])},
+                          {"normalized": True}),
+        "ctc_align": ("ctc_align", {"Input": i(4, B, 8),
+                                    "InputLength": np.array([8, 5, 3, 0])},
+                      {"blank": 0}),
+        "chunk_eval": ("chunk_eval", {"Inference": tags,
+                                      "Label": np.roll(tags, 1, axis=1),
+                                      "SeqLength": ln},
+                       {"num_chunk_types": 2, "chunk_scheme": "IOB"}),
+    })
+    return cases
+
+
+LOD_CASES = sorted(_lod_cases())
+
+
+def _check_nce_formula(arrays, attrs, outs):
+    """nce's Cost and SampleLogits against the reference's formula
+    (nce_op.h:237-245, the uniform sampler) in float64 on the sampled
+    labels the op returned."""
+    ids = outs["SampleLabels0"]
+    x = torch.from_numpy(arrays["Input"]).double()
+    w = torch.from_numpy(arrays["Weight"]).double()
+    s = torch.einsum("bd,bsd->bs", x, w[ids]) + torch.from_numpy(
+        arrays["Bias"]).double()[ids]
+    o = torch.sigmoid(s)
+    bq = attrs["num_neg_samples"] / attrs["num_total_classes"]
+    cost = -torch.log(o[:, 0] / (o[:, 0] + bq)) - torch.log(
+        bq / (o[:, 1:] + bq)).sum(1)
+    torch.testing.assert_close(outs["SampleLogits0"].double(), o,
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(outs["Cost0"].double().reshape(-1), cost,
+                               rtol=1e-5, atol=1e-5)
+    assert ((ids >= 0) & (ids < attrs["num_total_classes"])).all()
+
+
+def _lod_ins(arrays, device):
+    """{slot: [tensor]} on ``device``."""
+    import numpy as np
+
+    ins = {}
+    for slot, a in arrays.items():
+        vals = a if isinstance(a, list) else [a]
+        ins[slot] = [torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                     for v in vals]
+    return ins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LOD_CASES)
+def test_lod_op_on_the_card_matches_the_cpu(case):
+    """Each LoD op type's rule on the card against the same rule on the
+    CPU (float32 rtol 1e-5, atol 1e-6; ints exactly), its forward run
+    under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync:
+    the lengths never leave the card), and the gradients of its float
+    inputs (autograd over the rule, as the generic grad runs it) within
+    rtol 1e-4, atol 1e-5."""
+    _cuda()
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    op_type, arrays, attrs = _lod_cases()[case]
+    opdef = registry.get_op_def(op_type)
+    attrs = dict({k: a.default for k, a in opdef.attrs.items()}, **attrs)
+    diff = {s.name for s in opdef.inputs if not s.no_grad} \
+        if opdef.grad is not None else set()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ins = _lod_ins(arrays, dev)
+        prims = [v for slot in sorted(ins) if slot in diff
+                 for v in ins[slot] if v.is_floating_point()]
+        for p in prims:
+            p.requires_grad_()
+        ctx = LowerCtx(dev, seed=1, uid=7)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.enable_grad():
+                res = opdef.lower(ctx, ins, attrs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        flat = [(f"{s}{k}", v) for s in sorted(res)
+                for k, v in enumerate(res[s]) if v is not None]
+        ys = [v for _, v in flat if v.requires_grad]
+        grads = []
+        if prims and ys:
+            g = torch.Generator().manual_seed(3)
+            cts = [torch.randn(y.shape, generator=g).to(dev) for y in ys]
+            grads = torch.autograd.grad(ys, prims, cts, allow_unused=True)
+        out[dev] = ([(n, v.detach().cpu()) for n, v in flat],
+                    [None if gr is None else gr.cpu() for gr in grads])
+    (cpu_outs, cpu_grads), (card_outs, card_grads) = out["cpu"], out["cuda"]
+    if op_type == "nce":
+        # the card's generator draws other negatives than the CPU's from
+        # the same seed: hold the card's cost to the formula on its own
+        # SampleLabels instead (the CPU tests check the formula there)
+        _check_nce_formula(arrays, attrs, dict(card_outs))
+        assert all(torch.isfinite(g).all() for g in card_grads)
+        return
+    for (n, a), (_, b) in zip(card_outs, cpu_outs):
+        assert a.dtype == b.dtype and a.shape == b.shape, n
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=n)
+        else:
+            assert torch.equal(a, b), n
+    assert len(card_grads) == len(cpu_grads)
+    for a, b in zip(card_grads, cpu_grads):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    if "ties" in case and op_type == "sequence_pool":
+        assert card_grads, case

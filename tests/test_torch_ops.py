@@ -556,16 +556,29 @@ CONTROL_FLOW_OPS = {"while", "recurrent", "create_array", "write_to_array",
                     "read_from_array", "lod_array_length",
                     "tensor_array_to_tensor", "beam_search",
                     "beam_search_decode"}
+# the LoD ops (ops/sequence_ops.py, ops/misc2.py, ops/rnn_ops.py,
+# ops/structured.py): checked, forward and gradient, by the cases of
+# tests/test_torch_sequence_ops.py, tests/test_torch_rnn_ops.py and
+# tests/test_torch_structured.py
+LOD_OPS = {"sequence_pool", "sequence_softmax", "sequence_reverse",
+           "sequence_expand", "sequence_concat", "sequence_pad",
+           "sequence_unpad", "sequence_slice", "sequence_erase",
+           "sequence_enumerate", "sequence_conv", "sequence_mask",
+           "sequence_reshape", "sequence_expand_as", "sequence_scatter",
+           "lstm", "lstmp", "gru", "gru_unit", "cudnn_lstm", "warpctc",
+           "linear_chain_crf", "crf_decoding", "nce",
+           "hierarchical_sigmoid", "edit_distance", "ctc_align",
+           "chunk_eval"}
 
 
 def test_every_path_op_has_a_case():
     """Every op type of the port but the random ones (checked by
     distribution: here, in tests/test_torch_train.py and
-    tests/test_torch_mlp.py), the sub-block ones and the control-flow
-    ones has a case."""
+    tests/test_torch_mlp.py), the sub-block ones, the control-flow ones
+    and the LoD ones has a case."""
     from paddle_tpu_torch.core import registry
 
-    others = RANDOM_OPS | BLOCK_OPS | CONTROL_FLOW_OPS
+    others = RANDOM_OPS | BLOCK_OPS | CONTROL_FLOW_OPS | LOD_OPS
     assert len(CASES) == 169 and not others & set(CASES)
     assert set(CASES) | others == set(registry.all_ops())
 
