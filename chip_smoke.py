@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    prefill [96,128|512,64] causal, f32 and bf16; training [384,128,64]
    and, under AMP, [384,512,64] with dropout; inference [384,512,64];
    K3/K4 at the same training shapes; K5 at the inference GEMMs in f32
-   and, under AMP, bf16 x and y with an f32 output) against its
+   and, under AMP, bf16 x and y with an f32 output, and at DeepFM's
+   [4096,400]@[400,400] +bias+relu f32) against its
    plain PyTorch version (``kernels.KERNEL_TOL``: f32 atol 1e-4 / rtol
    1e-3, the two sum in different orders; bf16 atol 8e-3 / rtol 1.6e-2,
    about two bf16 ulp), checks that K1, K3 and K4 drop exactly the
@@ -272,7 +273,34 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    step's peak beside ``memory_plan``'s, and one profiled step's idle
    share, device kernels, device ms by op role and of ``gru``, its
    generic grad's rerun and ``gru_grad``.
-19. prints the script time of each phase and part (``[seconds]``), the
+19. deepfm — DeepFM at the paper's Criteo widths (Guo et al., IJCAI
+   2017, section 3.1: 39 fields, embeddings of 10, an MLP of
+   400-400-400 with relu, Adam; the rate 1e-3 assumed) over 1,000,001
+   hashed ids (PaddleRec's Criteo ``sparse_feature_number``), batch
+   4096 (assumed), 11.0 M table and 0.48 M MLP parameters, f32, sparse
+   (SelectedRows) tables; ids from ``--seed``: 39 equal field ranges,
+   Zipf(1.05) ranks inside each, labels Bernoulli(0.256). 10 steps; a
+   second run of 3 steps repeats them bit for bit (losses and every
+   state var); 3 CPU steps within ``S2S_LOSS_RTOL``; a dense-table run
+   (``sharded=False``) from the same scope within rtol 1e-5 on the
+   losses and atol 1e-6 on the tables after 3 steps; one step with
+   ``lookup_table_grad``, ``adam`` and ``sgd`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (``strict_sync``); SGD
+   sparse and dense, 3 steps each and one profiled. No kernel of the
+   port launches. Reports steps/s, examples/s, the step's peak beside
+   ``memory_plan``'s, the unique rows a step, the losses, a profiled
+   step's idle share, device kernels and device ms by op and role, and
+   SGD's device ms and peak for each table type.
+20. deepfm_infer — the trained program pruned to ``pred``
+   (``io._prune_for_inference``) at batch 4096, with
+   ``FLAGS_epilogue_fusion`` on and off, 10 forwards each after a
+   warm-up: K5 2 a fused forward (the two 400 x 400 fc + relu chains)
+   and 0 unfused, counted from 0 over the phase (the witness adds one);
+   the first chain (k = 390) and the last (n = 1) refused, their
+   witness reasons naming the dimension; fused ``pred`` within
+   ``kernels.KERNEL_TOL`` f32 of the unfused. Reports each forward's
+   median ms.
+21. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -308,6 +336,7 @@ from paddle_tpu_torch import monitor, resilience, trace
 from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+from paddle_tpu_torch.models.deepfm import build_deepfm
 from paddle_tpu_torch.models import seq2seq
 from paddle_tpu_torch.models.gpt import (GptConfig, build_gpt_generative,
                                          build_gpt_prefill)
@@ -722,7 +751,9 @@ GEMM_ROWS = (
     (16384, 768, 768, "bias+gelu+layer_norm", torch.bfloat16,
      torch.float32),
     # ResNet-50 bf16 inference: the fc head, batch 128
-    (128, 1000, 2048, "bias", torch.bfloat16, torch.float32))
+    (128, 1000, 2048, "bias", torch.bfloat16, torch.float32),
+    # DeepFM inference: the two 400 x 400 fc + relu chains, batch 4096
+    (4096, 400, 400, "bias+relu", torch.float32, torch.float32))
 
 
 def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype,
@@ -736,8 +767,9 @@ def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype,
         .to(dtype)
     bias = torch.randn(n, generator=gen, device="cuda")
     ln = "layer_norm" in epilogue
-    args = dict(bias=bias, activation="gelu" if "gelu" in epilogue
-                else "none", layer_norm=ln, out_dtype=out_dtype)
+    act = next((a for a in ("gelu", "relu") if a in epilogue), "none")
+    args = dict(bias=bias, activation=act, layer_norm=ln,
+                out_dtype=out_dtype)
     if ln:
         args.update(ln_scale=torch.randn(n, generator=gen, device="cuda"),
                     ln_bias=torch.randn(n, generator=gen, device="cuda"))
@@ -4060,10 +4092,11 @@ def s2s_feed(seed):
 
 def s2s_train(net, init, feed, steps, exe=None, snapshot_at=None):
     """``steps`` steps from ``init`` on a fresh scope (and, unless given,
-    a fresh executor): losses, the wall time of steps 2.. (each ends in
-    the host read of its loss), the step's peak, held memory, the
-    launches of the port's kernels and, with ``snapshot_at``, every
-    state var after that many steps."""
+    a fresh executor), on ``feed`` or, for a list, on its i-th batch at
+    step i: losses, the wall time of steps 2.. (each ends in the host
+    read of its loss), the step's peak, held memory, the launches of the
+    port's kernels and, with ``snapshot_at``, every state var after that
+    many steps."""
     exe = exe or fluid.Executor()
     scope = s2s_scratch_scope(init, exe.device)
     on_card = exe.device.type == "cuda"
@@ -4077,8 +4110,8 @@ def s2s_train(net, init, feed, steps, exe=None, snapshot_at=None):
     t0 = time.perf_counter()
     for step in range(steps):
         losses.append(float(np.ravel(exe.run(
-            net["main"], feed=feed, fetch_list=[net["loss"]],
-            scope=scope)[0])[0]))
+            net["main"], feed=feed[step] if isinstance(feed, list) else feed,
+            fetch_list=[net["loss"]], scope=scope)[0])[0]))
         if on_card:
             held.append(torch.cuda.memory_allocated())
         if step == 0:
@@ -4612,6 +4645,374 @@ def phase_gru_encdec(seed):
         launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
 
 
+# ----------------------------------------------------------------- deepfm
+# DeepFM at the paper's Criteo widths (Guo et al., IJCAI 2017, arXiv
+# 1703.04247, section 3.1): 39 fields (13 bucketized integer + 26
+# categorical), embeddings of 10, an MLP of 400-400-400 with relu, Adam
+# at 1e-3 (the rate assumed); 1,000,001 hashed ids (PaddleRec's Criteo
+# sparse_feature_number); batch 4096 (assumed). Traffic (assumed): the
+# ids cut into 39 equal field ranges, each field drawing Zipf(1.05)
+# ranks inside its range, labels Bernoulli(0.256), Criteo's click rate
+FM_VOCAB, FM_FIELDS, FM_DIM, FM_HIDDEN = 1_000_001, 39, 10, (400, 400, 400)
+FM_BATCH, FM_LR, FM_ZIPF, FM_CTR = 4096, 1e-3, 1.05, 0.256
+FM_STEPS, FM_REPEAT_STEPS, FM_CPU_STEPS, FM_DENSE_STEPS = 10, 3, 3, 3
+FM_SGD_STEPS, FM_INFER_FORWARDS = 3, 10
+# card against CPU, as the other training phases hold it
+FM_CPU_RTOL = S2S_LOSS_RTOL
+# sparse against dense tables over FM_DENSE_STEPS: with non-lazy Adam
+# the two differ only in the order duplicate ids' grads are summed (the
+# sparse merge sums a float64 prefix, the dense grad a sorted f32
+# accumulate)
+FM_DENSE_LOSS_RTOL, FM_DENSE_TABLE_ATOL = 1e-5, 1e-6
+# the ops that must make no host sync on the sparse path
+FM_STRICT_OPS = ("lookup_table_grad", "adam", "sgd")
+# the refused chains of the inference program, by the dimension named
+FM_REFUSED = {(FM_HIDDEN[0], FM_FIELDS * FM_DIM): "k=390",
+              (1, FM_HIDDEN[-1]): "n=1"}
+FM_INFER_LAUNCHES = {"fused_gemm": 2}
+
+
+def fm_build(sharded=True, optimizer="adam"):
+    with fluid.unique_name.guard():
+        return build_deepfm(vocab=FM_VOCAB, num_fields=FM_FIELDS,
+                            emb_dim=FM_DIM, hidden=FM_HIDDEN, lr=FM_LR,
+                            sharded=sharded, optimizer=optimizer)
+
+
+def fm_feeds(seed, steps, batch=None):
+    """``steps`` batches (of FM_BATCH rows by default): field f's ids are
+    f * R + (Zipf rank - 1) with R = vocab // fields; labels
+    Bernoulli(FM_CTR)."""
+    batch = batch or FM_BATCH
+    rng = np.random.default_rng(seed)
+    width = FM_VOCAB // FM_FIELDS
+    p = np.arange(1, width + 1, dtype=np.float64) ** -FM_ZIPF
+    p /= p.sum()
+    base = np.arange(FM_FIELDS, dtype=np.int64) * width
+    return [{"feat_ids": rng.choice(width, size=(batch, FM_FIELDS), p=p)
+             .astype(np.int64) + base,
+             "label": (rng.random((batch, 1)) < FM_CTR).astype(np.float32)}
+            for _ in range(steps)]
+
+
+@contextlib.contextmanager
+def strict_sync(types):
+    """Run the ops of ``types`` under ``torch.cuda.set_sync_debug_mode(
+    "error")``: a host sync inside one raises."""
+    from paddle_tpu_torch import executor as ex
+
+    real_lower_op = ex.lower_op
+    seen = collections.Counter()
+
+    def lower_op(op, env, ctx):
+        if op.type not in types:
+            return real_lower_op(op, env, ctx)
+        seen[op.type] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real_lower_op(op, env, ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    ex.lower_op = lower_op
+    try:
+        yield seen
+    finally:
+        ex.lower_op = real_lower_op
+
+
+def fm_profiled(net, run, feed):
+    """One more step of ``run``'s program and scope under torch.profiler,
+    by op and by role."""
+    with op_ranges(), role_ranges():
+        return profile_run(lambda: run["exe"].run(
+            net["main"], feed=feed, fetch_list=[net["loss"]],
+            scope=run["scope"]))
+
+
+def phase_deepfm(seed):
+    """Train DeepFM at the paper's Criteo widths with sparse tables;
+    repeat, card against CPU, sparse against dense tables, no host sync
+    in the sparse ops, and SGD sparse and dense."""
+    net = fm_build()
+    net["startup"].random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    del scope0
+    feeds = fm_feeds(seed + 31, FM_STEPS)
+    uniq = [int(np.unique(f["feat_ids"]).size) for f in feeds]
+    tables = ("fm_w", "fm_v")
+    n_table = sum(init[t].numel() for t in tables)
+    n_params = sum(init[p.name].numel() for p in net["main"].all_parameters())
+    predicted = net["main"].memory_plan(
+        feed_names=list(net["feeds"]), fetch_names=[net["loss"].name],
+        batch_size=FM_BATCH).peak_bytes
+    lookups = FM_BATCH * FM_FIELDS
+    # the sparse grads' bytes: rows (int64) and values of both tables
+    sparse_grad_bytes = lookups * (8 + 4) + lookups * (8 + 4 * FM_DIM)
+    dense_grad_bytes = n_table * 4
+    launches = {}
+
+    with timed("deepfm.train"):
+        run = s2s_train(net, init, feeds, FM_STEPS,
+                        snapshot_at=FM_REPEAT_STEPS)
+    _add_launches(launches, run["launches"])
+    with timed("deepfm.repeat"):
+        again = s2s_train(net, init, feeds, FM_REPEAT_STEPS)
+    _add_launches(launches, again["launches"])
+    same_losses = np.array_equal(again["losses"],
+                                 run["losses"][:FM_REPEAT_STEPS])
+    differ = [n for n, t in run.pop("snapshot").items()
+              if not torch.equal(t, again["scope"].vars[n])]
+    # one more step of the repeat's scope: profiled, then the sparse
+    # grad and the update ops under the sync check
+    K.reset_launch_counts()
+    with timed("deepfm.profile"):
+        prof = fm_profiled(net, again, feeds[FM_REPEAT_STEPS])
+    with strict_sync(FM_STRICT_OPS) as strict:
+        again["exe"].run(net["main"], feed=feeds[FM_REPEAT_STEPS + 1],
+                         fetch_list=[net["loss"]], scope=again["scope"])
+        torch.cuda.synchronize()
+    _add_launches(launches, K.launch_counts())
+    del again
+
+    with timed("deepfm.cpu_train"):
+        cpu = s2s_train(net, {n: t.cpu() for n, t in init.items()}, feeds,
+                        FM_CPU_STEPS, exe=fluid.Executor(fluid.CPUPlace()))
+    del cpu["exe"], cpu["scope"]
+    losses = run["losses"]
+    rel = np.abs(losses[:FM_CPU_STEPS] - cpu["losses"]) / np.abs(
+        cpu["losses"])
+
+    with timed("deepfm.dense"):
+        dnet = fm_build(sharded=False)
+        dense = s2s_train(dnet, init, feeds, FM_DENSE_STEPS)
+        _add_launches(launches, dense["launches"])
+        sparse3 = s2s_train(net, init, feeds, FM_DENSE_STEPS)
+        _add_launches(launches, sparse3["launches"])
+        dense_rel = float(np.max(np.abs(dense["losses"] - sparse3["losses"])
+                                 / np.abs(dense["losses"])))
+        table_err = {t: float((dense["scope"].vars[t]
+                               - sparse3["scope"].vars[t]).abs().max())
+                     for t in tables}
+        del dense, sparse3, dnet
+
+    sgd = {}
+    with timed("deepfm.sgd"):
+        for sharded in (True, False):
+            snet = fm_build(sharded=sharded, optimizer="sgd")
+            srun = s2s_train(snet, init, feeds, FM_SGD_STEPS)
+            if sharded:
+                with strict_sync(FM_STRICT_OPS) as strict_sgd:
+                    srun["exe"].run(snet["main"], feed=feeds[FM_SGD_STEPS],
+                                    fetch_list=[snet["loss"]],
+                                    scope=srun["scope"])
+                    torch.cuda.synchronize()
+                strict.update(strict_sgd)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            sprof = fm_profiled(snet, srun, feeds[FM_SGD_STEPS])
+            _add_launches(launches, srun["launches"])
+            upd = {k[len("op::"):]: v["ms"] for k, v in
+                   sprof["ranges"].items()
+                   if k in ("op::sgd", "op::lookup_table_grad")}
+            sgd["sparse" if sharded else "dense"] = dict(
+                losses=srun["losses"].tolist(),
+                step_ms=srun["step_s"] * 1e3,
+                device_ms=sprof["device_busy_s"] * 1e3,
+                idle_share=sprof["idle_share"],
+                device_kernels=sprof["device_kernels"],
+                op_ms=upd, step_peak_gib=srun["step_peak_bytes"] / 2**30,
+                profiled_step_peak_gib=(torch.cuda.max_memory_allocated()
+                                        - before) / 2**30)
+            del srun, snet
+        sgd_rel = float(np.max(np.abs(
+            np.array(sgd["sparse"]["losses"])
+            - np.array(sgd["dense"]["losses"]))
+            / np.abs(sgd["dense"]["losses"])))
+
+    ops = {k: v for k, v in prof["ranges"].items()
+           if k.startswith(("op::", "rerun::"))}
+    roles = {k[len("role::"):]: v["ms"] for k, v in prof["ranges"].items()
+             if k.startswith("role::")}
+    step_s = run["step_s"]
+    log(f"[deepfm] DeepFM at the paper's Criteo widths (vocab {FM_VOCAB}, "
+        f"{FM_FIELDS} fields x {FM_DIM}, MLP {'-'.join(map(str, FM_HIDDEN))}"
+        f", batch {FM_BATCH}; {n_table / 1e6:.2f} M table + "
+        f"{(n_params - n_table) / 1e6:.2f} M MLP parameters), f32, sparse "
+        f"tables, Adam at {FM_LR}, {FM_STEPS} steps: loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    log(f"  {1 / step_s:.1f} steps/s, {FM_BATCH / step_s:.0f} examples/s "
+        f"({step_s * 1e3:.2f} ms a step, steps 2-{FM_STEPS}; step 1 "
+        f"{run['first_step_s']:.3f} s); unique rows a step per table "
+        f"{min(uniq)}-{max(uniq)} of {lookups} lookups; step peak "
+        f"{run['step_peak_bytes'] / 2**30:.3f} GiB, memory_plan "
+        f"{predicted / 2**30:.3f} GiB (it charges each table's W@GRAD "
+        f"dense, {dense_grad_bytes / 2**20:.1f} MiB, where the sparse "
+        f"grads hold {sparse_grad_bytes / 2**20:.1f} MiB)")
+    log(f"  profiled step: wall {prof['wall_s'] * 1e3:.1f} ms, device busy "
+        f"{prof['device_busy_s'] * 1e3:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['device_kernels']} device "
+        f"kernels; device ms by role: " + ", ".join(
+            f"{r} {ms:.2f}" for r, ms in sorted(roles.items())))
+    for k, v in sorted(ops.items(), key=lambda kv: -kv[1]["ms"])[:8]:
+        log(f"    {v['ms']:8.3f} ms {v['calls']:4d} x {k}")
+    log(f"  losses: {[round(x, 6) for x in losses.tolist()]}")
+    log(f"  repeat of {FM_REPEAT_STEPS} steps: losses bit-identical "
+        f"{same_losses}, state vars differing {len(differ)}; host syncs "
+        f"in {dict(strict)}: none")
+    log(f"  card against CPU ({FM_CPU_STEPS} steps): rel step 1 "
+        f"{rel[0]:.3e}, later max {rel[1:].max():.3e} (tolerance "
+        f"{FM_CPU_RTOL}); CPU step {cpu['step_s']:.2f} s")
+    log(f"  dense tables ({FM_DENSE_STEPS} steps, same scope): loss rel "
+        f"{dense_rel:.3e} (tolerance {FM_DENSE_LOSS_RTOL}), table max abs "
+        f"diff {table_err} (tolerance {FM_DENSE_TABLE_ATOL})")
+    for k, v in sgd.items():
+        log(f"  sgd {k}: {v['step_ms']:.2f} ms a step, profiled step "
+            f"device {v['device_ms']:.2f} ms (idle {v['idle_share']:.3f}, "
+            f"{v['device_kernels']} kernels; {v['op_ms']}), step peak "
+            f"{v['step_peak_gib']:.3f} GiB")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"chip_smoke: deepfm losses {losses.tolist()}")
+    if not same_losses or differ:
+        raise SystemExit(f"chip_smoke: two deepfm runs from the same state "
+                         f"differ: losses {same_losses}, vars {differ[:5]}")
+    if rel[0] > FM_CPU_RTOL[0] or rel[1:].max() > FM_CPU_RTOL[1]:
+        raise SystemExit(f"chip_smoke: deepfm on the card and on the CPU "
+                         f"disagree: {rel.tolist()}")
+    if dense_rel > FM_DENSE_LOSS_RTOL or \
+            max(table_err.values()) > FM_DENSE_TABLE_ATOL:
+        raise SystemExit(f"chip_smoke: deepfm sparse and dense tables "
+                         f"disagree: loss rel {dense_rel:.3e}, tables "
+                         f"{table_err}")
+    if sgd_rel > FM_DENSE_LOSS_RTOL:
+        raise SystemExit(f"chip_smoke: deepfm SGD sparse and dense "
+                         f"disagree: loss rel {sgd_rel:.3e}")
+    if set(strict) != set(FM_STRICT_OPS):
+        raise SystemExit(f"chip_smoke: the sync check saw {dict(strict)}")
+    if any(launches.values()):
+        raise SystemExit(f"chip_smoke: the deepfm training path launched a "
+                         f"kernel of the port: {launches}")
+    return dict(
+        config=dict(vocab=FM_VOCAB, fields=FM_FIELDS, emb_dim=FM_DIM,
+                    hidden=list(FM_HIDDEN), batch=FM_BATCH, lr=FM_LR,
+                    zipf=FM_ZIPF, ctr=FM_CTR, table_params=n_table,
+                    mlp_params=n_params - n_table),
+        losses=losses.tolist(), cpu_losses=cpu["losses"].tolist(),
+        cpu_rel_diff=rel.tolist(), cpu_step_s=cpu["step_s"],
+        repeat_bit_identical=same_losses and not differ,
+        strict_sync_ops=dict(strict),
+        steps_per_s=1 / step_s, examples_per_s=FM_BATCH / step_s,
+        step_ms=step_s * 1e3, first_step_s=run["first_step_s"],
+        unique_rows_per_table=uniq, lookups_per_table=lookups,
+        step_peak_gib=run["step_peak_bytes"] / 2**30,
+        predicted_peak_gib=predicted / 2**30,
+        dense_grad_mib=dense_grad_bytes / 2**20,
+        sparse_grad_mib=sparse_grad_bytes / 2**20,
+        dense_tables=dict(loss_rel_diff=dense_rel, table_max_abs=table_err),
+        sgd=dict(sgd, loss_rel_diff=sgd_rel),
+        profiled_step=dict(wall_ms=prof["wall_s"] * 1e3,
+                           busy_ms=prof["device_busy_s"] * 1e3,
+                           idle_share=prof["idle_share"],
+                           device_kernels=prof["device_kernels"],
+                           role_ms=roles,
+                           op_ms={k: v["ms"] for k, v in ops.items()},
+                           top_kernels=prof["top_kernels"]),
+        launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES},
+        _ctx=dict(net=net, scope=run["scope"]))
+
+
+def phase_deepfm_infer(ctx, seed):
+    """The trained program cloned for test and pruned to ``pred``, at
+    batch 4096, with FLAGS_epilogue_fusion on (K5 takes the two
+    400 x 400 fc + relu chains) and off."""
+    from paddle_tpu_torch import io as fio
+
+    net, scope = ctx["net"], ctx["scope"]
+    pred = net["pred"].name
+    prog = fio._prune_for_inference(net["main"], ["feat_ids"], [pred])
+    feed = {"feat_ids": fm_feeds(seed + 41, 1)[0]["feat_ids"]}
+    K.reset_launch_counts()
+    res = {}
+    try:
+        for fused in (True, False):
+            fluid.set_flags({"FLAGS_epilogue_fusion": fused})
+            exe = fluid.Executor()
+
+            def forward():
+                out = exe.run(prog, feed=feed, fetch_list=[pred],
+                              scope=scope, return_numpy=False)[0]
+                torch.cuda.synchronize()
+                return out
+
+            with timed(f"deepfm_infer.{'fused' if fused else 'unfused'}"):
+                forward()                       # the witness runs here
+                n0 = K.launch_counts()["fused_gemm"]
+                times = []
+                for _ in range(FM_INFER_FORWARDS):
+                    t0 = time.perf_counter()
+                    out = forward()
+                    times.append(time.perf_counter() - t0)
+            dec = next(iter(exe._fusion_decisions.values()), None)
+            res[fused] = dict(
+                pred=out, forward_ms=float(np.median(times)) * 1e3,
+                forward_ms_all=[t * 1e3 for t in times],
+                per_forward=(K.launch_counts()["fused_gemm"] - n0)
+                / FM_INFER_FORWARDS, decision=dec)
+    finally:
+        fluid.set_flags({"FLAGS_epilogue_fusion": False})
+    launches = K.launch_counts()
+    fused, unfused = res[True], res[False]
+    dec = fused["decision"]
+    err = float((fused["pred"] - unfused["pred"]).abs().max())
+    ok = torch.allclose(fused["pred"], unfused["pred"],
+                        **TOL[torch.float32])
+    witness = {(w["n"], w["k"]): w for w in (dec.witness if dec else [])}
+    kernel_chains = sum(1 for w in witness.values()
+                        if w.get("route") == "cuda")
+    log(f"[deepfm_infer] DeepFM pred, batch {FM_BATCH}: fusion "
+        f"{dec.reason if dec else 'not run'}; forward fused "
+        f"{fused['forward_ms']:.3f} ms vs unfused "
+        f"{unfused['forward_ms']:.3f} ms (median of {FM_INFER_FORWARDS}); "
+        f"K5 {fused['per_forward']:g} a forward fused, "
+        f"{unfused['per_forward']:g} unfused; pred max abs diff {err:.3e} "
+        f"(tolerance {TOL[torch.float32]})")
+    for w in witness.values():
+        log(f"  witness {w['epilogue']} (m={w['m']}, n={w['n']}, "
+            f"k={w['k']}) route {w.get('route')}: {w.get('reason')}")
+    if dec is None or not dec.applied:
+        raise SystemExit(f"chip_smoke: deepfm_infer fused nothing: "
+                         f"{dec.to_dict() if dec else None}")
+    for dims, word in FM_REFUSED.items():
+        w = witness.get(dims)
+        if w is None or w.get("route") != "primitive" \
+                or word not in (w.get("reason") or ""):
+            raise SystemExit(f"chip_smoke: deepfm_infer chain {dims} not "
+                             f"refused naming {word}: {w}")
+    want = FM_INFER_LAUNCHES["fused_gemm"]
+    total = launches["fused_gemm"]
+    if fused["per_forward"] != want or unfused["per_forward"] != 0 or \
+            total != want * (FM_INFER_FORWARDS + 1) + kernel_chains:
+        raise SystemExit(f"chip_smoke: K5 launched {fused['per_forward']} "
+                         f"a fused forward (want {want}), "
+                         f"{unfused['per_forward']} unfused, {total} over "
+                         f"the phase")
+    if not ok:
+        raise SystemExit(f"chip_smoke: deepfm_infer fused pred off the "
+                         f"unfused by {err:.3e}")
+    return dict(batch=FM_BATCH, decision=dec.to_dict(),
+                forward_ms_fused=fused["forward_ms"],
+                forward_ms_unfused=unfused["forward_ms"],
+                forward_ms_all=dict(fused=fused["forward_ms_all"],
+                                    unfused=unfused["forward_ms_all"]),
+                launches_per_forward=dict(fused=fused["per_forward"],
+                                          unfused=unfused["per_forward"]),
+                pred_max_abs_diff=err,
+                launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
+
+
 # ---------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4669,6 +5070,11 @@ def main():
     torch.cuda.empty_cache()
     with timed("gru_encdec"):
         ge = phase_gru_encdec(args.seed)
+    torch.cuda.empty_cache()
+    with timed("deepfm"):
+        fm = phase_deepfm(args.seed)
+    with timed("deepfm_infer"):
+        fm_infer = phase_deepfm_infer(fm.pop("_ctx"), args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -4677,8 +5083,9 @@ def main():
     # f32 and bf16 (K1, K5), ResNet-50 bf16 training (none) and
     # inference (K5), and the tune phase's witnessed BERT-base bf16
     # forward (K1, K5), seq2seq training and beam-search decoding and the
-    # GRU encoder-decoder on variable-length batches (none), each counted
-    # from 0 over its own run
+    # GRU encoder-decoder on variable-length batches (none), DeepFM
+    # training with sparse tables (none) and its fused inference (K5),
+    # each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -4691,7 +5098,8 @@ def main():
                 "train_resnet": trained_resnet["launches"],
                 "infer_resnet": inferred_resnet["launches"],
                 "tune": tuned["launches"], "seq2seq": s2s["launches"],
-                "gru_encdec": ge["launches"]}
+                "gru_encdec": ge["launches"], "deepfm": fm["launches"],
+                "deepfm_infer": fm_infer["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -4710,8 +5118,8 @@ def main():
               "train_remat": trained_remat,
               "infer": inferred, "train_resnet": trained_resnet,
               "infer_resnet": inferred_resnet, "tune": tuned,
-              "seq2seq": s2s, "gru_encdec": ge,
-              "launches": launches}
+              "seq2seq": s2s, "gru_encdec": ge, "deepfm": fm,
+              "deepfm_infer": fm_infer, "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

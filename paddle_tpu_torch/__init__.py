@@ -36,27 +36,39 @@ the recurrent ops (``dynamic_gru``, ``dynamic_lstm``, ``DynamicRNN``,
 ``warpctc``), the structured losses (``linear_chain_crf``,
 ``crf_decoding``, ``nce``, ``hsigmoid``, ``edit_distance``,
 ``ctc_greedy_decoder``, ``chunk_eval``) and
-``models.seq2seq.build_seq2seq_train_varlen``.
+``models.seq2seq.build_seq2seq_train_varlen``, and SelectedRows
+gradients of ``is_sparse`` tables (``core.selected_rows``: the sparse
+branches of the lookup grad, the math, clip and update ops) with
+``models.deepfm.build_deepfm``, and the ``nn`` ops ``conv2d_transpose``,
+``group_norm``, ``instance_norm``, ``l2_normalize``, ``prelu`` and the
+two interpolations.
 ``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """
 from . import ops  # noqa: F401  (registers the op rules)
-from . import (clip, contrib, io, layers, monitor,  # noqa: F401
-               optimizer, regularizer, resilience, serving, trace,
-               unique_name)
+from . import (analysis, clip, contrib, initializer, io,  # noqa: F401
+               layers, monitor, optimizer, regularizer, resilience, serving,
+               trace, tuning, unique_name)
 from .backward import append_backward, calc_gradient, gradients
 from .data_feeder import DataFeeder
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,
                    GradientClipByNorm, GradientClipByValue,
                    set_gradient_clip)
-from .executor import CPUPlace, CUDAPlace, Executor, Scope, global_scope
+from .core import registry as op_registry
+from .executor import (CPUPlace, CUDAPlace, Executor, Scope, global_scope,
+                       scope_guard)
 from .flags import flag, get_flags, set_flags
-from .framework import (Program, default_main_program,
-                        default_startup_program, program_guard)
+from .framework import (Block, Operator, Parameter, Program, Variable,
+                        default_main_program, default_startup_program,
+                        in_dygraph_mode, name_scope, program_guard)
 from .initializer import Constant, Normal, TruncatedNormal, Uniform, Xavier
-from .param_attr import ParamAttr
+from .layers import learning_rate_scheduler  # noqa: F401
+from .param_attr import ParamAttr, WeightNormParamAttr
+from .transpiler import memory_optimize, release_memory
 
 __version__ = "0.1.0"
+
+data = layers.data
 
 __all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "Scope",
            "global_scope",
@@ -68,4 +80,8 @@ __all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "Scope",
            "default_startup_program", "program_guard", "Constant",
            "Normal", "TruncatedNormal", "Uniform", "Xavier", "ParamAttr",
            "layers", "unique_name", "contrib", "monitor", "trace",
-           "resilience", "serving"]
+           "resilience", "serving", "Block", "Operator", "Parameter",
+           "Variable", "in_dygraph_mode", "name_scope", "scope_guard",
+           "WeightNormParamAttr", "data", "initializer", "analysis",
+           "tuning", "op_registry", "learning_rate_scheduler",
+           "memory_optimize", "release_memory"]

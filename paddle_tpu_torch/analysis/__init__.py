@@ -40,7 +40,7 @@ from .diagnostics import (CODES, Diagnostic, ProgramVerificationError,
 from .registry_audit import audit_registry, coverage_summary, format_audit
 from .verifier import DEFAULT_PASSES, check_program, verify_program
 from . import liveness
-from .liveness import (block_liveness, classify_op_effects,
+from .liveness import (MemoryPlan, block_liveness, classify_op_effects,
                        donation_report, memory_plan, safe_donation_set)
 from . import pass_manager
 from .pass_manager import (ALL_ANALYSIS_PASSES, VERIFY_PASSES, FunctionPass,
@@ -66,7 +66,7 @@ __all__ = [
     "CODES", "Diagnostic", "ProgramVerificationError", "Severity",
     "format_diagnostics", "audit_registry", "coverage_summary",
     "format_audit", "DEFAULT_PASSES", "check_program", "verify_program",
-    "liveness", "block_liveness", "classify_op_effects", "donation_report",
+    "liveness", "MemoryPlan", "block_liveness", "classify_op_effects", "donation_report",
     "memory_plan", "safe_donation_set",
     "pass_manager", "Pass", "FunctionPass", "PassRegistry", "PassContext",
     "PassManager", "PassVerificationError", "PipelineResult",

@@ -84,7 +84,8 @@ class FusedChain:
 class FusionDecision:
     """Outcome of one epilogue-fusion attempt. ``witness`` has one entry
     per witnessed chain signature: its first chain's ops, epilogue, GEMM
-    dims, route and the largest absolute difference the witness saw."""
+    dims, route with its reason and the largest absolute difference the
+    witness saw."""
 
     applied: bool
     program: Program                 # transformed, or the original
@@ -476,7 +477,7 @@ def _run_witness(program: Program, fused_program: Program,
         gb._var_recursive(chain.inputs["X"]).dtype))
     try:
         # the same flag > ctx > default resolution ctx_b's lowering used
-        route, _ = fused_gemm_route(
+        route, route_reason = fused_gemm_route(
             m, n, k, layer_norm=bool(chain.attrs["layer_norm"]),
             blocks=resolve_gemm_blocks(ctx_b),
             alpha=float(chain.attrs.get("alpha", 1.0)), dtype=comp,
@@ -485,8 +486,10 @@ def _run_witness(program: Program, fused_program: Program,
         return str(e), rec
     wf, gf = want.float(), got.float()
     diff = (wf - gf).abs()
-    rec.update(route=route, max_abs_err=float(diff.max()) if diff.numel()
-               else 0.0)
+    # the route's reason stays on the record: a chain the kernel refuses
+    # (a K or N off its 4-element rows) names the dimension here
+    rec.update(route=route, reason=route_reason,
+               max_abs_err=float(diff.max()) if diff.numel() else 0.0)
     if route == "primitive":
         if not torch.equal(wf, gf):
             return (f"dense-route witness must be bit-exact; max abs diff "

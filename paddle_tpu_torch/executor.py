@@ -16,6 +16,15 @@ the step computed can be fetched, ``@GRAD`` vars included. Ops run under
 ``torch.no_grad()``: only a generic grad op builds an autograd graph, and
 frees it before the next op.
 
+Values: a var holds a tensor, or a ``core.selected_rows.SelectedRows``
+(the grad of an ``is_sparse`` table, which has no ``.dtype`` or
+``.shape``). The nan check and the witness pass it over, as the
+reference's walk does; a fetch returns what the reference's returns: a
+0-d object array holding the SelectedRows (its rows and values as
+numpy), or the SelectedRows of tensors with ``return_numpy=False``;
+``run_chained`` stacks its rows and values along the steps, and gradient
+merge adds it densely.
+
 Release: the executor holds what ``Program.memory_plan`` says is live.
 This stands in for XLA's buffer assignment in the JAX package and for
 Fluid's eager deletion (``FLAGS_eager_delete_tensor_gb``). Once per
@@ -112,6 +121,7 @@ before the check runs. Both flags are part of the executor key.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -122,6 +132,7 @@ import torch
 from . import monitor as _monitor
 from . import trace as _trace
 from .analysis.liveness import block_liveness
+from .core.selected_rows import SelectedRows, is_selected_rows
 from .core.types import torch_dtype
 from .framework import Program, Variable, default_main_program
 from .lowering import (EMPTY_VAR_NAME, LowerCtx, _op_site, lower_op,
@@ -131,7 +142,8 @@ from .resilience import faults as _faults
 from .resilience import nonfinite as _nonfinite
 from .resilience.retry import call_with_retry
 
-__all__ = ["Executor", "Scope", "global_scope", "CPUPlace", "CUDAPlace"]
+__all__ = ["Executor", "Scope", "global_scope", "scope_guard", "CPUPlace",
+           "CUDAPlace"]
 
 
 class Place:
@@ -187,9 +199,28 @@ class Scope:
         v = self.find_var(name)
         if v is None:
             return None
-        if isinstance(v, torch.Tensor):
-            return v.detach().cpu().numpy()
-        return np.asarray(v)
+        return _to_host(v)
+
+
+def _to_host(v) -> np.ndarray:
+    """A value as numpy: a tensor's array; a SelectedRows as the
+    reference's ``np.asarray`` gives it, a 0-d object array holding the
+    SelectedRows, here with numpy rows and values."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    if is_selected_rows(v):
+        box = np.empty((), dtype=object)
+        box[()] = SelectedRows(v.rows.detach().cpu().numpy(),
+                               v.values.detach().cpu().numpy(), v.height)
+        return box
+    return np.asarray(v)
+
+
+def _host_bytes(a: np.ndarray) -> int:
+    """Bytes of a fetched array (a SelectedRows' rows and values)."""
+    if a.dtype == object and is_selected_rows(a[()]):
+        return int(a[()].rows.nbytes + a[()].values.nbytes)
+    return int(a.nbytes)
 
 
 _global_scope = Scope()
@@ -205,6 +236,17 @@ def _finite_check(v):
 
 def global_scope() -> Scope:
     return _global_scope
+
+
+@contextlib.contextmanager
+def scope_guard(scope: Scope):
+    """Make ``scope`` the global scope inside the block."""
+    global _global_scope
+    old, _global_scope = _global_scope, scope
+    try:
+        yield
+    finally:
+        _global_scope = old
 
 
 def _fetch_name(f) -> str:
@@ -230,6 +272,17 @@ def _feed_host_bytes(v) -> int:
         return int(np.asarray(v).nbytes)
     except Exception:
         return 0
+
+
+def _stack(vals):
+    """``run_chained``'s per-step fetches along a new leading axis; a
+    SelectedRows stacks its rows and values, as a scan stacks the leaves
+    of the reference's pytree."""
+    if is_selected_rows(vals[0]):
+        return SelectedRows(torch.stack([v.rows for v in vals]),
+                            torch.stack([v.values for v in vals]),
+                            vals[0].height)
+    return torch.stack(vals)
 
 
 def _tensor_bytes(vals) -> int:
@@ -439,6 +492,13 @@ class Executor:
             raise RuntimeError(
                 f"Variable '{name}' is not initialized in scope — run the "
                 f"startup program first")
+        if is_selected_rows(v):
+            if v.values.device != self.device:
+                v = SelectedRows(torch.as_tensor(v.rows).to(self.device),
+                                 torch.as_tensor(v.values).to(self.device),
+                                 v.height)
+                scope.set_var(name, v)
+            return v
         if not (isinstance(v, torch.Tensor) and v.device == self.device):
             # planted host state (or state from another device) moves
             # here once; in-place updates then land in the scope's tensor
@@ -499,7 +559,8 @@ class Executor:
         for n in fetch_names:
             if n not in env:
                 env[n] = self._state(n, step.program, scope)
-            if not isinstance(env[n], torch.Tensor):
+            if not isinstance(env[n], torch.Tensor) \
+                    and not is_selected_rows(env[n]):
                 raise TypeError(
                     f"fetch '{n}' is a {type(env[n]).__name__}, not a "
                     f"tensor; fetch layers.tensor_array_to_tensor of a "
@@ -537,7 +598,9 @@ class Executor:
                     acc = [torch.zeros_like(self._state(p, program, scope))
                            for p in plan.params]
                 for a, g in zip(acc, plan.grads):
-                    a.add_(env[g])
+                    # a sparse table's grad is merged densely
+                    a.add_(env[g].to_dense() if is_selected_rows(env[g])
+                           else env[g])
                 fetched.update((n, env[n]) for n in fetch_names
                                if n in plan.fb_written)
                 del env, ctx
@@ -914,9 +977,9 @@ class Executor:
         if checks is not None:
             self._check_step(checks, scope, rollback, "run")
         if return_numpy:
-            outs = [f.detach().cpu().numpy() for f in fetches]
+            outs = [_to_host(f) for f in fetches]
             if mrec is not None:
-                mrec.fetch_bytes = sum(int(o.nbytes) for o in outs)
+                mrec.fetch_bytes = sum(_host_bytes(o) for o in outs)
             return outs
         return fetches
 
@@ -974,15 +1037,15 @@ class Executor:
                     per_step: List[List[torch.Tensor]] = [
                         self._run_once(step, feed_t, names, scope)
                         for _ in range(int(steps))]
-                    stacked = [torch.stack([s[i] for s in per_step])
+                    stacked = [_stack([s[i] for s in per_step])
                                for i in range(len(names))]
                     self._sync_if_armed(tok)
                 if check:
                     self._check_chained(step, scope, rollback, int(steps))
                 if return_numpy:
-                    outs = [t.detach().cpu().numpy() for t in stacked]
+                    outs = [_to_host(t) for t in stacked]
                     if mrec is not None:
-                        mrec.fetch_bytes = sum(int(o.nbytes) for o in outs)
+                        mrec.fetch_bytes = sum(_host_bytes(o) for o in outs)
                     return outs
                 return stacked
             finally:

@@ -29,7 +29,8 @@ from .core.types import VarType, canonical_dtype
 
 __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "default_main_program", "default_startup_program",
-           "program_guard", "grad_var_name"]
+           "program_guard", "grad_var_name", "switch_main_program",
+           "switch_startup_program", "name_scope", "in_dygraph_mode"]
 
 GRAD_VAR_SUFFIX = "@GRAD"
 
@@ -129,6 +130,8 @@ class Variable:
         }
         if getattr(self, "is_optimizer_state", False):
             d["is_optimizer_state"] = True
+        if getattr(self, "is_distributed", False):
+            d["is_distributed"] = True    # the sparse-table tag
         return d
 
     @staticmethod
@@ -141,6 +144,8 @@ class Variable:
                      is_data=d.get("is_data", False))
         if d.get("is_optimizer_state"):
             v.is_optimizer_state = True
+        if d.get("is_distributed"):
+            v.is_distributed = True
         return v
 
 
@@ -324,6 +329,9 @@ class Block:
             site = _user_call_site()
             if site:
                 op.attrs["op_callstack"] = site
+        if _name_scope_stack and "op_namescope" not in op.attrs:
+            # reference op_proto_maker OpNamescopeAttrName
+            op.attrs["op_namescope"] = "/".join(_name_scope_stack)
 
     def append_op(self, type: str, inputs=None, outputs=None,
                   attrs=None) -> Operator:
@@ -482,6 +490,8 @@ class Program:
                                              {"learning_rate": 1.0}),
                         regularizer=reg or None)
                     param.stop_gradient = vd.get("stop_gradient", False)
+                    if vd.get("is_distributed"):
+                        param.is_distributed = True
                     b.vars[vd["name"]] = param
                 else:
                     b.vars[vd["name"]] = Variable.from_dict(b, vd)
@@ -518,6 +528,20 @@ def default_startup_program() -> Program:
     return _startup_program
 
 
+def switch_main_program(p: Program) -> Program:
+    """Make ``p`` the default main program; returns the previous one."""
+    global _main_program
+    old, _main_program = _main_program, p
+    return old
+
+
+def switch_startup_program(p: Program) -> Program:
+    """Make ``p`` the default startup program; returns the previous one."""
+    global _startup_program
+    old, _startup_program = _startup_program, p
+    return old
+
+
 @contextlib.contextmanager
 def program_guard(main_program: Program,
                   startup_program: Optional[Program] = None):
@@ -530,6 +554,25 @@ def program_guard(main_program: Program,
         yield
     finally:
         _main_program, _startup_program = old_main, old_startup
+
+
+_name_scope_stack: List[str] = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix: str):
+    """Ops appended inside carry ``op_namescope``, the '/'-joined stack of
+    the enclosing scopes' prefixes."""
+    _name_scope_stack.append(prefix)
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
+
+
+def in_dygraph_mode() -> bool:
+    """Always False: the port has no dygraph mode yet."""
+    return False
 
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__)) + os.sep

@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.types import canonical_dtype
-from ..initializer import Constant, Normal
+from ..initializer import Constant, Normal, Xavier
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
@@ -32,7 +32,9 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "gelu", "logical_not", "soft_relu", "leaky_relu", "relu6", "elu",
            "swish", "hard_swish", "hard_sigmoid", "pow", "softmax",
            "log_softmax", "linear_chain_crf", "crf_decoding", "nce",
-           "hsigmoid", "edit_distance", "ctc_greedy_decoder", "chunk_eval"]
+           "hsigmoid", "edit_distance", "ctc_greedy_decoder", "chunk_eval",
+           "conv2d_transpose", "group_norm", "instance_norm", "l2_normalize",
+           "prelu", "image_resize", "resize_bilinear", "resize_nearest"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -54,10 +56,15 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32", name=None):
-    """lookup_table over a [vocab, dim] table."""
+    """lookup_table over a [vocab, dim] table. An ``is_sparse`` or
+    ``is_distributed`` table is tagged ``is_distributed``, as the
+    reference tags it for row sharding; on one card the tag shards
+    nothing, and its grad is a SelectedRows either way."""
     helper = LayerHelper("embedding", param_attr=param_attr, name=name)
     w = helper.create_parameter(helper.param_attr, shape=list(size),
                                 dtype=dtype, is_bias=False)
+    if is_distributed or is_sparse:
+        w.is_distributed = True
     out = helper.create_variable_for_type_inference(dtype)
     pad = -1 if padding_idx is None else (
         padding_idx if padding_idx >= 0 else size[0] + padding_idx)
@@ -95,6 +102,31 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
                      attrs={"strides": list(stride), "paddings": list(padding),
                             "dilations": list(dilation), "groups": groups,
                             "use_cudnn": use_cudnn, "data_format": data_format})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """Transposed 2-D convolution over NCHW ``input`` with [C_in,
+    num_filters / groups, kh, kw] filters (Xavier unless ``param_attr``
+    names an initializer: ``initializer.Bilinear`` gives the upsampling
+    kernel); a per-channel bias unless ``bias_attr=False``."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    num_channels = input.shape[1]
+    filter_size = _pair(filter_size)
+    stride, padding, dilation = _pair(stride), _pair(padding), _pair(dilation)
+    filter_shape = [num_channels, num_filters // groups] + list(filter_size)
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=input.dtype,
+                                default_initializer=Xavier())
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d_transpose", inputs={"Input": input, "Filter": w},
+                     outputs={"Output": pre_bias},
+                     attrs={"strides": list(stride), "paddings": list(padding),
+                            "dilations": list(dilation), "groups": groups})
     pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
     return helper.append_activation(pre_act)
 
@@ -157,6 +189,95 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                "data_layout": data_layout,
                "use_global_stats": use_global_stats})
     return helper.append_activation(y)
+
+
+def _channel_affine(helper, input):
+    """The per-channel scale (1) and bias (0) of group and instance norm."""
+    channels = input.shape[1]
+    s = helper.create_parameter(helper.param_attr, shape=[channels],
+                                dtype=input.dtype,
+                                default_initializer=Constant(1.0))
+    b = helper.create_parameter(
+        helper.bias_attr if helper.bias_attr is not False else None,
+        shape=[channels], dtype=input.dtype, is_bias=True,
+        default_initializer=Constant(0.0))
+    return s, b
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    s, b = _channel_affine(helper, input)
+    y = helper.create_variable_for_type_inference(input.dtype)
+    mean = helper.create_variable_for_type_inference(input.dtype, True)
+    var = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("group_norm", inputs={"X": input, "Scale": s,
+                                           "Bias": b},
+                     outputs={"Y": y, "Mean": mean, "Variance": var},
+                     attrs={"epsilon": epsilon, "groups": groups})
+    return helper.append_activation(y)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    s, b = _channel_affine(helper, input)
+    y = helper.create_variable_for_type_inference(input.dtype)
+    sm = helper.create_variable_for_type_inference(input.dtype, True)
+    sv = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("instance_norm",
+                     inputs={"X": input, "Scale": s, "Bias": b},
+                     outputs={"Y": y, "SavedMean": sm, "SavedVariance": sv},
+                     attrs={"epsilon": epsilon})
+    return y
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("l2_normalize", inputs={"X": x},
+                     outputs={"Out": out, "Norm": norm},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """alpha (0.25) is one scalar ("all"), one per channel ("channel") or
+    one per element of a sample ("element")."""
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    alpha_shape = [1] if mode == "all" else (
+        [x.shape[1]] if mode == "channel" else list(x.shape[1:]))
+    alpha = helper.create_parameter(helper.param_attr, shape=alpha_shape,
+                                    dtype=x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("prelu", inputs={"X": x, "Alpha": alpha},
+                     outputs={"Out": out}, attrs={"mode": mode})
+    return out
+
+
+def image_resize(input, out_shape, resample="BILINEAR", name=None):
+    """NCHW resized to ``out_shape`` (h, w): ``bilinear_interp`` or, for
+    ``resample="NEAREST"``, ``interpolate_nearest``."""
+    op = ("bilinear_interp" if resample.upper() == "BILINEAR"
+          else "interpolate_nearest")
+    helper = LayerHelper(op, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(op, inputs={"X": input}, outputs={"Out": out},
+                     attrs={"out_h": int(out_shape[0]),
+                            "out_w": int(out_shape[1])})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, name=None, align_corners=True):
+    return image_resize(input, out_shape, "BILINEAR", name)
+
+
+def resize_nearest(input, out_shape=None, name=None, align_corners=False):
+    return image_resize(input, out_shape, "NEAREST", name)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

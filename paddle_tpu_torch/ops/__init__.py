@@ -2,3 +2,4 @@
 from . import (amp_ops, control_flow, fused_attention,  # noqa: F401
                fused_gemm, generation, loss, math, misc2, nn, optimizer_ops,
                recompute, rnn_ops, sequence_ops, structured, tensor)
+from ..core.registry import all_ops, get_op_def, has_op, register_op  # noqa: F401,E402

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.selected_rows import SelectedRows, is_selected_rows
 from .common import IOSpec, register_op, x
 
 
@@ -21,17 +22,22 @@ def _no_infer(op, block):
              grad=None, infer_shape=_no_infer)
 def _check_finite_and_unscale(ctx, ins, attrs):
     """Out_i = X_i / Scale, zeroed when any X_i holds a non-finite
-    element; FoundInfinite [1] is that flag. Stays on the device: no host
-    read."""
+    element; FoundInfinite [1] is that flag. A SelectedRows X is checked
+    and unscaled over its values and keeps its rows. Stays on the device:
+    no host read."""
     xs = ins.get("X", [])
     scale = x(ins, "Scale").reshape(()).float()
     found = torch.zeros((), dtype=torch.bool, device=scale.device)
     for v in xs:
-        found = found | ~torch.isfinite(v.float()).all()
+        vals = v.values if is_selected_rows(v) else v
+        found = found | ~torch.isfinite(vals.float()).all()
     outs = []
     for v in xs:
-        unscaled = (v.float() / scale).to(v.dtype)
-        outs.append(torch.where(found, torch.zeros_like(unscaled), unscaled))
+        vals = v.values if is_selected_rows(v) else v
+        unscaled = (vals.float() / scale).to(vals.dtype)
+        res = torch.where(found, torch.zeros_like(unscaled), unscaled)
+        outs.append(SelectedRows(v.rows, res, v.height)
+                    if is_selected_rows(v) else res)
     return {"Out": outs, "FoundInfinite": [found.reshape((1,))]}
 
 

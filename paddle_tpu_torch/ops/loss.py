@@ -7,9 +7,22 @@ import torch
 from .common import IOSpec, out, register_op, x
 
 
+def _float_mean(v, *args, **kwargs):
+    """``jnp.mean``'s promotion: an integer or bool mean is float32."""
+    if not (v.is_floating_point() or v.is_complex()):
+        v = v.to(torch.float32)
+    return torch.mean(v, *args, **kwargs)
+
+
+def _int32_kept(v):
+    """The ``dtype`` of a sum or product that keeps an int32 input int32,
+    as ``jnp``'s does (torch widens every integer to int64)."""
+    return torch.int32 if v.dtype == torch.int32 else None
+
+
 @register_op("mean", inputs=["X"], outputs=["Out"])
 def _mean(ctx, ins, attrs):
-    return out(torch.mean(x(ins)))
+    return out(_float_mean(x(ins)))
 
 
 def _over_last(fn):
@@ -44,15 +57,16 @@ def _reduce(reduce):
 
 _REDUCE_ATTRS = {"dim": [0], "keep_dim": False, "reduce_all": False}
 for _name, _fn in [
-    # an int32 sum stays int32, as jnp.sum's (torch widens it to int64)
+    # an int32 sum or product stays int32, an integer mean is float32,
+    # as jnp's
     ("reduce_sum", lambda v, d, k: torch.sum(
-        v, dim=d, keepdim=k,
-        dtype=torch.int32 if v.dtype == torch.int32 else None)),
-    ("reduce_mean", lambda v, d, k: torch.mean(v, dim=d, keepdim=k)),
+        v, dim=d, keepdim=k, dtype=_int32_kept(v))),
+    ("reduce_mean", lambda v, d, k: _float_mean(v, dim=d, keepdim=k)),
     # amax/amin split the grad evenly between equal maxima, as jnp.max's
     ("reduce_max", lambda v, d, k: torch.amax(v, dim=d, keepdim=k)),
     ("reduce_min", lambda v, d, k: torch.amin(v, dim=d, keepdim=k)),
-    ("reduce_prod", _over_last(torch.prod)),
+    ("reduce_prod", _over_last(lambda v, dim: torch.prod(
+        v, dim=dim, dtype=_int32_kept(v)))),
 ]:
     register_op(_name, inputs=["X"], outputs=["Out"],
                 attrs=_REDUCE_ATTRS)(_reduce(_fn))

@@ -3,12 +3,17 @@ logical ops (counterpart of ``paddle_tpu/ops/math.py``): every op type of
 that module, each a plain torch expression of the reference's ``jnp`` one.
 Gradients are the generic ``<type>_grad`` (autograd over the rule), none
 where the reference registers none (``ceil``, ``floor``, ``round``,
-``sign``, the comparisons, the logicals and ``isfinite``)."""
+``sign``, the comparisons, the logicals and ``isfinite``). A
+SelectedRows gradient passes ``scale``, ``sum``, ``clip``,
+``clip_by_norm``, ``squared_l2_norm`` and ``elementwise_mul``/``div`` by
+a one-element Y as the reference's sparse branches pass it."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..core.selected_rows import (SelectedRows, concat_merge,
+                                   is_selected_rows)
 from ..core.types import torch_dtype
 from .common import IOSpec, broadcast_to_x, out, register_op, unary, x
 
@@ -182,9 +187,17 @@ def _log_softmax(ctx, ins, attrs):
 
 # -- elementwise binary -----------------------------------------------------
 
-def _ew(fn):
+def _ew(fn, sparse_ok=False):
+    """A SelectedRows X by a one-element Y keeps its structure only for a
+    multiplicative op (``sparse_ok``: the untouched rows stay zero under
+    * and /: a global-norm clip's scale, a loss-scale unscale); any other
+    op on a SelectedRows fails loudly, as the reference's does."""
     def lower(ctx, ins, attrs):
         xv, yv = x(ins, "X"), x(ins, "Y")
+        if sparse_ok and is_selected_rows(xv) \
+                and not is_selected_rows(yv) and yv.numel() == 1:
+            return out(SelectedRows(xv.rows, fn(xv.values, yv.reshape(())),
+                                    xv.height))
         return out(fn(xv, broadcast_to_x(xv, yv, attrs.get("axis", -1))))
 
     return lower
@@ -204,13 +217,19 @@ for _name, _fn in [
      lambda a, b: torch.div(a, b, rounding_mode="floor")),
 ]:
     register_op(_name, inputs=["X", "Y"], outputs=["Out"],
-                attrs={"axis": -1})(_ew(_fn))
+                attrs={"axis": -1})(_ew(_fn, _name in ("elementwise_mul",
+                                                       "elementwise_div")))
 
 
 @register_op("scale", inputs=["X"], outputs=["Out"],
              attrs={"scale": 1.0, "bias": 0.0, "bias_after_scale": True})
 def _scale(ctx, ins, attrs):
     v = x(ins)
+    if is_selected_rows(v):
+        # grad scaling (1/N, a loss scale): a bias on a sparse grad is
+        # malformed
+        assert attrs.get("bias", 0.0) == 0.0, "scale(SelectedRows) with bias"
+        return out(v.scale(attrs["scale"]))
     if attrs.get("bias_after_scale", True):
         return out(v * attrs["scale"] + attrs["bias"])
     return out((v + attrs["bias"]) * attrs["scale"])
@@ -224,8 +243,23 @@ def _cast(ctx, ins, attrs):
 
 @register_op("sum", inputs=[IOSpec("X", duplicable=True)], outputs=["Out"])
 def _sum(ctx, ins, attrs):
-    """Dense sum of the inputs (backward's grad accumulation)."""
+    """Sum of the inputs (backward's grad accumulation). The grads of a
+    table two sparse lookups read are concatenated and merged again, so
+    the sum stays sized by the lookups; a mix of dense and sparse inputs
+    is densified (reference selected_rows_functor.cc Add)."""
     vals = [v for v in ins.get("X", []) if v is not None]
+    sparse = [v for v in vals if is_selected_rows(v)]
+    if sparse:
+        acc = sparse[0]
+        for v in sparse[1:]:
+            acc = concat_merge(acc, v)
+        dense = [v for v in vals if not is_selected_rows(v)]
+        if not dense:
+            return out(acc)
+        d = dense[0]
+        for v in dense[1:]:
+            d = d + v
+        return out(d + acc.to_dense())
     acc = vals[0]
     for v in vals[1:]:
         acc = acc + v
@@ -235,22 +269,34 @@ def _sum(ctx, ins, attrs):
 @register_op("clip", inputs=["X"], outputs=["Out"],
              attrs={"min": -1.0, "max": 1.0})
 def _clip(ctx, ins, attrs):
-    return out(torch.clamp(x(ins), attrs["min"], attrs["max"]))
+    v = x(ins)
+    if is_selected_rows(v):
+        return out(SelectedRows(
+            v.rows, torch.clamp(v.values, attrs["min"], attrs["max"]),
+            v.height))
+    return out(torch.clamp(v, attrs["min"], attrs["max"]))
 
 
 @register_op("clip_by_norm", inputs=["X"], outputs=["Out"],
              attrs={"max_norm": 1.0})
 def _clip_by_norm(ctx, ins, attrs):
+    """A SelectedRows' rows are duplicate-free, so the norm of its values
+    is the grad's norm (reference clip_by_norm_op.h)."""
     v = x(ins)
-    norm = torch.sqrt(torch.sum(torch.square(v)))
+    vals = v.values if is_selected_rows(v) else v
+    norm = torch.sqrt(torch.sum(torch.square(vals)))
     scale = torch.clamp(attrs["max_norm"] / torch.clamp(norm, min=1e-12),
                         max=1.0)
+    if is_selected_rows(v):
+        return out(SelectedRows(v.rows, vals * scale, v.height))
     return out(v * scale)
 
 
 @register_op("squared_l2_norm", inputs=["X"], outputs=["Out"])
 def _squared_l2_norm(ctx, ins, attrs):
-    return out(torch.sum(torch.square(x(ins))).reshape((1,)))
+    v = x(ins)
+    vals = v.values if is_selected_rows(v) else v
+    return out(torch.sum(torch.square(vals)).reshape((1,)))
 
 
 # -- comparison / logical (non-differentiable) ------------------------------

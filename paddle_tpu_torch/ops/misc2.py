@@ -1,15 +1,18 @@
-"""The sequence tail of ``paddle_tpu/ops/misc2.py``: sequence_reshape,
+"""Of ``paddle_tpu/ops/misc2.py``: the sequence tail (sequence_reshape,
 sequence_expand_as and sequence_scatter on the padded + lengths
-encoding (``ops/sequence_ops.py``). The module's other op types wait for
-a later slice of the port.
+encoding of ``ops/sequence_ops.py``) and the SelectedRows utilities
+(merge_selected_rows, get_tensor_from_selected_rows). The module's other
+op types wait for a later slice of the port.
 
 References: sequence_reshape_op.h, sequence_expand_as_op.h,
-sequence_scatter_op.h.
+sequence_scatter_op.h, merge_selected_rows_op.cc,
+get_tensor_from_selected_rows_op.cc.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.selected_rows import is_selected_rows, merge_rows
 from .common import IOSpec, out, register_op, x
 from .sequence_ops import lengths, seq_mask
 
@@ -75,3 +78,26 @@ def _sequence_scatter(ctx, ins, attrs):
     vals = torch.where(valid, upd, 0).to(xv.dtype)
     return out(wide.index_put((rows.reshape(-1), tgt.reshape(-1)),
                               vals.reshape(-1), accumulate=True)[:, :d])
+
+
+# -- SelectedRows utilities -------------------------------------------------
+
+@register_op("merge_selected_rows", inputs=["X"], outputs=["Out"],
+             grad=None)
+def _merge_selected_rows(ctx, ins, attrs):
+    """Sum duplicate rows. A SelectedRows is canonical from its creation,
+    so this merges it again (the same rows and values); a dense input
+    passes through."""
+    v = x(ins)
+    if is_selected_rows(v):
+        return out(merge_rows(v.rows, v.values, v.height))
+    return out(v)
+
+
+@register_op("get_tensor_from_selected_rows", inputs=["X"],
+             outputs=["Out"], grad=None)
+def _get_tensor_from_selected_rows(ctx, ins, attrs):
+    """The dense [height, ...] tensor of a SelectedRows; a dense input
+    passes through."""
+    v = x(ins)
+    return out(v.to_dense() if is_selected_rows(v) else v)

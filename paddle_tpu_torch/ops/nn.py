@@ -1,5 +1,7 @@
-"""Neural-net ops (counterpart of ``paddle_tpu/ops/nn.py``): mul, matmul,
-conv2d, depthwise_conv2d, pool2d, batch_norm, layer_norm, dropout. Plain
+"""Neural-net ops (counterpart of ``paddle_tpu/ops/nn.py``, every op type
+of it): mul, matmul, conv2d, depthwise_conv2d, conv2d_transpose, pool2d,
+batch_norm, layer_norm, group_norm, instance_norm, dropout,
+l2_normalize, prelu, interpolate_nearest and bilinear_interp. Plain
 GEMMs go to ``torch.matmul`` and convolutions to ``F.conv2d`` (cuDNN on
 the card), as the JAX package leaves both to XLA; in float32 they run in
 full float32 (no TF32) unless the caller turned
@@ -235,3 +237,165 @@ def _dropout(ctx, ins, attrs):
     if impl == "upscale_in_train" and p < 1.0:
         y = y / (1.0 - p)
     return {"Out": [y], "Mask": [mask]}
+
+
+@register_op("conv2d_transpose", inputs=[IOSpec("Input"), IOSpec("Filter"),
+                                         IOSpec("Bias", optional=True)],
+             outputs=["Output"],
+             attrs={"strides": [1, 1], "paddings": [0, 0],
+                    "dilations": [1, 1], "groups": 1, "output_size": [],
+                    "data_format": "NCHW"})
+def _conv2d_transpose(ctx, ins, attrs):
+    """The reference's transposed conv (its lhs-dilated forward conv with
+    the flipped kernel) is ``F.conv_transpose2d``: filters [C_in, C_out,
+    kh, kw], output (H - 1) s + (k - 1) d + 1 - 2p. ``output_size`` is
+    ignored and groups > 1 refused, as in the reference."""
+    if attrs.get("groups", 1) != 1:
+        raise NotImplementedError("conv2d_transpose groups>1 not supported")
+    inp = x(ins, "Input")
+    res = F.conv_transpose2d(
+        _laid_out(inp), _laid_out(x(ins, "Filter"), like=inp),
+        stride=list(attrs["strides"]), padding=list(attrs["paddings"]),
+        dilation=list(attrs["dilations"]))
+    b = x(ins, "Bias")
+    if b is not None:
+        res = res + b.reshape((1, -1, 1, 1))
+    return {"Output": [res]}
+
+
+def _affine(y, ins, channels, dim):
+    scale, bias = x(ins, "Scale"), x(ins, "Bias")
+    shape = (1, channels) + (1,) * (dim - 2)
+    if scale is not None:
+        y = y * scale.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    return y
+
+
+@register_op("group_norm",
+             inputs=[IOSpec("X"), IOSpec("Scale", optional=True),
+                     IOSpec("Bias", optional=True)],
+             outputs=["Y", "Mean", "Variance"],
+             attrs={"epsilon": 1e-5, "groups": 1})
+def _group_norm(ctx, ins, attrs):
+    """Biased statistics over each group of C/groups channels and the
+    spatial dims; Mean and Variance are [N, groups]."""
+    xv = x(ins, "X")
+    n, c, g = xv.shape[0], xv.shape[1], attrs["groups"]
+    xg = xv.reshape((n, g, c // g) + tuple(xv.shape[2:]))
+    dims = tuple(range(2, xg.dim()))
+    var, mean = torch.var_mean(xg, dim=dims, keepdim=True, correction=0)
+    y = ((xg - mean) / torch.sqrt(var + attrs["epsilon"])).reshape(xv.shape)
+    return {"Y": [_affine(y, ins, c, xv.dim())],
+            "Mean": [mean.reshape(n, g)], "Variance": [var.reshape(n, g)]}
+
+
+@register_op("instance_norm",
+             inputs=[IOSpec("X"), IOSpec("Scale", optional=True),
+                     IOSpec("Bias", optional=True)],
+             outputs=["Y", "SavedMean", "SavedVariance"],
+             attrs={"epsilon": 1e-5})
+def _instance_norm(ctx, ins, attrs):
+    """Biased statistics over each (sample, channel)'s spatial dims;
+    SavedVariance holds 1/sqrt(var + eps), as the reference's."""
+    xv = x(ins, "X")
+    dims = tuple(range(2, xv.dim()))
+    var, mean = torch.var_mean(xv, dim=dims, keepdim=True, correction=0)
+    y = (xv - mean) / torch.sqrt(var + attrs["epsilon"])
+    n, c = xv.shape[0], xv.shape[1]
+    return {"Y": [_affine(y, ins, c, xv.dim())],
+            "SavedMean": [mean.reshape(n * c)],
+            "SavedVariance": [(1.0 / torch.sqrt(var + attrs["epsilon"]))
+                              .reshape(n * c)]}
+
+
+@register_op("l2_normalize", inputs=["X"], outputs=["Out", "Norm"],
+             attrs={"axis": -1, "epsilon": 1e-12})
+def _l2_normalize(ctx, ins, attrs):
+    """x / sqrt(sum(x^2) + eps) along ``axis`` (eps inside the root)."""
+    xv = x(ins)
+    norm = torch.sqrt(torch.sum(torch.square(xv), dim=attrs["axis"],
+                                keepdim=True) + attrs["epsilon"])
+    return {"Out": [xv / norm], "Norm": [norm]}
+
+
+@register_op("prelu", inputs=["X", "Alpha"], outputs=["Out"],
+             attrs={"mode": "all"})
+def _prelu(ctx, ins, attrs):
+    """x where x > 0, alpha x elsewhere; alpha one scalar ("all"), one per
+    channel ("channel") or one per element of a sample ("element")."""
+    xv, alpha = x(ins, "X"), x(ins, "Alpha")
+    mode = attrs.get("mode", "all")
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (xv.dim() - 2))
+    elif mode == "element":
+        alpha = alpha.reshape((1,) + tuple(xv.shape[1:]))
+    elif mode == "all":
+        alpha = alpha.reshape(())
+    return out(torch.where(xv > 0, xv, alpha * xv))
+
+
+def _nearest_index(m: int, n: int, device) -> torch.Tensor:
+    """``jax.image.resize``'s nearest source index of each of ``n``
+    outputs over ``m`` inputs: floor((i + 0.5) * m / n), in float32 and
+    in that order (half-pixel centers, ``align_corners`` ignored)."""
+    f = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * m / n
+    return torch.floor(f).long().clamp(max=m - 1)
+
+
+def _linear_weights(m: int, n: int, device) -> torch.Tensor:
+    """``jax.image.resize``'s [m, n] bilinear weights (``antialias``, its
+    default): half-pixel sample points, a triangle kernel widened by
+    m / n when downsampling, each column normalised over the inputs it
+    reaches, in float32."""
+    inv_scale = 1.0 / (n / m)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(n, dtype=torch.float32, device=device) + 0.5)
+              * inv_scale - 0.5)
+    dist = torch.abs(sample[None, :] - torch.arange(
+        m, dtype=torch.float32, device=device)[:, None]) / kernel_scale
+    w = torch.clamp(1.0 - dist, min=0.0)
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(torch.float32).eps)
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+@register_op("interpolate_nearest", inputs=["X"], outputs=["Out"],
+             attrs={"out_h": 0, "out_w": 0, "align_corners": False})
+def _interp_nearest(ctx, ins, attrs):
+    """Nearest resize of NCHW to (out_h, out_w), the index arithmetic of
+    ``jax.image.resize(method="nearest")`` written out (torch's
+    ``interpolate`` rounds its own way); an unchanged dim is left as is."""
+    xv = x(ins)
+    h, w = xv.shape[2], xv.shape[3]
+    oh, ow = int(attrs["out_h"]), int(attrs["out_w"])
+    if oh != h:
+        xv = xv.index_select(2, _nearest_index(h, oh, xv.device))
+    if ow != w:
+        xv = xv.index_select(3, _nearest_index(w, ow, xv.device))
+    return out(xv)
+
+
+@register_op("bilinear_interp", inputs=["X"], outputs=["Out"],
+             attrs={"out_h": 0, "out_w": 0, "align_corners": True})
+def _bilinear_interp(ctx, ins, attrs):
+    """Bilinear resize of NCHW to (out_h, out_w) as
+    ``jax.image.resize(method="bilinear")`` computes it: two weight
+    contractions (``_linear_weights``), antialiased when downsampling,
+    ``align_corners`` ignored; an unchanged dim is left as is."""
+    xv = x(ins)
+    h, w = xv.shape[2], xv.shape[3]
+    oh, ow = int(attrs["out_h"]), int(attrs["out_w"])
+    if not xv.is_floating_point():
+        xv = xv.to(torch.float32)
+    if oh != h:
+        xv = torch.einsum("nchw,hH->ncHw", xv, _linear_weights(
+            h, oh, xv.device).to(xv.dtype))
+    if ow != w:
+        xv = torch.einsum("nchw,wW->nchW", xv, _linear_weights(
+            w, ow, xv.device).to(xv.dtype))
+    return out(xv)

@@ -1,23 +1,35 @@
 """Optimizer update ops (counterpart of
-``paddle_tpu/ops/optimizer_ops.py``): all 13 update rules, dense gradients
-(SelectedRows gradients wait with sparse embeddings). Each is the
+``paddle_tpu/ops/optimizer_ops.py``): all 13 update rules. Each is the
 reference's ``jnp`` update written in torch, with its slots, attrs and
 defaults; every rule casts ``Grad`` to the parameter's dtype first, as
 ``adam`` does (a no-op on the port's paths, whose gradients come back in
-their parameters' dtype under AMP too)."""
+their parameters' dtype under AMP too).
+
+A SelectedRows ``Grad`` (an ``is_sparse`` table's) takes the reference's
+sparse branch in ``sgd``, ``momentum``, ``adam`` (``adamw`` through it)
+and ``adagrad``: the touched rows are gathered, updated and written back
+into a copy of the state (``core.selected_rows.set_rows``, which drops
+the sentinel slots); state the dense rule decays everywhere (momentum's
+velocity, non-lazy Adam's moments) still decays everywhere, so those
+rules keep dense semantics without a dense gradient. No host sync."""
 from __future__ import annotations
 
 import torch
 
+from ..core.selected_rows import gather_rows, is_selected_rows, set_rows
 from .common import register_op, x
 
 
 @register_op("sgd", inputs=["Param", "Grad", "LearningRate"],
              outputs=["ParamOut"], grad=None)
 def _sgd(ctx, ins, attrs):
-    p = x(ins, "Param")
+    p, g = x(ins, "Param"), x(ins, "Grad")
     lr = x(ins, "LearningRate").reshape(()).to(p.dtype)
-    return {"ParamOut": [p - lr * x(ins, "Grad").to(p.dtype)]}
+    if is_selected_rows(g):
+        # reference sgd_op.h sparse branch: only the touched rows move
+        new = gather_rows(p, g.rows) + (-lr * g.values.to(p.dtype))
+        return {"ParamOut": [set_rows(p.clone(), g.rows, new, g.height)]}
+    return {"ParamOut": [p - lr * g.to(p.dtype)]}
 
 
 @register_op("momentum", inputs=["Param", "Grad", "Velocity", "LearningRate"],
@@ -31,12 +43,34 @@ def _momentum(ctx, ins, attrs):
     p, v = x(ins, "Param"), x(ins, "Velocity")
     lr = x(ins, "LearningRate").reshape(())
     mu = attrs["mu"]
-    g = x(ins, "Grad").to(p.dtype)
+    g = x(ins, "Grad")
+    if is_selected_rows(g):
+        return _sparse_momentum(p, v, lr, mu, g, attrs)
+    g = g.to(p.dtype)
     if attrs.get("regularization_method") == "l2_decay":
         g = g + attrs["regularization_coeff"] * p
     v_out = mu * v + g
     if attrs.get("use_nesterov"):
         p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": [p_out], "VelocityOut": [v_out]}
+
+
+def _sparse_momentum(p, v, lr, mu, g, attrs):
+    """Dense-semantics momentum over a SelectedRows grad (reference
+    momentum_op.h DenseMomentumFunctor): a row the batch missed sees
+    g = 0, so its velocity still decays and its parameter still moves."""
+    rows, height = g.rows, g.height
+    gv = g.values.to(p.dtype)
+    l2 = attrs.get("regularization_method") == "l2_decay"
+    coeff = attrs.get("regularization_coeff", 0.0)
+    v_out = mu * v + coeff * p if l2 else mu * v
+    set_rows(v_out, rows, gather_rows(v_out, rows) + gv, height)
+    if attrs.get("use_nesterov"):
+        p_out = (p - lr * (coeff * p + mu * v_out)) if l2 \
+            else p - lr * mu * v_out
+        set_rows(p_out, rows, gather_rows(p_out, rows) + (-lr * gv), height)
     else:
         p_out = p - lr * v_out
     return {"ParamOut": [p_out], "VelocityOut": [v_out]}
@@ -79,14 +113,43 @@ def _adam(ctx, ins, attrs):
     b1p, b2p = x(ins, "Beta1Pow").reshape(()), x(ins, "Beta2Pow").reshape(())
     b1, b2, eps = attrs["beta1"], attrs["beta2"], attrs["epsilon"]
     lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+    pows = {"Beta1PowOut": [(b1p * b1).reshape((1,))],
+            "Beta2PowOut": [(b2p * b2).reshape((1,))]}
+    if is_selected_rows(g):
+        rows, height = g.rows, g.height
+        gv = g.values.to(p.dtype)
+        if attrs.get("lazy_mode"):
+            # reference adam_op.h SparseAdamFunctor lazy_mode: the param
+            # and both moments change at the grad's rows only
+            m1_r = b1 * gather_rows(m1, rows) + (1 - b1) * gv
+            m2_r = b2 * gather_rows(m2, rows) + (1 - b2) * gv * gv
+            upd = -lr_t * m1_r / (torch.sqrt(m2_r) + eps)
+            return {"ParamOut": [set_rows(p.clone(), rows,
+                                          gather_rows(p, rows) + upd,
+                                          height)],
+                    "Moment1Out": [set_rows(m1.clone(), rows, m1_r,
+                                            height)],
+                    "Moment2Out": [set_rows(m2.clone(), rows, m2_r,
+                                            height)],
+                    **pows}
+        # non-lazy: a row the batch missed sees g = 0 (its moments decay,
+        # its param moves on them); the (1 - beta) terms go in at the
+        # grad's rows only
+        m1_out = b1 * m1
+        set_rows(m1_out, rows, gather_rows(m1_out, rows) + (1 - b1) * gv,
+                 height)
+        m2_out = b2 * m2
+        set_rows(m2_out, rows,
+                 gather_rows(m2_out, rows) + (1 - b2) * gv * gv, height)
+        p_out = p - lr_t * m1_out / (torch.sqrt(m2_out) + eps)
+        return {"ParamOut": [p_out], "Moment1Out": [m1_out],
+                "Moment2Out": [m2_out], **pows}
     g = g.to(p.dtype)
     m1_out = b1 * m1 + (1 - b1) * g
     m2_out = b2 * m2 + (1 - b2) * g * g
     p_out = p - lr_t * m1_out / (torch.sqrt(m2_out) + eps)
     return {"ParamOut": [p_out], "Moment1Out": [m1_out],
-            "Moment2Out": [m2_out],
-            "Beta1PowOut": [(b1p * b1).reshape((1,))],
-            "Beta2PowOut": [(b2p * b2).reshape((1,))]}
+            "Moment2Out": [m2_out], **pows}
 
 
 @register_op("adamw",
@@ -111,9 +174,19 @@ def _adamw(ctx, ins, attrs):
              outputs=["ParamOut", "MomentOut"], attrs={"epsilon": 1e-6},
              grad=None)
 def _adagrad(ctx, ins, attrs):
-    p = x(ins, "Param")
-    g = x(ins, "Grad").to(p.dtype)
+    p, g = x(ins, "Param"), x(ins, "Grad")
     m, lr = x(ins, "Moment"), x(ins, "LearningRate").reshape(())
+    if is_selected_rows(g):
+        # adagrad with g = 0 is the identity, so the touched-rows update
+        # is the dense one (reference adagrad_op.h sparse branch)
+        gv = g.values.to(p.dtype)
+        m_r = gather_rows(m, g.rows) + gv * gv
+        upd = -lr * gv / (torch.sqrt(m_r) + attrs["epsilon"])
+        return {"ParamOut": [set_rows(p.clone(), g.rows,
+                                      gather_rows(p, g.rows) + upd,
+                                      g.height)],
+                "MomentOut": [set_rows(m.clone(), g.rows, m_r, g.height)]}
+    g = g.to(p.dtype)
     m_out = m + g * g
     p_out = p - lr * g / (torch.sqrt(m_out) + attrs["epsilon"])
     return {"ParamOut": [p_out], "MomentOut": [m_out]}

@@ -185,14 +185,13 @@ _MASKED_SUM_MAX_ROWS = 4
 
 
 def _lookup_table_grad(ctx, ins, attrs):
-    """Dense scatter-add of the output grad into the table's rows, as the
-    reference's custom grad for a dense table: ids clamped as the forward
-    gathers them; padding rows go to a spare row that is dropped. The sum
-    runs in an order fixed for the inputs, so runs repeat bit for bit."""
-    if attrs.get("is_sparse") or attrs.get("is_distributed"):
-        raise NotImplementedError(
-            "sparse (SelectedRows) embedding grads wait for a later slice "
-            "of the port")
+    """The reference's custom grad. Ids are clamped as the forward gathers
+    them and padding rows go to the sentinel ``height``. An ``is_sparse``
+    or ``is_distributed`` table gets a SelectedRows sized by the lookups
+    (``core.selected_rows.merge_rows``); a dense one a scatter-add of the
+    output grad into its rows, the padding rows into a spare row that is
+    dropped. Both sum in an order fixed for the inputs, so runs repeat
+    bit for bit."""
     w, ids, g = x(ins, "W"), x(ins, "Ids"), x(ins, "Out@GRAD")
     height, dim = w.shape[0], w.shape[-1]
     flat = ids.reshape(-1).long().clamp(0, height - 1)
@@ -200,6 +199,10 @@ def _lookup_table_grad(ctx, ins, attrs):
     if pad is not None and pad != -1:
         flat = torch.where(flat == pad, torch.full_like(flat, height), flat)
     g2 = g.reshape(-1, dim).to(w.dtype)
+    if attrs.get("is_sparse") or attrs.get("is_distributed"):
+        from ..core.selected_rows import merge_rows
+
+        return {"W@GRAD": [merge_rows(flat, g2, height)]}
     if height <= _MASKED_SUM_MAX_ROWS:
         rows = torch.arange(height + 1, device=w.device)[:, None] == \
             flat[None, :]
@@ -217,9 +220,11 @@ def _lookup_table_grad(ctx, ins, attrs):
              attrs={"k": 1}, grad=None)
 def _top_k(ctx, ins, attrs):
     """The k largest values along the last axis, largest first, and their
-    int64 indices."""
-    vals, idx = torch.topk(x(ins), int(attrs["k"]), dim=-1)
-    return {"Out": [vals], "Indices": [idx]}
+    int64 indices; equal values keep their order (the lowest index
+    first), as ``lax.top_k``'s (``torch.topk`` orders ties its own way)."""
+    vals, idx = torch.sort(x(ins), dim=-1, descending=True, stable=True)
+    k = int(attrs["k"])
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
 
 
 @register_op("lookup_table", inputs=[IOSpec("W"), IOSpec("Ids", no_grad=True)],
@@ -507,7 +512,9 @@ def _cumsum(ctx, ins, attrs):
     axis = attrs["axis"]
     if attrs.get("reverse"):
         xv = torch.flip(xv, (axis,))
-    res = torch.cumsum(xv, dim=axis)
+    # an int32 sum stays int32, as jnp.cumsum's (torch widens it)
+    res = torch.cumsum(xv, dim=axis,
+                       dtype=torch.int32 if xv.dtype == torch.int32 else None)
     if attrs.get("exclusive"):
         res = res - xv
     if attrs.get("reverse"):

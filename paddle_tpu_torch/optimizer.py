@@ -109,6 +109,10 @@ class Optimizer:
                                 shape, dtype,
                                 _fill(shape, dtype, float(fill_value)))
         var.is_optimizer_state = True
+        if (getattr(param, "is_distributed", False)
+                and list(shape[:1]) == list(param.shape[:1])):
+            # a sparse table's row-shaped accumulators carry its tag
+            var.is_distributed = True
         self._accumulators.setdefault(name, {})[param.name] = var
         return var
 

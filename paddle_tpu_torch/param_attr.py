@@ -37,3 +37,7 @@ class ParamAttr:
             "trainable": self.trainable,
             "do_model_average": self.do_model_average,
         }
+
+
+# the reference's alias (weight normalisation is not modelled there either)
+WeightNormParamAttr = ParamAttr

@@ -23,7 +23,8 @@ from .graceful import (install_signal_handlers, on_shutdown,
                        uninstall_signal_handlers)
 from .nonfinite import POLICIES
 from .retry import (RetryExhaustedError, RetryPolicy, call_with_retry,
-                    is_transient, policy_for, set_thread_stop_event)
+                    is_transient, policy_for, retrying,
+                    set_thread_stop_event)
 
 __all__ = [
     # checkpoint integrity
@@ -37,7 +38,7 @@ __all__ = [
     "stall",
     # retry + deadlines
     "Deadline", "DeadlineExceeded", "RetryExhaustedError", "RetryPolicy",
-    "call_with_retry", "is_transient", "policy_for",
+    "call_with_retry", "is_transient", "policy_for", "retrying",
     "set_thread_stop_event",
     # graceful (SIGTERM/preemption-notice) shutdown
     "shutdown_event", "shutdown_requested", "request_shutdown",

@@ -30,7 +30,7 @@ from typing import Callable, Optional
 from .deadline import Deadline
 
 __all__ = ["RetryPolicy", "RetryExhaustedError", "call_with_retry",
-           "is_transient", "policy_for",
+           "is_transient", "policy_for", "retrying",
            "set_thread_stop_event"]
 
 logger = logging.getLogger("paddle_tpu_torch.resilience")
@@ -234,3 +234,16 @@ def call_with_retry(site: str, fn: Callable, *args,
                         interrupted, attempt)
                     raise RetryExhaustedError(site, attempt, e) from e
 
+
+
+def retrying(site: str, policy: Optional[RetryPolicy] = None):
+    """Decorator form: ``@retrying("device_put")`` wraps a callable in
+    :func:`call_with_retry` for that site."""
+    def deco(fn: Callable):
+        import functools
+
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            return call_with_retry(site, fn, *args, policy=policy, **kwargs)
+        return wrapped
+    return deco

@@ -32,3 +32,12 @@ def guard(new_prefix: str = ""):
         yield
     finally:
         generator = old
+
+
+def switch(new_generator=None):
+    """Install ``new_generator`` (a fresh one by default); returns the
+    previous generator."""
+    global generator
+    old = generator
+    generator = new_generator or UniqueNameGenerator()
+    return old

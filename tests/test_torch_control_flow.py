@@ -650,25 +650,36 @@ def test_list_mode_write_at_a_written_index():
 
 
 def test_sparse_lookup_table_v2_grad_is_refused():
-    """``lookup_table_v2(is_sparse=True)``'s grad waits for SelectedRows,
-    as ``lookup_table``'s does."""
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tfluid.program_guard(main, startup):
-        ids = tfluid.layers.data("ids", shape=[3], dtype="int64")
-        w = tfluid.layers.create_global_var([10, 4], 0.5, "float32",
+    """``lookup_table_v2(is_sparse=True)``'s grad, refused until the port
+    had SelectedRows, is now the JAX package's: a SelectedRows of the
+    step's 6 lookups over a table of 10 rows whose dense form equals the
+    reference's (ids repeated, one out of range and clamped)."""
+    feed = {"ids": np.array([[3, 3, 9], [0, 12, 3]], np.int64)}
+    got = {}
+    for pkg, fl in (("jax", fluid), ("torch", tfluid)):
+        main, startup = fl.Program(), fl.Program()
+        with fl.program_guard(main, startup):
+            ids = fl.layers.data("ids", shape=[3], dtype="int64")
+            w = fl.layers.create_global_var([10, 4], 0.5, "float32",
                                             persistable=True, name="w")
-        w.stop_gradient = False
-        out = main.global_block.create_var(name="emb", dtype="float32")
-        main.global_block.append_op("lookup_table_v2",
-                                    inputs={"W": w, "Ids": ids},
-                                    outputs={"Out": out},
-                                    attrs={"is_sparse": True})
-        (gw,) = tfluid.gradients([tfluid.layers.reduce_sum(out)], [w])
-    exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
-    exe.run(startup, scope=scope)
-    with pytest.raises(Exception, match="sparse"):
-        exe.run(main, feed={"ids": np.zeros((2, 3), np.int64)},
-                fetch_list=[gw], scope=scope)
+            w.stop_gradient = False
+            out = main.global_block.create_var(name="emb", dtype="float32")
+            main.global_block.append_op("lookup_table_v2",
+                                        inputs={"W": w, "Ids": ids},
+                                        outputs={"Out": out},
+                                        attrs={"is_sparse": True})
+            (gw,) = fl.gradients([fl.layers.reduce_sum(
+                fl.layers.scale(out, scale=2.0))], [w])
+        exe, scope = fl.Executor(fl.CPUPlace()), fl.Scope()
+        exe.run(startup, scope=scope)
+        got[pkg] = exe.run(main, feed=feed, fetch_list=[gw], scope=scope,
+                           return_numpy=False)[0]
+    t, j = got["torch"], got["jax"]
+    assert t.height == j.height == 10 and tuple(t.values.shape) == (6, 4)
+    np.testing.assert_array_equal(t.rows.numpy(),
+                                  np.asarray(j.rows).astype(np.int64))
+    np.testing.assert_allclose(t.to_dense().numpy(),
+                               np.asarray(j.to_dense()), rtol=1e-6)
 
 
 def test_fetching_a_tensor_array_names_it():

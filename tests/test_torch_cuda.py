@@ -1724,3 +1724,158 @@ def test_lod_op_on_the_card_matches_the_cpu(case):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     if "ties" in case and op_type == "sequence_pool":
         assert card_grads, case
+
+
+def _sparse_rules():
+    from paddle_tpu_torch.core import registry
+
+    return (registry.get_op_def("lookup_table").grad_lower,
+            {t: registry.get_op_def(t).lower
+             for t in ("sgd", "momentum", "adam", "adagrad", "sum")})
+
+
+SPARSE_PAD = 3
+
+
+def _sparse_inputs(height=50_000, dim=10, batch=512, fields=39):
+    """A table, Zipf-like repeated ids (16 hot ids in half the fields, a
+    padding id in the first) and an output grad, made on the CPU from a
+    seed."""
+    g = torch.Generator().manual_seed(11)
+    w = torch.randn(height, dim, generator=g)
+    hot = torch.randint(0, 16, (batch, fields // 2), generator=g)
+    cold = torch.randint(0, height, (batch, fields - fields // 2),
+                         generator=g)
+    ids = torch.cat([hot, cold], 1)
+    ids[:, 0] = SPARSE_PAD
+    dout = torch.randn(batch, fields, dim, generator=g)
+    return w, ids, dout
+
+
+def _sparse_grad(w, ids, dout):
+    """The sparse grad of a table read twice (the second lookup reads the
+    first 5 fields), merged by ``sum``, on the inputs' device."""
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    grad_rule, rules = _sparse_rules()
+    ctx = LowerCtx(w.device)
+    attrs = {"is_sparse": True, "padding_idx": SPARSE_PAD}
+    g1 = grad_rule(ctx, {"W": [w], "Ids": [ids], "Out@GRAD": [dout]},
+                   attrs)["W@GRAD"][0]
+    g2 = grad_rule(ctx, {"W": [w], "Ids": [ids[:, :5]],
+                         "Out@GRAD": [dout[:, :5]]}, attrs)["W@GRAD"][0]
+    return rules["sum"](ctx, {"X": [g1, g2]}, {})["Out"][0]
+
+
+def _sparse_state(w):
+    """The update rules' state for table ``w``, made on the CPU from a
+    seed and moved to ``w``'s device (before any strict region: the copy
+    from host memory synchronises)."""
+    g = torch.Generator().manual_seed(12)
+    state = {k: torch.rand(w.shape, generator=g).to(w.device)
+             for k in ("v", "m1", "m2")}
+    state.update(lr=torch.full((1,), 0.1, device=w.device),
+                 b1p=torch.full((1,), 0.81, device=w.device),
+                 b2p=torch.full((1,), 0.998, device=w.device))
+    return state
+
+
+def _sparse_updates(w, grad, state):
+    """Every sparse update rule on ``grad`` from ``state``: {name: updated
+    tensor}."""
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    _, rules = _sparse_rules()
+    ctx = LowerCtx(w.device)
+    lr, pows = state["lr"], (state["b1p"], state["b2p"])
+    out = {"sgd": rules["sgd"](ctx, {"Param": [w], "Grad": [grad],
+                                     "LearningRate": [lr]},
+                               {})["ParamOut"][0]}
+    for nesterov in (False, True):
+        res = rules["momentum"](
+            ctx, {"Param": [w], "Grad": [grad], "Velocity": [state["v"]],
+                  "LearningRate": [lr]},
+            {"mu": 0.9, "use_nesterov": nesterov,
+             "regularization_method": "l2_decay",
+             "regularization_coeff": 0.01})
+        out[f"momentum{int(nesterov)}"] = res["ParamOut"][0]
+        out[f"momentum{int(nesterov)}_v"] = res["VelocityOut"][0]
+    for lazy in (False, True):
+        res = rules["adam"](
+            ctx, {"Param": [w], "Grad": [grad], "LearningRate": [lr],
+                  "Moment1": [state["m1"]], "Moment2": [state["m2"]],
+                  "Beta1Pow": [pows[0]], "Beta2Pow": [pows[1]]},
+            {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+             "lazy_mode": lazy})
+        out[f"adam{int(lazy)}"] = res["ParamOut"][0]
+        out[f"adam{int(lazy)}_m2"] = res["Moment2Out"][0]
+    res = rules["adagrad"](ctx, {"Param": [w], "Grad": [grad],
+                                 "Moment": [state["m2"]],
+                                 "LearningRate": [lr]}, {"epsilon": 1e-6})
+    out["adagrad"] = res["ParamOut"][0]
+    return out
+
+
+def _sparse_step_on_card(strict):
+    w, ids, dout = (t.cuda() for t in _sparse_inputs())
+    state = _sparse_state(w)
+    if strict:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        grad = _sparse_grad(w, ids, dout)
+        out = _sparse_updates(w, grad, state)
+    finally:
+        if strict:
+            torch.cuda.set_sync_debug_mode("default")
+    return grad, out
+
+
+@pytest.mark.cuda
+def test_sparse_grad_and_updates_make_no_host_sync_and_match_the_cpu():
+    """The SelectedRows path on the card (``merge_rows``, the shared
+    table's ``sum``, every sparse update rule, lazy Adam's writes) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync. The
+    merged grad's rows equal the CPU's and each value lies within the f32
+    recursive-summation bound of a float64 merge on the CPU, (rows of
+    its id - 1) * 2^-24 * the sum of their magnitudes (the card's
+    accumulate adds in its own order); the updates from that grad equal
+    the same rules' on the CPU from the same grad within f32 rtol 1e-5,
+    atol 1e-6."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+
+    _cuda()
+    grad, card = _sparse_step_on_card(strict=True)
+    w, ids, dout = _sparse_inputs()
+    ref = _sparse_grad(w.double(), ids, dout.double())
+    mag = _sparse_grad(w.double(), ids, dout.double().abs())
+    assert torch.equal(grad.rows.cpu(), ref.rows)
+    reads = torch.cat([ids.reshape(-1), ids[:, :5].reshape(-1)])
+    counts = torch.bincount(reads, minlength=w.shape[0] + 1).double()
+    live = ref.rows < w.shape[0]
+    n = counts[ref.rows.clamp(max=w.shape[0])][:, None]
+    bound = (n - 1).clamp(min=0) * 2.0 ** -24 * mag.values + 1e-7
+    err = (grad.values.cpu().double() - ref.values).abs()
+    assert (err[live] <= bound[live]).all(), float(err.max())
+    assert (grad.values.cpu()[~live] == 0).all()
+    cpu = _sparse_updates(w, SelectedRows(grad.rows.cpu(),
+                                          grad.values.cpu(), grad.height),
+                          _sparse_state(w))
+    for name, a in card.items():
+        torch.testing.assert_close(a.cpu(), cpu[name], rtol=1e-5, atol=1e-6,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_sparse_grad_and_updates_are_bit_identical_from_run_to_run():
+    """Two runs of the sparse grad (heavily repeated ids, a padding id)
+    and of every sparse update give the same bits on the card: the
+    merge sums in a fixed order and every write of a row carries one
+    value."""
+    _cuda()
+    (ga, a), (gb, b) = (_sparse_step_on_card(strict=False)
+                        for _ in range(2))
+    assert torch.equal(ga.rows, gb.rows) and torch.equal(ga.values,
+                                                          gb.values)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n

@@ -612,12 +612,9 @@ STILL_TO_PORT = {
     "anchor_generator", "box_clip", "box_coder", "collect_fpn_proposals",
     "distribute_fpn_proposals", "generate_proposals", "iou_similarity",
     "multiclass_nms", "prior_box", "roi_align", "roi_pool", "yolo_box",
-    # ops/nn.py
-    "bilinear_interp", "conv2d_transpose", "group_norm", "instance_norm",
-    "interpolate_nearest", "l2_normalize", "prelu",
-    # ops/misc2.py (the sequence tail is ported)
-    "deformable_conv", "deformable_psroi_pooling",
-    "get_tensor_from_selected_rows", "merge_selected_rows", "prroi_pool",
+    # ops/misc2.py (the sequence tail and the SelectedRows utilities are
+    # ported)
+    "deformable_conv", "deformable_psroi_pooling", "prroi_pool",
     "psroi_pool", "py_func", "sampled_softmax_with_cross_entropy",
     # ops/quant_ops.py
     "fake_quantize_dequantize_abs_max",
@@ -631,6 +628,6 @@ def test_registry_is_jax_minus_the_types_still_to_port():
     from paddle_tpu.core import registry as jreg
     from paddle_tpu_torch.core import registry as treg
 
-    assert len(STILL_TO_PORT) == 83
+    assert len(STILL_TO_PORT) == 74
     assert set(treg.all_ops()) == set(jreg.all_ops()) - STILL_TO_PORT
-    assert len(treg.all_ops()) == 214 and len(jreg.all_ops()) == 297
+    assert len(treg.all_ops()) == 223 and len(jreg.all_ops()) == 297

@@ -571,14 +571,26 @@ LOD_OPS = {"sequence_pool", "sequence_softmax", "sequence_reverse",
            "chunk_eval"}
 
 
+# the nn group (ops/nn.py): checked, forward and gradient, by the cases
+# of tests/test_torch_nn_group.py
+NN_GROUP_OPS = {"conv2d_transpose", "group_norm", "instance_norm",
+                "l2_normalize", "prelu", "interpolate_nearest",
+                "bilinear_interp"}
+# the SelectedRows utilities (ops/misc2.py): their input is a sparse
+# gradient, checked by the programs of tests/test_torch_selected_rows.py
+SPARSE_OPS = {"merge_selected_rows", "get_tensor_from_selected_rows"}
+
+
 def test_every_path_op_has_a_case():
     """Every op type of the port but the random ones (checked by
     distribution: here, in tests/test_torch_train.py and
-    tests/test_torch_mlp.py), the sub-block ones, the control-flow ones
-    and the LoD ones has a case."""
+    tests/test_torch_mlp.py), the sub-block ones, the control-flow ones,
+    the LoD ones, the nn group and the SelectedRows utilities has a
+    case."""
     from paddle_tpu_torch.core import registry
 
-    others = RANDOM_OPS | BLOCK_OPS | CONTROL_FLOW_OPS | LOD_OPS
+    others = (RANDOM_OPS | BLOCK_OPS | CONTROL_FLOW_OPS | LOD_OPS
+              | NN_GROUP_OPS | SPARSE_OPS)
     assert len(CASES) == 169 and not others & set(CASES)
     assert set(CASES) | others == set(registry.all_ops())
 
@@ -685,3 +697,95 @@ def test_random_batch_size_like_distribution_and_seeding(op_type, attrs,
     assert abs(a.std() - moments[1]) < 0.02
     if op_type.startswith("uniform"):
         assert a.min() >= -0.5 and a.max() < 1.5
+
+
+# ------------------------------------------------------ integer inputs
+# every ported rule that takes an integer input, on int32: the declared
+# output dtype (to_dict(), int32 NOT read as int64 here), the value's
+# dtype and the values equal the JAX package's. reduce_mean/mean follow
+# jnp.mean's promotion (float32); reduce_sum/reduce_prod/cumsum keep
+# int32. argsort's and top_k's int64 indices are the port's by design
+# (the reference runs with 64-bit types off): their values are compared
+# as int64, their Out as the rest.
+INT_X = np.arange(1, 13, dtype=np.int32).reshape(3, 4)
+INT_Y = np.arange(2, 14, dtype=np.int32).reshape(3, 4)
+INT_CASES = {
+    "reduce_mean": lambda L, x, y: [L.reduce_mean(x, dim=1)],
+    "reduce_mean_all": lambda L, x, y: [L.reduce_mean(x)],
+    "mean": lambda L, x, y: [L.mean(x)],
+    "reduce_prod": lambda L, x, y: [L.reduce_prod(x, dim=1)],
+    "cumsum": lambda L, x, y: [L.cumsum(x, axis=1)],
+    "cumsum_exclusive_reverse": lambda L, x, y: [
+        L.cumsum(x, axis=0, exclusive=True, reverse=True)],
+    "reduce_sum": lambda L, x, y: [L.reduce_sum(x, dim=[0, 1])],
+    "reduce_max": lambda L, x, y: [L.reduce_max(x, dim=0)],
+    "reduce_min": lambda L, x, y: [L.reduce_min(x, dim=1, keep_dim=True)],
+    "scale": lambda L, x, y: [L.scale(x, scale=2.0, bias=1.0)],
+    "elementwise": lambda L, x, y: [
+        L.elementwise_add(x, y), L.elementwise_sub(x, y),
+        L.elementwise_mul(x, y), L.elementwise_div(x, y),
+        L.elementwise_min(x, y), L.elementwise_max(x, y),
+        L.elementwise_mod(y, x), L.elementwise_floordiv(y, x)],
+    "cast": lambda L, x, y: [L.cast(x, "float32"),
+                             L.cast(L.cast(x, "float32"), "int32")],
+    "one_hot": lambda L, x, y: [L.one_hot(
+        L.reshape(L.elementwise_mod(x, y), [-1, 1]), depth=14)],
+    "gather": lambda L, x, y: [L.gather(x, L.reshape(
+        L.slice(x, axes=[0, 1], starts=[0, 0], ends=[1, 2]), [2]))],
+    "argsort": lambda L, x, y: list(L.argsort(
+        L.elementwise_mod(y, x), axis=1)),
+    "topk": lambda L, x, y: list(L.topk(L.elementwise_mod(y, x), k=2)),
+}
+# outputs whose int64 dtype is the port's by design
+INT64_BY_DESIGN = {("argsort", 1), ("topk", 1)}
+
+
+def _int_program(pkg, case):
+    fl = tfluid if pkg == "torch" else fluid
+    un = __import__(fl.__name__ + ".unique_name", fromlist=["guard"])
+    with un.guard():
+        main, startup = fl.Program(), fl.Program()
+        with fl.program_guard(main, startup):
+            x = fl.layers.data("x", shape=[3, 4], dtype="int32",
+                               append_batch_size=False)
+            y = fl.layers.data("y", shape=[3, 4], dtype="int32",
+                               append_batch_size=False)
+            outs = INT_CASES[case](fl.layers, x, y)
+    return main, [o.name for o in outs]
+
+
+def _raw_dict(prog):
+    d = prog.to_dict()
+    for b in d["blocks"]:
+        for o in b["ops"]:
+            o["attrs"].pop("op_callstack", None)
+    return d
+
+
+@pytest.mark.parametrize("case", sorted(INT_CASES))
+def test_int32_input_keeps_the_jax_dtype_and_values(case):
+    (jmain, names), (tmain, tnames) = (_int_program("jax", case),
+                                       _int_program("torch", case))
+    assert names == tnames
+    jd, td = _raw_dict(jmain), _raw_dict(tmain)
+    by_design = {names[i] for c, i in INT64_BY_DESIGN if c == case}
+    for d in (jd, td):
+        for v in d["blocks"][0]["vars"]:
+            if v["name"] in by_design:
+                v["dtype"] = "int64"
+    assert td == jd
+    feed = {"x": INT_X, "y": INT_Y}
+    jout = fluid.Executor(fluid.CPUPlace()).run(
+        jmain, feed=feed, fetch_list=names, scope=fluid.Scope())
+    tout = tfluid.Executor(tfluid.CPUPlace()).run(
+        tmain, feed=feed, fetch_list=names, scope=tfluid.Scope())
+    for i, (n, a, b) in enumerate(zip(names, tout, jout)):
+        b = np.asarray(b)
+        assert a.shape == b.shape, n
+        if (case, i) in INT64_BY_DESIGN:
+            assert a.dtype == np.int64, n
+            np.testing.assert_array_equal(a, b.astype(np.int64), err_msg=n)
+            continue
+        assert a.dtype == b.dtype, (n, a.dtype, b.dtype)
+        assert str(a.dtype) == tmain.global_block.var(n).dtype, n
+        np.testing.assert_allclose(a, b, rtol=1e-6, err_msg=n)
