@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--out-dir DIR]
+    python3 chip_smoke.py [--seed N] [--out-dir DIR] [--phases A,B]
+
+``--phases`` runs only the named phases that need no other phase's
+result (``ALONE``: kernels, the training and inference phases, tune,
+seq2seq, gru_encdec, misc_image) after ``device``, and prints no ``ok``
+line. Without it, every phase runs:
 
 Phases, in order; any failure exits non-zero (no phase is caught):
 
@@ -300,7 +305,27 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    witness reasons naming the dimension; fused ``pred`` within
    ``kernels.KERNEL_TOL`` f32 of the unfused. Reports each forward's
    median ms.
-21. prints the script time of each phase and part (``[seconds]``), the
+21. misc_image — the misc and image op groups (``ops/misc.py``,
+   ``ops/image.py``: 53 op types) at the widths of the public models
+   that use them (C3D's conv1a and pool1, TSM's shift, AlexNet's LRN,
+   the Transformer's label smoothing and position encoding, a spatial
+   transformer, SegNet's pooling and unpooling, 3D U-Net's
+   up-convolution and trilinear resizes, DeepFM's ids through
+   ``unique``/``hash``/``cvm``/``data_norm``, center loss, SN-GAN's
+   spectral norm, and one case for each other type; ``mi_cases`` names
+   each width and source). Each case is a program through
+   ``Executor.run``, forward and the gradient of a random cotangent,
+   held against the port's CPU run of the same program (normwise
+   ``MI_TOL_*``, ints exactly) and repeated bit for bit on the card,
+   with ``torch.backends.cudnn`` at torch's defaults (TF32 and
+   algorithms that need not repeat allowed: the port's convolutions set
+   their own); the spatial transformer's composed grid and sampler by
+   repeat and finite values; ``unique``, ``unique_with_counts`` and
+   ``hash`` under ``set_sync_debug_mode("error")``; ``random_crop`` by
+   content and against the CPU, ``sampling_id`` by repeat, support and a
+   chi-square test. No port kernel launches. Prints one ``[misc_image]``
+   line a case with its ms by CUDA events and peak memory.
+22. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -314,6 +339,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import signal
 import subprocess
@@ -5013,16 +5039,701 @@ def phase_deepfm_infer(ctx, seed):
                 launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
 
 
+# ------------------------------------------------------------- misc_image
+# The misc and image op groups at the widths of the public models that use
+# them: each case one program of the op(s) through Executor.run on the
+# card, forward and (where the op has one) the gradient of a random
+# cotangent, against the port's CPU run of the same program and inputs,
+# and run twice on the card bit for bit (the random ops by content,
+# determinism and distribution). A case's published width is never cut;
+# where the batch is assumed, MI_CASE_NOTES says so.
+MI_TIMED_RUNS = 2
+# normwise: max |card - cpu| <= tol * max |cpu| (ints exactly); data
+# movement and elementwise ops round once, sums and products carry their
+# summation order, the 3-D convolutions cuDNN's against oneDNN's
+MI_TOL_MOVE, MI_TOL_ELEM, MI_TOL_SUM, MI_TOL_CONV = 0.0, 1e-6, 1e-5, 1e-4
+MI_STRICT_OPS = ("unique", "unique_with_counts", "hash")
+MI_RANDOM_LEVEL = 1e-4
+# ImageNet's crop: 256 -> 224, AlexNet's batch of 128
+MI_CROP_BATCH, MI_CROP_IN, MI_CROP_OUT = 128, 256, 224
+# sampling_id over the Transformer's 37,000 classes: 4096 rows whose mass
+# sits on 8 ids, the rest exactly 0
+MI_SAMPLE_ROWS, MI_SAMPLE_VOCAB = 4096, 37000
+MI_SAMPLE_P = (0.3, 0.2, 0.15, 0.1, 0.1, 0.08, 0.05, 0.02)
+
+
+def mi_case(name, ops, feeds, fetch, of=(), wrt=(), tol=MI_TOL_ELEM,
+            strict=(), width="", source="", exact=False, finite_only=()):
+    """``exact``: integer-valued data and cotangents, so every sum is
+    exact in f32 and a max picks the same element on the card and the
+    CPU (with real values a 1e-7 difference flips near-tied windows).
+    ``finite_only``: fetches held to their repeat and to finite values,
+    not to the CPU."""
+    return dict(name=name, ops=ops, feeds=feeds, fetch=list(fetch),
+                of=list(of), wrt=list(wrt), tol=tol, strict=tuple(strict),
+                width=width, source=source, exact=exact,
+                finite_only=tuple(finite_only))
+
+
+def mi_cases(seed):
+    """Every case of the phase: its program (ops over named feeds), what
+    it fetches and differentiates, its tolerance, width and source."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g)
+
+    def probs(*shape):
+        return torch.softmax(rn(*shape), dim=-1)
+
+    cases = []
+    add = cases.append
+    # -- the cases of the table (PERF.md section 4)
+    add(mi_case(
+        "c3d_conv1", [
+            ("conv3d", {"Input": ["x"], "Filter": ["w"], "Bias": ["b"]},
+             {"Output": ["c"]}, {"paddings": [1, 1, 1]}),
+            ("pool3d", {"X": ["c"]}, {"Out": ["p"]},
+             {"pooling_type": "max", "ksize": [1, 2, 2],
+              "strides": [1, 2, 2]})],
+        {"x": ri(-2, 3, 30, 3, 16, 112, 112).float(),
+         "w": ri(-2, 3, 64, 3, 3, 3, 3).float(), "b": ri(-2, 3, 64).float()},
+        ["c", "p"], of=["p"], wrt=["x", "w", "b"], tol=MI_TOL_MOVE,
+        exact=True, width="[30, 3, 16, 112, 112] f32, 64 filters 3x3x3",
+        source="C3D (Tran et al., ICCV 2015) conv1a + pool1, batch 30"))
+    add(mi_case(
+        "tsm_shift", [("temporal_shift", {"X": ["x"]}, {"Out": ["o"]},
+                       {"seg_num": 8, "shift_ratio": 0.125})],
+        {"x": rn(64, 256, 56, 56)}, ["o"], of=["o"], wrt=["x"],
+        tol=MI_TOL_MOVE, width="[64, 256, 56, 56] f32, 8 segments",
+        source="TSM (Lin et al., ICCV 2019) ResNet-50 res2, 1/8 each way; "
+               "8 clips assumed"))
+    add(mi_case(
+        "alexnet_lrn", [("lrn", {"X": ["x"]}, {"Out": ["o"], "MidOut": ["m"]},
+                         {"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75})],
+        {"x": rn(128, 96, 55, 55, scale=4.0)}, ["o", "m"], of=["o"],
+        wrt=["x"], tol=MI_TOL_SUM, width="[128, 96, 55, 55] f32",
+        source="AlexNet (Krizhevsky et al., NIPS 2012) LRN after conv1, "
+               "batch 128"))
+    add(mi_case(
+        "transformer_ls", [
+            ("one_hot_v2", {"X": ["lab"]}, {"Out": ["oh"]},
+             {"depth": 37000}),
+            ("label_smooth", {"X": ["oh"]}, {"Out": ["sm"]},
+             {"epsilon": 0.1}),
+            ("cross_entropy2", {"X": ["p"], "Label": ["lab2"]},
+             {"Y": ["y"], "XShape": ["xs"], "MatchX": ["mx"]}, {})],
+        {"lab": (lab := ri(0, 37000, 4096)), "lab2": lab.reshape(4096, 1),
+         "p": probs(4096, 37000)}, ["sm", "y", "mx"], of=["y"], wrt=["p"],
+        tol=MI_TOL_ELEM, width="4096 tokens x 37,000 classes f32",
+        source="Transformer (Vaswani et al., 2017) eps_ls 0.1, WMT14 En-De "
+               "shared BPE vocabulary; 4096 tokens assumed"))
+    add(mi_case(
+        "transformer_pe", [("add_position_encoding", {"X": ["x"]},
+                            {"Out": ["o"]}, {"alpha": 1.0, "beta": 1.0})],
+        {"x": rn(64, 256, 512)}, ["o"], of=["o"], wrt=["x"],
+        tol=2e-5, width="[64, 256, 512] f32",
+        source="Transformer (Vaswani et al., 2017) d_model 512; batch 64 "
+               "and length 256 assumed"))
+    theta = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]) + rn(
+        32, 2, 3, scale=0.1)
+    grid_attrs = {"output_shape": [32, 3, 224, 224]}
+    # the sampler held to the CPU reads a grid fed from the CPU: the floor
+    # of a sampling point computed on each device would flip where it
+    # lands within an ulp of an integer, and the grid's gradient jumps
+    # there; the transformer's own composition (affine_grid's grid into
+    # the sampler, "oc") is held to its repeat and to finite values
+    sampler = {"mode": "bilinear", "padding_mode": "zeros"}
+    add(mi_case(
+        "stn", [
+            ("affine_grid", {"Theta": ["t"]}, {"Output": ["grid"]},
+             grid_attrs),
+            ("grid_sampler", {"X": ["x"], "Grid": ["g"]},
+             {"Output": ["o"]}, sampler),
+            ("grid_sampler", {"X": ["x"], "Grid": ["grid"]},
+             {"Output": ["oc"]}, sampler)],
+        {"t": theta, "x": rn(32, 3, 224, 224),
+         "g": mi_rule("affine_grid", {"Theta": [theta]},
+                      grid_attrs)["Output"][0]},
+        ["grid", "o", "oc"], of=["grid", "o"], wrt=["x", "t", "g"],
+        finite_only=["oc"], tol=MI_TOL_SUM, width="[32, 3, 224, 224] f32",
+        source="Spatial Transformer Networks (Jaderberg et al., NIPS 2015); "
+               "batch 32 assumed"))
+    add(mi_case(
+        "segnet_pool", [
+            ("max_pool2d_with_index", {"X": ["x"]},
+             {"Out": ["p"], "Mask": ["m"]}, {}),
+            ("unpool", {"X": ["p"], "Indices": ["m"]}, {"Out": ["u"]},
+             {"ksize": [2, 2], "strides": [2, 2]})],
+        {"x": rn(4, 64, 360, 480)}, ["p", "m", "u"], of=["u"], wrt=["x"],
+        tol=MI_TOL_MOVE, width="[4, 64, 360, 480] f32, 2x2/2",
+        source="SegNet (Badrinarayanan et al., TPAMI 2017) CamVid 360x480, "
+               "first encoder stage; batch 4 assumed"))
+    add(mi_case(
+        "unet3d_up", [
+            ("conv3d_transpose", {"Input": ["x"], "Filter": ["w"],
+                                  "Bias": ["b"]}, {"Output": ["t"]},
+             {"strides": [2, 2, 2]}),
+            ("trilinear_interp", {"X": ["x"]}, {"Out": ["r1"]},
+             {"out_d": 64, "out_h": 64, "out_w": 64, "align_corners": True}),
+            ("trilinear_interp", {"X": ["x"]}, {"Out": ["r0"]},
+             {"out_d": 64, "out_h": 64, "out_w": 64,
+              "align_corners": False})],
+        {"x": rn(2, 128, 32, 32, 32), "w": rn(128, 128, 2, 2, 2, scale=0.05),
+         "b": rn(128, scale=0.1)}, ["t", "r1", "r0"], of=["t", "r1", "r0"],
+        wrt=["x", "w"], tol=MI_TOL_CONV,
+        width="[2, 128, 32, 32, 32] f32 -> 64^3",
+        source="3D U-Net (Cicek et al., MICCAI 2016) 2x2x2 up-convolution "
+               "stride 2; shape assumed"))
+    ids = torch.from_numpy(fm_feeds(seed + 7, 1)[0]["feat_ids"].reshape(-1))
+    show_click = ri(0, 50, 4096, 2).float()
+    add(mi_case(
+        "ctr_ids", [
+            ("unique", {"X": ["ids"]}, {"Out": ["u"], "Index": ["ui"]},
+             {"dtype": "int64"}),
+            ("unique_with_counts", {"X": ["ids"]},
+             {"Out": ["uc"], "Index": ["uci"], "Count": ["ucc"]}, {}),
+            ("hash", {"X": ["ids2"]}, {"Out": ["h"]},
+             {"num_hash": 2, "mod_by": FM_VOCAB}),
+            ("cvm", {"X": ["x"], "CVM": ["sc"]}, {"Y": ["y"]}, {}),
+            ("data_norm", {"X": ["y"], "BatchSize": ["bn"],
+                           "BatchSum": ["bs"], "BatchSquareSum": ["bq"]},
+             {"Y": ["yn"], "Means": ["mn"], "Scales": ["sn"]}, {})],
+        {"ids": ids, "ids2": ids.reshape(-1, 1),
+         "x": torch.cat([show_click, rn(4096, 390)], dim=1),
+         "sc": show_click, "bn": torch.full((392,), 1e4),
+         "bs": rn(392, scale=100.0), "bq": rn(392).abs() * 1e4 + 1e3},
+        ["u", "ui", "uc", "uci", "ucc", "h", "yn"], of=["yn"], wrt=["x"],
+        tol=MI_TOL_ELEM, strict=MI_STRICT_OPS,
+        width="4096 x 39 = 159,744 ids; [4096, 2 + 390] f32",
+        source="DeepFM (Guo et al., IJCAI 2017) Criteo 39 fields x 10, "
+               "1,000,001 hashed ids, batch 4096 (the repo's DeepFM)"))
+    add(mi_case(
+        "center_loss", [
+            ("center_loss", {"X": ["x"], "Label": ["l"], "Centers": ["c"],
+                             "CenterUpdateRate": ["r"]},
+             {"CentersOut": ["co"], "SampleCenterDiff": ["d"],
+              "Loss": ["o"]}, {"cluster_num": 10575})],
+        {"x": rn(256, 512), "l": ri(0, 10575, 256, 1),
+         "c": rn(10575, 512, scale=0.1), "r": torch.tensor([0.5])},
+        ["o", "co", "d"], of=["o"], wrt=["x"], tol=MI_TOL_ELEM,
+        width="[256, 512] over 10,575 centres",
+        source="Center loss (Wen et al., ECCV 2016) 512-d, CASIA-WebFace "
+               "10,575 identities; batch 256 assumed"))
+    add(mi_case(
+        "sn_gan", [("spectral_norm", {"Weight": ["w"], "U": ["u"],
+                                      "V": ["v"]}, {"Out": ["o"]},
+                    {"dim": 0, "power_iters": 1})],
+        {"w": rn(128, 128, 3, 3, scale=0.05), "u": rn(128), "v": rn(1152)},
+        ["o"], of=["o"], wrt=["w"], tol=MI_TOL_SUM,
+        width="weight [128, 128, 3, 3]",
+        source="SN-GAN (Miyato et al., ICLR 2018) CIFAR ResNet "
+               "discriminator, 1 power iteration"))
+    # -- the other op types, each at the width of a named public use
+    add(mi_case(
+        "linspace", [("linspace", {"Start": ["a"], "Stop": ["b"],
+                                   "Num": ["n"]}, {"Out": ["o"]}, {})],
+        {"a": torch.tensor([-1.0]), "b": torch.tensor([1.0]),
+         "n": torch.tensor([224], dtype=torch.int32)}, ["o"],
+        tol=MI_TOL_ELEM, width="224 points",
+        source="the STN case's grid axis (224)"))
+    add(mi_case(
+        "fill", [("fill", {}, {"Out": ["o"]},
+                  {"value": [1.3221, 1.73145, 3.19275, 4.00944, 5.05587,
+                             8.09892, 9.47112, 4.84053, 11.2364, 10.0071],
+                   "shape": [5, 2], "dtype": "float32"})], {}, ["o"],
+        tol=MI_TOL_MOVE, width="[5, 2]",
+        source="YOLOv2 (Redmon and Farhadi, CVPR 2017) VOC anchors"))
+    add(mi_case(
+        "fill_like", [
+            ("fill_any_like", {"X": ["x"]}, {"Out": ["o"]}, {"value": 0.5}),
+            ("fill_zeros_like2", {"X": ["x"]}, {"Out": ["z"]}, {}),
+            ("size", {"Input": ["x"]}, {"Out": ["s"]}, {}),
+            ("is_empty", {"X": ["x"]}, {"Out": ["e"]}, {})],
+        {"x": rn(32, 3, 224, 224)}, ["o", "z", "s", "e"], tol=MI_TOL_MOVE,
+        width="[32, 3, 224, 224] f32", source="the STN case's image"))
+    add(mi_case(
+        "multiplex", [("multiplex", {"Ids": ["i"], "X": ["a", "b", "c"]},
+                       {"Out": ["o"]}, {})],
+        {"i": ri(0, 3, 256, 1), "a": rn(256, 512), "b": rn(256, 512),
+         "c": rn(256, 512)}, ["o"], of=["o"], wrt=["a", "b", "c"],
+        tol=MI_TOL_MOVE, width="3 x [256, 512] f32",
+        source="the center-loss case's features"))
+    add(mi_case(
+        "strided_slice", [("strided_slice", {"Input": ["x"]},
+                           {"Out": ["o"]},
+                           {"axes": [0], "starts": [0], "ends": [64],
+                            "strides": [2]})],
+        {"x": rn(64, 256, 56, 56)}, ["o"], of=["o"], wrt=["x"],
+        tol=MI_TOL_MOVE, width="[64, 256, 56, 56] f32, every 2nd frame",
+        source="the TSM case's input"))
+    add(mi_case(
+        "minus_norms", [
+            ("minus", {"X": ["x"], "Y": ["y"]}, {"Out": ["m"]}, {}),
+            ("l1_norm", {"X": ["m"]}, {"Out": ["l1"]}, {}),
+            ("norm", {"X": ["x"]}, {"Out": ["n"], "Norm": ["nn"]},
+             {"axis": 1}),
+            ("squared_l2_distance", {"X": ["x"], "Y": ["y"]},
+             {"sub_result": ["sr"], "Out": ["d"]}, {})],
+        {"x": rn(256, 512), "y": rn(256, 512)}, ["m", "l1", "n", "d"],
+        of=["l1", "n", "d"], wrt=["x", "y"], tol=MI_TOL_SUM,
+        width="[256, 512] f32", source="the center-loss case's features"))
+    add(mi_case(
+        "bilinear_tensor_product", [
+            ("bilinear_tensor_product", {"X": ["x"], "Y": ["y"],
+                                         "Weight": ["w"], "Bias": ["b"]},
+             {"Out": ["o"]}, {})],
+        {"x": rn(1024, 100), "y": rn(1024, 100),
+         "w": rn(4, 100, 100, scale=0.1), "b": rn(1, 4)}, ["o"], of=["o"],
+        wrt=["x", "y", "w", "b"], tol=MI_TOL_SUM,
+        width="[1024, 100] x [4, 100, 100]",
+        source="Neural Tensor Network (Socher et al., NIPS 2013) d 100, "
+               "k 4; batch 1024 assumed"))
+    add(mi_case(
+        "fsp", [("fsp", {"X": ["x"], "Y": ["y"]}, {"Out": ["o"]}, {})],
+        {"x": rn(128, 16, 32, 32), "y": rn(128, 16, 32, 32)}, ["o"],
+        of=["o"], wrt=["x", "y"], tol=MI_TOL_SUM,
+        width="[128, 16, 32, 32] x 2",
+        source="FSP (Yim et al., CVPR 2017) CIFAR ResNet stage 1; batch "
+               "128 assumed"))
+    add(mi_case(
+        "ctr_losses", [
+            ("modified_huber_loss", {"X": ["x"], "Y": ["y"]},
+             {"IntermediateVal": ["iv"], "Out": ["mh"]}, {}),
+            ("teacher_student_sigmoid_loss", {"X": ["x"], "Label": ["t"]},
+             {"Y": ["ts"]}, {})],
+        {"x": rn(4096, 1, scale=2.0), "y": ri(0, 2, 4096, 1).float(),
+         "t": torch.rand((4096, 1), generator=g) * 4.0 - 2.0},
+        ["mh", "ts"], of=["mh", "ts"], wrt=["x"], tol=MI_TOL_ELEM,
+        width="[4096, 1] f32", source="the DeepFM batch's logit"))
+    add(mi_case(
+        "row_conv", [("row_conv", {"X": ["x"], "Filter": ["w"]},
+                      {"Out": ["o"]}, {})],
+        {"x": rn(64, 200, 1760), "w": rn(3, 1760, scale=0.5)}, ["o"],
+        of=["o"], wrt=["x", "w"], tol=MI_TOL_SUM,
+        width="[64, 200, 1760] f32, context 2",
+        source="Deep Speech 2 (Amodei et al., ICML 2016) 1760-wide "
+               "layers; batch, length and context assumed"))
+    add(mi_case(
+        "conv_shift", [("conv_shift", {"X": ["x"], "Y": ["y"]},
+                        {"Out": ["o"]}, {})],
+        {"x": rn(1024, 128), "y": torch.softmax(rn(1024, 3), -1)}, ["o"],
+        of=["o"], wrt=["x", "y"], tol=MI_TOL_SUM, width="[1024, 128] x 3",
+        source="Neural Turing Machine (Graves et al., 2014) 128 memory "
+               "rows, shifts -1..1; batch 1024 assumed"))
+    edges = torch.stack([mi_tree_edges(g, 256) for _ in range(64)])
+    add(mi_case(
+        "tree_conv", [("tree_conv", {"NodesVector": ["f"], "EdgeSet": ["e"],
+                                     "Filter": ["w"]}, {"Out": ["o"]},
+                       {"max_depth": 2})],
+        {"f": rn(64, 256, 30), "e": edges, "w": rn(30, 3, 600, 1,
+                                                  scale=0.1)},
+        ["o"], of=["o"], wrt=["f", "w"], tol=MI_TOL_SUM,
+        width="[64, 256, 30] nodes, 600 filters",
+        source="TBCNN (Mou et al., AAAI 2016) 30-d vectors, 600 "
+               "filters; 64 trees of 256 nodes assumed"))
+    add(mi_case(
+        "similarity_focus", [("similarity_focus", {"X": ["x"]},
+                              {"Out": ["o"]}, {"axis": 1,
+                                               "indexes": [0, 2]})],
+        {"x": ri(0, 8, 32, 3, 224, 224).float()}, ["o"], tol=MI_TOL_MOVE,
+        width="[32, 3, 224, 224] f32 (ties)", source="the STN case's image"))
+    add(mi_case(
+        "pixel_shuffle", [("pixel_shuffle", {"X": ["x"]}, {"Out": ["o"]},
+                           {"upscale_factor": 3})],
+        {"x": rn(8, 9, 360, 640)}, ["o"], of=["o"], wrt=["x"],
+        tol=MI_TOL_MOVE, width="[8, 9, 360, 640] -> 1080x1920",
+        source="ESPCN (Shi et al., CVPR 2016) upscale 3 to 1080p; 8 frames "
+               "assumed"))
+    add(mi_case(
+        "affine_channel", [("affine_channel", {"X": ["x"], "Scale": ["s"],
+                                               "Bias": ["b"]},
+                            {"Out": ["o"]}, {})],
+        {"x": rn(2, 256, 200, 304), "s": rn(256), "b": rn(256)}, ["o"],
+        of=["o"], wrt=["x", "s", "b"], tol=MI_TOL_SUM,
+        width="[2, 256, 200, 304] f32",
+        source="Detectron's frozen BN (AffineChannel) at Mask R-CNN "
+               "ResNet-50 res2, 800x1216, 2 images"))
+    add(mi_case(
+        "shuffle_channel", [("shuffle_channel", {"X": ["x"]},
+                             {"Out": ["o"]}, {"group": 3})],
+        {"x": rn(128, 240, 28, 28)}, ["o"], of=["o"], wrt=["x"],
+        tol=MI_TOL_MOVE, width="[128, 240, 28, 28] f32, 3 groups",
+        source="ShuffleNet (Zhang et al., CVPR 2018) g 3 stage 2; batch "
+               "128 assumed"))
+    add(mi_case(
+        "space_to_depth", [("space_to_depth", {"X": ["x"]}, {"Out": ["o"]},
+                            {"blocksize": 2})],
+        {"x": rn(64, 64, 26, 26)}, ["o"], of=["o"], wrt=["x"],
+        tol=MI_TOL_MOVE, width="[64, 64, 26, 26] f32, block 2",
+        source="YOLOv2 (Redmon and Farhadi, CVPR 2017) passthrough, "
+               "batch 64"))
+    add(mi_case(
+        "crop_pad", [
+            ("crop", {"X": ["x"]}, {"Out": ["c"]},
+             {"shape": [1, 21, 500, 500], "offsets": [0, 0, 19, 19]}),
+            ("crop_tensor", {"X": ["x"]}, {"Out": ["ct"]},
+             {"shape": [1, 21, 480, 480], "offsets": [0, 0, 32, 32]}),
+            ("pad_constant_like", {"X": ["c"], "Y": ["ct"]}, {"Out": ["p"]},
+             {"pad_value": 0.0})],
+        {"x": rn(1, 21, 544, 544)}, ["c", "ct", "p"], of=["c", "p"],
+        wrt=["x"], tol=MI_TOL_MOVE, width="[1, 21, 544, 544] -> 500x500",
+        source="FCN (Long et al., CVPR 2015) PASCAL VOC 21 classes, crop "
+               "offset 19, batch 1"))
+    add(mi_case(
+        "unfold_alexnet", [("unfold", {"X": ["x"]}, {"Y": ["o"]},
+                            {"kernel_sizes": [11, 11], "strides": [4, 4],
+                             "paddings": [0, 0, 0, 0],
+                             "dilations": [1, 1]})],
+        {"x": rn(128, 3, 227, 227)}, ["o"], of=["o"], wrt=["x"],
+        tol=MI_TOL_SUM, width="[128, 3, 227, 227] -> [128, 363, 3025]",
+        source="AlexNet conv1's im2col, 11x11 stride 4, batch 128"))
+    add(mi_case(
+        "im2sequence", [("im2sequence", {"X": ["x"]}, {"Out": ["o"]},
+                         {"kernels": [1, 1], "strides": [1, 1],
+                          "paddings": [0, 0, 0, 0]})],
+        {"x": rn(64, 512, 1, 25)}, ["o"], of=["o"], wrt=["x"],
+        tol=MI_TOL_MOVE, width="[64, 512, 1, 25] -> [1600, 512]",
+        source="CRNN (Shi et al., TPAMI 2017) 32x100 input, 1x25 map of "
+               "512; batch 64 assumed"))
+    add(mi_case(
+        "spp", [("spp", {"X": ["x"]}, {"Out": ["o"]},
+                 {"pyramid_height": 3, "pooling_type": "max"})],
+        {"x": rn(128, 256, 13, 13)}, ["o"], of=["o"], wrt=["x"],
+        tol=MI_TOL_MOVE, width="[128, 256, 13, 13], {4x4, 2x2, 1x1}",
+        source="SPP-net (He et al., ECCV 2014) conv5; batch 128 assumed"))
+    return cases
+
+
+def mi_rule(op_type, ins, attrs):
+    """The port's rule of ``op_type`` on CPU tensors."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    return registry.get_op_def(op_type).lower(LowerCtx("cpu"), ins, attrs)
+
+
+def mi_tree_edges(g, n):
+    """EdgeSet rows of a random tree over node ids 1..n: node k > 1 hangs
+    from a parent drawn below it, edges in id order."""
+    parents = (torch.rand(n - 1, generator=g)
+               * torch.arange(1, n, dtype=torch.float32)).long() + 1
+    children = torch.arange(2, n + 1)
+    return torch.stack([parents, children], dim=1)
+
+
+def mi_build(case):
+    """The case's program: a data var per feed, its ops, and with ``wrt``
+    the gradients of sum(out * cotangent) over the ``of`` outputs
+    (``fluid.gradients``). Returns (program, fetch names, {cotangent var:
+    shape})."""
+    from paddle_tpu_torch.core.types import canonical_dtype
+
+    wrt = set(case["wrt"])
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            blk = main.global_block
+            for n, t in case["feeds"].items():
+                blk.create_var(name=n, shape=tuple(t.shape),
+                               dtype=canonical_dtype(t.dtype), is_data=True,
+                               stop_gradient=n not in wrt)
+            for op, ins, outs, attrs in case["ops"]:
+                for names in outs.values():
+                    for n in names:
+                        if not blk.has_var(n):
+                            blk.create_var(name=n)
+                blk.append_op(op, inputs=ins, outputs=outs,
+                              attrs=dict(attrs))
+            cts, grads = {}, []
+            if wrt:
+                terms = []
+                for n in case["of"]:
+                    v = blk.var(n)
+                    ct = blk.create_var(name="ct_" + n, shape=v.shape,
+                                        dtype="float32", is_data=True)
+                    cts[ct.name] = tuple(v.shape)
+                    terms.append(fluid.layers.reduce_sum(
+                        fluid.layers.elementwise_mul(v, ct)))
+                loss = terms[0] if len(terms) == 1 \
+                    else fluid.layers.sums(terms)
+                grads = [gv.name for gv in fluid.gradients(
+                    [loss], [blk.var(n) for n in case["wrt"]])]
+    return main, case["fetch"] + grads, cts
+
+
+def mi_err(got, want):
+    """Normwise error of a card value against the CPU's: max |a - b| over
+    max |b| (0 for equal integers, inf for unequal ones)."""
+    got = got.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return math.inf
+    if not want.is_floating_point():
+        return 0.0 if torch.equal(got, want) else math.inf
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    return err / scale if scale else err
+
+
+def mi_event_ms(run):
+    """Mean time of MI_TIMED_RUNS runs between two CUDA events: the
+    device's work and the host's gaps between its launches."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(MI_TIMED_RUNS):
+        run()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / MI_TIMED_RUNS
+
+
+def mi_run_case(case, gen, card):
+    """Run one case on the card twice and on the CPU once; time it by
+    CUDA events (one timer: ``torch.profiler``'s sums came back short
+    when the phase ran after the others in one process)."""
+    t0 = time.perf_counter()
+    main, fetch, cts = mi_build(case)
+    feeds = dict(case["feeds"])
+    feeds.update({n: torch.randint(-2, 3, s, generator=gen).float()
+                  if case["exact"] else torch.randn(s, generator=gen)
+                  for n, s in cts.items()})
+    dev_feed = {n: t.cuda() for n, t in feeds.items()}
+    exe, scope = fluid.Executor(), fluid.Scope()
+
+    def run():
+        out = exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    strict = strict_sync(case["strict"]) if case["strict"] \
+        else contextlib.nullcontext(collections.Counter())
+    with strict as seen:
+        first = run()
+    peak = torch.cuda.max_memory_allocated() - held
+    if set(seen) != set(case["strict"]):
+        raise SystemExit(f"chip_smoke: misc_image {case['name']}: strict "
+                         f"ops ran {dict(seen)}, want {case['strict']}")
+    again = run()
+    ev_ms = mi_event_ms(run)
+    t1 = time.perf_counter()
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feeds, fetch_list=fetch, scope=fluid.Scope(),
+        return_numpy=False)
+    wall = (t1 - t0, time.perf_counter() - t1)
+    errs = {n: mi_err(a, c) for n, a, c in zip(fetch, first, cpu)
+            if n not in case["finite_only"]}
+    finite = all(bool(torch.isfinite(a).all())
+                 for n, a in zip(fetch, first) if n in case["finite_only"])
+    repeat = all(torch.equal(a, b) for a, b in zip(first, again))
+    worst = max(errs.values()) if errs else 0.0
+    ops = "+".join(dict.fromkeys(o[0] for o in case["ops"]))
+    log(f"[misc_image] {case['name']} ({ops}) {case['width']}: "
+        f"{ev_ms:.3f} ms by CUDA events, the host's gaps included "
+        f"(fwd+bwd, mean of {MI_TIMED_RUNS}), peak "
+        f"{peak / 2**30:.3f} GiB above held; card vs CPU normwise "
+        f"{worst:.3e} (tol {case['tol']:g})"
+        + (f", {'+'.join(case['finite_only'])} finite {finite}"
+           if case["finite_only"] else "") + "; repeat "
+        f"{'bit-identical' if repeat else 'DIFFERS'}; wall {wall[0]:.2f} s "
+        f"card, {wall[1]:.2f} s CPU; {card}")
+    bad = {n: e for n, e in errs.items() if not e <= case["tol"]}
+    if bad or not repeat or not finite:
+        raise SystemExit(f"chip_smoke: misc_image {case['name']}: card "
+                         f"against CPU {bad}, repeat identical {repeat}, "
+                         f"finite {finite}")
+    return dict(ops=ops, width=case["width"], source=case["source"],
+                event_ms=ev_ms, peak_bytes=peak, errs=errs,
+                tol=case["tol"], repeat_identical=repeat,
+                strict_ops=dict(seen),
+                wall_s=dict(card=wall[0], cpu=wall[1]),
+                grads=len(fetch) - len(case["fetch"]))
+
+
+def mi_random_crop(seed, card):
+    """ImageNet's 256 -> 224 crop: the offsets come from the op's host
+    generator, so the card's crop equals the CPU's; it is X at one offset
+    in 0..32 each way, and a second run repeats it."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((MI_CROP_BATCH, 3, MI_CROP_IN, MI_CROP_IN), generator=g)
+    size = MI_CROP_OUT
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            xv = fluid.layers.data("x", shape=[3, MI_CROP_IN, MI_CROP_IN],
+                                   dtype="float32")
+            crop = fluid.layers.random_crop(xv, shape=[3, size, size],
+                                            seed=seed + 1)
+    exe, scope, xd = fluid.Executor(), fluid.Scope(), x.cuda()
+
+    def run():
+        return exe.run(main, feed={"x": xd}, fetch_list=[crop],
+                       scope=scope, return_numpy=False)[0]
+
+    a, b = run(), run()
+    ev_ms = mi_event_ms(run)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed={"x": x}, fetch_list=[crop], scope=fluid.Scope(),
+        return_numpy=False)[0]
+    limit = MI_CROP_IN - size
+    hits = [(i, j) for i in range(limit + 1) for j in range(limit + 1)
+            if torch.equal(xd[0, 0, i:i + size, j:j + size], a[0, 0])]
+    ok = (len(hits) == 1 and torch.equal(a, b) and torch.equal(a.cpu(), cpu)
+          and torch.equal(xd[:, :, hits[0][0]:hits[0][0] + size,
+                             hits[0][1]:hits[0][1] + size], a))
+    log(f"[misc_image] random_crop [{MI_CROP_BATCH}, 3, {MI_CROP_IN}, "
+        f"{MI_CROP_IN}] -> {size}x{size}: {ev_ms:.3f} ms by CUDA events; "
+        f"offset "
+        f"{hits}; equals X there, the CPU's crop and its repeat: {ok}; "
+        f"{card}")
+    if not ok:
+        raise SystemExit("chip_smoke: misc_image random_crop is not X at "
+                         f"one offset, or differs from the CPU or its "
+                         f"repeat: {hits}")
+    return dict(width=f"[{MI_CROP_BATCH}, 3, {MI_CROP_IN}, {MI_CROP_IN}]",
+                source="ImageNet's 256 -> 224 crop, AlexNet batch 128",
+                event_ms=ev_ms, offset=hits[0],
+                repeat_identical=True)
+
+
+def mi_sampling_id(seed, card):
+    """4096 rows over the Transformer's 37,000 classes, the mass on 8 ids:
+    a seed repeats the draw on the card, no zero-probability id is drawn,
+    and the 8 ids' counts pass a chi-square test at MI_RANDOM_LEVEL."""
+    from scipy import stats
+
+    p = torch.zeros(MI_SAMPLE_ROWS, MI_SAMPLE_VOCAB)
+    live = torch.tensor([7, 101, 4096, 9999, 20000, 30001, 36000, 36999])
+    p[:, live] = torch.tensor(MI_SAMPLE_P)
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            pv = fluid.layers.data("p", shape=[MI_SAMPLE_VOCAB],
+                                   dtype="float32")
+            ids = fluid.layers.sampling_id(pv, seed=seed + 3)
+    exe, scope, pd = fluid.Executor(), fluid.Scope(), p.cuda()
+
+    def run():
+        return exe.run(main, feed={"p": pd}, fetch_list=[ids],
+                       scope=scope, return_numpy=False)[0]
+
+    a, b = run(), run()
+    ev_ms = mi_event_ms(run)
+    got = a.cpu()
+    counts = torch.stack([(got == i).sum() for i in live]).double()
+    in_support = int(counts.sum()) == MI_SAMPLE_ROWS
+    pvalue = float(stats.chisquare(
+        counts.numpy(), torch.tensor(MI_SAMPLE_P, dtype=torch.float64)
+        .numpy() * MI_SAMPLE_ROWS).pvalue)
+    ok = torch.equal(a, b) and in_support and pvalue > MI_RANDOM_LEVEL
+    log(f"[misc_image] sampling_id [{MI_SAMPLE_ROWS}, {MI_SAMPLE_VOCAB}]: "
+        f"{ev_ms:.3f} ms by CUDA events; "
+        f"repeat equal {torch.equal(a, b)}; all in "
+        f"support {in_support}; chi-square p {pvalue:.3g} (level "
+        f"{MI_RANDOM_LEVEL:g}); {card}")
+    if not ok:
+        raise SystemExit("chip_smoke: misc_image sampling_id failed its "
+                         "determinism, support or distribution check")
+    return dict(width=f"[{MI_SAMPLE_ROWS}, {MI_SAMPLE_VOCAB}]",
+                source="the Transformer's 37,000-class rows",
+                event_ms=ev_ms, chi2_pvalue=pvalue, repeat_identical=True)
+
+
+def mi_run_all(cases, gen, seed, card):
+    res = {}
+    while cases:
+        case = cases.pop(0)
+        res[case["name"]] = dict(mi_run_case(case, gen, card),
+                                 _ops=case["ops"])
+        del case
+        torch.cuda.empty_cache()
+    res["random_crop"] = mi_random_crop(seed, card)
+    res["sampling_id"] = mi_sampling_id(seed, card)
+    return res
+
+
+def phase_misc_image(seed, card):
+    """Every case of the misc and image groups on the card, with
+    ``torch.backends.cudnn`` at torch's defaults (TF32 allowed, algorithms
+    that need not repeat allowed), so the full float32 and the repeats
+    that are checked are the port's own; none of the port's kernels runs
+    on this path."""
+    K.reset_launch_counts()
+    gen = torch.Generator().manual_seed(seed + 97)
+    cases = mi_cases(seed)
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.allow_tf32
+    cudnn.deterministic, cudnn.allow_tf32 = False, True
+    try:
+        res = mi_run_all(cases, gen, seed, card)
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32 = was
+    launches = K.launch_counts()
+    covered = {o[0] for c in res.values() for o in c.pop("_ops", ())} | {
+        "random_crop", "sampling_id"}
+    log(f"[misc_image] {len(res)} cases, {len(covered)} op types; port "
+        f"kernel launches {launches}")
+    if len(covered) != 53:
+        raise SystemExit(f"chip_smoke: misc_image covers {len(covered)} op "
+                         f"types, want 53")
+    if any(launches.values()):
+        raise SystemExit(f"chip_smoke: misc_image launched a port kernel: "
+                         f"{launches}")
+    return dict(cases=res, op_types=sorted(covered),
+                launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
+
+
 # ---------------------------------------------------------------- main
+# the phases that need no other phase's result, which --phases can run
+ALONE = ("kernels", "train", "train_amp", "train_remat", "train_guard",
+         "train_lamb", "infer", "train_resnet", "infer_resnet", "tune",
+         "seq2seq", "gru_encdec", "misc_image")
+
+
+def run_alone(names, seed, card, out_dir):
+    """``--phases``: each named phase once after ``device``, with its
+    gates, then the seconds; no ``kernels`` line and no ``ok`` line, as a
+    part of the run proves nothing of the whole."""
+    res = {}
+    for name in names:
+        fn = globals()["phase_" + name]
+        with timed(name):
+            res[name] = fn(seed, card) if name == "misc_image" else fn(seed)
+        torch.cuda.empty_cache()
+    log("[seconds] " + ", ".join(f"{k} {v:.2f}" for k, v in TIMES.items()))
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_phases.json"), "w") as f:
+            json.dump({"card": card, "seconds": TIMES, **res}, f, indent=1,
+                      default=str)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out-dir", default=None,
                     help="also write the full report to DIR/chip_smoke.json")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated; run only these phases (of "
+                    + ", ".join(ALONE) + ") and print no ok line")
     args = ap.parse_args()
+    names = args.phases.split(",") if args.phases else []
+    if set(names) - set(ALONE):
+        ap.error(f"--phases: {sorted(set(names) - set(ALONE))} cannot run "
+                 f"alone; choose from {', '.join(ALONE)}")
     t0 = time.perf_counter()
     with timed("device"):
         card = phase_device()
+    if names:
+        run_alone(names, args.seed, card, args.out_dir)
+        return
     with timed("kernels"):
         kres, masks = phase_kernels(args.seed)
     with timed("serve"):
@@ -5075,6 +5786,9 @@ def main():
         fm = phase_deepfm(args.seed)
     with timed("deepfm_infer"):
         fm_infer = phase_deepfm_infer(fm.pop("_ctx"), args.seed)
+    torch.cuda.empty_cache()
+    with timed("misc_image"):
+        mi = phase_misc_image(args.seed, card)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -5085,6 +5799,7 @@ def main():
     # forward (K1, K5), seq2seq training and beam-search decoding and the
     # GRU encoder-decoder on variable-length batches (none), DeepFM
     # training with sparse tables (none) and its fused inference (K5),
+    # and the misc and image op groups at their models' widths (none),
     # each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
@@ -5099,7 +5814,8 @@ def main():
                 "infer_resnet": inferred_resnet["launches"],
                 "tune": tuned["launches"], "seq2seq": s2s["launches"],
                 "gru_encdec": ge["launches"], "deepfm": fm["launches"],
-                "deepfm_infer": fm_infer["launches"]}
+                "deepfm_infer": fm_infer["launches"],
+                "misc_image": mi["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -5119,7 +5835,8 @@ def main():
               "infer": inferred, "train_resnet": trained_resnet,
               "infer_resnet": inferred_resnet, "tune": tuned,
               "seq2seq": s2s, "gru_encdec": ge, "deepfm": fm,
-              "deepfm_infer": fm_infer, "launches": launches}
+              "deepfm_infer": fm_infer, "misc_image": mi,
+              "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

@@ -6,10 +6,21 @@
 ``ops/tensor.py`` and ``ops/loss.py``, the SelectedRows utilities, the
 beam-search wrappers and the composites (``dice_loss``, ``mse_loss``,
 ``npair_loss``, ``rank``, ``sum``, ``scatter_nd``, ``lstm_unit``,
-``adaptive_pool2d``, ``autoincreased_step_counter``)."""
+``adaptive_pool2d``, ``autoincreased_step_counter``), and the layers
+over the misc and image groups (``ops/misc.py``, ``ops/image.py``): the
+3-D convolutions and pools, the rearrangements, the samplers, the
+specialty losses, the CTR layers (``hash``, ``data_norm``,
+``continuous_value_model``, ``unique``), ``spectral_norm`` and the
+composites ``fsp_matrix``, ``image_resize_short`` and
+``adaptive_pool3d``. ``filter_by_instag`` is refused, as in the JAX
+package."""
 from __future__ import annotations
 
+import math
+
+from ..initializer import Constant, Normal, Xavier
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 from . import nn as _nn
 
 __all__ = ["fused_decode_attention", "kv_cache_append", "sequence_gather",
@@ -22,19 +33,33 @@ __all__ = ["fused_decode_attention", "kv_cache_append", "sequence_gather",
            "get_tensor_from_selected_rows", "beam_search",
            "beam_search_decode", "dice_loss", "mse_loss", "npair_loss",
            "rank", "size", "sum", "scatter_nd", "lstm_unit", "adaptive_pool2d",
-           "autoincreased_step_counter"]
+           "autoincreased_step_counter", "conv3d", "pool3d",
+           "conv3d_transpose", "adaptive_pool3d", "lrn", "pad_constant_like",
+           "label_smooth", "crop", "crop_tensor", "affine_grid",
+           "strided_slice", "space_to_depth", "affine_channel", "hash",
+           "grid_sampler", "add_position_encoding", "shuffle_channel",
+           "temporal_shift", "pixel_shuffle", "unique", "unique_with_counts",
+           "unfold", "random_crop", "similarity_focus", "sampling_id",
+           "cross_entropy2", "teacher_student_sigmoid_loss", "center_loss",
+           "bilinear_tensor_product", "multiplex", "im2sequence",
+           "row_conv", "data_norm", "spectral_norm", "image_resize_short",
+           "fsp_matrix", "continuous_value_model", "resize_trilinear",
+           "filter_by_instag"]
 
 
 def _outs(op_type, inputs, outs, attrs=None, name=None):
-    """One op; ``outs`` maps each output slot to its dtype (None: the
-    first input's), the first slot the main output, the rest stop the
-    gradient. Returns the output vars in order."""
+    """One op; ``outs`` maps each output slot to its dtype, the first slot
+    the main output (None: the dtype of the first input that is one var),
+    the rest stop the gradient (None: the main output's dtype). Inputs
+    given as None are left out. Returns the output vars in order."""
     helper = LayerHelper(op_type, name=name)
-    first = next(iter(inputs.values())).dtype
+    inputs = {k: v for k, v in inputs.items() if v is not None}
+    main = next(iter(outs.values())) or next(
+        v for v in inputs.values() if not isinstance(v, (list, tuple))).dtype
     made = {}
     for k, (slot, dt) in enumerate(outs.items()):
         made[slot] = helper.create_variable_for_type_inference(
-            dt or first, stop_gradient=k > 0)
+            dt or main, stop_gradient=k > 0)
     helper.append_op(op_type, inputs=inputs, outputs=made,
                      attrs=attrs or {})
     return list(made.values())
@@ -417,3 +442,415 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
                         attrs={"step": float(step),
                                "__op_role__": "lr_sched"})
     return main.var(name)
+
+
+# -- the misc and image groups (ops/misc.py, ops/image.py) ------------------
+
+def _triple(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * 3
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """3-D convolution of NCDHW ``input``; filters [num_filters,
+    C / groups, kd, kh, kw] from Normal(0, sqrt(2 / (k^3 C)))."""
+    helper = LayerHelper("conv3d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    k = _triple(filter_size)
+    num_channels = input.shape[1]
+    std = (2.0 / (k[0] * k[1] * k[2] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr, shape=[num_filters, num_channels // groups] + k,
+        dtype=input.dtype, default_initializer=Normal(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d", inputs={"Input": input, "Filter": w},
+                     outputs={"Output": pre_bias},
+                     attrs={"strides": _triple(stride),
+                            "paddings": _triple(padding),
+                            "dilations": _triple(dilation),
+                            "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, name=None):
+    return _one("pool3d", {"X": input},
+                {"pooling_type": pool_type, "ksize": _triple(pool_size),
+                 "strides": _triple(pool_stride),
+                 "paddings": _triple(pool_padding),
+                 "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+                 "exclusive": exclusive}, name=name)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """Transposed 3-D convolution; filters [C, num_filters / groups, kd,
+    kh, kw] from Xavier. ``output_size`` is not read (give
+    ``filter_size``)."""
+    helper = LayerHelper("conv3d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    k = _triple(filter_size)
+    num_channels = input.shape[1]
+    w = helper.create_parameter(
+        helper.param_attr, shape=[num_channels, num_filters // groups] + k,
+        dtype=input.dtype, default_initializer=Xavier())
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d_transpose",
+                     inputs={"Input": input, "Filter": w},
+                     outputs={"Output": pre_bias},
+                     attrs={"strides": _triple(stride),
+                            "paddings": _triple(padding),
+                            "dilations": _triple(dilation),
+                            "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """pool3d whose output is ``pool_size``: each spatial dim must divide
+    by it (a fixed window of D / o)."""
+    if require_index:
+        raise NotImplementedError("adaptive_pool3d(require_index=True)")
+    d, h, w = [int(v) for v in input.shape[2:]]
+    ps = _triple(pool_size)
+    if d % ps[0] or h % ps[1] or w % ps[2]:
+        raise NotImplementedError(
+            "adaptive_pool3d: each spatial dim must divide by pool_size "
+            "(fixed windows, as the JAX package requires); pad the input "
+            "or pick a divisor size")
+    k = [d // ps[0], h // ps[1], w // ps[2]]
+    return pool3d(input, pool_size=k, pool_type=pool_type, pool_stride=k)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    return _outs("lrn", {"X": input}, {"Out": None, "MidOut": None},
+                 {"n": n, "k": k, "alpha": alpha, "beta": beta}, name)[0]
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    return _one("pad_constant_like", {"X": x, "Y": y},
+                {"pad_value": float(pad_value)}, name=name)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    return _one("label_smooth", {"X": label, "PriorDist": prior_dist},
+                {"epsilon": float(epsilon)}, name=name)
+
+
+def _shape_and_offsets(ins, shape, offsets, shape_slot):
+    """Attrs for a list shape/offsets, else the var in its input slot."""
+    attrs = {}
+    if isinstance(shape, (list, tuple)):
+        attrs["shape"] = list(shape)
+    elif shape is not None:
+        ins[shape_slot] = shape
+    if isinstance(offsets, (list, tuple)):
+        attrs["offsets"] = list(offsets)
+    elif offsets is not None:
+        ins["Offsets"] = offsets
+    return attrs
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    ins = {"X": x}
+    attrs = _shape_and_offsets(ins, shape, offsets, "Y")
+    return _one("crop", ins, attrs, name=name)
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    ins = {"X": x}
+    attrs = _shape_and_offsets(ins, shape, offsets, "Shape")
+    return _one("crop_tensor", ins, attrs, name=name)
+
+
+def affine_grid(theta, out_shape=None, name=None):
+    attrs = {}
+    ins = {"Theta": theta}
+    if isinstance(out_shape, (list, tuple)):
+        attrs["output_shape"] = [int(v) for v in out_shape]
+    elif out_shape is not None:
+        ins["OutputShape"] = out_shape
+    return _outs("affine_grid", ins, {"Output": None}, attrs, name)[0]
+
+
+def strided_slice(input, axes, starts, ends, strides, name=None):
+    return _one("strided_slice", {"Input": input},
+                {"axes": list(axes), "starts": list(starts),
+                 "ends": list(ends), "strides": list(strides)}, name=name)
+
+
+def space_to_depth(x, blocksize, name=None):
+    return _one("space_to_depth", {"X": x}, {"blocksize": blocksize},
+                name=name)
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW", name=None):
+    return _one("affine_channel", {"X": x, "Scale": scale, "Bias": bias},
+                {"data_layout": data_layout}, name=name)
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """[N, num_hash, 1] int64 ids in [0, hash_size) of each row of int
+    ``input``."""
+    return _outs("hash", {"X": input}, {"Out": "int64"},
+                 {"num_hash": num_hash, "mod_by": hash_size}, name)[0]
+
+
+def grid_sampler(x, grid, name=None):
+    return _outs("grid_sampler", {"X": x, "Grid": grid}, {"Output": None},
+                 name=name)[0]
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    return _one("add_position_encoding", {"X": input},
+                {"alpha": float(alpha), "beta": float(beta)}, name=name)
+
+
+def shuffle_channel(x, group, name=None):
+    return _one("shuffle_channel", {"X": x}, {"group": group}, name=name)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    return _one("temporal_shift", {"X": x},
+                {"seg_num": seg_num, "shift_ratio": shift_ratio}, name=name)
+
+
+def pixel_shuffle(x, upscale_factor, name=None):
+    return _one("pixel_shuffle", {"X": x},
+                {"upscale_factor": upscale_factor}, name=name)
+
+
+def unique(x, dtype="int32", name=None):
+    """(Out, Index): Out is len(x) long, the uniques first."""
+    return tuple(_outs("unique", {"X": x}, {"Out": None, "Index": dtype},
+                       {"dtype": dtype}, name))
+
+
+def unique_with_counts(x, dtype="int32", name=None):
+    return tuple(_outs("unique_with_counts", {"X": x},
+                       {"Out": None, "Index": dtype, "Count": dtype},
+                       {"dtype": dtype}, name))
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    pads = _pair(paddings) if not isinstance(paddings, (list, tuple)) \
+        or len(paddings) != 4 else list(paddings)
+    return _outs("unfold", {"X": x}, {"Y": None},
+                 {"kernel_sizes": _pair(kernel_sizes),
+                  "strides": _pair(strides), "paddings": pads,
+                  "dilations": _pair(dilations)}, name)[0]
+
+
+def random_crop(x, shape, seed=None, name=None):
+    return _outs("random_crop", {"X": x}, {"Out": None, "SeedOut": "int64"},
+                 {"shape": list(shape),
+                  "startup_seed": int(seed) if seed else 0}, name)[0]
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    return _one("similarity_focus", {"X": input},
+                {"axis": axis, "indexes": list(indexes)}, name=name)
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64", name=None):
+    return _outs("sampling_id", {"X": x}, {"Out": dtype},
+                 {"min": min, "max": max, "seed": seed}, name)[0]
+
+
+def cross_entropy2(input, label, ignore_index=-100, name=None):
+    return _outs("cross_entropy2", {"X": input, "Label": label},
+                 {"Y": None, "XShape": None, "MatchX": None},
+                 {"ignore_index": ignore_index}, name)[0]
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    return _outs("teacher_student_sigmoid_loss",
+                 {"X": input, "Label": label}, {"Y": None},
+                 {"soft_max_up_bound": soft_max_up_bound,
+                  "soft_max_lower_bound": soft_max_lower_bound})[0]
+
+
+def center_loss(input, label, num_classes, alpha, param_attr=None,
+                update_center=True):
+    """|x - c_y|^2 / 2 per row against the centres parameter [num_classes,
+    D] (zeros at start). As in the JAX package, the op's CentersOut is a
+    temporary, so the centres parameter never moves (Fluid writes it
+    back)."""
+    helper = LayerHelper("center_loss", param_attr=param_attr)
+    centers = helper.create_parameter(
+        helper.param_attr, shape=[num_classes, input.shape[-1]],
+        dtype=input.dtype, default_initializer=Constant(0.0))
+    rate = helper.create_variable_for_type_inference("float32",
+                                                     stop_gradient=True)
+    helper.append_op("fill_constant", outputs={"Out": rate},
+                     attrs={"shape": [1], "dtype": "float32",
+                            "value": float(alpha)})
+    c_out = helper.create_variable_for_type_inference(input.dtype,
+                                                      stop_gradient=True)
+    diff = helper.create_variable_for_type_inference(input.dtype,
+                                                     stop_gradient=True)
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("center_loss",
+                     inputs={"X": input, "Label": label,
+                             "Centers": centers, "CenterUpdateRate": rate},
+                     outputs={"CentersOut": c_out, "SampleCenterDiff": diff,
+                              "Loss": loss},
+                     attrs={"cluster_num": num_classes,
+                            "need_update": update_center})
+    return loss
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """out_k = x W_k y^T (+ b_k); W [size, dim x, dim y], b [1, size]."""
+    helper = LayerHelper("bilinear_tensor_product", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    w = helper.create_parameter(
+        helper.param_attr, shape=[size, x.shape[-1], y.shape[-1]],
+        dtype=x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": x, "Y": y, "Weight": w}
+    if bias_attr is not False:
+        ins["Bias"] = helper.create_parameter(
+            helper.bias_attr or ParamAttr(), shape=[1, size], dtype=x.dtype,
+            is_bias=True)
+    helper.append_op("bilinear_tensor_product", inputs=ins,
+                     outputs={"Out": out})
+    return helper.append_activation(out)
+
+
+def multiplex(inputs, index):
+    return _one("multiplex", {"Ids": index, "X": list(inputs)})
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    pads = _pair(padding)
+    if len(pads) == 2:
+        pads = pads + pads
+    return _one("im2sequence", {"X": input, "Y": input_image_size},
+                {"kernels": _pair(filter_size), "strides": _pair(stride),
+                 "paddings": pads, "out_stride": _pair(out_stride)},
+                name=name)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """The lookahead convolution over [B, T, D]; filter
+    [future_context_size + 1, D]."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    w = helper.create_parameter(
+        helper.param_attr,
+        shape=[future_context_size + 1, input.shape[-1]], dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("row_conv", inputs={"X": input, "Filter": w},
+                     outputs={"Out": out})
+    return helper.append_activation(out)
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None, name=None):
+    """Normalise by accumulated batch statistics: three [C] parameters,
+    batch size 1e4, sum 0 and square sum 1e4 at start. No gradient
+    reaches them and nothing updates them, as in the JAX package."""
+    helper = LayerHelper("data_norm", param_attr=param_attr, act=act,
+                         name=name)
+    c = input.shape[-1]
+
+    def stat(value):
+        return helper.create_parameter(
+            ParamAttr(name=None), shape=[c], dtype=input.dtype,
+            default_initializer=Constant(value))
+
+    batch_size, batch_sum, batch_sq = stat(1e4), stat(0.0), stat(1e4)
+    y = helper.create_variable_for_type_inference(input.dtype)
+    means = helper.create_variable_for_type_inference(input.dtype, True)
+    scales = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("data_norm",
+                     inputs={"X": input, "BatchSize": batch_size,
+                             "BatchSum": batch_sum,
+                             "BatchSquareSum": batch_sq},
+                     outputs={"Y": y, "Means": means, "Scales": scales},
+                     attrs={"epsilon": epsilon})
+    return helper.append_activation(y)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """``weight`` over its largest singular value, estimated by power
+    iteration from the non-trainable U [h] and V [w] (Normal(0, 1) at
+    start). The op is pure, as the JAX package's: U and V stay as the
+    startup program set them (Fluid updates them every step)."""
+    from .. import unique_name
+
+    helper = LayerHelper("spectral_norm", name=name)
+    h = int(weight.shape[dim])
+    w = math.prod(int(weight.shape[i]) for i in range(len(weight.shape))
+                  if i != dim)
+
+    def vec(key, size):
+        return helper.create_parameter(
+            ParamAttr(name=unique_name.generate(key), trainable=False),
+            shape=[size], dtype=weight.dtype,
+            default_initializer=Normal(0.0, 1.0))
+
+    u, v = vec("spectral_norm_u", h), vec("spectral_norm_v", w)
+    out = helper.create_variable_for_type_inference(weight.dtype)
+    helper.append_op("spectral_norm",
+                     inputs={"Weight": weight, "U": u, "V": v},
+                     outputs={"Out": out},
+                     attrs={"dim": dim, "power_iters": power_iters,
+                            "eps": eps})
+    return out
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize so the short side of the static H x W is ``out_short_len``,
+    the ratio kept."""
+    h, w = int(input.shape[2]), int(input.shape[3])
+    short = min(h, w)
+    out_h = int(round(h * out_short_len / short))
+    out_w = int(round(w * out_short_len / short))
+    return _nn.image_resize(input, [out_h, out_w], resample)
+
+
+def fsp_matrix(x, y):
+    """The flow matrix of two feature maps [N, C1, H, W] and [N, C2, H, W]:
+    x_flat @ y_flat^T / (H W), [N, C1, C2]."""
+    c1, c2 = x.shape[1], y.shape[1]
+    hw = int(x.shape[2]) * int(x.shape[3])
+    x2 = _nn.reshape(x, [-1, c1, hw])
+    y2 = _nn.reshape(y, [-1, c2, hw])
+    prod = _nn.matmul(x2, _nn.transpose(y2, [0, 2, 1]))
+    return _nn.scale(prod, scale=1.0 / hw)
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    return _outs("cvm", {"X": input, "CVM": cvm}, {"Y": None},
+                 {"use_cvm": use_cvm})[0]
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None,
+                     align_corners=True):
+    if out_shape is None:
+        d, h, w = [int(s * scale) for s in input.shape[2:]]
+    else:
+        d, h, w = [int(v) for v in out_shape]
+    return _one("trilinear_interp", {"X": input},
+                {"out_d": d, "out_h": h, "out_w": w,
+                 "align_corners": align_corners}, name=name)
+
+
+def filter_by_instag(ins, ins_tag, filter_tag, is_lod=True):
+    raise NotImplementedError(
+        "filter_by_instag selects variable-size row subsets at runtime — "
+        "dynamic shapes XLA cannot compile. Filter in the data pipeline "
+        "(reader decorators) or mask rows with sequence_mask instead.")

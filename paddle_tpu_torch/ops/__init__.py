@@ -1,5 +1,6 @@
 """Op rules of the PyTorch port; importing this package registers them."""
 from . import (amp_ops, control_flow, fused_attention,  # noqa: F401
-               fused_gemm, generation, loss, math, misc2, nn, optimizer_ops,
-               recompute, rnn_ops, sequence_ops, structured, tensor)
+               fused_gemm, generation, image, loss, math, misc, misc2, nn,
+               optimizer_ops, recompute, rnn_ops, sequence_ops, structured,
+               tensor)
 from ..core.registry import all_ops, get_op_def, has_op, register_op  # noqa: F401,E402

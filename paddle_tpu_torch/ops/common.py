@@ -1,9 +1,15 @@
 """Shared helpers for op rules."""
 from __future__ import annotations
 
+import contextlib
+import threading
+
+import torch
+
 from ..core.registry import IOSpec, register_op  # re-export for op modules
 
-__all__ = ["register_op", "IOSpec", "x", "out", "broadcast_to_x", "unary"]
+__all__ = ["register_op", "IOSpec", "x", "out", "broadcast_to_x", "unary",
+           "convolution"]
 
 
 def x(ins, slot="X", i=0):
@@ -39,3 +45,58 @@ def unary(op_type, fn, **kwargs):
         return out(_fn(x(ins)))
 
     return _lower
+
+
+_CUDNN_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def _exact_cudnn():
+    """cuDNN in full float32 (no TF32) on its deterministic algorithms,
+    whatever the process-wide settings are; they are restored after. The
+    lock keeps another thread's convolution from launching while they
+    are set back."""
+    cudnn = torch.backends.cudnn
+    with _CUDNN_LOCK:
+        was = cudnn.deterministic, cudnn.allow_tf32
+        cudnn.deterministic, cudnn.allow_tf32 = True, False
+        try:
+            yield
+        finally:
+            cudnn.deterministic, cudnn.allow_tf32 = was
+
+
+class _Convolution(torch.autograd.Function):
+    """``aten.convolution`` whose forward and backward both launch under
+    :func:`_exact_cudnn` (the backward runs later, outside the rule)."""
+
+    @staticmethod
+    def forward(ctx, inp, weight, bias, conf):
+        ctx.save_for_backward(inp, weight)
+        ctx.conf = conf
+        ctx.bias_sizes = None if bias is None else list(bias.shape)
+        with _exact_cudnn():
+            return torch.ops.aten.convolution(inp, weight, bias, *conf)
+
+    @staticmethod
+    def backward(ctx, g):
+        inp, weight = ctx.saved_tensors
+        mask = [bool(m) for m in ctx.needs_input_grad[:3]]
+        with _exact_cudnn():
+            gi, gw, gb = torch.ops.aten.convolution_backward(
+                g, inp, weight, ctx.bias_sizes, *ctx.conf, mask)
+        return gi, gw, gb, None
+
+
+def convolution(inp, weight, bias=None, stride=None, padding=None,
+                dilation=None, groups=1, transposed=False):
+    """An N-d convolution (transposed: its gradient with respect to the
+    input), forward and backward on cuDNN's deterministic algorithms and
+    in full float32 (no TF32), whatever the process-wide cuDNN settings:
+    a float32 program computes in float32 and repeats bit for bit.
+    ``stride``, ``padding`` and ``dilation`` have one entry a spatial
+    dim."""
+    nd = inp.dim() - 2
+    conf = (list(stride or [1] * nd), list(padding or [0] * nd),
+            list(dilation or [1] * nd), transposed, [0] * nd, groups)
+    return _Convolution.apply(inp, weight, bias, conf)

@@ -2,11 +2,12 @@
 of it): mul, matmul, conv2d, depthwise_conv2d, conv2d_transpose, pool2d,
 batch_norm, layer_norm, group_norm, instance_norm, dropout,
 l2_normalize, prelu, interpolate_nearest and bilinear_interp. Plain
-GEMMs go to ``torch.matmul`` and convolutions to ``F.conv2d`` (cuDNN on
-the card), as the JAX package leaves both to XLA; in float32 they run in
-full float32 (no TF32) unless the caller turned
-``torch.backends.cuda.matmul.allow_tf32`` or
-``torch.backends.cudnn.allow_tf32`` on.
+GEMMs go to ``torch.matmul`` and convolutions to ``common.convolution``
+(cuDNN on the card), as the JAX package leaves both to XLA. In float32 a
+GEMM runs in full float32 (no TF32) unless the caller turned
+``torch.backends.cuda.matmul.allow_tf32`` on; a convolution always does,
+on cuDNN's deterministic algorithms, whatever ``torch.backends.cudnn``
+says.
 
 Convolutions and pooling keep the reference's logical NCHW shapes at op
 boundaries; ``FLAGS_conv_use_nhwc`` picks the memory format their inputs
@@ -20,7 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import IOSpec, out, register_op, x
+from .common import IOSpec, convolution, out, register_op, x
 
 
 @register_op("mul", inputs=["X", "Y"], outputs=["Out"],
@@ -71,11 +72,10 @@ def _conv2d(ctx, ins, attrs):
     """OIHW filters, symmetric paddings; the optional Bias is per output
     channel."""
     inp = x(ins, "Input")
-    return {"Output": [F.conv2d(
+    return {"Output": [convolution(
         _laid_out(inp), _laid_out(x(ins, "Filter"), like=inp),
-        x(ins, "Bias"), stride=list(attrs["strides"]),
-        padding=list(attrs["paddings"]), dilation=list(attrs["dilations"]),
-        groups=attrs.get("groups", 1))]}
+        x(ins, "Bias"), stride=attrs["strides"], padding=attrs["paddings"],
+        dilation=attrs["dilations"], groups=attrs.get("groups", 1))]}
 
 
 @register_op("depthwise_conv2d", inputs=[IOSpec("Input"), IOSpec("Filter"),
@@ -247,16 +247,16 @@ def _dropout(ctx, ins, attrs):
                     "data_format": "NCHW"})
 def _conv2d_transpose(ctx, ins, attrs):
     """The reference's transposed conv (its lhs-dilated forward conv with
-    the flipped kernel) is ``F.conv_transpose2d``: filters [C_in, C_out,
+    the flipped kernel) is a transposed convolution: filters [C_in, C_out,
     kh, kw], output (H - 1) s + (k - 1) d + 1 - 2p. ``output_size`` is
     ignored and groups > 1 refused, as in the reference."""
     if attrs.get("groups", 1) != 1:
         raise NotImplementedError("conv2d_transpose groups>1 not supported")
     inp = x(ins, "Input")
-    res = F.conv_transpose2d(
+    res = convolution(
         _laid_out(inp), _laid_out(x(ins, "Filter"), like=inp),
-        stride=list(attrs["strides"]), padding=list(attrs["paddings"]),
-        dilation=list(attrs["dilations"]))
+        stride=attrs["strides"], padding=attrs["paddings"],
+        dilation=attrs["dilations"], transposed=True)
     b = x(ins, "Bias")
     if b is not None:
         res = res + b.reshape((1, -1, 1, 1))

@@ -5,6 +5,7 @@ installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Without a CUDA device they skip: the kernels have no CPU mode."""
+import contextlib
 import importlib
 import math
 
@@ -1879,3 +1880,320 @@ def test_sparse_grad_and_updates_are_bit_identical_from_run_to_run():
                                                           gb.values)
     for n in a:
         assert torch.equal(a[n], b[n]), n
+
+
+# ------------------------------------------------- the misc and image groups
+def _mi_cases():
+    """One case per op type of ``ops/misc.py`` and ``ops/image.py`` but
+    the two random ones, at a small size: (op type, {slot: array or list},
+    attrs). Ties are planted where an op takes a maximum."""
+    import numpy as np
+
+    rng = np.random.RandomState(17)
+
+    def f(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def i(lo, hi, *shape):
+        return rng.randint(lo, hi, shape).astype(np.int64)
+
+    def probs(*shape):
+        z = np.exp(f(*shape))
+        return (z / z.sum(-1, keepdims=True)).astype(np.float32)
+
+    ties = rng.randint(0, 3, (2, 3, 6, 8)).astype(np.float32)
+    img = f(2, 3, 6, 8)
+    ids = i(-50, 50, 300)
+    mask = np.stack([np.arange(12, dtype=np.int32) * 4 % 48] * 6) \
+        .reshape(2, 3, 3, 4)
+    return {
+        "linspace": ("linspace", {"Start": np.array([0.5], np.float32),
+                                  "Stop": np.array([3.0], np.float32),
+                                  "Num": np.array([7], np.int32)},
+                     {}),
+        "fill": ("fill", {}, {"value": [1.0, 2.5, -3.0, 4.0],
+                              "shape": [2, 2]}),
+        "fill_any_like": ("fill_any_like", {"X": img}, {"value": 2.0}),
+        "fill_zeros_like2": ("fill_zeros_like2", {"X": img}, {}),
+        "size": ("size", {"Input": img}, {}),
+        "is_empty": ("is_empty", {"X": img}, {}),
+        "one_hot_v2": ("one_hot_v2", {"X": i(-1, 7, 4, 3)}, {"depth": 6}),
+        "multiplex": ("multiplex", {"Ids": i(0, 2, 5, 1),
+                                    "X": [f(5, 4), f(5, 4)]}, {}),
+        "strided_slice": ("strided_slice", {"Input": img},
+                          {"axes": [2, 3], "starts": [-1, 1],
+                           "ends": [0, 8], "strides": [-2, 3]}),
+        "minus": ("minus", {"X": f(3, 4), "Y": f(3, 4)}, {}),
+        "l1_norm": ("l1_norm", {"X": f(3, 4)}, {}),
+        "norm": ("norm", {"X": f(3, 4, 5)}, {"axis": 1}),
+        "squared_l2_distance": ("squared_l2_distance",
+                                {"X": f(4, 5), "Y": f(1, 5)}, {}),
+        "bilinear_tensor_product": (
+            "bilinear_tensor_product", {"X": f(4, 3), "Y": f(4, 5),
+                                        "Weight": f(2, 3, 5),
+                                        "Bias": f(1, 2)}, {}),
+        "fsp": ("fsp", {"X": img, "Y": f(2, 4, 6, 8)}, {}),
+        "modified_huber_loss": ("modified_huber_loss",
+                                {"X": f(8, 1, scale=2.0),
+                                 "Y": i(0, 2, 8, 1).astype(np.float32)},
+                                {}),
+        "teacher_student_sigmoid_loss": (
+            "teacher_student_sigmoid_loss",
+            {"X": f(5, 1), "Label": np.array([[-2], [-1], [0.3], [1.5],
+                                              [0.9]], np.float32)}, {}),
+        "cross_entropy2": ("cross_entropy2",
+                           {"X": probs(5, 6), "Label": np.array(
+                               [[0], [5], [-100], [2], [3]], np.int64)}, {}),
+        "label_smooth": ("label_smooth", {"X": probs(4, 6)},
+                         {"epsilon": 0.1}),
+        "center_loss": ("center_loss",
+                        {"X": f(6, 4), "Label": i(0, 3, 6, 1),
+                         "Centers": f(3, 4),
+                         "CenterUpdateRate": np.array([0.5], np.float32)},
+                        {"cluster_num": 3}),
+        "add_position_encoding": ("add_position_encoding",
+                                  {"X": f(2, 7, 8)}, {"beta": 0.5}),
+        "row_conv": ("row_conv", {"X": f(2, 6, 3), "Filter": f(3, 3)}, {}),
+        "conv_shift": ("conv_shift", {"X": f(3, 7), "Y": f(3, 3)}, {}),
+        "cvm": ("cvm", {"X": np.abs(f(4, 6)) * 5, "CVM": f(4, 2)}, {}),
+        "data_norm": ("data_norm",
+                      {"X": f(4, 5), "BatchSize": np.full(5, 1e4, np.float32),
+                       "BatchSum": f(5, scale=10.0),
+                       "BatchSquareSum": np.abs(f(5)) * 1e4 + 1e3}, {}),
+        "hash": ("hash", {"X": i(-2 ** 31, 2 ** 31 - 1, 40, 3)},
+                 {"num_hash": 2, "mod_by": 10007}),
+        "unique": ("unique", {"X": ids}, {"dtype": "int64"}),
+        "unique_with_counts": ("unique_with_counts", {"X": ids}, {}),
+        "spectral_norm": ("spectral_norm", {"Weight": f(6, 4, 3),
+                                            "U": f(6), "V": f(12)},
+                          {"power_iters": 2}),
+        "tree_conv": ("tree_conv",
+                      {"NodesVector": f(2, 6, 3),
+                       "EdgeSet": np.array([[[1, 2], [1, 3], [3, 4], [0, 0]],
+                                            [[1, 2], [2, 3], [0, 0],
+                                             [0, 0]]], np.int64),
+                       "Filter": f(3, 3, 2, 2)}, {"max_depth": 2}),
+        "similarity_focus": ("similarity_focus", {"X": ties},
+                             {"axis": 1, "indexes": [0, 2]}),
+        "pixel_shuffle": ("pixel_shuffle", {"X": f(2, 8, 3, 4)},
+                          {"upscale_factor": 2}),
+        "affine_channel": ("affine_channel", {"X": img, "Scale": f(3),
+                                              "Bias": f(3)}, {}),
+        "shuffle_channel": ("shuffle_channel", {"X": f(2, 6, 3, 4)},
+                            {"group": 3}),
+        "space_to_depth": ("space_to_depth", {"X": img}, {"blocksize": 2}),
+        "temporal_shift": ("temporal_shift", {"X": f(6, 8, 3, 3)},
+                           {"seg_num": 3, "shift_ratio": 0.125}),
+        "crop": ("crop", {"X": img}, {"shape": [1, 2, 4, 5],
+                                      "offsets": [1, 0, 2, 3]}),
+        "crop_tensor": ("crop_tensor", {"X": img, "Shape": np.array(
+            [2, 3, 3, 3], np.int32)}, {"offsets": [0, 0, 1, 4]}),
+        "pad_constant_like": ("pad_constant_like",
+                              {"X": img, "Y": f(1, 3, 4, 5)},
+                              {"pad_value": 0.5}),
+        "unfold": ("unfold", {"X": img},
+                   {"kernel_sizes": [2, 3], "strides": [2, 1],
+                    "paddings": [1, 0, 0, 1], "dilations": [1, 2]}),
+        "im2sequence": ("im2sequence", {"X": img},
+                        {"kernels": [2, 2], "strides": [2, 2]}),
+        "lrn": ("lrn", {"X": f(2, 7, 3, 4)}, {"alpha": 1e-2}),
+        "spp": ("spp", {"X": ties}, {"pyramid_height": 3}),
+        "max_pool2d_with_index": ("max_pool2d_with_index", {"X": ties},
+                                  {"ksize": [3, 3], "strides": [2, 2],
+                                   "paddings": [1, 1]}),
+        "unpool": ("unpool", {"X": f(2, 3, 3, 4), "Indices": mask}, {}),
+        "affine_grid": ("affine_grid", {"Theta": f(2, 2, 3)},
+                        {"output_shape": [2, 3, 5, 7]}),
+        "grid_sampler": ("grid_sampler", {"X": img,
+                                          "Grid": f(2, 4, 5, 2, scale=0.8)},
+                         {"padding_mode": "reflection",
+                          "align_corners": False}),
+        "conv3d": ("conv3d", {"Input": f(2, 3, 4, 5, 6),
+                              "Filter": f(4, 3, 3, 3, 3)},
+                   {"paddings": [1, 1, 1]}),
+        "conv3d_transpose": ("conv3d_transpose",
+                             {"Input": f(2, 3, 3, 4, 4),
+                              "Filter": f(3, 4, 2, 2, 2)},
+                             {"strides": [2, 2, 2]}),
+        "pool3d": ("pool3d", {"X": rng.randint(0, 3, (2, 2, 5, 6, 7))
+                              .astype(np.float32)},
+                   {"ksize": [3, 3, 3], "paddings": [1, 1, 1]}),
+        "trilinear_interp": ("trilinear_interp", {"X": f(2, 2, 4, 5, 6)},
+                             {"out_d": 2, "out_h": 9, "out_w": 6,
+                              "align_corners": False}),
+    }
+
+
+MI_CASES = sorted(_mi_cases())
+MI_STRICT = ("unique", "unique_with_counts", "hash")
+
+
+@contextlib.contextmanager
+def _cudnn_at_torch_defaults():
+    """cuDNN may use TF32 and algorithms that need not repeat, as torch
+    starts (other tests turn TF32 off), restored after."""
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.allow_tf32
+    cudnn.deterministic, cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32 = was
+
+
+def _mi_rule(op_type, arrays, attrs, dev, strict):
+    """The rule on ``dev`` (its forward under
+    ``set_sync_debug_mode("error")`` with ``strict``) and the gradients
+    of its float inputs: (outputs, grads), on the CPU."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    opdef = registry.get_op_def(op_type)
+    attrs = dict({k: a.default for k, a in opdef.attrs.items()}, **attrs)
+    diff = {s.name for s in opdef.inputs if not s.no_grad} \
+        if opdef.grad is not None else set()
+    ins = _lod_ins(arrays, dev)
+    prims = [v for slot in sorted(ins) if slot in diff
+             for v in ins[slot] if v.is_floating_point()]
+    for p in prims:
+        p.requires_grad_()
+    strict = strict and dev == "cuda"
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    if strict:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.enable_grad():
+            res = opdef.lower(LowerCtx(dev, seed=1, uid=7), ins, attrs)
+    finally:
+        if strict:
+            torch.cuda.set_sync_debug_mode("default")
+    flat = [(f"{s}{k}", v) for s in sorted(res)
+            for k, v in enumerate(res[s]) if v is not None]
+    ys = [v for _, v in flat if v.requires_grad]
+    grads = []
+    if prims and ys:
+        g = torch.Generator().manual_seed(3)
+        cts = [torch.randn(y.shape, generator=g).to(dev) for y in ys]
+        grads = torch.autograd.grad(ys, prims, cts, allow_unused=True)
+    return ([(n, v.detach().cpu()) for n, v in flat],
+            [None if gr is None else gr.cpu() for gr in grads])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MI_CASES)
+def test_misc_image_op_on_the_card_matches_the_cpu(case):
+    """Each op type of the misc and image groups on the card against the
+    CPU (float32 rtol 1e-5, atol 1e-6, the 3-D convolutions and the
+    products rtol 1e-4; ints exactly), its float inputs' gradients
+    within rtol 1e-4, atol 1e-5, and a second card run bit-identical,
+    with cuDNN's process-wide settings at torch's defaults (the port's
+    convolutions set their own); ``unique``, ``unique_with_counts`` and
+    ``hash`` with no host sync."""
+    _cuda()
+    op_type, arrays, attrs = _mi_cases()[case]
+    strict = op_type in MI_STRICT
+    cpu_outs, cpu_grads = _mi_rule(op_type, arrays, attrs, "cpu", False)
+    with _cudnn_at_torch_defaults():
+        card_outs, card_grads = _mi_rule(op_type, arrays, attrs, "cuda",
+                                         strict)
+        again_outs, again_grads = _mi_rule(op_type, arrays, attrs, "cuda",
+                                           strict)
+    loose = op_type in ("conv3d", "conv3d_transpose", "fsp", "tree_conv",
+                        "bilinear_tensor_product", "spectral_norm")
+    for (n, a), (_, b), (_, c) in zip(card_outs, cpu_outs, again_outs):
+        assert a.dtype == b.dtype and a.shape == b.shape, n
+        assert torch.equal(a, c), n
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, rtol=1e-4 if loose else 1e-5,
+                                       atol=1e-6 if not loose else 1e-5,
+                                       msg=n)
+        else:
+            assert torch.equal(a, b), n
+    assert len(card_grads) == len(cpu_grads)
+    for a, b, c in zip(card_grads, cpu_grads, again_grads):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, c)
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+CONV_RULES = {
+    "conv2d": ("conv2d", (8, 64, 28, 28), (128, 64, 3, 3),
+               {"strides": [1, 1], "paddings": [1, 1]}),
+    "conv2d_transpose": ("conv2d_transpose", (8, 64, 14, 14),
+                         (64, 32, 4, 4), {"strides": [2, 2],
+                                          "paddings": [1, 1]}),
+    "conv3d": ("conv3d", (4, 32, 8, 28, 28), (64, 32, 3, 3, 3),
+               {"strides": [1, 1, 1], "paddings": [1, 1, 1]}),
+    "conv3d_transpose": ("conv3d_transpose", (2, 64, 8, 8, 8),
+                         (64, 32, 2, 2, 2), {"strides": [2, 2, 2]}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CONV_RULES))
+def test_convolutions_keep_float32_and_repeat_whatever_cudnn_is_set_to(
+        case):
+    """With cuDNN's process-wide settings at torch's defaults (TF32 on
+    for convolutions, algorithms that need not repeat allowed), each
+    convolution rule's output and input and filter gradients on the card
+    are within 2e-5 normwise of the CPU's (TF32's 10-bit mantissa would
+    miss by about 1e-3), a second run is bit-identical, and the settings
+    are as they were afterwards."""
+    _cuda()
+    op_type, xs, ws, attrs = CONV_RULES[case]
+    g = torch.Generator().manual_seed(5)
+    arrays = {"Input": torch.randn(xs, generator=g),
+              "Filter": torch.randn(ws, generator=g) / math.sqrt(
+                  math.prod(ws[1:]))}
+    cpu_outs, cpu_grads = _mi_rule(op_type, arrays, attrs, "cpu", False)
+    with _cudnn_at_torch_defaults():
+        outs, grads = _mi_rule(op_type, arrays, attrs, "cuda", False)
+        again_outs, again_grads = _mi_rule(op_type, arrays, attrs, "cuda",
+                                           False)
+        assert (torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.allow_tf32) == (False, True)
+    card = [v for _, v in outs] + list(grads)
+    again = [v for _, v in again_outs] + list(again_grads)
+    cpu = [v for _, v in cpu_outs] + list(cpu_grads)
+    assert len(card) == len(cpu) == 3
+    for a, b, c in zip(card, again, cpu):
+        assert torch.equal(a, b)
+        assert float((a - c).abs().max()) <= 2e-5 * float(c.abs().max())
+
+
+def test_misc_image_cases_cover_every_op_type_of_the_groups():
+    from paddle_tpu_torch.ops import image, misc  # noqa: F401
+    from paddle_tpu_torch.core import registry
+
+    mods = ("paddle_tpu_torch.ops.misc", "paddle_tpu_torch.ops.image")
+    group = {t for t in registry.all_ops()
+             if registry.get_op_def(t).lower.__module__ in mods}
+    assert len(group) == 53
+    assert {c[0] for c in _mi_cases().values()} == group - {
+        "random_crop", "sampling_id"}
+
+
+@pytest.mark.cuda
+def test_random_crop_and_sampling_id_on_the_card():
+    """random_crop draws its offsets on the host: the card's crop is the
+    CPU's. sampling_id repeats under a seed and never draws an id of
+    probability 0."""
+    _cuda()
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    x = torch.randn(4, 3, 12, 10)
+    crop = registry.get_op_def("random_crop").lower
+    got = {dev: crop(LowerCtx(dev, seed=5, uid=2), {"X": [x.to(dev)]},
+                     {"shape": [3, 8, 7], "startup_seed": 0})["Out"][0]
+           for dev in ("cpu", "cuda")}
+    assert torch.equal(got["cuda"].cpu(), got["cpu"])
+    p = torch.zeros(64, 50)
+    p[:, [3, 17, 40]] = torch.tensor([0.5, 0.3, 0.2])
+    sample = registry.get_op_def("sampling_id").lower
+    draws = [sample(LowerCtx("cuda", seed=1, uid=4), {"X": [p.cuda()]},
+                    {"seed": 9})["Out"][0] for _ in range(2)]
+    assert torch.equal(draws[0], draws[1])
+    assert set(draws[0].cpu().tolist()) <= {3, 17, 40}

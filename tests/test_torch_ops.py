@@ -579,20 +579,39 @@ NN_GROUP_OPS = {"conv2d_transpose", "group_norm", "instance_norm",
 # the SelectedRows utilities (ops/misc2.py): their input is a sparse
 # gradient, checked by the programs of tests/test_torch_selected_rows.py
 SPARSE_OPS = {"merge_selected_rows", "get_tensor_from_selected_rows"}
+# the misc group (ops/misc.py) and the image group (ops/image.py):
+# checked, forward and gradient, by the cases of
+# tests/test_torch_misc_ops.py and tests/test_torch_image_ops.py
+MISC_OPS = {"linspace", "fill", "fill_any_like", "fill_zeros_like2", "size",
+            "is_empty", "one_hot_v2", "multiplex", "strided_slice", "minus",
+            "l1_norm", "norm", "squared_l2_distance",
+            "bilinear_tensor_product", "fsp", "modified_huber_loss",
+            "teacher_student_sigmoid_loss", "cross_entropy2",
+            "label_smooth", "center_loss", "add_position_encoding",
+            "row_conv", "conv_shift", "cvm", "data_norm", "hash", "unique",
+            "unique_with_counts", "spectral_norm", "tree_conv",
+            "similarity_focus", "random_crop", "sampling_id"}
+IMAGE_OPS = {"pixel_shuffle", "affine_channel", "shuffle_channel",
+             "space_to_depth", "temporal_shift", "crop", "crop_tensor",
+             "pad_constant_like", "unfold", "im2sequence", "lrn", "spp",
+             "max_pool2d_with_index", "unpool", "affine_grid",
+             "grid_sampler", "conv3d", "conv3d_transpose", "pool3d",
+             "trilinear_interp"}
 
 
 def test_every_path_op_has_a_case():
     """Every op type of the port but the random ones (checked by
     distribution: here, in tests/test_torch_train.py and
     tests/test_torch_mlp.py), the sub-block ones, the control-flow ones,
-    the LoD ones, the nn group and the SelectedRows utilities has a
-    case."""
+    the LoD ones, the nn group, the SelectedRows utilities and the misc
+    and image groups has a case."""
     from paddle_tpu_torch.core import registry
+    from test_torch_lod import builtin_ops
 
     others = (RANDOM_OPS | BLOCK_OPS | CONTROL_FLOW_OPS | LOD_OPS
-              | NN_GROUP_OPS | SPARSE_OPS)
+              | NN_GROUP_OPS | SPARSE_OPS | MISC_OPS | IMAGE_OPS)
     assert len(CASES) == 169 and not others & set(CASES)
-    assert set(CASES) | others == set(registry.all_ops())
+    assert set(CASES) | others == builtin_ops(registry, "paddle_tpu_torch")
 
 
 @pytest.mark.parametrize("op_type", sorted(CASES))
@@ -735,9 +754,19 @@ INT_CASES = {
     "argsort": lambda L, x, y: list(L.argsort(
         L.elementwise_mod(y, x), axis=1)),
     "topk": lambda L, x, y: list(L.topk(L.elementwise_mod(y, x), k=2)),
+    "unique": lambda L, x, y: list(L.unique(
+        L.reshape(L.elementwise_mod(y, x), [-1]))),
+    "unique_with_counts": lambda L, x, y: list(L.unique_with_counts(
+        L.reshape(L.elementwise_mod(y, x), [-1]))),
+    "hash": lambda L, x, y: [L.hash(x, hash_size=97)],
+    "strided_slice": lambda L, x, y: [L.strided_slice(
+        x, axes=[1], starts=[3], ends=[0], strides=[-2])],
+    "crop": lambda L, x, y: [L.crop(x, shape=[2, 3], offsets=[1, 1])],
+    "multiplex": lambda L, x, y: [L.multiplex([x, y], L.slice(
+        L.elementwise_mod(y, x), axes=[1], starts=[0], ends=[1]))],
 }
 # outputs whose int64 dtype is the port's by design
-INT64_BY_DESIGN = {("argsort", 1), ("topk", 1)}
+INT64_BY_DESIGN = {("argsort", 1), ("topk", 1), ("hash", 0)}
 
 
 def _int_program(pkg, case):

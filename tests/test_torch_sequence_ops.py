@@ -101,7 +101,7 @@ def run_op_case(op_type, ins, outs, attrs=None, grad_outs=(), seed=0):
                                         grad_outs)
         if cts is None:
             rng = np.random.RandomState(seed + 1000)
-            cts = {n: rng.randn(*s).astype(np.float32)
+            cts = {n: np.asarray(rng.randn(*s), np.float32)
                    for n, s in ct_shapes.items()}
         res = fl.Executor(fl.CPUPlace()).run(
             main, feed=dict(feed, **cts), fetch_list=fetch + grads,

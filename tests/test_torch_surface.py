@@ -71,20 +71,9 @@ STILL_MISSING = {
     "layer_helper": {"init_mod": "an import alias of the initializer "
                                  "module, not an API"},
     "layers": {n: OPS for n in (
-        "adaptive_pool3d", "add_position_encoding", "affine_channel",
-        "affine_grid", "bilinear_tensor_product", "center_loss",
-        "continuous_value_model", "conv3d", "conv3d_transpose", "crop",
-        "crop_tensor", "cross_entropy2", "data_norm", "deformable_conv",
-        "deformable_roi_pooling", "detection", "distributions",
-        "filter_by_instag", "fsp_matrix", "grid_sampler", "hash",
-        "im2sequence", "image_resize_short", "label_smooth", "lrn",
-        "multiplex", "pad_constant_like", "pixel_shuffle", "pool3d",
-        "prroi_pool", "psroi_pool", "py_func", "random_crop",
-        "resize_trilinear", "roi_align", "roi_pool", "row_conv",
-        "sampled_softmax_with_cross_entropy", "sampling_id",
-        "shuffle_channel", "similarity_focus", "space_to_depth",
-        "spectral_norm", "strided_slice", "teacher_student_sigmoid_loss",
-        "temporal_shift", "unfold", "unique", "unique_with_counts")}
+        "deformable_conv", "deformable_roi_pooling", "detection",
+        "distributions", "prroi_pool", "psroi_pool", "py_func",
+        "roi_align", "roi_pool", "sampled_softmax_with_cross_entropy")}
     | {"PipelineRegion": MULTI, "pipeline": MULTI},
     "lowering": {"np_dtype": "the JAX side's dtype helper; the port's is "
                              "core.types.np_dtype"},
@@ -94,7 +83,7 @@ STILL_MISSING = {
         "telemetry_enabled": FLEET,
         "observe_comms_cost": MULTI,
     },
-    "ops": {"detection": OPS, "image": OPS, "misc": OPS,
+    "ops": {"detection": OPS,
             "quant_ops": "the quant ops go with contrib/slim (item 4)",
             "pipeline_op": MULTI},
     "resilience": {n: ELASTIC for n in (
@@ -204,7 +193,7 @@ def test_the_list_holds_no_name_already_ported(missing):
         assert set(names) <= missing.get(mod, set()), \
             (mod, sorted(set(names) - missing.get(mod, set())))
         assert all(names.values())
-    assert sum(len(v) for v in STILL_MISSING.values()) == 126
+    assert sum(len(v) for v in STILL_MISSING.values()) == 85
 
 
 @pytest.mark.parametrize("mod", sorted(ITEM_2))
