@@ -4,8 +4,8 @@
 
 ``--phases`` runs only the named phases that need no other phase's
 result (``ALONE``: kernels, the training and inference phases, tune,
-seq2seq, gru_encdec, misc_image) after ``device``, and prints no ``ok``
-line. Without it, every phase runs:
+seq2seq, gru_encdec, misc_image, detection) after ``device``, and prints
+no ``ok`` line. Without it, every phase runs:
 
 Phases, in order; any failure exits non-zero (no phase is caught):
 
@@ -325,7 +325,30 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    content and against the CPU, ``sampling_id`` by repeat, support and a
    chi-square test. No port kernel launches. Prints one ``[misc_image]``
    line a case with its ms by CUDA events and peak memory.
-22. prints the script time of each phase and part (``[seconds]``), the
+22. detection — the detection ops and the rest of misc2 (18 op types:
+   ``ops/detection.py``, ``deformable_conv``, the position-sensitive,
+   precise and deformable RoI poolings, sampled softmax, ``py_func``)
+   with ``layers.distributions`` and ``metrics.DetectionMAP``, at the
+   widths of SSD300 (priors, coding, NMS over 8 x 21 x 8732), YOLOv3-608
+   (the head decode, NMS over 8 x 80 x 22743 with suppression chains),
+   Faster R-CNN R-50-FPN (anchors, proposals over P2-P6, collect and
+   distribute; RoI align, decode and clip at 2 x 512 RoIs), Fast R-CNN's
+   RoI max pooling, R-FCN's and Deformable R-FCN's pooling, DCNv2 at
+   res4, IoU-Net's precise pooling, LM1B's sampled softmax, the VAE's
+   Normal and Uniform and a 37,000-class Categorical (``det_cases``
+   names each width and source). Each case is a program through
+   ``Executor.run``, forward and the gradient of a random cotangent
+   where the op has one, held against the port's CPU run (selections
+   exactly on data built for it, the rest normwise ``DET_TOL_*``) and
+   repeated bit for bit; every op of a run under
+   ``set_sync_debug_mode("warn")`` (``count_syncs``), the host syncs
+   named by op type (by design: the NMS rules, ``roi_pool``,
+   ``py_func``); sampled softmax by its formula on its own samples, a
+   chi-square test and a repeat; the samples by their moments;
+   ``DetectionMAP`` equal over the card's and the CPU's detections. The
+   cases all run and the phase then fails on any that failed. No port
+   kernel launches. Prints one ``[detection]`` line a case.
+23. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -475,15 +498,34 @@ def _device_total_us(evt) -> float:
     return 0.0
 
 
+# torch.profiler keeps a kernel only if it lies inside its capture window,
+# and a kernel that starts or ends close to one of the window's edges can
+# be left out (tools/torch_profiler_window_check.py counts how often):
+# the card idles this long, synchronised, on each side of what is measured
+PROFILE_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def profile_window(activities=(ProfilerActivity.CUDA,)):
+    """``torch.profiler.profile`` whose window holds PROFILE_PAD_S of idle
+    card on each side of the body, so each of the body's kernels is
+    counted; the body's own kernels have ended when it closes."""
+    with profile(activities=list(activities)) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
 def device_ms(fn, iters=20):
     """Mean device time of ``fn``'s kernels over ``iters`` back-to-back
     calls, from ``torch.profiler`` (leaves out the host's time)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile_window() as prof:
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
     return sum(_device_us(e) for e in prof.key_averages()
                if e.device_type.name == "CUDA") / iters / 1e3
 
@@ -1885,8 +1927,8 @@ def profile_run(fn):
     time, the top kernels, the device time and launches of each of the
     port's kernels (and of each of their CUDA functions), and cuBLAS's
     GEMM kernels, each marked bf16 or not."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_window((ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA)) as prof:
         t0 = time.perf_counter()
         fn()
         wall = time.perf_counter() - t0
@@ -5690,11 +5732,847 @@ def phase_misc_image(seed, card):
                 launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
 
 
+# ------------------------------------------------------------- detection
+# The detection ops and the rest of misc2 at the widths of the public
+# models that use them, on misc_image's machinery: each case one program
+# through Executor.run on the card, forward and (where the op has one)
+# the gradient of a random cotangent, held against the port's CPU run of
+# the same program and inputs and repeated bit for bit on the card; every
+# op runs under set_sync_debug_mode("warn") (``count_syncs``), its host
+# syncs counted by op type. A case's published width is never cut; where
+# a batch is assumed, its ``source`` says so. Selections (NMS, top-k, FPN
+# routing) are compared exactly on data built so that every input of a
+# selection is computed with correctly rounded operations only (the same
+# on both devices; the port's divisions by Python numbers are true
+# divisions on the card, ``ops.detection.true_div``) or lies a stated
+# margin from its threshold.
+# the 18 op types of the phase
+DET_TYPES = frozenset((
+    "prior_box", "anchor_generator", "iou_similarity", "box_coder",
+    "box_clip", "yolo_box", "multiclass_nms", "roi_align", "roi_pool",
+    "generate_proposals", "distribute_fpn_proposals",
+    "collect_fpn_proposals", "deformable_conv", "deformable_psroi_pooling",
+    "prroi_pool", "psroi_pool", "py_func",
+    "sampled_softmax_with_cross_entropy"))
+# the warning set_sync_debug_mode("warn") gives for each host sync (the
+# mode's own notice, once a process, also speaks of synchronizing)
+DET_SYNC_WARNING = "called a synchronizing CUDA operation"
+# host syncs by design: the candidate count and the fixed-point checks of
+# greedy NMS, roi_pool's window size (again in its generic grad), the
+# host callback's copy
+DET_SYNC_OPS = ("multiclass_nms", "generate_proposals", "roi_pool",
+                "roi_pool_grad", "py_func")
+# SSD300 VGG16 on VOC (Liu et al. 2016; the Caffe deploy.prototxt):
+# source map, channels, size, min and max size, aspect ratios, step
+SSD_MAPS = (("conv4_3", 512, 38, 30.0, 60.0, (2.0,), 8.0),
+            ("fc7", 1024, 19, 60.0, 111.0, (2.0, 3.0), 16.0),
+            ("conv6_2", 512, 10, 111.0, 162.0, (2.0, 3.0), 32.0),
+            ("conv7_2", 256, 5, 162.0, 213.0, (2.0, 3.0), 64.0),
+            ("conv8_2", 256, 3, 213.0, 264.0, (2.0,), 100.0),
+            ("conv9_2", 256, 1, 264.0, 315.0, (2.0,), 300.0))
+SSD_BATCH, SSD_IMAGE, SSD_CLASSES, SSD_PRIORS = 8, 300, 21, 8732
+SSD_OBJECTS, SSD_GT = 30, 64
+SSD_NMS = {"background_label": 0, "score_threshold": 0.01,
+           "nms_top_k": 400, "nms_threshold": 0.45, "nms_eta": 1.0,
+           "keep_top_k": 200, "normalized": True}
+# YOLOv3-608 on COCO (Redmon & Farhadi 2018; PaddleCV yolov3/config.py):
+# grid, downsample ratio, the anchors of its mask
+YOLO_HEADS = ((19, 32, (116, 90, 156, 198, 373, 326)),
+              (38, 16, (30, 61, 62, 45, 59, 119)),
+              (76, 8, (10, 13, 16, 30, 33, 23)))
+YOLO_BATCH, YOLO_IMAGE, YOLO_CLASSES, YOLO_BOXES = 8, 608, 80, 22743
+YOLO_CONF = 0.005
+YOLO_NMS = {"background_label": -1, "score_threshold": YOLO_CONF,
+            "nms_top_k": 400, "nms_threshold": 0.45, "nms_eta": 1.0,
+            "keep_top_k": 100, "normalized": False}
+YOLO_OBJECTS, YOLO_CHAIN, YOLO_JITTER = 30, 16, 24
+# Faster R-CNN R-50-FPN (Lin et al. 2017; Detectron
+# e2e_faster_rcnn_R-50-FPN_1x, test): P2-P6 at 800 x 1344, level, map
+# size, stride, anchor size
+FPN_LEVELS = ((2, 200, 336, 4.0, 32.0), (3, 100, 168, 8.0, 64.0),
+              (4, 50, 84, 16.0, 128.0), (5, 25, 42, 32.0, 256.0),
+              (6, 13, 21, 64.0, 512.0))
+FPN_IMAGE = (800, 1344)
+# the training heads' RoIs an image (Faster R-CNN's 512)
+FPN_ROIS = 512
+# the card against the CPU, normwise as misc_image's; selections exactly
+DET_TOL_EXACT, DET_TOL_ELEM, DET_TOL_SUM = 0.0, MI_TOL_ELEM, MI_TOL_SUM
+# sampled softmax at LM1B's vocabulary (Jozefowicz et al. 2016)
+LM1B_ROWS, LM1B_VOCAB, LM1B_SAMPLES = 256, 793471, 8192
+DET_RANDOM_LEVEL = MI_RANDOM_LEVEL
+# the VAE's batch and latent size (Kingma & Welling 2014); the
+# Transformer's vocabulary, as misc_image's sampling_id
+DIST_BATCH, DIST_LATENT = 100, 200
+DIST_ROWS, DIST_VOCAB = 4096, 37000
+
+
+@contextlib.contextmanager
+def count_syncs():
+    """Run every op under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    count the host syncs it makes, by op type."""
+    from paddle_tpu_torch import executor as ex
+
+    real_lower_op = ex.lower_op
+    seen = collections.Counter()
+
+    def lower_op(op, env, ctx):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                real_lower_op(op, env, ctx)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        n = sum(DET_SYNC_WARNING in str(w.message) for w in caught)
+        if n:
+            seen[op.type] += n
+
+    ex.lower_op = lower_op
+    try:
+        yield seen
+    finally:
+        ex.lower_op = real_lower_op
+
+
+def det_case(name, ops, feeds, fetch, of=(), wrt=(), tol=DET_TOL_ELEM,
+             width="", source="", exact=False, card_only=(), rule="",
+             build=None, check=None, grad_tol=None):
+    """misc_image's case, plus: ``card_only`` fetches held by ``check``
+    and their repeat, not by the CPU; ``rule`` how a selection is held;
+    ``build`` a program builder in place of ``ops``; ``check(card, cpu)``
+    a further check over the fetched values, returning (ok, note);
+    ``grad_tol`` the gradients' tolerance where it is not ``tol`` (the
+    CPU's accumulating ``index_put_`` sums in no fixed order, so a sum of
+    unequal terms differs from the card's in its last bits)."""
+    case = mi_case(name, ops, feeds, fetch, of, wrt, tol, (), width, source,
+                   exact)
+    case.update(card_only=tuple(card_only), rule=rule, build=build,
+                check=check, grad_tol=tol if grad_tol is None else grad_tol)
+    return case
+
+
+def det_err(got, want):
+    """mi_err over the finite values; the non-finite ones must be equal
+    and at the same places (inf for any difference)."""
+    got = got.cpu()
+    if not want.is_floating_point() or got.shape != want.shape:
+        return mi_err(got, want)
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) \
+            or not torch.equal(got[~fin], want[~fin]):
+        return math.inf
+    return mi_err(got[fin], want[fin])
+
+
+def dyadic_ranks(g, n, lo, bits):
+    """n distinct scores (lo + k) / 2**bits, k < 2**bits - lo, in a
+    random order: exact in float32, no two equal."""
+    k = torch.randperm((1 << bits) - lo - 1, generator=g)[:n] + lo + 1
+    return k.double() / (1 << bits)
+
+
+def det_grid_boxes(g, n, lo, hi, grid, limit):
+    """n boxes with sides in [lo, hi) and corners on a 1/grid grid inside
+    [0, limit]."""
+    wh = torch.rand((n, 2), generator=g) * (hi - lo) + lo
+    xy = torch.rand((n, 2), generator=g) * (limit - wh)
+    b = torch.cat([xy, xy + wh], 1)
+    return (torch.round(b * grid) / grid).clamp(0, limit)
+
+
+def det_ssd_data(g):
+    """SSD300's BBoxes [8, 8732, 4] on a 1/512 grid and Scores [8, 21,
+    8732]: 30 objects an image; a fifth of the priors jitter around an
+    object (up to 12/512 a corner) with a score above 0.01 for its class
+    and one other, the rest random boxes with scores under 0.01; the
+    candidates' scores distinct dyadic values. Returns (boxes, scores,
+    ground truth [8, 30, 6]: label, box, difficult)."""
+    n, m, c = SSD_BATCH, SSD_PRIORS, SSD_CLASSES
+    objs = torch.stack([det_grid_boxes(g, SSD_OBJECTS, 0.05, 0.5, 512, 1.0)
+                        for _ in range(n)])
+    labels = torch.randint(1, c, (n, SSD_OBJECTS), generator=g)
+    owner = torch.randint(0, SSD_OBJECTS, (n, m), generator=g)
+    owned = torch.rand((n, m), generator=g) < 0.2
+    jit = torch.randint(-12, 13, (n, m, 4), generator=g) / 512.0
+    near = torch.gather(objs, 1, owner[..., None].expand(n, m, 4)) + jit
+    near = torch.cat([torch.minimum(near[..., :2], near[..., 2:]),
+                      torch.maximum(near[..., :2], near[..., 2:])], -1)
+    rand = torch.stack([det_grid_boxes(g, m, 0.02, 0.3, 512, 1.0)
+                        for _ in range(n)])
+    boxes = torch.where(owned[..., None], near, rand).clamp(0.0, 1.0)
+    k_thr = 41943                          # 41943 / 2**22 < 0.01
+    scores = torch.randint(0, k_thr, (n, c, m), generator=g).double() \
+        / (1 << 22)
+    cls = torch.gather(labels, 1, owner)
+    other = (cls + torch.randint(1, c - 1, (n, m), generator=g) - 1) \
+        % (c - 1) + 1
+    b_idx, m_idx = owned.nonzero(as_tuple=True)
+    hits = torch.cat([torch.stack([b_idx, cls[owned], m_idx], 1),
+                      torch.stack([b_idx, other[owned], m_idx], 1)])
+    scores[hits[:, 0], hits[:, 1], hits[:, 2]] = dyadic_ranks(
+        g, len(hits), k_thr, 22)
+    gt = torch.cat([labels[..., None].double(), objs.double(),
+                    (torch.rand((n, SSD_OBJECTS, 1), generator=g) < 0.1)
+                    .double()], -1)
+    return boxes.float(), scores.float(), gt
+
+
+def det_yolo_nms_data(g):
+    """YOLOv3-608's BBoxes [8, 22743, 4] in integer pixels of [0, 607] and
+    Scores [8, 80, 22743]: 30 objects an image, each a chain of 16 boxes
+    sliding by 0.29 of the width (neighbours IoU about 0.55, boxes two
+    apart about 0.27: greedy NMS keeps every other one), scored in
+    descending order, and 24 boxes jittered by up to 3 px around it; the
+    rest random boxes, each class's score above 0.005 with probability
+    0.004; candidates' scores distinct dyadic values."""
+    n, m, c = YOLO_BATCH, YOLO_BOXES, YOLO_CLASSES
+    lim = YOLO_IMAGE - 1
+    per = YOLO_CHAIN + YOLO_JITTER
+    k_thr = 41944                          # 41944 / 2**23 < 0.005
+    boxes = torch.stack([torch.round(det_grid_boxes(g, m, 8, 200, 1, lim))
+                         for _ in range(n)])
+    scores = torch.randint(0, k_thr, (n, c, m), generator=g).double() \
+        / (1 << 23)
+    noise = torch.rand((n, c, m), generator=g) < 0.004
+    n_obj = n * YOLO_OBJECTS * per
+    ranks = dyadic_ranks(g, int(noise.sum()) + n_obj, k_thr, 23)
+    scores[noise] = ranks[n_obj:]
+    for b in range(n):
+        slots = torch.randperm(m, generator=g)[:YOLO_OBJECTS * per]
+        objs = torch.round(det_grid_boxes(g, YOLO_OBJECTS, 24, 160, 1, lim))
+        labels = torch.randint(0, c, (YOLO_OBJECTS,), generator=g)
+        for o in range(YOLO_OBJECTS):
+            x0, y0, x1, y1 = objs[o].tolist()
+            step = round(0.29 * (x1 - x0 + 1))
+            t = torch.arange(YOLO_CHAIN, dtype=torch.float64)
+            chain = torch.stack([x0 + t * step, torch.full_like(t, y0),
+                                 x1 + t * step, torch.full_like(t, y1)], 1)
+            jit = objs[o].double() + torch.randint(
+                -3, 4, (YOLO_JITTER, 4), generator=g)
+            own = slots[o * per:(o + 1) * per]
+            boxes[b, own] = torch.cat([chain, jit]).clamp(0, lim).float()
+            at = (b * YOLO_OBJECTS + o) * per
+            s = ranks[at:at + per].clone()
+            s[:YOLO_CHAIN] = s[:YOLO_CHAIN].sort(descending=True).values
+            scores[b, labels[o], own] = s
+    return boxes.float(), scores.float()
+
+
+def det_rois(g, n, lo, hi, height, width, grid=4.0):
+    """n RoIs with log-uniform sides in [lo, hi) inside a height x width
+    image, corners on a 1/grid grid."""
+    side = torch.exp(torch.rand((n, 2), generator=g)
+                     * (math.log(hi) - math.log(lo)) + math.log(lo))
+    side = torch.minimum(side, torch.tensor([width - 1.0, height - 1.0]))
+    xy = torch.rand((n, 2), generator=g) * (torch.tensor(
+        [width - 1.0, height - 1.0]) - side)
+    b = torch.cat([xy, xy + side], 1)
+    return torch.round(b * grid) / grid
+
+
+def det_map_check(gt):
+    """``DetectionMAP`` (11point and integral, difficult ground truth
+    ignored) over the card's and the CPU's fetched Out: equal mAPs, in
+    (0, 1]."""
+    def check(card, cpu):
+        res = {}
+        for mode in ("11point", "integral"):
+            maps = []
+            for out in (card[0], cpu[0]):
+                m = fluid.metrics.DetectionMAP(ap_version=mode)
+                for img in range(out.shape[0]):
+                    m.update(out[img], gt[img])
+                maps.append(m.eval())
+            res[mode] = maps
+        ok = all(a == b and 0.0 < a <= 1.0 for a, b in res.values())
+        return ok, "mAP " + ", ".join(f"{k} {v[0]:.6f} (CPU {v[1]:.6f})"
+                                      for k, v in res.items())
+    return check
+
+
+def det_count_fn(n_classes):
+    def count(out):
+        res = np.zeros((out.shape[0], n_classes), np.int64)
+        for img in range(out.shape[0]):
+            lab = out[img, :, 0]
+            np.add.at(res[img], lab[lab >= 0].astype(np.int64), 1)
+        return res
+    return count
+
+
+def det_py_func_build(case):
+    """multiclass_nms on SSD300's data, its Out through a numpy callback
+    counting the detections of each image and class."""
+    count = det_count_fn(SSD_CLASSES)
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            blk = main.global_block
+            b = blk.create_var(name="b", shape=tuple(case["feeds"]["b"].shape),
+                               dtype="float32", is_data=True)
+            s = blk.create_var(name="s", shape=tuple(case["feeds"]["s"].shape),
+                               dtype="float32", is_data=True)
+            nms = fluid.layers.detection.multiclass_nms(
+                b, s, SSD_NMS["score_threshold"], SSD_NMS["nms_top_k"],
+                SSD_NMS["keep_top_k"], SSD_NMS["nms_threshold"])
+            counts = blk.create_var(name="counts",
+                                    shape=(SSD_BATCH, SSD_CLASSES),
+                                    dtype="int64")
+            fluid.layers.py_func(count, nms, counts)
+    return main, [nms.name, "counts"], {}
+
+
+def det_py_func_check(card, cpu):
+    want = det_count_fn(SSD_CLASSES)(card[0].cpu().numpy())
+    ok = np.array_equal(card[1].cpu().numpy(), want)
+    return ok, f"counts equal a numpy count of Out: {ok}"
+
+
+def det_dist_build(case):
+    """Normal and Uniform at the VAE's [100, 200], Categorical over the
+    Transformer's 37,000 classes: log_prob, entropy, kl_divergence and
+    samples; the gradient of their sum with respect to the parameters."""
+    with fluid.unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            L = fluid.layers
+            Dn = L.distributions
+
+            def data(name, dtype="float32", grad=False):
+                t = case["feeds"][name]
+                v = L.data(name, shape=list(t.shape), dtype=dtype,
+                           append_batch_size=False)
+                v.stop_gradient = not grad
+                return v
+
+            loc, scale = data("loc", grad=True), data("scale", grad=True)
+            loc2, scale2 = data("loc2", grad=True), data("scale2", grad=True)
+            value, lo, hi = data("value"), data("lo"), data("hi")
+            logits = data("logits", grad=True)
+            logits2 = data("logits2")
+            ids = data("ids", "int64")
+            n1, n2 = Dn.Normal(loc, scale), Dn.Normal(loc2, scale2)
+            u = Dn.Uniform(lo, hi)
+            c1, c2 = Dn.Categorical(logits), Dn.Categorical(logits2)
+            outs = [n1.log_prob(value), n1.entropy(), n1.kl_divergence(n2),
+                    u.log_prob(value), u.entropy(), c1.entropy(),
+                    c1.log_prob(ids), c1.kl_divergence(c2)]
+            total = L.sums([L.reduce_sum(o) for i, o in enumerate(outs)
+                            if i not in (3, 4)])
+            grads = fluid.gradients([total], [loc, scale, loc2, scale2,
+                                              logits])
+            samples = [n1.sample([DIST_BATCH, DIST_LATENT], seed=17),
+                       u.sample([DIST_BATCH, DIST_LATENT], seed=18)]
+    return main, [v.name for v in outs + grads + samples], {}
+
+
+def det_dist_check(feeds):
+    def check(card, cpu):
+        ns, us = card[-2].double().cpu(), card[-1].double().cpu()
+        z = (ns - feeds["loc"].double()) / feeds["scale"].double()
+        u = (us - feeds["lo"].double()) / (feeds["hi"] - feeds["lo"]) \
+            .double()
+        n = z.numel()
+        ok = (abs(float(z.mean())) < 5 / math.sqrt(n)
+              and abs(float(z.std()) - 1) < 5 * math.sqrt(0.5 / n)
+              and bool(((u >= 0) & (u < 1)).all())
+              and abs(float(u.mean()) - 0.5) < 5 / math.sqrt(12 * n))
+        return ok, (f"samples: normal z mean {float(z.mean()):.4f} std "
+                    f"{float(z.std()):.4f}, uniform mean "
+                    f"{float(u.mean()):.4f} in [0, 1): {ok}")
+    return check
+
+
+def det_sampled_check(feeds, ct):
+    """Loss, Probabilities and the Logits gradient against the
+    reference's formula in numpy on the card's own Samples (q in float32
+    as the reference computes it, the rest float64), normwise within
+    ``DET_TOL_SUM``; accidental hits carry probability 0; the negatives'
+    counts over log bins pass a chi-square test against the log-uniform
+    law at ``DET_RANDOM_LEVEL``."""
+    from scipy import stats
+
+    def check(card, cpu):
+        smp, prob, loss, grad = (t.cpu() for t in card)
+        logits = feeds["lg"]
+        label = feeds["lb"][:, 0]
+        c = logits.shape[1]
+        s32 = smp.float()
+        q = (torch.log((s32 + 2.0) / (s32 + 1.0)) / np.float32(
+            math.log(c + 1.0))).double()
+        picked = torch.gather(logits.double(), 1, smp) - torch.log(q)
+        hits = smp[:, 1:] == label[:, None]
+        picked[:, 1:] += torch.where(hits, -1e20, 0.0).double()
+        lse = torch.logsumexp(picked, 1, keepdim=True)
+        want_p = torch.exp(picked - lse)
+        want_l = lse - picked[:, :1]
+        d = want_p.clone()
+        d[:, 0] -= 1.0
+        d = d * ct.double()
+        keys = (torch.arange(smp.shape[0])[:, None] * c + smp).reshape(-1)
+        uniq, inv = torch.unique(keys, return_inverse=True)
+        want_g = torch.zeros(len(uniq), dtype=torch.float64) \
+            .index_add_(0, inv, d.reshape(-1))
+        flat = grad.reshape(-1)
+        errs = {"loss": mi_err(loss.double(), want_l),
+                "prob": mi_err(prob.double(), want_p),
+                "grad": mi_err(flat[uniq].double(), want_g)}
+        stray = int((flat != 0).sum()) - int((flat[uniq] != 0).sum())
+        neg = smp[:, 1:].reshape(-1).double()
+        edges = torch.tensor([0.0] + [2.0 ** k for k in range(20)
+                                      if 2 ** k < c] + [c])
+        counts = torch.histogram(neg, bins=edges.double()).hist
+        cdf = torch.log(edges.double() + 1) / math.log(c + 1)
+        pvalue = float(stats.chisquare(
+            counts.numpy(), (cdf[1:] - cdf[:-1]).numpy() * neg.numel())
+            .pvalue)
+        ok = (all(e <= DET_TOL_SUM for e in errs.values()) and stray == 0
+              and bool((prob[:, 1:][hits] == 0).all())
+              and pvalue > DET_RANDOM_LEVEL)
+        return ok, (f"formula on its samples normwise "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f" (tol {DET_TOL_SUM:g}), {int(hits.sum())} "
+                    f"accidental hits masked, {stray} gradient entries "
+                    f"off the samples; chi-square p {pvalue:.3g} (level "
+                    f"{DET_RANDOM_LEVEL:g})")
+    return check
+
+
+def det_cases(seed):
+    """Every case of the phase (``det_case``), in the table's order."""
+    g = torch.Generator().manual_seed(seed + 18)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    cases = []
+    add = cases.append
+    # -- SSD300: the priors, matching and coding
+    ops, boxes, variances = [], [], []
+    feeds = {"img": torch.zeros(SSD_BATCH, 3, SSD_IMAGE, SSD_IMAGE)}
+    for name, ch, size, mn, mx, ars, step in SSD_MAPS:
+        feeds[name] = torch.zeros(SSD_BATCH, ch, size, size)
+        ops.append(("prior_box", {"Input": [name], "Image": ["img"]},
+                    {"Boxes": [f"{name}_b"], "Variances": [f"{name}_v"]},
+                    {"min_sizes": [mn], "max_sizes": [mx],
+                     "aspect_ratios": list(ars), "flip": True,
+                     "clip": False, "step_w": step, "step_h": step,
+                     "offset": 0.5}))
+        for src, dst in ((f"{name}_b", boxes), (f"{name}_v", variances)):
+            ops.append(("reshape2", {"X": [src]},
+                        {"Out": [src + "_r"], "XShape": [src + "_s"]},
+                        {"shape": [-1, 4]}))
+            dst.append(src + "_r")
+    ops += [("concat", {"X": boxes}, {"Out": ["priors"]}, {"axis": 0}),
+            ("concat", {"X": variances}, {"Out": ["pvar"]}, {"axis": 0}),
+            ("iou_similarity", {"X": ["gt"], "Y": ["priors"]},
+             {"Out": ["iou"]}, {}),
+            ("box_coder", {"PriorBox": ["priors"], "PriorBoxVar": ["pvar"],
+                           "TargetBox": ["gt"]}, {"OutputBox": ["enc"]},
+             {"code_type": "encode_center_size"}),
+            ("box_coder", {"PriorBox": ["priors"], "PriorBoxVar": ["pvar"],
+                           "TargetBox": ["loc"]}, {"OutputBox": ["dec"]},
+             {"code_type": "decode_center_size"})]
+    feeds["gt"] = det_grid_boxes(g, SSD_GT, 0.05, 0.6, 512, 1.0)
+    feeds["loc"] = rn(SSD_BATCH, SSD_PRIORS, 4, scale=0.5)
+    add(det_case(
+        "ssd300_priors", ops, feeds, ["priors", "pvar", "iou", "enc", "dec"],
+        of=["enc", "dec"], wrt=["gt", "loc"], tol=DET_TOL_ELEM,
+        width=f"6 maps 38..1 on a 300 image -> {SSD_PRIORS} priors; "
+              f"{SSD_GT} ground-truth boxes; loc [{SSD_BATCH}, "
+              f"{SSD_PRIORS}, 4]",
+        source="SSD300 VGG16, VOC (Liu et al. 2016; Caffe "
+               "deploy.prototxt); batch 8 assumed"))
+    # -- SSD300's NMS, then its detections through a host callback and
+    # the VOC metric
+    bb, sc, gt = det_ssd_data(g)
+    add(det_case(
+        "ssd300_nms", [("multiclass_nms", {"BBoxes": ["b"], "Scores": ["s"]},
+                        {"Out": ["o"]}, SSD_NMS)],
+        {"b": bb, "s": sc}, ["o"], tol=DET_TOL_EXACT,
+        width=f"BBoxes [{SSD_BATCH}, {SSD_PRIORS}, 4], Scores "
+              f"[{SSD_BATCH}, {SSD_CLASSES}, {SSD_PRIORS}]; score 0.01, "
+              f"nms_top_k 400, nms 0.45, keep 200",
+        source="SSD300 VGG16, VOC (Liu et al. 2016); batch 8 assumed",
+        rule="exact: boxes on a 1/512 grid, distinct dyadic candidate "
+             "scores; IoUs from IEEE-rounded operations only",
+        check=det_map_check(gt)))
+    add(det_case(
+        "py_func_host", [], {"b": bb, "s": sc}, [], tol=DET_TOL_EXACT,
+        width=f"ssd300_nms's Out [{SSD_BATCH}, 200, 6] -> counts "
+              f"[{SSD_BATCH}, {SSD_CLASSES}]",
+        source="the reference's host escape hatch on SSD300's detections",
+        rule="exact", build=det_py_func_build, check=det_py_func_check))
+    # -- YOLOv3-608: the head decode and the NMS
+    ops, feeds = [], {"sz": torch.full((YOLO_BATCH, 2), YOLO_IMAGE,
+                                       dtype=torch.int32)}
+    edge = math.log(YOLO_CONF / (1 - YOLO_CONF))
+    for i, (size, down, anchors) in enumerate(YOLO_HEADS):
+        x = rn(YOLO_BATCH, 3, 5 + YOLO_CLASSES, size, size, scale=2.0)
+        obj = x[:, :, 4] - 3.0
+        near = (obj - edge).abs() < 0.01
+        x[:, :, 4] = torch.where(near, obj + 0.02 * torch.sign(
+            obj - edge + 1e-9), obj)
+        feeds[f"x{i}"] = x.reshape(YOLO_BATCH, 3 * (5 + YOLO_CLASSES),
+                                   size, size)
+        ops.append(("yolo_box", {"X": [f"x{i}"], "ImgSize": ["sz"]},
+                    {"Boxes": [f"b{i}"], "Scores": [f"s{i}"]},
+                    {"anchors": list(anchors), "class_num": YOLO_CLASSES,
+                     "conf_thresh": YOLO_CONF, "downsample_ratio": down}))
+    add(det_case(
+        "yolov3_box", ops, feeds, [f"{k}{i}" for i in range(3)
+                                   for k in "bs"], tol=DET_TOL_ELEM,
+        width=f"X [{YOLO_BATCH}, 255, 19|38|76, same] at 608, 80 classes, "
+              f"conf 0.005 -> {YOLO_BOXES} boxes",
+        source="YOLOv3-608, COCO (Redmon & Farhadi 2018; PaddleCV "
+               "yolov3/config.py); batch 8 assumed",
+        rule="normwise; the objectness logits kept 0.01 from "
+             "logit(0.005), so no 1-ulp sigmoid flips conf >= 0.005"))
+    bb, sc = det_yolo_nms_data(g)
+    add(det_case(
+        "yolov3_nms", [("multiclass_nms", {"BBoxes": ["b"], "Scores": ["s"]},
+                        {"Out": ["o"]}, YOLO_NMS)],
+        {"b": bb, "s": sc}, ["o"], tol=DET_TOL_EXACT,
+        width=f"BBoxes [{YOLO_BATCH}, {YOLO_BOXES}, 4], Scores "
+              f"[{YOLO_BATCH}, {YOLO_CLASSES}, {YOLO_BOXES}]; score "
+              f"0.005, nms_top_k 400, nms 0.45, keep 100, pixels",
+        source="YOLOv3-608, COCO (Redmon & Farhadi 2018); batch 8 assumed",
+        rule="exact: integer pixels, distinct dyadic candidate scores, "
+             "suppression chains of 16"))
+    # -- Faster R-CNN FPN: anchors, proposals, collect and distribute
+    ops, feeds = [], {"im": torch.tensor([[*FPN_IMAGE, 1.0]])}
+    n_anchor = sum(3 * h * w for _, h, w, _, _ in FPN_LEVELS)
+    ranks = dyadic_ranks(g, n_anchor, 0, 19).float()
+    at = 0
+    for lvl, h, w, stride, size in FPN_LEVELS:
+        feeds[f"p{lvl}"] = torch.zeros(1, 256, h, w)
+        feeds[f"sc{lvl}"] = ranks[at:at + 3 * h * w].reshape(1, 3, h, w)
+        at += 3 * h * w
+        d = torch.zeros(1, 3, 4, h, w)
+        d[:, :, :2] = torch.round(rn(1, 3, 2, h, w, scale=0.1) * 16) / 16
+        feeds[f"d{lvl}"] = d.reshape(1, 12, h, w)
+        ops += [("anchor_generator", {"Input": [f"p{lvl}"]},
+                 {"Anchors": [f"a{lvl}"], "Variances": [f"v{lvl}"]},
+                 {"anchor_sizes": [size], "aspect_ratios": [0.5, 1.0, 2.0],
+                  "variances": [1.0, 1.0, 1.0, 1.0],
+                  "stride": [stride, stride], "offset": 0.5}),
+                ("generate_proposals",
+                 {"Scores": [f"sc{lvl}"], "BboxDeltas": [f"d{lvl}"],
+                  "ImInfo": ["im"], "Anchors": [f"a{lvl}"],
+                  "Variances": [f"v{lvl}"]},
+                 {"RpnRois": [f"r{lvl}"], "RpnRoiProbs": [f"q{lvl}"],
+                  "RpnRoisNum": [f"n{lvl}"]},
+                 {"pre_nms_topN": 1000, "post_nms_topN": 1000,
+                  "nms_thresh": 0.7, "min_size": 0.0, "eta": 1.0}),
+                ("reshape2", {"X": [f"r{lvl}"]},
+                 {"Out": [f"rr{lvl}"], "XShape": [f"rs{lvl}"]},
+                 {"shape": [-1, 4]}),
+                ("reshape2", {"X": [f"q{lvl}"]},
+                 {"Out": [f"qq{lvl}"], "XShape": [f"qs{lvl}"]},
+                 {"shape": [-1, 1]})]
+    levels = [lvl for lvl, *_ in FPN_LEVELS]
+    ops += [("collect_fpn_proposals",
+             {"MultiLevelRois": [f"rr{k}" for k in levels],
+              "MultiLevelScores": [f"qq{k}" for k in levels]},
+             {"FpnRois": ["fr"], "RoisNum": ["fn"]}, {"post_nms_topN": 1000}),
+            ("distribute_fpn_proposals",
+             {"FpnRois": ["fr"], "RoisNum": ["fn"]},
+             {"MultiFpnRois": [f"m{k}" for k in range(2, 6)],
+              "MultiLevelRoIsNum": [f"k{k}" for k in range(2, 6)],
+              "RestoreIndex": ["ri"]},
+             {"min_level": 2, "max_level": 5, "refer_level": 4,
+              "refer_scale": 224})]
+    add(det_case(
+        "frcnn_fpn_rpn", ops, feeds,
+        [f"{k}{lvl}" for lvl in levels for k in "rqn"] + ["fr", "fn", "ri"]
+        + [f"m{k}" for k in range(2, 6)] + [f"k{k}" for k in range(2, 6)],
+        tol=DET_TOL_EXACT,
+        width="800x1344, P2-P6 200x336..13x21, anchors 32..512 x "
+              "{0.5, 1, 2}, pre/post NMS 1000 a level, nms 0.7, collect "
+              "1000, levels 2-5 (refer 4 / 224)",
+        source="Faster R-CNN R-50-FPN (Lin et al. 2017; Detectron "
+               "e2e_faster_rcnn_R-50-FPN_1x, test); batch 1",
+        rule="exact: dw = dh = 0 (exp(0) = 1 on both), dx, dy on a 1/16 "
+             "grid, variances 1, distinct dyadic scores, so every box, "
+             "IoU and area comes from IEEE-rounded operations; log2 of "
+             "the routing reads areas on a 1/256 grid, none within 2 ulp "
+             "of a level boundary without being on it"))
+    # -- Faster R-CNN FPN training heads: RoI align, box decoding, clip
+    rois = torch.cat([det_rois(g, FPN_ROIS, 16, 800, *FPN_IMAGE)
+                      for _ in range(2)])
+    n_rois = 2 * FPN_ROIS
+    add(det_case(
+        "frcnn_fpn_roi", [
+            ("roi_align", {"X": ["x"], "ROIs": ["r"], "RoisBatchIdx": ["bi"]},
+             {"Out": ["o"]}, {"spatial_scale": 0.25, "pooled_height": 7,
+                              "pooled_width": 7, "sampling_ratio": 2}),
+            ("box_coder", {"PriorBox": ["r"], "PriorBoxVar": ["pv"],
+                           "TargetBox": ["d"]}, {"OutputBox": ["dec"]},
+             {"code_type": "decode_center_size", "box_normalized": False,
+              "axis": 1}),
+            ("box_clip", {"Input": ["dec"], "ImInfo": ["im"]},
+             {"Output": ["clip"]}, {})],
+        {"x": rn(2, 256, 200, 336), "r": rois,
+         "bi": torch.arange(2, dtype=torch.int32).repeat_interleave(
+             FPN_ROIS),
+         "pv": torch.tensor([[0.1, 0.1, 0.2, 0.2]]).expand(n_rois, 4)
+         .clone(),
+         "d": rn(n_rois, 81, 4, scale=0.5),
+         "im": torch.tensor([[*FPN_IMAGE, 1.0]])},
+        ["o", "clip"], of=["o", "clip"], wrt=["x", "d"], tol=DET_TOL_SUM,
+        width=f"X [2, 256, 200, 336] (P2), {n_rois} RoIs, 7x7, sampling "
+              f"2, scale 1/4; deltas [{n_rois}, 81, 4]",
+        source="Faster R-CNN R-50-FPN (Lin et al. 2017), training widths: "
+               "2 images x 512 RoIs"))
+    # -- Fast R-CNN's RoI max pooling: integer data, tied maxima
+    add(det_case(
+        "fast_rcnn_roi_pool", [
+            ("roi_pool", {"X": ["x"], "ROIs": ["r"], "RoisBatchIdx": ["bi"]},
+             {"Out": ["o"]}, {"spatial_scale": 1 / 16, "pooled_height": 7,
+                              "pooled_width": 7})],
+        {"x": torch.randint(-2, 3, (2, 512, 38, 50), generator=g).float(),
+         "r": torch.cat([det_rois(g, 128, 20, 600, 600, 800)
+                         for _ in range(2)]),
+         "bi": torch.arange(2, dtype=torch.int32).repeat_interleave(128)},
+        ["o"], of=["o"], wrt=["x"], tol=DET_TOL_EXACT, exact=True,
+        grad_tol=DET_TOL_ELEM,
+        width="X [2, 512, 38, 50] (600x800, stride 16), 256 RoIs, 7x7",
+        source="Fast R-CNN VGG16 (Girshick 2015): 2 images x 128 RoIs",
+        rule="Out exact on integer-valued features (tied maxima "
+             "common); X's gradient, integer cotangents split 1/ties, "
+             "normwise: the CPU sums the shares in no fixed order"))
+    # -- R-FCN: position-sensitive pooling, plain and deformable
+    rf_rois = det_rois(g, 300, 32, 600, 608, 1008)
+    add(det_case(
+        "rfcn_psroi", [
+            ("psroi_pool", {"X": ["cls"], "ROIs": ["r"]}, {"Out": ["oc"]},
+             {"output_channels": 81, "spatial_scale": 1 / 16,
+              "pooled_height": 7, "pooled_width": 7}),
+            ("psroi_pool", {"X": ["box"], "ROIs": ["r"]}, {"Out": ["ob"]},
+             {"output_channels": 4, "spatial_scale": 1 / 16,
+              "pooled_height": 7, "pooled_width": 7})],
+        {"cls": rn(1, 3969, 38, 63), "box": rn(1, 196, 38, 63),
+         "r": rf_rois}, ["oc", "ob"], tol=DET_TOL_SUM,
+        width="[1, 3969, 38, 63] -> 81 ch and [1, 196, 38, 63] -> 4 ch, "
+              "7x7, 300 RoIs, scale 1/16",
+        source="R-FCN ResNet-101, COCO (Dai et al. 2016)"))
+    add(det_case(
+        "deformable_rfcn", [
+            ("deformable_psroi_pooling",
+             {"Input": ["x"], "ROIs": ["r"], "Trans": ["t"]},
+             {"Output": ["o"], "TopCount": ["c"]},
+             {"no_trans": False, "spatial_scale": 1 / 16, "output_dim": 81,
+              "group_size": [7, 7], "pooled_height": 7, "pooled_width": 7,
+              "part_size": [7, 7], "sample_per_part": 4,
+              "trans_std": 0.1})],
+        {"x": rn(1, 3969, 38, 63), "r": rf_rois,
+         "t": rn(300, 2, 7, 7, scale=0.5)},
+        ["o", "c"], of=["o"], wrt=["x", "t"], tol=DET_TOL_SUM,
+        width="Input [1, 3969, 38, 63], 300 RoIs, Trans [300, 2, 7, 7], "
+              "81 x 7x7, part 7x7, 4 samples a part, trans_std 0.1",
+        source="Deformable R-FCN (Dai et al. 2017)"))
+    # -- DCNv2 at ResNet-50's res4 under Faster R-CNN
+    add(det_case(
+        "dcnv2_res4", [
+            ("deformable_conv", {"Input": ["x"], "Offset": ["off"],
+                                 "Mask": ["m"], "Filter": ["w"]},
+             {"Output": ["y"]}, {"strides": [1, 1], "paddings": [1, 1],
+                                 "dilations": [1, 1], "groups": 1,
+                                 "deformable_groups": 1})],
+        {"x": rn(2, 256, 50, 84), "off": rn(2, 18, 50, 84, scale=2.0),
+         "m": torch.rand((2, 9, 50, 84), generator=g),
+         "w": rn(256, 256, 3, 3, scale=1 / 48)},
+        ["y"], of=["y"], wrt=["x", "off", "m", "w"], tol=DET_TOL_SUM,
+        width="Input [2, 256, 50, 84], Offset [2, 18, ...], Mask "
+              "[2, 9, ...], Filter [256, 256, 3, 3], stride 1, pad 1",
+        source="DCNv2 R-50 res4 under Faster R-CNN at 800x1344 (Zhu et "
+               "al. 2019); 2 images"))
+    # -- IoU-Net's precise RoI pooling on FPN's P2
+    add(det_case(
+        "iounet_prroi", [
+            ("prroi_pool", {"X": ["x"], "ROIs": ["r"],
+                            "BatchRoINums": ["n"]}, {"Out": ["o"]},
+             {"spatial_scale": 0.25, "pooled_height": 7, "pooled_width": 7,
+              "sample_num": 4})],
+        {"x": rn(2, 256, 200, 336), "r": rois,
+         "n": torch.tensor([FPN_ROIS, FPN_ROIS], dtype=torch.int32)},
+        ["o"], of=["o"], wrt=["x"], tol=DET_TOL_SUM,
+        width=f"X [2, 256, 200, 336], {n_rois} RoIs (BatchRoINums "
+              f"[{FPN_ROIS}, {FPN_ROIS}]), 7x7, scale 1/4, 4x4 samples a bin",
+        source="IoU-Net (Jiang et al. 2018) on FPN P2"))
+    # -- sampled softmax at LM1B's vocabulary: its own samples
+    lab = torch.clamp((torch.exp(torch.rand((LM1B_ROWS, 1), generator=g)
+                                 * math.log(LM1B_VOCAB + 1.0)) - 1).long(),
+                      0, LM1B_VOCAB - 1)
+    ct = rn(LM1B_ROWS, 1)
+    lm_feeds = {"lg": rn(LM1B_ROWS, LM1B_VOCAB, scale=2.0), "lb": lab,
+                "ct_loss": ct}
+    add(det_case(
+        "lm1b_sampled_softmax", [
+            ("sampled_softmax_with_cross_entropy",
+             {"Logits": ["lg"], "Label": ["lb"]},
+             {"Samples": ["smp"], "Probabilities": ["prob"],
+              "Loss": ["loss"]},
+             {"num_samples": LM1B_SAMPLES, "seed": seed + 5,
+              "remove_accidental_hits": True})],
+        lm_feeds, ["smp", "prob", "loss"], of=["loss"], wrt=["lg"],
+        width=f"Logits [{LM1B_ROWS}, {LM1B_VOCAB}], {LM1B_SAMPLES} "
+              f"samples, accidental hits removed",
+        source="LM1B (Jozefowicz et al. 2016); 256 rows assumed",
+        card_only=("smp", "prob", "loss", "grad"),
+        rule="its own samples: the formula, a chi-square test, a repeat",
+        check=det_sampled_check(lm_feeds, ct)))
+    # -- distributions
+    lo = rn(DIST_BATCH, DIST_LATENT)
+    dist_feeds = {
+        "loc": rn(DIST_BATCH, DIST_LATENT),
+        "scale": torch.rand((DIST_BATCH, DIST_LATENT), generator=g) + 0.5,
+        "loc2": rn(DIST_BATCH, DIST_LATENT),
+        "scale2": torch.rand((DIST_BATCH, DIST_LATENT), generator=g) + 0.5,
+        "value": lo + torch.rand((DIST_BATCH, DIST_LATENT), generator=g)
+        * 2.0,
+        "lo": lo, "hi": lo + 2.0,
+        "logits": rn(DIST_ROWS, DIST_VOCAB, scale=2.0),
+        "logits2": rn(DIST_ROWS, DIST_VOCAB),
+        "ids": torch.randint(0, DIST_VOCAB, (DIST_ROWS, 1), generator=g)}
+    add(det_case(
+        "distributions", [], dist_feeds, [], tol=DET_TOL_SUM,
+        width=f"Normal and Uniform [{DIST_BATCH}, {DIST_LATENT}], "
+              f"Categorical [{DIST_ROWS}, {DIST_VOCAB}]",
+        source="the VAE (Kingma & Welling 2014, batch 100, latent 200); "
+               "the Transformer's vocabulary",
+        card_only=("normal_sample", "uniform_sample"),
+        rule="normwise; samples by moments and support",
+        build=det_dist_build, check=det_dist_check(dist_feeds)))
+    return cases
+
+
+def det_run_case(case, gen, card):
+    """misc_image's run of one case, every op under ``count_syncs``; the
+    card's first run and the CPU's outputs are handed to the case's
+    check. Returns (result, failure or None)."""
+    t0 = time.perf_counter()
+    if case["build"] is not None:
+        main, fetch, cts = case["build"](case)
+    else:
+        main, fetch, cts = mi_build(case)
+    feeds = dict(case["feeds"])
+    for n, s in cts.items():
+        if n not in feeds:
+            feeds[n] = torch.randint(-2, 3, s, generator=gen).float() \
+                if case["exact"] else torch.randn(s, generator=gen)
+    names = list(fetch)
+    if case["card_only"] and case["build"] is None:
+        names[len(case["fetch"]):] = ["grad"] * (len(fetch)
+                                                 - len(case["fetch"]))
+    elif case["build"] is det_dist_build:
+        names[-2:] = ["normal_sample", "uniform_sample"]
+    dev_feed = {n: t.cuda() for n, t in feeds.items()}
+    exe, scope = fluid.Executor(), fluid.Scope()
+
+    def run():
+        out = exe.run(main, feed=dev_feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    first = run()
+    peak = torch.cuda.max_memory_allocated() - held
+    # a run's syncs, counted on the second (the first pays one-time set-up)
+    with count_syncs() as syncs:
+        again = run()
+    ev_ms = mi_event_ms(run)
+    t1 = time.perf_counter()
+    held_cpu = [n for n in names if n not in case["card_only"]]
+    cpu = None
+    if held_cpu:
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feeds, fetch_list=fetch, scope=fluid.Scope(),
+            return_numpy=False)
+    wall = (t1 - t0, time.perf_counter() - t1)
+    errs = {n: det_err(a, c) for n, a, c in zip(names, first, cpu or first)
+            if n not in case["card_only"]}
+    repeat = all(torch.equal(a, b) for a, b in zip(first, again))
+    ok, note = case["check"](first, cpu) if case["check"] else (True, "")
+    worst = max(errs.values()) if errs else 0.0
+    ops = sorted({o.type for o in main.global_block.ops
+                  if o.type in DET_TYPES})
+    unexpected = {t: n for t, n in syncs.items() if t not in DET_SYNC_OPS}
+    log(f"[detection] {case['name']} ({'+'.join(ops)}) {case['width']}: "
+        f"{ev_ms:.3f} ms by CUDA events, the host's gaps included "
+        f"({'fwd+bwd' if case['wrt'] else 'fwd'}, mean of "
+        f"{MI_TIMED_RUNS}), peak {peak / 2**30:.3f} GiB above held; "
+        + (f"card vs CPU normwise {worst:.3e} (tol {case['tol']:g}"
+           + (f"; {case['rule']}" if case["rule"] else "") + "); "
+           if errs else f"{case['rule']}; ")
+        + (f"{note}; " if note else "")
+        + f"repeat {'bit-identical' if repeat else 'DIFFERS'}; host syncs "
+        f"{dict(syncs) or 'none'}"
+        + (f" (NOT BY DESIGN: {unexpected})" if unexpected else "")
+        + f"; wall {wall[0]:.2f} s card, {wall[1]:.2f} s CPU; {card}")
+    n_fwd = len(case["fetch"])
+    bad = {n: e for i, (n, e) in enumerate(errs.items())
+           if not e <= (case["tol"] if i < n_fwd else case["grad_tol"])}
+    failure = None
+    if bad or not repeat or not ok:
+        failure = (f"{case['name']}: card against CPU {bad}, repeat "
+                   f"identical {repeat}, check {ok} ({note})")
+    return dict(ops=ops, width=case["width"], source=case["source"],
+                rule=case["rule"], event_ms=ev_ms, peak_bytes=peak,
+                errs=errs, tol=case["tol"], check=note,
+                repeat_identical=repeat, syncs=dict(syncs),
+                unexpected_syncs=unexpected,
+                wall_s=dict(card=wall[0], cpu=wall[1]),
+                grads=len(fetch) - len(case["fetch"])), failure
+
+
+def phase_detection(seed, card):
+    """Every case of the detection phase on the card (``det_cases``); the
+    cases run to the end and the phase then fails on any that failed.
+    None of the port's kernels runs on this path."""
+    from paddle_tpu_torch.ops import detection as det_ops
+
+    K.reset_launch_counts()
+    gen = torch.Generator().manual_seed(seed + 181)
+    cases = det_cases(seed)
+    res, failures = {}, []
+    syncs0 = det_ops.nms_sync_count()
+    while cases:
+        case = cases.pop(0)
+        res[case["name"]], failure = det_run_case(case, gen, card)
+        if failure:
+            failures.append(failure)
+        del case
+        torch.cuda.empty_cache()
+    launches = K.launch_counts()
+    covered = {t for c in res.values() for t in c["ops"]}
+    syncs = collections.Counter()
+    for c in res.values():
+        syncs.update(c["syncs"])
+    log(f"[detection] {len(res)} cases, {len(covered)} op types of "
+        f"{len(DET_TYPES)}; host syncs by op type {dict(syncs)} (the NMS and "
+        f"roi_pool rules counted {det_ops.nms_sync_count() - syncs0} reads "
+        f"on the card and the CPU); port kernel launches {launches}")
+    if covered != DET_TYPES:
+        failures.append(f"covers {len(covered)} op types, want "
+                        f"{len(DET_TYPES)}: missing "
+                        f"{sorted(DET_TYPES - covered)}")
+    if any(launches.values()):
+        failures.append(f"launched a port kernel: {launches}")
+    if failures:
+        raise SystemExit("chip_smoke: detection: " + "; ".join(failures))
+    return dict(cases=res, op_types=sorted(covered), syncs=dict(syncs),
+                launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
+
+
 # ---------------------------------------------------------------- main
 # the phases that need no other phase's result, which --phases can run
 ALONE = ("kernels", "train", "train_amp", "train_remat", "train_guard",
          "train_lamb", "infer", "train_resnet", "infer_resnet", "tune",
-         "seq2seq", "gru_encdec", "misc_image")
+         "seq2seq", "gru_encdec", "misc_image", "detection")
 
 
 def run_alone(names, seed, card, out_dir):
@@ -5705,7 +6583,8 @@ def run_alone(names, seed, card, out_dir):
     for name in names:
         fn = globals()["phase_" + name]
         with timed(name):
-            res[name] = fn(seed, card) if name == "misc_image" else fn(seed)
+            res[name] = fn(seed, card) if name in ("misc_image", "detection") \
+                else fn(seed)
         torch.cuda.empty_cache()
     log("[seconds] " + ", ".join(f"{k} {v:.2f}" for k, v in TIMES.items()))
     if out_dir:
@@ -5789,6 +6668,9 @@ def main():
     torch.cuda.empty_cache()
     with timed("misc_image"):
         mi = phase_misc_image(args.seed, card)
+    torch.cuda.empty_cache()
+    with timed("detection"):
+        det = phase_detection(args.seed, card)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -5799,8 +6681,8 @@ def main():
     # forward (K1, K5), seq2seq training and beam-search decoding and the
     # GRU encoder-decoder on variable-length batches (none), DeepFM
     # training with sparse tables (none) and its fused inference (K5),
-    # and the misc and image op groups at their models' widths (none),
-    # each counted from 0 over its own run
+    # and the misc and image op groups and the detection ops at their
+    # models' widths (none), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -5815,7 +6697,7 @@ def main():
                 "tune": tuned["launches"], "seq2seq": s2s["launches"],
                 "gru_encdec": ge["launches"], "deepfm": fm["launches"],
                 "deepfm_infer": fm_infer["launches"],
-                "misc_image": mi["launches"]}
+                "misc_image": mi["launches"], "detection": det["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -5835,7 +6717,7 @@ def main():
               "infer": inferred, "train_resnet": trained_resnet,
               "infer_resnet": inferred_resnet, "tune": tuned,
               "seq2seq": s2s, "gru_encdec": ge, "deepfm": fm,
-              "deepfm_infer": fm_infer, "misc_image": mi,
+              "deepfm_infer": fm_infer, "misc_image": mi, "detection": det,
               "launches": launches}
     line = []
     for name, rows in kres.items():

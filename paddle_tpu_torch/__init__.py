@@ -41,14 +41,18 @@ gradients of ``is_sparse`` tables (``core.selected_rows``: the sparse
 branches of the lookup grad, the math, clip and update ops) with
 ``models.deepfm.build_deepfm``, and the ``nn`` ops ``conv2d_transpose``,
 ``group_norm``, ``instance_norm``, ``l2_normalize``, ``prelu`` and the
-two interpolations.
+two interpolations, and the misc and image op groups, and the detection
+ops (``layers.detection``: priors, anchors, box coding, ``yolo_box``,
+``multiclass_nms``, RoI align and pooling, the RPN/FPN proposal ops)
+with the deformable and position-sensitive RoI ops, sampled softmax and
+``py_func``, ``layers.distributions`` and ``metrics``.
 ``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """
 from . import ops  # noqa: F401  (registers the op rules)
 from . import (analysis, clip, contrib, initializer, io,  # noqa: F401
-               layers, monitor, optimizer, regularizer, resilience, serving,
-               trace, tuning, unique_name)
+               layers, metrics, monitor, optimizer, regularizer, resilience,
+               serving, trace, tuning, unique_name)
 from .backward import append_backward, calc_gradient, gradients
 from .data_feeder import DataFeeder
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,

@@ -12,8 +12,14 @@ over the misc and image groups (``ops/misc.py``, ``ops/image.py``): the
 specialty losses, the CTR layers (``hash``, ``data_norm``,
 ``continuous_value_model``, ``unique``), ``spectral_norm`` and the
 composites ``fsp_matrix``, ``image_resize_short`` and
-``adaptive_pool3d``. ``filter_by_instag`` is refused, as in the JAX
-package."""
+``adaptive_pool3d``, and the RoI and deformable layers over
+``ops/detection.py`` and ``ops/misc2.py`` (``roi_pool``, ``roi_align``,
+``deformable_conv``, ``deformable_roi_pooling``, ``psroi_pool``,
+``prroi_pool``) with ``sampled_softmax_with_cross_entropy`` and
+``py_func``. ``filter_by_instag`` is refused, as in the JAX package, and
+so are ``deformable_roi_pooling(position_sensitive=False)``,
+``sampled_softmax_with_cross_entropy(use_customized_samples=True)`` and
+``py_func(backward_func=...)``."""
 from __future__ import annotations
 
 import math
@@ -44,7 +50,9 @@ __all__ = ["fused_decode_attention", "kv_cache_append", "sequence_gather",
            "bilinear_tensor_product", "multiplex", "im2sequence",
            "row_conv", "data_norm", "spectral_norm", "image_resize_short",
            "fsp_matrix", "continuous_value_model", "resize_trilinear",
-           "filter_by_instag"]
+           "filter_by_instag", "roi_pool", "roi_align", "deformable_conv",
+           "deformable_roi_pooling", "psroi_pool", "prroi_pool",
+           "sampled_softmax_with_cross_entropy", "py_func"]
 
 
 def _outs(op_type, inputs, outs, attrs=None, name=None):
@@ -854,3 +862,165 @@ def filter_by_instag(ins, ins_tag, filter_tag, is_lod=True):
         "filter_by_instag selects variable-size row subsets at runtime — "
         "dynamic shapes XLA cannot compile. Filter in the data pipeline "
         "(reader decorators) or mask rows with sequence_mask instead.")
+
+
+# -- RoI and deformable layers, sampled softmax, the host callback ----------
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0, rois_batch_idx=None, name=None):
+    return _outs("roi_pool",
+                 {"X": input, "ROIs": rois, "RoisBatchIdx": rois_batch_idx},
+                 {"Out": None, "Argmax": "int64"},
+                 {"pooled_height": pooled_height,
+                  "pooled_width": pooled_width,
+                  "spatial_scale": spatial_scale}, name=name)[0]
+
+
+def roi_align(input, rois, pooled_height=1, pooled_width=1,
+              spatial_scale=1.0, sampling_ratio=-1, rois_batch_idx=None,
+              name=None):
+    return _one("roi_align",
+                {"X": input, "ROIs": rois, "RoisBatchIdx": rois_batch_idx},
+                {"pooled_height": pooled_height,
+                 "pooled_width": pooled_width,
+                 "spatial_scale": spatial_scale,
+                 "sampling_ratio": sampling_ratio}, name=name)
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size, stride=1,
+                    padding=0, dilation=1, groups=1, deformable_groups=1,
+                    im2col_step=64, param_attr=None, bias_attr=None,
+                    modulated=True, name=None):
+    """Deformable convolution, v2 with ``mask`` when ``modulated``, v1
+    otherwise; the filter starts from N(0, sqrt(2 / fan_in))."""
+    helper = LayerHelper("deformable_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+
+    def pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    k = pair(filter_size)
+    num_channels = input.shape[1]
+    std = (2.0 / (k[0] * k[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr,
+        shape=[num_filters, num_channels // groups] + k,
+        dtype=input.dtype, default_initializer=Normal(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"Input": input, "Offset": offset, "Filter": w}
+    if modulated and mask is not None:
+        ins["Mask"] = mask
+    helper.append_op("deformable_conv", inputs=ins,
+                     outputs={"Output": pre_bias},
+                     attrs={"strides": pair(stride),
+                            "paddings": pair(padding),
+                            "dilations": pair(dilation), "groups": groups,
+                            "deformable_groups": deformable_groups,
+                            "im2col_step": im2col_step})
+    return helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+
+
+def deformable_roi_pooling(input, rois, trans, no_trans=False,
+                           spatial_scale=1.0, group_size=(1, 1),
+                           pooled_height=1, pooled_width=1,
+                           part_size=None, sample_per_part=1, trans_std=0.1,
+                           position_sensitive=True, rois_batch_idx=None,
+                           name=None):
+    helper = LayerHelper("deformable_psroi_pooling", name=name)
+    if not position_sensitive:
+        raise NotImplementedError(
+            "deformable_roi_pooling(position_sensitive=False): use "
+            "roi_align + trans offsets; the PS path is the deformable "
+            "detectors' configuration")
+    gs = list(group_size)
+    out_dim = input.shape[1] // (gs[0] * gs[1])
+    ps = list(part_size) if part_size is not None \
+        else [pooled_height, pooled_width]
+    o = helper.create_variable_for_type_inference(input.dtype)
+    cnt = helper.create_variable_for_type_inference(input.dtype,
+                                                    stop_gradient=True)
+    ins = {"Input": input, "ROIs": rois, "Trans": trans}
+    if rois_batch_idx is not None:
+        ins["RoisBatchIdx"] = rois_batch_idx
+    helper.append_op("deformable_psroi_pooling", inputs=ins,
+                     outputs={"Output": o, "TopCount": cnt},
+                     attrs={"no_trans": no_trans,
+                            "spatial_scale": spatial_scale,
+                            "output_dim": int(out_dim), "group_size": gs,
+                            "pooled_height": pooled_height,
+                            "pooled_width": pooled_width, "part_size": ps,
+                            "sample_per_part": sample_per_part,
+                            "trans_std": trans_std})
+    return o
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale, pooled_height,
+               pooled_width, rois_batch_idx=None, name=None):
+    """``rois_batch_idx``: int tensor [R] of each RoI's image; required
+    when the batch is over 1."""
+    return _one("psroi_pool", {"X": input, "ROIs": rois,
+                               "RoisBatchIdx": rois_batch_idx},
+                {"output_channels": output_channels,
+                 "spatial_scale": spatial_scale,
+                 "pooled_height": pooled_height,
+                 "pooled_width": pooled_width}, name=name)
+
+
+def prroi_pool(input, rois, output_channels=None, spatial_scale=1.0,
+               pooled_height=1, pooled_width=1, batch_roi_nums=None,
+               rois_batch_idx=None, name=None):
+    """``batch_roi_nums``: int tensor [B] of RoI counts per image (RoIs
+    past their sum go to the last image); ``rois_batch_idx``: int tensor
+    [R] of each RoI's image. One of the two is required when the batch is
+    over 1, and both are refused."""
+    if batch_roi_nums is not None and rois_batch_idx is not None:
+        raise ValueError(
+            "prroi_pool: pass either batch_roi_nums or rois_batch_idx, "
+            "not both — with conflicting values the op would silently "
+            "follow rois_batch_idx")
+    return _one("prroi_pool", {"X": input, "ROIs": rois,
+                               "BatchRoINums": batch_roi_nums,
+                               "RoisBatchIdx": rois_batch_idx},
+                {"spatial_scale": spatial_scale,
+                 "pooled_height": pooled_height,
+                 "pooled_width": pooled_width}, name=name)
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1, remove_accidental_hits=True,
+                                       use_customized_samples=False,
+                                       customized_samples=None,
+                                       customized_probabilities=None,
+                                       seed=0):
+    if use_customized_samples:
+        raise NotImplementedError(
+            "sampled_softmax_with_cross_entropy(use_customized_samples): "
+            "host-side alias tables; use the log-uniform sampler")
+    return _outs("sampled_softmax_with_cross_entropy",
+                 {"Logits": logits, "Label": label},
+                 {"Loss": None, "Samples": "int64", "Probabilities": None},
+                 {"num_samples": num_samples, "seed": seed,
+                  "remove_accidental_hits": remove_accidental_hits})[0]
+
+
+def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None):
+    """A host Python callback inside the program (``ops/misc2.py``
+    ``py_func``). The ``out`` vars give the results' shapes and dtypes
+    (concrete shapes); ``backward_func`` is refused, the callback being
+    opaque to the gradient."""
+    from ..ops.misc2 import register_py_func
+
+    if backward_func is not None:
+        raise NotImplementedError(
+            "py_func(backward_func=...): the host callback is opaque to "
+            "the gradient; compute the backward inside the program instead")
+    helper = LayerHelper("py_func")
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    fid = register_py_func(func)
+    helper.append_op(
+        "py_func", inputs={"X": xs}, outputs={"Out": outs},
+        attrs={"func_id": fid,
+               "out_shapes": [[int(d) for d in v.shape] for v in outs],
+               "out_dtypes": [str(v.dtype) for v in outs]})
+    return out

@@ -1,5 +1,6 @@
 """Op rules of the PyTorch port; importing this package registers them."""
-from . import (amp_ops, control_flow, fused_attention,  # noqa: F401
+from . import (amp_ops, control_flow, detection,  # noqa: F401
+               fused_attention,
                fused_gemm, generation, image, loss, math, misc, misc2, nn,
                optimizer_ops, recompute, rnn_ops, sequence_ops, structured,
                tensor)

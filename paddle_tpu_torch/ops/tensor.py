@@ -302,10 +302,12 @@ def _fill_zeros_like(ctx, ins, attrs):
 @register_op("assign_value", outputs=["Out"],
              attrs={"shape": [], "dtype": "float32", "values": []}, grad=None)
 def _assign_value(ctx, ins, attrs):
-    """A host constant: ``values`` (flat) reshaped to ``shape``."""
+    """A host constant: ``values`` (flat) reshaped to ``shape``, copied to
+    the device without making the host wait (from pageable memory the
+    copy is staged before it returns)."""
     vals = np.asarray(attrs["values"], dtype=np_dtype(attrs["dtype"]))
     return out(torch.as_tensor(vals.reshape(attrs["shape"])).to(
-        ctx.device))
+        ctx.device, non_blocking=True))
 
 
 @register_op("shape", inputs=["Input"], outputs=["Out"], grad=None)

@@ -793,15 +793,12 @@ def test_bf16_convolutions_run_bf16_cudnn_kernels():
     """A bf16 conv2d, its generic grad's rerun and backward: every
     convolution kernel the profiler sees is a bf16 one by name
     (``chip_smoke.CONV_MARKS``/``BF16_CONV_MARKS``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from chip_smoke import conv_class
+    from chip_smoke import conv_class, profile_window
 
     _cuda()
     op_type, ins, attrs, slot = _conv_cases()["conv2d"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile_window() as prof:
         _rule_and_grads(op_type, ins, attrs, slot, "cuda", torch.bfloat16)
-        torch.cuda.synchronize()
     classes = {e.key: conv_class(e.key) for e in prof.key_averages()
                if e.device_type.name == "CUDA"}
     convs = {k: c for k, c in classes.items() if c}
@@ -2197,3 +2194,194 @@ def test_random_crop_and_sampling_id_on_the_card():
                     {"seed": 9})["Out"][0] for _ in range(2)]
     assert torch.equal(draws[0], draws[1])
     assert set(draws[0].cpu().tolist()) <= {3, 17, 40}
+
+
+# ------------------------------------------------------------ detection
+def _det_rule(op_type, ins, attrs, dev, uid=3):
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    opdef = registry.get_op_def(op_type)
+    attrs = dict({k: a.default for k, a in opdef.attrs.items()}, **attrs)
+    ins = {k: [v.to(dev) for v in vs] for k, vs in ins.items()}
+    return opdef.lower(LowerCtx(dev, seed=1, uid=uid), ins, attrs)
+
+
+@contextlib.contextmanager
+def _syncs_counted():
+    """Host syncs on the card in the block, counted from
+    ``set_sync_debug_mode("warn")``'s warnings (a copy of an input to the
+    card is one: make them before)."""
+    import warnings
+    torch.cuda.synchronize()
+    seen = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    seen.append(sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught))
+
+
+def _yolo_image(seed=0, boxes=22743, classes=80):
+    """One YOLOv3-608 image's BBoxes and Scores on exact data: integer
+    pixels, chains of 16 boxes each overlapping the next, distinct dyadic
+    scores, 0.4% of the class scores above 0.005."""
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.randint(0, 450, (boxes, 2), generator=g)
+    wh = torch.randint(8, 150, (boxes, 2), generator=g)
+    b = torch.cat([xy, (xy + wh).clamp(max=607)], 1).float()
+    for c in range(30):                         # 30 chains of 16
+        x0, y0 = 20 * c % 400, 13 * c % 450
+        t = torch.arange(16)
+        b[c * 16:(c + 1) * 16] = torch.stack(
+            [x0 + 12 * t, torch.full_like(t, y0), x0 + 40 + 12 * t,
+             torch.full_like(t, y0 + 40)], 1).float()
+    k = torch.randperm((1 << 23) - 41945, generator=g)[:boxes * classes] \
+        + 41945
+    s = torch.randint(0, 41944, (classes, boxes), generator=g).double()
+    live = torch.rand((classes, boxes), generator=g) < 0.004
+    live[:, :480] = True
+    s[live] = k[:int(live.sum())].double()
+    return b[None], (s / (1 << 23)).float()[None]
+
+
+@pytest.mark.cuda
+def test_nms_on_exact_data_equals_the_cpu_at_yolov3_width():
+    """multiclass_nms over one YOLOv3-608 image (22743 boxes, 80
+    classes) on the card equals the CPU's bit for bit, and its host
+    syncs are exactly the design's: the candidate count and the
+    fixed-point checks (``nms_sync_count``)."""
+    _cuda()
+    from paddle_tpu_torch.ops import detection as D
+
+    b, s = _yolo_image()
+    attrs = {"background_label": -1, "score_threshold": 0.005,
+             "nms_top_k": 400, "nms_threshold": 0.45, "keep_top_k": 100,
+             "normalized": False}
+    cpu = _det_rule("multiclass_nms", {"BBoxes": [b], "Scores": [s]},
+                    attrs, "cpu")["Out"][0]
+    b, s = b.cuda(), s.cuda()
+    n0 = D.nms_sync_count()
+    with _syncs_counted() as seen:
+        card = _det_rule("multiclass_nms", {"BBoxes": [b], "Scores": [s]},
+                         attrs, "cuda")["Out"][0]
+    assert seen[0] == D.nms_sync_count() - n0 >= 2
+    assert torch.equal(card.cpu(), cpu)
+    assert int((cpu[0, :, 0] >= 0).sum()) == 100
+
+
+@pytest.mark.cuda
+def test_proposals_sync_only_for_the_fixed_point_checks():
+    _cuda()
+    from paddle_tpu_torch.ops import detection as D
+
+    g = torch.Generator().manual_seed(1)
+    h, w = 50, 84
+    an = _det_rule("anchor_generator",
+                   {"Input": [torch.zeros(1, 8, h, w)]},
+                   {"anchor_sizes": [128.0], "stride": [16.0, 16.0],
+                    "variances": [1.0] * 4}, "cpu")
+    ins = {"Scores": [torch.randperm(3 * h * w, generator=g)
+                      .float().reshape(1, 3, h, w) / 16384],
+           "BboxDeltas": [torch.round(torch.randn(1, 12, h, w, generator=g)
+                                      * 2) / 16 * torch.tensor(
+               [1.0, 1, 0, 0] * 3)[None, :, None, None]],
+           "ImInfo": [torch.tensor([[800.0, 1344.0, 1.0]])],
+           "Anchors": an["Anchors"], "Variances": an["Variances"]}
+    attrs = {"pre_nms_topN": 1000, "post_nms_topN": 1000,
+             "nms_thresh": 0.7, "min_size": 0.0}
+    cpu = _det_rule("generate_proposals", ins, attrs, "cpu")
+    ins = {k: [v.cuda() for v in vs] for k, vs in ins.items()}
+    n0 = D.nms_sync_count()
+    with _syncs_counted() as seen:
+        card = _det_rule("generate_proposals", ins, attrs, "cuda")
+    assert seen[0] == D.nms_sync_count() - n0 >= 1
+    for k in cpu:
+        assert torch.equal(card[k][0].cpu(), cpu[k][0]), k
+
+
+def _det_grad_cases():
+    g = torch.Generator().manual_seed(2)
+
+    def f(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    rois = torch.tensor([[4.0, 6.0, 60.0, 50.0], [0.0, 0.0, 120.0, 90.0],
+                         [30.5, 20.25, 44.0, 80.0], [70.0, 10.0, 130.0,
+                                                     60.0]])
+    bidx = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    return {
+        "roi_align": ("roi_align", {"X": f(2, 16, 24, 34), "ROIs": rois,
+                                    "RoisBatchIdx": bidx},
+                      {"spatial_scale": 0.25, "pooled_height": 7,
+                       "pooled_width": 7, "sampling_ratio": 2}),
+        "deformable_conv": ("deformable_conv",
+                            {"Input": f(2, 16, 12, 14),
+                             "Offset": f(2, 36, 12, 14, scale=2.0),
+                             "Mask": torch.rand((2, 18, 12, 14),
+                                                generator=g),
+                             "Filter": f(16, 8, 3, 3)},
+                            {"paddings": [1, 1], "groups": 2,
+                             "deformable_groups": 2}),
+        "prroi_pool": ("prroi_pool", {"X": f(2, 16, 24, 34), "ROIs": rois,
+                                      "BatchRoINums": torch.tensor(
+                                          [2, 2], dtype=torch.int32)},
+                       {"spatial_scale": 0.25, "pooled_height": 7,
+                        "pooled_width": 7}),
+        "deformable_psroi_pooling": (
+            "deformable_psroi_pooling",
+            {"Input": f(2, 4 * 49, 24, 34), "ROIs": rois,
+             "Trans": f(4, 2, 7, 7, scale=0.5), "RoisBatchIdx": bidx},
+            {"spatial_scale": 0.25, "output_dim": 4, "group_size": [7, 7],
+             "pooled_height": 7, "pooled_width": 7, "part_size": [7, 7],
+             "sample_per_part": 4, "trans_std": 0.1}),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_det_grad_cases()))
+def test_gradients_through_gathers_repeat_bit_for_bit(case):
+    """The gathers' gradients accumulate through ``index_put_`` in a fixed
+    order on the card: two runs are bit-identical, and both are within
+    rtol 1e-4, atol 1e-5 of the CPU's."""
+    _cuda()
+    op_type, arrays, attrs = _det_grad_cases()[case]
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        ins = {k: [v.to(dev)] for k, v in arrays.items()}
+        prims = [v[0].requires_grad_() for k, v in ins.items()
+                 if v[0].is_floating_point() and k not in ("ROIs",)]
+        with torch.enable_grad():
+            res = _det_rule(op_type, ins, attrs, dev)
+            y = next(iter(res.values()))[0]
+            ct = torch.randn(y.shape, generator=torch.Generator()
+                             .manual_seed(4)).to(dev)
+            grads = torch.autograd.grad([y], prims, [ct])
+        runs.append([y.detach().cpu()] + [gr.cpu() for gr in grads])
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_py_func_round_trips_through_the_host_with_one_sync_an_input():
+    _cuda()
+    import numpy as np
+    from paddle_tpu_torch.ops.misc2 import register_py_func
+
+    fid = register_py_func(lambda a, b: (a * 2 + b, np.array(
+        [a.shape[0]], np.int64)))
+    a = torch.randn(5, 3, device="cuda")
+    b = torch.randn(5, 3, device="cuda")
+    with _syncs_counted() as seen:
+        res = _det_rule("py_func", {"X": [a, b]},
+                        {"func_id": fid, "out_shapes": [[5, 3], [1]],
+                         "out_dtypes": ["float32", "int64"]}, "cuda")
+    assert seen[0] == 2
+    out, n = res["Out"]
+    assert out.is_cuda and n.is_cuda and n.dtype == torch.int64
+    assert torch.equal(out, a * 2 + b) and n.tolist() == [5]

@@ -593,14 +593,6 @@ def test_bilstm_crf_trains_as_jax():
 # ------------------------------------------------------------- registry
 # op types of the JAX package the port does not register yet
 STILL_TO_PORT = {
-    # ops/detection.py
-    "anchor_generator", "box_clip", "box_coder", "collect_fpn_proposals",
-    "distribute_fpn_proposals", "generate_proposals", "iou_similarity",
-    "multiclass_nms", "prior_box", "roi_align", "roi_pool", "yolo_box",
-    # ops/misc2.py (the sequence tail and the SelectedRows utilities are
-    # ported)
-    "deformable_conv", "deformable_psroi_pooling", "prroi_pool",
-    "psroi_pool", "py_func", "sampled_softmax_with_cross_entropy",
     # ops/quant_ops.py
     "fake_quantize_dequantize_abs_max",
     "fake_quantize_dequantize_moving_average_abs_max",
@@ -624,9 +616,9 @@ def assert_registry_parity():
 
     jax_ops = builtin_ops(jreg, "paddle_tpu")
     port_ops = builtin_ops(treg, "paddle_tpu_torch")
-    assert len(STILL_TO_PORT) == 21
+    assert len(STILL_TO_PORT) == 3
     assert port_ops == jax_ops - STILL_TO_PORT
-    assert len(port_ops) == 276 and len(jax_ops) == 297
+    assert len(port_ops) == 294 and len(jax_ops) == 297
 
 
 def test_registry_is_jax_minus_the_types_still_to_port():

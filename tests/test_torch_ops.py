@@ -599,17 +599,29 @@ IMAGE_OPS = {"pixel_shuffle", "affine_channel", "shuffle_channel",
              "trilinear_interp"}
 
 
+# the detection ops and the rest of misc2, each against the JAX rule in
+# tests/test_torch_detection.py and tests/test_torch_misc2_tail.py
+DETECTION_OPS = {"prior_box", "anchor_generator", "iou_similarity",
+                 "box_coder", "box_clip", "yolo_box", "multiclass_nms",
+                 "roi_align", "roi_pool", "generate_proposals",
+                 "distribute_fpn_proposals", "collect_fpn_proposals",
+                 "deformable_conv", "deformable_psroi_pooling",
+                 "prroi_pool", "psroi_pool", "py_func",
+                 "sampled_softmax_with_cross_entropy"}
+
+
 def test_every_path_op_has_a_case():
     """Every op type of the port but the random ones (checked by
     distribution: here, in tests/test_torch_train.py and
     tests/test_torch_mlp.py), the sub-block ones, the control-flow ones,
-    the LoD ones, the nn group, the SelectedRows utilities and the misc
-    and image groups has a case."""
+    the LoD ones, the nn group, the SelectedRows utilities, the misc and
+    image groups and the detection ops has a case."""
     from paddle_tpu_torch.core import registry
     from test_torch_lod import builtin_ops
 
     others = (RANDOM_OPS | BLOCK_OPS | CONTROL_FLOW_OPS | LOD_OPS
-              | NN_GROUP_OPS | SPARSE_OPS | MISC_OPS | IMAGE_OPS)
+              | NN_GROUP_OPS | SPARSE_OPS | MISC_OPS | IMAGE_OPS
+              | DETECTION_OPS)
     assert len(CASES) == 169 and not others & set(CASES)
     assert set(CASES) | others == builtin_ops(registry, "paddle_tpu_torch")
 

@@ -19,7 +19,6 @@ MULTI = "multi-device (ROADMAP Queue A item 6)"
 DATA = "the data path (Queue A item 4)"
 FLEET = "the fleet tier (Queue A item 5)"
 ELASTIC = "resilience/elastic.py and the sharded checkpoint (items 4, 6)"
-OPS = "the rest of the op library (Queue A item 3)"
 NO_TPU = "TPU-only: the port runs on CUDAPlace/CPUPlace"
 
 # module ('' is the package) -> {name: why it waits}
@@ -37,7 +36,6 @@ STILL_MISSING = {
                      "as the port compiles no program",
         "dygraph": "dygraph (item 4)",
         "inference": "inference/ over torch.export (item 4)",
-        "metrics": "metrics.py (item 4)",
         "profiler": "profiler.py over torch.profiler (item 4)",
     },
     "analysis": {
@@ -70,11 +68,7 @@ STILL_MISSING = {
     },
     "layer_helper": {"init_mod": "an import alias of the initializer "
                                  "module, not an API"},
-    "layers": {n: OPS for n in (
-        "deformable_conv", "deformable_roi_pooling", "detection",
-        "distributions", "prroi_pool", "psroi_pool", "py_func",
-        "roi_align", "roi_pool", "sampled_softmax_with_cross_entropy")}
-    | {"PipelineRegion": MULTI, "pipeline": MULTI},
+    "layers": {"PipelineRegion": MULTI, "pipeline": MULTI},
     "lowering": {"np_dtype": "the JAX side's dtype helper; the port's is "
                              "core.types.np_dtype"},
     "monitor": {
@@ -83,8 +77,7 @@ STILL_MISSING = {
         "telemetry_enabled": FLEET,
         "observe_comms_cost": MULTI,
     },
-    "ops": {"detection": OPS,
-            "quant_ops": "the quant ops go with contrib/slim (item 4)",
+    "ops": {"quant_ops": "the quant ops go with contrib/slim (item 4)",
             "pipeline_op": MULTI},
     "resilience": {n: ELASTIC for n in (
         "DataCursor", "DeviceLostError", "ELASTIC_CODES",
@@ -193,7 +186,7 @@ def test_the_list_holds_no_name_already_ported(missing):
         assert set(names) <= missing.get(mod, set()), \
             (mod, sorted(set(names) - missing.get(mod, set())))
         assert all(names.values())
-    assert sum(len(v) for v in STILL_MISSING.values()) == 85
+    assert sum(len(v) for v in STILL_MISSING.values()) == 73
 
 
 @pytest.mark.parametrize("mod", sorted(ITEM_2))

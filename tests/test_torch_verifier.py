@@ -711,4 +711,4 @@ def test_registry_audit_over_the_port():
 
     lacking = sorted(builtin_ops(jreg, "paddle_tpu")
                      - builtin_ops(treg, "paddle_tpu_torch"))
-    assert lacking and "psroi_pool" in lacking
+    assert lacking and "pipeline" in lacking
