@@ -4,8 +4,8 @@
 
 ``--phases`` runs only the named phases that need no other phase's
 result (``ALONE``: kernels, the training and inference phases, tune,
-seq2seq, gru_encdec, misc_image, detection) after ``device``, and prints
-no ``ok`` line. Without it, every phase runs:
+seq2seq, gru_encdec, misc_image, detection, data_path) after ``device``,
+and prints no ``ok`` line. Without it, every phase runs:
 
 Phases, in order; any failure exits non-zero (no phase is caught):
 
@@ -348,7 +348,48 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    ``DetectionMAP`` equal over the card's and the CPU's detections. The
    cases all run and the phase then fails on any that failed. No port
    kernel launches. Prints one ``[detection]`` line a case.
-23. prints the script time of each phase and part (``[seconds]``), the
+23. data_path — the data path (``reader``, ``DataLoader``, ``dataset``,
+   the native MultiSlot feed, ``incubate.data_generator``, ``profiler``,
+   ``contrib.Trainer``/``Inferencer``) in three legs, weights and data
+   from ``--seed``, no width cut. (a) trainer_resnet: ResNet-50
+   ``amp=True`` (``models.resnet.resnet_forward``, class_dim 102 at
+   224x224: PaddleCV image_classification's Flowers-102 setting; batch
+   ``RESNET_BATCH`` and Momentum 0.1 / 0.9 under
+   ``mixed_precision.decorate`` as train_resnet) under
+   ``contrib.Trainer`` with no place (the card), reading
+   ``batch(shuffle(cache(flowers.train() as CHW), 2048, seed), 128,
+   drop_last)`` (2048 synthetic images, synthesised once: one epoch of
+   16 steps) with
+   ``CheckpointConfig(step_interval=8, max_num_checkpoints=2)``; stopped
+   after step 8, then a fresh Trainer on the same directory resumes at
+   step 8 (the data cursor fast-forwards the reader) and ends the epoch;
+   ``save_params`` -> ``Inferencer`` (the is_test forward under
+   ``decorate_program``) on one batch equals the test clone's logits on
+   the resumed scope exactly. (b) loader_resnet: the same program, initial
+   state and reader behind ``DataLoader.from_generator(capacity=4)`` with
+   ``set_sample_list_generator(..., places=CUDAPlace(0))``, 16 steps: the
+   uninterrupted run, whose losses the Trainer's 16 equal bit for bit;
+   the first 3 batches equal ``DataFeeder.feed``'s bit for bit, every fed
+   batch moves 0 host bytes (``executor._feed_host_bytes``) and reaches
+   the step uncopied; the same step fed pre-built arrays and fed staged
+   tensors for the bound; 3 steps profiled through ``profiler`` (the
+   loader started inside a padded window): the idle share, every copy to
+   the card pinned and on a side stream, the compute kernels it overlaps,
+   the host events, ``tools/timeline.py`` on the dump with exit code 0;
+   where the reader bounds the loop, the same batches behind
+   ``xmap_readers`` + ``buffered``. (c) multislot_deepfm: the deepfm
+   phase's traffic (10 batches of 4096) written by
+   ``MultiSlotDataGenerator`` into 8 MultiSlot files, read by
+   ``DatasetFactory().create_dataset("QueueDataset")`` (``feat_ids``
+   int64 39, ``label`` float32 1, 8 threads, batch 4096) on the native
+   engine (``using_native`` required, ``native.build_error()`` printed
+   otherwise): one thread in order equal to the Python parser, 8 threads
+   the same rows; DeepFM at the deepfm phase's widths (sparse tables,
+   Adam) behind ``DataLoader.set_batch_generator`` for 10 steps, the
+   losses equal bit for bit to the same batches fed as arrays. Reports
+   img/s of each way, the reader's and DataFeeder's host ms, parse
+   rows/s and examples/s. No port kernel launches.
+24. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -364,6 +405,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -6568,11 +6610,602 @@ def phase_detection(seed, card):
                 launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
 
 
+# -------------------------------------------------------------- data_path
+# The data path on the card: readers, DataLoader, the datasets, the native
+# MultiSlot feed, data_generator, the profiler and contrib.Trainer.
+# ResNet-50 on Flowers-102 (class_dim 102 at 224x224) is PaddleCV
+# image_classification's setting; the batch (RESNET_BATCH) and the AMP
+# Momentum step (lr 0.1, mu 0.9) are the train_resnet phase's. The 2048
+# synthetic Flowers-102 training images (dataset.flowers with no file
+# cached) in one shuffle buffer of 2048 make an epoch of 16 steps
+DP_CLASSES, DP_TRAIN_IMAGES, DP_CKPT_EVERY, DP_KEEP = 102, 2048, 8, 2
+DP_SHUFFLE = DP_TRAIN_IMAGES
+DP_STEPS = DP_TRAIN_IMAGES // RESNET_BATCH
+DP_CAPACITY = 4
+# the loader's first batches held to DataFeeder's, bit for bit
+DP_FEEDER_BATCHES = 3
+DP_PROFILED_STEPS = 3
+# steps of the same program fed pre-built arrays (train_resnet's way) and
+# staged tensors already on the card (the step alone)
+DP_FEED_STEPS = 6
+# the MultiSlot files of the DeepFM leg: one a parser thread; the loop
+# again on fewer parser threads (the parsers share the host's cores with
+# the step's interpreter)
+DP_FM_THREADS = 8
+DP_FM_FEW_THREADS = (1, 2)
+
+
+class DpInterrupt(Exception):
+    """Stops the first Trainer of the trainer_resnet leg after its step-8
+    checkpoint, as a crash would."""
+
+
+class TimedReader:
+    """A batch reader that times each pull from ``reader`` and keeps the
+    first ``keep`` batches; it lends ``reader``'s resume state to the
+    Trainer's data cursor."""
+
+    def __init__(self, reader, keep=0):
+        self.reader, self.keep = reader, keep
+        self.pulls, self.kept = [], []
+
+    def __call__(self):
+        it = iter(self.reader())
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                return
+            self.pulls.append(time.perf_counter() - t0)
+            if len(self.kept) < self.keep:
+                self.kept.append(b)
+            yield b
+
+    def state_dict(self):
+        return self.reader.state_dict()
+
+    def set_state_dict(self, state):
+        self.reader.set_state_dict(state)
+
+
+def dp_chw(sample):
+    """A Flowers-102 sample (a flat image) as the CHW image the data var
+    declares."""
+    img, label = sample
+    return img.reshape(3, RESNET_HW, RESNET_HW), label
+
+
+def dp_samples():
+    """The Flowers-102 training samples as CHW images, behind
+    ``reader.cache``: synthesised on the first pass, from memory after
+    (a pass synthesises 2048 images in several host seconds)."""
+    return fluid.reader.cache(fluid.reader.map_readers(
+        dp_chw, fluid.dataset.flowers.train()))
+
+
+def dp_reader(seed, samples):
+    """Legs a and b's batch reader: the samples shuffled in one buffer of
+    DP_SHUFFLE with ``seed``, batches of RESNET_BATCH, the tail dropped."""
+    return fluid.reader.batch(
+        fluid.reader.shuffle(samples, DP_SHUFFLE, seed=seed), RESNET_BATCH,
+        drop_last=True)
+
+
+def dp_train_func():
+    from paddle_tpu_torch.models.resnet import resnet_forward
+
+    return resnet_forward(50, class_num=DP_CLASSES)["loss"]
+
+
+def dp_optimizer():
+    return mixed_precision.decorate(
+        fluid.optimizer.Momentum(learning_rate=0.1, momentum=0.9))
+
+
+def dp_infer_func():
+    from paddle_tpu_torch.models.resnet import resnet_forward
+
+    net = resnet_forward(50, class_num=DP_CLASSES, is_test=True,
+                         with_label=False)
+    mixed_precision.decorate_program(fluid.default_main_program())
+    return net["logits"]
+
+
+def dp_trainer(ckdir):
+    """A Trainer on the card (``place`` left None) over ``ckdir``."""
+    cfg = fluid.contrib.CheckpointConfig(
+        ckdir, max_num_checkpoints=DP_KEEP, step_interval=DP_CKPT_EVERY)
+    with fluid.unique_name.guard():
+        return fluid.contrib.Trainer(dp_train_func, dp_optimizer,
+                                     checkpoint_config=cfg)
+
+
+class DpEvents:
+    """Losses and end times of a Trainer's steps; with ``stop_at``, raises
+    DpInterrupt as the step after that many begins."""
+
+    def __init__(self, trainer=None, stop_at=None):
+        self.trainer, self.stop_at = trainer, stop_at
+        self.losses, self.t_end = [], []
+
+    def __call__(self, ev):
+        if isinstance(ev, fluid.contrib.EndStepEvent):
+            self.losses.append(ev.metrics[0])
+            self.t_end.append(time.perf_counter())
+        if isinstance(ev, fluid.contrib.BeginStepEvent) and \
+                self.stop_at is not None and \
+                self.trainer._step == self.stop_at:
+            raise DpInterrupt()
+
+
+def dp_img_s(t_end):
+    """img/s between the first and the last step's end."""
+    return (len(t_end) - 1) * RESNET_BATCH / (t_end[-1] - t_end[0])
+
+
+def dp_host_ms(name):
+    """Mean host ms of a ``profiler.RecordEvent`` since the last reset."""
+    from paddle_tpu_torch import profiler
+
+    calls, total = profiler._host_events.get(name, (0, 0.0))
+    return total / calls * 1e3 if calls else None
+
+
+def dp_trace(prof_dir):
+    """The profiled window's device rows from the exported Chrome trace:
+    kernels and copies with their streams; each copy to the card, the
+    compute kernels it overlaps, and whether it ran after the window's
+    first compute kernel (during an earlier step, not before the
+    first)."""
+    from paddle_tpu_torch import profiler
+
+    with open(os.path.join(prof_dir, profiler.TRACE_NAME)) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                  "gpu_memset")]
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    by_stream = collections.Counter()
+    for e in kernels:
+        by_stream[e["args"]["stream"]] += e["dur"]
+    compute = by_stream.most_common(1)[0][0]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels
+                   if e["args"]["stream"] == compute)
+    first = spans[0][0]
+    h2d = []
+    for e in dev:
+        if e["cat"] != "gpu_memcpy" or "HtoD" not in e["name"]:
+            continue
+        a, b = e["ts"], e["ts"] + e["dur"]
+        hidden = sum(max(0.0, min(b, y) - max(a, x)) for x, y in spans
+                     if x < b and y > a)
+        h2d.append(dict(name=e["name"], stream=e["args"]["stream"],
+                        bytes=e["args"].get("bytes"), us=e["dur"],
+                        overlap_us=hidden, during_steps=a >= first))
+    return dict(compute_stream=compute, kernel_streams=dict(by_stream),
+                busy_us=sum(e["dur"] for e in dev), h2d=h2d,
+                kernels=len(kernels))
+
+
+def dp_trainer_legs(seed, samples, ckdir, infer_dir):
+    """Leg a: the Trainer stopped after step 8 and a fresh Trainer on the
+    same directory resuming there; save_params -> Inferencer against the
+    test clone. Returns the leg's record and what leg b reuses."""
+    from paddle_tpu_torch import profiler
+
+    first = dp_trainer(ckdir)
+    # weights from --seed: the startup run again under the seed
+    first.startup_program.random_seed = seed
+    first.exe.run(first.startup_program, scope=first.scope)
+    init = {n: t.clone() for n, t in first.scope.vars.items()}
+    reader = TimedReader(dp_reader(seed + 5, samples),
+                         keep=DP_FEEDER_BATCHES + 1)
+    ev_a = DpEvents(first, stop_at=DP_CKPT_EVERY)
+    profiler.reset_profiler()
+    with timed("data_path.trainer"):
+        try:
+            first.train(1, ev_a, reader, ["img", "label"])
+        except DpInterrupt:
+            pass
+    feed_ms = dp_host_ms("trainer::feed")
+    serials = [s for s, _ in resilience.iter_serials(ckdir)]
+    with timed("data_path.resume"):
+        resumed = dp_trainer(ckdir)
+        resumed_at = resumed._step
+        reader_r = TimedReader(dp_reader(seed + 5, samples))
+        ev_r = DpEvents()
+        resumed.train(1, ev_r, reader_r, ["img", "label"])
+    with timed("data_path.inferencer"):
+        resumed.save_params(infer_dir)
+        with fluid.unique_name.guard():
+            inf = fluid.contrib.Inferencer(dp_infer_func, infer_dir)
+        feed = fluid.DataFeeder(feed_list=["img", "label"],
+                                program=resumed.main_program).feed(
+            reader.kept[0])
+        got = inf.infer({"img": feed["img"]})
+        # the Inferencer's logits var has the training program's name
+        test = resumed.main_program.clone(for_test=True)
+        (want,) = resumed.exe.run(test, feed=feed,
+                                  fetch_list=[inf.predict_var.name],
+                                  scope=resumed.scope)
+    return dict(
+        first=first, init=init, reader=reader, losses_a=ev_a.losses,
+        losses_r=ev_r.losses, resumed_at=resumed_at,
+        steps_after=resumed._step, serials=serials,
+        img_s_a=dp_img_s(ev_a.t_end), img_s_r=dp_img_s(ev_r.t_end),
+        fill_s=reader.pulls[0], read_ms=1e3 * float(np.mean(
+            reader.pulls[1:])), feed_ms=feed_ms,
+        infer_equal=bool(np.array_equal(got, want)),
+        infer_shape=list(np.shape(got)),
+        infer_max_abs=float(np.max(np.abs(np.asarray(got, np.float64)
+                                          - np.asarray(want, np.float64)))))
+
+
+def dp_loader_steps(loader, main, exe, scope, loss, keep=0):
+    """One pass of ``loader`` through the step: losses, step end times,
+    the host bytes each batch would copy, and the first ``keep``
+    batches."""
+    from paddle_tpu_torch.executor import _feed_host_bytes
+
+    losses, t_end, host_bytes, kept, skipped = [], [], [], [], []
+    for b in loader:
+        host_bytes.append(sum(_feed_host_bytes(v) for v in b.values()))
+        fed = exe._feed_tensors(main, b)
+        skipped.append(all(fed[n] is b[n] for n in b))
+        losses.append(float(np.ravel(exe.run(
+            main, feed=b, fetch_list=[loss], scope=scope)[0])[0]))
+        t_end.append(time.perf_counter())
+        if len(kept) < keep:
+            kept.append(b)
+    return dict(losses=losses, t_end=t_end, host_bytes=host_bytes,
+                kept=kept, no_copy=all(skipped))
+
+
+def dp_loader_leg(seed, samples, a, prof_dir):
+    """Leg b: the same program and reader behind
+    DataLoader.from_generator(capacity=4), from the same initial state."""
+    from paddle_tpu_torch import profiler
+
+    main = a["first"].main_program
+    loss = a["first"].loss.name
+    feeds = [main.global_block.var("img"), main.global_block.var("label")]
+    exe = fluid.Executor()
+
+    def loader_over(reader):
+        ld = fluid.DataLoader.from_generator(feed_list=feeds,
+                                             capacity=DP_CAPACITY)
+        ld.set_sample_list_generator(reader, places=fluid.CUDAPlace(0))
+        return ld
+
+    profiler.reset_profiler()
+    reader = TimedReader(dp_reader(seed + 5, samples))
+    with timed("data_path.loader"):
+        run = dp_loader_steps(loader_over(reader), main, exe,
+                              s2s_scratch_scope(a["init"]), loss,
+                              keep=DP_FEEDER_BATCHES)
+    # the worker's pulls after the first (which fills the shuffle buffer)
+    read_ms = 1e3 * float(np.mean(reader.pulls[1:]))
+    stage_ms = dp_host_ms("dataloader::stage")
+    feeder = fluid.DataFeeder(feed_list=feeds, program=main)
+    feeder_equal = []
+    for b, samples in zip(run["kept"], a["reader"].kept):
+        want = feeder.feed(samples)
+        feeder_equal.append(all(
+            b[n].cpu().numpy().dtype == want[n].dtype
+            and np.array_equal(b[n].cpu().numpy(), want[n]) for n in want))
+    # the same program fed pre-built arrays (a pageable copy a step, as
+    # the train_resnet phase feeds) and the staged tensors themselves
+    timing = {}
+    for way, feed in (("arrays", feeder.feed(a["reader"].kept[0])),
+                      ("staged", run["kept"][0])):
+        scope = s2s_scratch_scope(a["init"])
+        t_end = []
+        for _ in range(DP_FEED_STEPS):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            t_end.append(time.perf_counter())
+        timing[way] = dp_img_s(t_end)
+        del scope
+    # three profiled steps through the port's profiler, the loader
+    # started inside the window (padded by idle card on both sides)
+    scope = s2s_scratch_scope(a["init"])
+    kept = a["reader"].kept[:DP_PROFILED_STEPS]
+    ploader = loader_over(lambda: iter(kept))
+    profiler.reset_profiler()
+    profiler.start_profiler("All", profile_path=prof_dir)
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_PAD_S)
+    t0 = time.perf_counter()
+    for b in ploader:
+        with profiler.RecordEvent("data_path::step"):
+            exe.run(main, feed=b, fetch_list=[loss], scope=scope)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_PAD_S)
+    report = profiler.stop_profiler(profile_path=prof_dir)
+    trace_rows = dp_trace(prof_dir)
+    tl = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "timeline.py"),
+         "--profile_path", prof_dir, "--timeline_path",
+         os.path.join(prof_dir, "timeline.json")],
+        capture_output=True, text=True, timeout=120)
+    img_s = dp_img_s(run["t_end"])
+    step_ms = RESNET_BATCH / timing["staged"] * 1e3
+    bound_by = "reader" if read_ms + stage_ms > step_ms else "step"
+    res = dict(losses=run["losses"], img_s=img_s, arrays_img_s=
+               timing["arrays"], staged_img_s=timing["staged"],
+               host_bytes=run["host_bytes"], no_copy=run["no_copy"],
+               feeder_equal=feeder_equal, read_ms=read_ms,
+               fill_s=reader.pulls[0],
+               stage_ms=stage_ms, step_ms=step_ms, bound_by=bound_by,
+               profile=dict(wall_ms=wall * 1e3,
+                            busy_ms=trace_rows["busy_us"] / 1e3,
+                            idle_share=1.0 - trace_rows["busy_us"] / 1e3
+                            / (wall * 1e3), **trace_rows),
+               host_events=report["events"], timeline_rc=tl.returncode,
+               timeline_err=tl.stderr[-500:])
+    if bound_by == "reader":
+        # a user's parallel reader: the samples mapped on 4 threads in
+        # order behind a buffer, the same batches
+        xmap = fluid.reader.buffered(fluid.reader.xmap_readers(
+            dp_chw, fluid.dataset.flowers.train(), 4, 512, order=True),
+            512)
+        xrun = dp_loader_steps(loader_over(dp_reader(seed + 5, xmap)),
+                               main, exe, s2s_scratch_scope(a["init"]),
+                               loss)
+        res.update(xmap_img_s=dp_img_s(xrun["t_end"]),
+                   xmap_losses_equal=xrun["losses"] == run["losses"])
+    return res
+
+
+class DpFmGenerator(fluid.incubate.data_generator.MultiSlotDataGenerator):
+    """The deepfm phase's traffic as MultiSlot lines: feat_ids (39 ids)
+    and the label."""
+
+    def __init__(self, ids, labels):
+        super().__init__()
+        self.ids, self.labels = ids, labels
+
+    def generate_sample(self, line):
+        def it():
+            for ids, y in zip(self.ids.tolist(), self.labels.tolist()):
+                yield [("feat_ids", ids), ("label", [int(y)])]
+        return it
+
+
+def dp_fm_dataset(files, threads):
+    ds = fluid.DatasetFactory().create_dataset("QueueDataset")
+    ds.set_use_var([("feat_ids", "int64", FM_FIELDS), ("label", "float32",
+                                                      1)])
+    ds.set_filelist(files)
+    ds.set_thread(threads)
+    ds.set_batch_size(FM_BATCH)
+    return ds
+
+
+def dp_rows(batches):
+    """Every row of ``batches`` (feat_ids and the label's bits), sorted."""
+    key = np.concatenate([np.concatenate(
+        [b["feat_ids"], b["label"].view(np.int32).astype(np.int64)], 1)
+        for b in batches])
+    return key[np.lexsort(key.T[::-1])]
+
+
+def dp_multislot_leg(seed, fm_dir):
+    """Leg c: DeepFM at the deepfm phase's widths fed from MultiSlot files
+    through the native engine behind DataLoader.set_batch_generator."""
+    from paddle_tpu_torch import native
+
+    feeds = fm_feeds(seed + 31, FM_STEPS)
+    ids = np.concatenate([f["feat_ids"] for f in feeds])
+    labels = np.concatenate([f["label"] for f in feeds]).ravel()
+    files = []
+    t0 = time.perf_counter()
+    for k, (i_k, y_k) in enumerate(zip(
+            np.array_split(ids, DP_FM_THREADS),
+            np.array_split(labels, DP_FM_THREADS))):
+        path = os.path.join(fm_dir, f"part-{k:05d}")
+        with open(path, "w") as fh, contextlib.redirect_stdout(fh):
+            DpFmGenerator(i_k, y_k).run_from_memory()
+        files.append(path)
+    write_s = time.perf_counter() - t0
+    ds = dp_fm_dataset(files, DP_FM_THREADS)
+    if not ds.using_native:
+        raise SystemExit(f"chip_smoke: data_path: the native MultiSlot "
+                         f"engine did not build: {native.build_error()}")
+    t0 = time.perf_counter()
+    threaded = list(ds.iter_batches())
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ordered = list(dp_fm_dataset(files, 1).iter_batches())
+    native_1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = list(dp_fm_dataset(files, 1)._iter_python())
+    python_s = time.perf_counter() - t0
+    in_order = len(ordered) == len(python) and all(
+        a[n].dtype == b[n].dtype and np.array_equal(a[n], b[n])
+        for a, b in zip(ordered, python) for n in b)
+    source = dp_rows([{"feat_ids": ids, "label": labels[:, None]
+                       .astype(np.float32)}])
+    same_rows = np.array_equal(dp_rows(threaded), dp_rows(python)) and \
+        np.array_equal(dp_rows(python), source)
+
+    net = fm_build()
+    net["startup"].random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    init = dict(scope0.vars)
+    del scope0
+    main = net["main"]
+    loader = fluid.DataLoader.from_generator(
+        feed_list=[main.global_block.var("feat_ids"),
+                   main.global_block.var("label")], capacity=DP_CAPACITY)
+    loader.set_batch_generator(dp_fm_dataset(files, DP_FM_THREADS)
+                               .iter_batches, places=fluid.CUDAPlace(0))
+    with timed("data_path.multislot"):
+        run = dp_loader_steps(loader, main, fluid.Executor(),
+                              s2s_scratch_scope(init), net["loss"].name,
+                              keep=FM_STEPS)
+    fed = [{n: t.cpu().numpy() for n, t in b.items()} for b in run["kept"]]
+    few = {}
+    for threads in DP_FM_FEW_THREADS:
+        ld = fluid.DataLoader.from_generator(
+            feed_list=[main.global_block.var("feat_ids"),
+                       main.global_block.var("label")],
+            capacity=DP_CAPACITY)
+        ld.set_batch_generator(dp_fm_dataset(files, threads).iter_batches,
+                               places=fluid.CUDAPlace(0))
+        r = dp_loader_steps(ld, main, fluid.Executor(),
+                            s2s_scratch_scope(init), net["loss"].name)
+        few[threads] = FM_BATCH * (len(r["t_end"]) - 1) / (
+            r["t_end"][-1] - r["t_end"][0])
+    launches = K.launch_counts()
+    ref = s2s_train(net, init, fed, len(fed))
+    _add_launches(launches, ref["launches"])
+    return dict(
+        rows=int(len(ids)), files=len(files), write_s=write_s,
+        using_native=ds.using_native, native_rows_s=len(ids) / native_s,
+        native_1_rows_s=len(ids) / native_1_s,
+        python_rows_s=len(ids) / python_s, native_in_order=in_order,
+        same_rows=bool(same_rows), steps=len(run["losses"]),
+        losses=run["losses"], array_losses=ref["losses"].tolist(),
+        losses_equal=bool(np.array_equal(np.array(run["losses"]),
+                                         ref["losses"])),
+        host_bytes=run["host_bytes"], no_copy=run["no_copy"],
+        examples_s=FM_BATCH * (len(run["t_end"]) - 1)
+        / (run["t_end"][-1] - run["t_end"][0]),
+        array_examples_s=FM_BATCH / ref["step_s"],
+        few_threads_examples_s=few, launches=launches)
+
+
+def phase_data_path(seed):
+    """The data path on the card: trainer_resnet, loader_resnet and
+    multislot_deepfm (see the module docstring)."""
+    K.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_path_")
+    try:
+        ckdir, infer_dir, prof_dir, fm_dir = (os.path.join(tmp, d) for d in (
+            "ckpt", "params", "profile", "multislot"))
+        os.makedirs(fm_dir)
+        samples = dp_samples()
+        a = dp_trainer_legs(seed, samples, ckdir, infer_dir)
+        b = dp_loader_leg(seed, samples, a, prof_dir)
+        launches = K.launch_counts()
+        with timed("data_path.multislot_all"):
+            c = dp_multislot_leg(seed, fm_dir)
+        _add_launches(launches, c.pop("launches"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    full = np.array(b["losses"])
+    a_losses = np.array(a["losses_a"] + a["losses_r"])
+    n_a = len(a["losses_a"])
+    copies = b["profile"]["h2d"]
+    side = [c_ for c_ in copies
+            if c_["stream"] != b["profile"]["compute_stream"]]
+    log(f"[data_path] trainer_resnet: ResNet-50 amp=True on Flowers-102 "
+        f"(class_dim {DP_CLASSES}, {RESNET_HW}x{RESNET_HW}, batch "
+        f"{RESNET_BATCH}, one epoch of {DP_STEPS} steps from a shuffle "
+        f"buffer of {DP_SHUFFLE}), contrib.Trainer on the card, checkpoints "
+        f"every {DP_CKPT_EVERY} steps (serials {a['serials']}); stopped "
+        f"after step {n_a}, resumed at step {a['resumed_at']} to step "
+        f"{a['steps_after']}")
+    log(f"  losses {' '.join(f'{x:.5f}' for x in a_losses)}; the Trainer "
+        f"{a['img_s_a']:.1f} img/s (steps 2-{n_a}), resumed "
+        f"{a['img_s_r']:.1f}; reader {a['read_ms']:.2f} host ms a step "
+        f"(the first pull synthesises the 2048 images into reader.cache "
+        f"and fills the shuffle buffer: {a['fill_s']:.2f} s), "
+        f"DataFeeder.feed {a['feed_ms']:.2f} ms a step")
+    log(f"  resumed steps {n_a + 1}-{DP_STEPS} against the uninterrupted "
+        f"loader run: bit-identical "
+        f"{np.array_equal(a_losses[n_a:], full[n_a:])}; the first "
+        f"{n_a} too {np.array_equal(a_losses[:n_a], full[:n_a])}; "
+        f"Inferencer.infer {a['infer_shape']} equal to the test clone "
+        f"{a['infer_equal']} (max abs {a['infer_max_abs']:.3g})")
+    log(f"[data_path] loader_resnet: DataLoader(capacity {DP_CAPACITY}) "
+        f"{b['img_s']:.1f} img/s (steps 2-{DP_STEPS}); the same step fed "
+        f"pre-built arrays {b['arrays_img_s']:.1f}, fed staged tensors "
+        f"{b['staged_img_s']:.1f}; reader {b['read_ms']:.2f} (its first "
+        f"pull {b['fill_s']:.2f} s) + staging "
+        f"{b['stage_ms']:.2f} host ms a batch (worker) against a "
+        f"{b['step_ms']:.1f} ms step: bound by the {b['bound_by']}"
+        + (f"; behind xmap_readers + buffered {b['xmap_img_s']:.1f} img/s"
+           if "xmap_img_s" in b else ""))
+    log(f"  host bytes fed a batch {sorted(set(b['host_bytes']))}, no "
+        f"executor copy {b['no_copy']}; first {DP_FEEDER_BATCHES} batches "
+        f"equal to DataFeeder's {b['feeder_equal']}")
+    log(f"  profiled {DP_PROFILED_STEPS} steps: wall "
+        f"{b['profile']['wall_ms']:.1f} ms, device busy "
+        f"{b['profile']['busy_ms']:.1f} ms, idle share "
+        f"{b['profile']['idle_share']:.3f}; compute stream "
+        f"{b['profile']['compute_stream']}, {len(copies)} copies to the "
+        f"card ({len(side)} on a side stream, "
+        f"{sum(c_['during_steps'] for c_ in side)} issued while an earlier "
+        f"step ran, {sum(c_['overlap_us'] > 0 for c_ in side)} overlapping "
+        f"its kernels for {sum(c_['overlap_us'] for c_ in side) / 1e3:.2f} "
+        f"of {sum(c_['us'] for c_ in side) / 1e3:.2f} copy ms); "
+        f"timeline.py "
+        f"rc {b['timeline_rc']}; host events: " + ", ".join(
+            f"{r['name']} {r['calls']} x {r['avg_s'] * 1e3:.2f} ms"
+            for r in b["host_events"]))
+    log(f"[data_path] multislot_deepfm: {c['rows']} rows of the deepfm "
+        f"phase's traffic in {c['files']} MultiSlot files (written in "
+        f"{c['write_s']:.2f} s); native engine {c['using_native']}: "
+        f"{c['native_rows_s']:.0f} rows/s on {DP_FM_THREADS} threads, "
+        f"{c['native_1_rows_s']:.0f} on one, the Python parser "
+        f"{c['python_rows_s']:.0f}; one thread in order "
+        f"equal to the Python parser {c['native_in_order']}, rows equal "
+        f"{c['same_rows']}")
+    log(f"  {c['steps']} steps behind the loader: {c['examples_s']:.0f} "
+        f"examples/s against {c['array_examples_s']:.0f} fed as arrays ("
+        + ", ".join(f"{v:.0f} on {k} parser thread(s)"
+                    for k, v in c["few_threads_examples_s"].items())
+        + "); "
+        f"losses bit-identical {c['losses_equal']}; host bytes fed "
+        f"{sorted(set(c['host_bytes']))}, no executor copy {c['no_copy']}")
+    fails = []
+    if a["resumed_at"] != DP_CKPT_EVERY or a["steps_after"] != DP_STEPS \
+            or n_a != DP_CKPT_EVERY or len(full) != DP_STEPS:
+        fails.append(f"steps: stopped {n_a}, resumed at {a['resumed_at']} "
+                     f"to {a['steps_after']}, loader {len(full)}")
+    elif not np.array_equal(a_losses, full):
+        fails.append(f"the Trainer's losses {a_losses.tolist()} differ from "
+                     f"the loader's {full.tolist()}")
+    if not np.isfinite(full).all():
+        fails.append(f"losses {full.tolist()}")
+    if not a["infer_equal"]:
+        fails.append(f"Inferencer differs from the test clone by "
+                     f"{a['infer_max_abs']}")
+    if not all(b["feeder_equal"]) or any(b["host_bytes"]) or \
+            not b["no_copy"]:
+        fails.append(f"loader batches: DataFeeder equal {b['feeder_equal']}"
+                     f", host bytes {b['host_bytes']}, no copy "
+                     f"{b['no_copy']}")
+    if not side or len(side) != len(copies) or \
+            not all("Pinned" in c_["name"] for c_ in copies):
+        fails.append(f"copies to the card: {copies}")
+    if b["timeline_rc"] != 0:
+        fails.append(f"tools/timeline.py rc {b['timeline_rc']}: "
+                     f"{b['timeline_err']}")
+    if not (c["using_native"] and c["native_in_order"] and c["same_rows"]
+            and c["losses_equal"] and not any(c["host_bytes"])
+            and c["no_copy"]):
+        fails.append(f"multislot: native {c['using_native']}, in order "
+                     f"{c['native_in_order']}, rows {c['same_rows']}, losses "
+                     f"{c['losses']} against {c['array_losses']}, host "
+                     f"bytes {c['host_bytes']}")
+    if any(launches.values()):
+        fails.append(f"launched a port kernel: {launches}")
+    if fails:
+        raise SystemExit("chip_smoke: data_path: " + "; ".join(fails))
+    a = {k: v for k, v in a.items() if k not in ("first", "init", "reader")}
+    return dict(trainer_resnet=a, loader_resnet=b, multislot_deepfm=c,
+                launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
+
+
 # ---------------------------------------------------------------- main
 # the phases that need no other phase's result, which --phases can run
 ALONE = ("kernels", "train", "train_amp", "train_remat", "train_guard",
          "train_lamb", "infer", "train_resnet", "infer_resnet", "tune",
-         "seq2seq", "gru_encdec", "misc_image", "detection")
+         "seq2seq", "gru_encdec", "misc_image", "detection", "data_path")
 
 
 def run_alone(names, seed, card, out_dir):
@@ -6671,6 +7304,9 @@ def main():
     torch.cuda.empty_cache()
     with timed("detection"):
         det = phase_detection(args.seed, card)
+    torch.cuda.empty_cache()
+    with timed("data_path"):
+        dp = phase_data_path(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -6682,7 +7318,8 @@ def main():
     # GRU encoder-decoder on variable-length batches (none), DeepFM
     # training with sparse tables (none) and its fused inference (K5),
     # and the misc and image op groups and the detection ops at their
-    # models' widths (none), each counted from 0 over its own run
+    # models' widths and the data path's legs (none), each counted from 0
+    # over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -6697,7 +7334,8 @@ def main():
                 "tune": tuned["launches"], "seq2seq": s2s["launches"],
                 "gru_encdec": ge["launches"], "deepfm": fm["launches"],
                 "deepfm_infer": fm_infer["launches"],
-                "misc_image": mi["launches"], "detection": det["launches"]}
+                "misc_image": mi["launches"], "detection": det["launches"],
+                "data_path": dp["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -6718,7 +7356,7 @@ def main():
               "infer_resnet": inferred_resnet, "tune": tuned,
               "seq2seq": s2s, "gru_encdec": ge, "deepfm": fm,
               "deepfm_infer": fm_infer, "misc_image": mi, "detection": det,
-              "launches": launches}
+              "data_path": dp, "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

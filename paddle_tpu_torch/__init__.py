@@ -45,7 +45,13 @@ two interpolations, and the misc and image op groups, and the detection
 ops (``layers.detection``: priors, anchors, box coding, ``yolo_box``,
 ``multiclass_nms``, RoI align and pooling, the RPN/FPN proposal ops)
 with the deformable and position-sensitive RoI ops, sampled softmax and
-``py_func``, ``layers.distributions`` and ``metrics``.
+``py_func``, ``layers.distributions`` and ``metrics``, and the data
+path (``reader``: ``DataLoader``/``PyReader`` staging each batch on the
+card from pinned memory on a side stream, the reader decorators;
+``dataset``; ``dataset_feed`` over the native MultiSlot parser in
+``native``; ``incubate.data_generator``), ``profiler`` over
+``torch.profiler``, ``resilience.elastic`` and ``contrib.Trainer``/
+``Inferencer``.
 ``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """
@@ -53,6 +59,9 @@ from . import ops  # noqa: F401  (registers the op rules)
 from . import (analysis, clip, contrib, initializer, io,  # noqa: F401
                layers, metrics, monitor, optimizer, regularizer, resilience,
                serving, trace, tuning, unique_name)
+from . import dataset, incubate, profiler, reader  # noqa: F401
+from .dataset_feed import DatasetFactory
+from .reader import DataLoader, PyReader, batch
 from .backward import append_backward, calc_gradient, gradients
 from .data_feeder import DataFeeder
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,
@@ -88,4 +97,6 @@ __all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "Scope",
            "Variable", "in_dygraph_mode", "name_scope", "scope_guard",
            "WeightNormParamAttr", "data", "initializer", "analysis",
            "tuning", "op_registry", "learning_rate_scheduler",
-           "memory_optimize", "release_memory"]
+           "memory_optimize", "release_memory", "DataLoader", "PyReader",
+           "batch", "reader", "dataset", "dataset_feed", "DatasetFactory",
+           "profiler", "incubate"]

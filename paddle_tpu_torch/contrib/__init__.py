@@ -1,4 +1,9 @@
 """fluid.contrib of the PyTorch port (counterpart of
-``paddle_tpu/contrib``): mixed precision. The trainer, inferencer and
-slim wait for a later slice."""
+``paddle_tpu/contrib``): mixed precision, and the high-level ``Trainer``
+and ``Inferencer`` with their events and ``CheckpointConfig``. ``slim``
+waits for a later slice."""
 from . import mixed_precision  # noqa: F401
+from .trainer import (CheckpointConfig, Trainer,  # noqa: F401
+                      BeginEpochEvent, BeginStepEvent, EndEpochEvent,
+                      EndStepEvent)
+from .inferencer import Inferencer  # noqa: F401

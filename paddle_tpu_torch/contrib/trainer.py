@@ -1,0 +1,365 @@
+"""High-level Trainer / Inferencer of the PyTorch port (counterpart of
+``paddle_tpu/contrib/trainer.py``; reference
+python/paddle/contrib/trainer.py:169 Trainer with epoch/step events,
+:100 CheckpointConfig, :663 incremental save_checkpoint;
+python/paddle/contrib/inferencer.py:31 Inferencer).
+
+The event loop, checkpointing cadence and callbacks mirror the reference
+and the JAX package; execution rides the port's executor on one card.
+``place=None`` means ``CUDAPlace(0)`` (it raises without a card; pass
+``CPUPlace()`` for the CPU), where the JAX package picks the CPU.
+
+The resilience stack, as far as one card goes:
+
+* **recovery walk**: ``_load_latest`` resumes from the newest checkpoint
+  that verifies (``resilience.load_latest_checkpoint``), skipping torn
+  serials;
+* **deterministic resume**: every checkpoint carries a ``data_cursor``
+  (``resilience.elastic.DataCursor``: epoch, batch offset, the reader's
+  own state such as a seeded ``reader.shuffle``'s), and ``train()``
+  fast-forwards the reader past the committed batches, so a resumed run
+  consumes exactly the not-yet-committed batch sequence;
+* **device loss**: a step error that classifies as a lost device
+  (``elastic.classify_device_error``; the ``device_lost`` fault site
+  injects one) propagates as a typed ``DeviceLostError`` with the last
+  verified checkpoint intact. Recovery onto survivors re-forms a mesh,
+  which needs ``parallel`` and so multi-device (ROADMAP Queue A item 6):
+  ``parallel=True``, a sharded ``CheckpointConfig`` and the divergence
+  restore hook wait for it;
+* **graceful shutdown** (``resilience.graceful``): ``train()`` installs
+  SIGTERM handlers for its duration; on a preemption notice the
+  in-flight step finishes, a final verified checkpoint (data cursor
+  included) is written, and ``train()`` returns with ``.interrupted``
+  set so the process can exit 0.
+
+Each step is one trace (``trainer.step``, with ``trainer.data`` and
+``trainer.checkpoint`` under it) and marks its reader pull
+(``trainer::read``) and ``DataFeeder.feed`` (``trainer::feed``) with
+``profiler.RecordEvent``.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import shutil
+import time
+from typing import Callable, Optional
+
+import numpy as np
+
+from .. import io as io_mod
+from .. import monitor as _monitor
+from .. import resilience as _resilience
+from .. import trace as _trace
+from ..executor import CUDAPlace, Executor, Scope, scope_guard
+from ..framework import Program, program_guard
+from ..profiler import RecordEvent
+from ..resilience import elastic as _elastic
+from ..resilience import faults as _faults
+from ..resilience import graceful as _graceful
+
+__all__ = ["Trainer", "Inferencer", "CheckpointConfig",
+           "BeginEpochEvent", "EndEpochEvent", "BeginStepEvent",
+           "EndStepEvent"]
+
+logger = logging.getLogger("paddle_tpu_torch.resilience")
+
+MULTI_DEVICE = ("needs CompiledProgram and a device mesh, which wait for "
+                "multi-device (ROADMAP Queue A item 6)")
+
+_END = object()
+
+
+class BeginEpochEvent:
+    def __init__(self, epoch_id):
+        self.epoch = epoch_id
+
+
+class EndEpochEvent:
+    def __init__(self, epoch_id):
+        self.epoch = epoch_id
+
+
+class BeginStepEvent:
+    def __init__(self, epoch_id, step_id):
+        self.epoch, self.step = epoch_id, step_id
+        self.fetch_metrics = True
+
+
+class EndStepEvent:
+    def __init__(self, epoch_id, step_id, metrics):
+        self.epoch, self.step, self.metrics = epoch_id, step_id, metrics
+
+
+class CheckpointConfig:
+    """reference contrib/trainer.py:100. ``sharded=True`` (the
+    format_version-2 sharded checkpoint) is refused by the Trainer: it
+    needs multi-device."""
+
+    def __init__(self, checkpoint_dir: str, max_num_checkpoints: int = 3,
+                 epoch_interval: int = 1, step_interval: int = 10,
+                 sharded: bool = False):
+        self.checkpoint_dir = checkpoint_dir
+        self.max_num_checkpoints = max_num_checkpoints
+        self.epoch_interval = max(1, epoch_interval)
+        self.step_interval = max(1, step_interval)
+        self.sharded = bool(sharded)
+
+
+class Trainer:
+    """reference contrib/trainer.py:169: train_func returns the loss var
+    (after building the whole model under this trainer's programs)."""
+
+    def __init__(self, train_func: Callable, optimizer_func: Callable,
+                 place=None, checkpoint_config: Optional[CheckpointConfig]
+                 = None, parallel: bool = False, build_strategy=None):
+        if parallel:
+            raise NotImplementedError(f"Trainer(parallel=True) {MULTI_DEVICE}")
+        if checkpoint_config is not None and checkpoint_config.sharded:
+            raise NotImplementedError(
+                f"CheckpointConfig(sharded=True): the sharded checkpoint "
+                f"{MULTI_DEVICE}")
+        self.main_program = Program()
+        self.startup_program = Program()
+        self._ckpt = checkpoint_config
+        with program_guard(self.main_program, self.startup_program):
+            loss = train_func()
+            if isinstance(loss, (list, tuple)):
+                loss = loss[0]
+            self.loss = loss
+            optimizer_func().minimize(loss)
+        self.place = place if place is not None else CUDAPlace(0)
+        self.exe = Executor(self.place)
+        self.scope = Scope()
+        self._step = 0
+        self.interrupted = False         # graceful shutdown unwound train()
+        # data cursor: where the NEXT batch comes from (epoch, batch,
+        # reader state); checkpointed in meta so resume fast-forwards
+        self._cursor = _elastic.DataCursor()
+        self._resume_cursor: Optional[_elastic.DataCursor] = None
+        with scope_guard(self.scope):
+            self.exe.run(self.startup_program)
+        if self._ckpt:
+            self._load_latest()
+
+    # -- checkpoints -----------------------------------------------------
+    def _ckpt_path(self, serial: int) -> str:
+        return os.path.join(self._ckpt.checkpoint_dir, f"checkpoint_{serial}")
+
+    def _serials(self):
+        """Serials of ``checkpoint_<int>`` DIRECTORIES only, ascending.
+        Stray files, torn temp dirs and non-numeric entries in the
+        checkpoint dir are ignored (resilience.iter_serials)."""
+        return [s for s, _ in
+                _resilience.iter_serials(self._ckpt.checkpoint_dir)]
+
+    def _save_checkpoint(self):
+        serials = self._serials()
+        serial = (serials[-1] + 1) if serials else 0
+        with scope_guard(self.scope), \
+                _trace.span("trainer.checkpoint", serial=serial,
+                            step=self._step):
+            io_mod.save_checkpoint(self.exe, self._ckpt_path(serial),
+                                   self.main_program, scope=self.scope,
+                                   meta={"step": self._step,
+                                         "data_cursor":
+                                             self._cursor.to_dict()})
+        if _monitor.enabled():
+            _monitor.counter("trainer_checkpoints_total",
+                             "checkpoints written by contrib.Trainer").inc()
+        # rotate (reference keeps max_num_checkpoints); never the serial
+        # just written, even with max_num_checkpoints=1 or a racing writer
+        # that renumbered the listing under us. <=0 keeps full history
+        keep = int(self._ckpt.max_num_checkpoints)
+        if keep <= 0:
+            return
+        for old in self._serials()[:-keep]:
+            if old != serial:
+                shutil.rmtree(self._ckpt_path(old), ignore_errors=True)
+
+    def _load_latest(self):
+        """Resume from the newest checkpoint that passes verification,
+        walking serials newest -> oldest past torn/corrupt ones (each skip
+        counts on ``trainer_ckpt_fallback_total`` and logs its PT6xx
+        diagnostic). An empty or garbage-only checkpoint dir starts fresh
+        at step 0 instead of crashing."""
+        with scope_guard(self.scope):
+            meta, serial, _skipped = _resilience.load_latest_checkpoint(
+                self.exe, self._ckpt.checkpoint_dir,
+                main_program=self.main_program, scope=self.scope)
+        if meta is None:
+            self._step = 0
+            return None
+        self._step = int(meta.get("step", 0))
+        self._resume_cursor = _elastic.DataCursor.from_dict(
+            meta.get("data_cursor"))
+        return serial
+
+    # -- the loop --------------------------------------------------------
+    def train(self, num_epochs: int, event_handler: Callable,
+              reader: Callable, feed_order):
+        from ..data_feeder import DataFeeder
+
+        feeder = DataFeeder(feed_list=list(feed_order),
+                            program=self.main_program)
+        # SIGTERM/preemption notice -> finish the step, checkpoint, exit 0
+        # (resilience.graceful). Scoped to this call: handlers restore on
+        # exit; non-main-thread callers fall back to event polling only.
+        installed = _graceful.install_signal_handlers()
+        self.interrupted = False
+        try:
+            epoch, skip = 0, 0
+            if self._resume_cursor is not None:
+                cur, self._resume_cursor = self._resume_cursor, None
+                cur.apply_to_reader(reader)
+                epoch, skip = cur.epoch, cur.batch
+            with scope_guard(self.scope):
+                while epoch < num_epochs:
+                    if self._run_epoch(epoch, event_handler, feeder,
+                                       reader, skip):
+                        return     # graceful shutdown: checkpointed
+                    skip = 0
+                    epoch += 1
+        finally:
+            if installed:
+                _graceful.uninstall_signal_handlers()
+
+    def _run_epoch(self, epoch, event_handler, feeder, reader,
+                   skip) -> bool:
+        """One epoch; ``skip`` batches are fast-forwarded (deterministic
+        resume: those batches are already committed in the restored
+        state). Returns True when a graceful shutdown unwound the loop."""
+        event_handler(BeginEpochEvent(epoch))
+        it = iter(reader())
+        step = -1
+        while True:
+            with RecordEvent("trainer::read"):
+                batch = next(it, _END)
+            if batch is _END:
+                break
+            step += 1
+            if step < skip:
+                # resume fast-forward: the restored state already
+                # contains these batches' effect — consume-and-drop so
+                # the NEXT batch is exactly the first uncommitted one
+                if _monitor.enabled():
+                    _monitor.counter(
+                        "elastic_data_fastforward_batches_total",
+                        "batches skipped by the data-cursor "
+                        "fast-forward on resume").inc()
+                continue
+            if self._run_step(epoch, step, batch, event_handler, feeder,
+                              reader):
+                return True
+        event_handler(EndEpochEvent(epoch))
+        # next batch after a completed epoch is the next epoch's first
+        self._cursor = _elastic.DataCursor.capture(epoch + 1, 0, reader)
+        if self._ckpt and (epoch + 1) % self._ckpt.epoch_interval == 0:
+            self._save_checkpoint()
+        return False
+
+    def _run_step(self, epoch, step, batch, event_handler, feeder,
+                  reader) -> bool:
+        begin = BeginStepEvent(epoch, step)
+        event_handler(begin)
+        fetches = [self.loss.name] if begin.fetch_metrics else []
+        # one trace per training step (root span; the feed build, the
+        # executor dispatch and the checkpoint write land as children)
+        with _trace.root_span("trainer.step", epoch=epoch, step=step,
+                              global_step=self._step) as step_span:
+            t0 = time.perf_counter()
+            with _trace.span("trainer.data"), RecordEvent("trainer::feed"):
+                fd = feeder.feed(batch)
+            # a lost device surfaces at the dispatch or at the metric's
+            # host read: either way it leaves typed (DeviceLostError)
+            with _elastic.device_loss_classification("step"):
+                _faults.fault_point("device_lost")
+                vals = self.exe.run(self.main_program, feed=fd,
+                                    fetch_list=fetches, scope=self.scope)
+                metrics = [float(np.asarray(v).reshape(-1)[0])
+                           for v in vals]
+            self._step += 1
+            # the committed data position: the NEXT batch is step+1 of
+            # this epoch (checkpointed with the state as data_cursor)
+            self._cursor = _elastic.DataCursor.capture(epoch, step + 1,
+                                                       reader)
+            if _monitor.enabled():
+                _monitor.counter("trainer_steps_total",
+                                 "steps run by contrib.Trainer.train").inc()
+                _monitor.histogram(
+                    "trainer_step_seconds",
+                    "Trainer step wall time (feed build + executor "
+                    "dispatch + metric fetch)").observe(
+                    time.perf_counter() - t0)
+                if metrics:
+                    _monitor.gauge("trainer_last_loss",
+                                   "most recent fetched loss").set(
+                        metrics[0])
+            event_handler(EndStepEvent(epoch, step, metrics))
+            saved = False
+            if self._ckpt and self._step % self._ckpt.step_interval == 0:
+                self._save_checkpoint()
+                saved = True
+            if not _graceful.shutdown_requested():
+                step_span.set_attribute("outcome", "ok")
+                return False
+            # preemption notice: the in-flight step completed above;
+            # write the final verified checkpoint (data cursor included)
+            # and unwind so the process can exit 0 — never a duplicate
+            # of the interval save that just ran
+            if self._ckpt and not saved:
+                self._save_checkpoint()
+            self.interrupted = True
+            if _monitor.enabled():
+                _monitor.counter(
+                    "trainer_graceful_exits_total",
+                    "train() calls unwound by a graceful-shutdown request "
+                    "after a final checkpoint").inc()
+            logger.warning("graceful shutdown: step %d checkpointed, "
+                           "train() returning cleanly", self._step)
+            step_span.set_attribute("outcome", "graceful_exit")
+            return True
+
+    def save_params(self, dirname: str):
+        with scope_guard(self.scope):
+            io_mod.save_params(self.exe, dirname, self.main_program,
+                               scope=self.scope)
+
+    def save_inference_model(self, dirname, feeded_var_names, target_vars):
+        with scope_guard(self.scope):
+            io_mod.save_inference_model(dirname, feeded_var_names,
+                                        target_vars, self.exe,
+                                        main_program=self.main_program,
+                                        scope=self.scope)
+
+    def stop(self):
+        self.exe.close()
+
+
+class Inferencer:
+    """reference contrib/inferencer.py:31: infer_func rebuilds the forward
+    under fresh programs; params load from ``param_path``. ``place=None``
+    means ``CUDAPlace(0)``."""
+
+    def __init__(self, infer_func: Callable, param_path: str, place=None,
+                 parallel: bool = False):
+        if parallel:
+            raise NotImplementedError(
+                f"Inferencer(parallel=True) {MULTI_DEVICE}")
+        self.main_program = Program()
+        self.startup_program = Program()
+        with program_guard(self.main_program, self.startup_program):
+            self.predict_var = infer_func()
+        self.exe = Executor(place if place is not None else CUDAPlace(0))
+        self.scope = Scope()
+        with scope_guard(self.scope):
+            self.exe.run(self.startup_program)
+            io_mod.load_params(self.exe, param_path, self.main_program,
+                               scope=self.scope)
+
+    def infer(self, inputs: dict):
+        with scope_guard(self.scope):
+            (out,) = self.exe.run(self.main_program, feed=inputs,
+                                  fetch_list=[self.predict_var.name],
+                                  scope=self.scope)
+        return out

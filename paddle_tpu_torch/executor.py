@@ -143,7 +143,7 @@ from .resilience import nonfinite as _nonfinite
 from .resilience.retry import call_with_retry
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "CPUPlace",
-           "CUDAPlace"]
+           "CUDAPlace", "mark_staged"]
 
 
 class Place:
@@ -272,6 +272,24 @@ def _feed_host_bytes(v) -> int:
         return int(np.asarray(v).nbytes)
     except Exception:
         return 0
+
+
+_STAGED = "_paddle_staged_feed"
+
+
+def mark_staged(t: torch.Tensor) -> torch.Tensor:
+    """Mark a tensor that ``reader.DataLoader`` staged for one feed:
+    ``Executor.run`` takes it as it is, with no copy, when it lies on the
+    executor's device in the feed var's dtype (the loader hands each
+    batch out once). Any other tensor a caller passes is copied."""
+    setattr(t, _STAGED, True)
+    return t
+
+
+def _staged_feed(v, device, dtype) -> bool:
+    return (isinstance(v, torch.Tensor) and getattr(v, _STAGED, False)
+            and v.device == device
+            and (dtype is None or v.dtype == torch_dtype(dtype)))
 
 
 def _stack(vals):
@@ -509,11 +527,16 @@ class Executor:
 
     def _feed_tensors(self, program, feed) -> Dict[str, torch.Tensor]:
         """Each feed copied to the device: a transient site (``device_put``
-        fault point, retried with backoff)."""
+        fault point, retried with backoff). A tensor the DataLoader staged
+        on this device in the var's dtype (``mark_staged``) is used as it
+        is: it was copied once already, and no one else holds it."""
         blk = program.global_block
         out = {}
         for n, v in feed.items():
             dt = blk.var(n).dtype if blk.has_var(n) else None
+            if _staged_feed(v, self.device, dt):
+                out[n] = v
+                continue
 
             def _put(v=v, dt=dt):
                 _faults.fault_point("device_put")

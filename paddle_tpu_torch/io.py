@@ -370,3 +370,8 @@ def load_checkpoint(executor, dirname, main_program=None, scope=None,
         return {}
     with open(meta_path) as f:
         return json.load(f)
+
+
+# reference fluid.io re-exports the data pipeline (python/paddle/fluid/io.py
+# pulls DataLoader/PyReader from reader.py)
+from .reader import DataLoader, PyReader  # noqa: E402,F401

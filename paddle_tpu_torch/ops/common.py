@@ -9,7 +9,7 @@ import torch
 from ..core.registry import IOSpec, register_op  # re-export for op modules
 
 __all__ = ["register_op", "IOSpec", "x", "out", "broadcast_to_x", "unary",
-           "convolution"]
+           "convolution", "true_div"]
 
 
 def x(ins, slot="X", i=0):
@@ -22,6 +22,15 @@ def x(ins, slot="X", i=0):
 
 def out(val, slot="Out"):
     return {slot: [val]}
+
+
+def true_div(x, d):
+    """``x / d`` for a Python number ``d``, correctly rounded on every
+    device. The card divides a float32 tensor by a Python number as a
+    product with its reciprocal, up to an ulp off the CPU's quotient, and
+    that ulp moves a floor, a bin bound or the fractional part of a large
+    coordinate; a 0-dim tensor divisor is a true division on both."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def broadcast_to_x(xv, yv, axis: int):

@@ -46,7 +46,7 @@ import math
 import numpy as np
 import torch
 
-from .common import IOSpec, out, register_op, x
+from .common import IOSpec, out, register_op, true_div, x
 
 # entries of the [groups, L, L] suppression matrix built at once
 NMS_CHUNK_ELEMS = 1 << 27
@@ -67,15 +67,6 @@ def _host(t):
     """``t``'s values on the host: one counted read."""
     _SYNCS[0] += 1
     return t.tolist()
-
-
-def true_div(x, d):
-    """``x / d`` for a Python number ``d``, correctly rounded on every
-    device. The card divides a float32 tensor by a Python number as a
-    product with its reciprocal, up to an ulp off the CPU's quotient, and
-    that ulp moves a floor, a bin bound or the fractional part of a large
-    coordinate; a 0-dim tensor divisor is a true division on both."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def device_const(values, dtype, device):

@@ -38,7 +38,7 @@ import math
 import torch
 
 from ..core.types import torch_dtype
-from .common import IOSpec, out, register_op, x
+from .common import IOSpec, out, register_op, true_div, x
 
 _U32 = 0xFFFFFFFF
 
@@ -55,13 +55,15 @@ def _host_scalar(t):
 def linspace_f32(start, stop, num, device, dtype=torch.float32):
     """``jnp.linspace``'s values: start * (1 - t) + stop * t with
     t = i / (num - 1) in ``dtype`` (float32 unless a wider float is
-    asked), the endpoint exactly ``stop``."""
+    asked), the endpoint exactly ``stop``. The division is a true one on
+    the card too (``true_div``): an integer ``dtype`` floors the values,
+    and ``trilinear_interp`` floors them into its taps."""
     cdt = dtype if dtype.is_floating_point else torch.float32
     st = torch.tensor(start, dtype=cdt, device=device)
     sp = torch.tensor(stop, dtype=cdt, device=device)
     if num > 1:
         div = num - 1
-        step = torch.arange(div, dtype=cdt, device=device) / div
+        step = true_div(torch.arange(div, dtype=cdt, device=device), div)
         res = torch.cat([st * (1 - step) + sp * step, sp.reshape(1)])
     elif num == 1:
         res = st.reshape(1)

@@ -21,7 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import IOSpec, convolution, out, register_op, x
+from .common import IOSpec, convolution, out, register_op, true_div, x
 
 
 @register_op("mul", inputs=["X", "Y"], outputs=["Out"],
@@ -339,8 +339,10 @@ def _prelu(ctx, ins, attrs):
 def _nearest_index(m: int, n: int, device) -> torch.Tensor:
     """``jax.image.resize``'s nearest source index of each of ``n``
     outputs over ``m`` inputs: floor((i + 0.5) * m / n), in float32 and
-    in that order (half-pixel centers, ``align_corners`` ignored)."""
-    f = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * m / n
+    in that order (half-pixel centers, ``align_corners`` ignored), the
+    division a true one on the card too (``true_div``)."""
+    f = true_div((torch.arange(n, dtype=torch.float32, device=device) + 0.5)
+                 * m, n)
     return torch.floor(f).long().clamp(max=m - 1)
 
 
@@ -353,8 +355,8 @@ def _linear_weights(m: int, n: int, device) -> torch.Tensor:
     kernel_scale = max(inv_scale, 1.0)
     sample = ((torch.arange(n, dtype=torch.float32, device=device) + 0.5)
               * inv_scale - 0.5)
-    dist = torch.abs(sample[None, :] - torch.arange(
-        m, dtype=torch.float32, device=device)[:, None]) / kernel_scale
+    dist = true_div(torch.abs(sample[None, :] - torch.arange(
+        m, dtype=torch.float32, device=device)[:, None]), kernel_scale)
     w = torch.clamp(1.0 - dist, min=0.0)
     total = w.sum(0, keepdim=True)
     eps = 1000.0 * float(torch.finfo(torch.float32).eps)

@@ -4,17 +4,22 @@ manifest with per-file sha256, PT600-PT604, atomic publish and the
 recovery walk), deadlines, deterministic fault injection
 (``FLAGS_fault_plan``), retry with backoff for transient sites, the
 non-finite step policies (``nonfinite``: ``FLAGS_nan_inf_policy``), the
-step watchdog (``FLAGS_step_timeout_s``) and graceful preemption
+step watchdog (``FLAGS_step_timeout_s``), graceful preemption
 (``graceful``: SIGTERM -> one shutdown event that the training loop, the
-serving engine's drain-stop and retry backoffs consume). Not in the port
-yet: elastic rescale (``elastic.py``, ``DeviceLostError``) and the
-sharded checkpoint and replica checks of ``distributed.py``."""
+serving engine's drain-stop and retry backoffs consume) and ``elastic``
+(device-loss classification into a typed ``DeviceLostError``, rescale
+planning with PT610-PT614, the ``DataCursor`` that ``contrib.Trainer``
+checkpoints). Not in the port yet: re-forming a mesh, and the sharded
+checkpoint and replica checks of ``distributed.py`` (multi-device)."""
 from .checkpoint import (CKPT_CODES, FORMAT_VERSION, CheckpointCorruptError,
                          atomic_replace_dir, finalize_manifest,
                          iter_serials, load_latest_checkpoint,
                          verify_checkpoint)
 from .deadline import Deadline, DeadlineExceeded
 from .distributed import WatchdogTimeout, watchdog_section
+from .elastic import (ELASTIC_CODES, DataCursor, DeviceLostError,
+                      ElasticRescaleError, classify_device_error,
+                      grad_accum_steps, plan_rescale, survivor_devices)
 from .faults import (SITES, FaultPlan, InjectedFault, active_plan,
                      clear_plan, fault_action, fault_plan_guard,
                      fault_point, install_plan, stall)
@@ -32,6 +37,11 @@ __all__ = [
     "verify_checkpoint", "finalize_manifest", "atomic_replace_dir", "iter_serials", "load_latest_checkpoint",
     # watchdog
     "WatchdogTimeout", "watchdog_section",
+    # elastic preemption tolerance (device loss -> typed error; rescale
+    # planning; the data cursor)
+    "DeviceLostError", "ElasticRescaleError", "ELASTIC_CODES",
+    "classify_device_error", "plan_rescale", "grad_accum_steps",
+    "survivor_devices", "DataCursor",
     # fault injection
     "SITES", "FaultPlan", "InjectedFault", "active_plan", "clear_plan",
     "fault_action", "fault_plan_guard", "fault_point", "install_plan",

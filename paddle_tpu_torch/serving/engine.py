@@ -1305,15 +1305,13 @@ class ServingEngine:
         read through freed storage — those fail the WHOLE batch
         (the pre-bisection contract). Walks the cause chain."""
         from ..resilience.distributed import WatchdogTimeout
+        from ..resilience.elastic import DeviceLostError
 
         seen = set()
         cur: Optional[BaseException] = e
         while cur is not None and id(cur) not in seen:
             seen.add(id(cur))
-            # DeviceLostError belongs to resilience/elastic.py, which the
-            # port does not have yet: it is matched by name
-            if isinstance(cur, WatchdogTimeout) or \
-                    type(cur).__name__ == "DeviceLostError":
+            if isinstance(cur, (WatchdogTimeout, DeviceLostError)):
                 return False
             msg = str(cur).lower()
             if "donated" in msg or "deleted" in msg:

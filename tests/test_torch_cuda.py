@@ -2385,3 +2385,199 @@ def test_py_func_round_trips_through_the_host_with_one_sync_an_input():
     out, n = res["Out"]
     assert out.is_cuda and n.is_cuda and n.dtype == torch.int64
     assert torch.equal(out, a * 2 + b) and n.tolist() == [5]
+
+
+# -- the division audit: each site on the card equals the CPU exactly -------
+
+def _division_rule(op_type, ins, attrs, dev):
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    opdef = registry.get_op_def(op_type)
+    attrs = dict({k: a.default for k, a in opdef.attrs.items()}, **attrs)
+    ins = {k: [v.to(dev) for v in vs] for k, vs in ins.items()}
+    return {k: [v.cpu() for v in vs]
+            for k, vs in opdef.lower(LowerCtx(dev, seed=1, uid=1), ins,
+                                     attrs).items()}
+
+
+def _division_cases():
+    g = torch.Generator().manual_seed(0)
+    ps = torch.randint(0, 64, (2, 18, 40, 52), generator=g).float()
+    rois = torch.tensor([[0, 0, 8, 5], [3, 2, 11, 10], [6, 3, 14, 11],
+                         [1.3, 2.7, 37.1, 29.9], [0.5, 0.5, 50.2, 38.6],
+                         [7, 9, 13, 24]])
+    return {
+        "nearest_resize": ("interpolate_nearest", {"X": [
+            torch.randn(2, 3, 76, 76, generator=g)]},
+            {"out_h": 152, "out_w": 190}),
+        "nearest_shrink": ("interpolate_nearest", {"X": [
+            torch.randn(1, 2, 97, 250, generator=g)]},
+            {"out_h": 25, "out_w": 99}),
+        "trilinear_corners": ("trilinear_interp", {"X": [
+            torch.randn(1, 2, 17, 23, 29, generator=g)]},
+            {"out_d": 33, "out_h": 7, "out_w": 57, "align_corners": True}),
+        "psroi_pool": ("psroi_pool", {
+            "X": [ps], "ROIs": [rois],
+            "RoisBatchIdx": [torch.tensor([0, 1, 1, 0, 1, 0])]},
+            {"output_channels": 2, "spatial_scale": 1.0,
+             "pooled_height": 3, "pooled_width": 3}),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_division_cases()))
+def test_division_audit_op_on_the_card_equals_the_cpu(case):
+    _cuda()
+    op_type, ins, attrs = _division_cases()[case]
+    card = _division_rule(op_type, ins, attrs, "cuda")
+    cpu = _division_rule(op_type, ins, attrs, "cpu")
+    for k in cpu:
+        for a, b in zip(card[k], cpu[k]):
+            assert torch.equal(a, b), (case, k)
+
+
+@pytest.mark.cuda
+def test_division_audit_nearest_index_and_linspace_equal_the_cpu():
+    """Every (m, n) up to 160 and integer linspaces over a sweep of
+    bounds and counts: the card's indices and values equal the CPU's."""
+    _cuda()
+    from paddle_tpu_torch.ops.misc import linspace_f32
+    from paddle_tpu_torch.ops.nn import _nearest_index
+
+    bad = []
+    for m in range(1, 161):
+        for n in range(1, 161):
+            if not torch.equal(_nearest_index(m, n, "cuda").cpu(),
+                               _nearest_index(m, n, "cpu")):
+                bad.append((m, n))
+    assert not bad, bad[:10]
+    for start in (-37, -5, 0, 1, 3, 11):
+        for stop in (0, 7, 50, 99, 1000, 4097):
+            for num in (2, 3, 5, 7, 11, 13, 49, 50, 97, 129):
+                for dt in (torch.int64, torch.float32):
+                    a = linspace_f32(start, stop, num, "cuda", dt).cpu()
+                    b = linspace_f32(start, stop, num, "cpu", dt)
+                    if not torch.equal(a, b):
+                        bad.append((start, stop, num, dt))
+    assert not bad, bad[:10]
+
+
+# -- DataLoader staging on the card ----------------------------------------
+
+def _loader_batches(n=6, rows=64, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(rows, 3, 32, 32).astype(np.float32),
+             rng.randint(0, 10, (rows, 1)).astype(np.int64))
+            for _ in range(n)]
+
+
+def _card_loader(batches, capacity=2):
+    import paddle_tpu_torch as tf
+
+    loader = tf.DataLoader.from_generator(feed_list=["img", "label"],
+                                          capacity=capacity)
+    loader.set_batch_generator(lambda: iter(batches),
+                               places=tf.CUDAPlace(0))
+    return loader
+
+
+@pytest.mark.cuda
+def test_staged_batches_equal_the_host_arrays_and_skip_the_copy():
+    _cuda()
+    import paddle_tpu_torch as tf
+    from paddle_tpu_torch.executor import _feed_host_bytes
+
+    batches = _loader_batches()
+    main, startup = tf.Program(), tf.Program()
+    with tf.program_guard(main, startup):
+        img = tf.layers.data("img", shape=[3, 32, 32], dtype="float32")
+        tf.layers.data("label", shape=[1], dtype="int64")
+        s = tf.layers.reduce_sum(img)
+    exe = tf.Executor(tf.CUDAPlace(0))
+    seen = 0
+    for (want_img, want_lbl), b in zip(batches, _card_loader(batches)):
+        assert b["img"].is_cuda and b["label"].dtype == torch.int64
+        assert torch.equal(b["img"].cpu(), torch.from_numpy(want_img))
+        assert torch.equal(b["label"].cpu(), torch.from_numpy(want_lbl))
+        assert _feed_host_bytes(b["img"]) == 0
+        fed = exe._feed_tensors(main, b)
+        assert fed["img"] is b["img"] and fed["label"] is b["label"]
+        (got,) = exe.run(main, feed=b, fetch_list=[s])
+        assert abs(float(got) - float(want_img.sum(dtype="float64"))) \
+            < 1e-2 * abs(float(want_img.sum()))
+        seen += 1
+    assert seen == len(batches)
+    # a caller's tensor on the card is still copied
+    t = torch.zeros(4, 3, 32, 32, device="cuda")
+    assert exe._feed_tensors(main, {"img": t})["img"] is not t
+
+
+@pytest.mark.cuda
+def test_staging_copies_run_from_pinned_memory_on_a_side_stream(tmp_path):
+    """The host-to-device copies of the staged batches are pinned copies
+    on a stream other than the one the consumer's kernels run on."""
+    import json
+
+    _cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = _loader_batches(n=4)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        outs = [torch.mm(b["img"].reshape(64, -1),
+                         b["img"].reshape(64, -1).t())
+                for b in _card_loader(batches)]
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(outs) == 4 and copies and kernels
+    assert all("Pinned" in e["name"] for e in copies), \
+        {e["name"] for e in copies}
+    copy_streams = {e["args"]["stream"] for e in copies}
+    kernel_streams = {e["args"]["stream"] for e in kernels}
+    assert not copy_streams & kernel_streams, (copy_streams, kernel_streams)
+
+
+@pytest.mark.cuda
+def test_a_freed_batch_is_not_overwritten_while_the_step_reads_it():
+    """A batch handed out, read by a slow kernel on the consumer's stream
+    and dropped before the read has run, while the next batch is staged
+    on the loader's side stream: ``record_stream`` keeps the caching
+    allocator from giving the dropped batch's memory to that copy before
+    the read. Driven through the loader's own staging (``_CudaStager``)
+    and hand-out (``_hand_out``) on the test's thread, with the pinned
+    ring and the earlier blocks allocated first and the two kernels
+    launched once before: a pinned or device allocation, or a kernel's
+    first launch (its module loaded lazily), during the read would wait
+    for the card and hide the race."""
+    import numpy as np
+    from paddle_tpu_torch.reader import _CudaStager, _hand_out
+
+    _cuda()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(0)
+    arrays = [rng.rand(64, 3, 32, 32).astype(np.float32) for _ in range(4)]
+    stager = _CudaStager(dev, 2)
+    keep = [_hand_out(stager.stage({"x": a}), dev) for a in arrays[:2]]
+    first = _hand_out(stager.stage({"x": arrays[2]}), dev)
+    torch.cuda._sleep(1000)
+    assert torch.equal((first["x"] * 1.0).cpu(), torch.from_numpy(arrays[2]))
+    torch.cuda.synchronize()
+    x = first["x"]
+    torch.cuda._sleep(2_000_000_000)          # about a second on the card
+    held = x * 1.0                            # reads the batch after it
+    del first, x
+    nxt = _hand_out(stager.stage({"x": arrays[3]}), dev)
+    torch.cuda.synchronize()
+    assert torch.equal(held.cpu(), torch.from_numpy(arrays[2]))
+    assert torch.equal(nxt["x"].cpu(), torch.from_numpy(arrays[3]))
+    for a, b in zip(arrays, keep):
+        assert torch.equal(b["x"].cpu(), torch.from_numpy(a))

@@ -859,15 +859,14 @@ def test_bisect_off_keeps_whole_batch_failure():
 
 def test_bisect_safety_classification():
     """Device-state-corrupting failures never bisect; the classification
-    walks the cause chain. The port has no resilience/elastic.py and
-    matches DeviceLostError by name."""
+    walks the cause chain. Each package's own ``DeviceLostError``
+    (``resilience/elastic.py``)."""
     from paddle_tpu.resilience.distributed import \
         WatchdogTimeout as JWatchdog
     from paddle_tpu.resilience.elastic import DeviceLostError as JLost
     from paddle_tpu_torch.resilience.distributed import \
         WatchdogTimeout as TWatchdog
-
-    TLost = type("DeviceLostError", (RuntimeError,), {})
+    from paddle_tpu_torch.resilience.elastic import DeviceLostError as TLost
 
     def verdicts(safe, watchdog, lost):
         wrapped = RuntimeError("batch failed")

@@ -16,9 +16,9 @@ import pytest
 import paddle_tpu_torch
 
 MULTI = "multi-device (ROADMAP Queue A item 6)"
-DATA = "the data path (Queue A item 4)"
 FLEET = "the fleet tier (Queue A item 5)"
-ELASTIC = "resilience/elastic.py and the sharded checkpoint (items 4, 6)"
+SHARDED = ("the replica checks and the sharded checkpoint of "
+           "resilience/distributed.py (item 6)")
 NO_TPU = "TPU-only: the port runs on CUDAPlace/CPUPlace"
 
 # module ('' is the package) -> {name: why it waits}
@@ -27,16 +27,12 @@ STILL_MISSING = {
         "BuildStrategy": MULTI, "CompiledProgram": MULTI,
         "ExecutionStrategy": MULTI, "parallel": MULTI,
         "distributed": MULTI, "DistributeTranspiler": MULTI,
-        "DistributeTranspilerConfig": MULTI, "incubate": MULTI,
-        "DataLoader": DATA, "PyReader": DATA, "batch": DATA,
-        "reader": DATA, "dataset": DATA, "dataset_feed": DATA,
-        "DatasetFactory": DATA,
+        "DistributeTranspilerConfig": MULTI,
         "TPUPlace": NO_TPU,
         "aot_cache": "aot_cache.py (item 4): what it caches is undecided, "
                      "as the port compiles no program",
         "dygraph": "dygraph (item 4)",
         "inference": "inference/ over torch.export (item 4)",
-        "profiler": "profiler.py over torch.profiler (item 4)",
     },
     "analysis": {
         "CollectiveEvent": MULTI, "CommsReport": MULTI,
@@ -45,15 +41,6 @@ STILL_MISSING = {
         "sharding_check": MULTI,
     },
     "contrib": {
-        "BeginEpochEvent": "contrib/trainer.py (item 4)",
-        "BeginStepEvent": "contrib/trainer.py (item 4)",
-        "CheckpointConfig": "contrib/trainer.py (item 4)",
-        "EndEpochEvent": "contrib/trainer.py (item 4)",
-        "EndStepEvent": "contrib/trainer.py (item 4)",
-        "Trainer": "contrib/trainer.py (item 4)",
-        "trainer": "contrib/trainer.py (item 4)",
-        "Inferencer": "contrib/inferencer.py (item 4)",
-        "inferencer": "contrib/inferencer.py (item 4)",
         "slim": "contrib/slim with the quant ops (item 4)",
     },
     "executor": {"TPUPlace": NO_TPU},
@@ -66,6 +53,7 @@ STILL_MISSING = {
         "supports_shapes": "the Pallas tiling predicate; the port's "
                            "kernels.flash_attention classifies its own",
     },
+    "incubate": {"fleet": MULTI},
     "layer_helper": {"init_mod": "an import alias of the initializer "
                                  "module, not an API"},
     "layers": {"PipelineRegion": MULTI, "pipeline": MULTI},
@@ -79,12 +67,9 @@ STILL_MISSING = {
     },
     "ops": {"quant_ops": "the quant ops go with contrib/slim (item 4)",
             "pipeline_op": MULTI},
-    "resilience": {n: ELASTIC for n in (
-        "DataCursor", "DeviceLostError", "ELASTIC_CODES",
-        "ElasticRescaleError", "ReplicaDivergenceError",
-        "classify_device_error", "grad_accum_steps", "handle_divergence",
-        "plan_rescale", "replica_divergence_check",
-        "set_divergence_recovery", "survivor_devices",
+    "resilience": {n: SHARDED for n in (
+        "ReplicaDivergenceError", "handle_divergence",
+        "replica_divergence_check", "set_divergence_recovery",
         "verify_sharding_section")},
     "serving": {"fleet": FLEET},
     "transpiler": {n: MULTI for n in (
@@ -159,8 +144,17 @@ def _pairs():
     return out
 
 
+# the JAX package's ``incubate`` names its subpackages only once something
+# has imported them: import both, so that what the comparison sees does
+# not hang on which test file ran before in the same process
+JAX_INCUBATE = ("paddle_tpu.incubate.data_generator",
+                "paddle_tpu.incubate.fleet")
+
+
 @pytest.fixture(scope="module")
 def missing():
+    for name in JAX_INCUBATE:
+        importlib.import_module(name)
     got = {}
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -186,7 +180,7 @@ def test_the_list_holds_no_name_already_ported(missing):
         assert set(names) <= missing.get(mod, set()), \
             (mod, sorted(set(names) - missing.get(mod, set())))
         assert all(names.values())
-    assert sum(len(v) for v in STILL_MISSING.values()) == 73
+    assert sum(len(v) for v in STILL_MISSING.values()) == 48
 
 
 @pytest.mark.parametrize("mod", sorted(ITEM_2))
