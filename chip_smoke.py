@@ -4,8 +4,8 @@
 
 ``--phases`` runs only the named phases that need no other phase's
 result (``ALONE``: kernels, the training and inference phases, tune,
-seq2seq, gru_encdec, misc_image, detection, data_path) after ``device``,
-and prints no ``ok`` line. Without it, every phase runs:
+seq2seq, gru_encdec, misc_image, detection, data_path, dygraph, predictor,
+qat) after ``device``, and prints no ``ok`` line. Without it, every phase runs:
 
 Phases, in order; any failure exits non-zero (no phase is caught):
 
@@ -389,7 +389,45 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    losses equal bit for bit to the same batches fed as arrays. Reports
    img/s of each way, the reader's and DataFeeder's host ms, parse
    rows/s and examples/s. No port kernel launches.
-24. prints the script time of each phase and part (``[seconds]``), the
+24. dygraph — BERT-base pretraining in the port's dygraph mode
+   (``tools/torch_dygraph_bert.py``: ``models/bert.py``'s ops from
+   ``dygraph.nn`` layers and ``dygraph.ops``, run eagerly under
+   autograd; weights carried from the static program's scope by name) at
+   the train phase's shape, f32, Adam 1e-4. (a) Dropout 0, 3 steps
+   against 3 static ``Executor.run`` steps from the same weights: step
+   1's loss within rtol ``DY_LOSS_RTOL``, the losses and every
+   parameter after step 3 within ``DY_STATE_TOL`` normwise. (b) Dropout
+   0.1, 4 steps twice under one ``guard`` seed: losses and parameters
+   bit-identical (the embedding grads go through ``lookup_table``'s own
+   grad rule, in a fixed order). K1, K3 and K4 12 launches each a step
+   in every run (the eager backward reruns no forward; the static step
+   launches K1 24). Reports the dygraph and the static step's steps/s,
+   peak memory and one profiled step's idle share and device ms.
+25. predictor — the inference API (``inference.AnalysisPredictor`` from
+   ``save_inference_model``, ``FLAGS_epilogue_fusion=1``) and its export
+   (``export_stablehlo``: a ``torch.export`` archive with the weights
+   embedded, K1 and K5 as the port's operators) loaded fresh through
+   ``load_stablehlo``. BERT-base fused inference at the infer phase's
+   shape: the predictor equal to ``Executor.run`` bit for bit, the
+   artifact within ``PRED_EXPORT_TOL`` normwise, K1 12 and K5 74
+   launches a forward each way. A float32 ResNet-50 inference program
+   (batch 8) the same ways with ``cudnn.allow_tf32`` True in the
+   process: the artifact within ``PRED_CONV_TOL`` of the predictor (its
+   run sets cuDNN's float32 settings and restores them), each way
+   launching what ``Executor.run`` launches (the fusion witness decides
+   the fc head). Reports forward ms each way, the fusion decisions and
+   the export's and load's seconds and size.
+26. qat — quant-aware training of ResNet-50 (``contrib.slim.quant_aware``
+   before ``minimize``, ``QAT_OPS`` fake-quant ops: abs-max on each
+   weight, moving-average abs-max on each activation) at 224x224, 1000
+   classes, batch 32, f32, Momentum 0.1 / 0.9: 3 steps twice
+   bit-identical (losses and every state var, the scales included); an
+   activation halfway through holds at most 255 levels, each a multiple
+   of scale/127, and its ``OutScale`` is 0.9 * the previous scale + 0.1
+   * max|x|; one step at batch 2 with every op run again on the CPU from
+   the card's inputs: each float output within ``QAT_CPU_TOL`` normwise,
+   the fake-quant and integer outputs equal. No port kernel launches.
+27. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -425,10 +463,12 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch import monitor, resilience, trace
 from paddle_tpu_torch.contrib import mixed_precision
+from paddle_tpu_torch.contrib.slim.quantization import quant_aware
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
 from paddle_tpu_torch.models.deepfm import build_deepfm
 from paddle_tpu_torch.models import seq2seq
+from paddle_tpu_torch.models.resnet import resnet_forward
 from paddle_tpu_torch.models.gpt import (GptConfig, build_gpt_generative,
                                          build_gpt_prefill)
 from paddle_tpu_torch.resilience import faults
@@ -7201,11 +7241,522 @@ def phase_data_path(seed):
                 launches={n: launches.get(n, 0) for n in K.KERNEL_SOURCES})
 
 
+# ---------------------------------------------------------------- dygraph
+# BERT-base pretraining in the port's dygraph mode (tools/
+# torch_dygraph_bert.py: build_bert_pretrain's ops, run eagerly under
+# autograd) at the train phase's shape. The eager backward reruns no
+# forward, so K1 launches once a layer where the static step's generic
+# grad launches it twice
+DY_STEPS, DY_TIMED_STEPS = 3, 4
+DY_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_dq": 12,
+               "flash_attention_dkv": 12}
+# at dropout 0 against the static step from the same weights: step 1's
+# loss (rtol), then after DY_STEPS Adam steps the losses and every
+# parameter normwise (autograd and the generic grads sum in other orders)
+DY_LOSS_RTOL, DY_STATE_TOL = 1e-5, 1e-4
+
+
+def normwise(got, want):
+    """||got - want|| / ||want|| over paired tensors or arrays, all
+    flattened together, in float64."""
+    num = den = 0.0
+    for g, w in zip(got, want):
+        g = torch.as_tensor(g).detach().double().cpu().reshape(-1)
+        w = torch.as_tensor(w).detach().double().cpu().reshape(-1)
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    return math.sqrt(num) / max(math.sqrt(den), 1e-30)
+
+
+def dy_bert(cfg, seed):
+    """The static BERT-base program (names from a fresh unique_name
+    generator, so two builds agree) and its startup's weights on the
+    card."""
+    with fluid.unique_name.guard():
+        net = build_bert_pretrain(cfg, seq_len=TRAIN_SEQ)
+    net["startup"].random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    return net, dict(scope0.vars)
+
+
+def dy_train(cfg, program, init, feed, steps, seed, profiled=False):
+    """``steps`` dygraph Adam steps (lr 1e-4, the static program's) of
+    ``DygraphBert(cfg)`` from ``init`` under ``guard(CUDAPlace(0),
+    seed)``; each step reads its losses on the host, as a static step
+    fetches them. Returns the losses, the launches of each step, the
+    parameters by static name, steps/s over steps 2..N and, if
+    ``profiled``, one more profiled step."""
+    from tools.torch_dygraph_bert import DygraphBert, load_static, to_feed
+
+    with fluid.dygraph.guard(fluid.CUDAPlace(0), seed=seed):
+        model = DygraphBert(cfg)
+        load_static(model, program, init)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        f = to_feed(feed)
+
+        def step():
+            loss, mlm, nsp = model(f)
+            out = [float(np.ravel(v.numpy())[0]) for v in (loss, mlm, nsp)]
+            loss.backward()
+            opt.minimize(loss, parameter_list=model.parameters())
+            model.clear_gradients()
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, launches, t_first = [], [], None
+        for i in range(steps):
+            K.reset_launch_counts()
+            losses.append(step())
+            launches.append(K.launch_counts())
+            if i == 0:
+                t_first = time.perf_counter()
+        wall = time.perf_counter() - t_first
+        peak = torch.cuda.max_memory_allocated()
+        names = model.static_names(program)
+        params = {names[n]: p.value.detach().clone()
+                  for n, p in model.named_parameters()}
+        prof = profile_run(step) if profiled else None
+    return dict(losses=np.array(losses), launches=launches, params=params,
+                steps_per_s=(steps - 1) / wall, peak_bytes=peak,
+                profiled=prof)
+
+
+def phase_dygraph(seed):
+    t0 = time.perf_counter()
+    cfg0 = dataclasses.replace(BertConfig.base(), hidden_dropout=0.0,
+                               attention_dropout=0.0)
+    net0, init = dy_bert(cfg0, seed)
+    feed = bert_feed(seed, cfg0.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    TIMES["dygraph.setup"] = time.perf_counter() - t0
+    # (a) dropout 0: the eager step against the static one
+    st = train(net0, init, feed, plain=False, steps=DY_STEPS)
+    dy0 = dy_train(cfg0, net0["main"], init, feed, DY_STEPS, seed)
+    sl, dl = st["losses"], dy0["losses"]
+    step1_rel = float(abs(dl[0, 0] - sl[0, 0]) / abs(sl[0, 0]))
+    loss_norm = normwise([dl], [sl])
+    names = sorted(dy0["params"])
+    state_norm = normwise([dy0["params"][n] for n in names],
+                          [st["scope"].find_var(n) for n in names])
+    del st
+    # (b) dropout 0.1: the main path, twice under one guard seed, then
+    # the static step on the same weights for the rates
+    cfg = BertConfig.base()
+    a = dy_train(cfg, net0["main"], init, feed, DY_TIMED_STEPS, seed,
+                 profiled=True)
+    b = dy_train(cfg, net0["main"], init, feed, DY_TIMED_STEPS, seed)
+    repeat = bool(np.array_equal(a["losses"], b["losses"]) and all(
+        torch.equal(a["params"][n], b["params"][n]) for n in names))
+    del b
+    net1, _ = dy_bert(cfg, seed)
+    st1 = train(net1, init, feed, plain=False, steps=DY_TIMED_STEPS)
+    st1_prof = profile_step(net1, st1.pop("exe"), st1.pop("scope"), feed)
+    dp, sp = a["profiled"], st1_prof
+    log(f"[dygraph] BERT-base f32, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, "
+        f"Adam 1e-4: dropout 0, {DY_STEPS} steps against the static step: "
+        f"step-1 loss {dl[0, 0]:.6f} vs {sl[0, 0]:.6f} (rel "
+        f"{step1_rel:.3e}), losses normwise {loss_norm:.3e}, parameters "
+        f"normwise {state_norm:.3e}")
+    log(f"  dropout 0.1, {DY_TIMED_STEPS} steps twice under guard seed "
+        f"{seed}: bit-identical={repeat}; losses "
+        f"{a['losses'][0, 0]:.6f} -> {a['losses'][-1, 0]:.6f}; launches a "
+        f"step {a['launches'][0]}")
+    log(f"  dygraph {a['steps_per_s']:.3f} steps/s (peak "
+        f"{a['peak_bytes'] / 2**30:.2f} GiB), profiled step: wall "
+        f"{dp['wall_s'] * 1e3:.1f} ms, device busy "
+        f"{dp['device_busy_s'] * 1e3:.1f} ms, idle share "
+        f"{dp['idle_share']:.3f}, {dp['device_kernels']} kernels")
+    log(f"  static  {st1['steps_per_s']:.3f} steps/s (peak "
+        f"{st1['peak_bytes'] / 2**30:.2f} GiB), profiled step: wall "
+        f"{sp['wall_s'] * 1e3:.1f} ms, device busy "
+        f"{sp['device_busy_s'] * 1e3:.1f} ms, idle share "
+        f"{sp['idle_share']:.3f}, {sp['device_kernels']} kernels; launches "
+        f"{ {n: v // DY_TIMED_STEPS for n, v in st1['launches'].items()} } "
+        f"a step")
+    for tag, p in (("dygraph", dp), ("static", sp)):
+        log(f"  {tag} port kernels: " + ", ".join(
+            f"{n} {r['ms']:.3f} ms ({r['calls']})"
+            for n, r in p["port_kernels"].items()))
+    if not np.isfinite(dl).all() or not np.isfinite(a["losses"]).all():
+        raise SystemExit("chip_smoke: non-finite dygraph loss")
+    if step1_rel > DY_LOSS_RTOL or loss_norm > DY_STATE_TOL \
+            or state_norm > DY_STATE_TOL:
+        raise SystemExit(
+            f"chip_smoke: the dygraph step parts from the static step "
+            f"(step 1 rel {step1_rel:.3e} > {DY_LOSS_RTOL}, or losses "
+            f"{loss_norm:.3e} / parameters {state_norm:.3e} normwise > "
+            f"{DY_STATE_TOL})")
+    if not repeat:
+        raise SystemExit("chip_smoke: two dygraph runs under one guard seed "
+                         "differ")
+    for run in (dy0, a):
+        for i, got in enumerate(run["launches"]):
+            want = {n: DY_LAUNCHES.get(n, 0) for n in K.KERNEL_SOURCES}
+            if got != want:
+                raise SystemExit(f"chip_smoke: dygraph step {i + 1} "
+                                 f"launched {got}, expected {want}")
+    launches = {n: sum(step[n] for step in a["launches"])
+                for n in K.KERNEL_SOURCES}
+    return dict(config="BertConfig.base()", batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, static_losses=sl.tolist(),
+                dygraph_losses=dl.tolist(), step1_rel_diff=step1_rel,
+                losses_normwise=loss_norm, params_normwise=state_norm,
+                dropout_losses=a["losses"].tolist(), bit_identical=repeat,
+                steps_per_s=a["steps_per_s"],
+                tokens_per_s=a["steps_per_s"] * TRAIN_BATCH * TRAIN_SEQ,
+                peak_gib=a["peak_bytes"] / 2**30,
+                static_steps_per_s=st1["steps_per_s"],
+                static_peak_gib=st1["peak_bytes"] / 2**30,
+                launches_per_step=a["launches"][0], profiled=dp,
+                static_profiled=sp, launches=launches)
+
+
+# -------------------------------------------------------------- predictor
+# BERT-base fused inference (the infer phase's program and shape) through
+# the predictor API, from save_inference_model, and through the exported
+# artifact loaded fresh; then a float32 ResNet-50 inference program the
+# same two ways while cuDNN may use TF32 in the process
+PRED_FORWARDS = 3
+PRED_EXPORT_TOL = 1e-5
+PRED_CONV_TOL, PRED_CONV_BATCH = 2e-5, 8
+
+
+def pred_forwards(run, forwards=PRED_FORWARDS):
+    """One warm-up of ``run`` (the fusion pass and its witness), then
+    ``forwards`` timed runs with their launches counted from 0; returns
+    the last outputs, the median ms and the launches a forward."""
+    run()
+    K.reset_launch_counts()
+    times = []
+    for _ in range(forwards):
+        t0 = time.perf_counter()
+        outs = run()
+        times.append(time.perf_counter() - t0)
+    launches = K.launch_counts()
+    return outs, float(np.median(times)) * 1e3, {
+        n: v / forwards for n, v in launches.items()}
+
+
+def pred_export(pred, feeds, tmp, tag):
+    """``export_stablehlo`` of the predictor's program and scope, loaded
+    fresh; returns the loaded predictor, its feed order and the seconds
+    of the export and the load."""
+    from paddle_tpu_torch import inference
+
+    path = os.path.join(tmp, tag + ".pt2")
+    specs = {n: (feeds[n].shape, str(feeds[n].dtype))
+             for n in pred.get_input_names()}
+    t0 = time.perf_counter()
+    meta = inference.export_stablehlo(pred._program, specs,
+                                      pred.get_output_names(), path,
+                                      scope=pred._scope)
+    t1 = time.perf_counter()
+    art = inference.load_stablehlo(path)
+    t2 = time.perf_counter()
+    if meta["fetch_names"] != pred.get_output_names():
+        raise SystemExit(f"chip_smoke: export fetches {meta}")
+    return art, meta["feed_order"], dict(
+        export_s=t1 - t0, load_s=t2 - t1,
+        artifact_mib=os.path.getsize(path) / 2**20)
+
+
+def pred_case(tag, prog, fetch, init, feed, tmp):
+    """Save ``prog`` as an inference model from ``init``, run it through
+    ``Executor.run``, the predictor and the exported artifact, fused
+    (``FLAGS_epilogue_fusion=1``)."""
+    from paddle_tpu_torch import inference
+
+    d = os.path.join(tmp, tag)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t)
+    names = sorted(feed)
+    fluid.io.save_inference_model(d, names, fetch, exe, main_program=prog,
+                                  scope=scope)
+    fluid.set_flags({"FLAGS_epilogue_fusion": True})
+    try:
+        want, exe_ms, exe_l = pred_forwards(lambda: exe.run(
+            prog, feed=feed, fetch_list=fetch, scope=scope))
+        pred = inference.create_paddle_predictor(inference.AnalysisConfig(d))
+        inputs = [feed[n] for n in pred.get_input_names()]
+        got, pred_ms, pred_l = pred_forwards(lambda: pred.run(inputs))
+        art, order, ex = pred_export(pred, feed, tmp, tag)
+        art_out, art_ms, art_l = pred_forwards(
+            lambda: art.run(*[feed[n] for n in order]))
+    finally:
+        fluid.set_flags({"FLAGS_epilogue_fusion": False})
+    exact = all(np.array_equal(g, w) for g, w in zip(got, want))
+    err = normwise(art_out, got)
+    fusion = [d.to_dict() for d in pred._exe._fusion_decisions.values()]
+    return dict(exact=exact, export_normwise=err, executor_ms=exe_ms,
+                fusion=fusion,
+                predictor_ms=pred_ms, artifact_ms=art_ms,
+                launches=dict(executor=exe_l, predictor=pred_l,
+                              artifact=art_l), **ex), got, art
+
+
+def phase_predictor(seed):
+    t0 = time.perf_counter()
+    cfg = BertConfig.base()
+    with fluid.unique_name.guard():
+        net = build_bert_pretrain(cfg, seq_len=INFER_SEQ,
+                                  build_optimizer=False)
+    net["startup"].random_seed = seed
+    prog = net["main"].clone(for_test=True)
+    enc = next(op.input("X")[0] for op in prog.global_block.ops
+               if op.type == "mul" and op.input("Y")[0] == "mlm_trans_w")
+    scope0 = fluid.Scope()
+    fluid.Executor().run(net["startup"], scope=scope0)
+    feed = bert_feed(seed + 1, cfg.vocab_size, INFER_BATCH, INFER_SEQ)
+    TIMES["predictor.setup"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_predictor_")
+    try:
+        bert, _, _ = pred_case("bert", prog, [net["loss"].name, enc],
+                               dict(scope0.vars), feed, tmp)
+        del scope0
+        torch.cuda.empty_cache()
+        # float32 convolutions: the artifact must not take TF32 from the
+        # process (cuDNN's default allows it)
+        with fluid.unique_name.guard():
+            main, start = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, start):
+                rnet = resnet_forward(50, 1000, (3, RESNET_HW, RESNET_HW),
+                                      is_test=True, with_label=False)
+        start.random_seed = seed
+        rscope = fluid.Scope()
+        fluid.Executor().run(start, scope=rscope)
+        img = image_feed(seed, PRED_CONV_BATCH, 1000, hw=RESNET_HW)["img"]
+        cudnn = torch.backends.cudnn
+        was = cudnn.allow_tf32
+        cudnn.allow_tf32 = True
+        try:
+            conv, _, _ = pred_case("resnet", main, [rnet["logits"].name],
+                                   dict(rscope.vars), {"img": img}, tmp)
+            tf32_kept = cudnn.allow_tf32
+        finally:
+            cudnn.allow_tf32 = was
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for tag, r in (("BERT-base", bert), ("ResNet-50 f32", conv)):
+        log(f"[predictor] {tag}: predictor == Executor.run bit for bit: "
+            f"{r['exact']}; export loaded fresh against the predictor "
+            f"normwise {r['export_normwise']:.3e}; forward ms executor "
+            f"{r['executor_ms']:.2f}, predictor {r['predictor_ms']:.2f}, "
+            f"artifact {r['artifact_ms']:.2f}; export {r['export_s']:.1f} s,"
+            f" load {r['load_s']:.1f} s, {r['artifact_mib']:.0f} MiB; "
+            f"launches a forward {r['launches']}")
+        for d in r["fusion"]:
+            log(f"  fusion: {d.get('reason')}; witness " + "; ".join(
+                f"{w.get('epilogue')} m={w.get('m')} n={w.get('n')} "
+                f"k={w.get('k')} {w.get('route')} max abs err "
+                f"{w.get('max_abs_err')} {w.get('reason', '')}"
+                for w in d.get("witness") or []))
+    want = {n: INFER_LAUNCHES.get(n, 0) for n in K.KERNEL_SOURCES}
+    for tag, r in (("BERT-base", bert), ("ResNet-50", conv)):
+        if not r["exact"]:
+            raise SystemExit(f"chip_smoke: the {tag} predictor differs from "
+                             f"Executor.run")
+        # the artifact and the predictor launch what Executor.run does;
+        # for BERT-base that is the infer phase's count
+        w = want if tag == "BERT-base" else r["launches"]["executor"]
+        for way, got in r["launches"].items():
+            if got != w:
+                raise SystemExit(f"chip_smoke: {tag} {way} launched {got} a "
+                                 f"forward, expected {w}")
+    if bert["export_normwise"] > PRED_EXPORT_TOL:
+        raise SystemExit(f"chip_smoke: the exported BERT-base parts from the "
+                         f"predictor ({bert['export_normwise']:.3e} > "
+                         f"{PRED_EXPORT_TOL})")
+    if conv["export_normwise"] > PRED_CONV_TOL or not tf32_kept:
+        raise SystemExit(f"chip_smoke: the exported ResNet-50 parts from the "
+                         f"predictor under allow_tf32 "
+                         f"({conv['export_normwise']:.3e} > {PRED_CONV_TOL}) "
+                         f"or the run left cudnn.allow_tf32 "
+                         f"{tf32_kept}")
+    launches = {n: int(round(sum(r["launches"][way][n] * PRED_FORWARDS
+                                 for r in (bert, conv)
+                                 for way in ("predictor", "artifact"))))
+                for n in K.KERNEL_SOURCES}
+    return dict(config="BertConfig.base()", batch=INFER_BATCH,
+                seq=INFER_SEQ, bert=bert, resnet50_f32=dict(
+                    conv, batch=PRED_CONV_BATCH), launches=launches)
+
+
+# -------------------------------------------------------------------- qat
+# quant-aware training of ResNet-50 (PaddleSlim's QAT demos train ResNet-50
+# and MobileNet; the repo builds ResNet-50) at ImageNet widths:
+# contrib.slim.quant_aware before minimize, Momentum 0.1 / 0.9, f32
+QAT_BATCH, QAT_STEPS, QAT_CPU_BATCH = 32, 3, 2
+# card against CPU, op by op over one step at batch 2 from the card's own
+# inputs: every float output within this normwise, every fake-quant
+# output exact (tools/torch_qat_divergence.py measures where the whole
+# step parts from the CPU's)
+QAT_CPU_TOL = 1e-5
+# the pass's fake-quant ops on ResNet-50 (the same count as the JAX
+# package's pass, tests/test_torch_slim.py): abs_max on each weight,
+# moving-average on each activation
+QAT_OPS = {"fake_quantize_dequantize_abs_max": 54,
+           "fake_quantize_dequantize_moving_average_abs_max": 50}
+QAT_RATE = 0.9
+
+
+def qat_resnet():
+    hw = RESNET_HW
+    with fluid.unique_name.guard():
+        main, start = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, start):
+            net = resnet_forward(50, 1000, (3, hw, hw))
+            quant_aware(main, start)
+            fluid.optimizer.Momentum(learning_rate=0.1,
+                                     momentum=0.9).minimize(net["loss"])
+    return main, start, net
+
+
+def qat_steps(main, loss, init, feed, steps, fetch=(), exe=None):
+    """``steps`` steps from a copy of ``init`` on a fresh executor (the
+    card unless ``exe`` is given); returns the losses, the extra fetches
+    of each step and the scope."""
+    exe = exe or fluid.Executor()
+    scope = fluid.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.to(exe.device, copy=True))
+    losses, extras = [], []
+    for _ in range(steps):
+        outs = exe.run(main, feed=feed, fetch_list=[loss] + list(fetch),
+                       scope=scope)
+        losses.append(float(np.ravel(outs[0])[0]))
+        extras.append(outs[1:])
+    return np.array(losses), extras, scope
+
+
+def qat_op_parity(main, loss, init, feed):
+    """One step of ``main`` on the card from ``init`` in which every op,
+    after it runs, runs again on the CPU from copies of the same inputs:
+    the largest normwise difference of a float output by op type, and
+    whether every fake-quant output and every integer output was equal."""
+    from paddle_tpu_torch import executor as ex
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    real = ex.lower_op
+    worst, exact = {}, {"quant": True, "int": True}
+    cpu = torch.device("cpu")
+
+    def lower_op(op, env, ctx):
+        ins = {n: env[n] for n in op.input_arg_names if n in env}
+        real(op, env, ctx)
+        cpu_env = {n: v.to(cpu) if isinstance(v, torch.Tensor) else v
+                   for n, v in ins.items()}
+        real(op, cpu_env, LowerCtx(cpu, seed=ctx.seed,
+                                   gemm_blocks=ctx.gemm_blocks,
+                                   program=ctx.program))
+        for n in op.output_arg_names:
+            a, b = env.get(n), cpu_env.get(n)
+            if not isinstance(a, torch.Tensor) or b is None:
+                continue
+            if op.type.startswith("fake_quantize") \
+                    and not op.type.endswith("_grad"):
+                exact["quant"] &= torch.equal(a.cpu(), b)
+            elif a.is_floating_point():
+                worst[op.type] = max(worst.get(op.type, 0.0),
+                                     normwise([a], [b]))
+            else:
+                exact["int"] &= torch.equal(a.cpu(), b)
+
+    ex.lower_op = lower_op
+    try:
+        qat_steps(main, loss, init, feed, 1)
+    finally:
+        ex.lower_op = real
+    return worst, exact
+
+
+def phase_qat(seed):
+    t0 = time.perf_counter()
+    main, start, net = qat_resnet()
+    start.random_seed = seed
+    counts = collections.Counter(op.type for op in main.global_block.ops
+                                 if op.type in QAT_OPS)
+    # an activation deep in the network: its fake-quant's input, output
+    # and moving-average scale
+    acts = [op for op in main.global_block.ops if op.type ==
+            "fake_quantize_dequantize_moving_average_abs_max"]
+    probe = acts[len(acts) // 2]
+    x_name, q_name = probe.input("X")[0], probe.output("Out")[0]
+    s_name = probe.input("InScale")[0]
+    scope0 = fluid.Scope()
+    fluid.Executor().run(start, scope=scope0)
+    init = dict(scope0.vars)
+    feed = image_feed(seed, QAT_BATCH, 1000, hw=RESNET_HW)
+    TIMES["qat.setup"] = time.perf_counter() - t0
+    fetch = [x_name, q_name, s_name]
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    la, ea, sa = qat_steps(main, net["loss"], init, feed, QAT_STEPS, fetch)
+    wall = time.perf_counter() - t1
+    launches = K.launch_counts()
+    lb, eb, sb = qat_steps(main, net["loss"], init, feed, QAT_STEPS, fetch)
+    state = sorted(n for n in sa.vars if n in init)
+    repeat = bool(np.array_equal(la, lb) and all(
+        torch.equal(sa.find_var(n), sb.find_var(n)) for n in state))
+    del sb
+    # step 1's probe: the moving-average scale and the levels
+    x1, q1, s1 = (np.asarray(v, np.float64) for v in ea[0])
+    s0 = float(init[s_name].reshape(-1)[0])
+    s_want = QAT_RATE * s0 + (1 - QAT_RATE) * float(np.abs(x1).max())
+    s_rel = abs(float(s1.reshape(-1)[0]) - s_want) / s_want
+    k = q1 * 127.0 / float(s1.reshape(-1)[0])
+    off_grid = float(np.abs(k - np.round(k)).max())
+    levels = int(np.unique(np.round(k)).size)
+    # one step at batch 2, the card against the CPU op by op from the
+    # same inputs
+    small = {n: v[:QAT_CPU_BATCH] for n, v in feed.items()}
+    worst, exact = qat_op_parity(main, net["loss"], init, small)
+    op_err = max(worst.values())
+    log(f"[qat] ResNet-50 f32 under quant_aware, batch {QAT_BATCH}, "
+        f"{RESNET_HW}x{RESNET_HW}, Momentum: fake-quant ops {dict(counts)}; "
+        f"losses {la.tolist()}; {QAT_STEPS} steps twice bit-identical="
+        f"{repeat}; {QAT_STEPS / wall:.3f} steps/s (first included)")
+    log(f"  probe {x_name}: OutScale {float(s1.reshape(-1)[0]):.6f} vs "
+        f"{QAT_RATE} * {s0:.6f} + {1 - QAT_RATE:.1f} * max|x| = "
+        f"{s_want:.6f} (rel {s_rel:.2e}); {levels} levels, largest "
+        f"distance from the scale/127 grid {off_grid:.2e}")
+    log(f"  batch {QAT_CPU_BATCH}, one step, op by op card vs CPU from the "
+        f"same inputs: {len(worst)} float op types, largest normwise "
+        f"{op_err:.3e} ({max(worst, key=worst.get)}), fake-quant outputs "
+        f"equal: {exact['quant']}, integer outputs equal: {exact['int']}")
+    if dict(counts) != QAT_OPS:
+        raise SystemExit(f"chip_smoke: quant_aware inserted {dict(counts)}, "
+                         f"expected {QAT_OPS}")
+    if not np.isfinite(la).all() or not repeat:
+        raise SystemExit(f"chip_smoke: QAT losses {la} not finite or two "
+                         f"runs differ")
+    if s_rel > 1e-6 or off_grid > 1e-3 or levels > 2 ** 8 - 1:
+        raise SystemExit(f"chip_smoke: the probe's scale {s_rel:.2e} off "
+                         f"the moving average, or {levels} levels / "
+                         f"{off_grid:.2e} off the grid")
+    if op_err > QAT_CPU_TOL or not all(exact.values()):
+        raise SystemExit(f"chip_smoke: a QAT op on the card parts from the "
+                         f"CPU on the same inputs ({op_err:.3e} > "
+                         f"{QAT_CPU_TOL}, or exact {exact}): {worst}")
+    if any(launches.values()):
+        raise SystemExit(f"chip_smoke: QAT training launched {launches}")
+    return dict(config="ResNet-50 quant_aware", batch=QAT_BATCH,
+                quant_ops=dict(counts), losses=la.tolist(),
+                bit_identical=repeat, steps_per_s=QAT_STEPS / wall,
+                scale=dict(before=s0, after=float(s1.reshape(-1)[0]),
+                           formula=s_want, rel=s_rel),
+                levels=levels, off_grid=off_grid,
+                op_parity=worst, op_parity_exact=exact, launches=launches)
+
+
 # ---------------------------------------------------------------- main
 # the phases that need no other phase's result, which --phases can run
 ALONE = ("kernels", "train", "train_amp", "train_remat", "train_guard",
          "train_lamb", "infer", "train_resnet", "infer_resnet", "tune",
-         "seq2seq", "gru_encdec", "misc_image", "detection", "data_path")
+         "seq2seq", "gru_encdec", "misc_image", "detection", "data_path",
+         "dygraph", "predictor", "qat")
 
 
 def run_alone(names, seed, card, out_dir):
@@ -7307,6 +7858,15 @@ def main():
     torch.cuda.empty_cache()
     with timed("data_path"):
         dp = phase_data_path(args.seed)
+    torch.cuda.empty_cache()
+    with timed("dygraph"):
+        dy = phase_dygraph(args.seed)
+    torch.cuda.empty_cache()
+    with timed("predictor"):
+        pr = phase_predictor(args.seed)
+    torch.cuda.empty_cache()
+    with timed("qat"):
+        qat = phase_qat(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -7318,8 +7878,10 @@ def main():
     # GRU encoder-decoder on variable-length batches (none), DeepFM
     # training with sparse tables (none) and its fused inference (K5),
     # and the misc and image op groups and the detection ops at their
-    # models' widths and the data path's legs (none), each counted from 0
-    # over its own run
+    # models' widths and the data path's legs (none), dygraph BERT-base
+    # training (K1, K3, K4), the predictor and the exported artifact of
+    # BERT-base and ResNet-50 fused inference (K1, K5) and ResNet-50
+    # quant-aware training (none), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -7335,7 +7897,8 @@ def main():
                 "gru_encdec": ge["launches"], "deepfm": fm["launches"],
                 "deepfm_infer": fm_infer["launches"],
                 "misc_image": mi["launches"], "detection": det["launches"],
-                "data_path": dp["launches"]}
+                "data_path": dp["launches"], "dygraph": dy["launches"],
+                "predictor": pr["launches"], "qat": qat["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -7356,7 +7919,8 @@ def main():
               "infer_resnet": inferred_resnet, "tune": tuned,
               "seq2seq": s2s, "gru_encdec": ge, "deepfm": fm,
               "deepfm_infer": fm_infer, "misc_image": mi, "detection": det,
-              "data_path": dp, "launches": launches}
+              "data_path": dp, "dygraph": dy, "predictor": pr, "qat": qat,
+              "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

@@ -51,7 +51,11 @@ card from pinned memory on a side stream, the reader decorators;
 ``dataset``; ``dataset_feed`` over the native MultiSlot parser in
 ``native``; ``incubate.data_generator``), ``profiler`` over
 ``torch.profiler``, ``resilience.elastic`` and ``contrib.Trainer``/
-``Inferencer``.
+``Inferencer``, and dygraph mode (``dygraph``: the eager tape over the
+op rules under autograd, ``Layer`` and its layers, the eager optimizer
+updates, ``save_dygraph``), the predictor API with its export over
+``torch.export`` (``inference``), and ``contrib.slim`` with the
+fake-quant ops.
 ``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """
@@ -60,6 +64,7 @@ from . import (analysis, clip, contrib, initializer, io,  # noqa: F401
                layers, metrics, monitor, optimizer, regularizer, resilience,
                serving, trace, tuning, unique_name)
 from . import dataset, incubate, profiler, reader  # noqa: F401
+from . import dygraph, inference, kernels  # noqa: F401
 from .dataset_feed import DatasetFactory
 from .reader import DataLoader, PyReader, batch
 from .backward import append_backward, calc_gradient, gradients
@@ -99,4 +104,4 @@ __all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "Scope",
            "tuning", "op_registry", "learning_rate_scheduler",
            "memory_optimize", "release_memory", "DataLoader", "PyReader",
            "batch", "reader", "dataset", "dataset_feed", "DatasetFactory",
-           "profiler", "incubate"]
+           "profiler", "incubate", "dygraph", "inference"]

@@ -571,8 +571,11 @@ def name_scope(prefix: str):
 
 
 def in_dygraph_mode() -> bool:
-    """Always False: the port has no dygraph mode yet."""
-    return False
+    """True inside ``dygraph.guard()``: the tape is asked, as the JAX
+    package asks its own."""
+    from .dygraph import base as _dy
+
+    return _dy.in_dygraph_mode()
 
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__)) + os.sep

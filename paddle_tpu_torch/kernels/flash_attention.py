@@ -28,7 +28,7 @@ launches the kernels or raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -292,15 +292,12 @@ def _rows(name, t, q):
     return t.contiguous()
 
 
-def _launch_fwd(q, k, v, bias, causal, scale, q_offset, k_offset, num_heads,
-                dropout_rate, seed):
-    q, k, v, bias = _check(q, k, v, bias, num_heads)
+def _run_k1(q, k, v, bias, causal, scale, q_offset, k_offset, num_heads,
+            dropout_rate, seed):
+    """Launch K1 on checked tensors and count it."""
     q, k, v = (_build.aligned(t) for t in (q, k, v))
     BH, Sq, D = q.shape
     Sk = k.shape[1]
-    kind, why = classify_shapes(Sq, Sk, D)
-    if kind == "unsupported":
-        raise ValueError(f"flash attention kernel refuses the shape: {why}")
     o = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
     _build.launch("flash_attention_fwd", q.device, q.data_ptr(),
@@ -313,6 +310,38 @@ def _launch_fwd(q, k, v, bias, causal, scale, q_offset, k_offset, num_heads,
                   *_drop_args(dropout_rate, seed))
     flash_attention_with_lse.launches += 1
     return o, lse
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor], causal: bool, scale: float,
+            q_offset: int, k_offset: int, num_heads: int,
+            dropout_rate: float, seed: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a PyTorch operator, so ``torch.export`` traces it as one
+    node of the graph (its ctypes launch on raw pointers cannot be
+    traced) and an exported program still launches and counts it."""
+    return _run_k1(q, k, v, bias, causal, scale, q_offset, k_offset,
+                   num_heads, dropout_rate, seed)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, bias, causal, scale, q_offset, k_offset, num_heads,
+      dropout_rate, seed):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def _launch_fwd(q, k, v, bias, causal, scale, q_offset, k_offset, num_heads,
+                dropout_rate, seed):
+    q, k, v, bias = _check(q, k, v, bias, num_heads)
+    kind, why = classify_shapes(q.shape[1], k.shape[1], q.shape[2])
+    if kind == "unsupported":
+        raise ValueError(f"flash attention kernel refuses the shape: {why}")
+    return _fwd_op(q, k, v, bias, bool(causal), float(scale), int(q_offset),
+                   int(k_offset), int(num_heads), float(dropout_rate),
+                   int(seed))
 
 
 def _launch_bwd(name, n_out, q, k, v, bias, do, lse, delta, causal, scale,

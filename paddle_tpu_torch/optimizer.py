@@ -18,13 +18,19 @@ checkpointing at user-named checkpoints, ``ops/recompute.py``).
 rate is a float or a Variable (a schedule of
 ``layers.learning_rate_scheduler``). ``apply_gradients`` appends to the
 program's current block, so a wrapper (the AMP skip-update) can run the
-whole update inside a sub-block. Dygraph's eager update path waits for
-``dygraph``.
+whole update inside a sub-block. Inside ``dygraph.guard()``, ``minimize``
+is the eager update (``_dygraph_minimize``): the same registry update
+rules run at once on each parameter's ``_grad``, after the global clip and
+weight decay, with per-instance state keyed by the parameter's ``uid``
+and one learning-rate tensor a step for each dtype; SGD, Momentum, Adam,
+AdamW and Lamb have it, the others refuse as in the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Dict, List, Optional
+
+import torch
 
 from . import unique_name
 from .backward import append_backward
@@ -73,6 +79,7 @@ class Optimizer:
         self.regularization = regularization
         self._name = name
         self._accumulators: Dict[str, Dict[str, Variable]] = {}
+        self._eager_accumulators: Dict[int, dict] = {}  # dygraph-mode state
         self._learning_rate_var: Optional[Variable] = None
         self.type = "optimizer"
 
@@ -151,12 +158,139 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        from .dygraph import base as dy
+
+        if dy.in_dygraph_mode():
+            return self._dygraph_minimize(loss, parameter_list)
         program = loss.block.program
         with program_guard(program, startup_program):
             params_grads = self.backward(loss, startup_program,
                                          parameter_list, no_grad_set)
             optimize_ops = self.apply_gradients(params_grads)
         return optimize_ops, params_grads
+
+    # -- dygraph (eager) path --------------------------------------------
+    def _dygraph_minimize(self, loss, parameter_list=None):
+        """Apply the update rule eagerly on (param, param._grad) pairs
+        (reference dygraph minimize: optimizer ops run at once on the grad
+        twins), through the same registry rules as the static path. Call
+        loss.backward() first. Each parameter is rebound to its update,
+        so no graph recorded before sees a write."""
+        from .core import registry
+        from .lowering import LowerCtx
+
+        if parameter_list is None:
+            raise ValueError(
+                "dygraph minimize needs parameter_list (e.g. "
+                "model.parameters()); the tape does not own the params")
+        if type(self)._eager_slots is Optimizer._eager_slots and \
+                self.type not in ("sgd",):
+            raise NotImplementedError(
+                f"{type(self).__name__} has no eager (dygraph) update path "
+                f"yet — supported: SGD, Momentum, Adam/AdamW/Lamb")
+        params = [p for p in parameter_list if p._grad is not None]
+        if not params:
+            raise RuntimeError(
+                "no gradients found — call loss.backward() before minimize")
+        rule = registry.get_op_def(self.type).lower
+        attrs = self._eager_attrs()
+        with torch.no_grad():
+            clipped = self._eager_clip_grads(params)
+            lr = self._current_lr()
+            # one learning-rate tensor a step for each (dtype, device),
+            # shared by the parameters (not one host copy each)
+            lr_t: Dict[tuple, torch.Tensor] = {}
+            for p in params:
+                # static-path order: clip first, then fold the weight
+                # decay into the clipped grad
+                base_grad = clipped[id(p)] if clipped is not None \
+                    else p._grad
+                grad = self._eager_regularized_grad(p, base_grad)
+                key = (p.value.dtype, p.value.device)
+                if key not in lr_t:
+                    lr_t[key] = torch.tensor([lr], dtype=key[0],
+                                             device=key[1])
+                ins = {"Param": [p.value.detach()], "Grad": [grad],
+                       "LearningRate": [lr_t[key]]}
+                for k, v in self._eager_slots(p).items():
+                    ins[k] = [v]
+                outs = rule(LowerCtx(p.value.device), ins, attrs)
+                p.set_value(outs["ParamOut"][0])
+                self._eager_store(p, outs)
+        return params, [(p, p._grad) for p in params]
+
+    def _eager_clip_grads(self, params):
+        """The global clip (``set_gradient_clip``) applied eagerly, as
+        ``append_gradient_clip_ops`` does in a program: ``{id(p): grad}``,
+        or None when no clip is installed."""
+        from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,
+                           GradientClipByValue, _clip_attr)
+
+        clip = _clip_attr.get("__global__")
+        if clip is None:
+            return None
+        grads = {id(p): p._grad for p in params}
+        if isinstance(clip, GradientClipByValue):
+            return {k: torch.clamp(g, clip.min, clip.max)
+                    for k, g in grads.items()}
+        if isinstance(clip, GradientClipByNorm):
+            out = {}
+            for k, g in grads.items():
+                norm = torch.sqrt(torch.sum(torch.square(g)))
+                s = torch.clamp(clip.clip_norm / torch.clamp(norm, min=1e-12),
+                                max=1.0)
+                out[k] = g * s
+            return out
+        if isinstance(clip, GradientClipByGlobalNorm):
+            total = sum(torch.sum(torch.square(g)) for g in grads.values())
+            gnorm = torch.sqrt(total)
+            scale = clip.clip_norm / torch.clamp(gnorm, min=clip.clip_norm)
+            return {k: g * scale for k, g in grads.items()}
+        raise NotImplementedError(
+            f"dygraph clip for {type(clip).__name__}")
+
+    def _eager_regularized_grad(self, p, g=None):
+        """L1/L2 weight decay folded into the grad, as
+        ``append_regularization_ops`` does in a program."""
+        from .regularizer import L1DecayRegularizer, L2DecayRegularizer
+
+        g = p._grad if g is None else g
+        reg = self.regularization
+        if reg is None:
+            return g
+        if isinstance(reg, L2DecayRegularizer):
+            return g + reg._coeff * p.value.detach()
+        if isinstance(reg, L1DecayRegularizer):
+            return g + reg._coeff * torch.sign(p.value.detach())
+        raise NotImplementedError(
+            f"dygraph regularization for {type(reg).__name__}")
+
+    def _current_lr(self) -> float:
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+
+        lr = self._learning_rate
+        if isinstance(lr, LearningRateDecay):
+            return lr()  # evaluates the current rate, advances step_num
+        if isinstance(lr, Variable):
+            raise TypeError("dygraph mode needs a float learning rate or a "
+                            "dygraph LearningRateDecay scheduler")
+        return float(lr)
+
+    def _eager_state(self, p) -> dict:
+        # per optimizer instance and by the VarBase's stable uid (an id()
+        # could be recycled after GC and hand a new parameter a dead
+        # one's moments)
+        return self._eager_accumulators.setdefault(p.uid, {})
+
+    def _eager_slots(self, p) -> dict:
+        """Extra input slots (accumulators) of the rule; default none."""
+        return {}
+
+    def _eager_store(self, p, outs) -> None:
+        """Keep the accumulator outputs after the update; default none."""
+
+    def _eager_attrs(self) -> dict:
+        return {}
 
 
 class SGDOptimizer(Optimizer):
@@ -194,6 +328,18 @@ class MomentumOptimizer(Optimizer):
                     "LearningRate": self._create_param_lr(param_and_grad)},
             outputs={"ParamOut": p, "VelocityOut": vel},
             attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+    def _eager_attrs(self):
+        return {"mu": self._momentum, "use_nesterov": self._use_nesterov}
+
+    def _eager_slots(self, p):
+        st = self._eager_state(p)
+        if "velocity" not in st:
+            st["velocity"] = torch.zeros_like(p.value.detach())
+        return {"Velocity": st["velocity"]}
+
+    def _eager_store(self, p, outs):
+        self._eager_state(p)["velocity"] = outs["VelocityOut"][0]
 
 
 class LarsMomentumOptimizer(Optimizer):
@@ -306,6 +452,29 @@ class AdamOptimizer(Optimizer):
     def _op_attrs(self):
         return {"beta1": self._beta1, "beta2": self._beta2,
                 "epsilon": self._epsilon}
+
+    def _eager_attrs(self):
+        return self._op_attrs()
+
+    def _eager_slots(self, p):
+        st = self._eager_state(p)
+        if "moment1" not in st:
+            v = p.value.detach()
+            st["moment1"] = torch.zeros_like(v)
+            st["moment2"] = torch.zeros_like(v)
+            st["beta1_pow"] = torch.tensor([self._beta1], dtype=v.dtype,
+                                           device=v.device)
+            st["beta2_pow"] = torch.tensor([self._beta2], dtype=v.dtype,
+                                           device=v.device)
+        return {"Moment1": st["moment1"], "Moment2": st["moment2"],
+                "Beta1Pow": st["beta1_pow"], "Beta2Pow": st["beta2_pow"]}
+
+    def _eager_store(self, p, outs):
+        st = self._eager_state(p)
+        st["moment1"] = outs["Moment1Out"][0]
+        st["moment2"] = outs["Moment2Out"][0]
+        st["beta1_pow"] = outs["Beta1PowOut"][0]
+        st["beta2_pow"] = outs["Beta2PowOut"][0]
 
 
 class AdamWOptimizer(AdamOptimizer):

@@ -2581,3 +2581,229 @@ def test_a_freed_batch_is_not_overwritten_while_the_step_reads_it():
     assert torch.equal(nxt["x"].cpu(), torch.from_numpy(arrays[3]))
     for a, b in zip(arrays, keep):
         assert torch.equal(b["x"].cpu(), torch.from_numpy(a))
+
+
+# ------------------------------------------------- dygraph, export, quant
+def _dy_feed(vocab, B, S, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(S // 2, S + 1, (B, 1))
+    real = np.arange(S)[None] < lens
+    masked = real & (rng.rand(B, S) < 0.15)
+    return {"src_ids": rng.randint(0, vocab, (B, S)).astype(np.int64),
+            "pos_ids": np.tile(np.arange(S, dtype=np.int64), (B, 1)),
+            "sent_ids": (np.arange(S)[None] >= lens // 2).astype(np.int64),
+            "input_mask": real.astype(np.float32),
+            "mask_label": np.where(masked, rng.randint(0, vocab, (B, S)),
+                                   -100).astype(np.int64),
+            "next_sent_label": rng.randint(0, 2, (B, 1)).astype(np.int64)}
+
+
+@pytest.mark.cuda
+def test_dygraph_embedding_grad_repeats_bit_for_bit_through_its_rule():
+    """An eager embedding gradient over many repeated ids: through
+    ``lookup_table``'s own grad rule (a sum in a fixed order), so two
+    backward passes from the same state are bit-identical on the card."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.core import registry
+
+    _cuda()
+    opdef = registry.get_op_def("lookup_table")
+    calls, real = [], opdef.grad_lower
+
+    def spy(ctx, ins, attrs):
+        calls.append(1)
+        return real(ctx, ins, attrs)
+
+    opdef.grad_lower = spy
+    try:
+        rng = np.random.RandomState(0)
+        ids = rng.randint(0, 64, (32, 128)).astype(np.int64)  # many repeats
+        cot = rng.randn(32, 128, 768).astype(np.float32)
+        grads = []
+        with dygraph.guard(fluid.CUDAPlace(0)):
+            dygraph.seed_parameters(0)
+            emb = dygraph.Embedding([30522, 768])
+            for _ in range(2):
+                e = emb(dygraph.to_variable(ids))
+                loss = dygraph.ops.reduce_sum(dygraph.ops.elementwise_mul(
+                    e, dygraph.to_variable(cot)))
+                loss.backward()
+                grads.append(emb.weight._grad.clone())
+                emb.clear_gradients()
+    finally:
+        opdef.grad_lower = real
+    assert len(calls) == 2
+    assert grads[0].is_cuda and torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_dygraph_bert_step_launches_each_flash_kernel_once_a_layer():
+    """A dygraph BERT step (``tools/torch_dygraph_bert.py``, 2 layers):
+    K1, K3 and K4 once a layer each; the eager backward reruns no
+    forward."""
+    import dataclasses
+    import sys
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parents[1]))
+    from tools.torch_dygraph_bert import DygraphBert, to_feed
+
+    _cuda()
+    cfg = dataclasses.replace(BertConfig.tiny(), hidden_size=256,
+                              num_heads=4)
+    with dygraph.guard(fluid.CUDAPlace(0), seed=3):
+        model = DygraphBert(cfg)
+        opt = fluid.optimizer.Adam(learning_rate=1e-4)
+        f = to_feed(_dy_feed(cfg.vocab_size, 4, 128))
+        for _ in range(2):
+            K.reset_launch_counts()
+            loss, _, _ = model(f)
+            loss.backward()
+            opt.minimize(loss, parameter_list=model.parameters())
+            model.clear_gradients()
+            counts = K.launch_counts()
+            assert counts["flash_attention_fwd"] == cfg.num_layers
+            assert counts["flash_attention_dq"] == cfg.num_layers
+            assert counts["flash_attention_dkv"] == cfg.num_layers
+
+
+def _conv_predictor(tmp_path, batch=2, hw=64):
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models.resnet import resnet_forward
+
+    with fluid.unique_name.guard():
+        main, start = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, start):
+            net = resnet_forward(18, 10, (3, hw, hw), is_test=True,
+                                 with_label=False)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(start, scope=scope)
+    fluid.io.save_inference_model(str(tmp_path / "m"), ["img"],
+                                  [net["logits"]], exe, main_program=main,
+                                  scope=scope)
+    pred = inference.create_paddle_predictor(
+        inference.AnalysisConfig(str(tmp_path / "m")))
+    img = np.random.RandomState(1).rand(batch, 3, hw, hw).astype(np.float32)
+    return pred, img
+
+
+@pytest.mark.cuda
+def test_export_conv_runs_in_float32_while_the_process_allows_tf32(
+        tmp_path):
+    """The artifact's convolutions run in full float32 while
+    ``cudnn.allow_tf32`` is True in the process (an exported graph does
+    not carry ``ops.common.convolution``'s settings, so the artifact's run
+    sets them), within 2e-5 normwise of the predictor; the process's
+    settings are restored."""
+    import numpy as np
+
+    from paddle_tpu_torch import inference
+
+    _cuda()
+    cudnn = torch.backends.cudnn
+    was = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = True, False
+    try:
+        pred, img = _conv_predictor(tmp_path)
+        (want,) = pred.run([img])
+        inference.export_stablehlo(pred._program, {"img": (img.shape,
+                                                           "float32")},
+                                   pred.get_output_names(),
+                                   str(tmp_path / "a.pt2"),
+                                   scope=pred._scope)
+        (got,) = inference.load_stablehlo(str(tmp_path / "a.pt2")).run(img)
+        assert (cudnn.allow_tf32, cudnn.deterministic) == (True, False)
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = was
+    err = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert err <= 2e-5, err
+
+
+@pytest.mark.cuda
+def test_export_keeps_the_kernels_as_operators_that_launch(tmp_path):
+    """BERT-tiny fused inference exported: K1 and K5 enter the graph as
+    the port's operators, and the loaded artifact launches and counts
+    them as the predictor does."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+
+    _cuda()
+    cfg = BertConfig.tiny()
+    with fluid.unique_name.guard():
+        net = build_bert_pretrain(cfg, seq_len=64, build_optimizer=False)
+    prog = net["main"].clone(for_test=True)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(net["startup"], scope=scope)
+    feed = _dy_feed(cfg.vocab_size, 4, 64)
+    fluid.io.save_inference_model(str(tmp_path / "m"), sorted(feed),
+                                  [net["loss"]], exe, main_program=prog,
+                                  scope=scope)
+    fluid.set_flags({"FLAGS_epilogue_fusion": True})
+    try:
+        pred = inference.create_paddle_predictor(
+            inference.AnalysisConfig(str(tmp_path / "m")))
+        inputs = [feed[n] for n in pred.get_input_names()]
+        pred.run(inputs)
+        K.reset_launch_counts()
+        (want,) = pred.run(inputs)
+        by_pred = K.launch_counts()
+        meta = inference.export_stablehlo(
+            pred._program, {n: (v.shape, str(v.dtype))
+                            for n, v in feed.items()},
+            pred.get_output_names(), str(tmp_path / "a.pt2"),
+            scope=pred._scope)
+    finally:
+        fluid.set_flags({"FLAGS_epilogue_fusion": False})
+    text = open(str(tmp_path / "a.pt2.txt")).read()
+    assert "paddle_tpu_torch.flash_attention_fwd" in text
+    assert "paddle_tpu_torch.fused_gemm" in text
+    art = inference.load_stablehlo(str(tmp_path / "a.pt2"))
+    K.reset_launch_counts()
+    (got,) = art.run(*[feed[n] for n in meta["feed_order"]])
+    assert K.launch_counts() == by_pred
+    assert by_pred["flash_attention_fwd"] == cfg.num_layers
+    assert by_pred["fused_gemm"] > 0
+    torch.testing.assert_close(torch.as_tensor(got), torch.as_tensor(want),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op_type", [
+    "fake_quantize_dequantize_abs_max",
+    "fake_quantize_dequantize_moving_average_abs_max"])
+def test_quant_levels_on_the_card_equal_the_cpu(op_type):
+    """The fake-quant levels on the card equal the CPU's exactly, on
+    values placed at and beside the rounding boundaries (the division by
+    qmax is a true division: a reciprocal product would move them)."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.lowering import LowerCtx
+
+    g = _cuda()
+    scale = 3.7
+    k = torch.arange(-127, 128, dtype=torch.float32)
+    half = (k + 0.5) * scale / 127.0
+    v = torch.cat([k * scale / 127.0, half, torch.nextafter(half, half + 1),
+                   torch.nextafter(half, half - 1),
+                   torch.randn(4096, generator=g, device="cuda").cpu() * 2])
+    ins = {"X": [v]}
+    if "moving" in op_type:
+        ins["InScale"] = [torch.tensor([scale])]
+    rule = registry.get_op_def(op_type).lower
+    attrs = {"bit_length": 8, "moving_rate": 0.9, "is_test": False}
+    cpu = rule(LowerCtx("cpu"), ins, attrs)
+    card = rule(LowerCtx("cuda"), {s: [t.cuda() for t in vals]
+                                   for s, vals in ins.items()}, attrs)
+    for slot in ("Out", "OutScale"):
+        assert torch.equal(card[slot][0].cpu(), cpu[slot][0]), slot

@@ -8,10 +8,9 @@ relative, 1e-12 absolute: both packages compute the bounds in Python
 floats by the same rules, so they agree to rounding), ``static_intervals``
 and the PT906 work-list. The positive and negative controls mirror the
 JAX package's ``tests/test_numerics.py`` (its fixtures under
-``tests/fixtures/numerics`` rebuilt here in both packages); the port does
-not register the fake-quant ops yet, so its PT900/PT901 programs carry a
-registered stand-in op retyped after append, as the rules read only the
-type and slots. Then the runtime side: with ``FLAGS_numerics_witness``
+``tests/fixtures/numerics`` rebuilt here in both packages); the PT900/PT901
+programs carry the fake-quant ops each package registers
+(``ops/quant_ops.py``). Then the runtime side: with ``FLAGS_numerics_witness``
 every value the port observes lies inside its static interval,
 tolerance-free (``test_numwitness.py``'s containment check).
 """
@@ -45,12 +44,8 @@ IV_RTOL, IV_ATOL = 1e-6, 1e-12
 def _build(P, fn):
     with P.un.guard():
         main, startup = P.fl.Program(), P.fl.Program()
-        main._retype = []
         with P.fl.program_guard(main, startup):
             fetch, handles = fn(P, main)
-    for op, op_type, ins, outs in main._retype:
-        op.type, op.inputs, op.outputs = op_type, ins, outs
-        op.attrs = {"bit_length": 8}
     return main, startup, fetch, handles
 
 
@@ -100,11 +95,8 @@ def _codes(rep):
 
 
 def _fake_quant(P, main, op_type, x, name, in_scale=None):
-    """One fake-quant(-dequant) op on ``x``: the real op in the JAX
-    package; in the port, which registers none yet, a registered stand-in
-    (``assign``) retyped once the program is built (the numerics rules
-    read type and slots; the port's backward needs the stand-in's
-    schema)."""
+    """One fake-quant(-dequant) op on ``x``, the op each package
+    registers."""
     blk = main.global_block
     q = blk.create_var(name=f"{name}.quantized", shape=x.shape,
                        dtype="float32")
@@ -114,13 +106,8 @@ def _fake_quant(P, main, op_type, x, name, in_scale=None):
     if in_scale is not None:
         ins["InScale"] = [in_scale]
     outs = {"Out": [q.name], "OutScale": [s.name]}
-    if P is JAX:
-        blk.append_op(op_type, inputs=ins, outputs=outs,
-                      attrs={"bit_length": 8})
-    else:
-        blk.append_op("assign", inputs={"X": [x.name]},
-                      outputs={"Out": [q.name]})
-        main._retype.append((blk.ops[-1], op_type, ins, outs))
+    blk.append_op(op_type, inputs=ins, outputs=outs,
+                  attrs={"bit_length": 8})
     return q, s
 
 

@@ -608,6 +608,10 @@ DETECTION_OPS = {"prior_box", "anchor_generator", "iou_similarity",
                  "deformable_conv", "deformable_psroi_pooling",
                  "prroi_pool", "psroi_pool", "py_func",
                  "sampled_softmax_with_cross_entropy"}
+# the fake-quant ops, each against the JAX rule, forward and gradient, in
+# tests/test_torch_slim.py
+QUANT_OPS = {"fake_quantize_dequantize_abs_max",
+             "fake_quantize_dequantize_moving_average_abs_max"}
 
 
 def test_every_path_op_has_a_case():
@@ -615,13 +619,13 @@ def test_every_path_op_has_a_case():
     distribution: here, in tests/test_torch_train.py and
     tests/test_torch_mlp.py), the sub-block ones, the control-flow ones,
     the LoD ones, the nn group, the SelectedRows utilities, the misc and
-    image groups and the detection ops has a case."""
+    image groups, the detection ops and the fake-quant ops has a case."""
     from paddle_tpu_torch.core import registry
     from test_torch_lod import builtin_ops
 
     others = (RANDOM_OPS | BLOCK_OPS | CONTROL_FLOW_OPS | LOD_OPS
               | NN_GROUP_OPS | SPARSE_OPS | MISC_OPS | IMAGE_OPS
-              | DETECTION_OPS)
+              | DETECTION_OPS | QUANT_OPS)
     assert len(CASES) == 169 and not others & set(CASES)
     assert set(CASES) | others == builtin_ops(registry, "paddle_tpu_torch")
 

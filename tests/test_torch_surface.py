@@ -31,17 +31,12 @@ STILL_MISSING = {
         "TPUPlace": NO_TPU,
         "aot_cache": "aot_cache.py (item 4): what it caches is undecided, "
                      "as the port compiles no program",
-        "dygraph": "dygraph (item 4)",
-        "inference": "inference/ over torch.export (item 4)",
     },
     "analysis": {
         "CollectiveEvent": MULTI, "CommsReport": MULTI,
         "comms_compute_ratio": MULTI, "estimate_comms": MULTI,
         "ShardingAnalysis": MULTI, "propagate_sharding": MULTI,
         "sharding_check": MULTI,
-    },
-    "contrib": {
-        "slim": "contrib/slim with the quant ops (item 4)",
     },
     "executor": {"TPUPlace": NO_TPU},
     "flags": {"xla_options": "FLAGS_xla_options is XLA's; the port keeps "
@@ -65,8 +60,7 @@ STILL_MISSING = {
         "telemetry_enabled": FLEET,
         "observe_comms_cost": MULTI,
     },
-    "ops": {"quant_ops": "the quant ops go with contrib/slim (item 4)",
-            "pipeline_op": MULTI},
+    "ops": {"pipeline_op": MULTI},
     "resilience": {n: SHARDED for n in (
         "ReplicaDivergenceError", "handle_divergence",
         "replica_divergence_check", "set_divergence_recovery",
@@ -180,7 +174,7 @@ def test_the_list_holds_no_name_already_ported(missing):
         assert set(names) <= missing.get(mod, set()), \
             (mod, sorted(set(names) - missing.get(mod, set())))
         assert all(names.values())
-    assert sum(len(v) for v in STILL_MISSING.values()) == 48
+    assert sum(len(v) for v in STILL_MISSING.values()) == 44
 
 
 @pytest.mark.parametrize("mod", sorted(ITEM_2))
@@ -213,6 +207,8 @@ def test_the_ported_helpers_behave_as_the_reference():
     finally:
         tf.framework.switch_main_program(prev)
     assert not tf.in_dygraph_mode()
+    with tf.dygraph.guard(tf.CPUPlace()):
+        assert tf.in_dygraph_mode()
     scope = tf.Scope()
     with tf.scope_guard(scope):
         assert tf.global_scope() is scope
