@@ -18,8 +18,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    prefill [96,128|512,64] causal, f32 and bf16; training [384,128,64]
    and, under AMP, [384,512,64] with dropout; inference [384,512,64];
    K3/K4 at the same training shapes; K5 at the inference GEMMs in f32
-   and, under AMP, bf16 x and y with an f32 output, and at DeepFM's
-   [4096,400]@[400,400] +bias+relu f32) against its
+   and, under AMP, bf16 x and y with an f32 output, at DeepFM's
+   [4096,400]@[400,400] +bias+relu f32, and on its split-k route at
+   ResNet-50's f32 fc head [8,2048]@[2048,1000] and [8,3072]@[3072,768])
+   against its
    plain PyTorch version (``kernels.KERNEL_TOL``: f32 atol 1e-4 / rtol
    1e-3, the two sum in different orders; bf16 atol 8e-3 / rtol 1.6e-2,
    about two bf16 ulp), checks that K1, K3 and K4 drop exactly the
@@ -220,10 +222,12 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    temporary directory, on BERT-base bf16 fused inference (batch 32, seq
    512) and ResNet-50 bf16 fused inference (batch 128): under
    ``FLAGS_autotune=measure`` every default candidate (chained
-   differencing at 2 and 6 forwards, the least of 3 dispatches) is
-   recorded and launches K5 at its own triple only, and the compiled
-   default is timed once more, recorded nowhere, for the host spread;
-   under ``use`` one
+   differencing at ``TUNE_K_SHORT`` and ``TUNE_K_LONG`` forwards, the
+   least of ``TUNE_REPEATS`` dispatches) is recorded and launches K5 at
+   its own triple only, and the compiled default is timed once more,
+   recorded nowhere, for the host spread, while this process runs (c)
+   and (d) (the candidates' times are reported, not gated); under
+   ``use`` one
    forward runs straight at the recorded best (``autotune_hits_total``
    >= 1, K5 at the best triple only, zero new trials) and its loss is
    within ``AMP_LOSS_RTOL[0]`` of an untuned forward. (c)
@@ -414,8 +418,8 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (batch 8) the same ways with ``cudnn.allow_tf32`` True in the
    process: the artifact within ``PRED_CONV_TOL`` of the predictor (its
    run sets cuDNN's float32 settings and restores them), each way
-   launching what ``Executor.run`` launches (the fusion witness decides
-   the fc head). Reports forward ms each way, the fusion decisions and
+   launching K5 once a forward (``PRED_CONV_LAUNCHES``: the fusion
+   witness takes the fc head, on K5's split-k route). Reports forward ms each way, the fusion decisions and
    the export's and load's seconds and size.
 26. qat — quant-aware training of ResNet-50 (``contrib.slim.quant_aware``
    before ``minimize``, ``QAT_OPS`` fake-quant ops: abs-max on each
@@ -427,7 +431,28 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    * max|x|; one step at batch 2 with every op run again on the CPU from
    the card's inputs: each float output within ``QAT_CPU_TOL`` normwise,
    the fake-quant and integer outputs equal. No port kernel launches.
-27. prints the script time of each phase and part (``[seconds]``), the
+27. fleet — the fleet serving tier (``serving.fleet``). (a) Two GPT-2 small
+   replicas (``GptConfig.base()``, 8 slots, ``max_seq`` 1024, page 8,
+   prompt buckets 128/512; each a ``GenerativeEngine`` with its own
+   executor behind its own ``ServingFrontend`` on port 0, the same seeded
+   parameters) behind a ``FleetRouter``: 8 prompts one at a time through
+   ``/v1/generate`` equal token for token to the same prompt in one engine
+   directly; 32 requests of 32 tokens at once, every one completed with 32
+   tokens, the router's and both engines' accounting exact, K1 and K2
+   launched exactly 12 a prefill dispatch and 12 a decode step or chunked-
+   prefill slice; one replica stopped mid-stream (partial tokens, then a
+   typed outcome) and later requests on its sibling. Reports routed and
+   direct tokens/s and the router's host CPU ms a request. (b) BERT-base
+   bf16 fused inference behind a front-end: 16 ``/v1/submit`` rows bit-
+   identical to the same rows submitted to the engine (bucket 1; K1 12 and
+   K5 74 a dispatch). (c) ``gpt_tiny`` replica processes on the card under
+   a ``ReplicaSupervisor``: a cold one filling a fresh warm-start cache
+   (``--aot-cache``), then SIGTERM-drained (the ``exit`` event, code 0);
+   one started with ``--crash-after-s`` classified ``crash`` and restarted;
+   an autoscaler scale-out from a pressure trace, whose replica is the warm
+   start (hits, no errors, the cold tokens); the aggregator's exact merge
+   of both live replicas' latency histograms. Alone: ``--phases fleet``.
+28. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -903,7 +928,11 @@ GEMM_ROWS = (
     # ResNet-50 bf16 inference: the fc head, batch 128
     (128, 1000, 2048, "bias", torch.bfloat16, torch.float32),
     # DeepFM inference: the two 400 x 400 fc + relu chains, batch 4096
-    (4096, 400, 400, "bias+relu", torch.float32, torch.float32))
+    (4096, 400, 400, "bias+relu", torch.float32, torch.float32),
+    # the f32 route's k splits at small M: ResNet-50's fc head at the
+    # predictor's batch 8, and BERT-base's FFN2 at 8 rows
+    (8, 1000, 2048, "bias", torch.float32, torch.float32),
+    (8, 768, 3072, "bias", torch.float32, torch.float32))
 
 
 def check_gemm(gen, m, n, k, epilogue, dtype, out_dtype,
@@ -1191,7 +1220,7 @@ def compare_tokens(ref_tokens, other_tokens, gaps, ref_name, other_name):
 # drifts within a call, so no way always runs first)
 SPEC_OVERHEAD_RUNS = ((True, False), (True, True), (False, False),
                       (False, True))
-SPEC_OVERHEAD_REST = 5
+SPEC_OVERHEAD_REST = 3
 SPEC_OVERHEAD_ROUNDS = 3
 
 
@@ -2442,7 +2471,7 @@ def phase_train_remat(seed):
 GUARD_BATCH, GUARD_SEQ, GUARD_STEPS = 32, 512, 3
 GUARD_CLIP_NORM = 1.0
 GUARD_CLIP_RTOL = 1e-5
-GUARD_TIMED_STEPS = 4
+GUARD_TIMED_STEPS = 3
 # the embedding tables and the ids that index them in a BERT step
 GUARD_TABLES = (("word_embedding", "src_ids"), ("pos_embedding", "pos_ids"),
                 ("sent_embedding", "sent_ids"))
@@ -3829,9 +3858,10 @@ def phase_infer_resnet(seed):
 # (GEMM_ROWS' bf16 rows), ResNet-50's fc head and BERT's FFN1 in f32
 TUNE_GEMM_ROWS = tuple(r for r in GEMM_ROWS if r[4] == torch.bfloat16) + (
     GEMM_ROWS[1],)
-# the autotuner's measurement: chained differencing at 2 and 6 forwards,
-# the least of 3 timed dispatches each
-TUNE_K_SHORT, TUNE_K_LONG, TUNE_REPEATS = 2, 6, 3
+# the autotuner's measurement: chained differencing at 2 and 4 forwards,
+# the least of 2 timed dispatches each (6 and 3 until the fleet phase
+# needed the room in the script's time limit)
+TUNE_K_SHORT, TUNE_K_LONG, TUNE_REPEATS = 2, 4, 2
 TUNE_CHILD_TIMEOUT_S = 420
 # the programs the round trip tunes: BERT-base bf16 fused inference at
 # the bench shape and ResNet-50 bf16 fused inference at batch 128
@@ -3943,25 +3973,45 @@ def tune_child(argv):
     return 0
 
 
-def _spawn_tune_child(mode, db_path, seed):
+def _start_tune_child(mode, db_path, seed):
     """``python3 -c`` running ``tune_child`` in a fresh process from this
     script's directory (imports this script and the port, nothing of
-    JAX)."""
+    JAX); :func:`_finish_tune_child` reads its result."""
     env = dict(os.environ, FLAGS_autotune=mode, FLAGS_autotune_db=db_path)
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-c",
            "import sys, chip_smoke; "
            "sys.exit(chip_smoke.tune_child(sys.argv[1:]))", mode, str(seed)]
-    proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
-                          text=True, timeout=TUNE_CHILD_TIMEOUT_S)
-    for line in proc.stdout.splitlines():
+    # its output into files beside the database: a pipe left unread
+    # while this process works would stall it
+    logs = [open(os.path.join(os.path.dirname(db_path),
+                              f"{mode}.{kind}"), "w+")
+            for kind in ("out", "err")]
+    return mode, subprocess.Popen(cmd, cwd=here, env=env, stdout=logs[0],
+                                  stderr=logs[1], text=True), logs
+
+
+def _finish_tune_child(child):
+    mode, proc, logs = child
+    try:
+        proc.wait(timeout=TUNE_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    out, err = texts
+    for line in out.splitlines():
         if line.startswith("TUNE_CHILD "):
             if proc.returncode != 0:
                 break
             return json.loads(line[len("TUNE_CHILD "):])
     raise SystemExit(f"chip_smoke: the autotune {mode} process failed "
-                     f"(rc={proc.returncode}):\n{proc.stdout[-3000:]}\n"
-                     f"{proc.stderr[-3000:]}")
+                     f"(rc={proc.returncode}):\n{out[-3000:]}\n"
+                     f"{err[-3000:]}")
 
 
 def tune_gemm_rows(seed):
@@ -3984,17 +4034,30 @@ def tune_gemm_rows(seed):
     return rows
 
 
-def tune_roundtrip(seed):
+def tune_roundtrip(seed, meanwhile):
     """The reference's autotune flow in two fresh processes sharing one
-    cost database (in a temporary directory, removed after)."""
+    cost database (in a temporary directory, removed after). This
+    process runs ``meanwhile()`` while the ``measure`` process runs (the
+    candidates' times are reported, never gated) and returns its result
+    beside the round trip's."""
     from paddle_tpu_torch.kernels.fused_gemm import DEFAULT_BLOCKS
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as d:
         db_path = os.path.join(d, "autotune_db.json")
         with timed("tune.measure"):
-            measured = _spawn_tune_child("measure", db_path, seed)
+            child = _start_tune_child("measure", db_path, seed)
+            try:
+                during = meanwhile()
+            except BaseException:
+                child[1].kill()
+                child[1].wait()
+                for f in child[2]:
+                    f.close()
+                raise
+            measured = _finish_tune_child(child)
         with timed("tune.use"):
-            used = _spawn_tune_child("use", db_path, seed)
+            used = _finish_tune_child(_start_tune_child("use", db_path,
+                                                        seed))
     n_cands = len(K.COMPILED_BLOCKS)
     for name in TUNE_PROGRAMS:
         m, u = measured["programs"][name], used["programs"][name]
@@ -4052,7 +4115,7 @@ def tune_roundtrip(seed):
                              f"{u['loss_tuned']} against untuned "
                              f"{u['loss_untuned']} (rel {rel:.3e} > "
                              f"{AMP_LOSS_RTOL[0]})")
-    return dict(measure=measured, use=used)
+    return dict(measure=measured, use=used), during
 
 
 def _severity_counts(diags):
@@ -4200,12 +4263,15 @@ def phase_tune(seed):
             rows = tune_gemm_rows(seed)
     finally:
         fluid.set_flags({"FLAGS_use_fused_gemm": "auto"})
-    roundtrip = tune_roundtrip(seed)
-    with timed("tune.verify"):
-        verified = tune_verify(seed)
-    torch.cuda.empty_cache()
-    with timed("tune.containment"):
-        contained = tune_containment(seed)
+    def meanwhile():
+        with timed("tune.verify"):
+            verified = tune_verify(seed)
+        torch.cuda.empty_cache()
+        with timed("tune.containment"):
+            contained = tune_containment(seed)
+        return verified, contained
+
+    roundtrip, (verified, contained) = tune_roundtrip(seed, meanwhile)
     return dict(gemm_rows=rows, roundtrip=roundtrip, verify=verified,
                 containment=contained, launches=contained["launches"])
 
@@ -4216,7 +4282,7 @@ def phase_tune(seed):
 # minibatches of 80 sentences of 50 words; beam 4 and max_len 50 are ours
 S2S_VOCAB, S2S_EMB, S2S_HIDDEN, S2S_LEN, S2S_BATCH = 30000, 620, 1000, 50, 80
 S2S_BEAM, S2S_MAX_LEN, S2S_DECODE_BATCH = 4, 50, 80
-S2S_STEPS, S2S_REPEAT_STEPS, S2S_CPU_STEPS, S2S_DECODES = 10, 3, 3, 3
+S2S_STEPS, S2S_REPEAT_STEPS, S2S_CPU_STEPS, S2S_DECODES = 10, 3, 2, 3
 # card against CPU: the f32 rtol of step 1 and of later steps (PERF.md §2)
 S2S_LOSS_RTOL = (1e-5, 1e-3)
 # decode against CPU: scores of a held source, the beam margin that holds
@@ -4535,7 +4601,7 @@ def s2s_scratch_scope(state, device="cuda"):
 # lengths per sentence uniform in 10..50 (ours; the paper only bounds
 # them), fed through the DataFeeder with one bucket of 50
 GE_MIN_LEN, GE_MAX_LEN, GE_PAD_LEN = 10, 50, 64
-GE_STEPS, GE_REPEAT_STEPS, GE_CPU_STEPS, GE_VARLEN_STEPS = 10, 3, 3, 3
+GE_STEPS, GE_REPEAT_STEPS, GE_CPU_STEPS, GE_VARLEN_STEPS = 10, 3, 2, 3
 GE_LR = 1e-3
 # one batch padded to 50 and to 64: the same loss (padding is masked)
 GE_PAD_RTOL = 1e-5
@@ -5171,7 +5237,7 @@ def phase_deepfm_infer(ctx, seed):
 # and run twice on the card bit for bit (the random ops by content,
 # determinism and distribution). A case's published width is never cut;
 # where the batch is assumed, MI_CASE_NOTES says so.
-MI_TIMED_RUNS = 2
+MI_TIMED_RUNS = 1
 # normwise: max |card - cpu| <= tol * max |cpu| (ints exactly); data
 # movement and elementwise ops round once, sums and products carry their
 # summation order, the 3-D convolutions cuDNN's against oneDNN's
@@ -7420,6 +7486,9 @@ def phase_dygraph(seed):
 PRED_FORWARDS = 3
 PRED_EXPORT_TOL = 1e-5
 PRED_CONV_TOL, PRED_CONV_BATCH = 2e-5, 8
+# the fused ResNet-50 f32 forward launches K5 once, on its fc head (the
+# split-k route at batch 8), and nothing else of the port's kernels
+PRED_CONV_LAUNCHES = {"fused_gemm": 1}
 
 
 def pred_forwards(run, forwards=PRED_FORWARDS):
@@ -7552,14 +7621,14 @@ def phase_predictor(seed):
                 f"k={w.get('k')} {w.get('route')} max abs err "
                 f"{w.get('max_abs_err')} {w.get('reason', '')}"
                 for w in d.get("witness") or []))
-    want = {n: INFER_LAUNCHES.get(n, 0) for n in K.KERNEL_SOURCES}
-    for tag, r in (("BERT-base", bert), ("ResNet-50", conv)):
+    for tag, r, counts in (("BERT-base", bert, INFER_LAUNCHES),
+                           ("ResNet-50", conv, PRED_CONV_LAUNCHES)):
         if not r["exact"]:
             raise SystemExit(f"chip_smoke: the {tag} predictor differs from "
                              f"Executor.run")
-        # the artifact and the predictor launch what Executor.run does;
-        # for BERT-base that is the infer phase's count
-        w = want if tag == "BERT-base" else r["launches"]["executor"]
+        # Executor.run, the predictor and the artifact each launch the
+        # forward's count: for BERT-base the infer phase's
+        w = {n: counts.get(n, 0) for n in K.KERNEL_SOURCES}
         for way, got in r["launches"].items():
             if got != w:
                 raise SystemExit(f"chip_smoke: {tag} {way} launched {got} a "
@@ -7751,12 +7820,533 @@ def phase_qat(seed):
                 op_parity=worst, op_parity_exact=exact, launches=launches)
 
 
+# ---------------------------------------------------------------- fleet
+# the fleet serving tier (paddle_tpu_torch.serving.fleet) at full width:
+# (a) two GPT-2 small replicas (GenerativeEngine + ServingFrontend each, in
+# this process, each with its own executor) behind a FleetRouter; (b) the
+# BERT-base bf16 fused batching engine behind a front-end; (c) gpt_tiny
+# replica processes under a ReplicaSupervisor: a cold and a warm start
+# from one warm-start cache, a crashing replica restarted, a SIGTERM
+# drain, the telemetry aggregator's merged latency histogram and one
+# autoscaler scale-out
+FLEET_SEQ_PROMPTS, FLEET_SEQ_TOKENS = 8, 16
+FLEET_CONC_REQUESTS, FLEET_CONC_TOKENS = 32, 32
+FLEET_DRAIN_TOKENS = 64
+FLEET_SUBMITS = 16
+FLEET_READY_S = 240
+FLEET_TINY_PROMPTS = ([3, 1, 4, 1, 5], [9, 2, 6], [5, 3, 5, 8, 9, 7, 9])
+# direct submissions take the routed requests' priority (the wire's
+# standard SLO class), so degraded-mode shedding treats both alike
+FLEET_PRIORITY = 1
+
+
+def fleet_prompts(seed, vocab, n, lo=20, hi=500):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, vocab, int(rng.randint(lo, hi)))
+            for _ in range(n)]
+
+
+def fleet_gpt_replica(model, params, rid):
+    """One GPT-2 small replica: its own scope (the same parameters), its
+    own executor, warmed up, behind its own front-end on port 0."""
+    from paddle_tpu_torch.serving.fleet import ServingFrontend
+
+    scope = fluid.Scope()
+    for n, t in params.items():
+        scope.set_var(n, t)
+    eng = GenerativeEngine(
+        model, scope=scope, executor=fluid.Executor(),
+        config=ServingConfig(queue_depth=128, deadline_s=0),
+        gen_config=GenerationConfig(decode_chunk=8))
+    eng.warm_up()
+    eng.start()
+    fe = ServingFrontend(eng, replica_id=rid, request_timeout_s=600)
+    fe.start()
+    return eng, fe
+
+
+def fleet_stream(router, prompt, tokens):
+    """(tokens, typed outcome name or None, seconds, host ms) of one
+    routed generation; the host ms are the calling thread's CPU time
+    (the router's dispatch, its HTTP client and the chunk parsing: a
+    thread blocked on the socket spends none)."""
+    from paddle_tpu_torch.serving.fleet import ReplicaLost
+
+    got, err = [], None
+    t0, c0 = time.perf_counter(), time.thread_time()
+    try:
+        for t in router.generate(prompt, max_new_tokens=tokens):
+            got.append(t)
+    except (ServingError, ReplicaLost) as e:
+        err = type(e).__name__
+    return (got, err, time.perf_counter() - t0,
+            (time.thread_time() - c0) * 1e3)
+
+
+def _phase_units(engines, phase, key):
+    return sum(e.generation_stats()["phase_time"].get(phase, {}).get(key, 0)
+               for e in engines)
+
+
+def _k2_units(engines):
+    """K2 launches a layer: one a decode step and one a chunked-prefill
+    slice (its rows attend to the cache through K2 too)."""
+    return _phase_units(engines, "decode", "units") + _phase_units(
+        engines, "chunk", "dispatches")
+
+
+def fleet_quiesce(engines, timeout=30.0):
+    """Wait until no slot is resident and the launch counts and the
+    engines' phase records stop moving: a dispatch's record lands after
+    its launches, so counts read mid-dispatch would not match."""
+    def state():
+        return (K.launch_counts(),
+                _phase_units(engines, "prefill", "dispatches"),
+                _k2_units(engines),
+                [e.generation_stats()["resident"] for e in engines])
+
+    prev, deadline = None, time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        torch.cuda.synchronize()
+        cur = state()
+        if cur == prev and not any(cur[3]):
+            return
+        prev = cur
+        time.sleep(0.1)
+    raise SystemExit(f"chip_smoke: the fleet's engines did not go idle "
+                     f"within {timeout:g} s: {prev}")
+
+
+def fleet_generative(seed):
+    """Part (a); returns its report and its launches."""
+    from paddle_tpu_torch.serving.fleet import (FleetRouter, Replica,
+                                                RouterConfig)
+
+    cfg = GptConfig.base()
+    model = build_gpt_generative(cfg, batch_slots=8, max_seq=1024,
+                                 page_size=8, prompt_buckets=(128, 512))
+    model["startup"].random_seed = seed
+    pscope = fluid.Scope()
+    fluid.Executor().run(model["startup"], scope=pscope)
+    params = dict(pscope.vars)
+    reps = [fleet_gpt_replica(model, params, f"g{i}") for i in range(2)]
+    engines = [e for e, _ in reps]
+    router = FleetRouter([Replica(f"g{i}", "127.0.0.1", fe.port)
+                          for i, (_, fe) in enumerate(reps)],
+                         RouterConfig(request_timeout_s=600))
+    router.poll_now()
+    prompts = fleet_prompts(seed + 5, cfg.vocab_size,
+                            FLEET_SEQ_PROMPTS + FLEET_CONC_REQUESTS + 1)
+    try:
+        K.reset_launch_counts()
+        pre0 = _phase_units(engines, "prefill", "dispatches")
+        dec0 = _k2_units(engines)
+        # sequential: one request in flight, routed, then the same prompt
+        # straight into one engine
+        t_seq = time.perf_counter()
+        seq, overhead, host_ms = [], [], []
+        for p in prompts[:FLEET_SEQ_PROMPTS]:
+            toks, err, routed_s, ms = fleet_stream(router, p,
+                                                   FLEET_SEQ_TOKENS)
+            t0 = time.perf_counter()
+            direct = engines[0].submit(
+                p, max_new_tokens=FLEET_SEQ_TOKENS, priority=FLEET_PRIORITY
+            ).result(timeout=600)[0].tolist()
+            direct_s = time.perf_counter() - t0
+            seq.append(dict(equal=toks == direct, err=err, n=len(toks)))
+            overhead.append((routed_s - direct_s) * 1e3)
+            host_ms.append(ms)
+        TIMES["fleet.sequential"] = time.perf_counter() - t_seq
+        # concurrent: FLEET_CONC_REQUESTS routed at once, then the same
+        # prompts straight into the two engines at once (at the routed
+        # requests' priority, the wire's standard class)
+        conc = prompts[FLEET_SEQ_PROMPTS:-1]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(conc)) as pool:
+            routed = list(pool.map(
+                lambda p: fleet_stream(router, p, FLEET_CONC_TOKENS), conc))
+        routed_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        futs = [engines[i % 2].submit(p, max_new_tokens=FLEET_CONC_TOKENS,
+                                      priority=FLEET_PRIORITY)
+                for i, p in enumerate(conc)]
+        direct = [f.result(timeout=900)[0].tolist() for f in futs]
+        direct_wall = time.perf_counter() - t0
+        fleet_quiesce(engines)
+        launches_exact = K.launch_counts()
+        want = {"flash_attention_fwd": cfg.num_layers * (
+                    _phase_units(engines, "prefill", "dispatches") - pre0),
+                "decode_attention": cfg.num_layers * (
+                    _k2_units(engines) - dec0)}
+        acct_router = router.accounting()
+        acct_eng = [e.accounting() for e in engines]
+        # drain: a long stream pinned to g0 (g1 looks loaded), g0 stopped
+        # after two tokens; later requests land on g1
+        g1 = router.get_replica("g1")
+        g1._update({**g1.snapshot(), "queue_depth": 10 ** 6})
+        gen = router.generate(prompts[-1], max_new_tokens=FLEET_DRAIN_TOKENS)
+        partial, drain_err = [], None
+        try:
+            for t in gen:
+                partial.append(t)
+                if len(partial) == 2:
+                    engines[0].stop(drain=False)
+        except ServingError as e:
+            drain_err = type(e).__name__
+        router.poll_now()
+        before = [e.accounting()["submitted"] for e in engines]
+        after_drain = [fleet_stream(router, p, 8)[:2]
+                       for p in prompts[:4]]
+        moved = [e.accounting()["submitted"] - b
+                 for e, b in zip(engines, before)]
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        acct_final = router.accounting()
+    finally:
+        router.stop()
+        for eng, fe in reps:
+            fe.stop(wait_inflight_s=5.0)
+            if not eng._stopped:
+                eng.stop(drain=True)
+    n_routed = sum(len(r[0]) for r in routed)
+    n_direct = sum(len(t) for t in direct)
+    conc_ms = [r[3] for r in routed]
+    res = dict(
+        sequential=seq, routed_minus_direct_ms=overhead,
+        router_host_ms_per_request=float(np.mean(host_ms + conc_ms)),
+        router_host_ms=dict(sequential=float(np.mean(host_ms)),
+                            concurrent=float(np.mean(conc_ms))),
+        routed_tok_per_s=n_routed / routed_wall,
+        direct_tok_per_s=n_direct / direct_wall,
+        routed_wall_s=routed_wall, direct_wall_s=direct_wall,
+        concurrent_errors=[r[1] for r in routed if r[1]],
+        concurrent_counts=sorted({len(r[0]) for r in routed}),
+        concurrent_equal_direct=sum(r[0] == d for r, d
+                                    in zip(routed, direct)),
+        accounting=dict(router=acct_router, engines=acct_eng,
+                        final=acct_final),
+        drain=dict(partial=len(partial), outcome=drain_err,
+                   after=[(len(t), e) for t, e in after_drain],
+                   moved=moved),
+        launches=launches, launches_exact=launches_exact,
+        launches_want=want)
+    log(f"[fleet] (a) GPT-2 small x 2 replicas behind the router: "
+        f"sequential {FLEET_SEQ_PROMPTS} x {FLEET_SEQ_TOKENS} tokens equal "
+        f"to the direct engine run: {sum(s['equal'] for s in seq)}/"
+        f"{len(seq)}; the router's host ms a request (the calling "
+        f"thread's CPU time) {res['router_host_ms']['sequential']:.3f} "
+        f"sequential, {res['router_host_ms']['concurrent']:.3f} "
+        f"concurrent; routed minus direct wall "
+        f"{float(np.median(overhead)):.2f} ms (median, one in flight)")
+    log(f"  concurrent {FLEET_CONC_REQUESTS} x {FLEET_CONC_TOKENS}: routed "
+        f"{res['routed_tok_per_s']:.2f} tok/s ({routed_wall:.3f} s), direct "
+        f"{res['direct_tok_per_s']:.2f} tok/s ({direct_wall:.3f} s); token "
+        f"counts {res['concurrent_counts']}, errors "
+        f"{res['concurrent_errors']}, streams equal to the direct run "
+        f"{res['concurrent_equal_direct']}/{len(conc)}; router exact="
+        f"{acct_router['exact']} completed={acct_router['completed']}, "
+        f"engines exact={[a['exact'] for a in acct_eng]} completed="
+        f"{[a['completed'] for a in acct_eng]}")
+    log(f"  drain: g0 stopped mid-stream after {len(partial)} tokens -> "
+        f"{drain_err}; then {res['drain']['after']} landed "
+        f"{moved} (g0, g1); launches {launches_exact} (want {want}), "
+        f"with the drain {launches}")
+    bad = [s for s in seq if not s["equal"] or s["err"]
+           or s["n"] != FLEET_SEQ_TOKENS]
+    if bad:
+        raise SystemExit(f"chip_smoke: routed streams differ from the "
+                         f"direct engine run: {seq}")
+    if res["concurrent_errors"] or res["concurrent_counts"] != \
+            [FLEET_CONC_TOKENS]:
+        raise SystemExit(f"chip_smoke: concurrent routed requests "
+                         f"{res['concurrent_errors']}, token counts "
+                         f"{res['concurrent_counts']}")
+    if not (acct_router["exact"] and all(a["exact"] for a in acct_eng)
+            and acct_final["exact"]) or acct_router["completed"] != \
+            FLEET_SEQ_PROMPTS + FLEET_CONC_REQUESTS or sum(
+                a["completed"] for a in acct_eng) != 2 * (
+                FLEET_SEQ_PROMPTS + FLEET_CONC_REQUESTS):
+        raise SystemExit(f"chip_smoke: fleet accounting broken: router "
+                         f"{acct_router}, engines {acct_eng}")
+    if not (2 <= len(partial) < FLEET_DRAIN_TOKENS) or drain_err is None:
+        raise SystemExit(f"chip_smoke: the drained replica's stream gave "
+                         f"{len(partial)} tokens and outcome {drain_err}")
+    if moved[0] != 0 or moved[1] != len(after_drain) or any(
+            e or n != 8 for n, e in res["drain"]["after"]):
+        raise SystemExit(f"chip_smoke: requests after the drain "
+                         f"{res['drain']}")
+    for name in K.KERNEL_SOURCES:
+        if launches_exact[name] != want.get(name, 0):
+            raise SystemExit(f"chip_smoke: fleet (a) launched {name} "
+                             f"{launches_exact[name]} times, expected "
+                             f"{want.get(name, 0)}")
+    return res
+
+
+def fleet_batching(seed):
+    """Part (b): BERT-base bf16 fused inference behind a front-end; each
+    routed /v1/submit equals the same feed submitted to the engine."""
+    from paddle_tpu_torch.serving.fleet import (FleetRouter, Replica,
+                                                ServingFrontend)
+
+    cfg = BertConfig.base()
+    net = build_bert_pretrain(cfg, seq_len=BATCH_SEQ, build_optimizer=False)
+    net["startup"].random_seed = seed
+    prog = mixed_precision.decorate_program(net["main"].clone(for_test=True))
+    enc = next(op.input("X")[0] for op in prog.global_block.ops
+               if op.type == "mul" and op.input("Y")[0] == "mlm_trans_w")
+    names = list(net["feeds"])
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(net["startup"], scope=scope)
+    data = bert_feed(seed + 3, cfg.vocab_size, FLEET_SUBMITS, BATCH_SEQ)
+    rows = [{n: data[n][i:i + 1] for n in names}
+            for i in range(FLEET_SUBMITS)]
+    fluid.set_flags({"FLAGS_epilogue_fusion": True})
+    eng = ServingEngine(prog, feed_names=names, fetch_list=[enc],
+                        scope=scope, executor=exe,
+                        config=ServingConfig(max_batch=BATCH_MAX,
+                                             queue_depth=64, deadline_s=0))
+    fe = None
+    try:
+        eng.warm_up([1])
+        eng.start()
+        fe = ServingFrontend(eng, replica_id="b0", request_timeout_s=600)
+        fe.start()
+        router = FleetRouter([Replica("b0", "127.0.0.1", fe.port)])
+        router.poll_now()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        routed = [router.submit(r)[0] for r in rows]
+        routed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        direct = [eng.submit(r).result(timeout=600)[0] for r in rows]
+        direct_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        acct, racct = eng.accounting(), router.accounting()
+    finally:
+        if fe is not None:
+            fe.stop(wait_inflight_s=5.0)
+        eng.stop(drain=True)
+        fluid.set_flags({"FLAGS_epilogue_fusion": False})
+    equal = sum(bool(np.array_equal(a, b)) for a, b in zip(routed, direct))
+    log(f"[fleet] (b) BERT-base bf16 fused behind a front-end: "
+        f"{FLEET_SUBMITS} /v1/submit rows bit-identical to direct "
+        f"submissions: {equal}/{FLEET_SUBMITS}; routed {routed_s:.3f} s, "
+        f"direct {direct_s:.3f} s; launches {launches}; engine exact="
+        f"{acct['exact']}, router exact={racct['exact']}")
+    if equal != FLEET_SUBMITS:
+        raise SystemExit("chip_smoke: /v1/submit rows differ from direct "
+                         "submissions at the same bucket")
+    if not (acct["exact"] and racct["exact"]) or racct["completed"] != \
+            FLEET_SUBMITS or acct["completed"] != 2 * FLEET_SUBMITS:
+        raise SystemExit(f"chip_smoke: batching fleet accounting {acct} "
+                         f"{racct}")
+    for name in K.KERNEL_SOURCES:
+        want = INFER_LAUNCHES.get(name, 0) * 2 * FLEET_SUBMITS
+        if launches[name] != want:
+            raise SystemExit(f"chip_smoke: fleet (b) launched {name} "
+                             f"{launches[name]} times, expected {want}")
+    return dict(config="BertConfig.base() bf16 fused", seq=BATCH_SEQ,
+                submits=FLEET_SUBMITS, bit_identical=equal,
+                routed_s=routed_s, direct_s=direct_s, launches=launches,
+                accounting=acct)
+
+
+def _replica_log(log_dir, rid):
+    try:
+        with open(os.path.join(log_dir, f"replica_{rid}.log")) as f:
+            return f.read()[-3000:]
+    except OSError:
+        return ""
+
+
+def fleet_tokens(port):
+    from paddle_tpu_torch.serving.fleet import FleetRouter, Replica
+
+    r = FleetRouter([Replica("x", "127.0.0.1", port)])
+    r.poll_now()
+    return [list(r.generate(p, max_new_tokens=8))
+            for p in FLEET_TINY_PROMPTS]
+
+
+def fleet_processes(seed, tmp):
+    """Part (c): gpt_tiny replica processes on the card."""
+    from paddle_tpu_torch.serving.fleet import (AggregatorConfig,
+                                                AutoscalerConfig,
+                                                FleetAutoscaler,
+                                                FleetRouter, RouterConfig,
+                                                ReplicaSupervisor,
+                                                SupervisorConfig)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    aot = os.path.join(tmp, "aot")
+    log_dir = os.path.join(tmp, "logs")
+    router = FleetRouter([], RouterConfig(request_timeout_s=120))
+    sup = ReplicaSupervisor(router, SupervisorConfig(
+        max_restarts=3, restart_window_s=300, backoff_base_s=0.2,
+        backoff_max_s=1.0, ready_timeout_s=FLEET_READY_S, exit_grace_s=60,
+        seed=seed, device="cuda"), log_dir=log_dir, env=env,
+        cwd=root)
+    linger = ["--linger-s", "0.2"]
+    res = {}
+
+    def ready(h):
+        try:
+            return h.wait_ready(FLEET_READY_S)
+        except Exception as e:
+            raise SystemExit(
+                f"chip_smoke: replica {h.replica_id} not ready: {e}\n"
+                f"{_replica_log(log_dir, h.replica_id)}")
+
+    fluid.set_flags({"FLAGS_fleet_telemetry": True})
+    try:
+        # a cold replica and one that crashes once, together (the
+        # crashing one keeps out of the cache, so the cold one fills it)
+        t0 = time.perf_counter()
+        cold = sup.add_replica("cold", model="gpt_tiny", aot_dir=aot,
+                               extra_args=linger)
+        crash = sup.add_replica("crash", model="gpt_tiny", extra_args=linger,
+                                initial_extra_args=["--crash-after-s", "1"])
+        cold_info = ready(cold)
+        res["cold_spawn_to_ready_s"] = time.perf_counter() - t0
+        cold_tokens = fleet_tokens(cold.port)
+        # one scale-out from a pressure trace on the cold replica: the
+        # autoscaler's replica is the warm start, from the cache the cold
+        # one filled
+        clock = [0.0]
+        auto = FleetAutoscaler(sup, router=router, config=AutoscalerConfig(
+            min_replicas=1, max_replicas=4, interval_s=1.0, cooldown_s=30.0,
+            hot_sustain_s=1.0, calm_sustain_s=600.0, max_inflight_spawns=2,
+            queue_high=4), model="gpt_tiny", aot_dir=aot,
+            extra_args=linger, _now=lambda: clock[0])
+        decisions = []
+        t0 = time.perf_counter()
+        for t in (0.0, 1.5):
+            clock[0] = t
+            rc = router.get_replica("cold")
+            rc._update({**rc.snapshot(), "queue_depth": 64})
+            decisions.append(auto.tick())
+        res["autoscaler"] = [{k: d.get(k) for k in ("action", "reason",
+                                                    "replica")}
+                             for d in decisions]
+        scaled = decisions[-1].get("replica")
+        if decisions[-1]["action"] != "scale_out":
+            raise SystemExit(f"chip_smoke: the autoscaler did not scale "
+                             f"out under pressure: {res['autoscaler']}")
+        # the SIGTERM drain of the cold replica meanwhile
+        sup.drain("cold")
+        cold.thread.join(90)
+        res["sigterm_drain"] = dict(state=cold.state,
+                                    last_exit=cold.last_exit)
+        warm = sup.handle(scaled)
+        warm_info = ready(warm)
+        res["warm_spawn_to_ready_s"] = time.perf_counter() - t0
+        router.poll_now()
+        scaled_ok = router.get_replica(scaled) is not None and \
+            router.get_replica(scaled).snapshot()["ready"]
+        warm_tokens = fleet_tokens(warm.port)
+        deadline = time.monotonic() + FLEET_READY_S
+        while (crash.restarts < 1 or crash.state != "ready") \
+                and time.monotonic() < deadline and crash.error is None:
+            time.sleep(0.1)
+        res["crash"] = crash.status()
+        crash_ready = crash.state == "ready" and crash.restarts >= 1
+        # both live replicas have served; the aggregator merges their
+        # latency histograms
+        if crash_ready:
+            fleet_tokens(crash.port)
+        agg = sup.start_telemetry(AggregatorConfig(scrape_interval_s=60.0,
+                                                   scrape_timeout_s=10.0))
+        agg.poll_now()
+        snap = agg.snapshot()
+        lat = {rid: (r.get("latency") or {}).get("count")
+               for rid, r in snap["replicas"].items()}
+        merged = snap["fleet"]["latency"]
+        res["aggregator"] = dict(
+            replica_counts=lat, merged_count=(merged or {}).get("count"),
+            p50=monitor.snapshot_quantile(merged, 0.5) if merged else None,
+            p99=monitor.snapshot_quantile(merged, 0.99) if merged else None)
+    finally:
+        fluid.set_flags({"FLAGS_fleet_telemetry": False})
+        sup.stop(drain=True)
+    procs = [h.proc for h in sup.replicas.values() if h.proc is not None]
+    res.update(cold=cold_info, warm=warm_info,
+               tokens_equal=cold_tokens == warm_tokens,
+               all_exited=all(p.poll() is not None for p in procs),
+               scaled_out=scaled, scaled_ready=scaled_ok)
+    log(f"[fleet] (c) gpt_tiny replica processes: cold time_to_ready_s "
+        f"{cold_info['time_to_ready_s']:.2f} warm_up_s "
+        f"{cold_info['warm_up_s']:.3f} aot_cache {cold_info['aot_cache']} "
+        f"(spawn to ready {res['cold_spawn_to_ready_s']:.2f} s); warm "
+        f"time_to_ready_s {warm_info['time_to_ready_s']:.2f} warm_up_s "
+        f"{warm_info['warm_up_s']:.3f} aot_cache {warm_info['aot_cache']}; "
+        f"tokens equal {res['tokens_equal']}")
+    log(f"  SIGTERM drain {res['sigterm_drain']}; crash replica "
+        f"{res['crash']}; aggregator {res['aggregator']}; autoscaler "
+        f"{res['autoscaler']} -> {scaled} ready={scaled_ok}; every "
+        f"replica process exited: {res['all_exited']}")
+    ev = (res["sigterm_drain"]["last_exit"] or {})
+    if not (ev.get("reason") == "drain" and ev.get("rc") == 0
+            and (ev.get("exit_event") or {}).get("reason") == "drain"):
+        raise SystemExit(f"chip_smoke: the SIGTERM drain ended {ev}")
+    wc, cc = warm_info["aot_cache"], cold_info["aot_cache"]
+    if not (wc["hits"] > 0 and wc["errors"] == 0 and cc["hits"] == 0
+            and cc["saves"] > 0 and cc["errors"] == 0):
+        raise SystemExit(f"chip_smoke: warm start cache cold "
+                         f"{cold_info['aot_cache']} warm {wc}")
+    if not res["tokens_equal"]:
+        raise SystemExit(f"chip_smoke: the warm replica's tokens "
+                         f"{warm_tokens} differ from the cold one's "
+                         f"{cold_tokens}")
+    last = res["crash"]["last_exit"] or {}
+    if not crash_ready or last.get("reason") != "crash":
+        raise SystemExit(f"chip_smoke: the crashing replica was not "
+                         f"classified and restarted: {res['crash']}\n"
+                         f"{_replica_log(log_dir, 'crash')}")
+    a = res["aggregator"]
+    if a["merged_count"] is None or a["merged_count"] != sum(
+            c or 0 for c in a["replica_counts"].values()) or sum(
+            1 for c in a["replica_counts"].values() if c) < 2 \
+            or a["p50"] is None:
+        raise SystemExit(f"chip_smoke: the aggregator did not merge both "
+                         f"replicas' latency histograms: {a}")
+    if not scaled_ok:
+        raise SystemExit(f"chip_smoke: the autoscaler did not add a ready "
+                         f"replica: {res['autoscaler']}")
+    if not res["all_exited"]:
+        raise SystemExit("chip_smoke: a replica process outlived the "
+                         "supervisor's stop")
+    return res
+
+
+def phase_fleet(seed):
+    with timed("fleet.generative"):
+        gen = fleet_generative(seed)
+    torch.cuda.empty_cache()
+    with timed("fleet.batching"):
+        batch = fleet_batching(seed)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        with timed("fleet.processes"):
+            procs = fleet_processes(seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {n: gen["launches"][n] + batch["launches"][n]
+                for n in K.KERNEL_SOURCES}
+    return dict(generative=gen, batching=batch, processes=procs,
+                launches=launches)
+
+
 # ---------------------------------------------------------------- main
 # the phases that need no other phase's result, which --phases can run
 ALONE = ("kernels", "train", "train_amp", "train_remat", "train_guard",
          "train_lamb", "infer", "train_resnet", "infer_resnet", "tune",
          "seq2seq", "gru_encdec", "misc_image", "detection", "data_path",
-         "dygraph", "predictor", "qat")
+         "dygraph", "predictor", "qat", "fleet")
 
 
 def run_alone(names, seed, card, out_dir):
@@ -7867,6 +8457,9 @@ def main():
     torch.cuda.empty_cache()
     with timed("qat"):
         qat = phase_qat(args.seed)
+    torch.cuda.empty_cache()
+    with timed("fleet"):
+        fleet = phase_fleet(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -7880,8 +8473,10 @@ def main():
     # and the misc and image op groups and the detection ops at their
     # models' widths and the data path's legs (none), dygraph BERT-base
     # training (K1, K3, K4), the predictor and the exported artifact of
-    # BERT-base and ResNet-50 fused inference (K1, K5) and ResNet-50
-    # quant-aware training (none), each counted from 0 over its own run
+    # BERT-base and ResNet-50 fused inference (K1, K5), ResNet-50
+    # quant-aware training (none) and the fleet tier's GPT-2 small
+    # replicas and BERT-base batching replica (K1, K2, K5), each counted
+    # from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -7898,7 +8493,8 @@ def main():
                 "deepfm_infer": fm_infer["launches"],
                 "misc_image": mi["launches"], "detection": det["launches"],
                 "data_path": dp["launches"], "dygraph": dy["launches"],
-                "predictor": pr["launches"], "qat": qat["launches"]}
+                "predictor": pr["launches"], "qat": qat["launches"],
+                "fleet": fleet["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -7920,7 +8516,7 @@ def main():
               "seq2seq": s2s, "gru_encdec": ge, "deepfm": fm,
               "deepfm_infer": fm_infer, "misc_image": mi, "detection": det,
               "data_path": dp, "dygraph": dy, "predictor": pr, "qat": qat,
-              "launches": launches}
+              "fleet": fleet, "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

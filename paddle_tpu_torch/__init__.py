@@ -55,7 +55,10 @@ card from pinned memory on a side stream, the reader decorators;
 op rules under autograd, ``Layer`` and its layers, the eager optimizer
 updates, ``save_dygraph``), the predictor API with its export over
 ``torch.export`` (``inference``), and ``contrib.slim`` with the
-fake-quant ops.
+fake-quant ops, and the fleet serving tier (``serving.fleet``: the HTTP
+front-end, the load-aware router, the replica supervisor, telemetry
+with exact histogram merging, the autoscaler, the replica process) with
+the warm-start cache of prepared executor steps (``aot_cache``).
 ``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """
@@ -63,6 +66,7 @@ from . import ops  # noqa: F401  (registers the op rules)
 from . import (analysis, clip, contrib, initializer, io,  # noqa: F401
                layers, metrics, monitor, optimizer, regularizer, resilience,
                serving, trace, tuning, unique_name)
+from . import aot_cache  # noqa: F401
 from . import dataset, incubate, profiler, reader  # noqa: F401
 from . import dygraph, inference, kernels  # noqa: F401
 from .dataset_feed import DatasetFactory

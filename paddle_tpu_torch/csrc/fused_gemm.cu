@@ -42,7 +42,15 @@
 //   element is one FMA chain over k = 0 .. K-1 in order, the order of
 //   cuBLAS's SIMT SGEMM, so the unfused chain on cuBLAS and this kernel
 //   round the same way where cuBLAS does not split k (the fusion witness
-//   relies on that at m = 16384, K = 3072).
+//   relies on that at m = 16384, K = 3072).  At small M (M <= 64, no
+//   layer_norm) cuBLAS splits k, and one chain over all of K ends 4-5x
+//   farther from the exact product than it (K = 768 .. 3072,
+//   tools/torch_k5_small_m_check.py); there the route splits k too: the
+//   tiling's mainloop runs over up to 64 k ranges of whole k-tiles, each
+//   block's chain into a workspace slice, and a second pass adds the
+//   slices pairwise in a fixed tree (deterministic) before the epilogue.
+//   A small-M grid also has few blocks (4 of 128 x 256 at [8, 1000]), so
+//   the splits fill the card.
 // * bf16 route: mma.sync.m16n8k16 bf16 x bf16 -> f32 on the tensor cores;
 //   8 warps of MT x NT mma tiles (at the default tile 64 x 64: 4 x 8 mma
 //   tiles, 128 f32 accumulators a thread),
@@ -90,6 +98,9 @@ constexpr int LN_F32_BN = 256, LN_F32_BK = 8, LN_F32_TM = 4, LN_F32_TN = 8,
 constexpr int LN_BF_BN = 128, LN_BF_BK = 32, LN_BF_MT = 1, LN_BF_NT = 4,
               LN_BF_STAGES = 3;
 constexpr int MAX_SMEM = 232448;   // bytes one block may use on the H100
+// k splits of the small-M f32 route at most (kernels/fused_gemm.py
+// MAX_SPLITS)
+constexpr int MAX_SPLITS = 64;
 
 struct Epilogue {
   const float* bias;      // [N] or null
@@ -176,9 +187,11 @@ struct F32Tile {
   // sectors) and, with the k-rows padded by 4 floats, writes 32 distinct
   // banks.  y's k rows x n columns [n0, n0+TBN) as Bs[k][n], 16 bytes a
   // copy.
+  // (K is x's row stride; k at or past ke is zero-filled)
   __device__ static void load(const float* __restrict__ x,
                               const float* __restrict__ y, int M, int N,
-                              int K, int m0, int n0, int k0, float* st) {
+                              int K, int ke, int m0, int n0, int k0,
+                              float* st) {
     float* As = st;
     float* Bs = st + TBK * LDA;
 #pragma unroll
@@ -186,7 +199,7 @@ struct F32Tile {
       const int idx = threadIdx.x + it * THREADS;
       const int c = (idx / (8 * TBM)) * 8 + idx % 8, r = (idx / 8) % TBM;
       const int gm = m0 + r, gk = k0 + c;
-      const bool in = gm < M && gk < K;
+      const bool in = gm < M && gk < ke;
       cp_async4(As + c * LDA + r, in ? x + (long long)gm * K + gk : x, in);
     }
 #pragma unroll
@@ -194,7 +207,7 @@ struct F32Tile {
       const int idx = threadIdx.x + it * THREADS;
       const int r = idx / (TBN / 4), c = (idx % (TBN / 4)) * 4;
       const int gk = k0 + r, gn = n0 + c;
-      const bool in = gk < K && gn < N;
+      const bool in = gk < ke && gn < N;
       cp_async16(Bs + r * TBN + c, in ? y + (long long)gk * N + gn : y, in);
     }
   }
@@ -229,19 +242,23 @@ struct F32Tile {
     }
   }
 
-  // acc = x[m0:, :] @ y[:, n0:], k in order; the ring is free on return
+  // acc = x[m0:, kb:ke] @ y[kb:ke, n0:], k in order (ke < 0: K); the
+  // ring is free on return
   __device__ static void mainloop(const float* __restrict__ x,
                                   const float* __restrict__ y, int M, int N,
                                   int K, int m0, int n0, float* ring,
-                                  float acc[TM][TN]) {
+                                  float acc[TM][TN], int kb = 0,
+                                  int ke = -1) {
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    const int nk = (K + TBK - 1) / TBK;
+    if (ke < 0) ke = K;
+    const int nk = (ke - kb + TBK - 1) / TBK;
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nk) load(x, y, M, N, K, m0, n0, s * TBK, ring + s * STAGE);
+      if (s < nk)
+        load(x, y, M, N, K, ke, m0, n0, kb + s * TBK, ring + s * STAGE);
       cp_commit();
     }
     for (int kt = 0; kt < nk; ++kt) {
@@ -249,7 +266,8 @@ struct F32Tile {
       __syncthreads();          // ... for every thread; kt-1 is consumed
       const int nxt = kt + STAGES - 1;
       if (nxt < nk)
-        load(x, y, M, N, K, m0, n0, nxt * TBK, ring + (nxt % STAGES) * STAGE);
+        load(x, y, M, N, K, ke, m0, n0, kb + nxt * TBK,
+             ring + (nxt % STAGES) * STAGE);
       cp_commit();
       compute(ring + (kt % STAGES) * STAGE, acc);
     }
@@ -415,6 +433,14 @@ using T128x128 = Tiling<128, 128, 32, 8, 8, 4, 4>;
 using T64x128 = Tiling<64, 128, 32, 4, 8, 2, 4>;
 using T64x64 = Tiling<64, 64, 32, 4, 4, 2, 2>;
 
+// the split route's tiling under each triple: its M (at most
+// kernels/fused_gemm.py SPLITK_MAX_M, 64) fits one 64-row tile, where a
+// 128-row tile computes at least 64 empty rows a block (on the H100,
+// 0.0238 against 0.0189 device ms at the ResNet-50 fc head with 64
+// splits; tools/torch_k5_small_m_check.py --chains)
+template <typename T> struct SplitTiling { using type = T64x128; };
+template <> struct SplitTiling<T64x64> { using type = T64x64; };
+
 // ------------------------------------------------------------ epilogue
 // The main kernels stage their f32 accumulators in shared memory (the ring
 // is free by then) and run the epilogue as a loop over rows, four
@@ -554,6 +580,52 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
   store_tile<T>(smem, ep, M, N, m0, n0);
 }
 
+// small M on the f32 route (see fused_gemm below): split z of the k
+// range, [z*ks, min(K, (z+1)*ks)), through the tiling's mainloop into its
+// own [M, N] slice of the f32 workspace
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_f32_splitk_kernel(const float* __restrict__ x,
+                       const float* __restrict__ y, float* __restrict__ ws,
+                       int M, int N, int K, int ks) {
+  using F = typename T::F32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int kb = blockIdx.z * ks, ke = min(K, kb + ks);
+  float acc[T::TM][T::TN];
+  F::mainloop(x, y, M, N, K, m0, n0, reinterpret_cast<float*>(smem_raw),
+              acc, kb, ke);
+  const int tx = threadIdx.x % F::TX, ty = threadIdx.x / F::TX;
+  float* part = ws + (long long)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int r = m0 + F::row(i, ty);
+    if (r >= M) continue;
+#pragma unroll
+    for (int g = 0; g < T::TN / 4; ++g) {
+      const int c = n0 + F::col(4 * g, tx);
+      if (c < N) store4(part + (long long)r * N + c, &acc[i][4 * g]);
+    }
+  }
+}
+
+// the splits' partial sums of each output added pairwise in a fixed tree
+// (split z + w into z, w = 1, 2, 4, ...), then the epilogue; one thread
+// an output
+__global__ void __launch_bounds__(THREADS)
+splitk_reduce_kernel(const float* __restrict__ ws, Epilogue ep, int M,
+                     int N, int splits) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long MN = (long long)M * N;
+  if (i >= MN) return;
+  float v[MAX_SPLITS];
+  for (int z = 0; z < splits; ++z) v[z] = ws[z * MN + i];
+  for (int w = 1; w < splits; w <<= 1)
+    for (int z = 0; z + w < splits; z += 2 * w) v[z] += v[z + w];
+  const int c = (int)(i % N);
+  store_out1(ep, i, pre_norm(v[0], bias_at(ep, c, N), i / N, c, N, ep));
+}
+
 template <typename T, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
@@ -657,20 +729,61 @@ int run_main(const void* x, const void* y, const Epilogue& ep, int M, int N,
   return run(gemm_f32_kernel<T>, grid, T::F32_SMEM, x, y, ep, M, N, K, s);
 }
 
+// the small-M f32 route: k in splits of ks (a multiple of the 32-deep
+// k-tile) into ws, then one reduction + epilogue pass
+template <typename T>
+int run_splitk(const float* x, const float* y, float* ws, int splits,
+               const Epilogue& ep, int M, int N, int K, cudaStream_t s) {
+  const int ks = ((K + splits - 1) / splits + 31) / 32 * 32;
+  const int used = (K + ks - 1) / ks;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, used);
+  const int smem = T::F32::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_f32_splitk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  gemm_f32_splitk_kernel<T><<<grid, THREADS, smem, s>>>(x, y, ws, M, N, K,
+                                                         ks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long MN = (long long)M * N;
+  splitk_reduce_kernel<<<(unsigned)((MN + THREADS - 1) / THREADS), THREADS,
+                         0, s>>>(ws, ep, M, N, used);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_tiling(const void* x, const void* y, void* ws, int splits,
+               const Epilogue& ep, int M, int N, int K, int in_bf16,
+               cudaStream_t s) {
+  if (splits > 1)
+    return run_splitk<typename SplitTiling<T>::type>(
+        (const float*)x, (const float*)y, (float*)ws, splits, ep, M, N, K,
+        s);
+  return run_main<T>(x, y, ep, M, N, K, in_bf16, s);
+}
+
 }  // namespace
 
 // (block_m, block_n, block_k) names the tiling, one of
 // kernels/fused_gemm.py COMPILED_BLOCKS; another triple returns
 // cudaErrorInvalidValue.  The layer_norm variants keep their own 32-row
-// tiles under every triple.
+// tiles under every triple.  splits > 1 (f32 inputs, no layer_norm; the
+// caller's rule, kernels/fused_gemm.py splitk_splits) runs a 64-row
+// tiling's f32 mainloop (SplitTiling) over that many k ranges into
+// workspace (splits * M * N floats) and adds them pairwise before the
+// epilogue.
 extern "C" int fused_gemm(const void* x, const void* y, const void* bias,
                           const void* residual, const void* ln_scale,
                           const void* ln_bias, void* out, int M, int N, int K,
                           int activation, int layer_norm, float ln_eps,
                           int in_bf16, int out_bf16, int block_m, int block_n,
-                          int block_k, void* stream) {
+                          int block_k, void* workspace, int splits,
+                          void* stream) {
   if (M < 1 || N < 1 || K < 1 || N % 4 || K % 4 || activation < ACT_NONE ||
-      activation > ACT_GELU_TANH || block_k != 32)
+      activation > ACT_GELU_TANH || block_k != 32 || splits < 1 ||
+      splits > MAX_SPLITS ||
+      (splits > 1 && (layer_norm || in_bf16 || workspace == nullptr)))
     return (int)cudaErrorInvalidValue;
   Epilogue ep{(const float*)bias, (const float*)residual,
               (const float*)ln_scale, (const float*)ln_bias, out, activation,
@@ -684,12 +797,16 @@ extern "C" int fused_gemm(const void* x, const void* y, const void* bias,
     return run(gemm_ln_f32_kernel, ln_grid, ln_smem, x, y, ep, M, N, K, s);
   }
   if (block_m == 128 && block_n == 256)
-    return run_main<T128x256>(x, y, ep, M, N, K, in_bf16, s);
+    return run_tiling<T128x256>(x, y, workspace, splits, ep, M, N, K,
+                                in_bf16, s);
   if (block_m == 128 && block_n == 128)
-    return run_main<T128x128>(x, y, ep, M, N, K, in_bf16, s);
+    return run_tiling<T128x128>(x, y, workspace, splits, ep, M, N, K,
+                                in_bf16, s);
   if (block_m == 64 && block_n == 128)
-    return run_main<T64x128>(x, y, ep, M, N, K, in_bf16, s);
+    return run_tiling<T64x128>(x, y, workspace, splits, ep, M, N, K,
+                               in_bf16, s);
   if (block_m == 64 && block_n == 64)
-    return run_main<T64x64>(x, y, ep, M, N, K, in_bf16, s);
+    return run_tiling<T64x64>(x, y, workspace, splits, ep, M, N, K, in_bf16,
+                              s);
   return (int)cudaErrorInvalidValue;
 }

@@ -468,6 +468,9 @@ class Executor:
         # FLAGS_autotune: (content fingerprint, bucket, mode) -> the
         # TunedConfig the cost database gave (None: nothing known)
         self._tuning_cache: Dict[tuple, Any] = {}
+        # FLAGS_aot_cache_dir: (program serial and version, kind, feed
+        # signature, fetches, flags) -> the prepared (program, blocks)
+        self._aot_memo: Dict[tuple, tuple] = {}
 
     def close(self) -> None:
         """Drop every per-executor cache (keys, verified programs, remat
@@ -480,6 +483,7 @@ class Executor:
             self._fusion_cache.clear()
             self._fusion_decisions.clear()
             self._tuning_cache.clear()
+            self._aot_memo.clear()
 
     # -- helpers ---------------------------------------------------------
     def _next_seed(self, program: Program) -> int:
@@ -864,17 +868,60 @@ class Executor:
         with self._lock:
             self._verified.add(fp)
 
-    def _prepare(self, program, feed, fetch_names):
+    def _prepare(self, program, feed, fetch_names, kind="run"):
         """The block-triple lookup, the remat and fusion swaps and the
         verification of what will run, timed: the preparation a new key's
-        compile event reports as its ``trace_lower`` stage."""
+        compile event reports as its ``trace_lower`` stage. With
+        ``FLAGS_aot_cache_dir`` the prepared step comes from the
+        warm-start cache when a saved one matches (``aot_cache``), and a
+        cold one is saved there."""
         t0 = time.perf_counter()
+        from . import aot_cache as _aot_cache
+
+        cache_dir = _aot_cache.cache_dir_flag()
+        if not cache_dir or not isinstance(program, Program):
+            program, blocks = self._prepare_cold(program, feed, fetch_names)
+            return program, blocks, time.perf_counter() - t0
+        # the disk is probed once per step and executor: the memo holds
+        # the prepared program, so every run of the key reuses ONE object
+        memo_key = (program._serial, program._version, kind,
+                    tuple(sorted((n,) + _shape_dtype_sig(v)
+                                 for n, v in feed.items())),
+                    tuple(fetch_names), self._key_flags(program),
+                    self._pass_flags())
+        with self._lock:
+            hit = self._aot_memo.get(memo_key)
+        if hit is not None:
+            return hit[0], hit[1], time.perf_counter() - t0
+        parts = (kind, program, tuple(fetch_names),
+                 self._key_flags(program), self._pass_flags())
+        key = _aot_cache.executable_key(parts, feed, self.device)
+        loaded = _aot_cache.load_executable(cache_dir, key, self.device)
+        if loaded is None:
+            loaded = self._prepare_cold(program, feed, fetch_names)
+            # publish for the next cold process (atomic; failures warn
+            # once and never break the step)
+            _aot_cache.save_executable(cache_dir, key, loaded, self.device)
+        with self._lock:
+            loaded = self._aot_memo.setdefault(memo_key, loaded)
+        return loaded[0], loaded[1], time.perf_counter() - t0
+
+    def _prepare_cold(self, program, feed, fetch_names):
         blocks = self._gemm_blocks(program, feed)
         program = self._maybe_auto_remat(program, feed, fetch_names)
         program = self._maybe_epilogue_fusion(program, feed, fetch_names,
                                               blocks)
         self._verify_once(program, fetch_names)
-        return program, blocks, time.perf_counter() - t0
+        return program, blocks
+
+    @staticmethod
+    def _pass_flags() -> tuple:
+        """The flags ``_prepare``'s passes read beside the key flags."""
+        from .flags import flag
+
+        return tuple((n, flag(n)) for n in (
+            "fused_gemm_blocks", "autotune", "auto_recompute",
+            "remat_budget_mb", "check_program"))
 
     def _key_flags(self, program) -> tuple:
         from .flags import flag
@@ -1026,7 +1073,8 @@ class Executor:
             raise NotImplementedError(
                 "run_chained with PipelineOptimizer programs: the pipeline "
                 "step is already a scan; nest via GradientMergeOptimizer")
-        program, blocks, prep_s = self._prepare(program, feed, names)
+        program, blocks, prep_s = self._prepare(program, feed, names,
+                                                "chained")
         fp = program_fingerprint(program)
         feed_sig = tuple(sorted((n,) + _shape_dtype_sig(v)
                                 for n, v in feed.items()))

@@ -1,8 +1,7 @@
 """FLAGS_* config (counterpart of ``paddle_tpu/flags.py``), the flags the
 port reads, under the reference's names, types and defaults. Flags
 resolve, in order: explicit ``set_flags`` > ``FLAGS_<name>`` env var >
-default. A flag whose "on" value needs a part the port lacks raises
-``NotImplementedError`` naming it (``_REFUSED_ON``)."""
+default."""
 from __future__ import annotations
 
 import os
@@ -117,9 +116,64 @@ _DEFS: Dict[str, tuple] = {
                              "dumped into a WatchdogTimeout or BatchFailed "
                              "incident; 0 disables the recorder"),
     "fleet_telemetry": (bool, False,
-                        "the fleet telemetry plane (trace-id exemplars, "
-                        "histogram merging across replicas): not in the "
-                        "port yet, which refuses the flag on"),
+                        "fleet telemetry plane: when on, request-latency "
+                        "observations carry trace-id exemplars into the "
+                        "JSON /metrics form and FleetAggregator.start() "
+                        "runs its scrape thread. Off (default) is a "
+                        "hot-path no-op: no exemplar allocation, no "
+                        "scrape thread"),
+    "fleet_scrape_interval_s": (float, 1.0,
+                                "FleetAggregator scrape interval in "
+                                "seconds (per-replica GET /metrics)"),
+    # fleet autoscaler (serving/fleet/autoscaler.py). AutoscalerConfig
+    # reads these as defaults.
+    "serving_autoscale_min_replicas": (int, 1,
+                                       "autoscaler floor: scale-in below "
+                                       "this many replicas is refused "
+                                       "typed at_min_replicas"),
+    "serving_autoscale_max_replicas": (int, 4,
+                                       "autoscaler ceiling: scale-out "
+                                       "above this many replicas is "
+                                       "refused typed at_max_replicas"),
+    "serving_autoscale_interval_s": (float, 1.0,
+                                     "autoscaler control-loop tick "
+                                     "interval in seconds"),
+    "serving_autoscale_cooldown_s": (float, 30.0,
+                                     "minimum seconds between two scale "
+                                     "actions (and from a drain start to "
+                                     "the next action): decisions inside "
+                                     "it are refused typed cooldown"),
+    "serving_autoscale_hot_sustain_s": (float, 5.0,
+                                        "burn/pressure must be observed "
+                                        "continuously for this long "
+                                        "before a scale-out fires"),
+    "serving_autoscale_calm_sustain_s": (float, 30.0,
+                                         "the fleet must be calm (no "
+                                         "burn, no pressure) continuously "
+                                         "for this long before a drain-"
+                                         "based scale-in fires"),
+    "serving_autoscale_max_inflight_spawns": (int, 1,
+                                              "spawns not yet ready the "
+                                              "autoscaler may have in "
+                                              "flight; further scale-outs "
+                                              "are refused typed "
+                                              "spawn_budget_spent"),
+    "serving_autoscale_queue_high": (int, 8,
+                                     "per-replica queue depth the "
+                                     "autoscaler counts as pressure "
+                                     "(alongside degraded mode and open "
+                                     "breaker buckets)"),
+    "aot_cache_dir": (str, "",
+                      "warm-start cache directory (paddle_tpu_torch."
+                      "aot_cache): each prepared executor step (the "
+                      "program after the tuned block triple, auto-remat, "
+                      "epilogue fusion and verification) is saved here, "
+                      "and later processes load it instead of preparing "
+                      "again. Keyed by program content fingerprint, "
+                      "fetch list, feed shapes and dtypes, the executor's "
+                      "key flags and the torch/CUDA/card/kernel-source "
+                      "versions; corrupt or stale entries degrade to a "
+                      "cold prepare. Empty disables (default)"),
     "device_peak_tflops": (float, 989.4,
                            "accelerator peak dense TF/s used for the "
                            "cost-model MFU gauges (executor_mfu, "
@@ -265,14 +319,6 @@ _CHOICES: Dict[str, tuple] = {"autotune": ("off", "use", "measure"),
                               "use_fused_gemm": ("auto", "always", "never"),
                               "conv_use_nhwc": ("auto", "always", "never")}
 
-# flags whose "on" value needs a part the port does not have yet
-_REFUSED_ON: Dict[str, str] = {
-    "fleet_telemetry": "the fleet telemetry plane (FLAGS_fleet_telemetry: "
-                       "trace-id exemplars, histogram merging) needs the "
-                       "fleet serving tier, which the port does not have "
-                       "yet",
-}
-
 _overrides: Dict[str, Any] = {}
 
 # bumped on every set_flags call: cheap change detection for hot-path
@@ -286,9 +332,6 @@ def _value(name: str, raw):
     if name in _CHOICES and val not in _CHOICES[name]:
         raise ValueError(f"FLAGS_{name}={val!r}: takes one of "
                          f"{_CHOICES[name]}")
-    if val and name in _REFUSED_ON:
-        raise NotImplementedError(f"FLAGS_{name}={val!r}: "
-                                  f"{_REFUSED_ON[name]}")
     return val
 
 

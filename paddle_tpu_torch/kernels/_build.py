@@ -54,7 +54,7 @@ SIGNATURES = {
     # x, y, bias, residual, ln_scale, ln_bias, out | M, N, K, activation,
     # layer_norm | ln_eps | in_bf16, out_bf16 | block_m, block_n, block_k |
     # stream
-    "fused_gemm": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    "fused_gemm": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 5 + [_P, _I, _P],
 }
 
 
@@ -152,6 +152,22 @@ def tensor_core_ops(sass_text: str) -> int:
     """Tensor-core instructions (HMMA, HGMMA) in one kernel's SASS."""
     return sum(1 for line in sass_text.splitlines()
                if "HMMA" in line or "HGMMA" in line)
+
+
+# the wrappers' launch counters: engines on several threads of one
+# process launch into the same counts, so each increment is one locked
+# read-modify-write (a bare ``+= 1`` can lose one to a thread switch)
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, blocks=None) -> None:
+    """Add one to ``wrapper.launches`` (and, with ``blocks``, to
+    ``wrapper.launches_by_blocks[blocks]``)."""
+    with _count_lock:
+        wrapper.launches += 1
+        if blocks is not None:
+            by = wrapper.launches_by_blocks
+            by[blocks] = by.get(blocks, 0) + 1
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

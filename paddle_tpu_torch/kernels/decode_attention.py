@@ -138,7 +138,7 @@ def _launch(q, k_cache, v_cache, lengths, scale, num_heads):
                   o.data_ptr(), BH, q_len, S, D, int(num_heads),
                   split_keys(S), float(scale),
                   int(q.dtype == torch.bfloat16))
-    flash_attention_decode.launches += 1
+    _build.count_launch(flash_attention_decode)
     return o
 
 

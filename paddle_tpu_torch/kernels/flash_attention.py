@@ -308,7 +308,7 @@ def _run_k1(q, k, v, bias, causal, scale, q_offset, k_offset, num_heads,
                   int(q_offset), int(k_offset),
                   int(q.dtype == torch.bfloat16),
                   *_drop_args(dropout_rate, seed))
-    flash_attention_with_lse.launches += 1
+    _build.count_launch(flash_attention_with_lse)
     return o, lse
 
 
@@ -380,7 +380,7 @@ def flash_attention_dq(q, k, v, bias, do, lse, delta, causal=False,
     (dq,) = _launch_bwd("flash_attention_dq", 1, q, k, v, bias, do, lse,
                         delta, causal, scale, dropout_rate, seed, q_offset,
                         k_offset, num_heads)
-    flash_attention_dq.launches += 1
+    _build.count_launch(flash_attention_dq)
     return dq
 
 
@@ -397,7 +397,7 @@ def flash_attention_dkv(q, k, v, bias, do, lse, delta, causal=False,
     dk, dv = _launch_bwd("flash_attention_dkv", 2, q, k, v, bias, do, lse,
                          delta, causal, scale, dropout_rate, seed, q_offset,
                          k_offset, num_heads)
-    flash_attention_dkv.launches += 1
+    _build.count_launch(flash_attention_dkv)
     return dk, dv
 
 

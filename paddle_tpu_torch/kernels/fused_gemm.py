@@ -30,7 +30,8 @@ import torch
 from . import _build
 
 __all__ = ["fused_gemm", "classify_gemm", "fused_gemm_reference",
-           "DEFAULT_BLOCKS", "COMPILED_BLOCKS", "EPILOGUE_ACTIVATIONS"]
+           "splitk_splits", "DEFAULT_BLOCKS", "COMPILED_BLOCKS",
+           "EPILOGUE_ACTIVATIONS"]
 
 # (block_m, block_n, block_k) of the compiled GEMM tiles (the f32 route on
 # CUDA cores and the bf16 route on tensor cores alike), k in 32-deep tiles
@@ -57,6 +58,18 @@ LN_MAX_N = (_SMEM_PER_BLOCK - _LN_RING_SMEM) // (4 * LN_ROWS)
 
 # row tiles run along the grid's y dimension
 _MAX_ROW_TILES = 65535
+
+# the small-M f32 route splits k (csrc/fused_gemm.cu run_splitk): at M up
+# to SPLITK_MAX_M, without layer_norm, into up to MAX_SPLITS ranges of
+# SPLITK_K (whole 32-deep k-tiles) on a 64-row tiling, the workspace
+# (splits * M * N floats) held to SPLITK_MAX_WORKSPACE floats. SPLITK_K:
+# the longest chain that kept K5 no farther from a float64 product than
+# addmm at m = 8 of BERT-base's products (128 was farther at q/k/v and
+# FFN1; tools/torch_k5_small_m_check.py --chains)
+SPLITK_MAX_M = 64
+SPLITK_K = 64
+MAX_SPLITS = 64
+SPLITK_MAX_WORKSPACE = 1 << 24
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -199,6 +212,21 @@ def fused_gemm(x, y, bias=None, residual=None, ln_scale=None, ln_bias=None,
                     int(block_n), int(block_k))
 
 
+def splitk_splits(m: int, n: int, k: int, *, bf16: bool = False,
+                  layer_norm: bool = False) -> int:
+    """How many k ranges K5 splits [M,K]@[K,N] into (1: no split). The
+    f32 route at small M splits k as cuBLAS does there: one FMA chain over
+    all of K ends 4-5x farther from the exact product than cuBLAS's at
+    M = 8 (``tools/torch_k5_small_m_check.py``); splits of
+    :data:`SPLITK_K` each, at most :data:`MAX_SPLITS`, and no more than
+    the workspace bound allows."""
+    if bf16 or layer_norm or m > SPLITK_MAX_M:
+        return 1
+    splits = min(-(-k // SPLITK_K), MAX_SPLITS,
+                 max(1, SPLITK_MAX_WORKSPACE // (m * n)))
+    return max(1, splits)
+
+
 def _run_k5(x, y, bias, residual, ln_scale, ln_bias, act, layer_norm,
             ln_eps, out_dtype, block_m, block_n, block_k):
     """Launch K5 on checked operands and count it."""
@@ -206,6 +234,10 @@ def _run_k5(x, y, bias, residual, ln_scale, ln_bias, act, layer_norm,
     m, k = x.shape
     n = y.shape[1]
     out = torch.empty(m, n, dtype=out_dtype, device=x.device)
+    splits = splitk_splits(m, n, k, bf16=x.dtype == torch.bfloat16,
+                           layer_norm=layer_norm)
+    ws = (torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -215,11 +247,8 @@ def _run_k5(x, y, bias, residual, ln_scale, ln_bias, act, layer_norm,
                   out.data_ptr(), m, n, k, act, int(layer_norm), ln_eps,
                   int(x.dtype == torch.bfloat16),
                   int(out_dtype == torch.bfloat16), block_m, block_n,
-                  block_k)
-    fused_gemm.launches += 1
-    blocks = (block_m, block_n, block_k)
-    fused_gemm.launches_by_blocks[blocks] = \
-        fused_gemm.launches_by_blocks.get(blocks, 0) + 1
+                  block_k, ptr(ws), splits)
+    _build.count_launch(fused_gemm, (block_m, block_n, block_k))
     return out
 
 

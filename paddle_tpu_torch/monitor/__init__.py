@@ -38,8 +38,12 @@ autotuner's cost-database lookups and measured trials
 ``paddle_tpu_torch.resilience`` and ``serving`` report through the same
 registry. Everything is on by default (``FLAGS_monitor=0`` disables
 collection). ``numwitness`` is the runtime numerics witness
-(``FLAGS_numerics_witness``). Not in the port yet: the fleet tier's trace
-exemplars and histogram merging (``FLAGS_fleet_telemetry`` is refused on).
+(``FLAGS_numerics_witness``). The fleet telemetry plane
+(``serving.fleet.telemetry``) merges scraped histograms with
+``merge_histogram_snapshots`` and reads them with ``snapshot_quantile``;
+``telemetry_enabled`` is its switch (``FLAGS_fleet_telemetry``, off by
+default), under which request-latency observations carry trace-id
+exemplars.
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ from .numwitness import (containment_violations, first_offender,
 from .recompile import RecompileTracker, build_site, get_tracker
 from .registry import (DEFAULT_TIME_BUCKETS, Counter, Gauge, Histogram,
                        MetricFamily, MetricsRegistry, counter, gauge,
-                       get_registry, histogram, metric_value)
+                       get_registry, histogram, merge_histogram_snapshots,
+                       metric_value, snapshot_quantile)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricFamily", "MetricsRegistry",
@@ -82,7 +87,8 @@ __all__ = [
     "numerics_witness_vars", "reset_numerics_witness", "first_offender",
     "containment_violations",
     "parse_prometheus_text", "histogram_snapshot_from_samples",
-    "ParsedFamily", "PromParseError",
+    "ParsedFamily", "PromParseError", "telemetry_enabled",
+    "merge_histogram_snapshots", "snapshot_quantile",
 ]
 
 _step_counter = itertools.count()
@@ -93,6 +99,15 @@ def enabled() -> bool:
     from ..flags import flag
 
     return bool(flag("monitor"))
+
+
+def telemetry_enabled() -> bool:
+    """Fleet telemetry plane master switch (``FLAGS_fleet_telemetry``,
+    default off): gates the aggregator's scrape thread and trace-exemplar
+    capture; off stays a no-op on the hot path."""
+    from ..flags import flag
+
+    return bool(flag("fleet_telemetry"))
 
 
 # -- executor instrumentation entry points ---------------------------------

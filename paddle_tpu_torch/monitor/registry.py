@@ -15,17 +15,22 @@ from __future__ import annotations
 
 import json
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricFamily",
            "MetricsRegistry", "get_registry", "counter", "gauge",
-           "histogram", "metric_value", "reset"]
+           "histogram", "metric_value", "reset",
+           "merge_histogram_snapshots", "snapshot_quantile"]
 
 # default buckets sized for step/compile wall times in seconds
 DEFAULT_TIME_BUCKETS: Tuple[float, ...] = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
 
+# bounded per-bucket exemplar ring size (newest kept); exemplar storage
+# is allocated lazily on the FIRST observe() that carries one, so a
+# histogram that never sees an exemplar pays nothing
+EXEMPLARS_PER_BUCKET = 4
 
 
 class Counter:
@@ -95,8 +100,10 @@ class Histogram:
         self._sum = 0.0
         self._min: Optional[float] = None
         self._max: Optional[float] = None
+        # per-bucket exemplar rings, None until an exemplar arrives
+        self._exemplars: Optional[Dict[int, List[dict]]] = None
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, exemplar: Optional[str] = None) -> None:
         v = float(v)
         with self._lock:
             self._count += 1
@@ -109,6 +116,28 @@ class Histogram:
                     idx = i
                     break
             self._bucket_counts[idx] += 1
+            if exemplar is not None:
+                if self._exemplars is None:
+                    self._exemplars = {}
+                ring = self._exemplars.setdefault(idx, [])
+                ring.append({"trace_id": str(exemplar), "value": v})
+                if len(ring) > EXEMPLARS_PER_BUCKET:
+                    del ring[0]
+
+    def exemplars(self) -> Dict[str, List[dict]]:
+        """Per-bucket exemplar rings keyed like the snapshot buckets
+        (``repr(bound)`` / ``"+Inf"``); empty when none were recorded.
+        Exported only through the JSON metrics form — the Prometheus
+        text exporter stays plain 0.0.4."""
+        with self._lock:
+            if not self._exemplars:
+                return {}
+            out = {}
+            for idx, ring in sorted(self._exemplars.items()):
+                key = ("+Inf" if idx == len(self._bounds)
+                       else repr(self._bounds[idx]))
+                out[key] = [dict(e) for e in ring]
+            return out
 
     @property
     def count(self) -> int:
@@ -204,8 +233,8 @@ class MetricFamily:
     def dec(self, n: float = 1.0):
         return self.labels().dec(n)
 
-    def observe(self, v: float):
-        return self.labels().observe(v)
+    def observe(self, v: float, exemplar: Optional[str] = None):
+        return self.labels().observe(v, exemplar=exemplar)
 
     @property
     def value(self):
@@ -309,6 +338,84 @@ def _sample(name: str, labels: Dict[str, str], value) -> str:
     if isinstance(value, float) and value == int(value):
         value = int(value)
     return f"{body} {value}"
+
+
+# -- histogram snapshot algebra (the fleet aggregator's merge) -------------
+
+def _snapshot_bounds(snap: dict) -> List[Tuple[float, str]]:
+    """Finite bucket bounds of a histogram snapshot, sorted, as
+    (float bound, original key) pairs; the +Inf key is implicit."""
+    out = []
+    for key in snap.get("buckets", {}):
+        if key == "+Inf":
+            continue
+        out.append((float(key), key))
+    out.sort()
+    return out
+
+
+def snapshot_quantile(snap: dict, q: float) -> Optional[float]:
+    """``Histogram.quantile`` over a SNAPSHOT dict (cumulative buckets +
+    min/max) instead of a live histogram — same linear interpolation,
+    same honesty clamps to ``[min, max]``, same +Inf-rank-reports-max
+    rule. This is what makes scraped and merged histograms quantifiable
+    without reconstructing a live ``Histogram``."""
+    if not 0.0 < q <= 1.0:
+        raise ValueError(f"quantile must be in (0, 1], got {q}")
+    count = snap.get("count") or 0
+    if not count:
+        return None
+    target = q * count
+    cum_prev, lo = 0, 0.0
+    for bound, key in _snapshot_bounds(snap):
+        cum = snap["buckets"][key]
+        c = cum - cum_prev
+        if c and cum >= target:
+            est = lo + (bound - lo) * (target - cum_prev) / c
+            if snap.get("min") is not None:
+                est = min(max(est, snap["min"]), snap["max"])
+            return est
+        cum_prev = cum
+        lo = bound
+    return snap.get("max")
+
+
+def merge_histogram_snapshots(snaps: Iterable[dict]) -> dict:
+    """EXACT merge of histogram snapshots sharing one bucket layout:
+    counts, sums and every cumulative bucket add bucket-wise (fixed
+    shared bounds make the merge well-defined); min/max combine;
+    avg/p50/p99 are recomputed from the merged state. Snapshots with
+    mismatched bucket bounds are REFUSED (``ValueError``) — summing
+    across different layouts would silently misbucket observations."""
+    snaps = [s for s in snaps if isinstance(s, dict)]
+    if not snaps:
+        raise ValueError("nothing to merge")
+    ref = _snapshot_bounds(snaps[0])
+    ref_bounds = [b for b, _ in ref]
+    for s in snaps[1:]:
+        if [b for b, _ in _snapshot_bounds(s)] != ref_bounds:
+            raise ValueError(
+                "histogram bucket bounds mismatch: "
+                f"{ref_bounds} vs {[b for b, _ in _snapshot_bounds(s)]}")
+    count = sum(s.get("count") or 0 for s in snaps)
+    total = sum(s.get("sum") or 0.0 for s in snaps)
+    mins = [s["min"] for s in snaps if s.get("min") is not None]
+    maxs = [s["max"] for s in snaps if s.get("max") is not None]
+    buckets = {}
+    for _, key in ref:
+        buckets[key] = sum(s["buckets"].get(key, 0) for s in snaps)
+    buckets["+Inf"] = count
+    merged = {
+        "count": count,
+        "sum": total,
+        "min": min(mins) if mins else None,
+        "max": max(maxs) if maxs else None,
+        "avg": (total / count) if count else None,
+        "buckets": buckets,
+    }
+    merged["p50"] = snapshot_quantile(merged, 0.5)
+    merged["p99"] = snapshot_quantile(merged, 0.99)
+    return merged
 
 
 # -- default registry -----------------------------------------------------

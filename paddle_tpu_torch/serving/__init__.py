@@ -18,8 +18,9 @@ Quick start::
         logits_rows = fut.result()             # or typed ServingError
 
 ``GenerativeEngine`` serves a GPT model (prefill/decode slots, prefix
-cache, chunked prefill, speculative decoding). The fleet tier
-(``serving/fleet``) is not in the port yet.
+cache, chunked prefill, speculative decoding). ``fleet`` is the network
+tier above both (HTTP front-end, router, supervisor, telemetry,
+autoscaler, replica process).
 """
 from ..resilience.deadline import Deadline, DeadlineExceeded
 from .breaker import CircuitBreaker
@@ -29,6 +30,7 @@ from .engine import (HEALTH_SCHEMA_KEYS, HEALTH_SCHEMA_VERSION,
                      ServingError, ServingFuture)
 from .generate import GenerationConfig, GenerativeEngine
 from .prefix_cache import PrefixCache
+from . import fleet
 
 __all__ = [
     "ServingEngine", "ServingConfig", "ServingFuture", "CircuitBreaker",
@@ -36,4 +38,5 @@ __all__ = [
     "ServingError", "Overloaded", "CircuitOpen", "BatchFailed",
     "PoisonRequest", "EngineStopped", "DeadlineExceeded",
     "HEALTH_SCHEMA_VERSION", "HEALTH_SCHEMA_KEYS",
+    "fleet",
 ]

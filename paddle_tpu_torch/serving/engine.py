@@ -1366,10 +1366,17 @@ class ServingEngine:
             self._record_outcome("completed")
             self._finish_request(r, "completed")
             if _monitor.enabled():
+                # trace exemplar: with the telemetry plane on, the
+                # observation carries this request's trace id into the
+                # bounded per-bucket exemplar ring (JSON metrics form
+                # only); off, the plain observe() path allocates nothing
+                ex = r.span.trace_id \
+                    if _monitor.telemetry_enabled() else None
                 _monitor.histogram(
                     "serving_request_latency_seconds",
                     "submit-to-response latency of completed requests "
-                    "(p50/p99 in the snapshot)").observe(latency)
+                    "(p50/p99 in the snapshot)").observe(
+                    latency, exemplar=ex or None)
             r.future._settle(result=res)
 
     # -- helpers ---------------------------------------------------------

@@ -240,7 +240,7 @@ def test_fused_gemm_uncompiled_triple_names_the_compiled_list():
     with pytest.raises(_build.KernelError, match="cudaError_t 1"):
         _build.launch("fused_gemm", x.device, x.data_ptr(), y.data_ptr(),
                       None, None, None, None, out.data_ptr(), 64, 64, 64,
-                      0, 0, 1e-5, 0, 0, 96, 96, 32)
+                      0, 0, 1e-5, 0, 0, 96, 96, 32, None, 1)
 
 
 @pytest.mark.cuda
@@ -288,6 +288,63 @@ def test_fused_gemm_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(8, 1000, 2048), (8, 768, 768),
+                                   (8, 3072, 768), (8, 768, 3072)])
+def test_fused_gemm_f32_small_m_no_farther_from_exact_than_addmm(m, n, k):
+    """At small M the f32 route splits k (``FG.splitk_splits``), as cuBLAS
+    does there: K5 + bias at ResNet-50's fc head and at m = 8 of BERT-base's
+    three products is no farther from a float64 product of the same
+    inputs than ``torch.addmm`` (the largest absolute error over three
+    seeds of the fusion witness's inputs, normals x 0.5). One chain over
+    all of K was 4-5x farther (tools/torch_k5_small_m_check.py)."""
+    import numpy as np
+
+    _cuda()
+    assert FG.splitk_splits(m, n, k) > 1
+    worst = {"k5": 0.0, "addmm": 0.0}
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        draw = lambda *s: torch.from_numpy(  # noqa: E731
+            rng.standard_normal(s, dtype=np.float32) * 0.5).cuda()
+        x, y, bias = draw(m, k), draw(k, n), draw(n)
+        ref = torch.addmm(bias.double(), x.double(), y.double())
+        got = {"k5": K.fused_gemm(x, y, bias),
+               "addmm": torch.addmm(bias, x, y)}
+        for name, t in got.items():
+            worst[name] = max(worst[name],
+                              float((t.double() - ref).abs().max()))
+    assert worst["k5"] <= worst["addmm"], worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 33, 64])
+@pytest.mark.parametrize("n,k", [(4, 4), (260, 100), (132, 2052),
+                                 (1000, 4096)])
+def test_fused_gemm_f32_split_k_edges_and_repeats(m, n, k):
+    """The split route at its edges (one k-tile, K not a multiple of 32,
+    more k-tiles than splits, M = 1 and the largest M that splits), every
+    triple (the split route runs a 64-row tiling under each), bias + gelu
+    + residual into f32 and bf16, at
+    ``K.KERNEL_TOL`` of the plain version, and bit-identical run to run
+    (the fixed reduction tree). M = 65 does not split."""
+    g = _cuda()
+    assert FG.splitk_splits(m, n, k) == min(-(-k // FG.SPLITK_K),
+                                            FG.MAX_SPLITS)
+    assert FG.splitk_splits(65, n, k) == 1
+    assert FG.splitk_splits(m, n, k, layer_norm=True) == 1
+    assert FG.splitk_splits(m, n, k, bf16=True) == 1
+    for blocks in FG.COMPILED_BLOCKS:
+        for out_dt in ("float32", "bfloat16"):
+            _check_gemm(m, n, k, "bias+gelu_tanh+residual", "float32",
+                        out_dt, blocks)
+    x, y, kw = _gemm_inputs(g, m, n, k, torch.float32, residual=True)
+    kw.pop("ln_scale"), kw.pop("ln_bias")
+    a = K.fused_gemm(x, y, activation="gelu", **kw)
+    b = K.fused_gemm(x, y, activation="gelu", **kw)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_a_failed_launch_raises_through_the_fusion_witness(monkeypatch):
     """The entry point's own error (M = 0: cudaErrorInvalidValue) raises
     KernelError; and when K5 fails in the fusion witness, Executor.run
@@ -299,7 +356,8 @@ def test_a_failed_launch_raises_through_the_fusion_witness(monkeypatch):
     dev = torch.device("cuda", torch.cuda.current_device())
     with pytest.raises(_build.KernelError, match="cudaError_t 1"):
         _build.launch("fused_gemm", dev, None, None, None, None, None, None,
-                      None, 0, 8, 8, 0, 0, 1e-5, 0, 0, *FG.DEFAULT_BLOCKS)
+                      None, 0, 8, 8, 0, 0, 1e-5, 0, 0, *FG.DEFAULT_BLOCKS,
+                      None, 1)
 
     def fc(h, act=None):
         return fluid.layers.fc(h, 128, act=act, param_attr=fluid.ParamAttr(
@@ -2807,3 +2865,97 @@ def test_quant_levels_on_the_card_equal_the_cpu(op_type):
                                    for s, vals in ins.items()}, attrs)
     for slot in ("Out", "OutScale"):
         assert torch.equal(card[slot][0].cpu(), cpu[slot][0]), slot
+
+
+# ---------------------------------------------------------------------------
+# the fleet tier on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_fleet_wire_roundtrip_of_cuda_arrays():
+    """f32 and bf16 arrays made on the card cross the wire bit for bit
+    (a bf16 tensor travels as its raw 2-byte words)."""
+    import json
+
+    from paddle_tpu_torch.serving.fleet import wire
+
+    g = _cuda()
+    x = torch.randn(7, 33, generator=g, device="cuda")
+    for t in (x @ x.T, (x @ x.T).bfloat16()):
+        body = json.loads(wire.dumps(wire.encode_outputs([t], "t")))
+        back, = wire.decode_outputs(body)
+        back = back if isinstance(back, torch.Tensor) else \
+            torch.from_numpy(back.view("int16")).view(torch.bfloat16) \
+            if str(back.dtype) == "bfloat16" else torch.from_numpy(back)
+        assert back.dtype == t.dtype and torch.equal(back, t.cpu())
+
+
+def _gpt_tiny_engine():
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.serving.fleet.replica import build_probe
+
+    eng, _ = build_probe("gpt_tiny", serving.ServingConfig(
+        max_batch=4, queue_depth=16), "cuda")
+    return eng
+
+
+@pytest.mark.cuda
+def test_fleet_frontend_over_a_gpt_tiny_engine_on_the_card():
+    """A gpt_tiny engine on cuda:0 behind a front-end: routed streams
+    equal the engine's own answers, K1 and K2 launch, the health body
+    advertises the generative capability and the ledgers stay exact."""
+    from paddle_tpu_torch.serving.fleet import (FleetRouter, Replica,
+                                                ServingFrontend)
+
+    _cuda()
+    eng = _gpt_tiny_engine()
+    eng.warm_up()
+    eng.start()
+    fe = ServingFrontend(eng, replica_id="c0")
+    fe.start()
+    try:
+        router = FleetRouter([Replica("c0", "127.0.0.1", fe.port)])
+        router.poll_now()
+        assert fe.health_body()["generative"] is True
+        K.reset_launch_counts()
+        for prompt in ([3, 1, 4], [2, 7, 1, 8, 2, 8]):
+            toks = list(router.generate(prompt, max_new_tokens=6))
+            want = eng.submit(prompt, max_new_tokens=6).result(
+                timeout=120)[0].tolist()
+            assert toks == want and len(toks) == 6
+        counts = K.launch_counts()
+        assert counts["flash_attention_fwd"] > 0
+        assert counts["decode_attention"] > 0
+        assert router.accounting()["exact"] and eng.accounting()["exact"]
+    finally:
+        fe.stop(wait_inflight_s=5.0)
+        eng.stop(drain=True)
+
+
+@pytest.mark.cuda
+def test_aot_cache_warm_start_on_the_card(tmp_path):
+    """Two gpt_tiny engines on the card from one warm-start cache: the
+    second loads every prepared step (hits, no misses, no errors) and
+    answers with the first one's tokens."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import aot_cache
+
+    _cuda()
+    fluid.set_flags({"FLAGS_aot_cache_dir": str(tmp_path)})
+    try:
+        toks, deltas = [], []
+        for _ in range(2):
+            eng = _gpt_tiny_engine()
+            before = aot_cache.cache_stats()
+            eng.warm_up()
+            after = aot_cache.cache_stats()
+            deltas.append({k: after[k] - before[k] for k in after})
+            with eng:
+                toks.append(eng.submit([5, 3, 1], max_new_tokens=6).result(
+                    timeout=120)[0].tolist())
+    finally:
+        fluid.set_flags({"FLAGS_aot_cache_dir": ""})
+    cold, warm = deltas
+    assert cold["saves"] >= 2 and cold["hits"] == 0
+    assert warm["hits"] == cold["saves"] and warm["misses"] == 0
+    assert warm["errors"] == 0 and toks[0] == toks[1]

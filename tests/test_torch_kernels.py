@@ -535,3 +535,24 @@ def test_classify_gemm_names_the_hopper_constraint(mnk, kw, ok, why):
         with pytest.raises(ValueError, match="no kernel tiling"):
             K.fused_gemm(torch.zeros(mnk[0], mnk[2]),
                          torch.zeros(mnk[2], mnk[1]), **kw)
+
+
+@pytest.mark.parametrize("mnk,kw,splits", [
+    ((8, 1000, 2048), {}, 32),             # ResNet-50's f32 fc head
+    ((8, 768, 768), {}, 12),
+    ((8, 768, 3072), {}, 48),
+    ((64, 1000, 8192), {}, 64),            # capped at MAX_SPLITS
+    ((64, 65536, 4096), {}, 4),            # capped by the workspace
+    ((1, 4, 4), {}, 1),                    # one chain
+    ((65, 1000, 2048), {}, 1),             # past SPLITK_MAX_M
+    ((8, 1000, 2048), {"bf16": True}, 1),
+    ((8, 768, 768), {"layer_norm": True}, 1)])
+def test_splitk_splits_rule(mnk, kw, splits):
+    """K5's f32 route at small M splits k into chains of ``SPLITK_K``
+    (64), at most ``MAX_SPLITS``, the workspace held to
+    ``SPLITK_MAX_WORKSPACE`` floats; bf16, layer_norm and M > 64 run one
+    chain. The rule is host code: the card tests hold the route's
+    numbers."""
+    FG = importlib.import_module("paddle_tpu_torch.kernels.fused_gemm")
+    assert FG.SPLITK_K == 64
+    assert FG.splitk_splits(*mnk, **kw) == splits

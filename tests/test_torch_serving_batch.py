@@ -638,8 +638,16 @@ def test_slo_state_rides_health_payload():
 
 
 def test_refused_knobs_name_their_missing_module():
-    with pytest.raises(NotImplementedError, match="fleet serving tier"):
-        tfluid.set_flags({"FLAGS_fleet_telemetry": 1})
+    # the fleet tier is ported: FLAGS_fleet_telemetry, the last knob the
+    # port refused, is accepted now
+    from paddle_tpu_torch import monitor as tmonitor
+
+    tfluid.set_flags({"FLAGS_fleet_telemetry": 1})
+    try:
+        assert tmonitor.telemetry_enabled()
+    finally:
+        tfluid.set_flags({"FLAGS_fleet_telemetry": 0})
+    assert not tmonitor.telemetry_enabled()
 
 
 # ---------------------------------------------------------------------------

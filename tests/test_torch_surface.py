@@ -16,7 +16,6 @@ import pytest
 import paddle_tpu_torch
 
 MULTI = "multi-device (ROADMAP Queue A item 6)"
-FLEET = "the fleet tier (Queue A item 5)"
 SHARDED = ("the replica checks and the sharded checkpoint of "
            "resilience/distributed.py (item 6)")
 NO_TPU = "TPU-only: the port runs on CUDAPlace/CPUPlace"
@@ -29,8 +28,6 @@ STILL_MISSING = {
         "distributed": MULTI, "DistributeTranspiler": MULTI,
         "DistributeTranspilerConfig": MULTI,
         "TPUPlace": NO_TPU,
-        "aot_cache": "aot_cache.py (item 4): what it caches is undecided, "
-                     "as the port compiles no program",
     },
     "analysis": {
         "CollectiveEvent": MULTI, "CommsReport": MULTI,
@@ -55,9 +52,6 @@ STILL_MISSING = {
     "lowering": {"np_dtype": "the JAX side's dtype helper; the port's is "
                              "core.types.np_dtype"},
     "monitor": {
-        "merge_histogram_snapshots": "fleet histogram merging (item 4)",
-        "snapshot_quantile": "fleet histogram merging (item 4)",
-        "telemetry_enabled": FLEET,
         "observe_comms_cost": MULTI,
     },
     "ops": {"pipeline_op": MULTI},
@@ -65,7 +59,6 @@ STILL_MISSING = {
         "ReplicaDivergenceError", "handle_divergence",
         "replica_divergence_check", "set_divergence_recovery",
         "verify_sharding_section")},
-    "serving": {"fleet": FLEET},
     "transpiler": {n: MULTI for n in (
         "DistributeTranspiler", "DistributeTranspilerConfig",
         "GeoSgdTranspiler", "HashName", "PSDispatcher", "RoundRobin")},
@@ -174,7 +167,7 @@ def test_the_list_holds_no_name_already_ported(missing):
         assert set(names) <= missing.get(mod, set()), \
             (mod, sorted(set(names) - missing.get(mod, set())))
         assert all(names.values())
-    assert sum(len(v) for v in STILL_MISSING.values()) == 44
+    assert sum(len(v) for v in STILL_MISSING.values()) == 39
 
 
 @pytest.mark.parametrize("mod", sorted(ITEM_2))
