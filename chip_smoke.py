@@ -5,7 +5,7 @@
 ``--phases`` runs only the named phases that need no other phase's
 result (``ALONE``: kernels, the training and inference phases, tune,
 seq2seq, gru_encdec, misc_image, detection, data_path, dygraph, predictor,
-qat) after ``device``, and prints no ``ok`` line. Without it, every phase runs:
+qat, fleet, gates) after ``device``, and prints no ``ok`` line. Without it, every phase runs:
 
 Phases, in order; any failure exits non-zero (no phase is caught):
 
@@ -452,7 +452,31 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    an autoscaler scale-out from a pressure trace, whose replica is the warm
    start (hits, no errors, the cold tokens); the aggregator's exact merge
    of both live replicas' latency histograms. Alone: ``--phases fleet``.
-28. prints the script time of each phase and part (``[seconds]``), the
+28. gates — the port's CI gates on the card, with
+   ``FLAGS_lock_witness=1`` set before anything of the phase is built.
+   (a) The static gate: ``analysis.concurrency.analyze_package()`` over
+   ``paddle_tpu_torch`` has no PT800 and every gating finding is in
+   ``tools/torch_lint_concurrency.py``'s allowlist; prints the locks,
+   edges and findings. (b) ``tools/torch_load_check.py``'s serving legs
+   at full width with its CI request counts: ``leg_steady`` and
+   ``leg_chaos`` (compile faults at warm-up, overload shedding, one hang
+   broken by the 2 s step watchdog) over a BERT-base bf16 fused
+   ``ServingEngine`` built as fleet (b) builds it (seq 128, K1 and K5),
+   and ``leg_decode`` and ``leg_decode_chaos`` over the serve phase's
+   GPT-2 small ``GenerativeEngine`` (K1, K2). (c) ``leg_fleet_chaos_
+   supervisor``: ``mlp_tiny`` replica processes on ``--device cuda``
+   under a ``ReplicaSupervisor``, the router and supervisor in this
+   process; one replica SIGKILLed mid-burst and restarted, one forced
+   crash loop retired typed. (d) The witness gate: zero runtime
+   lock-order cycles, every runtime edge between framework-named locks in
+   the static graph, ``ServingEngine._lock``, ``Executor._lock``,
+   ``FleetRouter._lock`` and ``ReplicaSupervisor._lock`` witnessed; prints
+   the witnessed locks and edges and the worst hold p99. (e) One BERT-base
+   f32 train step (the train phase's shape; K1 24, K3 12, K4 12) under
+   ``FLAGS_numerics_witness``: zero containment violations. Every check
+   of every leg true, accounting exact; reports each serving leg's p50/p99
+   and sheds and the restart time. Alone: ``--phases gates``.
+29. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -8083,12 +8107,12 @@ def fleet_generative(seed):
     return res
 
 
-def fleet_batching(seed):
-    """Part (b): BERT-base bf16 fused inference behind a front-end; each
-    routed /v1/submit equals the same feed submitted to the engine."""
-    from paddle_tpu_torch.serving.fleet import (FleetRouter, Replica,
-                                                ServingFrontend)
-
+def bert_serving_factory(seed):
+    """``make_engine(ci, config) -> (engine, feed)``: a BERT-base bf16
+    ServingEngine at seq ``BATCH_SEQ`` on the card (fused under
+    ``FLAGS_epilogue_fusion``) fetching the encoder output, each engine
+    on fresh parameters from ``seed``; ``feed(rows, seed)`` makes its
+    requests. Fleet (b) and the gates' serving legs run it."""
     cfg = BertConfig.base()
     net = build_bert_pretrain(cfg, seq_len=BATCH_SEQ, build_optimizer=False)
     net["startup"].random_seed = seed
@@ -8096,16 +8120,35 @@ def fleet_batching(seed):
     enc = next(op.input("X")[0] for op in prog.global_block.ops
                if op.type == "mul" and op.input("Y")[0] == "mlm_trans_w")
     names = list(net["feeds"])
-    exe, scope = fluid.Executor(), fluid.Scope()
-    exe.run(net["startup"], scope=scope)
-    data = bert_feed(seed + 3, cfg.vocab_size, FLEET_SUBMITS, BATCH_SEQ)
-    rows = [{n: data[n][i:i + 1] for n in names}
+
+    def make_engine(ci, config):
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(net["startup"], scope=scope)
+        eng = ServingEngine(prog, feed_names=names, fetch_list=[enc],
+                            scope=scope, executor=exe, config=config)
+
+        def feed(rows=1, seed=0):
+            data = bert_feed(seed, cfg.vocab_size, rows, BATCH_SEQ)
+            return {n: data[n] for n in names}
+
+        return eng, feed
+
+    return make_engine
+
+
+def fleet_batching(seed):
+    """Part (b): BERT-base bf16 fused inference behind a front-end; each
+    routed /v1/submit equals the same feed submitted to the engine."""
+    from paddle_tpu_torch.serving.fleet import (FleetRouter, Replica,
+                                                ServingFrontend)
+
+    eng, feed = bert_serving_factory(seed)(
+        False, ServingConfig(max_batch=BATCH_MAX, queue_depth=64,
+                             deadline_s=0))
+    data = feed(FLEET_SUBMITS, seed + 3)
+    rows = [{n: a[i:i + 1] for n, a in data.items()}
             for i in range(FLEET_SUBMITS)]
     fluid.set_flags({"FLAGS_epilogue_fusion": True})
-    eng = ServingEngine(prog, feed_names=names, fetch_list=[enc],
-                        scope=scope, executor=exe,
-                        config=ServingConfig(max_batch=BATCH_MAX,
-                                             queue_depth=64, deadline_s=0))
     fe = None
     try:
         eng.warm_up([1])
@@ -8341,12 +8384,282 @@ def phase_fleet(seed):
                 launches=launches)
 
 
+# ---------------------------------------------------------------- gates
+# the CI gates on the card (tools/torch_lint_concurrency.py's static
+# gate, tools/torch_load_check.py's legs and witness gate): the legs'
+# request counts are the tool's --ci ones; the models are full width
+GATES_LOCKS = ("ServingEngine._lock", "Executor._lock", "FleetRouter._lock",
+               "ReplicaSupervisor._lock")
+
+
+def _tool(name):
+    """``tools/<name>.py`` of this checkout, imported by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _latency_snap():
+    snap = monitor.metric_value("serving_request_latency_seconds",
+                                default=None)
+    return snap if isinstance(snap, dict) else {"count": 0, "buckets": {}}
+
+
+def _latency_ms(before):
+    """p50/p99 of the requests settled since the ``before`` snapshot of
+    ``serving_request_latency_seconds`` (the bucket-wise difference: the
+    registry is shared with the legs running beside this one)."""
+    after = _latency_snap()
+    diff = {"count": after["count"] - before["count"],
+            "buckets": {k: v - before["buckets"].get(k, 0)
+                        for k, v in after["buckets"].items()}}
+    if not diff["count"]:
+        return None
+    return dict(count=diff["count"],
+                p50_ms=monitor.snapshot_quantile(diff, 0.5) * 1e3,
+                p99_ms=monitor.snapshot_quantile(diff, 0.99) * 1e3)
+
+
+def gates_gpt_factory(seed):
+    """``make_engine(ci, config)`` for the decode legs: the serve phase's
+    GPT-2 small model (8 slots, 1024-token paged KV, prompt buckets
+    128/512) behind a fresh ``GenerativeEngine`` on the same seeded
+    parameters, and its (phase, bucket) count."""
+    cfg = GptConfig.base()
+    model = build_gpt_generative(cfg, batch_slots=8, max_seq=1024,
+                                 page_size=8, prompt_buckets=(128, 512))
+    model["startup"].random_seed = seed
+    exe = fluid.Executor()
+    pscope = fluid.Scope()
+    exe.run(model["startup"], scope=pscope)
+    params = dict(pscope.vars)
+
+    def make_engine(ci, config):
+        scope = fluid.Scope()
+        for n, t in params.items():
+            scope.set_var(n, t)
+        return GenerativeEngine(
+            model, scope=scope, executor=exe, config=config,
+            gen_config=GenerationConfig(decode_chunk=8,
+                                        prefix_cache_pages=256))
+
+    # prefill 128 and 512, the decode step and the chunked prefill
+    return make_engine, len(model["prefill"]) + 2
+
+
+def gates_train_step(seed):
+    """Part (e): one BERT-base f32 train step under
+    ``FLAGS_numerics_witness``, after one warm step: every value the
+    witness saw lies inside its static interval, tolerance-free. Returns
+    the witnessed step's launches beside the check."""
+    from paddle_tpu_torch.analysis.numerics import static_intervals
+    from paddle_tpu_torch.monitor import numwitness
+
+    cfg = BertConfig.base()
+    net = build_bert_pretrain(cfg, seq_len=TRAIN_SEQ)
+    net["startup"].random_seed = seed
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(net["startup"], scope=scope)
+    feed = bert_feed(seed, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    fetch = [net["loss"].name]
+    fluid.set_flags({"FLAGS_numerics_witness": True})
+    try:
+        exe.run(net["main"], feed=feed, fetch_list=fetch, scope=scope)
+        numwitness.reset_numerics_witness()
+        # the phase's counts run on: this step's are the difference
+        before = K.launch_counts()
+        (loss,) = exe.run(net["main"], feed=feed, fetch_list=fetch,
+                          scope=scope)
+        torch.cuda.synchronize()
+        launches = {n: c - before[n] for n, c in K.launch_counts().items()}
+    finally:
+        fluid.set_flags({"FLAGS_numerics_witness": False})
+    observed = numwitness.numerics_witness_vars()
+    static = static_intervals(net["main"], fetch_names=fetch)
+    checked = sorted(set(static) & set(observed))
+    bad = numwitness.containment_violations(static, observed)
+    return dict(loss=float(np.ravel(loss)[0]), bounded=len(static),
+                witnessed=len(observed), checked=len(checked),
+                violations=bad, launches=launches)
+
+
+def phase_gates(seed):
+    lc = _tool("torch_load_check")
+    lint = _tool("torch_lint_concurrency")
+    lc.set_device("cuda")
+    fluid.set_flags({"FLAGS_lock_witness": 1})
+    monitor.reset_witness()
+    monitor.reset()
+    res, chaos = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gates_")
+
+    def fleet_chaos():
+        # (c) beside (b) and (e): its replica processes start and serve
+        # on the card while this process runs the serving legs (no fault
+        # plan of theirs reaches the router's wire sites)
+        t0 = time.perf_counter()
+        try:
+            chaos["leg"] = lc.leg_fleet_chaos_supervisor(
+                "fleet_chaos_supervisor", True, tmp,
+                os.path.join(tmp, "aot"))
+        except BaseException as e:  # re-raised on the main thread
+            chaos["error"] = e
+        finally:
+            TIMES["gates.fleet_chaos"] = time.perf_counter() - t0
+
+    side = threading.Thread(target=fleet_chaos, name="gates-fleet-chaos",
+                            daemon=True)
+    try:
+        # (a) the static gate
+        from paddle_tpu_torch.analysis.concurrency import analyze_package
+        with timed("gates.static"):
+            static = analyze_package()
+        codes = collections.Counter(d.code for d in static.diagnostics)
+        gating = [d for d in static.diagnostics
+                  if d.code in lint.GATING_CODES
+                  and (d.code, d.op_type) not in lint.ALLOWLIST]
+        res["static"] = dict(locks=len(static.locks),
+                             edges=len(static.edges),
+                             findings=dict(codes),
+                             allowlisted=len(static.diagnostics)
+                             - len(gating), gating=len(gating))
+        log(f"[gates] (a) static: {len(static.modules)} modules, "
+            f"{static.functions} functions, {len(static.locks)} locks, "
+            f"{len(static.edges)} lock-order edges, findings "
+            f"{dict(codes)}, {len(gating)} not allowlisted")
+        if codes.get("PT800") or gating:
+            raise SystemExit("chip_smoke: the static concurrency gate "
+                             "failed: " + "; ".join(
+                                 f"{d.code} {d.op_type} at {d.site}"
+                                 for d in gating or static.diagnostics))
+        side.start()
+        K.reset_launch_counts()
+        legs = []
+        # (b) the serving legs at full width
+        fluid.set_flags({"FLAGS_epilogue_fusion": True})
+        try:
+            bert = bert_serving_factory(seed)
+            for name, fn in (("steady_bert_base", lc.leg_steady),
+                             ("chaos_bert_base", lc.leg_chaos)):
+                before = _latency_snap()
+                with timed(f"gates.{name}"):
+                    leg = fn(name, bert, True)
+                leg["latency"] = _latency_ms(before)
+                legs.append(leg)
+                torch.cuda.empty_cache()
+        finally:
+            fluid.set_flags({"FLAGS_epilogue_fusion": False})
+        gpt, buckets = gates_gpt_factory(seed)
+        for name, fn, kw in (
+                ("decode_gpt2_small", lc.leg_decode,
+                 dict(make_engine=gpt, buckets=buckets)),
+                ("decode_gpt2_small_chaos", lc.leg_decode_chaos,
+                 dict(make_engine=gpt))):
+            before = _latency_snap()
+            with timed(f"gates.{name}"):
+                leg = fn(name, True, **kw)
+            leg["latency"] = _latency_ms(before)
+            legs.append(leg)
+        del gpt
+        torch.cuda.empty_cache()
+        # (e) the witnessed train step
+        with timed("gates.train_step"):
+            step = gates_train_step(seed)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        torch.cuda.empty_cache()
+        with timed("gates.fleet_chaos_wait"):
+            side.join(600)
+        if side.is_alive():
+            raise SystemExit("chip_smoke: the gates fleet-chaos leg did "
+                             "not end within 600 s")
+        if "error" in chaos:
+            raise chaos["error"]
+        legs.append(chaos["leg"])
+        # (d) the witness gate, over everything the phase ran
+        witness, w_ok = lc._witness_gate(static)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        monitor.reset_witness()
+        fluid.set_flags({"FLAGS_lock_witness": 0})
+        log("[gates] seconds: " + ", ".join(
+            f"{k[6:]} {v:.2f}" for k, v in TIMES.items()
+            if k.startswith("gates.")))
+    for leg in legs:
+        acct = leg.get("engine_accounting") or leg.get("router_accounting")
+        lat = leg.get("latency") or {}
+        dec = leg.get("decode") or {}
+        log(f"[gates] {leg['name']}: {'ok' if leg['ok'] else 'MISS'}, "
+            f"{leg['requests']} requests, caller view "
+            f"{ {k: v for k, v in leg['caller_view'].items() if v} }, "
+            f"shed {acct.get('shed')}, exact {acct.get('exact')}"
+            + (f", latency p50 {lat['p50_ms']:.2f} ms p99 "
+               f"{lat['p99_ms']:.2f} ms ({lat['count']})" if lat else "")
+            + (f", inter-token p50 {dec['intertoken_p50_ms']:.2f} ms p99 "
+               f"{dec['intertoken_p99_ms']:.2f} ms"
+               if dec.get("intertoken_p50_ms") is not None else "")
+            + (f", kill -> routable again {leg['restart_elapsed_s']:.2f} s"
+               if leg.get("restart_elapsed_s") is not None else ""))
+    locks = witness["locks"]
+    worst = max(locks.items(), key=lambda kv: kv[1]["hold"]["p99"] or 0)
+    log(f"[gates] (d) witness: {len(locks)} locks, "
+        f"{len(witness['runtime_edges'])} runtime edges "
+        f"{witness['runtime_edges']}, "
+        f"{len(witness['edges_not_in_static_graph'])} outside the static "
+        f"graph, {len(witness['runtime_cycles'])} cycles; worst hold p99 "
+        f"{(worst[1]['hold']['p99'] or 0) * 1e3:.3f} ms ({worst[0]})")
+    log(f"  witnessed locks: {sorted(locks)}")
+    log(f"[gates] (e) BERT-base f32 train step under the numerics "
+        f"witness: loss {step['loss']:.6f}, {step['bounded']} bounded "
+        f"vars, {step['checked']} witnessed, {len(step['violations'])} "
+        f"escape(s), launches {step['launches']}; phase launches "
+        f"{launches}")
+    res.update(legs=legs, witness={k: witness[k] for k in (
+        "ok", "locks", "runtime_edges", "edges_not_in_static_graph",
+        "runtime_cycles")},
+        worst_hold_p99_ms=(worst[1]["hold"]["p99"] or 0) * 1e3,
+        worst_hold_lock=worst[0], train_step=step, launches=launches)
+    for leg in legs:
+        if not leg["ok"]:
+            raise SystemExit(f"chip_smoke: gates leg {leg['name']} missed "
+                             f"{[k for k, v in leg['checks'].items() if not v]}"
+                             if leg.get("checks") else
+                             f"chip_smoke: gates leg {leg['name']} missed")
+    if not w_ok or witness["edges_not_in_static_graph"] \
+            or witness["runtime_cycles"]:
+        raise SystemExit(f"chip_smoke: the lock witness gate failed: "
+                         f"{witness['edges_not_in_static_graph']} "
+                         f"{witness['runtime_cycles']}")
+    missing = [n for n in GATES_LOCKS if n not in locks]
+    if missing:
+        raise SystemExit(f"chip_smoke: the witness saw none of {missing}")
+    if step["violations"] or not step["checked"]:
+        raise SystemExit(f"chip_smoke: numerics containment on the train "
+                         f"step: {step['violations'][:5]} "
+                         f"({step['checked']} checked)")
+    for name, per_step in TRAIN_LAUNCHES.items():
+        if step["launches"][name] != per_step:
+            raise SystemExit(f"chip_smoke: the witnessed train step "
+                             f"launched {name} {step['launches'][name]} "
+                             f"times, expected {per_step}")
+    for name in K.KERNEL_SOURCES:
+        if launches[name] < 1:
+            raise SystemExit(f"chip_smoke: the gates phase never launched "
+                             f"{name}")
+    return res
+
+
 # ---------------------------------------------------------------- main
 # the phases that need no other phase's result, which --phases can run
 ALONE = ("kernels", "train", "train_amp", "train_remat", "train_guard",
          "train_lamb", "infer", "train_resnet", "infer_resnet", "tune",
          "seq2seq", "gru_encdec", "misc_image", "detection", "data_path",
-         "dygraph", "predictor", "qat", "fleet")
+         "dygraph", "predictor", "qat", "fleet", "gates")
 
 
 def run_alone(names, seed, card, out_dir):
@@ -8460,6 +8773,9 @@ def main():
     torch.cuda.empty_cache()
     with timed("fleet"):
         fleet = phase_fleet(args.seed)
+    torch.cuda.empty_cache()
+    with timed("gates"):
+        gates = phase_gates(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -8474,8 +8790,9 @@ def main():
     # models' widths and the data path's legs (none), dygraph BERT-base
     # training (K1, K3, K4), the predictor and the exported artifact of
     # BERT-base and ResNet-50 fused inference (K1, K5), ResNet-50
-    # quant-aware training (none) and the fleet tier's GPT-2 small
-    # replicas and BERT-base batching replica (K1, K2, K5), each counted
+    # quant-aware training (none), the fleet tier's GPT-2 small
+    # replicas and BERT-base batching replica (K1, K2, K5) and the CI
+    # gates' serving legs and witnessed train step (K1-K5), each counted
     # from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
@@ -8494,7 +8811,7 @@ def main():
                 "misc_image": mi["launches"], "detection": det["launches"],
                 "data_path": dp["launches"], "dygraph": dy["launches"],
                 "predictor": pr["launches"], "qat": qat["launches"],
-                "fleet": fleet["launches"]}
+                "fleet": fleet["launches"], "gates": gates["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -8516,7 +8833,7 @@ def main():
               "seq2seq": s2s, "gru_encdec": ge, "deepfm": fm,
               "deepfm_infer": fm_infer, "misc_image": mi, "detection": det,
               "data_path": dp, "dygraph": dy, "predictor": pr, "qat": qat,
-              "fleet": fleet, "launches": launches}
+              "fleet": fleet, "gates": gates, "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

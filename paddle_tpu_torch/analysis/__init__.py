@@ -29,11 +29,15 @@ Program IR (counterpart of ``paddle_tpu/analysis``):
   bias/activation/residual/layer_norm chains rewritten into the
   ``fused_gemm_epilogue`` op under a per-chain numerical fidelity witness,
   wired to the executor via ``FLAGS_epilogue_fusion``.
+* ``concurrency`` — the source-level lock analysis over the port's own
+  code (PT800-PT802): lock inventory, static lock-order graph
+  (``static_edge_set``, what the runtime lock witness is held to).
+  Imported on demand (``from paddle_tpu_torch.analysis import
+  concurrency``); ``tools/torch_lint_concurrency.py`` is its gate.
 * ``diagnostics`` — ``Diagnostic`` and the code table.
 
 The multi-device analyses (``sharding_check``, PT730-PT744, and the comms
-half of the cost model) and the source-level concurrency lint
-(PT800-PT802) arrive with later slices.
+half of the cost model) arrive with a later slice.
 """
 from .diagnostics import (CODES, Diagnostic, ProgramVerificationError,
                           Severity, format_diagnostics)

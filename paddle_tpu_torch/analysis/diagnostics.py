@@ -6,9 +6,9 @@ op's position and the user call site recorded in the op's ``op_callstack``
 attr. The catalogue holds the codes of the passes ported so far, with the
 JAX package's meanings: the verifier (PT100-PT401), liveness
 (PT500-PT504), the static checks (PT700-PT722), GEMM-epilogue fusion
-(PT750-PT756) and numerics (PT900-PT906). The sharding analysis'
-PT730-PT744 and the source-level concurrency lint's PT800-PT802 arrive
-with the slices that port those analyses.
+(PT750-PT756), the source-level concurrency lint (PT800-PT802) and
+numerics (PT900-PT906). The sharding analysis' PT730-PT744 arrive with
+the slice that ports it.
 """
 from __future__ import annotations
 
@@ -136,6 +136,26 @@ CODES = {
               "fusion refused: an op between the chain's ops rewrites a "
               "var the chain reads — the fused op's relocated reads "
               "would see the redefined value"),
+    # -- source-level concurrency analysis (analysis/concurrency.py) ----
+    # These three codes lint the port's own Python source (lock
+    # attributes, with-regions, thread entry points), not a Program IR;
+    # Diagnostic.site carries file:line instead of an op_callstack.
+    "PT800": (Severity.ERROR,
+              "lock-order cycle: the static lock-order graph (nested "
+              "with-regions + calls made while holding a lock) contains "
+              "a cycle — two threads taking the locks in opposing order "
+              "deadlock"),
+    "PT801": (Severity.WARNING,
+              "blocking call under a held lock: time.sleep, socket/HTTP "
+              "I/O, subprocess waits, Event.wait() without timeout, "
+              "torch.cuda.synchronize or a CUDA stream/event synchronize, "
+              "or an unbounded queue op runs while a lock is held — every "
+              "other thread needing the lock stalls for the full blocking "
+              "duration"),
+    "PT802": (Severity.WARNING,
+              "unguarded cross-thread attribute: reachable from more "
+              "than one thread entry point with at least one write and "
+              "at least one access outside any lock region"),
     # -- numerics / precision analysis (analysis/numerics.py) -----------
     "PT900": (Severity.ERROR,
               "broken quant/dequant pairing: a fake-quant output is "

@@ -133,7 +133,8 @@ def executable_key(parts: tuple, args, device="cpu") -> str:
     """Durable identity of one prepared step.
 
     ``parts`` is the executor-stamped tuple ``(kind, program,
-    fetch_names, key_flags, pass_flags)``; the program element is
+    fetch_names, key_flags, pass_flags, gemm_blocks)``; the program
+    element is
     replaced by its content fingerprint (the autotuner's restart-stable
     hash, one identity shared by the cost database and this cache).
     ``args`` is the run's feed dict: only its names, shapes and dtypes

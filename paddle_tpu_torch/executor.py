@@ -874,13 +874,17 @@ class Executor:
         compile event reports as its ``trace_lower`` stage. With
         ``FLAGS_aot_cache_dir`` the prepared step comes from the
         warm-start cache when a saved one matches (``aot_cache``), and a
-        cold one is saved there."""
+        cold one is saved there. The tuned triple is looked up first and
+        keys the cached step, as the tuned options key the reference's
+        compile: a warm process consults the shared cost database too,
+        and never runs a step prepared under another triple."""
         t0 = time.perf_counter()
         from . import aot_cache as _aot_cache
 
+        blocks = self._gemm_blocks(program, feed)
         cache_dir = _aot_cache.cache_dir_flag()
         if not cache_dir or not isinstance(program, Program):
-            program, blocks = self._prepare_cold(program, feed, fetch_names)
+            program = self._prepare_cold(program, feed, fetch_names, blocks)
             return program, blocks, time.perf_counter() - t0
         # the disk is probed once per step and executor: the memo holds
         # the prepared program, so every run of the key reuses ONE object
@@ -888,17 +892,18 @@ class Executor:
                     tuple(sorted((n,) + _shape_dtype_sig(v)
                                  for n, v in feed.items())),
                     tuple(fetch_names), self._key_flags(program),
-                    self._pass_flags())
+                    self._pass_flags(), blocks)
         with self._lock:
             hit = self._aot_memo.get(memo_key)
         if hit is not None:
             return hit[0], hit[1], time.perf_counter() - t0
         parts = (kind, program, tuple(fetch_names),
-                 self._key_flags(program), self._pass_flags())
+                 self._key_flags(program), self._pass_flags(), blocks)
         key = _aot_cache.executable_key(parts, feed, self.device)
         loaded = _aot_cache.load_executable(cache_dir, key, self.device)
         if loaded is None:
-            loaded = self._prepare_cold(program, feed, fetch_names)
+            loaded = (self._prepare_cold(program, feed, fetch_names,
+                                         blocks), blocks)
             # publish for the next cold process (atomic; failures warn
             # once and never break the step)
             _aot_cache.save_executable(cache_dir, key, loaded, self.device)
@@ -906,13 +911,12 @@ class Executor:
             loaded = self._aot_memo.setdefault(memo_key, loaded)
         return loaded[0], loaded[1], time.perf_counter() - t0
 
-    def _prepare_cold(self, program, feed, fetch_names):
-        blocks = self._gemm_blocks(program, feed)
+    def _prepare_cold(self, program, feed, fetch_names, blocks):
         program = self._maybe_auto_remat(program, feed, fetch_names)
         program = self._maybe_epilogue_fusion(program, feed, fetch_names,
                                               blocks)
         self._verify_once(program, fetch_names)
-        return program, blocks
+        return program
 
     @staticmethod
     def _pass_flags() -> tuple:

@@ -2959,3 +2959,82 @@ def test_aot_cache_warm_start_on_the_card(tmp_path):
     assert cold["saves"] >= 2 and cold["hits"] == 0
     assert warm["hits"] == cold["saves"] and warm["misses"] == 0
     assert warm["errors"] == 0 and toks[0] == toks[1]
+
+
+@pytest.mark.cuda
+def test_lock_witness_bert_tiny_engine_on_the_card_stays_in_static_graph():
+    """A BERT-tiny ServingEngine on cuda:0 under ``FLAGS_lock_witness``,
+    requests from four threads and one transient compile fault at
+    warm-up: every runtime lock-order edge between framework-named locks
+    is in the port's static graph (``analysis.concurrency``), no runtime
+    cycle, the accounting exact and K1 launched."""
+    import threading
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import monitor, serving
+    from paddle_tpu_torch.analysis.concurrency import analyze_package
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+    from paddle_tpu_torch.resilience import fault_plan_guard
+
+    _cuda()
+    static = analyze_package()
+    fluid.set_flags({"FLAGS_lock_witness": 1})
+    monitor.reset_witness()
+    try:
+        seq = 32
+        net = build_bert_pretrain(BertConfig.tiny(), seq_len=seq,
+                                  build_optimizer=False)
+        infer = net["main"].clone(for_test=True)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(net["startup"], scope=scope)
+        eng = serving.ServingEngine(
+            infer, feed_names=list(net["feeds"]),
+            fetch_list=[net["loss"].name], scope=scope, executor=exe,
+            config=serving.ServingConfig(max_batch=4, batch_window_s=0.005))
+        with fault_plan_guard("compile:1:RuntimeError"):
+            eng.warm_up()
+        rng = np.random.RandomState(0)
+
+        def feed(i):
+            return {"src_ids": rng.randint(0, 100, (1, seq)),
+                    "pos_ids": np.arange(seq, dtype=np.int64)[None],
+                    "sent_ids": np.zeros((1, seq), np.int64),
+                    "input_mask": np.ones((1, seq), np.float32),
+                    "mask_label": np.full((1, seq), -100, np.int64),
+                    "next_sent_label": np.zeros((1, 1), np.int64)}
+
+        feeds = [feed(i) for i in range(16)]
+        futs, lock = [], threading.Lock()
+
+        def submit(part):
+            for f in part:
+                fut = eng.submit(f)
+                with lock:
+                    futs.append(fut)
+
+        K.reset_launch_counts()
+        with eng:
+            threads = [threading.Thread(target=submit, args=(feeds[i::4],))
+                       for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            for f in futs:
+                assert np.isfinite(f.result(timeout=120)[0]).all()
+        launches = K.launch_counts()
+        report = monitor.witness_report()
+        runtime = monitor.witness_edges()
+    finally:
+        monitor.reset_witness()
+        fluid.set_flags({"FLAGS_lock_witness": 0})
+    assert eng.accounting()["exact"] and len(futs) == 16
+    assert launches["flash_attention_fwd"] > 0
+    names = set(static.locks) | {n for e in static.edge_set() for n in e}
+    framework = {e for e in runtime if e[0] in names and e[1] in names}
+    assert framework - static.edge_set() == set()
+    assert report["cycles"] == []
+    assert {"ServingEngine._lock", "Executor._lock",
+            "_CompiledStep._aot_lock"} <= set(report["locks"])

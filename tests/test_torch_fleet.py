@@ -1355,8 +1355,6 @@ def test_replica_process_on_the_cpu_ready_serves_and_drains(tmp_path):
 _F, _S, _B = "test_torch_fleet.py", "test_torch_serving_batch.py", \
     "test_torch_fleet_telemetry.py"
 _A, _C = "test_torch_autoscaler.py", "test_torch_aot_cache.py"
-_NO_TOOL = ("tools/fleet_top.py is not ported: its port waits with "
-            "tools/load_check.py --fleet (ROADMAP Queue A)")
 
 # JAX test (file::name) -> port test (file::name) or "why: ..."
 COUNTERPARTS = {
@@ -1529,7 +1527,8 @@ COUNTERPARTS = {
     "test_autoscaler.py::test_worst_state_merge_order":
         f"{_A}::test_worst_state_merge_order",
     "test_autoscaler.py::test_fleet_top_renders_autoscaler_and_tenant_"
-    "table": f"why: {_NO_TOOL}",
+    "table": "test_torch_load_check.py::test_fleet_top_renders_the_jax_"
+             "tools_text",
     "test_autoscaler.py::test_scale_in_mid_burst_drains_clean_and_"
     "refuses_concurrent_scale_out":
         f"{_A}::test_scale_in_mid_burst_drains_clean_and_refuses_"

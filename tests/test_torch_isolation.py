@@ -131,6 +131,41 @@ def test_port_runs_with_jax_and_paddle_tpu_blocked():
     assert proc.stdout.strip().endswith("ok")
 
 
+# the port's CI gates: the concurrency analysis and the tools over it
+GATE_TOOLS = ("torch_lint_concurrency", "torch_lint_program",
+              "torch_lint_numerics", "torch_audit_registry",
+              "torch_load_check", "torch_fleet_top")
+
+_GATES_RUN = r"""
+import importlib.util, os, sys
+sys.modules["jax"] = None
+sys.modules["paddle_tpu"] = None
+from paddle_tpu_torch.analysis import concurrency
+rep = concurrency.analyze_package()
+assert not [d for d in rep.diagnostics if d.code == "PT800"]
+for name in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join("tools", name + ".py"))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert not [m for m in sys.modules if sys.modules[m] is not None
+            and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
+print("ok")
+"""
+
+
+def test_gate_tools_import_no_jax_or_paddle_tpu():
+    bad = [(t, m) for t in GATE_TOOLS
+           for m in _imported_roots(os.path.join(REPO, "tools", t + ".py"))
+           if m in ("jax", "jaxlib", "paddle_tpu")]
+    assert not bad, bad
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _GATES_RUN, *GATE_TOOLS],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_executor_without_place_means_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         assert tfluid.Executor().device.type == "cuda"

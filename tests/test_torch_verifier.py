@@ -667,29 +667,30 @@ def test_level2_runs_fusion_and_remat_in_the_strict_bracket():
 
 def test_codes_are_the_reference_codes_and_each_is_tested():
     """Every port code is the JAX package's with its severity and text
-    (PT906 reworded), and each code of the verifier, liveness, the static
-    checks and numerics appears in one of the port's test files (the
-    fusion codes, PT75x, are compared with the JAX package's per program
-    in ``test_torch_fusion.py``)."""
+    (PT906 reworded, PT801 naming the CUDA waits in place of
+    block_until_ready), and each code of the verifier, liveness, the
+    static checks, the concurrency lint and numerics appears in one of
+    the port's test files (the fusion codes, PT75x, are compared with the
+    JAX package's per program in ``test_torch_fusion.py``)."""
     from paddle_tpu.analysis import CODES as J_CODES
 
     for code, (sev, text) in CODES.items():
         assert J_CODES[code][0] == sev, code
-        if code != "PT906":
+        if code not in ("PT906", "PT801"):
             assert J_CODES[code][1] == text or code == "PT755", code
     here = os.path.dirname(os.path.abspath(__file__))
     blob = ""
     for fn in ("test_torch_verifier.py", "test_torch_static_checks.py",
                "test_torch_numerics.py", "test_torch_fusion.py",
-               "test_torch_memory_plan.py", "test_torch_remat.py"):
+               "test_torch_memory_plan.py", "test_torch_remat.py",
+               "test_torch_concurrency_lint.py"):
         with io.open(os.path.join(here, fn), encoding="utf-8") as f:
             blob += f.read()
     missing = [c for c in CODES if c not in blob
                and not c.startswith("PT75")]
     assert not missing, missing
     left = sorted(set(J_CODES) - set(CODES))
-    assert left == [f"PT7{n}" for n in range(30, 45)] + \
-        ["PT800", "PT801", "PT802"]
+    assert left == [f"PT7{n}" for n in range(30, 45)]
 
 
 def test_registry_audit_over_the_port():
