@@ -5,7 +5,7 @@
 ``--phases`` runs only the named phases that need no other phase's
 result (``ALONE``: kernels, the training and inference phases, tune,
 seq2seq, gru_encdec, misc_image, detection, data_path, dygraph, predictor,
-qat, fleet, gates) after ``device``, and prints no ``ok`` line. Without it, every phase runs:
+qat, fleet, gates, ci_gates) after ``device``, and prints no ``ok`` line. Without it, every phase runs:
 
 Phases, in order; any failure exits non-zero (no phase is caught):
 
@@ -476,7 +476,41 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    ``FLAGS_numerics_witness``: zero containment violations. Every check
    of every leg true, accounting exact; reports each serving leg's p50/p99
    and sheds and the restart time. Alone: ``--phases gates``.
-29. prints the script time of each phase and part (``[seconds]``), the
+29. ci_gates — the JAX package's single-device gate tools, ported as
+   ``tools/torch_*.py``, their card legs at full width. (a)
+   ``torch_mem_report.py --check`` over the book programs (static; no
+   PT5xx error). (b) ``torch_remat_check.py``: the static BERT-base
+   gates (peak drop >= 30 %, budget fit), the MLP tripwire and
+   bit-exactness on the card, and BERT-base f32 (batch 8, seq 128,
+   dropout 0) trained 4 steps with and without ``FLAGS_auto_recompute``
+   from the same weights: segments inserted, losses bit-identical;
+   prints each run's predicted and measured peak (K1, K3, K4). (c)
+   ``torch_metrics_report.py``'s scenarios at full width: ``run_repeat``
+   on BERT-base bf16 fused inference (batch 8, seq 128; K1, K5),
+   ``chained_kept_state`` as two ``run_chained`` calls of 5 BERT-base
+   f32 training steps, ``infer_clone`` on its inference clone: one
+   compile and one hit each, 0 recompiles; then the forced-recompile
+   control (3) must trip. (d) ``torch_trace_check.py``'s legs: a traced
+   24-request, 3-thread burst through a batching engine over BERT-base
+   bf16 fused inference (every request in one complete trace; the
+   burst's merged timeline written by ``torch_timeline.py``), 3 traced
+   BERT-base f32 train steps through ``contrib.Trainer`` with a
+   checkpoint, the batch-fault and watchdog incidents on that engine
+   carrying the request's chain, the span overhead budget, the cost
+   model within 10 % of the analytic counts; prints ``executor_mfu`` and
+   ``serving_bucket_mfu``. (e) ``torch_option_sweep.py`` over BERT-base
+   bf16 fused inference and ResNet-50 bf16 inference (batch 32): K5's
+   four tilings, both conv layouts and the unfused program, every set
+   ranked, K5 launched at each tiling, K1 launched. (f) Beside (a)-(d),
+   ``torch_chaos_check.py --model bert_base``: three worker processes
+   train BERT-base f32 (batch 8, seq 128, dropout 0, Adam) 8 steps with
+   a checkpoint every 2; the victim killed inside serial 4's write
+   leaves serial 2 and a torn temp dir, the torn dir promoted, the
+   resume under two compile faults skips it (PT6xx), resumes from 2 and
+   ends with the baseline's loss and parameter digest bit for bit; each
+   worker launched K1, K3 and K4. Every check true; the phase's launches
+   include the workers'. Alone: ``--phases ci_gates``.
+30. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -489,6 +523,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -8654,12 +8689,206 @@ def phase_gates(seed):
     return res
 
 
+# ---------------------------------------------------------------- ci_gates
+# the JAX package's single-device gate tools as the port's tools/torch_*.py
+# (memory plan, auto-remat, metrics and recompiles, tracing and the cost
+# model, the timeline, chaos/resume, the option sweep), their card legs at
+# full width
+CI_DEVICE = "cuda"
+CI_CHAOS_ARGS = ("--model", "bert_base")
+# the sweep's chain lengths and repeats (tuning.chained_step_seconds)
+CI_SWEEP_CHAINS = dict(k_short=2, k_long=10, repeats=1)
+CI_ATTENTION = ("flash_attention_fwd", "flash_attention_dq",
+                "flash_attention_dkv")
+
+
+def _ci_checks(name, checks):
+    """Print a leg's checks; any false one fails the phase."""
+    log(f"[ci_gates] {name}: " + ", ".join(
+        f"{k}={v}" for k, v in checks.items()))
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"chip_smoke: ci_gates {name} missed {bad}")
+
+
+def phase_ci_gates(seed):
+    mem, remat, metrics, tr, chaos, sweep = (_tool("torch_" + n) for n in (
+        "mem_report", "remat_check", "metrics_report", "trace_check",
+        "chaos_check", "option_sweep"))
+    from tools import torch_gate_probes as probes
+
+    probes.set_device(CI_DEVICE)
+    with ThreadPoolExecutor(max_workers=len(K.KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.load, K.KERNEL_SOURCES))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ci_gates_")
+    side, res = {}, {}
+
+    def chaos_gate():
+        # (f) beside the in-process legs: its three worker processes
+        # train BERT-base on the card
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "chaos.json")
+        try:
+            side["rc"] = chaos.main(
+                ["--check", *CI_CHAOS_ARGS, "--device", CI_DEVICE,
+                 "--seed", str(seed), "--workdir",
+                 os.path.join(tmp, "chaos"), "--json", path])
+            with open(path) as f:
+                side["report"] = json.load(f)
+        except BaseException as e:  # re-raised on the main thread
+            side["error"] = e
+        finally:
+            TIMES["ci_gates.chaos"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=chaos_gate, name="ci-gates-chaos",
+                              daemon=True)
+    K.reset_launch_counts()
+    try:
+        thread.start()
+        # (a) the memory plan gate (static)
+        with timed("ci_gates.mem_report"), \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = mem.main(["--check", "--json",
+                           os.path.join(tmp, "mem.json")])
+        with open(os.path.join(tmp, "mem.json")) as f:
+            plans = json.load(f)["programs"]
+        res["mem_report"] = {p["name"]: p["plan"]["peak_bytes"]
+                             for p in plans}
+        _ci_checks("mem_report", {"check_exit_0": rc == 0,
+                                  "programs": len(plans) == 11})
+        # (b) auto-remat: the static gates, the MLP tripwire and
+        # bit-exactness, BERT-base f32 trained with and without it
+        rep = {"gates": []}
+        with timed("ci_gates.remat"):
+            ok = remat.check_bert(rep)
+            ok &= remat.check_negative_and_bitexact(rep)
+            before = K.launch_counts()
+            ok &= remat.check_bert_train(rep, seed)
+            torch.cuda.synchronize()
+        bt = rep["bert_train"]
+        bt["launches"] = {n: c - before[n]
+                          for n, c in K.launch_counts().items()}
+        res["remat"] = rep
+        log(f"[ci_gates] remat BERT-base f32 losses plain "
+            f"{bt['plain']['losses']} remat {bt['remat']['losses']}; "
+            f"peak predicted/measured MiB " + ", ".join(
+                f"{k} {bt[k]['predicted_peak_bytes'] / 2**20:.0f}/"
+                f"{(bt[k]['measured_peak_bytes'] or 0) / 2**20:.0f}"
+                for k in ("plain", "remat"))
+            + f"; {bt['remat']['segments']} segments; launches "
+            f"{bt['launches']}")
+        _ci_checks("remat", dict(
+            {g["name"]: g["ok"] for g in rep["gates"]}, all=ok,
+            attention_kernels=all(bt["launches"][n] > 0
+                                  for n in CI_ATTENTION)))
+        # (c) metrics and recompiles: the steady scenarios at full width,
+        # then the forced-recompile control must trip
+        with timed("ci_gates.metrics"):
+            scen, check = metrics.run_suite("bert_base", seed=seed)
+            monitor.reset()
+            forced = metrics.scenario_forced_recompile(3)
+            control = metrics.judge([forced])
+        res["metrics"] = dict(scenarios=scen, check=check,
+                              control=control)
+        _ci_checks("metrics", {
+            **{s["name"]: s["ok"] for s in scen},
+            "zero_recompiles": check["status"] == "ok"
+            and check["recompiles"] == 0,
+            "forced_recompile_trips": control["status"] == "fail"
+            and control["recompiles"] == 3})
+        # (d) tracing and the cost model, the timeline of the burst
+        timeline = os.path.join(tmp, "timeline.json")
+        with timed("ci_gates.trace"):
+            legs, mfu = tr.run_legs(tmp, model="bert_base", seed=seed,
+                                    timeline=timeline)
+        res["trace"] = dict(legs=legs, mfu=mfu)
+        for leg in legs:
+            _ci_checks(f"trace.{leg['name']}", leg["checks"])
+        cost = next(leg for leg in legs if leg["name"] == "cost_model")
+        log(f"[ci_gates] cost model {cost['results']}; burst timeline "
+            f"{legs[0]['timeline']['events']} events; overhead "
+            f"{legs[-1]['disabled_ns_per_span']} ns a span off, "
+            f"{legs[-1]['enabled_ns_per_span']} on")
+        log(f"[ci_gates] mfu against FLAGS_device_peak_tflops "
+            f"{fluid.get_flags(['FLAGS_device_peak_tflops'])}: "
+            f"executor {[round(v['value'], 6) for v in mfu['executor_mfu']]}"
+            f", serving buckets "
+            f"{[round(v['value'], 6) for v in mfu['serving_bucket_mfu']]}")
+        torch.cuda.empty_cache()
+        with timed("ci_gates.chaos_wait"):
+            thread.join(600)
+        if thread.is_alive():
+            raise SystemExit("chip_smoke: the chaos gate did not end "
+                             "within 600 s")
+        if "error" in side:
+            raise side["error"]
+        # (e) the option sweep, after the chaos workers let go of the card
+        before = K.launch_counts()
+        by_blocks0 = dict(K.fused_gemm.launches_by_blocks)
+        with timed("ci_gates.sweep"):
+            rep = sweep.sweep(["bert", "resnet"], sweep.default_option_sets(),
+                              False, **CI_SWEEP_CHAINS)
+        torch.cuda.synchronize()
+        res["sweep"] = rep
+        sw_launch = {n: c - before[n] for n, c in K.launch_counts().items()}
+        by_blocks = {b: c - by_blocks0.get(b, 0)
+                     for b, c in K.fused_gemm.launches_by_blocks.items()}
+        log(f"[ci_gates] sweep: " + "; ".join(
+            f"{m}: " + ", ".join(
+                f"{json.dumps(t['options'])} "
+                + (f"{t['per_step_s'] * 1e3:.3f} ms" if t["status"] == "ok"
+                   else t["status"]) for t in r["trials"])
+            for m, r in rep["models"].items())
+            + f"; K5 by tiling {by_blocks}; launches {sw_launch}")
+        _ci_checks("sweep", {
+            "ranked": all(r["best_options"] is not None
+                          for r in rep["models"].values()),
+            "every_set_ran": all(t["status"] == "ok"
+                                 for r in rep["models"].values()
+                                 for t in r["trials"]),
+            "k5_every_tiling": all(by_blocks.get(tuple(b), 0) > 0
+                                   for b in K.COMPILED_BLOCKS),
+            "k1": sw_launch["flash_attention_fwd"] > 0})
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    finally:
+        # the chaos workers end before their work dir goes
+        thread.join(600)
+        shutil.rmtree(tmp, ignore_errors=True)
+        log("[ci_gates] seconds: " + ", ".join(
+            f"{k[9:]} {v:.2f}" for k, v in TIMES.items()
+            if k.startswith("ci_gates.")))
+    # (f) chaos/resume: BERT-base killed inside a checkpoint write resumes
+    # to the baseline's loss and digest bit for bit
+    rep = side["report"]
+    res["chaos"] = rep
+    workers = {"baseline": rep["phases"]["baseline"]["launches"],
+               "victim": rep["phases"]["kill"]["launches"],
+               "resume": rep["phases"]["resume"]["result"]["launches"]}
+    log(f"[ci_gates] chaos: final loss "
+        f"{rep['phases']['baseline']['final_loss']} / "
+        f"{rep['phases']['resume']['result']['final_loss']}, workers' "
+        f"launches {workers}")
+    _ci_checks("chaos", dict({c["name"]: c["ok"] for c in rep["checks"]},
+                             exit_0=side["rc"] == 0))
+    # the phase's launches: this process's and its chaos workers'
+    launches = {n: launches[n] + sum(w.get(n, 0) for w in workers.values())
+                for n in K.KERNEL_SOURCES}
+    res["launches"] = launches
+    log(f"[ci_gates] launches {launches}")
+    for name in CI_ATTENTION + ("fused_gemm",):
+        if launches[name] < 1:
+            raise SystemExit(f"chip_smoke: the ci_gates phase never "
+                             f"launched {name}")
+    return res
+
+
 # ---------------------------------------------------------------- main
 # the phases that need no other phase's result, which --phases can run
 ALONE = ("kernels", "train", "train_amp", "train_remat", "train_guard",
          "train_lamb", "infer", "train_resnet", "infer_resnet", "tune",
          "seq2seq", "gru_encdec", "misc_image", "detection", "data_path",
-         "dygraph", "predictor", "qat", "fleet", "gates")
+         "dygraph", "predictor", "qat", "fleet", "gates", "ci_gates")
 
 
 def run_alone(names, seed, card, out_dir):
@@ -8776,6 +9005,9 @@ def main():
     torch.cuda.empty_cache()
     with timed("gates"):
         gates = phase_gates(args.seed)
+    torch.cuda.empty_cache()
+    with timed("ci_gates"):
+        ci_gates = phase_ci_gates(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -8792,8 +9024,9 @@ def main():
     # BERT-base and ResNet-50 fused inference (K1, K5), ResNet-50
     # quant-aware training (none), the fleet tier's GPT-2 small
     # replicas and BERT-base batching replica (K1, K2, K5) and the CI
-    # gates' serving legs and witnessed train step (K1-K5), each counted
-    # from 0 over its own run
+    # gates' serving legs and witnessed train step (K1-K5) and the ported
+    # single-device gate tools' card legs (K1, K3, K4, K5; the chaos
+    # workers' own counts added), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -8811,7 +9044,8 @@ def main():
                 "misc_image": mi["launches"], "detection": det["launches"],
                 "data_path": dp["launches"], "dygraph": dy["launches"],
                 "predictor": pr["launches"], "qat": qat["launches"],
-                "fleet": fleet["launches"], "gates": gates["launches"]}
+                "fleet": fleet["launches"], "gates": gates["launches"],
+                "ci_gates": ci_gates["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -8833,7 +9067,8 @@ def main():
               "seq2seq": s2s, "gru_encdec": ge, "deepfm": fm,
               "deepfm_infer": fm_infer, "misc_image": mi, "detection": det,
               "data_path": dp, "dygraph": dy, "predictor": pr, "qat": qat,
-              "fleet": fleet, "gates": gates, "launches": launches}
+              "fleet": fleet, "gates": gates, "ci_gates": ci_gates,
+              "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

@@ -3,11 +3,13 @@
 #   ci/run_torch_gates.sh
 #
 # The static gates (program, concurrency and numerics lint, the registry
-# audit) and the serving/fleet load gates of tools/torch_load_check.py
-# with --device cpu, each negative control required to FAIL with the
-# gate's own "-> FAIL" line (a crash is not a pass). JSON artifacts land
-# in $CI_ARTIFACT_DIR (default: the current directory). The same legs run
-# on the card at full width in chip_smoke.py's gates phase.
+# audit), the serving/fleet load gates of tools/torch_load_check.py and
+# the memory plan, auto-remat, metrics, trace, chaos and option-sweep
+# gates, with --device cpu, each negative control required to FAIL with
+# the gate's own "-> FAIL" line (a crash is not a pass). JSON artifacts
+# land in $CI_ARTIFACT_DIR (default: the current directory). The same
+# legs run on the card at full width in chip_smoke.py's gates and
+# ci_gates phases.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 ART="${CI_ARTIFACT_DIR:-.}"
@@ -104,5 +106,51 @@ must_fail "torch_load_check --autoscale --negative-control" \
   "$ART/ci_torch_autoscale_negative.log" \
   python tools/torch_load_check.py --ci --device cpu --autoscale \
   --negative-control --log-dir "$ART"
+
+echo "== memory plan gate (the book programs and the lint builtin suite;"
+echo "   error-severity PT5xx findings gate)"
+python tools/torch_mem_report.py --check \
+  --json "$ART/ci_torch_mem_report.json" | tail -2
+
+echo "== auto-remat gate (BERT-base peak drop and budget fit, the flag-off"
+echo "   tripwire as its negative control, bit-exact training)"
+python tools/torch_remat_check.py --check --device cpu \
+  --json "$ART/ci_torch_remat_report.json"
+
+echo "== metrics gate (one compile and one hit a scenario, 0 recompiles)"
+python tools/torch_metrics_report.py --check --device cpu \
+  --json "$ART/ci_torch_metrics_report.json" | grep -v "^  "
+echo "== metrics negative control (3 forced recompiles)"
+must_fail "torch_metrics_report --force-recompile 3" \
+  "$ART/ci_torch_forced_recompile.log" \
+  python tools/torch_metrics_report.py --check --device cpu \
+  --force-recompile 3
+
+echo "== trace gate (complete traces, flight-recorder incidents, span"
+echo "   overhead, the cost model; the burst's merged timeline)"
+python tools/torch_trace_check.py --check --device cpu \
+  --json "$ART/ci_torch_trace_report.json" \
+  --timeline "$ART/ci_torch_timeline.json" | tail -8
+echo "== trace negative control (flight recorder off)"
+must_fail "torch_trace_check --negative-control" \
+  "$ART/ci_torch_trace_negative.log" \
+  python tools/torch_trace_check.py --check --device cpu --negative-control
+
+echo "== chaos gate (a worker killed inside a checkpoint write resumes to"
+echo "   the uninterrupted run's loss and digest)"
+python tools/torch_chaos_check.py --check --device cpu \
+  --json "$ART/ci_torch_chaos_report.json" | tail -3
+echo "== chaos negative control (retries off)"
+must_fail "torch_chaos_check --negative-control" \
+  "$ART/ci_torch_chaos_negative.log" \
+  python tools/torch_chaos_check.py --check --device cpu --negative-control
+
+echo "== option sweep (K5 tilings, conv layout, epilogue fusion; must rank)"
+python tools/torch_option_sweep.py --ci --device cpu \
+  --json "$ART/ci_torch_option_sweep.json" | tail -3
+echo "== option sweep negative control (sets that cannot run)"
+must_fail "torch_option_sweep --negative-control" \
+  "$ART/ci_torch_option_sweep_negative.log" \
+  python tools/torch_option_sweep.py --ci --device cpu --negative-control
 
 echo "torch gates: OK"

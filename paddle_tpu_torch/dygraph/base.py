@@ -36,9 +36,8 @@ import numpy as np
 import torch
 
 from ..core import registry
-from ..core.selected_rows import is_selected_rows
 from ..core.types import canonical_dtype
-from ..lowering import LowerCtx
+from ..lowering import LowerCtx, apply_rule_with_grad
 
 __all__ = ["VarBase", "guard", "to_variable", "enabled", "in_dygraph_mode",
            "current_tape"]
@@ -208,77 +207,6 @@ class VarBase:
         return ops.scale(self, scale=-1.0)
 
 
-class _Structure:
-    """The slots of one op call through ``_RuleWithGrad``: the input
-    slots with their counts (to rebuild ``ins`` from the flat tensors) and,
-    once the forward ran, the output slots of each flat output."""
-
-    __slots__ = ("opdef", "ctx", "attrs", "in_slots", "out_slots",
-                 "out_vals")
-
-    def __init__(self, opdef, ctx, attrs, in_slots):
-        self.opdef, self.ctx, self.attrs = opdef, ctx, attrs
-        self.in_slots = in_slots
-        self.out_slots: List[tuple] = []
-        self.out_vals: Dict[str, list] = {}
-
-
-def _unflatten(slots, flat) -> Dict[str, List[Any]]:
-    ins, i = {}, 0
-    for slot, n in slots:
-        ins[slot] = list(flat[i:i + n])
-        i += n
-    return ins
-
-
-class _RuleWithGrad(torch.autograd.Function):
-    """An op whose rule has a gradient rule of its own (``grad_lower``):
-    the forward rule runs once, and the backward calls the grad rule
-    with the grad op's slots (the forward inputs, ``__out__<slot>`` and
-    ``<slot>@GRAD``), as the static path's grad op would."""
-
-    @staticmethod
-    def forward(ctx, st: _Structure, *flat):
-        outs = st.opdef.lower(st.ctx, _unflatten(st.in_slots, flat),
-                              st.attrs) or {}
-        flat_out = []
-        for slot, vals in outs.items():
-            if not isinstance(vals, (list, tuple)):
-                vals = [vals]
-            st.out_vals[slot] = list(vals)
-            for i, v in enumerate(vals):
-                if isinstance(v, torch.Tensor):
-                    st.out_slots.append((slot, i))
-                    flat_out.append(v)
-        ctx.st = st
-        ctx.save_for_backward(*flat)
-        ctx.mark_non_differentiable(
-            *(v for v in flat_out if not v.is_floating_point()))
-        return tuple(flat_out)
-
-    @staticmethod
-    def backward(ctx, *cts):
-        st = ctx.st
-        flat = ctx.saved_tensors
-        ins = _unflatten(st.in_slots, flat)
-        gins = dict(ins)
-        for slot, vals in st.out_vals.items():
-            gins["__out__" + slot] = vals
-            gins[slot + "@GRAD"] = [None] * len(vals)
-        for (slot, i), ct in zip(st.out_slots, cts):
-            gins[slot + "@GRAD"][i] = ct
-        res = st.opdef.grad_lower(st.ctx, gins, st.attrs) or {}
-        grads = []
-        for slot, n in st.in_slots:
-            got = res.get(slot + "@GRAD") or []
-            for i in range(n):
-                g = got[i] if i < len(got) else None
-                if is_selected_rows(g):
-                    g = g.to_dense()
-                grads.append(g)
-        return (None, *grads)
-
-
 class Tape:
     """The ops run since the last reset: for each, the uids it read and
     wrote (the backward slice's graph; the values and their autograd
@@ -340,13 +268,7 @@ class Tape:
             if opdef.grad_lower is not None and any(
                     isinstance(v, torch.Tensor) and v.requires_grad
                     for vals in in_vals.values() for v in vals):
-                st = _Structure(opdef, ctx, full_attrs,
-                                [(s, len(v)) for s, v in in_vals.items()])
-                flat = _RuleWithGrad.apply(
-                    st, *(v for vals in in_vals.values() for v in vals))
-                outs = {s: list(v) for s, v in st.out_vals.items()}
-                for (slot, i), t in zip(st.out_slots, flat):
-                    outs[slot][i] = t
+                outs = apply_rule_with_grad(opdef, ctx, in_vals, full_attrs)
             else:
                 outs = opdef.lower(ctx, in_vals, full_attrs) or {}
         out_vbs: Dict[str, List[VarBase]] = {}

@@ -36,12 +36,15 @@ earlier writes in the environment (in-order scope semantics).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .core import registry
+from .core.selected_rows import is_selected_rows
 from .core.types import canonical_dtype, torch_dtype
 
 EMPTY_VAR_NAME = "@EMPTY@"
@@ -212,6 +215,117 @@ def read_finite(checks) -> np.ndarray:
     return ok
 
 
+class _Structure:
+    """The slots of one op call through ``_RuleWithGrad``: the input
+    slots with their counts (to rebuild ``ins`` from the flat tensors) and,
+    once the forward ran, the output slots of each flat output."""
+
+    __slots__ = ("opdef", "ctx", "attrs", "in_slots", "out_slots",
+                 "out_vals")
+
+    def __init__(self, opdef, ctx, attrs, in_slots):
+        self.opdef, self.ctx, self.attrs = opdef, ctx, attrs
+        self.in_slots = in_slots
+        self.out_slots: List[tuple] = []
+        self.out_vals: Dict[str, list] = {}
+
+
+def _unflatten(slots, flat) -> Dict[str, List[Any]]:
+    ins, i = {}, 0
+    for slot, n in slots:
+        ins[slot] = list(flat[i:i + n])
+        i += n
+    return ins
+
+
+class _RuleWithGrad(torch.autograd.Function):
+    """An op whose rule has a gradient rule of its own (``grad_lower``):
+    the forward rule runs once, and the backward calls the grad rule
+    with the grad op's slots (the forward inputs, ``__out__<slot>`` and
+    ``<slot>@GRAD``), as the static path's grad op would."""
+
+    @staticmethod
+    def forward(ctx, st: _Structure, *flat):
+        outs = st.opdef.lower(st.ctx, _unflatten(st.in_slots, flat),
+                              st.attrs) or {}
+        flat_out = []
+        for slot, vals in outs.items():
+            if not isinstance(vals, (list, tuple)):
+                vals = [vals]
+            st.out_vals[slot] = list(vals)
+            for i, v in enumerate(vals):
+                if isinstance(v, torch.Tensor):
+                    st.out_slots.append((slot, i))
+                    flat_out.append(v)
+        ctx.st = st
+        ctx.n_in = len(flat)
+        # the outputs are saved, not kept on ``st``: an output holding its
+        # grad_fn's ctx would be a reference cycle, freed only by the
+        # cyclic collector (remat's replays leaked a step's activations)
+        ctx.save_for_backward(*flat, *flat_out)
+        ctx.mark_non_differentiable(
+            *(v for v in flat_out if not v.is_floating_point()))
+        return tuple(flat_out)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        st = ctx.st
+        saved = ctx.saved_tensors
+        ins = _unflatten(st.in_slots, saved[:ctx.n_in])
+        out_vals = {slot: list(vals) for slot, vals in st.out_vals.items()}
+        for (slot, i), t in zip(st.out_slots, saved[ctx.n_in:]):
+            out_vals[slot][i] = t
+        gins = dict(ins)
+        for slot, vals in out_vals.items():
+            gins["__out__" + slot] = vals
+            gins[slot + "@GRAD"] = [None] * len(vals)
+        for (slot, i), ct in zip(st.out_slots, cts):
+            gins[slot + "@GRAD"][i] = ct
+        res = st.opdef.grad_lower(st.ctx, gins, st.attrs) or {}
+        grads = []
+        for slot, n in st.in_slots:
+            got = res.get(slot + "@GRAD") or []
+            for i in range(n):
+                g = got[i] if i < len(got) else None
+                if is_selected_rows(g):
+                    g = g.to_dense()
+                grads.append(g)
+        return (None, *grads)
+
+
+def apply_rule_with_grad(opdef, ctx, ins, attrs) -> Dict[str, list]:
+    """Run ``opdef``'s rule on ``ins`` so that autograd differentiates it
+    through its own grad rule (``grad_lower``), as the static path's grad
+    op would: the outputs by slot."""
+    st = _Structure(opdef, ctx, attrs, [(s, len(v)) for s, v in ins.items()])
+    flat = _RuleWithGrad.apply(st, *(v for vals in ins.values()
+                                     for v in vals))
+    outs = {s: list(v) for s, v in st.out_vals.items()}
+    for (slot, i), t in zip(st.out_slots, flat):
+        outs[slot][i] = t
+        st.out_vals[slot][i] = None      # the backward reads the saved one
+    return outs
+
+
+# set while a recompute segment replays its sub-block for its gradient:
+# an op with a grad rule of its own then runs through it under autograd,
+# so the replay's gradients are the plain program's grad ops' bit for bit
+_grad_rules = contextvars.ContextVar("paddle_tpu_torch_grad_rules",
+                                     default=False)
+
+
+@contextlib.contextmanager
+def grad_rules():
+    """Within: ``lower_op`` differentiates each op that has a grad rule
+    (``grad_lower``) through that rule, not through autograd's own
+    derivative of its forward rule."""
+    token = _grad_rules.set(True)
+    try:
+        yield
+    finally:
+        _grad_rules.reset(token)
+
+
 def _lower_op_inner(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
     if registry.is_generic_grad(op.type):
         _lower_generic_grad(op, env, ctx)
@@ -232,7 +346,13 @@ def _lower_op_inner(op, env: Dict[str, Any], ctx: LowerCtx) -> None:
     amp = amp_policy_of(ctx)
     if amp is not None:
         ins = amp.cast_ins(op.type, ins)
-    _write_outputs(op, opdef.lower(op_ctx, ins, op.attrs), env)
+    if opdef.grad_lower is not None and _grad_rules.get() and any(
+            isinstance(v, torch.Tensor) and v.requires_grad
+            for vals in ins.values() for v in vals):
+        outs = apply_rule_with_grad(opdef, op_ctx, ins, op.attrs)
+    else:
+        outs = opdef.lower(op_ctx, ins, op.attrs)
+    _write_outputs(op, outs, env)
 
 
 def lower_block(block, env: Dict[str, Any], ctx: LowerCtx) -> Dict[str, Any]:

@@ -16,12 +16,12 @@ import dataclasses
 import math
 
 from .. import layers
-from ..framework import Program, program_guard
+from ..framework import Program, default_main_program, program_guard
 from ..initializer import TruncatedNormal
 from ..optimizer import Adam
 from ..param_attr import ParamAttr
 
-__all__ = ["BertConfig", "build_bert_pretrain"]
+__all__ = ["BertConfig", "bert_pretrain_net", "build_bert_pretrain"]
 
 
 @dataclasses.dataclass
@@ -97,6 +97,80 @@ def _encoder_layer(x, mask, cfg: BertConfig, prefix: str,
                              begin_norm_axis=2)
 
 
+def bert_pretrain_net(cfg: BertConfig, seq_len: int = 128,
+                      is_test: bool = False):
+    """The pretraining network in the current default programs (a
+    ``contrib.Trainer`` train_func builds it under the trainer's own):
+    the data layers, the encoder and both heads. Returns the loss vars
+    ``loss``, ``mlm_loss`` and ``nsp_loss``."""
+    main = default_main_program()
+    src = layers.data("src_ids", shape=[seq_len], dtype="int64")
+    pos = layers.data("pos_ids", shape=[seq_len], dtype="int64")
+    sent = layers.data("sent_ids", shape=[seq_len], dtype="int64")
+    input_mask = layers.data("input_mask", shape=[seq_len],
+                             dtype="float32")
+    mask_label = layers.data("mask_label", shape=[seq_len], dtype="int64")
+    nsp_label = layers.data("next_sent_label", shape=[1], dtype="int64")
+
+    x = layers.embedding(src, (cfg.vocab_size, cfg.hidden_size),
+                         param_attr=_attr("word_embedding", cfg))
+    x = layers.elementwise_add(
+        x, layers.embedding(pos, (cfg.max_position, cfg.hidden_size),
+                            param_attr=_attr("pos_embedding", cfg)))
+    x = layers.elementwise_add(
+        x, layers.embedding(sent, (cfg.type_vocab_size, cfg.hidden_size),
+                            param_attr=_attr("sent_embedding", cfg)))
+    x = layers.layer_norm(x, begin_norm_axis=2)
+    x = layers.dropout(x, cfg.hidden_dropout, is_test=is_test,
+                       dropout_implementation="upscale_in_train")
+
+    # additive attention mask [B,1,1,S]: (mask-1)*10000
+    m = layers.scale(input_mask, scale=10000.0, bias=-10000.0)
+    m = layers.unsqueeze(m, [1, 2])
+
+    for i in range(cfg.num_layers):
+        x = _encoder_layer(x, m, cfg, f"layer{i}", is_test=is_test)
+
+    # masked LM head: full-sequence vocab logits, tied to the word
+    # embedding, ignore_index=-100
+    mlm = layers.fc(x, cfg.hidden_size, num_flatten_dims=2, act="gelu",
+                    param_attr=_attr("mlm_trans_w", cfg),
+                    bias_attr=ParamAttr(name="mlm_trans_b"))
+    mlm = layers.layer_norm(mlm, begin_norm_axis=2)
+    word_emb = main.global_block.var("word_embedding")
+    vocab_logits = layers.matmul(mlm, word_emb, transpose_y=True)
+    mlm_loss = layers.softmax_with_cross_entropy(
+        vocab_logits, layers.unsqueeze(mask_label, [2]),
+        ignore_index=-100)
+    # mean over the masked tokens; the count is a label statistic,
+    # fenced from the backward pass
+    is_masked = layers.cast(
+        layers.not_equal(layers.unsqueeze(mask_label, [2]),
+                         layers.fill_constant([1], "int64", -100)),
+        "float32")
+    is_masked.stop_gradient = True
+    masked_count = layers.reduce_sum(is_masked)
+    masked_count.stop_gradient = True
+    denom = layers.elementwise_max(
+        masked_count, layers.fill_constant([1], "float32", 1.0))
+    denom.stop_gradient = True
+    mlm_loss = layers.elementwise_div(layers.reduce_sum(mlm_loss), denom)
+
+    # next-sentence head on [CLS]
+    cls = layers.slice(x, axes=[1], starts=[0], ends=[1])
+    cls = layers.reshape(cls, [0, cfg.hidden_size])
+    pooled = layers.fc(cls, cfg.hidden_size, act="tanh",
+                       param_attr=_attr("pooler_w", cfg),
+                       bias_attr=ParamAttr(name="pooler_b"))
+    nsp_logits = layers.fc(pooled, 2, param_attr=_attr("nsp_w", cfg),
+                           bias_attr=ParamAttr(name="nsp_b"))
+    nsp_loss = layers.mean(
+        layers.softmax_with_cross_entropy(nsp_logits, nsp_label))
+
+    loss = layers.elementwise_add(mlm_loss, nsp_loss)
+    return {"loss": loss, "mlm_loss": mlm_loss, "nsp_loss": nsp_loss}
+
+
 def build_bert_pretrain(cfg: BertConfig = None, seq_len: int = 128,
                         lr: float = 1e-4, build_optimizer: bool = True,
                         is_test: bool = False, amp: bool = False):
@@ -109,70 +183,8 @@ def build_bert_pretrain(cfg: BertConfig = None, seq_len: int = 128,
     cfg = cfg or BertConfig.base()
     main, startup = Program(), Program()
     with program_guard(main, startup):
-        src = layers.data("src_ids", shape=[seq_len], dtype="int64")
-        pos = layers.data("pos_ids", shape=[seq_len], dtype="int64")
-        sent = layers.data("sent_ids", shape=[seq_len], dtype="int64")
-        input_mask = layers.data("input_mask", shape=[seq_len],
-                                 dtype="float32")
-        mask_label = layers.data("mask_label", shape=[seq_len], dtype="int64")
-        nsp_label = layers.data("next_sent_label", shape=[1], dtype="int64")
-
-        x = layers.embedding(src, (cfg.vocab_size, cfg.hidden_size),
-                             param_attr=_attr("word_embedding", cfg))
-        x = layers.elementwise_add(
-            x, layers.embedding(pos, (cfg.max_position, cfg.hidden_size),
-                                param_attr=_attr("pos_embedding", cfg)))
-        x = layers.elementwise_add(
-            x, layers.embedding(sent, (cfg.type_vocab_size, cfg.hidden_size),
-                                param_attr=_attr("sent_embedding", cfg)))
-        x = layers.layer_norm(x, begin_norm_axis=2)
-        x = layers.dropout(x, cfg.hidden_dropout, is_test=is_test,
-                           dropout_implementation="upscale_in_train")
-
-        # additive attention mask [B,1,1,S]: (mask-1)*10000
-        m = layers.scale(input_mask, scale=10000.0, bias=-10000.0)
-        m = layers.unsqueeze(m, [1, 2])
-
-        for i in range(cfg.num_layers):
-            x = _encoder_layer(x, m, cfg, f"layer{i}", is_test=is_test)
-
-        # masked LM head: full-sequence vocab logits, tied to the word
-        # embedding, ignore_index=-100
-        mlm = layers.fc(x, cfg.hidden_size, num_flatten_dims=2, act="gelu",
-                        param_attr=_attr("mlm_trans_w", cfg),
-                        bias_attr=ParamAttr(name="mlm_trans_b"))
-        mlm = layers.layer_norm(mlm, begin_norm_axis=2)
-        word_emb = main.global_block.var("word_embedding")
-        vocab_logits = layers.matmul(mlm, word_emb, transpose_y=True)
-        mlm_loss = layers.softmax_with_cross_entropy(
-            vocab_logits, layers.unsqueeze(mask_label, [2]),
-            ignore_index=-100)
-        # mean over the masked tokens; the count is a label statistic,
-        # fenced from the backward pass
-        is_masked = layers.cast(
-            layers.not_equal(layers.unsqueeze(mask_label, [2]),
-                             layers.fill_constant([1], "int64", -100)),
-            "float32")
-        is_masked.stop_gradient = True
-        masked_count = layers.reduce_sum(is_masked)
-        masked_count.stop_gradient = True
-        denom = layers.elementwise_max(
-            masked_count, layers.fill_constant([1], "float32", 1.0))
-        denom.stop_gradient = True
-        mlm_loss = layers.elementwise_div(layers.reduce_sum(mlm_loss), denom)
-
-        # next-sentence head on [CLS]
-        cls = layers.slice(x, axes=[1], starts=[0], ends=[1])
-        cls = layers.reshape(cls, [0, cfg.hidden_size])
-        pooled = layers.fc(cls, cfg.hidden_size, act="tanh",
-                           param_attr=_attr("pooler_w", cfg),
-                           bias_attr=ParamAttr(name="pooler_b"))
-        nsp_logits = layers.fc(pooled, 2, param_attr=_attr("nsp_w", cfg),
-                               bias_attr=ParamAttr(name="nsp_b"))
-        nsp_loss = layers.mean(
-            layers.softmax_with_cross_entropy(nsp_logits, nsp_label))
-
-        loss = layers.elementwise_add(mlm_loss, nsp_loss)
+        net = bert_pretrain_net(cfg, seq_len, is_test)
+        loss = net["loss"]
         if build_optimizer:
             opt = Adam(learning_rate=lr)
             if amp:
@@ -180,7 +192,6 @@ def build_bert_pretrain(cfg: BertConfig = None, seq_len: int = 128,
 
                 opt = mixed_precision.decorate(opt)
             opt.minimize(loss)
-    return {"main": main, "startup": startup, "loss": loss,
-            "mlm_loss": mlm_loss, "nsp_loss": nsp_loss,
+    return {"main": main, "startup": startup, **net,
             "feeds": ("src_ids", "pos_ids", "sent_ids", "input_mask",
                       "mask_label", "next_sent_label")}

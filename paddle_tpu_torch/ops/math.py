@@ -243,11 +243,15 @@ def _cast(ctx, ins, attrs):
 
 @register_op("sum", inputs=[IOSpec("X", duplicable=True)], outputs=["Out"])
 def _sum(ctx, ins, attrs):
-    """Sum of the inputs (backward's grad accumulation). The grads of a
-    table two sparse lookups read are concatenated and merged again, so
-    the sum stays sized by the lookups; a mix of dense and sparse inputs
-    is densified (reference selected_rows_functor.cc Add)."""
-    vals = [v for v in ins.get("X", []) if v is not None]
+    """Sum of the inputs (backward's grad accumulation), left to right.
+    The grads of a table two sparse lookups read are concatenated and
+    merged again, so the sum stays sized by the lookups; a mix of dense
+    and sparse inputs is densified (reference selected_rows_functor.cc
+    Add)."""
+    # a recompute segment's gradient of an input several of its ops read
+    # adds its pieces one by one, in its place (ops/recompute.py)
+    vals = [p for v in ins.get("X", []) if v is not None
+            for p in getattr(v, "_grad_pieces", (v,))]
     sparse = [v for v in vals if is_selected_rows(v)]
     if sparse:
         acc = sparse[0]

@@ -18,7 +18,10 @@ original forward ops in a sub-block.
   segment's ``Input`` values under ``torch.enable_grad()``, through
   ``lower_op``, so the AMP casts and each op's generator apply as they did
   in the forward; ``torch.autograd.grad`` then pulls the ``Out@GRAD``
-  cotangents back to the inputs. This is the counterpart of the
+  cotangents back to the inputs. An op with a grad rule of its own
+  (``grad_lower``: ``lookup_table``'s fixed-order sum, ...) is
+  differentiated through that rule (``lowering.grad_rules``), so the
+  replay's gradients are the plain program's grad ops' bit for bit. This is the counterpart of the
   reference's ``jax.vjp(jax.checkpoint(seg_fn))``: the replay's autograd
   graph holds the segment's internals only while its grad op runs.
 
@@ -34,7 +37,7 @@ from typing import List
 import torch
 
 from ..core.registry import IOSpec, register_op
-from ..lowering import EMPTY_VAR_NAME, lower_block
+from ..lowering import EMPTY_VAR_NAME, grad_rules, lower_block, lower_op
 
 __all__ = ["insert_recompute_segments"]
 
@@ -52,19 +55,60 @@ def _recompute_segment_lower(ctx, op, env):
         env[n] = child[n]
 
 
+def _readers(sub, names):
+    """For each of ``names``: the indexes of the sub-block's ops that read
+    it before any op of the sub-block writes it, in op order."""
+    readers = {n: [] for n in names}
+    written = set()
+    for i, sop in enumerate(sub.ops):
+        for n in dict.fromkeys(sop.input_arg_names):
+            if n in readers and n not in written:
+                readers[n].append(i)
+        written.update(sop.output_arg_names)
+    return readers
+
+
+def accumulate(pieces):
+    """The gradient pieces of one var summed left to right, as the program's
+    ``sum`` op sums them. A sum of several keeps its pieces
+    (``_grad_pieces``): a ``sum`` op that reads it adds them one by one
+    in their place among its other inputs."""
+    acc = pieces[0]
+    for g in pieces[1:]:
+        acc = acc + g
+    if len(pieces) > 1:
+        acc._grad_pieces = list(pieces)
+    return acc
+
+
 def _recompute_segment_grad_lower(ctx, op, env):
     """Replay the segment from its inputs with autograd on and pull the
     output cotangents back. A missing cotangent counts as zero; an integer
-    output gets none."""
+    output gets none.
+
+    Each op of the segment that reads an input gets a leaf of its own, so
+    autograd never sums an input's gradient across its readers; the pieces
+    come back last reader first, as the plain program's backward orders
+    them, and are summed left to right with the pieces kept
+    (``accumulate``). The ``sum`` op that adds them to the input's other
+    readers' gradients outside the segment then adds exactly what the
+    plain program's ``sum`` adds, in its order: the replay's gradients are
+    the plain program's bit for bit."""
     sub = ctx.program.blocks[op.attrs["sub_block"]]
     in_names = op.inputs.get("Input", [])
-    diff = [n for n in in_names if _is_float(env.get(n))]
-    primals = [env[n].detach().requires_grad_() for n in diff]
-    child = ChainMap(dict(zip(diff, primals)), env)
+    diff = [n for n in dict.fromkeys(in_names) if _is_float(env.get(n))]
+    readers = _readers(sub, diff)
+    leaves = {n: [env[n].detach().requires_grad_()
+                  for _ in readers[n] or (None,)] for n in diff}
+    child = ChainMap({n: ls[0] for n, ls in leaves.items()}, env)
     out_names = op.inputs.get("__out__Out", [])
     grad_in = op.inputs.get("Out@GRAD", [])
-    with torch.enable_grad():
-        lower_block(sub, child, ctx)
+    with torch.enable_grad(), grad_rules():
+        for i, sop in enumerate(sub.ops):
+            for n in sop.input_arg_names:
+                if n in readers and i in readers[n]:
+                    child.maps[0][n] = leaves[n][readers[n].index(i)]
+            lower_op(sop, child, ctx)
         ys, cts = [], []
         for i, n in enumerate(out_names):
             y = child[n]
@@ -74,14 +118,18 @@ def _recompute_segment_grad_lower(ctx, op, env):
             g = env[grad_in[i]]
             ys.append(y)
             cts.append(g.to(y.dtype).reshape(y.shape))
-        grads = (torch.autograd.grad(ys, primals, cts, allow_unused=True)
-                 if ys and primals else [None] * len(primals))
-    grad_map = dict(zip(diff, zip(primals, grads)))
+        flat = [leaf for n in diff for leaf in leaves[n]]
+        grads = iter(torch.autograd.grad(ys, flat, cts, allow_unused=True)
+                     if ys and flat else [None] * len(flat))
+    grad_map = {}
+    for n in diff:
+        pieces = [g for g in reversed([next(grads) for _ in leaves[n]])
+                  if g is not None]
+        grad_map[n] = accumulate(pieces) if pieces else \
+            torch.zeros_like(env[n])
     for n, gname in zip(in_names, op.outputs.get("Input@GRAD", [])):
-        if gname == EMPTY_VAR_NAME or n not in grad_map:
-            continue
-        p, g = grad_map[n]
-        env[gname] = torch.zeros_like(p) if g is None else g
+        if gname != EMPTY_VAR_NAME and n in grad_map:
+            env[gname] = grad_map[n]
 
 
 register_op("recompute_segment",

@@ -3038,3 +3038,32 @@ def test_lock_witness_bert_tiny_engine_on_the_card_stays_in_static_graph():
     assert report["cycles"] == []
     assert {"ServingEngine._lock", "Executor._lock",
             "_CompiledStep._aot_lock"} <= set(report["locks"])
+
+
+@pytest.mark.cuda
+def test_chaos_check_bert_base_resumes_bit_for_bit_on_the_card(tmp_path):
+    """``tools/torch_chaos_check.py --check --model bert_base`` on the
+    card: BERT-base f32 killed inside a checkpoint write resumes from the
+    last verified serial under compile faults and ends with the
+    uninterrupted run's loss and parameter digest bit for bit, each
+    worker process launching K1, K3 and K4."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _cuda()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    report = tmp_path / "chaos.json"
+    proc = subprocess.run(
+        [sys.executable, os.path.join(repo, "tools", "torch_chaos_check.py"),
+         "--check", "--model", "bert_base", "--workdir",
+         str(tmp_path / "work"), "--json", str(report)],
+        cwd=repo, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    rep = json.loads(report.read_text())
+    checks = {c["name"]: c["ok"] for c in rep["checks"]}
+    assert all(checks.values()), checks
+    assert {"final_params_bit_identical",
+            "resume_launched_attention_kernels"} <= set(checks)
+    assert not (tmp_path / "work").exists()

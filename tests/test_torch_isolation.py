@@ -134,7 +134,11 @@ def test_port_runs_with_jax_and_paddle_tpu_blocked():
 # the port's CI gates: the concurrency analysis and the tools over it
 GATE_TOOLS = ("torch_lint_concurrency", "torch_lint_program",
               "torch_lint_numerics", "torch_audit_registry",
-              "torch_load_check", "torch_fleet_top")
+              "torch_load_check", "torch_fleet_top", "torch_remat_check",
+              "torch_mem_report", "torch_metrics_report",
+              "torch_trace_check", "torch_timeline", "torch_chaos_check",
+              "torch_option_sweep", "torch_gate_probes",
+              "torch_remat_bits")
 
 _GATES_RUN = r"""
 import importlib.util, os, sys
