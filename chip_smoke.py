@@ -5,7 +5,8 @@
 ``--phases`` runs only the named phases that need no other phase's
 result (``ALONE``: kernels, the training and inference phases, tune,
 seq2seq, gru_encdec, misc_image, detection, data_path, dygraph, predictor,
-qat, fleet, gates, ci_gates) after ``device``, and prints no ``ok`` line. Without it, every phase runs:
+qat, fleet, gates, ci_gates, data_parallel) after ``device``, and prints
+no ``ok`` line. Without it, every phase runs:
 
 Phases, in order; any failure exits non-zero (no phase is caught):
 
@@ -510,7 +511,34 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    ends with the baseline's loss and parameter digest bit for bit; each
    worker launched K1, K3 and K4. Every check true; the phase's launches
    include the workers'. Alone: ``--phases ci_gates``.
-30. prints the script time of each phase and part (``[seconds]``), the
+30. data_parallel — BERT-base f32 pretraining (global batch 32 x seq
+   128, 16 rows a rank, dropout 0, Adam 1e-4) over two ranks started by
+   ``paddle_tpu_torch.distributed.launch``, both on card 0, so the
+   backend rule (NCCL where each rank has a card of its own, gloo where
+   ranks share one) picks gloo; the rank script is
+   ``tools/torch_dp_worker.py``. ``dp_allreduce``: 4 steps of
+   ``CompiledProgram.with_data_parallel`` against 4 one-card steps of the
+   same global batches run in this process beside the second launch,
+   never beside the timed first one (the
+   shards' masked counts must differ; step 1's loss within
+   ``DPAR_STEP1_RTOL`` and its gradients within ``DPAR_STEP1_GRAD_TOL``
+   normwise, where a control with the mean's 1/ranks scale dropped must
+   not be, steps 2-4 within ``DPAR_LOSS_RTOL``, the parameters within
+   ``DPAR_PARAM_TOL`` normwise);
+   ``dp_zero1``: the same under ``ReduceStrategy.Reduce`` against
+   ``dp_allreduce``, each rank holding about half of the Adam moments;
+   the repeat bit for bit; ``dp_ckpt``: a sharded checkpoint after step
+   2, restored by two fresh ranks, steps 3-4 and the digest bit for bit,
+   a truncated shard PT603 and a deleted one PT607; ``dp_divergence``:
+   a perturbed parameter on rank 1 named by ``ReplicaDivergenceError``;
+   ``dp_dygraph``: 3 dygraph steps under ``DataParallel``, the averaged
+   gradients against the mean of two one-card shard gradients
+   (``DPAR_GRAD_TOL``), the ranks' parameters bit-identical. Prints each
+   rank's backend, card, step ms, collectives' ms and bytes, profiled
+   step and K1/K3/K4 launches a step (24/12/12 static, 12/12/12
+   dygraph); the phase's launches include the ranks'. Alone:
+   ``--phases data_parallel``.
+31. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -523,6 +551,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -8883,12 +8912,350 @@ def phase_ci_gates(seed):
     return res
 
 
+# ---------------------------------------------------------- data_parallel
+# BERT-base f32 pretraining (batch 32 x seq 128 global, dropout 0, Adam
+# 1e-4) over two ranks started by the port's own launcher, both on card 0
+# (so the backend rule picks gloo), against single-card steps of the same
+# global batches run in this process beside the second launch (fresh
+# ranks resuming, untimed): nothing else shares the card while the first
+# launch's steps are timed (tools/torch_dp_worker.py is the rank script)
+DPAR_RANKS, DPAR_BATCH, DPAR_STEPS, DPAR_SAVE_AFTER = 2, 32, 4, 2
+# step 1's loss (rtol), steps 2-4 (rtol), the parameters after step 4
+# (normwise): float32 sums in another order (each rank's half, then the
+# gradients summed over the ranks) against the one-card global batch.
+# The parameters read 1.0e-7 on the H100 (PERF.md, data_parallel); Adam's
+# update does not see a gradient's scale, so step 1's gradients are held
+# too (normwise), and a control with the mean's 1/ranks scale dropped
+# must exceed that limit
+DPAR_STEP1_RTOL, DPAR_LOSS_RTOL, DPAR_PARAM_TOL = 1e-5, 1e-3, 1e-6
+DPAR_STEP1_GRAD_TOL = 1e-5
+# the averaged dygraph gradients against the mean of two single-card
+# gradients of the ranks' shards (normwise)
+DPAR_GRAD_TOL = 1e-6
+DPAR_LAUNCH_TIMEOUT_S = 480
+# a static BERT-base f32 step on each rank: K1 24 (12 forward, 12 in the
+# generic grad's rerun), K3 12, K4 12; a dygraph step K1/K3/K4 12
+DPAR_STEP_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_dq": 12,
+                    "flash_attention_dkv": 12}
+DPAR_ATTENTION = tuple(DPAR_STEP_LAUNCHES)
+
+
+def dpar_launch(tmp, legs, tag, seed):
+    """One launch of the rank script through the port's launcher; the
+    ranks' reports, by rank. A rank that fails fails the phase (the
+    launcher kills the others and returns its exit code)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PADDLE_")}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    logs = os.path.join(tmp, "logs_" + tag)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(DPAR_RANKS),
+           "--selected_gpus", ",".join(["0"] * DPAR_RANKS),
+           "--log_dir", logs, os.path.join(repo, "tools",
+                                           "torch_dp_worker.py"),
+           "--out", tmp, "--legs", ",".join(legs), "--seed", str(seed),
+           "--batch", str(DPAR_BATCH), "--tag", tag]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, cwd=repo, capture_output=True,
+                       text=True, timeout=DPAR_LAUNCH_TIMEOUT_S)
+    TIMES[f"data_parallel.{tag}"] = time.perf_counter() - t0
+    if r.returncode:
+        for n in range(DPAR_RANKS):
+            path = os.path.join(logs, f"workerlog.{n}")
+            if os.path.exists(path):
+                with open(path) as f:
+                    log(f"--- workerlog.{n} ({tag})\n" + f.read()[-6000:])
+        raise SystemExit(f"chip_smoke: data_parallel launch '{tag}' exited "
+                         f"{r.returncode}: {r.stderr[-2000:]}")
+    out = []
+    for n in range(DPAR_RANKS):
+        with open(os.path.join(tmp, f"rank{n}.{tag}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def dpar_dygraph_grads(cfg, program, init, feed, seed):
+    """One single-card dygraph forward/backward of ``feed`` from
+    ``init``: the gradients by static name."""
+    from tools.torch_dygraph_bert import DygraphBert, load_static, to_feed
+
+    with fluid.dygraph.guard(fluid.CUDAPlace(0), seed=seed):
+        model = DygraphBert(cfg)
+        load_static(model, program, init)
+        loss, _, _ = model(to_feed(feed))
+        loss.backward()
+        names = model.static_names(program)
+        return {names[n]: p._grad.detach().clone()
+                for n, p in model.named_parameters() if p._grad is not None}
+
+
+def dpar_rel(a, b):
+    return float(abs(a - b) / abs(b))
+
+
+def dpar_check(ok, what):
+    if not ok:
+        raise SystemExit(f"chip_smoke: data_parallel: {what}")
+
+
+def phase_data_parallel(seed):
+    from paddle_tpu_torch.distributed import collective_backend
+    from paddle_tpu_torch.distributed import ParallelEnv
+
+    # the ranks load the attention kernels this process builds (one
+    # build directory), rather than each building them at its first step
+    with ThreadPoolExecutor(max_workers=len(DPAR_ATTENTION)) as pool:
+        list(pool.map(_build.load, DPAR_ATTENTION))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        # the first launch, with nothing else on the card: its steps are
+        # the ones timed
+        ranks = dpar_launch(tmp, ["allreduce", "unscaled", "repeat", "zero1",
+                                  "dygraph"], "first", seed)
+        # the second launch (fresh ranks restore the sharded checkpoint,
+        # then the divergence check; nothing timed) beside the one-card
+        # reference in this process
+        side = {}
+
+        def second_launch():
+            try:
+                side["resumed"] = dpar_launch(tmp, ["resume", "divergence"],
+                                              "resume", seed)
+            except BaseException as e:   # re-raised on the main thread
+                side["error"] = e
+
+        thread = threading.Thread(target=second_launch, name="dp-resume",
+                                  daemon=True)
+        thread.start()
+        try:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(BertConfig.base(), hidden_dropout=0.0,
+                                      attention_dropout=0.0)
+            net, init = dy_bert(cfg, seed)
+            feed = bert_feed(seed, cfg.vocab_size, DPAR_BATCH, TRAIN_SEQ)
+            blk = net["main"].global_block
+            grad_names = [p.name + "@GRAD"
+                          for p in net["main"].all_parameters()
+                          if p.name + "@GRAD" in blk.vars]
+            exe, scope = fluid.Executor(), fluid.Scope()
+            for n, t in init.items():
+                scope.set_var(n, t.clone())
+            ref_grads = {g: t.detach().cpu() for g, t in zip(
+                grad_names, exe.run(net["main"], feed=feed,
+                                    fetch_list=grad_names, scope=scope,
+                                    return_numpy=False))}
+            del exe, scope
+            st = train(net, init, feed, plain=False, steps=DPAR_STEPS)
+            ref_losses = st["losses"][:, 0]
+            names = [p.name for p in net["main"].all_parameters()]
+            ref_params = {n: st["scope"].find_var(n).detach().cpu()
+                          for n in names}
+            ref_launches = st["launches"]
+            init_digest = hashlib.sha256()
+            for n in sorted(names):
+                init_digest.update(init[n].detach().cpu().numpy().tobytes())
+            del st
+            half = DPAR_BATCH // DPAR_RANKS
+            shard_grads = [dpar_dygraph_grads(
+                cfg, net["main"], init,
+                {k: v[r * half:(r + 1) * half] for k, v in feed.items()},
+                seed) for r in range(DPAR_RANKS)]
+            ref_dy = {n: (shard_grads[0][n] + shard_grads[1][n]) / 2
+                      for n in shard_grads[0]}
+            del shard_grads
+            TIMES["data_parallel.reference"] = time.perf_counter() - t0
+        finally:
+            thread.join(DPAR_LAUNCH_TIMEOUT_S + 30)
+        if "error" in side:
+            raise side["error"]
+        dpar_check("resumed" in side, "the resume launch did not finish")
+        resumed = side["resumed"]
+        r0 = ranks[0]
+        env = ParallelEnv()
+        env.local_cards = [0] * DPAR_RANKS
+        env.local_nproc = DPAR_RANKS
+        rule = collective_backend(env)
+        log(f"[data_parallel] BERT-base f32, global batch {DPAR_BATCH} x seq "
+            f"{TRAIN_SEQ} ({half} a rank), dropout 0, Adam 1e-4, "
+            f"{DPAR_STEPS} steps over {DPAR_RANKS} ranks from "
+            f"paddle_tpu_torch.distributed.launch: backend "
+            f"{[r['backend'] for r in ranks]}, cards "
+            f"{[r['card'] for r in ranks]} (the rule: NCCL where each rank "
+            f"has a card of its own, gloo where ranks share one -> {rule})")
+        masked = [r["masked"] for r in ranks]
+        log(f"  masked tokens by shard {masked}")
+        for r in ranks:
+            rows = r["allreduce"]["steps"]
+            prof = r["allreduce"]["profiled"]
+            log(f"  rank {r['rank']}: step ms "
+                f"{[round(x['ms'], 1) for x in rows]}, collectives a step "
+                f"{[round(x['collective_ms'], 1) for x in rows]} ms / "
+                f"{rows[-1]['collective_bytes'] / 2**20:.1f} MiB in "
+                f"{rows[-1]['collective_calls']} calls; profiled step wall "
+                f"{prof['wall_s'] * 1e3:.1f} ms, device busy "
+                f"{prof['device_busy_s'] * 1e3:.1f} ms, idle share "
+                f"{prof['idle_share']:.3f}; launches a step "
+                f"{rows[0]['launches']}; peak "
+                f"{r['allreduce']['peak_bytes'] / 2**30:.2f} GiB "
+                f"(ZeRO-1 {r['zero1']['peak_bytes'] / 2**30:.2f} GiB)")
+        dp_losses = np.array(r0["allreduce"]["losses"])
+        got = torch.load(os.path.join(tmp, "params_allreduce.pt"))
+        param_norm = normwise([got[n] for n in names],
+                              [ref_params[n] for n in names])
+        grad_norm_dp, grad_norm_unscaled = (
+            normwise([g[n] for n in grad_names],
+                     [ref_grads[n] for n in grad_names])
+            for g in (torch.load(os.path.join(tmp, f"grads_{leg}.pt"))
+                      for leg in ("allreduce", "unscaled")))
+        del got, ref_grads
+        rel = [dpar_rel(a, b) for a, b in zip(dp_losses, ref_losses)]
+        log(f"  dp_allreduce losses {dp_losses.tolist()} vs one card "
+            f"{ref_losses.tolist()}: rel {['%.3e' % x for x in rel]}, "
+            f"step-1 gradients normwise {grad_norm_dp:.3e} "
+            f"({len(grad_names)} parameters; the control without the "
+            f"mean's 1/ranks {grad_norm_unscaled:.3e}), parameters after "
+            f"step {DPAR_STEPS} normwise {param_norm:.3e}")
+        z = r0["zero1"]
+        zrel = [dpar_rel(a, b) for a, b in zip(z["losses"], dp_losses)]
+        log(f"  dp_zero1 losses {z['losses']}: rel to dp_allreduce "
+            f"{['%.3e' % x for x in zrel]}; Adam moments on each rank "
+            f"{[r['zero1']['moment_bytes'] / 2**20 for r in ranks]} MiB "
+            f"against {r0['allreduce']['moment_bytes'] / 2**20:.1f} "
+            f"({z['sharded']} vars row-sharded)")
+        repeat = (r0["repeat"]["losses"] == r0["allreduce"]["losses"]
+                  and r0["repeat"]["digest"] == r0["allreduce"]["digest"])
+        res_losses = resumed[0]["resume"]["losses"]
+        resume_exact = (res_losses == z["losses"][DPAR_SAVE_AFTER:]
+                        and resumed[0]["resume"]["digest"] == z["digest"])
+        log(f"  repeat bit-identical={repeat}; dp_ckpt: restored at step "
+            f"{resumed[0]['resume']['from_step']} in fresh ranks, steps "
+            f"{DPAR_SAVE_AFTER + 1}-{DPAR_STEPS} {res_losses} bit-identical="
+            f"{resume_exact}")
+        # a truncated shard is PT603, a deleted one PT607
+        ck = os.path.join(tmp, "ckpt")
+        man = resilience.verify_checkpoint(ck)
+        shard = os.path.join(ck, man["sharding"]["shard_files"][1])
+        codes = []
+        with open(shard, "r+b") as f:
+            f.truncate(max(os.path.getsize(shard) // 2, 1))
+        for mutate in (None, lambda: os.remove(shard)):
+            if mutate:
+                mutate()
+            try:
+                resilience.verify_checkpoint(ck)
+                codes.append(None)
+            except resilience.CheckpointCorruptError as e:
+                codes.append(e.code)
+        named = [r["divergence"]["named"] for r in resumed]
+        log(f"  torn shards: truncated {codes[0]}, deleted {codes[1]}; "
+            f"dp_divergence: perturbed "
+            f"{resumed[0]['divergence']['perturbed']} on rank 1, "
+            f"ReplicaDivergenceError names {named}")
+        dy = [r["dygraph"] for r in ranks]
+        got = torch.load(os.path.join(tmp, "dy_grads.pt"))
+        grad_norm = normwise([got[n] for n in sorted(ref_dy)],
+                             [ref_dy[n] for n in sorted(ref_dy)])
+        del got
+        log(f"  dp_dygraph: losses by rank {[d['losses'] for d in dy]}; "
+            f"averaged step-1 gradients against the mean of the shards' "
+            f"one-card gradients normwise {grad_norm:.3e}; launches a step "
+            f"{dy[0]['launches'][0]}; parameters bit-identical "
+            f"{dy[0]['digest'] == dy[1]['digest']}")
+        # the gates
+        dpar_check(all(r["backend"] == "gloo" and r["card"] == 0
+                       for r in ranks) and rule == "gloo",
+                   f"ranks sharing card 0 ran {[r['backend'] for r in ranks]}")
+        dpar_check(masked[0] != masked[1],
+                   f"the shards mask the same count {masked}")
+        dpar_check(all(r["init_digest"] == init_digest.hexdigest()
+                       for r in ranks), "the ranks' startup weights differ "
+                                        "from this process's")
+        dpar_check(np.isfinite(dp_losses).all()
+                   and rel[0] <= DPAR_STEP1_RTOL
+                   and max(rel[1:]) <= DPAR_LOSS_RTOL
+                   and param_norm <= DPAR_PARAM_TOL,
+                   f"dp_allreduce parts from one card (rel {rel}, parameters "
+                   f"{param_norm:.3e})")
+        dpar_check(grad_norm_dp <= DPAR_STEP1_GRAD_TOL
+                   and ranks[0]["allreduce"]["grad_digest"]
+                   == ranks[1]["allreduce"]["grad_digest"],
+                   f"dp_allreduce step-1 gradients {grad_norm_dp:.3e} from "
+                   f"one card's (limit {DPAR_STEP1_GRAD_TOL}), or the ranks' "
+                   f"differ")
+        dpar_check(grad_norm_unscaled > DPAR_STEP1_GRAD_TOL,
+                   f"the unscaled control's gradients {grad_norm_unscaled:.3e}"
+                   f" pass the gradient limit {DPAR_STEP1_GRAD_TOL}")
+        dpar_check(zrel[0] <= DPAR_STEP1_RTOL
+                   and max(zrel[1:]) <= DPAR_LOSS_RTOL,
+                   f"dp_zero1 parts from dp_allreduce (rel {zrel})")
+        for r in ranks:
+            share = r["zero1"]["moment_bytes"] / r["allreduce"][
+                "moment_bytes"]
+            dpar_check(0.45 <= share <= 0.55,
+                       f"rank {r['rank']} holds {share:.3f} of the moments")
+        for leg in ("allreduce", "repeat", "zero1", "dygraph"):
+            dpar_check(ranks[0][leg]["digest"] == ranks[1][leg]["digest"],
+                       f"{leg}: the ranks' parameters differ")
+            dpar_check(ranks[0][leg]["losses"] == ranks[1][leg]["losses"]
+                       or leg == "dygraph", f"{leg}: the ranks' losses differ")
+        dpar_check(resumed[0]["resume"]["digest"]
+                   == resumed[1]["resume"]["digest"], "resume: ranks differ")
+        dpar_check(repeat, "two dp_allreduce runs differ")
+        dpar_check(resume_exact, "the resumed steps differ from the "
+                                 "uninterrupted run")
+        dpar_check(codes == ["PT603", "PT607"], f"torn shard codes {codes}")
+        want = resumed[0]["divergence"]["perturbed"]
+        dpar_check(named == [want] * DPAR_RANKS,
+                   f"divergence named {named}")
+        dpar_check(grad_norm <= DPAR_GRAD_TOL,
+                   f"dygraph gradients {grad_norm:.3e} > {DPAR_GRAD_TOL}")
+        dpar_check(dy[0]["losses"] != dy[1]["losses"],
+                   "dygraph: each rank's loss is its own")
+        for r in ranks:
+            for leg in ("allreduce", "zero1"):
+                for row in r[leg]["steps"]:
+                    dpar_check(row["launches"] == DPAR_STEP_LAUNCHES,
+                               f"rank {r['rank']} {leg} step launched "
+                               f"{row['launches']}")
+            for row in r["dygraph"]["launches"]:
+                dpar_check(set(row.values()) == {12},
+                           f"rank {r['rank']} dygraph step launched {row}")
+        launches = {n: ref_launches.get(n, 0) for n in K.KERNEL_SOURCES}
+        for r in ranks:
+            for leg in ("allreduce", "zero1"):
+                for row in r[leg]["steps"]:
+                    for n, v in row["launches"].items():
+                        launches[n] += v
+            for row in r["dygraph"]["launches"]:
+                for n, v in row.items():
+                    launches[n] += v
+        for n in DPAR_ATTENTION:
+            dpar_check(launches[n] > 0, f"{n} never launched")
+        return dict(config="BertConfig.base() dropout 0", ranks=DPAR_RANKS,
+                    global_batch=DPAR_BATCH, seq=TRAIN_SEQ, rule=rule,
+                    masked=masked, reference_losses=ref_losses.tolist(),
+                    allreduce_losses=dp_losses.tolist(), loss_rel=rel,
+                    grads_normwise=grad_norm_dp,
+                    unscaled_grads_normwise=grad_norm_unscaled,
+                    params_normwise=param_norm, zero1_losses=z["losses"],
+                    zero1_rel=zrel, repeat=repeat,
+                    resume_losses=res_losses, resume_exact=resume_exact,
+                    torn_codes=codes, divergence_named=named,
+                    dygraph_grad_normwise=grad_norm,
+                    ranks_report=ranks, resumed_report=resumed,
+                    launches=launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 # the phases that need no other phase's result, which --phases can run
 ALONE = ("kernels", "train", "train_amp", "train_remat", "train_guard",
          "train_lamb", "infer", "train_resnet", "infer_resnet", "tune",
          "seq2seq", "gru_encdec", "misc_image", "detection", "data_path",
-         "dygraph", "predictor", "qat", "fleet", "gates", "ci_gates")
+         "dygraph", "predictor", "qat", "fleet", "gates", "ci_gates",
+         "data_parallel")
 
 
 def run_alone(names, seed, card, out_dir):
@@ -9008,6 +9375,9 @@ def main():
     torch.cuda.empty_cache()
     with timed("ci_gates"):
         ci_gates = phase_ci_gates(args.seed)
+    torch.cuda.empty_cache()
+    with timed("data_parallel"):
+        dpar = phase_data_parallel(args.seed)
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -9026,7 +9396,9 @@ def main():
     # replicas and BERT-base batching replica (K1, K2, K5) and the CI
     # gates' serving legs and witnessed train step (K1-K5) and the ported
     # single-device gate tools' card legs (K1, K3, K4, K5; the chaos
-    # workers' own counts added), each counted from 0 over its own run
+    # workers' own counts added), and BERT-base data parallel over two
+    # ranks, static and dygraph (K1, K3, K4; the ranks' counts and the
+    # one-card reference's), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -9045,7 +9417,8 @@ def main():
                 "data_path": dp["launches"], "dygraph": dy["launches"],
                 "predictor": pr["launches"], "qat": qat["launches"],
                 "fleet": fleet["launches"], "gates": gates["launches"],
-                "ci_gates": ci_gates["launches"]}
+                "ci_gates": ci_gates["launches"],
+                "data_parallel": dpar["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -9068,7 +9441,7 @@ def main():
               "deepfm_infer": fm_infer, "misc_image": mi, "detection": det,
               "data_path": dp, "dygraph": dy, "predictor": pr, "qat": qat,
               "fleet": fleet, "gates": gates, "ci_gates": ci_gates,
-              "launches": launches}
+              "data_parallel": dpar, "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]

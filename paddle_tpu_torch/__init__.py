@@ -58,7 +58,12 @@ updates, ``save_dygraph``), the predictor API with its export over
 fake-quant ops, and the fleet serving tier (``serving.fleet``: the HTTP
 front-end, the load-aware router, the replica supervisor, telemetry
 with exact histogram merging, the autoscaler, the replica process) with
-the warm-start cache of prepared executor steps (``aot_cache``).
+the warm-start cache of prepared executor steps (``aot_cache``), and data
+parallelism over launched ranks (``distributed`` with its launcher,
+``CompiledProgram(...).with_data_parallel()`` with ZeRO-1,
+``analysis.sharding_check``, sharded checkpoints and the replica check in
+``resilience``, dygraph ``DataParallel``, ``incubate.fleet``, the
+distribute transpiler shims).
 ``Executor()`` runs on ``CUDAPlace(0)``; pass
 ``CPUPlace()`` for the CPU.
 """
@@ -69,6 +74,9 @@ from . import (analysis, clip, contrib, initializer, io,  # noqa: F401
 from . import aot_cache  # noqa: F401
 from . import dataset, incubate, profiler, reader  # noqa: F401
 from . import dygraph, inference, kernels  # noqa: F401
+from . import distributed, parallel, transpiler  # noqa: F401
+from . import communicator  # noqa: F401
+from .parallel import BuildStrategy, CompiledProgram, ExecutionStrategy
 from .dataset_feed import DatasetFactory
 from .reader import DataLoader, PyReader, batch
 from .backward import append_backward, calc_gradient, gradients
@@ -86,7 +94,8 @@ from .framework import (Block, Operator, Parameter, Program, Variable,
 from .initializer import Constant, Normal, TruncatedNormal, Uniform, Xavier
 from .layers import learning_rate_scheduler  # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr
-from .transpiler import memory_optimize, release_memory
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
+                         memory_optimize, release_memory)
 
 __version__ = "0.1.0"
 
@@ -108,4 +117,7 @@ __all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "Executor", "Scope",
            "tuning", "op_registry", "learning_rate_scheduler",
            "memory_optimize", "release_memory", "DataLoader", "PyReader",
            "batch", "reader", "dataset", "dataset_feed", "DatasetFactory",
-           "profiler", "incubate", "dygraph", "inference"]
+           "profiler", "incubate", "dygraph", "inference",
+           "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
+           "parallel", "distributed", "transpiler", "DistributeTranspiler",
+           "DistributeTranspilerConfig"]

@@ -24,7 +24,11 @@ Program IR (counterpart of ``paddle_tpu/analysis``):
   selection over a rebuilt training program, wired to the executor via
   ``FLAGS_auto_recompute``.
 * ``cost_model`` — static FLOP/byte cost per program and batch
-  (``estimate_cost``), behind the monitor's MFU gauges.
+  (``estimate_cost``), behind the monitor's MFU gauges, and the comms
+  half (``estimate_comms``, ``comms_compute_ratio``).
+* ``sharding_check`` — the static sharding analysis (PT730-PT744):
+  specs propagated from a mesh and a per-param assignment, with the
+  collectives they imply; the data-parallel step's plan.
 * ``epilogue_fusion`` — GEMM-epilogue fusion: mul/matmul ->
   bias/activation/residual/layer_norm chains rewritten into the
   ``fused_gemm_epilogue`` op under a per-chain numerical fidelity witness,
@@ -35,9 +39,6 @@ Program IR (counterpart of ``paddle_tpu/analysis``):
   Imported on demand (``from paddle_tpu_torch.analysis import
   concurrency``); ``tools/torch_lint_concurrency.py`` is its gate.
 * ``diagnostics`` — ``Diagnostic`` and the code table.
-
-The multi-device analyses (``sharding_check``, PT730-PT744, and the comms
-half of the cost model) arrive with a later slice.
 """
 from .diagnostics import (CODES, Diagnostic, ProgramVerificationError,
                           Severity, format_diagnostics)
@@ -61,7 +62,11 @@ from . import remat
 from .remat import (RematCandidate, RematDecision, auto_recompute_program,
                     remat_candidates)
 from . import cost_model
-from .cost_model import CostReport, estimate_cost
+from .cost_model import (CommsReport, CostReport, comms_compute_ratio,
+                         estimate_comms, estimate_cost)
+from . import sharding_check
+from .sharding_check import (CollectiveEvent, ShardingAnalysis,
+                             propagate_sharding)
 from . import numerics
 from .numerics import (Interval, NumericsReport, analyze_numerics,
                        check_numerics, static_intervals)
@@ -81,6 +86,9 @@ __all__ = [
     "epilogue_fusion", "FusedChain", "FusionDecision", "fuse_epilogues",
     "remat", "RematCandidate", "RematDecision", "auto_recompute_program",
     "remat_candidates", "cost_model", "CostReport", "estimate_cost",
+    "CommsReport", "estimate_comms", "comms_compute_ratio",
+    "sharding_check", "CollectiveEvent", "ShardingAnalysis",
+    "propagate_sharding",
     "numerics", "Interval", "NumericsReport", "analyze_numerics",
     "check_numerics", "static_intervals",
 ]

@@ -101,6 +101,17 @@ def _cost_model_pass(program, ctx):
     return check_cost_model(program, ctx)
 
 
+def _sharding_check_pass(program, ctx):
+    """Static SPMD sharding analysis (PT730-PT744): propagate shard specs
+    from ctx.options' mesh + per-param assignment through every op; a
+    silent no-op (None) when no mesh is supplied, so generic pipelines can
+    always include the pass. Consumes the cached liveness donation
+    analysis for the PT741 donation-invalidation lint."""
+    from .sharding_check import check_sharding
+
+    return check_sharding(program, ctx)
+
+
 def _numerics_check_pass(program, ctx):
     """Numerics/precision analysis (analysis/numerics.py, PT900-PT906):
     value-interval + dtype-precision propagation over the recorded
@@ -150,6 +161,8 @@ def register_builtins(reg: PassRegistry) -> None:
     # dependency (requesting only dead_code must not drag PT50x findings in)
     reg.register(FunctionPass(_dead_code_pass, "dead_code", ANALYSIS))
     reg.register(FunctionPass(_cost_model_pass, "cost_model", ANALYSIS))
+    reg.register(FunctionPass(_sharding_check_pass, "sharding_check",
+                              ANALYSIS, requires=("liveness",)))
     reg.register(FunctionPass(_numerics_check_pass, "numerics_check",
                               ANALYSIS))
     reg.register(FunctionPass(_auto_remat_pass, "auto_remat", TRANSFORM,

@@ -27,9 +27,10 @@ Consumers:
   (``ctx.analysis("cost_model")``).
 
 The comms half (``estimate_comms``, ``CommsReport``,
-``comms_compute_ratio``) needs ``analysis/sharding_check.py`` and waits
-for the port's multi-device slice; its entry points raise
-``NotImplementedError``.
+``comms_compute_ratio``) turns ``analysis/sharding_check.py``'s collective
+events into per-rank wire bytes and a predicted comms-vs-compute ratio
+against ``FLAGS_ici_gbytes_per_s`` (the link between ranks: NVLink, or
+the host for ranks that share a card).
 """
 from __future__ import annotations
 
@@ -323,26 +324,94 @@ def check_cost_model(program, ctx) -> CostReport:
 
 
 # ---------------------------------------------------------------------------
-# collective volumes: multi-device, not in the port yet
+# per-op collective volumes (from sharding_check spec transitions)
 # ---------------------------------------------------------------------------
 
-_COMMS_REFUSAL = ("the comms half of the cost model needs "
-                  "analysis/sharding_check.py, which waits for the port's "
-                  "multi-device slice")
+# per-chip wire bytes of one collective over an axis of size n, as a
+# fraction of the FULL tensor bytes (ring algorithms):
+#   all_reduce     2*(n-1)/n   (reduce-scatter + all-gather)
+#   all_gather       (n-1)/n
+#   reduce_scatter   (n-1)/n
+#   reshard          (n-1)/n   (all-to-all-class layout change, upper bound)
+def _wire_fraction(kind: str, n: int) -> float:
+    if n <= 1:
+        return 0.0
+    f = (n - 1) / n
+    return 2.0 * f if kind == "all_reduce" else f
 
 
+@dataclasses.dataclass
 class CommsReport:
-    """Per-chip collective wire volume of one step (multi-device: not in
-    the port yet)."""
+    """Per-chip collective wire volume of one step under a sharding
+    assignment (derived from ``sharding_check`` spec transitions — the
+    static face of the AllReduceOpHandles the reference builder placed
+    by hand)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"CommsReport: {_COMMS_REFUSAL}")
+    mesh: Dict[str, int]
+    events: List[dict]              # CollectiveEvent.to_dict + wire bytes
+    wire_bytes_by_kind: Dict[str, int]
+    total_wire_bytes: int           # per chip, per step
+
+    @property
+    def gbytes_per_step(self) -> float:
+        return self.total_wire_bytes / 1e9
+
+    def comms_seconds(self, ici_gbytes_per_s: Optional[float] = None
+                      ) -> float:
+        """Predicted time on the wire per step (per chip), against the
+        effective link bandwidth between ranks (``FLAGS_ici_gbytes_per_s``)."""
+        if ici_gbytes_per_s is None:
+            from ..flags import flag
+
+            ici_gbytes_per_s = float(flag("ici_gbytes_per_s"))
+        if ici_gbytes_per_s <= 0:
+            return 0.0
+        return self.total_wire_bytes / (ici_gbytes_per_s * 1e9)
+
+    def to_dict(self) -> dict:
+        return {"mesh": dict(self.mesh),
+                "total_wire_bytes_per_chip": self.total_wire_bytes,
+                "gbytes_per_step": round(self.gbytes_per_step, 6),
+                "wire_bytes_by_kind": dict(self.wire_bytes_by_kind),
+                "events": self.events}
 
 
-def estimate_comms(analysis):
-    raise NotImplementedError(f"estimate_comms: {_COMMS_REFUSAL}")
+def estimate_comms(analysis) -> CommsReport:
+    """Convert a :class:`sharding_check.ShardingAnalysis`'s collective
+    events into per-chip wire volumes."""
+    mesh = dict(analysis.mesh)
+    by_kind: Dict[str, int] = {}
+    events: List[dict] = []
+    total = 0
+    for ev in analysis.collectives:
+        n = ev.axis_size(mesh)
+        wire = int(ev.bytes_full * _wire_fraction(ev.kind, n))
+        d = ev.to_dict()
+        d["wire_bytes_per_chip"] = wire
+        events.append(d)
+        by_kind[ev.kind] = by_kind.get(ev.kind, 0) + wire
+        total += wire
+    return CommsReport(mesh=mesh, events=events,
+                       wire_bytes_by_kind=by_kind, total_wire_bytes=total)
 
 
-def comms_compute_ratio(comms, cost, peak_tflops=None,
-                        ici_gbytes_per_s=None):
-    raise NotImplementedError(f"comms_compute_ratio: {_COMMS_REFUSAL}")
+def comms_compute_ratio(comms: CommsReport, cost: CostReport,
+                        peak_tflops: Optional[float] = None,
+                        ici_gbytes_per_s: Optional[float] = None) -> float:
+    """Predicted comms-vs-compute ratio of one step: time on the wire over
+    time in the tensor cores, both per rank (compute FLOPs divide by the mesh's
+    device count — the data-parallel split; >1.0 means the step is
+    predicted communication-bound)."""
+    if peak_tflops is None:
+        from ..flags import flag
+
+        peak_tflops = float(flag("device_peak_tflops"))
+    n_dev = 1
+    for s in comms.mesh.values():
+        n_dev *= int(s)
+    if peak_tflops <= 0 or cost.flops_total <= 0:
+        return 0.0
+    compute_s = (cost.flops_total / max(n_dev, 1)) / (peak_tflops * 1e12)
+    if compute_s <= 0:
+        return 0.0
+    return comms.comms_seconds(ici_gbytes_per_s) / compute_s

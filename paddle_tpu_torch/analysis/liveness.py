@@ -1,5 +1,5 @@
 """Liveness and effect analysis over ``Program`` blocks (counterpart of
-``paddle_tpu/analysis/liveness.py``, its single-device part):
+``paddle_tpu/analysis/liveness.py``):
 
 * ``classify_op_effects`` — per-op effect classification: pure / in-place
   alias / RNG / collective / side-effecting / control-flow.
@@ -18,8 +18,9 @@
 * ``check_liveness``      — the PT50x diagnostics the registered
   ``liveness`` pass reports.
 
-The per-chip planner (``memory_plan(mesh=..., specs=...)``) needs
-``analysis/sharding_check.py`` and waits for the multi-device slice.
+With ``mesh=..., specs=...`` the plan is per rank: each var's live bytes
+divide by its propagated spec's shard count (``analysis.sharding_check``)
+and collective staging is charged at the emitting op.
 """
 from __future__ import annotations
 
@@ -253,6 +254,7 @@ GRADIENT = "gradient"
 ACTIVATION = "activation"
 PERSISTABLE_OTHER = "persistable_other"
 SUB_BLOCK = "sub_block"
+COLLECTIVE_STAGING = "collective_staging"  # per-chip plans only
 
 _CLASSES = (WEIGHT, GRADIENT, OPTIMIZER_STATE, ACTIVATION,
             PERSISTABLE_OTHER, SUB_BLOCK)
@@ -294,20 +296,28 @@ def _var_bytes(v, batch_size: int) -> Tuple[int, bool]:
 class VarPlanEntry:
     name: str
     cls: str
-    bytes: int
+    bytes: int          # PLANNED bytes: per-chip when the plan has a mesh
     start: int
     end: int            # half-open [start, end)
     shape: Optional[tuple]
     dtype: str
     site: str           # build site of the first producing op, if any
     dynamic: bool       # bytes include batch-resolved -1 dims
+    # per-chip mode only (sharding_check specs); None on the single-device
+    # path so its dict form stays bit-identical to the pre-mesh planner
+    spec: Optional[tuple] = None
+    global_bytes: Optional[int] = None
 
     def to_dict(self) -> dict:
-        return {"name": self.name, "class": self.cls, "bytes": self.bytes,
-                "start": self.start, "end": self.end,
-                "shape": list(self.shape) if self.shape else None,
-                "dtype": self.dtype, "site": self.site,
-                "dynamic": self.dynamic}
+        d = {"name": self.name, "class": self.cls, "bytes": self.bytes,
+             "start": self.start, "end": self.end,
+             "shape": list(self.shape) if self.shape else None,
+             "dtype": self.dtype, "site": self.site,
+             "dynamic": self.dynamic}
+        if self.spec is not None:
+            d["spec"] = list(self.spec)
+            d["global_bytes"] = self.global_bytes
+        return d
 
 
 def _fmt_bytes(b: int) -> str:
@@ -332,6 +342,11 @@ class MemoryPlan:
     timeline: List[int]
     class_timeline: Dict[str, List[int]]
     sub_plans: Dict[int, "MemoryPlan"]
+    # per-chip mode (Program.memory_plan(mesh=...)): the mesh shape and
+    # the collective staging bytes charged per op index; None/empty on the
+    # single-device path, which is byte-identical to the pre-mesh planner
+    mesh: Optional[Dict[str, int]] = None
+    staging_timeline: Optional[List[int]] = None
 
     @property
     def peak_bytes(self) -> int:
@@ -359,7 +374,7 @@ class MemoryPlan:
 
     def to_dict(self) -> dict:
         peak = self.peak_op_idx
-        return {
+        d = {
             "block_idx": self.block_idx,
             "n_ops": self.n_ops,
             "batch_size": self.batch_size,
@@ -370,11 +385,23 @@ class MemoryPlan:
             "sub_block_peaks": {str(oi): p.peak_bytes
                                 for oi, p in self.sub_plans.items()},
         }
+        if self.mesh is not None:
+            d["mesh"] = dict(self.mesh)
+            d["per_chip"] = True
+            if self.staging_timeline:
+                d["staging_at_peak"] = self.staging_timeline[peak] \
+                    if peak < len(self.staging_timeline) else 0
+                d["staging_peak_bytes"] = max(self.staging_timeline)
+        return d
 
     def format(self, top: int = 10) -> str:
         peak = self.peak_op_idx
+        chip = ""
+        if self.mesh is not None:
+            chip = (" PER CHIP on mesh "
+                    + "x".join(f"{k}={v}" for k, v in self.mesh.items()))
         lines = [f"block {self.block_idx}: {self.n_ops} ops, peak "
-                 f"{_fmt_bytes(self.peak_bytes)} at op {peak} "
+                 f"{_fmt_bytes(self.peak_bytes)}{chip} at op {peak} "
                  f"(batch={self.batch_size})"]
         breakdown = self.by_class_at(peak)
         if breakdown:
@@ -396,23 +423,30 @@ def memory_plan(program, feed_names: Sequence[str] = (),
                 fetch_names: Sequence[str] = (), batch_size: int = 1,
                 block_idx: int = 0, _seen: Optional[Set[int]] = None,
                 mesh: Optional[Dict[str, int]] = None,
-                specs: Optional[Dict[str, tuple]] = None) -> MemoryPlan:
+                specs: Optional[Dict[str, tuple]] = None,
+                staging: Optional[Dict[tuple, int]] = None) -> MemoryPlan:
     """Linear-scan peak-memory estimate for ``program.blocks[block_idx]``.
 
     Sub-blocks are planned recursively and their peak charged at the owning
     op's index (the whole loop body is one program point — conservative for
-    a ``while`` whose true peak is inside the body). Only the
-    single-device plan is ported: ``mesh``/``specs`` raise."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "memory_plan(mesh=..., specs=...): the per-chip plan needs "
-            "analysis/sharding_check.py, which waits for the port's "
-            "multi-device slice")
+    a ``while`` whose true peak is inside the body).
+
+    With ``mesh``/``specs`` (propagated shard specs from
+    ``analysis.sharding_check``; see ``Program.memory_plan(mesh=...)``)
+    the plan is **per chip**: each var's live bytes divide by its spec's
+    shard count (replicated tensors — and vars with no spec, including
+    every sub-block-only var — count whole: a conservative OVER-estimate,
+    never under), and ``staging`` charges collective scratch at the
+    emitting op's index. With ``mesh=None`` (the default) the code path
+    and numbers are identical to the single-device planner."""
     _seen = set() if _seen is None else _seen
     _seen.add(block_idx)
     block = program.blocks[block_idx]
     n_ops = max(len(block.ops), 1)
     live = block_liveness(block, feed_names, fetch_names)
+    per_chip = mesh is not None
+    if per_chip:
+        from .sharding_check import spec_divisor
 
     entries: List[VarPlanEntry] = []
     for name, vl in sorted(live.items()):
@@ -426,10 +460,17 @@ def memory_plan(program, feed_names: Sequence[str] = (),
         site = ""
         if vl.defs:
             site = block.ops[vl.defs[0]].attrs.get("op_callstack", "") or ""
+        spec = None
+        global_bytes = None
+        if per_chip:
+            spec = tuple((specs or {}).get(name, ()))
+            global_bytes = nbytes
+            nbytes //= spec_divisor(spec, mesh, v.shape, batch_size)
         entries.append(VarPlanEntry(
             name=name, cls=_classify_var(v), bytes=nbytes,
             start=span[0], end=span[1], shape=v.shape,
-            dtype=str(v.dtype), site=site, dynamic=dynamic))
+            dtype=str(v.dtype), site=site, dynamic=dynamic,
+            spec=spec, global_bytes=global_bytes))
 
     timeline = [0] * n_ops
     class_timeline = {c: [0] * n_ops for c in _CLASSES}
@@ -438,12 +479,24 @@ def memory_plan(program, feed_names: Sequence[str] = (),
             timeline[i] += e.bytes
             class_timeline[e.cls][i] += e.bytes
 
+    staging_timeline: Optional[List[int]] = None
+    if per_chip and staging:
+        staging_timeline = [0] * n_ops
+        for (bidx, oi), nbytes in staging.items():
+            if bidx == block_idx and 0 <= oi < n_ops:
+                staging_timeline[oi] += int(nbytes)
+                timeline[oi] += int(nbytes)
+        # its own class bucket so by_class_at(peak) / format() reconcile
+        # with the reported peak (single-device plans never get the key)
+        class_timeline[COLLECTIVE_STAGING] = list(staging_timeline)
+
     sub_plans: Dict[int, MemoryPlan] = {}
     for oi, op in enumerate(block.ops):
         sub = op.attrs.get("sub_block")
         if (isinstance(sub, int) and 0 <= sub < len(program.blocks)
                 and sub not in _seen):
-            sp = memory_plan(program, (), (), batch_size, sub, _seen)
+            sp = memory_plan(program, (), (), batch_size, sub, _seen,
+                             mesh=mesh, specs=specs, staging=staging)
             sub_plans[oi] = sp
             timeline[oi] += sp.peak_bytes
             class_timeline[SUB_BLOCK][oi] += sp.peak_bytes
@@ -451,11 +504,13 @@ def memory_plan(program, feed_names: Sequence[str] = (),
     return MemoryPlan(block_idx=block_idx, n_ops=len(block.ops),
                       batch_size=batch_size, entries=entries,
                       timeline=timeline, class_timeline=class_timeline,
-                      sub_plans=sub_plans)
+                      sub_plans=sub_plans,
+                      mesh=dict(mesh) if per_chip else None,
+                      staging_timeline=staging_timeline)
 
 
 # ---------------------------------------------------------------------------
-# PT5xx diagnostics (reported by the registered liveness pass)
+# PT5xx diagnostic pass (wired into verify_program; docs/ANALYSIS.md)
 # ---------------------------------------------------------------------------
 
 def _global_reads(program) -> Set[str]:

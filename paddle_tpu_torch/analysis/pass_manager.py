@@ -73,7 +73,8 @@ VERIFY_PASSES = ("schema", "dataflow", "lowerability", "shape_replay",
 # full pipeline can always include it. The reference's sharding_check
 # (PT730-PT744) is left out until the port's multi-device analyses arrive.
 ALL_ANALYSIS_PASSES = VERIFY_PASSES + ("dtype_shape_check", "donation_race",
-                                       "dead_code", "numerics_check")
+                                       "dead_code", "sharding_check",
+                                       "numerics_check")
 
 class PassVerificationError(ProgramVerificationError):
     """A transform pass broke the pipeline invariant: ``verify_program``

@@ -5,7 +5,9 @@ python/paddle/contrib/trainer.py:169 Trainer with epoch/step events,
 python/paddle/contrib/inferencer.py:31 Inferencer).
 
 The event loop, checkpointing cadence and callbacks mirror the reference
-and the JAX package; execution rides the port's executor on one card.
+and the JAX package; execution rides the port's executor on one card, or
+with ``parallel=True`` a data-parallel ``CompiledProgram`` over the
+launched ranks (each rank's reader yields its slice of the global batch).
 ``place=None`` means ``CUDAPlace(0)`` (it raises without a card; pass
 ``CPUPlace()`` for the CPU), where the JAX package picks the CPU.
 
@@ -22,10 +24,17 @@ The resilience stack, as far as one card goes:
 * **device loss**: a step error that classifies as a lost device
   (``elastic.classify_device_error``; the ``device_lost`` fault site
   injects one) propagates as a typed ``DeviceLostError`` with the last
-  verified checkpoint intact. Recovery onto survivors re-forms a mesh,
-  which needs ``parallel`` and so multi-device (ROADMAP Queue A item 6):
-  ``parallel=True``, a sharded ``CheckpointConfig`` and the divergence
-  restore hook wait for it;
+  verified checkpoint intact. Re-forming the group on the survivors is
+  ROADMAP Queue A item 6 (slice 25);
+* **sharded checkpoints** (``CheckpointConfig(sharded=True)``): the
+  format-2 checkpoint, each rank writing its rows of the ZeRO-1 state;
+* **divergence restore** (``FLAGS_replica_divergence_policy=restore``):
+  during ``train()`` the Trainer registers its recovery walk with
+  ``resilience.distributed.set_divergence_recovery``; a detected
+  divergence reloads the newest verified checkpoint; the step counter
+  takes the checkpoint's step, the rolled-back step gets no
+  ``EndStepEvent``, and the data stream rewinds to the checkpoint's
+  cursor, so each batch affects the restored lineage once;
 * **graceful shutdown** (``resilience.graceful``): ``train()`` installs
   SIGTERM handlers for its duration; on a preemption notice the
   in-flight step finishes, a final verified checkpoint (data cursor
@@ -53,10 +62,13 @@ from .. import resilience as _resilience
 from .. import trace as _trace
 from ..executor import CUDAPlace, Executor, Scope, scope_guard
 from ..framework import Program, program_guard
+from ..parallel.compiled_program import CompiledProgram
 from ..profiler import RecordEvent
 from ..resilience import elastic as _elastic
 from ..resilience import faults as _faults
+from ..resilience import distributed as _rdist
 from ..resilience import graceful as _graceful
+from .. import distributed as _pdist
 
 __all__ = ["Trainer", "Inferencer", "CheckpointConfig",
            "BeginEpochEvent", "EndEpochEvent", "BeginStepEvent",
@@ -64,10 +76,15 @@ __all__ = ["Trainer", "Inferencer", "CheckpointConfig",
 
 logger = logging.getLogger("paddle_tpu_torch.resilience")
 
-MULTI_DEVICE = ("needs CompiledProgram and a device mesh, which wait for "
-                "multi-device (ROADMAP Queue A item 6)")
-
 _END = object()
+# _run_step's outcome when a divergence restore rolled the step back
+_REWIND = object()
+
+
+class _EpochRewind(Exception):
+    """Internal control flow: a mid-step restore (divergence policy)
+    rolled the state back to a checkpoint that carries a data cursor;
+    the epoch loop re-enters from that cursor."""
 
 
 class BeginEpochEvent:
@@ -92,9 +109,10 @@ class EndStepEvent:
 
 
 class CheckpointConfig:
-    """reference contrib/trainer.py:100. ``sharded=True`` (the
-    format_version-2 sharded checkpoint) is refused by the Trainer: it
-    needs multi-device."""
+    """reference contrib/trainer.py:100; ``sharded=True`` selects the
+    format_version-2 sharded checkpoint (resilience.distributed): one blob
+    per rank's rows of the row-sharded state, restorable on another rank
+    count."""
 
     def __init__(self, checkpoint_dir: str, max_num_checkpoints: int = 3,
                  epoch_interval: int = 1, step_interval: int = 10,
@@ -113,12 +131,9 @@ class Trainer:
     def __init__(self, train_func: Callable, optimizer_func: Callable,
                  place=None, checkpoint_config: Optional[CheckpointConfig]
                  = None, parallel: bool = False, build_strategy=None):
-        if parallel:
-            raise NotImplementedError(f"Trainer(parallel=True) {MULTI_DEVICE}")
-        if checkpoint_config is not None and checkpoint_config.sharded:
-            raise NotImplementedError(
-                f"CheckpointConfig(sharded=True): the sharded checkpoint "
-                f"{MULTI_DEVICE}")
+        self._parallel = bool(parallel)
+        self._build_strategy = build_strategy
+        self._train_prog = None      # the CompiledProgram when parallel
         self.main_program = Program()
         self.startup_program = Program()
         self._ckpt = checkpoint_config
@@ -137,6 +152,8 @@ class Trainer:
         # reader state); checkpointed in meta so resume fast-forwards
         self._cursor = _elastic.DataCursor()
         self._resume_cursor: Optional[_elastic.DataCursor] = None
+        # the checkpoint's step after a divergence restore inside a step
+        self._restored_step: Optional[int] = None
         with scope_guard(self.scope):
             self.exe.run(self.startup_program)
         if self._ckpt:
@@ -153,6 +170,25 @@ class Trainer:
         return [s for s, _ in
                 _resilience.iter_serials(self._ckpt.checkpoint_dir)]
 
+    def _ckpt_mesh(self):
+        """The mesh handed to sharded saves: the training mesh when
+        parallel, else one rank (a valid single-shard v2 checkpoint)."""
+        if not (self._ckpt and self._ckpt.sharded):
+            return None
+        if self._train_prog is not None:
+            return self._train_prog._mesh
+        return {"dp": 1}
+
+    def _program_to_run(self):
+        if not self._parallel:
+            return self.main_program
+        if self._train_prog is None:
+            self._train_prog = CompiledProgram(
+                self.main_program).with_data_parallel(
+                loss_name=self.loss.name,
+                build_strategy=self._build_strategy)
+        return self._train_prog
+
     def _save_checkpoint(self):
         serials = self._serials()
         serial = (serials[-1] + 1) if serials else 0
@@ -163,15 +199,18 @@ class Trainer:
                                    self.main_program, scope=self.scope,
                                    meta={"step": self._step,
                                          "data_cursor":
-                                             self._cursor.to_dict()})
+                                             self._cursor.to_dict()},
+                                   mesh=self._ckpt_mesh())
         if _monitor.enabled():
             _monitor.counter("trainer_checkpoints_total",
                              "checkpoints written by contrib.Trainer").inc()
         # rotate (reference keeps max_num_checkpoints); never the serial
         # just written, even with max_num_checkpoints=1 or a racing writer
-        # that renumbered the listing under us. <=0 keeps full history
+        # that renumbered the listing under us. <=0 keeps full history.
+        # Under launched ranks rank 0 rotates (the others only wrote)
         keep = int(self._ckpt.max_num_checkpoints)
-        if keep <= 0:
+        if keep <= 0 or (self._ckpt_mesh() is not None
+                         and _pdist.get_rank() != 0):
             return
         for old in self._serials()[:-keep]:
             if old != serial:
@@ -195,6 +234,25 @@ class Trainer:
             meta.get("data_cursor"))
         return serial
 
+    def _recover_from_checkpoint(self) -> bool:
+        """Divergence-restore hook (FLAGS_replica_divergence_policy=
+        restore): reload the newest VERIFIED checkpoint without zeroing
+        the step counter on failure: a divergence with nothing restorable
+        must escalate, not silently restart training at step 0."""
+        with scope_guard(self.scope):
+            meta, serial, _skipped = _resilience.load_latest_checkpoint(
+                self.exe, self._ckpt.checkpoint_dir,
+                main_program=self.main_program, scope=self.scope,
+                allow_legacy=False)
+        if meta is None:
+            return False
+        self._restored_step = int(meta.get("step", 0))
+        # a checkpoint with a data cursor rewinds the data with the state
+        # (the step loop unwinds through _EpochRewind)
+        self._resume_cursor = _elastic.DataCursor.from_dict(
+            meta.get("data_cursor"))
+        return True
+
     # -- the loop --------------------------------------------------------
     def train(self, num_epochs: int, event_handler: Callable,
               reader: Callable, feed_order):
@@ -205,24 +263,42 @@ class Trainer:
         # SIGTERM/preemption notice -> finish the step, checkpoint, exit 0
         # (resilience.graceful). Scoped to this call: handlers restore on
         # exit; non-main-thread callers fall back to event polling only.
+        prev_recovery = _rdist._recovery
+        if self._ckpt:
+            _rdist.set_divergence_recovery(self._recover_from_checkpoint)
         installed = _graceful.install_signal_handlers()
         self.interrupted = False
         try:
             epoch, skip = 0, 0
             if self._resume_cursor is not None:
-                cur, self._resume_cursor = self._resume_cursor, None
-                cur.apply_to_reader(reader)
-                epoch, skip = cur.epoch, cur.batch
+                epoch, skip = self._consume_resume_cursor(reader)
             with scope_guard(self.scope):
                 while epoch < num_epochs:
-                    if self._run_epoch(epoch, event_handler, feeder,
-                                       reader, skip):
-                        return     # graceful shutdown: checkpointed
+                    try:
+                        if self._run_epoch(epoch, event_handler, feeder,
+                                           reader, skip):
+                            return     # graceful shutdown: checkpointed
+                    except _EpochRewind:
+                        # a divergence restore rolled the state back:
+                        # the data stream rewinds with it
+                        epoch, skip = self._consume_resume_cursor(reader)
+                        continue
                     skip = 0
                     epoch += 1
         finally:
+            # scoped to this loop: a stale trainer's recovery walk must
+            # never swallow a later, unrelated run's divergence
+            _rdist.set_divergence_recovery(prev_recovery)
             if installed:
                 _graceful.uninstall_signal_handlers()
+
+    def _consume_resume_cursor(self, reader):
+        """(epoch, skip) to re-enter the loop at the pending cursor: the
+        resume and the divergence rewind share it."""
+        cur = self._resume_cursor or _elastic.DataCursor()
+        self._resume_cursor = None
+        cur.apply_to_reader(reader)
+        return cur.epoch, cur.batch
 
     def _run_epoch(self, epoch, event_handler, feeder, reader,
                    skip) -> bool:
@@ -248,8 +324,11 @@ class Trainer:
                         "batches skipped by the data-cursor "
                         "fast-forward on resume").inc()
                 continue
-            if self._run_step(epoch, step, batch, event_handler, feeder,
-                              reader):
+            outcome = self._run_step(epoch, step, batch, event_handler,
+                                     feeder, reader)
+            if outcome is _REWIND:
+                raise _EpochRewind()
+            if outcome:
                 return True
         event_handler(EndEpochEvent(epoch))
         # next batch after a completed epoch is the next epoch's first
@@ -259,7 +338,10 @@ class Trainer:
         return False
 
     def _run_step(self, epoch, step, batch, event_handler, feeder,
-                  reader) -> bool:
+                  reader):
+        """One step: True when a graceful shutdown unwound the loop,
+        ``_REWIND`` when a divergence restore rolled it back, else
+        False."""
         begin = BeginStepEvent(epoch, step)
         event_handler(begin)
         fetches = [self.loss.name] if begin.fetch_metrics else []
@@ -274,11 +356,21 @@ class Trainer:
             # host read: either way it leaves typed (DeviceLostError)
             with _elastic.device_loss_classification("step"):
                 _faults.fault_point("device_lost")
-                vals = self.exe.run(self.main_program, feed=fd,
+                vals = self.exe.run(self._program_to_run(), feed=fd,
                                     fetch_list=fetches, scope=self.scope)
                 metrics = [float(np.asarray(v).reshape(-1)[0])
                            for v in vals]
-            self._step += 1
+            if self._restored_step is not None:
+                # a divergence restore rolled this step back: the scope
+                # holds the checkpoint's state, so the counter takes its
+                # step, and no EndStepEvent is sent
+                self._step, self._restored_step = self._restored_step, None
+                if self._resume_cursor is not None:
+                    step_span.set_attribute("outcome", "divergence_rewind")
+                    return _REWIND
+                # a checkpoint without a cursor: go on forward
+            else:
+                self._step += 1
             # the committed data position: the NEXT batch is step+1 of
             # this epoch (checkpointed with the state as data_cursor)
             self._cursor = _elastic.DataCursor.capture(epoch, step + 1,
@@ -339,13 +431,13 @@ class Trainer:
 class Inferencer:
     """reference contrib/inferencer.py:31: infer_func rebuilds the forward
     under fresh programs; params load from ``param_path``. ``place=None``
-    means ``CUDAPlace(0)``."""
+    means ``CUDAPlace(0)``. ``parallel=True`` runs the forward as a
+    data-parallel ``CompiledProgram`` over the launched ranks: each rank
+    feeds its slice and gets the whole batch's outputs back, gathered in
+    rank order."""
 
     def __init__(self, infer_func: Callable, param_path: str, place=None,
                  parallel: bool = False):
-        if parallel:
-            raise NotImplementedError(
-                f"Inferencer(parallel=True) {MULTI_DEVICE}")
         self.main_program = Program()
         self.startup_program = Program()
         with program_guard(self.main_program, self.startup_program):
@@ -356,10 +448,12 @@ class Inferencer:
             self.exe.run(self.startup_program)
             io_mod.load_params(self.exe, param_path, self.main_program,
                                scope=self.scope)
+        self._prog = (CompiledProgram(self.main_program).with_data_parallel()
+                      if parallel else self.main_program)
 
     def infer(self, inputs: dict):
         with scope_guard(self.scope):
-            (out,) = self.exe.run(self.main_program, feed=inputs,
+            (out,) = self.exe.run(self._prog, feed=inputs,
                                   fetch_list=[self.predict_var.name],
                                   scope=self.scope)
         return out

@@ -2,58 +2,25 @@
 reference python/paddle/fluid/dygraph/parallel.py: Env :54, DataParallel
 :84 with apply_collective_grads :201).
 
-One process on one card: ``prepare_context`` and
-``apply_collective_grads`` pass through with one rank, so the same script
-runs standalone, and raise with more than one, since the port's
-multi-device slice (ROADMAP Queue A item 6) is not in yet. ``ParallelEnv``
-is the port's own copy of the JAX package's env-var view
-(``paddle_tpu/distributed``)."""
+``prepare_context`` bootstraps the process group over the launched ranks
+(``distributed.init_parallel_env``; a no-op with one rank, so the same
+script runs standalone). Each rank's loss is its own, as in the JAX
+package; ``apply_collective_grads`` averages the gradient of every
+trainable parameter, by position, in one collective a dtype."""
 from __future__ import annotations
 
-import os
-from typing import List
+import torch
 
+from ..distributed import ParallelEnv, init_parallel_env
 from .layers import Layer
 
 __all__ = ["DataParallel", "ParallelEnv", "prepare_context"]
 
-_MULTI_RANK = ("dygraph data parallelism over more than one rank waits for "
-               "the port's multi-device slice (ROADMAP Queue A item 6)")
-
-
-class ParallelEnv:
-    """Reference dygraph/parallel.py:54 Env: the cluster env-var view."""
-
-    def __init__(self):
-        self.trainer_id = int(os.getenv("PADDLE_TRAINER_ID", "0"))
-        self.nranks = int(os.getenv("PADDLE_TRAINERS_NUM", "1"))
-        self.current_endpoint = os.getenv("PADDLE_CURRENT_ENDPOINT", "")
-        eps = os.getenv("PADDLE_TRAINER_ENDPOINTS", "")
-        self.trainer_endpoints: List[str] = [e for e in eps.split(",") if e]
-        self.backend = os.getenv("PADDLE_DIST_BACKEND", "")
-        self.local_devices = int(os.getenv("PADDLE_LOCAL_DEVICES", "0"))
-
-    @property
-    def rank(self) -> int:
-        return self.trainer_id
-
-    @property
-    def world_size(self) -> int:
-        return self.nranks
-
-    @property
-    def dev_id(self) -> int:
-        return int(os.getenv("FLAGS_selected_gpus", "0"))
-
 
 def prepare_context(strategy=None):
-    """reference dygraph/parallel.py prepare_context: the env of this
-    process; raises when the env names more than one rank."""
-    env = ParallelEnv()
-    if env.nranks > 1:
-        raise NotImplementedError(f"prepare_context: PADDLE_TRAINERS_NUM="
-                                  f"{env.nranks}; {_MULTI_RANK}")
-    return env
+    """reference dygraph/parallel.py prepare_context: bootstrap the
+    collectives from the PADDLE_* env."""
+    return init_parallel_env()
 
 
 class DataParallel(Layer):
@@ -72,12 +39,31 @@ class DataParallel(Layer):
         return loss
 
     def apply_collective_grads(self):
-        """Average every parameter gradient across ranks: with one rank
-        there is nothing to average; more than one raises."""
-        if self._env.nranks > 1:
-            raise NotImplementedError(
-                f"apply_collective_grads with {self._env.nranks} ranks: "
-                f"{_MULTI_RANK}")
+        """Average every parameter gradient across ranks, one collective
+        a dtype (the reference :201 coalesces grads before its allreduce
+        for the same reason). Keyed by POSITION over all TRAINABLE
+        parameters: a rank where one has no grad contributes zeros, and
+        every rank writes the average back, so no copy diverges;
+        stop_gradient params (BatchNorm running stats) take no part."""
+        from .. import distributed as dist
+
+        if self._env.nranks <= 1:
+            return
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"apply_collective_grads: PADDLE_TRAINERS_NUM="
+                f"{self._env.nranks} but the process group is not up; call "
+                f"dygraph.prepare_context() first")
+        params = [p for p in self._layers.parameters()
+                  if not getattr(p, "stop_gradient", False)]
+        if not any(p._grad is not None for p in params):
+            return
+        tree = dist.allgather_mean_tree(
+            {str(i): (p._grad if p._grad is not None
+                      else torch.zeros_like(p.value))
+             for i, p in enumerate(params)})
+        for i, p in enumerate(params):
+            p._grad = tree[str(i)]
 
     # -- delegation --------------------------------------------------------
     def parameters(self):

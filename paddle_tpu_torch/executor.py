@@ -104,6 +104,15 @@ update. A program whose update reads a value only the microbatch ops
 produce (an in-program learning-rate schedule) is refused at its first
 run. ``run_chained`` refuses microbatched programs, as the reference does.
 
+Data parallel (``parallel.CompiledProgram``): ``run`` of a compiled
+program is this step under the path ``parallel``, its key extended with
+the reduce strategy, the rank count and the program's rescale
+generation; the key's compile event makes the collective plan
+(``_Step.dp``), which runs each op with its collectives and folds the
+rank into the step seed; the nan check gains one entry, the other
+ranks' verdict, so the ranks trip together; the replica check runs after
+the step.
+
 ``FLAGS_check_nan_inf`` (the reference's protocol, ``unpack_step_result``):
 ``run`` collects one finite check per float op output on the device
 (``lowering.lower_op``), reads them once at step end, and on a trip
@@ -122,6 +131,7 @@ before the check runs. Both flags are part of the executor key.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -401,7 +411,7 @@ class _Step:
     state."""
 
     __slots__ = ("program", "gemm_blocks", "donated_names", "dead_after",
-                 "stores", "state_names", "in_place_names", "micro",
+                 "stores", "state_names", "in_place_names", "micro", "dp",
                  "prepared", "prep_s", "_compile_event", "_lock")
 
     def __init__(self, program: Program, prep_s: float, feed_names,
@@ -437,6 +447,9 @@ class _Step:
             for n in op.output_arg_names if n in state_out)
         self.micro = (_MicroPlan(program) if int(getattr(
             program, "_pipeline_microbatches", 1)) > 1 else None)
+        # a data-parallel key's collective plan (parallel.compiled_program.
+        # _DPPlan), None on one card
+        self.dp = None
         self.prepared = False
         self.prep_s = prep_s
         self._compile_event = None
@@ -551,15 +564,20 @@ class Executor:
     def _run_ops(self, step, indices, env, ctx, scope) -> None:
         """Run the global block's ops at ``indices`` over ``env``: state
         read from the scope on first use, persistables stored as written,
-        dead names released."""
+        dead names released. A data-parallel key's plan runs each op with
+        its collectives."""
         program = step.program
         ops = program.global_block.ops
+        dp = step.dp
         for i in indices:
             op = ops[i]
             for n in op.input_arg_names:
                 if n not in env and n != EMPTY_VAR_NAME:
                     env[n] = self._state(n, program, scope)
-            lower_op(op, env, ctx)
+            if dp is None:
+                lower_op(op, env, ctx)
+            else:
+                dp.run_op(i, op, env, ctx)
             for n in step.stores[i]:
                 if n in env:
                     scope.set_var(n, env[n])
@@ -573,13 +591,21 @@ class Executor:
             return self._run_microbatched(step, feed_tensors, fetch_names,
                                           scope, checks, taps)
         env: Dict[str, Any] = dict(feed_tensors)
-        ctx = LowerCtx(self.device, seed=self._next_seed(program),
+        seed = self._next_seed(program)
+        if step.dp is not None:
+            seed = step.dp.fold_seed(seed)
+        ctx = LowerCtx(self.device, seed=seed,
                        gemm_blocks=step.gemm_blocks, program=program,
                        nan_checks=checks, num_taps=taps)
+        if step.dp is not None:
+            ctx.dp = step.dp.ctx
         with torch.no_grad():
             self._run_ops(step, range(len(program.global_block.ops)), env,
                           ctx, scope)
-        return self._fetch(step, env, fetch_names, scope)
+        fetches = self._fetch(step, env, fetch_names, scope)
+        if step.dp is not None:
+            fetches = step.dp.gathered(fetch_names, fetches)
+        return fetches
 
     def _fetch(self, step, env, fetch_names, scope):
         fetches = []
@@ -938,10 +964,11 @@ class Executor:
                 ("amp", amp.compute_dtype if amp is not None else None))
 
     def _get_step(self, path, program, key, components, prep_s, mrec,
-                  feed, fetch_names, gemm_blocks):
+                  feed, fetch_names, gemm_blocks, make_plan=None):
         """Look ``key`` up; a miss is a compile event (recorded, completed
         at the step's first run). Under the executor lock, so racing
-        threads share one step and one compile record."""
+        threads share one step and one compile record. ``make_plan``: a
+        data-parallel key's plan, made at its compile event."""
         with self._lock:
             step = self._cache.get(key)
             hit = step is not None
@@ -952,6 +979,8 @@ class Executor:
                 return step
             step = _Step(program, prep_s, sorted(feed), fetch_names,
                          gemm_blocks)
+            if make_plan is not None:
+                step.dp = make_plan()
             step._compile_event = _monitor.observe_compile(
                 path, program, components, donated_names=step.donated_names)
             self._cache[key] = step
@@ -999,6 +1028,11 @@ class Executor:
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
             scope: Optional[Scope] = None, return_numpy: bool = True):
+        from .parallel.compiled_program import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed, fetch_list, scope,
+                                return_numpy)
         program = program or default_main_program()
         scope = scope if scope is not None else global_scope()
         feed = feed or {}
@@ -1015,21 +1049,32 @@ class Executor:
                 _monitor.step_end(mrec)
 
     def _run_body(self, program, feed, names, scope, return_numpy, mrec,
-                  prep_s, blocks):
+                  prep_s, blocks, dp=None):
+        """One step of ``program``; ``dp``: the ``CompiledProgram`` whose
+        data-parallel plan runs it over the launched ranks (path
+        ``parallel``, its own keys)."""
         from .analysis.pass_manager import program_fingerprint
 
         fp = program_fingerprint(program)
         feed_sig = tuple(sorted((n,) + _shape_dtype_sig(v)
                                 for n, v in feed.items()))
         kflags = self._key_flags(program)
-        key = (fp, feed_sig, tuple(names), scope._serial, blocks, kflags)
-        step = self._get_step("run", program, key, {
-            "program": fp[1:], "feed_signature": feed_sig,
-            "fetch_list": tuple(names), "scope": scope._serial,
-            "flags": kflags, "gemm_blocks": blocks}, prep_s, mrec, feed,
-            names, blocks)
+        components = {"program": fp[1:], "feed_signature": feed_sig,
+                      "fetch_list": tuple(names), "scope": scope._serial,
+                      "flags": kflags, "gemm_blocks": blocks}
+        path, extra, make_plan = "run", (), None
+        if dp is not None:
+            path, extra = "parallel", dp._key()
+            components["data_parallel"] = extra[1:]
+            make_plan = functools.partial(dp._plan, program, feed, names)
+        key = (fp, feed_sig, tuple(names), scope._serial) + extra + (
+            blocks, kflags)
+        step = self._get_step(path, program, key, components, prep_s, mrec,
+                              feed, names, blocks, make_plan)
         self._fill_record(mrec, step, feed, names, scope)
         feed_t = self._feed_tensors(program, feed)
+        if dp is not None:
+            dp._before_step(self, step, feed_t, scope)
         # the step-site probe fires before any state is written
         _faults.fault_point("step")
         self._ensure_prepared(step)
@@ -1042,14 +1087,22 @@ class Executor:
         with _trace.span("executor.step",
                          cache_hit=bool(mrec.cache_hit)
                          if mrec is not None else None), \
-                _dist.watchdog_section("step", program=program) as tok:
+                _dist.watchdog_section("step" if dp is None
+                                       else "parallel_step",
+                                       program=program) as tok:
+            if dp is not None:
+                _faults.fault_point("device_lost")
             _faults.fault_point("hang")
             fetches = self._run_once(step, feed_t, names, scope, checks,
                                      taps)
             self._sync_if_armed(tok)
-        self._record_witness(taps, "run")
+        self._record_witness(taps, path)
         if checks is not None:
-            self._check_step(checks, scope, rollback, "run")
+            if step.dp is not None:
+                step.dp.add_ranks_check(checks, self.device)
+            self._check_step(checks, scope, rollback, path)
+        if dp is not None:
+            dp._maybe_check_replicas(step, scope)
         if return_numpy:
             outs = [_to_host(f) for f in fetches]
             if mrec is not None:

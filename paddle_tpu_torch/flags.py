@@ -180,6 +180,28 @@ _DEFS: Dict[str, tuple] = {
                            "serving_bucket_mfu); the default is the NVIDIA "
                            "H100 SXM's published dense bf16 tensor-core "
                            "peak. Set it per card (an H100 PCIe is lower)"),
+    "ici_gbytes_per_s": (float, 100.0,
+                         "effective per-rank link bandwidth (GB/s) "
+                         "between data-parallel ranks for the predicted "
+                         "comms-vs-compute ratio "
+                         "(analysis.cost_model.estimate_comms); set it "
+                         "per deployment (NVLink between cards, the host "
+                         "for ranks that share one card)"),
+    "replica_check_interval": (int, 0,
+                               "every N-th data-parallel step, checksum "
+                               "the replicated params and optimizer state "
+                               "on every rank (two words a var, gathered) "
+                               "and trip ReplicaDivergenceError naming the "
+                               "first diverged param when ranks disagree. "
+                               "0 disables (default)"),
+    "replica_divergence_policy": (str, "raise",
+                                  "what a detected cross-replica "
+                                  "divergence does: raise "
+                                  "(ReplicaDivergenceError), or restore "
+                                  "(roll back to the last verified "
+                                  "checkpoint through the registered "
+                                  "recovery walk; contrib.Trainer wires "
+                                  "it)"),
     "auto_recompute": (bool, False,
                        "automatic rematerialisation: on Executor.run / "
                        "run_chained, training programs are segmented at "

@@ -449,14 +449,33 @@ class Program:
         """Static peak-memory plan for the global block: a linear-scan
         estimate of live bytes per op index with weights / gradients /
         optimizer state / activations split out. ``-1`` dims resolve to
-        ``batch_size``. See ``analysis.liveness.memory_plan``. The
-        per-chip plan (``mesh``) waits for the multi-device slice and
-        raises ``NotImplementedError``."""
+        ``batch_size``. See ``analysis.liveness.memory_plan``.
+
+        With ``mesh`` (``{"dp": 2}``) the plan is per rank under a
+        sharding assignment: ``specs`` (name -> PartitionSpec-like tuple,
+        e.g. from ``parallel.sharding.extract_param_specs``) seeds
+        ``analysis.sharding_check.propagate_sharding``, live bytes divide
+        per propagated spec (replicated tensors count whole), and
+        collective staging buffers are charged at their emitting op. The
+        plan carries the analysis on ``plan.sharding``."""
         from .analysis.liveness import memory_plan as _memory_plan
 
-        return _memory_plan(self, feed_names=feed_names,
+        if mesh is None:
+            return _memory_plan(self, feed_names=feed_names,
+                                fetch_names=fetch_names,
+                                batch_size=batch_size)
+        from .analysis.sharding_check import (propagate_sharding,
+                                              staging_bytes_by_op)
+
+        analysis = propagate_sharding(
+            self, mesh, param_specs=specs, feed_names=feed_names,
+            fetch_names=fetch_names, batch_size=batch_size)
+        plan = _memory_plan(self, feed_names=feed_names,
                             fetch_names=fetch_names, batch_size=batch_size,
-                            mesh=mesh, specs=specs)
+                            mesh=analysis.mesh, specs=analysis.var_specs,
+                            staging=staging_bytes_by_op(analysis))
+        plan.sharding = analysis
+        return plan
 
     def to_dict(self) -> dict:
         d = {"version": 1, "blocks": [b.to_dict() for b in self.blocks]}

@@ -1,4 +1,5 @@
 """incubate namespace of the PyTorch port (counterpart of
 ``paddle_tpu/incubate``; reference python/paddle/fluid/incubate):
-``data_generator``. ``incubate.fleet`` waits for multi-device."""
+``data_generator`` and ``fleet``."""
 from . import data_generator  # noqa: F401
+from . import fleet  # noqa: F401

@@ -17,10 +17,11 @@ scope untouched.
 ``save_checkpoint``/``load_checkpoint`` add crash safety
 (``resilience.checkpoint``): a temp dir, a verified manifest with per-file
 sha256, fsync and an atomic rename; the ``ckpt_write`` fault site fires
-between the blobs and the manifest. The sharded format (``mesh=``) needs
-the sharded half of ``resilience/distributed.py`` and raises
-``NotImplementedError``. The re-export of ``DataLoader``/``PyReader``
-waits for the port's data path.
+between the blobs and the manifest. With ``mesh=`` the checkpoint is the
+sharded format (manifest ``format_version`` 2,
+``resilience.distributed``): under launched ranks every rank calls
+``save_checkpoint``, each writes its shard into one shared temp dir, and
+rank 0 hashes and publishes it between barriers.
 """
 from __future__ import annotations
 
@@ -297,17 +298,20 @@ def save_checkpoint(executor, dirname, main_program=None, scope=None,
     kill leaves behind is ignored by recovery
     (``resilience.iter_serials``) and overwritten by the next save.
 
-    ``mesh`` (the sharded format, manifest format_version 2) needs the
-    sharded half of ``resilience/distributed.py`` and raises
-    ``NotImplementedError``."""
+    ``mesh`` (a ``parallel.sharding.Mesh``, ``{'dp': 2}`` or an int shard
+    count) selects the SHARDED format (manifest format_version 2,
+    ``resilience.distributed``): the rows each rank holds of the
+    row-sharded state (ZeRO-1) are written as that rank's shard file, so
+    the state never needs a full gather to checkpoint and a restore works
+    on another rank count. Under launched ranks every rank must call it:
+    the temp dir is rank 0's, and the ranks meet at barriers around the
+    writes and the publish."""
+    from . import distributed as _pdist
+    from .framework import default_main_program
     from .resilience import checkpoint as _rck
+    from .resilience import distributed as _dist
     from .resilience.faults import fault_point
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "save_checkpoint(mesh=...): the sharded checkpoint (manifest "
-            "format_version 2) needs the sharded half of "
-            "resilience/distributed.py, which the port does not have yet")
     dirname = os.path.normpath(dirname)
     if os.path.exists(dirname) and not os.path.isdir(dirname):
         raise ValueError(
@@ -315,24 +319,42 @@ def save_checkpoint(executor, dirname, main_program=None, scope=None,
             f"checkpoints are directories")
     parent = os.path.dirname(os.path.abspath(dirname))
     os.makedirs(parent, exist_ok=True)
-    tmp = os.path.join(parent, f".{os.path.basename(dirname)}.tmp."
-                               f"{os.getpid()}")
-    if os.path.exists(tmp):
+    multi = mesh is not None and _pdist.is_initialized()
+    pid = (_pdist.all_gather_object(np.asarray(os.getpid()))[0].item()
+           if multi else os.getpid())
+    lead = not multi or _pdist.get_rank() == 0
+    tmp = os.path.join(parent, f".{os.path.basename(dirname)}.tmp.{pid}")
+    if lead and os.path.exists(tmp):
         shutil.rmtree(tmp, ignore_errors=True)
     try:
-        save_persistables(executor, tmp, main_program,
-                          filename="ckpt.npz", scope=scope)
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump(meta or {}, f)
-            f.flush()
-            os.fsync(f.fileno())
-        # blobs are on disk, manifest/rename have not happened: a kill here
-        # (FLAGS_fault_plan site) is the worst case the design must survive
-        fault_point("ckpt_write")
-        _rck.finalize_manifest(tmp)
-        _rck.atomic_replace_dir(tmp, dirname)
+        if mesh is not None:
+            program = main_program or default_main_program()
+            vars_ = [v for v in program.list_vars() if v.persistable]
+            if lead:
+                _ensure_dir(tmp)
+            _pdist.barrier()
+            _dist.save_sharded_vars(tmp, vars_, scope or global_scope(),
+                                    mesh)
+            _pdist.barrier()
+        else:
+            save_persistables(executor, tmp, main_program,
+                              filename="ckpt.npz", scope=scope)
+        if lead:
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta or {}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            # blobs are on disk, manifest/rename have not happened: a kill
+            # here (FLAGS_fault_plan site) is the worst case the design
+            # must survive
+            fault_point("ckpt_write")
+            _rck.finalize_manifest(tmp)
+            _rck.atomic_replace_dir(tmp, dirname)
+        if multi:
+            _pdist.barrier()
     except BaseException:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if lead:
+            shutil.rmtree(tmp, ignore_errors=True)
         raise
 
 
@@ -343,8 +365,12 @@ def load_checkpoint(executor, dirname, main_program=None, scope=None,
     meta dict. A torn or tampered checkpoint raises
     ``resilience.CheckpointCorruptError`` with a PT6xx code naming what
     failed — it never half-loads into the scope. ``verify=False`` skips
-    integrity checks (for checkpoints written without a manifest). A
-    sharded (format_version 2) checkpoint raises ``NotImplementedError``."""
+    integrity checks (for checkpoints written without a manifest).
+
+    Sharded (format_version 2) checkpoints are reassembled to full values,
+    so a checkpoint saved on two ranks loads bit-identically on one, and
+    one saved on one loads on two; the next parallel step cuts the
+    row-sharded state to its rank's rows."""
     from .resilience import checkpoint as _rck
 
     manifest = None
@@ -359,12 +385,16 @@ def load_checkpoint(executor, dirname, main_program=None, scope=None,
             except (ValueError, OSError):
                 manifest = None
     if isinstance(manifest, dict) and manifest.get("sharding") is not None:
-        raise NotImplementedError(
-            f"load_checkpoint: '{dirname}' is a sharded checkpoint "
-            f"(format_version 2), which needs the sharded half of "
-            f"resilience/distributed.py; the port does not have it yet")
-    load_persistables(executor, dirname, main_program,
-                      filename="ckpt.npz", scope=scope)
+        from .framework import default_main_program
+        from .resilience import distributed as _dist
+
+        program = main_program or default_main_program()
+        vars_ = [v for v in program.list_vars() if v.persistable]
+        _dist.load_sharded_vars(dirname, manifest, vars_,
+                                scope or global_scope())
+    else:
+        load_persistables(executor, dirname, main_program,
+                          filename="ckpt.npz", scope=scope)
     meta_path = os.path.join(dirname, "meta.json")
     if not os.path.exists(meta_path):
         return {}

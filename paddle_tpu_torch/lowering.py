@@ -109,10 +109,15 @@ class LowerCtx:
         # [absmax, min, max, nonfinite-count]) per float op output, stacked
         # into one (N, 4) tensor per step (monitor.numwitness)
         self.num_taps = num_taps
+        # the data-parallel step's context (parallel.compiled_program.
+        # DPContext): set only inside a parallel step over several ranks
+        self.dp = None
 
     def with_uid(self, uid: int) -> "LowerCtx":
-        return LowerCtx(self.device, self.seed, uid, self.gemm_blocks,
-                        self.program, self.nan_checks, self.num_taps)
+        ctx = LowerCtx(self.device, self.seed, uid, self.gemm_blocks,
+                       self.program, self.nan_checks, self.num_taps)
+        ctx.dp = self.dp
+        return ctx
 
     def generator(self, device=None) -> Optional[torch.Generator]:
         """A generator unique to this op instance and step, on ``device``

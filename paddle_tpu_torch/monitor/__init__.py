@@ -78,7 +78,7 @@ __all__ = [
     "record_pass", "record_fusion", "record_remat",
     "record_autotune_lookup", "record_autotune_trial",
     "record_watchdog_timeout", "program_cost", "observe_step_cost",
-    "observe_serving_cost",
+    "observe_serving_cost", "observe_comms_cost",
     "recompile_events", "recompile_count", "snapshot", "reset",
     "get_tracker", "build_site",
     "make_lock", "make_rlock", "make_condition", "witness_enabled",
@@ -338,6 +338,31 @@ def record_remat(decision) -> None:
     gauge("remat_predicted_peak_bytes",
           "memory_plan predicted peak of the last transformed program, "
           "by variant").labels(variant="remat").set(decision.peak_after)
+
+
+def observe_comms_cost(program, comms, cost=None) -> None:
+    """Static-sharding comms gauges (analysis.cost_model.estimate_comms):
+    ``executor_comms_gbytes_per_step``, the predicted per-rank collective
+    wire volume of one step under the compiled sharding assignment, and
+    ``executor_comms_compute_ratio``, predicted wire time over tensor-core
+    time (>1 = communication-bound). Labels carry the program serial and
+    the mesh shape."""
+    if not enabled() or comms is None:
+        return
+    labels = {"program": str(int(getattr(program, "_serial", -1))),
+              "mesh": "x".join(f"{k}={v}"
+                               for k, v in sorted(comms.mesh.items()))}
+    gauge("executor_comms_gbytes_per_step",
+          "predicted per-chip collective wire GB of one step under the "
+          "static sharding assignment, by program and mesh").labels(
+        **labels).set(comms.gbytes_per_step)
+    if cost is not None and cost.flops_total > 0:
+        from ..analysis.cost_model import comms_compute_ratio
+
+        gauge("executor_comms_compute_ratio",
+              "predicted comms-vs-compute time ratio of one step "
+              "(>1 = communication-bound), by program and mesh").labels(
+            **labels).set(comms_compute_ratio(comms, cost))
 
 
 # -- cost model: per-(program, batch) FLOPs -> MFU gauges -------------------

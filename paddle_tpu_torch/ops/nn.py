@@ -163,7 +163,8 @@ def _batch_norm(ctx, ins, attrs):
     """The reference's batch_norm, statistics computed here rather than
     through ``F.batch_norm``: the batch variance is biased; the running
     stats update as ``old * momentum + batch * (1 - momentum)``;
-    ``SavedVariance`` is ``1 / sqrt(var + eps)``. ``MeanOut`` and
+    ``SavedVariance`` is ``1 / sqrt(var + eps)``. In a data-parallel step
+    (``ctx.dp``) the statistics are the global batch's. ``MeanOut`` and
     ``VarianceOut`` alias the ``Mean``/``Variance`` persistables, so the
     executor writes the update back to the scope."""
     xv = x(ins, "X")
@@ -175,6 +176,19 @@ def _batch_norm(ctx, ins, attrs):
         use_mean, inv = mean, 1.0 / torch.sqrt(var + eps)
         mean_out, var_out = mean, var
         saved_mean, saved_var = torch.zeros_like(mean), torch.zeros_like(var)
+    elif getattr(ctx, "dp", None) is not None:
+        # data parallel: the global batch's statistics, each sum over the
+        # ranks (its backward sums the rows' partial cotangents)
+        n = (xv.numel() // xv.shape[c_axis]) * ctx.dp.world
+        use_mean = ctx.dp.all_reduce_sum(xv.sum(dim=axes)) / n
+        cshape = [1] * xv.dim()
+        cshape[c_axis] = xv.shape[c_axis]
+        d = xv - use_mean.reshape(cshape)
+        use_var = ctx.dp.all_reduce_sum((d * d).sum(dim=axes)) / n
+        inv = 1.0 / torch.sqrt(use_var + eps)
+        mean_out = mean * mom + use_mean * (1 - mom)
+        var_out = var * mom + use_var * (1 - mom)
+        saved_mean, saved_var = use_mean, inv
     else:
         use_var, use_mean = torch.var_mean(xv, dim=axes, correction=0)
         inv = 1.0 / torch.sqrt(use_var + eps)

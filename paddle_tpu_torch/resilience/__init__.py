@@ -9,14 +9,18 @@ step watchdog (``FLAGS_step_timeout_s``), graceful preemption
 serving engine's drain-stop and retry backoffs consume) and ``elastic``
 (device-loss classification into a typed ``DeviceLostError``, rescale
 planning with PT610-PT614, the ``DataCursor`` that ``contrib.Trainer``
-checkpoints). Not in the port yet: re-forming a mesh, and the sharded
-checkpoint and replica checks of ``distributed.py`` (multi-device)."""
+checkpoints), with the data-parallel half of ``distributed.py``: sharded
+checkpoints (format 2, PT605-PT609) and the cross-replica divergence
+check. Not in the port yet: re-forming the process group on another rank
+count (ROADMAP Queue A item 6, slice 25)."""
 from .checkpoint import (CKPT_CODES, FORMAT_VERSION, CheckpointCorruptError,
                          atomic_replace_dir, finalize_manifest,
                          iter_serials, load_latest_checkpoint,
-                         verify_checkpoint)
+                         verify_checkpoint, verify_sharding_section)
 from .deadline import Deadline, DeadlineExceeded
-from .distributed import WatchdogTimeout, watchdog_section
+from .distributed import (ReplicaDivergenceError, WatchdogTimeout,
+                          handle_divergence, replica_divergence_check,
+                          set_divergence_recovery, watchdog_section)
 from .elastic import (ELASTIC_CODES, DataCursor, DeviceLostError,
                       ElasticRescaleError, classify_device_error,
                       grad_accum_steps, plan_rescale, survivor_devices)
@@ -34,9 +38,12 @@ from .retry import (RetryExhaustedError, RetryPolicy, call_with_retry,
 __all__ = [
     # checkpoint integrity
     "CheckpointCorruptError", "CKPT_CODES", "FORMAT_VERSION",
-    "verify_checkpoint", "finalize_manifest", "atomic_replace_dir", "iter_serials", "load_latest_checkpoint",
-    # watchdog
-    "WatchdogTimeout", "watchdog_section",
+    "verify_checkpoint", "verify_sharding_section", "finalize_manifest",
+    "atomic_replace_dir", "iter_serials", "load_latest_checkpoint",
+    # distributed resilience (sharded ckpts, divergence, watchdog)
+    "ReplicaDivergenceError", "WatchdogTimeout", "watchdog_section",
+    "replica_divergence_check", "handle_divergence",
+    "set_divergence_recovery",
     # elastic preemption tolerance (device loss -> typed error; rescale
     # planning; the data cursor)
     "DeviceLostError", "ElasticRescaleError", "ELASTIC_CODES",

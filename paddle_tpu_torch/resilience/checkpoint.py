@@ -20,10 +20,10 @@ power). Two halves keep the live directory whole:
 ``trainer_ckpt_fallback_total``), and training resumes from the newest
 checkpoint that *proves* intact.
 
-The sharded format (manifest ``format_version`` 2, PT605-PT609) needs the
-sharded half of ``resilience/distributed.py``, which the port does not
-have yet: such a manifest raises ``NotImplementedError``, as does
-``io.save_checkpoint(mesh=...)``.
+The sharded format (manifest ``format_version`` 2, PT605-PT609) is the
+data-parallel step's: ``resilience/distributed.py`` writes and
+reassembles it; :func:`verify_sharding_section` checks its structure
+before any blob is read.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 __all__ = ["CheckpointCorruptError", "CKPT_CODES", "FORMAT_VERSION",
            "MANIFEST_NAME", "finalize_manifest", "verify_checkpoint",
-           "atomic_replace_dir", "fsync_dir",
+           "verify_sharding_section", "atomic_replace_dir", "fsync_dir",
            "iter_serials", "load_latest_checkpoint"]
 
 logger = logging.getLogger("paddle_tpu_torch.resilience")
@@ -60,6 +60,17 @@ CKPT_CODES = {
     "PT603": "file content does not match its manifest sha256/size "
              "(torn write or tampering)",
     "PT604": "checkpoint format version newer than this framework supports",
+    # PT605-PT609: sharded (format_version 2) checkpoints
+    "PT605": "shard-count mismatch: the manifest's num_shards, shard file "
+             "list and per-param specs disagree",
+    "PT606": "per-param sharding spec does not match the declared var "
+             "(bad axis, non-divisible parts, or missing piece)",
+    "PT607": "torn shard write: a shard file the manifest declares is "
+             "absent or was never integrity-hashed (a distributed writer "
+             "died mid-checkpoint)",
+    "PT608": "shard reassembly mismatch: concatenated pieces do not "
+             "produce the declared var shape/dtype",
+    "PT609": "sharding section malformed (missing/ill-typed fields)",
 }
 
 
@@ -183,11 +194,10 @@ def verify_checkpoint(dirname: str) -> dict:
         raise CheckpointCorruptError(
             "PT604", dirname,
             f"format_version {version} > supported {FORMAT_VERSION}")
-    if manifest.get("sharding") is not None or int(version) == 2:
-        raise NotImplementedError(
-            f"checkpoint '{dirname}': format_version {version} (sharded): "
-            f"reading it needs the sharded half of "
-            f"resilience/distributed.py, which the port does not have yet")
+    if manifest.get("sharding") is not None:
+        # sharded structural checks first: a torn shard gets its specific
+        # PT607 diagnosis rather than the generic missing-file PT602
+        verify_sharding_section(dirname, manifest)
     for rel, want in sorted(files.items()):
         full = os.path.join(dirname, rel)
         if not os.path.exists(full):
@@ -202,6 +212,56 @@ def verify_checkpoint(dirname: str) -> dict:
             raise CheckpointCorruptError(
                 "PT603", dirname, f"'{rel}' sha256 mismatch")
     return manifest
+
+
+def verify_sharding_section(dirname: str, manifest: dict) -> dict:
+    """Structural checks for a format_version-2 sharded checkpoint, run
+    BEFORE any blob is read: the sharding section is well-formed (PT609),
+    its counts agree (PT605), and every declared shard file both exists on
+    disk and is covered by the integrity section (PT607 — the torn
+    distributed write: one writer died after the manifest named its shard
+    but before the shard file landed or was hashed; a raw KeyError deep in
+    the loader is exactly what the recovery walk must never see).
+    Content-level checks (PT606/PT608) happen at load, where the pieces
+    are actually read."""
+    sh = manifest.get("sharding")
+    if not isinstance(sh, dict):
+        raise CheckpointCorruptError(
+            "PT609", dirname, "'sharding' section is not an object")
+    shard_files = sh.get("shard_files")
+    specs = sh.get("specs")
+    n = sh.get("num_shards")
+    if not isinstance(shard_files, list) or not isinstance(specs, dict) \
+            or not isinstance(n, int) or not isinstance(sh.get("mesh"),
+                                                        dict):
+        raise CheckpointCorruptError(
+            "PT609", dirname,
+            "sharding section lacks num_shards/mesh/shard_files/specs")
+    if len(shard_files) != n:
+        raise CheckpointCorruptError(
+            "PT605", dirname,
+            f"num_shards={n} but {len(shard_files)} shard files declared")
+    for name, spec in sorted(specs.items()):
+        if not isinstance(spec, dict) or "dim" not in spec \
+                or "parts" not in spec:
+            raise CheckpointCorruptError(
+                "PT609", dirname, f"spec for '{name}' lacks dim/parts")
+        if int(spec["parts"]) != n:
+            raise CheckpointCorruptError(
+                "PT605", dirname,
+                f"'{name}' declares parts={spec['parts']} but the "
+                f"checkpoint holds {n} shards")
+    files = manifest.get("files") or {}
+    for rel in shard_files:
+        if not os.path.exists(os.path.join(dirname, str(rel))):
+            raise CheckpointCorruptError(
+                "PT607", dirname, f"shard file '{rel}' declared but absent")
+        if rel not in files:
+            raise CheckpointCorruptError(
+                "PT607", dirname,
+                f"shard file '{rel}' present but never integrity-hashed "
+                f"(its writer died before finalize)")
+    return sh
 
 
 def atomic_replace_dir(tmp: str, dst: str) -> None:

@@ -204,7 +204,32 @@ def test_mfu_gauges_from_executor_and_serving():
 
 
 def test_comms_half_is_refused():
-    with pytest.raises(NotImplementedError, match="sharding_check"):
-        tcm.estimate_comms(None)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tcm.comms_compute_ratio(None, None)
+    """The comms half is ported: on the same sharding analysis the port's
+    wire volumes equal the JAX package's, and the ratio is theirs scaled
+    by the two packages' FLAGS_device_peak_tflops."""
+    from paddle_tpu.analysis import cost_model as jcm
+    from paddle_tpu.analysis.sharding_check import \
+        propagate_sharding as jprop
+    from paddle_tpu.flags import flag as jflag
+    from paddle_tpu.models.mlp import build_mnist_mlp as jmlp
+
+    from paddle_tpu_torch.analysis.sharding_check import \
+        propagate_sharding as tprop
+    from paddle_tpu_torch.flags import flag as tflag
+    from paddle_tpu_torch.models.mlp import build_mnist_mlp as tmlp
+
+    import paddle_tpu.unique_name as jun
+
+    with jun.guard():
+        j = jmlp(hidden=(32,))
+    with tfluid.unique_name.guard():
+        t = tmlp(hidden=(32,))
+    kw = dict(fetch_names=[], batch_size=16)
+    jc = jcm.estimate_comms(jprop(j["main"], {"dp": 2}, **kw))
+    tc = tcm.estimate_comms(tprop(t["main"], {"dp": 2}, **kw))
+    assert tc.to_dict() == jc.to_dict() and tc.total_wire_bytes > 0
+    jr = jcm.comms_compute_ratio(jc, jcm.estimate_cost(j["main"], 16))
+    tr = tcm.comms_compute_ratio(tc, tcm.estimate_cost(t["main"], 16))
+    assert tr == pytest.approx(
+        jr * tflag("device_peak_tflops") / jflag("device_peak_tflops"),
+        rel=1e-9)

@@ -511,11 +511,17 @@ def test_data_parallel_single_rank_and_multi_rank_refusal(monkeypatch):
         loss.backward()
         model.apply_collective_grads()
         assert len(model.parameters()) == 4
+        # two ranks named but no launcher's endpoints: the bootstrap
+        # refuses, and the collective never silently runs on one rank
+        # (two launched ranks: tests/test_torch_dist_launch.py)
         monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        monkeypatch.setenv("PADDLE_DIST_BACKEND", "cpu")
+        with pytest.raises(RuntimeError, match="PADDLE_TRAINER_ENDPOINTS"):
             tdy.prepare_context()
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            tdy.DataParallel(_mlp(T, hidden=8)).apply_collective_grads()
+        dp = tdy.DataParallel(_mlp(T, hidden=8))
+        tdy.ops.mean(dp(x)).backward()
+        with pytest.raises(RuntimeError, match="prepare_context"):
+            dp.apply_collective_grads()
     env = tdy.ParallelEnv()
     assert env.world_size == 2 and env.rank == 0
 

@@ -315,19 +315,27 @@ def test_corruption_codes_name_what_failed(tmp_path):
 
 
 def test_sharded_checkpoints_are_refused_with_the_missing_module(tmp_path):
+    """The sharded format is ported (tests/test_torch_resilience_dist.py):
+    a ``mesh`` save writes format_version 2 and restores every value; a
+    plain manifest stamped 2 (no sharding section) loads as plain."""
     s = Session()
     ck = str(tmp_path / "checkpoint_0")
-    with pytest.raises(NotImplementedError, match="distributed.py"):
-        tfluid.io.save_checkpoint(s.exe, ck, s.main, scope=s.scope,
-                                  mesh={"dp": 2})
-    s.save(ck)
-    mpath = os.path.join(ck, "manifest.json")
+    tfluid.io.save_checkpoint(s.exe, ck, s.main, scope=s.scope,
+                              mesh={"dp": 2})
+    assert resilience.verify_checkpoint(ck)["format_version"] == 2
+    before = {n: s.scope.numpy(n) for n in s.scope.vars}
+    scope2 = tfluid.Scope()
+    tfluid.io.load_checkpoint(s.exe, ck, s.main, scope=scope2)
+    for n, v in before.items():
+        np.testing.assert_array_equal(scope2.numpy(n), v, err_msg=n)
+    ck1 = str(tmp_path / "checkpoint_1")
+    s.save(ck1)
+    mpath = os.path.join(ck1, "manifest.json")
     m = json.load(open(mpath))
     m["format_version"] = 2
     with open(mpath, "w") as f:
         json.dump(m, f)
-    with pytest.raises(NotImplementedError, match="distributed.py"):
-        s.load(ck)
+    s.load(ck1)
 
 
 def test_failed_save_preserves_previous_checkpoint(tmp_path):

@@ -2,8 +2,10 @@
 ``tools/mem_report.py`` on the CPU: over the book programs and the lint
 builtin suite, the same program names, per-program peak bytes and plan
 keys and the same PT5xx findings; a program with an error-severity PT5xx
-finding fails the gate; the JAX tool's per-chip modes raise, naming the
-multi-device slice."""
+finding fails the gate; the per-rank mode (``--mesh``/``--specs``) gives
+the JAX tool's per-chip plans, wire volumes and ratios; live validation
+and the per-rank budget raise, naming ROADMAP Queue A item 6 (slice
+25)."""
 import json
 
 import pytest
@@ -73,11 +75,46 @@ def test_an_error_finding_fails_the_gate(tmp_path, capsys):
             if d["severity"] == "error"] == ["PT504"]
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "dp=8"],
-                                  ["--specs", "zero1"],
+@pytest.mark.parametrize("argv", [["--mesh", "dp=2", "--hbm-budget-mb", "1"],
+                                  ["--mesh", "dp=2", "--specs", "zero1",
+                                   "--validate-live"],
                                   ["--mesh", "dp=8", "--validate-live"],
                                   ["--validate-live"],
                                   ["--hbm-budget-mb", "15872"]])
 def test_multi_device_modes_raise_naming_queue_a_item_6(argv):
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         TM.main(argv)
+
+
+@pytest.mark.parametrize("specs", ["allreduce", "zero1"])
+def test_per_rank_mode_plans_as_the_jax_tool(tmp_path, specs):
+    from paddle_tpu.flags import flag as jflag
+
+    from paddle_tpu_torch.flags import flag as tflag
+
+    jout, tout = tmp_path / "jax.json", tmp_path / "port.json"
+    argv = ["--mesh", "dp=2", "--specs", specs, "--json"]
+    assert JM.main(argv + [str(jout)]) == 0
+    assert TM.main(argv + [str(tout)]) == 0
+    jrep, trep = json.loads(jout.read_text()), json.loads(tout.read_text())
+    for t, j in zip(trep["programs"], jrep["programs"]):
+        tc, jc = t["per_chip"], j["per_chip"]
+        assert tc["mesh"] == jc["mesh"] == {"dp": 2}
+        assert tc["plan"]["peak_bytes"] == jc["plan"]["peak_bytes"], \
+            t["name"]
+        # the same collectives; their bytes differ where the port keeps
+        # int64 (a difference by design, ROADMAP Queue C)
+        assert [(e["kind"], e["var"], e["axis"]) for e in
+                tc["comms"]["events"]] == [(e["kind"], e["var"], e["axis"])
+                                           for e in jc["comms"]["events"]]
+        for k in ("sharded_vars", "diagnostics", "mesh"):
+            assert tc["sharding"][k] == jc["sharding"][k], (t["name"], k)
+        if t["name"].startswith("mnist_mlp"):
+            assert tc["comms"] == jc["comms"]
+            # the ratio's compute time is against each package's own
+            # FLAGS_device_peak_tflops (the H100's for the port)
+            scale = tflag("device_peak_tflops") / jflag("device_peak_tflops")
+            assert tc["comms_compute_ratio"] == pytest.approx(
+                jc["comms_compute_ratio"] * scale, rel=1e-3, abs=2e-4)
+    with pytest.raises(SystemExit):
+        TM.main(["--specs", "zero1"])

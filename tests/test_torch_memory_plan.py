@@ -120,10 +120,29 @@ def test_donation_report_matches_jax(name):
 
 
 def test_per_chip_plan_is_refused():
+    """The per-chip plan is ported: under ZeRO-1 on ``{'dp': 2}`` it
+    equals the JAX package's and is below the single-rank plan."""
+    from paddle_tpu.models.mlp import build_mnist_mlp as j_mlp
+    from paddle_tpu.parallel.sharding import extract_param_specs as jx
+    import paddle_tpu.unique_name as jun
+
+    from paddle_tpu_torch.parallel.sharding import extract_param_specs as tx
+
     with tun.guard():
-        t = t_mlp(hidden=(8,))
-    with pytest.raises(NotImplementedError, match="sharding_check"):
-        t["main"].memory_plan(mesh={"dp": 2})
+        t = t_mlp(hidden=(8,), optimizer="adam")
+    with jun.guard():
+        j = j_mlp(hidden=(8,), optimizer="adam")
+    mesh = {"dp": 2}
+    kw = dict(feed_names=list(t["feeds"]), fetch_names=[t["loss"].name],
+              batch_size=8, mesh=mesh)
+    tp = t["main"].memory_plan(specs=tx(t["main"], mesh, zero=True)[0],
+                               **kw)
+    jp = j["main"].memory_plan(specs=jx(j["main"], mesh, zero=True)[0],
+                               **kw)
+    assert tp.peak_bytes == jp.peak_bytes and tp.to_dict()["per_chip"]
+    assert tp.peak_bytes < t["main"].memory_plan(
+        feed_names=kw["feed_names"], fetch_names=kw["fetch_names"],
+        batch_size=8).peak_bytes
 
 
 # ---------------------------------------------------------------------------

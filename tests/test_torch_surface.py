@@ -15,25 +15,14 @@ import pytest
 
 import paddle_tpu_torch
 
-MULTI = "multi-device (ROADMAP Queue A item 6)"
-SHARDED = ("the replica checks and the sharded checkpoint of "
-           "resilience/distributed.py (item 6)")
+MULTI = ("model parallelism: tensor, ring and pipeline (ROADMAP Queue A "
+         "item 6, slice 25)")
 NO_TPU = "TPU-only: the port runs on CUDAPlace/CPUPlace"
 
 # module ('' is the package) -> {name: why it waits}
 STILL_MISSING = {
     "": {
-        "BuildStrategy": MULTI, "CompiledProgram": MULTI,
-        "ExecutionStrategy": MULTI, "parallel": MULTI,
-        "distributed": MULTI, "DistributeTranspiler": MULTI,
-        "DistributeTranspilerConfig": MULTI,
         "TPUPlace": NO_TPU,
-    },
-    "analysis": {
-        "CollectiveEvent": MULTI, "CommsReport": MULTI,
-        "comms_compute_ratio": MULTI, "estimate_comms": MULTI,
-        "ShardingAnalysis": MULTI, "propagate_sharding": MULTI,
-        "sharding_check": MULTI,
     },
     "executor": {"TPUPlace": NO_TPU},
     "flags": {"xla_options": "FLAGS_xla_options is XLA's; the port keeps "
@@ -45,23 +34,13 @@ STILL_MISSING = {
         "supports_shapes": "the Pallas tiling predicate; the port's "
                            "kernels.flash_attention classifies its own",
     },
-    "incubate": {"fleet": MULTI},
     "layer_helper": {"init_mod": "an import alias of the initializer "
                                  "module, not an API"},
     "layers": {"PipelineRegion": MULTI, "pipeline": MULTI},
+    "parallel": {"pipeline": MULTI, "ring_attention": MULTI},
     "lowering": {"np_dtype": "the JAX side's dtype helper; the port's is "
                              "core.types.np_dtype"},
-    "monitor": {
-        "observe_comms_cost": MULTI,
-    },
     "ops": {"pipeline_op": MULTI},
-    "resilience": {n: SHARDED for n in (
-        "ReplicaDivergenceError", "handle_divergence",
-        "replica_divergence_check", "set_divergence_recovery",
-        "verify_sharding_section")},
-    "transpiler": {n: MULTI for n in (
-        "DistributeTranspiler", "DistributeTranspilerConfig",
-        "GeoSgdTranspiler", "HashName", "PSDispatcher", "RoundRobin")},
     "tuning": {"CPU_OPTION_SETS": "XLA option sets; the port tunes K5's "
                                   "block triple only",
                "TPU_OPTION_SETS": "XLA option sets; the port tunes K5's "
@@ -131,11 +110,13 @@ def _pairs():
     return out
 
 
-# the JAX package's ``incubate`` names its subpackages only once something
-# has imported them: import both, so that what the comparison sees does
-# not hang on which test file ran before in the same process
+# the JAX package's ``incubate`` and ``parallel`` name their submodules
+# only once something has imported them: import them all, so that what the
+# comparison sees does not hang on which test file ran before in the same
+# process
 JAX_INCUBATE = ("paddle_tpu.incubate.data_generator",
-                "paddle_tpu.incubate.fleet")
+                "paddle_tpu.incubate.fleet", "paddle_tpu.parallel.pipeline",
+                "paddle_tpu.parallel.ring_attention")
 
 
 @pytest.fixture(scope="module")
@@ -167,7 +148,7 @@ def test_the_list_holds_no_name_already_ported(missing):
         assert set(names) <= missing.get(mod, set()), \
             (mod, sorted(set(names) - missing.get(mod, set())))
         assert all(names.values())
-    assert sum(len(v) for v in STILL_MISSING.values()) == 39
+    assert sum(len(v) for v in STILL_MISSING.values()) == 14
 
 
 @pytest.mark.parametrize("mod", sorted(ITEM_2))

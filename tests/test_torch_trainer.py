@@ -15,9 +15,11 @@ package on the CPU.
   fault leaves ``train()`` as a typed ``DeviceLostError`` with the last
   verified checkpoint intact; a graceful shutdown checkpoints and
   returns.
-* ``parallel=True`` and a sharded checkpoint raise, naming multi-device
-  (Queue A item 6); ``Trainer()`` and ``Inferencer()`` with no place ask
-  for CUDA."""
+* ``parallel=True`` on one rank trains as the plain Trainer does, a
+  sharded ``CheckpointConfig`` writes format 2, and
+  ``Inferencer(parallel=True)`` infers as the plain one (two ranks:
+  tests/test_torch_resilience_dist.py); ``Trainer()`` and
+  ``Inferencer()`` with no place ask for CUDA."""
 import json
 import os
 
@@ -264,17 +266,45 @@ def test_graceful_shutdown_checkpoints_and_returns(tmp_path):
 
 
 def test_parallel_and_sharded_wait_for_multi_device(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _trainer(parallel=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Ported: on one rank ``parallel=True`` trains bit for bit as the
+    plain Trainer, ``sharded=True`` writes format-2 checkpoints the next
+    Trainer resumes from, and ``Inferencer(parallel=True)`` infers as the
+    plain one (two ranks: tests/test_torch_resilience_dist.py)."""
+    runs = []
+    for parallel in (False, True):
+        t = _trainer(tmp_path / f"ck{parallel}", every=4, keep=0,
+                     parallel=parallel)
+        ev = _Events(tfluid)
+        t.train(1, ev, _shuffled_reader(), ["x", "y"])
+        runs.append((ev.losses, t))
+    assert runs[0][0] == runs[1][0] and len(runs[0][0]) == 12
+    t = runs[1][1]
+    with tun.guard():
+        sharded = tfluid.contrib.Trainer(
+            _train_func(tfluid), lambda: tfluid.optimizer.SGD(0.01),
+            place=CPU, parallel=True,
+            checkpoint_config=tfluid.contrib.CheckpointConfig(
+                str(tmp_path / "sh"), step_interval=4, sharded=True))
+    sharded.train(1, lambda ev: None, _shuffled_reader(), ["x", "y"])
+    serials = resilience.iter_serials(str(tmp_path / "sh"))
+    assert serials and resilience.verify_checkpoint(
+        serials[-1][1])["format_version"] == 2
+    with tun.guard():
+        again = tfluid.contrib.Trainer(
+            _train_func(tfluid), lambda: tfluid.optimizer.SGD(0.01),
+            place=CPU, checkpoint_config=tfluid.contrib.CheckpointConfig(
+                str(tmp_path / "sh"), sharded=True))
+    assert again._step == sharded._step
+    t.save_params(str(tmp_path / "params"))
+    x = np.ones((4, 13), np.float32)
+    outs = []
+    for p in (False, True):
         with tun.guard():
-            tfluid.contrib.Trainer(
-                _train_func(tfluid), lambda: tfluid.optimizer.SGD(0.1),
-                place=CPU, checkpoint_config=tfluid.contrib.CheckpointConfig(
-                    str(tmp_path), sharded=True))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tfluid.contrib.Inferencer(_infer_func(tfluid), str(tmp_path),
-                                  place=CPU, parallel=True)
+            inf = tfluid.contrib.Inferencer(
+                _infer_func(tfluid), str(tmp_path / "params"), place=CPU,
+                parallel=p)
+        outs.append(inf.infer({"x": x}))
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def test_no_place_means_the_card(tmp_path):

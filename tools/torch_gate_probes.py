@@ -52,12 +52,12 @@ def synchronize() -> None:
 
 
 def refuse_multi_device(mode: str):
-    """The JAX tools' multi-device modes wait for the port's multi-device
-    slice: raise, naming it."""
+    """The JAX tools' modes that reshape or validate a mesh live wait for
+    the port's model-parallel slice: raise, naming it."""
     raise NotImplementedError(
-        f"{mode} runs across devices, which waits for the port's "
-        f"multi-device slice (ROADMAP Queue A item 6); the port's gates "
-        f"run on one card")
+        f"{mode} validates or re-forms a mesh live, which waits for "
+        f"ROADMAP Queue A item 6 (slice 25); the port's gates run on one "
+        f"card")
 
 
 def add_device_arg(ap) -> None:

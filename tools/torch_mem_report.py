@@ -15,11 +15,16 @@ Usage:
       CI gate: also run the liveness verifier pass (PT5xx) over every
       program and exit 1 on any *error*-severity PT5xx finding; --json
       writes the full machine-readable report (the CI artifact).
+  python tools/torch_mem_report.py --mesh dp=2 --specs zero1
+      PER-RANK mode: plan every program under the mesh + layout as well
+      (``--specs`` is ``allreduce`` (default), ``zero1`` or a JSON file
+      of name -> [axis|null, ...] specs). Each JSON entry gains a
+      "per_chip" section: the per-rank plan, the collective wire volumes
+      and the predicted comms/compute ratio.
 
-The plan is static: nothing runs on a device. The JAX tool's per-chip
-modes (``--mesh``, ``--specs``, ``--validate-live`` and
-``--hbm-budget-mb``, a per-chip budget) raise: they wait for the port's
-multi-device slice (ROADMAP Queue A item 6).
+The plan is static: nothing runs on a device. ``--validate-live`` and
+``--hbm-budget-mb`` (a per-rank budget) under ``--mesh`` raise: they wait
+for ROADMAP Queue A item 6, slice 25.
 
 Options: --batch N (resolve -1 dims, default 64), --top K (hot spots).
 """
@@ -65,12 +70,73 @@ def _book_programs():
     return out
 
 
+def _parse_mesh(s):
+    """'dp=2' -> {'dp': 2}"""
+    mesh = {}
+    for part in s.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        k, _, v = part.partition("=")
+        mesh[k.strip()] = int(v)
+    if not mesh:
+        raise ValueError(f"empty mesh spec {s!r}")
+    return mesh
+
+
+def _specs_for(program, mesh, specs_mode):
+    """Resolve --specs for one program: a layout name or a JSON file;
+    anything else is an error (a typo'd spec file silently degrading to
+    the replicated layout would make the gate check the wrong thing)."""
+    from paddle_tpu_torch.parallel.sharding import extract_param_specs
+
+    mode = (specs_mode or "allreduce").lower()
+    if mode not in ("zero1", "allreduce"):
+        if not os.path.exists(specs_mode):
+            raise SystemExit(
+                f"--specs {specs_mode!r} is neither 'zero1', 'allreduce' "
+                f"nor an existing JSON spec file")
+        with open(specs_mode, "r", encoding="utf-8") as f:
+            raw = json.load(f)
+        return {k: tuple(v) for k, v in raw.items()}
+    specs, _feed = extract_param_specs(program, mesh, zero=mode == "zero1")
+    return specs
+
+
+def _per_chip_entry(program, feeds, fetches, batch, mesh, specs_mode):
+    """The per-rank section of one program's JSON entry."""
+    from paddle_tpu_torch.analysis.cost_model import (comms_compute_ratio,
+                                                      estimate_comms,
+                                                      estimate_cost)
+
+    specs = _specs_for(program, mesh, specs_mode)
+    plan = program.memory_plan(feed_names=feeds, fetch_names=fetches,
+                               batch_size=batch, mesh=mesh, specs=specs)
+    analysis = plan.sharding
+    comms = estimate_comms(analysis)
+    cost = estimate_cost(program, batch_size=batch)
+    section = {
+        "mesh": dict(analysis.mesh),
+        "specs_mode": specs_mode or "allreduce",
+        "plan": plan.to_dict(),
+        "sharding": analysis.to_dict(),
+        "comms": comms.to_dict(),
+        "comms_compute_ratio": round(
+            comms_compute_ratio(comms, cost), 4),
+    }
+    return plan, section
+
+
 def _report_one(name, program, feed_names, fetch_names, batch, top,
-                check: bool):
+                check: bool, mesh=None, specs_mode=None):
     plan = program.memory_plan(feed_names=feed_names,
                                fetch_names=fetch_names, batch_size=batch)
     entry = {"name": name, "feeds": list(feed_names),
              "fetches": list(fetch_names), "plan": plan.to_dict()}
+    chip_plan = None
+    if mesh:
+        chip_plan, entry["per_chip"] = _per_chip_entry(
+            program, feed_names, fetch_names, batch, mesh, specs_mode)
     gate_errors = []
     if check:
         diags = verify_program(program, fetch_names=fetch_names,
@@ -85,6 +151,12 @@ def _report_one(name, program, feed_names, fetch_names, batch, top,
     status = "FAIL" if gate_errors else "ok"
     print(f"[{status}] {name}")
     print("  " + plan.format(top).replace("\n", "\n  "))
+    if chip_plan is not None:
+        print("  " + chip_plan.format(top).replace("\n", "\n  "))
+        comms = entry["per_chip"]["comms"]
+        print(f"  collectives: {comms['gbytes_per_step'] * 1000:.3f} "
+              f"MB/rank/step on the wire, predicted comms/compute "
+              f"{entry['per_chip']['comms_compute_ratio']:.3f}")
     if check:
         n = len(entry["diagnostics"])
         print(f"  liveness findings: {n} "
@@ -109,21 +181,23 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=10,
                     help="hot spots to print per program (default 10)")
     ap.add_argument("--mesh", default=None,
-                    help="per-chip mode (multi-device: raises)")
+                    help="per-rank mode: 'dp=2'")
     ap.add_argument("--specs", default=None,
-                    help="layout under --mesh (multi-device: raises)")
+                    help="layout under --mesh: allreduce (default), zero1 "
+                         "or a JSON spec file")
     ap.add_argument("--hbm-budget-mb", type=float, default=0.0,
-                    help="per-chip budget under --mesh (multi-device: "
-                         "raises)")
+                    help="per-rank budget under --mesh (raises: slice 25)")
     ap.add_argument("--validate-live", action="store_true",
-                    help="live per-chip validation (multi-device: raises)")
+                    help="live per-rank validation (raises: slice 25)")
     args = ap.parse_args(argv)
 
-    for opt, on in (("--mesh", args.mesh), ("--specs", args.specs),
-                    ("--hbm-budget-mb", args.hbm_budget_mb),
+    if args.specs and not args.mesh:
+        ap.error("--specs needs --mesh")
+    for opt, on in (("--hbm-budget-mb", args.hbm_budget_mb),
                     ("--validate-live", args.validate_live)):
         if on:
             probes.refuse_multi_device(f"mem_report {opt}")
+    mesh = _parse_mesh(args.mesh) if args.mesh else None
 
     targets = []
     if args.programs:
@@ -140,7 +214,7 @@ def main(argv=None) -> int:
     report = {"batch_size": args.batch, "programs": []}
     for name, prog, feeds, fetches in targets:
         entry, good = _report_one(name, prog, feeds, fetches, args.batch,
-                                  args.top, args.check)
+                                  args.top, args.check, mesh, args.specs)
         report["programs"].append(entry)
         ok = ok and good
     if args.json:
