@@ -5,8 +5,24 @@
 ``--phases`` runs only the named phases that need no other phase's
 result (``ALONE``: kernels, the training and inference phases, tune,
 seq2seq, gru_encdec, misc_image, detection, data_path, dygraph, predictor,
-qat, fleet, gates, ci_gates, data_parallel) after ``device``, and prints
-no ``ok`` line. Without it, every phase runs:
+qat, fleet, gates, ci_gates, data_parallel, model_parallel) after
+``device``, and prints
+no ``ok`` line. Without it, every phase runs.
+
+Without ``--phases``, the run goes: device, kernels, then data_parallel
+and model_parallel (the multi-rank launches), then serve_batch,
+serve_poison, infer and infer_resnet (which gate on kernel counts read
+from ``torch.profiler``: it loses records of this process while another
+process holds a context on the card), then the other phases in the
+order below, while the phases of ``LANE`` (tune, misc_image, detection,
+seq2seq, gru_encdec, data_path, dygraph, predictor, qat) run in a second
+process of this script (``--phases`` over them) beside them; ci_gates'
+chaos workers start before gates and run beside it, and fleet's replica
+processes beside its in-process parts. The main process prints the
+second process's output when it ends, and its failure fails the run.
+Up to the second process's start the card has this process alone;
+every later time and profiled figure the run prints was taken with
+other work on the card and the host.
 
 Phases, in order; any failure exits non-zero (no phase is caught):
 
@@ -452,7 +468,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    one started with ``--crash-after-s`` classified ``crash`` and restarted;
    an autoscaler scale-out from a pressure trace, whose replica is the warm
    start (hits, no errors, the cold tokens); the aggregator's exact merge
-   of both live replicas' latency histograms. Alone: ``--phases fleet``.
+   of both live replicas' latency histograms; (c) runs on a thread of its
+   own beside (a) and (b), and the whole phase with
+   ``FLAGS_fleet_telemetry`` on. Alone: ``--phases fleet``.
 28. gates — the port's CI gates on the card, with
    ``FLAGS_lock_witness=1`` set before anything of the phase is built.
    (a) The static gate: ``analysis.concurrency.analyze_package()`` over
@@ -502,7 +520,8 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    ``serving_bucket_mfu``. (e) ``torch_option_sweep.py`` over BERT-base
    bf16 fused inference and ResNet-50 bf16 inference (batch 32): K5's
    four tilings, both conv layouts and the unfused program, every set
-   ranked, K5 launched at each tiling, K1 launched. (f) Beside (a)-(d),
+   ranked, K5 launched at each tiling, K1 launched. (f) Beside (a)-(d)
+   (in the whole run, from the start of ``gates``),
    ``torch_chaos_check.py --model bert_base``: three worker processes
    train BERT-base f32 (batch 8, seq 128, dropout 0, Adam) 8 steps with
    a checkpoint every 2; the victim killed inside serial 4's write
@@ -511,14 +530,17 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    ends with the baseline's loss and parameter digest bit for bit; each
    worker launched K1, K3 and K4. Every check true; the phase's launches
    include the workers'. Alone: ``--phases ci_gates``.
-30. data_parallel — BERT-base f32 pretraining (global batch 32 x seq
-   128, 16 rows a rank, dropout 0, Adam 1e-4) over two ranks started by
+30. data_parallel — BERT-base f32 pretraining at 4 of its 12 layers
+   (``DPAR_LAYERS``, cut so the whole run keeps inside its time limit;
+   global batch 32 x seq 128, 16 rows a rank, dropout 0, Adam 1e-4) over
+   two ranks started by
    ``paddle_tpu_torch.distributed.launch``, both on card 0, so the
    backend rule (NCCL where each rank has a card of its own, gloo where
    ranks share one) picks gloo; the rank script is
    ``tools/torch_dp_worker.py``. ``dp_allreduce``: 4 steps of
    ``CompiledProgram.with_data_parallel`` against 4 one-card steps of the
-   same global batches run in this process beside the second launch,
+   same global batches run in this process beside the second launch
+   (in the whole run also beside ``model_parallel``'s ``dptp`` launch),
    never beside the timed first one (the
    shards' masked counts must differ; step 1's loss within
    ``DPAR_STEP1_RTOL`` and its gradients within ``DPAR_STEP1_GRAD_TOL``
@@ -535,10 +557,35 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    gradients against the mean of two one-card shard gradients
    (``DPAR_GRAD_TOL``), the ranks' parameters bit-identical. Prints each
    rank's backend, card, step ms, collectives' ms and bytes, profiled
-   step and K1/K3/K4 launches a step (24/12/12 static, 12/12/12
-   dygraph); the phase's launches include the ranks'. Alone:
+   step and K1/K3/K4 launches a step (8/4/4 static, 4/4/4 dygraph); the
+   phase's launches include the ranks'. Alone:
    ``--phases data_parallel``.
-31. prints the script time of each phase and part (``[seconds]``), the
+31. model_parallel — tensor parallelism and ring attention, every rank
+   a gloo process on card 0 (``tools/torch_mp_worker.py``), the one-card
+   references run in this process before the launches. ``tp``: BERT-base
+   f32 (batch 32 x seq 128, dropout 0, Adam 1e-4) over ``{"tp": 2}``
+   with ``transformer_tp_rules``, 4 steps, against 4 one-card steps: step
+   1's loss (``MPAR_STEP1_RTOL``), steps 2-4 (``MPAR_LOSS_RTOL``), step
+   1's gradients gathered from the shards and the parameters after step 4
+   (normwise, ``MPAR_GRAD_TOL``/``MPAR_PARAM_TOL``), each beside a
+   control that must miss it (a plan that drops the first row-parallel
+   all-reduce; the shards of each tp-sharded tensor gathered in the
+   wrong order); each rank's parameter + moment bytes equal the one-card
+   step's less half of the sharded set's; collective bytes a step by
+   kind; K1/K3/K4 24/12/12 a rank a step. ``dptp`` (in the whole run
+   beside ``data_parallel``'s second launch): ``{"dp": 2, "tp":
+   2}`` (four ranks; BERT-base's widths at 4 of its 12 layers), dropout
+   0.1, ZeRO-1, the replica check every step
+   (policy raise) for 4 steps: the tp replicas bit-identical, and a
+   control that folds the whole rank into the seed must raise
+   ``ReplicaDivergenceError``. ``ring``: ``{"sp": 2}``, the Fluid-API
+   program of ``__graft_entry__._dryrun_ring_attention_fluid_api`` at B
+   8, H 12, S 1024 (512 a rank), D 64, causal, SGD, 3 steps, against the
+   one-card program: the losses, step 1's ``wq`` gradient and the
+   attention output (``MPAR_RING_*``, each beside a control); K1 4 a
+   rank a step (its 2 blocks, and the generic grad's rerun of them), K3
+   2, K4 2. Alone: ``--phases model_parallel``.
+32. prints the script time of each phase and part (``[seconds]``), the
    ``kernels`` JSON line (each kernel's launches summed over the main
    paths, and the ``phases`` that launch it), the card line, and as the
    last line
@@ -698,8 +745,6 @@ def _device_total_us(evt) -> float:
 # be left out (tools/torch_profiler_window_check.py counts how often):
 # the card idles this long, synchronised, on each side of what is measured
 PROFILE_PAD_S = 0.05
-
-
 @contextlib.contextmanager
 def profile_window(activities=(ProfilerActivity.CUDA,)):
     """``torch.profiler.profile`` whose window holds PROFILE_PAD_S of idle
@@ -8308,7 +8353,6 @@ def fleet_processes(seed, tmp):
                 f"chip_smoke: replica {h.replica_id} not ready: {e}\n"
                 f"{_replica_log(log_dir, h.replica_id)}")
 
-    fluid.set_flags({"FLAGS_fleet_telemetry": True})
     try:
         # a cold replica and one that crashes once, together (the
         # crashing one keeps out of the cache, so the cold one fills it)
@@ -8377,7 +8421,6 @@ def fleet_processes(seed, tmp):
             p50=monitor.snapshot_quantile(merged, 0.5) if merged else None,
             p99=monitor.snapshot_quantile(merged, 0.99) if merged else None)
     finally:
-        fluid.set_flags({"FLAGS_fleet_telemetry": False})
         sup.stop(drain=True)
     procs = [h.proc for h in sup.replicas.values() if h.proc is not None]
     res.update(cold=cold_info, warm=warm_info,
@@ -8430,21 +8473,46 @@ def fleet_processes(seed, tmp):
 
 
 def phase_fleet(seed):
-    with timed("fleet.generative"):
-        gen = fleet_generative(seed)
-    torch.cuda.empty_cache()
-    with timed("fleet.batching"):
-        batch = fleet_batching(seed)
-    torch.cuda.empty_cache()
+    """Parts (a) and (b) in this thread, (c) beside them on a thread of
+    its own; the phase runs with ``FLAGS_fleet_telemetry`` on, which
+    (c)'s aggregator needs."""
+    side = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+
+    def processes():
+        t0 = time.perf_counter()
+        try:
+            side["res"] = fleet_processes(seed, tmp)
+        except BaseException as e:  # re-raised on the main thread
+            side["error"] = e
+        finally:
+            TIMES["fleet.processes"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=processes, name="fleet-processes",
+                              daemon=True)
+    fluid.set_flags({"FLAGS_fleet_telemetry": True})
     try:
-        with timed("fleet.processes"):
-            procs = fleet_processes(seed, tmp)
+        thread.start()
+        with timed("fleet.generative"):
+            gen = fleet_generative(seed)
+        torch.cuda.empty_cache()
+        with timed("fleet.batching"):
+            batch = fleet_batching(seed)
+        torch.cuda.empty_cache()
     finally:
+        # the replicas end before their directory goes
+        with timed("fleet.processes_wait"):
+            thread.join(2 * FLEET_READY_S + 120)
+        fluid.set_flags({"FLAGS_fleet_telemetry": False})
         shutil.rmtree(tmp, ignore_errors=True)
+    if thread.is_alive():
+        raise SystemExit("chip_smoke: the fleet's replica-process leg did "
+                         "not end")
+    if "error" in side:
+        raise side["error"]
     launches = {n: gen["launches"][n] + batch["launches"][n]
                 for n in K.KERNEL_SOURCES}
-    return dict(generative=gen, batching=batch, processes=procs,
+    return dict(generative=gen, batching=batch, processes=side["res"],
                 launches=launches)
 
 
@@ -8740,21 +8808,18 @@ def _ci_checks(name, checks):
         raise SystemExit(f"chip_smoke: ci_gates {name} missed {bad}")
 
 
-def phase_ci_gates(seed):
-    mem, remat, metrics, tr, chaos, sweep = (_tool("torch_" + n) for n in (
-        "mem_report", "remat_check", "metrics_report", "trace_check",
-        "chaos_check", "option_sweep"))
-    from tools import torch_gate_probes as probes
-
-    probes.set_device(CI_DEVICE)
+def ci_chaos_start(seed):
+    """Part (f) of ``ci_gates``, started on a thread of its own: its three
+    worker processes train BERT-base on the card while this process goes
+    on. The whole run starts it before ``gates``, so that it runs beside
+    that phase's legs too; ``phase_ci_gates`` joins it."""
+    chaos = _tool("torch_chaos_check")
     with ThreadPoolExecutor(max_workers=len(K.KERNEL_SOURCES)) as pool:
         list(pool.map(_build.load, K.KERNEL_SOURCES))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ci_gates_")
-    side, res = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ci_chaos_")
+    side = {"tmp": tmp}
 
     def chaos_gate():
-        # (f) beside the in-process legs: its three worker processes
-        # train BERT-base on the card
         t0 = time.perf_counter()
         path = os.path.join(tmp, "chaos.json")
         try:
@@ -8769,11 +8834,28 @@ def phase_ci_gates(seed):
         finally:
             TIMES["ci_gates.chaos"] = time.perf_counter() - t0
 
-    thread = threading.Thread(target=chaos_gate, name="ci-gates-chaos",
-                              daemon=True)
+    side["thread"] = threading.Thread(target=chaos_gate,
+                                      name="ci-gates-chaos", daemon=True)
+    side["thread"].start()
+    return side
+
+
+def phase_ci_gates(seed, side=None):
+    mem, remat, metrics, tr, sweep = (_tool("torch_" + n) for n in (
+        "mem_report", "remat_check", "metrics_report", "trace_check",
+        "option_sweep"))
+    from tools import torch_gate_probes as probes
+
+    probes.set_device(CI_DEVICE)
+    with ThreadPoolExecutor(max_workers=len(K.KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.load, K.KERNEL_SOURCES))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ci_gates_")
+    res = {}
     K.reset_launch_counts()
     try:
-        thread.start()
+        # (f) beside the in-process legs (a)-(d)
+        side = side or ci_chaos_start(seed)
+        thread = side["thread"]
         # (a) the memory plan gate (static)
         with timed("ci_gates.mem_report"), \
                 contextlib.redirect_stdout(io.StringIO()):
@@ -8882,7 +8964,9 @@ def phase_ci_gates(seed):
         launches = K.launch_counts()
     finally:
         # the chaos workers end before their work dir goes
-        thread.join(600)
+        if side:
+            side["thread"].join(600)
+            shutil.rmtree(side["tmp"], ignore_errors=True)
         shutil.rmtree(tmp, ignore_errors=True)
         log("[ci_gates] seconds: " + ", ".join(
             f"{k[9:]} {v:.2f}" for k, v in TIMES.items()
@@ -8933,10 +9017,15 @@ DPAR_STEP1_GRAD_TOL = 1e-5
 # gradients of the ranks' shards (normwise)
 DPAR_GRAD_TOL = 1e-6
 DPAR_LAUNCH_TIMEOUT_S = 480
-# a static BERT-base f32 step on each rank: K1 24 (12 forward, 12 in the
-# generic grad's rerun), K3 12, K4 12; a dygraph step K1/K3/K4 12
-DPAR_STEP_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_dq": 12,
-                    "flash_attention_dkv": 12}
+# BERT-base's widths at tools/torch_dp_worker.py's LAYERS (4 of 12) since
+# the model_parallel phase joined the run: the whole script keeps inside
+# its time limit
+DPAR_LAYERS = 4
+# a static step on each rank: K1 2 a layer (the forward and the generic
+# grad's rerun), K3 and K4 1 a layer; a dygraph step K1/K3/K4 1 a layer
+DPAR_STEP_LAUNCHES = {"flash_attention_fwd": 2 * DPAR_LAYERS,
+                      "flash_attention_dq": DPAR_LAYERS,
+                      "flash_attention_dkv": DPAR_LAYERS}
 DPAR_ATTENTION = tuple(DPAR_STEP_LAUNCHES)
 
 
@@ -9000,6 +9089,22 @@ def dpar_check(ok, what):
 
 
 def phase_data_parallel(seed):
+    return run_split(data_parallel_parts(seed))
+
+
+def run_split(parts):
+    """Run a phase written as a generator of its parts to its end; its
+    result."""
+    try:
+        while True:
+            next(parts)
+    except StopIteration as e:
+        return e.value
+
+
+def data_parallel_parts(seed):
+    """``data_parallel`` in two parts: the timed first launch, then (at
+    the ``yield``) the rest, which may run beside other untimed work."""
     from paddle_tpu_torch.distributed import collective_backend
     from paddle_tpu_torch.distributed import ParallelEnv
 
@@ -9013,6 +9118,7 @@ def phase_data_parallel(seed):
         # the ones timed
         ranks = dpar_launch(tmp, ["allreduce", "unscaled", "repeat", "zero1",
                                   "dygraph"], "first", seed)
+        yield
         # the second launch (fresh ranks restore the sharded checkpoint,
         # then the divergence check; nothing timed) beside the one-card
         # reference in this process
@@ -9030,7 +9136,9 @@ def phase_data_parallel(seed):
         thread.start()
         try:
             t0 = time.perf_counter()
-            cfg = dataclasses.replace(BertConfig.base(), hidden_dropout=0.0,
+            cfg = dataclasses.replace(BertConfig.base(),
+                                      num_layers=DPAR_LAYERS,
+                                      hidden_dropout=0.0,
                                       attention_dropout=0.0)
             net, init = dy_bert(cfg, seed)
             feed = bert_feed(seed, cfg.vocab_size, DPAR_BATCH, TRAIN_SEQ)
@@ -9076,7 +9184,8 @@ def phase_data_parallel(seed):
         env.local_cards = [0] * DPAR_RANKS
         env.local_nproc = DPAR_RANKS
         rule = collective_backend(env)
-        log(f"[data_parallel] BERT-base f32, global batch {DPAR_BATCH} x seq "
+        log(f"[data_parallel] BERT-base f32 ({DPAR_LAYERS} layers), global "
+            f"batch {DPAR_BATCH} x seq "
             f"{TRAIN_SEQ} ({half} a rank), dropout 0, Adam 1e-4, "
             f"{DPAR_STEPS} steps over {DPAR_RANKS} ranks from "
             f"paddle_tpu_torch.distributed.launch: backend "
@@ -9219,7 +9328,7 @@ def phase_data_parallel(seed):
                                f"rank {r['rank']} {leg} step launched "
                                f"{row['launches']}")
             for row in r["dygraph"]["launches"]:
-                dpar_check(set(row.values()) == {12},
+                dpar_check(set(row.values()) == {DPAR_LAYERS},
                            f"rank {r['rank']} dygraph step launched {row}")
         launches = {n: ref_launches.get(n, 0) for n in K.KERNEL_SOURCES}
         for r in ranks:
@@ -9232,7 +9341,8 @@ def phase_data_parallel(seed):
                     launches[n] += v
         for n in DPAR_ATTENTION:
             dpar_check(launches[n] > 0, f"{n} never launched")
-        return dict(config="BertConfig.base() dropout 0", ranks=DPAR_RANKS,
+        return dict(config=f"BertConfig.base() at {DPAR_LAYERS} layers, "
+                           f"dropout 0", ranks=DPAR_RANKS,
                     global_batch=DPAR_BATCH, seq=TRAIN_SEQ, rule=rule,
                     masked=masked, reference_losses=ref_losses.tolist(),
                     allreduce_losses=dp_losses.tolist(), loss_rel=rel,
@@ -9249,13 +9359,426 @@ def phase_data_parallel(seed):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------- model_parallel
+# tensor parallelism (BERT-base f32, batch 32 x seq 128, dropout 0, Adam
+# 1e-4, over {"tp": 2}; over {"dp": 2, "tp": 2} at dropout 0.1 under
+# ZeRO-1) and ring attention (the Fluid-API sp program at GPT-2 small's
+# attention widths over {"sp": 2}), every rank on card 0 through the
+# port's launcher (gloo); the one-card references run in this process
+# before the launches, never beside them
+MPAR_BATCH, MPAR_STEPS = 32, 4
+# tolerances against the one-card step, set from the H100 readings
+# (PERF.md, model_parallel): step 1's loss (rtol), steps 2-4 (rtol),
+# step 1's gradients and the parameters after step 4 (normwise)
+# step 1 read 0 (bit-equal), steps 2-4 up to 9.9e-8, the gradients
+# 1.231e-6, the parameters 9.7e-8; the controls 8.4e-5 (the dropped
+# all-reduce's loss), 1.03 and 1.12 (shards swapped)
+MPAR_STEP1_RTOL, MPAR_LOSS_RTOL = 1e-5, 1e-6
+MPAR_GRAD_TOL, MPAR_PARAM_TOL = 1e-5, 1e-6
+# the ring leg: the losses (rtol), step 1's wq gradient and the
+# attention output (normwise); read 8.2e-8, 2.2e-7 and 1.2e-7, the
+# controls 9.6e-5, 1.0 and 1.29
+MPAR_RING_LOSS_RTOL, MPAR_RING_GRAD_TOL, MPAR_RING_OUT_TOL = 1e-6, 2e-6, \
+    1e-6
+MPAR_LAUNCH_TIMEOUT_S = 600
+# a rank's launches a step: the tp leg is the static BERT-base step (K1
+# 12 forward + 12 in the generic grad's rerun, K3 12, K4 12) on its six
+# heads; the ring leg runs K1 on 2 blocks in the forward and 2 more in
+# the generic grad's rerun, K3/K4 once a block in the backward
+MPAR_TP_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_dq": 12,
+                    "flash_attention_dkv": 12}
+MPAR_RING_LAUNCHES = {"flash_attention_fwd": 4, "flash_attention_dq": 2,
+                      "flash_attention_dkv": 2}
+MPAR_ATTENTION = tuple(MPAR_TP_LAUNCHES)
+
+
+def mpar_launch(tmp, nproc, legs, tag, seed):
+    """One launch of ``tools/torch_mp_worker.py`` over ``nproc`` ranks on
+    card 0; the ranks' reports, by rank. A rank that fails fails the
+    phase."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PADDLE_")}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    logs = os.path.join(tmp, "logs_" + tag)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(nproc),
+           "--selected_gpus", ",".join(["0"] * nproc),
+           "--log_dir", logs, os.path.join(repo, "tools",
+                                           "torch_mp_worker.py"),
+           "--out", tmp, "--legs", ",".join(legs), "--seed", str(seed),
+           "--tag", tag]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, cwd=repo, capture_output=True,
+                       text=True, timeout=MPAR_LAUNCH_TIMEOUT_S)
+    TIMES[f"model_parallel.{tag}"] = time.perf_counter() - t0
+    if r.returncode:
+        for n in range(nproc):
+            path = os.path.join(logs, f"workerlog.{n}")
+            if os.path.exists(path):
+                with open(path) as f:
+                    log(f"--- workerlog.{n} ({tag})\n" + f.read()[-6000:])
+        raise SystemExit(f"chip_smoke: model_parallel launch '{tag}' "
+                         f"exited {r.returncode}: {r.stderr[-2000:]}")
+    out = []
+    for n in range(nproc):
+        with open(os.path.join(tmp, f"rank{n}.{tag}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mpar_check(ok, what):
+    if not ok:
+        raise SystemExit(f"chip_smoke: model_parallel: {what}")
+
+
+def mpar_swapped(t, dim, parts=2):
+    """A deliberately wrong gather: ``t``'s ``parts`` shards along
+    ``dim`` in reverse order."""
+    return torch.cat(list(reversed(torch.chunk(t, parts, dim))), dim)
+
+
+def phase_model_parallel(seed):
+    return run_split(model_parallel_parts(seed))
+
+
+def model_parallel_parts(seed):
+    """``model_parallel`` in two parts: the references and the timed
+    ``tp`` launch, then (at the ``yield``) the ``dptp`` launch and the
+    checks, which may run beside other untimed work."""
+    from tools import torch_mp_worker as W
+    from paddle_tpu_torch.parallel.sharding import (extract_param_specs,
+                                                    transformer_tp_rules)
+
+    with ThreadPoolExecutor(max_workers=len(MPAR_ATTENTION)) as pool:
+        list(pool.map(_build.load, MPAR_ATTENTION))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        # the one-card references, with nothing else on the card
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(BertConfig.base(), hidden_dropout=0.0,
+                                  attention_dropout=0.0)
+        net, init = dy_bert(cfg, seed)
+        feed = bert_feed(seed, cfg.vocab_size, MPAR_BATCH, TRAIN_SEQ)
+        main = net["main"]
+        names = [p.name for p in main.all_parameters()]
+        grad_names = [n + "@GRAD" for n in names
+                      if n + "@GRAD" in main.global_block.vars]
+        exe, scope = fluid.Executor(), fluid.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        ref_grads = {g: t.detach().cpu() for g, t in zip(
+            grad_names, exe.run(main, feed=feed, fetch_list=grad_names,
+                                scope=scope, return_numpy=False))}
+        del exe, scope
+        st = train(net, init, feed, plain=False, steps=MPAR_STEPS)
+        ref_losses = st["losses"][:, 0]
+        ref_params = {n: st["scope"].find_var(n).detach().cpu()
+                      for n in names}
+        ref_launches = dict(st["launches"])
+        del st
+        rules = transformer_tp_rules()
+        specs, _ = extract_param_specs(main, {"tp": 2}, rules=rules)
+        state = {n: t for n, t in init.items()
+                 if n in names or n.startswith(("moment1_", "moment2_"))}
+        whole_bytes = sum(t.nelement() * t.element_size()
+                          for t in state.values())
+        sharded_bytes = sum(t.nelement() * t.element_size()
+                            for n, t in state.items() if n in specs)
+        del init
+        rmain, rstart, rloss, rout = W.build_ring(False)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(rstart, scope=scope)
+        scope.set_var("wq", torch.eye(W.RING["D"], device="cuda"))
+        rfeed = W.ring_feed(seed)
+        K.reset_launch_counts()
+        ring_ref, ring_losses = None, []
+        for i in range(W.RING["steps"]):
+            fetch = [rloss.name] + (["wq@GRAD", rout.name] if i == 0
+                                    else [])
+            out = exe.run(rmain, feed=rfeed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            ring_losses.append(float(out[0].detach().cpu().reshape(-1)[0]))
+            if i == 0:
+                ring_ref = {"wq_grad": out[1].detach().cpu(),
+                            "out": out[2].detach().cpu()}
+        for n, v in K.launch_counts().items():
+            ref_launches[n] = ref_launches.get(n, 0) + v
+        del exe, scope, out
+        torch.cuda.empty_cache()
+        TIMES["model_parallel.reference"] = time.perf_counter() - t0
+        # the launches, one after the other
+        r2 = mpar_launch(tmp, 2, ["tp", "tp_control", "ring"], "tp", seed)
+        yield
+        r4 = mpar_launch(tmp, 4, ["dptp", "dptp_badseed"], "dptp", seed)
+        tp = [r["tp"] for r in r2]
+        # tp: losses, step-1 gradients and parameters, with controls
+        tp_losses = np.array(tp[0]["losses"])
+        rel = [dpar_rel(a, b) for a, b in zip(tp_losses, ref_losses)]
+        ctl = dpar_rel(r2[0]["tp_control"]["losses"][0], ref_losses[0])
+        grads = torch.load(os.path.join(tmp, "grads_tp.pt"))
+        params = torch.load(os.path.join(tmp, "params_tp.pt"))
+
+        def split_dim(name):
+            spec = specs.get(name.split("@GRAD")[0]) or ()
+            return next((d for d, a in enumerate(spec) if a == "tp"), None)
+
+        def wrong(values):
+            return [mpar_swapped(values[n], split_dim(n))
+                    if split_dim(n) is not None else values[n]
+                    for n in sorted(values)]
+        grad_norm = normwise([grads[n] for n in sorted(ref_grads)],
+                             [ref_grads[n] for n in sorted(ref_grads)])
+        grad_ctl = normwise(wrong({n: grads[n] for n in ref_grads}),
+                            [ref_grads[n] for n in sorted(ref_grads)])
+        param_norm = normwise([params[n] for n in sorted(ref_params)],
+                              [ref_params[n] for n in sorted(ref_params)])
+        param_ctl = normwise(wrong({n: params[n] for n in ref_params}),
+                             [ref_params[n] for n in sorted(ref_params)])
+        del grads, params, ref_grads, ref_params
+        want_bytes = whole_bytes - sharded_bytes // 2
+        # a step that fetches nothing but the loss (steps 2-3)
+        step_kinds = tp[0]["steps"][1]["by_kind"]
+        log(f"[model_parallel] tp: BERT-base f32, batch {MPAR_BATCH} x seq "
+            f"{TRAIN_SEQ}, dropout 0, Adam 1e-4, {MPAR_STEPS} steps over "
+            f"{{'tp': 2}} (backend {[r['backend'] for r in r2]}, cards "
+            f"{[r['card'] for r in r2]}): losses {tp_losses.tolist()} vs "
+            f"one card {ref_losses.tolist()}, rel "
+            f"{['%.3e' % x for x in rel]} (control, first row-parallel "
+            f"all-reduce dropped: step 1 rel {ctl:.3e}); step-1 gradients "
+            f"normwise {grad_norm:.3e} ({len(grad_names)}; control, shards "
+            f"swapped: {grad_ctl:.3e}); parameters after step "
+            f"{MPAR_STEPS} normwise {param_norm:.3e} (control "
+            f"{param_ctl:.3e})")
+        for r, t in zip(r2, tp):
+            log(f"  rank {r['rank']}: step ms "
+                f"{[round(x['ms'], 1) for x in t['steps']]}; parameter + "
+                f"moment bytes {t['state_bytes'] / 2**20:.1f} MiB against "
+                f"one card's {whole_bytes / 2**20:.1f} (want "
+                f"{want_bytes / 2**20:.1f}: the sharded "
+                f"{sharded_bytes / 2**20:.1f} MiB halved); collectives a "
+                f"step " + ", ".join(
+                    f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB"
+                    for k, v in t["steps"][1]["by_kind"].items())
+                + f" (step 2); launches a step "
+                f"{t['steps'][0]['launches']}; peak "
+                f"{t['peak_bytes'] / 2**30:.2f} GiB")
+        # dp x tp: the replica check every step, and its control
+        dptp = [r["dptp"] for r in r4]
+        bad = [r["dptp_badseed"] for r in r4]
+        log(f"[model_parallel] dptp: {{'dp': 2, 'tp': 2}}, dropout 0.1, "
+            f"ZeRO-1, replica check every step: losses by rank "
+            f"{[d['losses'] for d in dptp]}; coords "
+            f"{[d['coords'] for d in dptp]}; {dptp[0]['sharded']} "
+            f"parameters tp-sharded, {dptp[0]['zero_sharded']} state vars "
+            f"ZeRO-1 rows; step ms "
+            f"{[round(x['ms'], 1) for x in dptp[0]['steps']]}; control "
+            f"(whole rank in the seed): ReplicaDivergenceError names "
+            f"{[b['named'] for b in bad]} ({bad[0]['count']} vars)")
+        # the ring
+        ring = [r["ring"] for r in r2]
+        got = torch.load(os.path.join(tmp, "ring.pt"))
+        rrel = [dpar_rel(a, b) for a, b in zip(ring[0]["losses"],
+                                               ring_losses)]
+        wq_norm = normwise([got["wq_grad"]], [ring_ref["wq_grad"]])
+        wq_ctl = normwise([got["wq_grad"] * 2], [ring_ref["wq_grad"]])
+        out_norm = normwise([got["out"]], [ring_ref["out"]])
+        swapped = mpar_swapped(got["out"], 2)
+        out_ctl = normwise([swapped], [ring_ref["out"]])
+        loss_ctl = dpar_rel(float(((swapped - torch.from_numpy(
+            rfeed["y"])) ** 2).mean()), ring_losses[0])
+        log(f"[model_parallel] ring: {{'sp': 2}}, B {W.RING['B']} H "
+            f"{W.RING['H']} S {W.RING['S']} ({W.RING['S'] // 2} a rank) D "
+            f"{W.RING['D']} causal, SGD: losses {ring[0]['losses']} vs one "
+            f"card {ring_losses}, rel {['%.3e' % x for x in rrel]} "
+            f"(control, the output's halves swapped: {loss_ctl:.3e}); wq "
+            f"gradient normwise {wq_norm:.3e} (control, summed over the sp "
+            f"replicas: {wq_ctl:.3e}); output normwise {out_norm:.3e} "
+            f"(control, halves swapped: {out_ctl:.3e}); step ms "
+            f"{[round(x['ms'], 1) for x in ring[0]['steps']]}; launches a "
+            f"rank a step {[x['launches'] for x in ring[0]['steps']]}; "
+            f"collectives a step {ring[0]['steps'][-1]['by_kind']}")
+        # the gates
+        mpar_check(all(r["backend"] == "gloo" and r["card"] == 0
+                       for r in r2 + r4), "ranks off card 0 or not gloo")
+        mpar_check(np.isfinite(tp_losses).all() and rel[0] <= MPAR_STEP1_RTOL
+                   and max(rel[1:]) <= MPAR_LOSS_RTOL,
+                   f"tp losses part from one card (rel {rel})")
+        mpar_check(ctl > MPAR_STEP1_RTOL,
+                   f"the dropped all-reduce's loss {ctl:.3e} passes")
+        mpar_check(grad_norm <= MPAR_GRAD_TOL < grad_ctl,
+                   f"tp gradients {grad_norm:.3e} (control {grad_ctl:.3e})"
+                   f" against {MPAR_GRAD_TOL}")
+        mpar_check(param_norm <= MPAR_PARAM_TOL < param_ctl,
+                   f"tp parameters {param_norm:.3e} (control "
+                   f"{param_ctl:.3e}) against {MPAR_PARAM_TOL}")
+        mpar_check(tp[0]["losses"] == tp[1]["losses"]
+                   and tp[0]["digest"] == tp[1]["digest"],
+                   "the tp ranks' losses or gathered parameters differ")
+        for t in tp:
+            mpar_check(t["state_bytes"] == want_bytes,
+                       f"a rank holds {t['state_bytes']} state bytes, want "
+                       f"{want_bytes}")
+            for row in t["steps"]:
+                mpar_check(row["launches"] == MPAR_TP_LAUNCHES,
+                           f"tp step launched {row['launches']}")
+        mpar_check(all(d["losses"] == dptp[0]["losses"] for d in dptp)
+                   and len({d["replicated_digest"] for d in dptp}) == 1
+                   and dptp[0]["shard_digest"] == dptp[2]["shard_digest"]
+                   and dptp[1]["shard_digest"] == dptp[3]["shard_digest"]
+                   and dptp[0]["shard_digest"] != dptp[1]["shard_digest"],
+                   "the dp x tp replicas are not bit-identical")
+        mpar_check(all(b["named"] for b in bad),
+                   f"the whole-rank seed control raised nothing: {bad}")
+        mpar_check(rrel[0] <= MPAR_RING_LOSS_RTOL
+                   and max(rrel) <= MPAR_RING_LOSS_RTOL < loss_ctl,
+                   f"ring losses rel {rrel} (control {loss_ctl:.3e})")
+        mpar_check(wq_norm <= MPAR_RING_GRAD_TOL < wq_ctl,
+                   f"ring wq gradient {wq_norm:.3e} (control {wq_ctl:.3e})")
+        mpar_check(out_norm <= MPAR_RING_OUT_TOL < out_ctl,
+                   f"ring output {out_norm:.3e} (control {out_ctl:.3e})")
+        for r in ring:
+            for row in r["steps"]:
+                mpar_check(row["launches"] == MPAR_RING_LAUNCHES,
+                           f"ring step launched {row['launches']}")
+        launches = {n: ref_launches.get(n, 0) for n in K.KERNEL_SOURCES}
+        for r in r2:
+            for leg in ("tp", "ring"):
+                for row in r[leg]["steps"]:
+                    for n, v in row["launches"].items():
+                        launches[n] += v
+        for r in r4:
+            for row in r["dptp"]["steps"]:
+                for n, v in row["launches"].items():
+                    launches[n] += v
+        for n in MPAR_ATTENTION:
+            mpar_check(launches[n] > 0, f"{n} never launched")
+        return dict(config="BertConfig.base() f32", batch=MPAR_BATCH,
+                    seq=TRAIN_SEQ, reference_losses=ref_losses.tolist(),
+                    tp_losses=tp_losses.tolist(), tp_loss_rel=rel,
+                    tp_control_rel=ctl, tp_grads_normwise=grad_norm,
+                    tp_grads_control=grad_ctl, tp_params_normwise=param_norm,
+                    tp_params_control=param_ctl, whole_state_bytes=whole_bytes,
+                    sharded_state_bytes=sharded_bytes,
+                    tp_state_bytes=[t["state_bytes"] for t in tp],
+                    tp_collectives_by_kind=step_kinds,
+                    dptp_losses=[d["losses"] for d in dptp],
+                    badseed=bad, ring_losses=ring[0]["losses"],
+                    ring_reference_losses=ring_losses, ring_loss_rel=rrel,
+                    ring_loss_control=loss_ctl, ring_wq_normwise=wq_norm,
+                    ring_wq_control=wq_ctl, ring_out_normwise=out_norm,
+                    ring_out_control=out_ctl, ranks2=r2, ranks4=r4,
+                    launches=launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
+def parallel_phases(seed):
+    """``data_parallel`` and ``model_parallel`` as the whole run takes
+    them: each timed launch alone on the card, then the two phases' other
+    parts together, ``model_parallel``'s on a thread. Their results."""
+    dp, mp, side = data_parallel_parts(seed), model_parallel_parts(seed), {}
+    with timed("data_parallel.timed_part"):
+        next(dp)
+    with timed("model_parallel.timed_part"):
+        next(mp)
+
+    def rest():
+        t0 = time.perf_counter()
+        try:
+            side["mpar"] = run_split(mp)
+        except BaseException as e:  # re-raised on the main thread
+            side["error"] = e
+        finally:
+            TIMES["model_parallel.rest"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=rest, name="model-parallel-rest",
+                              daemon=True)
+    thread.start()
+    try:
+        with timed("data_parallel.rest"):
+            dpar = run_split(dp)
+    finally:
+        thread.join(MPAR_LAUNCH_TIMEOUT_S + 60)
+    if "error" in side:
+        raise side["error"]
+    if thread.is_alive() or "mpar" not in side:
+        raise SystemExit("chip_smoke: model_parallel's dp x tp launch did "
+                         "not end")
+    for name in ("data_parallel", "model_parallel"):
+        TIMES[name] = TIMES[f"{name}.timed_part"] + TIMES[f"{name}.rest"]
+    return dpar, side["mpar"]
+
+
 # the phases that need no other phase's result, which --phases can run
 ALONE = ("kernels", "train", "train_amp", "train_remat", "train_guard",
          "train_lamb", "infer", "train_resnet", "infer_resnet", "tune",
          "seq2seq", "gru_encdec", "misc_image", "detection", "data_path",
          "dygraph", "predictor", "qat", "fleet", "gates", "ci_gates",
-         "data_parallel")
+         "data_parallel", "model_parallel")
+
+
+# the phases the whole run gives a second process of this script: checks
+# of the card against the CPU and of single-process paths, whose results
+# the rest of the run reads only from their reports
+LANE = ("tune", "misc_image", "detection", "seq2seq", "gru_encdec",
+        "data_path", "dygraph", "predictor", "qat")
+LANE_TIMEOUT_S = 900
+# the process groups this run starts and has not yet waited for
+CHILDREN = []
+
+
+class Lane:
+    """``LANE``'s phases in ``python3 chip_smoke.py --phases ...``, started
+    now in a process group of its own; ``join()`` waits for it, prints
+    its output and returns its report. Its host threads leave two cores
+    to this process."""
+
+    def __init__(self, names, seed):
+        self.names = names
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_lane_")
+        self.out = open(os.path.join(self.tmp, "stdout"), "w+")
+        self.err = open(os.path.join(self.tmp, "stderr"), "w+")
+        env = dict(os.environ,
+                   OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 4) - 2)))
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phases",
+             ",".join(names), "--seed", str(seed), "--out-dir", self.tmp],
+            cwd=here, env=env, stdout=self.out, stderr=self.err,
+            start_new_session=True)
+        CHILDREN.append(self.proc)
+
+    def join(self):
+        try:
+            rc = self.proc.wait(max(1.0, LANE_TIMEOUT_S
+                                    - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+            rc = None
+        CHILDREN.remove(self.proc)
+        TIMES["lane"] = time.perf_counter() - self.t0
+        try:
+            for f, stream in ((self.out, sys.stdout), (self.err, sys.stderr)):
+                f.seek(0)
+                stream.write(f.read())
+                stream.flush()
+                f.close()
+            if rc != 0:
+                raise SystemExit(f"chip_smoke: the phases {self.names} in "
+                                 f"the second process "
+                                 + (f"exited {rc}" if rc is not None else
+                                    f"did not end within {LANE_TIMEOUT_S} s"))
+            with open(os.path.join(self.tmp, "chip_smoke_phases.json")) as f:
+                rep = json.load(f)
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        TIMES.update((k, v) for k, v in rep["seconds"].items()
+                     if k != "device")
+        return rep
 
 
 def run_alone(names, seed, card, out_dir):
@@ -9298,6 +9821,28 @@ def main():
         return
     with timed("kernels"):
         kres, masks = phase_kernels(args.seed)
+    torch.cuda.empty_cache()
+    # the multi-rank launches: the timed ones with the card to
+    # themselves, then data_parallel's second launch and one-card
+    # reference beside model_parallel's dp x tp launch (none timed)
+    dpar, mpar = parallel_phases(args.seed)
+    torch.cuda.empty_cache()
+    # the phases that gate on kernel counts read from torch.profiler: it
+    # loses records of this process whenever another process holds a
+    # context on the card (tools/torch_profiler_window_check.py --beside)
+    with timed("serve_batch"):
+        batched = phase_serve_batch(args.seed, args.out_dir)
+    with timed("serve_poison"):
+        poisoned = phase_serve_poison(batched.pop("_ctx"))
+    torch.cuda.empty_cache()
+    with timed("infer"):
+        inferred = phase_infer(args.seed)
+    torch.cuda.empty_cache()
+    with timed("infer_resnet"):
+        inferred_resnet = phase_infer_resnet(args.seed)
+    torch.cuda.empty_cache()
+    # LANE's phases in a second process, beside everything from here on
+    lane = Lane(LANE, args.seed)
     with timed("serve"):
         model, params, exe, run = phase_serve(args.seed)
     with timed("whole_path"):
@@ -9305,11 +9850,6 @@ def main():
     with timed("serve_spec"):
         spec = phase_serve_spec(model, params, exe, run, gaps, args.seed)
     del model, params, exe
-    torch.cuda.empty_cache()
-    with timed("serve_batch"):
-        batched = phase_serve_batch(args.seed, args.out_dir)
-    with timed("serve_poison"):
-        poisoned = phase_serve_poison(batched.pop("_ctx"))
     torch.cuda.empty_cache()
     with timed("train"):
         trained = phase_train(args.seed)
@@ -9326,58 +9866,35 @@ def main():
     with timed("train_lamb"):
         lambed = phase_train_lamb(args.seed)
     torch.cuda.empty_cache()
-    with timed("infer"):
-        inferred = phase_infer(args.seed)
-    torch.cuda.empty_cache()
     with timed("train_resnet"):
         trained_resnet = phase_train_resnet(args.seed)
-    torch.cuda.empty_cache()
-    with timed("infer_resnet"):
-        inferred_resnet = phase_infer_resnet(args.seed)
-    torch.cuda.empty_cache()
-    with timed("tune"):
-        tuned = phase_tune(args.seed)
-    torch.cuda.empty_cache()
-    with timed("seq2seq"):
-        s2s = phase_seq2seq(args.seed)
-    torch.cuda.empty_cache()
-    with timed("gru_encdec"):
-        ge = phase_gru_encdec(args.seed)
     torch.cuda.empty_cache()
     with timed("deepfm"):
         fm = phase_deepfm(args.seed)
     with timed("deepfm_infer"):
         fm_infer = phase_deepfm_infer(fm.pop("_ctx"), args.seed)
     torch.cuda.empty_cache()
-    with timed("misc_image"):
-        mi = phase_misc_image(args.seed, card)
-    torch.cuda.empty_cache()
-    with timed("detection"):
-        det = phase_detection(args.seed, card)
-    torch.cuda.empty_cache()
-    with timed("data_path"):
-        dp = phase_data_path(args.seed)
-    torch.cuda.empty_cache()
-    with timed("dygraph"):
-        dy = phase_dygraph(args.seed)
-    torch.cuda.empty_cache()
-    with timed("predictor"):
-        pr = phase_predictor(args.seed)
-    torch.cuda.empty_cache()
-    with timed("qat"):
-        qat = phase_qat(args.seed)
-    torch.cuda.empty_cache()
     with timed("fleet"):
         fleet = phase_fleet(args.seed)
     torch.cuda.empty_cache()
-    with timed("gates"):
-        gates = phase_gates(args.seed)
+    # ci_gates' chaos workers run beside the gates
+    chaos = ci_chaos_start(args.seed)
+    try:
+        with timed("gates"):
+            gates = phase_gates(args.seed)
+    except BaseException:
+        # the chaos workers end before the run does
+        chaos["thread"].join(600)
+        shutil.rmtree(chaos["tmp"], ignore_errors=True)
+        raise
     torch.cuda.empty_cache()
     with timed("ci_gates"):
-        ci_gates = phase_ci_gates(args.seed)
+        ci_gates = phase_ci_gates(args.seed, chaos)
     torch.cuda.empty_cache()
-    with timed("data_parallel"):
-        dpar = phase_data_parallel(args.seed)
+    laned = lane.join()
+    tuned, s2s, ge, mi, det, dp, dy, pr, qat = (laned[n] for n in (
+        "tune", "seq2seq", "gru_encdec", "misc_image", "detection",
+        "data_path", "dygraph", "predictor", "qat"))
     # launches on the main paths: serving (K1, K2), speculative serving
     # (K1, K2's 8-row route), batching BERT serving, plain and bisecting
     # a poisoned batch (K1, K5 bf16), training in f32, in bf16, in bf16
@@ -9396,9 +9913,11 @@ def main():
     # replicas and BERT-base batching replica (K1, K2, K5) and the CI
     # gates' serving legs and witnessed train step (K1-K5) and the ported
     # single-device gate tools' card legs (K1, K3, K4, K5; the chaos
-    # workers' own counts added), and BERT-base data parallel over two
+    # workers' own counts added), BERT-base data parallel over two
     # ranks, static and dygraph (K1, K3, K4; the ranks' counts and the
-    # one-card reference's), each counted from 0 over its own run
+    # one-card reference's), and BERT-base tensor parallel (tp 2, dp 2 x
+    # tp 2) with ring attention over sp 2 (K1, K3, K4; the ranks' counts
+    # and the one-card references'), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -9418,7 +9937,8 @@ def main():
                 "predictor": pr["launches"], "qat": qat["launches"],
                 "fleet": fleet["launches"], "gates": gates["launches"],
                 "ci_gates": ci_gates["launches"],
-                "data_parallel": dpar["launches"]}
+                "data_parallel": dpar["launches"],
+                "model_parallel": mpar["launches"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])
@@ -9441,7 +9961,8 @@ def main():
               "deepfm_infer": fm_infer, "misc_image": mi, "detection": det,
               "data_path": dp, "dygraph": dy, "predictor": pr, "qat": qat,
               "fleet": fleet, "gates": gates, "ci_gates": ci_gates,
-              "data_parallel": dpar, "launches": launches}
+              "data_parallel": dpar, "model_parallel": mpar,
+              "launches": launches}
     line = []
     for name, rows in kres.items():
         shape, dt, rate = MAIN_ROW[name]
@@ -9476,4 +9997,12 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        for child in CHILDREN:
+            try:
+                os.killpg(child.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            child.wait()

@@ -79,6 +79,9 @@ class FusedChain:
     dead_outputs: List[str]          # e.g. layer_norm Mean/Variance
     epilogue: str                    # human label: 'bias+gelu', ...
 
+    def label(self) -> str:
+        return self.epilogue
+
 
 @dataclasses.dataclass
 class FusionDecision:

@@ -18,10 +18,32 @@ codes, finding keys and messages.
   per-rank wire volumes; ``liveness.memory_plan(mesh=..., specs=...)``
   divides live bytes per spec.
 
-The port's data-parallel step (``parallel/compiled_program.py``) reads
-its plan from this analysis: the all-reduce events of forward-role ops are
-the dp-partial values it makes global, those of backward-role ops the
-parameter gradients it sums across ranks.
+The port's parallel step (``parallel/compiled_program.py``) reads its
+plan from this analysis: the all-reduce events of forward-role ops are
+the partial values it makes whole (over ``dp``: the batch's reductions;
+over ``tp``: a row-parallel product, a vocab-sharded lookup), those of
+backward-role ops the parameter gradients it sums across ``dp`` and the
+partial input gradients it sums across ``tp``; an all-gather event over a
+model axis is an input it gathers before the op.
+
+Where the port's rules differ from the JAX package's, they differ only on
+a model axis (``tp``, ``sp``; never ``dp``, whose events and findings stay
+the JAX ones), and each makes the events the ones GSPMD places:
+
+* a reshape carries a model axis through a split or merge of the dim it
+  shards when the outermost dim of the aligned group divides (the
+  ``[B, S, H] -> [B, S, nh, hd]`` head split keeps ``tp`` on ``nh``); the
+  JAX rule records an all-gather of the input instead;
+* a gradient ``<slot>@GRAD`` of a grad op takes the spec of the forward
+  var in ``<slot>`` when that var is sharded over a model axis (the JAX
+  rule reads the name, and a ``@RENAME`` piece falls to the elementwise
+  join);
+* ``softmax`` and ``softmax_with_cross_entropy`` (and their grads) whose
+  class axis is sharded over a model axis record an all-gather of the
+  logits and give replicated outputs (the gradient of the logits keeps
+  their spec);
+* an input an op gathers over a model axis counts as whole on that axis
+  for the partial-sum rule, so no all-reduce follows the gather.
 
 Registered as analysis pass ``sharding_check`` (requires ``liveness``).
 The pass reads its inputs from ``PassContext.options``:
@@ -68,6 +90,10 @@ _KNOWN_REDUCTIONS = frozenset({
     "accuracy", "auc", "top_k", "argmax", "argmin", "not_equal",
     "equal", "less_than", "greater_than",
 })
+
+# mesh axes that are not the batch's: the port's rules that differ from
+# the JAX package's act on these only (see the module docstring)
+_BATCH_AXIS = "dp"
 
 # data-movement ops: their own rules record the gather/reshard they imply;
 # the partial-sum reduce rule must not double-charge them
@@ -257,6 +283,9 @@ class _Propagator:
         # grad all-reduce events by var name, for the ZeRO rewrite at the
         # optimizer op (reduce-scatter replaces the all-reduce)
         self._ar_by_var: Dict[str, CollectiveEvent] = {}
+        # (block, op index, var, axis) an op gathers over a model axis:
+        # whole on that axis for the partial-sum rule
+        self._gathered: Set[tuple] = set()
 
     # -- helpers ----------------------------------------------------------
     def emit(self, code: str, msg: str, blk, oi: Optional[int],
@@ -308,6 +337,10 @@ class _Propagator:
         self.collectives.append(ev)
         if kind == "all_reduce":
             self._ar_by_var[name] = ev
+        if kind == "all_gather":
+            for a in axis.split(","):
+                if a != _BATCH_AXIS:
+                    self._gathered.add((blk.idx, oi, name, a))
         return ev
 
     # -- spec validation (the PT730-PT733 input contract) -----------------
@@ -433,7 +466,8 @@ class _Propagator:
                 if in_shape == out_shape:
                     continue
                 for a in isp:
-                    if a is None or a in kept or a in seen_axes:
+                    if a is None or a in kept or a in seen_axes \
+                            or (blk.idx, oi, in_name, a) in self._gathered:
                         continue
                     seen_axes.add(a)
                     self.collective(
@@ -539,8 +573,15 @@ class _Propagator:
         (the multi_devices_graph_pass AllReduceOpHandle, derived instead
         of built)."""
         out_specs: Dict[str, Spec] = {}
+        by_slot = self._model_sharded_slots(op, blk)
         for out in op.output_arg_names:
             if out == EMPTY:
+                continue
+            if out in by_slot:
+                shape = self.shape_of(blk, out)
+                sp = by_slot[out]
+                out_specs[out] = normalize_spec(
+                    sp, len(shape) if shape else len(sp))
                 continue
             if out.endswith("@GRAD"):
                 fwd = out[:-len("@GRAD")]
@@ -554,6 +595,24 @@ class _Propagator:
             else:
                 out_specs[out] = self._join_elementwise(op, blk, oi, out)
         return out_specs
+
+    def _model_sharded_slots(self, op, blk) -> Dict[str, Spec]:
+        """A grad op that reads a value sharded over a model axis: its
+        ``<slot>@GRAD`` outputs take the spec of their forward var (input
+        slot ``<slot>``). Ops over ``dp`` alone keep the JAX rule."""
+        if not any(_model_axis_in(self.specs.get(n))
+                   for n in op.input_arg_names if n != EMPTY):
+            return {}
+        out: Dict[str, Spec] = {}
+        for slot, names in op.outputs.items():
+            if not slot.endswith("@GRAD"):
+                continue
+            fwd = op.inputs.get(slot[:-len("@GRAD")], [])
+            for g, f in zip(names, fwd):
+                sp = self.specs.get(f)
+                if g != EMPTY and sp is not None:
+                    out[g] = sp
+        return out
 
     # -- matmul-class rules -----------------------------------------------
     def _contract(self, op, blk, oi, x, y, x_dims: Sequence[int],
@@ -731,6 +790,14 @@ class _Propagator:
             if xs[-d] is not None and xs[-d] not in carried:
                 osp[-d] = xs[-d]
                 carried.add(xs[-d])
+        for d_in, d_out in _aligned_heads(xshape, oshape):
+            a = xs[d_in]
+            if a is None or a == _BATCH_AXIS or a in carried \
+                    or osp[d_out] is not None \
+                    or oshape[d_out] % max(1, self.mesh.get(a, 1)):
+                continue
+            osp[d_out] = a
+            carried.add(a)
         lost = [a for a in xs if a is not None and a not in carried]
         if lost:
             self.collective("all_gather", lost, x, self.bytes_of(blk, x),
@@ -913,6 +980,71 @@ class _Propagator:
         return out_specs
 
 
+def _model_axis_in(spec) -> bool:
+    return bool(spec) and any(a is not None and a != _BATCH_AXIS
+                              for a in spec)
+
+
+def _aligned_heads(xshape, oshape):
+    """``(input dim, output dim)`` pairs a reshape keeps in row-major
+    layout: each group of input dims that maps onto a group of output
+    dims (equal products) pairs its outermost input dim with its
+    outermost output dim, so a dim sharded into contiguous blocks stays
+    so. Size-1 dims join the group before them."""
+    pairs, i, j = [], 0, 0
+    while i < len(xshape) and j < len(oshape):
+        i0, j0 = i, j
+        pi, pj = xshape[i], oshape[j]
+        i, j = i + 1, j + 1
+        while pi != pj:
+            if pi < pj and i < len(xshape):
+                pi *= xshape[i]
+                i += 1
+            elif pj < pi and j < len(oshape):
+                pj *= oshape[j]
+                j += 1
+            else:
+                return pairs
+        pairs.append((i0, j0))
+    return pairs
+
+
+def _rule_softmax(slot_in: str, slot_out: str):
+    """``softmax``/``softmax_with_cross_entropy`` and their grads: a class
+    axis sharded over a model axis is gathered before the op (the softmax
+    needs every class), the outputs replicated on it; otherwise the
+    outputs follow the input as ``_rule_same_as_input`` does."""
+    same = _rule_same_as_input(slot_in, slot_out)
+
+    def rule(self: _Propagator, op, blk, oi) -> Dict[str, Spec]:
+        x = (op.input(slot_in) or [EMPTY])[0]
+        shape = self.shape_of(blk, x)
+        axis = int(op.attrs.get("axis", -1))
+        sp = normalize_spec(self.spec_of(blk, x), len(shape)) \
+            if shape else ()
+        a = sp[axis] if sp else None
+        if a is None or a == _BATCH_AXIS:
+            return self._grad_rule(op, blk, oi) \
+                if op.type.endswith("_grad") else same(self, op, blk, oi)
+        self.collective("all_gather", a, x, self.bytes_of(blk, x), blk, oi,
+                        f"'{op.type}' normalises over the class dim "
+                        f"sharded on '{a}'")
+        whole = list(sp)
+        whole[axis] = None
+        if op.type.endswith("_grad"):
+            return self._grad_rule(op, blk, oi)
+        out_specs: Dict[str, Spec] = {}
+        for out in op.output_arg_names:
+            if out == EMPTY:
+                continue
+            oshape = self.shape_of(blk, out)
+            out_specs[out] = normalize_spec(
+                tuple(whole)[:len(oshape)] if oshape else (),
+                len(oshape) if oshape else 0)
+        return out_specs
+    return rule
+
+
 def _rule_same_as_input(slot_in: str, slot_out: str):
     def rule(self: _Propagator, op, blk, oi) -> Dict[str, Spec]:
         x = (op.input(slot_in) or [EMPTY])[0]
@@ -946,9 +1078,11 @@ _RULES = {
     "fill_constant_batch_size_like": _Propagator._rule_fill_like,
     "batch_norm": _rule_same_as_input("X", "Y"),
     "layer_norm": _rule_same_as_input("X", "Y"),
-    "softmax": _rule_same_as_input("X", "Out"),
+    "softmax": _rule_softmax("X", "Out"),
+    "softmax_grad": _rule_softmax("X", "Out"),
     "dropout": _rule_same_as_input("X", "Out"),
-    "softmax_with_cross_entropy": _rule_same_as_input("Logits", "Softmax"),
+    "softmax_with_cross_entropy": _rule_softmax("Logits", "Softmax"),
+    "softmax_with_cross_entropy_grad": _rule_softmax("Logits", "Softmax"),
 }
 
 # optimizer ops share one rule, detected by slots at dispatch time

@@ -176,9 +176,11 @@ def _append_backward_core(block, targets: Sequence[Variable],
     return acc
 
 
-def append_backward(loss: Variable, parameter_list=None, no_grad_set=None):
+def append_backward(loss: Variable, parameter_list=None, no_grad_set=None,
+                    callbacks=None, checkpoints=None):
     """Append grad ops for every op on the loss's path; returns
-    ``[(param, grad_var), ...]`` as the reference does."""
+    ``[(param, grad_var), ...]`` as the reference does. ``callbacks`` and
+    ``checkpoints`` are accepted and not read, as in the JAX package."""
     block = loss.block
     program = block.program
     with program._op_role_guard("backward"):

@@ -80,7 +80,7 @@ class OptimizerWithMixedPrecision:
         return self._use_dynamic_loss_scaling or self._init_loss_scaling != 1.0
 
     def backward(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None):
+                 no_grad_set=None, callbacks=None):
         """Scale the loss, run the inner optimizer's backward, then
         unscale and check the gradients. Returns (params_grads,
         scaled_loss)."""
@@ -97,7 +97,8 @@ class OptimizerWithMixedPrecision:
             else:
                 scaled_loss = loss
             params_grads = self._optimizer.backward(
-                scaled_loss, startup_program, parameter_list, no_grad_set)
+                scaled_loss, startup_program, parameter_list, no_grad_set,
+                callbacks)
             if self._needs_scaling:
                 self._append_unscale_ops(program, params_grads)
         return params_grads, scaled_loss

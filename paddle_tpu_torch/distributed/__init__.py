@@ -30,7 +30,14 @@ where each rank has a card of its own, gloo where ranks share a card or
 run on the CPU. Gloo takes CUDA tensors only for ``all_reduce`` and
 ``broadcast``, so the helpers below build all-gather and reduce-scatter
 from those two there (an all-gather sums an integer view of zero-padded
-slots, which moves the bits exactly).
+slots, which moves the bits exactly), and the ring exchange stages a CUDA
+tensor through the host for gloo's send and receive.
+
+A model-parallel mesh (``parallel.sharding.Mesh``) gets one process group
+for each of its axes (:func:`axis_group`): every rank makes every group
+of the mesh, axis by axis in the mesh's order, the first time any rank
+asks for one, so the ranks call ``new_group`` in the same order. The
+helpers take such a group (None: every launched rank).
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ import numpy as np
 __all__ = ["ParallelEnv", "init_parallel_env", "get_rank", "get_world_size",
            "is_initialized", "barrier", "all_gather_object",
            "allgather_mean_tree", "collective_backend", "collective_stats",
-           "reset_collective_stats", "set_collective_timing"]
+           "reset_collective_stats", "set_collective_timing", "axis_group"]
 
 # how long a collective or the rendezvous waits for a peer
 _DIST_TIMEOUT = datetime.timedelta(seconds=300)
@@ -93,7 +100,7 @@ _state = {"initialized": False, "backend": None, "device": None,
           "timing": False}
 # what the collective helpers moved: calls, bytes of the tensors handed
 # in, and (with ``set_collective_timing(True)``) the seconds they took
-_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+_stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "by_kind": {}}
 
 
 def collective_stats() -> dict:
@@ -101,11 +108,13 @@ def collective_stats() -> dict:
     :func:`reset_collective_stats` (seconds are counted only while
     :func:`set_collective_timing` is on: each call then waits for the
     card before and after it)."""
-    return dict(_stats)
+    out = dict(_stats)
+    out["by_kind"] = {k: dict(v) for k, v in _stats["by_kind"].items()}
+    return out
 
 
 def reset_collective_stats() -> None:
-    _stats.update(calls=0, bytes=0, seconds=0.0)
+    _stats.update(calls=0, bytes=0, seconds=0.0, by_kind={})
 
 
 def set_collective_timing(on: bool) -> None:
@@ -113,14 +122,20 @@ def set_collective_timing(on: bool) -> None:
 
 
 class _counted:
-    """Count one collective call on ``t`` (see :func:`collective_stats`)."""
+    """Count one collective call on ``t`` (see :func:`collective_stats`;
+    ``by_kind`` splits the calls and bytes by ``kind``)."""
 
-    def __init__(self, t):
+    def __init__(self, t, kind="all_reduce"):
         self.t = t
+        self.kind = kind
 
     def __enter__(self):
+        nbytes = self.t.numel() * self.t.element_size()
         _stats["calls"] += 1
-        _stats["bytes"] += self.t.numel() * self.t.element_size()
+        _stats["bytes"] += nbytes
+        k = _stats["by_kind"].setdefault(self.kind, {"calls": 0, "bytes": 0})
+        k["calls"] += 1
+        k["bytes"] += nbytes
         if _state["timing"]:
             self._sync()
             import time
@@ -240,6 +255,7 @@ def _teardown() -> None:
     if _state["initialized"] and tdist.is_initialized():
         tdist.destroy_process_group()
     _state["initialized"] = False
+    _groups.clear()
 
 
 def get_rank() -> int:
@@ -287,8 +303,51 @@ def _int_view(t):
     return t.view(dt), lambda x: x.view(t.dtype)
 
 
-def _all_reduce(t, op: str = "sum"):
-    """In place over every rank; returns ``t``."""
+# mesh shape -> {axis: (group, ranks of this rank's group)}
+_groups: dict = {}
+
+
+def axis_group(mesh, axis: str):
+    """``(group, ranks)``: the process group of this rank's line along
+    ``axis`` of ``mesh`` (the ranks that differ from this one only in
+    their ``axis`` coordinate, in coordinate order). The first call for a
+    mesh shape makes every group of every axis, in the mesh's axis order,
+    on every rank (``torch.distributed.new_group`` must be called by all
+    ranks alike). Single-process, or an axis of size 1: ``(None, [rank])``
+    and the helpers do nothing with it."""
+    rank = get_rank() if _active() else 0
+    if not _active() or mesh.shape.get(axis, 1) <= 1:
+        return None, [rank]
+    import torch.distributed as tdist
+
+    key = tuple(mesh.shape.items())
+    if key not in _groups:
+        if mesh.size != get_world_size():
+            raise ValueError(
+                f"mesh {mesh.shape} holds {mesh.size} ranks but "
+                f"{get_world_size()} were launched")
+        made = {}
+        for a in mesh.axis_names:
+            if mesh.shape[a] <= 1:
+                continue
+            for line in mesh.lines(a):
+                g = tdist.new_group(line)
+                if rank in line:
+                    made[a] = (g, list(line))
+        _groups[key] = made
+    return _groups[key][axis]
+
+
+def _group_rank_size(group):
+    import torch.distributed as tdist
+
+    if group is None:
+        return get_rank(), get_world_size()
+    return tdist.get_rank(group), tdist.get_world_size(group)
+
+
+def _all_reduce(t, op: str = "sum", group=None):
+    """In place over every rank of ``group`` (None: all); returns ``t``."""
     if not _active():
         return t
     import torch.distributed as tdist
@@ -296,7 +355,8 @@ def _all_reduce(t, op: str = "sum"):
     with _counted(t):
         tdist.all_reduce(t, op={"sum": tdist.ReduceOp.SUM,
                                 "max": tdist.ReduceOp.MAX,
-                                "min": tdist.ReduceOp.MIN}[op])
+                                "min": tdist.ReduceOp.MIN}[op],
+                         group=group)
     return t
 
 
@@ -305,41 +365,44 @@ def _broadcast(t, src: int = 0):
         return t
     import torch.distributed as tdist
 
-    with _counted(t):
+    with _counted(t, "broadcast"):
         tdist.broadcast(t, src)
     return t
 
 
-def _all_gather(t):
-    """Every rank's ``t`` (same shape everywhere) concatenated along dim
-    0 in rank order, bit for bit."""
+def _all_gather(t, group=None, dim: int = 0):
+    """Every rank's ``t`` of ``group`` (None: all; same shape everywhere)
+    concatenated along ``dim`` in group-rank order, bit for bit."""
     if not _active():
         return t
+    if dim != 0:
+        out = _all_gather(t.movedim(dim, 0).contiguous(), group)
+        return out.movedim(0, dim).contiguous()
     import torch
     import torch.distributed as tdist
 
-    world = get_world_size()
+    rank, world = _group_rank_size(group)
     t = t.contiguous()
     if _state["backend"] == "nccl":
         out = torch.empty((world * t.shape[0],) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device) if t.dim() \
             else torch.empty(world, dtype=t.dtype, device=t.device)
-        with _counted(t):
-            tdist.all_gather_into_tensor(out, t)
+        with _counted(t, "all_gather"):
+            tdist.all_gather_into_tensor(out, t, group=group)
         return out
     if t.device.type == "cpu":
         parts = [torch.empty_like(t) for _ in range(world)]
-        with _counted(t):
-            tdist.all_gather(parts, t)
+        with _counted(t, "all_gather"):
+            tdist.all_gather(parts, t, group=group)
         return torch.cat(parts) if t.dim() else torch.stack(parts)
     # gloo on a CUDA tensor: all_reduce of zero-padded slots over an
     # integer view (x + 0 moves every bit pattern exactly)
     iv, back = _int_view(t)
     slots = torch.zeros((world,) + tuple(iv.shape), dtype=iv.dtype,
                         device=iv.device)
-    slots[get_rank()] = iv
-    with _counted(slots):
-        tdist.all_reduce(slots)
+    slots[rank] = iv
+    with _counted(slots, "all_gather"):
+        tdist.all_reduce(slots, group=group)
     out = back(slots)
     return out.reshape((world * t.shape[0],) + tuple(t.shape[1:])) \
         if t.dim() else out
@@ -358,11 +421,37 @@ def _reduce_scatter(t):
     if _state["backend"] == "nccl":
         out = torch.empty((rows,) + tuple(t.shape[1:]), dtype=t.dtype,
                           device=t.device)
-        with _counted(t):
+        with _counted(t, "reduce_scatter"):
             tdist.reduce_scatter_tensor(out, t.contiguous())
         return out
     s = _all_reduce(t.clone())
     return s[rank * rows:(rank + 1) * rows]
+
+
+def _ring_exchange(t, group, ranks, shift: int = 1):
+    """Point to point around the ring of ``ranks`` (``group``'s ranks in
+    coordinate order): this rank sends ``t`` to the rank ``shift`` places
+    on and returns what the rank ``shift`` places back sent (same shape
+    and dtype). Nothing else is gathered. Gloo takes no CUDA tensor for a
+    send, so a CUDA tensor is staged through the host there."""
+    if not _active() or len(ranks) <= 1:
+        return t
+    import torch
+    import torch.distributed as tdist
+
+    me = ranks.index(get_rank())
+    n = len(ranks)
+    dst, src = ranks[(me + shift) % n], ranks[(me - shift) % n]
+    staged = t.is_cuda and _state["backend"] != "nccl"
+    send = (t.cpu() if staged else t).contiguous()
+    recv = torch.empty_like(send)
+    with _counted(send, "send_recv"):
+        reqs = tdist.batch_isend_irecv([
+            tdist.P2POp(tdist.isend, send, dst, group),
+            tdist.P2POp(tdist.irecv, recv, src, group)])
+        for r in reqs:
+            r.wait()
+    return recv.to(t.device, non_blocking=False) if staged else recv
 
 
 def all_gather_object(arr) -> list:

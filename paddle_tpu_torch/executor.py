@@ -192,18 +192,37 @@ class Scope:
     # monotonic identity for executor keys (id() can alias after GC)
     _serial_counter = itertools.count()
 
-    def __init__(self):
+    def __init__(self, parent: Optional["Scope"] = None):
         self.vars: Dict[str, Any] = {}
+        self.parent = parent
         self._serial = next(Scope._serial_counter)
         self._lock = _monitor.make_rlock("Scope._lock")
 
-    def find_var(self, name: str):
+    def var(self, name: str):
+        """This scope's own value of ``name`` (no parent lookup)."""
         with self._lock:
             return self.vars.get(name)
+
+    def find_var(self, name: str):
+        """``name`` in this scope or, failing that, its nearest parent's."""
+        s = self
+        while s is not None:
+            with s._lock:
+                if name in s.vars:
+                    return s.vars[name]
+            s = s.parent
+        return None
 
     def set_var(self, name: str, value) -> None:
         with self._lock:
             self.vars[name] = value
+
+    def drop_var(self, name: str) -> None:
+        with self._lock:
+            self.vars.pop(name, None)
+
+    def new_scope(self) -> "Scope":
+        return Scope(parent=self)
 
     def numpy(self, name: str) -> Optional[np.ndarray]:
         v = self.find_var(name)
@@ -599,6 +618,7 @@ class Executor:
                        nan_checks=checks, num_taps=taps)
         if step.dp is not None:
             ctx.dp = step.dp.ctx
+            ctx.mesh = step.dp.mesh
         with torch.no_grad():
             self._run_ops(step, range(len(program.global_block.ops)), env,
                           ctx, scope)
@@ -964,13 +984,14 @@ class Executor:
                 ("amp", amp.compute_dtype if amp is not None else None))
 
     def _get_step(self, path, program, key, components, prep_s, mrec,
-                  feed, fetch_names, gemm_blocks, make_plan=None):
+                  feed, fetch_names, gemm_blocks, make_plan=None,
+                  use_cache=True):
         """Look ``key`` up; a miss is a compile event (recorded, completed
         at the step's first run). Under the executor lock, so racing
         threads share one step and one compile record. ``make_plan``: a
         data-parallel key's plan, made at its compile event."""
         with self._lock:
-            step = self._cache.get(key)
+            step = self._cache.get(key) if use_cache else None
             hit = step is not None
             _monitor.record_cache_lookup(path, hit)
             if mrec is not None:
@@ -1027,7 +1048,10 @@ class Executor:
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
-            scope: Optional[Scope] = None, return_numpy: bool = True):
+            scope: Optional[Scope] = None, return_numpy: bool = True,
+            use_program_cache: bool = True):
+        """``use_program_cache=False`` rebuilds the key's step (a compile
+        event) instead of reusing the cached one, as the reference does."""
         from .parallel.compiled_program import CompiledProgram
 
         if isinstance(program, CompiledProgram):
@@ -1044,12 +1068,13 @@ class Executor:
                          program=int(getattr(program, "_serial", -1))):
             try:
                 return self._run_body(program, feed, names, scope,
-                                      return_numpy, mrec, prep_s, blocks)
+                                      return_numpy, mrec, prep_s, blocks,
+                                      use_cache=use_program_cache)
             finally:
                 _monitor.step_end(mrec)
 
     def _run_body(self, program, feed, names, scope, return_numpy, mrec,
-                  prep_s, blocks, dp=None):
+                  prep_s, blocks, dp=None, use_cache=True):
         """One step of ``program``; ``dp``: the ``CompiledProgram`` whose
         data-parallel plan runs it over the launched ranks (path
         ``parallel``, its own keys)."""
@@ -1070,7 +1095,7 @@ class Executor:
         key = (fp, feed_sig, tuple(names), scope._serial) + extra + (
             blocks, kflags)
         step = self._get_step(path, program, key, components, prep_s, mrec,
-                              feed, names, blocks, make_plan)
+                              feed, names, blocks, make_plan, use_cache)
         self._fill_record(mrec, step, feed, names, scope)
         feed_t = self._feed_tensors(program, feed)
         if dp is not None:

@@ -57,7 +57,7 @@ class Variable:
                  dtype: Any = "float32", type: VarType = VarType.LOD_TENSOR,
                  lod_level: int = 0, persistable: bool = False,
                  stop_gradient: bool = False, is_data: bool = False,
-                 **kwargs):
+                 initializer=None, **kwargs):
         self.block = block
         self.name = name
         self.shape = tuple(int(s) for s in shape) if shape is not None \
@@ -68,6 +68,12 @@ class Variable:
         self.persistable = persistable
         self.stop_gradient = stop_gradient
         self.is_data = is_data
+
+    def astype(self, dtype):
+        """A ``cast`` of this var to ``dtype``."""
+        from .layers import tensor as _t
+
+        return _t.cast(self, dtype)
 
     def __repr__(self):
         return (f"Variable(name={self.name!r}, shape={self.shape}, "
@@ -214,6 +220,9 @@ class Operator:
     def output(self, slot: str) -> List[str]:
         return self.outputs.get(slot, [])
 
+    def attr(self, name: str):
+        return self.attrs.get(name)
+
     @property
     def input_arg_names(self) -> List[str]:
         return [n for ns in self.inputs.values() for n in ns]
@@ -318,6 +327,9 @@ class Block:
             return True
         except KeyError:
             return False
+
+    def all_parameters(self) -> List["Parameter"]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
     def _stamp(self, op: Operator) -> None:
         """Give ``op`` a stable ``__uid__``, the current op role and the

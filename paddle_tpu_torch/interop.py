@@ -11,6 +11,12 @@ from ``Scope.numpy`` as int32. :func:`scope_from_numpy` converts each
 array to the dtype the port declares for it (int32 -> int64 where the var
 is int64), on the requested place, so both packages compute from the
 same weights.
+
+Under a model-parallel mesh, ``scope_from_numpy(..., mesh=, rules=)``
+plants each rank's shard instead: every var the rules shard (and the
+optimizer state of a param they shard) is cut to the shard of this
+rank's mesh coordinates, as ``parallel.sharding.place_state`` cuts a
+scope's values.
 """
 from __future__ import annotations
 
@@ -25,17 +31,35 @@ __all__ = ["scope_from_numpy"]
 
 
 def scope_from_numpy(arrays: Dict[str, np.ndarray], scope, place,
-                     programs: Optional[Iterable] = None):
+                     programs: Optional[Iterable] = None, mesh=None,
+                     rules=None, rank: Optional[int] = None):
     """Plant ``arrays`` (name -> array) in ``scope`` as tensors on
     ``place``. A var declared in one of ``programs`` gets its declared
-    dtype; others keep the array's dtype. Returns ``scope``."""
+    dtype; others keep the array's dtype. With a ``mesh`` and ``rules``
+    (``parallel.sharding.ShardingRules``), a var the rules shard over
+    ``programs`` is cut to the shard of ``rank``'s coordinates (default:
+    this process's rank). Returns ``scope``."""
+    programs = list(programs or ())
     declared = {}
-    for prog in programs or ():
+    for prog in programs:
         for blk in prog.blocks:
             for name, var in blk.vars.items():
                 declared.setdefault(name, var.dtype)
+    specs = {}
+    if mesh is not None and rules is not None:
+        from .parallel.sharding import extract_param_specs
+
+        for prog in programs:
+            specs.update(extract_param_specs(prog, mesh.shape,
+                                             rules=rules)[0])
     device = place.torch_device()
     for name, arr in arrays.items():
+        spec = specs.get(name)
+        if spec and any(a not in (None, "dp") for a in spec):
+            from .parallel.sharding import shard_of
+
+            arr = shard_of(np.asarray(arr), tuple(
+                a if a != "dp" else None for a in spec), mesh, rank)
         t = torch.from_numpy(np.array(arr, copy=True))
         dt = torch_dtype(declared[name]) if name in declared else t.dtype
         scope.set_var(name, t.to(device=device, dtype=dt))

@@ -37,6 +37,12 @@ class LayerHelper:
     def bias_attr(self):
         return ParamAttr._to_attr(self.kwargs.get("bias_attr"))
 
+    def multiple_param_attr(self, length: int):
+        pa = self.param_attr
+        if isinstance(pa, ParamAttr):
+            pa = [pa] * length
+        return pa
+
     def create_parameter(self, attr, shape, dtype, is_bias: bool = False,
                          default_initializer=None):
         attr = attr if isinstance(attr, ParamAttr) \
@@ -64,6 +70,9 @@ class LayerHelper:
         return self.block.create_var(
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
+
+    # reference alias
+    create_tmp_variable = create_variable_for_type_inference
 
     def create_global_variable(self, shape, dtype, persistable=False,
                                stop_gradient=True, name=None):

@@ -8,7 +8,7 @@ __all__ = ["data"]
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
-         stop_gradient=True):
+         stop_gradient=True, type=None):
     """Declare an input variable. With append_batch_size, a -1 batch dim
     is prepended; shapes with an explicit -1 are taken as they are.
 
@@ -17,7 +17,7 @@ def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
     time dim (``[-1, -1] + shape``), and its per-sequence lengths arrive
     in the int32 ``[-1]`` companion data var ``<name>@LOD`` (fed by the
     ``DataFeeder`` or by hand, read by the sequence ops' ``SeqLen``
-    slots)."""
+    slots). ``type`` is accepted and not read, as in the JAX package."""
     shape = list(shape)
     if append_batch_size:
         if any(s == -1 for s in shape):

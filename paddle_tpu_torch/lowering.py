@@ -95,7 +95,7 @@ class LowerCtx:
 
     def __init__(self, device=None, seed: Optional[int] = None,
                  uid: int = 0, gemm_blocks=None, program=None,
-                 nan_checks=None, num_taps=None):
+                 nan_checks=None, num_taps=None, mesh=None):
         self.device = torch.device(device) if device is not None else _META
         self.seed = seed
         self.uid = uid
@@ -112,10 +112,15 @@ class LowerCtx:
         # the data-parallel step's context (parallel.compiled_program.
         # DPContext): set only inside a parallel step over several ranks
         self.dp = None
+        # the parallel step's mesh (parallel.sharding.Mesh), as the JAX
+        # package's ctx.mesh: an op rule reads its axis from it (the ring
+        # attention's 'sp'); None outside a parallel step
+        self.mesh = mesh
 
     def with_uid(self, uid: int) -> "LowerCtx":
         ctx = LowerCtx(self.device, self.seed, uid, self.gemm_blocks,
-                       self.program, self.nan_checks, self.num_taps)
+                       self.program, self.nan_checks, self.num_taps,
+                       self.mesh)
         ctx.dp = self.dp
         return ctx
 

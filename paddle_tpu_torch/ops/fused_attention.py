@@ -11,6 +11,12 @@ shape a kernel refuses raises.
 Attention dropout draws its int32 seed from the op's generator, keyed on
 (step seed, op uid) like every random op, so the generic grad op's
 recompute and the backward kernels regenerate the forward's mask.
+
+``sequence_parallel=True`` inside a parallel step whose mesh has an
+``sp`` axis of more than one rank runs ring attention over it
+(``parallel/ring_attention.py``: one K1 call a block, K3/K4 through its
+backward), refusing ``BiasQK`` and ``attn_dropout > 0`` as the JAX
+package does; with no such axis it is plain attention.
 """
 from __future__ import annotations
 
@@ -44,10 +50,26 @@ def _fused_mha(ctx, ins, attrs):
     Sk = k.shape[2]
     scale = attrs["scale"] or float(D) ** -0.5
     dropout = 0.0 if attrs.get("is_test") else float(attrs["attn_dropout"])
-    if attrs.get("sequence_parallel"):
-        raise NotImplementedError(
-            "sequence-parallel (ring) attention waits for the port's "
-            "multi-device slice")
+    causal = bool(attrs["causal"])
+    mesh = getattr(ctx, "mesh", None)
+    if attrs.get("sequence_parallel") and mesh is not None \
+            and mesh.shape.get("sp", 1) > 1:
+        if bias is not None:
+            raise NotImplementedError(
+                "sequence_parallel attention with BiasQK: fold padding "
+                "into the sequence instead — the ring path has no "
+                "global [B, S] bias plumbing yet")
+        if dropout > 0.0:
+            raise NotImplementedError(
+                "sequence_parallel attention with attn_dropout>0: the "
+                "ring path's per-block kernels do not coordinate a "
+                "global dropout mask")
+        from ..parallel.ring_attention import ring_attention
+
+        o = ring_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), mesh, seq_axis="sp",
+                           causal=causal, scale=scale)
+        return {"Out": [o.transpose(1, 2)]}
     if bias is not None:
         if bias.dim() == 4:
             bias = bias.reshape(bias.shape[0], bias.shape[-1])
@@ -64,6 +86,6 @@ def _fused_mha(ctx, ins, attrs):
         else flash_attention_with_lse
     o, _ = fn(q.reshape(B * H, Sq, D), k.reshape(B * H, Sk, D),
               v.reshape(B * H, Sk, D), bias=bias,
-              causal=bool(attrs["causal"]), scale=scale, num_heads=H,
+              causal=causal, scale=scale, num_heads=H,
               dropout_rate=dropout, seed=seed)
     return {"Out": [o.reshape(B, H, Sq, D)]}

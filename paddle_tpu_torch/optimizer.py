@@ -138,8 +138,8 @@ class Optimizer:
 
     # -- public API ------------------------------------------------------
     def backward(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None):
-        return append_backward(loss, parameter_list, no_grad_set)
+                 no_grad_set=None, callbacks=None):
+        return append_backward(loss, parameter_list, no_grad_set, callbacks)
 
     def apply_gradients(self, params_grads):
         program = params_grads[0][0].block.program
@@ -155,6 +155,9 @@ class Optimizer:
                             for pg in params_grads]
             self._finish_update(block, params_grads)
         return optimize_ops
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self.apply_gradients(params_grads)
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):

@@ -1,54 +1,78 @@
-"""CompiledProgram: data-parallel training over the launched ranks.
+"""CompiledProgram: parallel training over the launched ranks.
 
 Counterpart of ``paddle_tpu/parallel/compiled_program.py`` (reference
 python/paddle/fluid/compiler.py:65 CompiledProgram / :143
 with_data_parallel). The JAX package jits one program over a device mesh
 and GSPMD partitions it, so every op computes over the GLOBAL batch and
 fetches come back replicated. The port runs one process per card
-(``distributed.launch``): each rank feeds its slice of the global batch
-and runs the program on it through the executor's own step
-(``Executor._run_body``, path ``parallel``), and the plan below
-(``_DPPlan``, kept on the executor's step record) places the collectives
-that make the result the global-batch one. The nan check, the numerics
+(``distributed.launch``) on a mesh of ``dp``, ``tp`` and ``sp`` axes
+(``parallel.sharding.Mesh``): each rank feeds the slice of the global
+batch its ``dp`` coordinate names, holds its shard of every var the
+sharding rules split over ``tp``, and runs the program on local shapes
+through the executor's own step (``Executor._run_body``, path
+``parallel``); the plan below (``_DPPlan``, kept on the executor's step
+record) places the collectives that make the result the global one, each
+on the process group of the axis it is over. The nan check, the numerics
 witness, the spans, the fault sites and the release plan are the
 executor's.
 
 Where the collectives go is read from ``analysis.sharding_check`` (the
-all-reduce events it derives from spec transitions, with the AllReduce
-layout of ``parallel.sharding.zero1_spec_for``):
+events it derives from spec transitions, with the layout of
+``parallel.sharding``'s rules and ``zero1_spec_for``):
 
 * a forward-role op that reduces over the batch (``reduce_sum``,
   ``reduce_mean``, ``mean``, ``accuracy``) makes a dp-partial value: the
-  step all-reduces its output (summed, or averaged for a mean), so the
-  loss is the global one; the grad op of a mean then scales its input
-  gradient by 1/ranks, so each rank's gradient is its rows' share of the
-  global loss's. ``batch_norm`` in training takes its statistics over the
-  global batch inside the op (``LowerCtx.dp``: an all-reduce whose
-  backward all-reduces the partial cotangent), so its generic grad, which
-  reruns the forward under autograd, reruns the collective too.
+  step all-reduces its output over ``dp`` (summed, or averaged for a
+  mean), so the loss is the global one; the grad op of a mean then scales
+  its input gradient by 1/dp, so each rank's gradient is its rows' share
+  of the global loss's. ``batch_norm`` in training takes its statistics
+  over the global batch inside the op (``LowerCtx.dp``: an all-reduce
+  whose backward all-reduces the partial cotangent), so its generic grad,
+  which reruns the forward under autograd, reruns the collective too.
   ``layer_norm``'s per-row statistics need nothing. Any other batch
   coupling raises, naming the op and the var: it never runs per rank.
-* the parameter gradients the analysis marks partial are summed across
-  ranks after the last backward op, bucketed by dtype in the program's
-  order of the gradients (one collective a dtype, so a run repeats bit for
-  bit); then the update runs.
+* an output the analysis marks partial over a model axis (a row-parallel
+  product, a vocab-sharded lookup, the input gradient of a
+  column-parallel product) is all-reduced over that axis right after its
+  op, so a row-parallel bias (a separate op) is added once; an input it
+  marks gathered over a model axis (logits sharded over the vocabulary
+  before the softmax) is all-gathered along its sharded dim for the op;
+  an output the op makes whole where the analysis keeps it sharded (the
+  gradient of gathered logits) is cut back to this rank's shard.
+* each op runs on local shapes: a reshape whose ``shape`` attr names a
+  sharded dim's global size (``split_heads``' head count) gets the
+  local size; a lookup into a vocab-sharded table reads its own rows
+  (ids shifted to the shard, other ids give zero rows and no gradient).
+* the parameter gradients the analysis marks dp-partial are summed
+  across ``dp`` after the last backward op, bucketed by dtype in the
+  program's order of the gradients (one collective a dtype, so a run
+  repeats bit for bit); then the update runs on each rank's shards.
 
-``ReduceStrategy.Reduce`` (ZeRO-1): each optimizer-state var that
-``zero1_spec_for`` row-shards is cut to this rank's rows in the scope at
-its first step; an update op then runs on this rank's rows of its Param
-and Grad, and the fresh param is all-gathered. Update ops that reduce over
-a whole parameter (``lamb``, ``lars_momentum``, ``dpsgd``) raise under
-ZeRO-1; gradient clipping runs on the whole summed gradients before the
-update, so a global norm is the unsharded one. A fetched value the
-analysis keeps batch-sharded is gathered along dim 0 in rank order. Rank
-r folds r into its step seed, so ranks draw different dropout masks for
-their rows.
+A sharded var the scope holds whole (the startup run, a restored
+checkpoint, ``interop.scope_from_numpy``) is cut to this rank's shard at
+its first step; the optimizer state of a sharded param follows its param
+(``parallel.sharding.state_follows_param``).
+
+``ReduceStrategy.Reduce`` (ZeRO-1, over ``dp``): each optimizer-state
+var whose local rows ``dp`` divides is cut to this rank's rows at its
+first step; an update op then runs on this rank's rows of its Param and
+Grad, and the fresh param is all-gathered over ``dp``. Update ops that
+reduce over a whole parameter (``lamb``, ``lars_momentum``, ``dpsgd``)
+raise under ZeRO-1; gradient clipping runs on the whole summed gradients
+before the update, so a global norm is the unsharded one. A fetched value
+that is batch- or model-sharded is gathered in coordinate order.
+
+Dropout: a rank folds only its ``dp`` coordinate into the step seed, so
+the ranks of one ``tp`` or ``sp`` group, which hold the same replicated
+activations, draw the same masks, and ``dp`` ranks draw different masks
+for their rows.
 
 The collective backend is ``distributed.collective_backend``'s; every
 rank must feed the same number of rows (checked at a key's first step).
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -58,7 +82,8 @@ from .. import distributed as _dist
 from .. import monitor as _monitor
 from ..framework import OpRole, Program, Variable
 from ..lowering import EMPTY_VAR_NAME, LowerCtx, _op_site, lower_op
-from .sharding import Mesh, check_data_parallel, zero1_spec_for
+from .sharding import (Mesh, check_mesh, extract_param_specs, local_shape,
+                       shard_of, zero1_spec_for)
 
 __all__ = ["CompiledProgram", "BuildStrategy", "ExecutionStrategy",
            "data_parallel_mesh"]
@@ -98,20 +123,22 @@ LAUNCHER_HINT = ("launch one process per card with "
                  "--nproc_per_node N script.py`")
 
 RESCALE_REFUSAL = ("elastic re-forming of the process group across ranks "
-                   "is ROADMAP Queue A item 6 (slice 25)")
+                   "is ROADMAP Queue A item 6 (slice 27)")
 
 
 def data_parallel_mesh(places=None) -> Mesh:
     """A ``{'dp': world}`` mesh over the launched ranks. ``places``: None,
-    one place (this rank's), or a ready :class:`Mesh`; several places in
-    one process raise (one process drives one card)."""
+    one place (this rank's), or a ready :class:`Mesh` of ``dp``, ``tp``
+    and ``sp`` axes over every launched rank; several places in one
+    process raise (one process drives one card)."""
     world = _dist.get_world_size()
     if isinstance(places, Mesh):
-        check_data_parallel(places)
-        if places.shape.get("dp", 1) not in (1, world):
+        check_mesh(places)
+        if places.size not in (1, world):
             raise ValueError(
-                f"with_data_parallel: mesh {places.shape} but {world} "
-                f"rank(s) launched; {LAUNCHER_HINT}")
+                f"with_data_parallel: mesh {places.shape} holds "
+                f"{places.size} ranks but {world} rank(s) launched; "
+                f"{LAUNCHER_HINT}")
         return places
     if places is not None and not hasattr(places, "torch_device"):
         places = list(places)
@@ -124,28 +151,31 @@ def data_parallel_mesh(places=None) -> Mesh:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks; the backward sums the cotangent too, for a
-    value consumed by batch-sharded rows (each rank's cotangent is the
+    """Sum over the ``dp`` ranks; the backward sums the cotangent too, for
+    a value consumed by batch-sharded rows (each rank's cotangent is the
     partial from its own rows)."""
 
     @staticmethod
-    def forward(ctx, t):
-        return _dist._all_reduce(t.detach().clone())
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _dist._all_reduce(t.detach().clone(), group=group)
 
     @staticmethod
     def backward(ctx, g):
-        return _dist._all_reduce(g.detach().clone().contiguous())
+        return _dist._all_reduce(g.detach().clone().contiguous(),
+                                 group=ctx.group), None
 
 
 class DPContext:
     """What an op rule sees of the data-parallel step (``LowerCtx.dp``):
-    the rank count and an autograd-aware sum over the ranks."""
+    the ``dp`` rank count and an autograd-aware sum over those ranks."""
 
-    def __init__(self, world: int):
+    def __init__(self, world: int, group=None):
         self.world = int(world)
+        self.group = group
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        return _AllReduceSum.apply(t)
+        return _AllReduceSum.apply(t, self.group)
 
 
 # forward ops whose batch reduction the step places, by output slot:
@@ -183,29 +213,61 @@ def _is_update(op) -> bool:
 
 
 
-class _DPPlan:
-    """Where one program's collectives go (see the module docstring),
-    from the sharding analysis over ``{'dp': world}``. The executor runs
-    the step (``Executor._run_ops`` hands each op to :meth:`run_op`); the
-    plan is part of its step record (``_Step.dp``)."""
+_RESHAPES = frozenset({"reshape2", "reshape", "reshape2_grad",
+                       "reshape_grad"})
+_LOOKUPS = frozenset({"lookup_table", "lookup_table_grad"})
 
-    def __init__(self, program: Program, world: int, feed_names,
-                 fetch_names, batch: int, zero1: bool):
+
+def _model_axes(spec) -> list:
+    return [(d, a) for d, a in enumerate(spec or ()) if a is not None
+            and a != "dp"]
+
+
+class _DPPlan:
+    """Where one program's collectives go over the mesh (see the module
+    docstring), from the sharding analysis over the mesh with the rules'
+    layout. The executor runs the step (``Executor._run_ops`` hands each
+    op to :meth:`run_op`); the plan is part of its step record
+    (``_Step.dp``)."""
+
+    def __init__(self, program: Program, mesh, feed_names, fetch_names,
+                 batch: int, zero1: bool, rules=None):
+        """``mesh``: a :class:`Mesh`, or the rank count of a ``dp``-only
+        one; ``rules``: the ``ShardingRules`` over its model axes."""
         from ..analysis.sharding_check import propagate_sharding
 
+        if not isinstance(mesh, Mesh):
+            mesh = Mesh({"dp": int(mesh)})
         blk = program.global_block
         ops = blk.ops
-        self.world = world
-        self.rank = _dist.get_rank() if _dist.is_initialized() else 0
+        self.mesh = mesh
+        rank = _dist.get_rank() if _dist.is_initialized() else 0
+        self.rank = rank
+        # the dp axis: its rank count (``world``: the batch's ranks) and
+        # this rank's coordinate on it
+        self.world = mesh.shape.get("dp", 1)
+        self.dp_rank = mesh.coord("dp", rank)
+        self.groups = {a: _dist.axis_group(mesh, a)
+                       for a in mesh.axis_names if mesh.shape[a] > 1}
+        self.dp_group = self.groups.get("dp", (None, [rank]))[0]
         # what an op rule sees of the step (LowerCtx.dp)
-        self.ctx = DPContext(world) if world > 1 else None
+        self.ctx = DPContext(self.world, self.dp_group) \
+            if self.world > 1 else None
         # every rank feeds the same rows: checked at the key's first step
         self.checked = False
+        param_specs, feed_spec = extract_param_specs(
+            program, mesh.shape, rules=rules)
         analysis = propagate_sharding(
-            program, {"dp": world}, param_specs={}, feed_spec=("dp",),
-            feed_names=list(feed_names), fetch_names=list(fetch_names),
-            batch_size=batch * world)
+            program, mesh.shape, param_specs=param_specs,
+            feed_spec=feed_spec, feed_names=list(feed_names),
+            fetch_names=list(fetch_names), batch_size=batch * self.world)
         self.analysis = analysis
+        specs = analysis.var_specs
+        # the state sharded over a model axis, read by this block: cut
+        # from whole values at the first step
+        read = {n for op in ops for n in op.input_arg_names}
+        self.state_specs = {n: sp for n, sp in analysis.param_specs.items()
+                            if _model_axes(sp) and n in read}
         roles = [op.attrs.get("__op_role__", OpRole.Forward) for op in ops]
         backward = [i for i, r in enumerate(roles) if r == OpRole.Backward]
         # the parameter gradients are summed right after this op
@@ -213,13 +275,36 @@ class _DPPlan:
         params = {p.name for p in program.all_parameters()}
         self.forward: Dict[int, List[tuple]] = {}
         self.grad_scale: Dict[int, float] = {}
+        # op -> [(var, axis)]: summed over a model axis after the op,
+        # gathered over one before it
+        self.partial: Dict[int, List[tuple]] = {}
+        self.gathers: Dict[int, List[tuple]] = {}
         partial_pieces: Dict[str, set] = {}
         mean_uids = set()
         for ev in analysis.collectives:
-            if ev.kind != "all_reduce" or ev.block_idx != 0:
+            if ev.block_idx != 0:
                 continue
             op = ops[ev.op_idx]
             role = roles[ev.op_idx]
+            if role not in (OpRole.Forward, OpRole.Backward):
+                continue
+            model = [a for a in ev.axis.split(",") if a != "dp"]
+            if ev.kind == "reshard" and model:
+                raise NotImplementedError(
+                    f"parallel step: op '{op.type}'{_op_site(op)} needs "
+                    f"'{ev.var}' resharded over {model} ({ev.reason}); the "
+                    f"step places no reshard")
+            if ev.kind == "all_gather" and model \
+                    and ev.var in op.input_arg_names:
+                self.gathers.setdefault(ev.op_idx, []).extend(
+                    (ev.var, a) for a in model)
+                continue
+            if ev.kind != "all_reduce":
+                continue
+            if model:
+                self.partial.setdefault(ev.op_idx, []).append(
+                    (ev.var, model[0]))
+                continue
             if role == OpRole.Backward:
                 p = ev.var.split("@GRAD")[0]
                 if "@GRAD" in ev.var and p in params:
@@ -230,8 +315,6 @@ class _DPPlan:
                     f"makes '{ev.var}' a partial sum over the ranks' "
                     f"rows, and it is not a parameter gradient: a batch "
                     f"coupling the parallel step cannot place")
-            if role != OpRole.Forward:
-                continue
             slot = next((s for s, ns in op.outputs.items()
                          if ev.var in ns), None)
             if slot in _IN_OP.get(op.type, ()):
@@ -254,9 +337,17 @@ class _DPPlan:
                         f"{_op_site(op)} over the global batch is not "
                         f"placed by the parallel step")
         for i, op in enumerate(ops):
-            if world > 1 and roles[i] == OpRole.Backward and op.attrs.get(
-                    "__fwd_uid__") in mean_uids:
-                self.grad_scale[i] = 1.0 / world
+            if self.world > 1 and roles[i] == OpRole.Backward and \
+                    op.attrs.get("__fwd_uid__") in mean_uids:
+                self.grad_scale[i] = 1.0 / self.world
+        # ops run on local shapes: reshapes get local shape attrs, lookups
+        # into a vocab-sharded table their shard's rows; outputs an op
+        # makes whole where the analysis keeps them sharded are cut back
+        self.local_ops: Dict[int, object] = {}
+        self.lookups: Dict[int, tuple] = {}
+        self.conform: Dict[int, List[tuple]] = {}
+        for i, op in enumerate(ops):
+            self._localize(i, op, blk, specs)
         # the parameter gradients: the backward's final `<param>@GRAD`, in
         # the order the backward writes them
         order: Dict[str, int] = {}
@@ -283,13 +374,18 @@ class _DPPlan:
                     f"replicated ones ({sorted(pieces[p] - part)}): the "
                     f"parallel step cannot sum them across ranks")
             self.grads.append(p + "@GRAD")
-        # ZeRO-1: the optimizer state this rank holds the rows of
+        # ZeRO-1: the optimizer state this rank holds the rows of (rows
+        # of its local shard under a model axis)
         self.zero_state: Dict[str, int] = {}
         self.zero_updates: List[int] = []
-        if zero1 and world > 1:
+        if zero1 and self.world > 1:
             for v in blk.vars.values():
-                if v.persistable and zero1_spec_for(v, world, True):
-                    self.zero_state[v.name] = int(v.shape[0])
+                if not v.persistable or not v.shape:
+                    continue
+                local = local_shape(v.shape, self.state_specs.get(v.name),
+                                    mesh.shape)
+                if zero1_spec_for(_Shaped(v, local), self.world, True):
+                    self.zero_state[v.name] = int(local[0])
             for i, op in enumerate(ops):
                 touched = [n for n in op.input_arg_names
                            if n in self.zero_state]
@@ -309,29 +405,119 @@ class _DPPlan:
                         f"AllReduce for {op.type}")
                 self.zero_updates.append(i)
         self._zero_at = frozenset(self.zero_updates)
-        # fetches the analysis keeps batch-sharded: gathered in rank order
-        self.gather = {n for n in fetch_names
-                       if (analysis.var_specs.get(n) or (None,))[0] == "dp"
-                       or n in self.zero_state}
+        # fetches held sharded: gathered in coordinate order (dp rows,
+        # then each model axis along its dim)
+        self.fetch_specs = {}
+        for n in fetch_names:
+            sp = list(self.state_specs.get(n) or specs.get(n) or ())
+            if n in self.zero_state or (sp and sp[0] == "dp"):
+                sp = ["dp"] + sp[1:] if sp else ["dp"]
+            if any(a is not None and mesh.shape.get(a, 1) > 1 for a in sp):
+                self.fetch_specs[n] = tuple(sp)
+        self.gather = set(self.fetch_specs)
+
+    def _localize(self, i, op, blk, specs) -> None:
+        """Op ``i``'s local form (see ``run_op``)."""
+        mesh = self.mesh.shape
+        if op.type in _RESHAPES:
+            out = (op.input("__out__Out") if op.type.endswith("_grad")
+                   else op.output("Out"))
+            sp = specs.get(out[0]) if out else None
+            shape = list(op.attrs.get("shape") or ())
+            changed = False
+            for d, a in _model_axes(sp):
+                if d < len(shape) and shape[d] > 0 and mesh.get(a, 1) > 1:
+                    shape[d] //= mesh[a]
+                    changed = True
+            if changed:
+                local = copy.copy(op)
+                local.attrs = dict(op.attrs, shape=shape)
+                self.local_ops[i] = local
+        if op.type in _LOOKUPS:
+            w = op.input("W")[0]
+            sp = self.state_specs.get(w) or specs.get(w) or ()
+            if sp and sp[0] is not None and sp[0] != "dp" \
+                    and mesh.get(sp[0], 1) > 1:
+                if op.attrs.get("is_sparse") or \
+                        op.attrs.get("is_distributed"):
+                    raise NotImplementedError(
+                        f"parallel step: a sparse lookup into '{w}', "
+                        f"sharded over '{sp[0]}'{_op_site(op)}: row-sharded "
+                        f"sparse tables are ROADMAP Queue A item 6, "
+                        f"slice 27")
+                rows = int(blk._var_recursive(w).shape[0]) // mesh[sp[0]]
+                off = self.mesh.coord(sp[0], self.rank) * rows
+                pad = op.attrs.get("padding_idx", -1)
+                if pad is not None and pad != -1:
+                    local = copy.copy(self.local_ops.get(i, op))
+                    local.attrs = dict(local.attrs, padding_idx=(
+                        pad - off if off <= pad < off + rows else -1))
+                    self.local_ops[i] = local
+                self.lookups[i] = (op.input("Ids")[0], off, rows)
+        for n in op.output_arg_names:
+            sp = specs.get(n)
+            if n == EMPTY_VAR_NAME or not _model_axes(sp):
+                continue
+            try:
+                shape = blk._var_recursive(n).shape or ()
+            except KeyError:
+                continue
+            for d, a in _model_axes(sp):
+                if d < len(shape) and shape[d] > 0 and mesh.get(a, 1) > 1:
+                    self.conform.setdefault(i, []).append(
+                        (n, d, a, int(shape[d])))
 
     # -- the executor's hooks ----------------------------------------------
     def fold_seed(self, seed: int) -> int:
-        """Rank r folds r into its step seed: the ranks draw different
-        dropout masks for their rows."""
-        return (seed + self.rank * 0x9E3779B1) & 0x7FFFFFFF
+        """A rank folds its ``dp`` coordinate into its step seed: the dp
+        ranks draw different dropout masks for their rows, the ranks of a
+        ``tp`` or ``sp`` group the same ones."""
+        return (seed + self.dp_rank * 0x9E3779B1) & 0x7FFFFFFF
 
     def run_op(self, i, op, env, ctx) -> None:
         """Op ``i`` of the step with its collectives: a ZeRO-1 update on
-        this rank's rows, a forward batch reduction made global, a mean's
-        grad scaled by 1/ranks, and after the last backward op the
-        parameter gradients summed."""
+        this rank's rows; inputs gathered over a model axis, a local
+        reshape or vocab-shard lookup; outputs summed over a model axis or
+        cut to this rank's shard; a forward batch reduction made global, a
+        mean's grad scaled by 1/dp, and after the last backward op the
+        parameter gradients summed over dp."""
+        run = self.local_ops.get(i, op)
         if i in self._zero_at:
-            self._zero_update(op, env, ctx)
+            self._zero_update(run, env, ctx)
+        elif i in self.gathers or i in self.lookups:
+            local = dict(env)
+            for var, a in self.gathers.get(i, ()):
+                d = [dd for dd, aa in _model_axes(
+                    self.analysis.var_specs.get(var)) if aa == a][0]
+                local[var] = _dist._all_gather(env[var].contiguous(),
+                                               self.groups[a][0], dim=d)
+            mask = self._shift_ids(i, run, local)
+            lower_op(run, local, ctx)
+            for n in op.output_arg_names:
+                if n in local and n != EMPTY_VAR_NAME:
+                    env[n] = local[n]
+            if mask is not None and run.type == "lookup_table":
+                o = run.output("Out")[0]
+                env[o] = torch.where(mask.reshape(
+                    env[o].shape[:-1] + (1,)), env[o],
+                    torch.zeros((), dtype=env[o].dtype,
+                                device=env[o].device))
         else:
-            lower_op(op, env, ctx)
+            lower_op(run, env, ctx)
+        for var, a in self.partial.get(i, ()):
+            env[var] = _dist._all_reduce(env[var].contiguous().clone(),
+                                         group=self.groups[a][0])
+        for n, d, a, size in self.conform.get(i, ()):
+            v = env.get(n)
+            if isinstance(v, torch.Tensor) and v.dim() > d \
+                    and v.shape[d] == size:
+                k = size // self.mesh.shape[a]
+                c = self.mesh.coord(a, self.rank)
+                env[n] = v.narrow(d, c * k, k).contiguous()
         for var, kind in self.forward.get(i, ()):
             out = _dist._all_reduce(env[var].clone(),
-                                    "sum" if kind == "mean" else kind)
+                                    "sum" if kind == "mean" else kind,
+                                    group=self.dp_group)
             env[var] = out / self.world if kind == "mean" else out
         scale = self.grad_scale.get(i)
         if scale is not None:
@@ -342,9 +528,41 @@ class _DPPlan:
         if i == self.bucket_after:
             self._sum_grads(env)
 
+    def _shift_ids(self, i, op, local):
+        """A vocab-shard lookup (or its grad): the ids moved onto this
+        shard's rows (others to row 0) and, for the grad, their output
+        gradient rows zeroed; returns the in-shard mask."""
+        if i not in self.lookups:
+            return None
+        ids_name, off, rows = self.lookups[i]
+        ids = local[ids_name]
+        inside = (ids >= off) & (ids < off + rows)
+        local[ids_name] = torch.where(inside, ids - off,
+                                      torch.zeros_like(ids))
+        if op.type == "lookup_table_grad":
+            g = op.input("Out@GRAD")[0]
+            flat = inside.reshape(-1)
+            gv = local[g]
+            local[g] = torch.where(
+                flat.reshape(gv.shape[:-1] + (1,))
+                if flat.numel() == gv[..., 0].numel() else flat,
+                gv, torch.zeros((), dtype=gv.dtype, device=gv.device))
+        if inside.dim() >= 2 and inside.shape[-1] == 1:
+            inside = inside.squeeze(-1)
+        return inside
+
     def gathered(self, names, fetches) -> list:
-        return [_dist._all_gather(f) if n in self.gather else f
-                for n, f in zip(names, fetches)]
+        out = []
+        for n, f in zip(names, fetches):
+            spec = self.fetch_specs.get(n)
+            if spec is not None and isinstance(f, torch.Tensor):
+                if spec[0] == "dp" and self.world > 1:
+                    f = _dist._all_gather(f, self.dp_group)
+                for d, a in _model_axes(spec):
+                    if self.mesh.shape.get(a, 1) > 1:
+                        f = _dist._all_gather(f, self.groups[a][0], dim=d)
+            out.append(f)
+        return out
 
     def add_ranks_check(self, checks, device) -> None:
         """``FLAGS_check_nan_inf`` over the ranks: one more check,
@@ -361,7 +579,7 @@ class _DPPlan:
         checks.append(("another rank's step", (verdict, verdict)))
 
     def _sum_grads(self, env) -> None:
-        """The parameter gradients summed over the ranks: one flat
+        """The parameter gradients summed over the dp ranks: one flat
         all-reduce a dtype, in the order the backward wrote them."""
         if self.world <= 1 or not self.grads:
             return
@@ -371,11 +589,11 @@ class _DPPlan:
                 raise NotImplementedError(
                     f"data parallel: '{g}' is a sparse gradient; sum it "
                     f"densely (is_sparse=False) or shard the table "
-                    f"(ROADMAP Queue A item 6, slice 25)")
+                    f"(ROADMAP Queue A item 6, slice 27)")
         for dt in dict.fromkeys(env[g].dtype for g in live):
             group = [g for g in live if env[g].dtype == dt]
             flat = torch.cat([env[g].reshape(-1) for g in group])
-            _dist._all_reduce(flat)
+            _dist._all_reduce(flat, group=self.dp_group)
             off = 0
             for g in group:
                 n = env[g].numel()
@@ -384,7 +602,8 @@ class _DPPlan:
 
     def _zero_update(self, op, env, ctx) -> None:
         """One update op on this rank's rows: Param and Grad cut to the
-        rows of the sharded state, the fresh param all-gathered."""
+        rows of the sharded state, the fresh param all-gathered over
+        dp."""
         param = op.input("Param")[0]
         local = dict(env)
         for n in (param, op.input("Grad")[0]):
@@ -393,13 +612,23 @@ class _DPPlan:
                 raise NotImplementedError(
                     f"ZeRO-1: '{n}' of '{op.type}' is not a dense tensor")
             k = v.shape[0] // self.world
-            local[n] = v[self.rank * k:(self.rank + 1) * k]
+            local[n] = v[self.dp_rank * k:(self.dp_rank + 1) * k]
         lower_op(op, local, ctx)
         for n in op.output_arg_names:
             if n == EMPTY_VAR_NAME:
                 continue
-            env[n] = _dist._all_gather(local[n]) if n == param \
-                else local[n]
+            env[n] = _dist._all_gather(local[n], self.dp_group) \
+                if n == param else local[n]
+
+
+class _Shaped:
+    """A var's metadata with another shape (its local shard's), for
+    ``zero1_spec_for``."""
+
+    def __init__(self, v, shape):
+        self.shape = tuple(shape)
+        self.is_distributed = getattr(v, "is_distributed", False)
+        self.is_optimizer_state = getattr(v, "is_optimizer_state", False)
 
 
 class CompiledProgram:
@@ -410,6 +639,10 @@ class CompiledProgram:
         self._exec_strategy = ExecutionStrategy()
         self._loss_name: Optional[str] = None
         self._mesh: Optional[Mesh] = None
+        # the sharding rules over the mesh's model axes
+        # (``parallel.sharding.compile_sharded_step``); None: every param
+        # replicated
+        self._rules = None
         self._is_data_parallel = False
         # part of the executor's key for this program's steps: rescale
         # moves it on, so the next step re-plans as a new key
@@ -437,17 +670,16 @@ class CompiledProgram:
         return self
 
     def rescale(self, places) -> "CompiledProgram":
-        """Elastic recovery: the same world drops every step (the next
+        """Elastic recovery: the same mesh drops every step (the next
         one re-plans as a new executor key) and the replica-check
-        counter; another world size raises (re-forming the process
-        group)."""
-        old = (self._mesh.shape.get("dp", 1) if self._mesh
-               else _dist.get_world_size())
-        new = (places.shape.get("dp", 1) if isinstance(places, Mesh)
-               else _dist.get_world_size())
+        counter; another mesh raises (re-forming the process group)."""
+        old = (dict(self._mesh.shape) if self._mesh
+               else {"dp": _dist.get_world_size()})
+        new = (dict(places.shape) if isinstance(places, Mesh)
+               else {"dp": _dist.get_world_size()})
         if new != old:
             raise NotImplementedError(
-                f"CompiledProgram.rescale from dp={old} to dp={new}: "
+                f"CompiledProgram.rescale from {old} to {new}: "
                 f"{RESCALE_REFUSAL}")
         mesh = data_parallel_mesh(places)
         with self._cache_lock:
@@ -490,9 +722,11 @@ class CompiledProgram:
 
     def _key(self) -> tuple:
         """What the executor's key adds for this program's steps."""
+        rules = None if self._rules is None else tuple(
+            (pat.pattern, spec) for pat, spec in self._rules.param_rules)
         with self._cache_lock:
             return ("parallel", self._generation, self._zero1(),
-                    self._mesh.size)
+                    tuple(self._mesh.shape.items()), rules)
 
     def _plan(self, program, feed, names) -> _DPPlan:
         """A new key's plan (the executor calls this at the key's compile
@@ -505,8 +739,8 @@ class CompiledProgram:
                 "(GradientMergeOptimizer/PipelineOptimizer): the "
                 "microbatch loop does not place the parallel step's "
                 "collectives; use one or the other")
-        plan = _DPPlan(program, self._mesh.shape.get("dp", 1), sorted(feed),
-                       names, _feed_batch_rows(feed), self._zero1())
+        plan = _DPPlan(program, self._mesh, sorted(feed), names,
+                       _feed_batch_rows(feed), self._zero1(), self._rules)
         self._observe_static_sharding(program, names, feed)
         return plan
 
@@ -523,7 +757,35 @@ class CompiledProgram:
                     f"({[e.tolist() for e in every]}); every rank feeds an "
                     f"equal slice of the global batch")
             plan.checked = True
+        self._shard_model_state(exe, step.program, plan, scope)
         self._shard_zero_state(exe, step.program, plan, scope)
+
+    def _shard_model_state(self, exe, program, plan, scope) -> None:
+        """Cut each var sharded over a model axis that the scope holds
+        whole to this rank's shard, and record the layout on the scope
+        (``scope._mesh_shards``: name -> spec) for the replica check."""
+        if not plan.state_specs:
+            return
+        shards = getattr(scope, "_mesh_shards", None)
+        if shards is None:
+            shards = scope._mesh_shards = {}
+        blk = program.global_block
+        for n, spec in plan.state_specs.items():
+            whole = tuple(blk._var_recursive(n).shape)
+            local = local_shape(whole, spec, self._mesh.shape)
+            v = exe._state(n, program, scope)
+            if n in plan.zero_state and v.shape[0] * plan.world == \
+                    plan.zero_state[n]:
+                continue                # this rank's ZeRO-1 rows of it
+            if tuple(v.shape) == whole and whole != local:
+                scope.set_var(n, shard_of(v, spec, self._mesh,
+                                          plan.rank).clone())
+            elif tuple(v.shape) != local:
+                raise RuntimeError(
+                    f"parallel step: '{n}' holds {tuple(v.shape)} in the "
+                    f"scope; want {whole} (whole) or {local} (this rank's "
+                    f"shard under {spec})")
+            shards[n] = tuple(spec)
 
     def _shard_zero_state(self, exe, program, plan, scope) -> None:
         """Cut each ZeRO-1 state var the scope holds whole (the startup
@@ -532,7 +794,7 @@ class CompiledProgram:
         for the sharded checkpoint and the replica check."""
         if not plan.zero_state:
             return
-        rank, world = plan.rank, plan.world
+        rank, world = plan.dp_rank, plan.world
         shards = getattr(scope, "_dp_shards", None)
         if shards is None:
             shards = scope._dp_shards = {}
@@ -558,7 +820,7 @@ class CompiledProgram:
 
         plan = step.dp
         interval = int(flag("replica_check_interval"))
-        if interval <= 0 or plan.world <= 1:
+        if interval <= 0 or self._mesh.size <= 1:
             return
         with self._cache_lock:
             self._replica_steps += 1
@@ -576,9 +838,14 @@ class CompiledProgram:
             _monitor.counter(
                 "resilience_divergence_checks_total",
                 "cross-replica consistency sweeps run").inc()
-        diverged = _rdist.replica_divergence_check(self._mesh, values)
+        shard_axes = {n: tuple(a for _, a in _model_axes(sp))
+                      for n, sp in plan.state_specs.items()}
+        diverged = _rdist.replica_divergence_check(
+            self._mesh, values, shard_axes=shard_axes)
         if diverged:
-            _rdist.handle_divergence(diverged, path="parallel", axis="dp")
+            _rdist.handle_divergence(diverged, path="parallel", axis=",".join(
+                a for a in self._mesh.axis_names
+                if self._mesh.shape[a] > 1))
 
     def _observe_static_sharding(self, program, fetch_names, feed) -> None:
         """Predicted per-rank collective volume + comms-vs-compute gauges
@@ -590,12 +857,12 @@ class CompiledProgram:
             from ..analysis.cost_model import estimate_comms, estimate_cost
             from ..analysis.sharding_check import propagate_sharding
             from ..executor import _feed_batch_rows
-            from .sharding import extract_param_specs
-
             mesh_shape = dict(self._mesh.shape)
             specs, feed_spec = extract_param_specs(program, mesh_shape,
-                                                   zero=self._zero1())
-            batch = (_feed_batch_rows(feed) or 1) * self._mesh.size
+                                                   zero=self._zero1(),
+                                                   rules=self._rules)
+            batch = (_feed_batch_rows(feed) or 1) * \
+                self._mesh.shape.get("dp", 1)
             analysis = propagate_sharding(
                 program, mesh_shape, param_specs=specs,
                 feed_spec=feed_spec, feed_names=list(feed.keys()),

@@ -3,15 +3,18 @@
 Counterpart of ``paddle_tpu/parallel/sharding.py``. The JAX package
 attaches a ``PartitionSpec`` to each var and lets XLA GSPMD partition one
 jitted step over a device mesh. The port runs one process per card, so a
-:class:`Mesh` here is metadata only: axis names and sizes over the
-launched ranks, with no devices in one process. The specs are the same
-tuples (one mesh-axis name or None per dim): ``zero1_spec_for`` is the
-layout rule ``parallel/compiled_program.py`` runs and
-``analysis.sharding_check`` reasons about, one function for both.
+:class:`Mesh` maps axis names and sizes onto the launched ranks (rank r's
+coordinates are its row-major index over the axes, the last axis varying
+fastest, as ``make_mesh`` lays devices out in the JAX package), and each
+rank holds its own shard of every sharded var. The specs are the same
+tuples (one mesh-axis name or None per dim): ``zero1_spec_for`` and the
+rules' specs are the layout ``parallel/compiled_program.py`` runs and
+``analysis.sharding_check`` reasons about, one source for both.
 
-The port's step is data parallel only: a mesh with a ``tp``, ``sp`` or
-``pp`` axis raises (tensor, sequence and pipeline parallelism are ROADMAP
-Queue A item 6, slice 25).
+Axes: ``dp`` (the batch), ``tp`` (tensor parallel: the params the rules
+shard, Megatron-style) and ``sp`` (sequence parallel: ring attention in
+``fused_multihead_attention(sequence_parallel=True)``). A ``pp`` axis
+raises (pipeline parallelism is ROADMAP Queue A item 6, slice 27).
 """
 from __future__ import annotations
 
@@ -20,12 +23,12 @@ from typing import Dict, Optional, Sequence, Tuple
 
 __all__ = ["Mesh", "make_mesh", "ShardingRules", "transformer_tp_rules",
            "compile_sharded_step", "zero1_spec_for", "extract_param_specs",
-           "place_state", "P"]
+           "place_state", "P", "check_mesh", "local_shape", "shard_of",
+           "state_follows_param"]
 
-MODEL_PARALLEL_REFUSAL = (
-    "the port's parallel step is data parallel only: a mesh axis other "
-    "than 'dp' (tensor, sequence or pipeline parallelism) is ROADMAP "
-    "Queue A item 6, slice 25")
+AXES = ("dp", "tp", "sp")
+PIPELINE_REFUSAL = ("pipeline parallelism (a 'pp' mesh axis) is ROADMAP "
+                    "Queue A item 6, slice 27")
 
 
 def P(*axes) -> tuple:
@@ -36,8 +39,9 @@ def P(*axes) -> tuple:
 
 class Mesh:
     """Axis names and sizes over the launched ranks (``shape`` maps each
-    axis to its size, as a jax ``Mesh.shape`` does). Rank r's coordinate
-    is its index in row-major order over the axes."""
+    axis to its size, as a jax ``Mesh.shape`` does). Rank r's coordinates
+    are its index in row-major order over the axes (the last axis varies
+    fastest)."""
 
     def __init__(self, shape: Dict[str, int]):
         self.shape = {str(k): int(v) for k, v in dict(shape).items()}
@@ -50,15 +54,60 @@ class Mesh:
             n *= v
         return n
 
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s coordinate on each axis."""
+        out = {}
+        for a in reversed(self.axis_names):
+            out[a] = rank % self.shape[a]
+            rank //= self.shape[a]
+        return {a: out[a] for a in self.axis_names}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + int(coords.get(a, 0))
+        return r
+
+    def coord(self, axis: str, rank: Optional[int] = None) -> int:
+        """This rank's (or ``rank``'s) coordinate on ``axis`` (0 for an
+        axis the mesh lacks)."""
+        if axis not in self.shape:
+            return 0
+        if rank is None:
+            from .. import distributed as dist
+
+            rank = dist.get_rank() if dist.is_initialized() else 0
+        return self.coords(rank)[axis]
+
+    def lines(self, axis: str):
+        """Every group of ranks that differ only in their ``axis``
+        coordinate, each in coordinate order, the groups in rank order of
+        their first member."""
+        seen, out = set(), []
+        for r in range(self.size):
+            if r in seen:
+                continue
+            c = self.coords(r)
+            line = [self.rank_of({**c, axis: i})
+                    for i in range(self.shape[axis])]
+            seen.update(line)
+            out.append(line)
+        return out
+
     def __repr__(self):
         return f"Mesh({self.shape})"
 
 
-def check_data_parallel(mesh: Mesh) -> None:
-    extra = [a for a, n in mesh.shape.items() if a != "dp" and n > 1]
+def check_mesh(mesh: Mesh) -> None:
+    """The axes the port's parallel step runs: ``dp``, ``tp`` and ``sp``;
+    a ``pp`` axis (or any other) raises."""
+    if mesh.shape.get("pp", 1) > 1:
+        raise NotImplementedError(f"mesh {mesh.shape}: {PIPELINE_REFUSAL}")
+    extra = [a for a, n in mesh.shape.items() if a not in AXES + ("pp",)
+             and n > 1]
     if extra:
-        raise NotImplementedError(
-            f"mesh {mesh.shape}: axes {extra}: {MODEL_PARALLEL_REFUSAL}")
+        raise ValueError(f"mesh {mesh.shape}: unknown axes {extra}; the "
+                         f"parallel step runs {list(AXES)}")
 
 
 def make_mesh(shape: Dict[str, int], devices=None) -> Mesh:
@@ -90,7 +139,10 @@ class ShardingRules:
 
 def transformer_tp_rules() -> ShardingRules:
     """Megatron-style tensor-parallel rules for the BERT/transformer
-    family (metadata: the port's step refuses a ``tp`` axis)."""
+    family: column-parallel QKV/FFN-in (output dim sharded), row-parallel
+    out/FFN-out (input dim sharded; their biases replicated, added once
+    after the all-reduce), the vocab-sharded word embedding. Everything
+    else replicated."""
     return ShardingRules(param_rules=[
         (r"_(q|k|v|ffn1)_w$", P(None, "tp")),
         (r"_(q|k|v|ffn1)_b$", P("tp")),
@@ -104,25 +156,22 @@ def compile_sharded_step(program, mesh: Mesh, feed_names: Sequence[str],
                          rules: Optional[ShardingRules] = None,
                          donate: bool = True):
     """The JAX package jits the block over ``mesh`` here. The port's
-    counterpart is a data-parallel ``CompiledProgram`` over the launched
-    ranks: returns ``(run, io)`` where ``run(exe, feed, scope)`` runs one
-    parallel step and returns the fetches, and ``io`` lists the feeds and
-    fetches. A rule that shards a param raises (model parallelism)."""
-    check_data_parallel(mesh)
-    if rules is not None and any(any(a is not None for a in spec)
-                                 for _, spec in rules.param_rules):
-        raise NotImplementedError(
-            f"compile_sharded_step with param rules: "
-            f"{MODEL_PARALLEL_REFUSAL}")
+    counterpart is a ``CompiledProgram`` over the launched ranks with the
+    mesh and the rules: returns ``(run, io)`` where ``run(exe, feed,
+    scope)`` runs one parallel step and returns the fetches (each rank
+    feeds its ``dp`` slice and holds its shards: see :func:`place_state`),
+    and ``io`` lists the feeds and fetches."""
+    check_mesh(mesh)
     from .compiled_program import CompiledProgram
 
-    compiled = CompiledProgram(program).with_data_parallel()
+    compiled = CompiledProgram(program).with_data_parallel(places=mesh)
+    compiled._rules = rules
 
     def run(exe, feed, scope=None):
         return exe.run(compiled, feed=feed, fetch_list=list(fetch_names),
                        scope=scope)
     return run, {"feed_order": list(feed_names),
-                 "fetch": list(fetch_names)}
+                 "fetch": list(fetch_names), "compiled": compiled}
 
 
 def zero1_spec_for(v, dp: int, zero1: bool) -> tuple:
@@ -153,7 +202,9 @@ def extract_param_specs(program, mesh_shape: Dict[str, int],
     feed_spec)``: only sharded vars are listed; ``feed_spec`` is the
     batch-axis spec for feeds. ``zero=True`` (or a build_strategy with
     ``ReduceStrategy.Reduce``) applies the ZeRO-1 layout; ``rules``
-    layers name-pattern specs on top."""
+    layers name-pattern specs on top, and the optimizer state of a param
+    they shard follows its param (an update reads its moments on the
+    param's shard; in the JAX package GSPMD replicates them instead)."""
     dp = int(mesh_shape.get("dp", 1))
     if build_strategy is not None:
         zero = zero or getattr(build_strategy, "reduce_strategy", 0) == 1
@@ -171,29 +222,84 @@ def extract_param_specs(program, mesh_shape: Dict[str, int],
                 spec = zero1_spec_for(v, dp, zero)
             if any(a is not None for a in spec):
                 specs[v.name] = spec
+    if rules is not None:
+        specs.update(state_follows_param(program, specs))
     feed_spec = ("dp",) if dp > 1 else ()
     return specs, feed_spec
 
 
+def state_follows_param(program, specs: Dict[str, tuple]
+                        ) -> Dict[str, tuple]:
+    """The optimizer state of each param ``specs`` shards: every input of
+    an update op (``Param`` and ``Grad`` slots) of the param's shape gets
+    the param's spec."""
+    out: Dict[str, tuple] = {}
+    for blk in program.blocks:
+        for op in blk.ops:
+            if "Param" not in op.inputs or "Grad" not in op.inputs:
+                continue
+            p = op.input("Param")[0]
+            spec = specs.get(p)
+            if not spec or not any(a is not None for a in spec):
+                continue
+            shape = blk._var_recursive(p).shape
+            for slot, names in op.inputs.items():
+                if slot in ("Param", "Grad"):
+                    continue
+                for n in names:
+                    try:
+                        v = blk._var_recursive(n)
+                    except KeyError:
+                        continue
+                    if v.persistable and tuple(v.shape or ()) == \
+                            tuple(shape):
+                        out[n] = spec
+    return out
+
+
+def local_shape(shape, spec, mesh_shape: Dict[str, int]) -> tuple:
+    """``shape`` cut to one rank's shard under ``spec``."""
+    out = list(shape)
+    for d, a in enumerate(spec or ()):
+        if a is not None and d < len(out) and out[d] > 0:
+            out[d] //= int(mesh_shape.get(a, 1))
+    return tuple(out)
+
+
+def shard_of(value, spec, mesh: Mesh, rank: Optional[int] = None):
+    """This rank's (or ``rank``'s) piece of a whole ``value`` under
+    ``spec``: each sharded dim cut to the rank's coordinate on its axis."""
+    for d, a in enumerate(spec or ()):
+        n = mesh.shape.get(a, 1) if a is not None else 1
+        if n <= 1:
+            continue
+        if value.shape[d] % n:
+            raise ValueError(f"dim {d} of size {value.shape[d]} does not "
+                             f"split over '{a}' of size {n}")
+        k = value.shape[d] // n
+        i = mesh.coord(a, rank)
+        idx = [slice(None)] * len(value.shape)
+        idx[d] = slice(i * k, (i + 1) * k)
+        value = value[tuple(idx)]
+    return value
+
+
 def place_state(scope_values: Dict[str, object], mesh: Mesh,
                 rules: ShardingRules) -> Dict[str, object]:
-    """Each rank's piece of the scope state under ``rules`` on a dp-only
-    mesh: replicated values are kept whole (every rank's startup run made
-    the same values from the same seeds, the reference's
-    BCastParamsToDevices without the broadcast); a value whose rule
-    shards dim 0 over ``dp`` is cut to this rank's rows."""
-    check_data_parallel(mesh)
-    from .. import distributed as dist
-
-    dp = mesh.shape.get("dp", 1)
-    rank = dist.get_rank() if dp > 1 else 0
+    """Each rank's piece of the scope state under ``rules``: replicated
+    values are kept whole (every rank's startup run made the same values
+    from the same seeds, the reference's BCastParamsToDevices without the
+    broadcast); a value whose rule shards a dim is cut to this rank's
+    shard along it (this rank's coordinate on the rule's axis)."""
+    check_mesh(mesh)
     placed = {}
     for name, v in scope_values.items():
         spec = rules.spec_for_param(name)
-        if dp > 1 and spec and spec[0] == "dp" \
-                and getattr(v, "shape", (0,))[0] % dp == 0:
-            rows = v.shape[0] // dp
-            placed[name] = v[rank * rows:(rank + 1) * rows]
+        shape = getattr(v, "shape", ())
+        if any(a is not None and mesh.shape.get(a, 1) > 1 and
+               d < len(shape) and shape[d] % mesh.shape[a] == 0
+               for d, a in enumerate(spec)):
+            placed[name] = shard_of(v, spec, mesh)
         else:
             placed[name] = v
     return placed

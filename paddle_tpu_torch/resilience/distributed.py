@@ -108,11 +108,19 @@ def save_sharded_vars(dirname: str, vars_: Sequence, scope, mesh) -> dict:
     ZeRO-1 would row-shard over ``dp`` (``zero1_spec_for``) are cut into
     ``dp`` shard files here. Returns the manifest skeleton (vars inventory
     + the ``sharding`` section); fsync and the per-file sha256 happen in
-    ``resilience.checkpoint.finalize_manifest``."""
+    ``resilience.checkpoint.finalize_manifest``. A scope holding shards
+    of a model axis (``scope._mesh_shards``: tensor parallelism) raises:
+    its checkpoint is ROADMAP Queue A item 6, slice 27."""
     from .. import distributed as _pdist
     from .. import monitor as _monitor
     from ..io import _host_array
     from ..parallel.sharding import zero1_spec_for
+
+    held = sorted(getattr(scope, "_mesh_shards", None) or ())
+    if held:
+        raise NotImplementedError(
+            f"sharded checkpoint of tensor-parallel shards ({held[0]} and "
+            f"{len(held) - 1} more): ROADMAP Queue A item 6, slice 27")
 
     axes = mesh_axes(mesh)
     axis = "dp" if "dp" in axes else (next(iter(axes)) if axes else "dp")
@@ -332,15 +340,20 @@ def _checksum(x):
 
 
 def replica_divergence_check(mesh, values: Dict[str, Any],
-                             axis: Optional[str] = None) -> List[str]:
+                             axis: Optional[str] = None,
+                             shard_axes: Optional[Dict[str, tuple]] = None
+                             ) -> List[str]:
     """Names in ``values`` whose replicas disagree, sorted.
 
     ``values`` maps a name to this rank's copy (a tensor): each rank
     reduces its copy to two words on its device, and the ``[V, 2]`` words
     are all-gathered over the launched ranks (the only transfer). In one
     process a name may map to a list of copies (one a replica) instead.
-    The port's mesh is data parallel only, so the replicas are the ``dp``
-    ranks and ``axis`` is accepted for the JAX package's signature."""
+    The replicas of a name are the ranks whose coordinates agree on the
+    mesh axes ``shard_axes`` names for it (its shard; none: every rank),
+    so on a ``dp`` x ``tp`` mesh a tp-sharded param is compared across
+    ``dp`` and a replicated one across every rank. ``axis`` is accepted
+    for the JAX package's signature."""
     import torch
 
     from .. import distributed as _pdist
@@ -357,8 +370,19 @@ def replica_divergence_check(mesh, values: Dict[str, Any],
     gathered = _pdist._all_gather(words).cpu().numpy()
     world = gathered.shape[0] // len(names)
     per_rank = gathered.reshape(world, len(names), 2)
-    return [n for i, n in enumerate(names)
-            if not (per_rank[:, i, :] == per_rank[0, i, :]).all()]
+    shard_axes = shard_axes or {}
+    diverged = []
+    for i, n in enumerate(names):
+        axes = shard_axes.get(n, ())
+        groups: Dict[tuple, list] = {}
+        for r in range(world):
+            key = tuple(mesh.coord(a, r) for a in axes) \
+                if axes and hasattr(mesh, "coord") else ()
+            groups.setdefault(key, []).append(r)
+        if any(not (per_rank[rs, i, :] == per_rank[rs[0], i, :]).all()
+               for rs in groups.values()):
+            diverged.append(n)
+    return diverged
 
 
 # restore policy wiring: contrib.Trainer registers its recovery walk here

@@ -3154,3 +3154,87 @@ def test_data_parallel_step_equals_the_single_card_step_and_ckpt(tmp_path):
         np.testing.assert_array_equal(res["ckpt/resumed"],
                                       res["ckpt/losses"][2:])
         np.testing.assert_array_equal(res["ckpt/w"], res["ckpt/w2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_blocks_launch_the_kernels_on_the_card(causal):
+    """The ring body of two sp ranks, emulated in one process (the
+    exchange hands each rank the other's K/V block): each rank launches
+    K1 once a block with its global offsets, and the two output blocks
+    equal dense attention over the whole sequence (f32,
+    ``K.KERNEL_TOL``)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    from paddle_tpu_torch.parallel.sharding import Mesh
+
+    g = _cuda()
+    B, T, H, D = 2, 256, 4, 64
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device="cuda") * 0.5
+               for _ in range(3))
+    Tl = T // 2
+    blocks = {}
+    saved = (dist._ring_exchange, dist.axis_group, dist.get_rank)
+    outs = []
+    try:
+        dist.axis_group = lambda mesh, axis: (None, [0, 1])
+        for me in (0, 1):
+            dist.get_rank = lambda me=me: me
+            other = 1 - me
+
+            def exchange(t, group, ranks, shift=1, other=other):
+                return blocks[other].pop(0)
+            dist._ring_exchange = exchange
+            for r in (0, 1):
+                sl = slice(r * Tl, (r + 1) * Tl)
+                blocks[r] = [x[:, sl].transpose(1, 2).reshape(B * H, Tl, D)
+                             .contiguous() for x in (k, v)]
+            n0 = K.launch_counts()["flash_attention_fwd"]
+            sl = slice(me * Tl, (me + 1) * Tl)
+            outs.append(ra.ring_attention_local(
+                q[:, sl], k[:, sl], v[:, sl], "sp", causal=causal,
+                mesh=Mesh({"sp": 2})))
+            assert K.launch_counts()["flash_attention_fwd"] == n0 + 2
+    finally:
+        dist._ring_exchange, dist.axis_group, dist.get_rank = saved
+    want = ra.attention_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(torch.cat(outs, 1), want,
+                               **K.KERNEL_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_bert_tiny_equals_the_single_card_step(tmp_path):
+    """BERT-tiny over {"tp": 2} on the card (the ranks share it under
+    gloo, or take one each under NCCL) equals the single-card step from
+    the same weights: the loss and the gathered gradients at step 1 (rtol
+    1e-5, atol 1e-7: float32 partial products summed in another order)."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.unique_name as un
+    import torch_dist_runner as R
+    from paddle_tpu_torch.interop import scope_from_numpy
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+
+    _cuda()
+    with un.guard():
+        m = build_bert_pretrain(R.bert_cfg(BertConfig), seq_len=R.TP_SEQ)
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    exe.run(m["startup"], scope=scope)
+    init = {n: scope.numpy(n) for n in scope.vars}
+    np.savez(tmp_path / "init_tp.npz", **init)
+    card = fluid.CUDAPlace(0)
+    cscope = scope_from_numpy(init, fluid.Scope(), card, [m["main"]])
+    names = R.param_grads(m["main"])
+    ref = fluid.Executor(card).run(m["main"], feed=R.tp_feeds(),
+                                   fetch_list=[m["loss"].name] + names,
+                                   scope=cscope)
+    rc, logs = R.launch(tmp_path, ["tp_bert"], backend="gpu", timeout=600)
+    assert rc == 0, logs
+    for res in R.results(tmp_path):
+        np.testing.assert_allclose(res["tp_bert/losses"][0],
+                                   float(ref[0].reshape(-1)[0]),
+                                   rtol=1e-5, atol=1e-7)
+        for n, want in zip(names, ref[1:]):
+            np.testing.assert_allclose(res["tp_bert/grad/" + n], want,
+                                       rtol=1e-5, atol=1e-7, err_msg=n)

@@ -178,7 +178,9 @@ def test_places_mesh_and_rescale_refusals():
     with pytest.raises(ValueError, match="distributed.launch"):
         tfluid.CompiledProgram(main).with_data_parallel(
             places=[tfluid.CPUPlace(), tfluid.CPUPlace()])
-    with pytest.raises(NotImplementedError, match="slice 25"):
+    with pytest.raises(NotImplementedError, match="slice 27"):
+        tcp.data_parallel_mesh(tsh.make_mesh({"dp": 1, "pp": 2}))
+    with pytest.raises(ValueError, match="launched"):
         tcp.data_parallel_mesh(tsh.make_mesh({"dp": 1, "tp": 2}))
     with pytest.raises(ValueError, match="launched"):
         tcp.data_parallel_mesh(tsh.make_mesh({"dp": 2}))

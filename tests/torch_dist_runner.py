@@ -21,6 +21,8 @@ import numpy as np
 GLOBAL_BATCH, STEPS, DIM = 8, 10, 16
 BERT_SEQ, BERT_BATCH, BERT_STEPS = 16, 4, 3
 BN_BATCH, BN_STEPS = 8, 3
+TP_SEQ, TP_BATCH, TP_STEPS = 32, 4, 2
+RING = dict(B=2, T=16, H=2, D=8)
 
 
 # -- builders (shared with the tests: `fluid` is either package) -----------
@@ -100,6 +102,45 @@ def bert_feeds(seed=0, batch=BERT_BATCH, seq=BERT_SEQ):
         "input_mask": (np.arange(seq)[None] < lens).astype(np.float32),
         "mask_label": labels,
         "next_sent_label": rng.randint(0, 2, (batch, 1)).astype(np.int64)}
+
+
+def tp_feeds(seed=1):
+    """BERT-tiny's feeds at seq 32, four rows."""
+    return bert_feeds(seed, batch=TP_BATCH, seq=TP_SEQ)
+
+
+def ring_inputs(seed=0):
+    """q, k, v ``[B, T, H, D]`` and the weights of the loss sum(o * w)."""
+    rng = np.random.RandomState(seed)
+    shape = (RING["B"], RING["T"], RING["H"], RING["D"])
+    return [(rng.randn(*shape) * 0.5).astype(np.float32) for _ in range(4)]
+
+
+def build_ring_fluid(fluid, seq_par, B, H, S, D, bias=False, dropout=0.0):
+    """``__graft_entry__._dryrun_ring_attention_fluid_api``'s program:
+    fc -> fused_multihead_attention(causal) -> square error -> SGD."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        xv = fluid.layers.data("x", shape=[H, S, D], dtype="float32")
+        yv = fluid.layers.data("y", shape=[H, S, D], dtype="float32")
+        q = fluid.layers.fc(xv, D, num_flatten_dims=3,
+                            param_attr=fluid.ParamAttr(name="wq"),
+                            bias_attr=False)
+        mask = None
+        if bias:
+            mask = fluid.layers.data("m", shape=[S], dtype="float32")
+        o = fluid.layers.fused_multihead_attention(
+            q, xv, xv, bias_qk=mask, causal=True, sequence_parallel=seq_par,
+            attn_dropout=dropout)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(o, yv))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, loss
+
+
+def ring_fluid_feeds(B, H, S, D):
+    rng = np.random.RandomState(1)
+    return {"x": rng.randn(B, H, S, D).astype(np.float32) * 0.3,
+            "y": rng.randn(B, H, S, D).astype(np.float32) * 0.3}
 
 
 def param_grads(program):
@@ -610,6 +651,196 @@ def case_checks(ctx):
     return {"witnessed": np.array(witnessed), "message": np.array([message]),
             "restored": np.array([np.array_equal(
                 scope.numpy("d_fc1.w_0"), before)])}
+
+
+# -- model parallelism: tensor parallel and ring attention -----------------
+
+def _tp_run(ctx, mesh_shape, zero=False, dropout=0.0, steps=TP_STEPS,
+            replica_check=False):
+    """BERT-tiny over ``mesh_shape`` with the transformer tp rules, from
+    the JAX package's initial scope (``init_tp.npz``) planted sharded:
+    step 1's loss and gathered gradients, every step's loss, the
+    gathered parameters after the last step, this rank's state bytes and
+    the collective bytes of step 1 by kind."""
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.unique_name as un
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.interop import scope_from_numpy
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+    from paddle_tpu_torch.parallel.sharding import (Mesh,
+                                                    compile_sharded_step,
+                                                    transformer_tp_rules)
+
+    mesh, rules = Mesh(mesh_shape), transformer_tp_rules()
+    with un.guard():
+        m = build_bert_pretrain(bert_cfg(BertConfig, dropout), seq_len=TP_SEQ)
+    main, loss = m["main"], m["loss"]
+    exe = fluid.Executor(ctx.place)
+    scope = fluid.Scope()
+    scope_from_numpy(ctx.load("init_tp.npz"), scope, ctx.place,
+                     programs=[main], mesh=mesh, rules=rules)
+    names = param_grads(main)
+    run, io = compile_sharded_step(main, mesh, m["feeds"],
+                                   [loss.name] + names, rules)
+    if zero:
+        io["compiled"]._build_strategy.reduce_strategy = \
+            fluid.BuildStrategy.ReduceStrategy.Reduce
+    if replica_check:
+        fluid.set_flags({"FLAGS_replica_check_interval": 1})
+    dp, c = mesh.shape.get("dp", 1), mesh.coord("dp")
+    k = TP_BATCH // dp
+    shard = {n: v[c * k:(c + 1) * k] for n, v in tp_feeds().items()}
+    res, losses, diverged = {}, [], []
+    params = [p.name for p in main.all_parameters()]
+    try:
+        dist.reset_collective_stats()
+        out = run(exe, shard, scope)
+        stats = dist.collective_stats()["by_kind"]
+        res.update({"grad/" + n: v for n, v in zip(names, out[1:])})
+        losses.append(float(out[0].reshape(-1)[0]))
+        for _ in range(steps - 1):
+            got = exe.run(io["compiled"], feed=shard,
+                          fetch_list=[loss.name] + params, scope=scope)
+            losses.append(float(got[0].reshape(-1)[0]))
+    except RuntimeError as e:       # ReplicaDivergenceError
+        diverged.append(str(e))
+        stats = {}
+    finally:
+        fluid.set_flags({"FLAGS_replica_check_interval": 0})
+    if not diverged and steps > 1:
+        res.update({"param/" + p: v for p, v in zip(params, got[1:])})
+    res["losses"] = np.array(losses)
+    res["diverged"] = np.array(diverged or [""])
+    state = [v for n, v in scope.vars.items() if hasattr(v, "numel")
+             and (n in params or n.startswith(("moment1_", "moment2_")))]
+    res["state_bytes"] = np.array([sum(v.numel() * v.element_size()
+                                       for v in state)])
+    for kind, v in stats.items():
+        res[f"coll/{kind}"] = np.array([v["calls"], v["bytes"]])
+    return res
+
+
+def case_tp_bert(ctx):
+    return _tp_run(ctx, {"tp": 2})
+
+
+def case_dptp_bert(ctx):
+    return _tp_run(ctx, {"dp": 2, "tp": 2})
+
+
+def case_dptp_dropout(ctx):
+    """dp2 x tp2 at dropout 0.1 under ZeRO-1, the replica check every
+    step: the tp ranks hold replicated state that must stay identical."""
+    return _tp_run(ctx, {"dp": 2, "tp": 2}, zero=True, dropout=0.1,
+                   steps=3, replica_check=True)
+
+
+def case_dptp_badseed(ctx):
+    """Negative control: the whole rank folded into the step seed, so the
+    two ranks of a tp group draw different dropout masks."""
+    from paddle_tpu_torch.parallel import compiled_program as cp
+
+    cp._DPPlan.fold_seed = \
+        lambda self, seed: (seed + self.rank * 0x9E3779B1) & 0x7FFFFFFF
+    return _tp_run(ctx, {"dp": 2, "tp": 2}, zero=True, dropout=0.1,
+                   steps=3, replica_check=True)
+
+
+def case_tp_drop_allreduce(ctx):
+    """Negative control: the plan leaves the first row-parallel
+    product's partial sum unsummed."""
+    from paddle_tpu_torch.parallel import compiled_program as cp
+
+    init = cp._DPPlan.__init__
+
+    def patched(self, program, *a, **kw):
+        init(self, program, *a, **kw)
+        ops = program.global_block.ops
+        first = min(i for i, evs in self.partial.items()
+                    if ops[i].type == "mul")
+        del self.partial[first]
+    cp._DPPlan.__init__ = patched
+    return _tp_run(ctx, {"tp": 2}, steps=1)
+
+
+def case_ring_fn(ctx):
+    """``ring_attention`` at sp = 2, causal and not: the output and the
+    gradients of sum(o * w) on this rank."""
+    import torch
+
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+    from paddle_tpu_torch.parallel.sharding import Mesh
+
+    mesh = Mesh({"sp": ctx.world})
+    res = {}
+    for causal in (False, True):
+        q, k, v, w = (torch.from_numpy(a) for a in ring_inputs())
+        for t in (q, k, v):
+            t.requires_grad_()
+        o = ring_attention(q, k, v, mesh, causal=causal)
+        (o * w).sum().backward()
+        tag = "causal" if causal else "full"
+        res[f"{tag}/o"] = o.detach().numpy()
+        for n, t in zip("qkv", (q, k, v)):
+            res[f"{tag}/d{n}"] = t.grad.numpy()
+    return res
+
+
+def _ring_fluid_run(ctx, mesh_shape, steps=3):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel.sharding import Mesh
+
+    mesh = Mesh(mesh_shape)
+    dp, sp = mesh.shape.get("dp", 1), mesh.shape.get("sp", 1)
+    B, H, S, D = 2 * dp, 2, 4 * sp, 8
+    main, startup, loss = build_ring_fluid(fluid, True, B, H, S, D)
+    exe = fluid.Executor(ctx.place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    scope.set_var("wq", np.eye(D, dtype=np.float32))
+    prog = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, places=mesh)
+    c = mesh.coord("dp")
+    feed = {n: v[c * 2:(c + 1) * 2]
+            for n, v in ring_fluid_feeds(B, H, S, D).items()}
+    losses = [float(exe.run(prog, feed=feed, fetch_list=[loss.name],
+                            scope=scope)[0].reshape(-1)[0])
+              for _ in range(steps)]
+    return {"losses": np.array(losses), "wq": scope.numpy("wq")}
+
+
+def case_ring_fluid(ctx):
+    return _ring_fluid_run(ctx, {"sp": ctx.world})
+
+
+def case_ring_fluid_dpsp(ctx):
+    return _ring_fluid_run(ctx, {"dp": 2, "sp": 2})
+
+
+def case_ring_refusals(ctx):
+    """The ring path's refusals inside a parallel step over sp."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel.sharding import Mesh
+
+    mesh = Mesh({"sp": ctx.world})
+    B, H, S, D = 2, 2, 8, 8
+    res = {}
+    for what, kw in (("bias", dict(bias=True)),
+                     ("dropout", dict(dropout=0.1))):
+        main, startup, loss = build_ring_fluid(fluid, True, B, H, S, D, **kw)
+        exe, scope = fluid.Executor(ctx.place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        feed = ring_fluid_feeds(B, H, S, D)
+        if kw.get("bias"):
+            feed["m"] = np.zeros((B, S), np.float32)
+        prog = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, places=mesh)
+        try:
+            exe.run(prog, feed=feed, fetch_list=[loss.name], scope=scope)
+            res[what] = np.array(["no refusal"])
+        except Exception as e:      # OpLoweringError naming the op's own
+            res[what] = np.array([str(e)])
+    return res
 
 
 def case_collectives(ctx):

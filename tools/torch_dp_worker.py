@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Rank script of ``chip_smoke.py``'s ``data_parallel`` phase: BERT-base
-f32 pretraining (seq 128, dropout 0, Adam 1e-4) data parallel over the
-launched ranks, each on its slice of a global batch.
+f32 pretraining (its widths at ``LAYERS`` layers, seq 128, dropout 0,
+Adam 1e-4) data parallel over the launched ranks, each on its slice of a
+global batch.
 
     python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2 \\
         --selected_gpus 0,0 tools/torch_dp_worker.py --out DIR \\
@@ -58,13 +59,17 @@ from paddle_tpu_torch.models.bert import (BertConfig,  # noqa: E402
                                           build_bert_pretrain)
 
 SEQ, STEPS, DY_STEPS, SAVE_AFTER = 128, 4, 3, 2
+# BERT-base's widths at 4 of its 12 layers: the whole chip_smoke.py run
+# keeps inside its time limit with the model_parallel phase after this one
+LAYERS = 4
 ATTENTION = ("flash_attention_fwd", "flash_attention_dq",
              "flash_attention_dkv")
 PERTURBED = "layer0_att_q_w"
 
 
 def config():
-    return dataclasses.replace(BertConfig.base(), hidden_dropout=0.0,
+    return dataclasses.replace(BertConfig.base(), num_layers=LAYERS,
+                               hidden_dropout=0.0,
                                attention_dropout=0.0)
 
 

@@ -15,14 +15,22 @@ and ``padded``, ``chip_smoke.profile_window`` (the card idles
 and window, the repeats, the kernels the burst launches, the repeats
 that missed any of them, and the missed adds, products and multiplies;
 with ``--out-dir``, also ``DIR/profiler_window_check.json``.
+
+``--beside`` runs both cases again while a second process keeps the card
+busy with bf16 products (this script with ``--busy``), then while it
+only holds a context on the card, with a third window, ``stopped``: the
+padded one with that process stopped (SIGSTOP) for its length.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -55,7 +63,52 @@ def _burst(x, w, gemms):
     return (y * 0.5).sum().item()
 
 
-def run_case(name, m, k, gemms, repeats):
+def busy(seconds, work=True):
+    """Keep the card busy with bf16 products for ``seconds`` (or, without
+    ``work``, only hold a context on it)."""
+    a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print("busy", flush=True)
+    end = time.time() + seconds
+    while time.time() < end:
+        if not work:
+            time.sleep(0.1)
+            continue
+        for _ in range(20):
+            a = (a @ a).clamp_(-1, 1)
+        torch.cuda.synchronize()
+
+
+class _Peer:
+    """The busy process, in a process group of its own."""
+
+    def __init__(self, work=True):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--busy",
+             "900" if work else "-900"],
+            stdout=subprocess.PIPE, text=True, start_new_session=True)
+        self.proc.stdout.readline()   # "busy": its products are running
+        time.sleep(2.0)
+
+    def stop(self):
+        os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+
+
+@contextlib.contextmanager
+def stopped_window(peer):
+    """``profile_window`` with ``peer`` stopped, after 0.3 s for the work
+    it queued to drain."""
+    os.killpg(peer.proc.pid, signal.SIGSTOP)
+    try:
+        time.sleep(0.3)
+        with profile_window() as prof:
+            yield prof
+    finally:
+        os.killpg(peer.proc.pid, signal.SIGCONT)
+
+
+def run_case(name, m, k, gemms, repeats, peer=None):
     x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16)
     w = torch.randn(k, k, device="cuda", dtype=torch.bfloat16) / k ** 0.5
     _burst(x, w, gemms)
@@ -70,6 +123,8 @@ def run_case(name, m, k, gemms, repeats):
     windows = {
         "bare": lambda: profile(activities=[ProfilerActivity.CUDA]),
         "padded": profile_window}
+    if peer is not None:
+        windows["stopped"] = lambda: stopped_window(peer)
     tallies = {w_: {"repeats": 0, "short": 0,
                     "missed": dict.fromkeys(MARKS, 0)} for w_ in windows}
     for _ in range(repeats):
@@ -100,9 +155,16 @@ def main():
     ap.add_argument("--repeats", type=int, default=200)
     ap.add_argument("--gemms", type=int, default=72)
     ap.add_argument("--out-dir", default=None)
+    ap.add_argument("--beside", action="store_true",
+                    help="also beside a second process busy on the card")
+    ap.add_argument("--busy", type=float, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profiler_window_check: no CUDA device")
+    if args.busy is not None:
+        busy(abs(args.busy), work=args.busy > 0)
+        return
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
@@ -112,6 +174,17 @@ def main():
               "burst": run_case("burst", 16384, 768, args.gemms,
                                 args.repeats // 4),
               "small": run_case("small", 64, 64, 1, args.repeats)}
+    if args.beside:
+        for tag, work in (("beside", True), ("beside_idle", False)):
+            peer = _Peer(work)
+            try:
+                report[tag] = {
+                    "burst": run_case(f"burst {tag}", 16384, 768,
+                                      args.gemms, args.repeats // 4, peer),
+                    "small": run_case(f"small {tag}", 64, 64, 1,
+                                      args.repeats, peer)}
+            finally:
+                peer.stop()
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         with open(os.path.join(args.out_dir, "profiler_window_check.json"),
