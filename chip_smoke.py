@@ -9027,6 +9027,23 @@ DPAR_STEP_LAUNCHES = {"flash_attention_fwd": 2 * DPAR_LAYERS,
                       "flash_attention_dq": DPAR_LAYERS,
                       "flash_attention_dkv": DPAR_LAYERS}
 DPAR_ATTENTION = tuple(DPAR_STEP_LAUNCHES)
+# DeepFM at Criteo widths over the two ranks (tools/torch_dp_worker.py's
+# fm_table at 1,000,002 rows, row-sharded; fm_sparse at 1,000,001,
+# replicated, its sparse gradients summed) against one card: step 1's
+# loss (rtol), steps 2-4 (rtol), the tables and dense parameters after
+# step 4 and fm_sparse's summed step-1 table gradient (normwise). The
+# H100 read the losses 0 and up to 9.2e-8 off, the gradient 3.6e-7, the
+# parameters 1.3e-4 (row-sharded) and 3.2e-4 (replicated): the tables
+# carry it (8.8e-4 and 2.1e-3 against 9.0e-6 and 2.7e-5 for the dense
+# ones), Adam's normalised step turning the last bits of the rows' tiny
+# gradients into whole steps (PERF.md, pipeline and tables); controls
+# 0.21 and 1.0
+FMPAR_STEP1_RTOL, FMPAR_LOSS_RTOL = 1e-6, 1e-6
+FMPAR_PARAM_TOL, FMPAR_GRAD_TOL = 2e-3, 4e-6
+# BERT at DPAR_LAYERS under PipelineOptimizer(num_microbatches=2) over
+# the ranks against one card's merged step on the same microbatches: the
+# parameters after the steps (normwise); read 6.7e-8, control 3.8e-3
+MERGE_PARAM_TOL = 1e-6
 
 
 def dpar_launch(tmp, legs, tag, seed):
@@ -9088,6 +9105,174 @@ def dpar_check(ok, what):
         raise SystemExit(f"chip_smoke: data_parallel: {what}")
 
 
+def fmpar_reference(vocab, seed, grad):
+    """One card: DeepFM at Criteo widths with ``vocab`` rows, the ranks'
+    steps on the whole batches: the losses, step 1's dense ``fm_v``
+    gradient (``grad``), the tables and dense parameters after the last
+    step, the table + moment bytes."""
+    from tools import torch_dp_worker as W_DP
+
+    net, scope = W_DP.build_fm(vocab, seed, fluid.CUDAPlace(0))
+    exe = fluid.Executor()
+    feeds = fm_feeds(seed + 31, W_DP.FM_LEG_STEPS)
+    last = [p.name for p in net["main"].all_parameters()]
+    out = {"losses": [], "table_bytes": W_DP.fm_state_bytes(scope)}
+    for i, f in enumerate(feeds):
+        fetch = [net["loss"].name] + (["fm_v@GRAD"] if grad and i == 0
+                                      else []) + (
+            last if i == len(feeds) - 1 else [])
+        got = exe.run(net["main"], feed=f, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        out["losses"].append(float(got[0].detach().cpu().reshape(-1)[0]))
+        if grad and i == 0:
+            out["fm_v@GRAD"] = got[1].to_dense().cpu()
+        if i == len(feeds) - 1:
+            out.update((n, t.detach().cpu())
+                       for n, t in zip(last, got[-len(last):]))
+    del exe, scope
+    torch.cuda.empty_cache()
+    return out
+
+
+def fmpar_checks(tmp, ranks, ref):
+    """The DeepFM legs against one card, each with its control; the
+    report."""
+    rep = {}
+    for tag in ("fm_table", "fm_sparse"):
+        got = torch.load(os.path.join(tmp, f"{tag}.pt"))
+        r0 = ranks[0][tag]
+        names = [n for n in got if "@" not in n]
+        rel = [dpar_rel(a, b) for a, b in zip(r0["losses"],
+                                              ref[tag]["losses"])]
+        norm = normwise([got[n] for n in names],
+                        [ref[tag][n] for n in names])
+        dense = [n for n in names if n not in ("fm_v", "fm_w")]
+        split = [normwise([got[n] for n in ns], [ref[tag][n] for n in ns])
+                 for ns in (("fm_v", "fm_w"), dense)]
+        # control: the tables gathered with the ranks' halves swapped
+        # (fm_table), or the summed gradient doubled, as if no rank took
+        # its 1/ranks share of the mean (fm_sparse)
+        if tag == "fm_table":
+            ctl = normwise([mpar_swapped(got[n], 0) if n in ("fm_v",
+                                                               "fm_w")
+                            else got[n] for n in names],
+                           [ref[tag][n] for n in names])
+        else:
+            gnorm = normwise([got["fm_v@GRAD"]], [ref[tag]["fm_v@GRAD"]])
+            ctl = normwise([got["fm_v@GRAD"] * 2], [ref[tag]["fm_v@GRAD"]])
+        share = [r[tag]["table_bytes"] / ref[tag]["table_bytes"]
+                 for r in ranks]
+        kinds = r0["steps"][1]["by_kind"]
+        log(f"[data_parallel] {tag}: DeepFM {FM_FIELDS} x {FM_DIM}, "
+            f"{FM_HIDDEN}, Adam, batch {FM_BATCH} ({FM_BATCH // DPAR_RANKS}"
+            f" a rank), {len(r0['losses'])} steps, "
+            + ("1,000,002 rows row-sharded (the added row is never looked "
+               "up)" if tag == "fm_table" else "1,000,001 rows replicated, "
+               "SelectedRows gradients summed") +
+            f": losses {r0['losses']} vs one card {ref[tag]['losses']}, rel "
+            f"{['%.3e' % x for x in rel]}; tables + dense parameters after "
+            f"the last step normwise {norm:.3e} (tables {split[0]:.3e}, "
+            f"dense {split[1]:.3e}; control {ctl:.3e})"
+            + (f"; step-1 table gradient normwise {gnorm:.3e}"
+               if tag == "fm_sparse" else "")
+            + f"; table + moment bytes a rank / one card "
+            f"{['%.4f' % x for x in share]}; step ms "
+            f"{[round(x['ms'], 1) for x in r0['steps']]}; collectives a "
+            f"step (step 2) " + ", ".join(
+                f"{k} {v['calls']} calls {v['bytes'] / 2**20:.2f} MiB"
+                for k, v in kinds.items())
+            + f"; peak {[r[tag]['peak_bytes'] / 2**30 for r in ranks]} GiB")
+        dpar_check(np.isfinite(r0["losses"]).all()
+                   and rel[0] <= FMPAR_STEP1_RTOL
+                   and max(rel) <= FMPAR_LOSS_RTOL,
+                   f"{tag} losses from one card (rel {rel})")
+        dpar_check(norm <= FMPAR_PARAM_TOL < ctl,
+                   f"{tag} parameters {norm:.3e} (control {ctl:.3e}) against "
+                   f"{FMPAR_PARAM_TOL}")
+        if tag == "fm_sparse":
+            dpar_check(gnorm <= FMPAR_GRAD_TOL < ctl,
+                       f"fm_sparse step-1 table gradient {gnorm:.3e} "
+                       f"(control {ctl:.3e}) against {FMPAR_GRAD_TOL}")
+            dpar_check(all(r["fm_sparse"]["dp_shards"] == [] for r in ranks),
+                       "fm_sparse: a replicated table was row-sharded")
+            again = [r["fm_sparse_repeat"] for r in ranks]
+            dpar_check(all(a["losses"] == r["fm_sparse"]["losses"]
+                           and a["digest"] == r["fm_sparse"]["digest"]
+                           for a, r in zip(again, ranks)),
+                       "fm_sparse: two runs differ")
+        else:
+            dpar_check(all({"fm_v", "fm_w"} <= set(r[tag]["dp_shards"])
+                           for r in ranks), "fm_table: tables not row-held")
+            dpar_check(all(0.45 <= x <= 0.55 for x in share),
+                       f"fm_table: a rank holds {share} of the table bytes")
+        dpar_check(ranks[0][tag]["digest"] == ranks[1][tag]["digest"]
+                   and ranks[0][tag]["losses"] == ranks[1][tag]["losses"],
+                   f"{tag}: the ranks' losses or gathered parameters "
+                   f"differ")
+        rep[tag] = dict(losses=r0["losses"], reference=ref[tag]["losses"],
+                        loss_rel=rel, params_normwise=norm, control=ctl,
+                        tables_normwise=split[0], dense_normwise=split[1],
+                        share=share, collectives=kinds,
+                        step_ms=[x["ms"] for x in r0["steps"]],
+                        **({"grad_normwise": gnorm} if tag == "fm_sparse"
+                           else {}))
+    return rep
+
+
+def mergepar_reference(seed, feed):
+    """One card: the merged BERT's steps on the batch in the order whose
+    microbatches are the ranks' together; the parameters after them."""
+    from tools import torch_dp_worker as W_DP
+
+    net, init = W_DP.build_merged(seed, fluid.CUDAPlace(0))
+    order = W_DP.merge_order(DPAR_BATCH, DPAR_RANKS)
+    feed = {n: v[order] for n, v in feed.items()}
+    exe, scope = fluid.Executor(), fluid.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    losses = [float(np.ravel(exe.run(net["main"], feed=feed,
+                                     fetch_list=[net["loss"]],
+                                     scope=scope)[0])[0])
+              for _ in range(W_DP.MERGE_STEPS)]
+    names = [p.name for p in net["main"].all_parameters()]
+    out = {"losses": losses, "init": {n: init[n].detach().cpu()
+                                      for n in names},
+           "params": {n: scope.find_var(n).detach().cpu() for n in names}}
+    del exe, scope
+    torch.cuda.empty_cache()
+    return out
+
+
+def mergepar_checks(tmp, ranks, ref):
+    """The merge leg against one card, with its control; the report."""
+    from tools import torch_dp_worker as W_DP
+
+    got = torch.load(os.path.join(tmp, "params_merge.pt"))
+    names = sorted(ref["params"])
+    norm = normwise([got[n] for n in names],
+                    [ref["params"][n] for n in names])
+    # control: the update of one rank's microbatches only, half the
+    # merged step away from the start (the step's direction kept, the
+    # other rank's share of the gradient missing)
+    ctl = normwise([(got[n] + ref["init"][n]) / 2 for n in names],
+                   [ref["params"][n] for n in names])
+    r0 = ranks[0]["merge"]
+    log(f"[data_parallel] merge: BERT-base widths at {DPAR_LAYERS} layers "
+        f"under PipelineOptimizer(Adam 1e-4, num_microbatches="
+        f"{W_DP.MERGE_MICRO}), {W_DP.MERGE_STEPS} steps over "
+        f"{DPAR_RANKS} ranks ({DPAR_BATCH // DPAR_RANKS} rows a rank): "
+        f"losses {r0['losses']} (last microbatch), one card "
+        f"{ref['losses']}; parameters normwise {norm:.3e} (control, "
+        f"half the step: {ctl:.3e})")
+    dpar_check(norm <= MERGE_PARAM_TOL < ctl,
+               f"merge parameters {norm:.3e} (control {ctl:.3e}) against "
+               f"{MERGE_PARAM_TOL}")
+    dpar_check(ranks[0]["merge"]["digest"] == ranks[1]["merge"]["digest"],
+               "merge: the ranks' parameters differ")
+    return dict(losses=r0["losses"], reference=ref["losses"],
+                params_normwise=norm, control=ctl)
+
+
 def phase_data_parallel(seed):
     return run_split(data_parallel_parts(seed))
 
@@ -9107,6 +9292,7 @@ def data_parallel_parts(seed):
     the ``yield``) the rest, which may run beside other untimed work."""
     from paddle_tpu_torch.distributed import collective_backend
     from paddle_tpu_torch.distributed import ParallelEnv
+    from tools import torch_dp_worker as W_DP
 
     # the ranks load the attention kernels this process builds (one
     # build directory), rather than each building them at its first step
@@ -9117,7 +9303,9 @@ def data_parallel_parts(seed):
         # the first launch, with nothing else on the card: its steps are
         # the ones timed
         ranks = dpar_launch(tmp, ["allreduce", "unscaled", "repeat", "zero1",
-                                  "dygraph"], "first", seed)
+                                  "dygraph", "fm_table", "fm_sparse",
+                                  "fm_sparse_repeat", "merge"],
+                            "first", seed)
         yield
         # the second launch (fresh ranks restore the sharded checkpoint,
         # then the divergence check; nothing timed) beside the one-card
@@ -9172,6 +9360,11 @@ def data_parallel_parts(seed):
             ref_dy = {n: (shard_grads[0][n] + shard_grads[1][n]) / 2
                       for n in shard_grads[0]}
             del shard_grads
+            fm_ref = {tag: fmpar_reference(vocab, seed, grad)
+                      for tag, vocab, grad in (
+                          ("fm_table", W_DP.FM_ROWS_VOCAB, False),
+                          ("fm_sparse", FM_VOCAB, True))}
+            merge_ref = mergepar_reference(seed, feed)
             TIMES["data_parallel.reference"] = time.perf_counter() - t0
         finally:
             thread.join(DPAR_LAUNCH_TIMEOUT_S + 30)
@@ -9341,8 +9534,11 @@ def data_parallel_parts(seed):
                     launches[n] += v
         for n in DPAR_ATTENTION:
             dpar_check(launches[n] > 0, f"{n} never launched")
+        fm = fmpar_checks(tmp, ranks, fm_ref)
+        merge = mergepar_checks(tmp, ranks, merge_ref)
         return dict(config=f"BertConfig.base() at {DPAR_LAYERS} layers, "
-                           f"dropout 0", ranks=DPAR_RANKS,
+                           f"dropout 0", ranks=DPAR_RANKS, deepfm=fm,
+                    merge=merge,
                     global_batch=DPAR_BATCH, seq=TRAIN_SEQ, rule=rule,
                     masked=masked, reference_losses=ref_losses.tolist(),
                     allreduce_losses=dp_losses.tolist(), loss_rel=rel,
@@ -9390,6 +9586,22 @@ MPAR_TP_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_dq": 12,
 MPAR_RING_LAUNCHES = {"flash_attention_fwd": 4, "flash_attention_dq": 2,
                       "flash_attention_dkv": 2}
 MPAR_ATTENTION = tuple(MPAR_TP_LAUNCHES)
+# pipeline parallelism (tools/torch_mp_worker.py's pp and dppp legs):
+# BERT-base's encoder widths as a PipelineRegion of 2 stages, 4
+# microbatches, against the one-card scan path of the same program: step
+# 1's loss (rtol), steps 2-4 (rtol), step 1's stacked gradients and the
+# parameters after step 4 (normwise). The H100 read the losses up to
+# 1.1e-7 off, the gradients 9.2e-8, the parameters 1.3e-8; the controls
+# (stages swapped) 0.15 and 0.12 (PERF.md, pipeline and tables)
+PPAR_STEP1_RTOL, PPAR_LOSS_RTOL = 1e-6, 1e-6
+PPAR_GRAD_TOL, PPAR_PARAM_TOL = 1e-6, 1e-6
+# a rank's launches a step: 6 blocks x 4 microbatches of its stage, K1
+# once in the forward and once in the backward's replay, K3/K4 once in
+# the backward (dp x pp: 2 blocks a stage)
+PPAR_LAUNCHES = {"flash_attention_fwd": 48, "flash_attention_dq": 24,
+                 "flash_attention_dkv": 24}
+DPPP_LAUNCHES = {"flash_attention_fwd": 16, "flash_attention_dq": 8,
+                 "flash_attention_dkv": 8}
 
 
 def mpar_launch(tmp, nproc, legs, tag, seed):
@@ -9436,6 +9648,153 @@ def mpar_swapped(t, dim, parts=2):
     """A deliberately wrong gather: ``t``'s ``parts`` shards along
     ``dim`` in reverse order."""
     return torch.cat(list(reversed(torch.chunk(t, parts, dim))), dim)
+
+
+def ppar_reference(seed):
+    """One card: the pipeline program's scan path (no pp axis), the
+    ranks' steps on the whole batch: the losses, step 1's stacked
+    gradients, the parameters after the last step, the stacked bytes and
+    the launches."""
+    from tools import torch_mp_worker as W
+
+    main, loss, init = W.pipeline_net(seed, fluid.CUDAPlace(0),
+                                      W.PP_LAYERS)
+    names = [p.name for p in main.all_parameters()]
+    grads = [n + "@GRAD" for n in names if n.endswith(".pp_stacked")]
+    feed = W.pipeline_feed(seed, MPAR_BATCH, TRAIN_SEQ,
+                           BertConfig.base().vocab_size)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    for n, t in init.items():
+        scope.set_var(n, t.clone())
+    out = {"losses": [], "whole_stacked_bytes": W.stacked_bytes(
+        init, W.stage_stacked(init)),
+           "init_digest": W.digest(init, names)}
+    K.reset_launch_counts()
+    for i in range(MPAR_STEPS):
+        fetch = [loss.name] + (grads if i == 0 else []) + (
+            names if i == MPAR_STEPS - 1 else [])
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        out["losses"].append(float(got[0].detach().cpu().reshape(-1)[0]))
+        out.update((n, t.detach().cpu()) for n, t in zip(fetch[1:],
+                                                         got[1:]))
+    out["launches"] = K.launch_counts()
+    del exe, scope, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def ppar_checks(tmp, r2, r4, ref):
+    """The pp and dppp legs against the scan path, each with its
+    control; the report, with the launches of the pp leg (the ranks' and
+    the one-card reference's) and of the dppp leg, by kernel."""
+    from paddle_tpu_torch.kernels.flash_attention import classify_shapes
+    from tools import torch_mp_worker as W
+
+    pp = [r["pp"] for r in r2]
+    grads = torch.load(os.path.join(tmp, "grads_pp.pt"))
+    params = torch.load(os.path.join(tmp, "params_pp.pt"))
+    gnames, pnames = sorted(grads), sorted(params)
+    rel = [dpar_rel(a, b) for a, b in zip(pp[0]["losses"], ref["losses"])]
+
+    def stages_swapped(values, names):
+        # control: the stage slices gathered in reverse stage order
+        return [mpar_swapped(values[n], 0) if ".pp_stacked" in n
+                else values[n] for n in names]
+    gnorm = normwise([grads[n] for n in gnames], [ref[n] for n in gnames])
+    gctl = normwise(stages_swapped(grads, gnames), [ref[n] for n in gnames])
+    pnorm = normwise([params[n] for n in pnames], [ref[n] for n in pnames])
+    pctl = normwise(stages_swapped(params, pnames),
+                    [ref[n] for n in pnames])
+    mb = MPAR_BATCH // W.PP_MICRO
+    log(f"[model_parallel] pp: BERT-base encoder widths ({W.PP_LAYERS} "
+        f"blocks as {W.PP_STAGES} stages of {W.PP_LAYERS // W.PP_STAGES}) "
+        f"as a PipelineRegion, batch {MPAR_BATCH} x seq {TRAIN_SEQ} in "
+        f"{W.PP_MICRO} microbatches of {mb}, f32, dropout 0, Adam 1e-4, "
+        f"{MPAR_STEPS} steps over {{'pp': 2}}: losses {pp[0]['losses']} vs "
+        f"the one-card scan path {ref['losses']}, rel "
+        f"{['%.3e' % x for x in rel]}; step-1 stacked gradients normwise "
+        f"{gnorm:.3e} ({len(gnames)}; control, stages swapped: "
+        f"{gctl:.3e}); parameters after step {MPAR_STEPS} normwise "
+        f"{pnorm:.3e} (control {pctl:.3e}); K1/K3/K4 at [{mb} * 12, "
+        f"{TRAIN_SEQ}, 64]")
+    for r, t in zip(r2, pp):
+        log(f"  rank {r['rank']}: step ms "
+            f"{[round(x['ms'], 1) for x in t['steps']]}; stacked parameter "
+            f"+ moment bytes {t['stacked_bytes'] / 2**20:.1f} MiB against "
+            f"one card's {ref['whole_stacked_bytes'] / 2**20:.1f}; "
+            f"collectives a step (step 2) " + ", ".join(
+                f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB"
+                for k, v in t["steps"][1]["by_kind"].items())
+            + f"; launches a step {t['steps'][0]['launches']}; peak "
+            f"{t['peak_bytes'] / 2**30:.2f} GiB")
+    dppp = [r["dppp"] for r in r4]
+    bad = [r["dppp_nobcast"] for r in r4]
+    log(f"[model_parallel] dppp: {{'dp': 2, 'pp': 2}}, {W.DPPP_LAYERS} "
+        f"blocks, dropout 0.1, ZeRO-1, replica check every step: losses "
+        f"by rank {[d['losses'] for d in dppp]}; coords "
+        f"{[d['coords'] for d in dppp]}; {dppp[0]['zero_sharded']} state "
+        f"vars ZeRO-1 rows; step ms "
+        f"{[round(x['ms'], 1) for x in dppp[0]['steps']]}; launches a "
+        f"step {dppp[0]['steps'][0]['launches']}; control (the input's "
+        f"cotangent left on stage 0): ReplicaDivergenceError names "
+        f"{[b['named'] for b in bad]}")
+    mpar_check(np.isfinite(pp[0]["losses"]).all()
+               and rel[0] <= PPAR_STEP1_RTOL
+               and max(rel) <= PPAR_LOSS_RTOL,
+               f"pp losses part from the scan path (rel {rel})")
+    mpar_check(gnorm <= PPAR_GRAD_TOL < gctl,
+               f"pp gradients {gnorm:.3e} (control {gctl:.3e}) against "
+               f"{PPAR_GRAD_TOL}")
+    mpar_check(pnorm <= PPAR_PARAM_TOL < pctl,
+               f"pp parameters {pnorm:.3e} (control {pctl:.3e}) against "
+               f"{PPAR_PARAM_TOL}")
+    mpar_check(pp[0]["losses"] == pp[1]["losses"]
+               and pp[0]["digest"] == pp[1]["digest"],
+               "the pp ranks' losses or gathered parameters differ")
+    mpar_check(classify_shapes(TRAIN_SEQ, TRAIN_SEQ, 64)[0] != "unsupported",
+               "the stage's attention shape is one K1 refuses")
+    for t in pp:
+        mpar_check(t["stacked_bytes"] * 2 == ref["whole_stacked_bytes"],
+                   f"a pp rank holds {t['stacked_bytes']} stacked bytes of "
+                   f"{ref['whole_stacked_bytes']}")
+        for row in t["steps"]:
+            mpar_check(row["launches"] == PPAR_LAUNCHES,
+                       f"pp step launched {row['launches']}")
+    mpar_check(all(d["named"] is None and d["losses"] == dppp[0]["losses"]
+                   for d in dppp)
+               and len({d["replicated_digest"] for d in dppp}) == 1
+               and dppp[0]["stage_digest"] == dppp[2]["stage_digest"]
+               and dppp[1]["stage_digest"] == dppp[3]["stage_digest"]
+               and dppp[0]["stage_digest"] != dppp[1]["stage_digest"],
+               "the dp x pp replicas are not bit-identical")
+    for d in dppp:
+        for row in d["steps"]:
+            mpar_check(row["launches"] == DPPP_LAUNCHES,
+                       f"dppp step launched {row['launches']}")
+    mpar_check(all(b["named"] for b in bad),
+               f"the no-broadcast control raised nothing: {bad}")
+    launches = {"pp": {n: ref["launches"].get(n, 0)
+                       for n in K.KERNEL_SOURCES},
+                "dppp": {n: 0 for n in K.KERNEL_SOURCES}}
+    for leg, runs in (("pp", pp), ("dppp", dppp)):
+        for t in runs:
+            for row in t["steps"]:
+                for n, v in row["launches"].items():
+                    launches[leg][n] += v
+    return dict(losses=pp[0]["losses"], reference=ref["losses"],
+                launches_pp=launches["pp"],
+                launches_dppp=launches["dppp"],
+                loss_rel=rel, grads_normwise=gnorm, grads_control=gctl,
+                params_normwise=pnorm, params_control=pctl,
+                stacked_bytes=[t["stacked_bytes"] for t in pp],
+                whole_stacked_bytes=ref["whole_stacked_bytes"],
+                peak_bytes=[t["peak_bytes"] for t in pp],
+                collectives=pp[0]["steps"][1]["by_kind"],
+                step_ms=[x["ms"] for x in pp[0]["steps"]],
+                dppp_losses=[d["losses"] for d in dppp],
+                dppp_step_ms=[x["ms"] for x in dppp[0]["steps"]],
+                nobcast_named=[b["named"] for b in bad])
 
 
 def phase_model_parallel(seed):
@@ -9506,11 +9865,14 @@ def model_parallel_parts(seed):
             ref_launches[n] = ref_launches.get(n, 0) + v
         del exe, scope, out
         torch.cuda.empty_cache()
+        pp_ref = ppar_reference(seed)
         TIMES["model_parallel.reference"] = time.perf_counter() - t0
         # the launches, one after the other
-        r2 = mpar_launch(tmp, 2, ["tp", "tp_control", "ring"], "tp", seed)
+        r2 = mpar_launch(tmp, 2, ["tp", "tp_control", "ring", "pp"], "tp",
+                         seed)
         yield
-        r4 = mpar_launch(tmp, 4, ["dptp", "dptp_badseed"], "dptp", seed)
+        r4 = mpar_launch(tmp, 4, ["dptp", "dptp_badseed", "dppp",
+                                  "dppp_nobcast"], "dptp", seed)
         tp = [r["tp"] for r in r2]
         # tp: losses, step-1 gradients and parameters, with controls
         tp_losses = np.array(tp[0]["losses"])
@@ -9651,9 +10013,11 @@ def model_parallel_parts(seed):
             for row in r["dptp"]["steps"]:
                 for n, v in row["launches"].items():
                     launches[n] += v
+        pp = ppar_checks(tmp, r2, r4, pp_ref)
         for n in MPAR_ATTENTION:
             mpar_check(launches[n] > 0, f"{n} never launched")
         return dict(config="BertConfig.base() f32", batch=MPAR_BATCH,
+                    pipeline=pp,
                     seq=TRAIN_SEQ, reference_losses=ref_losses.tolist(),
                     tp_losses=tp_losses.tolist(), tp_loss_rel=rel,
                     tp_control_rel=ctl, tp_grads_normwise=grad_norm,
@@ -9917,7 +10281,9 @@ def main():
     # ranks, static and dygraph (K1, K3, K4; the ranks' counts and the
     # one-card reference's), and BERT-base tensor parallel (tp 2, dp 2 x
     # tp 2) with ring attention over sp 2 (K1, K3, K4; the ranks' counts
-    # and the one-card references'), each counted from 0 over its own run
+    # and the one-card references'), and BERT-base's encoder as a
+    # pipeline over pp 2 and dp 2 x pp 2 (K1, K3, K4; the ranks' counts
+    # and the one-card scan path's), each counted from 0 over its own run
     by_phase = {"serve": run["launches"], "serve_spec": spec["launches"],
                 "serve_batch": batched["launches"],
                 "serve_poison": poisoned["launches"],
@@ -9938,7 +10304,9 @@ def main():
                 "fleet": fleet["launches"], "gates": gates["launches"],
                 "ci_gates": ci_gates["launches"],
                 "data_parallel": dpar["launches"],
-                "model_parallel": mpar["launches"]}
+                "model_parallel": mpar["launches"],
+                "pp": mpar["pipeline"]["launches_pp"],
+                "dppp": mpar["pipeline"]["launches_dppp"]}
     launches = {n: sum(p[n] for p in by_phase.values())
                 for n in K.KERNEL_SOURCES}
     n_tok = sum(len(t) for t in run["tokens"])

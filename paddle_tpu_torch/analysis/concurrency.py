@@ -211,6 +211,18 @@ class _ClassInfo:
     attr_types: Dict[str, str] = dataclasses.field(default_factory=dict)
     methods: Dict[str, _FuncInfo] = dataclasses.field(default_factory=dict)
     prop_types: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # attr -> the class of the elements it holds (``List[X]`` and kin)
+    elem_types: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # the constructor's parameters in order, their annotated classes, the
+    # attrs stored straight from an unannotated one (attr -> param) and
+    # the attrs that fall back to another param's attr (attr -> (param,
+    # its attr)): typed after every module is read
+    # (``_Analyzer.type_ctor_params``)
+    init_params: List[str] = dataclasses.field(default_factory=list)
+    init_ann: Dict[str, str] = dataclasses.field(default_factory=dict)
+    param_attrs: Dict[str, str] = dataclasses.field(default_factory=dict)
+    attr_refs: Dict[str, Tuple[str, str]] = \
+        dataclasses.field(default_factory=dict)
 
 
 class _ModuleCollector:
@@ -356,7 +368,25 @@ class _ModuleCollector:
                 t = _ann_class(arg.annotation)
                 if t:
                     ann[arg.arg] = t
+        params = [a.arg for a in list(fn.args.args)[1:]
+                  + list(fn.args.kwonlyargs)]
+        if fn.name == "__init__":
+            ci.init_params = [a.arg for a in list(fn.args.args)[1:]]
+            ci.init_ann = dict(ann)
         for sub in ast.walk(fn):
+            if isinstance(sub, ast.AnnAssign) \
+                    and isinstance(sub.target, ast.Attribute) \
+                    and isinstance(sub.target.value, ast.Name) \
+                    and sub.target.value.id == "self":
+                # self.replicas: List[Replica] = []
+                elem = _elem_class(sub.annotation)
+                if elem:
+                    ci.elem_types.setdefault(sub.target.attr, elem)
+                else:
+                    t = _ann_class(sub.annotation)
+                    if t:
+                        ci.attr_types.setdefault(sub.target.attr, t)
+                continue
             if not (isinstance(sub, ast.Assign) and len(sub.targets) == 1):
                 continue
             tgt = sub.targets[0]
@@ -380,9 +410,25 @@ class _ModuleCollector:
             if t:
                 ci.attr_types.setdefault(attr, t)
                 continue
+            # self.x = p if p is not None else getattr(q, "x", None): p's
+            # type, else the type q's class gives its attr "x"
+            value = sub.value
+            if isinstance(value, ast.IfExp) \
+                    and isinstance(value.body, ast.Name) \
+                    and value.body.id in params:
+                ref = value.orelse
+                if isinstance(ref, ast.Call) and _dotted(ref.func) == \
+                        "getattr" and len(ref.args) >= 2 \
+                        and isinstance(ref.args[0], ast.Name) \
+                        and ref.args[0].id in params \
+                        and isinstance(ref.args[1], ast.Constant) \
+                        and isinstance(ref.args[1].value, str):
+                    ci.attr_refs.setdefault(
+                        attr, (ref.args[0].id, ref.args[1].value))
+                value = value.body
             # self.x = param  (annotated, or named like a lock)
-            if isinstance(sub.value, ast.Name):
-                pname = sub.value.id
+            if isinstance(value, ast.Name):
+                pname = value.id
                 if pname in ann:
                     t = ann[pname]
                     if t in ("Lock", "RLock"):
@@ -392,6 +438,9 @@ class _ModuleCollector:
                             attr=attr, line=sub.lineno, reentrant=True))
                     else:
                         ci.attr_types.setdefault(attr, t)
+                elif fn.name == "__init__" and pname in params \
+                        and not _lockish(pname):
+                    ci.param_attrs.setdefault(attr, pname)
                 elif _lockish(pname) and attr not in ci.locks:
                     # untyped lock-ish parameter (the registry's shared
                     # lock idiom): a lock node, assumed reentrant so an
@@ -496,6 +545,22 @@ def _ann_class(node) -> Optional[str]:
     return None
 
 
+def _elem_class(node) -> Optional[str]:
+    """The element class of a collection annotation (``List[X]``,
+    ``Sequence[X]``, ``Set[X]``, ``Tuple[X, ...]``, ``Iterable[X]``)."""
+    if not isinstance(node, ast.Subscript):
+        return None
+    base = (_dotted(node.value) or "").split(".")[-1]
+    if base not in ("List", "list", "Sequence", "Set", "set", "Tuple",
+                    "tuple", "Iterable", "FrozenSet", "Deque", "deque"):
+        return None
+    inner = node.slice
+    if isinstance(inner, ast.Tuple):
+        inner = inner.elts[0] if inner.elts else None
+    t = _ann_class(inner) if inner is not None else None
+    return t if t and t[0].isupper() and t != "Any" else None
+
+
 def _ctor_class(value) -> Optional[str]:
     """'Foo' for ``Foo(...)`` / ``mod.Foo(...)`` constructor calls."""
     if not isinstance(value, ast.Call):
@@ -551,6 +616,86 @@ class _Analyzer:
         self.relpaths[module] = relpath
         for ci in col.classes.values():
             self.class_index.setdefault(ci.name, []).append(ci)
+
+    def type_ctor_params(self) -> None:
+        """Type the attrs a constructor stores from an unannotated
+        parameter: from the one class its in-package callers pass there
+        (``Cls(arg)`` / ``Cls(name=arg)`` with ``arg`` a constructor call,
+        an annotated parameter, a local assigned a constructor call or a
+        typed ``self`` attr), then an ``x if x is not None else
+        getattr(p, "a", ...)`` fallback from ``p``'s type. Run after every
+        module is read, twice, so one typed attr can type the next."""
+        for _ in range(2):
+            passed: Dict[Tuple[str, str, str], Set[str]] = {}
+            for col in self.collectors.values():
+                self._caller_types(col, passed)
+            for col in self.collectors.values():
+                for ci in col.classes.values():
+                    for attr, p in ci.param_attrs.items():
+                        if attr in ci.attr_types:
+                            continue
+                        got = passed.get((ci.module, ci.name, p), set())
+                        if len(got) == 1:
+                            ci.attr_types[attr] = next(iter(got))
+                    for attr, (p, a) in ci.attr_refs.items():
+                        if attr in ci.attr_types:
+                            continue
+                        got = passed.get((ci.module, ci.name, p), set())
+                        t = ci.init_ann.get(p) or (
+                            next(iter(got)) if len(got) == 1 else None)
+                        other = self.find_class(t, ci.module) if t else None
+                        if other is not None and a in other.attr_types:
+                            ci.attr_types[attr] = other.attr_types[a]
+
+    def _caller_types(self, col, passed) -> None:
+        """Record, for every constructor call in ``col``'s functions, the
+        class of each argument that has one, by (module, class, param)."""
+        def funcs():
+            for node in col.tree.body:
+                if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    yield None, node
+                elif isinstance(node, ast.ClassDef):
+                    ci = col.classes.get(node.name)
+                    for stmt in node.body:
+                        if isinstance(stmt, (ast.FunctionDef,
+                                             ast.AsyncFunctionDef)):
+                            yield ci, stmt
+        for ci, fn in funcs():
+            env: Dict[str, str] = {}
+            for arg in list(fn.args.args) + list(fn.args.kwonlyargs):
+                t = _ann_class(arg.annotation) \
+                    if arg.annotation is not None else None
+                if t:
+                    env[arg.arg] = t
+            for sub in ast.walk(fn):
+                if isinstance(sub, ast.Assign) and len(sub.targets) == 1 \
+                        and isinstance(sub.targets[0], ast.Name):
+                    t = _ctor_class(sub.value)
+                    if t:
+                        env.setdefault(sub.targets[0].id, t)
+            for sub in ast.walk(fn):
+                if not isinstance(sub, ast.Call):
+                    continue
+                key = self._callee_key(col, ci, sub.func, {}, {})
+                if not key or key[1] is None or key[2] != "__init__":
+                    continue
+                kcol = self.collectors.get(key[0])
+                kci = kcol.classes.get(key[1]) if kcol else None
+                if kci is None:
+                    continue
+                pairs = list(zip(kci.init_params, sub.args)) + [
+                    (kw.arg, kw.value) for kw in sub.keywords if kw.arg]
+                for p, arg in pairs:
+                    t = _ctor_class(arg)
+                    if t is None and isinstance(arg, ast.Name):
+                        t = env.get(arg.id)
+                    if t is None and isinstance(arg, ast.Attribute):
+                        owner = self._class_of_expr(col, ci, arg.value, env)
+                        t = owner.attr_types.get(arg.attr) \
+                            if owner is not None else None
+                    if t and self.find_class(t, col.module) is not None:
+                        passed.setdefault((kci.module, kci.name, p),
+                                          set()).add(t)
 
     def find_class(self, name: str, prefer_module: str) -> \
             Optional[_ClassInfo]:
@@ -665,6 +810,11 @@ class _Analyzer:
                 self._record_attr_target(ci, info, tgt, held, site)
             self._walk_expr(col, ci, info, stmt.value, held, env, kinds)
             return
+        if isinstance(stmt, ast.For) and isinstance(stmt.target, ast.Name):
+            # for r in list(self.router.replicas): r is a Replica
+            t = self._elem_of(col, ci, stmt.iter, env)
+            if t:
+                env[stmt.target.id] = t
         if isinstance(stmt, ast.AugAssign):
             self._record_attr_target(ci, info, stmt.target, held, site)
             # an augmented write also reads
@@ -908,6 +1058,34 @@ class _Analyzer:
                     fkey = self._callee_key(col, ci, arg, env, kinds)
                     if fkey is not None and fkey[1] is None:
                         info.calls.append((held, fkey, site))
+
+    def _elem_of(self, col, ci, it, env) -> Optional[str]:
+        """The element class of an iterated expression: an attr a class
+        types as a collection (``self.x`` or ``<typed>.x``, through
+        ``self.<typed attr>.x``), under ``list``/``tuple``/``sorted``."""
+        while isinstance(it, ast.Call) and isinstance(it.func, ast.Name) \
+                and it.func.id in ("list", "tuple", "sorted") and it.args:
+            it = it.args[0]
+        if not isinstance(it, ast.Attribute):
+            return None
+        owner = self._class_of_expr(col, ci, it.value, env)
+        return owner.elem_types.get(it.attr) if owner is not None else None
+
+    def _class_of_expr(self, col, ci, expr, env) -> Optional[_ClassInfo]:
+        """The class of ``self``, a typed local or ``<one of those>.attr``."""
+        if isinstance(expr, ast.Name):
+            if expr.id == "self":
+                return ci
+            t = env.get(expr.id)
+            return self.find_class(t, col.module) if t else None
+        if isinstance(expr, ast.Attribute):
+            owner = self._class_of_expr(col, ci, expr.value, env)
+            if owner is None:
+                return None
+            t = owner.attr_types.get(expr.attr) \
+                or owner.prop_types.get(expr.attr)
+            return self.find_class(t, col.module) if t else None
+        return None
 
     def _callee_key(self, col, ci, func, env, kinds) -> Optional[Tuple]:
         """(module, class, name) the call/reference resolves to, or None."""
@@ -1363,6 +1541,7 @@ def analyze_paths(paths: Sequence[str],
     for p in paths:
         mod, rel = _module_name(p, root)
         analyzer.load(p, mod, rel)
+    analyzer.type_ctor_params()
     return _analyze(analyzer)
 
 

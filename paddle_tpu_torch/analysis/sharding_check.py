@@ -26,9 +26,15 @@ backward-role ops the parameter gradients it sums across ``dp`` and the
 partial input gradients it sums across ``tp``; an all-gather event over a
 model axis is an input it gathers before the op.
 
-Where the port's rules differ from the JAX package's, they differ only on
-a model axis (``tp``, ``sp``; never ``dp``, whose events and findings stay
-the JAX ones), and each makes the events the ones GSPMD places:
+Where the port's rules differ from the JAX package's, they differ on a
+model axis (``tp``, ``sp``, ``pp``) or where the JAX rule records a
+collective over ``dp`` that GSPMD never runs, and each makes the events
+the ones GSPMD places:
+
+* a reduction over listed dims (``reduce_sum``/``mean``/``max``/``min``
+  with ``dim``) keeps the specs of the dims it keeps, so a sum over a
+  row's fields stays batch-sharded; the JAX rule replicates the output
+  and records an all-reduce over ``dp`` (DeepFM's field sums);
 
 * a reshape carries a model axis through a split or merge of the dim it
   shards when the outermost dim of the aligned group divides (the
@@ -43,7 +49,19 @@ the JAX ones), and each makes the events the ones GSPMD places:
   logits and give replicated outputs (the gradient of the logits keeps
   their spec);
 * an input an op gathers over a model axis counts as whole on that axis
-  for the partial-sum rule, so no all-reduce follows the gather.
+  for the partial-sum rule, so no all-reduce follows the gather;
+* the ``pipeline`` op (``layers.PipelineRegion``) consumes its
+  ``pp``-stacked parameters locally (each rank holds its stage's slice)
+  and keeps ``X`` and ``Out`` replicated over ``pp``: ``Out`` takes
+  ``X``'s spec and no collective is recorded for the stage slices; its
+  grad gives ``X@GRAD`` the spec of ``X`` and each stacked gradient its
+  parameter's spec, with the ``dp`` all-reduce of the data-parallel
+  gradient when ``X`` is batch-sharded. The shift of the activations
+  between stages and the replication of ``Out`` and ``X@GRAD`` over
+  ``pp`` happen inside the op (``parallel/pipeline.py``), as ring
+  attention's exchanges do inside its op. The JAX package's analysis has
+  no rule for the op (its generic rule records an all-reduce over ``pp``
+  of ``Out``, a cost estimate of the schedule's ``psum``).
 
 Registered as analysis pass ``sharding_check`` (requires ``liveness``).
 The pass reads its inputs from ``PassContext.options``:
@@ -102,6 +120,9 @@ _LAYOUT_TYPES = frozenset({
     "concat", "slice", "assign", "shape", "lookup_table",
     "fill_constant_batch_size_like",
 })
+# ops whose rule records every collective they imply (the pipeline's
+# stage slices are consumed locally): the partial-sum rule skips them
+_SELF_PLACED = frozenset({"pipeline", "pipeline_grad"})
 
 
 def normalize_spec(spec: Optional[Sequence], ndim: int) -> Spec:
@@ -448,7 +469,7 @@ class _Propagator:
         over sharded data — the output needs an all-reduce over α. Layout
         ops move data without summing, so they are exempt (their own rules
         record the gather/reshard they imply)."""
-        if op.type in _LAYOUT_TYPES:
+        if op.type in _LAYOUT_TYPES or op.type in _SELF_PLACED:
             return
         for out, osp in out_specs.items():
             out_shape = self.shape_of(blk, out)
@@ -890,6 +911,57 @@ class _Propagator:
                             "vocab-sharded embedding lookup")
         return {out: tuple(osp)}
 
+    def _rule_reduce(self, op, blk, oi) -> Dict[str, Spec]:
+        """A reduction over listed dims keeps the specs of the dims it
+        keeps (None where ``keep_dim`` leaves a reduced dim as size 1);
+        the partial-sum rule then records an all-reduce only for an axis
+        a reduced dim was sharded on. No listed dims, ``reduce_all`` or an
+        unrecorded shape: the generic rule."""
+        x = (op.input("X") or [EMPTY])[0]
+        out = (op.output("Out") or [EMPTY])[0]
+        xshape, oshape = self.shape_of(blk, x), self.shape_of(blk, out)
+        dims = op.attrs.get("dim")
+        dims = [dims] if isinstance(dims, int) else list(dims or [])
+        if xshape is None or oshape is None or not dims \
+                or op.attrs.get("reduce_all"):
+            return self._generic_rule(op, blk, oi)
+        nd = len(xshape)
+        dims = {int(d) % nd for d in dims}
+        xs = normalize_spec(self.spec_of(blk, x), nd)
+        if op.attrs.get("keep_dim"):
+            osp = [None if d in dims else xs[d] for d in range(nd)]
+        else:
+            osp = [xs[d] for d in range(nd) if d not in dims]
+        if len(osp) != len(oshape):
+            return self._generic_rule(op, blk, oi)
+        return {out: tuple(osp)}
+
+    def _rule_pipeline(self, op, blk, oi) -> Dict[str, Spec]:
+        x = (op.input("X") or [EMPTY])[0]
+        out = (op.output("Out") or [EMPTY])[0]
+        return {out: self.spec_of(blk, x)} if out != EMPTY else {}
+
+    def _rule_pipeline_grad(self, op, blk, oi) -> Dict[str, Spec]:
+        x = (op.input("X") or [EMPTY])[0]
+        xs = self.spec_of(blk, x)
+        out: Dict[str, Spec] = {}
+        for g in op.output("X@GRAD"):
+            if g != EMPTY:
+                out[g] = xs
+        batch = [a for a in xs if a is not None]
+        for p, g in zip(op.input("StackedParams"),
+                        op.output("StackedParams@GRAD")):
+            if g == EMPTY:
+                continue
+            out[g] = self.spec_of(blk, p)
+            for a in batch:
+                if a not in out[g]:
+                    self.collective(
+                        "all_reduce", a, g, self.bytes_of(blk, g), blk, oi,
+                        f"'{op.type}' sums a stage gradient over data "
+                        f"sharded on '{a}' (partial sums per chip)")
+        return out
+
     def _rule_fill_like(self, op, blk, oi) -> Dict[str, Spec]:
         # fill_constant_batch_size_like: dim0 follows the reference input
         out = (op.output("Out") or [EMPTY])[0]
@@ -1075,6 +1147,12 @@ _RULES = {
     "concat": _Propagator._rule_concat,
     "slice": _Propagator._rule_slice,
     "lookup_table": _Propagator._rule_lookup_table,
+    "pipeline": _Propagator._rule_pipeline,
+    "reduce_sum": _Propagator._rule_reduce,
+    "reduce_mean": _Propagator._rule_reduce,
+    "reduce_max": _Propagator._rule_reduce,
+    "reduce_min": _Propagator._rule_reduce,
+    "pipeline_grad": _Propagator._rule_pipeline_grad,
     "fill_constant_batch_size_like": _Propagator._rule_fill_like,
     "batch_norm": _rule_same_as_input("X", "Y"),
     "layer_norm": _rule_same_as_input("X", "Y"),

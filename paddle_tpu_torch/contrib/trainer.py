@@ -25,7 +25,7 @@ The resilience stack, as far as one card goes:
   (``elastic.classify_device_error``; the ``device_lost`` fault site
   injects one) propagates as a typed ``DeviceLostError`` with the last
   verified checkpoint intact. Re-forming the group on the survivors is
-  ROADMAP Queue A item 6 (slice 27);
+  ROADMAP Queue A item 6 (slice 28);
 * **sharded checkpoints** (``CheckpointConfig(sharded=True)``): the
   format-2 checkpoint, each rank writing its rows of the ZeRO-1 state;
 * **divergence restore** (``FLAGS_replica_divergence_policy=restore``):

@@ -454,6 +454,39 @@ def _ring_exchange(t, group, ranks, shift: int = 1):
     return recv.to(t.device, non_blocking=False) if staged else recv
 
 
+def _shift(t, group, ranks, send: bool, recv: bool, like, step: int = 1):
+    """Non-circular point to point along the line ``ranks`` (``group``'s
+    ranks in coordinate order): with ``send`` this rank sends ``t`` to the
+    rank ``step`` places on, with ``recv`` it returns what the rank
+    ``step`` places back sent (the shape, dtype and device of ``like``),
+    else None. A rank past either end of the line neither sends nor
+    receives there: unlike :func:`_ring_exchange`, nothing wraps around.
+    Every send must meet the receive its peer posts in the same call. Gloo
+    takes no CUDA tensor for a send, so a CUDA tensor is staged through
+    the host there."""
+    if not _active() or len(ranks) <= 1 or not (send or recv):
+        return None
+    import torch
+    import torch.distributed as tdist
+
+    me = ranks.index(get_rank())
+    staged = like.is_cuda and _state["backend"] != "nccl"
+    ops, buf = [], None
+    if send:
+        out = (t.cpu() if staged else t).contiguous()
+        ops.append(tdist.P2POp(tdist.isend, out, ranks[me + step], group))
+    if recv:
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if staged else like.device)
+        ops.append(tdist.P2POp(tdist.irecv, buf, ranks[me - step], group))
+    with _counted(out if send else buf, "send_recv"):
+        for r in tdist.batch_isend_irecv(ops):
+            r.wait()
+    if buf is None:
+        return None
+    return buf.to(like.device, non_blocking=False) if staged else buf
+
+
 def all_gather_object(arr) -> list:
     """Gather a numpy array from every process; a list indexed by rank."""
     if not _active():

@@ -111,7 +111,10 @@ generation; the key's compile event makes the collective plan
 (``_Step.dp``), which runs each op with its collectives and folds the
 rank into the step seed; the nan check gains one entry, the other
 ranks' verdict, so the ranks trip together; the replica check runs after
-the step.
+the step. A gradient-merge program under it runs its microbatch loop
+inside the parallel step: each microbatch's ops are placed by the plan,
+and the merged gradients are summed over ``dp`` once, before the
+update.
 
 ``FLAGS_check_nan_inf`` (the reference's protocol, ``unpack_step_result``):
 ``run`` collects one finite check per float op output on the device
@@ -658,14 +661,24 @@ class Executor:
                     f"divisible by num_microbatches={M}")
         acc: List[torch.Tensor] = []
         fetched: Dict[str, torch.Tensor] = {}
+        dp = step.dp
+
+        def step_ctx(**kw):
+            seed = self._next_seed(program)
+            ctx = LowerCtx(self.device, seed=seed if dp is None
+                           else dp.fold_seed(seed),
+                           gemm_blocks=step.gemm_blocks, program=program,
+                           **kw)
+            if dp is not None:
+                ctx.dp, ctx.mesh = dp.ctx, dp.mesh
+            return ctx
+
         with torch.no_grad():
             for i in range(M):
                 env: Dict[str, Any] = {
                     n: v[i * (v.shape[0] // M):(i + 1) * (v.shape[0] // M)]
                     for n, v in feed_tensors.items()}
-                ctx = LowerCtx(self.device, seed=self._next_seed(program),
-                               gemm_blocks=step.gemm_blocks,
-                               program=program)
+                ctx = step_ctx()
                 self._run_ops(step, plan.fb, env, ctx, scope)
                 if not acc:
                     acc = [torch.zeros_like(self._state(p, program, scope))
@@ -679,6 +692,9 @@ class Executor:
                 del env, ctx
             env = {g: a.div_(M) if plan.avg else a
                    for g, a in zip(plan.grads, acc)}
+            if dp is not None:
+                # the merged gradients summed over dp once
+                dp._sum_grads(env)
             if checks is not None:
                 for g, a in zip(plan.grads, acc):
                     checks.append((f"accumulated gradient '{g}' "
@@ -687,12 +703,11 @@ class Executor:
                 for n in plan.fb_state:
                     checks.append((f"carried state '{n}' (microbatch scan)",
                                    _finite_check(scope.find_var(n))))
-            ctx = LowerCtx(self.device, seed=self._next_seed(program),
-                           gemm_blocks=step.gemm_blocks, program=program,
-                           nan_checks=checks, num_taps=taps)
+            ctx = step_ctx(nan_checks=checks, num_taps=taps)
             self._run_ops(step, plan.tail, env, ctx, scope)
         env.update(fetched)
-        return self._fetch(step, env, fetch_names, scope)
+        fetches = self._fetch(step, env, fetch_names, scope)
+        return fetches if dp is None else dp.gathered(fetch_names, fetches)
 
     @staticmethod
     def _rollback_image(step, scope):

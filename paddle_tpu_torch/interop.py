@@ -35,10 +35,13 @@ def scope_from_numpy(arrays: Dict[str, np.ndarray], scope, place,
                      rules=None, rank: Optional[int] = None):
     """Plant ``arrays`` (name -> array) in ``scope`` as tensors on
     ``place``. A var declared in one of ``programs`` gets its declared
-    dtype; others keep the array's dtype. With a ``mesh`` and ``rules``
-    (``parallel.sharding.ShardingRules``), a var the rules shard over
-    ``programs`` is cut to the shard of ``rank``'s coordinates (default:
-    this process's rank). Returns ``scope``."""
+    dtype; others keep the array's dtype. With a ``mesh``, a var the
+    parallel step shards over ``programs`` is cut to the shard of
+    ``rank``'s coordinates (default: this process's rank): the
+    ``pp``-stacked slices of a ``PipelineRegion``, the ``dp`` rows of an
+    ``is_distributed`` table, and with ``rules``
+    (``parallel.sharding.ShardingRules``) the vars they shard. Returns
+    ``scope``."""
     programs = list(programs or ())
     declared = {}
     for prog in programs:
@@ -46,7 +49,7 @@ def scope_from_numpy(arrays: Dict[str, np.ndarray], scope, place,
             for name, var in blk.vars.items():
                 declared.setdefault(name, var.dtype)
     specs = {}
-    if mesh is not None and rules is not None:
+    if mesh is not None:
         from .parallel.sharding import extract_param_specs
 
         for prog in programs:
@@ -55,11 +58,10 @@ def scope_from_numpy(arrays: Dict[str, np.ndarray], scope, place,
     device = place.torch_device()
     for name, arr in arrays.items():
         spec = specs.get(name)
-        if spec and any(a not in (None, "dp") for a in spec):
+        if spec and any(a is not None for a in spec):
             from .parallel.sharding import shard_of
 
-            arr = shard_of(np.asarray(arr), tuple(
-                a if a != "dp" else None for a in spec), mesh, rank)
+            arr = shard_of(np.asarray(arr), spec, mesh, rank)
         t = torch.from_numpy(np.array(arr, copy=True))
         dt = torch_dtype(declared[name]) if name in declared else t.dtype
         scope.set_var(name, t.to(device=device, dtype=dt))

@@ -24,6 +24,8 @@ from .rnn import (DynamicRNN, dynamic_lstm, dynamic_lstmp,  # noqa: F401
                   dynamic_gru, gru_unit, lstm, warpctc)
 from . import rnn  # noqa: F401
 from . import detection, distributions  # noqa: F401
+from .pipeline import PipelineRegion  # noqa: F401
+from . import pipeline  # noqa: F401
 from .learning_rate_scheduler import (cosine_decay, exponential_decay,  # noqa: F401
                                       inverse_time_decay, linear_lr_warmup,
                                       natural_exp_decay, noam_decay,

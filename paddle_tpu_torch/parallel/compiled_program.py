@@ -46,7 +46,29 @@ events it derives from spec transitions, with the layout of
 * the parameter gradients the analysis marks dp-partial are summed
   across ``dp`` after the last backward op, bucketed by dtype in the
   program's order of the gradients (one collective a dtype, so a run
-  repeats bit for bit); then the update runs on each rank's shards.
+  repeats bit for bit); a sparse (SelectedRows) gradient of a replicated
+  table is summed by all-gathering every rank's rows and values and
+  merging them in rank order (``core.selected_rows.merge_rows``), so a run
+  repeats bit for bit too; then the update runs on each rank's shards.
+* an ``is_distributed`` table whose height ``dp`` divides is held as
+  this rank's rows (``zero1_spec_for``), with its same-height optimizer
+  state and its gradient. Its lookup (the analysis's all-reduce over
+  ``dp`` at a lookup into a dp-sharded table) all-gathers the ranks' ids,
+  looks up the rows this rank owns (zeros elsewhere, ``padding_idx``
+  shifted) and sums the result over ``dp``, keeping this rank's batch
+  rows; the gradient all-gathers the output gradient, and each rank
+  builds the SelectedRows gradient of its own rows over the global batch,
+  which needs no further sum. A sparse lookup into a ``tp``
+  vocab-sharded table reads its shard's rows the same way on its own ids.
+* a ``pipeline`` op on a mesh with a ``pp`` axis runs the GPipe schedule
+  (``parallel/pipeline.py``) inside the op; its stacked parameters and
+  their optimizer state are held as this rank's stage slice, and their
+  gradients are summed over ``dp`` with the others.
+* gradient merge (``GradientMergeOptimizer``/``PipelineOptimizer``): the
+  executor's microbatch loop runs inside the parallel step, each
+  microbatch's forward and backward placed as above, and the merged
+  gradients are summed over ``dp`` once, after the last microbatch,
+  before the update.
 
 A sharded var the scope holds whole (the startup run, a restored
 checkpoint, ``interop.scope_from_numpy``) is cut to this rank's shard at
@@ -123,13 +145,13 @@ LAUNCHER_HINT = ("launch one process per card with "
                  "--nproc_per_node N script.py`")
 
 RESCALE_REFUSAL = ("elastic re-forming of the process group across ranks "
-                   "is ROADMAP Queue A item 6 (slice 27)")
+                   "is ROADMAP Queue A item 6 (slice 28)")
 
 
 def data_parallel_mesh(places=None) -> Mesh:
     """A ``{'dp': world}`` mesh over the launched ranks. ``places``: None,
-    one place (this rank's), or a ready :class:`Mesh` of ``dp``, ``tp``
-    and ``sp`` axes over every launched rank; several places in one
+    one place (this rank's), or a ready :class:`Mesh` of ``dp``, ``tp``,
+    ``sp`` and ``pp`` axes over every launched rank; several places in one
     process raise (one process drives one card)."""
     world = _dist.get_world_size()
     if isinstance(places, Mesh):
@@ -223,6 +245,25 @@ def _model_axes(spec) -> list:
             and a != "dp"]
 
 
+def _dp_rows(spec) -> bool:
+    """An ``is_distributed`` table's layout: its rows over ``dp``."""
+    return bool(spec) and spec[0] == "dp" and not _model_axes(spec)
+
+
+def _sharded_rows_grad(ids, gout, height, off, pad):
+    """The SelectedRows gradient (``merge_rows``) of a sparse lookup into
+    this rank's ``height`` rows from ``off`` on: ids outside them, and the
+    padding id, go to the sentinel row ``height`` (no gradient)."""
+    from ..core.selected_rows import merge_rows
+
+    flat = ids.reshape(-1).long()
+    out = (flat < off) | (flat >= off + height)
+    if pad is not None and pad != -1:
+        out = out | (flat == pad)
+    flat = torch.where(out, torch.full_like(flat, height), flat - off)
+    return merge_rows(flat, gout.reshape(flat.shape[0], -1), height)
+
+
 class _DPPlan:
     """Where one program's collectives go over the mesh (see the module
     docstring), from the sharding analysis over the mesh with the rules'
@@ -267,11 +308,16 @@ class _DPPlan:
         # from whole values at the first step
         read = {n for op in ops for n in op.input_arg_names}
         self.state_specs = {n: sp for n, sp in analysis.param_specs.items()
-                            if _model_axes(sp) and n in read}
+                            if (_model_axes(sp) or _dp_rows(sp))
+                            and n in read}
         roles = [op.attrs.get("__op_role__", OpRole.Forward) for op in ops]
         backward = [i for i, r in enumerate(roles) if r == OpRole.Backward]
-        # the parameter gradients are summed right after this op
+        # the parameter gradients are summed right after this op; under
+        # gradient merge once a step, after the last microbatch
+        # (``Executor._run_microbatched`` calls ``_sum_grads``)
         self.bucket_after = backward[-1] if backward else None
+        self.merging = int(getattr(program, "_pipeline_microbatches",
+                                   1)) > 1
         params = {p.name for p in program.all_parameters()}
         self.forward: Dict[int, List[tuple]] = {}
         self.grad_scale: Dict[int, float] = {}
@@ -301,6 +347,9 @@ class _DPPlan:
                 continue
             if ev.kind != "all_reduce":
                 continue
+            if op.type == "lookup_table" and _dp_rows(
+                    self.state_specs.get(op.input("W")[0])):
+                continue                # a dp-row lookup: _localize
             if model:
                 self.partial.setdefault(ev.op_idx, []).append(
                     (ev.var, model[0]))
@@ -345,6 +394,7 @@ class _DPPlan:
         # makes whole where the analysis keeps them sharded are cut back
         self.local_ops: Dict[int, object] = {}
         self.lookups: Dict[int, tuple] = {}
+        self.row_lookups: Dict[int, tuple] = {}
         self.conform: Dict[int, List[tuple]] = {}
         for i, op in enumerate(ops):
             self._localize(i, op, blk, specs)
@@ -380,7 +430,8 @@ class _DPPlan:
         self.zero_updates: List[int] = []
         if zero1 and self.world > 1:
             for v in blk.vars.values():
-                if not v.persistable or not v.shape:
+                if not v.persistable or not v.shape \
+                        or _dp_rows(self.state_specs.get(v.name)):
                     continue
                 local = local_shape(v.shape, self.state_specs.get(v.name),
                                     mesh.shape)
@@ -401,8 +452,9 @@ class _DPPlan:
                         f"ZeRO-1: update op '{op.type}'{_op_site(op)} "
                         f"reduces over the whole parameter "
                         f"'{op.input('Param')[0]}' (its norms); it cannot "
-                        f"run on a row shard. Use ReduceStrategy."
-                        f"AllReduce for {op.type}")
+                        f"run on a row shard (ROADMAP Queue A item 6, "
+                        f"slice 28). Use ReduceStrategy.AllReduce for "
+                        f"{op.type}")
                 self.zero_updates.append(i)
         self._zero_at = frozenset(self.zero_updates)
         # fetches held sharded: gathered in coordinate order (dp rows,
@@ -436,15 +488,7 @@ class _DPPlan:
         if op.type in _LOOKUPS:
             w = op.input("W")[0]
             sp = self.state_specs.get(w) or specs.get(w) or ()
-            if sp and sp[0] is not None and sp[0] != "dp" \
-                    and mesh.get(sp[0], 1) > 1:
-                if op.attrs.get("is_sparse") or \
-                        op.attrs.get("is_distributed"):
-                    raise NotImplementedError(
-                        f"parallel step: a sparse lookup into '{w}', "
-                        f"sharded over '{sp[0]}'{_op_site(op)}: row-sharded "
-                        f"sparse tables are ROADMAP Queue A item 6, "
-                        f"slice 27")
+            if sp and sp[0] is not None and mesh.get(sp[0], 1) > 1:
                 rows = int(blk._var_recursive(w).shape[0]) // mesh[sp[0]]
                 off = self.mesh.coord(sp[0], self.rank) * rows
                 pad = op.attrs.get("padding_idx", -1)
@@ -453,7 +497,10 @@ class _DPPlan:
                     local.attrs = dict(local.attrs, padding_idx=(
                         pad - off if off <= pad < off + rows else -1))
                     self.local_ops[i] = local
-                self.lookups[i] = (op.input("Ids")[0], off, rows)
+                if sp[0] == "dp":
+                    self.row_lookups[i] = (op.input("Ids")[0], off, rows)
+                else:
+                    self.lookups[i] = (op.input("Ids")[0], off, rows)
         for n in op.output_arg_names:
             sp = specs.get(n)
             if n == EMPTY_VAR_NAME or not _model_axes(sp):
@@ -484,6 +531,14 @@ class _DPPlan:
         run = self.local_ops.get(i, op)
         if i in self._zero_at:
             self._zero_update(run, env, ctx)
+        elif i in self.row_lookups:
+            self._row_lookup(i, op, run, env, ctx)
+        elif i in self.lookups and run.type == "lookup_table_grad" and (
+                op.attrs.get("is_sparse") or op.attrs.get("is_distributed")):
+            ids_name, off, rows = self.lookups[i]
+            env[op.output("W@GRAD")[0]] = _sharded_rows_grad(
+                env[ids_name], env[op.input("Out@GRAD")[0]], rows, off,
+                op.attrs.get("padding_idx", -1))
         elif i in self.gathers or i in self.lookups:
             local = dict(env)
             for var, a in self.gathers.get(i, ()):
@@ -525,16 +580,42 @@ class _DPPlan:
                 v = env.get(n)
                 if isinstance(v, torch.Tensor) and v.is_floating_point():
                     env[n] = v * scale
-        if i == self.bucket_after:
+        if i == self.bucket_after and not self.merging:
             self._sum_grads(env)
 
-    def _shift_ids(self, i, op, local):
+    def _row_lookup(self, i, op, run, env, ctx) -> None:
+        """A lookup into a table held as this rank's ``dp`` rows, or its
+        grad (see the module docstring): every rank's ids gathered, this
+        rank's rows looked up and the result summed over ``dp``; the
+        gradient of this rank's rows over the gathered output gradient."""
+        ids_name, off, rows = self.row_lookups[i]
+        ids = _dist._all_gather(env[ids_name].contiguous(), self.dp_group)
+        if op.type == "lookup_table_grad":
+            g = _dist._all_gather(env[op.input("Out@GRAD")[0]].contiguous(),
+                                  self.dp_group)
+            env[op.output("W@GRAD")[0]] = _sharded_rows_grad(
+                ids, g, rows, off, op.attrs.get("padding_idx", -1))
+            return
+        local = dict(env)
+        local[ids_name] = ids
+        mask = self._shift_ids(i, run, local, self.row_lookups)
+        lower_op(run, local, ctx)
+        o = run.output("Out")[0]
+        whole = torch.where(mask.reshape(local[o].shape[:-1] + (1,)),
+                            local[o], torch.zeros((), dtype=local[o].dtype,
+                                                  device=local[o].device))
+        whole = _dist._all_reduce(whole.contiguous(), group=self.dp_group)
+        k = whole.shape[0] // self.world
+        env[o] = whole[self.dp_rank * k:(self.dp_rank + 1) * k]
+
+    def _shift_ids(self, i, op, local, lookups=None):
         """A vocab-shard lookup (or its grad): the ids moved onto this
         shard's rows (others to row 0) and, for the grad, their output
         gradient rows zeroed; returns the in-shard mask."""
-        if i not in self.lookups:
+        lookups = self.lookups if lookups is None else lookups
+        if i not in lookups:
             return None
-        ids_name, off, rows = self.lookups[i]
+        ids_name, off, rows = lookups[i]
         ids = local[ids_name]
         inside = (ids >= off) & (ids < off + rows)
         local[ids_name] = torch.where(inside, ids - off,
@@ -580,16 +661,21 @@ class _DPPlan:
 
     def _sum_grads(self, env) -> None:
         """The parameter gradients summed over the dp ranks: one flat
-        all-reduce a dtype, in the order the backward wrote them."""
+        all-reduce a dtype, in the order the backward wrote them; a
+        sparse one by gathering every rank's rows and values and merging
+        them in rank order."""
+        from ..core.selected_rows import is_selected_rows, merge_rows
+
         if self.world <= 1 or not self.grads:
             return
         live = [g for g in self.grads if g in env]
-        for g in live:
-            if not isinstance(env[g], torch.Tensor):
-                raise NotImplementedError(
-                    f"data parallel: '{g}' is a sparse gradient; sum it "
-                    f"densely (is_sparse=False) or shard the table "
-                    f"(ROADMAP Queue A item 6, slice 27)")
+        for g in [g for g in live if is_selected_rows(env[g])]:
+            sr = env[g]
+            env[g] = merge_rows(
+                _dist._all_gather(sr.rows.contiguous(), self.dp_group),
+                _dist._all_gather(sr.values.contiguous(), self.dp_group),
+                sr.height)
+        live = [g for g in live if isinstance(env[g], torch.Tensor)]
         for dt in dict.fromkeys(env[g].dtype for g in live):
             group = [g for g in live if env[g].dtype == dt]
             flat = torch.cat([env[g].reshape(-1) for g in group])
@@ -619,6 +705,14 @@ class _DPPlan:
                 continue
             env[n] = _dist._all_gather(local[n], self.dp_group) \
                 if n == param else local[n]
+
+
+def _scope_dict(scope, attr) -> dict:
+    d = getattr(scope, attr, None)
+    if d is None:
+        d = {}
+        setattr(scope, attr, d)
+    return d
 
 
 class _Shaped:
@@ -733,12 +827,6 @@ class CompiledProgram:
         event)."""
         from ..executor import _feed_batch_rows
 
-        if int(getattr(program, "_pipeline_microbatches", 1)) > 1:
-            raise NotImplementedError(
-                "data parallel with gradient merge "
-                "(GradientMergeOptimizer/PipelineOptimizer): the "
-                "microbatch loop does not place the parallel step's "
-                "collectives; use one or the other")
         plan = _DPPlan(program, self._mesh, sorted(feed), names,
                        _feed_batch_rows(feed), self._zero1(), self._rules)
         self._observe_static_sharding(program, names, feed)
@@ -761,14 +849,13 @@ class CompiledProgram:
         self._shard_zero_state(exe, step.program, plan, scope)
 
     def _shard_model_state(self, exe, program, plan, scope) -> None:
-        """Cut each var sharded over a model axis that the scope holds
-        whole to this rank's shard, and record the layout on the scope
-        (``scope._mesh_shards``: name -> spec) for the replica check."""
+        """Cut each var sharded over a model axis, or held as its ``dp``
+        rows, that the scope holds whole to this rank's shard, and record
+        the layout on the scope (``scope._mesh_shards``: name -> spec;
+        ``dp`` rows in ``scope._dp_shards``, as ZeRO-1's, for the sharded
+        checkpoint) for the replica check."""
         if not plan.state_specs:
             return
-        shards = getattr(scope, "_mesh_shards", None)
-        if shards is None:
-            shards = scope._mesh_shards = {}
         blk = program.global_block
         for n, spec in plan.state_specs.items():
             whole = tuple(blk._var_recursive(n).shape)
@@ -785,7 +872,10 @@ class CompiledProgram:
                     f"parallel step: '{n}' holds {tuple(v.shape)} in the "
                     f"scope; want {whole} (whole) or {local} (this rank's "
                     f"shard under {spec})")
-            shards[n] = tuple(spec)
+            if _dp_rows(spec):
+                _scope_dict(scope, "_dp_shards")[n] = (0, plan.world)
+            else:
+                _scope_dict(scope, "_mesh_shards")[n] = tuple(spec)
 
     def _shard_zero_state(self, exe, program, plan, scope) -> None:
         """Cut each ZeRO-1 state var the scope holds whole (the startup
@@ -795,9 +885,7 @@ class CompiledProgram:
         if not plan.zero_state:
             return
         rank, world = plan.dp_rank, plan.world
-        shards = getattr(scope, "_dp_shards", None)
-        if shards is None:
-            shards = scope._dp_shards = {}
+        shards = _scope_dict(scope, "_dp_shards")
         for n, rows in plan.zero_state.items():
             v = exe._state(n, program, scope)
             if v.shape[0] == rows:
@@ -838,7 +926,7 @@ class CompiledProgram:
             _monitor.counter(
                 "resilience_divergence_checks_total",
                 "cross-replica consistency sweeps run").inc()
-        shard_axes = {n: tuple(a for _, a in _model_axes(sp))
+        shard_axes = {n: tuple(a for a in sp if a is not None)
                       for n, sp in plan.state_specs.items()}
         diverged = _rdist.replica_divergence_check(
             self._mesh, values, shard_axes=shard_axes)

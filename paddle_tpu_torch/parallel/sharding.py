@@ -12,9 +12,12 @@ rules' specs are the layout ``parallel/compiled_program.py`` runs and
 ``analysis.sharding_check`` reasons about, one source for both.
 
 Axes: ``dp`` (the batch), ``tp`` (tensor parallel: the params the rules
-shard, Megatron-style) and ``sp`` (sequence parallel: ring attention in
-``fused_multihead_attention(sequence_parallel=True)``). A ``pp`` axis
-raises (pipeline parallelism is ROADMAP Queue A item 6, slice 27).
+shard, Megatron-style), ``sp`` (sequence parallel: ring attention in
+``fused_multihead_attention(sequence_parallel=True)``) and ``pp``
+(pipeline parallel: the ``pipeline`` op's GPipe schedule, each rank
+holding one stage's slice of every ``*.pp_stacked`` parameter and its
+optimizer state). ``pp`` runs alone or with ``dp``; with ``tp`` or
+``sp`` it raises (``PIPELINE_COMPOSE_REFUSAL``).
 """
 from __future__ import annotations
 
@@ -24,11 +27,13 @@ from typing import Dict, Optional, Sequence, Tuple
 __all__ = ["Mesh", "make_mesh", "ShardingRules", "transformer_tp_rules",
            "compile_sharded_step", "zero1_spec_for", "extract_param_specs",
            "place_state", "P", "check_mesh", "local_shape", "shard_of",
-           "state_follows_param"]
+           "state_follows_param", "is_stage_stacked"]
 
-AXES = ("dp", "tp", "sp")
-PIPELINE_REFUSAL = ("pipeline parallelism (a 'pp' mesh axis) is ROADMAP "
-                    "Queue A item 6, slice 27")
+AXES = ("dp", "tp", "sp", "pp")
+PIPELINE_COMPOSE_REFUSAL = (
+    "a 'pp' axis beside 'tp' or 'sp': the pipeline's stages run the "
+    "sub-block without the parallel step's model-axis collectives; "
+    "ROADMAP Queue A item 6, slice 28")
 
 
 def P(*axes) -> tuple:
@@ -99,11 +104,13 @@ class Mesh:
 
 
 def check_mesh(mesh: Mesh) -> None:
-    """The axes the port's parallel step runs: ``dp``, ``tp`` and ``sp``;
-    a ``pp`` axis (or any other) raises."""
-    if mesh.shape.get("pp", 1) > 1:
-        raise NotImplementedError(f"mesh {mesh.shape}: {PIPELINE_REFUSAL}")
-    extra = [a for a, n in mesh.shape.items() if a not in AXES + ("pp",)
+    """The axes the port's parallel step runs: ``dp``, ``tp``, ``sp`` and
+    ``pp``; ``pp`` beside ``tp`` or ``sp``, or any other axis, raises."""
+    if mesh.shape.get("pp", 1) > 1 and any(
+            mesh.shape.get(a, 1) > 1 for a in ("tp", "sp")):
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: {PIPELINE_COMPOSE_REFUSAL}")
+    extra = [a for a, n in mesh.shape.items() if a not in AXES
              and n > 1]
     if extra:
         raise ValueError(f"mesh {mesh.shape}: unknown axes {extra}; the "
@@ -216,8 +223,8 @@ def extract_param_specs(program, mesh_shape: Dict[str, int],
             spec: tuple = ()
             if rules is not None:
                 spec = tuple(rules.spec_for_param(v.name, v.shape))
-                if ".pp_stacked" in v.name and "pp" in mesh_shape:
-                    spec = ("pp",)
+            if is_stage_stacked(v, mesh_shape):
+                spec = ("pp",)
             if not any(a is not None for a in spec):
                 spec = zero1_spec_for(v, dp, zero)
             if any(a is not None for a in spec):
@@ -226,6 +233,17 @@ def extract_param_specs(program, mesh_shape: Dict[str, int],
         specs.update(state_follows_param(program, specs))
     feed_spec = ("dp",) if dp > 1 else ()
     return specs, feed_spec
+
+
+def is_stage_stacked(v, mesh_shape: Dict[str, int]) -> bool:
+    """A ``layers.PipelineRegion`` parameter (``*.pp_stacked``) or an
+    optimizer state named after one, stacked over the stages on its
+    leading dim: one slice a ``pp`` rank. The JAX package places every
+    such name over ``pp`` (its ``sharding_for_param``); a state var of
+    another height (a beta power) stays replicated."""
+    pp = int(mesh_shape.get("pp", 1))
+    return pp > 1 and ".pp_stacked" in v.name and bool(v.shape) \
+        and int(v.shape[0]) == pp
 
 
 def state_follows_param(program, specs: Dict[str, tuple]

@@ -12,7 +12,7 @@ planning with PT610-PT614, the ``DataCursor`` that ``contrib.Trainer``
 checkpoints), with the data-parallel half of ``distributed.py``: sharded
 checkpoints (format 2, PT605-PT609) and the cross-replica divergence
 check. Not in the port yet: re-forming the process group on another rank
-count (ROADMAP Queue A item 6, slice 27)."""
+count (ROADMAP Queue A item 6, slice 28)."""
 from .checkpoint import (CKPT_CODES, FORMAT_VERSION, CheckpointCorruptError,
                          atomic_replace_dir, finalize_manifest,
                          iter_serials, load_latest_checkpoint,

@@ -108,9 +108,11 @@ def save_sharded_vars(dirname: str, vars_: Sequence, scope, mesh) -> dict:
     ZeRO-1 would row-shard over ``dp`` (``zero1_spec_for``) are cut into
     ``dp`` shard files here. Returns the manifest skeleton (vars inventory
     + the ``sharding`` section); fsync and the per-file sha256 happen in
-    ``resilience.checkpoint.finalize_manifest``. A scope holding shards
-    of a model axis (``scope._mesh_shards``: tensor parallelism) raises:
-    its checkpoint is ROADMAP Queue A item 6, slice 27."""
+    ``resilience.checkpoint.finalize_manifest``. The rows of a table the
+    step holds over ``dp`` are in ``scope._dp_shards`` too and are written
+    as ZeRO-1's are. A scope holding shards of a model axis
+    (``scope._mesh_shards``: tensor or pipeline parallelism) raises: its
+    checkpoint is ROADMAP Queue A item 6, slice 28."""
     from .. import distributed as _pdist
     from .. import monitor as _monitor
     from ..io import _host_array
@@ -119,8 +121,9 @@ def save_sharded_vars(dirname: str, vars_: Sequence, scope, mesh) -> dict:
     held = sorted(getattr(scope, "_mesh_shards", None) or ())
     if held:
         raise NotImplementedError(
-            f"sharded checkpoint of tensor-parallel shards ({held[0]} and "
-            f"{len(held) - 1} more): ROADMAP Queue A item 6, slice 27")
+            f"sharded checkpoint of model-axis shards (tensor or pipeline "
+            f"parallel: {held[0]} and {len(held) - 1} more): ROADMAP "
+            f"Queue A item 6, slice 28")
 
     axes = mesh_axes(mesh)
     axis = "dp" if "dp" in axes else (next(iter(axes)) if axes else "dp")

@@ -83,7 +83,7 @@ class DeviceLostError(RuntimeError):
             f"device is never retried. Resume from the last verified "
             f"checkpoint (contrib.Trainer does so on its next start); "
             f"rescaling a mesh onto the survivors needs multi-device "
-            f"(ROADMAP Queue A item 6, slice 27).")
+            f"(ROADMAP Queue A item 6, slice 28).")
 
 
 class ElasticRescaleError(RuntimeError):

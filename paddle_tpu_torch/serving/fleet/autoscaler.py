@@ -47,10 +47,13 @@ import logging
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence
 
 from ... import monitor as _monitor
 from ...flags import flag as _flag
+
+if TYPE_CHECKING:
+    from .supervisor import ReplicaSupervisor
 
 __all__ = ["AutoscalerConfig", "FleetAutoscaler"]
 
@@ -120,13 +123,16 @@ class AutoscalerConfig:
 
 class FleetAutoscaler:
     """See module docstring. ``supervisor`` needs ``add_replica`` /
-    ``drain`` / ``status()`` (duck-typed — tests substitute fakes);
+    ``drain`` / ``status()`` (duck-typed — tests substitute fakes; the
+    annotation names the class the lock analysis resolves its calls to,
+    since no caller inside the package constructs an autoscaler);
     ``router`` defaults to the supervisor's; ``aggregator`` (optional)
     upgrades the burn sensor from the router's worst-state to the
     fleet-rollup per-class view. ``model`` / ``aot_dir`` /
     ``extra_args`` template every scale-out spawn."""
 
-    def __init__(self, supervisor, router=None, aggregator=None,
+    def __init__(self, supervisor: ReplicaSupervisor, router=None,
+                 aggregator=None,
                  config: Optional[AutoscalerConfig] = None, *,
                  model: str = "mlp_tiny", aot_dir: str = "",
                  extra_args: Sequence[str] = (),

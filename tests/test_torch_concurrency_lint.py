@@ -408,3 +408,123 @@ def test_serving_engine_behind_a_router_stays_in_the_static_graph(
     runtime, static = _framework_edges(package_report)
     assert runtime - static == set(), sorted(runtime - static)
     assert monitor.witness_cycles() == []
+
+
+# -- constructor parameters typed from their callers ------------------------
+
+AUTOSCALER_EDGES = {("FleetAutoscaler._tick_lock", "ReplicaSupervisor._lock"),
+                    ("FleetAutoscaler._tick_lock", "Replica._lock")}
+
+
+def test_package_graph_holds_the_autoscaler_edges(package_report):
+    """The tick reaches the supervisor (its annotated constructor
+    parameter) and the router's replicas (the router falls back to the
+    supervisor's, typed through ``getattr(supervisor, "router")``) under
+    the tick lock."""
+    assert AUTOSCALER_EDGES <= package_report.edge_set()
+
+
+_HOLDER = '''import threading
+
+
+class Sink:
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def put(self):
+        with self._lock:
+            pass
+
+
+class Cache:
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def put(self):
+        with self._lock:
+            pass
+
+
+class Owner:
+    def __init__(self, cache: Cache):
+        self.cache = cache
+
+
+class Holder:
+    def __init__(self, sink, owner: Owner, fallback=None):
+        self._lock = threading.Lock()
+        self.sink = sink
+        self.fallback = fallback if fallback is not None \\
+            else getattr(owner, "cache", None)
+
+    def flush(self):
+        with self._lock:
+            self.sink.put()
+
+    def spill(self):
+        with self._lock:
+            self.fallback.put()
+'''
+SINK = ("dev.holder.Holder._lock", "dev.holder.Sink._lock")
+CACHE = ("dev.holder.Holder._lock", "dev.holder.Cache._lock")
+
+
+def _holder_report(tmp_path, caller, holder=_HOLDER):
+    pkg = tmp_path / "dev"
+    pkg.mkdir(parents=True)
+    (pkg / "__init__.py").write_text("")
+    (pkg / "holder.py").write_text(holder)
+    (pkg / "use.py").write_text(caller)
+    return analyze_paths([str(p) for p in sorted(pkg.glob("*.py"))],
+                         root=str(pkg))
+
+
+def test_unannotated_ctor_param_is_typed_from_its_callers(tmp_path):
+    """``self.sink = sink`` with no annotation: the one class the
+    package's callers pass there types it (here a local assigned a
+    constructor call); ``x if x is not None else getattr(owner, "cache",
+    None)`` is typed from the annotated ``owner``'s class. Without a
+    caller the sink stays unresolved."""
+    rep = _holder_report(tmp_path / "a", (
+        "from .holder import Cache, Holder, Owner, Sink\n\n\n"
+        "def make():\n"
+        "    sink = Sink()\n"
+        "    return Holder(sink, Owner(Cache()))\n"))
+    assert {SINK, CACHE} <= rep.edge_set()
+    bare = _holder_report(tmp_path / "b", (
+        "from .holder import Holder\n\n\n"
+        "def make(x):\n"
+        "    return Holder(x, None)\n"))
+    assert CACHE in bare.edge_set() and SINK not in bare.edge_set()
+
+
+def test_both_resolutions_are_needed_for_their_edges(tmp_path):
+    """Negative control: with no caller and the owner unannotated, the
+    analysis resolves neither call, and both edges are missing."""
+    rep = _holder_report(tmp_path, "", _HOLDER.replace("owner: Owner",
+                                                        "owner"))
+    assert not {SINK, CACHE} & rep.edge_set()
+
+
+def test_autoscaler_edges_need_the_resolution(tmp_path):
+    """Negative control: a copy of the package whose autoscaler leaves
+    ``supervisor`` unannotated loses both edges, so the witness gate over
+    the live autoscaler would fail on them."""
+    import shutil
+
+    from paddle_tpu_torch.analysis.concurrency import package_source_files
+
+    src_root = os.path.dirname(os.path.dirname(os.path.abspath(
+        analyze_package.__code__.co_filename)))
+    root = tmp_path / "paddle_tpu_torch"
+    for path in package_source_files(src_root):
+        dst = root / os.path.relpath(path, src_root)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(path, dst)
+    auto = root / "serving" / "fleet" / "autoscaler.py"
+    text = auto.read_text()
+    assert "supervisor: ReplicaSupervisor" in text
+    auto.write_text(text.replace("supervisor: ReplicaSupervisor",
+                                 "supervisor"))
+    rep = analyze_package(str(root))
+    assert not AUTOSCALER_EDGES & rep.edge_set()

@@ -8,6 +8,8 @@ Without a CUDA device they skip: the kernels have no CPU mode."""
 import contextlib
 import importlib
 import math
+import os
+import sys
 
 import pytest
 import torch
@@ -3238,3 +3240,101 @@ def test_tensor_parallel_bert_tiny_equals_the_single_card_step(tmp_path):
         for n, want in zip(names, ref[1:]):
             np.testing.assert_allclose(res["tp_bert/grad/" + n], want,
                                        rtol=1e-5, atol=1e-7, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_pipeline_region_on_the_card_equals_the_scan_path(tmp_path):
+    """The region model over {"pp": 2} and BERT's block as the stage, each
+    rank on the card (gloo, or a card each under NCCL), against the
+    single-card scan path of the same program from the same weights: the
+    losses at rtol 1e-5 (float32, the microbatches' sums in another
+    order); the attention stage launches K1/K3/K4 on every rank."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    import torch_dist_runner as R
+    from paddle_tpu_torch.interop import scope_from_numpy
+
+    sys.path.insert(0, os.path.join(R.REPO, "tools"))
+    import torch_mp_worker as W
+
+    _cuda()
+    card = fluid.CUDAPlace(0)
+    main, startup, loss = R.build_region(fluid, 2)
+    exe, scope = fluid.Executor(card), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = R.region_init(2)
+    R.plant_region(scope, init, card)
+    feed = {n: init[n] for n in ("x", "y")}
+    ref = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                         scope=scope)[0].reshape(-1)[0])
+           for _ in range(R.PP_STEPS)]
+    amain, astart, aloss = W.build_pipeline_encoder(fluid, **R.PP_ATTN)
+    cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(astart, scope=cpu)
+    ainit = {n: cpu.numpy(n) for n in cpu.vars}
+    np.savez(tmp_path / "init_pp_attn.npz", **ainit)
+    ascope = scope_from_numpy(ainit, fluid.Scope(), card, [amain])
+    afeed = W.pipeline_feed(0, R.PP_ATTN_BATCH, R.PP_ATTN["seq"],
+                            R.PP_ATTN["vocab"])
+    aref = [float(exe.run(amain, feed=afeed, fetch_list=[aloss],
+                          scope=ascope)[0].reshape(-1)[0])
+            for _ in range(R.PP_ATTN_STEPS)]
+    rc, logs = R.launch(tmp_path, ["pp2", "pp_attn"], backend="gpu",
+                        timeout=600)
+    assert rc == 0, logs
+    for res in R.results(tmp_path):
+        np.testing.assert_allclose(res["pp2/losses"], ref, rtol=1e-5)
+        np.testing.assert_allclose(res["pp_attn/losses"], aref, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sparse_tables_under_the_parallel_step_on_the_card(tmp_path):
+    """DeepFM row-sharded (vocab 64) and replicated (vocab 65) over two
+    ranks on the card, and the sparse lookup into a tp-sharded table,
+    against the single-card step from the same weights: losses rtol 1e-5
+    (the row-sharded lookups are exact; the MLP's halves sum in another
+    order), the tables after the last step rtol 1e-4 / atol 1e-6."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    import torch_dist_runner as R
+    from paddle_tpu_torch.interop import scope_from_numpy
+    from paddle_tpu_torch.models.deepfm import build_deepfm
+
+    _cuda()
+    card = fluid.CUDAPlace(0)
+    refs = {}
+    for vocab in (64, 65):
+        with fluid.unique_name.guard():
+            m = build_deepfm(vocab=vocab, **R.FM)
+        cpu = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(m["startup"], scope=cpu)
+        init = {n: cpu.numpy(n) for n in cpu.vars}
+        np.savez(tmp_path / f"init_fm_{vocab}.npz", **init)
+        cscope = scope_from_numpy(init, fluid.Scope(), card, [m["main"]])
+        exe = fluid.Executor(card)
+        feed = R.fm_feeds(vocab)
+        losses = [float(exe.run(m["main"], feed=feed,
+                                fetch_list=[m["loss"]],
+                                scope=cscope)[0].reshape(-1)[0])
+                  for _ in range(R.FM_STEPS)]
+        refs[vocab] = (losses, cscope.numpy("fm_v"))
+    main, startup, loss = R.build_sparse_tp(fluid)
+    sscope = fluid.Scope()
+    exe = fluid.Executor(card)
+    exe.run(startup, scope=sscope)
+    tp_ref = [float(exe.run(main, feed=R.sparse_tp_feeds(),
+                            fetch_list=[loss], scope=sscope)[0]
+                    .reshape(-1)[0]) for _ in range(R.SPARSE_TP["steps"])]
+    rc, logs = R.launch(tmp_path, ["fm_rows", "fm_replicated", "tp_sparse"],
+                        backend="gpu", timeout=600)
+    assert rc == 0, logs
+    for res in R.results(tmp_path):
+        for case, vocab in (("fm_rows", 64), ("fm_replicated", 65)):
+            np.testing.assert_allclose(res[f"{case}/losses"],
+                                       refs[vocab][0], rtol=1e-5)
+            np.testing.assert_allclose(res[f"{case}/fm_v"], refs[vocab][1],
+                                       rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(res["tp_sparse/losses"], tp_ref,
+                                   rtol=1e-5)

@@ -297,3 +297,46 @@ def test_fleet_top_over_a_live_port_replica():
     assert text.splitlines()[0] == \
         "fleet view @ 12:00:00 — 1 replicas, 1 up"
     assert "completed 3" in text
+
+
+AUTOSCALER_EDGES = {("FleetAutoscaler._tick_lock", "ReplicaSupervisor._lock"),
+                    ("FleetAutoscaler._tick_lock", "Replica._lock")}
+
+
+class _Report:
+    """A static report with some edges taken out (the gate's control)."""
+
+    def __init__(self, rep, drop):
+        self.locks = rep.locks
+        self._edges = rep.edge_set() - set(drop)
+
+    def edge_set(self):
+        return set(self._edges)
+
+
+def test_witness_gate_over_a_live_autoscaler_and_supervisor(tmp_path):
+    """The autoscaler's tick into a ReplicaSupervisor and its router under
+    the lock witness (the probe the load check runs before its witness
+    gate): both edges into the supervisor's and the router replica's
+    locks are taken, the static graph predicts them, the gate passes; with
+    either edge taken out of the static set it fails naming the edge."""
+    from paddle_tpu_torch.analysis.concurrency import analyze_package
+
+    static = analyze_package()
+    assert AUTOSCALER_EDGES <= static.edge_set()
+    LC.set_device("cpu")
+    fluid.set_flags({"FLAGS_lock_witness": 1})
+    monitor.reset_witness()
+    try:
+        assert LC._autoscaler_witness_probe(str(tmp_path)) == ["hold",
+                                                              "hold"]
+        assert AUTOSCALER_EDGES <= monitor.witness_edges()
+        section, ok = LC._witness_gate(static)
+        assert ok and section["edges_not_in_static_graph"] == []
+        for edge in sorted(AUTOSCALER_EDGES):
+            section, ok = LC._witness_gate(_Report(static, [edge]))
+            assert not ok
+            assert section["edges_not_in_static_graph"] == [list(edge)]
+    finally:
+        monitor.reset_witness()
+        fluid.set_flags({"FLAGS_lock_witness": 0})

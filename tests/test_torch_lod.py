@@ -592,10 +592,7 @@ def test_bilstm_crf_trains_as_jax():
 
 # ------------------------------------------------------------- registry
 # op types of the JAX package the port does not register yet
-STILL_TO_PORT = {
-    # ops/pipeline_op.py
-    "pipeline",
-}
+STILL_TO_PORT = set()
 
 
 def builtin_ops(registry, package):
@@ -613,9 +610,9 @@ def assert_registry_parity():
 
     jax_ops = builtin_ops(jreg, "paddle_tpu")
     port_ops = builtin_ops(treg, "paddle_tpu_torch")
-    assert len(STILL_TO_PORT) == 1
+    assert len(STILL_TO_PORT) == 0
     assert port_ops == jax_ops - STILL_TO_PORT
-    assert len(port_ops) == 296 and len(jax_ops) == 297
+    assert len(port_ops) == 297 and len(jax_ops) == 297
 
 
 def test_registry_is_jax_minus_the_types_still_to_port():

@@ -548,8 +548,9 @@ RANDOM_OPS = {"truncated_gaussian_random", "dropout", "uniform_random",
               "gaussian_random_batch_size_like"}
 # ops that run a sub-block: checked by the programs that build them
 # (conditional_block: the AMP skip-update, tests/test_torch_amp.py;
-# recompute_segment: gradient checkpointing, tests/test_torch_remat.py)
-BLOCK_OPS = {"conditional_block", "recompute_segment"}
+# recompute_segment: gradient checkpointing, tests/test_torch_remat.py;
+# pipeline: layers.PipelineRegion, tests/test_torch_pipeline.py)
+BLOCK_OPS = {"conditional_block", "recompute_segment", "pipeline"}
 # while, recurrent, the tensor arrays and beam search: checked by the
 # programs of tests/test_torch_control_flow.py and tests/test_torch_seq2seq.py
 CONTROL_FLOW_OPS = {"while", "recurrent", "create_array", "write_to_array",

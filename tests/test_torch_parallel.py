@@ -178,8 +178,10 @@ def test_places_mesh_and_rescale_refusals():
     with pytest.raises(ValueError, match="distributed.launch"):
         tfluid.CompiledProgram(main).with_data_parallel(
             places=[tfluid.CPUPlace(), tfluid.CPUPlace()])
-    with pytest.raises(NotImplementedError, match="slice 27"):
+    with pytest.raises(ValueError, match="launched"):
         tcp.data_parallel_mesh(tsh.make_mesh({"dp": 1, "pp": 2}))
+    with pytest.raises(NotImplementedError, match="slice 28"):
+        tcp.data_parallel_mesh(tsh.make_mesh({"tp": 2, "pp": 2}))
     with pytest.raises(ValueError, match="launched"):
         tcp.data_parallel_mesh(tsh.make_mesh({"dp": 1, "tp": 2}))
     with pytest.raises(ValueError, match="launched"):
@@ -285,15 +287,26 @@ def test_per_rank_memory_plan_and_comms_match_jax(zero):
 
 
 def test_gradient_merge_under_data_parallel_is_refused():
+    """No longer refused: a merged program under ``CompiledProgram`` runs
+    the executor's microbatch loop inside the parallel step. On one rank
+    it equals the merged program on the executor bit for bit (two ranks:
+    ``test_torch_sharded_tables.py``)."""
     main, startup = tfluid.Program(), tfluid.Program()
     with tun.guard(), tfluid.program_guard(main, startup):
         x = tfluid.layers.data("x", shape=[R.DIM], dtype="float32")
         loss = tfluid.layers.mean(tfluid.layers.fc(x, 4))
         tfluid.optimizer.GradientMergeOptimizer(
             tfluid.optimizer.SGD(learning_rate=0.1), k_steps=2).minimize(loss)
-    exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
-    exe.run(startup, scope=scope)
-    cp = tfluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
-    with pytest.raises(NotImplementedError, match="gradient merge"):
-        exe.run(cp, feed={"x": np.ones((4, R.DIM), np.float32)},
-                fetch_list=[loss], scope=scope)
+    feed = {"x": np.random.RandomState(0).randn(4, R.DIM).astype(
+        np.float32)}
+    runs = []
+    for compiled in (False, True):
+        exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+        exe.run(startup, scope=scope)
+        prog = tfluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name) if compiled else main
+        runs.append([exe.run(prog, feed=feed, fetch_list=[loss],
+                             scope=scope)[0] for _ in range(3)]
+                    + [scope.numpy(p.name) for p in main.all_parameters()])
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)

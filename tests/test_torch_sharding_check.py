@@ -157,7 +157,23 @@ def test_model_programs_equal_the_jax_analysis(model, zero):
     ta = t_propagate(t["main"], mesh,
                      param_specs=tx(t["main"], mesh, zero=zero)[0],
                      fetch_names=[t["loss"].name], batch_size=64)
-    assert _summary(ta) == _summary(ja)
+    js, ts = _summary(ja), _summary(ta)
+    if model == "deepfm":
+        # the port's rule for a reduction over listed dims (the field sums)
+        # keeps the batch axis: the JAX rule's all-reduces over dp there,
+        # which GSPMD never runs, are gone, and the values downstream stay
+        # batch-sharded (the module docstring of the port's analysis)
+        ops = t["main"].global_block.ops
+        gone = [c for c in js[1] if c not in ts[1]]
+        assert gone and all(
+            ops[c["op"]].type == "reduce_sum" and c["axis"] == "dp"
+            and 0 not in ops[c["op"]].attrs["dim"] for c in gone)
+        assert [c for c in ts[1] if c not in js[1]] == []
+        for n, sp in js[2].items():
+            if ts[2][n] != sp:
+                assert ts[2][n] == ("dp",) + tuple(sp[1:]) and sp[0] is None
+        js = (js[0], [c for c in js[1] if c not in gone], ts[2], js[3])
+    assert ts == js
 
 
 def test_registered_pass_requires_liveness_and_noop_without_mesh():

@@ -15,7 +15,6 @@ import pytest
 
 import paddle_tpu_torch
 
-MULTI = ("pipeline parallelism (ROADMAP Queue A item 6, slice 27)")
 NO_TPU = "TPU-only: the port runs on CUDAPlace/CPUPlace"
 
 # module ('' is the package) -> {name: why it waits}
@@ -35,11 +34,8 @@ STILL_MISSING = {
     },
     "layer_helper": {"init_mod": "an import alias of the initializer "
                                  "module, not an API"},
-    "layers": {"PipelineRegion": MULTI, "pipeline": MULTI},
-    "parallel": {"pipeline": MULTI},
     "lowering": {"np_dtype": "the JAX side's dtype helper; the port's is "
                              "core.types.np_dtype"},
-    "ops": {"pipeline_op": MULTI},
     "tuning": {"CPU_OPTION_SETS": "XLA option sets; the port tunes K5's "
                                   "block triple only",
                "TPU_OPTION_SETS": "XLA option sets; the port tunes K5's "
@@ -147,7 +143,7 @@ def test_the_list_holds_no_name_already_ported(missing):
         assert set(names) <= missing.get(mod, set()), \
             (mod, sorted(set(names) - missing.get(mod, set())))
         assert all(names.values())
-    assert sum(len(v) for v in STILL_MISSING.values()) == 13
+    assert sum(len(v) for v in STILL_MISSING.values()) == 9
 
 
 @pytest.mark.parametrize("mod", sorted(ITEM_2))

@@ -285,10 +285,16 @@ def test_heads_split_to_local_shapes():
 
 
 def test_pipeline_axis_is_refused_naming_the_slice():
-    with pytest.raises(NotImplementedError, match="slice 27"):
-        tsh.check_mesh(tsh.Mesh({"dp": 2, "pp": 2}))
-    with pytest.raises(NotImplementedError, match="slice 27"):
+    """A pp axis alone or beside dp runs; beside tp or sp it is refused,
+    naming the slice that composes them."""
+    tsh.check_mesh(tsh.Mesh({"dp": 2, "pp": 2}))
+    # one process: the mesh passes the axis check, then wants its ranks
+    with pytest.raises(ValueError, match="2 ranks but 1 rank"):
         tsh.compile_sharded_step(None, tsh.Mesh({"pp": 2}), [], [])
+    with pytest.raises(NotImplementedError, match="slice 28"):
+        tsh.check_mesh(tsh.Mesh({"dp": 2, "pp": 2, "tp": 2}))
+    with pytest.raises(NotImplementedError, match="slice 28"):
+        tsh.compile_sharded_step(None, tsh.Mesh({"pp": 2, "sp": 2}), [], [])
 
 
 def test_mesh_coordinates_match_make_mesh_layout():
@@ -360,5 +366,5 @@ def test_sharded_checkpoint_of_tp_shards_is_refused(tmp_path):
 
     scope = tfluid.Scope()
     scope._mesh_shards = {"layer0_att_q_w": (None, "tp")}
-    with pytest.raises(NotImplementedError, match="slice 27"):
+    with pytest.raises(NotImplementedError, match="slice 28"):
         save_sharded_vars(str(tmp_path), [], scope, {"dp": 1})

@@ -706,10 +706,12 @@ def test_registry_audit_over_the_port():
     tested = {r["op"]: r["tested"] for r in audit_registry(test_dir=here)}
     assert tested["relu"] is True and tested["lamb"] is True
     assert coverage_summary(audit_registry(test_dir=here))["tested"] > 80
-    # the op types the reference registers and the port lacks: a program
-    # carrying one is PT100 in the port, never a crash
+    # the op types the reference registers and the port lacks: none
+    # since the pipeline op (a program carrying one would be PT100 in the
+    # port, never a crash)
     from test_torch_lod import builtin_ops
 
     lacking = sorted(builtin_ops(jreg, "paddle_tpu")
                      - builtin_ops(treg, "paddle_tpu_torch"))
-    assert lacking and "pipeline" in lacking
+    assert lacking == []
+    assert tested["pipeline"] is True

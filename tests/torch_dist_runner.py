@@ -868,6 +868,420 @@ def case_collectives(ctx):
             "gather_int": h.cpu().numpy(), "rscatter": rs.cpu().numpy()}
 
 
+# -- pipeline parallelism: the region model of tests/test_pipeline.py -----
+
+PP_D, PP_M, PP_ROWS, PP_STEPS = 16, 4, 8, 4
+# the attention stage: BERT's block at hidden 64, 2 heads, seq 16
+PP_ATTN = dict(hidden=64, heads=2, ffn=128, layers=2, stages=2,
+               microbatches=2, seq=16, vocab=50)
+PP_ATTN_BATCH, PP_ATTN_STEPS = 4, 3
+
+
+def build_region(fluid, P, M=PP_M, D=PP_D, pre_fc=False):
+    """``tests/test_pipeline.py``'s ``_build_region_model`` (tanh(x w + b)
+    stages, square error, SGD 0.1); ``pre_fc`` puts an fc before the
+    region, whose replicas every ``pp`` rank updates."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[D], dtype="float32")
+        y = fluid.layers.data("y", shape=[D], dtype="float32")
+        if pre_fc:
+            x = fluid.layers.fc(x, D, name="pre_fc")
+        pipe = fluid.layers.PipelineRegion(num_stages=P, num_microbatches=M)
+        with pipe.stage(x) as s:
+            w = s.param("w", [D, D])
+            b = s.param("b", [D], is_bias=True)
+            h = fluid.layers.tanh(fluid.layers.elementwise_add(
+                fluid.layers.matmul(s.input, w), b))
+            s.set_output(h)
+        loss = fluid.layers.mean(
+            fluid.layers.square_error_cost(pipe.output, y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    main.random_seed = 11
+    startup.random_seed = 11
+    return main, startup, loss
+
+
+def region_init(P, D=PP_D):
+    """``tests/test_pipeline.py``'s stacked weights and feeds."""
+    rng = np.random.RandomState(3)
+    return {"w": (rng.randn(P, D, D) / np.sqrt(D)).astype(np.float32),
+            "b": (rng.randn(P, D) * 0.1).astype(np.float32),
+            "x": rng.randn(PP_ROWS, D).astype(np.float32),
+            "y": rng.randn(PP_ROWS, D).astype(np.float32)}
+
+
+def plant_region(scope, init, place):
+    import torch
+
+    for n in list(scope.vars):
+        for k in ("w", "b"):
+            if n.endswith(f".{k}.pp_stacked") and not n.startswith(
+                    ("velocity", "moment")):
+                scope.set_var(n, torch.from_numpy(init[k].copy()).to(
+                    place.torch_device()))
+
+
+def _replica_steps(run, steps):
+    """``steps`` calls of ``run`` under the replica check every step
+    (policy raise): the losses and the diverged names (or none)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.resilience import ReplicaDivergenceError
+
+    fluid.set_flags({"FLAGS_replica_check_interval": 1,
+                     "FLAGS_replica_divergence_policy": "raise"})
+    losses, named = [], ""
+    try:
+        for _ in range(steps):
+            losses.append(run())
+    except ReplicaDivergenceError as e:
+        named = e.param
+    finally:
+        fluid.set_flags({"FLAGS_replica_check_interval": 0})
+    return losses, named
+
+
+def _pp_run(ctx, mesh_shape, P, pre_fc=False, replica=False,
+            steps=PP_STEPS):
+    """The region model over ``mesh_shape`` from ``region_init``: every
+    step's loss, the stacked parameters gathered after the last step,
+    this rank's stacked bytes, the names a replica check raised on."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel.sharding import Mesh
+
+    main, startup, loss = build_region(fluid, P, pre_fc=pre_fc)
+    exe, scope = fluid.Executor(ctx.place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = region_init(P)
+    plant_region(scope, init, ctx.place)
+    mesh = Mesh(mesh_shape)
+    prog = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, places=mesh)
+    dp, c = mesh.shape.get("dp", 1), mesh.coord("dp")
+    k = PP_ROWS // dp
+    feed = {n: init[n][c * k:(c + 1) * k] for n in ("x", "y")}
+    stacked = sorted(p.name for p in main.all_parameters()
+                     if p.name.endswith(".pp_stacked"))
+
+    got = []
+
+    def one():
+        # the last step also fetches the stacked parameters it updates
+        fetch = [loss.name] + (stacked if len(got) == steps - 1 else [])
+        out = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+        got.append(out)
+        return float(out[0].reshape(-1)[0])
+    if replica:
+        losses, named = _replica_steps(one, steps)
+    else:
+        losses, named = [one() for _ in range(steps)], ""
+    res = {"losses": np.array(losses), "named": np.array([named]),
+           "stacked_bytes": np.array([sum(
+               scope.find_var(n).numel() * 4 for n in stacked)])}
+    if not named:
+        res.update({"param/" + n.split(".")[1]: v
+                    for n, v in zip(stacked, got[-1][1:])})
+    return res
+
+
+def case_pp2(ctx):
+    return _pp_run(ctx, {"pp": 2}, 2)
+
+
+def case_pp4(ctx):
+    return _pp_run(ctx, {"pp": 4}, 4)
+
+
+def case_dppp(ctx):
+    return _pp_run(ctx, {"dp": 2, "pp": 2}, 2)
+
+
+def case_dppp_fc(ctx):
+    """An fc before the region under dp x pp, the replica check every
+    step: its replicas across pp stay bit-identical."""
+    return _pp_run(ctx, {"dp": 2, "pp": 2}, 2, pre_fc=True, replica=True)
+
+
+def case_pp_attn(ctx):
+    """The attention stage over {"pp": 2}, planted with this rank's
+    slices (``interop.scope_from_numpy(mesh=)``): every step's loss and
+    the gathered stacked parameters after the last step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.interop import scope_from_numpy
+    from paddle_tpu_torch.parallel.sharding import Mesh
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_mp_worker as W
+
+    main, startup, loss = W.build_pipeline_encoder(fluid, **PP_ATTN)
+    exe, scope = fluid.Executor(ctx.place), fluid.Scope()
+    mesh = Mesh({"pp": 2})
+    # planted cut: this rank's stage slice of every stacked var
+    scope_from_numpy(ctx.load("init_pp_attn.npz"), scope, ctx.place,
+                     programs=[main], mesh=mesh)
+    stacked = main.global_block.var(
+        next(p.name for p in main.all_parameters()
+             if p.name.endswith(".pp_stacked")))
+    assert scope.find_var(stacked.name).shape[0] == 1
+    prog = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, places=mesh)
+    feed = W.pipeline_feed(0, PP_ATTN_BATCH, PP_ATTN["seq"],
+                           PP_ATTN["vocab"])
+    names = sorted(p.name for p in main.all_parameters())
+    losses = []
+    for i in range(PP_ATTN_STEPS):
+        got = exe.run(prog, feed=feed, fetch_list=[loss.name] + (
+            names if i == PP_ATTN_STEPS - 1 else []), scope=scope)
+        losses.append(float(got[0].reshape(-1)[0]))
+    return {"losses": np.array(losses),
+            **{"param/" + n: v for n, v in zip(names, got[1:])}}
+
+
+def case_pp_fn(ctx):
+    """``parallel.pipeline.pipeline`` called directly over {"pp": 2} on
+    the region's weights and rows: the replicated outputs."""
+    import torch
+
+    from paddle_tpu_torch.parallel.pipeline import pipeline
+    from paddle_tpu_torch.parallel.sharding import Mesh
+
+    init = region_init(2)
+    w, b, x = (torch.from_numpy(init[k]) for k in ("w", "b", "x"))
+
+    def stage(params, h):
+        return torch.tanh(h @ params[0] + params[1])
+    out = pipeline(stage, [w, b], x, Mesh({"pp": 2}), PP_M)
+    return {"out": out.numpy()}
+
+
+def case_pp_dout_everywhere(ctx):
+    """Negative control: every stage also pulls the output's cotangent
+    back, not the last one alone."""
+    from paddle_tpu_torch.parallel import pipeline as pl
+
+    pl._cotangent = lambda s, P, g, recv: g if s == P - 1 else g + recv
+    return _pp_run(ctx, {"pp": 2}, 2)
+
+
+def case_dppp_no_broadcast(ctx):
+    """Negative control: the input's cotangent stays on stage 0, so the
+    fc before the region updates differently on the pp ranks."""
+    import torch
+
+    from paddle_tpu_torch.parallel import pipeline as pl
+
+    pl._replicate_input_grad = \
+        lambda buf, mine, group: buf if mine else torch.zeros_like(buf)
+    return _pp_run(ctx, {"dp": 2, "pp": 2}, 2, pre_fc=True, replica=True)
+
+
+# -- row-sharded tables: tests/dist_runner.py's DeepFM --------------------
+
+FM = dict(num_fields=4, emb_dim=4, lr=0.05, sharded=True)
+FM_STEPS, FM_SAVE_AFTER = 10, 2
+
+
+def fm_feeds(vocab=64):
+    """``tests/dist_runner.py``'s DeepFM batch (ids below 64 at any
+    vocab)."""
+    rng = np.random.RandomState(42)
+    ids = rng.randint(0, 64, (GLOBAL_BATCH, 4)).astype(np.int64)
+    return {"feat_ids": ids,
+            "label": (ids.sum(1) % 2).astype(np.float32).reshape(-1, 1)}
+
+
+def _fm_prog(ctx, vocab):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.interop import scope_from_numpy
+    from paddle_tpu_torch.models.deepfm import build_deepfm
+    from paddle_tpu_torch.parallel.sharding import Mesh
+
+    with fluid.unique_name.guard():
+        m = build_deepfm(vocab=vocab, **FM)
+    exe, scope = fluid.Executor(ctx.place), fluid.Scope()
+    scope_from_numpy(ctx.load(f"init_fm_{vocab}.npz"), scope, ctx.place,
+                     programs=[m["main"]], mesh=Mesh({"dp": ctx.world}))
+    prog = _compiled(fluid, m["main"], m["loss"])
+    return m, exe, scope, prog, ctx.shard(fm_feeds(vocab))
+
+
+def _fm_run(ctx, vocab, steps=FM_STEPS):
+    """DeepFM over dp from the JAX package's initial scope: the losses,
+    the tables gathered after the last step, this rank's table + moment
+    bytes and the collective bytes of a step by kind."""
+    from paddle_tpu_torch import distributed as dist
+
+    m, exe, scope, prog, feed = _fm_prog(ctx, vocab)
+    losses = []
+    for i in range(steps):
+        dist.reset_collective_stats()
+        # the last step also fetches the tables it updates
+        got = exe.run(prog, feed=feed, fetch_list=[m["loss"].name] + (
+            ["fm_v", "fm_w"] if i == steps - 1 else []), scope=scope)
+        losses.append(float(got[0].reshape(-1)[0]))
+        if i == 1:
+            stats = dist.collective_stats()["by_kind"]
+    tables = got[1:]
+    held = sum(v.numel() * v.element_size() for n, v in scope.vars.items()
+               if hasattr(v, "numel") and ("fm_v" in n or "fm_w" in n)
+               and "@" not in n)
+    res = {"losses": np.array(losses), "fm_v": tables[0],
+           "fm_w": tables[1], "table_bytes": np.array([held]),
+           "dp_shards": np.array(sorted(getattr(scope, "_dp_shards", {}))
+                                 or [""])}
+    for kind, v in stats.items():
+        res[f"coll/{kind}"] = np.array([v["calls"], v["bytes"]])
+    return res
+
+
+def case_fm_rows(ctx):
+    return _fm_run(ctx, 64)
+
+
+def case_fm_replicated(ctx):
+    return _fm_run(ctx, 65)
+
+
+def case_fm_ckpt(ctx):
+    """The row-sharded DeepFM: a sharded checkpoint after step 2, then
+    steps 3-4; a fresh scope restores it and runs steps 3-4 again."""
+    import paddle_tpu_torch as fluid
+
+    m, exe, scope, prog, feed = _fm_prog(ctx, 64)
+
+    def steps(exe, prog, scope, n):
+        return [float(exe.run(prog, feed=feed, fetch_list=[m["loss"]],
+                              scope=scope)[0].reshape(-1)[0])
+                for _ in range(n)]
+    first = steps(exe, prog, scope, FM_SAVE_AFTER)
+    path = os.path.join(ctx.out, "ckpt_fm")
+    fluid.io.save_checkpoint(exe, path, m["main"], scope=scope,
+                             meta={"step": FM_SAVE_AFTER},
+                             mesh={"dp": ctx.world})
+    rest = steps(exe, prog, scope, 2)
+    straight = exe.run(prog, feed=feed, fetch_list=["fm_v"], scope=scope)[0]
+    exe2, scope2 = fluid.Executor(ctx.place), fluid.Scope()
+    exe2.run(m["startup"], scope=scope2)
+    meta = fluid.io.load_checkpoint(exe2, path, m["main"], scope=scope2)
+    prog2 = _compiled(fluid, m["main"], m["loss"])
+    resumed = steps(exe2, prog2, scope2, 2)
+    again = exe2.run(prog2, feed=feed, fetch_list=["fm_v"],
+                     scope=scope2)[0]
+    return {"losses": np.array(first + rest), "resumed": np.array(resumed),
+            "meta_step": np.array([meta["step"]]), "fm_v": straight,
+            "fm_v_resumed": again}
+
+
+def case_fm_rows_own_grad(ctx):
+    """Negative control: each rank's table gradient from its own batch
+    rows only (no gathered output gradient)."""
+    from paddle_tpu_torch.parallel import compiled_program as cp
+
+    orig = cp._DPPlan._row_lookup
+
+    def own(self, i, op, run, env, lctx):
+        if op.type != "lookup_table_grad":
+            return orig(self, i, op, run, env, lctx)
+        ids_name, off, rows = self.row_lookups[i]
+        env[op.output("W@GRAD")[0]] = cp._sharded_rows_grad(
+            env[ids_name], env[op.input("Out@GRAD")[0]], rows, off,
+            op.attrs.get("padding_idx", -1))
+    cp._DPPlan._row_lookup = own
+    return _fm_run(ctx, 64)
+
+
+SPARSE_TP = dict(vocab=64, dim=8, fields=4, steps=4)
+
+
+def build_sparse_tp(fluid):
+    """ids -> a sparse lookup into ``word_embedding`` (vocab-sharded by
+    ``transformer_tp_rules``) -> fc -> square error, Adam."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = fluid.layers.data("ids", shape=[SPARSE_TP["fields"]],
+                                dtype="int64")
+        y = fluid.layers.data("y", shape=[1], dtype="float32")
+        emb = fluid.layers.embedding(
+            ids, size=[SPARSE_TP["vocab"], SPARSE_TP["dim"]],
+            is_sparse=True, padding_idx=5,
+            param_attr=fluid.ParamAttr(name="word_embedding"))
+        h = fluid.layers.reshape(
+            emb, [-1, SPARSE_TP["fields"] * SPARSE_TP["dim"]])
+        pred = fluid.layers.fc(h, 1, name="sp_fc")
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        fluid.optimizer.Adam(learning_rate=0.05).minimize(loss)
+    main.random_seed = 17
+    startup.random_seed = 17
+    return main, startup, loss
+
+
+def sparse_tp_feeds():
+    rng = np.random.RandomState(9)
+    ids = rng.randint(0, SPARSE_TP["vocab"],
+                      (GLOBAL_BATCH, SPARSE_TP["fields"])).astype(np.int64)
+    ids[0, 1] = ids[3, 2] = 5            # the padding id, twice
+    return {"ids": ids, "y": rng.randn(GLOBAL_BATCH, 1).astype(np.float32)}
+
+
+def case_tp_sparse(ctx):
+    """The sparse lookup over {"tp": 2}: the losses and the gathered table
+    after the last step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel.sharding import (Mesh,
+                                                    compile_sharded_step,
+                                                    transformer_tp_rules)
+
+    main, startup, loss = build_sparse_tp(fluid)
+    exe, scope = fluid.Executor(ctx.place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    run, io = compile_sharded_step(main, Mesh({"tp": ctx.world}),
+                                   ["ids", "y"], [loss.name],
+                                   transformer_tp_rules())
+    feed = sparse_tp_feeds()
+    losses = [float(run(exe, feed, scope)[0].reshape(-1)[0])
+              for _ in range(SPARSE_TP["steps"] - 1)]
+    # the last step also fetches the table it updates (gathered)
+    got = exe.run(io["compiled"], feed=feed,
+                  fetch_list=[loss.name, "word_embedding"], scope=scope)
+    losses.append(float(got[0].reshape(-1)[0]))
+    return {"losses": np.array(losses), "table": got[1]}
+
+
+def build_merge_mlp(fluid, microbatches=2):
+    """``build_mlp`` (Adam) under ``PipelineOptimizer``."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[DIM], dtype="float32")
+        y = fluid.layers.data("y", shape=[1], dtype="float32")
+        h = fluid.layers.fc(x, 32, act="relu", name="d_fc1")
+        pred = fluid.layers.fc(h, 1, name="d_fc2")
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        fluid.optimizer.PipelineOptimizer(
+            fluid.optimizer.Adam(learning_rate=0.02),
+            num_microbatches=microbatches).minimize(loss)
+    main.random_seed = 31
+    startup.random_seed = 31
+    return main, startup, loss
+
+
+MERGE_STEPS = 4
+
+
+def case_merge_dp(ctx):
+    """Gradient merge (2 microbatches) under dp from the JAX package's
+    initial scope: the parameters after ``MERGE_STEPS`` steps."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, loss = build_merge_mlp(fluid)
+    exe, scope = fluid.Executor(ctx.place), fluid.Scope()
+    _plant(fluid, scope, ctx.load("init_merge.npz"), ctx.place, [main])
+    prog = _compiled(fluid, main, loss)
+    feed = ctx.shard(mlp_feeds())
+    for _ in range(MERGE_STEPS):
+        exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    return {"param/" + n: scope.numpy(n) for n in names}
+
+
 def case_fail(ctx):
     if ctx.rank == 1:
         os._exit(3)

@@ -32,6 +32,22 @@ Legs, in the order given:
 * ``divergence`` — ``FLAGS_replica_check_interval=1``, policy raise: one
   clean step, then rank 1 perturbs one parameter; the next step must
   raise ``ReplicaDivergenceError`` naming it.
+* ``fm_table`` — DeepFM at ``chip_smoke.py``'s Criteo widths (39 fields
+  x 10, 400-400-400, Adam, ``fm_feeds``' Zipf batches of ``FM_BATCH``
+  rows, half a rank) with ``FM_ROWS_VOCAB`` = 1,000,002 rows, which two
+  ranks divide: ``fm_v``/``fm_w`` and their Adam moments held as each
+  rank's rows, ``FM_LEG_STEPS`` steps; per step the loss, ms and the
+  collectives by kind; this rank's table + moment bytes and peak. Rank
+  0 writes the tables and the dense parameters after the last step to
+  ``DIR/fm_table.pt``.
+* ``fm_sparse`` — the same at the published 1,000,001 rows, which two
+  ranks do not divide: the tables replicated, their SelectedRows
+  gradients summed over the ranks; step 1 also fetches the summed
+  ``fm_v`` gradient (rank 0 writes it dense with the parameters to
+  ``DIR/fm_sparse.pt``). ``fm_sparse_repeat`` runs it again.
+* ``merge`` — this BERT under ``PipelineOptimizer(Adam 1e-4,
+  num_microbatches=MERGE_MICRO)`` for ``MERGE_STEPS`` steps; rank 0 writes
+  the parameters to ``DIR/params_merge.pt``.
 
 Each rank writes what it measured to ``DIR/rank<r>.<tag>.json``. A digest
 is the sha256 of the parameters' bytes in name order.
@@ -65,6 +81,11 @@ LAYERS = 4
 ATTENTION = ("flash_attention_fwd", "flash_attention_dq",
              "flash_attention_dkv")
 PERTURBED = "layer0_att_q_w"
+# DeepFM at Criteo widths: 1,000,001 rows is PaddleRec's; two ranks do
+# not divide it, so the row-sharded leg adds a row no id reaches (the
+# ids of fm_feeds stop below 1,000,001)
+FM_ROWS_VOCAB, FM_LEG_STEPS = 1_000_002, 4
+MERGE_STEPS, MERGE_MICRO = 2, 2
 
 
 def config():
@@ -82,6 +103,54 @@ def build(seed, place):
     scope = fluid.Scope()
     fluid.Executor(place).run(net["startup"], scope=scope)
     return net, dict(scope.vars)
+
+
+def build_merged(seed, place):
+    """This BERT under ``PipelineOptimizer`` and its startup's weights."""
+    with fluid.unique_name.guard():
+        net = build_bert_pretrain(config(), seq_len=SEQ,
+                                  build_optimizer=False)
+        with fluid.program_guard(net["main"], net["startup"]):
+            fluid.optimizer.PipelineOptimizer(
+                fluid.optimizer.Adam(learning_rate=1e-4),
+                num_microbatches=MERGE_MICRO).minimize(net["loss"])
+    net["startup"].random_seed = seed
+    scope = fluid.Scope()
+    fluid.Executor(place).run(net["startup"], scope=scope)
+    return net, dict(scope.vars)
+
+
+def merge_order(batch, ranks):
+    """The one-card row order whose microbatches are the ranks' together:
+    microbatch i of the one-card run holds microbatch i of every rank."""
+    k = batch // ranks
+    m = k // MERGE_MICRO
+    return np.concatenate([np.arange(r * k + i * m, r * k + (i + 1) * m)
+                           for i in range(MERGE_MICRO)
+                           for r in range(ranks)])
+
+
+def build_fm(vocab, seed, place):
+    """DeepFM at Criteo widths and its startup's state."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.models.deepfm import build_deepfm
+
+    with fluid.unique_name.guard():
+        net = build_deepfm(vocab=vocab, num_fields=cs.FM_FIELDS,
+                           emb_dim=cs.FM_DIM, hidden=cs.FM_HIDDEN,
+                           lr=cs.FM_LR, sharded=True)
+    net["startup"].random_seed = seed
+    scope = fluid.Scope()
+    fluid.Executor(place).run(net["startup"], scope=scope)
+    return net, scope
+
+
+def fm_state_bytes(scope):
+    """The bytes of the tables and of their optimizer state."""
+    return sum(v.nelement() * v.element_size()
+               for n, v in scope.vars.items()
+               if isinstance(v, torch.Tensor) and "@" not in n
+               and ("fm_v" in n or "fm_w" in n))
 
 
 def global_feed(seed, batch):
@@ -280,6 +349,81 @@ class Rank:
             fluid.set_flags({"FLAGS_replica_check_interval": 0})
         self.res["divergence"] = {"perturbed": PERTURBED, "named": got}
 
+    def fm_leg(self, vocab, tag, grad=False):
+        """DeepFM over the ranks (see the module docstring)."""
+        import chip_smoke as cs
+
+        net, scope = build_fm(vocab, self.seed, self.place)
+        exe = fluid.Executor(self.place)
+        prog = fluid.CompiledProgram(net["main"]).with_data_parallel(
+            loss_name=net["loss"].name)
+        k = cs.FM_BATCH // self.world
+        feeds = [{n: v[self.rank * k:(self.rank + 1) * k]
+                  for n, v in f.items()}
+                 for f in cs.fm_feeds(self.seed + 31, FM_LEG_STEPS)]
+        dense = [p.name for p in net["main"].all_parameters()
+                 if p.name not in ("fm_v", "fm_w")]
+        last = ["fm_v", "fm_w"] + dense
+        losses, rows, saved = [], [], {}
+        dist.set_collective_timing(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for i in range(FM_LEG_STEPS):
+                dist.reset_collective_stats()
+                fetch = [net["loss"].name] + (
+                    ["fm_v@GRAD"] if grad and i == 0 else []) + (
+                    last if i == FM_LEG_STEPS - 1 else [])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = exe.run(prog, feed=feeds[i], fetch_list=fetch,
+                              scope=scope, return_numpy=False)
+                losses.append(float(out[0].detach().cpu().reshape(-1)[0]))
+                ms = (time.perf_counter() - t0) * 1e3
+                st = dist.collective_stats()
+                rows.append({"ms": ms, "collective_ms": st["seconds"] * 1e3,
+                             "collective_bytes": st["bytes"],
+                             "by_kind": st["by_kind"]})
+                if grad and i == 0:
+                    saved["fm_v@GRAD"] = out[1].to_dense().cpu()
+                if i == FM_LEG_STEPS - 1:
+                    saved.update((n, t.detach().cpu())
+                                 for n, t in zip(last, out[-len(last):]))
+        finally:
+            dist.set_collective_timing(False)
+        self.res[tag] = {"losses": losses, "steps": rows,
+                         "table_bytes": fm_state_bytes(scope),
+                         "dp_shards": sorted(getattr(scope, "_dp_shards",
+                                                     {})),
+                         "digest": digest_dict(saved, last),
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+        if self.rank == 0:
+            torch.save(saved, os.path.join(self.out, f"{tag}.pt"))
+
+    def fm_table(self):
+        self.fm_leg(FM_ROWS_VOCAB, "fm_table")
+
+    def fm_sparse(self):
+        self.fm_leg(cs_fm_vocab(), "fm_sparse", grad=True)
+
+    def fm_sparse_repeat(self):
+        self.fm_leg(cs_fm_vocab(), "fm_sparse_repeat")
+
+    def merge(self):
+        net, init = build_merged(self.seed, self.place)
+        exe, scope = fluid.Executor(self.place), fluid.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        prog = fluid.CompiledProgram(net["main"]).with_data_parallel(
+            loss_name=net["loss"].name)
+        losses, _ = self.steps(exe, prog, scope, MERGE_STEPS)
+        names = params_of(net)
+        self.res["merge"] = {"losses": losses,
+                             "digest": digest(scope, names)}
+        if self.rank == 0:
+            torch.save({n: scope.find_var(n).detach().cpu() for n in names},
+                       os.path.join(self.out, "params_merge.pt"))
+
     def dygraph(self):
         from tools.torch_dygraph_bert import DygraphBert, load_static, to_feed
 
@@ -312,6 +456,12 @@ class Rank:
                 h.update(p.value.detach().cpu().numpy().tobytes())
         self.res["dygraph"] = {"losses": losses, "launches": launches,
                                "digest": h.hexdigest()}
+
+
+def cs_fm_vocab():
+    import chip_smoke as cs
+
+    return cs.FM_VOCAB
 
 
 def digest_dict(values, names):

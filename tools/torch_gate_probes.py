@@ -56,7 +56,7 @@ def refuse_multi_device(mode: str):
     the port's model-parallel slice: raise, naming it."""
     raise NotImplementedError(
         f"{mode} validates or re-forms a mesh live, which waits for "
-        f"ROADMAP Queue A item 6 (slice 27); the port's gates run on one "
+        f"ROADMAP Queue A item 6 (slice 28); the port's gates run on one "
         f"card")
 
 

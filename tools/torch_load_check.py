@@ -2030,6 +2030,27 @@ def leg_fleet_chaos_negative(name, ci, log_dir=".", aot_dir=""):
 # the command line
 # ---------------------------------------------------------------------------
 
+def _autoscaler_witness_probe(log_dir="."):
+    """Two ticks of a ``FleetAutoscaler`` over a ``ReplicaSupervisor`` and
+    its ``FleetRouter`` holding one replica that is not ready (no process
+    spawns: the fleet stays calm and below its floor of 0 nothing acts).
+    Under ``FLAGS_lock_witness`` each tick takes the supervisor's lock and
+    the router replica's lock under the tick lock, edges the static graph
+    must predict. The decisions, in order."""
+    from paddle_tpu_torch.serving.fleet import (AutoscalerConfig,
+                                                FleetAutoscaler, Replica)
+
+    router = _chaos_router()
+    sup = _chaos_supervisor(router, log_dir)
+    router.add_replica(Replica("witness-probe", "127.0.0.1", 1))
+    try:
+        auto = FleetAutoscaler(sup, config=AutoscalerConfig(
+            min_replicas=0, max_replicas=1))
+        return [auto.tick()["action"] for _ in range(2)]
+    finally:
+        router.remove_replica("witness-probe")
+
+
 def _witness_gate(static_rep=None):
     """Runtime lock-witness verdict for the artifact and the gate:
     zero runtime lock-order cycles, and every observed edge between
@@ -2203,7 +2224,9 @@ def main(argv=None) -> int:
                                  if l.get("warmstart")), None)
     witness = None
     if args.lock_witness:
+        probe = _autoscaler_witness_probe(args.log_dir)
         witness, w_ok = _witness_gate()
+        witness["autoscaler_probe"] = probe
         if not neg:
             gate_ok = gate_ok and w_ok
 

@@ -24,7 +24,7 @@ Usage:
 
 The plan is static: nothing runs on a device. ``--validate-live`` and
 ``--hbm-budget-mb`` (a per-rank budget) under ``--mesh`` raise: they wait
-for ROADMAP Queue A item 6, slice 27.
+for ROADMAP Queue A item 6, slice 28.
 
 Options: --batch N (resolve -1 dims, default 64), --top K (hot spots).
 """
@@ -186,9 +186,9 @@ def main(argv=None) -> int:
                     help="layout under --mesh: allreduce (default), zero1 "
                          "or a JSON spec file")
     ap.add_argument("--hbm-budget-mb", type=float, default=0.0,
-                    help="per-rank budget under --mesh (raises: slice 27)")
+                    help="per-rank budget under --mesh (raises: slice 28)")
     ap.add_argument("--validate-live", action="store_true",
-                    help="live per-rank validation (raises: slice 27)")
+                    help="live per-rank validation (raises: slice 28)")
     args = ap.parse_args(argv)
 
     if args.specs and not args.mesh:

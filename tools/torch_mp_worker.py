@@ -33,6 +33,22 @@ step cuts to its shards):
   and digests of the replicated parameters and of this rank's shards.
 * ``dptp_badseed`` — a negative control: the same with the whole rank
   folded into the step seed; the ``ReplicaDivergenceError`` it raises.
+* ``pp`` — ``{"pp": 2}``: BERT-base's encoder widths as a
+  ``PipelineRegion`` (``build_pipeline_encoder``: 12 blocks, 2 stages of
+  6, ``PP_MICRO`` microbatches) with the embeddings and a classification
+  head outside it, batch 32 x seq 128, f32, dropout 0, Adam 1e-4, 4
+  steps: per step the loss, ms, the collectives by kind and the K1/K3/K4
+  launches; step 1 fetches every stacked gradient and step 4 every
+  parameter (gathered from the stage slices; rank 0 writes them to
+  ``DIR/grads_pp.pt`` and ``DIR/params_pp.pt``); this rank's stacked
+  parameter + moment bytes and its peak.
+* ``dppp`` — ``{"dp": 2, "pp": 2}`` at ``DPPP_LAYERS`` blocks, dropout
+  0.1, ZeRO-1, ``FLAGS_replica_check_interval=1`` (policy raise), 4
+  steps: the losses and digests of the replicated parameters and of this
+  rank's stage slices.
+* ``dppp_nobcast`` — a negative control: the same with the input's
+  cotangent left on stage 0 (no broadcast over ``pp``); the
+  ``ReplicaDivergenceError`` it raises.
 
 Each rank writes what it measured to ``DIR/rank<r>.<tag>.json``.
 """
@@ -66,6 +82,9 @@ DPTP_LAYERS = 4
 RING = dict(B=8, H=12, S=1024, D=64, steps=3, lr=0.1)
 ATTENTION = ("flash_attention_fwd", "flash_attention_dq",
              "flash_attention_dkv")
+# the pipeline legs: BERT-base's encoder widths in two stages, four
+# microbatches (8 rows each on {"pp": 2}: K1/K3/K4 at [8 * 12, 128, 64])
+PP_STAGES, PP_MICRO, PP_LAYERS, DPPP_LAYERS = 2, 4, 12, 4
 
 
 def config(dropout=0.0, layers=12):
@@ -100,6 +119,110 @@ def build_ring(seq_par):
         loss = fluid.layers.mean(fluid.layers.square_error_cost(o, yv))
         fluid.optimizer.SGD(learning_rate=RING["lr"]).minimize(loss)
     return main, startup, loss, o
+
+
+def build_pipeline_encoder(fluid, hidden, heads, ffn, layers, stages,
+                           microbatches, seq, vocab, dropout=0.0,
+                           classes=2, lr=1e-4):
+    """BERT's encoder blocks (``models/bert.py``'s ``_encoder_layer``:
+    attention through ``fused_multihead_attention``, post-residual
+    ``layer_norm``, a gelu FFN) as a ``layers.PipelineRegion`` of
+    ``stages`` stages of ``layers // stages`` blocks, every weight an
+    ``s.param`` (``layer_norm(scale=False, shift=False)`` times a stacked
+    gamma plus a stacked beta); the word and position embeddings and
+    their ``layer_norm`` before the region, a mean-pooled classification
+    head after it, softmax cross-entropy, Adam. ``fluid`` is either
+    package. Feeds ``src_ids``/``pos_ids`` int64 ``[B, seq]``, ``label``
+    int64 ``[B, 1]``."""
+    nh, hd = heads, hidden // heads
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = L.data("src_ids", shape=[seq], dtype="int64")
+        pos = L.data("pos_ids", shape=[seq], dtype="int64")
+        label = L.data("label", shape=[1], dtype="int64")
+        x = L.elementwise_add(
+            L.embedding(ids, size=[vocab, hidden],
+                        param_attr=fluid.ParamAttr(name="word_embedding")),
+            L.embedding(pos, size=[seq, hidden],
+                        param_attr=fluid.ParamAttr(name="pos_embedding")))
+        x = L.layer_norm(x, begin_norm_axis=2)
+        pipe = L.PipelineRegion(num_stages=stages,
+                                num_microbatches=microbatches)
+        one = fluid.initializer.Constant(1.0)
+        with pipe.stage(x) as s:
+            h = s.input
+
+            def dense(t, name, n_in, n_out):
+                w = s.param(f"{name}_w", [n_in, n_out])
+                b = s.param(f"{name}_b", [n_out], is_bias=True)
+                return L.elementwise_add(L.matmul(t, w), b)
+
+            def norm(t, name):
+                t = L.layer_norm(t, scale=False, shift=False,
+                                 begin_norm_axis=2)
+                g = s.param(f"{name}_gamma", [hidden], initializer=one)
+                b = s.param(f"{name}_beta", [hidden], is_bias=True)
+                return L.elementwise_add(L.elementwise_mul(t, g), b)
+
+            def drop(t):
+                return L.dropout(t, dropout,
+                                 dropout_implementation="upscale_in_train")
+
+            def heads_of(t):
+                return L.transpose(L.reshape(t, [0, seq, nh, hd]),
+                                   [0, 2, 1, 3])
+
+            for i in range(layers // stages):
+                q, k, v = (heads_of(dense(h, f"l{i}_{n}", hidden, hidden))
+                           for n in ("q", "k", "v"))
+                a = L.fused_multihead_attention(q, k, v,
+                                                attn_dropout=dropout)
+                a = L.reshape(L.transpose(a, [0, 2, 1, 3]), [0, seq, hidden])
+                a = drop(dense(a, f"l{i}_out", hidden, hidden))
+                h = norm(L.elementwise_add(h, a), f"l{i}_att_ln")
+                f = L.gelu(dense(h, f"l{i}_ffn1", hidden, ffn))
+                f = drop(dense(f, f"l{i}_ffn2", ffn, hidden))
+                h = norm(L.elementwise_add(h, f), f"l{i}_ffn_ln")
+            s.set_output(h)
+        pooled = L.reduce_mean(pipe.output, dim=[1])
+        logits = L.fc(pooled, classes, param_attr=fluid.ParamAttr(
+            name="cls_w"), bias_attr=fluid.ParamAttr(name="cls_b"))
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss
+
+
+def pipeline_feed(seed, batch, seq, vocab, classes=2):
+    rng = np.random.RandomState(seed)
+    return {"src_ids": rng.randint(0, vocab, (batch, seq)).astype(np.int64),
+            "pos_ids": np.tile(np.arange(seq), (batch, 1)).astype(np.int64),
+            "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
+
+
+def pipeline_net(seed, place, layers, dropout=0.0):
+    """``build_pipeline_encoder`` at BERT-base's widths and its startup's
+    state."""
+    cfg = BertConfig.base()
+    main, startup, loss = build_pipeline_encoder(
+        fluid, cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
+        layers, PP_STAGES, PP_MICRO, SEQ, cfg.vocab_size, dropout=dropout)
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope)
+    return main, loss, dict(scope.vars)
+
+
+def stage_stacked(init):
+    """The names of the vars stacked over the stages (the parameters and
+    their same-height optimizer state; a beta power stays whole)."""
+    return sorted(n for n, v in init.items() if ".pp_stacked" in n
+                  and "@" not in n and v.dim() and v.shape[0] == PP_STAGES)
+
+
+def stacked_bytes(values, names):
+    return sum(values[n].nelement() * values[n].element_size()
+               for n in names)
 
 
 def ring_feed(seed):
@@ -307,6 +430,108 @@ class Rank:
             cp._DPPlan.fold_seed = fold
             fluid.set_flags({"FLAGS_replica_check_interval": 0})
         self.res["dptp_badseed"] = {"named": named, "count": count}
+
+    def pp_steps(self, loss, scope, prog, feed, n, first=(), last=()):
+        """``n`` steps of ``prog``: per step the loss, ms, the collectives by
+        kind and the attention launches; step 1 also fetches ``first``, step
+        ``n`` ``last`` (host tensors, by name)."""
+        exe = fluid.Executor(self.place)
+        losses, rows, got = [], [], {}
+        for i in range(n):
+            K.reset_launch_counts()
+            dist.reset_collective_stats()
+            fetch = [loss.name] + (list(first) if i == 0 else []) + (
+                list(last) if i == n - 1 else [])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            ms = (time.perf_counter() - t0) * 1e3
+            got.update((f, t.detach().cpu()) for f, t in zip(fetch[1:],
+                                                             out[1:]))
+            losses.append(float(out[0].detach().cpu().reshape(-1)[0]))
+            st = dist.collective_stats()
+            launches = K.launch_counts()
+            rows.append({"ms": ms, "collective_bytes": st["bytes"],
+                         "by_kind": st["by_kind"],
+                         "launches": {a: launches[a] for a in ATTENTION}})
+        return losses, rows, got
+
+    def pp(self):
+        main, loss, init = pipeline_net(self.seed, self.place, PP_LAYERS)
+        scope = fluid.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        prog = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, places=sh.Mesh({"pp": self.world}))
+        names = [p.name for p in main.all_parameters()]
+        grads = [n + "@GRAD" for n in names if n.endswith(".pp_stacked")]
+        feed = pipeline_feed(self.seed, BATCH, SEQ,
+                             BertConfig.base().vocab_size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, rows, got = self.pp_steps(loss, scope, prog, feed, STEPS,
+                                          grads, names)
+        held = stage_stacked(init)
+        self.res["pp"] = {"losses": losses, "steps": rows,
+                          "stacked_bytes": stacked_bytes(scope.vars, held),
+                          "whole_stacked_bytes": stacked_bytes(init, held),
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "digest": digest(got, names)}
+        if self.rank == 0:
+            torch.save({g: got[g] for g in grads},
+                       os.path.join(self.out, "grads_pp.pt"))
+            torch.save({n: got[n] for n in names},
+                       os.path.join(self.out, "params_pp.pt"))
+
+    def dppp_leg(self, tag):
+        from paddle_tpu_torch.resilience import ReplicaDivergenceError
+
+        main, loss, init = pipeline_net(self.seed, self.place, DPPP_LAYERS,
+                                        dropout=0.1)
+        scope = fluid.Scope()
+        for n, t in init.items():
+            scope.set_var(n, t.clone())
+        mesh = sh.Mesh({"dp": 2, "pp": self.world // 2})
+        bs = fluid.BuildStrategy()
+        bs.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+        prog = fluid.CompiledProgram(main, bs).with_data_parallel(
+            loss_name=loss.name, places=mesh)
+        k, c = BATCH // 2, mesh.coord("dp")
+        feed = {n: v[c * k:(c + 1) * k] for n, v in pipeline_feed(
+            self.seed, BATCH, SEQ, BertConfig.base().vocab_size).items()}
+        names = [p.name for p in main.all_parameters()]
+        fluid.set_flags({"FLAGS_replica_check_interval": 1,
+                         "FLAGS_replica_divergence_policy": "raise"})
+        named, losses, rows = None, [], []
+        try:
+            losses, rows, _ = self.pp_steps(loss, scope, prog, feed, STEPS)
+        except ReplicaDivergenceError as e:
+            named = e.param
+        finally:
+            fluid.set_flags({"FLAGS_replica_check_interval": 0})
+        stacked = [n for n in names if n.endswith(".pp_stacked")]
+        replicated = [n for n in names if n not in stacked]
+        self.res[tag] = {
+            "losses": losses, "steps": rows, "named": named,
+            "coords": mesh.coords(self.rank),
+            "replicated_digest": digest(scope.vars, replicated),
+            "stage_digest": digest(scope.vars, stacked),
+            "zero_sharded": len(getattr(scope, "_dp_shards", {}))}
+
+    def dppp(self):
+        self.dppp_leg("dppp")
+
+    def dppp_nobcast(self):
+        from paddle_tpu_torch.parallel import pipeline as pl
+
+        keep = pl._replicate_input_grad
+        pl._replicate_input_grad = \
+            lambda buf, mine, group: buf if mine else torch.zeros_like(buf)
+        try:
+            self.dppp_leg("dppp_nobcast")
+        finally:
+            pl._replicate_input_grad = keep
 
 
 def main(argv=None) -> int:
